@@ -1,0 +1,114 @@
+"""Build and load the package's CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into
+one shared library with a plain C interface, loaded with ``ctypes``.  The
+library lands in ``build/uzliti_slam_tpu_torch/`` at the repository root,
+named by a hash of the sources, so an edited source rebuilds and an unedited
+one is reused.  Nothing is built when the package is imported: ``load()``
+runs at the first launch on a CUDA tensor.  Compiled without
+``--use_fast_math``, so the small-angle branches of the Lie algebra keep the
+reference's accurate sin/cos/atan2.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "uzliti_slam_tpu_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signature of every exported function: (argtypes), all return cudaError_t.
+SIGNATURES = {
+    "uz_linearize": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I,
+                     _P, _P, _P, _P, _P, _P, _P],
+    "uz_hvp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
+    "uz_chain_forward": [_P, _I, _P, _P, _I, _P, _P],
+    "uz_chain_backward": [_P, _I, _P, _P, _P, _P, _I, _P, _I, _P],
+    "uz_residual_chi2": [_P, _P, _P, _P, _P, _P, _F, _I, _P, _P, _P, _P],
+}
+
+_lib = None
+last_build_seconds = None
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libuzkernels_{source_hash()}.so"
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+        nvcc = str(cand) if cand.is_file() else None
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+            "uzliti_slam_tpu_torch kernels are built at first use on a CUDA machine"
+        )
+    return nvcc
+
+
+def build() -> Path:
+    """Compile the sources if the library for their hash is missing."""
+    global last_build_seconds
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    last_build_seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+        )
+    # ptxas -v: registers, shared memory and spills per kernel
+    (BUILD_DIR / f"ptxas_{source_hash()}.log").write_text(proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """Build if needed, then load the library once per process."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
