@@ -46,7 +46,8 @@ def test_nvcc_flags_target_hopper_without_fast_math():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
     assert {p.name for p in _build.sources()} == {
-        "linearize.cu", "hvp.cu", "chain_apply.cu", "residual_chi2.cu"}
+        "linearize.cu", "hvp.cu", "chain_apply.cu", "residual_chi2.cu", "relax_min.cu",
+        "cluster_labels.cu", "ransac_rigid.cu", "components.cu"}
 
 
 def test_every_exported_function_has_a_signature_of_its_arity():
@@ -87,3 +88,51 @@ def test_argument_checks_raise():
         kops._check("x", torch.zeros(6, 4).T, (4, 6), torch.float32, cpu)
     with pytest.raises(ValueError, match="on cpu"):
         kops._check("x", x, (4, 6), torch.float32, torch.device("meta"))
+
+
+def _epoch_kernel_cases():
+    """Small CPU inputs for K5-K8: (wrapper name, args)."""
+    rng = np.random.default_rng(1)
+    n, E, b = 12, 16, 10
+    ef = torch.from_numpy(rng.integers(0, n, E).astype(np.int32))
+    et = torch.from_numpy(rng.integers(0, n, E).astype(np.int32))
+    w = torch.from_numpy(rng.uniform(0.1, 1.0, E).astype(np.float32))
+    dist0 = torch.full((2, n), kops.INF)
+    dist0[0, 0] = dist0[1, 5] = 0.0
+    stamps = torch.from_numpy(rng.uniform(0, 20, (2, b)).astype(np.float32))
+    valid_b = torch.from_numpy(rng.random(b) < 0.8)
+    pts = torch.from_numpy(rng.normal(size=(1, 8, 3)).astype(np.float32)).expand(2, 8, 3)
+    tri = torch.from_numpy(rng.integers(0, 8, (2, 4, 3)).astype(np.int32))
+    e_valid = torch.from_numpy(rng.random(E) < 0.7)
+    labels = kops.components_plain(ef, et, e_valid, n, 8)
+    return [
+        ("relax_min", (dist0, ef, et, w, 4)),
+        ("cluster_labels", (stamps[0], stamps[1], valid_b, 5.0, 16)),
+        ("ransac_rigid", (pts, pts + 0.01, torch.ones(2, 8, dtype=torch.bool), tri, 0.3, 3,
+                          0.01)),
+        ("components", (ef, et, e_valid, n, 8)),
+        ("gauge_fix", (labels, torch.arange(n) < 10, torch.arange(n) == 3,
+                       torch.from_numpy(rng.uniform(0, 5, n).astype(np.float32)))),
+    ]
+
+
+@pytest.mark.parametrize("case", range(5), ids=["relax_min", "cluster_labels", "ransac_rigid",
+                                                 "components", "gauge_fix"])
+def test_epoch_kernel_wrappers_run_their_plain_version_on_cpu(case):
+    name, args = _epoch_kernel_cases()[case]
+    kops.reset_launches()
+    got, ref = getattr(kops, name)(*args), getattr(kops, f"{name}_plain")(*args)
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    ref if isinstance(ref, tuple) else (ref,)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert kops.launches == {k: 0 for k in kops.launches}
+
+
+def test_epoch_kernel_argument_checks_raise():
+    pts = torch.zeros(2, 8, 3)
+    with pytest.raises(ValueError, match="strides"):
+        kops._root_view("src", pts.transpose(0, 1).contiguous().transpose(0, 1), 2, 8,
+                        torch.device("cpu"))
+    assert kops._root_view("src", pts[:1].expand(2, 8, 3), 2, 8, torch.device("cpu"))[1] == 0
+    with pytest.raises(ValueError, match="float32"):
+        kops._root_view("src", pts.double(), 2, 8, torch.device("cpu"))

@@ -1,5 +1,7 @@
 """Port parity: graph state, the synthetic generator and SolverConfig.
 
+Node and edge insertion agree exactly (the same masked writes).
+
 Tolerances: the generated graphs agree to ``atol=1e-4`` — both integrate
 the same noisy odometry in float32, the JAX package sequentially and the
 port as a log-depth prefix product, so rounding accumulates along
@@ -9,6 +11,7 @@ different trees over the 128-node trajectory.
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -28,7 +31,7 @@ def _jax_arrays(g):
 def test_from_numpy_to_numpy_round_trip():
     g, _ = jsynthetic.make_pose_graph(jax.random.PRNGKey(0), 48, loop_closure_every=8)
     arrays = _jax_arrays(g)
-    gt = tstate.from_numpy(arrays)
+    gt = tstate.from_numpy(arrays, device="cpu")
     assert gt.node_capacity == g.node_capacity and gt.edge_capacity == g.edge_capacity
     assert gt.e_from.dtype == torch.int32 and gt.e_valid.dtype == torch.bool
     assert gt.pose.dtype == torch.float32
@@ -43,12 +46,12 @@ def test_from_numpy_names_missing_fields():
     arrays = _jax_arrays(jstate.empty_graph(8, 8))
     del arrays["e_info"]
     with pytest.raises(KeyError, match="e_info"):
-        tstate.from_numpy(arrays)
+        tstate.from_numpy(arrays, device="cpu")
 
 
 def test_empty_graph_matches_jax():
     ref = _jax_arrays(jstate.empty_graph(8, 16))
-    got = tstate.to_numpy(tstate.empty_graph(8, 16))
+    got = tstate.to_numpy(tstate.empty_graph(8, 16, device="cpu"))
     for k, v in ref.items():
         assert got[k].dtype == v.dtype, k
         np.testing.assert_array_equal(got[k], v, err_msg=k)
@@ -85,7 +88,8 @@ def test_make_pose_graph_with_injected_noise_matches_jax():
     n_loops = int(g.num_edges) - (n - 1)
     odom, loop = _jax_draws(key, n, n_loops)
     gt, gt_t = tsynthetic.make_pose_graph(n, loop_closure_every=8, odom_draws=odom,
-                                          loop_draws=loop, capacity_rounding="pow2")
+                                          loop_draws=loop, capacity_rounding="pow2",
+                                          device="cpu")
     ref = _jax_arrays(g)
     got = tstate.to_numpy(gt)
     np.testing.assert_allclose(gt_t.numpy(), np.asarray(gt_j), atol=1e-4)
@@ -98,9 +102,9 @@ def test_make_pose_graph_with_injected_noise_matches_jax():
 
 
 def test_make_pose_graph_from_a_generator_is_seeded():
-    a, _ = tsynthetic.make_pose_graph(40, loop_closure_every=5,
+    a, _ = tsynthetic.make_pose_graph(40, loop_closure_every=5, device="cpu",
                                       generator=torch.Generator().manual_seed(3))
-    b, _ = tsynthetic.make_pose_graph(40, loop_closure_every=5,
+    b, _ = tsynthetic.make_pose_graph(40, loop_closure_every=5, device="cpu",
                                       generator=torch.Generator().manual_seed(3))
     torch.testing.assert_close(a.pose, b.pose, rtol=0, atol=0)
     assert a.node_capacity == 40 and int(a.num_edges) == 39 + 4
@@ -125,3 +129,48 @@ def test_solver_config_fields_and_defaults_match_jax():
 def test_layout_only_options_are_accepted(option):
     cfg = dataclasses.replace(tsolver.SolverConfig(), **{option: 2})
     tsolver.check_supported(cfg)
+
+
+def test_constructors_target_the_card_and_raise_without_one():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is the card, nothing to raise")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tstate.empty_graph(4, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tsynthetic.circle_trajectory(8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tsynthetic.make_pose_graph(8)
+
+
+def _node_args(rng, k):
+    pose = np.concatenate([rng.normal(size=3), [1.0, 0, 0, 0]]).astype(np.float32)
+    return pose, (pose + 0.1).astype(np.float32), np.float32(0.5 * k)
+
+
+def test_add_node_and_add_edge_match_jax_including_dropped_writes():
+    """Capacity 3 nodes / 3 edges: the fourth node and edge are dropped
+    (slot -1), an edge with endpoint -1 is dropped, and the edge type masks
+    the information matrix at insertion."""
+    rng = np.random.default_rng(5)
+    gj, gt = jstate.empty_graph(3, 3), tstate.empty_graph(3, 3, device="cpu")
+    for k in range(4):
+        pose, odom, stamp = _node_args(rng, k)
+        gj, sj = jstate.add_node(gj, pose, odom, stamp, fixed=(k == 1), uncertainty=0.25 * k)
+        gt, st = tstate.add_node(gt, torch.from_numpy(pose), torch.from_numpy(odom),
+                                 float(stamp), fixed=(k == 1), uncertainty=0.25 * k)
+        assert int(st) == int(sj) == (k if k < 3 else -1)
+    info = rng.normal(size=(6, 6)).astype(np.float32)
+    edges = [(0, 1, 1, 2.0, True), (1, 2, 105, 0.5, False), (2, -1, 1, 1.0, True),
+             (2, 0, 7, 3.0, True), (0, 2, 1, 1.0, True)]
+    for f, t, et, score, valid in edges:
+        T = _node_args(rng, 0)[0]
+        gj, sj = jstate.add_edge(gj, jnp.asarray(f, jnp.int32), jnp.asarray(t, jnp.int32), T,
+                                 info, etype=et, score=score, valid=valid)
+        gt, st = tstate.add_edge(gt, f, t, torch.from_numpy(T), torch.from_numpy(info),
+                                 etype=et, score=score, valid=valid)
+        assert int(st) == int(sj)
+    ref, got = _jax_arrays(gj), tstate.to_numpy(gt)
+    for k, v in ref.items():
+        assert got[k].dtype == v.dtype, k
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+    assert int(gt.num_nodes) == 3 and int(gt.num_edges) == 3

@@ -6,15 +6,17 @@ the fixed-iteration chunked form (``early_exit=False``, the headline) and
 the early-exit form (the library default).  Per LM iteration: one fused
 linearization (kernel K1), a fixed count of PCG steps whose Hessian-vector
 products are kernel K2 and whose preconditioner applies are kernel K3, and
-one retraction whose residuals and robust χ² are kernel K4.  The chain
-factor itself, connected components and the PCG vector updates are plain
-PyTorch.
+one retraction whose residuals and robust χ² are kernel K4.  Connected
+components and gauge fixing are kernel K8.  The chain factor itself and the
+PCG vector updates are plain PyTorch.
 
 The loop never reads a device value on the host: accept/reject, the λ
 schedule, the PCG stall mask and the early-exit flag are all tensors
 combined with ``torch.where``, so a solve on a CUDA device queues its work
 without a host synchronisation.  The early exit therefore runs the full
-iteration count, each step after convergence a no-op.
+iteration count, each step after convergence a no-op.  The one host read
+is ``odometry_restart``'s decision whether to run the second solve
+(``_host_decision``), which JAX takes on the device with ``lax.cond``.
 """
 
 from __future__ import annotations
@@ -40,8 +42,8 @@ class SolverConfig:
     ``split_hv_threshold``, ``unroll_lm`` and ``unroll_pcg`` are accepted
     and have no effect: the split Hv is a TPU layout of the same operator
     that kernel K2 computes at every size, and eager PyTorch has no loop to
-    unroll.  ``direct_*``, ``closure_fraction``, ``woodbury_ns_iters`` and
-    ``restart_chi2_margin`` only tune the paths that raise.
+    unroll.  ``direct_*``, ``closure_fraction`` and ``woodbury_ns_iters``
+    only tune the paths that raise.
     """
 
     iterations: int = 20
@@ -80,8 +82,8 @@ def check_supported(config: SolverConfig) -> None:
         raise NotImplementedError(f"mode={config.mode!r}")
     if config.preconditioner != "chain":
         raise NotImplementedError(f"preconditioner={config.preconditioner!r}")
-    for name in ("dense_gathers", "chain_root_ns", "odometry_restart",
-                 "use_odometry_calibration", "optimize_xy_only"):
+    for name in ("dense_gathers", "chain_root_ns", "use_odometry_calibration",
+                 "optimize_xy_only"):
         if getattr(config, name):
             raise NotImplementedError(f"{name}=True")
 
@@ -98,45 +100,22 @@ class SolveStats(NamedTuple):
 # ---------------------------------------------------------------------------
 
 def connected_components(g: GraphState, num_iters: int | None = None) -> torch.Tensor:
-    """Min-label propagation over valid edges with pointer jumping.
+    """Min-label propagation over valid edges with pointer jumping (kernel
+    K8 on a CUDA device).
 
-    Returns (N,) int64 component labels (the min node slot in each
+    Returns (N,) int32 component labels (the min node slot in each
     component). Invalid nodes keep their own index.
     """
     n = g.node_capacity
-    labels = torch.arange(n, dtype=torch.int64, device=g.device)
-    ef, et = g.e_from.long(), g.e_to.long()
-    big = torch.iinfo(torch.int64).max
     iters = num_iters if num_iters is not None else max(2 * math.ceil(math.log2(max(n, 2))), 8)
-    for _ in range(iters):
-        m = torch.minimum(labels[ef], labels[et])
-        upd = torch.where(g.e_valid, m, big)
-        labels = labels.scatter_reduce(0, ef, upd, "amin")
-        labels = labels.scatter_reduce(0, et, upd, "amin")
-        # pointer jump (twice)
-        labels = labels[labels]
-        labels = labels[labels]
-    return labels
+    return kops.components(g.e_from, g.e_to, g.e_valid, n, iters)
 
 
 def gauge_fix_mask(g: GraphState, labels: torch.Tensor) -> torch.Tensor:
     """Nodes to hold fixed: pre-fixed nodes, plus the oldest valid node of
-    every component without one (``g2o_optimizer.cpp:301-349``)."""
-    n = g.node_capacity
-    dev = g.device
-    valid_fixed = g.node_valid & g.node_fixed
-    has_fixed = torch.zeros(n, dtype=torch.int64, device=dev).scatter_reduce(
-        0, labels, valid_fixed.long(), "amax", include_self=False)
-    stamp_key = torch.where(g.node_valid, g.stamp, math.inf)
-    min_stamp = torch.full((n,), math.inf, device=dev).scatter_reduce(
-        0, labels, stamp_key, "amin", include_self=False)
-    is_oldest_cand = g.node_valid & (stamp_key == min_stamp[labels])
-    ids = torch.arange(n, dtype=torch.int64, device=dev)
-    idx_key = torch.where(is_oldest_cand, ids, n)
-    min_idx = torch.full((n,), n, dtype=torch.int64, device=dev).scatter_reduce(
-        0, labels, idx_key, "amin", include_self=False)
-    is_oldest = is_oldest_cand & (ids == min_idx[labels])
-    return valid_fixed | (is_oldest & (has_fixed[labels] == 0))
+    every component without one (``g2o_optimizer.cpp:301-349``); kernel K8
+    on a CUDA device."""
+    return kops.gauge_fix(labels.to(torch.int32), g.node_valid, g.node_fixed, g.stamp)
 
 
 # ---------------------------------------------------------------------------
@@ -333,6 +312,34 @@ def lm_loop(g: GraphState, free: torch.Tensor, config: SolverConfig):
     return poses, lam, torch.stack([chi2_0, *hist]), torch.stack(acc)
 
 
+def _host_decision(flag: torch.Tensor) -> bool:
+    """Read a device flag on the host.  The solve's only host
+    synchronisation: whether ``odometry_restart`` runs its second LM solve
+    (JAX skips it at run time with ``lax.cond``; running both solves and
+    selecting would double every epoch's cost)."""
+    return bool(flag)
+
+
+def _restart_solve(g: GraphState, free: torch.Tensor, config: SolverConfig):
+    """``odometry_restart`` (``solver.py:1254-1294``): solve from the current
+    poses; when that ends above ``restart_chi2_margin`` × the χ² of the
+    odometry prior re-anchored into the map frame (diff ∘ odom, pre-fixed
+    nodes keeping their poses), solve again from that prior and keep the
+    lower final χ²."""
+    odo_start = lie.pose_compose(g.diff_transform[None], g.odom_pose)
+    movable = g.node_valid & ~g.node_fixed
+    odo_start = torch.where(movable[:, None], odo_start, g.pose)
+    poses_a, lam_a, hist_a, acc_a = lm_loop(g, free, config)
+    chi2_prior = total_chi2(g, odo_start, config.huber_delta)
+    need = hist_a[-1] > config.restart_chi2_margin * chi2_prior
+    if not _host_decision(need):
+        return poses_a, lam_a, hist_a, acc_a
+    poses_b, lam_b, hist_b, acc_b = lm_loop(g.replace(pose=odo_start), free, config)
+    b_wins = hist_b[-1] < hist_a[-1]
+    return (torch.where(b_wins, poses_b, poses_a), torch.where(b_wins, lam_b, lam_a),
+            torch.where(b_wins, hist_b, hist_a), torch.where(b_wins, acc_b, acc_a))
+
+
 def optimize(g: GraphState, config: SolverConfig = SolverConfig()):
     """Run LM on the pose graph; returns (updated graph, SolveStats).
 
@@ -344,7 +351,8 @@ def optimize(g: GraphState, config: SolverConfig = SolverConfig()):
     labels = connected_components(g)
     gauge = gauge_fix_mask(g, labels)
     free = (g.node_valid & ~gauge).to(g.pose.dtype)
-    poses, lam, chi2_hist, accepted = lm_loop(g, free, config)
+    solve = _restart_solve if config.odometry_restart else lm_loop
+    poses, lam, chi2_hist, accepted = solve(g, free, config)
 
     valid = g.e_valid.to(poses.dtype)
     r, _ = _residuals(g, poses, config.huber_delta)

@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from uzliti_slam_tpu_torch import _device
 from uzliti_slam_tpu_torch.ops import lie
 
 # Edge types — the reference wire schema (``graph_slam_msgs/msg/Edge.msg``).
@@ -86,7 +87,9 @@ _FIELDS = tuple(f.name for f in dataclasses.fields(GraphState))
 
 
 def empty_graph(node_capacity: int, edge_capacity: int, device=None) -> GraphState:
+    """An empty graph on ``device`` (default: the CUDA card, see ``_device``)."""
     n, e = node_capacity, edge_capacity
+    device = _device.resolve(device)
     f32 = dict(dtype=torch.float32, device=device)
     i32 = dict(dtype=torch.int32, device=device)
     b = dict(dtype=torch.bool, device=device)
@@ -117,7 +120,9 @@ def empty_graph(node_capacity: int, edge_capacity: int, device=None) -> GraphSta
 
 def from_numpy(arrays: dict, device=None) -> GraphState:
     """Build a GraphState from a dict of numpy arrays keyed by field name
-    (e.g. ``{k: np.asarray(v) for k, v in g_jax._asdict().items()}``)."""
+    (e.g. ``{k: np.asarray(v) for k, v in g_jax._asdict().items()}``), on
+    ``device`` (default: the CUDA card)."""
+    device = _device.resolve(device)
     missing = set(_FIELDS) - set(arrays)
     if missing:
         raise KeyError(f"missing GraphState fields: {sorted(missing)}")
@@ -130,6 +135,77 @@ def from_numpy(arrays: dict, device=None) -> GraphState:
 def to_numpy(g: GraphState) -> dict:
     """Dict of numpy arrays keyed by field name (the inverse of from_numpy)."""
     return {k: getattr(g, k).detach().cpu().numpy() for k in _FIELDS}
+
+
+def _set_row(arr: torch.Tensor, idx: torch.Tensor, ok: torch.Tensor, val) -> torch.Tensor:
+    """A copy of ``arr`` whose row ``idx`` holds ``val`` where ``ok`` and
+    keeps its old value otherwise (the masked write of the JAX package)."""
+    old = arr.index_select(0, idx.view(1))[0]
+    val = (val.to(device=arr.device, dtype=arr.dtype) if torch.is_tensor(val)
+           else torch.full_like(old, val))
+    return arr.index_copy(0, idx.view(1), torch.where(ok, val, old)[None])
+
+
+def _as_index(x, device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.int32, device=device)
+
+
+def add_node(g: GraphState, pose, odom_pose, stamp, fixed=False, uncertainty=0.0,
+             uid=None) -> tuple[GraphState, torch.Tensor]:
+    """Append a node at the next free slot. Returns (graph, slot).
+
+    If capacity is exhausted the write is dropped (slot == -1), as in
+    ``uzliti_slam_tpu/graph/state.py:add_node``.  Functional: ``g`` is not
+    modified.
+    """
+    slot = g.num_nodes
+    ok = slot < g.node_capacity
+    idx = torch.where(ok, slot, 0).long()
+    wr = lambda arr, val: _set_row(arr, idx, ok, val)  # noqa: E731
+    g = g.replace(
+        pose=wr(g.pose, pose),
+        odom_pose=wr(g.odom_pose, odom_pose),
+        stamp=wr(g.stamp, stamp),
+        uncertainty=wr(g.uncertainty, uncertainty),
+        node_valid=wr(g.node_valid, ok),
+        node_fixed=wr(g.node_fixed, fixed),
+        node_uid=wr(g.node_uid, slot if uid is None else uid),
+        num_nodes=g.num_nodes + ok.to(torch.int32),
+    )
+    return g, torch.where(ok, slot, -1)
+
+
+def add_edge(g: GraphState, from_slot, to_slot, transform, info,
+             etype: int = EDGE_TYPE_3D_FULL, score=0.0,
+             valid=True) -> tuple[GraphState, torch.Tensor]:
+    """Append an edge. Returns (graph, slot); dropped (slot == -1) if the
+    table is full or an endpoint is -1.
+
+    The information matrix is masked by edge type at insertion
+    (``info_for_edge_type``), as ``uzliti_slam_tpu/graph/state.py:add_edge``.
+    Functional: ``g`` is not modified.
+    """
+    dev = g.device
+    et = _as_index(etype, dev)
+    info = info_for_edge_type(et, info.to(dev))
+    from_slot, to_slot = _as_index(from_slot, dev), _as_index(to_slot, dev)
+    slot = g.num_edges
+    ok = (slot < g.edge_capacity) & (from_slot >= 0) & (to_slot >= 0)
+    idx = torch.where(ok, slot, 0).long()
+    wr = lambda arr, val: _set_row(arr, idx, ok, val)  # noqa: E731
+    g = g.replace(
+        e_from=wr(g.e_from, from_slot),
+        e_to=wr(g.e_to, to_slot),
+        e_transform=wr(g.e_transform, transform),
+        e_info=wr(g.e_info, info),
+        e_type=wr(g.e_type, et),
+        e_valid=wr(g.e_valid, torch.as_tensor(valid, device=dev) & ok),
+        e_error=wr(g.e_error, 0.0),
+        e_age=wr(g.e_age, 0.0),
+        e_score=wr(g.e_score, score),
+        num_edges=g.num_edges + ok.to(torch.int32),
+    )
+    return g, torch.where(ok, slot, -1)
 
 
 def odometry_information(rel_pose: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """Synthetic trajectory / pose-graph generation for tests and benchmarks.
 
 PyTorch counterpart of ``uzliti_slam_tpu/io/synthetic.py``: a noisy circle
-sequence with odometry edges and optional loop closures, built on any
-device.  The noise is drawn from a ``torch.Generator`` (which cannot
+sequence with odometry edges and optional loop closures, built on the CUDA
+card unless the caller names another device.  The noise is drawn from a ``torch.Generator`` (which cannot
 reproduce ``jax.random`` streams), or injected as standard-normal arrays so
 that a test can hand both packages the same draws.
 """
@@ -13,6 +13,7 @@ import math
 
 import torch
 
+from uzliti_slam_tpu_torch import _device
 from uzliti_slam_tpu_torch.graph import state as gstate
 from uzliti_slam_tpu_torch.graph.state import GraphState
 from uzliti_slam_tpu_torch.ops import lie
@@ -20,7 +21,9 @@ from uzliti_slam_tpu_torch.ops import lie
 
 def circle_trajectory(n: int, radius: float = 10.0, loops: float = 2.0,
                       device=None) -> torch.Tensor:
-    """Ground-truth poses along a circle, heading tangent. (n, 7)."""
+    """Ground-truth poses along a circle, heading tangent. (n, 7), on
+    ``device`` (default: the CUDA card)."""
+    device = _device.resolve(device)
     stop = loops * 2 * math.pi
     # jnp.linspace's float32 form: start·(1-s) + stop·s, s = i/(n-1), exact stop
     s = torch.arange(n - 1, dtype=torch.float32, device=device) / float(n - 1)

@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into
-one shared library with a plain C interface, loaded with ``ctypes``.  The
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all started together, and the objects are linked into one
+shared library with a plain C interface, loaded with ``ctypes``.  The
 library lands in ``build/uzliti_slam_tpu_torch/`` at the repository root,
 named by a hash of the sources, so an edited source rebuilds and an unedited
 one is reused.  Nothing is built when the package is imported: ``load()``
@@ -26,11 +27,12 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "uzliti_slam_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 # C signature of every exported function: (argtypes), all return cudaError_t.
 SIGNATURES = {
@@ -40,6 +42,12 @@ SIGNATURES = {
     "uz_chain_forward": [_P, _I, _P, _P, _I, _P, _P],
     "uz_chain_backward": [_P, _I, _P, _P, _P, _P, _I, _P, _I, _P],
     "uz_residual_chi2": [_P, _P, _P, _P, _P, _P, _F, _I, _P, _P, _P, _P],
+    "uz_relax_min": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "uz_cluster_labels": [_P, _P, _P, _I, _F, _I, _P, _P],
+    "uz_ransac_rigid": [_P, _L, _P, _L, _P, _P, _I, _I, _I, _F, _I, _F,
+                        _P, _P, _P, _P, _P, _P, _P, _P],
+    "uz_components": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "uz_gauge_fix": [_P, _P, _P, _P, _I, _P, _P, _P],
 }
 
 _lib = None
@@ -77,27 +85,40 @@ def find_nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile the sources if the library for their hash is missing."""
+    """Compile the sources if the library for their hash is missing: one
+    ``nvcc -c`` per source, all running at once, then one link."""
     global last_build_seconds
     out = library_path()
     if out.exists():
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    last_build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    # ptxas -v: registers, shared memory and spills per kernel
-    (BUILD_DIR / f"ptxas_{source_hash()}.log").write_text(proc.stderr)
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in sources():
+            obj = Path(tmp) / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        logs, failed = [], []
+        for cmd, _, proc in jobs:   # wait for every compile, failed or not
+            _, err = proc.communicate()
+            logs.append(err)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{err}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        lib = Path(tmp) / out.name
+        cmd = [nvcc, "-shared", "-o", str(lib), *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stderr}")
+        last_build_seconds = time.perf_counter() - t0
+        # ptxas -v: registers, shared memory and spills per kernel
+        (BUILD_DIR / f"ptxas_{source_hash()}.log").write_text("".join(logs))
+        os.replace(lib, out)
     return out
 
 

@@ -1,4 +1,4 @@
-"""The solve's four hand-written CUDA kernels, their wrappers and plain twins.
+"""The port's hand-written CUDA kernels, their wrappers and plain twins.
 
 Each public function here is a wrapper: on CPU tensors it runs the kernel's
 plain PyTorch version (``*_plain``, which is also what ``chip_smoke.py``
@@ -17,6 +17,13 @@ hvp            csrc/hvp.cu             graph/solver.py:_make_hvp
 chain_apply    csrc/chain_apply.cu     graph/tridiag.py:block_tridiag_apply
 residual_chi2  csrc/residual_chi2.cu   factors.batched_residuals +
                                        solver._robust_chi2_from_r
+relax_min      csrc/relax_min.cu       graph/shortest_path.py:shortest_paths
+cluster_labels csrc/cluster_labels.cu  graph/filter.py:_cluster_labels
+ransac_rigid   csrc/ransac_rigid.cu    ops/ransac.py:ransac_rigid (+ kabsch,
+                                       kabsch_quat)
+components     csrc/components.cu      graph/solver.py:connected_components,
+                                       gauge_fix_mask (two wrappers, one
+                                       count)
 =============  ======================  =======================================
 
 What bounds each kernel on the card, and what its design does about it, is
@@ -30,9 +37,12 @@ import torch
 from uzliti_slam_tpu_torch.graph import factors
 from uzliti_slam_tpu_torch.kernels import _build
 
-launches = {"linearize": 0, "hvp": 0, "chain_apply": 0, "residual_chi2": 0}
+launches = {"linearize": 0, "hvp": 0, "chain_apply": 0, "residual_chi2": 0,
+            "relax_min": 0, "cluster_labels": 0, "ransac_rigid": 0, "components": 0}
 
 _THREADS = 256  # kThreads in csrc/lie.cuh: K4's partial sums, one per block
+_SMEM_BYTES = 232448  # shared memory one CTA can use on Hopper
+INF = 3.4e38  # shortest-path "unreachable", uzliti_slam_tpu/graph/shortest_path.py:INF
 
 
 def reset_launches() -> None:
@@ -283,3 +293,270 @@ def residual_chi2(poses, e_from, e_to, meas, info, valid, huber_delta: float):
     _raise_on(err, "residual_chi2")
     launches["residual_chi2"] += 1
     return r, chi2
+
+
+# ---------------------------------------------------------------------------
+# K5 relax_min
+# ---------------------------------------------------------------------------
+
+def relax_min_plain(dist0, e_from, e_to, w, n_iters: int):
+    """Plain version of K5: ``n_iters`` Bellman-Ford sweeps of every row of
+    ``dist0`` (R, N), each relaxing both directions of every edge from the
+    sweep's start values (the JAX fori_loop body)."""
+    ef, et = e_from.long(), e_to.long()
+    rows = dist0.shape[0]
+    ef_r, et_r = ef.expand(rows, -1), et.expand(rows, -1)
+    dist = dist0
+    for _ in range(n_iters):
+        via_f = torch.clamp(dist[:, ef] + w, max=INF)
+        via_t = torch.clamp(dist[:, et] + w, max=INF)
+        dist = dist.scatter_reduce(1, et_r, via_f, "amin")
+        dist = dist.scatter_reduce(1, ef_r, via_t, "amin")
+    return dist
+
+
+def relax_min(dist0, e_from, e_to, w, n_iters: int):
+    """K5: multi-source Bellman-Ford, one CTA per row of ``dist0``."""
+    if dist0.device.type == "cpu":
+        return relax_min_plain(dist0, e_from, e_to, w, n_iters)
+    dev, f32 = dist0.device, torch.float32
+    rows, n = dist0.shape
+    E = e_from.shape[0]
+    ptrs = [
+        _check("dist0", dist0, (rows, n), f32, dev),
+        _check("e_from", e_from, (E,), torch.int32, dev),
+        _check("e_to", e_to, (E,), torch.int32, dev),
+        _check("w", w, (E,), f32, dev),
+    ]
+    lib = _build.load()
+    out = torch.empty(rows, n, dtype=f32, device=dev)
+    scratch = None if 8 * n <= _SMEM_BYTES else torch.empty(2 * rows * n, dtype=f32, device=dev)
+    err = lib.uz_relax_min(*ptrs, rows, n, E, int(n_iters), out.data_ptr(),
+                           None if scratch is None else scratch.data_ptr(), _stream(dev))
+    _raise_on(err, "relax_min")
+    launches["relax_min"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K6 cluster_labels
+# ---------------------------------------------------------------------------
+
+def cluster_labels_plain(stamp_from, stamp_to, valid, max_dt: float, n_iters: int):
+    """Plain version of K6: min-label propagation over the (B, B) stamp
+    adjacency, ``n_iters`` Jacobi rounds."""
+    adj = (
+        (torch.abs(stamp_from[:, None] - stamp_from[None, :]) < max_dt)
+        & (torch.abs(stamp_to[:, None] - stamp_to[None, :]) < max_dt)
+        & valid[:, None] & valid[None, :]
+    )
+    b = stamp_from.shape[0]
+    labels = torch.where(valid, torch.arange(b, dtype=torch.int32, device=valid.device), b)
+    for _ in range(n_iters):
+        neigh = torch.where(adj, labels[None, :], b)
+        labels = torch.minimum(labels, neigh.min(dim=-1).values)
+    return labels
+
+
+def cluster_labels(stamp_from, stamp_to, valid, max_dt: float, n_iters: int):
+    """K6: spatio-temporal cluster labels of B candidates, one CTA."""
+    if stamp_from.device.type == "cpu":
+        return cluster_labels_plain(stamp_from, stamp_to, valid, max_dt, n_iters)
+    dev, f32 = stamp_from.device, torch.float32
+    b = stamp_from.shape[0]
+    if 20 * b > _SMEM_BYTES:
+        raise ValueError(f"cluster_labels: {b} candidates exceed one CTA's shared memory")
+    ptrs = [
+        _check("stamp_from", stamp_from, (b,), f32, dev),
+        _check("stamp_to", stamp_to, (b,), f32, dev),
+        _check("valid", valid, (b,), torch.bool, dev),
+    ]
+    lib = _build.load()
+    labels = torch.empty(b, dtype=torch.int32, device=dev)
+    err = lib.uz_cluster_labels(*ptrs, b, float(max_dt), int(n_iters), labels.data_ptr(),
+                                _stream(dev))
+    _raise_on(err, "cluster_labels")
+    launches["cluster_labels"] += 1
+    return labels
+
+
+# ---------------------------------------------------------------------------
+# K7 ransac_rigid
+# ---------------------------------------------------------------------------
+
+def ransac_hypotheses_plain(src, dst, valid, tri):
+    """The hypothesis stage of K7's plain version: (clamped triplets (R, K,
+    3), squared error of every point under every Horn fit (R, K, M))."""
+    from uzliti_slam_tpu_torch.ops import lie, ransac
+
+    R, M, _ = src.shape
+    K = tri.shape[1]
+    ti = tri.long().clamp(0, M - 1)            # gathers clamp, as in JAX
+    flat = ti.reshape(R, K * 3)
+
+    def pick(x):
+        return torch.gather(x, 1, flat[..., None].expand(R, K * 3, 3)).reshape(R, K, 3, 3)
+
+    w = torch.gather(valid.to(src.dtype), 1, flat).reshape(R, K, 3)
+    hyp = ransac.kabsch_quat(pick(src), pick(dst), w)
+    pred = lie.pose_apply(hyp[:, :, None, :], src[:, None])          # (R, K, M, 3)
+    return ti, torch.sum((pred - dst[:, None]) ** 2, dim=-1)
+
+
+def ransac_rigid_plain(src, dst, valid, tri, inlier_thresh: float, min_consensus: int,
+                       min_sigma: float):
+    """Plain version of K7 for R roots: src/dst (R, M, 3), valid (R, M),
+    triplets tri (R, K, 3).  Returns (pose (R, 7), consensus (R,) int32,
+    mse (R,), information (R, 6, 6), ok (R,), best (R,) int32, counts
+    (R, K) int32), as ``uzliti_slam_tpu/ops/ransac.py:ransac_rigid``."""
+    from uzliti_slam_tpu_torch.ops import lie, ransac
+
+    R, M, _ = src.shape
+    w = valid.to(src.dtype)
+    ti, err2 = ransac_hypotheses_plain(src, dst, valid, tri)
+    inl = (err2 < inlier_thresh**2) & valid[:, None]
+    counts = inl.sum(-1, dtype=torch.int32)
+    distinct = (ti[..., 0] != ti[..., 1]) & (ti[..., 1] != ti[..., 2]) & (ti[..., 0] != ti[..., 2])
+    sample_valid = torch.gather(valid, 1, ti.reshape(R, -1)).reshape(ti.shape).all(-1) & distinct
+    counts = torch.where(sample_valid, counts, -1)
+    best = torch.argmax(counts, dim=1)
+    best_inl = torch.gather(inl, 1, best[:, None, None].expand(R, 1, M))[:, 0]
+    refit = ransac.kabsch(src, dst, best_inl.to(src.dtype) * w)
+    err2_refit = torch.sum((lie.pose_apply(refit[:, None], src) - dst) ** 2, dim=-1)
+    inl_refit = (err2_refit < inlier_thresh**2) & valid
+    consensus = inl_refit.sum(-1, dtype=torch.int32)
+    mse = torch.sum(err2_refit * inl_refit, dim=-1) / torch.clamp(consensus, min=1)
+    base = 0.1 * consensus.to(src.dtype) / torch.clamp(mse, min=min_sigma**2)
+    information = torch.diag_embed(torch.stack([base] * 3 + [base * 100.0] * 3, dim=-1))
+    ok = (consensus >= min_consensus) & (torch.gather(counts, 1, best[:, None])[:, 0] > 0)
+    return refit, consensus, mse, information, ok, best.to(torch.int32), counts
+
+
+def _root_view(name: str, t: torch.Tensor, R: int, M: int, device) -> tuple[int, int]:
+    """Pointer and root stride of a (R, M, 3) float32 tensor whose rows are
+    contiguous and whose roots are contiguous or one broadcast row."""
+    if t.device != device or t.dtype != torch.float32 or tuple(t.shape) != (R, M, 3):
+        raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)} on {t.device}, expected "
+                         f"float32 {(R, M, 3)} on {device}")
+    if t.stride(2) != 1 or t.stride(1) != 3 or t.stride(0) not in (0, 3 * M):
+        raise ValueError(f"{name}: strides {t.stride()} are neither contiguous nor a "
+                         "broadcast row")
+    return t.data_ptr(), t.stride(0)
+
+
+def ransac_rigid(src, dst, valid, tri, inlier_thresh: float, min_consensus: int,
+                 min_sigma: float):
+    """K7: RANSAC rigid fits of R roots, one CTA per root.  ``src``/``dst``
+    may be broadcast views of one (M, 3) table (root stride 0)."""
+    if src.device.type == "cpu":
+        return ransac_rigid_plain(src, dst, valid, tri, inlier_thresh, min_consensus, min_sigma)
+    dev, f32, i32 = src.device, torch.float32, torch.int32
+    R, M, _ = src.shape
+    K = tri.shape[1]
+    if not 0 < K <= 1024:
+        raise ValueError(f"ransac_rigid: {K} hypotheses, the kernel takes 1..1024")
+    src_p, src_s = _root_view("src", src, R, M, dev)
+    dst_p, dst_s = _root_view("dst", dst, R, M, dev)
+    valid_p = _check("valid", valid, (R, M), torch.bool, dev)
+    tri_p = _check("tri", tri, (R, K, 3), i32, dev)
+    lib = _build.load()
+    pose = torch.empty(R, 7, dtype=f32, device=dev)
+    consensus = torch.empty(R, dtype=i32, device=dev)
+    mse = torch.empty(R, dtype=f32, device=dev)
+    information = torch.empty(R, 6, 6, dtype=f32, device=dev)
+    ok = torch.empty(R, dtype=torch.bool, device=dev)
+    best = torch.empty(R, dtype=i32, device=dev)
+    counts = torch.empty(R, K, dtype=i32, device=dev)
+    err = lib.uz_ransac_rigid(
+        src_p, src_s, dst_p, dst_s, valid_p, tri_p, R, M, K, float(inlier_thresh**2),
+        int(min_consensus), float(min_sigma**2), pose.data_ptr(), consensus.data_ptr(),
+        mse.data_ptr(), information.data_ptr(), ok.data_ptr(), best.data_ptr(),
+        counts.data_ptr(), _stream(dev))
+    _raise_on(err, "ransac_rigid")
+    launches["ransac_rigid"] += 1
+    return pose, consensus, mse, information, ok, best, counts
+
+
+# ---------------------------------------------------------------------------
+# K8 components (connected components + gauge fixing)
+# ---------------------------------------------------------------------------
+
+def components_plain(e_from, e_to, e_valid, n_nodes: int, n_iters: int):
+    """Plain version of K8's labels: min-label propagation over valid edges
+    with two pointer jumps per round; (N,) int32."""
+    labels = torch.arange(n_nodes, dtype=torch.int32, device=e_from.device)
+    ef, et = e_from.long(), e_to.long()
+    big = torch.iinfo(torch.int32).max
+    for _ in range(n_iters):
+        upd = torch.where(e_valid, torch.minimum(labels[ef], labels[et]), big)
+        labels = labels.scatter_reduce(0, ef, upd, "amin")
+        labels = labels.scatter_reduce(0, et, upd, "amin")
+        labels = labels[labels.long()]
+        labels = labels[labels.long()]
+    return labels
+
+
+def components(e_from, e_to, e_valid, n_nodes: int, n_iters: int):
+    """K8 labels: one CTA in shared memory while 12·N bytes fit, else one
+    grid launch per pass."""
+    if e_from.device.type == "cpu":
+        return components_plain(e_from, e_to, e_valid, n_nodes, n_iters)
+    dev, i32 = e_from.device, torch.int32
+    E = e_from.shape[0]
+    ptrs = [
+        _check("e_from", e_from, (E,), i32, dev),
+        _check("e_to", e_to, (E,), i32, dev),
+        _check("e_valid", e_valid, (E,), torch.bool, dev),
+    ]
+    lib = _build.load()
+    labels = torch.empty(n_nodes, dtype=i32, device=dev)
+    scratch = (None if 12 * n_nodes <= _SMEM_BYTES
+               else torch.empty(2 * n_nodes, dtype=i32, device=dev))
+    err = lib.uz_components(*ptrs, E, n_nodes, int(n_iters), labels.data_ptr(),
+                            None if scratch is None else scratch.data_ptr(), _stream(dev))
+    _raise_on(err, "components")
+    launches["components"] += 1
+    return labels
+
+
+def gauge_fix_plain(labels, node_valid, node_fixed, stamp):
+    """Plain version of K8's gauge pass: pre-fixed valid nodes, plus the
+    oldest valid node (least slot on a tie) of every component without one."""
+    n = labels.shape[0]
+    dev = labels.device
+    lab = labels.long()
+    valid_fixed = node_valid & node_fixed
+    has_fixed = torch.zeros(n, dtype=torch.int32, device=dev).scatter_reduce(
+        0, lab, valid_fixed.to(torch.int32), "amax", include_self=False)
+    stamp_key = torch.where(node_valid, stamp, torch.inf)
+    min_stamp = torch.full((n,), torch.inf, device=dev).scatter_reduce(
+        0, lab, stamp_key, "amin", include_self=False)
+    is_oldest_cand = node_valid & (stamp_key == min_stamp[lab])
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    min_idx = torch.full((n,), n, dtype=torch.int32, device=dev).scatter_reduce(
+        0, lab, torch.where(is_oldest_cand, ids, n), "amin", include_self=False)
+    is_oldest = is_oldest_cand & (ids == min_idx[lab])
+    return valid_fixed | (is_oldest & (has_fixed[lab] == 0))
+
+
+def gauge_fix(labels, node_valid, node_fixed, stamp):
+    """K8 gauge pass: (N,) bool, from ``components`` labels."""
+    if labels.device.type == "cpu":
+        return gauge_fix_plain(labels, node_valid, node_fixed, stamp)
+    dev = labels.device
+    n = labels.shape[0]
+    ptrs = [
+        _check("labels", labels, (n,), torch.int32, dev),
+        _check("node_valid", node_valid, (n,), torch.bool, dev),
+        _check("node_fixed", node_fixed, (n,), torch.bool, dev),
+        _check("stamp", stamp, (n,), torch.float32, dev),
+    ]
+    lib = _build.load()
+    gauge = torch.empty(n, dtype=torch.bool, device=dev)
+    scratch = (None if 12 * n <= _SMEM_BYTES
+               else torch.empty(3 * n, dtype=torch.int32, device=dev))
+    err = lib.uz_gauge_fix(*ptrs, n, gauge.data_ptr(),
+                           None if scratch is None else scratch.data_ptr(), _stream(dev))
+    _raise_on(err, "components")
+    launches["components"] += 1
+    return gauge

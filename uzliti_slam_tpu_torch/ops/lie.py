@@ -90,6 +90,31 @@ def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
     return m.reshape(m.shape[:-1] + (3, 3))
 
 
+def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> quaternion (..., 4), scalar first.
+
+    Branch-free Shepperd method: all four candidate quaternions, the one
+    with the largest pivot kept (the first on a tie, as ``jnp.argmax``).
+    """
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    # Four candidates, each scaled by 4*q_pivot^2 (guaranteed >= 0 pre-max).
+    qw = torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1)
+    qx = torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20], dim=-1)
+    qy = torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21], dim=-1)
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22], dim=-1)
+    pivots = torch.stack(
+        [1.0 + tr, 1.0 + m00 - m11 - m22, 1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22],
+        dim=-1,
+    )
+    idx = torch.argmax(pivots, dim=-1)
+    cand = torch.stack([qw, qx, qy, qz], dim=-2)  # (..., 4 candidates, 4)
+    idx = idx[..., None, None].expand(idx.shape + (1, 4))
+    return quat_normalize(torch.gather(cand, -2, idx)[..., 0, :])
+
+
 def quat_from_axis_angle(phi: torch.Tensor) -> torch.Tensor:
     """so(3) vector (..., 3) -> quaternion via exp."""
     theta = _safe_norm(phi)
@@ -180,6 +205,15 @@ def pose_t(p: torch.Tensor) -> torch.Tensor:
 
 def pose_q(p: torch.Tensor) -> torch.Tensor:
     return p[..., 3:7]
+
+
+def make_pose(t: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    return torch.cat([t, quat_normalize(q)], dim=-1)
+
+
+def pose_apply(p: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Transform points (..., 3) by poses (..., 7)."""
+    return quat_rotate(pose_q(p), pts) + pose_t(p)
 
 
 def pose_compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
