@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port on one GPU: the pose-graph solve and the
-optimization epoch.
+"""Drive the PyTorch + CUDA port on one GPU: the pose-graph solve, the
+optimization epoch and the occupancy projection that follows it.
 
     python3 chip_smoke.py
 
@@ -13,30 +13,39 @@ runs, in order, each phase printing lines of its own:
    power limit (nvidia-smi);
 2. the kernels' build, timed, and the two epoch graphs;
 3. each solve kernel (K1 linearize, K2 hvp, K3 chain_apply, K4
-   residual_chi2) against its plain PyTorch version on the card, on the
-   inputs the solve gives it on a generated 1k-node and 100k-node graph,
-   and each epoch kernel (K5 relax_min, K6 cluster_labels, K7 ransac_rigid,
-   K8 components) on the inputs the 500-node and 10k-node epochs give it,
-   and K8's grid route on the 100k-node solve's inputs: error against a
+   residual_chi2, K9 chain_factor, K10 pcg) against its plain PyTorch
+   version on the card, on the inputs the solve gives it on a generated
+   1k-node and 100k-node graph, each epoch kernel (K5 relax_min, K6
+   cluster_labels, K7 ransac_rigid, K8 components) on the inputs the
+   500-node and 10k-node epochs give it, K8's grid route on the 100k-node
+   solve's inputs, and K11 project_rays on a 500-node full rebuild, an
+   8-new-node incremental pass and a 10k-node full rebuild: error against a
    stated tolerance, the median time of both, and the least time the card
    could take for the work this data needs;
 4. the 1k-node headline solve (20 LM x 12 PCG, chain factor refreshed every
    5, fixed iteration count) through ``optimize``: launch counts of one
    solve, no host synchronisation inside the timed solves (CUDA sync debug
    mode "error"), final χ² against the same solve on CPU tensors and
-   against the sparse oracle, median solve time;
+   against the sparse oracle, median solve time, and a profile with no
+   cuSOLVER or cuBLAS item;
 5. the library default ``SolverConfig()`` (early exit) at 1k nodes against
-   the oracle;
+   the oracle, with the factors K9 actually built against the refreshes
+   the reference's loop makes, and a profile;
 6. the headline configuration at 10k nodes against the oracle (LM);
 7. the headline configuration at 100k nodes: time, finite χ² below χ²₀,
    K8 launched on its grid route;
 8. the 500-node RGB-D + laser epoch (``pipeline.optimize_epoch`` with the
-   live ``SlamConfig``): launch counts per kernel, sync-free timed epochs
-   except the one restart read, the planted bad laser edge rejected, laser
+   live ``SlamConfig``): launch counts per kernel, the factors K9 built
+   against the reference's refreshes, sync-free timed epochs except the
+   one restart read, the planted bad laser edge rejected, laser
    edges validated, χ² and ATE against ground truth and odometry, and the
    same epoch on CPU tensors through the plain path with the same RANSAC
-   draws;
-9. the same epoch at 10k nodes: time, finite, χ² below χ²₀.
+   draws; then ``pipeline.project_map`` on its result, as ``Slam.optimize``
+   runs it: a full rebuild, an incremental pass after 8 nodes with scans
+   are added and a rebuild after a node drifts 1 m, each sync-free, timed,
+   and matched by the same sequence on CPU tensors;
+9. the same epoch at 10k nodes, then one full ``project_map``: time,
+   finite, χ² below χ²₀.
 
 Then one JSON line with the kernels' results, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -73,7 +82,24 @@ ORACLE_FACTOR, ORACLE_ATOL = 1.10, 1e-3
 #  K2, K3, K4 1e-4 — the same arithmetic summed in another order.
 # K6 and K8 are held exactly (integer labels of exact compares); K5 to one
 # ulp of a distance (minima of the same float sums); K7 by compare_ransac.
-KERNEL_TOL = {"linearize": 1e-3, "hvp": 1e-4, "chain_apply": 1e-4, "residual_chi2": 1e-4}
+#  K9 1e-4 — each level tensor of the factor (the same closed-form 6x6
+#     inverses and products in float64, multiplied in another order, then
+#     stored in float32); its root is a block LDLᵀ inverse where the plain
+#     version takes LU, so the root is held through what the solve uses: the
+#     apply on a fixed right-hand side within CHAIN_APPLY_RTOL;
+#  K10 1e-4 of max|x| after a 12-step PCG — dots summed in another order —
+#     and the same stall flag at every step.
+# K11 log-odds: within PROJECT_ATOL at 500 nodes; at 10k nodes within
+# PROJECT_SUM_RTOL·S + PROJECT_ATOL_LARGE, S the cell's sum of |node terms|
+# (free and hit terms of many nodes cancel, and the two sum them in
+# another order); ternary classes equal except within TERNARY_NEAR of a
+# threshold.
+KERNEL_TOL = {"linearize": 1e-3, "hvp": 1e-4, "chain_apply": 1e-4, "residual_chi2": 1e-4,
+              "chain_factor": 1e-4, "pcg": 1e-4}
+CHAIN_APPLY_RTOL = 1e-3
+PROJECT_ATOL = 1e-4
+PROJECT_SUM_RTOL, PROJECT_ATOL_LARGE = 2e-6, 1e-5
+TERNARY_NEAR = 1e-4
 RELAX_MAX_ULP = 1
 RANSAC_POSE_ATOL = 1e-4      # refit pose, per component
 RANSAC_NEAR_REL = 1e-5       # a point this close to the inlier radius may flip
@@ -89,10 +115,19 @@ REPLACES = {
                     " + :54 (kabsch_quat) + :32 (kabsch)",
     "components": "uzliti_slam_tpu/graph/solver.py:212 (connected_components)"
                   " + :242 (gauge_fix_mask)",
+    "chain_factor": "uzliti_slam_tpu/graph/tridiag.py:145 (block_tridiag_factor)"
+                    " + :22-72 (_inv3, _inv6) + :75 (_pad_pow2) + :112 (_dense_root_inverse)",
+    "pcg": "uzliti_slam_tpu/graph/solver.py:512 (_pcg)",
+    "project_rays": "uzliti_slam_tpu/mapping/occupancy.py:70 (_project_rays)"
+                    " + :191 (_mark_node_cells)",
 }
 SOURCE = {k: f"uzliti_slam_tpu_torch/csrc/{k}.cu" for k in REPLACES}
-SOLVE_KERNELS = ("linearize", "hvp", "chain_apply", "residual_chi2")
+SOURCE["project_rays"] = "uzliti_slam_tpu_torch/csrc/occupancy.cu"
+SOLVE_KERNELS = ("linearize", "hvp", "chain_apply", "residual_chi2", "chain_factor", "pcg")
 EPOCH_KERNELS = ("relax_min", "cluster_labels", "ransac_rigid", "components")
+MAP_KERNELS = ("project_rays",)
+# cuSOLVER / cuBLAS items that must not appear in a profiled solve
+LIBRARY_ITEMS = ("getrf", "getrs", "trsm", "gemv")
 # The card's published peaks (H100 SXM at 700 W):
 # device memory 3.35 TB/s; float32 outside the tensor cores 67 TFLOP/s, the
 # rate used here for every scalar operation (float32 or int32).
@@ -166,7 +201,9 @@ def timed_solves(optimize, g, cfg, reps: int):
 
 # longer names first: a mangled name takes the first entry it contains
 DEVICE_FUNCTIONS = ("linearize_edges", "linearize_mask", "hvp_seed", "hvp_edges",
-                    "chain_forward", "chain_backward", "residual_edges", "sum_partials",
+                    "chain_forward", "chain_backward", "chain_root", "factor_level",
+                    "factor_root", "pcg_init", "pcg_alpha", "pcg_beta", "project_cells",
+                    "residual_edges", "sum_partials",
                     "relax_rows", "cluster_rounds", "ransac_roots", "components_cta",
                     "gauge_cta", "k_init_labels", "k_scatter_min", "k_jump_out", "k_jump",
                     "k_gauge_init", "k_gauge_reduce_stamp", "k_gauge_reduce_slot",
@@ -190,9 +227,10 @@ def ptxas_summary(text: str) -> dict:
     return out
 
 
-def device_profile(fn) -> dict:
-    """One profiled call: wall ms, summed device-kernel ms, the busy share
-    they give, and the five kernels with the most device time."""
+def device_profile(fn) -> tuple[dict, list]:
+    """One profiled call: (wall ms, summed device-kernel ms, the busy share
+    they give, the device launches and the five kernels with the most
+    device time; the names of every device kernel in the trace)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -204,12 +242,34 @@ def device_profile(fn) -> dict:
     kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     dev_us = sum(e.self_device_time_total for e in kernels)
     if dev_us == 0:
-        return {"profile": "not measured (no device time in the trace)"}
+        return {"profile": "not measured (no device time in the trace)"}, []
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
-    return {"profiled_wall_ms": 1e3 * wall, "device_kernel_ms": dev_us / 1e3,
-            "device_busy_share": dev_us / 1e6 / wall,
-            "device_launches": sum(e.count for e in kernels),
-            "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top}}
+    return ({"profiled_wall_ms": 1e3 * wall, "device_kernel_ms": dev_us / 1e3,
+             "device_busy_share": dev_us / 1e6 / wall,
+             "device_launches": sum(e.count for e in kernels),
+             "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top}},
+            [e.key for e in kernels])
+
+
+def library_items(names: list) -> list:
+    """The cuSOLVER / cuBLAS kernels among profiled kernel names."""
+    return [k for k in names if any(item in k.lower() for item in LIBRARY_ITEMS)]
+
+
+def time_call(fn, trials: int = 21, calls: int = 10) -> float:
+    """Median ms per call of one function on the card (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(trials):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end) / calls)
+    return statistics.median(out)
 
 
 # ---------------------------------------------------------------------------
@@ -267,6 +327,36 @@ def kernel_work(name: str, args) -> tuple[int, int]:
         ef, et, ev, nv, nf, stamp, n, iters = args
         return (_nbytes(ef, et, ev, nv, nf, stamp) + 5 * n,
                 iters * (2 * int(ev.sum()) + 2 * n) + 6 * n)
+    if name == "chain_factor":
+        # per odd block of a level: two 6x6 Schur inverses (~250 operations
+        # each) and eight 6x6 products (432 each); the root: m inverses and
+        # 2m products, then 6m column solves of m blocks (216 each).  Only
+        # live odd blocks count: those holding a row of the unpadded chain.
+        D, U, cutoff = args
+        halves, m = kops._factor_shapes(D.shape[0], cutoff)
+        live, n_valid = 0, D.shape[0]
+        for _ in halves:
+            n_valid = -(-n_valid // 2)
+            live += n_valid
+        out = 4 * (5 * 36 * sum(halves) + 36 * m * m)
+        return _nbytes(D, U) + out, live * (2 * 250 + 8 * 432) + m * (250 + 2 * 432) + 6 * m * m * 216
+    if name == "pcg":
+        # a 12-step PCG's vector updates: b, z0, and each step's Hp and z
+        # read once, x written once; 4 + 12·10 operations per entry
+        b, steps = args
+        return 4 * b.numel() * (2 + 2 * steps + 1), b.numel() * (4 + 10 * steps)
+    if name == "project_rays":
+        # base, tables and the active nodes' scans and scalars read once,
+        # the grid written once; ~20 operations per (cell, node) pair whose
+        # centre-table offset lies on the grid
+        (logodds, cx, cy, kbin, scans, idx, count, D, bin0, Wray, *_rest) = args
+        size, c = logodds.shape[0], int(count)
+        nodes = idx[:c].long()
+        rows = (size - (cy[nodes].long() - size // 2).abs()).clamp(min=0)
+        cols = (size - (cx[nodes].long() - size // 2).abs()).clamp(min=0)
+        pairs = int((rows * cols).sum())
+        return (_nbytes(logodds, D, bin0, Wray) + 4 * logodds.numel()
+                + c * (4 * scans.shape[1] + 16), 20 * pairs)
     raise KeyError(name)
 
 
@@ -293,7 +383,8 @@ def make_graph(n_nodes: int, device, seed: int = SEED):
 
 
 def kernel_inputs(g, cfg):
-    """The inputs each solve kernel gets in the first LM iteration."""
+    """The inputs each solve kernel gets in the first LM iteration (K10:
+    the first PCG solve's operators and right-hand side)."""
     from uzliti_slam_tpu_torch.graph import solver
 
     free = (g.node_valid & ~solver.gauge_fix_mask(g, solver.connected_components(g))).float()
@@ -304,6 +395,7 @@ def kernel_inputs(g, cfg):
     lam = torch.full((), cfg.lambda_init, device=g.device)
     damp = p.damp(lam, Hb)
     pack = p.build_pack(Hb, U, damp)
+    Dm = torch.where(free[:, None, None] > 0, Hb + torch.diag_embed(damp), p.eye6)
     v = torch.randn(g.node_capacity, 6, generator=gen).to(g.device)
     return {
         "residual_chi2": (g.pose, g.e_from, g.e_to, g.e_transform, g.e_info, p.valid,
@@ -312,6 +404,9 @@ def kernel_inputs(g, cfg):
                       p.both_free, p.is_chain, cfg.huber_delta),
         "hvp": (Ji, Jj, W, g.e_from, g.e_to, v, damp, free),
         "chain_apply": (pack, -grad),
+        "chain_factor": (Dm, U, cfg.chain_dense_cutoff),
+        "pcg": (Ji, Jj, W, g.e_from, g.e_to, damp, free, pack, -grad, cfg.pcg_iterations,
+                cfg.pcg_tol),
     }
 
 
@@ -322,7 +417,8 @@ def compare_kernels(g, label: str):
 
     inputs = kernel_inputs(g, solver.SolverConfig(**HEADLINE))
     results = {}
-    for name, args in inputs.items():
+    for name in ("residual_chi2", "linearize", "hvp", "chain_apply"):
+        args = inputs[name]
         kernel_fn = getattr(kops, name)
         plain_fn = getattr(kops, f"{name}_plain")
         got, ref = kernel_fn(*args), plain_fn(*args)
@@ -342,7 +438,223 @@ def compare_kernels(g, label: str):
         check(rel <= KERNEL_TOL[name],
               f"{name} {label}: rel err {rel:.3g} > {KERNEL_TOL[name]}")
         results[name] = row
+    results["chain_factor"] = compare_chain_factor(inputs["chain_factor"], label)
+    results["pcg"] = compare_pcg(inputs["pcg"], label)
     return results
+
+
+def _flat_factor(factor) -> list:
+    return [t for lv in factor[0] for t in lv]
+
+
+def compare_chain_factor(args, label: str) -> dict:
+    """K9 against its plain version: every level tensor within 1e-4 of its
+    largest entry, the apply (K3 on both factors) on a fixed right-hand side
+    within CHAIN_APPLY_RTOL, and ‖A·root_inv - I‖∞ of both roots printed;
+    torch.linalg.inv_ex on the same root timed as the library yardstick.
+    Also printed: the plain version's time in float32 (the reference's
+    precision), and how far K3 on K9's factor and on that float32 factor
+    each lands from a solve wholly in float64."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    D, U, cutoff = args
+    got, ref = kops.chain_factor(*args), kops.chain_factor_plain(*args)
+    torch.cuda.synchronize()
+    err, rel = 0.0, 0.0
+    for a, b in zip(_flat_factor(got), _flat_factor(ref)):
+        check(bool(torch.isfinite(a).all()), f"chain_factor {label}: non-finite level")
+        e = float((a - b).abs().max())
+        err, rel = max(err, e), max(rel, e / max(float(b.abs().max()), 1e-30))
+    rhs = torch.randn(D.shape[0], 6, generator=torch.Generator().manual_seed(SEED + 3)).to(D.device)
+    x_k, x_p = kops.chain_apply(got, rhs), kops.chain_apply(ref, rhs)
+    apply_rel = float((x_k - x_p).abs().max() / x_p.abs().max())
+    # K9 computes in float64 where the reference computes in float32: both
+    # factors' applies (K3, float32) against a solve wholly in float64
+    ref32 = kops.chain_factor_plain(D, U, cutoff, work_dtype=torch.float32)
+    x64 = kops.chain_apply_plain(kops.chain_factor_plain(D.double(), U.double(), cutoff),
+                                 rhs.double())
+    scale64 = float(x64.abs().max())
+    err64_k = float((x_k.double() - x64).abs().max()) / scale64
+    err64_f32 = float((kops.chain_apply(ref32, rhs).double() - x64).abs().max()) / scale64
+    _, Dk, Uk = kops.chain_reduce_plain(D, U, cutoff)
+    # the root system in float64, as both versions build and invert it
+    A = (kops.root_matrix_plain(Dk, Uk) if Dk.shape[0] > 1
+         else Dk[0] + 1e-8 * torch.eye(6, dtype=Dk.dtype, device=D.device))
+    eye = torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
+    res_k = float(torch.linalg.matrix_norm(A @ got[1].to(A.dtype) - eye, ord=math.inf))
+    res_p = float(torch.linalg.matrix_norm(A @ ref[1].to(A.dtype) - eye, ord=math.inf))
+    row = {"max_abs_err": err, "max_rel_err": rel, "tol_rel": KERNEL_TOL["chain_factor"],
+           "levels": len(got[0]), "root_blocks": Dk.shape[0], "apply_rel_err": apply_rel,
+           "apply_rtol": CHAIN_APPLY_RTOL, "root_residual_inf_kernel": res_k,
+           "root_residual_inf_plain": res_p, "apply_err_vs_float64_solve_kernel": err64_k,
+           "apply_err_vs_float64_solve_float32_factor": err64_f32}
+    row["ms"], row["plain_ms"] = time_pair(lambda: kops.chain_factor(*args),
+                                           lambda: kops.chain_factor_plain(*args))
+    row["plain_float32_ms"] = time_call(
+        lambda: kops.chain_factor_plain(D, U, cutoff, work_dtype=torch.float32))
+    row["library_ms"] = time_call(lambda: torch.linalg.inv_ex(A))
+    row.update(bound("chain_factor", args))
+    log(f"3 kernel chain_factor {label}", **row)
+    check(rel <= KERNEL_TOL["chain_factor"], f"chain_factor {label}: level rel err {rel:.3g}")
+    check(math.isfinite(res_k), f"chain_factor {label}: non-finite root")
+    check(apply_rel <= CHAIN_APPLY_RTOL, f"chain_factor {label}: apply rel err {apply_rel:.3g}")
+    return row
+
+
+def compare_pcg(args, label: str) -> dict:
+    """K10 against its plain version: a full PCG solve with the same K2 and
+    K3 operators, x within 1e-4 of max|x| and the same stall flag at every
+    step; timed on the updates alone (fixed Hp and z)."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    Ji, Jj, W, ef, et, damp, free, pack, b, steps, tol = args
+
+    def hvp(v):
+        return kops.hvp(Ji, Jj, W, ef, et, v, damp, free)
+
+    def apply(r):
+        return kops.chain_apply(pack, r)
+
+    def solve(init, alpha, beta):
+        x, r, p, scal = init(b, apply(b))
+        oks = []
+        for _ in range(steps):
+            alpha(p, hvp(p), x, r, scal, tol)
+            oks.append(scal[2].clone())
+            beta(r, apply(r), p, scal)
+        return x, torch.stack(oks)
+
+    kernel = (kops.pcg_init, kops.pcg_alpha, kops.pcg_beta)
+    plain = (kops.pcg_init_plain, kops.pcg_alpha_plain, kops.pcg_beta_plain)
+    x_k, ok_k = solve(*kernel)
+    x_p, ok_p = solve(*plain)
+    torch.cuda.synchronize()
+    err = float((x_k - x_p).abs().max())
+    rel = err / max(float(x_p.abs().max()), 1e-30)
+    Hp, z = hvp(b), apply(b)
+
+    def updates(init, alpha, beta):
+        x, r, p, scal = init(b, z)
+        for _ in range(steps):
+            alpha(p, Hp, x, r, scal, tol)
+            beta(r, z, p, scal)
+
+    row = {"max_abs_err": err, "max_rel_err": rel, "tol_rel": KERNEL_TOL["pcg"],
+           "route": "cta" if b.numel() <= kops.PCG_CTA_MAX else "grid", "steps": steps, "ok_pattern": [int(v) for v in ok_k.cpu().tolist()],
+           "same_ok_pattern": bool(torch.equal(ok_k, ok_p))}
+    row["ms"], row["plain_ms"] = time_pair(lambda: updates(*kernel), lambda: updates(*plain))
+    row.update(bound("pcg", (b, steps)))
+    log(f"3 kernel pcg {label}", **row)
+    check(bool(torch.isfinite(x_k).all()), f"pcg {label}: non-finite x")
+    check(rel <= KERNEL_TOL["pcg"], f"pcg {label}: rel err {rel:.3g}")
+    check(row["same_ok_pattern"], f"pcg {label}: stall flags differ")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# Occupancy projection inputs and K11 against its plain version
+# ---------------------------------------------------------------------------
+
+LOGIT_065 = math.log(0.65 / 0.35)     # to_ternary's thresholds as log-odds
+
+
+def with_scans(state, seed: int):
+    """``state`` with the JAX bench's scans, 2 + 3·U(0,1) drawn with numpy
+    (bench.py:214-220), on every slot and valid on its valid nodes."""
+    import numpy as np
+
+    n = state.graph.node_capacity
+    scans = (2.0 + 3.0 * np.random.default_rng(seed).random((n, 360))).astype(np.float32)
+    return state.replace(scans=torch.from_numpy(scans).to(state.graph.device),
+                         scan_valid=state.graph.node_valid.clone())
+
+
+def add_scanned_nodes(state, k: int):
+    """``k`` new keyframes after the last node, 5 cm apart, each with its
+    scan valid (their scans were drawn with the rest)."""
+    from uzliti_slam_tpu_torch.graph import state as gstate
+    from uzliti_slam_tpu_torch.ops import lie
+
+    g = state.graph
+    n0 = int(g.num_nodes)
+    last = g.pose[n0 - 1]
+    for i in range(k):
+        step = torch.zeros(6, device=g.device)
+        step[0] = 0.05 * (i + 1)
+        pose = lie.pose_compose(last, lie.se3_exp(step))
+        g, _ = gstate.add_node(g, pose, pose, g.stamp[n0 - 1] + (i + 1))
+    return state.replace(graph=g, scan_valid=g.node_valid.clone())
+
+
+def drifted(state, slot: int, metres: float):
+    """``state`` with node ``slot`` moved by ``metres`` along x."""
+    pose = state.graph.pose.clone()
+    pose[slot, 0] += metres
+    return state.replace(graph=state.graph.replace(pose=pose))
+
+
+def map_args(state, cfg, grid):
+    """(full, the arguments K11 gets) when ``pipeline.project_map`` runs
+    on ``state`` with ``grid``."""
+    from uzliti_slam_tpu_torch.mapping import occupancy
+
+    g, force = state.graph, grid is None
+    if grid is None:
+        grid = occupancy.grid_init(g, cfg.grid)
+    full, mask, origin, base = occupancy._select(grid, g, state.scan_valid, cfg.grid, force)
+    return full, occupancy._rays_args(base, g.pose, state.scans, mask, origin, cfg.grid, True)
+
+
+def ternary_mismatch(got, ref) -> tuple[int, int]:
+    """(cells whose ternary class differs, of those the ones within
+    TERNARY_NEAR of a class threshold in the plain log-odds)."""
+    from uzliti_slam_tpu_torch.mapping import occupancy
+
+    def classes(lo):
+        return occupancy.to_ternary(occupancy.OccupancyGrid(lo, None, None, None))
+
+    diff = classes(got) != classes(ref)
+    near = (((ref - LOGIT_065).abs() < TERNARY_NEAR) | ((ref + LOGIT_065).abs() < TERNARY_NEAR)
+            | ((ref.abs() - 1e-6).abs() < TERNARY_NEAR))
+    return int(diff.sum()), int((diff & near).sum())
+
+
+def compare_project(args, label: str, large: bool, trials: int = 21, calls: int = 10) -> dict:
+    """K11 against its plain version on the arguments a projection gives
+    it: log-odds within PROJECT_ATOL (or, ``large``, within
+    PROJECT_SUM_RTOL·S + PROJECT_ATOL_LARGE per cell), ternary classes
+    equal except next to a threshold."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    got = kops.project_rays(*args)
+    ref, mag = kops.project_rays_plain(*args)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"project_rays {label}: non-finite")
+    err = (got - ref).abs()
+    cell_bound = PROJECT_SUM_RTOL * mag.float() + PROJECT_ATOL_LARGE if large else None
+    n_diff, n_near = ternary_mismatch(got, ref)
+    row = {"max_abs_err": float(err.max()), "nodes": int(args[6]),
+           "cells_nonzero": int((ref != 0).sum()), "ternary_differ": n_diff,
+           "ternary_differ_near_threshold": n_near}
+    if large:
+        worst = int((err / cell_bound).flatten().argmax())
+        row.update(worst_cell_err=float(err.flatten()[worst]),
+                   worst_cell_bound=float(cell_bound.flatten()[worst]),
+                   max_abs_sum=float(mag.max()))
+    else:
+        row["tol_abs"] = PROJECT_ATOL
+    row["ms"], row["plain_ms"] = time_pair(lambda: kops.project_rays(*args),
+                                           lambda: kops.project_rays_plain(*args),
+                                           trials=trials, calls=calls)
+    row.update(bound("project_rays", args))
+    log(f"3 kernel project_rays {label}", **row)
+    if large:
+        check(bool((err <= cell_bound).all()), f"project_rays {label}: beyond 2e-6·S + 1e-5")
+    else:
+        check(row["max_abs_err"] <= PROJECT_ATOL,
+              f"project_rays {label}: err {row['max_abs_err']:.3g} > {PROJECT_ATOL}")
+    check(n_diff == n_near, f"project_rays {label}: {n_diff - n_near} ternary classes differ")
+    return row
 
 
 def epoch_kernel_inputs(state, cfg) -> dict:
@@ -482,8 +794,10 @@ def headline_solve(g, chi2_oracle: float, reps: int):
     kops.reset_launches()
     _, (g2, st) = timed_solves(solver.optimize, g, cfg, reps=1)
     counts = dict(kops.launches)
+    # K10: one launch before each PCG solve and two per step, 20 solves
     expected = {"linearize": 24, "hvp": 240, "chain_apply": 260, "residual_chi2": 22,
-                "relax_min": 0, "cluster_labels": 0, "ransac_rigid": 0, "components": 2}
+                "relax_min": 0, "cluster_labels": 0, "ransac_rigid": 0, "components": 2,
+                "chain_factor": 4, "pcg": 20 * (1 + 2 * 12), "project_rays": 0}
     check(counts == expected, f"launch counts {counts} != {expected}")
     finals = []
     for _ in range(reps):
@@ -495,11 +809,13 @@ def headline_solve(g, chi2_oracle: float, reps: int):
     spread = max(f[1] for f in finals) - min(f[1] for f in finals)
     _, st_cpu = solver.optimize(g.to("cpu"), cfg)
     chi2_cpu = float(st_cpu.chi2_history[-1])
+    prof, names = device_profile(lambda: solver.optimize(g, cfg))
+    lib_items = library_items(names)
     log("4 headline 1k", solve_ms=1e3 * t, solves_per_s=1.0 / t, chi2_0=chi2_0,
         chi2=chi2, chi2_run_to_run_spread=spread, chi2_cpu_plain=chi2_cpu,
         chi2_oracle=chi2_oracle, ratio_vs_oracle=chi2 / chi2_oracle, launches=counts,
-        accepted=int(st.accepted.sum()), sync_free=True,
-        **device_profile(lambda: solver.optimize(g, cfg)))
+        accepted=int(st.accepted.sum()), sync_free=True, library_items=lib_items, **prof)
+    check(not lib_items, f"1k solve: library kernels in the profile: {lib_items}")
     check(abs(chi2 - chi2_cpu) <= CHI2_RTOL * chi2_cpu + 1e-6 * chi2_0,
           f"1k χ² {chi2} vs CPU plain path {chi2_cpu}")
     check(chi2 <= ORACLE_FACTOR * chi2_oracle + ORACLE_ATOL,
@@ -514,30 +830,71 @@ def oracle_chi2(g, **kw) -> float:
     return float(solver.total_chi2(g_cpu, oracle.sparse_gn_oracle(g_cpu, **kw), 1.0))
 
 
-def solve_against_oracle(g, phase: str, cfg_kw: dict, chi2_oracle, reps: int):
-    """Phases 5-7: a warm-up solve with the counts set to 0 just before it
-    and read just after; timed, sync-free solves; χ² against the oracle (if
-    any).  Returns the warm-up's launch counts."""
+def reference_refreshes(hist, acc, cfg) -> int:
+    """The factors the reference's early-exit loop builds inside its loop
+    (``solver.py:899-905``: at iteration 0 and whenever ``stale >= refresh``,
+    until ``done``), replayed in float32 from a χ² history and accept flags."""
+    import numpy as np
+
+    f32 = np.float32
+    refresh = max(1, min(int(cfg.precond_refresh), cfg.iterations))
+    lam, stale, builds = f32(cfg.lambda_init), 0, 0
+    for it in range(cfg.iterations):
+        if it == 0 or stale >= refresh:
+            builds, stale = builds + 1, 0
+        accept, prev, new = bool(acc[it]), f32(hist[it]), f32(hist[it + 1])
+        gain = (prev - new) / max(prev, f32(1e-12))
+        done = ((accept and gain < f32(cfg.early_exit_tol) and lam <= f32(cfg.lambda_init))
+                or (not accept and lam >= f32(cfg.lambda_max)))
+        lam = f32(np.clip(lam / f32(cfg.lambda_factor) if accept
+                          else lam * f32(cfg.lambda_factor), cfg.lambda_min, cfg.lambda_max))
+        stale = stale + 1 if accept else refresh
+        if done:
+            break
+    return builds
+
+
+def solve_against_oracle(g, phase: str, cfg_kw: dict, chi2_oracle, reps: int,
+                         profile: bool = False):
+    """Phases 5-7: a warm-up solve with the counts (and K9's device count of
+    factors built) set to 0 just before it and read just after; timed,
+    sync-free solves; χ² against the oracle (if any).  Returns the
+    warm-up's launch counts."""
     from uzliti_slam_tpu_torch.graph import solver
     from uzliti_slam_tpu_torch.kernels import ops as kops
 
     cfg = solver.SolverConfig(**cfg_kw)
+    builds = kops.factor_builds(g.device)
+    builds.zero_()
     kops.reset_launches()
-    solver.optimize(g, cfg)                  # warm-up at this size
+    _, st_w = solver.optimize(g, cfg)          # warm-up at this size
     counts = dict(kops.launches)
+    built = int(builds)
     t, (g2, st) = timed_solves(solver.optimize, g, cfg, reps=reps)
     hist = st.chi2_history.cpu()
     chi2_0, chi2 = float(hist[0]), float(hist[-1])
     chi2_poses = float(solver.total_chi2(g, g2.pose, cfg.huber_delta))
     fields = dict(n_nodes=int(g.num_nodes), solve_ms=1e3 * t, solves_per_s=1.0 / t,
                   chi2_0=chi2_0, chi2=chi2, chi2_of_poses=chi2_poses,
-                  accepted=int(st.accepted.sum()), launches=counts,
+                  accepted=int(st.accepted.sum()), launches=counts, factors_built=built,
                   components_route=components_route(g.node_capacity))
+    if cfg.early_exit:
+        fields["reference_refreshes"] = reference_refreshes(
+            st_w.chi2_history.cpu().tolist(), st_w.accepted.cpu().tolist(), cfg)
     if chi2_oracle is not None:
         fields.update(chi2_oracle=chi2_oracle, ratio_vs_oracle=chi2 / chi2_oracle)
+    names = []
+    if profile:
+        prof, names = device_profile(lambda: solver.optimize(g, cfg))
+        fields.update(library_items=library_items(names), **prof)
     log(phase, **fields)
     check(torch.isfinite(g2.pose).all().item() and chi2 == chi2, f"{phase}: non-finite")
     check(chi2 < chi2_0, f"{phase}: χ² {chi2} not below χ²₀ {chi2_0}")
+    check(not library_items(names), f"{phase}: library kernels in the profile")
+    if cfg.early_exit:
+        check(built == fields["reference_refreshes"],
+              f"{phase}: {built} factors built, the reference builds "
+              f"{fields['reference_refreshes']}")
     if chi2_oracle is not None:
         check(chi2 <= ORACLE_FACTOR * chi2_oracle + ORACLE_ATOL,
               f"{phase}: χ² {chi2} vs oracle {chi2_oracle}")
@@ -568,6 +925,26 @@ def lift_sync_check_for_restart_read() -> list:
 
     solver._host_decision = lifted
     return reads
+
+
+def record_lm_loops(fn):
+    """Run ``fn()`` with every ``solver.lm_loop`` call's (χ² history,
+    accept flags) recorded, as device tensors (nothing is read); returns
+    (fn's result, the records)."""
+    from uzliti_slam_tpu_torch.graph import solver
+
+    lm_loop, records = solver.lm_loop, []
+
+    def recorded(*args):
+        out = lm_loop(*args)
+        records.append((out[2], out[3]))
+        return out
+
+    solver.lm_loop = recorded
+    try:
+        return fn(), records
+    finally:
+        solver.lm_loop = lm_loop
 
 
 def make_epoch_state(n: int, node_capacity: int, edge_capacity: int, radius: float, device):
@@ -620,7 +997,9 @@ def timed_epochs(state, cfg, reps: int):
 
 def epoch_phase(phase: str, built, n: int, reps: int, reads: list, cpu_check: bool) -> dict:
     """Phases 8-9: one optimize_epoch with the counts set to 0 just before
-    it and read just after; timed epochs; the filter's verdict, χ², ATE and
+    it and read just after, and the factors K9 built in it against the
+    refreshes the reference's loop makes in each of its LM solves; timed
+    epochs; the filter's verdict, χ², ATE and
     uncertainty checked; with ``cpu_check``, the same epoch on CPU tensors
     through the plain path with the same RANSAC draws, and a profile."""
     from uzliti_slam_tpu_torch import pipeline
@@ -631,12 +1010,20 @@ def epoch_phase(phase: str, built, n: int, reps: int, reads: list, cpu_check: bo
 
     cfg, state, gt, bad_slot = built
     timed_epochs(state, cfg, reps=1)                 # warm-up at this size
+    builds = kops.factor_builds(state.graph.device)
+    builds.zero_()
     kops.reset_launches()
     reads.clear()
-    timed_epochs(state, cfg, reps=1)
-    counts, restart = dict(kops.launches), list(reads)
-    check(all(counts[k] > 0 for k in REPLACES), f"{phase}: a kernel was not launched: {counts}")
+    _, loops = record_lm_loops(lambda: timed_epochs(state, cfg, reps=1))
+    counts, restart, built_factors = dict(kops.launches), list(reads), int(builds)
+    # the refreshes the reference's loop makes, over each LM solve of the epoch
+    ref_builds = sum(reference_refreshes(h.cpu().tolist(), a.cpu().tolist(), cfg.solver)
+                     for h, a in loops)
+    check(all(counts[k] > 0 for k in SOLVE_KERNELS + EPOCH_KERNELS),
+          f"{phase}: a kernel was not launched: {counts}")
     check(len(restart) == 1, f"{phase}: {len(restart)} restart reads, expected 1")
+    check(built_factors == ref_builds,
+          f"{phase}: {built_factors} factors built, the reference builds {ref_builds}")
     t, (state2, stats) = timed_epochs(state, cfg, reps)
     g2 = state2.graph
     hist = stats.chi2_history.cpu()
@@ -656,21 +1043,21 @@ def epoch_phase(phase: str, built, n: int, reps: int, reads: list, cpu_check: bo
                   candidates=int(cand.numel()), candidates_kept=int(ev[cand].sum()),
                   bad_edge_valid=bool(ev[bad_slot]), laser_validated=int(ev[laser].sum()),
                   ate_m=ate, ate_odometry_m=ate_odom, uncertainty_finite=unc_finite,
-                  uncertainty_max=float(unc.max()), sync_free_but_restart_read=True)
+                  uncertainty_max=float(unc.max()), sync_free_but_restart_read=True,
+                  factors_built=built_factors, lm_solves=len(loops),
+                  reference_refreshes=ref_builds)
     same_valid, c_gpu, c_cpu = True, 0.0, 0.0
     if cpu_check:
         member = pipeline.epoch_ransac_members(state, cfg)
         tri = ransac._valid_sample(torch.Generator(device=member.device).manual_seed(SEED + 2),
                                    cfg.filter.ransac_hypotheses, member)
         s_gpu, st_gpu = pipeline.optimize_epoch(state, cfg, tri=tri)
-        s_cpu, st_cpu = pipeline.optimize_epoch(
-            pipeline.SlamState(graph=state.graph.to("cpu"), generator=torch.Generator()), cfg,
-            tri=tri.cpu())
+        s_cpu, st_cpu = pipeline.optimize_epoch(to_cpu(state), cfg, tri=tri.cpu())
         c_gpu, c_cpu = float(st_gpu.chi2_history[-1]), float(st_cpu.chi2_history[-1])
         same_valid = torch.equal(s_gpu.graph.e_valid.cpu(), s_cpu.graph.e_valid)
         fields.update(cpu_plain_same_e_valid=same_valid, chi2_injected_draws=c_gpu,
                       chi2_cpu_plain=c_cpu)
-        fields.update(device_profile(lambda: pipeline.optimize_epoch(state, cfg)))
+        fields.update(device_profile(lambda: pipeline.optimize_epoch(state, cfg))[0])
     log(phase, **fields)
     check(not ev[bad_slot], f"{phase}: the planted bad laser edge survived the filter")
     check(math.isfinite(chi2), f"{phase}: χ² not finite")
@@ -683,6 +1070,91 @@ def epoch_phase(phase: str, built, n: int, reps: int, reads: list, cpu_check: bo
         check(same_valid, f"{phase}: edge validity differs from the CPU plain path")
         check(abs(c_gpu - c_cpu) <= CHI2_RTOL * abs(c_cpu) + 1e-6 * chi2_0,
               f"{phase}: χ² {c_gpu} vs CPU plain path {c_cpu}")
+    return counts, state2
+
+
+def to_cpu(state):
+    """A SlamState's graph and scans on CPU tensors (a fresh generator)."""
+    return state.replace(graph=state.graph.to("cpu"), generator=torch.Generator(),
+                         scans=state.scans.cpu(), scan_valid=state.scan_valid.cpu())
+
+
+def timed_projection(state, cfg, grid, reps: int):
+    """Median seconds of ``pipeline.project_map`` on the same inputs; each
+    call under CUDA sync debug mode "error" (nothing lifted)."""
+    from uzliti_slam_tpu_torch import pipeline
+
+    times, out = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = pipeline.project_map(state, cfg, grid)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), out
+
+
+def map_phase(phase: str, state, cfg, reps: int, cpu_check: bool) -> dict:
+    """The projection ``Slam.optimize`` runs after an epoch: a full rebuild
+    into a fresh grid, an incremental pass after 8 nodes with scans are
+    added, and a rebuild after one node drifts 1 m — the counts set to 0
+    just before the sequence and read just after, each call sync-free and
+    timed; with ``cpu_check``, the same sequence on CPU tensors through the
+    plain path, compared grid by grid.  Returns the sequence's counts."""
+    from uzliti_slam_tpu_torch import pipeline
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    s_full = with_scans(state, SEED + 5)
+    n0 = int(s_full.graph.num_nodes)
+    steps = [("full", s_full)]
+    if cpu_check:
+        s_inc = add_scanned_nodes(s_full, 8)
+        steps += [("incremental", s_inc), ("drift", drifted(s_inc, 10, 1.0))]
+    expect_full = {"full": True, "incremental": False, "drift": True}
+    kops.reset_launches()
+    grids, grid = [], None
+    for _, st in steps:
+        _, grid = timed_projection(st, cfg, grid, reps=1)
+        grids.append(grid)
+    counts = dict(kops.launches)
+    fields = {"launches": counts, "nodes_before": n0}
+    grid_prev = None
+    for (name, st), g_out in zip(steps, grids):
+        full, args = map_args(st, cfg, grid_prev)
+        t, again = timed_projection(st, cfg, grid_prev, reps)
+        check(torch.equal(again.logodds, g_out.logodds), f"{phase} {name}: not reproducible")
+        fields[name] = {"ms": 1e3 * t, "full": bool(full), "nodes_projected": int(args[6]),
+                        "last_projected": int(g_out.last_projected),
+                        "cells_nonzero": int((g_out.logodds != 0).sum()),
+                        "finite": bool(torch.isfinite(g_out.logodds).all())}
+        check(fields[name]["finite"], f"{phase} {name}: non-finite grid")
+        check(bool(full) == expect_full[name], f"{phase} {name}: full rebuild is {bool(full)}")
+        grid_prev = g_out
+    if cpu_check:
+        check(fields["incremental"]["nodes_projected"] == 8,
+              f"{phase}: the incremental pass projected "
+              f"{fields['incremental']['nodes_projected']} nodes, not 8")
+        grid_c, worst = None, 0.0
+        for (name, st), g_out in zip(steps, grids):
+            grid_c = pipeline.project_map(to_cpu(st), cfg, grid_c)
+            err = float((g_out.logodds.cpu() - grid_c.logodds).abs().max())
+            worst = max(worst, err)
+            n_diff, n_near = ternary_mismatch(g_out.logodds.cpu(), grid_c.logodds)
+            fields[name].update(cpu_plain_max_abs_err=err, ternary_differ=n_diff,
+                                ternary_differ_near_threshold=n_near)
+            check(err <= PROJECT_ATOL, f"{phase} {name}: {err:.3g} from the CPU plain path")
+            check(n_diff == n_near, f"{phase} {name}: ternary classes differ from the CPU path")
+            check(torch.equal(g_out.origin.cpu(), grid_c.origin), f"{phase} {name}: origin")
+            check(int(g_out.last_projected) == int(grid_c.last_projected),
+                  f"{phase} {name}: last_projected")
+            check(torch.equal(g_out.ref_poses.cpu(), grid_c.ref_poses), f"{phase} {name}: ref_poses")
+        fields["cpu_plain_max_abs_err"] = worst
+    log(phase, **fields)
+    check(counts["project_rays"] == len(steps), f"{phase}: K11 launches {counts}")
     return counts
 
 
@@ -691,6 +1163,9 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA card",
               file=sys.stderr)
         return 1
+    from uzliti_slam_tpu_torch import pipeline
+    from uzliti_slam_tpu_torch.config import SlamConfig
+    from uzliti_slam_tpu_torch.io import synthetic
     from uzliti_slam_tpu_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -728,10 +1203,30 @@ def main() -> int:
     check(components_route(g100k.node_capacity) == "grid", "100k solve: K8 not on its grid route")
     grid = compare_epoch_kernels({"components": components_inputs(g100k)},
                                  "100k solve")["components"]
+    # K11 on what the projection after the 500-node epoch gives it (a full
+    # rebuild, then 8 new nodes), and on a 10k-node full rebuild of a graph
+    # that lies on the grid
+    cfg500 = built500[0]
+    s500 = with_scans(built500[1], SEED + 5)
+    full, args_full = map_args(s500, cfg500, None)
+    check(bool(full), "500-node map: the first projection is not a full rebuild")
+    rows["project_rays"] = compare_project(args_full, "500 full", large=False)
+    _, args_inc = map_args(add_scanned_nodes(s500, 8), cfg500, pipeline.project_map(s500, cfg500))
+    check(int(args_inc[6]) == 8, "500-node map: the incremental pass is not over 8 nodes")
+    row_inc = compare_project(args_inc, "500 incremental 8", large=False)
+    cfg_map10k = SlamConfig(node_capacity=10240, edge_capacity=16384)
+    s10k_map = with_scans(pipeline.init_state(cfg_map10k, seed=SEED, device=dev).replace(
+        graph=synthetic.make_pose_graph(
+            10_000, node_capacity=10240, edge_capacity=16384, radius=2.0,
+            generator=torch.Generator().manual_seed(SEED), device=dev)[0]), SEED + 7)
+    rows_large["project_rays"] = compare_project(map_args(s10k_map, cfg_map10k, None)[1],
+                                                 "10k full", large=True, trials=3, calls=2)
+    del s10k_map
 
     chi2_oracle_1k = oracle_chi2(g1k, iters=12)
     launches = headline_solve(g1k, chi2_oracle_1k, reps=10)
-    solve_against_oracle(g1k, "5 default early-exit 1k", {}, chi2_oracle_1k, reps=5)
+    solve_against_oracle(g1k, "5 default early-exit 1k", {}, chi2_oracle_1k, reps=5,
+                         profile=True)
     g10k = make_graph(10_000, dev)
     solve_against_oracle(g10k, "6 headline 10k", HEADLINE,
                          oracle_chi2(g10k, iters=20, lm=True), reps=3)
@@ -739,27 +1234,44 @@ def main() -> int:
     check(counts100k["components"] > 0, "7 headline 100k: K8's grid route was not launched")
     del g10k, g100k
 
-    counts500 = epoch_phase("8 epoch 500", built500, EPOCH_500["n"], reps=5, reads=reads,
-                            cpu_check=True)
-    counts10k = epoch_phase("9 epoch 10k", built10k, EPOCH_10K["n"], reps=3, reads=reads,
-                            cpu_check=False)
-    # each kernel's main path: the 1k solve for K1-K4, the 500-node epoch for K5-K8
+    counts500, state500 = epoch_phase("8 epoch 500", built500, EPOCH_500["n"], reps=5,
+                                      reads=reads, cpu_check=True)
+    map500 = map_phase("8 map 500", state500, cfg500, reps=5, cpu_check=True)
+    counts10k, state10k = epoch_phase("9 epoch 10k", built10k, EPOCH_10K["n"], reps=3,
+                                      reads=reads, cpu_check=False)
+    map10k = map_phase("9 map 10k", state10k, built10k[0], reps=3, cpu_check=False)
+    # each kernel's main path: the 1k solve for K1-K4, K9, K10; the 500-node
+    # epoch for K5-K8; the projection sequence after it for K11
     launches.update({name: counts500[name] for name in EPOCH_KERNELS})
+    launches.update({name: map500[name] for name in MAP_KERNELS})
+    shapes = {**{k: ("1k solve", "100k solve") for k in SOLVE_KERNELS},
+              **{k: ("500-node epoch", "10k-node epoch") for k in EPOCH_KERNELS},
+              "project_rays": ("500-node full rebuild", "10k-node full rebuild")}
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
          "launches": launches[name], "launches_epoch_500": counts500[name],
-         "launches_epoch_10k": counts10k[name],
+         "launches_epoch_10k": counts10k[name], "launches_map_500": map500[name],
+         "launches_map_10k": map10k[name],
          "max_abs_err": rows[name]["max_abs_err"], "ms": rows[name]["ms"],
          "plain_ms": rows[name]["plain_ms"], "bound_ms": rows[name]["bound_ms"],
-         "bound_by": rows[name]["bound_by"], "library_ms": None,
-         "shapes": "1k solve" if name in SOLVE_KERNELS else "500-node epoch",
+         "bound_by": rows[name]["bound_by"], "library_ms": rows[name].get("library_ms"),
+         "shapes": shapes[name][0],
          "max_abs_err_large": rows_large[name]["max_abs_err"], "ms_large": rows_large[name]["ms"],
          "plain_ms_large": rows_large[name]["plain_ms"],
          "bound_ms_large": rows_large[name]["bound_ms"],
-         "shapes_large": "100k solve" if name in SOLVE_KERNELS else "10k-node epoch"}
+         "library_ms_large": rows_large[name].get("library_ms"),
+         "shapes_large": shapes[name][1]}
         for name in REPLACES
     ]
+    # K9's plain version in the reference's float32, beside the float64 one
+    kernels[list(REPLACES).index("chain_factor")].update(
+        plain_float32_ms=rows["chain_factor"]["plain_float32_ms"],
+        plain_float32_ms_large=rows_large["chain_factor"]["plain_float32_ms"])
+    # K11 on the incremental pass (8 new nodes) after the 500-node rebuild
+    kernels[list(REPLACES).index("project_rays")].update(
+        ms_incremental=row_inc["ms"], plain_ms_incremental=row_inc["plain_ms"],
+        bound_ms_incremental=row_inc["bound_ms"], max_abs_err_incremental=row_inc["max_abs_err"])
     # K8's second route, from the same source: one grid launch per pass
     # where 12·N bytes exceed one CTA's shared memory; its main path is
     # phase 7's 100k solve

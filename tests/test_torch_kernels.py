@@ -47,7 +47,8 @@ def test_nvcc_flags_target_hopper_without_fast_math():
     assert "fast_math" not in flags and "fast-math" not in flags
     assert {p.name for p in _build.sources()} == {
         "linearize.cu", "hvp.cu", "chain_apply.cu", "residual_chi2.cu", "relax_min.cu",
-        "cluster_labels.cu", "ransac_rigid.cu", "components.cu"}
+        "cluster_labels.cu", "ransac_rigid.cu", "components.cu", "chain_factor.cu", "pcg.cu",
+        "occupancy.cu"}
 
 
 def test_every_exported_function_has_a_signature_of_its_arity():
@@ -136,3 +137,186 @@ def test_epoch_kernel_argument_checks_raise():
     assert kops._root_view("src", pts[:1].expand(2, 8, 3), 2, 8, torch.device("cpu"))[1] == 0
     with pytest.raises(ValueError, match="float32"):
         kops._root_view("src", pts.double(), 2, 8, torch.device("cpu"))
+
+
+def _spd_chain(n: int, seed: int):
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(n, 6, 6)).astype(np.float32)
+    D = torch.from_numpy((A @ A.transpose(0, 2, 1) + 8 * np.eye(6)).astype(np.float32))
+    U = torch.from_numpy((0.3 * rng.normal(size=(n, 6, 6))).astype(np.float32))
+    return D, U
+
+
+def _occupancy_case():
+    """A 32² grid, three of five nodes active, one ray without a return."""
+    from uzliti_slam_tpu_torch.mapping import occupancy
+
+    rng = np.random.default_rng(2)
+    size, bins = 32, 36
+    D, bin0, Wray = map(torch.from_numpy, occupancy.center_tables(size, 0.1, bins))
+    scans = torch.from_numpy((0.5 + rng.random((5, bins))).astype(np.float32))
+    scans[1, 3] = torch.inf
+    cx = torch.tensor([16, 10, 20, 40, 16], dtype=torch.int32)
+    cy = torch.tensor([16, 12, 18, 5, 16], dtype=torch.int32)
+    kbin = torch.tensor([0, 5, -7, 2, 1], dtype=torch.int32)
+    idx = torch.tensor([0, 1, 4, 0, 0], dtype=torch.int32)
+    return (torch.zeros(size, size), cx, cy, kbin, scans, idx, torch.tensor(3, dtype=torch.int32),
+            D, bin0, Wray, 0.1, 1.5, 0.85, -0.4, 10.0, True)
+
+
+@pytest.mark.parametrize("name", ["chain_factor", "pcg", "project_rays"])
+def test_solve_and_map_kernel_wrappers_run_their_plain_version_on_cpu(name):
+    kops.reset_launches()
+    if name == "chain_factor":
+        D, U = _spd_chain(40, 0)
+        got, ref = kops.chain_factor(D, U, 8), kops.chain_factor_plain(D, U, 8)
+        pairs = list(zip([t for lv in got[0] for t in lv] + [got[1]],
+                         [t for lv in ref[0] for t in lv] + [ref[1]]))
+    elif name == "pcg":
+        b, z = _spd_chain(1, 1)[0][0], _spd_chain(1, 2)[0][0]
+        got, ref = kops.pcg_init(b, z), kops.pcg_init_plain(b, z)
+        kops.pcg_alpha(got[2], 2.0 * got[2], got[0], got[1], got[3], 1e-8)
+        kops.pcg_alpha_plain(ref[2], 2.0 * ref[2], ref[0], ref[1], ref[3], 1e-8)
+        kops.pcg_beta(got[1], 0.5 * got[1], got[2], got[3])
+        kops.pcg_beta_plain(ref[1], 0.5 * ref[1], ref[2], ref[3])
+        pairs = list(zip(got, ref))
+    else:
+        args = _occupancy_case()
+        got = kops.project_rays(*args)
+        ref, mag = kops.project_rays_plain(*args)
+        pairs = [(got, ref)]
+        assert (ref > 0).any() and (ref < 0).any() and float(mag.max()) > 0
+    for a, b in pairs:
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert kops.launches == {k: 0 for k in kops.launches}
+
+
+def test_project_rays_plain_marks_and_skips_inactive_nodes():
+    args = list(_occupancy_case())
+    out, _ = kops.project_rays_plain(*args)
+    args[-1] = False
+    unmarked, _ = kops.project_rays_plain(*args)
+    # node 0 and node 4 share cell (16, 16): two marks of 2·miss there
+    assert float(out[16, 16] - unmarked[16, 16]) == pytest.approx(4 * -0.4, abs=1e-6)
+    diff = (out - unmarked).abs() > 0
+    assert int(diff.sum()) == 2 and bool(diff[12, 10])   # node 1's cell; node 2 is inactive
+    args[6] = torch.tensor(0, dtype=torch.int32)          # no active node: the base grid
+    assert torch.equal(kops.project_rays_plain(*args)[0], args[0])
+
+
+class _FakeLib:
+    """Records the C calls a wrapper makes; every call returns ``err``."""
+
+    def __init__(self, err: int = 0):
+        self.calls, self.err = [], err
+
+    def __getattr__(self, name):
+        def call(*args):
+            self.calls.append((name, args))
+            return self.err
+        return call
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(*shape, dtype=dtype, device="meta")
+
+
+@pytest.fixture
+def fake_lib(monkeypatch):
+    lib = _FakeLib()
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    monkeypatch.setattr(kops, "_stream", lambda dev: 0)
+    kops.reset_launches()
+    return lib
+
+
+def test_chain_factor_launches_one_level_kernel_per_level_and_the_root(fake_lib):
+    levels, root_inv, n = kops.chain_factor(_meta(200, 6, 6), _meta(200, 6, 6), 16)
+    names = [c[0] for c in fake_lib.calls]
+    assert names == ["uz_chain_factor_level"] * 4 + ["uz_chain_factor_root"]
+    # (float64 input?, valid rows, halves): the caller's float32 D, U first
+    assert [c[1][2:5] for c in fake_lib.calls[:4]] == [
+        (0, 200, 128), (1, 128, 64), (1, 64, 32), (1, 32, 16)]
+    assert fake_lib.calls[-1][1][2:5] == (1, 16, 16) and tuple(root_inv.shape) == (96, 96)
+    # no flag: always build (the flag is the level's 13th and the root's 8th argument)
+    assert all(c[1][12] is None for c in fake_lib.calls[:4]) and fake_lib.calls[4][1][7] is None
+    assert kops.launches["chain_factor"] == 1 and n == 200
+    held = (levels, root_inv, n)
+    kops.chain_factor(_meta(200, 6, 6), _meta(200, 6, 6), 16, held=held,
+                      need=_meta((), dtype=torch.bool))
+    assert kops.launches["chain_factor"] == 2 and len(fake_lib.calls) == 10
+    kops.chain_apply(held, _meta(200, 6))
+    names = [c[0] for c in fake_lib.calls[10:]]
+    assert names == ["uz_chain_forward"] * 4 + ["uz_chain_root"] + ["uz_chain_backward"] * 4
+    kops.chain_apply(kops.chain_factor(_meta(12, 6, 6), _meta(12, 6, 6)), _meta(12, 6))
+    root_call = fake_lib.calls[-1]
+    assert root_call[0] == "uz_chain_root" and root_call[1][2:6] == (12, 96, 0, 12)
+    assert kops.launches["chain_apply"] == 2
+
+
+@pytest.mark.parametrize("n, grid", [(10, False), (5461, False), (5462, True), (100_000, True)])
+def test_pcg_launches_through_the_library_on_its_route(fake_lib, n, grid):
+    x, r, p, scal = kops.pcg_init(_meta(n, 6), _meta(n, 6))
+    kops.pcg_alpha(p, _meta(n, 6), x, r, scal, 1e-8)
+    kops.pcg_beta(r, _meta(n, 6), p, scal)
+    assert [c[0] for c in fake_lib.calls] == ["uz_pcg_init", "uz_pcg_alpha", "uz_pcg_beta"]
+    assert fake_lib.calls[0][1][2] == 6 * n and kops.launches["pcg"] == 3
+    # the grid route's partials: two per 4096-float chunk; none on one CTA
+    partials = [c[1][-2] for c in fake_lib.calls]
+    assert all((ptr is not None) == grid for ptr in partials)
+    assert tuple(scal.shape) == (4,)
+
+
+def test_project_rays_launches_through_the_library(fake_lib):
+    i32 = torch.int32
+    out = kops.project_rays(_meta(32, 32), _meta(5, dtype=i32), _meta(5, dtype=i32),
+                            _meta(5, dtype=i32), _meta(5, 36), _meta(5, dtype=i32),
+                            _meta((), dtype=i32), _meta(1024), _meta(1024, dtype=i32),
+                            _meta(1024), 0.1, 6.0, 0.85, -0.4, 10.0, True)
+    assert tuple(out.shape) == (32, 32) and kops.launches["project_rays"] == 1
+    assert fake_lib.calls[-1][0] == "uz_project_rays"
+    assert fake_lib.calls[-1][1][12:20] == pytest.approx((0.1, 0.071, 6.0, 0.85, -0.4, 10.0, 1,
+                                                          -0.8))
+
+
+def test_a_failed_launch_raises_and_is_not_counted(fake_lib):
+    fake_lib.err = 9
+    with pytest.raises(RuntimeError, match="chain_factor: CUDA launch failed with cudaError_t 9"):
+        kops.chain_factor(_meta(64, 6, 6), _meta(64, 6, 6))
+    with pytest.raises(RuntimeError, match="pcg: CUDA launch failed"):
+        kops.pcg_init(_meta(4, 6), _meta(4, 6))
+    assert kops.launches["chain_factor"] == kops.launches["pcg"] == 0
+
+
+def test_solve_and_map_kernel_argument_checks_raise(fake_lib):
+    D = _meta(200, 6, 6)
+    with pytest.raises(ValueError, match="refresh flag needs a held factor"):
+        kops.chain_factor(D, D, 16, need=_meta((), dtype=torch.bool))
+    with pytest.raises(ValueError, match="at most 64"):
+        kops.chain_factor(D, D, 128)
+    held = kops.chain_factor(_meta(100, 6, 6), _meta(100, 6, 6), 16)
+    with pytest.raises(ValueError, match="other shapes"):
+        kops.chain_factor(D, D, 16, held=held, need=_meta((), dtype=torch.bool))
+    held = kops.chain_factor(D, D, 16)
+    with pytest.raises(TypeError, match="need: dtype"):
+        kops.chain_factor(D, D, 16, held=held, need=_meta(()))
+    with pytest.raises(ValueError, match="U: shape"):
+        kops.chain_factor(D, _meta(199, 6, 6), 16)
+    with pytest.raises(ValueError, match="Hp: shape"):
+        kops.pcg_alpha(_meta(4, 6), _meta(5, 6), _meta(4, 6), _meta(4, 6), _meta(4), 1e-8)
+    with pytest.raises(ValueError, match="scal: shape"):
+        kops.pcg_beta(_meta(4, 6), _meta(4, 6), _meta(4, 6), _meta(3))
+    i32 = torch.int32
+    good = [_meta(32, 32), _meta(5, dtype=i32), _meta(5, dtype=i32), _meta(5, dtype=i32),
+            _meta(5, 36), _meta(5, dtype=i32), _meta((), dtype=i32), _meta(1024),
+            _meta(1024, dtype=i32), _meta(1024)]
+    for pos, bad, err in ((5, _meta(5, dtype=torch.int64), "idx: dtype"),
+                          (6, _meta(1, dtype=i32), "count: shape"),
+                          (8, _meta(1024), "bin0: dtype"),
+                          (4, _meta(5, 36, dtype=torch.float64), "scans: dtype")):
+        args = list(good)
+        args[pos] = bad
+        with pytest.raises((TypeError, ValueError), match=err):
+            kops.project_rays(*args, 0.1, 6.0, 0.85, -0.4, 10.0, True)
+    # only the two factors built for the held-factor cases reached the library
+    assert {c[0] for c in fake_lib.calls} == {"uz_chain_factor_level", "uz_chain_factor_root"}

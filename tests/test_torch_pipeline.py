@@ -13,7 +13,13 @@ Tolerances, with their reasons:
   tail can start one step apart at a near-tie, so accept flags are not
   compared for the epoch);
 - poses, ``diff_transform`` and uncertainty ``atol=1e-3``: poses from two
-  solves that agree to that, and path lengths over such poses.
+  solves that agree to that, and path lengths over such poses;
+- the occupancy grid projected after the epoch: the origin (the centre of
+  the poses' bounding box) ``atol=1e-3``, as the poses; node cells and
+  bearing shifts exactly (counted first: the poses of the two solves
+  differ by at most 1.8e-4 m here, and no node lies that close to a cell
+  edge or a rounding tie of its bin), then log-odds ``atol=1e-4``, as
+  tests/test_torch_occupancy.py.
 """
 
 import dataclasses
@@ -29,12 +35,15 @@ from uzliti_slam_tpu import pipeline as jpipeline
 from uzliti_slam_tpu.graph import solver as jsolver
 from uzliti_slam_tpu.graph import state as jstate
 from uzliti_slam_tpu.io import synthetic as jsynthetic
+from uzliti_slam_tpu.mapping import occupancy as jocc
 from uzliti_slam_tpu.ops import lie as jlie
 from uzliti_slam_tpu.ops import ransac as jransac
 from uzliti_slam_tpu_torch import config as tconfig
 from uzliti_slam_tpu_torch import pipeline as tpipeline
 from uzliti_slam_tpu_torch.graph import solver as tsolver
 from uzliti_slam_tpu_torch.graph import state as tstate
+from uzliti_slam_tpu_torch.mapping import occupancy as tocc
+from uzliti_slam_tpu_torch.ops import lie as tlie
 
 KEY = jax.random.PRNGKey(0)
 
@@ -155,9 +164,43 @@ def test_odometry_restart_matches_jax(restart_graph, margin, need, monkeypatch):
         assert st_t.chi2_history[-1] < 0.5 * st_a.chi2_history[-1]
 
 
+def test_project_map_after_epoch_matches_jax(epoch_pair):
+    """Slam.optimize's tick: optimize_epoch, then project_map (a full
+    rebuild into a fresh grid), against JAX's epoch then occupancy.project."""
+    (s_j, _), (s_t, _), _, _ = epoch_pair
+    n = s_t.graph.node_capacity
+    scans = (2.0 + 3.0 * np.random.default_rng(7).random((n, 180))).astype(np.float32)
+    sv = s_t.graph.node_valid.numpy().copy()
+    cfg_t = tconfig.SlamConfig(node_capacity=64, edge_capacity=256, scan_bins=180)
+    grid_t = tpipeline.project_map(
+        s_t.replace(scans=torch.from_numpy(scans), scan_valid=torch.from_numpy(sv)), cfg_t)
+    cfg_j = jocc.GridConfig()
+    grid_j = jocc.project(jocc.grid_init(s_j.graph, cfg_j), s_j.graph, jnp.asarray(scans),
+                          jnp.asarray(sv), cfg_j, force_full=True)
+    np.testing.assert_allclose(grid_t.origin.numpy(), np.asarray(grid_j.origin), atol=1e-3)
+    # same node cells and bearing shifts on both sides, counted before the grid
+    cx_t, cy_t = tocc._node_cells(s_t.graph.pose, grid_t.origin, cfg_j.resolution)
+    inv = np.float32(1.0) / np.float32(cfg_j.resolution)
+    cell_j = np.floor((np.asarray(s_j.graph.pose)[:, :2] - np.asarray(grid_j.origin)) * inv)
+    yaw_j = np.asarray(jlie.yaw_of(jlie.pose_q(s_j.graph.pose)))
+    yaw_t = tlie.yaw_of(tlie.pose_q(s_t.graph.pose)).numpy()
+    assert int((cell_j[:, 0] != cx_t.numpy()).sum() + (cell_j[:, 1] != cy_t.numpy()).sum()) == 0
+    assert int((np.round(yaw_j * 180 / (2 * np.pi)) != np.round(yaw_t * 180 / (2 * np.pi))).sum()) == 0
+    np.testing.assert_allclose(grid_t.logodds.numpy(), np.asarray(grid_j.logodds), atol=1e-4,
+                               rtol=0)
+    assert int(grid_t.last_projected) == int(grid_j.last_projected) == 60
+    np.testing.assert_array_equal(tpipeline.map_ternary(grid_t).numpy(),
+                                  np.asarray(jocc.to_ternary(grid_j)))
+    p = tpipeline.map_probability(grid_t).numpy()
+    assert p.min() >= 0 and p.max() <= 1 and (p > 0.65).sum() > 0 and (p < 0.35).sum() > 0
+
+
 def test_slam_config_fields_and_defaults_match_jax():
+    assert {"scan_bins", "grid", "project_map"} <= {
+        f.name for f in dataclasses.fields(tconfig.SlamConfig)}
     for t_cls, j_cls in ((tconfig.SlamConfig, jconfig.SlamConfig),
-                         (tconfig.ScopeConfig, jconfig.ScopeConfig)):
+                         (tconfig.ScopeConfig, jconfig.ScopeConfig),
+                         (tocc.GridConfig, jocc.GridConfig)):
         ref = {f.name: f.default for f in dataclasses.fields(j_cls)}
         for f in dataclasses.fields(t_cls):
             if dataclasses.is_dataclass(f.default):
@@ -176,6 +219,16 @@ def test_init_state_and_state_from_numpy():
                               seed=3, device="cpu")
     assert st.graph.node_capacity == 16 and st.graph.edge_capacity == 32
     assert st.generator.device.type == "cpu"
+    # scans as JAX's init_state makes them: +inf ranges, none valid
+    st_j = jpipeline.init_state(jconfig.SlamConfig(node_capacity=16, edge_capacity=32))
+    np.testing.assert_array_equal(st.scans.numpy(), np.asarray(st_j.scans))
+    np.testing.assert_array_equal(st.scan_valid.numpy(), np.asarray(st_j.scan_valid))
+    scans = np.arange(16 * 360, dtype=np.float32).reshape(16, 360)
+    st2 = tpipeline.state_from_numpy({"graph": _graph_arrays(jstate.empty_graph(16, 32)),
+                                      "scans": scans, "scan_valid": np.arange(16) < 3},
+                                     device="cpu")
+    np.testing.assert_array_equal(st2.scans.numpy(), scans)
+    assert st2.scan_valid.numpy().tolist() == [True] * 3 + [False] * 13
     arrays = _graph_arrays(jstate.empty_graph(16, 32))
     back = tstate.to_numpy(tpipeline.state_from_numpy({"graph": arrays}, device="cpu").graph)
     for k, v in arrays.items():

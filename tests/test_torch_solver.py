@@ -26,10 +26,12 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import reference_refreshes
 from uzliti_slam_tpu.graph import factors as jfactors
 from uzliti_slam_tpu.graph import oracle as joracle
 from uzliti_slam_tpu.graph import solver as jsolver
 from uzliti_slam_tpu.graph import state as jstate
+from uzliti_slam_tpu.graph import tridiag as jtridiag
 from uzliti_slam_tpu.io import synthetic as jsynthetic
 from uzliti_slam_tpu.ops import lie as jlie
 from uzliti_slam_tpu_torch.graph import oracle as toracle
@@ -190,3 +192,62 @@ def test_unsupported_options_raise(option, graph128):
     name = next(iter(option))
     with pytest.raises(NotImplementedError, match=name):
         tsolver.optimize(_to_port(graph128), cfg)
+
+
+def _pcg_problem(g):
+    """H pieces of the first LM iteration at perturbed poses (JAX side) and
+    the port's copies: (jax hvp, jax apply, jax b, port hvp, port apply,
+    port b)."""
+    free, adj, r = _linearization_inputs(g)
+    cfg = jsolver.SolverConfig(**HEADLINE)
+    Ji, Jj, W, grad, Hb, U = jsolver._make_fused_linearize(g, free, cfg, adj)(r)
+    damp = 1e-4 * jnp.maximum(jax.vmap(jnp.diag)(Hb), 1e-6)
+    Dm = jnp.where(free[:, None, None] > 0, Hb + jax.vmap(jnp.diag)(damp), jnp.eye(6))
+    pack_j = jtridiag.block_tridiag_factor(Dm, U)
+    hvp_j = jsolver._make_hvp(g, Ji, Jj, W, damp, free)
+
+    gt = _to_port(g)
+    t = [torch.from_numpy(np.array(a)) for a in (Ji, Jj, W, damp, free, Dm, U, grad)]
+    Ji_t, Jj_t, W_t, damp_t, free_t, Dm_t, U_t, grad_t = t
+    pack_t = kops.chain_factor(Dm_t, U_t)
+    return (hvp_j, lambda rr: jtridiag.block_tridiag_apply(pack_j, rr), -grad,
+            lambda v: kops.hvp(Ji_t, Jj_t, W_t, gt.e_from, gt.e_to, v, damp_t, free_t),
+            lambda rr: kops.chain_apply(pack_t, rr), -grad_t)
+
+
+@pytest.mark.parametrize("tol", [1e-8, 2e-3], ids=["converging", "stall_mask_trips"])
+def test_pcg_updates_match_jax(graph128, tol):
+    hvp_j, apply_j, b_j, hvp_t, apply_t, b_t = _pcg_problem(graph128)
+    x_j = np.asarray(jsolver._pcg(hvp_j, apply_j, b_j, 12, tol))
+    x_t = tsolver._pcg(hvp_t, apply_t, b_t, 12, tol).numpy()
+    _close_rel(x_t, x_j)
+    # the stall flag is K10's third scalar; once it is 0 nothing moves
+    x, r, p, scal = kops.pcg_init(b_t, apply_t(b_t))
+    oks = []
+    for _ in range(12):
+        kops.pcg_alpha(p, hvp_t(p), x, r, scal, tol)
+        kops.pcg_beta(r, apply_t(r), p, scal)
+        oks.append(bool(scal[2]))
+    np.testing.assert_array_equal(x.numpy(), x_t)
+    if tol == 1e-8:
+        assert all(oks)
+    else:
+        assert oks[0] and not oks[-1]
+        assert oks == sorted(oks, reverse=True)        # stays stalled
+        x24 = tsolver._pcg(hvp_t, apply_t, b_t, 24, tol).numpy()
+        np.testing.assert_array_equal(x24, x_t)
+
+
+def test_early_exit_builds_a_factor_only_when_the_reference_does(graph128):
+    # the reference's refresh rule replayed on JAX's own history, by the
+    # function the card check uses
+    g_j, st_j = jsolver.optimize(graph128, jsolver.SolverConfig())
+    builds = kops.factor_builds("cpu")
+    before = int(builds)
+    g_t, st_t = tsolver.optimize(_to_port(graph128), tsolver.SolverConfig())
+    hist_j = np.asarray(st_j.chi2_history)
+    np.testing.assert_allclose(st_t.chi2_history.numpy(), hist_j, rtol=1e-3,
+                               atol=1e-6 * hist_j[0])
+    expected = reference_refreshes(hist_j, np.asarray(st_j.accepted), tsolver.SolverConfig())
+    assert int(builds) - before == expected
+    assert 1 < expected < 20

@@ -1,12 +1,15 @@
-"""The port's configuration: what the optimization epoch reads.
+"""The port's configuration: what the optimization tick reads.
 
 Counterpart of ``uzliti_slam_tpu/config.py`` with the same names and
-defaults.  ``SlamConfig`` carries only the fields ``pipeline.optimize_epoch``
-reads (capacities, the solver, the loop-closure filter and the scope's
-heuristic factor); the fields of the slices not ported yet (front-end,
-recognition, estimation, keyframing, occupancy grid, database sync,
-odometry calibration, depth units, the instance id) are left out until
-those slices are ported.
+defaults.  ``SlamConfig`` carries only the fields that
+``pipeline.optimize_epoch`` and ``pipeline.project_map`` read (capacities,
+the scan bins, the solver, the loop-closure filter, the scope's heuristic
+factor, the occupancy grid), and ``project_map``, the reference's switch
+for the projection after an epoch, kept for parity: the port has no
+``Slam`` shell yet, so nothing reads it and the caller decides.  The
+fields of the slices not ported yet (front-end, recognition, estimation,
+keyframing, database sync, odometry calibration, depth units, the
+instance id) wait for those slices.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import dataclasses
 
 from uzliti_slam_tpu_torch.graph.filter import FilterConfig
 from uzliti_slam_tpu_torch.graph.solver import SolverConfig
+from uzliti_slam_tpu_torch.mapping.occupancy import GridConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +40,7 @@ class ScopeConfig:
 class SlamConfig:
     node_capacity: int = 512
     edge_capacity: int = 2048
+    scan_bins: int = 360
     # the live solver: multi-start from the odometry prior, chain-PCG with
     # 12 steps, factor refreshed every 5 accepted steps, early exit
     solver: SolverConfig = SolverConfig(
@@ -44,3 +49,6 @@ class SlamConfig:
     )
     filter: FilterConfig = FilterConfig()
     scope: ScopeConfig = ScopeConfig()
+    # the occupancy grid projected after every optimization epoch
+    grid: GridConfig = GridConfig()
+    project_map: bool = True

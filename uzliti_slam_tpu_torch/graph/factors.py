@@ -56,8 +56,10 @@ def huber_weight(chi2: torch.Tensor, delta: float = 1.0) -> torch.Tensor:
 
 
 def edge_chi2(r: torch.Tensor, info: torch.Tensor) -> torch.Tensor:
-    """chi2 = r^T Λ r per edge (batched)."""
-    return torch.einsum("...i,...ij,...j->...", r, info, r)
+    """chi2 = r^T Λ r per edge (batched), as broadcast sums: on a CUDA
+    device a batched einsum goes to cuBLAS, and the solve calls no library
+    kernel."""
+    return ((info * r[..., None, :]).sum(-1) * r).sum(-1)
 
 
 def weighted_info(r: torch.Tensor, info: torch.Tensor, valid: torch.Tensor,

@@ -5,10 +5,10 @@ PyTorch counterpart of ``uzliti_slam_tpu/graph/solver.py`` for the path its
 the fixed-iteration chunked form (``early_exit=False``, the headline) and
 the early-exit form (the library default).  Per LM iteration: one fused
 linearization (kernel K1), a fixed count of PCG steps whose Hessian-vector
-products are kernel K2 and whose preconditioner applies are kernel K3, and
-one retraction whose residuals and robust χ² are kernel K4.  Connected
-components and gauge fixing are kernel K8.  The chain factor itself and the
-PCG vector updates are plain PyTorch.
+products are kernel K2, whose preconditioner applies are kernel K3 and
+whose vector updates are kernel K10, and one retraction whose residuals and
+robust χ² are kernel K4.  The chain factor is kernel K9, connected
+components and gauge fixing are kernel K8.
 
 The loop never reads a device value on the host: accept/reject, the λ
 schedule, the PCG stall mask and the early-exit flag are all tensors
@@ -128,29 +128,16 @@ def _weighted_info(g: GraphState, r: torch.Tensor, huber_delta: float) -> torch.
 
 
 def _pcg(hvp, apply_minv, b, iterations: int, tol: float):
-    """Preconditioned CG for H dx = b. Fixed iteration count, masked stall."""
+    """Preconditioned CG for H dx = b. Fixed iteration count, masked stall.
 
-    def vdot(a, c):
-        return torch.sum(a * c)
-
-    x = torch.zeros_like(b)
-    r = b
-    z = apply_minv(r)
-    p = z
-    rz = vdot(r, z)
-    b2 = vdot(b, b)
+    Each step is K2 (``hvp``) → K10 → K3 (``apply_minv``) → K10 on a CUDA
+    device: the dots, axpys and stall logic of the reference's body
+    (``solver.py:512-540``) are kernel K10, with its scalars on the device.
+    """
+    x, r, p, scal = kops.pcg_init(b, apply_minv(b))
     for _ in range(iterations):
-        Hp = hvp(p)
-        pHp = vdot(p, Hp)
-        ok = (pHp > 1e-20) & (rz > tol * (b2 + 1e-30))
-        alpha = torch.where(ok, rz / torch.where(pHp == 0, 1.0, pHp), 0.0)
-        x = x + alpha * p
-        r = r - alpha * Hp
-        z = apply_minv(r)
-        rz_new = vdot(r, z)
-        beta = torch.where(ok, rz_new / torch.where(rz == 0, 1.0, rz), 0.0)
-        p = torch.where(ok, z + beta * p, p)
-        rz = torch.where(ok, rz_new, rz)
+        kops.pcg_alpha(p, hvp(p), x, r, scal, tol)
+        kops.pcg_beta(r, apply_minv(r), p, scal)
     return x
 
 
@@ -180,11 +167,13 @@ class _Problem:
     def damp(self, lam, Hb):
         return lam * torch.clamp(torch.diagonal(Hb, dim1=-2, dim2=-1), min=1e-6)
 
-    def build_pack(self, Hb, U, damp):
-        """Chain factor of the damped block-tridiagonal part of H."""
+    def build_pack(self, Hb, U, damp, held=None, need=None):
+        """Chain factor of the damped block-tridiagonal part of H (K9); with
+        ``held`` and ``need``, ``held`` rebuilt in place where ``need``."""
         Dm = torch.where(self.free[:, None, None] > 0, Hb + torch.diag_embed(damp),
                          self.eye6)
-        return tridiag.block_tridiag_factor(Dm, U, self.config.chain_dense_cutoff)
+        return tridiag.block_tridiag_factor(Dm, U, self.config.chain_dense_cutoff,
+                                            held=held, need=need)
 
     def step(self, poses, pack, Ji, Jj, W, grad, damp):
         """One PCG solve + retraction: (cand, r_cand, chi2_new)."""
@@ -231,10 +220,12 @@ def _lm_early_exit(p: _Problem, r0, chi2_0):
     steps that turn into no-ops once ``done`` is set.
 
     The factor is refreshed every ``precond_refresh`` accepted steps and
-    right after a rejected one.  That choice depends on device values, so
-    from the second iteration on the candidate factor is built every step
-    and kept with ``torch.where``: factor work is traded for a loop with no
-    host synchronisation.
+    right after a rejected one, and not once ``done`` is set (the reference
+    leaves its loop then).  That choice depends on device values, so the
+    solve holds one private factor and K9 rebuilds it in place only where
+    the device flag ``need`` is set (on CPU tensors the fresh factor is
+    selected into it with ``torch.where``): a factor is built exactly when
+    the reference builds one, with no host synchronisation.
     """
     cfg = p.config
     dev, dt = r0.device, r0.dtype
@@ -249,12 +240,11 @@ def _lm_early_exit(p: _Problem, r0, chi2_0):
         Ji, Jj, W, grad, Hb, U = p.linearize(r)
         damp = p.damp(lam, Hb)
         # refresh on schedule OR right after a rejected step
-        fresh = p.build_pack(Hb, U, damp)
         if pack is None:
-            pack = fresh
+            pack = p.build_pack(Hb, U, damp)
         else:
-            need = stale >= refresh
-            pack = _select_pack(need, fresh, pack)
+            need = (stale >= refresh) & ~done
+            pack = p.build_pack(Hb, U, damp, held=pack, need=need)
             stale = torch.where(need, 0, stale)
         cand, r_cand, chi2_new = p.step(poses, pack, Ji, Jj, W, grad, damp)
         active = ~done
@@ -279,16 +269,6 @@ def _lm_early_exit(p: _Problem, r0, chi2_0):
         hist.append(chi2_cur)
         acc.append(accept)
     return poses, lam, hist, acc
-
-
-def _select_pack(need: torch.Tensor, fresh, old):
-    levels_f, root_f, n = fresh
-    levels_o, root_o, _ = old
-    levels = tuple(
-        tuple(torch.where(need, a, b) for a, b in zip(lf, lo))
-        for lf, lo in zip(levels_f, levels_o)
-    )
-    return levels, torch.where(need, root_f, root_o), n
 
 
 def _residuals(g: GraphState, poses: torch.Tensor, huber_delta: float):

@@ -48,6 +48,14 @@ SIGNATURES = {
                         _P, _P, _P, _P, _P, _P, _P, _P],
     "uz_components": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "uz_gauge_fix": [_P, _P, _P, _P, _I, _P, _P, _P],
+    "uz_chain_root": [_P, _P, _I, _I, _P, _I, _P],
+    "uz_chain_factor_level": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "uz_chain_factor_root": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "uz_pcg_init": [_P, _P, _I, _P, _P, _P, _P, _P, _P],
+    "uz_pcg_alpha": [_P, _P, _I, _F, _P, _P, _P, _P, _P],
+    "uz_pcg_beta": [_P, _P, _I, _P, _P, _P, _P],
+    "uz_project_rays": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _F,
+                        _F, _I, _F, _P, _P],
 }
 
 _lib = None

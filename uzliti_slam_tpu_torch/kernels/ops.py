@@ -24,6 +24,13 @@ ransac_rigid   csrc/ransac_rigid.cu    ops/ransac.py:ransac_rigid (+ kabsch,
 components     csrc/components.cu      graph/solver.py:connected_components,
                                        gauge_fix_mask (two wrappers, one
                                        count)
+chain_factor   csrc/chain_factor.cu    graph/tridiag.py:block_tridiag_factor
+                                       (+ _inv3, _inv6, _pad_pow2,
+                                       _dense_root_inverse)
+pcg            csrc/pcg.cu             graph/solver.py:_pcg's vector updates
+                                       (three wrappers, one count)
+project_rays   csrc/occupancy.cu       mapping/occupancy.py:_project_rays +
+                                       _mark_node_cells
 =============  ======================  =======================================
 
 What bounds each kernel on the card, and what its design does about it, is
@@ -38,7 +45,8 @@ from uzliti_slam_tpu_torch.graph import factors
 from uzliti_slam_tpu_torch.kernels import _build
 
 launches = {"linearize": 0, "hvp": 0, "chain_apply": 0, "residual_chi2": 0,
-            "relax_min": 0, "cluster_labels": 0, "ransac_rigid": 0, "components": 0}
+            "relax_min": 0, "cluster_labels": 0, "ransac_rigid": 0, "components": 0,
+            "chain_factor": 0, "pcg": 0, "project_rays": 0}
 
 _THREADS = 256  # kThreads in csrc/lie.cuh: K4's partial sums, one per block
 _SMEM_BYTES = 232448  # shared memory one CTA can use on Hopper
@@ -208,17 +216,13 @@ def chain_apply_plain(factor, b):
 
 
 def chain_apply(factor, b):
-    """K3: the chain preconditioner's forward/back substitution."""
+    """K3: the chain preconditioner's forward/back substitution and the
+    root matvec."""
     if b.device.type == "cpu":
         return chain_apply_plain(factor, b)
     levels, root_inv, n_orig = factor
     dev, f32 = b.device, torch.float32
     _check("b", b, (n_orig, 6), f32, dev)
-    if not levels:
-        # no reduction level: the root covers the (padded) system alone
-        n2 = _pow2(n_orig)
-        bk = torch.cat([b, b.new_zeros(n2 - n_orig, 6)])
-        return (root_inv @ bk.reshape(-1)).reshape(-1, 6)[:n_orig]
     lib = _build.load()
     stream = _stream(dev)
     bufs, valid_rows = [b], [n_orig]
@@ -235,11 +239,14 @@ def chain_apply(factor, b):
         _raise_on(err, "chain_apply")
         bufs.append(out)
         valid_rows.append(half)
-    m_root = bufs[-1].shape[0]
-    if tuple(root_inv.shape) != (6 * m_root, 6 * m_root):   # a torch.matmul operand
-        raise ValueError(f"root_inv: shape {tuple(root_inv.shape)}, expected "
-                         f"{(6 * m_root, 6 * m_root)}")
-    x =(root_inv @ bufs[-1].reshape(-1)).reshape(m_root, 6)
+    # the root: m_root blocks, or the padded system when there is no level
+    m_root = levels[-1][0].shape[0] if levels else _pow2(n_orig)
+    root_rows = m_root if levels else n_orig
+    x = torch.empty(root_rows, 6, dtype=f32, device=dev)
+    err = lib.uz_chain_root(_check("root_inv", root_inv, (6 * m_root, 6 * m_root), f32, dev),
+                            bufs[-1].data_ptr(), valid_rows[-1], 6 * m_root, x.data_ptr(),
+                            root_rows, stream)
+    _raise_on(err, "chain_apply")
     for li in reversed(range(len(levels))):
         Dinv_o, _, _, G1, G2 = levels[li]
         half = Dinv_o.shape[0]
@@ -560,3 +567,430 @@ def gauge_fix(labels, node_valid, node_fixed, stamp):
     _raise_on(err, "components")
     launches["components"] += 1
     return gauge
+
+
+# ---------------------------------------------------------------------------
+# K9 chain_factor
+# ---------------------------------------------------------------------------
+
+def _inv3(M: torch.Tensor) -> torch.Tensor:
+    """Closed-form batched 3x3 inverse (adjugate / determinant)."""
+    a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+    g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+    A = e * i - f * h
+    B = -(d * i - f * g)
+    C = d * h - e * g
+    det = a * A + b * B + c * C
+    det = torch.where(torch.abs(det) < 1e-30, torch.full_like(det, 1e-30), det)
+    inv = torch.stack(
+        [
+            A, -(b * i - c * h), b * f - c * e,
+            B, a * i - c * g, -(a * f - c * d),
+            C, -(a * h - b * g), a * e - b * d,
+        ],
+        dim=-1,
+    ).reshape(M.shape)
+    return inv / det[..., None, None]
+
+
+def _inv6(M: torch.Tensor) -> torch.Tensor:
+    """Batched SPD-ish 6x6 inverse with a 1e-8·I damping floor: 2x2-block
+    Schur inversion over 3x3 sub-blocks, each inverted in closed form."""
+    M = M + 1e-8 * torch.eye(6, dtype=M.dtype, device=M.device)
+    A = M[..., :3, :3]
+    B = M[..., :3, 3:]
+    C = M[..., 3:, :3]
+    D = M[..., 3:, 3:]
+    Ainv = _inv3(A)
+    AinvB = Ainv @ B
+    S = D - C @ AinvB          # Schur complement of A (SPD for damped SPD M)
+    Sinv = _inv3(S)
+    CAinv = C @ Ainv
+    TL = Ainv + AinvB @ Sinv @ CAinv
+    TR = -AinvB @ Sinv
+    BL = -Sinv @ CAinv
+    top = torch.cat([TL, TR], dim=-1)
+    bot = torch.cat([BL, Sinv], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def _pad_pow2(D: torch.Tensor, U: torch.Tensor):
+    """D padded with identity blocks and U with zero blocks to 2^k rows."""
+    n = D.shape[0]
+    n2 = _pow2(n)
+    if n2 == n:
+        return D, U
+    pad = n2 - n
+    eye = torch.eye(6, dtype=D.dtype, device=D.device).expand(pad, 6, 6)
+    return torch.cat([D, eye]), torch.cat([U, U.new_zeros(pad, 6, 6)])
+
+
+def root_matrix_plain(Dk: torch.Tensor, Uk: torch.Tensor) -> torch.Tensor:
+    """The dense (6m, 6m) root system tridiag(Uᵀ, D, U) + 1e-8·I that the
+    factor inverts (Uk[m-1] is not read)."""
+    m = Dk.shape[0]
+    dev, dt = Dk.device, Dk.dtype
+    eye = torch.eye(m, dtype=dt, device=dev)
+    sup = torch.diag(torch.ones(m - 1, dtype=dt, device=dev), 1)
+    Us = torch.cat([Uk[: m - 1], Uk.new_zeros(1, 6, 6)])
+    # A[i, :, j, :] = D[i] (i=j), U[i] (j=i+1), U[j]ᵀ (j=i-1)
+    A = (
+        torch.einsum("ij,iab->iajb", eye, Dk)
+        + torch.einsum("ij,iab->iajb", sup, Us)
+        + torch.einsum("ji,jba->iajb", sup, Us)
+    ).reshape(m * 6, m * 6)
+    return A + 1e-8 * torch.eye(m * 6, dtype=dt, device=dev)
+
+
+def _dense_root_inverse(Dk: torch.Tensor, Uk: torch.Tensor) -> torch.Tensor:
+    """Dense inverse of the remaining (m·6)×(m·6) block-tridiagonal system,
+    by LU (``torch.linalg.inv_ex``: no error check, so no host sync), in
+    row-major layout (the CUDA library returns it column-major)."""
+    if Dk.shape[0] == 1:
+        return _inv6(Dk[0])
+    return torch.linalg.inv_ex(root_matrix_plain(Dk, Uk))[0].contiguous()
+
+
+def chain_reduce_plain(D: torch.Tensor, U: torch.Tensor, dense_cutoff: int = 64,
+                       work_dtype: torch.dtype = torch.float64):
+    """The factor's reduction levels, computed in ``work_dtype`` and stored
+    in D's dtype, and the root blocks (Dk, Uk) they leave, in
+    ``work_dtype``.  Float64 by default, as K9 computes: each level's newD
+    cancels, and a float32 reduction (the reference's) loses about a bit
+    per level (2.6e-4 of the largest entry after 11 levels)."""
+    out_dtype = D.dtype
+    n_orig = D.shape[0]
+    D, U = D.to(work_dtype), U.to(work_dtype).clone()
+    U[n_orig - 1] = 0.0
+    D, U = _pad_pow2(D, U)
+    eye = torch.eye(6, dtype=D.dtype, device=D.device)
+    levels = []
+    Dk, Uk = D, U
+    while Dk.shape[0] > max(dense_cutoff, 1):
+        De, Do = Dk[0::2], Dk[1::2]
+        Ueo = Uk[0::2]          # couples even j -> odd j+1
+        Uoe = Uk[1::2]          # couples odd j+1 -> even j+2
+        Dinv_o = _inv6(Do)
+        Uoe_m = torch.cat([Uoe.new_zeros(1, 6, 6), Uoe[:-1]])
+        Dinv_om = torch.cat([eye[None], Dinv_o[:-1]])
+
+        P1m = Uoe_m.transpose(-1, -2) @ Dinv_om
+        P2 = Ueo @ Dinv_o
+        G1 = Dinv_o @ Ueo.transpose(-1, -2)
+        G2 = Dinv_o @ Uoe
+
+        t1 = P1m @ Uoe_m
+        t2 = P2 @ Ueo.transpose(-1, -2)
+        newD = De - t1 - t2
+        newU = -(P2 @ Uoe)
+        newU[-1] = 0.0
+        levels.append(tuple(t.to(out_dtype) for t in (Dinv_o, P1m, P2, G1, G2)))
+        Dk, Uk = newD, newU
+    return tuple(levels), Dk, Uk
+
+
+def chain_factor_plain(D: torch.Tensor, U: torch.Tensor, dense_cutoff: int = 64,
+                       work_dtype: torch.dtype = torch.float64):
+    """Plain version of K9: ``(levels, root_inv, n)`` of the symmetric
+    block-tridiagonal matrix with diagonal blocks D (n, 6, 6) and U[i] =
+    A[i, i+1] (U[n-1] is treated as zero); each level is
+    ``(Dinv_o, P1m, P2, G1, G2)``.  Computed in ``work_dtype`` (float64, as
+    K9 computes, where the reference computes in float32), returned in D's
+    dtype."""
+    levels, Dk, Uk = chain_reduce_plain(D, U, dense_cutoff, work_dtype)
+    return levels, _dense_root_inverse(Dk, Uk).to(D.dtype), D.shape[0]
+
+
+_factor_builds: dict = {}
+
+
+def factor_builds(device) -> torch.Tensor:
+    """The () int32 count, on ``device``, of the chain factors that K9 (or
+    its plain version, on the CPU) has actually built: a held factor whose
+    refresh flag is 0 is not rebuilt and not counted."""
+    device = torch.device(device)
+    if device not in _factor_builds:
+        _factor_builds[device] = torch.zeros((), dtype=torch.int32, device=device)
+    return _factor_builds[device]
+
+
+def _factor_shapes(n: int, dense_cutoff: int) -> tuple[list[int], int]:
+    """The halves of the reduction levels of an n-block chain and the number
+    of root blocks."""
+    m, halves = _pow2(n), []
+    while m > max(dense_cutoff, 1):
+        m //= 2
+        halves.append(m)
+    return halves, m
+
+
+def _select_factor_into(need: torch.Tensor, fresh, held) -> None:
+    for a, b in zip((t for lv in fresh[0] for t in lv), (t for lv in held[0] for t in lv)):
+        b.copy_(torch.where(need, a, b))
+    held[1].copy_(torch.where(need, fresh[1], held[1]))
+
+
+def chain_factor(D, U, dense_cutoff: int = 64, held=None, need=None):
+    """K9: the chain preconditioner's cyclic-reduction factor.
+
+    Without ``held`` it builds a new factor.  With ``held`` (a factor of
+    the same shapes) and ``need`` (a () bool device flag) it rebuilds
+    ``held`` in place when ``need`` is set and leaves it as it is
+    otherwise, and returns ``held``; the flag is read on the device (the
+    kernels return at once when it is 0), never on the host.  On CPU
+    tensors the plain version builds the factor and selects it into
+    ``held`` with ``torch.where``.
+    """
+    n = D.shape[0]
+    if D.device.type == "cpu":
+        fresh = chain_factor_plain(D, U, dense_cutoff)
+        builds = factor_builds(D.device)
+        if held is None:
+            builds.add_(1)
+            return fresh
+        builds.add_(need.to(builds.dtype))
+        _select_factor_into(need, fresh, held)
+        return held
+    dev, f32 = D.device, torch.float32
+    ptrs = [_check("D", D, (n, 6, 6), f32, dev), _check("U", U, (n, 6, 6), f32, dev)]
+    halves, m_root = _factor_shapes(n, dense_cutoff)
+    if m_root > 64:
+        raise ValueError(f"chain_factor: a root of {m_root} blocks (dense_cutoff "
+                         f"{dense_cutoff}); the root kernel takes at most 64")
+    if held is None:
+        if need is not None:
+            raise ValueError("chain_factor: a refresh flag needs a held factor")
+        levels = tuple(tuple(torch.empty(5, h, 6, 6, dtype=f32, device=dev).unbind(0))
+                       for h in halves)
+        root_inv = torch.empty(6 * m_root, 6 * m_root, dtype=f32, device=dev)
+        need_ptr = None
+    else:
+        levels, root_inv, n_held = held
+        if n_held != n or [lv[0].shape[0] for lv in levels] != halves:
+            raise ValueError("chain_factor: the held factor has other shapes")
+        for lv, h in zip(levels, halves):
+            for name, t in zip(("Dinv_o", "P1m", "P2", "G1", "G2"), lv):
+                _check(name, t, (h, 6, 6), f32, dev)
+        _check("root_inv", root_inv, (6 * m_root, 6 * m_root), f32, dev)
+        need_ptr = _check("need", need, (), torch.bool, dev)
+    lib = _build.load()
+    stream = _stream(dev)
+    # float64 scratch: each level's newD, newU, and the root's work columns
+    scratch = torch.empty(2 * 36 * sum(halves) + 36 * m_root * m_root, dtype=torch.float64,
+                          device=dev)
+    src_D, src_U, in_double, n_valid, off = ptrs[0], ptrs[1], 0, n, 0
+    for lv, h in zip(levels, halves):
+        newD, newU = scratch[off: off + 36 * h], scratch[off + 36 * h: off + 72 * h]
+        err = lib.uz_chain_factor_level(src_D, src_U, in_double, n_valid, h,
+                                        *(t.data_ptr() for t in lv),
+                                        newD.data_ptr(), newU.data_ptr(), need_ptr, stream)
+        _raise_on(err, "chain_factor")
+        src_D, src_U, in_double, n_valid = newD.data_ptr(), newU.data_ptr(), 1, h
+        off += 72 * h
+    err = lib.uz_chain_factor_root(src_D, src_U, in_double, n_valid, m_root,
+                                   root_inv.data_ptr(), scratch[off:].data_ptr(), need_ptr,
+                                   factor_builds(dev).data_ptr(), stream)
+    _raise_on(err, "chain_factor")
+    launches["chain_factor"] += 1
+    return levels, root_inv, n
+
+
+# ---------------------------------------------------------------------------
+# K10 pcg (the vector updates of solver._pcg)
+# ---------------------------------------------------------------------------
+# State: x, r, p (n, 6) and scal = [rz, b2, ok, ...] on the device, updated
+# in place by the step functions (the kernel's scal has a fourth slot).
+
+PCG_CTA_MAX = 32768   # floats: above this K10 takes its grid route (csrc/pcg.cu)
+_PCG_CHUNK = 4096     # floats per CTA on the grid route
+
+
+def pcg_init_plain(b, z):
+    """Plain version of K10's first launch: (x, r, p, scal) from b and
+    z0 = M⁻¹b."""
+    x = torch.zeros_like(b)
+    r = b.clone()
+    p = z.clone()
+    scal = torch.stack([torch.sum(r * z), torch.sum(b * b), torch.ones_like(b[0, 0])])
+    return x, r, p, scal
+
+
+def pcg_alpha_plain(p, Hp, x, r, scal, tol: float) -> None:
+    """Plain version of K10 after Hp = H·p: the stall test and x, r in place."""
+    rz, b2 = scal[0], scal[1]
+    pHp = torch.sum(p * Hp)
+    ok = (pHp > 1e-20) & (rz > tol * (b2 + 1e-30))
+    alpha = torch.where(ok, rz / torch.where(pHp == 0, 1.0, pHp), 0.0)
+    x.copy_(x + alpha * p)
+    r.copy_(r - alpha * Hp)
+    scal[2] = ok.to(scal.dtype)
+
+
+def pcg_beta_plain(r, z, p, scal) -> None:
+    """Plain version of K10 after z = M⁻¹r: p and rz in place."""
+    rz, ok = scal[0], scal[2] > 0
+    rz_new = torch.sum(r * z)
+    beta = torch.where(ok, rz_new / torch.where(rz == 0, 1.0, rz), 0.0)
+    p.copy_(torch.where(ok, z + beta * p, p))
+    scal[0] = torch.where(ok, rz_new, rz)
+
+
+def _pcg_checks(dev, n, **vectors):
+    for name, t in vectors.items():
+        _check(name, t, (n, 6), torch.float32, dev)
+
+
+def _pcg_partials(n: int, dev):
+    """Scratch of K10's grid route (None: the one-CTA route)."""
+    if 6 * n <= PCG_CTA_MAX:
+        return None
+    return torch.empty(2 * -(-6 * n // _PCG_CHUNK), dtype=torch.float32, device=dev)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def pcg_init(b, z):
+    """K10 before the loop: x = 0, r = b, p = z0, rz = rᵀz0, b2 = bᵀb."""
+    if b.device.type == "cpu":
+        return pcg_init_plain(b, z)
+    dev, n = b.device, b.shape[0]
+    _pcg_checks(dev, n, b=b, z=z)
+    lib = _build.load()
+    xrp = torch.empty(3, n, 6, dtype=torch.float32, device=dev)
+    scal = torch.empty(4, dtype=torch.float32, device=dev)
+    err = lib.uz_pcg_init(b.data_ptr(), z.data_ptr(), 6 * n, xrp[0].data_ptr(),
+                          xrp[1].data_ptr(), xrp[2].data_ptr(), scal.data_ptr(),
+                          _ptr(_pcg_partials(n, dev)), _stream(dev))
+    _raise_on(err, "pcg")
+    launches["pcg"] += 1
+    return xrp[0], xrp[1], xrp[2], scal
+
+
+def pcg_alpha(p, Hp, x, r, scal, tol: float) -> None:
+    """K10 after Hp = H·p: pHp, the stall flag, α; x += α·p, r -= α·Hp."""
+    if p.device.type == "cpu":
+        return pcg_alpha_plain(p, Hp, x, r, scal, tol)
+    dev, n = p.device, p.shape[0]
+    _pcg_checks(dev, n, p=p, Hp=Hp, x=x, r=r)
+    lib = _build.load()
+    err = lib.uz_pcg_alpha(p.data_ptr(), Hp.data_ptr(), 6 * n, float(tol), x.data_ptr(),
+                           r.data_ptr(), _check("scal", scal, (4,), torch.float32, dev),
+                           _ptr(_pcg_partials(n, dev)), _stream(dev))
+    _raise_on(err, "pcg")
+    launches["pcg"] += 1
+
+
+def pcg_beta(r, z, p, scal) -> None:
+    """K10 after z = M⁻¹r: rz', β; p = z + β·p and rz = rz' where not stalled."""
+    if r.device.type == "cpu":
+        return pcg_beta_plain(r, z, p, scal)
+    dev, n = r.device, r.shape[0]
+    _pcg_checks(dev, n, r=r, z=z, p=p)
+    lib = _build.load()
+    err = lib.uz_pcg_beta(r.data_ptr(), z.data_ptr(), 6 * n, p.data_ptr(),
+                          _check("scal", scal, (4,), torch.float32, dev),
+                          _ptr(_pcg_partials(n, dev)), _stream(dev))
+    _raise_on(err, "pcg")
+    launches["pcg"] += 1
+
+
+# ---------------------------------------------------------------------------
+# K11 project_rays (occupancy projection)
+# ---------------------------------------------------------------------------
+
+BIG = 1e9   # no-return sentinel, uzliti_slam_tpu/mapping/occupancy.py:_project_rays
+
+
+def mark_cells_plain(logodds, cx, cy, mask, mark_value: float, clamp: float):
+    """``mark_value`` added to the cell of each node of ``mask`` (N,) that
+    lies inside the grid, then clipped to ±clamp
+    (occupancy._mark_node_cells)."""
+    size = logodds.shape[0]
+    inside = (cx >= 0) & (cx < size) & (cy >= 0) & (cy < size) & mask
+    cell = torch.where(inside, cy * size + cx, size * size).long()
+    flat = torch.zeros(size * size + 1, dtype=logodds.dtype, device=logodds.device)
+    flat.index_add_(0, cell, torch.full(cell.shape, mark_value, dtype=logodds.dtype,
+                                        device=logodds.device))
+    return torch.clamp(logodds + flat[:-1].reshape(size, size), -clamp, clamp)
+
+
+_PROJECT_NODE_CHUNK = 64   # nodes per gather of project_rays_plain (bounds its memory)
+
+
+def project_rays_plain(logodds, cx, cy, kbin, scans, idx, count, D, bin0, Wray, res: float,
+                       max_range: float, hit: float, miss: float, clamp: float, mark: bool):
+    """Plain version of K11: (log-odds (size, size), per-cell sum of
+    |node terms| (size, size) float64).
+
+    For the ``count`` nodes ``idx[:count]`` (node slots into ``cx``, ``cy``,
+    ``kbin``, ``scans``), every cell gathers the centre tables ``D``,
+    ``bin0``, ``Wray`` (size², row-major) at (r - cy + c0, c - cx + c0) and
+    the node's range at bin (bin0 - kbin) mod B, classifies itself free or
+    occupied, and the terms are summed in float64 over nodes; then clip,
+    and with ``mark`` the node footprint marks and a second clip.  Reads
+    ``count`` on the host.
+    """
+    size, B = logodds.shape[0], scans.shape[1]
+    dev, c0 = logodds.device, size // 2
+    nodes = idx[: int(count)].long()
+    rows = torch.arange(size, device=dev)
+    acc = torch.zeros(size, size, dtype=torch.float64, device=dev)
+    mag = torch.zeros(size, size, dtype=torch.float64, device=dev)
+    for s in range(0, nodes.shape[0], _PROJECT_NODE_CHUNK):
+        nd = nodes[s: s + _PROJECT_NODE_CHUNK]
+        k = nd.shape[0]
+        pr = rows[None, :] - cy[nd].long()[:, None] + c0            # (k, size)
+        pc = rows[None, :] - cx[nd].long()[:, None] + c0
+        inside = (((pr >= 0) & (pr < size))[:, :, None]
+                  & ((pc >= 0) & (pc < size))[:, None, :])
+        q = pr.clamp(0, size - 1)[:, :, None] * size + pc.clamp(0, size - 1)[:, None, :]
+        d, w = D[q], Wray[q]
+        bb = torch.remainder(bin0[q].long() - kbin[nd].long()[:, None, None], B)
+        rng = torch.gather(scans[nd], 1, bb.reshape(k, -1)).reshape(k, size, size)
+        rng = torch.where(torch.isfinite(rng), rng, BIG)
+        has = rng < BIG * 0.5
+        reach = torch.clamp(rng, max=max_range)
+        free = has & (d < reach - res)
+        occ = has & (rng <= max_range) & (torch.abs(d - rng) < 0.71 * res)
+        E = torch.where(inside, w * (free * miss + occ * hit), 0.0)
+        acc += E.double().sum(0)
+        mag += E.abs().double().sum(0)
+    out = torch.clamp(logodds + acc.to(logodds.dtype), -clamp, clamp)
+    if mark:
+        active = torch.zeros(cx.shape[0], dtype=torch.bool, device=dev).index_fill_(0, nodes, True)
+        out = mark_cells_plain(out, cx, cy, active, 2.0 * miss, clamp)
+    return out, mag
+
+
+def project_rays(logodds, cx, cy, kbin, scans, idx, count, D, bin0, Wray, res: float,
+                 max_range: float, hit: float, miss: float, clamp: float, mark: bool):
+    """K11: the occupancy projection of the ``count`` (a () int32 device
+    tensor) nodes ``idx[:count]`` onto ``logodds``; returns the new grid.
+    The count is read by the kernel, never on the host."""
+    if logodds.device.type == "cpu":
+        return project_rays_plain(logodds, cx, cy, kbin, scans, idx, count, D, bin0, Wray,
+                                  res, max_range, hit, miss, clamp, mark)[0]
+    dev, f32, i32 = logodds.device, torch.float32, torch.int32
+    size = logodds.shape[0]
+    n, B = scans.shape
+    ptrs = [
+        _check("logodds", logodds, (size, size), f32, dev),
+        _check("D", D, (size * size,), f32, dev),
+        _check("bin0", bin0, (size * size,), i32, dev),
+        _check("Wray", Wray, (size * size,), f32, dev),
+        _check("scans", scans, (n, B), f32, dev),
+    ]
+    node = [_check(name, t, (n,), i32, dev)
+            for name, t in (("cx", cx), ("cy", cy), ("kbin", kbin), ("idx", idx))]
+    cnt = _check("count", count, (), i32, dev)
+    lib = _build.load()
+    out = torch.empty(size, size, dtype=f32, device=dev)
+    err = lib.uz_project_rays(*ptrs, B, *node, cnt, size, float(res), float(0.71 * res),
+                              float(max_range), float(hit), float(miss), float(clamp),
+                              int(bool(mark)), float(2.0 * miss), out.data_ptr(), _stream(dev))
+    _raise_on(err, "project_rays")
+    launches["project_rays"] += 1
+    return out

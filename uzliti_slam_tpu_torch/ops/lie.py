@@ -1,7 +1,7 @@
 """SE(3)/SO(3) Lie-group operations on batched tensors.
 
 PyTorch counterpart of ``uzliti_slam_tpu/ops/lie.py``, restricted to what
-the pose-graph solve needs.  Layouts are the same: a pose is ``(..., 7)``
+the pose-graph solve, the epoch and the occupancy projection need.  Layouts are the same: a pose is ``(..., 7)``
 ``[tx, ty, tz, qw, qx, qy, qz]`` (translation, then a unit quaternion,
 scalar first) and a twist is ``(..., 6)`` ``[vx, vy, vz, wx, wy, wz]``.
 Every function broadcasts over leading batch dimensions and keeps the
@@ -26,6 +26,17 @@ def _safe_norm(v: torch.Tensor, dim: int = -1) -> torch.Tensor:
 
 def _eye3(like: torch.Tensor) -> torch.Tensor:
     return torch.eye(3, dtype=like.dtype, device=like.device)
+
+
+# Small products written as broadcast sums: on a CUDA device ``@`` on
+# batches of 3x3 blocks goes to cuBLAS, and the retraction runs in every LM
+# iteration of the solve, which calls no library kernel.
+def _mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a[..., :, :, None] * b[..., None, :, :]).sum(-2)
+
+
+def _mv3(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return (m * v[..., None, :]).sum(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -169,7 +180,7 @@ def so3_left_jacobian(phi: torch.Tensor) -> torch.Tensor:
     c = torch.where(small, 1.0 / 6.0 - t2 / 120.0,
                     (theta - torch.sin(theta)) / torch.where(small, one, t2 * theta))
     K = so3_hat(phi)
-    return _eye3(phi) + b[..., None, None] * K + c[..., None, None] * (K @ K)
+    return _eye3(phi) + b[..., None, None] * K + c[..., None, None] * _mm3(K, K)
 
 
 def so3_left_jacobian_inv(phi: torch.Tensor) -> torch.Tensor:
@@ -242,7 +253,7 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     """Twist (..., 6) -> pose (..., 7)."""
     v, phi = xi[..., 0:3], xi[..., 3:6]
     q = quat_from_axis_angle(phi)
-    t = (so3_left_jacobian(phi) @ v[..., None])[..., 0]
+    t = _mv3(so3_left_jacobian(phi), v)
     return torch.cat([t, q], dim=-1)
 
 
@@ -267,11 +278,23 @@ def rotation_angle(q: torch.Tensor) -> torch.Tensor:
     return _safe_norm(quat_to_axis_angle(q))
 
 
+def pose_distance(a: torch.Tensor, b: torch.Tensor):
+    """(translation distance, rotation angle) between two poses."""
+    d = pose_relative(a, b)
+    return _safe_norm(pose_t(d)), rotation_angle(pose_q(d))
+
+
+def yaw_of(q: torch.Tensor) -> torch.Tensor:
+    """Yaw (heading) angle extracted from a quaternion."""
+    w, x, y, z = q.unbind(-1)
+    return torch.atan2(2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z))
+
+
 def se3_adjoint(p: torch.Tensor) -> torch.Tensor:
     """Adjoint matrix (..., 6, 6) mapping twists between frames: Ad_T."""
     R = quat_to_matrix(pose_q(p))
     tK = so3_hat(pose_t(p))
-    top = torch.cat([R, tK @ R], dim=-1)
+    top = torch.cat([R, _mm3(tK, R)], dim=-1)
     bot = torch.cat([torch.zeros_like(R), R], dim=-1)
     return torch.cat([top, bot], dim=-2)
 

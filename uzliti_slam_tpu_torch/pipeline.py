@@ -1,16 +1,23 @@
-"""The optimization epoch: loop-closure filter, solve, uncertainty.
+"""The optimization tick: loop-closure filter, solve, uncertainty, map.
 
-PyTorch counterpart of ``uzliti_slam_tpu/pipeline.py:optimize_epoch``, the
-call a live robot makes at every optimization timer tick.  ``SlamState``
-holds the fields the epoch reads: the graph and, where the JAX package
-keeps a ``prng`` key, a ``torch.Generator`` on the graph's device (the
-RANSAC draws).  The rest of the JAX ``SlamState`` (descriptors, scans,
-recognition banks, keyframe bookkeeping) belongs to slices not ported yet.
+PyTorch counterpart of what ``uzliti_slam_tpu/pipeline.py:Slam.optimize``
+runs at every optimization timer tick of a live robot: ``optimize_epoch``,
+then ``project_map`` into the live occupancy grid (the reference's default,
+``SlamConfig.project_map=True``; the port keeps that field for parity with
+the reference's config, nothing here reads it, and the caller decides
+whether to call ``project_map``).  ``SlamState`` holds the fields these
+read: the graph, the nodes' virtual scans and, where the JAX package keeps
+a ``prng`` key, a ``torch.Generator`` on the graph's device (the RANSAC
+draws).  The rest of the JAX ``SlamState`` (descriptors, recognition
+banks, keyframe bookkeeping) and the ``Slam`` shell belong to the keyframe
+slice, not ported yet; until then a caller runs ``optimize_epoch`` and
+then ``project_map``, in the order ``Slam.optimize`` does.
 
 On a CUDA device the epoch runs kernels K5 (graph distances), K6
 (clusters), K7 (RANSAC), K8 (components and gauge) and the solve's K1-K4,
-and reads one device value on the host: ``solver._host_decision``, whether
-the odometry restart runs its second solve.
+K9 and K10, and reads one device value on the host:
+``solver._host_decision``, whether the odometry restart runs its second
+solve.  The projection runs K11 and reads nothing on the host.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from uzliti_slam_tpu_torch.config import SlamConfig
 from uzliti_slam_tpu_torch.graph import filter as gfilter
 from uzliti_slam_tpu_torch.graph import shortest_path, solver
 from uzliti_slam_tpu_torch.graph import state as gstate
+from uzliti_slam_tpu_torch.mapping import occupancy
 from uzliti_slam_tpu_torch.ops import lie
 
 MAX_CANDIDATES = 256
@@ -35,31 +43,44 @@ MAX_CANDIDATES = 256
 class SlamState:
     graph: gstate.GraphState
     generator: torch.Generator   # RANSAC draws, on the graph's device
+    scans: torch.Tensor          # (N, scan_bins) float32 virtual-scan near ranges
+    scan_valid: torch.Tensor     # (N,) bool: the node has a scan
 
     def replace(self, **changes) -> "SlamState":
         return dataclasses.replace(self, **changes)
 
 
 def init_state(config: SlamConfig = SlamConfig(), seed: int = 0, device=None) -> SlamState:
-    """An empty graph of the configured capacities and a generator seeded
-    with ``seed``, on ``device`` (default: the CUDA card)."""
+    """An empty graph of the configured capacities, no scans (+inf ranges)
+    and a generator seeded with ``seed``, on ``device`` (default: the CUDA
+    card)."""
     device = _device.resolve(device)
+    n = config.node_capacity
     return SlamState(
-        graph=gstate.empty_graph(config.node_capacity, config.edge_capacity, device),
+        graph=gstate.empty_graph(n, config.edge_capacity, device),
         generator=torch.Generator(device=device).manual_seed(seed),
+        scans=torch.full((n, config.scan_bins), torch.inf, device=device),
+        scan_valid=torch.zeros(n, dtype=torch.bool, device=device),
     )
 
 
 def state_from_numpy(arrays: dict, seed: int = 0, device=None) -> SlamState:
     """A SlamState from numpy arrays: ``arrays["graph"]`` holds the graph's
     fields as ``graph.state.from_numpy`` takes them (e.g. from a JAX
-    ``SlamState``); other entries belong to slices not ported yet and are
-    ignored.  A JAX ``prng`` key cannot cross: the generator is seeded with
-    ``seed``."""
+    ``SlamState``), and ``arrays["scans"]`` / ``arrays["scan_valid"]``, where
+    present, the nodes' scans (else +inf ranges of the default
+    ``SlamConfig.scan_bins`` bins, none valid); other entries belong to
+    slices not ported yet and are ignored.
+    A JAX ``prng`` key cannot cross: the generator is seeded with ``seed``."""
     device = _device.resolve(device)
-    graph = {k: np.asarray(v) for k, v in arrays["graph"].items()}
-    return SlamState(graph=gstate.from_numpy(graph, device),
-                     generator=torch.Generator(device=device).manual_seed(seed))
+    graph = gstate.from_numpy({k: np.asarray(v) for k, v in arrays["graph"].items()}, device)
+    n = graph.node_capacity
+    scans = np.asarray(arrays.get("scans", np.full((n, SlamConfig.scan_bins), np.inf)),
+                       np.float32)
+    scan_valid = np.asarray(arrays.get("scan_valid", np.zeros(n, bool)), bool)
+    return SlamState(graph=graph, generator=torch.Generator(device=device).manual_seed(seed),
+                     scans=torch.from_numpy(scans).to(device),
+                     scan_valid=torch.from_numpy(scan_valid).to(device))
 
 
 def epoch_candidates(g: gstate.GraphState, config: SlamConfig = SlamConfig()):
@@ -114,3 +135,29 @@ def optimize_epoch(state: SlamState, config: SlamConfig = SlamConfig(),
     diff = lie.pose_compose(g.pose.index_select(0, newest)[0],
                             lie.pose_inverse(g.odom_pose.index_select(0, newest)[0]))
     return state.replace(graph=g.replace(diff_transform=diff)), stats
+
+
+def project_map(state: SlamState, config: SlamConfig = SlamConfig(),
+                grid: occupancy.OccupancyGrid | None = None,
+                force_full: bool = False) -> occupancy.OccupancyGrid:
+    """Project the graph's virtual scans into the live occupancy grid
+    (``Slam.project_map``, ``pipeline.py:1834-1847``): incremental, or a
+    full rebuild after drift, on force, or when ``grid`` is None or was
+    made for another node capacity (then a fresh ``grid_init`` grid).
+    Returns the new grid; kernel K11 on a CUDA device, no host read."""
+    g = state.graph
+    if grid is None or grid.ref_poses.shape[0] != g.node_capacity:
+        grid = occupancy.grid_init(g, config.grid)
+        force_full = True
+    return occupancy.project(grid, g, state.scans, state.scan_valid, config.grid,
+                             force_full=force_full)
+
+
+def map_probability(grid: occupancy.OccupancyGrid) -> torch.Tensor:
+    """(size, size) occupancy probabilities of a grid."""
+    return occupancy.occupancy_probability(grid)
+
+
+def map_ternary(grid: occupancy.OccupancyGrid) -> torch.Tensor:
+    """ROS-style -1/0/100 occupancy classes of a grid."""
+    return occupancy.to_ternary(grid)
