@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port on one GPU: the pose-graph solve, the
-optimization epoch and the occupancy projection that follows it.
+optimization epoch, the occupancy projection that follows it, and the
+keyframe front-end.
 
     python3 chip_smoke.py
 
@@ -19,9 +20,13 @@ runs, in order, each phase printing lines of its own:
    cluster_labels, K7 ransac_rigid, K8 components) on the inputs the
    500-node and 10k-node epochs give it, K8's grid route on the 100k-node
    solve's inputs, and K11 project_rays on a 500-node full rebuild, an
-   8-new-node incremental pass and a 10k-node full rebuild: error against a
-   stated tolerance, the median time of both, and the least time the card
-   could take for the work this data needs;
+   8-new-node incremental pass and a 10k-node full rebuild, and the
+   front-end's kernels (K12 fast_nms and K13 grid_topk on all four pyramid
+   levels, K14 orb_describe on every level and the GIST, K15 scan_bins) on
+   the arguments one VGA keyframe gives them, with one camera and with the
+   front + rear rig: error against a stated tolerance, the median time of
+   both, and the least time the card could take for the work this data
+   needs;
 4. the 1k-node headline solve (20 LM x 12 PCG, chain factor refreshed every
    5, fixed iteration count) through ``optimize``: launch counts of one
    solve, no host synchronisation inside the timed solves (CUDA sync debug
@@ -45,7 +50,13 @@ runs, in order, each phase printing lines of its own:
    are added and a rebuild after a node drifts 1 m, each sync-free, timed,
    and matched by the same sequence on CPU tensors;
 9. the same epoch at 10k nodes, then one full ``project_map``: time,
-   finite, χ² below χ²₀.
+   finite, χ² below χ²₀;
+10. the keyframe front-end at VGA (``pipeline.keyframe_frontend``; the JAX
+   bench's ``keyframe_vga`` and ``keyframe_vga_2cam`` rungs, 256 features,
+   360 scan bins, depth refinement off), one camera and the front + rear
+   rig: launch counts of one keyframe, ms per keyframe over 10 sync-free
+   keyframes after 3 warm-up ones, a profile, valid keypoints, the scan on
+   the wall, and the same frames on CPU tensors through the plain path.
 
 Then one JSON line with the kernels' results, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -103,6 +114,19 @@ TERNARY_NEAR = 1e-4
 RELAX_MAX_ULP = 1
 RANSAC_POSE_ATOL = 1e-4      # refit pose, per component
 RANSAC_NEAR_REL = 1e-5       # a point this close to the inlier radius may flip
+# K12, K13 and K15 are held exactly (the same float operations in the same
+# order; integer minima); K14's descriptors exactly given the plain
+# version's angles, its own angles within ANGLE_ATOL rad (moment sums in
+# another order off level 0, atan2 on the card).
+ANGLE_ATOL = 1e-5
+# The front-end on the card against the same frames on CPU tensors: level 0
+# exact, descriptor bits of valid keypoints equal within MIN_EQUAL_BITS
+# (levels 1-3 and the GIST start from a resize, a matrix product summed in
+# another order on the card), points within PTS_ATOL m, the scan equal up
+# to MAX_MOVED_BINS (a bearing an ulp from a bin edge: atan2 on the card
+# against the CPU's), the GIST within GIST_MAX_BITS bits.
+MIN_EQUAL_BITS, PTS_ATOL, MAX_MOVED_BINS, GIST_MAX_BITS = 0.995, 1e-5, 1, 2
+WALL_ATOL = 0.05             # m: |r·|cos θ| - 3.0| of a valid scan bin
 REPLACES = {
     "linearize": "uzliti_slam_tpu/graph/solver.py:355 (_make_fused_linearize)",
     "hvp": "uzliti_slam_tpu/graph/solver.py:306 (_make_hvp)",
@@ -120,12 +144,22 @@ REPLACES = {
     "pcg": "uzliti_slam_tpu/graph/solver.py:512 (_pcg)",
     "project_rays": "uzliti_slam_tpu/mapping/occupancy.py:70 (_project_rays)"
                     " + :191 (_mark_node_cells)",
+    "fast_nms": "uzliti_slam_tpu/ops/features.py:54 (fast_score) + :105 (nms)",
+    "grid_topk": "uzliti_slam_tpu/ops/features.py:114 (select_topk_grid)",
+    "orb_describe": "uzliti_slam_tpu/ops/features.py:159 (_sep_blur) + :171"
+                    " (intensity_centroid_angles) + :285 (brief_descriptors)",
+    "scan_bins": "uzliti_slam_tpu/ops/scan.py:38 (_bin_min_max) + :109 (depth_to_scan)",
 }
 SOURCE = {k: f"uzliti_slam_tpu_torch/csrc/{k}.cu" for k in REPLACES}
 SOURCE["project_rays"] = "uzliti_slam_tpu_torch/csrc/occupancy.cu"
 SOLVE_KERNELS = ("linearize", "hvp", "chain_apply", "residual_chi2", "chain_factor", "pcg")
 EPOCH_KERNELS = ("relax_min", "cluster_labels", "ransac_rigid", "components")
 MAP_KERNELS = ("project_rays",)
+FRONTEND_KERNELS = ("fast_nms", "grid_topk", "orb_describe", "scan_bins")
+# the device functions each front-end kernel's wrapper launches
+FRONTEND_DEVICE_FUNCTIONS = {"fast_nms": ("fast_nms_tile",), "grid_topk": ("cell_topk", "global_topk"),
+                             "orb_describe": ("box_blur", "describe"),
+                             "scan_bins": ("init_table", "scan_pixels", "finalize")}
 # cuSOLVER / cuBLAS items that must not appear in a profiled solve
 LIBRARY_ITEMS = ("getrf", "getrs", "trsm", "gemv")
 # The card's published peaks (H100 SXM at 700 W):
@@ -137,6 +171,12 @@ SCALAR_OPS_PER_S = 67e12
 # ~0.5 m keyframe spacing (radius scaled by 20)
 EPOCH_500 = dict(n=500, node_capacity=512, edge_capacity=4096, radius=2.0)
 EPOCH_10K = dict(n=10_000, node_capacity=10240, edge_capacity=32768, radius=40.0)
+# The JAX bench's keyframe rungs (bench.py:283-335): a 640x480 WallWorld at
+# f = 525, 13 frames of an out-and-back drive, 256 features, 360 bins, the
+# front camera or the front + rear rig (the rear turned by 3.14159 rad and
+# fed the same frame)
+KEYFRAME_VGA = dict(img_h=480, img_w=640, f=525.0, n_frames=13, odom_drift=0.05, length=6.0,
+                    feats=256, scan_bins=360, warmup=3)
 
 
 def log(phase: str, **fields) -> None:
@@ -207,7 +247,8 @@ DEVICE_FUNCTIONS = ("linearize_edges", "linearize_mask", "hvp_seed", "hvp_edges"
                     "relax_rows", "cluster_rounds", "ransac_roots", "components_cta",
                     "gauge_cta", "k_init_labels", "k_scatter_min", "k_jump_out", "k_jump",
                     "k_gauge_init", "k_gauge_reduce_stamp", "k_gauge_reduce_slot",
-                    "k_gauge_write")
+                    "k_gauge_write", "fast_nms_tile", "global_topk", "cell_topk", "box_blur",
+                    "describe", "scan_pixels", "init_table", "finalize")
 
 
 def ptxas_summary(text: str) -> dict:
@@ -227,10 +268,10 @@ def ptxas_summary(text: str) -> dict:
     return out
 
 
-def device_profile(fn) -> tuple[dict, list]:
+def device_profile(fn) -> tuple[dict, dict]:
     """One profiled call: (wall ms, summed device-kernel ms, the busy share
     they give, the device launches and the five kernels with the most
-    device time; the names of every device kernel in the trace)."""
+    device time; every device kernel's name and device ms in the trace)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -242,16 +283,16 @@ def device_profile(fn) -> tuple[dict, list]:
     kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     dev_us = sum(e.self_device_time_total for e in kernels)
     if dev_us == 0:
-        return {"profile": "not measured (no device time in the trace)"}, []
+        return {"profile": "not measured (no device time in the trace)"}, {}
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
     return ({"profiled_wall_ms": 1e3 * wall, "device_kernel_ms": dev_us / 1e3,
              "device_busy_share": dev_us / 1e6 / wall,
              "device_launches": sum(e.count for e in kernels),
              "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top}},
-            [e.key for e in kernels])
+            {e.key: e.self_device_time_total / 1e3 for e in kernels})
 
 
-def library_items(names: list) -> list:
+def library_items(names) -> list:
     """The cuSOLVER / cuBLAS kernels among profiled kernel names."""
     return [k for k in names if any(item in k.lower() for item in LIBRARY_ITEMS)]
 
@@ -357,6 +398,37 @@ def kernel_work(name: str, args) -> tuple[int, int]:
         pairs = int((rows * cols).sum())
         return (_nbytes(logodds, D, bin0, Wray) + 4 * logodds.numel()
                 + c * (4 * scans.shape[1] + 16), 20 * pairs)
+    if name == "fast_nms":
+        # the image read and the scores written once; per pixel inside the
+        # 21-px border 16 differences, 32 compares, ~20 mask operations and
+        # the sums (2 per passing ring pixel, counted for all 16), per pixel
+        # 11 for the 3x3 maximum and the test
+        img, _ = args
+        C, H, W = img.shape
+        inner = C * max(H - 42, 0) * max(W - 42, 0)
+        return 2 * _nbytes(img), 100 * inner + 11 * img.numel()
+    if name == "grid_topk":
+        # the scores read once, the keypoints written once; k_cell rounds of
+        # a compare and a select per score of the grid
+        score, k_total, grid = args
+        C, H, W = score.shape
+        gh, gw, k_cell, _ = kops._grid_shapes(H, W, k_total, grid)
+        return _nbytes(score) + C * k_total * 13, 2 * k_cell * C * grid * grid * gh * gw
+    if name == "orb_describe":
+        # image, keypoints and pattern read once, angles and descriptors
+        # written once; the blur's 10 adds and a multiply per pixel, and per
+        # keypoint the moments (4 operations on each of 177 disc pixels) and
+        # 256 tests of two rotated samples (~10 operations each)
+        img, uv, pattern, *rest = args
+        kps = uv.shape[0] * uv.shape[1]
+        return (_nbytes(img, uv, pattern) + kps * (4 + 32),
+                11 * img.numel() + kps * (4 * 177 + 512 * 10))
+    if name == "scan_bins":
+        # depth and transforms read once, near and far written once; ~60
+        # operations per pixel (backprojection, extrinsic, range, atan2 as
+        # ~20, tests, bin, the two atomics)
+        depth, _, xf, n_bins, *_ = args
+        return _nbytes(depth, xf) + 8 * depth.shape[0] * n_bins, 60 * depth.numel()
     raise KeyError(name)
 
 
@@ -797,7 +869,8 @@ def headline_solve(g, chi2_oracle: float, reps: int):
     # K10: one launch before each PCG solve and two per step, 20 solves
     expected = {"linearize": 24, "hvp": 240, "chain_apply": 260, "residual_chi2": 22,
                 "relax_min": 0, "cluster_labels": 0, "ransac_rigid": 0, "components": 2,
-                "chain_factor": 4, "pcg": 20 * (1 + 2 * 12), "project_rays": 0}
+                "chain_factor": 4, "pcg": 20 * (1 + 2 * 12), "project_rays": 0,
+                **{k: 0 for k in FRONTEND_KERNELS}}
     check(counts == expected, f"launch counts {counts} != {expected}")
     finals = []
     for _ in range(reps):
@@ -1158,6 +1231,261 @@ def map_phase(phase: str, state, cfg, reps: int, cpu_check: bool) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# The keyframe front-end
+# ---------------------------------------------------------------------------
+
+def keyframe_world():
+    """(world, frames) of the JAX bench's keyframe rung, as host arrays."""
+    from uzliti_slam_tpu_torch.io import simulator
+
+    kv = KEYFRAME_VGA
+    world = simulator.WallWorld(img_h=kv["img_h"], img_w=kv["img_w"], f=kv["f"])
+    frames = simulator.simulate_sequence(world, n_frames=kv["n_frames"],
+                                         odom_drift=kv["odom_drift"], length=kv["length"])
+    return world, frames
+
+
+def keyframe_rig(n_cams: int, device):
+    """(config, extrinsics (7,) or (2, 7)) of the 1-camera or front + rear rung."""
+    from uzliti_slam_tpu_torch.config import FeatureExtractionConfig, SlamConfig
+    from uzliti_slam_tpu_torch.io import simulator
+    from uzliti_slam_tpu_torch.ops import lie
+
+    cfg = SlamConfig(feats_per_node=KEYFRAME_VGA["feats"], scan_bins=KEYFRAME_VGA["scan_bins"],
+                     frontend=FeatureExtractionConfig(use_depth_refinement=False))
+    front = simulator.cam_extrinsic(device=device)
+    if n_cams == 1:
+        return cfg, front
+    rear = lie.pose_compose(lie.pose2_to_pose(torch.tensor([0.0, 0.0, 3.14159], device=device)),
+                            front)
+    return cfg, torch.stack([front, rear])
+
+
+def frame_inputs(frame: dict, n_cams: int):
+    """(image, depth) host arrays of a frame, stacked once per camera."""
+    import numpy as np
+
+    if n_cams == 1:
+        return frame["image"], frame["depth"]
+    return np.stack([frame["image"]] * n_cams), np.stack([frame["depth"]] * n_cams)
+
+
+def record_frontend_args(fn):
+    """Run ``fn()`` with every K12-K15 wrapper call's arguments recorded;
+    returns {kernel: [(args, kwargs), ...]}."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    saved = {name: getattr(kops, name) for name in FRONTEND_KERNELS}
+    calls = {name: [] for name in FRONTEND_KERNELS}
+
+    def recorded(name):
+        def call(*args, **kw):
+            calls[name].append((args, kw))
+            return saved[name](*args, **kw)
+        return call
+
+    for name in FRONTEND_KERNELS:
+        setattr(kops, name, recorded(name))
+    try:
+        fn()
+    finally:
+        for name, f in saved.items():
+            setattr(kops, name, f)
+    return calls
+
+
+def bound_calls(name: str, calls) -> dict:
+    """``bound`` summed over a keyframe's calls of one kernel."""
+    nbytes = ops = 0
+    for args, kw in calls:
+        b, o = kernel_work(name, (*args, *kw.values()))
+        nbytes, ops = nbytes + b, ops + o
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
+    return {"bytes": nbytes, "ops": ops, "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def frontend_library(name: str, calls):
+    """One PyTorch call per kernel call that computes the same function, or
+    None: K13 ``torch.topk`` over the (C·cells, cell) view of each level's
+    scores (its tie order is not the reference's); K15 ``scatter_reduce_``
+    with amin and amax on each scan's quantised ranges."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+    from uzliti_slam_tpu_torch.ops import scan
+
+    if name == "grid_topk":
+        views = []
+        for (score, k_total, grid), _ in calls:
+            C, H, W = score.shape
+            gh, gw, k_cell, _n = kops._grid_shapes(H, W, k_total, grid)
+            cells = score[:, : gh * grid, : gw * grid].reshape(C, grid, gh, grid, gw)
+            views.append((cells.permute(0, 1, 3, 2, 4).reshape(C * grid * grid, gh * gw)
+                          .contiguous(), k_cell))
+        return time_call(lambda: [torch.topk(v, k) for v, k in views])
+    if name == "scan_bins":
+        work = []
+        for args, _ in calls:
+            rng, ok, bins = kops.scan_pixels_plain(*args)
+            n_bins, max_range = args[3], args[7]
+            q = torch.clamp(rng * scan.range_scale(max_range), 0.0, float(scan.Q_MAX)).to(torch.int32)
+            slot = torch.where(ok, bins.long(), n_bins)
+            lo = torch.full((q.shape[0], n_bins + 1), 2**31 - 1, dtype=torch.int32, device=q.device)
+            work.append((lo, torch.full_like(lo, -1), slot, q))
+
+        def reduce():
+            for lo, hi, slot, q in work:
+                lo.scatter_reduce_(1, slot, q, "amin")
+                hi.scatter_reduce_(1, slot, q, "amax")
+        return time_call(reduce)
+    return None
+
+
+def compare_frontend(calls: dict, label: str) -> dict:
+    """K12-K15 against their plain versions on the arguments one keyframe
+    gives them: K12, K13 and K15 exactly; K14's angles within ANGLE_ATOL and
+    its descriptors exactly given the plain version's angles (the GIST call
+    takes its angle as given).  Times are per keyframe: all of the
+    keyframe's calls of the kernel."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    rows = {}
+    for name in FRONTEND_KERNELS:
+        kernel_fn, plain_fn = getattr(kops, name), getattr(kops, f"{name}_plain")
+        cl = calls[name]
+        check(len(cl) > 0, f"{name} {label}: no call recorded")
+        mism, ang_err = 0, 0.0
+        for args, kw in cl:
+            got, ref = kernel_fn(*args, **kw), plain_fn(*args, **kw)
+            torch.cuda.synchronize()
+            if name == "orb_describe" and "angles" not in kw:
+                ang_err = max(ang_err, float((got[0] - ref[0]).abs().max()))
+                got = kernel_fn(*args, angles=ref[0].contiguous())
+                torch.cuda.synchronize()
+            pairs = list(zip(got, ref)) if isinstance(got, tuple) else [(got, ref)]
+            mism += sum(int((a != b).sum()) for a, b in pairs)
+        row = {"calls": len(cl), "mismatches": mism,
+               "max_abs_err": ang_err if name == "orb_describe" else (0.0 if mism == 0 else
+                                                                       float("nan"))}
+        if name == "orb_describe":
+            row["angle_atol"] = ANGLE_ATOL
+
+        def run(fn):
+            for args, kw in cl:
+                fn(*args, **kw)
+
+        row["ms"], row["plain_ms"] = time_pair(lambda: run(kernel_fn), lambda: run(plain_fn))
+        row["library_ms"] = frontend_library(name, cl)
+        row.update(bound_calls(name, cl))
+        log(f"3 kernel {name} {label}", **row)
+        check(mism == 0, f"{name} {label}: {mism} entries differ from the plain version")
+        check(ang_err <= ANGLE_ATOL, f"{name} {label}: angles {ang_err:.3g} rad apart")
+        rows[name] = row
+    return rows
+
+
+def wall_error(scan) -> tuple[int, float]:
+    """(valid bins, the largest |r·|cos θ| - 3.0| over them at each bin's
+    centre bearing): the WallWorld's wall is 3 m ahead of the base (and,
+    for the rear camera fed the same frame, 3 m behind)."""
+    r, ang = scan.ranges, scan.angles()
+    ok = torch.isfinite(r)
+    err = torch.where(ok, (r * torch.cos(ang).abs() - 3.0).abs(), 0.0)
+    return int(ok.sum()), float(err.max())
+
+
+def frontend_against_cpu(out, cpu, n_cams: int) -> dict:
+    """The card's front-end output against the plain path's on CPU tensors."""
+    import numpy as np
+
+    valid = cpu.pts_valid.numpy()
+    k = out.desc.shape[0] // n_cams
+    level0 = (np.arange(k) < k // 4)[None].repeat(n_cams, 0).reshape(-1) & valid
+    diff = np.unpackbits(out.desc.cpu().numpy() ^ cpu.desc.numpy(), axis=-1)
+    near, ref = out.scan.ranges.cpu(), cpu.scan.ranges
+    far, ref_far = out.scan.far_ranges.cpu(), cpu.scan.far_ranges
+    return {"same_pts_valid": bool(np.array_equal(out.pts_valid.cpu().numpy(), valid)),
+            "level0_bits_differ": int(diff[level0].sum()),
+            "equal_bit_share": float(1.0 - diff[valid].mean()),
+            "pts_max_abs_err": float((out.pts_base.cpu() - cpu.pts_base)[torch.from_numpy(valid)]
+                                     .abs().max()),
+            "scan_bins_moved": int((near != ref).sum()) + int((far != ref_far).sum()),
+            "gist_bits_differ": int(np.unpackbits(out.gist.cpu().numpy() ^ cpu.gist.numpy()).sum())}
+
+
+def frontend_phase(phase: str, world, frames, n_cams: int, device, reps: int = 10):
+    """Phase 10: ``pipeline.keyframe_frontend`` on the rung's frames: warm-up
+    keyframes, then the counts set to 0 just before one keyframe and read
+    just after, ``reps`` timed keyframes each under CUDA sync debug mode
+    "error", a profile, and the checks.  Returns (counts, fields)."""
+    from uzliti_slam_tpu_torch import pipeline
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    cfg, pose = keyframe_rig(n_cams, device)
+    warm = KEYFRAME_VGA["warmup"]
+    inputs = [frame_inputs(fr, n_cams) for fr in frames]
+
+    def one(i):
+        return pipeline.keyframe_frontend(*inputs[i], world.cam, pose, cfg)
+
+    for i in range(warm):
+        one(i)
+    torch.cuda.synchronize()
+    kops.reset_launches()
+    one(warm)
+    torch.cuda.synchronize()
+    counts = dict(kops.launches)
+    times, outs = [], []
+    for i in range(warm, warm + reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs.append(one(i))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    t = statistics.median(times)
+    kp_valid = min(int(o.kp_valid.sum()) for o in outs)
+    walls = [wall_error(o.scan) for o in outs]
+    fields = {"n_cams": n_cams, "keyframe_ms": 1e3 * t, "keyframes_per_s": 1.0 / t,
+              "keyframe_ms_min": 1e3 * min(times), "keyframe_ms_max": 1e3 * max(times),
+              "launches": {k: counts[k] for k in FRONTEND_KERNELS}, "sync_free": True,
+              "valid_keypoints_min": kp_valid, "budget": cfg.feats_per_node,
+              "scan_valid_bins_min": min(w[0] for w in walls),
+              "wall_err_max_m": max(w[1] for w in walls)}
+    cpu_rows = []
+    for i in (0, reps - 1):
+        cpu = pipeline.keyframe_frontend(*inputs[warm + i], world.cam, pose.cpu(), cfg,
+                                         device="cpu")
+        cpu_rows.append(frontend_against_cpu(outs[i], cpu, n_cams))
+    fields["cpu_plain"] = cpu_rows
+    prof, device_ms = device_profile(lambda: one(warm))
+    fields.update(prof)
+    # each kernel's device time in the profiled keyframe, all of its launches
+    fields["kernel_device_ms"] = {
+        name: sum(ms for key, ms in device_ms.items()
+                  if any(f"::{f}(" in key for f in FRONTEND_DEVICE_FUNCTIONS[name]))
+        for name in FRONTEND_KERNELS}
+    log(phase, **fields)
+    check(all(counts[k] > 0 for k in FRONTEND_KERNELS), f"{phase}: a kernel was not launched: "
+          f"{counts}")
+    check(kp_valid >= cfg.feats_per_node // 2, f"{phase}: {kp_valid} valid keypoints")
+    check(fields["scan_valid_bins_min"] >= 30 * n_cams,
+          f"{phase}: {fields['scan_valid_bins_min']} valid scan bins")
+    check(fields["wall_err_max_m"] <= WALL_ATOL, f"{phase}: a scan bin lies "
+          f"{fields['wall_err_max_m']:.3g} m off the wall")
+    for row in cpu_rows:
+        check(row["same_pts_valid"], f"{phase}: pts_valid differs from the CPU plain path")
+        check(row["level0_bits_differ"] == 0, f"{phase}: level-0 descriptor bits differ")
+        check(row["equal_bit_share"] >= MIN_EQUAL_BITS, f"{phase}: descriptor bits {row}")
+        check(row["pts_max_abs_err"] <= PTS_ATOL, f"{phase}: points {row['pts_max_abs_err']}")
+        check(row["scan_bins_moved"] <= MAX_MOVED_BINS, f"{phase}: scan {row}")
+        check(row["gist_bits_differ"] <= GIST_MAX_BITS, f"{phase}: GIST {row}")
+    return counts, fields
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA card",
@@ -1190,6 +1518,10 @@ def main() -> int:
     torch.cuda.synchronize()
     log("2 epoch graphs", seconds=time.perf_counter() - t0,
         edges_500=int(built500[1].graph.num_edges), edges_10k=int(built10k[1].graph.num_edges))
+    t0 = time.perf_counter()
+    kf_world, kf_frames = keyframe_world()
+    log("2 keyframe frames", seconds=time.perf_counter() - t0, frames=len(kf_frames),
+        shape=list(kf_frames[0]["image"].shape))
 
     g1k = make_graph(1000, dev)
     g100k = make_graph(100_000, dev)
@@ -1222,6 +1554,13 @@ def main() -> int:
     rows_large["project_rays"] = compare_project(map_args(s10k_map, cfg_map10k, None)[1],
                                                  "10k full", large=True, trials=3, calls=2)
     del s10k_map
+    # K12-K15 on the arguments the first VGA keyframe gives them (one camera:
+    # the main shapes; the front + rear rig: the large ones)
+    for n_cams, target in ((1, rows), (2, rows_large)):
+        cfg_kf, pose = keyframe_rig(n_cams, dev)
+        calls = record_frontend_args(lambda: pipeline.keyframe_frontend(
+            *frame_inputs(kf_frames[0], n_cams), kf_world.cam, pose, cfg_kf))
+        target.update(compare_frontend(calls, f"VGA {n_cams} camera{'s' if n_cams > 1 else ''}"))
 
     chi2_oracle_1k = oracle_chi2(g1k, iters=12)
     launches = headline_solve(g1k, chi2_oracle_1k, reps=10)
@@ -1240,19 +1579,28 @@ def main() -> int:
     counts10k, state10k = epoch_phase("9 epoch 10k", built10k, EPOCH_10K["n"], reps=3,
                                       reads=reads, cpu_check=False)
     map10k = map_phase("9 map 10k", state10k, built10k[0], reps=3, cpu_check=False)
+    del built10k, state10k
+    kf1, kf1_fields = frontend_phase("10 keyframe front-end VGA 1 camera", kf_world, kf_frames, 1,
+                                     dev)
+    kf2, kf2_fields = frontend_phase("10 keyframe front-end VGA front + rear", kf_world, kf_frames,
+                                     2, dev)
     # each kernel's main path: the 1k solve for K1-K4, K9, K10; the 500-node
     # epoch for K5-K8; the projection sequence after it for K11
     launches.update({name: counts500[name] for name in EPOCH_KERNELS})
     launches.update({name: map500[name] for name in MAP_KERNELS})
+    launches.update({name: kf1[name] for name in FRONTEND_KERNELS})
     shapes = {**{k: ("1k solve", "100k solve") for k in SOLVE_KERNELS},
               **{k: ("500-node epoch", "10k-node epoch") for k in EPOCH_KERNELS},
-              "project_rays": ("500-node full rebuild", "10k-node full rebuild")}
+              "project_rays": ("500-node full rebuild", "10k-node full rebuild"),
+              **{k: ("VGA keyframe, 1 camera", "VGA keyframe, front + rear rig")
+                 for k in FRONTEND_KERNELS}}
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
          "launches": launches[name], "launches_epoch_500": counts500[name],
          "launches_epoch_10k": counts10k[name], "launches_map_500": map500[name],
-         "launches_map_10k": map10k[name],
+         "launches_map_10k": map10k[name], "launches_keyframe_1cam": kf1[name],
+         "launches_keyframe_2cam": kf2[name],
          "max_abs_err": rows[name]["max_abs_err"], "ms": rows[name]["ms"],
          "plain_ms": rows[name]["plain_ms"], "bound_ms": rows[name]["bound_ms"],
          "bound_by": rows[name]["bound_by"], "library_ms": rows[name].get("library_ms"),
@@ -1272,6 +1620,12 @@ def main() -> int:
     kernels[list(REPLACES).index("project_rays")].update(
         ms_incremental=row_inc["ms"], plain_ms_incremental=row_inc["plain_ms"],
         bound_ms_incremental=row_inc["bound_ms"], max_abs_err_incremental=row_inc["max_abs_err"])
+    # K12-K15: device time of one profiled keyframe (phase 10), beside the
+    # event-timed wrapper calls of phase 3, which include the host's issue
+    for name in FRONTEND_KERNELS:
+        kernels[list(REPLACES).index(name)].update(
+            device_ms_keyframe=kf1_fields["kernel_device_ms"].get(name),
+            device_ms_keyframe_large=kf2_fields["kernel_device_ms"].get(name))
     # K8's second route, from the same source: one grid launch per pass
     # where 12·N bytes exceed one CTA's shared memory; its main path is
     # phase 7's 100k solve

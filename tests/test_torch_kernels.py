@@ -48,7 +48,7 @@ def test_nvcc_flags_target_hopper_without_fast_math():
     assert {p.name for p in _build.sources()} == {
         "linearize.cu", "hvp.cu", "chain_apply.cu", "residual_chi2.cu", "relax_min.cu",
         "cluster_labels.cu", "ransac_rigid.cu", "components.cu", "chain_factor.cu", "pcg.cu",
-        "occupancy.cu"}
+        "occupancy.cu", "fast_nms.cu", "grid_topk.cu", "orb_describe.cu", "scan_bins.cu"}
 
 
 def test_every_exported_function_has_a_signature_of_its_arity():
@@ -320,3 +320,90 @@ def test_solve_and_map_kernel_argument_checks_raise(fake_lib):
             kops.project_rays(*args, 0.1, 6.0, 0.85, -0.4, 10.0, True)
     # only the two factors built for the held-factor cases reached the library
     assert {c[0] for c in fake_lib.calls} == {"uz_chain_factor_level", "uz_chain_factor_root"}
+
+
+def _frontend_cases():
+    """Small CPU inputs for K12-K15: (wrapper name, args)."""
+    from uzliti_slam_tpu_torch.frontend import camera
+    from uzliti_slam_tpu_torch.ops import features, scan
+
+    rng = np.random.default_rng(3)
+    img = torch.from_numpy(rng.integers(0, 256, (2, 60, 72)).astype(np.float32))
+    score = kops.fast_nms_plain(img, 20.0)
+    uv = kops.grid_topk_plain(score, 16, 4)[0]
+    depth = torch.from_numpy(rng.uniform(0.5, 4.0, (2, 24, 32)).astype(np.float32))
+    cam = camera.PinholeCamera(40.0, 40.0, 16.0, 12.0, 32, 24)
+    pose = torch.tensor([[0.0, 0.0, 0.5, 0.5, -0.5, 0.5, -0.5]] * 2)
+    xf = scan.depth_camera_transform(pose)
+    return [
+        ("fast_nms", (img, 20.0)),
+        ("grid_topk", (score, 16, 4)),
+        ("grid_topk", (score, 8, 4)),
+        ("orb_describe", (img, uv, features.pattern("brief", "cpu"))),
+        ("scan_bins", (depth, cam, xf, 90, -np.pi, np.pi, (-0.4, 0.6), 6.0, 0.3)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(5), ids=["fast_nms", "grid_topk", "grid_topk_global",
+                                                 "orb_describe", "scan_bins"])
+def test_frontend_kernel_wrappers_run_their_plain_version_on_cpu(case):
+    name, args = _frontend_cases()[case]
+    kops.reset_launches()
+    got, ref = getattr(kops, name)(*args), getattr(kops, f"{name}_plain")(*args)
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    ref if isinstance(ref, tuple) else (ref,)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert kops.launches == {k: 0 for k in kops.launches}
+
+
+def test_frontend_kernels_launch_through_the_library(fake_lib):
+    from uzliti_slam_tpu_torch.frontend import camera
+
+    assert tuple(kops.fast_nms(_meta(2, 48, 64), 20.0).shape) == (2, 48, 64)
+    assert fake_lib.calls[-1][0] == "uz_fast_nms" and fake_lib.calls[-1][1][1:5] == (2, 48, 64, 20.0)
+    # 16 cells x 4 = k_total: no scratch; 16 cells x 1 > 8: the global top-k's scratch
+    uv, resp, valid = kops.grid_topk(_meta(2, 48, 64), 64, 4)
+    assert fake_lib.calls[-1][1][4:8] == (4, 4, 64, None)
+    assert tuple(uv.shape) == (2, 64, 2) and valid.dtype == torch.bool
+    kops.grid_topk(_meta(2, 48, 64), 8, 4)
+    assert fake_lib.calls[-1][1][4:7] == (4, 1, 8) and fake_lib.calls[-1][1][7] is not None
+    ang, desc = kops.orb_describe(_meta(2, 48, 64), _meta(2, 16, 2), _meta(256, 2, 2))
+    assert fake_lib.calls[-1][0] == "uz_orb_describe" and fake_lib.calls[-1][1][3:8] == (
+        2, 48, 64, 16, 0)
+    assert tuple(desc.shape) == (2, 16, 32) and desc.dtype == torch.uint8
+    given = _meta(2, 16)
+    ang, _ = kops.orb_describe(_meta(2, 48, 64), _meta(2, 16, 2), _meta(256, 2, 2), angles=given)
+    assert ang is given and fake_lib.calls[-1][1][7] == 1
+    cam = camera.PinholeCamera(40.0, 40.0, 16.0, 12.0, 64, 48)
+    near, far = kops.scan_bins(_meta(2, 48, 64), cam, _meta(2, 12), 360, -np.pi, np.pi,
+                               (-0.4, 0.6), 6.0, 0.3)
+    assert tuple(near.shape) == tuple(far.shape) == (2, 360)
+    args = fake_lib.calls[-1][1]
+    assert fake_lib.calls[-1][0] == "uz_scan_bins" and args[2:5] == (2, 48, 64)
+    assert args[9] == 360 and args[12] == pytest.approx(360 / (2 * np.pi), rel=1e-6)
+    assert args[17] == pytest.approx((2**21 - 1) / 6.006, rel=1e-6)
+    assert kops.launches["fast_nms"] == 1 and kops.launches["grid_topk"] == 2
+    assert kops.launches["orb_describe"] == 2 and kops.launches["scan_bins"] == 1
+
+
+def test_frontend_kernel_argument_checks_raise(fake_lib):
+    from uzliti_slam_tpu_torch.frontend import camera
+
+    with pytest.raises(ValueError, match="expected \\(C, H, W\\)"):
+        kops.fast_nms(_meta(48, 64), 20.0)
+    with pytest.raises(TypeError, match="img: dtype"):
+        kops.fast_nms(_meta(1, 48, 64, dtype=torch.float64), 20.0)
+    with pytest.raises(ValueError, match="per cell"):
+        kops.grid_topk(_meta(1, 8, 8), 128, 4)
+    with pytest.raises(ValueError, match="pattern: shape"):
+        kops.orb_describe(_meta(1, 48, 64), _meta(1, 4, 2), _meta(128, 2, 2))
+    with pytest.raises(ValueError, match="angles: shape"):
+        kops.orb_describe(_meta(1, 48, 64), _meta(1, 4, 2), _meta(256, 2, 2), angles=_meta(1, 5))
+    cam = camera.PinholeCamera(40.0, 40.0, 16.0, 12.0, 64, 48)
+    with pytest.raises(ValueError, match="1..1023"):
+        kops.scan_bins(_meta(1, 48, 64), cam, _meta(1, 12), 1024, -np.pi, np.pi, (-0.4, 0.6),
+                       6.0, 0.3)
+    with pytest.raises(ValueError, match="xf: shape"):
+        kops.scan_bins(_meta(1, 48, 64), cam, _meta(1, 7), 360, -np.pi, np.pi, (-0.4, 0.6),
+                       6.0, 0.3)
+    assert fake_lib.calls == []

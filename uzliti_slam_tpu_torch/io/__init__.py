@@ -1,1 +1,2 @@
-"""Synthetic pose-graph generation."""
+"""Synthetic inputs: pose graphs (``synthetic``) and RGB-D frames
+(``simulator``)."""

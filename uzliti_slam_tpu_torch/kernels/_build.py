@@ -56,6 +56,11 @@ SIGNATURES = {
     "uz_pcg_beta": [_P, _P, _I, _P, _P, _P, _P],
     "uz_project_rays": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _F,
                         _F, _I, _F, _P, _P],
+    "uz_fast_nms": [_P, _I, _I, _I, _F, _P, _P],
+    "uz_grid_topk": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "uz_orb_describe": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "uz_scan_bins": [_P, _P, _I, _I, _I, _F, _F, _F, _F, _I, _F, _F, _F, _F, _F, _F, _F, _F,
+                     _F, _P, _P, _P],
 }
 
 _lib = None

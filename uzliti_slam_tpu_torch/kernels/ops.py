@@ -31,6 +31,13 @@ pcg            csrc/pcg.cu             graph/solver.py:_pcg's vector updates
                                        (three wrappers, one count)
 project_rays   csrc/occupancy.cu       mapping/occupancy.py:_project_rays +
                                        _mark_node_cells
+fast_nms       csrc/fast_nms.cu        ops/features.py:fast_score + nms
+grid_topk      csrc/grid_topk.cu       ops/features.py:select_topk_grid
+orb_describe   csrc/orb_describe.cu    ops/features.py:_sep_blur +
+                                       intensity_centroid_angles +
+                                       brief_descriptors
+scan_bins      csrc/scan_bins.cu       ops/scan.py:depth_to_scan's per-pixel
+                                       part + _bin_min_max
 =============  ======================  =======================================
 
 What bounds each kernel on the card, and what its design does about it, is
@@ -46,7 +53,8 @@ from uzliti_slam_tpu_torch.kernels import _build
 
 launches = {"linearize": 0, "hvp": 0, "chain_apply": 0, "residual_chi2": 0,
             "relax_min": 0, "cluster_labels": 0, "ransac_rigid": 0, "components": 0,
-            "chain_factor": 0, "pcg": 0, "project_rays": 0}
+            "chain_factor": 0, "pcg": 0, "project_rays": 0, "fast_nms": 0, "grid_topk": 0,
+            "orb_describe": 0, "scan_bins": 0}
 
 _THREADS = 256  # kThreads in csrc/lie.cuh: K4's partial sums, one per block
 _SMEM_BYTES = 232448  # shared memory one CTA can use on Hopper
@@ -994,3 +1002,245 @@ def project_rays(logodds, cx, cy, kbin, scans, idx, count, D, bin0, Wray, res: f
     _raise_on(err, "project_rays")
     launches["project_rays"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# K12 fast_nms (FAST-9/16 score + 3x3 non-maximum suppression)
+# ---------------------------------------------------------------------------
+
+def _images(name: str, t: torch.Tensor) -> tuple[int, int, int]:
+    if t.dim() != 3:
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected (C, H, W)")
+    return tuple(t.shape)
+
+
+def fast_nms_plain(img, threshold: float):
+    """Plain version of K12: ``nms(fast_score(img, threshold))`` of (C, H,
+    W) float32 images."""
+    from uzliti_slam_tpu_torch.ops import features
+
+    return features.nms(features.fast_score(img, threshold))
+
+
+def fast_nms(img, threshold: float):
+    """K12: FAST-9/16 scores with the border mask and the 3x3 NMS fused,
+    (C, H, W) float32 -> (C, H, W) float32; one launch per pyramid level."""
+    if img.device.type == "cpu":
+        return fast_nms_plain(img, threshold)
+    C, H, W = _images("img", img)
+    ptr = _check("img", img, (C, H, W), torch.float32, img.device)
+    lib = _build.load()
+    out = torch.empty_like(img)
+    err = lib.uz_fast_nms(ptr, C, H, W, float(threshold), out.data_ptr(), _stream(img.device))
+    _raise_on(err, "fast_nms")
+    launches["fast_nms"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K13 grid_topk (per-cell top-k, then the global top-k or padding)
+# ---------------------------------------------------------------------------
+
+def _grid_shapes(H: int, W: int, k_total: int, grid: int) -> tuple[int, int, int, int]:
+    """(cell height, cell width, k per cell, keypoints from the cells)."""
+    k_cell = max(k_total // (grid * grid), 1)
+    return H // grid, W // grid, k_cell, grid * grid * k_cell
+
+
+def grid_topk_plain(score, k_total: int, grid: int):
+    """Plain version of K13 on (C, H, W) scores: (uv (C, k_total, 2), resp
+    (C, k_total), valid (C, k_total)).  A stable descending sort, so ties
+    go to the lower index (row-major in the cell, then cell order), as
+    XLA's top_k and approx_max_k do on the CPU; ``torch.topk`` does not
+    promise that order.  With one keypoint per cell the tie goes to the
+    higher index, as XLA's k = 1 form (a max reduction) does."""
+    C, H, W = score.shape
+    gh, gw, k_cell, n = _grid_shapes(H, W, k_total, grid)
+    dev = score.device
+    sc = score[:, : gh * grid, : gw * grid].reshape(C, grid, gh, grid, gw)
+    sc = sc.permute(0, 1, 3, 2, 4).reshape(C, grid * grid, gh * gw)
+    if k_cell == 1:
+        # XLA's approx_max_k with k = 1 is a max reduction, whose ties keep
+        # the last index on the CPU
+        last = sc.shape[-1] - 1 - torch.argmax(torch.flip(sc, dims=(-1,)), dim=-1, keepdim=True)
+        vals, idx = torch.gather(sc, -1, last), last
+    else:
+        vals, idx = torch.sort(sc, dim=-1, descending=True, stable=True)
+        vals, idx = vals[..., :k_cell], idx[..., :k_cell]
+    cell = torch.arange(grid * grid, device=dev)[:, None]
+    ys = (cell // grid) * gh + idx // gw
+    xs = (cell % grid) * gw + idx % gw
+    uv = torch.stack([xs.reshape(C, -1), ys.reshape(C, -1)], dim=-1).to(torch.float32)
+    resp = vals.reshape(C, -1)
+    valid = resp > 0
+    if n > k_total:
+        key = torch.where(valid, resp, -1.0)
+        top_vals, top_idx = torch.sort(key, dim=-1, descending=True, stable=True)
+        resp, top_idx = top_vals[:, :k_total], top_idx[:, :k_total]
+        uv = torch.gather(uv, 1, top_idx[..., None].expand(C, k_total, 2))
+        valid = resp > 0
+    elif n < k_total:
+        pad = k_total - n
+        uv = torch.cat([uv, uv.new_zeros(C, pad, 2)], dim=1)
+        resp = torch.cat([resp, resp.new_zeros(C, pad)], dim=1)
+        valid = torch.cat([valid, valid.new_zeros(C, pad)], dim=1)
+    return uv, resp, valid
+
+
+def grid_topk(score, k_total: int, grid: int):
+    """K13: the exact top-k of each (camera, cell), one CTA per cell, ties
+    to the lower index; when the cells give more than ``k_total``, a second
+    launch (one CTA per camera) keeps the global top ``k_total``; when
+    fewer, the zero-initialised outputs are the padding."""
+    if score.device.type == "cpu":
+        return grid_topk_plain(score, k_total, grid)
+    dev = score.device
+    C, H, W = _images("score", score)
+    ptr = _check("score", score, (C, H, W), torch.float32, dev)
+    gh, gw, k_cell, n = _grid_shapes(H, W, k_total, grid)
+    if gh * gw == 0 or k_cell > gh * gw:
+        raise ValueError(f"grid_topk: {k_cell} per cell of {gh}x{gw} pixels")
+    lib = _build.load()
+    uv = torch.zeros(C, k_total, 2, dtype=torch.float32, device=dev)
+    resp = torch.zeros(C, k_total, dtype=torch.float32, device=dev)
+    valid = torch.zeros(C, k_total, dtype=torch.bool, device=dev)
+    # the cells' candidates go to scratch when a global top-k follows
+    scratch = torch.empty(C, n, 3, dtype=torch.float32, device=dev) if n > k_total else None
+    err = lib.uz_grid_topk(ptr, C, H, W, grid, k_cell, k_total, _ptr(scratch), uv.data_ptr(),
+                           resp.data_ptr(), valid.data_ptr(), _stream(dev))
+    _raise_on(err, "grid_topk")
+    launches["grid_topk"] += 1
+    return uv, resp, valid
+
+
+# ---------------------------------------------------------------------------
+# K14 orb_describe (box blur, intensity-centroid angle, steered descriptor)
+# ---------------------------------------------------------------------------
+
+def orb_describe_plain(img, uv, pattern, angles=None):
+    """Plain version of K14 on (C, H, W) images and (C, K, 2) keypoints:
+    (angles (C, K), descriptors (C, K, 32) uint8).  Given ``angles`` are
+    used as they are (the GIST's roll)."""
+    from uzliti_slam_tpu_torch.ops import features
+
+    if angles is None:
+        angles = features.intensity_centroid_angles(img, uv)
+    return angles, features.brief_descriptors(img, uv, angles, pattern)
+
+
+def orb_describe(img, uv, pattern, angles=None):
+    """K14: a separable 5x5 box blur of each image (one launch), then one
+    warp per keypoint: the intensity-centroid angle on the unblurred image
+    (or the given angle), the pattern rotated by it, 256 nearest-pixel
+    tests on the blurred image packed by ``__ballot_sync``."""
+    if img.device.type == "cpu":
+        return orb_describe_plain(img, uv, pattern, angles)
+    dev, f32 = img.device, torch.float32
+    C, H, W = _images("img", img)
+    K = uv.shape[1]
+    ptrs = [_check("img", img, (C, H, W), f32, dev), _check("uv", uv, (C, K, 2), f32, dev),
+            _check("pattern", pattern, (256, 2, 2), f32, dev)]
+    if angles is not None:
+        _check("angles", angles, (C, K), f32, dev)
+    lib = _build.load()
+    blurred = torch.empty(C, H, W, dtype=f32, device=dev)
+    ang = angles if angles is not None else torch.empty(C, K, dtype=f32, device=dev)
+    desc = torch.empty(C, K, 32, dtype=torch.uint8, device=dev)
+    err = lib.uz_orb_describe(*ptrs, C, H, W, K, int(angles is not None), blurred.data_ptr(),
+                              ang.data_ptr(), desc.data_ptr(), _stream(dev))
+    _raise_on(err, "orb_describe")
+    launches["orb_describe"] += 1
+    return ang, desc
+
+
+# ---------------------------------------------------------------------------
+# K15 scan_bins (depth -> per-bin near/far range)
+# ---------------------------------------------------------------------------
+
+def fma_plain(a, b, c):
+    """a·b + c rounded once to float32, as a fused multiply-add: the
+    product is exact in float64, so only the double rounding of the sum
+    (rare) can differ from the card's ``fmaf``."""
+    return (a.double() * b.double() + c.double()).to(torch.float32)
+
+
+def scan_pixels_plain(depth, cam, xf, n_bins: int, angle_min: float, angle_max: float,
+                      height_band, max_range: float, min_range: float):
+    """The per-pixel part of K15's plain version on (C, H, W) depth in
+    metres and (C, 12) camera-to-base transforms: (range, ok, bin), each
+    (C, H·W).
+
+    The reference's compiled form is followed, as XLA on the CPU emits it:
+    each row of the extrinsic product is fma(r2, z, fma(r0, x, r1·y)) + t
+    and the squared range fma(x, x, y·y) (LLVM contracts a multiply into
+    the add that uses it); the bin index is ``scan.bin_index``.  K15
+    writes the same contractions with ``__fmaf_rn`` and every other
+    operation with ``__f*_rn``."""
+    from uzliti_slam_tpu_torch.ops import scan
+
+    C, h, w = depth.shape
+    dev = depth.device
+    vv = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
+    uu = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
+    xc = (uu - cam.cx) / cam.fx * depth
+    yc = (vv - cam.cy) / cam.fy * depth
+    zc = depth
+    m = [xf[:, i, None, None] for i in range(12)]
+
+    def row(i):
+        return fma_plain(m[3 * i + 2], zc, fma_plain(m[3 * i], xc, m[3 * i + 1] * yc)) + m[9 + i]
+
+    xb, yb, zb = row(0), row(1), row(2)
+    valid = (depth > 0.01) & torch.isfinite(depth)
+    # the square root in float64, rounded once: torch's float32 sqrt on the
+    # CPU is not always the correctly rounded one (XLA's and the card's are)
+    rng = torch.sqrt(fma_plain(xb, xb, yb * yb).double()).to(torch.float32)
+    bearing = torch.atan2(yb, xb)
+    ok = (valid & (zb >= height_band[0]) & (zb <= height_band[1])
+          & (rng >= min_range) & (rng <= max_range)
+          & (bearing >= angle_min) & (bearing < angle_max))
+    bins = scan.bin_index(bearing, n_bins, angle_min, angle_max)
+    return rng.reshape(C, -1), ok.reshape(C, -1), bins.reshape(C, -1)
+
+
+def scan_bins_plain(depth, cam, xf, n_bins: int, angle_min: float, angle_max: float,
+                    height_band, max_range: float, min_range: float):
+    """Plain version of K15: (near (C, B), far (C, B)), +inf where a bin is
+    empty, from (C, H, W) depth in metres."""
+    from uzliti_slam_tpu_torch.ops import scan
+
+    rng, ok, bins = scan_pixels_plain(depth, cam, xf, n_bins, angle_min, angle_max,
+                                      height_band, max_range, min_range)
+    near, far = scan._bin_min_max(rng, ok, bins, n_bins, max_range)
+    return near, torch.where(torch.isfinite(far), far, torch.inf)
+
+
+def scan_bins(depth, cam, xf, n_bins: int, angle_min: float, angle_max: float,
+              height_band, max_range: float, min_range: float):
+    """K15: one thread per pixel (backprojection, extrinsic, band, range,
+    bearing, bin), per-bin atomicMin/atomicMax of the 21-bit quantised
+    range in shared memory, then into a (C, 2, B) table, then a finalize
+    launch writes q / scale (or +inf)."""
+    if depth.device.type == "cpu":
+        return scan_bins_plain(depth, cam, xf, n_bins, angle_min, angle_max, height_band,
+                               max_range, min_range)
+    from uzliti_slam_tpu_torch.ops import scan
+
+    dev, f32 = depth.device, torch.float32
+    C, H, W = _images("depth", depth)
+    if not 0 < n_bins <= 1023:
+        raise ValueError(f"scan_bins: {n_bins} bins, the kernel takes 1..1023")
+    ptrs = [_check("depth", depth, (C, H, W), f32, dev), _check("xf", xf, (C, 12), f32, dev)]
+    lib = _build.load()
+    table = torch.empty(C, 2, n_bins, dtype=torch.int32, device=dev)
+    out = torch.empty(2, C, n_bins, dtype=f32, device=dev)
+    scale = scan.range_scale(max_range)
+    err = lib.uz_scan_bins(*ptrs, C, H, W, float(cam.fx), float(cam.fy), float(cam.cx),
+                           float(cam.cy), n_bins, float(angle_min), float(angle_max),
+                           scan.bin_factor(n_bins, angle_min, angle_max), float(height_band[0]),
+                           float(height_band[1]), float(min_range), float(max_range), scale,
+                           scan.f32_reciprocal(scale), table.data_ptr(), out.data_ptr(),
+                           _stream(dev))
+    _raise_on(err, "scan_bins")
+    launches["scan_bins"] += 1
+    return out[0], out[1]

@@ -1,0 +1,299 @@
+"""ORB-style feature detection and description, and the binary GIST.
+
+PyTorch counterpart of ``uzliti_slam_tpu/ops/features.py`` for the binary
+families: tunable-threshold FAST-9/16 with 3x3 non-maximum suppression,
+a grid-adapted top-K per pyramid level, intensity-centroid orientation and
+a steered 256-test descriptor on a box-blurred image, packed LSB first.
+Shapes are static: K keypoints with validity masks.
+
+Every image function takes a camera batch: (C, H, W), or (H, W) for one
+camera.  ``detect_and_describe``, ``select_topk_grid`` and ``binary_gist``
+run the hand-written kernels K12 (``fast_nms``), K13 (``grid_topk``) and
+K14 (``orb_describe``) through ``kernels/ops.py``: on CPU tensors those
+wrappers run their plain versions, which are built from ``fast_score``,
+``nms``, ``_sep_blur``, ``intensity_centroid_angles`` and
+``brief_descriptors`` here.  The "sift" family is not ported.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from uzliti_slam_tpu_torch.kernels import ops as kops
+from uzliti_slam_tpu_torch.ops import _patterns, matching, resize
+
+# FAST circle of radius 3 (Bresenham), 16 (dy, dx) offsets in clockwise order.
+_FAST_OFFSETS = (
+    (0, 3), (1, 3), (2, 2), (3, 1), (3, 0), (3, -1), (2, -2), (1, -3),
+    (0, -3), (-1, -3), (-2, -2), (-3, -1), (-3, 0), (-3, 1), (-2, 2), (-1, 3),
+)
+# Keypoints closer than this to a border are suppressed: the rotated
+# pattern reaches 13·√2 ≈ 18.4 px, plus the blur radius.
+BORDER = 21
+
+
+class Keypoints(NamedTuple):
+    uv: torch.Tensor        # (..., K, 2) float32 pixel coords (u=x, v=y)
+    response: torch.Tensor  # (..., K)
+    angle: torch.Tensor     # (..., K) orientation in radians
+    scale: torch.Tensor     # (..., K) pyramid scale factor applied to uv
+    valid: torch.Tensor     # (..., K) bool
+
+
+def _batched(img: torch.Tensor) -> torch.Tensor:
+    return img if img.dim() == 3 else img[None]
+
+
+def _shift2d(img: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
+    """out[..., y, x] = img[..., y + dy, x + dx], zero outside."""
+    h, w = img.shape[-2:]
+    out = torch.zeros_like(img)
+    out[..., max(-dy, 0): h + min(-dy, 0), max(-dx, 0): w + min(-dx, 0)] = \
+        img[..., max(dy, 0): h + min(dy, 0), max(dx, 0): w + min(dx, 0)]
+    return out
+
+
+def fast_score(img: torch.Tensor, threshold: float = 20.0) -> torch.Tensor:
+    """FAST-9/16 corner response of (..., H, W) float32 images: ≥ 9
+    contiguous circle pixels all brighter (or all darker) than the centre ±
+    threshold; score = the larger of the brighter and darker sums of
+    |difference| - threshold; 0 within ``BORDER`` of an edge."""
+    ring = torch.stack([_shift2d(img, -dy, -dx) for dy, dx in _FAST_OFFSETS], dim=-3)
+    diff = ring - img[..., None, :, :]
+    brighter = diff > threshold
+    darker = diff < -threshold
+
+    def contiguous9(mask):
+        # a run of 9 with wrap-around: AND-doubling along the ring axis
+        a = mask & torch.roll(mask, -1, dims=-3)
+        a = a & torch.roll(a, -2, dims=-3)
+        a = a & torch.roll(a, -4, dims=-3)
+        return torch.any(a & torch.roll(mask, -8, dims=-3), dim=-3)
+
+    is_corner = contiguous9(brighter) | contiguous9(darker)
+    # summed in ring order, as K12 sums (the reference's order may differ
+    # off level 0, where the scores of a uint8 image are exact integers)
+    score_b = score_d = torch.zeros_like(img)
+    for i in range(len(_FAST_OFFSETS)):
+        d = diff[..., i, :, :]
+        score_b = score_b + torch.where(brighter[..., i, :, :], d - threshold, 0.0)
+        score_d = score_d + torch.where(darker[..., i, :, :], -d - threshold, 0.0)
+    score = torch.maximum(score_b, score_d)
+    h, w = img.shape[-2:]
+    yy = torch.arange(h, device=img.device)[:, None]
+    xx = torch.arange(w, device=img.device)[None, :]
+    b = BORDER
+    interior = (yy >= b) & (yy < h - b) & (xx >= b) & (xx < w - b)
+    return torch.where(is_corner & interior, score, 0.0)
+
+
+def nms(score: torch.Tensor, radius: int = 1) -> torch.Tensor:
+    """(2r+1)² non-maximum suppression of (..., H, W) scores: a score is
+    kept where it equals its window's maximum (ties all kept) and is > 0."""
+    k = 2 * radius + 1
+    flat = score.reshape(-1, 1, *score.shape[-2:])
+    pooled = torch.nn.functional.max_pool2d(flat, k, stride=1, padding=radius)
+    pooled = pooled.reshape(score.shape)
+    return torch.where((score == pooled) & (score > 0), score, 0.0)
+
+
+def select_topk_grid(score: torch.Tensor, k_total: int, grid: int = 4):
+    """Grid-adapted top-K of (C, H, W) or (H, W) scores (kernel K13): the
+    exact top ⌊k_total / grid²⌋ (at least 1) of each cell of a grid × grid
+    split, ties to the lower row-major index in the cell, then the global
+    top ``k_total`` if that is more, or zero padding if fewer.  Returns
+    (uv (..., K, 2) float32, response (..., K), valid (..., K))."""
+    uv, resp, valid = kops.grid_topk(_batched(score).contiguous(), k_total, grid)
+    if score.dim() == 2:
+        return uv[0], resp[0], valid[0]
+    return uv, resp, valid
+
+
+def _sep_blur(img: torch.Tensor, radius: int = 2) -> torch.Tensor:
+    """Separable box blur of (..., H, W) with zero padding: a row sum, then
+    a column sum, left to right as ``reduce_window`` adds, then × 1/k²."""
+    k = 2 * radius + 1
+    h, w = img.shape[-2:]
+    pad = torch.nn.functional.pad(img, (radius, radius))
+    s = pad[..., 0:w]
+    for i in range(1, k):
+        s = s + pad[..., i: i + w]
+    pad = torch.nn.functional.pad(s, (0, 0, radius, radius))
+    t = pad[..., 0:h, :]
+    for i in range(1, k):
+        t = t + pad[..., i: i + h, :]
+    return t * (1.0 / (k * k))
+
+
+def intensity_centroid_angles(img: torch.Tensor, uv: torch.Tensor, radius: int = 7) -> torch.Tensor:
+    """Orientation of keypoints uv (C, K, 2) on images (C, H, W) by the
+    intensity centroid: atan2(m01, m10) over the (2r+1)² patch whose origin
+    is the keypoint's pixel less r, clipped into the image, masked to the
+    disc of radius r about the patch centre."""
+    k = 2 * radius + 1
+    dev = img.device
+    d = torch.arange(k, dtype=torch.float32, device=dev) - radius
+    dy, dx = d[:, None].expand(k, k), d[None, :].expand(k, k)
+    circ = (dx * dx + dy * dy) <= radius * radius
+    C, h, w = img.shape
+    y0 = torch.clamp(uv[..., 1].to(torch.int32) - radius, 0, h - k).long()
+    x0 = torch.clamp(uv[..., 0].to(torch.int32) - radius, 0, w - k).long()
+    ar = torch.arange(k, device=dev)
+    flat = (y0[..., None, None] + ar[:, None]) * w + (x0[..., None, None] + ar[None, :])
+    patches = torch.gather(img.reshape(C, -1), 1, flat.reshape(C, -1)).reshape(flat.shape)
+    patches = patches * circ
+    m01 = torch.sum(dy * patches, dim=(-2, -1))
+    m10 = torch.sum(dx * patches, dim=(-2, -1))
+    return torch.atan2(m01, m10)
+
+
+def brief_descriptors(img: torch.Tensor, uv: torch.Tensor, angles: torch.Tensor,
+                      pattern: torch.Tensor) -> torch.Tensor:
+    """Steered binary descriptors of keypoints uv (C, K, 2) with angles
+    (C, K) on images (C, H, W): the (256, 2, 2) pattern rotated by each
+    angle, both points of each test sampled on the box-blurred image at the
+    nearest pixel (round half to even, clipped), bit = a < b; (C, K, 32)
+    uint8, LSB first."""
+    sm = _sep_blur(img, 2)
+    C, h, w = img.shape
+    ca, sa = torch.cos(angles), torch.sin(angles)
+    px, py = pattern[None, None, :, :, 0], pattern[None, None, :, :, 1]
+    rx = ca[..., None, None] * px - sa[..., None, None] * py
+    ry = sa[..., None, None] * px + ca[..., None, None] * py
+    sx = uv[..., None, None, 0] + rx
+    sy = uv[..., None, None, 1] + ry
+    xi = torch.clamp(torch.round(sx), 0, w - 1).long()
+    yi = torch.clamp(torch.round(sy), 0, h - 1).long()
+    flat = (yi * w + xi).reshape(C, -1)
+    vals = torch.gather(sm.reshape(C, -1), 1, flat).reshape(xi.shape)
+    bits = vals[..., 0] < vals[..., 1]
+    return matching.pack_bits(bits)
+
+
+def brisk_pattern(n_bits: int = 256, patch_radius: int = 13) -> np.ndarray:
+    """BRISK-style deterministic pattern: points on concentric staggered
+    rings, paired by short distance (ties by index); (n_bits, 2, 2)."""
+    rings = [(0.0, 1), (0.25, 8), (0.45, 12), (0.7, 16), (1.0, 20)]
+    pts = []
+    for ri, (rfrac, n) in enumerate(rings):
+        r = rfrac * patch_radius
+        for i in range(n):
+            th = 2.0 * np.pi * i / n + (np.pi / n) * (ri % 2)
+            pts.append((r * np.cos(th), r * np.sin(th)))
+    pts = np.asarray(pts, dtype=np.float32)  # (57, 2)
+    ii, jj = np.triu_indices(len(pts), k=1)
+    d = np.linalg.norm(pts[ii] - pts[jj], axis=-1)
+    sel = np.argsort(d, kind="stable")[:n_bits]
+    return np.stack([pts[ii[sel]], pts[jj[sel]]], axis=-2)
+
+
+def freak_pattern(n_bits: int = 256, patch_radius: int = 13) -> np.ndarray:
+    """FREAK-style retinal pattern: rings of geometrically growing radius,
+    paired longest distance first (ties by index); (n_bits, 2, 2)."""
+    n_rings = 7
+    pts = [(0.0, 0.0)]  # fovea centre
+    for ri in range(n_rings):
+        r = patch_radius * (2.0 ** (ri + 1) - 1.0) / (2.0 ** n_rings - 1.0)
+        n = 6
+        for i in range(n):
+            th = 2.0 * np.pi * i / n + (np.pi / n) * (ri % 2)
+            pts.append((r * np.cos(th), r * np.sin(th)))
+    pts = np.asarray(pts, dtype=np.float32)  # (43, 2)
+    ii, jj = np.triu_indices(len(pts), k=1)
+    d = np.linalg.norm(pts[ii] - pts[jj], axis=-1)
+    sel = np.argsort(-d, kind="stable")[:n_bits]
+    return np.stack([pts[ii[sel]], pts[jj[sel]]], axis=-2)
+
+
+def _as_pattern(rows) -> np.ndarray:
+    return np.asarray(rows, dtype=np.float32).reshape(-1, 2, 2)
+
+
+_PATTERNS_NP = {
+    "brief": _as_pattern(_patterns.BRIEF_13),
+    "brisk": brisk_pattern(),
+    "freak": freak_pattern(),
+    "gist": _as_pattern(_patterns.GIST_25),
+}
+_pattern_cache: dict = {}
+
+
+def pattern(name: str, device) -> torch.Tensor:
+    """The (256, 2, 2) float32 sampling pattern ``name`` ("brief", "brisk",
+    "freak" or "gist") on ``device``, cached."""
+    key = (name, torch.device(device))
+    if key not in _pattern_cache:
+        _pattern_cache[key] = torch.from_numpy(_PATTERNS_NP[name]).to(device)
+    return _pattern_cache[key]
+
+
+def pyramid_shapes(h: int, w: int, n_levels: int, scale_factor: float):
+    """[(scale, (h, w))] of each pyramid level: level l is the image resized
+    by 1/scale_factor^l (scale as a double product), at least 32 px a side."""
+    out, scale = [], 1.0
+    for lvl in range(n_levels):
+        out.append((scale, (h, w) if lvl == 0 else
+                    (max(int(round(h / scale)), 32), max(int(round(w / scale)), 32))))
+        scale *= scale_factor
+    return out
+
+
+def detect_and_describe(img: torch.Tensor, max_keypoints: int = 300, threshold: float = 20.0,
+                        grid: int = 4, n_levels: int = 4, scale_factor: float = 1.2,
+                        descriptor: str = "brief"):
+    """FAST + NMS (K12), grid top-K (K13) and orientation + steered
+    descriptors (K14) over an image pyramid of (C, H, W) or (H, W) images.
+
+    Returns (Keypoints, descriptors (..., K, 32) uint8) with K ==
+    max_keypoints exactly: each level takes ⌊max_keypoints / n_levels⌋
+    (at least 1) and the remainder is padded with invalid slots.  Keypoint
+    uv are in level-0 pixels.  ``descriptor`` is "brief", "brisk" or
+    "freak" (one kernel, three patterns).
+    """
+    if descriptor == "sift":
+        raise NotImplementedError("the 'sift' descriptor family is not ported")
+    if descriptor not in ("brief", "brisk", "freak"):
+        raise ValueError(f"unknown descriptor family {descriptor!r}")
+    imgs = _batched(img).to(torch.float32).contiguous()
+    C, H, W = imgs.shape
+    pat = pattern(descriptor, imgs.device)
+    k_level = max(max_keypoints // n_levels, 1)
+    outs = []
+    for scale, (h, w) in pyramid_shapes(H, W, n_levels, scale_factor):
+        cur = imgs if (h, w) == (H, W) else resize.resize_linear(imgs, (h, w)).contiguous()
+        score = kops.fast_nms(cur, threshold)
+        uv, resp, valid = kops.grid_topk(score, k_level, grid)
+        ang, desc = kops.orb_describe(cur, uv, pat)
+        outs.append((uv * scale, resp, ang, torch.full_like(resp, scale), valid, desc))
+    uv, resp, ang, scl, valid, desc = (torch.cat([o[i] for o in outs], dim=1) for i in range(6))
+    short = max_keypoints - desc.shape[1]
+    if short > 0:
+        def pad(t, value):
+            return torch.cat([t, t.new_full((C, short) + t.shape[2:], value)], dim=1)
+        uv, resp, ang = pad(uv, 0.0), pad(resp, 0.0), pad(ang, 0.0)
+        scl, valid, desc = pad(scl, 1.0), pad(valid, False), pad(desc, 0)
+    kps = Keypoints(uv=uv, response=resp, angle=ang, scale=scl, valid=valid)
+    if img.dim() == 2:
+        return Keypoints(*(t[0] for t in kps)), desc[0]
+    return kps, desc
+
+
+GIST_SIZE = 63
+
+
+def binary_gist(img: torch.Tensor, roll_angle=0.0) -> torch.Tensor:
+    """Whole-image binary GIST of (H, W) or (C, H, W) images: the frame
+    resized to 63×63 and one steered descriptor (K14, radius-25 pattern) at
+    the centre, its angle the robot's roll (a float or a tensor of the
+    batch's shape).  Returns (32,) or (C, 32) uint8."""
+    imgs = _batched(img).to(torch.float32)
+    C = imgs.shape[0]
+    small = resize.resize_linear(imgs, (GIST_SIZE, GIST_SIZE)).contiguous()
+    centre = torch.full((C, 1, 2), float(GIST_SIZE // 2), device=imgs.device)
+    ang = torch.as_tensor(roll_angle, dtype=torch.float32, device=imgs.device)
+    ang = ang.reshape(-1, 1).expand(C, 1).contiguous()
+    _, desc = kops.orb_describe(small, centre, pattern("gist", imgs.device), angles=ang)
+    return desc[0, 0] if img.dim() == 2 else desc[:, 0]

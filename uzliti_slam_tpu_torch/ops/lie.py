@@ -1,7 +1,8 @@
 """SE(3)/SO(3) Lie-group operations on batched tensors.
 
 PyTorch counterpart of ``uzliti_slam_tpu/ops/lie.py``, restricted to what
-the pose-graph solve, the epoch and the occupancy projection need.  Layouts are the same: a pose is ``(..., 7)``
+the pose-graph solve, the epoch, the occupancy projection and the
+keyframe front-end need.  Layouts are the same: a pose is ``(..., 7)``
 ``[tx, ty, tz, qw, qx, qy, qz]`` (translation, then a unit quaternion,
 scalar first) and a twist is ``(..., 6)`` ``[vx, vy, vz, wx, wy, wz]``.
 Every function broadcasts over leading batch dimensions and keeps the
@@ -288,6 +289,13 @@ def yaw_of(q: torch.Tensor) -> torch.Tensor:
     """Yaw (heading) angle extracted from a quaternion."""
     w, x, y, z = q.unbind(-1)
     return torch.atan2(2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z))
+
+
+def roll_of(q: torch.Tensor) -> torch.Tensor:
+    """Roll (Euler x) angle extracted from a quaternion (the GIST's roll
+    compensation)."""
+    w, x, y, z = q.unbind(-1)
+    return torch.atan2(2.0 * (w * x + y * z), 1.0 - 2.0 * (x * x + y * y))
 
 
 def se3_adjoint(p: torch.Tensor) -> torch.Tensor:
