@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port on one GPU: the pose-graph solve, the
-optimization epoch, the occupancy projection that follows it, and the
-keyframe front-end.
+optimization epoch, the occupancy projection that follows it, the keyframe
+front-end, the keyframe step through the ``Slam`` shell, and an end-to-end
+run judged by ATE.
 
     python3 chip_smoke.py
 
@@ -24,9 +25,11 @@ runs, in order, each phase printing lines of its own:
    front-end's kernels (K12 fast_nms and K13 grid_topk on all four pyramid
    levels, K14 orb_describe on every level and the GIST, K15 scan_bins) on
    the arguments one VGA keyframe gives them, with one camera and with the
-   front + rear rig: error against a stated tolerance, the median time of
-   both, and the least time the card could take for the work this data
-   needs;
+   front + rear rig, and the keyframe step's kernels (K16 hamming_top2, both
+   entry points, K17 bilateral, K18 icp) on the arguments a late VGA
+   keyframe step of phase 11 gives them: error against a stated tolerance,
+   the median time of both, and the least time the card could take for the
+   work this data needs;
 4. the 1k-node headline solve (20 LM x 12 PCG, chain factor refreshed every
    5, fixed iteration count) through ``optimize``: launch counts of one
    solve, no host synchronisation inside the timed solves (CUDA sync debug
@@ -56,7 +59,21 @@ runs, in order, each phase printing lines of its own:
    360 scan bins, depth refinement off), one camera and the front + rear
    rig: launch counts of one keyframe, ms per keyframe over 10 sync-free
    keyframes after 3 warm-up ones, a profile, valid keypoints, the scan on
-   the wall, and the same frames on CPU tensors through the plain path.
+   the wall, and the same frames on CPU tensors through the plain path;
+11. the keyframe step in the default configuration (depth refinement, GIST
+   recognition, matching + RANSAC, ICP laser edges) through
+   ``Slam.add_frame`` on the same 13 frames with the JAX bench's
+   ``_make_slam`` settings, one camera and the rig: ms per keyframe step
+   over 10 sync-free steps after 3 warm-up ones, launches of K12-K18 and K7
+   over them, a profile of one more step, candidates on the return leg
+   and, with one camera, loop closures proposed and accepted there (the
+   rig's rear camera is fed the front's frame, so the ratio test rejects
+   its duplicate descriptors), and the same frames on CPU tensors through
+   the plain path with the card's RANSAC draws (the same graph);
+12. the JAX bench's ATE rung (48 frames at 96x128, an epoch every 8
+   keyframes) through ``Slam`` on the card with RANSAC draws from seeds
+   0, 1 and 2: each ATE of SLAM below the raw odometry's and below 1.1x
+   the JAX package's largest CPU result over seeds.
 
 Then one JSON line with the kernels' results, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -74,6 +91,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 SEED = 0
@@ -149,6 +167,11 @@ REPLACES = {
     "orb_describe": "uzliti_slam_tpu/ops/features.py:159 (_sep_blur) + :171"
                     " (intensity_centroid_angles) + :285 (brief_descriptors)",
     "scan_bins": "uzliti_slam_tpu/ops/scan.py:38 (_bin_min_max) + :109 (depth_to_scan)",
+    "hamming_top2": "uzliti_slam_tpu/ops/matching.py:53 (hamming_matrix) + :80 (knn_match)"
+                    " + :100 (ratio_test) via :116 (match_descriptors)"
+                    " + recognition/recognizer.py:76 (gist_query)",
+    "bilateral": "uzliti_slam_tpu/ops/depth.py:29 (joint_bilateral_filter)",
+    "icp": "uzliti_slam_tpu/ops/icp.py:40 (_correspondences) inside :64 (icp_point_to_line)",
 }
 SOURCE = {k: f"uzliti_slam_tpu_torch/csrc/{k}.cu" for k in REPLACES}
 SOURCE["project_rays"] = "uzliti_slam_tpu_torch/csrc/occupancy.cu"
@@ -156,10 +179,18 @@ SOLVE_KERNELS = ("linearize", "hvp", "chain_apply", "residual_chi2", "chain_fact
 EPOCH_KERNELS = ("relax_min", "cluster_labels", "ransac_rigid", "components")
 MAP_KERNELS = ("project_rays",)
 FRONTEND_KERNELS = ("fast_nms", "grid_topk", "orb_describe", "scan_bins")
+# the keyframe step's own kernels; K16 has two wrappers (matching, GIST query)
+KEYFRAME_KERNELS = ("hamming_top2", "bilateral", "icp")
+KEYFRAME_WRAPPERS = {"hamming_top2": ("hamming_top2", "gist_topk"), "bilateral": ("bilateral",),
+                     "icp": ("icp",)}
+STEP_KERNELS = FRONTEND_KERNELS + KEYFRAME_KERNELS + ("ransac_rigid",)
 # the device functions each front-end kernel's wrapper launches
 FRONTEND_DEVICE_FUNCTIONS = {"fast_nms": ("fast_nms_tile",), "grid_topk": ("cell_topk", "global_topk"),
                              "orb_describe": ("box_blur", "describe"),
-                             "scan_bins": ("init_table", "scan_pixels", "finalize")}
+                             "scan_bins": ("init_table", "scan_pixels", "finalize"),
+                             "hamming_top2": ("match_top2", "gist_rounds"),
+                             "bilateral": ("bilateral_tile",), "icp": ("icp_problems",),
+                             "ransac_rigid": ("ransac_roots",)}
 # cuSOLVER / cuBLAS items that must not appear in a profiled solve
 LIBRARY_ITEMS = ("getrf", "getrs", "trsm", "gemv")
 # The card's published peaks (H100 SXM at 700 W):
@@ -177,6 +208,30 @@ EPOCH_10K = dict(n=10_000, node_capacity=10240, edge_capacity=32768, radius=40.0
 # fed the same frame)
 KEYFRAME_VGA = dict(img_h=480, img_w=640, f=525.0, n_frames=13, odom_drift=0.05, length=6.0,
                     feats=256, scan_bins=360, warmup=3)
+# K16 is held exactly (integer distances, the same tie rule); K17 within
+# BILATERAL_ULPS of the plain version's depth (expf and torch's exp on the
+# card; fma_plain's double rounding); K18's pose within ICP_POSE_ATOL and
+# covariance within ICP_COV_RTOL of its largest entry (sums in another
+# order over 20 Gauss-Newton steps), the same ok flag.
+BILATERAL_ULPS = 4
+ICP_POSE_ATOL, ICP_COV_RTOL = 1e-4, 1e-3
+# The keyframe step on the card against the same frames on CPU tensors
+# (phase 11): the same nodes, edge endpoints, types and flags; edge
+# transforms within KF_TRANSFORM_ATOL (RANSAC refits and ICP poses from
+# points a few ulps of filtered depth apart).
+KF_TRANSFORM_ATOL = 1e-3
+# The JAX bench's ATE rung (bench.py:338-379): 48 frames at 96x128, 64
+# features, 90 bins, keyframe gate 0.2 m, an epoch every 8 keyframes and a
+# final one.  The RANSAC draws cannot be JAX's, so the bar is taken over
+# seeds: on the CPU (``python tests/test_torch_ate.py``, seeds 0-7) the JAX
+# package reads 0.012020-0.012344 m and the port 0.011992-0.012029 m
+# (odometry 0.034465 m), a spread of 0.00035 m over both; the bar is 1.1x
+# JAX's largest reading, 3.5 such spreads above it.
+ATE_RUN = dict(img_h=96, img_w=128, n_frames=48, odom_drift=0.06, length=5.0, feats=64,
+               scan_bins=90, node_capacity=64, edge_capacity=512, gate=0.2, optimize_every=8)
+ATE_SEEDS = (0, 1, 2)
+ATE_JAX_CPU_MAX_M = 0.012344205752015114
+ATE_BAR_M = 1.1 * ATE_JAX_CPU_MAX_M
 
 
 def log(phase: str, **fields) -> None:
@@ -248,7 +303,8 @@ DEVICE_FUNCTIONS = ("linearize_edges", "linearize_mask", "hvp_seed", "hvp_edges"
                     "gauge_cta", "k_init_labels", "k_scatter_min", "k_jump_out", "k_jump",
                     "k_gauge_init", "k_gauge_reduce_stamp", "k_gauge_reduce_slot",
                     "k_gauge_write", "fast_nms_tile", "global_topk", "cell_topk", "box_blur",
-                    "describe", "scan_pixels", "init_table", "finalize")
+                    "describe", "scan_pixels", "init_table", "finalize", "match_top2",
+                    "gist_rounds", "bilateral_tile", "icp_problems")
 
 
 def ptxas_summary(text: str) -> dict:
@@ -429,6 +485,35 @@ def kernel_work(name: str, args) -> tuple[int, int]:
         # ~20, tests, bin, the two atomics)
         depth, _, xf, n_bins, *_ = args
         return _nbytes(depth, xf) + 8 * depth.shape[0] * n_bins, 60 * depth.numel()
+    if name == "hamming_top2":
+        # the query and the candidates' stored descriptors and flags read
+        # once, idx, ok and best written once; per valid (query, stored) pair
+        # 8 XORs, 8 popcounts and 8 adds, per pair 3 compares of the top-2
+        query, bank, bank_valid, cslot, valid_a, *_ = args
+        C, Na, F = cslot.shape[0], query.shape[0], bank.shape[1]
+        vb = bank_valid.index_select(0, cslot.long()).sum(-1)
+        pairs = int(valid_a.sum()) * int(vb.sum())
+        return (_nbytes(query, cslot, valid_a) + C * F * 33 + 9 * C * Na,
+                24 * pairs + 3 * C * Na * F)
+    if name == "gist_topk":
+        # the bank, its stamps and flags read once; 24 per eligible entry,
+        # 3 per entry for the gate, k rounds of a compare per entry
+        query, bank, stamp, valid, q_stamp, k, min_dt, _ = args
+        elig = int((valid & ((stamp - q_stamp).abs() >= min_dt)).sum())
+        return _nbytes(query, bank, stamp, valid, q_stamp) + 9 * k, 24 * elig + (3 + 2 * k) * bank.shape[0]
+    if name == "bilateral":
+        # depth and guide read once, the filtered depth written once; per tap
+        # of a pixel ~8 operations and the exponential (~10)
+        depth, guide = args
+        return 3 * _nbytes(depth), 25 * 18 * depth.numel()
+    if name == "icp":
+        # scans, flags and init read once, pose, fraction, mse, covariance and
+        # ok written once; per iteration and source point 7 operations per
+        # valid target and ~60 for the residual, Jacobian and sums
+        src, src_valid, dst, dst_valid, init, iterations, *_ = args
+        B, M, _ = src.shape
+        return (_nbytes(src, src_valid, dst, dst_valid, init) + B * (4 * 14 + 1),
+                (iterations + 1) * M * (7 * int(dst_valid.sum()) + 60 * B))
     raise KeyError(name)
 
 
@@ -870,7 +955,7 @@ def headline_solve(g, chi2_oracle: float, reps: int):
     expected = {"linearize": 24, "hvp": 240, "chain_apply": 260, "residual_chi2": 22,
                 "relax_min": 0, "cluster_labels": 0, "ransac_rigid": 0, "components": 2,
                 "chain_factor": 4, "pcg": 20 * (1 + 2 * 12), "project_rays": 0,
-                **{k: 0 for k in FRONTEND_KERNELS}}
+                **{k: 0 for k in FRONTEND_KERNELS + KEYFRAME_KERNELS}}
     check(counts == expected, f"launch counts {counts} != {expected}")
     finals = []
     for _ in range(reps):
@@ -1271,13 +1356,13 @@ def frame_inputs(frame: dict, n_cams: int):
     return np.stack([frame["image"]] * n_cams), np.stack([frame["depth"]] * n_cams)
 
 
-def record_frontend_args(fn):
-    """Run ``fn()`` with every K12-K15 wrapper call's arguments recorded;
-    returns {kernel: [(args, kwargs), ...]}."""
+def record_args(fn, names=FRONTEND_KERNELS):
+    """Run ``fn()`` with every call's arguments of the wrappers ``names``
+    (K12-K15 by default) recorded; returns {wrapper: [(args, kwargs), ...]}."""
     from uzliti_slam_tpu_torch.kernels import ops as kops
 
-    saved = {name: getattr(kops, name) for name in FRONTEND_KERNELS}
-    calls = {name: [] for name in FRONTEND_KERNELS}
+    saved = {name: getattr(kops, name) for name in names}
+    calls = {name: [] for name in names}
 
     def recorded(name):
         def call(*args, **kw):
@@ -1285,7 +1370,7 @@ def record_frontend_args(fn):
             return saved[name](*args, **kw)
         return call
 
-    for name in FRONTEND_KERNELS:
+    for name in names:
         setattr(kops, name, recorded(name))
     try:
         fn()
@@ -1486,6 +1571,307 @@ def frontend_phase(phase: str, world, frames, n_cams: int, device, reps: int = 1
     return counts, fields
 
 
+# ---------------------------------------------------------------------------
+# The keyframe step and the Slam shell
+# ---------------------------------------------------------------------------
+
+def _ulps(got, ref) -> float:
+    """Largest |got - ref| in units of the last place of ``ref`` (float32)."""
+    ref64 = ref.double()
+    ulp = torch.nextafter(ref.abs(), torch.full_like(ref, math.inf)).double() - ref.abs().double()
+    return float(((got.double() - ref64).abs() / ulp).max())
+
+
+def keyframe_library(name: str, calls):
+    """One PyTorch call per kernel call computing the same function, or
+    None: K16 ``torch.cdist(p=0)`` on the unpacked bits (the Hamming
+    distances) plus ``torch.topk`` (two calls, another tie order)."""
+    from uzliti_slam_tpu_torch.ops import matching
+
+    if name != "hamming_top2":
+        return None
+    work = []
+    for (query, bank, bank_valid, cslot, *_), _ in calls["hamming_top2"]:
+        q = matching.unpack_bits(query)
+        b = matching.unpack_bits(bank.index_select(0, cslot.long()))
+        work.append((q[None].expand(b.shape[0], -1, -1).contiguous(), b, 2))
+    for (query, bank, _stamp, _valid, _q_stamp, k, *_), _ in calls["gist_topk"]:
+        work.append((matching.unpack_bits(query)[None, None], matching.unpack_bits(bank)[None], k))
+    return time_call(lambda: [torch.topk(torch.cdist(a, b, p=0), k, largest=False)
+                              for a, b, k in work])
+
+
+def compare_keyframe_kernels(calls: dict, label: str) -> dict:
+    """K16-K18 against their plain versions on the arguments one keyframe
+    step gives them: K16 exactly (both entry points), K17 within
+    BILATERAL_ULPS, K18's pose within ICP_POSE_ATOL, covariance within
+    ICP_COV_RTOL and the same ok flag.  Times are per keyframe step."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    rows = {}
+    for name in KEYFRAME_KERNELS:
+        wrappers = KEYFRAME_WRAPPERS[name]
+        check(all(calls[w] for w in wrappers), f"{name} {label}: no call recorded")
+        mism, err, ok_same = 0, 0.0, True
+        for w in wrappers:
+            kernel_fn, plain_fn = getattr(kops, w), getattr(kops, f"{w}_plain")
+            for args, kw in calls[w]:
+                got, ref = kernel_fn(*args, **kw), plain_fn(*args, **kw)
+                torch.cuda.synchronize()
+                if name == "hamming_top2":
+                    mism += sum(int((a != b).sum()) for a, b in zip(got, ref))
+                elif name == "bilateral":
+                    err = max(err, _ulps(got, ref))
+                    mism += int(((got == 0) != (ref == 0)).sum())
+                else:
+                    ok_same &= bool(torch.equal(got[4], ref[4]))
+                    err = max(err, float((got[0] - ref[0]).abs().max()))
+                    cov_scale = float(ref[3].abs().max())
+                    mism += int(float((got[3] - ref[3]).abs().max()) > ICP_COV_RTOL * cov_scale)
+        row = {"calls": {w: len(calls[w]) for w in wrappers}, "mismatches": mism,
+               "max_abs_err": float(mism) if name == "hamming_top2" else err}
+        if name == "bilateral":
+            row["max_ulps"], row["ulps_bound"] = err, BILATERAL_ULPS
+        if name == "icp":
+            row["same_ok"], row["pose_atol"] = ok_same, ICP_POSE_ATOL
+
+        def run(fn_names, plain: bool):
+            for w in fn_names:
+                fn = getattr(kops, f"{w}_plain" if plain else w)
+                for args, kw in calls[w]:
+                    fn(*args, **kw)
+
+        row["ms"], row["plain_ms"] = time_pair(lambda: run(wrappers, False),
+                                               lambda: run(wrappers, True))
+        row["library_ms"] = keyframe_library(name, calls)
+        nbytes = ops = 0
+        for w in wrappers:
+            for args, kw in calls[w]:
+                b_, o_ = kernel_work(w, (*args, *kw.values()))
+                nbytes, ops = nbytes + b_, ops + o_
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
+        row.update({"bytes": nbytes, "ops": ops, "bound_ms": 1e3 * max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+        log(f"3 kernel {name} {label}", **row)
+        check(mism == 0, f"{name} {label}: {mism} entries differ from the plain version")
+        if name == "bilateral":
+            check(err <= BILATERAL_ULPS, f"{name} {label}: {err} ulps from the plain version")
+        if name == "icp":
+            check(ok_same and err <= ICP_POSE_ATOL, f"{name} {label}: pose {err}, same ok {ok_same}")
+        rows[name] = row
+    return rows
+
+
+def step_config(n_cams: int, device):
+    """(config, extrinsics) of the JAX bench's keyframe rungs in the default
+    configuration (``_make_slam``, bench.py:283-309): 256 features, 360 bins,
+    node capacity 512, edge capacity 2048, keyframe gate 0 m / 0°,
+    min_consensus 10, min_matching_score 8."""
+    from uzliti_slam_tpu_torch.config import EdgeEstimationConfig, KeyframeConfig, SlamConfig
+
+    _, pose = keyframe_rig(n_cams, device)
+    cfg = SlamConfig(node_capacity=512, edge_capacity=2048, feats_per_node=KEYFRAME_VGA["feats"],
+                     scan_bins=KEYFRAME_VGA["scan_bins"],
+                     keyframe=KeyframeConfig(new_node_distance=0.0, new_node_angle_deg=0.0),
+                     estimation=EdgeEstimationConfig(min_consensus=10, min_matching_score=8.0))
+    return cfg, pose
+
+
+def recorded_draws(draws: list, replay: list | None = None):
+    """A stand-in for ``ransac._valid_sample`` that records each draw into
+    ``draws``, or, given ``replay``, returns those draws in order (on the
+    caller's device)."""
+    from uzliti_slam_tpu_torch.ops import ransac
+
+    original = ransac._valid_sample
+
+    def sample(generator, k_hyp, valid, quality=None, beta=4.0):
+        if replay is not None:
+            return replay.pop(0).to(valid.device)
+        out = original(generator, k_hyp, valid, quality, beta)
+        draws.append(out)
+        return out
+    return original, sample
+
+
+def slam_structure(slam) -> dict:
+    """Nodes, edges and flags of a Slam's graph, on the host."""
+    g = slam.state.graph
+    n, ne = int(g.num_nodes), int(g.num_edges)
+    return {"n": n, "ne": ne, **{k: getattr(g, k)[:ne].cpu() for k in
+                                 ("e_from", "e_to", "e_type", "e_valid", "e_transform")},
+            "node_valid": g.node_valid[:n].cpu(), "node_uid": g.node_uid[:n].cpu()}
+
+
+def keyframe_step_phase(phase: str, world, frames, n_cams: int, device, reps: int = 10):
+    """Phase 11: ``Slam.add_frame`` over the rung's 13 frames in the default
+    configuration: 3 warm-up keyframes, then ``reps`` timed keyframes each
+    under CUDA sync debug mode "error", the counts set to 0 just before
+    them and read after the first and after the last; a profile of one
+    more step; the same frames on CPU tensors through the plain path with
+    the card's RANSAC draws. Returns (the counts of the first timed step,
+    fields, the Slam, its frame inputs)."""
+    from uzliti_slam_tpu_torch import pipeline
+    from uzliti_slam_tpu_torch.graph import state as gstate
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+    from uzliti_slam_tpu_torch.ops import ransac
+
+    cfg, pose = step_config(n_cams, device)
+    warm = KEYFRAME_VGA["warmup"]
+    inputs = [frame_inputs(fr, n_cams) for fr in frames]
+    slam = pipeline.Slam(cfg, cam=world.cam, cam_pose=pose, device=device)
+    slam.optimize_every = 10**9
+    draws: list = []
+    original, sample = recorded_draws(draws)
+    ransac._valid_sample = sample
+    infos, times = [], []
+    try:
+        for i in range(warm):
+            infos.append(slam.add_frame(*inputs[i], frames[i]["odom_pose"], frames[i]["stamp"]))
+        torch.cuda.synchronize()
+        kops.reset_launches()
+        for i in range(warm, warm + reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                infos.append(slam.add_frame(*inputs[i], frames[i]["odom_pose"], frames[i]["stamp"]))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if i == warm:
+                one = dict(kops.launches)
+        total = dict(kops.launches)
+    finally:
+        ransac._valid_sample = original
+    counts = {k: total[k] / reps for k in STEP_KERNELS}
+    last = len(frames) - 1
+    prof, device_ms = device_profile(lambda: pipeline.process_keyframe(
+        slam.state, *inputs[last], frames[last]["odom_pose"], frames[last]["stamp"], slam.cam,
+        slam.cam_pose, slam.config))
+    t = statistics.median(times)
+    half = len(frames) // 2
+    proposed = [int(i["n_edges_proposed"]) for i in infos]
+    struct = slam_structure(slam)
+    lc = struct["e_type"] == gstate.EDGE_TYPE_3D_FULL
+    fields = {"n_cams": n_cams, "keyframe_step_ms": 1e3 * t, "keyframes_per_s": 1.0 / t,
+              "keyframe_step_ms_min": 1e3 * min(times), "keyframe_step_ms_max": 1e3 * max(times),
+              "launches_per_step": counts, "sync_free": True,
+              "candidates": [int(i["n_candidates"]) for i in infos], "proposed": proposed,
+              "features_min": min(int(i["n_features"]) for i in infos), "nodes": struct["n"],
+              "edges": struct["ne"], "loop_closure_edges": int(lc.sum()),
+              "laser_edges": int((struct["e_type"] == gstate.EDGE_TYPE_2D_LASER).sum())}
+    fields.update(prof)
+    fields["kernel_device_ms"] = {
+        name: sum(ms for key, ms in device_ms.items()
+                  if any(f"::{f}(" in key for f in FRONTEND_DEVICE_FUNCTIONS[name]))
+        for name in STEP_KERNELS}
+    # the same frames on CPU tensors through the plain path, with the card's draws
+    cpu = pipeline.Slam(cfg, cam=world.cam, cam_pose=pose.cpu(), device="cpu")
+    cpu.optimize_every = 10**9
+    replay = list(draws)
+    original, sample = recorded_draws([], replay)
+    ransac._valid_sample = sample
+    try:
+        cpu_infos = [cpu.add_frame(*inputs[i], frames[i]["odom_pose"], frames[i]["stamp"])
+                     for i in range(len(frames))]
+    finally:
+        ransac._valid_sample = original
+    ref = slam_structure(cpu)
+    same = struct["n"] == ref["n"] and struct["ne"] == ref["ne"] and all(
+        torch.equal(struct[k], ref[k]) for k in ("e_from", "e_to", "e_type", "e_valid", "node_valid",
+                                                 "node_uid"))
+    tf_err = (float((struct["e_transform"] - ref["e_transform"]).abs().max()) if same
+              else float("nan"))
+    fields["cpu_plain"] = {"same_structure": same, "transform_max_abs_err": tf_err,
+                           "proposed": [int(i["n_edges_proposed"]) for i in cpu_infos],
+                           "nodes": ref["n"], "edges": ref["ne"]}
+    log(phase, **fields)
+    check(all(total[k] > 0 for k in STEP_KERNELS), f"{phase}: a kernel was not launched: {total}")
+    check(sum(fields["candidates"][half:]) > 0, f"{phase}: no candidate on the return leg")
+    if n_cams == 1:
+        # the rig's rear camera is fed the front's frame (the JAX bench's
+        # rung): every descriptor has an identical twin in each stored set,
+        # best = second, and Lowe's ratio test rejects every match there
+        check(sum(proposed[half:]) > 0, f"{phase}: no loop closure proposed on the return leg")
+        check(int(lc.sum()) > 0, f"{phase}: no loop-closure edge passed its gates")
+    check(same, f"{phase}: the CPU plain path gives another graph: {fields['cpu_plain']}")
+    check(tf_err <= KF_TRANSFORM_ATOL, f"{phase}: edge transforms {tf_err} apart")
+    check(fields["cpu_plain"]["proposed"] == proposed, f"{phase}: proposed edges differ on the CPU")
+    return one, fields, slam, inputs
+
+
+def record_step_args(slam, inputs, frames) -> dict:
+    """K16-K18's arguments in one late keyframe step (candidates exist):
+    ``process_keyframe`` on the Slam's state with the last frame, its
+    result discarded."""
+    from uzliti_slam_tpu_torch import pipeline
+
+    last = len(frames) - 1
+    names = tuple(w for k in KEYFRAME_KERNELS for w in KEYFRAME_WRAPPERS[k])
+    return record_args(lambda: pipeline.process_keyframe(
+        slam.state, *inputs[last], frames[last]["odom_pose"], frames[last]["stamp"], slam.cam,
+        slam.cam_pose, slam.config), names)
+
+
+def ate_run(device, seed: int = 0) -> dict:
+    """The JAX bench's ATE rung through the port's Slam on ``device`` with
+    RANSAC draws from ``seed``: keyframes gated at 0.2 m, an epoch every 8
+    keyframes, a final epoch; ATE of SLAM and of the raw odometry against
+    ground truth, and the wall time of the run."""
+    from uzliti_slam_tpu_torch import pipeline
+    from uzliti_slam_tpu_torch.config import EdgeEstimationConfig, KeyframeConfig, SlamConfig
+    from uzliti_slam_tpu_torch.io import simulator, synthetic
+
+    device = torch.device(device)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    a = ATE_RUN
+    cfg = SlamConfig(node_capacity=a["node_capacity"], edge_capacity=a["edge_capacity"],
+                     feats_per_node=a["feats"], scan_bins=a["scan_bins"],
+                     keyframe=KeyframeConfig(new_node_distance=a["gate"]),
+                     estimation=EdgeEstimationConfig(min_consensus=8, min_matching_score=6.0))
+    world = simulator.WallWorld(img_h=a["img_h"], img_w=a["img_w"])
+    frames = simulator.simulate_sequence(world, n_frames=a["n_frames"], odom_drift=a["odom_drift"],
+                                         length=a["length"])
+    sync()
+    t0 = time.perf_counter()
+    slam = pipeline.Slam(cfg, cam=world.cam, cam_pose=simulator.cam_extrinsic(device=device),
+                         seed=seed, device=device)
+    slam.optimize_every = a["optimize_every"]
+    for fr in frames:
+        slam.add_frame(fr["image"], fr["depth"], fr["odom_pose"], fr["stamp"])
+    slam.optimize()
+    poses, valid = slam.trajectory()
+    sync()
+    wall = time.perf_counter() - t0
+    v = valid.cpu()
+    stamps = slam.state.graph.stamp[: v.shape[0]].cpu()[v].long().tolist()
+    gt = torch.from_numpy(np.stack([frames[s]["gt_pose"] for s in stamps]))
+    odom = torch.from_numpy(np.stack([frames[s]["odom_pose"] for s in stamps]))
+    g = slam.state.graph
+    ne = int(g.num_edges)
+    return {"seed": seed, "wall_s": wall, "keyframes": len(stamps), "edges": ne,
+            "valid_loop_closures": int((g.e_valid[:ne] & (g.e_type[:ne] == 1)).sum()),
+            "ate_slam_m": float(synthetic.ate_rmse(poses.cpu()[v], gt)),
+            "ate_odometry_m": float(synthetic.ate_rmse(odom, gt))}
+
+
+def ate_phase(phase: str, device) -> dict:
+    """Phase 12: the ATE rung on the card, once for each of ATE_SEEDS; each
+    run's ATE below the raw odometry's and at most ATE_BAR_M."""
+    runs = [ate_run(device, seed) for seed in ATE_SEEDS]
+    fields = {**runs[0], "ate_slam_m_by_seed": [r["ate_slam_m"] for r in runs],
+              "wall_s_by_seed": [r["wall_s"] for r in runs], "ate_bar_m": ATE_BAR_M,
+              "ate_jax_cpu_max_m": ATE_JAX_CPU_MAX_M}
+    log(phase, **fields)
+    for r in runs:
+        ate, ate_odom = r["ate_slam_m"], r["ate_odometry_m"]
+        check(ate < ate_odom, f"{phase}: seed {r['seed']}: ATE {ate} not below odometry's {ate_odom}")
+        check(ate <= ATE_BAR_M, f"{phase}: seed {r['seed']}: ATE {ate} above the bar {ATE_BAR_M}")
+    return fields
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA card",
@@ -1558,7 +1944,7 @@ def main() -> int:
     # the main shapes; the front + rear rig: the large ones)
     for n_cams, target in ((1, rows), (2, rows_large)):
         cfg_kf, pose = keyframe_rig(n_cams, dev)
-        calls = record_frontend_args(lambda: pipeline.keyframe_frontend(
+        calls = record_args(lambda: pipeline.keyframe_frontend(
             *frame_inputs(kf_frames[0], n_cams), kf_world.cam, pose, cfg_kf))
         target.update(compare_frontend(calls, f"VGA {n_cams} camera{'s' if n_cams > 1 else ''}"))
 
@@ -1584,23 +1970,40 @@ def main() -> int:
                                      dev)
     kf2, kf2_fields = frontend_phase("10 keyframe front-end VGA front + rear", kf_world, kf_frames,
                                      2, dev)
+    # the keyframe step through Slam.add_frame in the default configuration,
+    # then K16-K18 against their plain versions on a late step's arguments
+    step1, step1_fields, slam1, inputs1 = keyframe_step_phase(
+        "11 keyframe step VGA 1 camera", kf_world, kf_frames, 1, dev)
+    step2, step2_fields, slam2, inputs2 = keyframe_step_phase(
+        "11 keyframe step VGA front + rear", kf_world, kf_frames, 2, dev)
+    rows.update(compare_keyframe_kernels(record_step_args(slam1, inputs1, kf_frames),
+                                         "VGA step 1 camera"))
+    rows_large.update(compare_keyframe_kernels(record_step_args(slam2, inputs2, kf_frames),
+                                               "VGA step front + rear"))
+    del slam1, slam2
+    ate = ate_phase("12 end to end ATE 96x128", dev)
     # each kernel's main path: the 1k solve for K1-K4, K9, K10; the 500-node
-    # epoch for K5-K8; the projection sequence after it for K11
+    # epoch for K5-K8; the projection sequence after it for K11; the first
+    # timed keyframe step (phase 11, 1 camera) for K12-K18
     launches.update({name: counts500[name] for name in EPOCH_KERNELS})
     launches.update({name: map500[name] for name in MAP_KERNELS})
-    launches.update({name: kf1[name] for name in FRONTEND_KERNELS})
+    launches.update({name: step1[name] for name in FRONTEND_KERNELS + KEYFRAME_KERNELS})
     shapes = {**{k: ("1k solve", "100k solve") for k in SOLVE_KERNELS},
               **{k: ("500-node epoch", "10k-node epoch") for k in EPOCH_KERNELS},
               "project_rays": ("500-node full rebuild", "10k-node full rebuild"),
               **{k: ("VGA keyframe, 1 camera", "VGA keyframe, front + rear rig")
-                 for k in FRONTEND_KERNELS}}
+                 for k in FRONTEND_KERNELS},
+              **{k: ("VGA keyframe step, 1 camera", "VGA keyframe step, front + rear rig")
+                 for k in KEYFRAME_KERNELS}}
 
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
          "launches": launches[name], "launches_epoch_500": counts500[name],
          "launches_epoch_10k": counts10k[name], "launches_map_500": map500[name],
-         "launches_map_10k": map10k[name], "launches_keyframe_1cam": kf1[name],
-         "launches_keyframe_2cam": kf2[name],
+         "launches_map_10k": map10k[name], "launches_keyframe_1cam": kf1.get(name, 0),
+         "launches_keyframe_2cam": kf2.get(name, 0),
+         "launches_step_1cam": step1_fields["launches_per_step"].get(name, 0),
+         "launches_step_2cam": step2_fields["launches_per_step"].get(name, 0),
          "max_abs_err": rows[name]["max_abs_err"], "ms": rows[name]["ms"],
          "plain_ms": rows[name]["plain_ms"], "bound_ms": rows[name]["bound_ms"],
          "bound_by": rows[name]["bound_by"], "library_ms": rows[name].get("library_ms"),
@@ -1621,11 +2024,16 @@ def main() -> int:
         ms_incremental=row_inc["ms"], plain_ms_incremental=row_inc["plain_ms"],
         bound_ms_incremental=row_inc["bound_ms"], max_abs_err_incremental=row_inc["max_abs_err"])
     # K12-K15: device time of one profiled keyframe (phase 10), beside the
-    # event-timed wrapper calls of phase 3, which include the host's issue
+    # event-timed wrapper calls of phase 3, which include the host's issue;
+    # K12-K18: device time of one profiled keyframe step (phase 11)
     for name in FRONTEND_KERNELS:
         kernels[list(REPLACES).index(name)].update(
             device_ms_keyframe=kf1_fields["kernel_device_ms"].get(name),
             device_ms_keyframe_large=kf2_fields["kernel_device_ms"].get(name))
+    for name in FRONTEND_KERNELS + KEYFRAME_KERNELS:
+        kernels[list(REPLACES).index(name)].update(
+            device_ms_step=step1_fields["kernel_device_ms"].get(name),
+            device_ms_step_large=step2_fields["kernel_device_ms"].get(name))
     # K8's second route, from the same source: one grid launch per pass
     # where 12·N bytes exceed one CTA's shared memory; its main path is
     # phase 7's 100k solve
@@ -1635,7 +2043,7 @@ def main() -> int:
          "max_abs_err": grid["max_abs_err"], "ms": grid["ms"], "plain_ms": grid["plain_ms"],
          "bound_ms": grid["bound_ms"], "bound_by": grid["bound_by"], "library_ms": None,
          "shapes": "100k solve"})
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "ate": ate}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

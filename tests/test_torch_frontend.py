@@ -3,9 +3,10 @@
 ``process_keyframe`` stores for a first keyframe (slot 0 of ``desc``,
 ``desc_valid``, ``points``, ``scans`` and the GIST bank), on the CPU.
 
-One WallWorld frame, depth refinement off, 64 features, 90 scan bins; one
-camera, and the front + rear rig of ``tests/test_multicam.py`` (the rear
-camera sees a flat grey image and no depth).  Held: validity, GIST and
+One WallWorld frame, 64 features, 90 scan bins, depth refinement off and
+on (the default); one camera, and the front + rear rig of
+``tests/test_multicam.py`` (the rear camera sees a flat grey image and no
+depth).  Held: validity, GIST and
 scan exactly (the scan up to a bin moved by an ulp of bearing, as in
 ``test_torch_scan.py``), descriptors bit for bit at level 0 and ≥ 99.5 %
 of the valid keypoints' bits overall (``test_torch_features.py``), points
@@ -27,6 +28,7 @@ from uzliti_slam_tpu_torch import pipeline as tpipe
 from uzliti_slam_tpu_torch.config import FeatureExtractionConfig as TFE
 from uzliti_slam_tpu_torch.config import SlamConfig as TCfg
 from uzliti_slam_tpu_torch.io import simulator as tsim
+from uzliti_slam_tpu_torch.ops import scan as tscan
 
 FEATS, BINS = 64, 90
 PTS_ATOL = 1e-5
@@ -99,12 +101,44 @@ def test_frontend_takes_tensors_and_float_depth():
     assert torch.equal(a.scan.ranges, b.scan.ranges) and torch.equal(a.gist, b.gist)
 
 
+@pytest.mark.parametrize("n_cams", [1, 2], ids=["one_camera", "front_rear_rig"])
+def test_refined_frontend_matches_process_keyframe(n_cams):
+    """The default configuration: each camera's depth goes through the joint
+    bilateral filter (K17's plain version here) before the keypoints' depth
+    lookup and the scan.  The filtered depth is a few ulps off the compiled
+    reference's (its exp is XLA's, ``test_torch_depth.py``), so the scan is
+    held to two 21-bit quanta and the points to 1e-5 m; validity, the
+    descriptors and the GIST (which do not read the depth) as above."""
+    world, fr, img, dep = _inputs(n_cams)
+    pose = _rig(n_cams)
+    jcfg = JCfg(node_capacity=8, edge_capacity=32, feats_per_node=FEATS, scan_bins=BINS)
+    kf = jpipe.Keyframe(image=jnp.asarray(img), depth=jnp.asarray(dep),
+                        odom_pose=jnp.asarray(fr["odom_pose"]), stamp=jnp.float32(fr["stamp"]))
+    ref, _ = jpipe.process_keyframe(jpipe.init_state(jcfg), kf, world.cam, pose, jcfg)
+    tcfg = TCfg(node_capacity=8, edge_capacity=32, feats_per_node=FEATS, scan_bins=BINS)
+    assert tcfg.frontend.use_depth_refinement
+    cam = tsim.WallWorld(img_h=120, img_w=160, tex_size=64).cam
+    out = tpipe.keyframe_frontend(img, dep, cam, np.array(pose), tcfg, device="cpu")
+    valid = np.asarray(ref.desc_valid[0])
+    assert valid.sum() >= FEATS // 4
+    np.testing.assert_array_equal(out.pts_valid.numpy(), valid)
+    diff = np.unpackbits(out.desc.numpy() ^ np.asarray(ref.desc[0]), axis=-1)
+    assert 1.0 - diff[valid].mean() >= MIN_EQUAL_BITS
+    np.testing.assert_allclose(out.pts_base.numpy()[valid], np.asarray(ref.points[0])[valid],
+                               rtol=0, atol=PTS_ATOL)
+    ref_scan, got_scan = np.asarray(ref.scans[0]), out.scan.ranges.numpy()
+    fin = np.isfinite(ref_scan)
+    np.testing.assert_array_equal(np.isfinite(got_scan), fin)
+    assert fin.sum() >= BINS // 12
+    quantum = 1.0 / tscan.range_scale(6.0)
+    np.testing.assert_allclose(got_scan[fin], ref_scan[fin], rtol=0, atol=2.5 * quantum)
+    np.testing.assert_array_equal(out.gist.numpy(), np.asarray(ref.gist.desc[0]))
+
+
 def test_frontend_raises_for_what_is_not_ported():
     world, fr, img, dep = _inputs(1)
     pose = np.asarray(jsim.cam_extrinsic())
     cam = tsim.WallWorld(img_h=120, img_w=160, tex_size=64).cam
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tpipe.keyframe_frontend(img, dep, cam, pose, TCfg(), device="cpu")
     with pytest.raises(NotImplementedError, match="sift"):
         tpipe.keyframe_frontend(img, dep, cam, pose, TCfg(
             frontend=TFE(use_depth_refinement=False, descriptor="sift")), device="cpu")

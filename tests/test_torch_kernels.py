@@ -48,7 +48,8 @@ def test_nvcc_flags_target_hopper_without_fast_math():
     assert {p.name for p in _build.sources()} == {
         "linearize.cu", "hvp.cu", "chain_apply.cu", "residual_chi2.cu", "relax_min.cu",
         "cluster_labels.cu", "ransac_rigid.cu", "components.cu", "chain_factor.cu", "pcg.cu",
-        "occupancy.cu", "fast_nms.cu", "grid_topk.cu", "orb_describe.cu", "scan_bins.cu"}
+        "occupancy.cu", "fast_nms.cu", "grid_topk.cu", "orb_describe.cu", "scan_bins.cu",
+        "hamming_top2.cu", "bilateral.cu", "icp.cu"}
 
 
 def test_every_exported_function_has_a_signature_of_its_arity():
@@ -406,4 +407,114 @@ def test_frontend_kernel_argument_checks_raise(fake_lib):
     with pytest.raises(ValueError, match="xf: shape"):
         kops.scan_bins(_meta(1, 48, 64), cam, _meta(1, 7), 360, -np.pi, np.pi, (-0.4, 0.6),
                        6.0, 0.3)
+    assert fake_lib.calls == []
+
+
+def _keyframe_cases():
+    """Small CPU inputs for K16-K18: (wrapper name, args)."""
+    rng = np.random.default_rng(4)
+    t = torch.from_numpy
+    query = t(rng.integers(0, 256, (20, 32)).astype(np.uint8))
+    bank = t(rng.integers(0, 256, (6, 16, 32)).astype(np.uint8))
+    bank[2, 3] = query[0]
+    bank_valid = t(rng.random((6, 16)) < 0.8)
+    gbank = t(rng.integers(0, 256, (12, 32)).astype(np.uint8))
+    depth = t(rng.uniform(0.5, 4.0, (2, 20, 24)).astype(np.float32))
+    depth[0, 3:6, 4:9] = 0.0
+    guide = t(rng.integers(0, 256, (2, 20, 24)).astype(np.float32))
+    th = np.linspace(-np.pi, np.pi, 60, endpoint=False)
+    dst = np.stack([3 * np.cos(th), 2 * np.sin(th)], -1).astype(np.float32)
+    src = (dst - np.array([0.05, -0.02], np.float32)).astype(np.float32)
+    ones = torch.ones(2, 60, dtype=torch.bool)
+    return [
+        ("hamming_top2", (query, bank, bank_valid, t(np.array([2, 0, 5], np.int32)),
+                          t(rng.random(20) < 0.9), 0.9, 64.0)),
+        ("gist_topk", (query[0], gbank, t(rng.uniform(0, 20, 12).astype(np.float32)),
+                       t(rng.random(12) < 0.8), torch.tensor(15.0), 5, 5.0, 110.0)),
+        ("bilateral", (depth, guide)),
+        ("icp", (t(np.stack([src, src])), ones, t(np.stack([dst, dst])), ones,
+                 torch.zeros(2, 3), 10, 0.25, 0.25, 1.5, 0.8, 0.0004)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(4), ids=["hamming_top2", "gist_topk", "bilateral", "icp"])
+def test_keyframe_kernel_wrappers_run_their_plain_version_on_cpu(case):
+    name, args = _keyframe_cases()[case]
+    kops.reset_launches()
+    got, ref = getattr(kops, name)(*args), getattr(kops, f"{name}_plain")(*args)
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    ref if isinstance(ref, tuple) else (ref,)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert kops.launches == {k: 0 for k in kops.launches}
+    if name == "hamming_top2":
+        assert int(got[0][0, 0]) == 3 and float(got[2][0, 0]) == 0.0
+    if name == "icp":
+        assert bool(got[4].all())
+
+
+def test_lu3_solves_and_inverts_with_partial_pivoting():
+    rng = np.random.default_rng(5)
+    A = rng.normal(size=(50, 3, 3)).astype(np.float32)
+    A[0] = [[0.0, 1.0, 2.0], [1.0, 0.0, 3.0], [4.0, -3.0, 8.0]]      # a zero leading pivot
+    b = rng.normal(size=(50, 3)).astype(np.float32)
+    lu, perm = kops.lu3(torch.from_numpy(A))
+    x = kops.lu3_solve(lu, perm, torch.from_numpy(b)).numpy()
+    np.testing.assert_allclose(x, np.linalg.solve(A.astype(np.float64), b[..., None])[..., 0],
+                               rtol=1e-3, atol=1e-3)
+    assert perm[0].tolist() == [2, 0, 1]
+    inv = kops.inv3(torch.from_numpy(A)).numpy()
+    np.testing.assert_allclose(inv @ A, np.broadcast_to(np.eye(3), A.shape), atol=1e-3)
+
+
+def test_keyframe_kernels_launch_through_the_library(fake_lib):
+    u8, i32, b = torch.uint8, torch.int32, torch.bool
+    idx, ok, best = kops.hamming_top2(_meta(256, 32, dtype=u8), _meta(512, 256, 32, dtype=u8),
+                                      _meta(512, 256, dtype=b), _meta(10, dtype=i32),
+                                      _meta(256, dtype=b), 0.9, 64.0)
+    assert fake_lib.calls[-1][0] == "uz_hamming_top2"
+    assert fake_lib.calls[-1][1][5:10] == (10, 256, 256, 0.9, 64.0)
+    assert tuple(idx.shape) == (10, 256) and ok.dtype == b and best.dtype == torch.float32
+    slots, dist, gok = kops.gist_topk(_meta(32, dtype=u8), _meta(512, 32, dtype=u8),
+                                      _meta(512), _meta(512, dtype=b), _meta(()), 5, 5.0, 60.0)
+    assert fake_lib.calls[-1][0] == "uz_gist_topk" and fake_lib.calls[-1][1][5:9] == (512, 5, 5.0,
+                                                                                      60.0)
+    assert tuple(slots.shape) == (5,) and slots.dtype == i32
+    out = kops.bilateral(_meta(2, 480, 640), _meta(2, 480, 640))
+    args = fake_lib.calls[-1][1]
+    assert fake_lib.calls[-1][0] == "uz_bilateral" and args[2:5] == (2, 480, 640)
+    assert args[6] == kops.NEG_INV_2SC2 and tuple(out.shape) == (2, 480, 640)
+    pose, frac, mse, cov, iok = kops.icp(_meta(1, 360, 2), _meta(1, 360, dtype=b),
+                                         _meta(1, 360, 2), _meta(1, 360, dtype=b), _meta(1, 3),
+                                         20, 0.25, 0.25, 1.5, 0.8, 0.0004)
+    args = fake_lib.calls[-1][1]
+    assert fake_lib.calls[-1][0] == "uz_icp" and args[5:9] == (1, 360, 360, 20)
+    assert args[9:14] == pytest.approx((0.25, 0.25, 1.5, 0.8, 0.0004))
+    assert tuple(cov.shape) == (1, 3, 3) and iok.dtype == b
+    # the matching and the GIST query are one kernel, one count
+    assert kops.launches["hamming_top2"] == 2
+    assert kops.launches["bilateral"] == 1 and kops.launches["icp"] == 1
+
+
+def test_keyframe_kernel_argument_checks_raise(fake_lib):
+    u8, i32, b = torch.uint8, torch.int32, torch.bool
+    with pytest.raises(TypeError, match="cslot: dtype"):
+        kops.hamming_top2(_meta(8, 32, dtype=u8), _meta(4, 16, 32, dtype=u8), _meta(4, 16, dtype=b),
+                          _meta(2, dtype=torch.int64), _meta(8, dtype=b), 0.9, 64.0)
+    with pytest.raises(ValueError, match="shared memory"):
+        kops.hamming_top2(_meta(8, 32, dtype=u8), _meta(4, 8000, 32, dtype=u8),
+                          _meta(4, 8000, dtype=b), _meta(2, dtype=i32), _meta(8, dtype=b), 0.9, 64.0)
+    with pytest.raises(ValueError, match="k = 9 of a 8-entry bank"):
+        kops.gist_topk(_meta(32, dtype=u8), _meta(8, 32, dtype=u8), _meta(8), _meta(8, dtype=b),
+                       _meta(()), 9, 5.0, 60.0)
+    with pytest.raises(ValueError, match="q_stamp: shape"):
+        kops.gist_topk(_meta(32, dtype=u8), _meta(8, 32, dtype=u8), _meta(8), _meta(8, dtype=b),
+                       _meta(1), 5, 5.0, 60.0)
+    with pytest.raises(ValueError, match="guide: shape"):
+        kops.bilateral(_meta(1, 48, 64), _meta(1, 48, 63))
+    with pytest.raises(ValueError, match="2..8192"):
+        kops.icp(_meta(1, 360, 2), _meta(1, 360, dtype=b), _meta(1, 9000, 2),
+                 _meta(1, 9000, dtype=b), _meta(1, 3), 20, 0.25, 0.25, 1.5, 0.8, 0.0004)
+    with pytest.raises(ValueError, match="init: shape"):
+        kops.icp(_meta(2, 360, 2), _meta(2, 360, dtype=b), _meta(2, 360, 2),
+                 _meta(2, 360, dtype=b), _meta(1, 3), 20, 0.25, 0.25, 1.5, 0.8, 0.0004)
     assert fake_lib.calls == []

@@ -155,3 +155,36 @@ def test_valid_sample_draws_uniformly_among_valid_entries():
     assert (tri[2] == 0).all()                       # no valid entry: index 0
     freq = np.bincount(tri[0].numpy().ravel(), minlength=50)[::5] / 12000
     np.testing.assert_allclose(freq, 0.1, atol=0.02)
+
+
+def test_quality_biased_sample_follows_the_categorical_probabilities():
+    """Soft PROSAC (the keyframe step's draws, ``quality = -Hamming``): entry
+    i of a row with probability ∝ exp(β·(q_i − q_min)/span) over the valid
+    entries, β = 4 (uzliti_slam_tpu/ops/ransac.py:_valid_sample).  JAX's
+    ``jax.random.categorical`` cannot be replayed, so the frequencies of
+    36,000 draws a row are held to the probabilities within five standard
+    errors."""
+    rng = np.random.default_rng(3)
+    m = 40
+    quality = torch.from_numpy(-rng.integers(0, 65, (4, m)).astype(np.float32))
+    valid = torch.from_numpy(rng.random((4, m)) < 0.6)
+    valid[2] = False
+    valid[3] = False
+    valid[3, 9] = True                               # one valid entry: always drawn
+    quality[1, valid[1]] = -7.0                      # equal quality: uniform (span floor)
+    n_hyp = 12_000
+    tri = transac._valid_sample(torch.Generator().manual_seed(1), n_hyp, valid, quality)
+    assert tri.shape == (4, n_hyp, 3) and tri.dtype == torch.int32
+    for r in (0, 1):
+        q, v = quality[r].double(), valid[r]
+        qmin, qmax = q[v].min(), q[v].max()
+        logit = 4.0 * (q - qmin) / torch.clamp(qmax - qmin, min=1e-6)
+        p = torch.where(v, torch.exp(logit), 0.0)
+        p = (p / p.sum()).numpy()
+        freq = np.bincount(tri[r].numpy().ravel(), minlength=m) / (3 * n_hyp)
+        assert freq[~v.numpy()].sum() == 0
+        np.testing.assert_array_less(np.abs(freq - p), 5 * np.sqrt(p * (1 - p) / (3 * n_hyp)) + 1e-9)
+    assert (tri[2] == 0).all() and (tri[3] == 9).all()
+    # the bias is real: the best-quality entries are drawn most
+    best = int(torch.argmax(torch.where(valid[0], quality[0], -torch.inf)))
+    assert np.bincount(tri[0].numpy().ravel(), minlength=m).argmax() == best

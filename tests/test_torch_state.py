@@ -174,3 +174,30 @@ def test_add_node_and_add_edge_match_jax_including_dropped_writes():
         assert got[k].dtype == v.dtype, k
         np.testing.assert_array_equal(got[k], v, err_msg=k)
     assert int(gt.num_nodes) == 3 and int(gt.num_edges) == 3
+
+
+def test_add_edges_equals_add_edge_in_order():
+    """The keyframe step's batched write: the result of B add_edge calls in
+    order, with -1 endpoints and the edges past capacity dropped."""
+    rng = np.random.default_rng(11)
+    g0 = tstate.empty_graph(8, 6, device="cpu")
+    g0 = g0.replace(num_edges=torch.tensor(2, dtype=torch.int32))
+    B = 6
+    frm = torch.tensor([0, -1, 2, 3, 4, 5], dtype=torch.int32)
+    to = torch.tensor([1, 1, -1, 5, 6, 7], dtype=torch.int32)
+    T = torch.from_numpy(rng.normal(size=(B, 7)).astype(np.float32))
+    info = torch.from_numpy(rng.normal(size=(B, 6, 6)).astype(np.float32))
+    et = torch.tensor([104, 105, 1, 1, 3, 1], dtype=torch.int32)
+    score = torch.arange(B, dtype=torch.float32)
+    valid = torch.tensor([True, False, False, True, False, True])
+    g_seq, slots = g0, []
+    for i in range(B):
+        g_seq, s = tstate.add_edge(g_seq, frm[i], to[i], T[i], info[i], etype=int(et[i]),
+                                   score=score[i], valid=bool(valid[i]))
+        slots.append(int(s))
+    g_bat, s_bat = tstate.add_edges(g0, frm, to, T, info, et, score, valid)
+    assert s_bat.tolist() == slots == [2, -1, -1, 3, 4, 5]
+    for k, v in tstate.to_numpy(g_bat).items():
+        np.testing.assert_array_equal(v, tstate.to_numpy(g_seq)[k], err_msg=k)
+    g_full, s_full = tstate.add_edges(g_bat, frm, to, T, info, et, score, valid)
+    assert (s_full == -1).all() and int(g_full.num_edges) == 6

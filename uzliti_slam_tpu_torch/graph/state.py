@@ -9,6 +9,7 @@ packages field by field through numpy (``from_numpy`` / ``to_numpy``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -137,17 +138,13 @@ def to_numpy(g: GraphState) -> dict:
     return {k: getattr(g, k).detach().cpu().numpy() for k in _FIELDS}
 
 
-def _set_row(arr: torch.Tensor, idx: torch.Tensor, ok: torch.Tensor, val) -> torch.Tensor:
+def set_row(arr: torch.Tensor, idx: torch.Tensor, ok: torch.Tensor, val) -> torch.Tensor:
     """A copy of ``arr`` whose row ``idx`` holds ``val`` where ``ok`` and
     keeps its old value otherwise (the masked write of the JAX package)."""
     old = arr.index_select(0, idx.view(1))[0]
     val = (val.to(device=arr.device, dtype=arr.dtype) if torch.is_tensor(val)
            else torch.full_like(old, val))
     return arr.index_copy(0, idx.view(1), torch.where(ok, val, old)[None])
-
-
-def _as_index(x, device) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.int32, device=device)
 
 
 def add_node(g: GraphState, pose, odom_pose, stamp, fixed=False, uncertainty=0.0,
@@ -161,7 +158,7 @@ def add_node(g: GraphState, pose, odom_pose, stamp, fixed=False, uncertainty=0.0
     slot = g.num_nodes
     ok = slot < g.node_capacity
     idx = torch.where(ok, slot, 0).long()
-    wr = lambda arr, val: _set_row(arr, idx, ok, val)  # noqa: E731
+    wr = lambda arr, val: set_row(arr, idx, ok, val)  # noqa: E731
     g = g.replace(
         pose=wr(g.pose, pose),
         odom_pose=wr(g.odom_pose, odom_pose),
@@ -178,34 +175,54 @@ def add_node(g: GraphState, pose, odom_pose, stamp, fixed=False, uncertainty=0.0
 def add_edge(g: GraphState, from_slot, to_slot, transform, info,
              etype: int = EDGE_TYPE_3D_FULL, score=0.0,
              valid=True) -> tuple[GraphState, torch.Tensor]:
-    """Append an edge. Returns (graph, slot); dropped (slot == -1) if the
-    table is full or an endpoint is -1.
-
-    The information matrix is masked by edge type at insertion
-    (``info_for_edge_type``), as ``uzliti_slam_tpu/graph/state.py:add_edge``.
-    Functional: ``g`` is not modified.
-    """
+    """Append an edge: ``add_edges`` on a batch of one. Returns (graph,
+    slot); dropped (slot == -1) if the table is full or an endpoint is -1,
+    as ``uzliti_slam_tpu/graph/state.py:add_edge``."""
     dev = g.device
-    et = _as_index(etype, dev)
-    info = info_for_edge_type(et, info.to(dev))
-    from_slot, to_slot = _as_index(from_slot, dev), _as_index(to_slot, dev)
-    slot = g.num_edges
-    ok = (slot < g.edge_capacity) & (from_slot >= 0) & (to_slot >= 0)
-    idx = torch.where(ok, slot, 0).long()
-    wr = lambda arr, val: _set_row(arr, idx, ok, val)  # noqa: E731
+
+    def one(x, dtype):
+        return torch.as_tensor(x, dtype=dtype, device=dev).reshape(1)
+
+    g, slot = add_edges(g, one(from_slot, torch.int32), one(to_slot, torch.int32),
+                        transform.to(dev)[None], info.to(dev)[None], one(etype, torch.int32),
+                        one(score, torch.float32), one(valid, torch.bool))
+    return g, slot[0]
+
+
+def add_edges(g: GraphState, from_slots: torch.Tensor, to_slots: torch.Tensor,
+              transforms: torch.Tensor, infos: torch.Tensor, etypes: torch.Tensor,
+              scores: torch.Tensor, valid: torch.Tensor) -> tuple[GraphState, torch.Tensor]:
+    """Append B edges (B,) in order, as B appends one at a time: an edge
+    with an endpoint -1, or past the table's capacity, is dropped (slot -1)
+    and takes no slot.  The information matrix is masked by edge type
+    (``info_for_edge_type``).  One masked write per field.  Functional:
+    ``g`` is not modified."""
+    E = g.edge_capacity
+    want = (from_slots >= 0) & (to_slots >= 0)
+    wi = want.to(torch.int32)
+    pos = g.num_edges + torch.cumsum(wi, 0) - wi
+    ok = want & (pos < E)
+    # dropped writes land in a scratch row E, cut off afterwards
+    idx = torch.where(ok, pos, E).long()
+
+    def wr(arr, vals):
+        ext = torch.cat([arr, arr[:1]])
+        return ext.index_copy(0, idx, vals.to(arr.dtype))[:E]
+
+    zeros = torch.zeros_like(scores)
     g = g.replace(
-        e_from=wr(g.e_from, from_slot),
-        e_to=wr(g.e_to, to_slot),
-        e_transform=wr(g.e_transform, transform),
-        e_info=wr(g.e_info, info),
-        e_type=wr(g.e_type, et),
-        e_valid=wr(g.e_valid, torch.as_tensor(valid, device=dev) & ok),
-        e_error=wr(g.e_error, 0.0),
-        e_age=wr(g.e_age, 0.0),
-        e_score=wr(g.e_score, score),
-        num_edges=g.num_edges + ok.to(torch.int32),
+        e_from=wr(g.e_from, from_slots),
+        e_to=wr(g.e_to, to_slots),
+        e_transform=wr(g.e_transform, transforms),
+        e_info=wr(g.e_info, info_for_edge_type(etypes, infos)),
+        e_type=wr(g.e_type, etypes),
+        e_valid=wr(g.e_valid, valid & ok),
+        e_error=wr(g.e_error, zeros),
+        e_age=wr(g.e_age, zeros),
+        e_score=wr(g.e_score, scores),
+        num_edges=g.num_edges + ok.sum(dtype=torch.int32),
     )
-    return g, torch.where(ok, slot, -1)
+    return g, torch.where(ok, pos, -1)
 
 
 def odometry_information(rel_pose: torch.Tensor) -> torch.Tensor:
@@ -227,14 +244,11 @@ def odometry_information(rel_pose: torch.Tensor) -> torch.Tensor:
     return w[..., :, None] * torch.eye(6, dtype=w.dtype, device=w.device)
 
 
-def info_for_edge_type(etype: torch.Tensor, base_info: torch.Tensor) -> torch.Tensor:
-    """Mask an information matrix by edge type (partial-constraint types
-    keep only their blocks; ``g2o_optimizer.cpp:164-188``).
-
-    TYPE_2D_WHEEL_ODOMETRY keeps the FULL 6x6, as in the reference.
-    """
-    dev, dt = base_info.device, base_info.dtype
-    masks = torch.tensor(
+@functools.lru_cache(maxsize=None)
+def _type_masks(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """The per-type information masks, made once per device: a host table
+    copied to the card synchronises, which the keyframe step must not."""
+    return torch.tensor(
         [
             [1, 1, 1, 1, 1, 1],   # default (3D_FULL, wheel odometry, ...)
             [1, 1, 1, 0, 0, 0],   # 3D translation / GPS
@@ -243,8 +257,18 @@ def info_for_edge_type(etype: torch.Tensor, base_info: torch.Tensor) -> torch.Te
             [0, 0, 0, 0, 0, 1],   # 2D rotation
             [1, 1, 0, 0, 0, 0],   # 2D translation
         ],
-        dtype=dt, device=dev,
+        dtype=dtype, device=device,
     )
+
+
+def info_for_edge_type(etype: torch.Tensor, base_info: torch.Tensor) -> torch.Tensor:
+    """Mask an information matrix by edge type (partial-constraint types
+    keep only their blocks; ``g2o_optimizer.cpp:164-188``).
+
+    TYPE_2D_WHEEL_ODOMETRY keeps the FULL 6x6, as in the reference.
+    """
+    dev, dt = base_info.device, base_info.dtype
+    masks = _type_masks(dev, dt)
     et = torch.as_tensor(etype, device=dev)
     sel = torch.zeros_like(et, dtype=torch.long)
     # first matching case wins, as jnp.select: apply in reverse order

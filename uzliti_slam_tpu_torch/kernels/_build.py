@@ -61,6 +61,10 @@ SIGNATURES = {
     "uz_orb_describe": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "uz_scan_bins": [_P, _P, _I, _I, _I, _F, _F, _F, _F, _I, _F, _F, _F, _F, _F, _F, _F, _F,
                      _F, _P, _P, _P],
+    "uz_hamming_top2": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P],
+    "uz_gist_topk": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _P, _P, _P, _P],
+    "uz_bilateral": [_P, _P, _I, _I, _I, _P, _F, _P, _P],
+    "uz_icp": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P, _P],
 }
 
 _lib = None

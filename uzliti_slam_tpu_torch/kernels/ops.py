@@ -38,6 +38,13 @@ orb_describe   csrc/orb_describe.cu    ops/features.py:_sep_blur +
                                        brief_descriptors
 scan_bins      csrc/scan_bins.cu       ops/scan.py:depth_to_scan's per-pixel
                                        part + _bin_min_max
+hamming_top2   csrc/hamming_top2.cu    ops/matching.py:hamming_matrix +
+                                       knn_match + ratio_test (match_descriptors)
+                                       and recognizer.py:gist_query (two
+                                       wrappers, one count)
+bilateral      csrc/bilateral.cu       ops/depth.py:joint_bilateral_filter
+icp            csrc/icp.cu             ops/icp.py:_correspondences inside
+                                       icp_point_to_line (all iterations)
 =============  ======================  =======================================
 
 What bounds each kernel on the card, and what its design does about it, is
@@ -46,6 +53,10 @@ written at the top of its source file.
 
 from __future__ import annotations
 
+import ctypes
+import math
+
+import numpy as np
 import torch
 
 from uzliti_slam_tpu_torch.graph import factors
@@ -54,7 +65,7 @@ from uzliti_slam_tpu_torch.kernels import _build
 launches = {"linearize": 0, "hvp": 0, "chain_apply": 0, "residual_chi2": 0,
             "relax_min": 0, "cluster_labels": 0, "ransac_rigid": 0, "components": 0,
             "chain_factor": 0, "pcg": 0, "project_rays": 0, "fast_nms": 0, "grid_topk": 0,
-            "orb_describe": 0, "scan_bins": 0}
+            "orb_describe": 0, "scan_bins": 0, "hamming_top2": 0, "bilateral": 0, "icp": 0}
 
 _THREADS = 256  # kThreads in csrc/lie.cuh: K4's partial sums, one per block
 _SMEM_BYTES = 232448  # shared memory one CTA can use on Hopper
@@ -1244,3 +1255,315 @@ def scan_bins(depth, cam, xf, n_bins: int, angle_min: float, angle_max: float,
     _raise_on(err, "scan_bins")
     launches["scan_bins"] += 1
     return out[0], out[1]
+
+
+# ---------------------------------------------------------------------------
+# K16 hamming_top2 (descriptor matching and the GIST query)
+# ---------------------------------------------------------------------------
+
+MASKED = 1e9   # knn_match's padding of masked pairs (not +inf)
+
+
+def smallest_k(d: torch.Tensor, k: int):
+    """The k smallest entries of the last dimension and their indices, ties
+    to the lower index (a stable sort: ``torch.topk`` promises no order)."""
+    vals, idx = torch.sort(d, dim=-1, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def hamming_top2_plain(query, bank, bank_valid, cslot, valid_a, ratio: float, max_dist: float):
+    """Plain version of K16's matching: the stored descriptors of candidate
+    node ``cslot[c]`` (``bank`` (N, F, 32) uint8, ``bank_valid`` (N, F))
+    against ``query`` (Na, 32): the reference's ``knn_match`` (masked pairs
+    1e9, the two smallest Hamming distances of each query) and
+    ``ratio_test`` (gates in float32), as ``ops/matching.py`` has them.
+    Returns (idx (C, Na) int32, ok (C, Na) bool, best (C, Na) float32)."""
+    from uzliti_slam_tpu_torch.ops import matching
+
+    cs = cslot.long()
+    d = matching.hamming_matrix_packed(query, bank.index_select(0, cs))      # (C, Na, F)
+    vals, idx = matching.knn_match(d, valid_a, bank_valid.index_select(0, cs))
+    match, ok = matching.ratio_test(vals, idx, ratio, max_dist)
+    return match.to(torch.int32), ok & valid_a[None, :], vals[..., 0]
+
+
+def _smem_check(name: str, nbytes: int) -> None:
+    if nbytes > _SMEM_BYTES:
+        raise ValueError(f"{name}: {nbytes} bytes of shared memory, one CTA holds {_SMEM_BYTES}")
+
+
+def hamming_top2(query, bank, bank_valid, cslot, valid_a, ratio: float, max_dist: float):
+    """K16: all candidates' matching in one launch, a CTA per (query block,
+    candidate), the candidate's stored descriptors gathered by slot into
+    shared memory, a running best and second per query in registers."""
+    if query.device.type == "cpu":
+        return hamming_top2_plain(query, bank, bank_valid, cslot, valid_a, ratio, max_dist)
+    dev, u8 = query.device, torch.uint8
+    Na, (N, F, _), C = query.shape[0], bank.shape, cslot.shape[0]
+    _smem_check("hamming_top2", 33 * F)
+    ptrs = [_check("query", query, (Na, 32), u8, dev), _check("bank", bank, (N, F, 32), u8, dev),
+            _check("bank_valid", bank_valid, (N, F), torch.bool, dev),
+            _check("cslot", cslot, (C,), torch.int32, dev),
+            _check("valid_a", valid_a, (Na,), torch.bool, dev)]
+    lib = _build.load()
+    idx = torch.empty(C, Na, dtype=torch.int32, device=dev)
+    ok = torch.empty(C, Na, dtype=torch.bool, device=dev)
+    best = torch.empty(C, Na, dtype=torch.float32, device=dev)
+    err = lib.uz_hamming_top2(*ptrs, C, Na, F, float(ratio), float(max_dist), idx.data_ptr(),
+                              ok.data_ptr(), best.data_ptr(), _stream(dev))
+    _raise_on(err, "hamming_top2")
+    launches["hamming_top2"] += 1
+    return idx, ok, best
+
+
+def gist_topk_plain(query, bank, stamp, valid, q_stamp, k: int, min_dt: float, max_dist: float):
+    """Plain version of K16's GIST query: the Hamming distance of ``query``
+    (32,) to every entry of ``bank`` (N, 32), +inf where an entry is not
+    valid or lies within ``min_dt`` of ``q_stamp`` (a () float32 tensor),
+    the k smallest, ties to the lower index.  Returns (slots (k,) int32,
+    dist (k,) float32, ok (k,) bool: finite and <= max_dist)."""
+    from uzliti_slam_tpu_torch.ops import matching
+
+    d = matching.hamming_matrix_packed(query[None], bank)[0]
+    eligible = valid & (torch.abs(stamp - q_stamp) >= min_dt)
+    d = torch.where(eligible, d, torch.inf)
+    vals, idx = smallest_k(d, k)
+    return idx.to(torch.int32), vals, torch.isfinite(vals) & (vals <= max_dist)
+
+
+def gist_topk(query, bank, stamp, valid, q_stamp, k: int, min_dt: float, max_dist: float):
+    """K16's GIST entry: one CTA, the bank's distances in shared memory, k
+    rounds of a block-wide (distance, index) minimum."""
+    if query.device.type == "cpu":
+        return gist_topk_plain(query, bank, stamp, valid, q_stamp, k, min_dt, max_dist)
+    dev, N = query.device, bank.shape[0]
+    if not 0 < k <= N:
+        raise ValueError(f"gist_topk: k = {k} of a {N}-entry bank")
+    _smem_check("gist_topk", 4 * N)
+    ptrs = [_check("query", query, (32,), torch.uint8, dev),
+            _check("bank", bank, (N, 32), torch.uint8, dev),
+            _check("stamp", stamp, (N,), torch.float32, dev),
+            _check("valid", valid, (N,), torch.bool, dev),
+            _check("q_stamp", q_stamp, (), torch.float32, dev)]
+    lib = _build.load()
+    slots = torch.empty(k, dtype=torch.int32, device=dev)
+    dist = torch.empty(k, dtype=torch.float32, device=dev)
+    ok = torch.empty(k, dtype=torch.bool, device=dev)
+    err = lib.uz_gist_topk(*ptrs, N, k, float(min_dt), float(max_dist), slots.data_ptr(),
+                           dist.data_ptr(), ok.data_ptr(), _stream(dev))
+    _raise_on(err, "hamming_top2")
+    launches["hamming_top2"] += 1
+    return slots, dist, ok
+
+
+# ---------------------------------------------------------------------------
+# K17 bilateral (joint bilateral depth filter)
+# ---------------------------------------------------------------------------
+
+BILATERAL_RADIUS = 2
+SIGMA_SPACE, SIGMA_COLOR = 1.5, 10.0   # ops/depth.py:joint_bilateral_filter's defaults
+
+
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+def bilateral_taps() -> tuple[tuple[int, int], ...]:
+    """(dy, dx) of the taps in the reference's dy-major order."""
+    r = BILATERAL_RADIUS
+    return tuple((dy, dx) for dy in range(-r, r + 1) for dx in range(-r, r + 1))
+
+
+def bilateral_spatial() -> tuple[float, ...]:
+    """The 25 spatial weights exp(-(dy² + dx²) / (2 σs²)) as float32, the
+    reference's compiled constants (exp of the float32 argument, correctly
+    rounded)."""
+    return tuple(_f32(math.exp(_f32(-(dy * dy + dx * dx) / (2 * SIGMA_SPACE**2))))
+                 for dy, dx in bilateral_taps())
+
+
+# the colour exponent's factor: XLA turns x / (2 σc²) into x · fl(1 / (2 σc²))
+NEG_INV_2SC2 = -_f32(1.0 / (2 * SIGMA_COLOR**2))
+
+
+def _shift(img: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
+    """out[..., y, x] = img[..., y + dy, x + dx], zero outside (the
+    reference's ``_shift2d``)."""
+    h, w = img.shape[-2:]
+    out = torch.zeros_like(img)
+    out[..., max(-dy, 0): h + min(-dy, 0), max(-dx, 0): w + min(-dx, 0)] = \
+        img[..., max(dy, 0): h + min(dy, 0), max(dx, 0): w + min(dx, 0)]
+    return out
+
+
+def bilateral_plain(depth, guide):
+    """Plain version of K17 on (C, H, W) float32 depth (metres) and guide:
+    the reference's tap order, exponent and products, num summed by a fused
+    multiply-add (``fma_plain``), as the compiled reference."""
+    valid = (depth > 0.0) & torch.isfinite(depth)
+    d = torch.where(valid, depth, 0.0)
+    vf = valid.to(depth.dtype)
+    num = torch.zeros_like(d)
+    den = torch.zeros_like(d)
+    for (dy, dx), ws in zip(bilateral_taps(), bilateral_spatial()):
+        t = _shift(guide, -dy, -dx) - guide
+        w = (torch.exp((t * t) * NEG_INV_2SC2) * ws) * _shift(vf, -dy, -dx)
+        num = fma_plain(w, _shift(d, -dy, -dx), num)
+        den = den + w
+    return torch.where(den > 1e-6, num / torch.clamp(den, min=1e-9), 0.0)
+
+
+def bilateral(depth, guide):
+    """K17: one thread per pixel over a shared-memory tile with a halo of 2,
+    cameras on the grid; (C, H, W) float32 -> (C, H, W) float32."""
+    if depth.device.type == "cpu":
+        return bilateral_plain(depth, guide)
+    dev, f32 = depth.device, torch.float32
+    C, H, W = _images("depth", depth)
+    ptrs = [_check("depth", depth, (C, H, W), f32, dev), _check("guide", guide, (C, H, W), f32, dev)]
+    lib = _build.load()
+    out = torch.empty_like(depth)
+    table = (ctypes.c_float * len(bilateral_taps()))(*bilateral_spatial())
+    err = lib.uz_bilateral(*ptrs, C, H, W, ctypes.addressof(table), NEG_INV_2SC2, out.data_ptr(),
+                           _stream(dev))
+    _raise_on(err, "bilateral")
+    launches["bilateral"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K18 icp (point-to-line ICP, all iterations in one launch)
+# ---------------------------------------------------------------------------
+
+ICP_MAX_POINTS = 8192   # target points one CTA's shared memory holds with the reductions
+
+
+def lu3(A: torch.Tensor):
+    """LU with partial pivoting of (..., 3, 3) matrices, the first largest
+    pivot, multipliers by division (K18's ``lu3``).  Returns (LU, perm
+    (..., 3) long: the original row at each position)."""
+    A = A.clone()
+    batch = A.shape[:-2]
+    ar = torch.arange(3, device=A.device)
+    perm = ar.expand(batch + (3,)).clone()
+    for k in range(3):
+        p = (k + torch.argmax(A[..., k:, k].abs(), dim=-1))[..., None]          # first max
+        swap = torch.where(ar == k, p, torch.where(ar == p, k, ar))
+        A = torch.gather(A, -2, swap[..., None].expand(A.shape))
+        perm = torch.gather(perm, -1, swap)
+        for i in range(k + 1, 3):
+            li = A[..., i, k] / A[..., k, k]
+            A[..., i, k] = li
+            for j in range(k + 1, 3):
+                A[..., i, j] = A[..., i, j] - li * A[..., k, j]
+    return A, perm
+
+
+def lu3_solve(lu: torch.Tensor, perm: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x with A x = b from ``lu3``'s factors; b (..., 3)."""
+    pb = torch.gather(b, -1, perm)
+    y = [pb[..., 0]]
+    for i in (1, 2):
+        s = pb[..., i]
+        for j in range(i):
+            s = s - lu[..., i, j] * y[j]
+        y.append(s)
+    x = [None, None, None]
+    for i in (2, 1, 0):
+        s = y[i]
+        for j in range(i + 1, 3):
+            s = s - lu[..., i, j] * x[j]
+        x[i] = s / lu[..., i, i]
+    return torch.stack(x, dim=-1)
+
+
+def inv3(A: torch.Tensor) -> torch.Tensor:
+    """Inverse of (..., 3, 3) matrices by ``lu3`` (no host read)."""
+    lu, perm = lu3(A)
+    eye = torch.eye(3, dtype=A.dtype, device=A.device).expand(A.shape)
+    return torch.stack([lu3_solve(lu, perm, eye[..., c]) for c in range(3)], dim=-1)
+
+
+def icp_terms_plain(pose, src, src_valid, dst, dst_valid, max_corr2: float):
+    """Point-to-line terms at ``pose`` (B, 3): (J (B, M, 3), r (B, M), w (B,
+    M) float 0/1), with K18's order of operations; the two nearest targets
+    by a stable sort (ties to the lower index, +inf at invalid targets)."""
+    c, s = torch.cos(pose[:, 2:3]), torch.sin(pose[:, 2:3])
+    px, py = src[..., 0], src[..., 1]
+    mx = (c * px - s * py) + pose[:, 0:1]
+    my = (s * px + c * py) + pose[:, 1:2]
+    ex = mx[..., None] - dst[:, None, :, 0]
+    ey = my[..., None] - dst[:, None, :, 1]
+    d2 = torch.where(dst_valid[:, None, :], ex * ex + ey * ey, torch.inf)
+    vals, idx = smallest_k(d2, 2)
+    pick = lambda k: torch.gather(dst, 1, idx[..., k, None].expand(idx.shape[:2] + (2,)))  # noqa: E731
+    p1, p2 = pick(0), pick(1)
+    sx, sy = p2[..., 0] - p1[..., 0], p2[..., 1] - p1[..., 1]
+    length = torch.clamp(torch.sqrt(sx * sx + sy * sy), min=1e-9)
+    nx, ny = -sy / length, sx / length
+    r = (mx - p1[..., 0]) * nx + (my - p1[..., 1]) * ny
+    w = (src_valid & (vals[..., 0] < max_corr2) & torch.isfinite(vals[..., 0])
+         & torch.isfinite(vals[..., 1])).to(src.dtype)
+    t0, t1 = -my + pose[:, 1:2], mx - pose[:, 0:1]
+    J = torch.stack([nx, ny, nx * t0 + ny * t1], dim=-1)
+    return J, r, w
+
+
+def _icp_normal(J, r, w, diag: float):
+    H = torch.sum((J[..., :, None] * J[..., None, :]) * w[..., None, None], dim=1)
+    H = H + diag * torch.eye(3, dtype=J.dtype, device=J.device)
+    return H, torch.sum((J * r[..., None]) * w[..., None], dim=1)
+
+
+def icp_plain(src, src_valid, dst, dst_valid, init, iterations: int, max_corr2: float,
+              min_fraction: float, max_t: float, max_r: float, sigma2: float):
+    """Plain version of K18 on a batch: src (B, M, 2), dst (B, N, 2), their
+    validity, init (B, 3).  Returns (pose (B, 3), fraction (B,), mse (B,),
+    cov (B, 3, 3), ok (B,))."""
+    pose = init
+    for _ in range(iterations):
+        H, b = _icp_normal(*icp_terms_plain(pose, src, src_valid, dst, dst_valid, max_corr2), 1e-9)
+        lu, perm = lu3(H)
+        pose = pose + -lu3_solve(lu, perm, b)
+    J, r, w = icp_terms_plain(pose, src, src_valid, dst, dst_valid, max_corr2)
+    n_good = w.sum(-1)
+    n_src = torch.clamp(src_valid.sum(-1, dtype=torch.int32), min=1)
+    fraction = n_good / n_src.to(n_good.dtype)
+    mse = torch.sum((r * r) * w, dim=-1) / torch.clamp(n_good, min=1.0)
+    cov = sigma2 * inv3(_icp_normal(J, r, w, 1e-6)[0])
+    corr = pose - init
+    corr_ok = (corr[:, 0].abs() < max_t) & (corr[:, 1].abs() < max_t) & (corr[:, 2].abs() < max_r)
+    ok = (fraction >= min_fraction) & corr_ok & torch.isfinite(pose).all(-1)
+    return pose, fraction, mse, cov, ok
+
+
+def icp(src, src_valid, dst, dst_valid, init, iterations: int, max_corr2: float,
+        min_fraction: float, max_t: float, max_r: float, sigma2: float):
+    """K18: one CTA per problem, the target scan in shared memory, every
+    iteration, the audit, the covariance and the gates in one launch."""
+    if src.device.type == "cpu":
+        return icp_plain(src, src_valid, dst, dst_valid, init, iterations, max_corr2,
+                         min_fraction, max_t, max_r, sigma2)
+    dev, f32 = src.device, torch.float32
+    B, M, _ = src.shape
+    N = dst.shape[1]
+    if not 2 <= N <= ICP_MAX_POINTS:
+        raise ValueError(f"icp: {N} target points, the kernel takes 2..{ICP_MAX_POINTS}")
+    ptrs = [_check("src", src, (B, M, 2), f32, dev),
+            _check("src_valid", src_valid, (B, M), torch.bool, dev),
+            _check("dst", dst, (B, N, 2), f32, dev),
+            _check("dst_valid", dst_valid, (B, N), torch.bool, dev),
+            _check("init", init, (B, 3), f32, dev)]
+    lib = _build.load()
+    pose = torch.empty(B, 3, dtype=f32, device=dev)
+    fraction = torch.empty(B, dtype=f32, device=dev)
+    mse = torch.empty(B, dtype=f32, device=dev)
+    cov = torch.empty(B, 3, 3, dtype=f32, device=dev)
+    ok = torch.empty(B, dtype=torch.bool, device=dev)
+    err = lib.uz_icp(*ptrs, B, M, N, int(iterations), float(max_corr2), float(min_fraction),
+                     float(max_t), float(max_r), float(sigma2), pose.data_ptr(),
+                     fraction.data_ptr(), mse.data_ptr(), cov.data_ptr(), ok.data_ptr(),
+                     _stream(dev))
+    _raise_on(err, "icp")
+    launches["icp"] += 1
+    return pose, fraction, mse, cov, ok

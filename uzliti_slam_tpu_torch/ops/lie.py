@@ -366,3 +366,8 @@ def pose2_to_pose(xyt: torch.Tensor) -> torch.Tensor:
     t = torch.stack([x, y, zeros], dim=-1)
     q = torch.stack([torch.cos(th / 2), zeros, zeros, torch.sin(th / 2)], dim=-1)
     return torch.cat([t, q], dim=-1)
+
+
+def pose_to_pose2(p: torch.Tensor) -> torch.Tensor:
+    """SE(3) pose -> planar (x, y, theta)."""
+    return torch.stack([p[..., 0], p[..., 1], yaw_of(pose_q(p))], dim=-1)

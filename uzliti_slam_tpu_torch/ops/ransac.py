@@ -1,8 +1,9 @@
 """Batched RANSAC rigid-transform estimation.
 
 PyTorch counterpart of ``uzliti_slam_tpu/ops/ransac.py`` for what the
-loop-closure filter runs (uniform sampling over the valid entries, unit
-weights).  Sampling is kept apart from fitting: ``ransac_rigid_batch``
+loop-closure filter (uniform sampling over the valid entries) and the
+keyframe step (quality-biased sampling, soft PROSAC) run, with unit
+weights.  Sampling is kept apart from fitting: ``ransac_rigid_batch``
 takes the hypothesis triplets ``tri`` when given (a test hands both
 packages the JAX draws), else draws them on the device from a
 ``torch.Generator``.  The fits, consensus, argmax and refit of every root
@@ -79,24 +80,39 @@ def kabsch_quat(src: torch.Tensor, dst: torch.Tensor, weights: torch.Tensor,
     return lie.make_pose(t, q)
 
 
-def _valid_sample(generator: torch.Generator, k_hyp: int, valid: torch.Tensor) -> torch.Tensor:
-    """(..., k_hyp, 3) int32 indices drawn uniformly among each row's valid
-    entries of ``valid`` (..., M), on ``valid``'s device.
+def _valid_sample(generator: torch.Generator, k_hyp: int, valid: torch.Tensor,
+                  quality: torch.Tensor | None = None, beta: float = 4.0) -> torch.Tensor:
+    """(..., k_hyp, 3) int32 indices drawn among each row's valid entries of
+    ``valid`` (..., M), on ``valid``'s device.
 
-    Uniform draws are mapped through the row's running count of valid
-    entries (``searchsorted``), so no ``nonzero`` synchronises the host.  A
+    Without ``quality`` the draw is uniform over the valid entries; with
+    it, entry i is drawn with probability ∝ exp(β·(q_i − q_min)/span) over
+    the valid entries (span = max(q_max − q_min, 1e-6)), the reference's
+    soft PROSAC.  Uniform draws are mapped through the row's running sum of
+    weights (``searchsorted``), so no ``nonzero`` synchronises the host.  A
     row with no valid entry draws index 0 (its results are discarded by the
     sample-validity gate), where the JAX package draws uniformly over all.
     The draws cannot be the JAX package's: ``jax.random`` streams do not
     exist in PyTorch.
     """
     batch, m = valid.shape[:-1], valid.shape[-1]
-    count = torch.cumsum(valid.to(torch.int32), dim=-1)            # (..., M)
+    if quality is None:
+        weight = valid.to(torch.float32)
+    else:
+        q = quality.to(torch.float32)
+        qmax = torch.where(valid, q, -torch.inf).amax(-1, keepdim=True)
+        qmin = torch.where(valid, q, torch.inf).amin(-1, keepdim=True)
+        span = torch.clamp(qmax - qmin, min=1e-6)
+        # exp(logit − β): the largest weight is 1, so the sum cannot overflow
+        logit = beta * (torch.where(valid, q, qmin) - qmin) / span
+        weight = torch.where(valid, torch.exp(logit - beta), 0.0)
+    cum = torch.cumsum(weight, dim=-1)                                   # (..., M)
+    total = cum[..., -1:]
     u = torch.rand(batch + (k_hyp * 3,), generator=generator, device=valid.device)
-    total = count[..., -1:].to(u.dtype)
-    rank = torch.clamp(torch.floor(u * total), max=total - 1).to(torch.int32) + 1
-    idx = torch.searchsorted(count.contiguous(), rank.contiguous())
-    idx = torch.where(idx < m, idx, 0)
+    # a draw in [0, total): rounding may not reach the last positive weight
+    target = torch.minimum(u * total, torch.nextafter(total, torch.zeros_like(total)))
+    idx = torch.searchsorted(cum.contiguous(), target.contiguous(), right=True)
+    idx = torch.where((idx < m) & (total > 0), idx, 0)
     return idx.to(torch.int32).reshape(batch + (k_hyp, 3))
 
 
@@ -110,16 +126,20 @@ def ransac_rigid_batch(
     min_sigma: float = 0.01,
     tri: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
+    quality: torch.Tensor | None = None,
 ) -> RansacResult:
     """Robust rigid fit per root: src, dst (R, M, 3) (broadcast views of one
     table allowed), valid (R, M).  ``tri`` (R, n_hypotheses, 3) int gives
-    the hypothesis triplets; without it they are drawn from ``generator``.
+    the hypothesis triplets; without it they are drawn from ``generator``,
+    biased toward high ``quality`` (R, M) where given (soft PROSAC).
+    ``inlier_thresh`` and ``min_sigma`` are squared as given: the keyframe
+    step passes its float32 gates, whose squares round as the reference's.
 
     K hypotheses evaluated unconditionally (no early exit), as
     ``uzliti_slam_tpu/ops/ransac.py:ransac_rigid`` vmapped over roots.
     """
     if tri is None:
-        tri = _valid_sample(generator, n_hypotheses, valid)
+        tri = _valid_sample(generator, n_hypotheses, valid, quality)
     pose, consensus, mse, information, ok, _, _ = kops.ransac_rigid(
         src, dst, valid, tri.to(device=src.device, dtype=torch.int32).contiguous(),
         inlier_thresh, min_consensus, min_sigma)
