@@ -7,6 +7,7 @@ ctypes signature of its arity, wrappers on CPU tensors run the plain
 version without counting a launch, and the argument checks raise.
 """
 
+import math
 import re
 
 import numpy as np
@@ -49,7 +50,7 @@ def test_nvcc_flags_target_hopper_without_fast_math():
         "linearize.cu", "hvp.cu", "chain_apply.cu", "residual_chi2.cu", "relax_min.cu",
         "cluster_labels.cu", "ransac_rigid.cu", "components.cu", "chain_factor.cu", "pcg.cu",
         "occupancy.cu", "fast_nms.cu", "grid_topk.cu", "orb_describe.cu", "scan_bins.cu",
-        "hamming_top2.cu", "bilateral.cu", "icp.cu"}
+        "hamming_top2.cu", "bilateral.cu", "icp.cu", "merge_pairs.cu", "calib_gn.cu"}
 
 
 def test_every_exported_function_has_a_signature_of_its_arity():
@@ -517,4 +518,103 @@ def test_keyframe_kernel_argument_checks_raise(fake_lib):
     with pytest.raises(ValueError, match="init: shape"):
         kops.icp(_meta(2, 360, 2), _meta(2, 360, dtype=b), _meta(2, 360, 2),
                  _meta(2, 360, dtype=b), _meta(1, 3), 20, 0.25, 0.25, 1.5, 0.8, 0.0004)
+    assert fake_lib.calls == []
+
+
+def _maintenance_cases():
+    """Small CPU inputs for K19, K20 and K15's bin_min_max: (name, args)."""
+    from uzliti_slam_tpu_torch.io import synthetic
+
+    g, _ = synthetic.make_pose_graph(24, odom_noise=0.0, rot_noise=0.0, loops=2.0, radius=1.5,
+                                     device="cpu")
+    rng = np.random.default_rng(4)
+    cal, _ = synthetic.biased_odometry_graph([1.04, 0.05, 0.03], 12, device="cpu")
+    ef, et = cal.e_from.long(), cal.e_to.long()
+    E = cal.edge_capacity
+    zeros = torch.zeros(E, dtype=torch.int32)
+    r = torch.from_numpy(rng.uniform(0.0, 7.0, (2, 300)).astype(np.float32))
+    ok = torch.from_numpy(rng.random((2, 300)) < 0.7)
+    bins = torch.from_numpy(rng.integers(0, 30, (2, 300)).astype(np.int32))
+    return [
+        ("merge_pairs", (g.pose, g.stamp, g.node_valid, 0.3, 20.0, 16)),
+        ("calib_gn", (cal.pose[ef], cal.pose[et], cal.e_transform, torch.zeros(E, dtype=torch.bool),
+                      (cal.e_type == 104) & cal.e_valid, zeros, zeros,
+                      torch.tensor([[0.0, 0, 0, 1, 0, 0, 0]]), 3, 1e2, 1e-6)),
+        ("bin_min_max", (r, ok, bins, 30, 6.0)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(3), ids=["merge_pairs", "calib_gn", "bin_min_max"])
+def test_maintenance_kernel_wrappers_run_their_plain_version_on_cpu(case):
+    name, args = _maintenance_cases()[case]
+    kops.reset_launches()
+    got, ref = getattr(kops, name)(*args), getattr(kops, f"{name}_plain")(*args)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert kops.launches == {k: 0 for k in kops.launches}
+    if name == "merge_pairs":   # two noise-free laps: some pairs, then empty rounds
+        assert bool(got[2][0]) and not bool(got[2][-1])
+    if name == "calib_gn":
+        assert tuple(got[0].shape) == (9,) and tuple(got[1].shape) == (4,)
+
+
+def test_bin_min_max_batches_scans_as_the_one_scan_form():
+    """The plain bin_min_max on a batch gives, row for row, what the plain
+    ``scan._bin_min_max`` gives one flat scan; K15's scan_bins plain
+    version reduces through it too."""
+    from uzliti_slam_tpu_torch.ops import scan
+
+    _, (r, ok, bins, n_bins, max_range) = _maintenance_cases()[2]
+    near, far = kops.bin_min_max_plain(r, ok, bins, n_bins, max_range)
+    for b in range(2):
+        n1, f1 = scan._bin_min_max(r[b], ok[b], bins[b], n_bins, max_range)
+        assert torch.equal(near[b], n1) and torch.equal(far[b], f1)
+    n1, f1 = kops.bin_min_max_plain(r[0], ok[0] & (bins[0] != 3), bins[0], n_bins, max_range)
+    assert n1[3] == math.inf and f1[3] == -math.inf
+
+
+def test_maintenance_kernels_launch_through_the_library(fake_lib):
+    i32, b = torch.int32, torch.bool
+    keep, absorb, ok = kops.merge_pairs(_meta(500, 7), _meta(500), _meta(500, dtype=b), 0.25,
+                                        15.0, 16)
+    args = fake_lib.calls[-1][1]
+    assert fake_lib.calls[-1][0] == "uz_merge_pairs" and args[3:7] == (500, 0.25, 15.0, 16)
+    assert tuple(keep.shape) == (16,) and keep.dtype == i32 and ok.dtype == b
+    theta, hist = kops.calib_gn(_meta(4096, 7), _meta(4096, 7), _meta(4096, 7),
+                                _meta(4096, dtype=b), _meta(4096, dtype=b),
+                                _meta(4096, dtype=i32), _meta(4096, dtype=i32), _meta(2, 7), 20,
+                                1e2, 1e-6)
+    args = fake_lib.calls[-1][1]
+    # 16 CTAs of 256 threads over 4,096 edges; √100 = 10
+    assert fake_lib.calls[-1][0] == "uz_calib_gn" and args[8:14] == (4096, 2, 20, 10.0,
+                                                                       1e-6, 16)
+    assert tuple(theta.shape) == (15,) and tuple(hist.shape) == (21,)
+    near, far = kops.bin_min_max(_meta(16, 720), _meta(16, 720, dtype=b),
+                                 _meta(16, 720, dtype=i32), 360, 6.0)
+    args = fake_lib.calls[-1][1]
+    assert fake_lib.calls[-1][0] == "uz_bin_min_max" and args[3:6] == (16, 720, 360)
+    assert tuple(near.shape) == tuple(far.shape) == (16, 360)
+    assert kops.launches["merge_pairs"] == kops.launches["calib_gn"] == 1
+    assert kops.launches["bin_min_max"] == 1
+
+
+def test_maintenance_kernel_argument_checks_raise(fake_lib):
+    i32, b = torch.int32, torch.bool
+    with pytest.raises(ValueError, match="65535"):
+        kops.merge_pairs(_meta(70000, 7), _meta(70000), _meta(70000, dtype=b), 0.25, 15.0, 16)
+    with pytest.raises(ValueError, match="max_pairs"):
+        kops.merge_pairs(_meta(50, 7), _meta(50), _meta(50, dtype=b), 0.25, 15.0, 33)
+    with pytest.raises(ValueError, match="stamp: shape"):
+        kops.merge_pairs(_meta(50, 7), _meta(49), _meta(50, dtype=b), 0.25, 15.0, 16)
+    with pytest.raises(ValueError, match="3 sensors"):
+        kops.calib_gn(_meta(8, 7), _meta(8, 7), _meta(8, 7), _meta(8, dtype=b), _meta(8, dtype=b),
+                      _meta(8, dtype=i32), _meta(8, dtype=i32), _meta(3, 7), 20, 1e2, 1e-6)
+    with pytest.raises(TypeError, match="sf: dtype"):
+        kops.calib_gn(_meta(8, 7), _meta(8, 7), _meta(8, 7), _meta(8, dtype=b), _meta(8, dtype=b),
+                      _meta(8, dtype=torch.int64), _meta(8, dtype=i32), _meta(1, 7), 20, 1e2, 1e-6)
+    with pytest.raises(ValueError, match="1..1023"):
+        kops.bin_min_max(_meta(2, 9), _meta(2, 9, dtype=b), _meta(2, 9, dtype=i32), 2000, 6.0)
+    with pytest.raises(TypeError, match="bins: dtype"):
+        kops.bin_min_max(_meta(2, 9), _meta(2, 9, dtype=b), _meta(2, 9, dtype=torch.int64), 90,
+                         6.0)
     assert fake_lib.calls == []

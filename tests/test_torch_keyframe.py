@@ -249,7 +249,7 @@ def test_set_param_retunes_gates_and_the_keyframe_gate():
 def test_slam_raises_for_what_is_not_ported():
     cases = [(dict(recognition=dataclasses.replace(TCfg().recognition, method="bow")), "A24"),
              (dict(estimation=TEst(method="gicp")), "A25"),
-             (dict(calibrate_every=2), "A23"), (dict(sync_to_database="x.db"), "A27")]
+             (dict(estimation=TEst(method="pnp")), "A25"), (dict(sync_to_database="x.db"), "A27")]
     for kw, item in cases:
         with pytest.raises(NotImplementedError, match=item):
             tpipe.Slam(TCfg(**SHAPE, **kw), device="cpu")

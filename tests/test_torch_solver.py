@@ -184,8 +184,7 @@ def test_sparse_oracle_matches_jax_oracle():
 @pytest.mark.parametrize("option", [
     dict(mode="pcg"), dict(mode="direct"), dict(preconditioner="woodbury"),
     dict(preconditioner="jacobi"), dict(dense_gathers=True), dict(chain_root_ns=True),
-    dict(preconditioner="none"), dict(use_odometry_calibration=True),
-    dict(optimize_xy_only=True),
+    dict(preconditioner="none"), dict(optimize_xy_only=True),
 ])
 def test_unsupported_options_raise(option, graph128):
     cfg = dataclasses.replace(tsolver.SolverConfig(), **option)

@@ -6,8 +6,8 @@ defaults, less the knobs of paths the port does not have: the other
 recognizers' (repository, BoW, feature sets; ROADMAP.md A24) and
 estimators' (GICP, PnP; A25), which come with those paths.  The switches
 that select such a path (``recognition.method``, ``estimation.method``,
-``calibrate_every``, ``sync_to_database``) are kept, and ``pipeline.Slam``
-raises ``NotImplementedError`` for their unported values.
+``sync_to_database``) are kept, and ``pipeline.Slam`` raises
+``NotImplementedError`` for their unported values.
 
 The numeric gates live in ``Tunables``, as in the reference, which keeps
 them as float32 device scalars so that ``Slam.set_param`` retunes them
@@ -31,8 +31,10 @@ from uzliti_slam_tpu_torch.mapping.occupancy import GridConfig
 
 @dataclasses.dataclass(frozen=True)
 class ScopeConfig:
-    """Same fields and defaults as ``uzliti_slam_tpu.config.ScopeConfig``;
-    the epoch reads ``scope_size_factor`` (the edge heuristic's scale)."""
+    """Same fields and defaults as ``uzliti_slam_tpu.config.ScopeConfig``:
+    the role of ``pipeline.maintenance_epoch`` (``merge_nodes``, the global
+    role; ``is_sub_graph``, the local role's eviction), its gates, and the
+    epoch's edge heuristic scale (``scope_size_factor``)."""
 
     is_sub_graph: bool = False
     scope_size_min: float = 8.0
@@ -189,7 +191,8 @@ class SlamConfig:
     project_map: bool = True
     # SQLite write-through of the reference (not ported: Slam raises)
     sync_to_database: str | None = None
-    # odometry-drift calibration every N epochs (not ported: Slam raises)
+    # odometry-drift calibration (Slam.calibrate) every N optimization
+    # epochs; 0 = never
     calibrate_every: int = 0
     # metres per unit of integer depth inputs (uint16 wire format):
     # 0.001 = millimetres (Kinect)

@@ -28,7 +28,8 @@ from typing import NamedTuple
 import torch
 
 from uzliti_slam_tpu_torch.graph import factors, tridiag
-from uzliti_slam_tpu_torch.graph.state import GraphState
+from uzliti_slam_tpu_torch.graph.calibration import odometry_drift_correct
+from uzliti_slam_tpu_torch.graph.state import EDGE_TYPE_2D_WHEEL_ODOMETRY, GraphState
 from uzliti_slam_tpu_torch.kernels import ops as kops
 from uzliti_slam_tpu_torch.ops import lie
 
@@ -77,13 +78,13 @@ class SolverConfig:
 
 
 def check_supported(config: SolverConfig) -> None:
-    """Raise NotImplementedError, naming the option, for paths not ported."""
+    """Raise NotImplementedError, naming the option, for paths not ported
+    (``optimize_xy_only`` needs masks inside K1, K2 and K9: ROADMAP.md A6)."""
     if config.mode != "auto":
         raise NotImplementedError(f"mode={config.mode!r}")
     if config.preconditioner != "chain":
         raise NotImplementedError(f"preconditioner={config.preconditioner!r}")
-    for name in ("dense_gathers", "chain_root_ns", "use_odometry_calibration",
-                 "optimize_xy_only"):
+    for name in ("dense_gathers", "chain_root_ns", "optimize_xy_only"):
         if getattr(config, name):
             raise NotImplementedError(f"{name}=True")
 
@@ -325,9 +326,18 @@ def optimize(g: GraphState, config: SolverConfig = SolverConfig()):
 
     Write-back follows the reference ``storeImpl``
     (``g2o_optimizer.cpp:106-135``): poses updated, per-edge χ² errors
-    recomputed, edge ages incremented.
+    recomputed, edge ages incremented.  With ``use_odometry_calibration``
+    the odometry measurements are warped by the graph's ``odom_params``
+    for the solve and the errors (``g2o_optimizer.cpp:209-227``); the raw
+    measurements are kept.
     """
     check_supported(config)
+    e_meas_raw = g.e_transform
+    if config.use_odometry_calibration:
+        is_odom = g.e_type == EDGE_TYPE_2D_WHEEL_ODOMETRY
+        g = g.replace(e_transform=torch.where(
+            is_odom[:, None], odometry_drift_correct(g.e_transform, g.odom_params),
+            g.e_transform))
     labels = connected_components(g)
     gauge = gauge_fix_mask(g, labels)
     free = (g.node_valid & ~gauge).to(g.pose.dtype)
@@ -340,6 +350,7 @@ def optimize(g: GraphState, config: SolverConfig = SolverConfig()):
         pose=poses,
         e_error=factors.edge_chi2(r, g.e_info) * valid,
         e_age=g.e_age + valid,
+        e_transform=e_meas_raw,
     )
     stats = SolveStats(
         chi2_history=chi2_hist,

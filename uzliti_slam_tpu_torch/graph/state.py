@@ -28,6 +28,9 @@ EDGE_TYPE_2D_TRANSLATION = 7
 EDGE_TYPE_2D_WHEEL_ODOMETRY = 104
 EDGE_TYPE_2D_LASER = 105
 
+# uid of the fixed map-origin node that GPS factors hang from (``Slam.add_gps``)
+GPS_ANCHOR_UID = 2_000_000_000
+
 
 @dataclasses.dataclass
 class GraphState:

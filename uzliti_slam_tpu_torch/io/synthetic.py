@@ -131,6 +131,64 @@ def make_pose_graph(
     return g, gt
 
 
+def biased_odometry_graph(p_true, n: int = 50, closure_every: int = 5,
+                          node_capacity: int | None = None, edge_capacity: int | None = None,
+                          device=None) -> tuple[GraphState, torch.Tensor]:
+    """A graph whose wheel-odometry edges carry a known drift bias (the
+    calibration tests' ``build_biased_odometry_slam``,
+    ``tests/test_calibration.py:162-214``).
+
+    The true trajectory alternates 5 straight 0.4 m steps and 3 turns of
+    0.35 rad in place (so the two drift terms are separately observable);
+    each odometry measurement is the drift model's inverse of the true
+    motion under ``p_true`` (3,) (8 fixed-point steps), with information
+    10·I; exact 3-D loop closures every ``closure_every`` nodes, 1000·I.
+    Nodes start at the integrated raw odometry.  Returns (graph, ground
+    truth (n, 7)), on ``device`` (default: the CUDA card)."""
+    from uzliti_slam_tpu_torch.graph.calibration import odometry_drift_correct
+
+    device = _device.resolve(device)
+    segs, x, y, th = [], 0.0, 0.0, 0.0
+    while len(segs) < n:
+        for _ in range(5):
+            x += 0.4 * math.cos(th)
+            y += 0.4 * math.sin(th)
+            segs.append((x, y, th))
+        for _ in range(3):
+            th += 0.35
+            segs.append((x, y, th))
+    gt = lie.pose2_to_pose(torch.tensor(segs[:n], dtype=torch.float32, device=device))
+    p = torch.as_tensor(p_true, dtype=torch.float32).to(device)
+    rel = lie.pose_relative(gt[:-1], gt[1:])
+    meas = rel
+    for _ in range(8):   # meas such that drift_correct(meas, p) == rel
+        corr = odometry_drift_correct(meas, p)
+        meas = lie.pose_compose(meas, lie.pose_compose(lie.pose_inverse(corr), rel))
+    odo = torch.cat([gt[0:1], lie.pose_compose(gt[0:1], _prefix_compose(meas))])
+
+    g = gstate.empty_graph(node_capacity or n, edge_capacity or 4 * n, device)
+    g.pose[:n] = odo
+    g.odom_pose[:n] = odo
+    g.stamp[:n] = 0.1 * torch.arange(n, dtype=torch.float32, device=device)
+    g.node_valid[:n] = True
+    g.node_uid[:n] = torch.arange(n, dtype=torch.int32, device=device)
+    g.num_nodes.fill_(n)
+    lc = torch.arange(0, n - closure_every, closure_every, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    n_lc = lc.shape[0]
+    eye = torch.eye(6, device=device)
+    g, _ = gstate.add_edges(
+        g, torch.cat([torch.arange(n - 1, **i32), lc.to(torch.int32)]),
+        torch.cat([torch.arange(1, n, **i32), (lc + closure_every).to(torch.int32)]),
+        torch.cat([meas, lie.pose_relative(gt[lc], gt[lc + closure_every])]),
+        torch.cat([(10.0 * eye).expand(n - 1, 6, 6), (1000.0 * eye).expand(n_lc, 6, 6)]),
+        torch.cat([torch.full((n - 1,), gstate.EDGE_TYPE_2D_WHEEL_ODOMETRY, **i32),
+                   torch.full((n_lc,), gstate.EDGE_TYPE_3D_FULL, **i32)]),
+        torch.zeros(n - 1 + n_lc, device=device),
+        torch.ones(n - 1 + n_lc, dtype=torch.bool, device=device))
+    return g, gt
+
+
 def ate_rmse(est: torch.Tensor, gt: torch.Tensor, align: bool = True) -> torch.Tensor:
     """Absolute trajectory error (RMSE over translations), optional SE(3)
     Umeyama alignment."""

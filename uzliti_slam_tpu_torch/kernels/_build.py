@@ -65,6 +65,9 @@ SIGNATURES = {
     "uz_gist_topk": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _P, _P, _P, _P],
     "uz_bilateral": [_P, _P, _I, _I, _I, _P, _F, _P, _P],
     "uz_icp": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P, _P],
+    "uz_bin_min_max": [_P, _P, _P, _I, _I, _I, _F, _F, _P, _P],
+    "uz_merge_pairs": [_P, _P, _P, _I, _F, _F, _I, _P, _P, _P, _P, _P],
+    "uz_calib_gn": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P, _P, _P, _P],
 }
 
 _lib = None

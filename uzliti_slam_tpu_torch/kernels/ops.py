@@ -37,7 +37,9 @@ orb_describe   csrc/orb_describe.cu    ops/features.py:_sep_blur +
                                        intensity_centroid_angles +
                                        brief_descriptors
 scan_bins      csrc/scan_bins.cu       ops/scan.py:depth_to_scan's per-pixel
-                                       part + _bin_min_max
+                                       part + _bin_min_max; second entry
+                                       bin_min_max (own count): _bin_min_max
+                                       of points_to_scan / cloud_to_scan
 hamming_top2   csrc/hamming_top2.cu    ops/matching.py:hamming_matrix +
                                        knn_match + ratio_test (match_descriptors)
                                        and recognizer.py:gist_query (two
@@ -45,6 +47,9 @@ hamming_top2   csrc/hamming_top2.cu    ops/matching.py:hamming_matrix +
 bilateral      csrc/bilateral.cu       ops/depth.py:joint_bilateral_filter
 icp            csrc/icp.cu             ops/icp.py:_correspondences inside
                                        icp_point_to_line (all iterations)
+merge_pairs    csrc/merge_pairs.cu     graph/lifecycle.py:find_merge_pairs
+calib_gn       csrc/calib_gn.cu        graph/calibration.py:calibrate (the
+                                       Gauss-Newton steps, jacfwd included)
 =============  ======================  =======================================
 
 What bounds each kernel on the card, and what its design does about it, is
@@ -65,7 +70,8 @@ from uzliti_slam_tpu_torch.kernels import _build
 launches = {"linearize": 0, "hvp": 0, "chain_apply": 0, "residual_chi2": 0,
             "relax_min": 0, "cluster_labels": 0, "ransac_rigid": 0, "components": 0,
             "chain_factor": 0, "pcg": 0, "project_rays": 0, "fast_nms": 0, "grid_topk": 0,
-            "orb_describe": 0, "scan_bins": 0, "hamming_top2": 0, "bilateral": 0, "icp": 0}
+            "orb_describe": 0, "scan_bins": 0, "hamming_top2": 0, "bilateral": 0, "icp": 0,
+            "merge_pairs": 0, "calib_gn": 0, "bin_min_max": 0}
 
 _THREADS = 256  # kThreads in csrc/lie.cuh: K4's partial sums, one per block
 _SMEM_BYTES = 232448  # shared memory one CTA can use on Hopper
@@ -1222,8 +1228,57 @@ def scan_bins_plain(depth, cam, xf, n_bins: int, angle_min: float, angle_max: fl
 
     rng, ok, bins = scan_pixels_plain(depth, cam, xf, n_bins, angle_min, angle_max,
                                       height_band, max_range, min_range)
-    near, far = scan._bin_min_max(rng, ok, bins, n_bins, max_range)
+    near, far = bin_min_max_plain(rng, ok, bins, n_bins, max_range)
     return near, torch.where(torch.isfinite(far), far, torch.inf)
+
+
+def bin_min_max_plain(rng, ok, bins, n_bins: int, max_range: float):
+    """Plain version of K15's ``bin_min_max`` entry: per-bin (near, far) of
+    (..., P) ranges, flags and bins (leading dimensions: one scan each),
+    from the 21-bit quantised ranges of the ``ok`` entries by
+    ``scatter_reduce``; +inf / -inf for an empty bin.  The write-back is
+    q · fl(1 / scale): the compiled form of the reference's ``q / scale``."""
+    from uzliti_slam_tpu_torch.ops import scan
+
+    scale = scan.range_scale(max_range)
+    q = torch.clamp(rng * scale, 0.0, float(scan.Q_MAX)).to(torch.int32)
+    lead = rng.shape[:-1]
+    slot = torch.where(ok, bins.long(), n_bins)
+    big = torch.iinfo(torch.int32).max
+    mn = torch.full(lead + (n_bins + 1,), big, dtype=torch.int32, device=q.device)
+    mx = torch.full(lead + (n_bins + 1,), -1, dtype=torch.int32, device=q.device)
+    mn = mn.scatter_reduce(-1, slot, q, "amin")[..., :n_bins]
+    mx = mx.scatter_reduce(-1, slot, q, "amax")[..., :n_bins]
+    has = mx >= 0
+    inv = scan.f32_reciprocal(scale)
+    return (torch.where(has, mn.to(torch.float32) * inv, math.inf),
+            torch.where(has, mx.to(torch.float32) * inv, -math.inf))
+
+
+def bin_min_max(rng, ok, bins, n_bins: int, max_range: float):
+    """K15's second entry point: one CTA per scan, atomicMin / atomicMax of
+    the 21-bit quantised ranges on int32 bins in shared memory (exact and
+    order-free), then q · fl(1/scale) or ±inf.  Returns (near, far)."""
+    if rng.device.type == "cpu":
+        return bin_min_max_plain(rng, ok, bins, n_bins, max_range)
+    from uzliti_slam_tpu_torch.ops import scan
+
+    dev, f32 = rng.device, torch.float32
+    lead, P = tuple(rng.shape[:-1]), rng.shape[-1]
+    B = math.prod(lead)
+    if not 0 < n_bins <= 1023:
+        raise ValueError(f"bin_min_max: {n_bins} bins, the kernel takes 1..1023")
+    ptrs = [_check("rng", rng, lead + (P,), f32, dev),
+            _check("ok", ok, lead + (P,), torch.bool, dev),
+            _check("bins", bins, lead + (P,), torch.int32, dev)]
+    lib = _build.load()
+    out = torch.empty(2, B, n_bins, dtype=f32, device=dev)
+    scale = scan.range_scale(max_range)
+    err = lib.uz_bin_min_max(*ptrs, B, P, n_bins, scale, scan.f32_reciprocal(scale),
+                             out.data_ptr(), _stream(dev))
+    _raise_on(err, "bin_min_max")
+    launches["bin_min_max"] += 1
+    return out[0].reshape(lead + (n_bins,)), out[1].reshape(lead + (n_bins,))
 
 
 def scan_bins(depth, cam, xf, n_bins: int, angle_min: float, angle_max: float,
@@ -1567,3 +1622,221 @@ def icp(src, src_valid, dst, dst_valid, init, iterations: int, max_corr2: float,
     _raise_on(err, "icp")
     launches["icp"] += 1
     return pose, fraction, mse, cov, ok
+
+
+# ---------------------------------------------------------------------------
+# K19 merge_pairs (the node-merge pair search)
+# ---------------------------------------------------------------------------
+
+MERGE_MAX_NODES = 65535   # the 64-bit keys hold the flat index i·N + j in 32 bits
+_DEG_PER_RAD = float(np.float32(180.0 / math.pi))   # jnp.degrees' float32 factor
+
+
+def sqrt_f32(x):
+    """Correctly rounded float32 square root (taken in float64: torch's
+    float32 sqrt on the CPU is not always the correctly rounded one)."""
+    return torch.sqrt(x.double()).to(torch.float32)
+
+
+def sum_sq_fma(*xs):
+    """x₀² + x₁² + ... as XLA on the CPU compiles a sum of squares: x₀·x₀,
+    then one fused multiply-add per further term."""
+    acc = xs[0] * xs[0]
+    for x in xs[1:]:
+        acc = fma_plain(x, x, acc)
+    return acc
+
+
+def merge_pair_gates_plain(ti, qi, tj, qj):
+    """(dt, dr): translation distance and relative rotation angle in degrees
+    of pose pairs (broadcasting ``t`` (..., 3) and ``q`` (..., 4)), in the
+    reference's compiled form: ``quat_mul(conj(q_i), q_j)`` with each
+    component a chain of fused multiply-adds, the norms as ``sum_sq_fma``
+    with correctly rounded roots, ``degrees`` as · fl(180/π).  K19 repeats
+    these operations one for one (the fused multiply-adds in float64)."""
+    dt = sqrt_f32(sum_sq_fma(*(ti - tj).unbind(-1)))
+    aw, ax, ay, az = qi[..., 0], -qi[..., 1], -qi[..., 2], -qi[..., 3]
+    bw, bx, by, bz = qj.unbind(-1)
+    f = fma_plain
+    w = f(-az, bz, f(-ay, by, f(aw, bw, -(ax * bx))))
+    x = f(-az, by, f(ay, bz, f(aw, bx, ax * bw)))
+    y = f(az, bx, f(ay, bw, f(aw, by, -(ax * bz))))
+    z = f(az, bw, f(-ay, bx, f(aw, bz, ax * by)))
+    # rotation_angle = ‖quat_to_axis_angle(quat_normalize(·))‖
+    n = sqrt_f32(torch.clamp(sum_sq_fma(w, x, y, z), min=1e-30))
+    w, x, y, z = w / n, x / n, y / n, z / n
+    neg = w < 0
+    w, x, y, z = (torch.where(neg, -c, c) for c in (w, x, y, z))
+    w = torch.clamp(w, -1.0, 1.0)
+    vn = sqrt_f32(torch.clamp(sum_sq_fma(x, y, z), min=1e-30))
+    small = vn < 1e-6
+    one = torch.ones_like(w)
+    scale = torch.where(small, 2.0 / torch.where(torch.abs(w) < 1e-12, one, w),
+                        (2.0 * torch.atan2(vn, w)) / torch.where(small, one, vn))
+    ang = sqrt_f32(torch.clamp(sum_sq_fma(scale * x, scale * y, scale * z), min=1e-30))
+    return dt, ang * _DEG_PER_RAD
+
+
+_MERGE_ROW_CHUNK = 1024   # rows of the N² score per pass of the plain version
+
+
+def merge_pairs_plain(pose, stamp, eligible, dist_thresh: float, angle_thresh_deg: float,
+                      max_pairs: int):
+    """Plain version of K19, the reference's form: the N² score (dt where
+    the pair is close, +inf elsewhere), then ``max_pairs`` rounds of a flat
+    argmin (the first minimum: ties to the lower flat index) that mask both
+    nodes' rows and columns, written by index.  Returns (keep, absorb, ok)."""
+    n, dev = pose.shape[0], pose.device
+    t, q = pose[:, :3], pose[:, 3:]
+    score = torch.empty(n, n, dtype=torch.float32, device=dev)
+    for r0 in range(0, n, _MERGE_ROW_CHUNK):
+        r1 = min(r0 + _MERGE_ROW_CHUNK, n)
+        dt, dr = merge_pair_gates_plain(t[r0:r1, None], q[r0:r1, None], t[None], q[None])
+        close = ((dt < dist_thresh) & (dr < angle_thresh_deg) & eligible[r0:r1, None]
+                 & eligible[None, :] & (stamp[r0:r1, None] < stamp[None, :]))
+        score[r0:r1] = torch.where(close, dt, torch.inf)
+    flat = score.view(-1)
+    used = torch.zeros(n, dtype=torch.bool, device=dev)
+    slots = torch.arange(n, device=dev)
+    keep, absorb, oks = [], [], []
+    for _ in range(max_pairs):
+        best = torch.argmin(flat).view(1)
+        i, j = best // n, best % n
+        ok = torch.isfinite(flat.index_select(0, best)) & ~used[i] & ~used[j]
+        used = used | (ok & ((slots == i) | (slots == j)))
+        for s in (i, j):
+            score.index_fill_(0, s, torch.inf)
+            score.index_fill_(1, s, torch.inf)
+        keep.append(i)
+        absorb.append(j)
+        oks.append(ok)
+    return (torch.cat(keep).to(torch.int32), torch.cat(absorb).to(torch.int32), torch.cat(oks))
+
+
+def merge_pairs(pose, stamp, eligible, dist_thresh: float, angle_thresh_deg: float,
+                max_pairs: int):
+    """K19: a warp per row i keeps the row's 2·max_pairs - 1 smallest keys
+    (float bits of dt << 32 | i·N + j) of its close pairs; one CTA then runs
+    the greedy rounds over that short list.  Returns (keep, absorb, ok)."""
+    if pose.device.type == "cpu":
+        return merge_pairs_plain(pose, stamp, eligible, dist_thresh, angle_thresh_deg, max_pairs)
+    dev = pose.device
+    n = pose.shape[0]
+    if not 1 <= n <= MERGE_MAX_NODES:
+        raise ValueError(f"merge_pairs: {n} nodes, the kernel takes 1..{MERGE_MAX_NODES} "
+                         "(the flat index i·N + j must fit 32 bits)")
+    if not 1 <= max_pairs <= 32:
+        raise ValueError(f"merge_pairs: max_pairs = {max_pairs}, the kernel takes 1..32")
+    ptrs = [_check("pose", pose, (n, 7), torch.float32, dev),
+            _check("stamp", stamp, (n,), torch.float32, dev),
+            _check("eligible", eligible, (n,), torch.bool, dev)]
+    lib = _build.load()
+    cand = torch.empty(n, 2 * max_pairs - 1, dtype=torch.int64, device=dev)
+    keep = torch.empty(max_pairs, dtype=torch.int32, device=dev)
+    absorb = torch.empty(max_pairs, dtype=torch.int32, device=dev)
+    ok = torch.empty(max_pairs, dtype=torch.bool, device=dev)
+    err = lib.uz_merge_pairs(*ptrs, n, float(dist_thresh), float(angle_thresh_deg), max_pairs,
+                             cand.data_ptr(), keep.data_ptr(), absorb.data_ptr(), ok.data_ptr(),
+                             _stream(dev))
+    _raise_on(err, "merge_pairs")
+    launches["merge_pairs"] += 1
+    return keep, absorb, ok
+
+
+# ---------------------------------------------------------------------------
+# K20 calib_gn (the calibration's Gauss-Newton steps)
+# ---------------------------------------------------------------------------
+
+CALIB_SENSORS = (1, 2)   # sensor counts the kernel is built for (6·S + 3 parameters)
+CALIB_THREADS = 256      # kCalibThreads in csrc/calib_gn.cu
+CALIB_MAX_BLOCKS = 64    # CTAs of the edge pass: partial sums per CTA, reduced in order
+
+
+def calib_sqrt_prior(prior_weight: float) -> float:
+    """√prior_weight as the reference takes it: the float32 square root of
+    the float32 weight."""
+    return float(np.sqrt(np.float32(prior_weight)))
+
+
+def calib_residuals(theta, Xi, Xj, meas, is_sensor, is_odom, sf, st, L0, sqrt_prior: float):
+    """The calibration's stacked residual vector (6E + 6E + 6S + 3,) at
+    ``theta`` = [δL (6S), p (3)], as ``uzliti_slam_tpu/graph/calibration.py``
+    forms it: sensor factors r = log(T_e⁻¹ · (X_i L_sf)⁻¹ (X_j L_st)) on
+    ``is_sensor`` edges, drift-corrected odometry factors r = log((X_i⁻¹
+    X_j)⁻¹ · warp(T_e, p)) on ``is_odom`` edges, the extrinsics' prior
+    √w · δL and the drift parameters' 1e-2 · (p - [1, 0, 0])."""
+    from uzliti_slam_tpu_torch.graph.calibration import odometry_drift_correct
+    from uzliti_slam_tpu_torch.ops import lie
+
+    S = L0.shape[0]
+    L = lie.pose_retract(L0, theta[:6 * S].reshape(S, 6))
+    p = theta[6 * S:]
+    pred = lie.pose_relative(lie.pose_compose(Xi, L[sf.long()]), lie.pose_compose(Xj, L[st.long()]))
+    r_sens = lie.se3_log(lie.pose_compose(lie.pose_inverse(meas), pred)) * is_sensor[:, None]
+    r_odo = lie.se3_log(lie.pose_compose(lie.pose_inverse(lie.pose_relative(Xi, Xj)),
+                                         odometry_drift_correct(meas, p))) * is_odom[:, None]
+    nominal = (torch.arange(3, device=theta.device) == 0).to(theta.dtype)
+    return torch.cat([r_sens.reshape(-1), r_odo.reshape(-1), sqrt_prior * theta[:6 * S],
+                      1e-2 * (p - nominal)])
+
+
+def calib_gn_plain(Xi, Xj, meas, is_sensor, is_odom, sf, st, L0, iterations: int,
+                   prior_weight: float, damping: float):
+    """Plain version of K20, the reference's steps: the residuals, their
+    dense forward-mode Jacobian (``torch.func.jacfwd``, as ``jax.jacfwd``),
+    JᵀJ + damping·I, Jᵀr, ``torch.linalg.solve``.  Returns (theta (6S+3,),
+    cost history (iterations + 1,)), the cost ½‖r‖² at every iterate."""
+    sp = calib_sqrt_prior(prior_weight)
+
+    def res(th):
+        return calib_residuals(th, Xi, Xj, meas, is_sensor, is_odom, sf, st, L0, sp)
+
+    P = 6 * L0.shape[0] + 3
+    theta = (torch.arange(P, device=Xi.device) == P - 3).to(torch.float32)   # [0, 1, 0, 0]
+    eye = torch.eye(P, device=Xi.device)
+    hist = []
+    for _ in range(iterations):
+        r = res(theta)
+        hist.append(0.5 * torch.sum(r * r))
+        J = torch.func.jacfwd(res)(theta)
+        H = J.T @ J + damping * eye
+        theta = theta - torch.linalg.solve(H, J.T @ r)
+    r = res(theta)
+    hist.append(0.5 * torch.sum(r * r))
+    return theta, torch.stack(hist)
+
+
+def calib_gn(Xi, Xj, meas, is_sensor, is_odom, sf, st, L0, iterations: int,
+             prior_weight: float, damping: float):
+    """K20: per step an edge-parallel pass (each edge's sensor and odometry
+    residuals in forward-mode dual numbers with 6S + 3 tangents, JᵀJ, Jᵀr
+    and ½‖r‖² summed in float64 in a fixed order) and a one-CTA pass (the
+    priors, the damping, a pivoted solve, the update of θ on the device);
+    all steps in one call, no host read.  Returns (theta, cost history)."""
+    if Xi.device.type == "cpu":
+        return calib_gn_plain(Xi, Xj, meas, is_sensor, is_odom, sf, st, L0, iterations,
+                              prior_weight, damping)
+    dev, f32 = Xi.device, torch.float32
+    E, S = Xi.shape[0], L0.shape[0]
+    if S not in CALIB_SENSORS:
+        raise ValueError(f"calib_gn: {S} sensors, the kernel is built for {CALIB_SENSORS}")
+    if iterations < 0:
+        raise ValueError(f"calib_gn: {iterations} iterations")
+    ptrs = [_check("Xi", Xi, (E, 7), f32, dev), _check("Xj", Xj, (E, 7), f32, dev),
+            _check("meas", meas, (E, 7), f32, dev),
+            _check("is_sensor", is_sensor, (E,), torch.bool, dev),
+            _check("is_odom", is_odom, (E,), torch.bool, dev),
+            _check("sf", sf, (E,), torch.int32, dev), _check("st", st, (E,), torch.int32, dev),
+            _check("L0", L0, (S, 7), f32, dev)]
+    lib = _build.load()
+    P = 6 * S + 3
+    nb = max(1, min(CALIB_MAX_BLOCKS, -(-E // CALIB_THREADS)))
+    partials = torch.empty(nb, P * (P + 1) // 2 + P + 1, dtype=torch.float64, device=dev)
+    theta = torch.empty(P, dtype=f32, device=dev)
+    hist = torch.empty(iterations + 1, dtype=f32, device=dev)
+    err = lib.uz_calib_gn(*ptrs, E, S, int(iterations), calib_sqrt_prior(prior_weight),
+                          float(damping), nb, partials.data_ptr(), theta.data_ptr(),
+                          hist.data_ptr(), _stream(dev))
+    _raise_on(err, "calib_gn")
+    launches["calib_gn"] += 1
+    return theta, hist

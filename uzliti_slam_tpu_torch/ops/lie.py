@@ -1,8 +1,9 @@
 """SE(3)/SO(3) Lie-group operations on batched tensors.
 
 PyTorch counterpart of ``uzliti_slam_tpu/ops/lie.py``, restricted to what
-the pose-graph solve, the epoch, the occupancy projection and the
-keyframe front-end need.  Layouts are the same: a pose is ``(..., 7)``
+the pose-graph solve, the epoch, the occupancy projection, the keyframe
+front-end, node merging and the calibration need.  Layouts are the same:
+a pose is ``(..., 7)``
 ``[tx, ty, tz, qw, qx, qy, qz]`` (translation, then a unit quaternion,
 scalar first) and a twist is ``(..., 6)`` ``[vx, vy, vz, wx, wy, wz]``.
 Every function broadcasts over leading batch dimensions and keeps the
@@ -159,6 +160,18 @@ def quat_to_axis_angle(q: torch.Tensor) -> torch.Tensor:
     return scale[..., None] * v
 
 
+def quat_slerp(q0: torch.Tensor, q1: torch.Tensor, t) -> torch.Tensor:
+    """Spherical interpolation q0 · (q0⁻¹ q1)^t on the shorter arc (``t`` a
+    number or a tensor broadcasting against the batch)."""
+    q0 = quat_normalize(q0)
+    q1 = quat_normalize(q1)
+    dot = torch.sum(q0 * q1, dim=-1, keepdim=True)
+    q1 = torch.where(dot < 0, -q1, q1)
+    phi = quat_to_axis_angle(quat_mul(quat_conj(q0), q1))
+    tt = t[..., None] if torch.is_tensor(t) and t.dim() else t
+    return quat_mul(q0, quat_from_axis_angle(tt * phi))
+
+
 # ---------------------------------------------------------------------------
 # SO(3)
 # ---------------------------------------------------------------------------
@@ -283,6 +296,12 @@ def pose_distance(a: torch.Tensor, b: torch.Tensor):
     """(translation distance, rotation angle) between two poses."""
     d = pose_relative(a, b)
     return _safe_norm(pose_t(d)), rotation_angle(pose_q(d))
+
+
+def pose_interpolate(a: torch.Tensor, b: torch.Tensor, t) -> torch.Tensor:
+    """Geodesic interpolation a ⊕ t·log(a⁻¹b), t in [0, 1] (node merging's
+    average at t = 0.5)."""
+    return pose_compose(a, se3_exp(t * se3_log(pose_relative(a, b))))
 
 
 def yaw_of(q: torch.Tensor) -> torch.Tensor:

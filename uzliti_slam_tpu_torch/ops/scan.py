@@ -8,8 +8,10 @@ integers ``q = int(clip(range · scale, 0, 2²¹ - 1))`` with ``scale = (2²¹ -
 1) / (max_range · 1.001)`` (float32), and written back as ``q / scale``,
 so the scans are the reference's scans bit for bit.  ``depth_to_scan``
 runs kernel K15 (``scan_bins``, one fused per-pixel pass) through
-``kernels/ops.py``; ``cloud_to_scan`` and ``points_to_scan`` run the
-plain ``_bin_min_max``.
+``kernels/ops.py``; ``cloud_to_scan`` and ``points_to_scan`` (node
+merging's re-binning, a batch of scans at once) compute the ranges and
+bins here and reduce them through K15's second entry point,
+``bin_min_max``.
 """
 
 from __future__ import annotations
@@ -81,23 +83,10 @@ def _bin_min_max(rng_flat: torch.Tensor, ok_flat: torch.Tensor, bins_flat: torch
     """Per-bin (near, far) range of flat (P,) entries, from the 21-bit
     quantised ranges of the ``ok`` entries; +inf / -inf for an empty bin.
     Leading dimensions of the inputs are batch dimensions (one scan each).
-    The write-back is q · fl(1 / scale): the compiled form of the
-    reference's ``q / scale``."""
+    K15's ``bin_min_max`` entry point on a CUDA device."""
     if n_bins > 1023:
         raise ValueError("n_bins must fit 10 bits alongside 21-bit ranges")
-    scale = range_scale(max_range)
-    q = torch.clamp(rng_flat * scale, 0.0, float(Q_MAX)).to(torch.int32)
-    lead = rng_flat.shape[:-1]
-    slot = torch.where(ok_flat, bins_flat.long(), n_bins)
-    big = torch.iinfo(torch.int32).max
-    mn = torch.full(lead + (n_bins + 1,), big, dtype=torch.int32, device=q.device)
-    mx = torch.full(lead + (n_bins + 1,), -1, dtype=torch.int32, device=q.device)
-    mn = mn.scatter_reduce(-1, slot, q, "amin")[..., :n_bins]
-    mx = mx.scatter_reduce(-1, slot, q, "amax")[..., :n_bins]
-    has = mx >= 0
-    inv = f32_reciprocal(scale)
-    return (torch.where(has, mn.to(torch.float32) * inv, math.inf),
-            torch.where(has, mx.to(torch.float32) * inv, -math.inf))
+    return kops.bin_min_max(rng_flat, ok_flat, bins_flat, n_bins, max_range)
 
 
 def _hypot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -164,13 +153,14 @@ def depth_to_scan(depth: torch.Tensor, cam, cam_pose: torch.Tensor, n_bins: int 
 def points_to_scan(points2d: torch.Tensor, valid: torch.Tensor, n_bins: int = 360,
                    angle_min: float = -math.pi, angle_max: float = math.pi,
                    max_range: float = 6.0, min_range: float = 0.05) -> Scan:
-    """Re-bin 2-D points (N, 2) in the scan frame into a virtual scan."""
+    """Re-bin 2-D points (..., N, 2) in the scan frame into virtual scans
+    (..., n_bins): leading dimensions are a batch of scans."""
     x, y = points2d[..., 0], points2d[..., 1]
     rng = _hypot(x, y)
     bearing = torch.atan2(y, x)
     ok = _planar_ok(rng, bearing, valid, angle_min, angle_max, max_range, min_range)
     bins = bin_index(bearing, n_bins, angle_min, angle_max)
-    near, far = _bin_min_max(rng.reshape(-1), ok.reshape(-1), bins.reshape(-1), n_bins, max_range)
+    near, far = _bin_min_max(rng, ok, bins, n_bins, max_range)
     return _scan(near, far, angle_min, angle_max)
 
 

@@ -19,8 +19,15 @@ refinement):
   device value on the host (``solver._host_decision``, whether the
   odometry restart runs its second solve).  ``project_map`` projects the
   scans into the live occupancy grid (K11), reading nothing on the host.
+- the periodic maintenance timers: ``maintenance_epoch`` (node merging,
+  K19, with the banks merged and their scans re-binned by K15's
+  ``bin_min_max``; scope eviction), ``compact_state`` (slot reclamation)
+  and ``scan_reregistration`` (ICP against the nearest nodes, K18 on the
+  batch), each reading nothing on the host.
 - ``Slam`` is the imperative shell: the host keyframe gate, capacity
-  growth, the epoch schedule, live retuning of the gates.
+  growth, the epoch schedule with the calibration (K20) every
+  ``calibrate_every`` epochs, ``maintain`` (with compaction),
+  ``reregister_scans``, ``add_gps``, live retuning of the gates.
 
 ``SlamState`` holds the JAX ``SlamState``'s fields for this configuration,
 with a ``torch.Generator`` (the RANSAC draws) where JAX keeps a ``prng``
@@ -43,7 +50,7 @@ from uzliti_slam_tpu_torch.config import (UNPORTED_GATES, KeyframeConfig, SlamCo
                                           tunables_from_config)
 from uzliti_slam_tpu_torch.frontend import camera as cam_mod
 from uzliti_slam_tpu_torch.graph import filter as gfilter
-from uzliti_slam_tpu_torch.graph import lifecycle, shortest_path, solver
+from uzliti_slam_tpu_torch.graph import calibration, lifecycle, shortest_path, solver
 from uzliti_slam_tpu_torch.graph import state as gstate
 from uzliti_slam_tpu_torch.kernels import ops as kops
 from uzliti_slam_tpu_torch.mapping import occupancy
@@ -211,6 +218,194 @@ def map_probability(grid: occupancy.OccupancyGrid) -> torch.Tensor:
 def map_ternary(grid: occupancy.OccupancyGrid) -> torch.Tensor:
     """ROS-style -1/0/100 occupancy classes of a grid."""
     return occupancy.to_ternary(grid)
+
+
+# ---------------------------------------------------------------------------
+# Periodic maintenance (the reference's auxiliary timers)
+# ---------------------------------------------------------------------------
+
+def scan_reregistration(state: SlamState, config: SlamConfig = SlamConfig(),
+                        k_targets: int = 4) -> tuple[SlamState, torch.Tensor]:
+    """ICP the newest keyframe's scan against its ``k_targets`` nearest
+    nodes with scans and add laser edges (the reference's scan
+    re-registration timer, ``GraphSlam.cfg:24``; ``pipeline.py:883-948``
+    of the JAX package).  Targets already joined to the newest node by a
+    laser edge are skipped; the ICP batch is one K18 launch; new edges enter
+    invalid, for the epoch's filter to validate.  Returns (state, number of
+    edges added as a () tensor); reads nothing on the host."""
+    g = state.graph
+    dev = g.device
+    ec, tn = config.estimation, state.tunables
+    cur = torch.clamp(state.last_kf_slot, min=0)
+    cur1 = cur.long().view(1)
+    has = (state.last_kf_slot >= 0) & state.scan_valid.index_select(0, cur1)[0]
+    pose_cur = g.pose.index_select(0, cur1)[0]
+    d = lifecycle._norm3(lie.pose_t(g.pose) - lie.pose_t(pose_cur)[None])
+    slots = torch.arange(g.node_capacity, device=dev)
+    eligible = (g.node_valid & state.scan_valid & (slots != cur) & (slots != cur - 1)
+                & (d < config.keyframe.distance_closure_radius * 2))
+    vals, targets = kops.smallest_k(torch.where(eligible, d, torch.inf), k_targets)
+    targets = targets.to(torch.int32)
+    cur_k = cur.to(torch.int32).expand(k_targets)
+    laser = ((torch.arange(g.edge_capacity, device=dev) < g.num_edges)
+             & (g.e_type == gstate.EDGE_TYPE_2D_LASER))
+    t_ok = (torch.isfinite(vals) & has
+            & rec.mask_existing_pairs(g.e_from, g.e_to, laser, targets, cur_k))
+    cur_pts, cur_ok = _scan_pts(state.scans.index_select(0, cur1)[0])
+    tl = targets.long()
+    tp, tok = _scan_pts(state.scans[tl])
+    init2 = lie.pose_to_pose2(lie.pose_relative(g.pose[tl], pose_cur[None]))
+    ires = icp.icp_point_to_line(
+        cur_pts.expand(k_targets, -1, -1), cur_ok.expand(k_targets, -1), tp, tok, init2,
+        iterations=ec.icp_iterations, max_corr_dist=tn.icp_max_corr,
+        min_valid_fraction=tn.icp_min_valid_fraction)
+    ok = t_ok & ires.ok
+    g, _ = gstate.add_edges(
+        g, torch.where(ok, targets, -1), cur_k, icp.icp_edge_pose(ires.pose2),
+        icp.icp_information_6d(ires.cov3),
+        torch.full((k_targets,), gstate.EDGE_TYPE_2D_LASER, dtype=torch.int32, device=dev),
+        torch.zeros(k_targets, device=dev), torch.zeros(k_targets, dtype=torch.bool, device=dev))
+    return state.replace(graph=g), ok.sum()
+
+
+def _write_ok_rows(arr: torch.Tensor, slots: torch.Tensor, ok: torch.Tensor,
+                   rows: torch.Tensor) -> torch.Tensor:
+    """``arr`` with ``rows`` written at ``slots`` where ``ok`` (the slots of
+    the ok entries are distinct); the others go to a scratch row that is
+    cut off, so no write depends on the device's order."""
+    n = arr.shape[0]
+    ext = torch.cat([arr, arr[:1]])
+    return ext.index_copy(0, torch.where(ok, slots.long(), n), rows.to(arr.dtype))[:n]
+
+
+def _merge_banks(state: SlamState, g_before: gstate.GraphState, g_after: gstate.GraphState,
+                 ki: torch.Tensor, ai: torch.Tensor, ok: torch.Tensor, n_bins: int) -> SlamState:
+    """Fold each absorbed node's sensor payload into its kept node (the
+    reference merges laser scans and moves sensor data on ``mergeNodes``,
+    ``graph_slam_node.cpp:890-1062``; ``pipeline.py:950-1065`` of the JAX
+    package):
+
+    - descriptors and 3-D points: the kept node's invalid slots are
+      backfilled with the absorbed node's valid entries (a fixed budget F),
+      points re-expressed in the kept node's new frame;
+    - scans: both nodes' scan points move into the new kept frame, and
+      their union is re-binned to one virtual scan (``points_to_scan``: one
+      K15 ``bin_min_max`` launch for every pair).
+
+    The pairs are disjoint, so every pair is computed from the same state
+    at once and only the ok pairs are written (the reference's sequential
+    loop writes a not-ok pair's slot 0 back unchanged)."""
+    ks, as_ = torch.clamp(ki, min=0).long(), torch.clamp(ai, min=0).long()
+    rel_k = lie.pose_relative(g_after.pose[ks], g_before.pose[ks])
+    rel_a = lie.pose_relative(g_after.pose[ks], g_before.pose[as_])
+
+    kv, av = state.desc_valid[ks], state.desc_valid[as_]
+    F = kv.shape[1]
+    pri = torch.cat([torch.where(kv, 0, 2), torch.where(av, 1, 3)], dim=1)
+    order = torch.sort(pri, dim=1, stable=True).indices[:, :F]
+
+    def pick(a, b):
+        both = torch.cat([a, b], dim=1)
+        idx = order.reshape(order.shape + (1,) * (both.dim() - 2)).expand(
+            order.shape + both.shape[2:])
+        return torch.gather(both, 1, idx)
+
+    desc_all = pick(state.desc[ks], state.desc[as_])
+    valid_all = pick(kv, av)
+    pts_all = pick(lie.pose_apply(rel_k[:, None], state.points[ks]),
+                   lie.pose_apply(rel_a[:, None], state.points[as_]))
+
+    def tf2(p2, pts):
+        c, s = torch.cos(p2[:, None, 2]), torch.sin(p2[:, None, 2])
+        x = c * pts[..., 0] - s * pts[..., 1] + p2[:, None, 0]
+        y = s * pts[..., 0] + c * pts[..., 1] + p2[:, None, 1]
+        return torch.stack([x, y], dim=-1)
+
+    sv_k, sv_a = state.scan_valid[ks], state.scan_valid[as_]
+    pk2, okk = _scan_pts(state.scans[ks])
+    pa2, oka = _scan_pts(state.scans[as_])
+    union = torch.cat([tf2(lie.pose_to_pose2(rel_k), pk2), tf2(lie.pose_to_pose2(rel_a), pa2)],
+                      dim=1)
+    union_ok = torch.cat([okk & sv_k[:, None], oka & sv_a[:, None]], dim=1)
+    merged = scan_ops.points_to_scan(union, union_ok, n_bins=n_bins)
+
+    return state.replace(
+        desc=_write_ok_rows(state.desc, ks, ok, desc_all),
+        desc_valid=_write_ok_rows(state.desc_valid, ks, ok, valid_all),
+        points=_write_ok_rows(state.points, ks, ok, pts_all),
+        scans=_write_ok_rows(state.scans, ks, ok, merged.ranges),
+        scan_valid=_write_ok_rows(state.scan_valid, ks, ok, sv_k | sv_a),
+    )
+
+
+def _drop_from_banks(state: SlamState, dead: torch.Tensor) -> SlamState:
+    """Dead nodes leave the recognition and sensor banks."""
+    return state.replace(gist=state.gist._replace(valid=state.gist.valid & ~dead),
+                         scan_valid=state.scan_valid & ~dead,
+                         desc_valid=state.desc_valid & ~dead[:, None])
+
+
+def maintenance_epoch(state: SlamState, config: SlamConfig = SlamConfig(),
+                      shipped: torch.Tensor | None = None,
+                      center=None) -> tuple[SlamState, dict]:
+    """Scope-window maintenance (``pipeline.py:1068-1145`` of the JAX
+    package): node merging in the global role (``config.scope.merge_nodes``,
+    the reference's ``mergeTimerCallback``; K19, the banks merged into the
+    kept nodes) and eviction in the local role (``is_sub_graph``).  The
+    robot centre is the newest keyframe's pose, or ``center`` (7,) when
+    given (an instance without keyframes).  ``shipped`` (N,) gates eviction
+    to nodes the global graph has ACKed; without it everything outside the
+    scope goes.  Returns (state, {"merged", "evicted"} as () int32
+    tensors); reads nothing on the host."""
+    g = state.graph
+    sc = config.scope
+    cur = torch.clamp(state.last_kf_slot, min=0).long().view(1)
+    center = (g.pose.index_select(0, cur)[0] if center is None
+              else _as_tensor(center, g.device).to(torch.float32))
+    radius = lifecycle.scope_radius(g.uncertainty.index_select(0, cur)[0], sc.scope_size_min,
+                                    sc.scope_size_factor)
+    zero = torch.zeros((), dtype=torch.int32, device=g.device)
+    n_merged, evicted = zero, zero
+    if sc.merge_nodes:
+        g_before = g
+        ki, ai, ok = lifecycle.find_merge_pairs(
+            g, center, radius, dist_thresh=sc.merge_dist, angle_thresh_deg=sc.merge_angle_deg,
+            margin=sc.merge_margin)
+        g = lifecycle.merge_nodes(g, ki, ai, ok)
+        n_merged = ok.sum(dtype=torch.int32)
+        state = _merge_banks(state, g_before, g, ki, ai, ok, config.scan_bins)
+        # absorbed nodes leave the banks, or recognition keeps proposing them
+        state = _drop_from_banks(state, g_before.node_valid & ~g.node_valid)
+    if sc.is_sub_graph:
+        mask = lifecycle.out_of_scope_mask(g, center, radius, sc.eviction_margin,
+                                           shipped=shipped)
+        g = lifecycle.evict_nodes(g, mask)
+        state = _drop_from_banks(state, mask)
+        evicted = mask.sum(dtype=torch.int32)
+    return state.replace(graph=g), {"merged": n_merged, "evicted": evicted}
+
+
+def compact_state(state: SlamState) -> tuple[SlamState, dict]:
+    """Slot reclamation over the graph and every per-node bank
+    (``lifecycle.compact_graph``; ``pipeline.py:1149-1208`` of the JAX
+    package): live nodes move to the front, the high-water marks shrink to
+    the live counts, and a bounded local scope stays in one capacity tier.
+    Returns (state, perm), ``perm`` as ``compact_graph`` gives it."""
+    g, perm = lifecycle.compact_graph(state.graph)
+    order = perm["node_order"].long()
+    inv = perm["node_inv"]
+    live = g.node_valid
+    last = state.last_kf_slot
+    new_last = torch.where(last >= 0, inv[torch.clamp(last, min=0).long()], -1).to(torch.int32)
+    gist = state.gist
+    return state.replace(
+        graph=g,
+        gist=rec.GistBank(desc=gist.desc[order], stamp=gist.stamp[order],
+                          valid=gist.valid[order] & live),
+        desc=state.desc[order], desc_valid=state.desc_valid[order] & live[:, None],
+        points=state.points[order], scans=state.scans[order],
+        scan_valid=state.scan_valid[order] & live, last_kf_slot=new_last,
+    ), perm
 
 
 # ---------------------------------------------------------------------------
@@ -531,9 +726,6 @@ class Slam:
     def __init__(self, config: SlamConfig = SlamConfig(), cam=None, cam_pose=None, seed: int = 0,
                  device=None):
         check_supported(config)
-        if config.calibrate_every > 0:
-            raise NotImplementedError("calibrate_every > 0: odometry calibration is not ported "
-                                      "(ROADMAP.md A23)")
         if config.sync_to_database:
             raise NotImplementedError("sync_to_database: the graph database is not ported "
                                       "(ROADMAP.md A27)")
@@ -547,6 +739,7 @@ class Slam:
         self.optimize_every = 10
         self.auto_grow = True
         self._since_opt = 0
+        self._epochs_since_calib = 0
         self._last_kf_odom_host = _host_pose(lie.pose_identity((), "cpu"))
         self._n_kf_host = 0
         # the node-slot high-water mark, as the host counts it: what gates growth
@@ -577,13 +770,94 @@ class Slam:
         return info
 
     def optimize(self) -> solver.SolveStats:
-        """The optimization tick: ``optimize_epoch``, then the projection
+        """The optimization tick: ``optimize_epoch``, a calibration every
+        ``config.calibrate_every`` epochs (when > 0), then the projection
         into the live grid when ``config.project_map``."""
         self.state, stats = optimize_epoch(self.state, self.config)
         self._since_opt = 0
+        self._epochs_since_calib += 1
+        if 0 < self.config.calibrate_every <= self._epochs_since_calib:
+            self.calibrate()
         if self.config.project_map:
             self.project_map()
         return stats
+
+    def calibrate(self, update_extrinsics: bool = False,
+                  iterations: int = 20) -> calibration.CalibrationResult:
+        """The calibration epoch (the reference's ``SensorTransformOptimizer``
+        run live; ``pipeline.py:1794-1832`` of the JAX package): on the
+        current graph, re-estimate the odometry drift parameters (K20) and
+        store them on the graph, where a solve with
+        ``solver.use_odometry_calibration`` reads them.  The loop closures
+        are sensor factors through camera 0 only with
+        ``update_extrinsics=True``, which then also adopts the refined
+        camera extrinsics into ``self.cam_pose``."""
+        g = self.state.graph
+        cam_poses = self.cam_pose if self.cam_pose.dim() == 2 else self.cam_pose[None]
+        sensor_idx = torch.where(g.e_type == gstate.EDGE_TYPE_3D_FULL,
+                                 0 if update_extrinsics else -1, -1).to(torch.int32)
+        result = calibration.calibrate(g, cam_poses, sensor_idx, sensor_idx, iterations)
+        self.state = self.state.replace(graph=g.replace(odom_params=result.odom_params))
+        if update_extrinsics:
+            new_cp = result.sensor_transforms
+            self.cam_pose = new_cp if self.cam_pose.dim() == 2 else new_cp[0]
+        self._epochs_since_calib = 0
+        return result
+
+    def maintain(self, shipped=None, center=None) -> dict:
+        """The merge / eviction timer (role set by ``config.scope``), then
+        slot reclamation: when the high-water mark is at least max(64, ¼ of
+        the node capacity) and at most half of it is live, the state is
+        compacted (``compact_state``), the grid is dropped (its slot-aligned
+        snapshot is stale: the next projection rebuilds it) and
+        ``compact_perm`` carries the permutation, else it is None.  Reads
+        the high-water mark and the live count in one transfer."""
+        self.state, info = maintenance_epoch(self.state, self.config, shipped, center)
+        info = dict(info, compact_perm=None)
+        g = self.state.graph
+        hw, live = torch.stack([g.num_nodes, g.node_valid.sum(dtype=torch.int32)]).tolist()
+        if hw >= max(64, int(0.25 * self.config.node_capacity)) and live <= hw // 2:
+            self.state, info["compact_perm"] = compact_state(self.state)
+            hw = live
+            self.grid = None
+        self._n_slots_host = hw
+        return info
+
+    def reregister_scans(self, k_targets: int = 4) -> torch.Tensor:
+        """The scan re-registration timer: the number of laser edges added
+        (a () tensor)."""
+        self.state, n = scan_reregistration(self.state, self.config, k_targets)
+        return n
+
+    def add_gps(self, xyz, sigma: float = 1.0) -> bool:
+        """A GPS fix for the newest keyframe, as a translation-only
+        TYPE_3D_GPS factor from a fixed map-origin anchor node (made on the
+        first fix, uid ``GPS_ANCHOR_UID``).  A low-rate host path: reads the
+        newest slot and the anchor on the host.  False when there is no
+        keyframe yet or a table is full."""
+        g = self.state.graph
+        dev = g.device
+        last = int(self.state.last_kf_slot)
+        if last < 0:
+            return False
+        anchors = torch.nonzero(g.node_valid & (g.node_uid == gstate.GPS_ANCHOR_UID)).flatten()
+        if anchors.numel() == 0:
+            ident = lie.pose_identity((), dev)
+            g, slot = gstate.add_node(g, ident, ident, torch.zeros((), device=dev), fixed=True,
+                                      uid=gstate.GPS_ANCHOR_UID)
+            anchor = int(slot)
+            if anchor < 0:
+                return False
+            self._n_slots_host += 1
+        else:
+            anchor = int(anchors[0])
+        measurement = lie.make_pose(_as_tensor(np.asarray(xyz, np.float32), dev),
+                                    torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev))
+        info = (1.0 / float(sigma) ** 2) * torch.eye(6, device=dev)
+        g, eslot = gstate.add_edge(g, anchor, last, measurement, info,
+                                   etype=gstate.EDGE_TYPE_3D_GPS)
+        self.state = self.state.replace(graph=g)
+        return int(eslot) >= 0
 
     def set_param(self, name: str, value: float) -> None:
         """Retune a gate of ``config.Tunables`` (rounded to float32), or a
