@@ -89,7 +89,19 @@ runs, in order, each phase printing lines of its own:
    then the calibrated solve against the uncalibrated one and on CPU
    tensors.  Phase 3 holds K19 and ``bin_min_max`` (exactly) and K20 (θ
    within 1e-4) against their plain versions on the arguments those paths
-   give them.
+   give them;
+14. the other place recognizers: (c) the keyframe step of phase 11 (VGA, 1
+   camera, the same frames and settings) with ``recognition.method``
+   "feature_set" (K21), "repository" (K22) and "bow" (K23 + K24, after a
+   256-word vocabulary is built on the card from the sequence's
+   descriptors with K23): ms per step, launches, a profile, sync-free steps
+   and the same graph on CPU tensors; (a) K21-K24 against their plain
+   versions on a late step's arguments (and the vocabulary build's last
+   round) and at the large shapes (10k nodes, D = 320k, 100k descriptors):
+   K21-K23 exactly, K24's scores within 1e-6; (b) each recognizer's
+   kernels per query on banks of 1k, 10k and 50k nodes, with the bank's
+   bytes; (d) tests/test_pr_methods.py's 30-frame 96x128 run per method on
+   the card: at least 3 proposed edges each.
 
 Then one JSON line with the kernels' results, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -218,7 +230,12 @@ FRONTEND_DEVICE_FUNCTIONS = {"fast_nms": ("fast_nms_tile",), "grid_topk": ("cell
                              "ransac_rigid": ("ransac_roots",),
                              "merge_pairs": ("row_keys", "greedy_rounds"),
                              "calib_gn": ("init_theta", "calib_edges", "calib_solve"),
-                             "bin_min_max": ("bin_rows",)}
+                             "bin_min_max": ("bin_rows",),
+                             "feature_votes": ("node_sims", "topk_sims"),
+                             "repository": ("nearest_chunk", "nearest_finish", "desc_hits",
+                                            "topk_votes"),
+                             "bow_words": ("assign_words", "count_bits", "majority_bytes"),
+                             "bow_query": ("row_scores", "topk_scores")}
 # cuSOLVER / cuBLAS items that must not appear in a profiled solve
 LIBRARY_ITEMS = ("getrf", "getrs", "trsm", "gemv")
 # The card's published peaks (H100 SXM at 700 W):
@@ -276,6 +293,34 @@ LONG_RUN = dict(img_h=96, img_w=128, f=110.0, frames=520, step=0.35, maintain_ev
                 node_capacity=128, edge_capacity=1024, feats=64, scan_bins=90)
 ATE_JAX_CPU_MAX_M = 0.012344205752015114
 ATE_BAR_M = 1.1 * ATE_JAX_CPU_MAX_M
+# Phase 14: the other place recognizers, K21-K24, each with its wrappers;
+# the kernels each method's keyframe step launches
+RECOGNITION_REPLACES = {
+    "feature_votes": "uzliti_slam_tpu/recognition/recognizer.py:145 (feature_set_query)",
+    "repository": "uzliti_slam_tpu/recognition/recognizer.py:206 (repository_add: its search"
+                  " :223-241) + :285 (repository_query)",
+    "bow_words": "uzliti_slam_tpu/recognition/vocabulary.py:100 (quantize) + :33"
+                 " (build_vocabulary: its rounds :69-78, :90-94)",
+    "bow_query": "uzliti_slam_tpu/recognition/vocabulary.py:161 (bow_query) + :117 (bow_score)",
+}
+RECOGNITION_KERNELS = tuple(RECOGNITION_REPLACES)
+RECOGNITION_WRAPPERS = {"feature_votes": ("feature_votes",),
+                        "repository": ("repo_nearest", "repo_votes"),
+                        "bow_words": ("word_assign", "word_majority"),
+                        "bow_query": ("bow_query",)}
+METHOD_KERNELS = {"feature_set": ("feature_votes",), "repository": ("repository",),
+                  "bow": ("bow_words", "bow_query")}
+# K21-K23 are held exactly (integer distances, votes and counts; one IEEE
+# division); K24's scores within BOW_SCORE_ATOL (|v - q| summed over 256
+# words in another order), its slots exactly unless two scores lie within
+# BOW_NEAR_TIE.
+BOW_SCORE_ATOL, BOW_NEAR_TIE = 1e-6, 1e-5
+RECOGNITION_SIZES = (1000, 10_000, 50_000)
+# tests/test_pr_methods.py: 30 frames at 96x128, and each method's gates
+PR_RUN = dict(img_h=96, img_w=128, n_frames=30, odom_drift=0.06, length=4.0)
+PR_GATES = {"feature_set": dict(min_descriptors=20, min_similarity=0.15),
+            "repository": dict(repo_min_votes=5, repo_desc_per_node=48),
+            "bow": dict(bow_words=64, bow_min_score=0.2)}
 
 
 T_START = time.perf_counter()
@@ -592,6 +637,63 @@ def kernel_work(name: str, args) -> tuple[int, int]:
         rng, ok, bins, n_bins, _ = args
         b = rng.numel() // rng.shape[-1]
         return _nbytes(rng, ok, bins) + 8 * b * n_bins, 6 * int(ok.sum()) + 4 * b * n_bins
+    if name == "feature_votes":
+        # the query and the eligible nodes' descriptors and flags read once,
+        # stamps and flags of every node, the top-k written once; 24 per
+        # (valid query, valid stored) pair of an eligible node (8 XORs, 8
+        # popcounts, 8 adds), then k rounds of two compares per node
+        query, qvalid, bank, bank_valid, stamp, valid, q_stamp, k, _, _, min_dt = args
+        elig = valid & ((stamp - q_stamp).abs() >= min_dt)
+        pairs = int(qvalid.sum()) * int(bank_valid[elig].sum())
+        return (_nbytes(query, qvalid, stamp, valid) + 33 * bank.shape[1] * int(elig.sum())
+                + 9 * k, 24 * pairs + 2 * k * stamp.shape[0])
+    if name == "repo_nearest":
+        # the query flags, the valid queries and the valid stored descriptors
+        # read once, the valid queries' nearest and duplicate flags written
+        # once (an invalid query's are never read); 24 per (valid query,
+        # valid stored) pair and per pair of valid queries
+        query, qvalid, bank, bank_valid, _ = args
+        nq, nv = int(qvalid.sum()), int(bank_valid.sum())
+        return (_nbytes(qvalid, bank_valid) + 32 * (nq + nv) + 9 * nq,
+                24 * nq * nv + 24 * nq * (nq - 1) // 2)
+    if name == "repo_votes":
+        # the query and the valid stored descriptors with their link rows
+        # read once, the node stamps and flags, the top-k written once; 24
+        # per (valid query, valid stored) pair (a stored descriptor with no
+        # hit needs all of them), k rounds of three operations per node
+        query, qvalid, bank, bank_valid, links, link_valid, stamp, valid, *_rest = args
+        k, nv, L = _rest[1], int(bank_valid.sum()), links.shape[1]
+        return (_nbytes(query, qvalid, bank_valid, stamp, valid) + (32 + 5 * L) * nv + 9 * k,
+                24 * int(qvalid.sum()) * nv + 3 * k * stamp.shape[0])
+    if name == "word_assign":
+        # the flags, the valid descriptors and the words read once, their
+        # word and distance and the histogram written once (an invalid
+        # descriptor's word is never read); 24 per (valid descriptor, word)
+        # pair
+        desc, valid, centers = args
+        mv, K = int(valid.sum()), centers.shape[0]
+        return _nbytes(valid, centers) + 40 * mv + 4 * K, 24 * mv * K
+    if name == "word_majority":
+        # the flags, the valid descriptors, their words and the counts read
+        # once, the centres written once; per valid descriptor 256 bit tests
+        # and an add per set bit, per centre bit a compare
+        desc, valid, word, counts = args
+        K, mv = counts.shape[0], int(valid.sum())
+        popc = torch.tensor([bin(b).count("1") for b in range(256)], device=desc.device)
+        set_bits = int(popc[desc[valid].long()].sum())
+        return (_nbytes(valid, counts) + 36 * mv + 32 * K,
+                256 * mv + set_bits + 3 * 256 * K)
+    if name == "bow_query":
+        # the stamps and flags and the query read once, the rows that pass
+        # the validity and time gates read once (a row that fails them
+        # scores -1 unread), the top-k written once; per eligible entry a
+        # subtract, two absolute values and two adds, k rounds of two
+        # compares per row
+        bank, stamp, valid, q, q_stamp, k, _, min_dt = args
+        N, K = bank.shape
+        elig = int((valid & ((stamp - q_stamp).abs() >= min_dt)).sum())
+        return (_nbytes(stamp, valid, q, q_stamp) + 4 * K * elig + 9 * k,
+                5 * K * elig + 2 * k * N)
     raise KeyError(name)
 
 
@@ -1033,7 +1135,8 @@ def headline_solve(g, chi2_oracle: float, reps: int):
     expected = {"linearize": 24, "hvp": 240, "chain_apply": 260, "residual_chi2": 22,
                 "relax_min": 0, "cluster_labels": 0, "ransac_rigid": 0, "components": 2,
                 "chain_factor": 4, "pcg": 20 * (1 + 2 * 12), "project_rays": 0,
-                **{k: 0 for k in FRONTEND_KERNELS + KEYFRAME_KERNELS + MAINT_KERNELS}}
+                **{k: 0 for k in FRONTEND_KERNELS + KEYFRAME_KERNELS + MAINT_KERNELS
+                   + RECOGNITION_KERNELS}}
     check(counts == expected, f"launch counts {counts} != {expected}")
     finals = []
     for _ in range(reps):
@@ -1467,10 +1570,17 @@ def record_args(fn, names=FRONTEND_KERNELS):
 
 def bound_calls(name: str, calls) -> dict:
     """``bound`` summed over a keyframe's calls of one kernel."""
+    return bound_wrapper_calls({name: calls}, (name,))
+
+
+def bound_wrapper_calls(calls: dict, wrappers) -> dict:
+    """``bound`` summed over all the calls ({wrapper: [(args, kwargs)]}) of
+    the wrappers named."""
     nbytes = ops = 0
-    for args, kw in calls:
-        b, o = kernel_work(name, (*args, *kw.values()))
-        nbytes, ops = nbytes + b, ops + o
+    for w in wrappers:
+        for args, kw in calls[w]:
+            b, o = kernel_work(w, (*args, *kw.values()))
+            nbytes, ops = nbytes + b, ops + o
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
     return {"bytes": nbytes, "ops": ops, "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -1729,14 +1839,7 @@ def compare_keyframe_kernels(calls: dict, label: str) -> dict:
         row["ms"], row["plain_ms"] = time_pair(lambda: run(wrappers, False),
                                                lambda: run(wrappers, True))
         row["library_ms"] = keyframe_library(name, calls)
-        nbytes = ops = 0
-        for w in wrappers:
-            for args, kw in calls[w]:
-                b_, o_ = kernel_work(w, (*args, *kw.values()))
-                nbytes, ops = nbytes + b_, ops + o_
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
-        row.update({"bytes": nbytes, "ops": ops, "bound_ms": 1e3 * max(t_bytes, t_ops),
-                    "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+        row.update(bound_wrapper_calls(calls, wrappers))
         log(f"3 kernel {name} {label}", **row)
         check(mism == 0, f"{name} {label}: {mism} entries differ from the plain version")
         if name == "bilateral":
@@ -1747,18 +1850,21 @@ def compare_keyframe_kernels(calls: dict, label: str) -> dict:
     return rows
 
 
-def step_config(n_cams: int, device):
+def step_config(n_cams: int, device, method: str = "gist"):
     """(config, extrinsics) of the JAX bench's keyframe rungs in the default
     configuration (``_make_slam``, bench.py:283-309): 256 features, 360 bins,
     node capacity 512, edge capacity 2048, keyframe gate 0 m / 0°,
-    min_consensus 10, min_matching_score 8."""
-    from uzliti_slam_tpu_torch.config import EdgeEstimationConfig, KeyframeConfig, SlamConfig
+    min_consensus 10, min_matching_score 8; place recognition by ``method``
+    with its default gates."""
+    from uzliti_slam_tpu_torch.config import (EdgeEstimationConfig, KeyframeConfig,
+                                              PlaceRecognitionConfig, SlamConfig)
 
     _, pose = keyframe_rig(n_cams, device)
     cfg = SlamConfig(node_capacity=512, edge_capacity=2048, feats_per_node=KEYFRAME_VGA["feats"],
                      scan_bins=KEYFRAME_VGA["scan_bins"],
                      keyframe=KeyframeConfig(new_node_distance=0.0, new_node_angle_deg=0.0),
-                     estimation=EdgeEstimationConfig(min_consensus=10, min_matching_score=8.0))
+                     estimation=EdgeEstimationConfig(min_consensus=10, min_matching_score=8.0),
+                     recognition=PlaceRecognitionConfig(method=method))
     return cfg, pose
 
 
@@ -1788,23 +1894,28 @@ def slam_structure(slam) -> dict:
             "node_valid": g.node_valid[:n].cpu(), "node_uid": g.node_uid[:n].cpu()}
 
 
-def keyframe_step_phase(phase: str, world, frames, n_cams: int, device, reps: int = 10):
-    """Phase 11: ``Slam.add_frame`` over the rung's 13 frames in the default
-    configuration: 3 warm-up keyframes, then ``reps`` timed keyframes each
-    under CUDA sync debug mode "error", the counts set to 0 just before
-    them and read after the first and after the last; a profile of one
-    more step; the same frames on CPU tensors through the plain path with
-    the card's RANSAC draws. Returns (the counts of the first timed step,
-    fields, the Slam, its frame inputs)."""
+def keyframe_step_phase(phase: str, world, frames, n_cams: int, device, reps: int = 10,
+                        method: str = "gist", vocabulary=None, kernels: tuple = ()):
+    """Phase 11 (and 14c with another ``method``; ``vocabulary`` for "bow",
+    ``kernels`` the method's own, which must launch too): ``Slam.add_frame``
+    over the rung's 13 frames in the default configuration: 3 warm-up
+    keyframes, then ``reps`` timed keyframes each under CUDA sync debug
+    mode "error", the counts set to 0 just before them and read after the
+    first and after the last; a profile of one more step; the same frames
+    on CPU tensors through the plain path with the card's RANSAC draws.
+    Returns (the counts of the first timed step, fields, the Slam, its frame
+    inputs)."""
     from uzliti_slam_tpu_torch import pipeline
     from uzliti_slam_tpu_torch.graph import state as gstate
     from uzliti_slam_tpu_torch.kernels import ops as kops
     from uzliti_slam_tpu_torch.ops import ransac
 
-    cfg, pose = step_config(n_cams, device)
+    from uzliti_slam_tpu_torch.recognition import vocabulary as voc
+
+    cfg, pose = step_config(n_cams, device, method)
     warm = KEYFRAME_VGA["warmup"]
     inputs = [frame_inputs(fr, n_cams) for fr in frames]
-    slam = pipeline.Slam(cfg, cam=world.cam, cam_pose=pose, device=device)
+    slam = pipeline.Slam(cfg, cam=world.cam, cam_pose=pose, device=device, vocabulary=vocabulary)
     slam.optimize_every = 10**9
     draws: list = []
     original, sample = recorded_draws(draws)
@@ -1830,7 +1941,7 @@ def keyframe_step_phase(phase: str, world, frames, n_cams: int, device, reps: in
         total = dict(kops.launches)
     finally:
         ransac._valid_sample = original
-    counts = {k: total[k] / reps for k in STEP_KERNELS}
+    counts = {k: total[k] / reps for k in STEP_KERNELS + kernels}
     last = len(frames) - 1
     prof, device_ms = device_profile(lambda: pipeline.process_keyframe(
         slam.state, *inputs[last], frames[last]["odom_pose"], frames[last]["stamp"], slam.cam,
@@ -1840,7 +1951,8 @@ def keyframe_step_phase(phase: str, world, frames, n_cams: int, device, reps: in
     proposed = [int(i["n_edges_proposed"]) for i in infos]
     struct = slam_structure(slam)
     lc = struct["e_type"] == gstate.EDGE_TYPE_3D_FULL
-    fields = {"n_cams": n_cams, "keyframe_step_ms": 1e3 * t, "keyframes_per_s": 1.0 / t,
+    fields = {"n_cams": n_cams, "method": method, "keyframe_step_ms": 1e3 * t,
+              "keyframes_per_s": 1.0 / t,
               "keyframe_step_ms_min": 1e3 * min(times), "keyframe_step_ms_max": 1e3 * max(times),
               "launches_per_step": counts, "sync_free": True,
               "candidates": [int(i["n_candidates"]) for i in infos], "proposed": proposed,
@@ -1851,9 +1963,12 @@ def keyframe_step_phase(phase: str, world, frames, n_cams: int, device, reps: in
     fields["kernel_device_ms"] = {
         name: sum(ms for key, ms in device_ms.items()
                   if any(f"::{f}(" in key for f in FRONTEND_DEVICE_FUNCTIONS[name]))
-        for name in STEP_KERNELS}
+        for name in STEP_KERNELS + kernels}
     # the same frames on CPU tensors through the plain path, with the card's draws
-    cpu = pipeline.Slam(cfg, cam=world.cam, cam_pose=pose.cpu(), device="cpu")
+    cpu_vocab = (None if vocabulary is None
+                 else voc.Vocabulary(*(t.cpu() for t in vocabulary)))
+    cpu = pipeline.Slam(cfg, cam=world.cam, cam_pose=pose.cpu(), device="cpu",
+                        vocabulary=cpu_vocab)
     cpu.optimize_every = 10**9
     replay = list(draws)
     original, sample = recorded_draws([], replay)
@@ -1873,7 +1988,8 @@ def keyframe_step_phase(phase: str, world, frames, n_cams: int, device, reps: in
                            "proposed": [int(i["n_edges_proposed"]) for i in cpu_infos],
                            "nodes": ref["n"], "edges": ref["ne"]}
     log(phase, **fields)
-    check(all(total[k] > 0 for k in STEP_KERNELS), f"{phase}: a kernel was not launched: {total}")
+    check(all(total[k] > 0 for k in STEP_KERNELS + kernels),
+          f"{phase}: a kernel was not launched: {total}")
     check(sum(fields["candidates"][half:]) > 0, f"{phase}: no candidate on the return leg")
     if n_cams == 1:
         # the rig's rear camera is fed the front's frame (the JAX bench's
@@ -2395,6 +2511,337 @@ def calibration_phase(phase: str, device, reps: int = 5) -> tuple[dict, dict]:
     return counts, fields
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the feature-set, repository and bag-of-words recognizers
+# ---------------------------------------------------------------------------
+
+def _rand_u8(shape, g, device):
+    return torch.randint(0, 256, shape, generator=g, device=device, dtype=torch.uint8)
+
+
+def _flip_bits(desc, p, g):
+    """``desc`` with about a fraction ``p`` of its bytes' one random bit
+    flipped (one bit in each chosen byte)."""
+    hit = torch.rand(desc.shape, generator=g, device=desc.device) < p
+    bit = torch.randint(0, 8, desc.shape, generator=g, device=desc.device, dtype=torch.uint8)
+    return desc ^ (hit.to(torch.uint8) << bit)
+
+
+def feature_bank_inputs(n: int, device, seed: int, F: int = 128) -> tuple:
+    """``feature_votes``' arguments on a synthetic n-node bank: each node's F
+    descriptors are one of 64 places' with ~3 % of the bytes one bit off,
+    10 % invalid, stamps 0..n-1; the query is place 7's with its own
+    noise, at stamp n + 10; k 5 and the default gates."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    places = _rand_u8((64, F, 32), g, device)
+    bank = _flip_bits(places[torch.randint(0, 64, (n,), generator=g, device=device)], 0.03, g)
+    bank_valid = torch.rand(n, F, generator=g, device=device) > 0.1
+    stamp = torch.arange(n, device=device, dtype=torch.float32)
+    query = _flip_bits(places[7], 0.03, g)
+    return (query, torch.ones(F, dtype=torch.bool, device=device), bank, bank_valid, stamp,
+            torch.ones(n, dtype=torch.bool, device=device),
+            torch.full((), float(n + 10), device=device), 5, 40.0, 0.2, 5.0)
+
+
+def repository_inputs(n: int, device, seed: int, F: int = 128, L: int = 8) -> tuple:
+    """(``repo_nearest``'s, ``repo_votes``') arguments on a synthetic
+    repository of D = 32·n descriptors (90 % filled) with L links each (half
+    valid, random nodes): the query is 64 stored descriptors with ~3 % of
+    their bytes one bit off and 64 random ones."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    D = 32 * n
+    bank = _rand_u8((D, 32), g, device)
+    bank_valid = torch.arange(D, device=device) < int(0.9 * D)
+    links = torch.randint(0, n, (D, L), generator=g, device=device, dtype=torch.int32)
+    link_valid = torch.rand(D, L, generator=g, device=device) < 0.5
+    pick = torch.randint(0, int(0.9 * D), (F // 2,), generator=g, device=device)
+    query = torch.cat([_flip_bits(bank[pick], 0.03, g), _rand_u8((F - F // 2, 32), g, device)])
+    qvalid = torch.ones(F, dtype=torch.bool, device=device)
+    stamp = torch.arange(n, device=device, dtype=torch.float32)
+    q_stamp = torch.full((), float(n + 10), device=device)
+    return ((query, qvalid, bank, bank_valid, 40.0),
+            (query, qvalid, bank, bank_valid, links, link_valid, stamp,
+             torch.ones(n, dtype=torch.bool, device=device), q_stamp, 5, 40.0, 5.0, 5.0))
+
+
+def bow_inputs(n: int, device, seed: int, K: int = 256) -> tuple:
+    """``bow_query``'s arguments on a synthetic n-node bank: sparse
+    L1-normalised rows (~15 % of the words), the query row 3's with half
+    its mass moved, k 5 and the default gates."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    bank = torch.rand(n, K, generator=g, device=device) * (
+        torch.rand(n, K, generator=g, device=device) < 0.15)
+    bank = bank / torch.clamp(bank.sum(-1, keepdim=True), min=1e-12)
+    q = 0.5 * bank[3] + 0.5 * bank[min(4, n - 1)]
+    return (bank, torch.arange(n, device=device, dtype=torch.float32),
+            torch.ones(n, dtype=torch.bool, device=device), q,
+            torch.full((), float(n + 10), device=device), 5, 0.05, 5.0)
+
+
+def word_inputs(m: int, device, seed: int, K: int = 256) -> tuple:
+    """(``word_assign``'s, ``word_majority``'s) arguments on m clustered
+    descriptors (K random prototypes, ~6 % of each member's bytes one bit
+    off, 5 % invalid), the words the first K descriptors."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    protos = _rand_u8((K, 32), g, device)
+    desc = _flip_bits(protos[torch.randint(0, K, (m,), generator=g, device=device)], 0.06, g)
+    valid = torch.rand(m, generator=g, device=device) > 0.05
+    centers = desc[:K].contiguous()
+    word, _, counts = kops.word_assign_plain(desc, valid, centers)
+    return (desc, valid, centers), (desc, valid, word, counts)
+
+
+def _recognition_mismatches(wrapper: str, args, got, ref) -> tuple[int, float]:
+    """(entries of a wrapper's outputs that differ from its plain
+    version's, max |score difference|): exact for K21-K23; K24's scores
+    within BOW_SCORE_ATOL, its slots equal unless the kernel's slot scores
+    within BOW_NEAR_TIE of the plain version's (a near-tie) and its flags
+    equal unless the score lies within BOW_SCORE_ATOL of min_score."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    if wrapper != "bow_query":
+        return sum(int((a != b).sum()) for a, b in zip(got, ref)), 0.0
+    bank, stamp, valid, q, q_stamp, k, min_score, min_dt = args
+    (gs, gv, go), (rs, rv, ro) = got, ref
+    full = kops.bow_scores_plain(bank, stamp, valid, q, q_stamp, min_dt)
+    near = (full[gs.long()] - rv).abs() <= BOW_NEAR_TIE
+    flag_near = (rv - min_score).abs() <= BOW_SCORE_ATOL
+    mism = int(((gs != rs) & ~near).sum()) + int(((go != ro) & ~flag_near).sum())
+    return mism, float((gv - rv).abs().max())
+
+
+def compare_recognition_kernels(calls: dict, label: str, trials: int = 21,
+                                calls_per: int = 10) -> dict:
+    """K21-K24 against their plain versions on recorded or generated
+    arguments (``calls``: {wrapper: [(args, kwargs), ...]}): K21-K23
+    exactly, K24 by ``_recognition_mismatches`` within BOW_SCORE_ATOL;
+    times over all the calls of a kernel's wrappers, its library call
+    (K24: ``torch.cdist(p=1)``; the others have none) and its bound."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    rows = {}
+    for name in RECOGNITION_KERNELS:
+        wrappers = [w for w in RECOGNITION_WRAPPERS[name] if calls.get(w)]
+        check(bool(wrappers), f"{name} {label}: no call recorded")
+        mism, err = 0, 0.0
+        for w in wrappers:
+            for args, kw in calls[w]:
+                got = getattr(kops, w)(*args, **kw)
+                ref = getattr(kops, f"{w}_plain")(*args, **kw)
+                torch.cuda.synchronize()
+                got = got if isinstance(got, tuple) else (got,)
+                ref = ref if isinstance(ref, tuple) else (ref,)
+                m, e = _recognition_mismatches(w, (*args, *kw.values()), got, ref)
+                mism, err = mism + m, max(err, e)
+
+        def run(plain: bool):
+            for w in wrappers:
+                fn = getattr(kops, f"{w}_plain" if plain else w)
+                for args, kw in calls[w]:
+                    fn(*args, **kw)
+
+        row = {"calls": {w: len(calls[w]) for w in wrappers}, "mismatches": mism,
+               "max_abs_err": err if name == "bow_query" else float(mism)}
+        row["ms"], row["plain_ms"] = time_pair(lambda: run(False), lambda: run(True),
+                                               trials=trials, calls=calls_per)
+        row["library_ms"] = None
+        if name == "bow_query":
+            work = [(a[3][None], a[0]) for a, _ in calls["bow_query"]]
+            row["library_ms"] = time_call(lambda: [torch.cdist(q, b, p=1) for q, b in work],
+                                          trials=trials, calls=calls_per)
+        row.update(bound_wrapper_calls(calls, wrappers))
+        log(f"14a kernel {name} {label}", **row)
+        check(mism == 0, f"{name} {label}: {mism} entries differ from the plain version")
+        check(err <= BOW_SCORE_ATOL, f"{name} {label}: scores {err} from the plain version")
+        rows[name] = row
+    return rows
+
+
+def recognition_large_calls(device) -> dict:
+    """The large shapes of the table: K21 at 10k nodes, K22 at D = 320k
+    (10k nodes), K23 at M = 100k clustered descriptors and K = 256, K24 at
+    10k nodes."""
+    nearest, votes = repository_inputs(10_000, device, SEED + 21)
+    assign, majority = word_inputs(100_000, device, SEED + 22)
+    return {"feature_votes": [(feature_bank_inputs(10_000, device, SEED + 20), {})],
+            "repo_nearest": [(nearest, {})], "repo_votes": [(votes, {})],
+            "word_assign": [(assign, {})], "word_majority": [(majority, {})],
+            "bow_query": [(bow_inputs(10_000, device, SEED + 23), {})]}
+
+
+def recognition_cost_phase(phase: str, device) -> dict:
+    """14b: each recognizer's kernels per query on synthetic banks of 1k,
+    10k and 50k nodes (CUDA events), the bank's bytes on the card, and the
+    bytes of the distance matrix the JAX form materialises for one query
+    (float32, computed from the shapes); the 1k banks held against the
+    plain versions."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    rows = []
+    (query_w, *_), _ = word_inputs(1024, device, SEED + 30)
+    centers = query_w[:256].contiguous()
+    for n in RECOGNITION_SIZES:
+        fv = feature_bank_inputs(n, device, SEED + n)
+        nearest, votes = repository_inputs(n, device, SEED + n + 1)
+        bq = bow_inputs(n, device, SEED + n + 2)
+        q128, v128 = fv[0], fv[1]
+        if n == RECOGNITION_SIZES[0]:
+            for w, args in (("feature_votes", fv), ("repo_nearest", nearest),
+                            ("repo_votes", votes), ("bow_query", bq)):
+                m, e = _recognition_mismatches(w, args, getattr(kops, w)(*args),
+                                               getattr(kops, f"{w}_plain")(*args))
+                check(m == 0 and e <= BOW_SCORE_ATOL, f"{phase}: {w} at {n} nodes: {m}, {e}")
+        row = {
+            "nodes": n,
+            "feature_set": {"feature_votes_ms": time_call(lambda: kops.feature_votes(*fv), 7, 3),
+                            "bank_bytes": _nbytes(*fv[2:6]),
+                            "reference_distance_bytes": 4 * 128 * n * 128},
+            "repository": {"repo_votes_ms": time_call(lambda: kops.repo_votes(*votes), 7, 3),
+                           "repo_nearest_ms": time_call(lambda: kops.repo_nearest(*nearest), 7, 3),
+                           "bank_bytes": _nbytes(*votes[2:8]) + 4,
+                           "reference_distance_bytes": 2 * 4 * 128 * 32 * n},
+            "bow": {"bow_query_ms": time_call(lambda: kops.bow_query(*bq), 7, 3),
+                    "word_assign_ms": time_call(lambda: kops.word_assign(q128, v128, centers),
+                                                7, 3),
+                    "bank_bytes": _nbytes(*bq[:3])},
+        }
+        rows.append(row)
+        del fv, nearest, votes, bq
+        torch.cuda.empty_cache()
+    log(phase, sizes=rows)
+    return {"sizes": rows}
+
+
+def build_step_vocabulary(world, frames, device) -> tuple:
+    """A 256-word vocabulary built on the card (K23) from the descriptors of
+    valid keypoints of every frame of the VGA sequence (one camera), the
+    counts set to 0 just before and read just after.  Returns (vocabulary,
+    fields, the last word_majority call's arguments)."""
+    from uzliti_slam_tpu_torch import pipeline
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+    from uzliti_slam_tpu_torch.recognition import vocabulary as voc
+
+    cfg, pose = step_config(1, device, "bow")
+    outs = [pipeline.keyframe_frontend(*frame_inputs(fr, 1), world.cam, pose, cfg)
+            for fr in frames]
+    desc = torch.cat([o.desc for o in outs])
+    valid = torch.cat([o.kp_valid.reshape(-1) for o in outs])
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    torch.cuda.synchronize()
+    kops.reset_launches()
+    t0 = time.perf_counter()
+    built = []
+    calls = record_args(lambda: built.append(voc.build_vocabulary(desc, valid, k=256,
+                                                                  generator=gen)),
+                        ("word_majority",))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kops.launches["bow_words"]
+    vocab, (args, _) = built[0], calls["word_majority"][-1]
+    fields = {"descriptors": int(desc.shape[0]), "valid": int(valid.sum()), "words": 256,
+              "build_s": seconds, "bow_words_launches": launches,
+              "words_used": int((kops.word_assign(desc, valid, vocab.centers)[2] > 0).sum())}
+    check(launches > 0 and bool(torch.isfinite(vocab.idf).all()), f"vocabulary: {fields}")
+    return vocab, fields, args
+
+
+def pr_world():
+    """(world, frames) of tests/test_pr_methods.py: 30 frames at 96x128."""
+    from uzliti_slam_tpu_torch.io import simulator
+
+    pr = PR_RUN
+    world = simulator.WallWorld(img_h=pr["img_h"], img_w=pr["img_w"])
+    return world, simulator.simulate_sequence(world, n_frames=pr["n_frames"],
+                                              odom_drift=pr["odom_drift"], length=pr["length"])
+
+
+def pr_run(method: str, world, frames, device, vocabulary=None) -> dict:
+    """14d: tests/test_pr_methods.py's run (its ``_cfg`` and gates) through
+    the port's Slam on the card, the counts set to 0 just before it and
+    read just after."""
+    from uzliti_slam_tpu_torch import pipeline
+    from uzliti_slam_tpu_torch.config import (EdgeEstimationConfig, KeyframeConfig,
+                                              PlaceRecognitionConfig, SlamConfig)
+    from uzliti_slam_tpu_torch.io import simulator
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    cfg = SlamConfig(node_capacity=64, edge_capacity=256, feats_per_node=96, scan_bins=180,
+                     keyframe=KeyframeConfig(new_node_distance=0.25),
+                     estimation=EdgeEstimationConfig(min_consensus=10, min_matching_score=8.0),
+                     recognition=PlaceRecognitionConfig(method=method, **PR_GATES[method]))
+    slam = pipeline.Slam(cfg, cam=world.cam, cam_pose=simulator.cam_extrinsic(device=device),
+                         device=device, vocabulary=vocabulary)
+    slam.optimize_every = 10**9
+    torch.cuda.synchronize()
+    kops.reset_launches()
+    infos = [i for i in (slam.add_frame(fr["image"], fr["depth"], fr["odom_pose"], fr["stamp"])
+                         for fr in frames) if i is not None]
+    torch.cuda.synchronize()
+    counts = dict(kops.launches)
+    proposed = sum(int(i["n_edges_proposed"]) for i in infos)
+    fields = {"method": method, "keyframes": len(infos), "proposed": proposed,
+              "launches": {k: counts[k] for k in METHOD_KERNELS[method]}}
+    check(all(counts[k] > 0 for k in METHOD_KERNELS[method]),
+          f"14d {method}: a kernel was not launched: {counts}")
+    check(proposed >= 3, f"14d {method}: {proposed} proposed edges, tests/test_pr_methods.py "
+                         "asserts >= 3")
+    return fields
+
+
+def pr_vocabulary(frames, device):
+    """tests/test_pr_methods.py's vocabulary, built on the card: 64 words,
+    6 rounds, from the descriptors of every sixth frame (96 keypoints)."""
+    from uzliti_slam_tpu_torch.ops import features
+    from uzliti_slam_tpu_torch.recognition import vocabulary as voc
+
+    descs = [features.detect_and_describe(
+        torch.from_numpy(fr["image"]).to(device, torch.float32)[None], max_keypoints=96)[1]
+        .reshape(-1, 32) for fr in frames[::6]]
+    return voc.build_vocabulary(torch.cat(descs), k=64, iterations=6,
+                                generator=torch.Generator(device=device).manual_seed(SEED))
+
+
+def recognition_phase(world, frames, device) -> tuple[dict, dict, dict]:
+    """Phase 14: (c) the keyframe step through ``Slam.add_frame`` per method
+    at VGA, 1 camera (phase 11's sequence and settings; for "bow" a
+    256-word vocabulary built on the card first), with the method's kernels'
+    arguments in a late step recorded; (a) K21-K24 against their plain
+    versions on those arguments and at the large shapes; (b) the cost at
+    1k, 10k and 50k nodes; (d) tests/test_pr_methods.py's run per method.
+    Returns (main rows, large rows, fields)."""
+    from uzliti_slam_tpu_torch import pipeline
+
+    vocab, vocab_fields, majority_args = build_step_vocabulary(world, frames, device)
+    steps, recorded = {}, {"word_majority": [(majority_args, {})]}
+    last = len(frames) - 1
+    for method in ("feature_set", "repository", "bow"):
+        one, fields, slam, inputs = keyframe_step_phase(
+            f"14c keyframe step VGA 1 camera {method}", world, frames, 1, device,
+            method=method, vocabulary=vocab if method == "bow" else None,
+            kernels=METHOD_KERNELS[method])
+        fields["launches_first_step"] = {k: one[k] for k in METHOD_KERNELS[method]}
+        steps[method] = fields
+        names = tuple(w for k in METHOD_KERNELS[method] for w in RECOGNITION_WRAPPERS[k]
+                      if w != "word_majority")
+        recorded.update(record_args(lambda: pipeline.process_keyframe(
+            slam.state, *inputs[last], frames[last]["odom_pose"], frames[last]["stamp"],
+            slam.cam, slam.cam_pose, slam.config), names))
+        del slam
+    rows = compare_recognition_kernels(recorded, "VGA step")
+    rows_large = compare_recognition_kernels(recognition_large_calls(device), "large",
+                                             trials=5, calls_per=2)
+    cost = recognition_cost_phase("14b recognition cost 1k 10k 50k", device)
+    pr_w, pr_frames = pr_world()
+    pr_vocab = pr_vocabulary(pr_frames, device)
+    proposals = {m: pr_run(m, pr_w, pr_frames, device, pr_vocab if m == "bow" else None)
+                 for m in ("feature_set", "repository", "bow")}
+    log("14d proposals 96x128", **proposals)
+    return rows, rows_large, {"vocabulary": vocab_fields, "steps": steps, "cost": cost,
+                              "proposals": proposals}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA card",
@@ -2528,6 +2975,9 @@ def main() -> int:
     rereg, rereg_fields = reregistration_phase("13d re-registration VGA 1 camera", slam1)
     del slam1
     calib, calib_fields = calibration_phase("13e calibration 1k", dev)
+    # phase 14: the other place recognizers, each method's keyframe step
+    # driven with the counts set to 0 just before it and read just after
+    rec_rows, rec_rows_large, rec_fields = recognition_phase(kf_world, kf_frames, dev)
     # each kernel's main path: the 1k solve for K1-K4, K9, K10; the 500-node
     # epoch for K5-K8; the projection sequence after it for K11; the first
     # timed keyframe step (phase 11, 1 camera) for K12-K18
@@ -2599,11 +3049,42 @@ def main() -> int:
          "max_abs_err": grid["max_abs_err"], "ms": grid["ms"], "plain_ms": grid["plain_ms"],
          "bound_ms": grid["bound_ms"], "bound_by": grid["bound_by"], "library_ms": None,
          "shapes": "100k solve"})
-    check(len(kernels) == 22, f"{len(kernels)} kernel entries")
+    # K21-K24: the main path is each method's first timed keyframe step
+    # (14c); the main shapes are a late step's arguments, and for K23's
+    # word_majority the vocabulary build's last round
+    method_of = {"feature_votes": "feature_set", "repository": "repository", "bow_words": "bow",
+                 "bow_query": "bow"}
+    shapes14 = {
+        "feature_votes": ("VGA keyframe step, feature_set: 256 query descriptors, 512 nodes x 256",
+                          "10k nodes x 128 descriptors, 128 queries (synthetic)"),
+        "repository": ("VGA keyframe step, repository: 256 descriptors, D = 16,384 x 8 links",
+                       "D = 320k descriptors x 8 links, 10k nodes, 128 queries (synthetic)"),
+        "bow_words": ("VGA keyframe step, bow: 256 descriptors x 256 words (word_assign); the "
+                      "vocabulary build's last round over the sequence (word_majority)",
+                      "100k clustered descriptors x 256 words (synthetic)"),
+        "bow_query": ("VGA keyframe step, bow: 512 nodes x 256 words",
+                      "10k nodes x 256 words (synthetic)")}
+    for name in RECOGNITION_KERNELS:
+        r, rl, step = rec_rows[name], rec_rows_large[name], rec_fields["steps"][method_of[name]]
+        kernels.append(
+            {"name": name, "route": "cuda", "source": f"uzliti_slam_tpu_torch/csrc/{name}.cu",
+             "replaces": RECOGNITION_REPLACES[name],
+             "launches": step["launches_first_step"][name],
+             "launches_step_1cam": step["launches_per_step"][name],
+             "launches_pr_run": rec_fields["proposals"][method_of[name]]["launches"][name],
+             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+             "shapes": shapes14[name][0], "device_ms_step": step["kernel_device_ms"].get(name),
+             "max_abs_err_large": rl["max_abs_err"], "ms_large": rl["ms"],
+             "plain_ms_large": rl["plain_ms"], "bound_ms_large": rl["bound_ms"],
+             "library_ms_large": rl["library_ms"], "shapes_large": shapes14[name][1]})
+    kernels[-2]["launches_vocabulary_build"] = rec_fields["vocabulary"]["bow_words_launches"]
+    check(len(kernels) == 26, f"{len(kernels)} kernel entries")
     print(json.dumps({"kernels": kernels, "ate": ate,
                       "maintenance": {"merge_500": merge_fields, "merge_10k": merge10k,
                                       "long_run": long_run, "reregistration": rereg_fields,
-                                      "calibration": calib_fields}}))
+                                      "calibration": calib_fields},
+                      "recognition": rec_fields}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

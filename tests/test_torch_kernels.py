@@ -50,7 +50,8 @@ def test_nvcc_flags_target_hopper_without_fast_math():
         "linearize.cu", "hvp.cu", "chain_apply.cu", "residual_chi2.cu", "relax_min.cu",
         "cluster_labels.cu", "ransac_rigid.cu", "components.cu", "chain_factor.cu", "pcg.cu",
         "occupancy.cu", "fast_nms.cu", "grid_topk.cu", "orb_describe.cu", "scan_bins.cu",
-        "hamming_top2.cu", "bilateral.cu", "icp.cu", "merge_pairs.cu", "calib_gn.cu"}
+        "hamming_top2.cu", "bilateral.cu", "icp.cu", "merge_pairs.cu", "calib_gn.cu",
+        "feature_votes.cu", "repository.cu", "bow_words.cu", "bow_query.cu"}
 
 
 def test_every_exported_function_has_a_signature_of_its_arity():
@@ -617,4 +618,115 @@ def test_maintenance_kernel_argument_checks_raise(fake_lib):
     with pytest.raises(TypeError, match="bins: dtype"):
         kops.bin_min_max(_meta(2, 9), _meta(2, 9, dtype=b), _meta(2, 9, dtype=torch.int64), 90,
                          6.0)
+    assert fake_lib.calls == []
+
+
+def _recognition_cases():
+    """Small CPU inputs for K21-K24's wrappers, with planted hits and ties:
+    (name, args)."""
+    rng = np.random.default_rng(6)
+    t = torch.from_numpy
+    bank = rng.integers(0, 256, (9, 12, 32)).astype(np.uint8)
+    query = bank[4].copy()
+    bank[7] = bank[4]                                   # a tie with node 4
+    stamp = t(np.arange(9, dtype=np.float32))
+    flat = bank.reshape(-1, 32)
+    links = t(rng.integers(0, 9, (108, 3)).astype(np.int32))
+    vec = rng.random((9, 20)).astype(np.float32)
+    vec[5] = 0.0
+    vec[7] = vec[4]
+    vec /= np.maximum(vec.sum(-1, keepdims=True), 1e-12)
+    valid12 = t(rng.random(12) < 0.9)
+    return [
+        ("feature_votes", (t(query), valid12, t(bank), t(rng.random((9, 12)) < 0.9), stamp,
+                           torch.ones(9, dtype=torch.bool), torch.tensor(20.0), 4, 40.0, 0.2,
+                           5.0)),
+        ("repo_nearest", (t(query), valid12, t(flat), t(rng.random(108) < 0.8), 40.0)),
+        ("repo_votes", (t(query), valid12, t(flat), t(rng.random(108) < 0.8), links,
+                        t(rng.random((108, 3)) < 0.6), stamp, torch.ones(9, dtype=torch.bool),
+                        torch.tensor(20.0), 5, 40.0, 2.0, 5.0)),
+        ("word_assign", (t(flat), t(rng.random(108) < 0.9), t(flat[::9].copy()))),
+        ("word_majority", (t(flat), t(rng.random(108) < 0.9),
+                           t((np.arange(108) % 12).astype(np.int32)),
+                           t(np.full(12, 8, np.int32)))),
+        ("bow_query", (t(vec), stamp, torch.ones(9, dtype=torch.bool), t(vec[4].copy()),
+                       torch.tensor(20.0), 6, 0.05, 5.0)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(6), ids=["feature_votes", "repo_nearest", "repo_votes",
+                                                 "word_assign", "word_majority", "bow_query"])
+def test_recognition_kernel_wrappers_run_their_plain_version_on_cpu(case):
+    name, args = _recognition_cases()[case]
+    kops.reset_launches()
+    got, ref = getattr(kops, name)(*args), getattr(kops, f"{name}_plain")(*args)
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    ref if isinstance(ref, tuple) else (ref,)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert kops.launches == {k: 0 for k in kops.launches}
+    if name in ("feature_votes", "bow_query"):   # node 4 and its twin 7, the lower slot first
+        assert got[0][:2].tolist() == [4, 7] and float(got[1][0]) == float(got[1][1])
+    if name == "repo_nearest":                   # the query's own rows, the first valid one
+        assert bool((got[0] == 0).any())
+
+
+def test_largest_k_keeps_the_lower_index_among_ties():
+    vals, idx = kops.largest_k(torch.tensor([1.0, 3.0, 3.0, -1.0, 3.0, -1.0]), 5)
+    assert idx.tolist() == [1, 2, 4, 0, 3] and vals.tolist() == [3.0, 3.0, 3.0, 1.0, -1.0]
+
+
+def test_recognition_kernels_launch_through_the_library(fake_lib):
+    u8, i32, b, f32 = torch.uint8, torch.int32, torch.bool, torch.float32
+    slots, sims, ok = kops.feature_votes(
+        _meta(256, 32, dtype=u8), _meta(256, dtype=b), _meta(512, 256, 32, dtype=u8),
+        _meta(512, 256, dtype=b), _meta(512), _meta(512, dtype=b), _meta(()), 5, 40.0, 0.2, 5.0)
+    assert fake_lib.calls[-1][0] == "uz_feature_votes"
+    assert fake_lib.calls[-1][1][7:14] == pytest.approx((256, 256, 512, 5, 40.0, 0.2, 5.0))
+    assert tuple(slots.shape) == (5,) and slots.dtype == i32 and sims.dtype == f32
+    dist, idx, dup = kops.repo_nearest(_meta(256, 32, dtype=u8), _meta(256, dtype=b),
+                                       _meta(16384, 32, dtype=u8), _meta(16384, dtype=b), 40.0)
+    assert fake_lib.calls[-1][0] == "uz_repo_nearest" and fake_lib.calls[-1][1][4:7] == (
+        256, 16384, 40.0)
+    assert idx.dtype == i32 and dup.dtype == b and tuple(dist.shape) == (256,)
+    slots, votes, ok = kops.repo_votes(
+        _meta(256, 32, dtype=u8), _meta(256, dtype=b), _meta(16384, 32, dtype=u8),
+        _meta(16384, dtype=b), _meta(16384, 8, dtype=i32), _meta(16384, 8, dtype=b), _meta(512),
+        _meta(512, dtype=b), _meta(()), 5, 40.0, 5.0, 5.0)
+    assert fake_lib.calls[-1][0] == "uz_repo_votes"
+    assert fake_lib.calls[-1][1][9:17] == (256, 16384, 8, 512, 5, 40.0, 5.0, 5.0)
+    assert votes.dtype == i32
+    word, d, hist = kops.word_assign(_meta(3328, 32, dtype=u8), _meta(3328, dtype=b),
+                                     _meta(256, 32, dtype=u8))
+    assert fake_lib.calls[-1][0] == "uz_word_assign" and fake_lib.calls[-1][1][3:5] == (3328, 256)
+    assert word.dtype == d.dtype == hist.dtype == i32 and tuple(hist.shape) == (256,)
+    centers = kops.word_majority(_meta(3328, 32, dtype=u8), _meta(3328, dtype=b),
+                                 _meta(3328, dtype=i32), _meta(256, dtype=i32))
+    assert fake_lib.calls[-1][0] == "uz_word_majority" and tuple(centers.shape) == (256, 32)
+    slots, scores, ok = kops.bow_query(_meta(512, 256), _meta(512), _meta(512, dtype=b),
+                                       _meta(256), _meta(()), 5, 0.05, 5.0)
+    assert fake_lib.calls[-1][0] == "uz_bow_query"
+    assert fake_lib.calls[-1][1][5:10] == pytest.approx((512, 256, 5, 0.05, 5.0))
+    # the repository's two entry points and the vocabulary's two are one kernel each
+    assert kops.launches["feature_votes"] == 1 and kops.launches["repository"] == 2
+    assert kops.launches["bow_words"] == 2 and kops.launches["bow_query"] == 1
+
+
+def test_recognition_kernel_argument_checks_raise(fake_lib):
+    u8, i32, b = torch.uint8, torch.int32, torch.bool
+    with pytest.raises(ValueError, match="k = 9 of 8 entries"):
+        kops.feature_votes(_meta(16, 32, dtype=u8), _meta(16, dtype=b), _meta(8, 16, 32, dtype=u8),
+                           _meta(8, 16, dtype=b), _meta(8), _meta(8, dtype=b), _meta(()), 9,
+                           40.0, 0.2, 5.0)
+    with pytest.raises(ValueError, match="k = 0 of 500 entries"):
+        kops.bow_query(_meta(500, 16), _meta(500), _meta(500, dtype=b), _meta(16), _meta(()),
+                       0, 0.05, 5.0)
+    with pytest.raises(ValueError, match="shared memory"):
+        kops.word_assign(_meta(10, 32, dtype=u8), _meta(10, dtype=b), _meta(8000, 32, dtype=u8))
+    with pytest.raises(TypeError, match="links: dtype"):
+        kops.repo_votes(_meta(4, 32, dtype=u8), _meta(4, dtype=b), _meta(8, 32, dtype=u8),
+                        _meta(8, dtype=b), _meta(8, 2, dtype=torch.int64), _meta(8, 2, dtype=b),
+                        _meta(6), _meta(6, dtype=b), _meta(()), 3, 40.0, 5.0, 5.0)
+    with pytest.raises(ValueError, match="counts: shape"):
+        kops.word_majority(_meta(10, 32, dtype=u8), _meta(10, dtype=b), _meta(10, dtype=i32),
+                           _meta(4, 2, dtype=i32))
     assert fake_lib.calls == []

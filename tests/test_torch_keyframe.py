@@ -236,19 +236,30 @@ def test_set_param_retunes_gates_and_the_keyframe_gate():
     for name in ("count", "replace", "no_such_gate"):
         with pytest.raises(KeyError, match="unknown tunable"):
             slam.set_param(name, 1.0)
-    # the gates of other recognizers and estimators: their paths are not ported
-    for name, item in (("feature_hamming_thresh", "A24"), ("bow_min_score", "A24"),
-                       ("gicp_max_corr", "A25"), ("pnp_reproj_px", "A25")):
+    # the other recognizers' gates retune as the reference's; the other
+    # estimators' paths are not ported
+    jslam = jpipe.Slam(JCfg(**SHAPE))
+    for name, value in (("feature_hamming_thresh", 33.3), ("min_similarity", 0.3),
+                        ("min_descriptors", 40), ("repo_min_votes", 7), ("bow_min_score", 0.11)):
+        slam.set_param(name, value)
+        jslam.set_param(name, value)
+        assert getattr(slam.state.tunables, name) == float(getattr(jslam.state.tunables, name))
+    for name, item in (("gicp_max_corr", "A25"), ("pnp_reproj_px", "A25")):
         with pytest.raises(NotImplementedError, match=item):
             slam.set_param(name, 1.0)
-    jslam = jpipe.Slam(JCfg(**SHAPE))
     jslam.set_param("match_ratio", 0.8)
     assert slam.state.tunables.match_ratio == float(jslam.state.tunables.match_ratio)
 
 
 def test_slam_raises_for_what_is_not_ported():
-    cases = [(dict(recognition=dataclasses.replace(TCfg().recognition, method="bow")), "A24"),
-             (dict(estimation=TEst(method="gicp")), "A25"),
+    # every recognizer is ported: "bow" asks for its vocabulary instead
+    with pytest.raises(ValueError, match="vocabulary"):
+        tpipe.Slam(TCfg(**SHAPE, recognition=dataclasses.replace(TCfg().recognition,
+                                                                  method="bow")), device="cpu")
+    for method in ("feature_set", "repository"):
+        tpipe.Slam(TCfg(**SHAPE, recognition=dataclasses.replace(TCfg().recognition,
+                                                                 method=method)), device="cpu")
+    cases = [(dict(estimation=TEst(method="gicp")), "A25"),
              (dict(estimation=TEst(method="pnp")), "A25"), (dict(sync_to_database="x.db"), "A27")]
     for kw, item in cases:
         with pytest.raises(NotImplementedError, match=item):

@@ -205,11 +205,10 @@ def test_slam_config_fields_and_defaults_match_jax():
         for f in dataclasses.fields(t_cls):
             if dataclasses.is_dataclass(f.default):
                 got, want = dataclasses.asdict(f.default), dataclasses.asdict(ref[f.name])
-                # the knobs of the other recognizers and estimators come with
-                # their paths (ROADMAP.md A24, A25)
-                unported = (set(want) - set(got) if f.name in ("recognition", "estimation")
-                            else set())
-                assert all(k.startswith(("repo_", "bow_", "gicp_", "pnp_"))
+                # the knobs of the other estimators come with their paths
+                # (ROADMAP.md A25); every recognizer's are here
+                unported = set(want) - set(got) if f.name == "estimation" else set()
+                assert all(k.startswith(("gicp_", "pnp_"))
                            or k in tconfig.UNPORTED_GATES for k in unported), unported
                 assert got == {k: v for k, v in want.items() if k not in unported}, f.name
             else:
@@ -218,6 +217,7 @@ def test_slam_config_fields_and_defaults_match_jax():
     ref = jconfig.tunables_from_config(jconfig.SlamConfig())._asdict()
     got = dataclasses.asdict(tconfig.tunables_from_config(tconfig.SlamConfig()))
     assert set(got) | set(tconfig.UNPORTED_GATES) == set(ref)
+    assert set(tconfig.UNPORTED_GATES) == {"gicp_max_corr", "pnp_reproj_px"}
     assert got == {k: float(v) for k, v in ref.items() if k in got}
 
 

@@ -3,9 +3,9 @@ tick and the ``Slam`` shell read.
 
 Counterpart of ``uzliti_slam_tpu/config.py`` with the same names and
 defaults, less the knobs of paths the port does not have: the other
-recognizers' (repository, BoW, feature sets; ROADMAP.md A24) and
-estimators' (GICP, PnP; A25), which come with those paths.  The switches
-that select such a path (``recognition.method``, ``estimation.method``,
+estimators' (GICP, PnP; ROADMAP.md A25), which come with those paths.
+Every place recognizer is ported ("gist", "feature_set", "repository",
+"bow").  The switches that select an unported path (``estimation.method``,
 ``sync_to_database``) are kept, and ``pipeline.Slam`` raises
 ``NotImplementedError`` for their unported values.
 
@@ -67,13 +67,29 @@ class FeatureExtractionConfig:
 
 @dataclasses.dataclass(frozen=True)
 class PlaceRecognitionConfig:
-    """The fields of ``uzliti_slam_tpu.config.PlaceRecognitionConfig`` that
-    ``method="gist"`` reads, with the same defaults."""
+    """Same fields and defaults as
+    ``uzliti_slam_tpu.config.PlaceRecognitionConfig``: the method ("gist" |
+    "feature_set" | "repository" | "bow"), the candidate count, and each
+    method's gates and capacities.  The gates the keyframe step reads are
+    ``Tunables``' copies of these."""
 
     method: str = "gist"
     k_candidates: int = 5
     gist_max_dist: float = 60.0
+    feature_hamming_thresh: float = 40.0
+    min_similarity: float = 0.2
     min_time_separation: float = 5.0
+    # feature_set: a node is searched, and a frame queries, only with this
+    # many valid descriptors
+    min_descriptors: int = 64
+    # repository: unique-descriptor capacity per node slot, links per
+    # descriptor, votes a candidate needs
+    repo_desc_per_node: int = 32
+    repo_links_per_desc: int = 8
+    repo_min_votes: int = 5
+    # bow: vocabulary size and the L1 score a candidate needs
+    bow_words: int = 256
+    bow_min_score: float = 0.05
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,7 +132,12 @@ class Tunables:
 
     fast_threshold: float
     gist_max_dist: float
+    feature_hamming_thresh: float
+    min_similarity: float
     min_time_separation: float
+    min_descriptors: float
+    repo_min_votes: float
+    bow_min_score: float
     match_ratio: float
     max_match_distance: float
     ransac_inlier_thresh: float
@@ -134,11 +155,7 @@ class Tunables:
 
 # the reference's gates whose paths are not ported, and the ROADMAP.md
 # item that brings each
-UNPORTED_GATES = {
-    **dict.fromkeys(("feature_hamming_thresh", "min_similarity", "min_descriptors",
-                     "repo_min_votes", "bow_min_score"), "A24"),
-    **dict.fromkeys(("gicp_max_corr", "pnp_reproj_px"), "A25"),
-}
+UNPORTED_GATES = dict.fromkeys(("gicp_max_corr", "pnp_reproj_px"), "A25")
 
 
 def f32(v) -> float:
@@ -152,7 +169,12 @@ def tunables_from_config(cfg: "SlamConfig") -> Tunables:
     return Tunables(
         fast_threshold=f32(fc.fast_threshold),
         gist_max_dist=f32(rc.gist_max_dist),
+        feature_hamming_thresh=f32(rc.feature_hamming_thresh),
+        min_similarity=f32(rc.min_similarity),
         min_time_separation=f32(rc.min_time_separation),
+        min_descriptors=f32(rc.min_descriptors),
+        repo_min_votes=f32(rc.repo_min_votes),
+        bow_min_score=f32(rc.bow_min_score),
         match_ratio=f32(ec.match_ratio),
         max_match_distance=f32(ec.max_match_distance),
         ransac_inlier_thresh=f32(ec.ransac_inlier_thresh),

@@ -141,6 +141,17 @@ def to_numpy(g: GraphState) -> dict:
     return {k: getattr(g, k).detach().cpu().numpy() for k in _FIELDS}
 
 
+def set_rows(arr: torch.Tensor, idx: torch.Tensor, ok: torch.Tensor,
+             rows: torch.Tensor) -> torch.Tensor:
+    """``arr`` with ``rows[i]`` written at row ``idx[i]`` where ``ok[i]``;
+    the others go to a scratch row that is cut off (the reference's
+    ``mode="drop"``).  Ok entries that share a row must carry the same
+    value, so no write depends on the device's order."""
+    n = arr.shape[0]
+    ext = torch.cat([arr, arr[:1]])
+    return ext.index_copy(0, torch.where(ok, idx.long(), n), rows.to(arr.dtype))[:n]
+
+
 def set_row(arr: torch.Tensor, idx: torch.Tensor, ok: torch.Tensor, val) -> torch.Tensor:
     """A copy of ``arr`` whose row ``idx`` holds ``val`` where ``ok`` and
     keeps its old value otherwise (the masked write of the JAX package)."""

@@ -68,6 +68,14 @@ SIGNATURES = {
     "uz_bin_min_max": [_P, _P, _P, _I, _I, _I, _F, _F, _P, _P],
     "uz_merge_pairs": [_P, _P, _P, _I, _F, _F, _I, _P, _P, _P, _P, _P],
     "uz_calib_gn": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P, _P, _P, _P],
+    "uz_feature_votes": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
+                         _P, _P, _P, _P, _P],
+    "uz_repo_nearest": [_P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P],
+    "uz_repo_votes": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F,
+                      _P, _P, _P, _P, _P],
+    "uz_word_assign": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
+    "uz_word_majority": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
+    "uz_bow_query": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P],
 }
 
 _lib = None

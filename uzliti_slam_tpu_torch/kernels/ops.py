@@ -50,6 +50,15 @@ icp            csrc/icp.cu             ops/icp.py:_correspondences inside
 merge_pairs    csrc/merge_pairs.cu     graph/lifecycle.py:find_merge_pairs
 calib_gn       csrc/calib_gn.cu        graph/calibration.py:calibrate (the
                                        Gauss-Newton steps, jacfwd included)
+feature_votes  csrc/feature_votes.cu   recognition/recognizer.py:
+                                       feature_set_query
+repository     csrc/repository.cu      recognizer.py:repository_add's search
+                                       (repo_nearest) and repository_query
+                                       (repo_votes); two wrappers, one count
+bow_words      csrc/bow_words.cu       recognition/vocabulary.py:quantize and
+                                       build_vocabulary's rounds (word_assign,
+                                       word_majority); two wrappers, one count
+bow_query      csrc/bow_query.cu       vocabulary.py:bow_query + bow_score
 =============  ======================  =======================================
 
 What bounds each kernel on the card, and what its design does about it, is
@@ -71,7 +80,8 @@ launches = {"linearize": 0, "hvp": 0, "chain_apply": 0, "residual_chi2": 0,
             "relax_min": 0, "cluster_labels": 0, "ransac_rigid": 0, "components": 0,
             "chain_factor": 0, "pcg": 0, "project_rays": 0, "fast_nms": 0, "grid_topk": 0,
             "orb_describe": 0, "scan_bins": 0, "hamming_top2": 0, "bilateral": 0, "icp": 0,
-            "merge_pairs": 0, "calib_gn": 0, "bin_min_max": 0}
+            "merge_pairs": 0, "calib_gn": 0, "bin_min_max": 0, "feature_votes": 0,
+            "repository": 0, "bow_words": 0, "bow_query": 0}
 
 _THREADS = 256  # kThreads in csrc/lie.cuh: K4's partial sums, one per block
 _SMEM_BYTES = 232448  # shared memory one CTA can use on Hopper
@@ -1840,3 +1850,316 @@ def calib_gn(Xi, Xj, meas, is_sensor, is_odom, sf, st, L0, iterations: int,
     _raise_on(err, "calib_gn")
     launches["calib_gn"] += 1
     return theta, hist
+
+
+# ---------------------------------------------------------------------------
+# K21-K24: the feature-set, repository and bag-of-words recognizers
+# ---------------------------------------------------------------------------
+
+_VOTE_NODE_CHUNK = 256   # nodes per pass of feature_votes_plain (bounds its memory)
+_DESC_CHUNK = 8192       # descriptors per pass of the other plain versions
+
+
+def largest_k(v: torch.Tensor, k: int):
+    """The k largest entries of the last dimension and their indices, ties to
+    the lower index, as XLA's ``top_k`` (a stable descending sort)."""
+    vals, idx = torch.sort(v, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _hamming(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    from uzliti_slam_tpu_torch.ops import matching
+
+    return matching.hamming_matrix_packed(a, b)
+
+
+def _topk_check(name: str, k: int, n: int) -> None:
+    if not 0 < k <= n:
+        raise ValueError(f"{name}: k = {k} of {n} entries")
+
+
+def feature_votes_plain(query, qvalid, bank, bank_valid, stamp, valid, q_stamp, k: int,
+                        thresh: float, min_sim: float, min_dt: float):
+    """Plain version of K21, ``recognizer.feature_set_query`` of the JAX
+    package: for each node, the query descriptors (``query`` (Fq, 32),
+    ``qvalid``) whose nearest valid stored descriptor (``bank`` (N, Fb, 32),
+    ``bank_valid`` (N, Fb)) lies within Hamming ``thresh``; sim = votes /
+    max(#valid queries, 1) in float32, -1 where the node is not ``valid`` or
+    lies within ``min_dt`` of ``q_stamp``; the k largest, ties to the lower
+    slot.  Chunked over nodes.  Returns (slots (k,) int32, sims (k,)
+    float32, ok (k,): sim >= min_sim)."""
+    N = bank.shape[0]
+    votes = []
+    for s in range(0, N, _VOTE_NODE_CHUNK):
+        d = _hamming(query, bank[s:s + _VOTE_NODE_CHUNK])              # (c, Fq, Fb)
+        d = torch.where(bank_valid[s:s + _VOTE_NODE_CHUNK, None, :], d, torch.inf)
+        votes.append(((d.amin(-1) <= thresh) & qvalid).sum(-1))
+    nq = torch.clamp(qvalid.sum(), min=1)
+    sim = torch.cat(votes).to(torch.float32) / nq.to(torch.float32)
+    eligible = valid & (torch.abs(stamp - q_stamp) >= min_dt)
+    top, idx = largest_k(torch.where(eligible, sim, -1.0), k)
+    return idx.to(torch.int32), top, top >= min_sim
+
+
+def feature_votes(query, qvalid, bank, bank_valid, stamp, valid, q_stamp, k: int,
+                  thresh: float, min_sim: float, min_dt: float):
+    """K21: a CTA per node (the query in shared memory), a running minimum
+    per query descriptor by XOR and popcount, the votes summed in the CTA,
+    ineligible nodes skipped; then a one-CTA top-k over the node sims."""
+    if query.device.type == "cpu":
+        return feature_votes_plain(query, qvalid, bank, bank_valid, stamp, valid, q_stamp, k,
+                                   thresh, min_sim, min_dt)
+    dev, u8 = query.device, torch.uint8
+    Fq, (N, Fb, _) = query.shape[0], bank.shape
+    _topk_check("feature_votes", k, N)
+    _smem_check("feature_votes", 33 * (Fq + Fb))
+    ptrs = [_check("query", query, (Fq, 32), u8, dev),
+            _check("qvalid", qvalid, (Fq,), torch.bool, dev),
+            _check("bank", bank, (N, Fb, 32), u8, dev),
+            _check("bank_valid", bank_valid, (N, Fb), torch.bool, dev),
+            _check("stamp", stamp, (N,), torch.float32, dev),
+            _check("valid", valid, (N,), torch.bool, dev),
+            _check("q_stamp", q_stamp, (), torch.float32, dev)]
+    lib = _build.load()
+    sims = torch.empty(N, dtype=torch.float32, device=dev)
+    slots = torch.empty(k, dtype=torch.int32, device=dev)
+    top = torch.empty(k, dtype=torch.float32, device=dev)
+    ok = torch.empty(k, dtype=torch.bool, device=dev)
+    err = lib.uz_feature_votes(*ptrs, Fq, Fb, N, k, float(thresh), float(min_sim), float(min_dt),
+                               sims.data_ptr(), slots.data_ptr(), top.data_ptr(), ok.data_ptr(),
+                               _stream(dev))
+    _raise_on(err, "feature_votes")
+    launches["feature_votes"] += 1
+    return slots, top, ok
+
+
+def _masked_hamming_chunks(query, bank, bank_valid):
+    """(start, (F, c) distances with +inf where the stored descriptor is not
+    valid) over chunks of ``bank``."""
+    for s in range(0, bank.shape[0], _DESC_CHUNK):
+        d = _hamming(query, bank[s:s + _DESC_CHUNK])
+        yield s, torch.where(bank_valid[None, s:s + _DESC_CHUNK], d, torch.inf)
+
+
+def repo_nearest_plain(query, qvalid, bank, bank_valid, thresh: float):
+    """Plain version of K22's first entry, the search of
+    ``recognizer.repository_add``: each query's nearest valid descriptor of
+    ``bank`` (D, 32) (the first index among equals; +inf and index 0 where
+    none is valid), and the in-frame duplicates: query i has a valid
+    earlier query j < i within Hamming ``thresh``.  Returns (nn_dist (F,)
+    float32, nn_idx (F,) int32, dup (F,) bool)."""
+    F, dev = query.shape[0], query.device
+    best = torch.full((F,), torch.inf, device=dev)
+    arg = torch.zeros(F, dtype=torch.int64, device=dev)
+    for s, d in _masked_hamming_chunks(query, bank, bank_valid):
+        i = torch.argmin(d, dim=-1)                       # the first minimum
+        v = torch.gather(d, 1, i[:, None])[:, 0]
+        better = v < best                                 # earlier chunks keep ties
+        best, arg = torch.where(better, v, best), torch.where(better, i + s, arg)
+    order = torch.arange(F, device=dev)
+    earlier = ((_hamming(query, query) <= thresh) & qvalid[None, :]
+               & (order[None, :] < order[:, None]))
+    return best, arg.to(torch.int32), earlier.any(-1)
+
+
+def repo_nearest(query, qvalid, bank, bank_valid, thresh: float):
+    """K22's search: a CTA per (query, chunk of the bank), the minimum of
+    (distance << 32 | index) keys reduced in the CTA and by a 64-bit
+    ``atomicMin`` across CTAs (the first index among equal distances), then
+    a one-CTA pass decoding the keys and testing the F x F duplicates."""
+    if query.device.type == "cpu":
+        return repo_nearest_plain(query, qvalid, bank, bank_valid, thresh)
+    dev, u8 = query.device, torch.uint8
+    F, D = query.shape[0], bank.shape[0]
+    _smem_check("repo_nearest", 33 * F)
+    ptrs = [_check("query", query, (F, 32), u8, dev),
+            _check("qvalid", qvalid, (F,), torch.bool, dev),
+            _check("bank", bank, (D, 32), u8, dev),
+            _check("bank_valid", bank_valid, (D,), torch.bool, dev)]
+    lib = _build.load()
+    keys = torch.full((F,), -1, dtype=torch.int64, device=dev)    # all ones: no candidate
+    nn_dist = torch.empty(F, dtype=torch.float32, device=dev)
+    nn_idx = torch.empty(F, dtype=torch.int32, device=dev)
+    dup = torch.empty(F, dtype=torch.bool, device=dev)
+    err = lib.uz_repo_nearest(*ptrs, F, D, float(thresh), keys.data_ptr(), nn_dist.data_ptr(),
+                              nn_idx.data_ptr(), dup.data_ptr(), _stream(dev))
+    _raise_on(err, "repository")
+    launches["repository"] += 1
+    return nn_dist, nn_idx, dup
+
+
+def repo_votes_plain(query, qvalid, bank, bank_valid, links, link_valid, node_stamp, node_valid,
+                     q_stamp, k: int, thresh: float, min_votes: float, min_dt: float):
+    """Plain version of K22's second entry, ``recognizer.repository_query``:
+    the stored descriptors that any valid query hits within Hamming
+    ``thresh``, votes per node over their valid links (``links``,
+    ``link_valid`` (D, L)), -1 where the node is not valid or lies within
+    ``min_dt`` of ``q_stamp``, the k largest, ties to the lower slot.
+    Returns (slots (k,) int32, votes (k,) int32, ok (k,): votes >=
+    min_votes)."""
+    hit = torch.cat([((d <= thresh) & qvalid[:, None]).any(0)
+                     for _, d in _masked_hamming_chunks(query, bank, bank_valid)])
+    n = node_stamp.shape[0]
+    contrib = (hit[:, None] & link_valid).to(torch.int32).reshape(-1)
+    seg = torch.where(link_valid, links, n).reshape(-1).long()
+    votes = torch.zeros(n + 1, dtype=torch.int32, device=query.device).index_add_(
+        0, seg, contrib)[:n]
+    eligible = node_valid & (torch.abs(node_stamp - q_stamp) >= min_dt)
+    top, idx = largest_k(torch.where(eligible, votes, -1), k)
+    return idx.to(torch.int32), top, top >= min_votes
+
+
+def repo_votes(query, qvalid, bank, bank_valid, links, link_valid, node_stamp, node_valid,
+               q_stamp, k: int, thresh: float, min_votes: float, min_dt: float):
+    """K22's query: a thread per stored descriptor (the queries in shared
+    memory) tests for a hit and adds its valid links' votes with integer
+    ``atomicAdd`` (exact in any order); then a one-CTA gated top-k."""
+    if query.device.type == "cpu":
+        return repo_votes_plain(query, qvalid, bank, bank_valid, links, link_valid, node_stamp,
+                                node_valid, q_stamp, k, thresh, min_votes, min_dt)
+    dev, u8 = query.device, torch.uint8
+    F, (D, L), N = query.shape[0], links.shape, node_stamp.shape[0]
+    _topk_check("repo_votes", k, N)
+    _smem_check("repo_votes", 33 * F)
+    ptrs = [_check("query", query, (F, 32), u8, dev),
+            _check("qvalid", qvalid, (F,), torch.bool, dev),
+            _check("bank", bank, (D, 32), u8, dev),
+            _check("bank_valid", bank_valid, (D,), torch.bool, dev),
+            _check("links", links, (D, L), torch.int32, dev),
+            _check("link_valid", link_valid, (D, L), torch.bool, dev),
+            _check("node_stamp", node_stamp, (N,), torch.float32, dev),
+            _check("node_valid", node_valid, (N,), torch.bool, dev),
+            _check("q_stamp", q_stamp, (), torch.float32, dev)]
+    lib = _build.load()
+    votes = torch.zeros(N, dtype=torch.int32, device=dev)
+    slots = torch.empty(k, dtype=torch.int32, device=dev)
+    top = torch.empty(k, dtype=torch.int32, device=dev)
+    ok = torch.empty(k, dtype=torch.bool, device=dev)
+    err = lib.uz_repo_votes(*ptrs, F, D, L, N, k, float(thresh), float(min_votes), float(min_dt),
+                            votes.data_ptr(), slots.data_ptr(), top.data_ptr(), ok.data_ptr(),
+                            _stream(dev))
+    _raise_on(err, "repository")
+    launches["repository"] += 1
+    return slots, top, ok
+
+
+def word_assign_plain(desc, valid, centers):
+    """Plain version of K23's first entry (``vocabulary.quantize`` and each
+    k-majority round of ``build_vocabulary``): each descriptor's nearest
+    word among ``centers`` (K, 32) by Hamming distance, the first among
+    equals, whatever its validity, and the term histogram of the valid
+    ones.  Returns (word (M,) int32, dist (M,) int32, hist (K,) int32)."""
+    words, dists = [], []
+    for s in range(0, desc.shape[0], _DESC_CHUNK):
+        d = _hamming(desc[s:s + _DESC_CHUNK], centers)
+        w = torch.argmin(d, dim=-1)                       # the first minimum
+        words.append(w)
+        dists.append(torch.gather(d, 1, w[:, None])[:, 0])
+    word = torch.cat(words)
+    hist = torch.zeros(centers.shape[0], dtype=torch.int32, device=desc.device).index_add_(
+        0, word[valid], torch.ones_like(word[valid], dtype=torch.int32))
+    return word.to(torch.int32), torch.cat(dists).to(torch.int32), hist
+
+
+def word_assign(desc, valid, centers):
+    """K23's assignment: a thread per descriptor against the K packed words
+    in shared memory (strict '<' in word order: the first among equals), the
+    histogram by integer ``atomicAdd``."""
+    if desc.device.type == "cpu":
+        return word_assign_plain(desc, valid, centers)
+    dev, u8 = desc.device, torch.uint8
+    M, K = desc.shape[0], centers.shape[0]
+    _smem_check("word_assign", 32 * K)
+    ptrs = [_check("desc", desc, (M, 32), u8, dev), _check("valid", valid, (M,), torch.bool, dev),
+            _check("centers", centers, (K, 32), u8, dev)]
+    lib = _build.load()
+    word = torch.empty(M, dtype=torch.int32, device=dev)
+    dist = torch.empty(M, dtype=torch.int32, device=dev)
+    hist = torch.zeros(K, dtype=torch.int32, device=dev)
+    err = lib.uz_word_assign(*ptrs, M, K, word.data_ptr(), dist.data_ptr(), hist.data_ptr(),
+                             _stream(dev))
+    _raise_on(err, "bow_words")
+    launches["bow_words"] += 1
+    return word, dist, hist
+
+
+def word_majority_plain(desc, valid, word, counts):
+    """Plain version of K23's second entry, the k-majority update of
+    ``build_vocabulary``: per word, the number of its valid members with
+    each bit set; a bit of the new centre is set where that number exceeds
+    half the word's member count ``counts`` (K,) (``sums > 0.5 · counts``,
+    exact in integers).  Returns the centres (K, 32) uint8; a word without
+    members gets zeros."""
+    from uzliti_slam_tpu_torch.ops import matching
+
+    K = counts.shape[0]
+    sums = torch.zeros(K, 256, dtype=torch.int32, device=desc.device)
+    for s in range(0, desc.shape[0], _DESC_CHUNK):
+        v = valid[s:s + _DESC_CHUNK]
+        bits = matching.unpack_bits(desc[s:s + _DESC_CHUNK][v]).to(torch.int32)
+        sums.index_add_(0, word[s:s + _DESC_CHUNK][v].long(), bits)
+    return matching.pack_bits(2 * sums > counts[:, None])
+
+
+def word_majority(desc, valid, word, counts):
+    """K23's update: a thread per valid descriptor adds its set bits to its
+    word's counters (integer ``atomicAdd``), then a thread per centre byte
+    takes the majority."""
+    if desc.device.type == "cpu":
+        return word_majority_plain(desc, valid, word, counts)
+    dev, u8 = desc.device, torch.uint8
+    M, K = desc.shape[0], counts.shape[0]
+    ptrs = [_check("desc", desc, (M, 32), u8, dev), _check("valid", valid, (M,), torch.bool, dev),
+            _check("word", word, (M,), torch.int32, dev),
+            _check("counts", counts, (K,), torch.int32, dev)]
+    lib = _build.load()
+    sums = torch.zeros(K, 256, dtype=torch.int32, device=dev)
+    centers = torch.empty(K, 32, dtype=u8, device=dev)
+    err = lib.uz_word_majority(*ptrs, M, K, sums.data_ptr(), centers.data_ptr(), _stream(dev))
+    _raise_on(err, "bow_words")
+    launches["bow_words"] += 1
+    return centers
+
+
+def bow_scores_plain(bank, stamp, valid, q, q_stamp, min_dt: float):
+    """The gated scores of ``bow_query_plain``: (N,) float32."""
+    s = 1.0 - 0.5 * torch.sum(torch.abs(bank - q[None]), dim=-1)
+    eligible = (valid & (torch.sum(torch.abs(bank), dim=-1) > 1e-9)
+                & (torch.sum(torch.abs(q)) > 1e-9) & (torch.abs(stamp - q_stamp) >= min_dt))
+    return torch.where(eligible, s, -1.0)
+
+
+def bow_query_plain(bank, stamp, valid, q, q_stamp, k: int, min_score: float, min_dt: float):
+    """Plain version of K24, ``vocabulary.bow_query`` with ``bow_score``:
+    1 - ½‖v_n - q‖₁ for every row of ``bank`` (N, K), -1 where the row is
+    not valid, is zero (Σ|v_n| <= 1e-9), the query is zero, or the row lies
+    within ``min_dt`` of ``q_stamp``; the k largest, ties to the lower slot.
+    Returns (slots (k,) int32, scores (k,) float32, ok (k,): score >=
+    min_score)."""
+    top, idx = largest_k(bow_scores_plain(bank, stamp, valid, q, q_stamp, min_dt), k)
+    return idx.to(torch.int32), top, top >= min_score
+
+
+def bow_query(bank, stamp, valid, q, q_stamp, k: int, min_score: float, min_dt: float):
+    """K24: a warp per bank row sums |v - q| and |v| over the K words in a
+    fixed lane order and a fixed shuffle tree, applies the gates; then a
+    one-CTA top-k over the scores."""
+    if bank.device.type == "cpu":
+        return bow_query_plain(bank, stamp, valid, q, q_stamp, k, min_score, min_dt)
+    dev, f32 = bank.device, torch.float32
+    N, K = bank.shape
+    _topk_check("bow_query", k, N)
+    _smem_check("bow_query", 4 * K)
+    ptrs = [_check("bank", bank, (N, K), f32, dev), _check("stamp", stamp, (N,), f32, dev),
+            _check("valid", valid, (N,), torch.bool, dev), _check("q", q, (K,), f32, dev),
+            _check("q_stamp", q_stamp, (), f32, dev)]
+    lib = _build.load()
+    scores = torch.empty(N, dtype=f32, device=dev)
+    slots = torch.empty(k, dtype=torch.int32, device=dev)
+    top = torch.empty(k, dtype=f32, device=dev)
+    ok = torch.empty(k, dtype=torch.bool, device=dev)
+    err = lib.uz_bow_query(*ptrs, N, K, k, float(min_score), float(min_dt), scores.data_ptr(),
+                           slots.data_ptr(), top.data_ptr(), ok.data_ptr(), _stream(dev))
+    _raise_on(err, "bow_query")
+    launches["bow_query"] += 1
+    return slots, top, ok

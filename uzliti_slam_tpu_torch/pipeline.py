@@ -1,19 +1,21 @@
 """The SLAM orchestrator: the keyframe step, the optimization tick and the
 ``Slam`` shell.
 
-PyTorch counterpart of ``uzliti_slam_tpu/pipeline.py`` in its default
-configuration (GIST recognition, the feature estimator, laser edges, depth
-refinement):
+PyTorch counterpart of ``uzliti_slam_tpu/pipeline.py`` with every place
+recognizer and the feature estimator (laser edges, depth refinement):
 
 - ``process_keyframe`` ingests one keyframe: the front-end
   (``keyframe_frontend``: the bilateral depth filter K17, features and
   descriptors K12-K14, the virtual scan K15, the GIST), the map-pose
-  bootstrap, the GIST query (K16) and the distance candidates, the pair
+  bootstrap, the place-recognition query of ``recognition.method`` (the
+  GIST, K16; the feature sets, K21; the repository, K22; the bag of words,
+  K23 + K24) and the distance candidates, the pair
   dedup, Hamming matching (K16, every candidate in one launch) and RANSAC
   (K7, soft-PROSAC draws) for every candidate, the acceptance gates, the
   new node, its odometry edge, the ICP laser edge (K18) and the candidate
   edges (both entered invalid, for the epoch's filter to validate), and
-  the node's bank rows.  It reads no device value on the host.
+  the node's bank rows (the repository's insert, K22; the BoW vector).  It
+  reads no device value on the host.
 - ``optimize_epoch`` filters the loop closures (K5-K8), solves (K1-K4, K9,
   K10), refreshes uncertainty and the map→odom correction; it reads one
   device value on the host (``solver._host_decision``, whether the
@@ -29,9 +31,11 @@ refinement):
   ``calibrate_every`` epochs, ``maintain`` (with compaction),
   ``reregister_scans``, ``add_gps``, live retuning of the gates.
 
-``SlamState`` holds the JAX ``SlamState``'s fields for this configuration,
-with a ``torch.Generator`` (the RANSAC draws) where JAX keeps a ``prng``
-key, and the gates as host floats (``config.Tunables``).  Options of the
+``SlamState`` holds the JAX ``SlamState``'s fields for these
+configurations (the repository, the BoW bank and the vocabulary only where
+the method uses them), with a ``torch.Generator`` (the RANSAC draws) where
+JAX keeps a ``prng`` key, and the gates as host floats
+(``config.Tunables``).  Options of the
 reference that are not ported raise ``NotImplementedError`` naming the
 ``ROADMAP.md`` item that brings them.
 """
@@ -58,6 +62,7 @@ from uzliti_slam_tpu_torch.ops import depth as depth_ops
 from uzliti_slam_tpu_torch.ops import features, icp, lie, matching, ransac
 from uzliti_slam_tpu_torch.ops import scan as scan_ops
 from uzliti_slam_tpu_torch.recognition import recognizer as rec
+from uzliti_slam_tpu_torch.recognition import vocabulary as voc
 
 MAX_CANDIDATES = 256
 
@@ -76,17 +81,39 @@ class SlamState:
     n_keyframes: torch.Tensor    # () int32 keyframes ingested (the uid counter)
     last_kf_slot: torch.Tensor   # () int32 slot of the newest keyframe node, -1 before
     tunables: Tunables           # the live gates, host floats
+    # the method's own recognition state (None unless recognition.method
+    # selects it)
+    repo: rec.FeatureRepository | None = None
+    bow: voc.BowBank | None = None
+    vocab: voc.Vocabulary | None = None
 
     def replace(self, **changes) -> "SlamState":
         return dataclasses.replace(self, **changes)
 
 
-def init_state(config: SlamConfig = SlamConfig(), seed: int = 0, device=None) -> SlamState:
+def init_state(config: SlamConfig = SlamConfig(), seed: int = 0, device=None,
+               vocabulary: voc.Vocabulary | None = None) -> SlamState:
     """An empty state of the configured capacities (no scans: +inf ranges),
     the gates from ``config`` and a generator seeded with ``seed``, on
-    ``device`` (default: the CUDA card)."""
+    ``device`` (default: the CUDA card).  ``recognition.method="repository"``
+    adds an empty repository of ``repo_desc_per_node`` descriptors a node
+    slot; ``"bow"`` an empty BoW bank and ``vocabulary`` (moved to
+    ``device``), which it needs, of ``bow_words`` words, else ValueError."""
     device = _device.resolve(device)
     n, f = config.node_capacity, config.feats_per_node
+    rc = config.recognition
+    repo = bow = vocab = None
+    if rc.method == "repository":
+        repo = rec.repository_init(n * rc.repo_desc_per_node, rc.repo_links_per_desc, n, device)
+    if rc.method == "bow":
+        if vocabulary is None:
+            raise ValueError("method='bow' needs a trained vocabulary "
+                             "(recognition.vocabulary.build_vocabulary)")
+        if vocabulary.centers.shape[0] != rc.bow_words:
+            raise ValueError(f"vocabulary has {vocabulary.centers.shape[0]} words, "
+                             f"config.recognition.bow_words={rc.bow_words}")
+        bow = voc.bow_bank_init(n, rc.bow_words, device)
+        vocab = voc.Vocabulary(*(t.to(device) for t in vocabulary))
     return SlamState(
         graph=gstate.empty_graph(n, config.edge_capacity, device),
         generator=torch.Generator(device=device).manual_seed(seed),
@@ -100,6 +127,7 @@ def init_state(config: SlamConfig = SlamConfig(), seed: int = 0, device=None) ->
         n_keyframes=torch.zeros((), dtype=torch.int32, device=device),
         last_kf_slot=torch.full((), -1, dtype=torch.int32, device=device),
         tunables=tunables_from_config(config),
+        repo=repo, bow=bow, vocab=vocab,
     )
 
 
@@ -109,15 +137,23 @@ def state_from_numpy(arrays: dict, seed: int = 0, device=None,
     ``arrays["graph"]`` holds the graph's fields as ``graph.state.from_numpy``
     takes them; ``scans``, ``scan_valid``, ``desc``, ``desc_valid``,
     ``points``, ``last_kf_odom``, ``n_keyframes``, ``last_kf_slot``,
-    ``gist`` (a dict of ``desc``, ``stamp``, ``valid``) and ``tunables`` (a
-    dict of gate values) are taken where present, else made as
-    ``init_state(config)`` makes them for the graph's node capacity.  A JAX
-    ``prng`` key cannot cross: the generator is seeded with ``seed``."""
+    ``gist`` (a dict of ``desc``, ``stamp``, ``valid``), ``repo`` and
+    ``bow`` (dicts of their banks' fields), ``vocab`` (a dict of
+    ``centers``, ``idf``) and ``tunables`` (a dict of gate values) are taken
+    where present, else made as ``init_state(config)`` makes them for the
+    graph's node capacity.  A JAX ``prng`` key cannot cross: the generator
+    is seeded with ``seed``."""
     device = _device.resolve(device)
     config = config or SlamConfig()
     graph = gstate.from_numpy({k: np.asarray(v) for k, v in arrays["graph"].items()}, device)
+    vocab = (voc.from_numpy(arrays["vocab"]["centers"], arrays["vocab"]["idf"], device)
+             if "vocab" in arrays else None)
     base = init_state(dataclasses.replace(config, node_capacity=graph.node_capacity,
-                                          edge_capacity=graph.edge_capacity), seed, device)
+                                          edge_capacity=graph.edge_capacity), seed, device,
+                      vocabulary=vocab)
+
+    def bank(cls, fields):
+        return cls(*(torch.from_numpy(np.array(fields[k])).to(device) for k in cls._fields))
 
     def cross(x, like: torch.Tensor) -> torch.Tensor:
         return torch.from_numpy(np.array(x, dtype=like.cpu().numpy().dtype)).to(device)
@@ -137,7 +173,9 @@ def state_from_numpy(arrays: dict, seed: int = 0, device=None,
         desc=take("desc", base.desc), desc_valid=take("desc_valid", base.desc_valid),
         points=take("points", base.points), last_kf_odom=take("last_kf_odom", base.last_kf_odom),
         n_keyframes=take("n_keyframes", base.n_keyframes),
-        last_kf_slot=take("last_kf_slot", base.last_kf_slot), tunables=tunables)
+        last_kf_slot=take("last_kf_slot", base.last_kf_slot), tunables=tunables,
+        repo=bank(rec.FeatureRepository, arrays["repo"]) if "repo" in arrays else base.repo,
+        bow=bank(voc.BowBank, arrays["bow"]) if "bow" in arrays else base.bow)
 
 
 def epoch_candidates(g: gstate.GraphState, config: SlamConfig = SlamConfig()):
@@ -268,16 +306,6 @@ def scan_reregistration(state: SlamState, config: SlamConfig = SlamConfig(),
     return state.replace(graph=g), ok.sum()
 
 
-def _write_ok_rows(arr: torch.Tensor, slots: torch.Tensor, ok: torch.Tensor,
-                   rows: torch.Tensor) -> torch.Tensor:
-    """``arr`` with ``rows`` written at ``slots`` where ``ok`` (the slots of
-    the ok entries are distinct); the others go to a scratch row that is
-    cut off, so no write depends on the device's order."""
-    n = arr.shape[0]
-    ext = torch.cat([arr, arr[:1]])
-    return ext.index_copy(0, torch.where(ok, slots.long(), n), rows.to(arr.dtype))[:n]
-
-
 def _merge_banks(state: SlamState, g_before: gstate.GraphState, g_after: gstate.GraphState,
                  ki: torch.Tensor, ai: torch.Tensor, ok: torch.Tensor, n_bins: int) -> SlamState:
     """Fold each absorbed node's sensor payload into its kept node (the
@@ -330,19 +358,26 @@ def _merge_banks(state: SlamState, g_before: gstate.GraphState, g_after: gstate.
     merged = scan_ops.points_to_scan(union, union_ok, n_bins=n_bins)
 
     return state.replace(
-        desc=_write_ok_rows(state.desc, ks, ok, desc_all),
-        desc_valid=_write_ok_rows(state.desc_valid, ks, ok, valid_all),
-        points=_write_ok_rows(state.points, ks, ok, pts_all),
-        scans=_write_ok_rows(state.scans, ks, ok, merged.ranges),
-        scan_valid=_write_ok_rows(state.scan_valid, ks, ok, sv_k | sv_a),
+        desc=gstate.set_rows(state.desc, ks, ok, desc_all),
+        desc_valid=gstate.set_rows(state.desc_valid, ks, ok, valid_all),
+        points=gstate.set_rows(state.points, ks, ok, pts_all),
+        scans=gstate.set_rows(state.scans, ks, ok, merged.ranges),
+        scan_valid=gstate.set_rows(state.scan_valid, ks, ok, sv_k | sv_a),
     )
 
 
 def _drop_from_banks(state: SlamState, dead: torch.Tensor) -> SlamState:
-    """Dead nodes leave the recognition and sensor banks."""
-    return state.replace(gist=state.gist._replace(valid=state.gist.valid & ~dead),
+    """Dead nodes leave the recognition and sensor banks (and the
+    repository's links to them go)."""
+    repo, bow = state.repo, state.bow
+    if repo is not None:
+        repo = repo._replace(node_valid=repo.node_valid & ~dead,
+                             link_valid=repo.link_valid & ~dead[repo.links.long()])
+    if bow is not None:
+        bow = rec.drop_nodes(bow, dead)
+    return state.replace(gist=rec.drop_nodes(state.gist, dead),
                          scan_valid=state.scan_valid & ~dead,
-                         desc_valid=state.desc_valid & ~dead[:, None])
+                         desc_valid=state.desc_valid & ~dead[:, None], repo=repo, bow=bow)
 
 
 def maintenance_epoch(state: SlamState, config: SlamConfig = SlamConfig(),
@@ -390,21 +425,32 @@ def compact_state(state: SlamState) -> tuple[SlamState, dict]:
     (``lifecycle.compact_graph``; ``pipeline.py:1149-1208`` of the JAX
     package): live nodes move to the front, the high-water marks shrink to
     the live counts, and a bounded local scope stays in one capacity tier.
-    Returns (state, perm), ``perm`` as ``compact_graph`` gives it."""
+    The repository's links follow their nodes, and links to dead nodes go;
+    its descriptors stay where they are.  Returns (state, perm), ``perm``
+    as ``compact_graph`` gives it."""
     g, perm = lifecycle.compact_graph(state.graph)
     order = perm["node_order"].long()
     inv = perm["node_inv"]
     live = g.node_valid
     last = state.last_kf_slot
     new_last = torch.where(last >= 0, inv[torch.clamp(last, min=0).long()], -1).to(torch.int32)
-    gist = state.gist
+    gist, repo, bow = state.gist, state.repo, state.bow
+    if repo is not None:
+        remapped = inv[repo.links.long()]
+        repo = repo._replace(node_stamp=repo.node_stamp[order],
+                             node_valid=repo.node_valid[order] & live,
+                             links=torch.clamp(remapped, min=0).to(torch.int32),
+                             link_valid=repo.link_valid & (remapped >= 0))
+    if bow is not None:
+        bow = voc.BowBank(vec=bow.vec[order], stamp=bow.stamp[order],
+                          valid=bow.valid[order] & live)
     return state.replace(
         graph=g,
         gist=rec.GistBank(desc=gist.desc[order], stamp=gist.stamp[order],
                           valid=gist.valid[order] & live),
         desc=state.desc[order], desc_valid=state.desc_valid[order] & live[:, None],
         points=state.points[order], scans=state.scans[order],
-        scan_valid=state.scan_valid[order] & live, last_kf_slot=new_last,
+        scan_valid=state.scan_valid[order] & live, last_kf_slot=new_last, repo=repo, bow=bow,
     ), perm
 
 
@@ -526,9 +572,6 @@ def keyframe_frontend(image, depth, cam: cam_mod.PinholeCamera, cam_pose,
 def check_supported(config: SlamConfig) -> None:
     """Raise ``NotImplementedError`` for an option whose path the port does
     not have yet, naming the ROADMAP.md item that brings it."""
-    if config.recognition.method != "gist":
-        raise NotImplementedError(f"recognition.method={config.recognition.method!r}: only "
-                                  "'gist' is ported (ROADMAP.md A24)")
     if config.estimation.method != "feature":
         raise NotImplementedError(f"estimation.method={config.estimation.method!r}: only "
                                   "'feature' is ported (ROADMAP.md A25)")
@@ -541,11 +584,45 @@ def _scan_pts(ranges: torch.Tensor):
     return scan_ops.scan_points(scan_ops.Scan(ranges, ranges, -pi, pi))
 
 
+def _recognize(state: SlamState, fe: FrontendOutput, st: torch.Tensor, config: SlamConfig):
+    """The place-recognition candidates of ``config.recognition.method``
+    (``pipeline.py:311-353`` of the JAX package): (slots (k,), ok (k,), the
+    frame's BoW vector or None).  The feature sets are the state's node
+    descriptors; a node is searched, and the frame queries, only with
+    ``min_descriptors`` valid descriptors.  An unknown method raises
+    ``ValueError``."""
+    g, tn, rc = state.graph, state.tunables, config.recognition
+    k, min_dt = rc.k_candidates, tn.min_time_separation
+    if rc.method == "gist":
+        slots, _, ok = rec.gist_query(state.gist, fe.gist, st, k=k, max_dist=tn.gist_max_dist,
+                                      min_dt=min_dt)
+        return slots, ok, None
+    if rc.method == "feature_set":
+        fbank = rec.FeatureSetBank(
+            desc=state.desc, desc_valid=state.desc_valid & g.node_valid[:, None], stamp=g.stamp,
+            valid=g.node_valid & (state.desc_valid.sum(-1) >= tn.min_descriptors))
+        slots, _, ok = rec.feature_set_query(fbank, fe.desc, fe.pts_valid, st, k=k,
+                                             hamming_thresh=tn.feature_hamming_thresh,
+                                             min_similarity=tn.min_similarity, min_dt=min_dt)
+        return slots, ok & (fe.pts_valid.sum() >= tn.min_descriptors), None
+    if rc.method == "repository":
+        slots, _, ok = rec.repository_query(state.repo, fe.desc, fe.pts_valid, st, k=k,
+                                            match_thresh=tn.feature_hamming_thresh,
+                                            min_votes=tn.repo_min_votes, min_dt=min_dt)
+        return slots, ok, None
+    if rc.method == "bow":
+        vec = voc.quantize(state.vocab, fe.desc, fe.pts_valid)
+        slots, _, ok = voc.bow_query(state.bow, vec, st, k=k, min_score=tn.bow_min_score,
+                                     min_dt=min_dt)
+        return slots, ok, vec
+    raise ValueError(f"unknown place_recognition method {rc.method!r}")
+
+
 def process_keyframe(state: SlamState, image, depth, odom_pose, stamp,
                      cam: cam_mod.PinholeCamera, cam_pose, config: SlamConfig = SlamConfig(),
                      cam_disp=None, tri: torch.Tensor | None = None) -> tuple[SlamState, dict]:
     """Ingest one keyframe (``_keyframe_body``, ``pipeline.py:159-623`` of
-    the JAX package, default configuration) on the state's device.
+    the JAX package, with the feature estimator) on the state's device.
 
     ``image``/``depth``/``cam_pose`` as ``keyframe_frontend`` takes them;
     ``odom_pose`` (7,) the base's odometry pose; ``stamp`` seconds (a
@@ -580,12 +657,12 @@ def process_keyframe(state: SlamState, image, depth, odom_pose, stamp,
     has_prev = prev_slot >= 0
     prev_safe = torch.clamp(prev_slot, min=0).long().view(1)
 
-    # candidates before inserting the node: the GIST query and the distance
-    # loop closures (nearest valid nodes within the radius, heading within
-    # the angle, temporally separated)
+    # candidates before inserting the node: the place-recognition query of
+    # the configured method and the distance loop closures (nearest valid
+    # nodes within the radius, heading within the angle, temporally
+    # separated)
     k = rc.k_candidates
-    pr_slots, _, pr_ok = rec.gist_query(state.gist, fe.gist, st, k=k, max_dist=tn.gist_max_dist,
-                                        min_dt=tn.min_time_separation)
+    pr_slots, pr_ok, bow_vec = _recognize(state, fe, st, config)
     d_nodes = torch.linalg.vector_norm(lie.pose_t(g.pose) - lie.pose_t(map_pose), dim=-1)
     rel_q = lie.quat_mul(lie.quat_conj(lie.pose_q(g.pose)), lie.pose_q(map_pose)[None])
     ang_ok = torch.rad2deg(lie.rotation_angle(rel_q)) < kc.distance_closure_max_angle_deg
@@ -663,8 +740,14 @@ def process_keyframe(state: SlamState, image, depth, odom_pose, stamp,
     # the node's bank rows
     ns = torch.clamp(new_slot, min=0).long()
     wrote = new_slot >= 0
+    repo, bow = state.repo, state.bow
+    if rc.method == "repository":
+        repo = rec.repository_add(repo, ns, fe.desc, fe.pts_valid, st,
+                                  match_thresh=tn.feature_hamming_thresh, ok=wrote)
+    if rc.method == "bow":
+        bow = voc.bow_bank_add(bow, new_slot, bow_vec, st)
     state = state.replace(
-        graph=g,
+        graph=g, repo=repo, bow=bow,
         gist=rec.gist_bank_add(state.gist, new_slot, fe.gist, st),
         desc=gstate.set_row(state.desc, ns, wrote, fe.desc),
         desc_valid=gstate.set_row(state.desc_valid, ns, wrote, fe.pts_valid),
@@ -691,10 +774,17 @@ def grow_state(state: SlamState, node_capacity: int, edge_capacity: int) -> Slam
     def pad(a: torch.Tensor, fill=0) -> torch.Tensor:
         return torch.cat([a, a.new_full((new_n - old_n,) + tuple(a.shape[1:]), fill)])
 
+    repo, bow = state.repo, state.bow
+    if repo is not None:
+        # the node-indexed fields grow; the descriptor bank keeps its
+        # capacity (it scales with the features seen, not the node slots)
+        repo = repo._replace(node_stamp=pad(repo.node_stamp), node_valid=pad(repo.node_valid))
+    if bow is not None:
+        bow = voc.BowBank(*(pad(x) for x in bow))
     return state.replace(
         graph=g, gist=rec.GistBank(*(pad(x) for x in state.gist)), desc=pad(state.desc),
         desc_valid=pad(state.desc_valid), points=pad(state.points),
-        scans=pad(state.scans, math.inf), scan_valid=pad(state.scan_valid))
+        scans=pad(state.scans, math.inf), scan_valid=pad(state.scan_valid), repo=repo, bow=bow)
 
 
 # ---------------------------------------------------------------------------
@@ -721,10 +811,11 @@ class Slam:
     package): the host keyframe gate, capacity growth and the epoch
     schedule.  Runs on ``device`` (default: the CUDA card).  Feed it host
     (numpy) frames and odometry: the gate reads the odometry on the host,
-    and the keyframe step reads nothing back."""
+    and the keyframe step reads nothing back.  ``recognition.method="bow"``
+    needs a ``vocabulary`` (``recognition.vocabulary``)."""
 
     def __init__(self, config: SlamConfig = SlamConfig(), cam=None, cam_pose=None, seed: int = 0,
-                 device=None):
+                 device=None, vocabulary: voc.Vocabulary | None = None):
         check_supported(config)
         if config.sync_to_database:
             raise NotImplementedError("sync_to_database: the graph database is not ported "
@@ -734,7 +825,7 @@ class Slam:
         self.cam = cam or cam_mod.default_kinect()
         self.cam_pose = (lie.pose_identity((), self.device) if cam_pose is None
                          else _as_tensor(cam_pose, self.device).to(torch.float32))
-        self.state = init_state(config, seed, self.device)
+        self.state = init_state(config, seed, self.device, vocabulary)
         self.grid: occupancy.OccupancyGrid | None = None
         self.optimize_every = 10
         self.auto_grow = True
