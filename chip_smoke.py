@@ -101,7 +101,22 @@ runs, in order, each phase printing lines of its own:
    K21-K23 exactly, K24's scores within 1e-6; (b) each recognizer's
    kernels per query on banks of 1k, 10k and 50k nodes, with the bank's
    bytes; (d) tests/test_pr_methods.py's 30-frame 96x128 run per method on
-   the card: at least 3 proposed edges each.
+   the card: at least 3 proposed edges each;
+15. the other registration estimators: (b) the keyframe step of phase 11
+   with ``estimation.method`` "pnp" (K16 on camera 0's keypoints, K28) and
+   "gicp" (K25-K27), and "gicp" on the front + rear rig: ms per step,
+   launches, a profile with no cuSOLVER item, sync-free steps and the same
+   graph on CPU tensors with the draws each card step reports replayed
+   (``Slam.add_frame(pnp_keys=)``); (a) K25-K28 against their plain
+   versions on a late step's arguments and at larger shapes (the rig's
+   614,400 pixels into 1024 voxels, GICP on 1024-voxel clouds, PnP on 512
+   non-planar correspondences with 256 draws): K25 and K28's draws, counts
+   and ok exactly, K26 by |dot| on separated eigenvalues, K27's and K28's
+   refined poses within 1e-4, K28's mse, and each family of its hypotheses
+   (DLT, homography, Kabsch) by draw, the wall's coplanar DLT draws named
+   by their null space (see PNP_HYP_MEDIAN); (c)
+   tests/test_estimation_methods.py's 24-frame run per method on the card,
+   held to its bars.
 
 Then one JSON line with the kernels' results, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -235,7 +250,11 @@ FRONTEND_DEVICE_FUNCTIONS = {"fast_nms": ("fast_nms_tile",), "grid_topk": ("cell
                              "repository": ("nearest_chunk", "nearest_finish", "desc_hits",
                                             "topk_votes"),
                              "bow_words": ("assign_words", "count_bits", "majority_bytes"),
-                             "bow_query": ("row_scores", "topk_scores")}
+                             "bow_query": ("row_scores", "topk_scores"),
+                             "voxel_grid": ("voxel_sort_chunks", "voxel_merge",
+                                            "voxel_accumulate", "voxel_finish"),
+                             "knn_normals": ("knn_normals_kernel",), "gicp": ("gicp_problems",),
+                             "pnp": ("pnp_hypotheses_kernel", "pnp_refine_kernel")}
 # cuSOLVER / cuBLAS items that must not appear in a profiled solve
 LIBRARY_ITEMS = ("getrf", "getrs", "trsm", "gemv")
 # The card's published peaks (H100 SXM at 700 W):
@@ -321,6 +340,53 @@ PR_RUN = dict(img_h=96, img_w=128, n_frames=30, odom_drift=0.06, length=4.0)
 PR_GATES = {"feature_set": dict(min_descriptors=20, min_similarity=0.15),
             "repository": dict(repo_min_votes=5, repo_desc_per_node=48),
             "bow": dict(bow_words=64, bow_min_score=0.2)}
+# Phase 15: the gicp and pnp registration estimators, K25-K28, and the
+# kernels each estimator's keyframe step launches besides the front-end's,
+# the bilateral filter and the ICP laser edge
+REGISTRATION_REPLACES = {
+    "voxel_grid": "uzliti_slam_tpu/ops/gicp.py:56 (voxel_downsample)",
+    "knn_normals": "uzliti_slam_tpu/ops/gicp.py:89 (estimate_normals)",
+    "gicp": "uzliti_slam_tpu/ops/gicp.py:105 (gicp_6d)",
+    "pnp": "uzliti_slam_tpu/ops/pnp.py:107 (pnp_ransac, with _dlt_pose :29, _homography_pose"
+           " :58 and ransac.kabsch)",
+}
+REGISTRATION_KERNELS = tuple(REGISTRATION_REPLACES)
+REGISTRATION_SOURCE = {"voxel_grid": "uzliti_slam_tpu_torch/csrc/voxel_grid.cu",
+                       "knn_normals": "uzliti_slam_tpu_torch/csrc/gicp.cu",
+                       "gicp": "uzliti_slam_tpu_torch/csrc/gicp.cu",
+                       "pnp": "uzliti_slam_tpu_torch/csrc/pnp.cu"}
+REGISTRATION_WRAPPERS = {"voxel_grid": ("voxel_grid",), "knn_normals": ("knn_normals",),
+                         "gicp": ("gicp",), "pnp": ("pnp_hypotheses", "pnp_refine")}
+ESTIMATION_KERNELS = {"pnp": ("hamming_top2", "pnp"),
+                      "gicp": ("voxel_grid", "knn_normals", "gicp")}
+# K25 exactly (the same fixed-point sums); K26's normals within
+# NORMAL_DOT_TOL of ±the plain version's where the two smallest eigenvalues
+# of the plain version's covariance are at least EIG_GAP of the largest apart
+# (a normal's sign is arbitrary, and a near-double eigenvalue leaves its
+# vector free in the plane); K27's pose within GICP_POSE_ATOL (20 steps of a
+# 6x6 solve from sums in another order) and the same ok flag; K28's draws,
+# best hypothesis, consensus counts and ok exactly, its refined pose within
+# PNP_POSE_ATOL and its mse within PNP_MSE_RTOL of max(mse, PNP_MSE_FLOOR)
+# where the result is ok (the step's information divides by the mse floored
+# at 1e-2 px², and an exact fit's mse is rounding, ~1e-9 px²; a
+# failed candidate's few inliers leave its Gauss-Newton system
+# near-singular: its unused pose is free; each such pose that differs is
+# logged with its ok flag, consensus and best index).  K28's hypotheses,
+# each family on its own (quaternions up to sign): the median draw within
+# PNP_HYP_MEDIAN and every draw within PNP_HYP_MAX (tests/test_torch_pnp.py's
+# per-draw bar against LAPACK), over the draws whose 6 correspondences are
+# valid (a draw with an invalid one scores -1 and is never used); Kabsch
+# only where 3 or more of them have a measured depth (fewer leave its
+# rotation free); a DLT draw beyond PNP_HYP_MAX must be degenerate: its
+# 12x12 system's two smallest singular values both at most DLT_NULL_RATIO
+# of the largest (a coplanar draw's null space has more than one
+# dimension, and its pose is arbitrary on both sides).
+NORMAL_DOT_TOL, EIG_GAP = 1e-5, 1e-3
+GICP_POSE_ATOL = 1e-4
+PNP_POSE_ATOL, PNP_MSE_RTOL, PNP_MSE_FLOOR = 1e-4, 1e-4, 1e-2
+PNP_HYP_MEDIAN, PNP_HYP_MAX, DLT_NULL_RATIO = 1e-4, 1e-3, 1e-4
+# tests/test_estimation_methods.py's run: 24 frames at 96x128
+EST_RUN = dict(img_h=96, img_w=128, n_frames=24, odom_drift=0.08, length=5.0)
 
 
 T_START = time.perf_counter()
@@ -400,7 +466,10 @@ DEVICE_FUNCTIONS = ("linearize_edges", "linearize_mask", "hvp_seed", "hvp_edges"
                     "k_gauge_write", "fast_nms_tile", "global_topk", "cell_topk", "box_blur",
                     "describe", "scan_pixels", "init_table", "finalize", "match_top2",
                     "gist_rounds", "bilateral_tile", "icp_problems", "row_keys",
-                    "greedy_rounds", "init_theta", "calib_edges", "calib_solve", "bin_rows")
+                    "greedy_rounds", "init_theta", "calib_edges", "calib_solve", "bin_rows",
+                    "voxel_sort_chunks", "voxel_merge", "voxel_accumulate", "voxel_finish",
+                    "knn_normals_kernel", "gicp_problems", "pnp_hypotheses_kernel",
+                    "pnp_refine_kernel")
 
 
 def ptxas_summary(text: str) -> dict:
@@ -694,6 +763,52 @@ def kernel_work(name: str, args) -> tuple[int, int]:
         elig = int((valid & ((stamp - q_stamp).abs() >= min_dt)).sum())
         return (_nbytes(stamp, valid, q, q_stamp) + 4 * K * elig + 9 * k,
                 5 * K * elig + 2 * k * N)
+    if name == "voxel_grid":
+        # the points read once, the kept voxels written once; per point the
+        # hash (~12), its share of the chunk's bitonic sort (78 stages), the
+        # slot's binary search and a hit's 6 fixed-point adds
+        pts, lab, valid, _, V = args
+        n = pts.shape[0]
+        return (_nbytes(pts, lab, valid) + 25 * V,
+                n * (12 + 78 + 2 * max(V, 2).bit_length()) + 6 * int(valid.sum()))
+    if name == "knn_normals":
+        # per point a test against each valid point (8 flops), then the mean,
+        # covariance and the 3x3 symmetric eigenvector (~300 flops)
+        points, valid, *_ = args
+        B, M, _ = points.shape
+        nv = int(valid.sum())
+        return _nbytes(points, valid) + 12 * B * M, 8 * M * nv + 300 * B * M
+    if name == "gicp":
+        # the Lab distance of every (source point, valid target) pair once
+        # (8 flops: it does not move with the pose), per iteration the 3-D
+        # distance, its weighted sum with the Lab one and the running minimum
+        # (11 flops) and ~120 flops of each source point's row; the audit's
+        # 3-D distances (8)
+        src, _, src_valid, dst, dst_lab, dst_valid, normals, init, iters, *_ = args
+        M, nv = src.shape[0], int(dst_valid.sum())
+        return (_nbytes(src, args[1], src_valid, dst, dst_lab, dst_valid, normals, init)
+                + 40 * dst.shape[0],
+                8 * M * nv + iters * (11 * M * nv + 120 * M * dst.shape[0]) + 8 * M * nv)
+    if name == "pnp_hypotheses":
+        # per draw the selection (2 compares a key), then what a direct SVD
+        # of each system costs for its singular values and right vectors
+        # (Golub-Reinsch, 4mn² + 8n³ flops: the 12x12 DLT 20,736, the 12x9
+        # homography 9,720, the 6x3 plane 432), and the small fits (~3000)
+        X, xn, valid, depth, keys = args
+        B, H, M = keys.shape
+        F = 2 if depth is None else 3
+        svd = sum(4 * m * n * n + 8 * n ** 3 for m, n in ((12, 12), (12, 9), (6, 3)))
+        return (_nbytes(X, xn, valid, keys, *(() if depth is None else (depth,)))
+                + B * H * (24 + 28 * F), B * H * (2 * M + svd + 3000))
+    if name == "pnp_refine":
+        # the K x M consensus (~40 flops each) and 8 Gauss-Newton steps over
+        # the best hypothesis' rows (~300 flops a point: the projection, its
+        # 3x6 Jacobian, the 21 + 6 sums)
+        X, xn, valid, depth, samples, poses, *_ = args
+        B, M, _ = X.shape
+        K = poses.shape[1]
+        return (_nbytes(X, xn, valid, samples, poses, *(() if depth is None else (depth,)))
+                + B * (28 + 4 * K + 13), B * (40 * K * M + 8 * 300 * M))
     raise KeyError(name)
 
 
@@ -1136,7 +1251,7 @@ def headline_solve(g, chi2_oracle: float, reps: int):
                 "relax_min": 0, "cluster_labels": 0, "ransac_rigid": 0, "components": 2,
                 "chain_factor": 4, "pcg": 20 * (1 + 2 * 12), "project_rays": 0,
                 **{k: 0 for k in FRONTEND_KERNELS + KEYFRAME_KERNELS + MAINT_KERNELS
-                   + RECOGNITION_KERNELS}}
+                   + RECOGNITION_KERNELS + REGISTRATION_KERNELS}}
     check(counts == expected, f"launch counts {counts} != {expected}")
     finals = []
     for _ in range(reps):
@@ -1850,12 +1965,13 @@ def compare_keyframe_kernels(calls: dict, label: str) -> dict:
     return rows
 
 
-def step_config(n_cams: int, device, method: str = "gist"):
+def step_config(n_cams: int, device, method: str = "gist", estimation: str = "feature"):
     """(config, extrinsics) of the JAX bench's keyframe rungs in the default
     configuration (``_make_slam``, bench.py:283-309): 256 features, 360 bins,
     node capacity 512, edge capacity 2048, keyframe gate 0 m / 0°,
     min_consensus 10, min_matching_score 8; place recognition by ``method``
-    with its default gates."""
+    with its default gates, registration by ``estimation`` with its
+    defaults."""
     from uzliti_slam_tpu_torch.config import (EdgeEstimationConfig, KeyframeConfig,
                                               PlaceRecognitionConfig, SlamConfig)
 
@@ -1863,26 +1979,10 @@ def step_config(n_cams: int, device, method: str = "gist"):
     cfg = SlamConfig(node_capacity=512, edge_capacity=2048, feats_per_node=KEYFRAME_VGA["feats"],
                      scan_bins=KEYFRAME_VGA["scan_bins"],
                      keyframe=KeyframeConfig(new_node_distance=0.0, new_node_angle_deg=0.0),
-                     estimation=EdgeEstimationConfig(min_consensus=10, min_matching_score=8.0),
+                     estimation=EdgeEstimationConfig(method=estimation, min_consensus=10,
+                                                     min_matching_score=8.0),
                      recognition=PlaceRecognitionConfig(method=method))
     return cfg, pose
-
-
-def recorded_draws(draws: list, replay: list | None = None):
-    """A stand-in for ``ransac._valid_sample`` that records each draw into
-    ``draws``, or, given ``replay``, returns those draws in order (on the
-    caller's device)."""
-    from uzliti_slam_tpu_torch.ops import ransac
-
-    original = ransac._valid_sample
-
-    def sample(generator, k_hyp, valid, quality=None, beta=4.0):
-        if replay is not None:
-            return replay.pop(0).to(valid.device)
-        out = original(generator, k_hyp, valid, quality, beta)
-        draws.append(out)
-        return out
-    return original, sample
 
 
 def slam_structure(slam) -> dict:
@@ -1895,53 +1995,51 @@ def slam_structure(slam) -> dict:
 
 
 def keyframe_step_phase(phase: str, world, frames, n_cams: int, device, reps: int = 10,
-                        method: str = "gist", vocabulary=None, kernels: tuple = ()):
+                        method: str = "gist", vocabulary=None, kernels: tuple = (),
+                        estimation: str = "feature"):
     """Phase 11 (and 14c with another ``method``; ``vocabulary`` for "bow",
-    ``kernels`` the method's own, which must launch too): ``Slam.add_frame``
+    ``kernels`` the method's own, which must launch too; and 15b with
+    another ``estimation``, whose kernels replace K16's matching and K7's
+    RANSAC for "gicp", K7's for "pnp"): ``Slam.add_frame``
     over the rung's 13 frames in the default configuration: 3 warm-up
     keyframes, then ``reps`` timed keyframes each under CUDA sync debug
     mode "error", the counts set to 0 just before them and read after the
     first and after the last; a profile of one more step; the same frames
-    on CPU tensors through the plain path with the card's RANSAC draws.
+    on CPU tensors through the plain path with the draws each card step
+    reports in its info (RANSAC triplets or PnP keys).
     Returns (the counts of the first timed step, fields, the Slam, its frame
     inputs)."""
     from uzliti_slam_tpu_torch import pipeline
     from uzliti_slam_tpu_torch.graph import state as gstate
     from uzliti_slam_tpu_torch.kernels import ops as kops
-    from uzliti_slam_tpu_torch.ops import ransac
-
     from uzliti_slam_tpu_torch.recognition import vocabulary as voc
 
-    cfg, pose = step_config(n_cams, device, method)
+    cfg, pose = step_config(n_cams, device, method, estimation)
+    step_kernels = (STEP_KERNELS if estimation == "feature" else
+                    FRONTEND_KERNELS + ("bilateral", "icp") + ESTIMATION_KERNELS[estimation])
     warm = KEYFRAME_VGA["warmup"]
     inputs = [frame_inputs(fr, n_cams) for fr in frames]
     slam = pipeline.Slam(cfg, cam=world.cam, cam_pose=pose, device=device, vocabulary=vocabulary)
     slam.optimize_every = 10**9
-    draws: list = []
-    original, sample = recorded_draws(draws)
-    ransac._valid_sample = sample
     infos, times = [], []
-    try:
-        for i in range(warm):
-            infos.append(slam.add_frame(*inputs[i], frames[i]["odom_pose"], frames[i]["stamp"]))
+    for i in range(warm):
+        infos.append(slam.add_frame(*inputs[i], frames[i]["odom_pose"], frames[i]["stamp"]))
+    torch.cuda.synchronize()
+    kops.reset_launches()
+    for i in range(warm, warm + reps):
         torch.cuda.synchronize()
-        kops.reset_launches()
-        for i in range(warm, warm + reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                infos.append(slam.add_frame(*inputs[i], frames[i]["odom_pose"], frames[i]["stamp"]))
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            if i == warm:
-                one = dict(kops.launches)
-        total = dict(kops.launches)
-    finally:
-        ransac._valid_sample = original
-    counts = {k: total[k] / reps for k in STEP_KERNELS + kernels}
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            infos.append(slam.add_frame(*inputs[i], frames[i]["odom_pose"], frames[i]["stamp"]))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if i == warm:
+            one = dict(kops.launches)
+    total = dict(kops.launches)
+    counts = {k: total[k] / reps for k in step_kernels + kernels}
     last = len(frames) - 1
     prof, device_ms = device_profile(lambda: pipeline.process_keyframe(
         slam.state, *inputs[last], frames[last]["odom_pose"], frames[last]["stamp"], slam.cam,
@@ -1951,7 +2049,8 @@ def keyframe_step_phase(phase: str, world, frames, n_cams: int, device, reps: in
     proposed = [int(i["n_edges_proposed"]) for i in infos]
     struct = slam_structure(slam)
     lc = struct["e_type"] == gstate.EDGE_TYPE_3D_FULL
-    fields = {"n_cams": n_cams, "method": method, "keyframe_step_ms": 1e3 * t,
+    fields = {"n_cams": n_cams, "method": method, "estimation": estimation,
+              "keyframe_step_ms": 1e3 * t,
               "keyframes_per_s": 1.0 / t,
               "keyframe_step_ms_min": 1e3 * min(times), "keyframe_step_ms_max": 1e3 * max(times),
               "launches_per_step": counts, "sync_free": True,
@@ -1963,21 +2062,21 @@ def keyframe_step_phase(phase: str, world, frames, n_cams: int, device, reps: in
     fields["kernel_device_ms"] = {
         name: sum(ms for key, ms in device_ms.items()
                   if any(f"::{f}(" in key for f in FRONTEND_DEVICE_FUNCTIONS[name]))
-        for name in STEP_KERNELS + kernels}
-    # the same frames on CPU tensors through the plain path, with the card's draws
+        for name in step_kernels + kernels}
+    if estimation != "feature":
+        fields["library_items"] = library_items(device_ms)
+    # the same frames on CPU tensors through the plain path, with the draws
+    # each card step reports (its RANSAC triplets or PnP keys)
     cpu_vocab = (None if vocabulary is None
                  else voc.Vocabulary(*(t.cpu() for t in vocabulary)))
     cpu = pipeline.Slam(cfg, cam=world.cam, cam_pose=pose.cpu(), device="cpu",
                         vocabulary=cpu_vocab)
     cpu.optimize_every = 10**9
-    replay = list(draws)
-    original, sample = recorded_draws([], replay)
-    ransac._valid_sample = sample
-    try:
-        cpu_infos = [cpu.add_frame(*inputs[i], frames[i]["odom_pose"], frames[i]["stamp"])
-                     for i in range(len(frames))]
-    finally:
-        ransac._valid_sample = original
+    check(len(infos) == len(frames), f"{phase}: {len(infos)} steps for {len(frames)} frames")
+    cpu_infos = [cpu.add_frame(*inputs[i], frames[i]["odom_pose"], frames[i]["stamp"],
+                               **{k: infos[i][k].cpu() for k in ("tri", "pnp_keys")
+                                  if k in infos[i]})
+                 for i in range(len(frames))]
     ref = slam_structure(cpu)
     same = struct["n"] == ref["n"] and struct["ne"] == ref["ne"] and all(
         torch.equal(struct[k], ref[k]) for k in ("e_from", "e_to", "e_type", "e_valid", "node_valid",
@@ -1988,8 +2087,10 @@ def keyframe_step_phase(phase: str, world, frames, n_cams: int, device, reps: in
                            "proposed": [int(i["n_edges_proposed"]) for i in cpu_infos],
                            "nodes": ref["n"], "edges": ref["ne"]}
     log(phase, **fields)
-    check(all(total[k] > 0 for k in STEP_KERNELS + kernels),
+    check(all(total[k] > 0 for k in step_kernels + kernels),
           f"{phase}: a kernel was not launched: {total}")
+    check(not fields.get("library_items"), f"{phase}: library kernels in the profile: "
+                                           f"{fields.get('library_items')}")
     check(sum(fields["candidates"][half:]) > 0, f"{phase}: no candidate on the return leg")
     if n_cams == 1:
         # the rig's rear camera is fed the front's frame (the JAX bench's
@@ -2842,6 +2943,286 @@ def recognition_phase(world, frames, device) -> tuple[dict, dict, dict]:
                               "proposals": proposals}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the gicp and pnp registration estimators (K25-K28)
+# ---------------------------------------------------------------------------
+
+def _pose_err(a, b):
+    """Per pose, the largest difference of (t, q) with q up to sign; 0 where
+    both sides are non-finite, inf where one is."""
+    dt = (a[..., :3] - b[..., :3]).abs().amax(-1)
+    dq = torch.minimum((a[..., 3:] - b[..., 3:]).abs().amax(-1),
+                       (a[..., 3:] + b[..., 3:]).abs().amax(-1))
+    bad_a, bad_b = ~torch.isfinite(a).all(-1), ~torch.isfinite(b).all(-1)
+    err = torch.nan_to_num(torch.maximum(dt, dq), nan=math.inf)
+    return torch.where(bad_a & bad_b, 0.0, torch.where(bad_a | bad_b, math.inf, err))
+
+
+def _hypothesis_mismatch(args, got, ref) -> tuple[int, float, dict]:
+    """K28's hypotheses against the plain version's, family by family (see
+    PNP_HYP_MEDIAN)."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    X, xn, valid, depth, _ = args
+    samples = ref[0]
+    mism = int((got[0] != samples).sum())
+    if mism:
+        return mism, 0.0, {"draws_differ": mism}
+    B, H, _ = samples.shape
+    drawn = kops.pnp_pick(valid, samples).all(-1)
+    err = _pose_err(got[1], ref[1]).reshape(B, -1, H)
+    fams = {"dlt": drawn, "homography": drawn}
+    if depth is not None:
+        measured = kops.pnp_pick(valid & (depth > 0.05), samples).sum(-1)
+        fams["kabsch"] = drawn & (measured >= 3)
+    detail, worst = {}, 0.0
+    for f, (fam, used) in enumerate(fams.items()):
+        ef = err[:, f]
+        far = used & (ef > PNP_HYP_MAX)
+        named = torch.zeros_like(far)
+        if fam == "dlt" and bool(far.any()):
+            b, h = far.nonzero(as_tuple=True)
+            s = samples[b, h][:, None]
+            A = kops.dlt_system_plain(kops.pnp_pick(X[b], s)[:, 0], kops.pnp_pick(xn[b], s)[:, 0],
+                                      kops.pnp_pick(valid[b], s)[:, 0].float())
+            sv = torch.linalg.svdvals(A.cpu()).to(far.device)
+            named[b, h] = sv[:, -2] <= DLT_NULL_RATIO * sv[:, 0]
+        held = ef[used & ~named]
+        med = float(held.median()) if held.numel() else 0.0
+        mx = float(held.max()) if held.numel() else 0.0
+        beyond = int((far & ~named).sum())
+        detail[fam] = {"draws": int(used.sum()), "median": med, "max": mx,
+                       "named_degenerate": int(named.sum()), "beyond_max": beyond}
+        mism += beyond + int(med > PNP_HYP_MEDIAN)
+        worst = max(worst, mx)
+    return mism, worst, detail
+
+
+def _registration_mismatch(wrapper: str, args, got, ref) -> tuple[int, float, dict]:
+    """(entries that differ beyond their tolerance, max error, details) of
+    one call of a K25-K28 wrapper against its plain version (see
+    NORMAL_DOT_TOL)."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    if wrapper == "voxel_grid":
+        return sum(int((a.nan_to_num(-7.0) != b.nan_to_num(-7.0)).sum())
+                   for a, b in zip(got, ref)), 0.0, {}
+    if wrapper == "knn_normals":
+        points, valid = args[:2]
+        ev = torch.linalg.eigvalsh(kops.knn_covariance_plain(points, valid).double())
+        apart = (ev[..., 1] - ev[..., 0]) >= EIG_GAP * ev[..., 2]
+        off = (1.0 - (got * ref).sum(-1).abs())[apart & valid]
+        err = float(off.max()) if off.numel() else 0.0
+        return int((off > NORMAL_DOT_TOL).sum()), err, {}
+    if wrapper == "gicp":
+        err = float((got[0] - ref[0]).abs().max())
+        return int((got[3] != ref[3]).sum()) + int(err > GICP_POSE_ATOL), err, {}
+    if wrapper == "pnp_hypotheses":
+        return _hypothesis_mismatch(args, got, ref)
+    # pnp_refine: the pose and mse where the plain version's result is ok,
+    # the ones the step uses
+    ok = ref[3]
+    perr = _pose_err(got[0], ref[0])
+    err = float(perr[ok].max()) if bool(ok.any()) else 0.0
+    rel = ((got[2] - ref[2]).abs() / ref[2].abs().clamp(min=PNP_MSE_FLOOR))[ok]
+    mse_rel = float(rel.max()) if rel.numel() else 0.0
+    mism = sum(int((a != b).sum()) for a, b in zip(got[1:], ref[1:]) if a.dtype != torch.float32)
+    free = [{"candidate": b, "pose_err": float(perr[b]), "ok": bool(ok[b]),
+             "ok_kernel": bool(got[3][b]), "consensus": int(ref[1][b]), "best": int(ref[4][b]),
+             "best_count": int(ref[5][b, ref[4][b]])}
+            for b in (~ok & (perr > PNP_POSE_ATOL)).nonzero()[:, 0].tolist()]
+    return (mism + int(err > PNP_POSE_ATOL) + int(mse_rel > PNP_MSE_RTOL), err,
+            {"mse_rel_err": mse_rel, "ok": int(ok.sum()), "failed_poses_differing": free})
+
+
+def compare_registration_kernels(calls: dict, label: str, trials: int = 5,
+                                 calls_per: int = 2) -> dict:
+    """K25-K28 against their plain versions on recorded or generated
+    arguments ({wrapper: [(args, kwargs), ...]}), by
+    ``_registration_mismatch``; times over all the calls of a kernel's
+    wrappers and the bound.  No single PyTorch call computes any of these
+    functions (library_ms None)."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    rows = {}
+    for name in REGISTRATION_KERNELS:
+        wrappers = REGISTRATION_WRAPPERS[name]
+        check(all(calls.get(w) for w in wrappers), f"{name} {label}: no call recorded")
+        mism, err, details = 0, 0.0, {}
+        for w in wrappers:
+            for c, (args, kw) in enumerate(calls[w]):
+                got, ref = getattr(kops, w)(*args, **kw), getattr(kops, f"{w}_plain")(*args, **kw)
+                torch.cuda.synchronize()
+                got = got if isinstance(got, tuple) else (got,)
+                ref = ref if isinstance(ref, tuple) else (ref,)
+                m, e, d = _registration_mismatch(w, args, got[0] if w == "knn_normals" else got,
+                                                 ref[0] if w == "knn_normals" else ref)
+                mism, err = mism + m, max(err, e)
+                if d:
+                    details[f"{w}[{c}]"] = d
+
+        def run(plain: bool):
+            for w in wrappers:
+                fn = getattr(kops, f"{w}_plain" if plain else w)
+                for args, kw in calls[w]:
+                    fn(*args, **kw)
+
+        row = {"calls": {w: len(calls[w]) for w in wrappers}, "mismatches": mism,
+               "max_abs_err": err, **({"checks": details} if details else {})}
+        # K28's plain version takes ~1.5 s a call (tens of thousands of small
+        # tensor operations): fewer trials of it
+        few = name == "pnp"
+        row["ms"], row["plain_ms"] = time_pair(lambda: run(False), lambda: run(True),
+                                               trials=min(trials, 3) if few else trials,
+                                               calls=1 if few else calls_per)
+        row["library_ms"] = None
+        row.update(bound_wrapper_calls(calls, wrappers))
+        log(f"15a kernel {name} {label}", **row)
+        check(mism == 0, f"{name} {label}: {mism} entries differ from the plain version "
+                         f"(max error {err})")
+        rows[name] = row
+    return rows
+
+
+def registration_large_calls(world, frames, device) -> dict:
+    """The large shapes: K25 on the front + rear rig's 614,400 pixels into
+    V = 1024; K26 and K27 on ten V = 1024 clouds of the sequence against the
+    eleventh; K28 on ten synthetic non-planar problems of M = 512
+    correspondences (a quarter outliers, measured depth) with 256 draws
+    (768 hypotheses)."""
+    import dataclasses
+
+    from uzliti_slam_tpu_torch import pipeline
+    from uzliti_slam_tpu_torch.config import f32
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+    from uzliti_slam_tpu_torch.ops import lie, pnp
+
+    def cfg_1024(n_cams):
+        cfg, pose = step_config(n_cams, device, estimation="gicp")
+        return dataclasses.replace(cfg, estimation=dataclasses.replace(
+            cfg.estimation, gicp_max_voxels=1024)), pose
+
+    cfg2, pose2 = cfg_1024(2)
+    calls = record_args(lambda: pipeline.keyframe_frontend(
+        *frame_inputs(frames[0], 2), world.cam, pose2, cfg2), ("voxel_grid",))
+    cfg1, pose1 = cfg_1024(1)
+    clouds = [pipeline.keyframe_frontend(*frame_inputs(fr, 1), world.cam, pose1, cfg1).cloud
+              for fr in frames[:11]]
+    dst = [torch.stack([c[i] for c in clouds[:10]]).contiguous() for i in range(3)]
+    normals = kops.knn_normals(dst[0], dst[2])
+    calls["knn_normals"] = [((dst[0], dst[2]), {})]
+    calls["gicp"] = [((*clouds[10], dst[0], dst[1], dst[2], normals,
+                       lie.pose_identity((10,), device), 20, f32(0.2 ** 2), f32(0.002), f32(0.3),
+                       1.0, f32(math.pi / 6)), {})]
+    g = torch.Generator().manual_seed(SEED + 30)
+    B, M, H = 10, 512, 256
+    T = lie.se3_exp(torch.tensor([0.2, -0.1, 0.3, 0.1, -0.15, 0.2]))
+    X = torch.cat([torch.rand(B, M, 2, generator=g) * 4 - 2,
+                   torch.rand(B, M, 1, generator=g) * 5 + 3], -1)
+    Xc = lie.pose_apply(T, X)
+    xn = Xc[..., :2] / Xc[..., 2:] + 0.001 * torch.randn(B, M, 2, generator=g)
+    xn[:, 3 * M // 4:] += 0.2 * torch.randn(B, M // 4, 2, generator=g)
+    valid = torch.rand(B, M, generator=g) > 0.1
+    args = [t.to(device).contiguous() for t in (X, xn, valid, Xc[..., 2])]
+    keys = torch.rand(B, H, M, generator=g).to(device)
+    samples, poses = kops.pnp_hypotheses(*args, keys)
+    thresh2, f_mean2 = pnp.thresholds(525.0, 525.0, 3.0)
+    calls["pnp_hypotheses"] = [((*args, keys), {})]
+    calls["pnp_refine"] = [((*args, samples, poses, thresh2, f32(0.04), 10.0, 8, f_mean2), {})]
+    return calls
+
+
+def estimation_run(method: str, device) -> dict:
+    """15c: tests/test_estimation_methods.py's run_method (24 frames at
+    96x128, its config) through the port's Slam on the card, held to that
+    test's bars; the counts set to 0 just before it and read just after."""
+    import numpy as np
+
+    from uzliti_slam_tpu_torch import pipeline
+    from uzliti_slam_tpu_torch.config import EdgeEstimationConfig, KeyframeConfig, SlamConfig
+    from uzliti_slam_tpu_torch.graph import state as gstate
+    from uzliti_slam_tpu_torch.io import simulator, synthetic
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    er = EST_RUN
+    extra = {"gicp_max_voxels": 192} if method == "gicp" else {}
+    cfg = SlamConfig(node_capacity=64, edge_capacity=256, feats_per_node=96, scan_bins=180,
+                     keyframe=KeyframeConfig(new_node_distance=0.25),
+                     estimation=EdgeEstimationConfig(method=method, min_consensus=10,
+                                                     min_matching_score=8.0, **extra))
+    world = simulator.WallWorld(img_h=er["img_h"], img_w=er["img_w"])
+    frames = simulator.simulate_sequence(world, n_frames=er["n_frames"],
+                                         odom_drift=er["odom_drift"], length=er["length"])
+    slam = pipeline.Slam(cfg, cam=world.cam, cam_pose=simulator.cam_extrinsic(device=device),
+                         device=device)
+    slam.optimize_every = 12
+    torch.cuda.synchronize()
+    kops.reset_launches()
+    for fr in frames:
+        slam.add_frame(fr["image"], fr["depth"], fr["odom_pose"], fr["stamp"])
+    slam.optimize()
+    torch.cuda.synchronize()
+    counts = dict(kops.launches)
+    g = slam.state.graph
+    n, ne = int(g.num_nodes), int(g.num_edges)
+    stamps = g.stamp[:n].cpu().numpy().astype(int)
+    gt = torch.from_numpy(np.stack([frames[s]["gt_pose"] for s in stamps]))
+    odo = torch.from_numpy(np.stack([frames[s]["odom_pose"] for s in stamps]))
+    ate = float(synthetic.ate_rmse(g.pose[:n].cpu(), gt))
+    ate_odo = float(synthetic.ate_rmse(odo, gt))
+    lc = g.e_type[:ne].cpu() == gstate.EDGE_TYPE_3D_FULL
+    validated = int(g.e_valid[:ne].cpu()[lc].sum())
+    fields = {"method": method, "nodes": n, "closures": int(lc.sum()), "validated": validated,
+              "ate_m": ate, "ate_odometry_m": ate_odo,
+              "launches": {k: counts[k] for k in ESTIMATION_KERNELS[method]}}
+    if method == "gicp":
+        fields["nodes_with_cloud"] = int(slam.state.cloud_valid.any(-1).sum())
+    log(f"15c {method} run 96x128", **fields)
+    check(all(counts[k] > 0 for k in ESTIMATION_KERNELS[method]),
+          f"15c {method}: a kernel was not launched: {counts}")
+    check(fields["closures"] >= 3 and validated >= 1,
+          f"15c {method}: {fields['closures']} closures, {validated} validated")
+    check(ate <= ate_odo + 1e-6, f"15c {method}: ATE {ate} above odometry's {ate_odo}")
+    if method == "pnp":
+        check(ate < 0.2, f"15c pnp: ATE {ate} m")
+    else:
+        check(fields["nodes_with_cloud"] >= 10, f"15c gicp: {fields['nodes_with_cloud']} clouds")
+    return fields
+
+
+def estimation_phase(world, frames, device) -> tuple[dict, dict, dict]:
+    """Phase 15: (b) the keyframe step of phase 11 (VGA, 1 camera, the same
+    frames and settings) with ``estimation.method`` "pnp" and "gicp", and
+    "gicp" on the front + rear rig, each sync-free, its kernels launched, no
+    library kernel in its profile and the same graph on CPU tensors with
+    the card's draws; (a) K25-K28 against their plain versions on a late
+    step's arguments and at the large shapes; (c) the reference's
+    24-frame run per method.  Returns (main rows, large rows, fields)."""
+    from uzliti_slam_tpu_torch import pipeline
+
+    steps, recorded = {}, {}
+    last = len(frames) - 1
+    for est in ("pnp", "gicp"):
+        one, fields, slam, inputs = keyframe_step_phase(
+            f"15b keyframe step VGA 1 camera {est}", world, frames, 1, device, estimation=est)
+        fields["launches_first_step"] = {k: one[k] for k in ESTIMATION_KERNELS[est]}
+        steps[est] = fields
+        names = tuple(w for k in ESTIMATION_KERNELS[est] if k in REGISTRATION_WRAPPERS
+                      for w in REGISTRATION_WRAPPERS[k])
+        recorded.update(record_args(lambda: pipeline.process_keyframe(
+            slam.state, *inputs[last], frames[last]["odom_pose"], frames[last]["stamp"],
+            slam.cam, slam.cam_pose, slam.config), names))
+        del slam
+    _, steps["gicp_rig"], slam, _ = keyframe_step_phase(
+        "15b keyframe step VGA front + rear gicp", world, frames, 2, device, estimation="gicp")
+    del slam
+    rows = compare_registration_kernels(recorded, "VGA step")
+    rows_large = compare_registration_kernels(registration_large_calls(world, frames, device),
+                                              "large", trials=3, calls_per=1)
+    runs = {m: estimation_run(m, device) for m in ("pnp", "gicp")}
+    return rows, rows_large, {"steps": steps, "runs": runs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA card",
@@ -2978,6 +3359,9 @@ def main() -> int:
     # phase 14: the other place recognizers, each method's keyframe step
     # driven with the counts set to 0 just before it and read just after
     rec_rows, rec_rows_large, rec_fields = recognition_phase(kf_world, kf_frames, dev)
+    # phase 15: the gicp and pnp estimators, each method's keyframe step
+    # driven with the counts set to 0 just before it and read just after
+    est_rows, est_rows_large, est_fields = estimation_phase(kf_world, kf_frames, dev)
     # each kernel's main path: the 1k solve for K1-K4, K9, K10; the 500-node
     # epoch for K5-K8; the projection sequence after it for K11; the first
     # timed keyframe step (phase 11, 1 camera) for K12-K18
@@ -3079,12 +3463,39 @@ def main() -> int:
              "plain_ms_large": rl["plain_ms"], "bound_ms_large": rl["bound_ms"],
              "library_ms_large": rl["library_ms"], "shapes_large": shapes14[name][1]})
     kernels[-2]["launches_vocabulary_build"] = rec_fields["vocabulary"]["bow_words_launches"]
-    check(len(kernels) == 26, f"{len(kernels)} kernel entries")
+    # K25-K28: the main path is each estimator's first timed keyframe step
+    # (15b, 1 camera); the main shapes are a late step's arguments
+    est_of = {"voxel_grid": "gicp", "knn_normals": "gicp", "gicp": "gicp", "pnp": "pnp"}
+    shapes15 = {
+        "voxel_grid": ("VGA keyframe step, gicp: 307,200 pixels into V = 256",
+                       "front + rear rig: 614,400 pixels into V = 1024"),
+        "knn_normals": ("VGA keyframe step, gicp: 10 candidate clouds of V = 256",
+                        "10 clouds of V = 1024"),
+        "gicp": ("VGA keyframe step, gicp: 10 candidates, V = 256, 20 iterations",
+                 "10 clouds of V = 1024, 20 iterations"),
+        "pnp": ("VGA keyframe step, pnp: 10 candidates x 64 draws (192 hypotheses), M = 256",
+                "10 synthetic problems x 256 draws (768 hypotheses), M = 512")}
+    for name in REGISTRATION_KERNELS:
+        r, rl = est_rows[name], est_rows_large[name]
+        step = est_fields["steps"][est_of[name]]
+        kernels.append(
+            {"name": name, "route": "cuda", "source": REGISTRATION_SOURCE[name],
+             "replaces": REGISTRATION_REPLACES[name],
+             "launches": step["launches_first_step"][name],
+             "launches_step_1cam": step["launches_per_step"][name],
+             "launches_run_96x128": est_fields["runs"][est_of[name]]["launches"][name],
+             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+             "shapes": shapes15[name][0], "device_ms_step": step["kernel_device_ms"].get(name),
+             "max_abs_err_large": rl["max_abs_err"], "ms_large": rl["ms"],
+             "plain_ms_large": rl["plain_ms"], "bound_ms_large": rl["bound_ms"],
+             "library_ms_large": rl["library_ms"], "shapes_large": shapes15[name][1]})
+    check(len(kernels) == 30, f"{len(kernels)} kernel entries")
     print(json.dumps({"kernels": kernels, "ate": ate,
                       "maintenance": {"merge_500": merge_fields, "merge_10k": merge10k,
                                       "long_run": long_run, "reregistration": rereg_fields,
                                       "calibration": calib_fields},
-                      "recognition": rec_fields}))
+                      "recognition": rec_fields, "estimation": est_fields}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

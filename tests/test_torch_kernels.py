@@ -51,7 +51,8 @@ def test_nvcc_flags_target_hopper_without_fast_math():
         "cluster_labels.cu", "ransac_rigid.cu", "components.cu", "chain_factor.cu", "pcg.cu",
         "occupancy.cu", "fast_nms.cu", "grid_topk.cu", "orb_describe.cu", "scan_bins.cu",
         "hamming_top2.cu", "bilateral.cu", "icp.cu", "merge_pairs.cu", "calib_gn.cu",
-        "feature_votes.cu", "repository.cu", "bow_words.cu", "bow_query.cu"}
+        "feature_votes.cu", "repository.cu", "bow_words.cu", "bow_query.cu", "voxel_grid.cu",
+        "gicp.cu", "pnp.cu"}
 
 
 def test_every_exported_function_has_a_signature_of_its_arity():
@@ -459,13 +460,19 @@ def test_lu3_solves_and_inverts_with_partial_pivoting():
     A = rng.normal(size=(50, 3, 3)).astype(np.float32)
     A[0] = [[0.0, 1.0, 2.0], [1.0, 0.0, 3.0], [4.0, -3.0, 8.0]]      # a zero leading pivot
     b = rng.normal(size=(50, 3)).astype(np.float32)
-    lu, perm = kops.lu3(torch.from_numpy(A))
-    x = kops.lu3_solve(lu, perm, torch.from_numpy(b)).numpy()
-    np.testing.assert_allclose(x, np.linalg.solve(A.astype(np.float64), b[..., None])[..., 0],
+    x = kops.lu_solve_plain(torch.from_numpy(A), torch.from_numpy(b))
+    np.testing.assert_allclose(x.numpy(),
+                               np.linalg.solve(A.astype(np.float64), b[..., None])[..., 0],
                                rtol=1e-3, atol=1e-3)
-    assert perm[0].tolist() == [2, 0, 1]
-    inv = kops.inv3(torch.from_numpy(A)).numpy()
-    np.testing.assert_allclose(inv @ A, np.broadcast_to(np.eye(3), A.shape), atol=1e-3)
+    # the zero leading pivot takes row 2 (the largest |a_i0|): exact in float32
+    np.testing.assert_array_equal(x[0].numpy(), np.linalg.solve(A[0].astype(np.float64),
+                                                                b[0]).astype(np.float32))
+    inv = kops.inv3(torch.from_numpy(A))
+    np.testing.assert_allclose(inv.numpy() @ A, np.broadcast_to(np.eye(3), A.shape), atol=1e-3)
+    # several right-hand sides: each column as its own solve, bit for bit
+    cols = torch.stack([kops.lu_solve_plain(torch.from_numpy(A), torch.eye(3)[:, c].expand(50, 3))
+                        for c in range(3)], dim=-1)
+    assert torch.equal(inv, cols)
 
 
 def test_keyframe_kernels_launch_through_the_library(fake_lib):
@@ -729,4 +736,156 @@ def test_recognition_kernel_argument_checks_raise(fake_lib):
     with pytest.raises(ValueError, match="counts: shape"):
         kops.word_majority(_meta(10, 32, dtype=u8), _meta(10, dtype=b), _meta(10, dtype=i32),
                            _meta(4, 2, dtype=i32))
+    assert fake_lib.calls == []
+
+
+def _registration_cases():
+    """Small inputs of K25-K28 (the gicp and pnp estimators), from a seed."""
+    from uzliti_slam_tpu_torch.ops import lie
+
+    g = torch.Generator().manual_seed(3)
+    pts = torch.rand(500, 3, generator=g) * 0.4
+    lab = torch.rand(500, 3, generator=g) * 100
+    valid = torch.rand(500, generator=g) > 0.2
+    cloud = torch.rand(2, 40, 3, generator=g)
+    cvalid = torch.rand(2, 40, generator=g) > 0.1
+    T = lie.se3_exp(torch.tensor([[0.01, -0.02, 0.0, 0.01, 0.0, -0.01]] * 2))
+    src = lie.pose_apply(T[:1], cloud[0])
+    normals = kops.knn_normals_plain(cloud, cvalid)
+    X = torch.cat([torch.rand(2, 30, 2, generator=g) * 4 - 2,
+                   torch.rand(2, 30, 1, generator=g) * 5 + 3], -1)
+    xn = X[..., :2] / X[..., 2:] + 0.001 * torch.randn(2, 30, 2, generator=g)
+    pvalid = torch.rand(2, 30, generator=g) > 0.2
+    depth = X[..., 2].contiguous()
+    keys = torch.rand(2, 8, 30, generator=g)
+    samples, poses = kops.pnp_hypotheses_plain(X, xn, pvalid, depth, keys)
+    return [
+        ("voxel_grid", (pts, lab, valid, 20.0, 64)),
+        ("knn_normals", (cloud, cvalid)),
+        ("gicp", (src, lab[:40], cvalid[0], cloud, lab[:40].expand(2, 40, 3).contiguous(), cvalid,
+                  normals, lie.pose_identity((2,)), 5, 0.04, 0.002, 0.3, 1.0, math.pi / 6)),
+        ("pnp_hypotheses", (X, xn, pvalid, depth, keys)),
+        ("pnp_refine", (X, xn, pvalid, depth, samples, poses, 3.6e-5, 0.04, 8.0, 4, 250000.0)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(5), ids=["voxel_grid", "knn_normals", "gicp",
+                                                 "pnp_hypotheses", "pnp_refine"])
+def test_registration_kernel_wrappers_run_their_plain_version_on_cpu(case):
+    name, args = _registration_cases()[case]
+    kops.reset_launches()
+    got, ref = getattr(kops, name)(*args), getattr(kops, f"{name}_plain")(*args)
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    ref if isinstance(ref, tuple) else (ref,)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    assert kops.launches == {k: 0 for k in kops.launches}
+    if name == "voxel_grid":   # 8 x 8 x 8 cells of 5 cm: fewer than 64 kept, means inside their cell
+        pts, _, valid = got
+        assert 0 < int(valid.sum()) <= 64 and bool((pts[valid] >= 0).all())
+
+
+def test_voxel_grid_plain_keeps_the_smallest_ids_and_poisons_non_finite_points():
+    pts = torch.tensor([[0.01, 0.01, 0.0], [0.02, 0.02, 0.0], [1.0, 1.0, 1.0], [0.0, 0.0, 0.0]])
+    lab = torch.tensor([[1.0, 0, 0], [0, 1.0, 0], [0, 0, 1.0], [5.0, 5.0, 5.0]])
+    valid = torch.tensor([True, True, True, False])
+    p, c, v = kops.voxel_grid_plain(pts, lab, valid, 20.0, 16)
+    assert int(v.sum()) == 2
+    ids = kops.voxel_ids_plain(pts, valid, 20.0)
+    assert int(ids[3]) == kops.VOXEL_EMPTY and int(ids[0]) == int(ids[1])
+    first = int(torch.argmin(torch.where(valid, ids, 2**40)))
+    slot0 = p[0] if first == 0 else p[1]
+    assert torch.allclose(slot0, torch.tensor([0.015, 0.015, 0.0]), atol=1e-6)
+    p1, _, v1 = kops.voxel_grid_plain(pts, lab, valid, 20.0, 1)   # only the smallest id kept
+    assert int(v1.sum()) == 1
+    pts[3, 1] = math.nan                                     # an invalid NaN point: NaN in its slot
+    p2, _, _ = kops.voxel_grid_plain(pts, lab, valid, 20.0, 16)
+    assert int(torch.isnan(p2).sum()) == 1
+
+
+def test_lu_solve_plain_and_jacobi_factorizations():
+    g = torch.Generator().manual_seed(1)
+    A = torch.randn(4, 6, 6, generator=g, dtype=torch.float64)
+    A[0, 0, 0] = 0.0                                    # the first pivot needs a row swap
+    b = torch.randn(4, 6, generator=g, dtype=torch.float64)
+    torch.testing.assert_close(kops.lu_solve_plain(A, b), torch.linalg.solve(A, b))
+    S = A @ A.transpose(-1, -2)
+    vals, vecs = kops.jacobi_eigh3_plain(S[:, :3, :3])
+    torch.testing.assert_close(vecs @ torch.diag_embed(vals) @ vecs.transpose(-1, -2), S[:, :3, :3])
+    M = torch.randn(5, 12, 9, generator=g, dtype=torch.float64)
+    AV, V, sig = kops.jacobi_svd_plain(M)
+    torch.testing.assert_close(torch.sort(sig, descending=True).values, torch.linalg.svdvals(M))
+    torch.testing.assert_close(AV, M @ V)
+    R, _ = kops.proper_rotation_plain(torch.randn(3, 3, 3, generator=g, dtype=torch.float64))
+    torch.testing.assert_close(R @ R.transpose(-1, -2), torch.eye(3, dtype=torch.float64).expand(3, 3, 3))
+    assert bool((torch.linalg.det(R) > 0).all())
+
+
+def test_registration_kernels_launch_through_the_library(fake_lib):
+    b, i32 = torch.bool, torch.int32
+    p, c, v = kops.voxel_grid(_meta(307200, 3), _meta(307200, 3), _meta(307200, dtype=b), 20.0,
+                              256)
+    assert fake_lib.calls[-1][0] == "uz_voxel_grid" and fake_lib.calls[-1][1][3:6] == (
+        307200, 20.0, 256)
+    assert tuple(p.shape) == (256, 3) and v.dtype == b
+    n = kops.knn_normals(_meta(10, 256, 3), _meta(10, 256, dtype=b))
+    assert fake_lib.calls[-1][0] == "uz_knn_normals" and fake_lib.calls[-1][1][2:4] == (10, 256)
+    assert tuple(n.shape) == (10, 256, 3)
+    pose, frac, mse, ok = kops.gicp(_meta(256, 3), _meta(256, 3), _meta(256, dtype=b),
+                                    _meta(10, 256, 3), _meta(10, 256, 3), _meta(10, 256, dtype=b),
+                                    _meta(10, 256, 3), _meta(10, 7), 20, 0.04, 0.002, 0.3, 1.0,
+                                    0.5)
+    assert fake_lib.calls[-1][0] == "uz_gicp"
+    assert fake_lib.calls[-1][1][8:17] == pytest.approx((10, 256, 256, 20, 0.04, 0.002, 0.3, 1.0,
+                                                         0.5))
+    assert tuple(pose.shape) == (10, 7) and ok.dtype == b
+    smp, poses = kops.pnp_hypotheses(_meta(10, 256, 3), _meta(10, 256, 2), _meta(10, 256, dtype=b),
+                                     _meta(10, 256), _meta(10, 64, 256))
+    assert fake_lib.calls[-1][0] == "uz_pnp_hypotheses" and fake_lib.calls[-1][1][5:8] == (
+        10, 256, 64)
+    assert tuple(smp.shape) == (10, 64, 6) and tuple(poses.shape) == (10, 192, 7)
+    kops.pnp_hypotheses(_meta(10, 256, 3), _meta(10, 256, 2), _meta(10, 256, dtype=b), None,
+                        _meta(10, 64, 256))
+    assert fake_lib.calls[-1][1][3] is None   # no depth: a null pointer, two families
+    out = kops.pnp_refine(_meta(10, 256, 3), _meta(10, 256, 2), _meta(10, 256, dtype=b),
+                          _meta(10, 256), _meta(10, 64, 6, dtype=i32), _meta(10, 192, 7), 3.6e-5,
+                          0.04, 10.0, 8, 275625.0)
+    assert fake_lib.calls[-1][0] == "uz_pnp_refine"
+    assert fake_lib.calls[-1][1][6:15] == pytest.approx((10, 256, 64, 192, 3.6e-5, 0.04, 10.0, 8,
+                                                         275625.0))
+    assert out[1].dtype == i32 and tuple(out[5].shape) == (10, 192)
+    # K28's two entry points are one kernel
+    assert kops.launches["voxel_grid"] == kops.launches["knn_normals"] == 1
+    assert kops.launches["gicp"] == 1 and kops.launches["pnp"] == 3
+
+
+def test_registration_kernel_argument_checks_raise(fake_lib):
+    b, i32 = torch.bool, torch.int32
+    with pytest.raises(ValueError, match="max_out"):
+        kops.voxel_grid(_meta(10, 3), _meta(10, 3), _meta(10, dtype=b), 20.0, 4096)
+    with pytest.raises(TypeError, match="valid: dtype"):
+        kops.voxel_grid(_meta(10, 3), _meta(10, 3), _meta(10, dtype=torch.uint8), 20.0, 16)
+    with pytest.raises(ValueError, match="k = 8 neighbours"):
+        kops.knn_normals(_meta(2, 5, 3), _meta(2, 5, dtype=b))
+    with pytest.raises(ValueError, match="5000 points"):
+        kops.knn_normals(_meta(1, 5000, 3), _meta(1, 5000, dtype=b))
+    with pytest.raises(ValueError, match="target points"):
+        kops.gicp(_meta(8, 3), _meta(8, 3), _meta(8, dtype=b), _meta(1, 4096, 3),
+                  _meta(1, 4096, 3), _meta(1, 4096, dtype=b), _meta(1, 4096, 3), _meta(1, 7), 20,
+                  0.04, 0.002, 0.3, 1.0, 0.5)
+    with pytest.raises(ValueError, match="init: shape"):
+        kops.gicp(_meta(8, 3), _meta(8, 3), _meta(8, dtype=b), _meta(2, 16, 3), _meta(2, 16, 3),
+                  _meta(2, 16, dtype=b), _meta(2, 16, 3), _meta(7), 20, 0.04, 0.002, 0.3, 1.0, 0.5)
+    with pytest.raises(ValueError, match="keys: shape"):
+        kops.pnp_hypotheses(_meta(2, 30, 3), _meta(2, 30, 2), _meta(2, 30, dtype=b), None,
+                            _meta(2, 8, 31))
+    with pytest.raises(ValueError, match="a draw takes 6"):
+        kops.pnp_hypotheses(_meta(2, 5, 3), _meta(2, 5, 2), _meta(2, 5, dtype=b), None,
+                            _meta(2, 8, 5))
+    with pytest.raises(ValueError, match="192 hypotheses for 32 draws"):
+        kops.pnp_refine(_meta(2, 30, 3), _meta(2, 30, 2), _meta(2, 30, dtype=b), _meta(2, 30),
+                        _meta(2, 32, 6, dtype=i32), _meta(2, 192, 7), 3.6e-5, 0.04, 10.0, 8, 1.0)
+    with pytest.raises(ValueError, match="shared memory"):
+        kops.pnp_refine(_meta(1, 2048, 3), _meta(1, 2048, 2), _meta(1, 2048, dtype=b),
+                        _meta(1, 2048), _meta(1, 16384, 6, dtype=i32), _meta(1, 49152, 7), 3.6e-5,
+                        0.04, 10.0, 8, 1.0)
     assert fake_lib.calls == []

@@ -204,21 +204,17 @@ def test_slam_config_fields_and_defaults_match_jax():
         ref = {f.name: f.default for f in dataclasses.fields(j_cls)}
         for f in dataclasses.fields(t_cls):
             if dataclasses.is_dataclass(f.default):
+                # every estimator's and every recognizer's knobs are here
                 got, want = dataclasses.asdict(f.default), dataclasses.asdict(ref[f.name])
-                # the knobs of the other estimators come with their paths
-                # (ROADMAP.md A25); every recognizer's are here
-                unported = set(want) - set(got) if f.name == "estimation" else set()
-                assert all(k.startswith(("gicp_", "pnp_"))
-                           or k in tconfig.UNPORTED_GATES for k in unported), unported
-                assert got == {k: v for k, v in want.items() if k not in unported}, f.name
+                assert got == want, f.name
             else:
                 assert f.default == ref[f.name], f.name
     assert tconfig.SlamConfig().solver.odometry_restart
     ref = jconfig.tunables_from_config(jconfig.SlamConfig())._asdict()
     got = dataclasses.asdict(tconfig.tunables_from_config(tconfig.SlamConfig()))
-    assert set(got) | set(tconfig.UNPORTED_GATES) == set(ref)
-    assert set(tconfig.UNPORTED_GATES) == {"gicp_max_corr", "pnp_reproj_px"}
-    assert got == {k: float(v) for k, v in ref.items() if k in got}
+    # the port's gates are exactly JAX's: no gate is left unported
+    assert set(got) == set(ref) and not hasattr(tconfig, "UNPORTED_GATES")
+    assert got == {k: float(v) for k, v in ref.items()}
 
 
 def test_init_state_and_state_from_numpy():

@@ -2,12 +2,11 @@
 tick and the ``Slam`` shell read.
 
 Counterpart of ``uzliti_slam_tpu/config.py`` with the same names and
-defaults, less the knobs of paths the port does not have: the other
-estimators' (GICP, PnP; ROADMAP.md A25), which come with those paths.
-Every place recognizer is ported ("gist", "feature_set", "repository",
-"bow").  The switches that select an unported path (``estimation.method``,
-``sync_to_database``) are kept, and ``pipeline.Slam`` raises
-``NotImplementedError`` for their unported values.
+defaults for the ported paths: every place recognizer ("gist",
+"feature_set", "repository", "bow") and every registration estimator
+("feature", "gicp", "pnp").  The switch of an unported path
+(``sync_to_database``) is kept, and ``pipeline.Slam`` raises
+``NotImplementedError`` for it.
 
 The numeric gates live in ``Tunables``, as in the reference, which keeps
 them as float32 device scalars so that ``Slam.set_param`` retunes them
@@ -94,9 +93,11 @@ class PlaceRecognitionConfig:
 
 @dataclasses.dataclass(frozen=True)
 class EdgeEstimationConfig:
-    """The fields of ``uzliti_slam_tpu.config.EdgeEstimationConfig`` that
-    ``method="feature"`` (Hamming match + RANSAC) and the ICP laser edges
-    read, with the same defaults."""
+    """Same fields and defaults as
+    ``uzliti_slam_tpu.config.EdgeEstimationConfig``: the registration
+    estimator ("feature" = Hamming match + 3-point RANSAC, "gicp" = dense
+    colored 6-D ICP on voxel clouds, "pnp" = 2D-3D RANSAC), the ICP laser
+    edges and the acceptance gates."""
 
     method: str = "feature"
     ransac_hypotheses: int = 128
@@ -111,6 +112,12 @@ class EdgeEstimationConfig:
     min_matching_score: float = 10.0
     max_edge_translation: float = 2.0
     max_edge_rotation_deg: float = 60.0
+    gicp_voxel: float = 0.05
+    gicp_max_voxels: int = 256
+    gicp_iterations: int = 20
+    gicp_max_corr: float = 0.2
+    pnp_hypotheses: int = 64
+    pnp_reproj_px: float = 3.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,8 +133,7 @@ class KeyframeConfig:
 
 @dataclasses.dataclass(frozen=True)
 class Tunables:
-    """The live-retunable gates of the ported paths
-    (``uzliti_slam_tpu.config.Tunables`` less ``UNPORTED_GATES``), host
+    """The live-retunable gates (``uzliti_slam_tpu.config.Tunables``), host
     floats rounded to float32."""
 
     fast_threshold: float
@@ -148,14 +154,11 @@ class Tunables:
     max_edge_rotation_deg: float
     icp_max_corr: float
     icp_min_valid_fraction: float
+    gicp_max_corr: float
+    pnp_reproj_px: float
 
     def replace(self, **changes) -> "Tunables":
         return dataclasses.replace(self, **{k: f32(v) for k, v in changes.items()})
-
-
-# the reference's gates whose paths are not ported, and the ROADMAP.md
-# item that brings each
-UNPORTED_GATES = dict.fromkeys(("gicp_max_corr", "pnp_reproj_px"), "A25")
 
 
 def f32(v) -> float:
@@ -185,6 +188,8 @@ def tunables_from_config(cfg: "SlamConfig") -> Tunables:
         max_edge_rotation_deg=f32(ec.max_edge_rotation_deg),
         icp_max_corr=f32(ec.icp_max_corr),
         icp_min_valid_fraction=f32(ec.icp_min_valid_fraction),
+        gicp_max_corr=f32(ec.gicp_max_corr),
+        pnp_reproj_px=f32(ec.pnp_reproj_px),
     )
 
 

@@ -14,7 +14,8 @@
 //   4. the weighted refit on that hypothesis's inliers: weighted means, the
 //      3x3 cross-covariance, its SVD by one-sided (Hestenes) cyclic Jacobi in
 //      registers, R = U diag(1, 1, d) V^T, t = mu_d - R mu_s, and the
-//      quaternion by the Shepperd branches of lie.matrix_to_quat;
+//      quaternion by the Shepperd branches of lie.matrix_to_quat (both in
+//      linalg.cuh, shared with K28);
 //   5. consensus, mse, the information model and ok under the refit.
 // For the rotation, U and V are completed from the two largest singular
 // pairs by cross products (u3 = u1 x u2, v3 = v1 x v2): that gives exactly
@@ -35,12 +36,11 @@
 // microseconds of work on 51 of the 132 SMs, i.e. latency.
 #include <cuda_runtime.h>
 
-#include "lie.cuh"
+#include "linalg.cuh"
 
 namespace {
 
 constexpr int kPowerIters = 30;
-constexpr int kJacobiSweeps = 12;
 constexpr int kSums = 9;
 
 __device__ __forceinline__ float err2_of(const float pose[7], const float* s, const float* d) {
@@ -114,116 +114,6 @@ __device__ void horn_fit3(const float s[3][3], const float d[3][3], const float 
 #pragma unroll
   for (int i = 0; i < 4; ++i) pose[3 + i] = q[i];
   uz::quat_normalize(pose + 3);
-}
-
-// lie.matrix_to_quat: Shepperd's four candidates, the largest pivot kept
-__device__ void matrix_to_quat(const float m[3][3], float q[4]) {
-  const float tr = m[0][0] + m[1][1] + m[2][2];
-  const float piv[4] = {1.f + tr, 1.f + m[0][0] - m[1][1] - m[2][2],
-                        1.f - m[0][0] + m[1][1] - m[2][2], 1.f - m[0][0] - m[1][1] + m[2][2]};
-  int b = 0;
-#pragma unroll
-  for (int i = 1; i < 4; ++i)
-    if (piv[i] > piv[b]) b = i;
-  if (b == 0) {
-    q[0] = piv[0]; q[1] = m[2][1] - m[1][2]; q[2] = m[0][2] - m[2][0]; q[3] = m[1][0] - m[0][1];
-  } else if (b == 1) {
-    q[0] = m[2][1] - m[1][2]; q[1] = piv[1]; q[2] = m[0][1] + m[1][0]; q[3] = m[0][2] + m[2][0];
-  } else if (b == 2) {
-    q[0] = m[0][2] - m[2][0]; q[1] = m[0][1] + m[1][0]; q[2] = piv[2]; q[3] = m[1][2] + m[2][1];
-  } else {
-    q[0] = m[1][0] - m[0][1]; q[1] = m[0][2] + m[2][0]; q[2] = m[1][2] + m[2][1]; q[3] = piv[3];
-  }
-  uz::quat_normalize(q);
-}
-
-__device__ __forceinline__ void normalize3(float v[3]) {
-  const float n = sqrtf(v[0] * v[0] + v[1] * v[1] + v[2] * v[2]);
-#pragma unroll
-  for (int i = 0; i < 3; ++i) v[i] = v[i] / n;
-}
-
-// Kabsch rotation of the cross-covariance C = U S V^T:
-// R = U diag(1, 1, sign(det U det V)) V^T, by one-sided cyclic Jacobi.
-__device__ void kabsch_rotation(const float C[3][3], float R[3][3]) {
-  float A[3][3], V[3][3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      A[i][j] = C[i][j];
-      V[i][j] = i == j ? 1.f : 0.f;
-    }
-  const int P[3] = {0, 0, 1}, Q[3] = {1, 2, 2};
-  for (int sweep = 0; sweep < kJacobiSweeps; ++sweep) {
-    bool rotated = false;
-    for (int pq = 0; pq < 3; ++pq) {
-      const int p = P[pq], q = Q[pq];
-      float alpha = 0.f, beta = 0.f, gamma = 0.f;
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        alpha += A[i][p] * A[i][p];
-        beta += A[i][q] * A[i][q];
-        gamma += A[i][p] * A[i][q];
-      }
-      if (!(fabsf(gamma) > 1e-7f * sqrtf(alpha * beta))) continue;
-      rotated = true;
-      const float zeta = (beta - alpha) / (2.f * gamma);
-      const float t = copysignf(1.f, zeta) / (fabsf(zeta) + sqrtf(1.f + zeta * zeta));
-      const float cs = 1.f / sqrtf(1.f + t * t), sn = cs * t;
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        const float ap = A[i][p], aq = A[i][q];
-        A[i][p] = cs * ap - sn * aq;
-        A[i][q] = sn * ap + cs * aq;
-        const float vp = V[i][p], vq = V[i][q];
-        V[i][p] = cs * vp - sn * vq;
-        V[i][q] = sn * vp + cs * vq;
-      }
-    }
-    if (!rotated) break;
-  }
-  float sig[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) sig[k] = sqrtf(A[0][k] * A[0][k] + A[1][k] * A[1][k] + A[2][k] * A[2][k]);
-  int i1 = 0;
-  for (int k = 1; k < 3; ++k)
-    if (sig[k] > sig[i1]) i1 = k;
-  int i2 = i1 == 0 ? 1 : 0;
-  for (int k = 0; k < 3; ++k)
-    if (k != i1 && sig[k] > sig[i2]) i2 = k;
-  if (!(sig[i1] > 1e-30f)) {   // no spread at all: the SVD of 0 gives U = V = I
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int j = 0; j < 3; ++j) R[i][j] = i == j ? 1.f : 0.f;
-    return;
-  }
-  float u1[3], u2[3], v1[3], v2[3], u3[3], v3[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    u1[i] = A[i][i1];
-    u2[i] = A[i][i2];
-    v1[i] = V[i][i1];
-    v2[i] = V[i][i2];
-  }
-  normalize3(u1);
-  if (sig[i2] > 1e-7f * sig[i1]) {
-    const float d = u1[0] * u2[0] + u1[1] * u2[1] + u1[2] * u2[2];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) u2[i] -= d * u1[i];
-  } else {   // rank 1: any unit vector orthogonal to u1
-    const int k = fabsf(u1[0]) < 0.9f ? 0 : 1;
-    const float e[3] = {k == 0 ? 1.f : 0.f, k == 1 ? 1.f : 0.f, 0.f};
-    uz::cross3(u1, e, u2);
-  }
-  normalize3(u2);
-  uz::cross3(u1, u2, u3);
-  uz::cross3(v1, v2, v3);
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) R[i][j] = u1[i] * v1[j] + u2[i] * v2[j] + u3[i] * v3[j];
 }
 
 // Per-thread partials s_red[p * blockDim + tid], p < n, added by thread 0 in
@@ -354,9 +244,9 @@ __global__ void ransac_roots(const float* __restrict__ src, long long src_stride
     for (int a = 0; a < 3; ++a)
 #pragma unroll
       for (int b = 0; b < 3; ++b) C[a][b] = static_cast<float>(s_tot[3 * a + b] / wsum);
-    kabsch_rotation(C, R);
+    uz::proper_rotation(C, R);
     uz::mv3(R, mu_s, Rm);
-    matrix_to_quat(R, q);
+    uz::matrix_to_quat(R, q);
 #pragma unroll
     for (int a = 0; a < 3; ++a) s_fit[a] = mu_d[a] - Rm[a];
 #pragma unroll

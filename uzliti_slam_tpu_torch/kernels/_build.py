@@ -76,6 +76,13 @@ SIGNATURES = {
     "uz_word_assign": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
     "uz_word_majority": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
     "uz_bow_query": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P, _P],
+    "uz_voxel_grid": [_P, _P, _P, _I, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "uz_knn_normals": [_P, _P, _I, _I, _P, _P],
+    "uz_gicp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F,
+                _P, _P, _P, _P, _P],
+    "uz_pnp_hypotheses": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "uz_pnp_refine": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _F,
+                      _P, _P, _P, _P, _P, _P, _P],
 }
 
 _lib = None

@@ -59,6 +59,15 @@ bow_words      csrc/bow_words.cu       recognition/vocabulary.py:quantize and
                                        build_vocabulary's rounds (word_assign,
                                        word_majority); two wrappers, one count
 bow_query      csrc/bow_query.cu       vocabulary.py:bow_query + bow_score
+voxel_grid     csrc/voxel_grid.cu      ops/gicp.py:voxel_downsample
+knn_normals    csrc/gicp.cu            ops/gicp.py:estimate_normals
+gicp           csrc/gicp.cu            ops/gicp.py:gicp_6d (all iterations)
+pnp            csrc/pnp.cu             ops/pnp.py:pnp_ransac (pnp_hypotheses:
+                                       the draws and the _dlt_pose,
+                                       _homography_pose and kabsch fits;
+                                       pnp_refine: the consensus, argmax and
+                                       Gauss-Newton polish); two wrappers,
+                                       one count
 =============  ======================  =======================================
 
 What bounds each kernel on the card, and what its design does about it, is
@@ -81,7 +90,8 @@ launches = {"linearize": 0, "hvp": 0, "chain_apply": 0, "residual_chi2": 0,
             "chain_factor": 0, "pcg": 0, "project_rays": 0, "fast_nms": 0, "grid_topk": 0,
             "orb_describe": 0, "scan_bins": 0, "hamming_top2": 0, "bilateral": 0, "icp": 0,
             "merge_pairs": 0, "calib_gn": 0, "bin_min_max": 0, "feature_votes": 0,
-            "repository": 0, "bow_words": 0, "bow_query": 0}
+            "repository": 0, "bow_words": 0, "bow_query": 0, "voxel_grid": 0,
+            "knn_normals": 0, "gicp": 0, "pnp": 0}
 
 _THREADS = 256  # kThreads in csrc/lie.cuh: K4's partial sums, one per block
 _SMEM_BYTES = 232448  # shared memory one CTA can use on Hopper
@@ -1503,50 +1513,38 @@ def bilateral(depth, guide):
 ICP_MAX_POINTS = 8192   # target points one CTA's shared memory holds with the reductions
 
 
-def lu3(A: torch.Tensor):
-    """LU with partial pivoting of (..., 3, 3) matrices, the first largest
-    pivot, multipliers by division (K18's ``lu3``).  Returns (LU, perm
-    (..., 3) long: the original row at each position)."""
-    A = A.clone()
-    batch = A.shape[:-2]
-    ar = torch.arange(3, device=A.device)
-    perm = ar.expand(batch + (3,)).clone()
-    for k in range(3):
-        p = (k + torch.argmax(A[..., k:, k].abs(), dim=-1))[..., None]          # first max
+def lu_solve_plain(A, b):
+    """x with A x = b for (..., n, n) and b (..., n) or (..., n, r):
+    Gaussian elimination with partial pivoting (the first largest pivot),
+    multipliers by division, the right-hand sides eliminated alongside, then
+    back substitution (the kernels' 3x3 and 6x6 solves, K18's, K27's and
+    K28's; no ``torch.linalg``)."""
+    vec = b.dim() == A.dim() - 1
+    A, b = A.clone(), (b[..., None] if vec else b).clone()
+    n = A.shape[-1]
+    ar = torch.arange(n, device=A.device)
+    for k in range(n):
+        p = (k + torch.argmax(A[..., k:, k].abs(), dim=-1))[..., None]
         swap = torch.where(ar == k, p, torch.where(ar == p, k, ar))
         A = torch.gather(A, -2, swap[..., None].expand(A.shape))
-        perm = torch.gather(perm, -1, swap)
-        for i in range(k + 1, 3):
+        b = torch.gather(b, -2, swap[..., None].expand(b.shape))
+        for i in range(k + 1, n):
             li = A[..., i, k] / A[..., k, k]
-            A[..., i, k] = li
-            for j in range(k + 1, 3):
-                A[..., i, j] = A[..., i, j] - li * A[..., k, j]
-    return A, perm
-
-
-def lu3_solve(lu: torch.Tensor, perm: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """x with A x = b from ``lu3``'s factors; b (..., 3)."""
-    pb = torch.gather(b, -1, perm)
-    y = [pb[..., 0]]
-    for i in (1, 2):
-        s = pb[..., i]
-        for j in range(i):
-            s = s - lu[..., i, j] * y[j]
-        y.append(s)
-    x = [None, None, None]
-    for i in (2, 1, 0):
-        s = y[i]
-        for j in range(i + 1, 3):
-            s = s - lu[..., i, j] * x[j]
-        x[i] = s / lu[..., i, i]
-    return torch.stack(x, dim=-1)
+            A[..., i, k + 1:] = A[..., i, k + 1:] - li[..., None] * A[..., k, k + 1:]
+            b[..., i, :] = b[..., i, :] - li[..., None] * b[..., k, :]
+    x = [None] * n
+    for i in range(n - 1, -1, -1):
+        s = b[..., i, :]
+        for j in range(i + 1, n):
+            s = s - A[..., i, j, None] * x[j]
+        x[i] = s / A[..., i, i, None]
+    x = torch.stack(x, dim=-2)
+    return x[..., 0] if vec else x
 
 
 def inv3(A: torch.Tensor) -> torch.Tensor:
-    """Inverse of (..., 3, 3) matrices by ``lu3`` (no host read)."""
-    lu, perm = lu3(A)
-    eye = torch.eye(3, dtype=A.dtype, device=A.device).expand(A.shape)
-    return torch.stack([lu3_solve(lu, perm, eye[..., c]) for c in range(3)], dim=-1)
+    """Inverse of (..., 3, 3) matrices by ``lu_solve_plain`` (no host read)."""
+    return lu_solve_plain(A, torch.eye(3, dtype=A.dtype, device=A.device).expand(A.shape))
 
 
 def icp_terms_plain(pose, src, src_valid, dst, dst_valid, max_corr2: float):
@@ -1588,8 +1586,7 @@ def icp_plain(src, src_valid, dst, dst_valid, init, iterations: int, max_corr2: 
     pose = init
     for _ in range(iterations):
         H, b = _icp_normal(*icp_terms_plain(pose, src, src_valid, dst, dst_valid, max_corr2), 1e-9)
-        lu, perm = lu3(H)
-        pose = pose + -lu3_solve(lu, perm, b)
+        pose = pose + -lu_solve_plain(H, b)
     J, r, w = icp_terms_plain(pose, src, src_valid, dst, dst_valid, max_corr2)
     n_good = w.sum(-1)
     n_src = torch.clamp(src_valid.sum(-1, dtype=torch.int32), min=1)
@@ -2163,3 +2160,632 @@ def bow_query(bank, stamp, valid, q, q_stamp, k: int, min_score: float, min_dt: 
     _raise_on(err, "bow_query")
     launches["bow_query"] += 1
     return slots, top, ok
+
+
+# ---------------------------------------------------------------------------
+# K25 voxel_grid (the gicp estimator's voxel cloud)
+# ---------------------------------------------------------------------------
+
+VOXEL_PRIMES = (73856093, 19349663, 83492791)
+VOXEL_EMPTY = 0xFFFFFFFF      # the id of an invalid point, and the padding of the kept ids
+VOXEL_FIXED = 2.0 ** 28       # fixed-point scale of the voxel sums (kFixed in csrc/voxel_grid.cu)
+VOXEL_CHUNK = 4096            # points one CTA sorts (kChunk)
+VOXEL_MAX_OUT = 2048          # voxels the kernel keeps at most (60 B of shared memory each)
+
+
+def voxel_ids_plain(points, valid, inv_voxel: float):
+    """The reference's spatial-hash voxel ids as int64 holding the uint32
+    value: floor(p · inv_voxel) as int32 (XLA compiles the division by the
+    voxel size into a multiplication by its float32 reciprocal), + 32768
+    as uint32, times the three primes with wrap-around, XOR; 0xFFFFFFFF at
+    invalid points."""
+    q = torch.floor(points * inv_voxel).to(torch.int32).to(torch.int64)
+    qq = (q + 32768) & 0xFFFFFFFF
+    ids = [(qq[..., a] * p) & 0xFFFFFFFF for a, p in enumerate(VOXEL_PRIMES)]
+    return torch.where(valid, ids[0] ^ ids[1] ^ ids[2], VOXEL_EMPTY)
+
+
+def voxel_grid_plain(points, lab, valid, inv_voxel: float, max_out: int):
+    """Plain version of K25 (``uzliti_slam_tpu/ops/gicp.py:voxel_downsample``):
+    the ``max_out`` smallest distinct ids ascending (0xFFFFFFFF padding),
+    each point's slot by a left binary search (clipped to the last slot), a
+    hit where the slot holds the point's id and the point is valid, and the
+    hits' (x, y, z, L, a, b) summed per slot in fixed point (round(v ·
+    2²⁸) in int64: exact, so the order of the sums does not matter), the
+    means in float64 rounded to float32.  A non-finite coordinate of any
+    point makes its slot's coordinate NaN, as the reference's ``p · 0``
+    sum does.  Returns (points (V, 3), lab (V, 3), valid (V,))."""
+    ids = voxel_ids_plain(points, valid, inv_voxel)
+    kept = torch.unique(ids)[:max_out]
+    uids = torch.full((max_out,), VOXEL_EMPTY, dtype=torch.int64, device=points.device)
+    uids[:kept.shape[0]] = kept
+    slot = torch.clamp(torch.searchsorted(uids, ids), max=max_out - 1)
+    hit = (uids[slot] == ids) & valid
+    vals = torch.cat([points, lab], dim=-1)
+    finite = torch.isfinite(vals)
+    fixed = torch.where(hit[:, None] & finite, torch.round(vals.double() * VOXEL_FIXED), 0.0)
+    sums = torch.zeros(max_out, 6, dtype=torch.int64, device=points.device).index_add_(
+        0, slot, fixed.to(torch.int64))
+    cnt = torch.zeros(max_out, dtype=torch.int64, device=points.device).index_add_(
+        0, slot, hit.to(torch.int64))
+    poison = torch.zeros(max_out, 6, dtype=torch.int64, device=points.device).index_add_(
+        0, slot, (~finite).to(torch.int64)) > 0
+    mean = (sums.double() / VOXEL_FIXED) / torch.clamp(cnt, min=1).double()[:, None]
+    mean = torch.where(poison, math.nan, mean).to(torch.float32)
+    return (mean[:, :3].contiguous(), mean[:, 3:].contiguous(),
+            (cnt > 0) & (uids != VOXEL_EMPTY))
+
+
+def voxel_grid(points, lab, valid, inv_voxel: float, max_out: int):
+    """K25: each CTA sorts a chunk's ids in shared memory and keeps its
+    ``max_out`` smallest distinct; a tree of pairwise merges keeps the
+    smallest ``max_out`` of all; each point binary-searches its slot and adds
+    into shared-memory fixed-point sums, flushed by integer atomics."""
+    if points.device.type == "cpu":
+        return voxel_grid_plain(points, lab, valid, inv_voxel, max_out)
+    dev, f32, i32 = points.device, torch.float32, torch.int32
+    N = points.shape[0]
+    if not 0 < max_out <= VOXEL_MAX_OUT:
+        raise ValueError(f"voxel_grid: max_out = {max_out}, the kernel keeps 1..{VOXEL_MAX_OUT}")
+    _smem_check("voxel_grid", 60 * max_out)
+    ptrs = [_check("points", points, (N, 3), f32, dev), _check("lab", lab, (N, 3), f32, dev),
+            _check("valid", valid, (N,), torch.bool, dev)]
+    lib = _build.load()
+    n_chunks = max(1, -(-N // VOXEL_CHUNK))
+    ids = torch.empty(max(N, 1), dtype=i32, device=dev)
+    lists = torch.empty(2, n_chunks, max_out, dtype=i32, device=dev)
+    sums = torch.empty(max_out, 6, dtype=torch.int64, device=dev)
+    counts = torch.empty(2, max_out, dtype=i32, device=dev)    # hits, poison bits
+    out_pts = torch.empty(max_out, 3, dtype=f32, device=dev)
+    out_lab = torch.empty(max_out, 3, dtype=f32, device=dev)
+    out_valid = torch.empty(max_out, dtype=torch.bool, device=dev)
+    err = lib.uz_voxel_grid(*ptrs, N, float(inv_voxel), max_out, ids.data_ptr(),
+                            lists.data_ptr(), sums.data_ptr(), counts.data_ptr(),
+                            out_pts.data_ptr(), out_lab.data_ptr(), out_valid.data_ptr(),
+                            _stream(dev))
+    _raise_on(err, "voxel_grid")
+    launches["voxel_grid"] += 1
+    return out_pts, out_lab, out_valid
+
+
+# ---------------------------------------------------------------------------
+# K26 knn_normals (the gicp estimator's k-NN PCA normals)
+# ---------------------------------------------------------------------------
+
+KNN_K = 8            # neighbours (kK in csrc/gicp.cu)
+JACOBI_SWEEPS = 8    # cyclic Jacobi sweeps of the 3x3 covariance (kEighSweeps)
+KNN_MAX_POINTS = 4096
+
+
+def jacobi_eigh3_plain(A, sweeps: int = JACOBI_SWEEPS):
+    """Eigen-decomposition of symmetric (..., 3, 3) matrices by cyclic
+    Jacobi, pairs (0, 1), (0, 2), (1, 2), a fixed number of sweeps, with
+    K26's arithmetic: t = sgn(θ)/(|θ| + √(θ² + 1)), θ = (a_qq − a_pp)/(2
+    a_pq), no rotation where a_pq = 0.  Returns (eigenvalues (..., 3)
+    unsorted, eigenvectors (..., 3, 3) as columns)."""
+    a = {(i, j): A[..., i, j] for i in range(3) for j in range(i, 3)}
+    one, zero = torch.ones_like(a[0, 0]), torch.zeros_like(a[0, 0])
+    v = [[one if i == j else zero for j in range(3)] for i in range(3)]
+
+    def key(i, j):
+        return (i, j) if i <= j else (j, i)
+
+    for _ in range(sweeps):
+        for p, q in ((0, 1), (0, 2), (1, 2)):
+            r = 3 - p - q
+            apq, app, aqq = a[p, q], a[p, p], a[q, q]
+            rot = apq != 0
+            theta = (aqq - app) / (2.0 * torch.where(rot, apq, one))
+            t = torch.where(theta >= 0, one, -one) / (theta.abs() + torch.sqrt(theta * theta + 1.0))
+            t = torch.where(rot, t, zero)
+            c = 1.0 / torch.sqrt(t * t + 1.0)
+            s = t * c
+            arp, arq = a[key(r, p)], a[key(r, q)]
+            a[p, p], a[q, q], a[p, q] = app - t * apq, aqq + t * apq, torch.where(rot, zero, apq)
+            a[key(r, p)], a[key(r, q)] = c * arp - s * arq, s * arp + c * arq
+            for i in range(3):
+                vp, vq = v[i][p], v[i][q]
+                v[i][p], v[i][q] = c * vp - s * vq, s * vp + c * vq
+    vals = torch.stack([a[0, 0], a[1, 1], a[2, 2]], dim=-1)
+    vecs = torch.stack([torch.stack(row, dim=-1) for row in v], dim=-2)
+    return vals, vecs
+
+
+def knn_covariance_plain(points, valid, k: int = KNN_K):
+    """The k-NN covariances (B, M, 3, 3) of K26's plain version: squared
+    distances as XLA compiles them (fma(z, z, fma(y, y, x·x))), +inf at
+    invalid points, the k nearest (ties to the lower index), their weighted
+    mean and covariance summed in neighbour order, + 1e-9·I."""
+    d = points[..., :, None, :] - points[..., None, :, :]
+    d2 = sum_sq_fma(d[..., 0], d[..., 1], d[..., 2])
+    d2 = torch.where(valid[..., None, :], d2, torch.inf)
+    vals, idx = smallest_k(d2, k)
+    wn = torch.isfinite(vals).to(points.dtype)
+    B, M = idx.shape[:2]
+    neigh = torch.gather(points, 1, idx.reshape(B, M * k, 1).expand(B, M * k, 3)).reshape(
+        B, M, k, 3)
+    s, n = torch.zeros_like(points), torch.zeros_like(wn[..., 0])
+    for j in range(k):
+        s = s + neigh[..., j, :] * wn[..., j, None]
+        n = n + wn[..., j]
+    mu = s / torch.clamp(n, min=1.0)[..., None]
+    c = (neigh - mu[..., None, :]) * wn[..., None]
+    cov = torch.zeros(B, M, 3, 3, dtype=points.dtype, device=points.device)
+    for j in range(k):
+        cov = cov + c[..., j, :, None] * c[..., j, None, :]
+    return cov + 1e-9 * torch.eye(3, dtype=points.dtype, device=points.device)
+
+
+def knn_normals_plain(points, valid, k: int = KNN_K):
+    """Plain version of K26 (``uzliti_slam_tpu/ops/gicp.py:estimate_normals``)
+    on (B, M, 3) clouds: ``knn_covariance_plain``'s covariances and the
+    eigenvector of the smallest eigenvalue by ``jacobi_eigh3_plain`` (the
+    first on a tie)."""
+    cov = knn_covariance_plain(points, valid, k)
+    B, M = cov.shape[:2]
+    ev, vecs = jacobi_eigh3_plain(cov)
+    low = torch.argmin(ev, dim=-1)
+    return torch.gather(vecs, -1, low[..., None, None].expand(B, M, 3, 1))[..., 0]
+
+
+def knn_normals(points, valid, k: int = KNN_K):
+    """K26: one thread per point with its problem's cloud in shared memory,
+    a running top-k in registers, the covariance and a cyclic Jacobi in
+    float32; every problem of the batch in one launch."""
+    if points.shape[-2] < k:
+        raise ValueError(f"knn_normals: {points.shape[-2]} points, k = {k} neighbours")
+    if points.device.type == "cpu":
+        return knn_normals_plain(points, valid, k)
+    dev, f32 = points.device, torch.float32
+    B, M, _ = points.shape
+    if k != KNN_K:
+        raise ValueError(f"knn_normals: k = {k}, the kernel is built for {KNN_K}")
+    if not 0 < M <= KNN_MAX_POINTS:
+        raise ValueError(f"knn_normals: {M} points, the kernel takes 1..{KNN_MAX_POINTS}")
+    _smem_check("knn_normals", 16 * M)
+    ptrs = [_check("points", points, (B, M, 3), f32, dev),
+            _check("valid", valid, (B, M), torch.bool, dev)]
+    lib = _build.load()
+    normals = torch.empty(B, M, 3, dtype=f32, device=dev)
+    err = lib.uz_knn_normals(*ptrs, B, M, normals.data_ptr(), _stream(dev))
+    _raise_on(err, "knn_normals")
+    launches["knn_normals"] += 1
+    return normals
+
+
+# ---------------------------------------------------------------------------
+# K27 gicp (the 6-D colored ICP, every iteration in one launch)
+# ---------------------------------------------------------------------------
+
+GICP_MAX_POINTS = 2048   # target points one CTA's shared memory holds with the reductions
+
+
+def _gicp_pairs(moved, dst):
+    d = moved[..., :, None, :] - dst[..., None, :, :]
+    return sum_sq_fma(d[..., 0], d[..., 1], d[..., 2])
+
+
+def gicp_plain(src, src_lab, src_valid, dst, dst_lab, dst_valid, normals, init, iterations: int,
+               max_corr2: float, color_weight: float, min_fraction: float, max_t: float,
+               max_r: float):
+    """Plain version of K27 (``uzliti_slam_tpu/ops/gicp.py:gicp_6d`` after
+    its normals): one source cloud (M, 3) against B target clouds (B, N, 3)
+    from poses init (B, 7).  Per iteration the 6-D distance as XLA compiles
+    it (fma(w, d_Lab, d_xyz), each a chain of fused multiply-adds), the
+    first argmin over valid targets, point-to-plane rows weighted by the
+    source's validity and max_corr2, JᵀJ + 1e-6·I, the pivoted solve, the
+    left update exp(-dx) ∘ pose; then the nearest-target audit, fraction,
+    mse and the gates.  Returns (pose (B, 7), fraction (B,), mse (B,), ok
+    (B,))."""
+    from uzliti_slam_tpu_torch.ops import lie
+
+    B = dst.shape[0]
+    d_col = _gicp_pairs(src_lab[None].expand(B, -1, -1), dst_lab)
+    eye = torch.eye(6, dtype=src.dtype, device=src.device)
+    pose = init
+    for _ in range(iterations):
+        moved = lie.pose_apply(pose[:, None], src[None])
+        d6 = fma_plain(torch.full_like(d_col, color_weight), d_col, _gicp_pairs(moved, dst))
+        j = torch.argmin(torch.where(dst_valid[:, None, :], d6, torch.inf), dim=-1)
+        pick = j[..., None].expand(j.shape + (3,))
+        p, nrm = torch.gather(dst, 1, pick), torch.gather(normals, 1, pick)
+        e = moved - p
+        geo = sum_sq_fma(e[..., 0], e[..., 1], e[..., 2])
+        w = (src_valid[None] & (geo < max_corr2)).to(src.dtype)
+        r = torch.sum(e * nrm, dim=-1)
+        J = torch.cat([nrm, torch.cross(moved, nrm, dim=-1)], dim=-1)
+        H = torch.sum(J[..., :, None] * J[..., None, :] * w[..., None, None], dim=1) + 1e-6 * eye
+        b = torch.sum(J * (r * w)[..., None], dim=1)
+        pose = lie.pose_compose(lie.se3_exp(-lu_solve_plain(H, b)), pose)
+    moved = lie.pose_apply(pose[:, None], src[None])
+    nn = torch.where(dst_valid[:, None, :], _gicp_pairs(moved, dst), torch.inf).amin(-1)
+    good = src_valid[None] & (nn < max_corr2)
+    n_good = good.sum(-1, dtype=torch.int32)
+    n_src = torch.clamp(src_valid.sum(dtype=torch.int32), min=1)
+    fraction = n_good.to(src.dtype) / n_src.to(src.dtype)
+    mse = torch.where(good, nn, 0.0).sum(-1) / torch.clamp(n_good, min=1).to(src.dtype)
+    corr = lie.pose_relative(init, pose)
+    dt = torch.sqrt(torch.sum(lie.pose_t(corr) ** 2, dim=-1))
+    dr = lie.rotation_angle(lie.pose_q(corr))
+    ok = ((fraction > min_fraction) & (dt <= max_t) & (dr <= max_r)
+          & torch.isfinite(pose).all(-1))
+    return pose, fraction, mse, ok
+
+
+def gicp(src, src_lab, src_valid, dst, dst_lab, dst_valid, normals, init, iterations: int,
+         max_corr2: float, color_weight: float, min_fraction: float, max_t: float, max_r: float):
+    """K27: one CTA per target cloud, the target (points, Lab, normals) in
+    shared memory, one thread per source point, every iteration, the audit
+    and the gates in one launch."""
+    if src.device.type == "cpu":
+        return gicp_plain(src, src_lab, src_valid, dst, dst_lab, dst_valid, normals, init,
+                          iterations, max_corr2, color_weight, min_fraction, max_t, max_r)
+    dev, f32 = src.device, torch.float32
+    M, (B, N, _) = src.shape[0], dst.shape
+    if not 0 < N <= GICP_MAX_POINTS:
+        raise ValueError(f"gicp: {N} target points, the kernel takes 1..{GICP_MAX_POINTS}")
+    _smem_check("gicp", 37 * N + 27 * 4 * 256)
+    ptrs = [_check("src", src, (M, 3), f32, dev), _check("src_lab", src_lab, (M, 3), f32, dev),
+            _check("src_valid", src_valid, (M,), torch.bool, dev),
+            _check("dst", dst, (B, N, 3), f32, dev), _check("dst_lab", dst_lab, (B, N, 3), f32, dev),
+            _check("dst_valid", dst_valid, (B, N), torch.bool, dev),
+            _check("normals", normals, (B, N, 3), f32, dev), _check("init", init, (B, 7), f32, dev)]
+    lib = _build.load()
+    pose = torch.empty(B, 7, dtype=f32, device=dev)
+    fraction = torch.empty(B, dtype=f32, device=dev)
+    mse = torch.empty(B, dtype=f32, device=dev)
+    ok = torch.empty(B, dtype=torch.bool, device=dev)
+    err = lib.uz_gicp(*ptrs, B, M, N, int(iterations), float(max_corr2), float(color_weight),
+                      float(min_fraction), float(max_t), float(max_r), pose.data_ptr(),
+                      fraction.data_ptr(), mse.data_ptr(), ok.data_ptr(), _stream(dev))
+    _raise_on(err, "gicp")
+    launches["gicp"] += 1
+    return pose, fraction, mse, ok
+
+
+# ---------------------------------------------------------------------------
+# K28 pnp (the PnP RANSAC: hypotheses, then consensus and refinement)
+# ---------------------------------------------------------------------------
+
+PNP_SAMPLE = 6          # correspondences a hypothesis is fitted to
+SVD_SWEEPS = 12         # one-sided Jacobi sweeps at most (kSvdSweeps in csrc/pnp.cu)
+SVD_TOL = 1e-7          # a pair is rotated where |a_p·a_q| > SVD_TOL·|a_p||a_q|
+PNP_MAX_POINTS = 2048   # correspondences one CTA's shared memory holds
+
+
+def jacobi_svd_plain(A, sweeps: int = SVD_SWEEPS):
+    """One-sided (Hestenes) cyclic Jacobi on (..., m, n): column pairs (p, q)
+    in row-major order are rotated, with V, until they are orthogonal
+    (|γ| ≤ SVD_TOL·√(αβ)), at most ``sweeps`` times; a sweep that rotates
+    no pair of any matrix ends it (the kernels stop each matrix at its own
+    such sweep, which changes nothing after).  Returns (A·V (..., m, n), V
+    (..., n, n), σ (..., n) the column norms of A·V, unsorted)."""
+    m, n = A.shape[-2:]
+    eye = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape[:-2] + (n, n))
+    AV = torch.cat([A, eye], dim=-2)          # A's rows over V's: one rotation for both
+    for _ in range(sweeps):
+        rotated = False
+        for p in range(n - 1):
+            for q in range(p + 1, n):
+                cp, cq = AV[..., :, p], AV[..., :, q]
+                ap, aq = cp[..., :m], cq[..., :m]
+                alpha, beta, gamma = (ap * ap).sum(-1), (aq * aq).sum(-1), (ap * aq).sum(-1)
+                rot = gamma.abs() > SVD_TOL * torch.sqrt(alpha * beta)
+                rotated = rotated or bool(rot.any())
+                zeta = (beta - alpha) / (2.0 * torch.where(rot, gamma, torch.ones_like(gamma)))
+                t = (torch.where(zeta >= 0, 1.0, -1.0)
+                     / (zeta.abs() + torch.sqrt(1.0 + zeta * zeta)))
+                t = torch.where(rot, t, 0.0)
+                c = 1.0 / torch.sqrt(1.0 + t * t)
+                s = (c * t)[..., None]
+                c = c[..., None]
+                AV[..., :, p], AV[..., :, q] = c * cp - s * cq, s * cp + c * cq
+        if not rotated:
+            break
+    A, V = AV[..., :m, :], AV[..., m:, :]
+    return A, V, torch.sqrt((A * A).sum(-2))
+
+
+def _normalize3(v):
+    return v / torch.sqrt((v * v).sum(-1, keepdim=True))
+
+
+def proper_rotation_plain(C):
+    """R = U diag(1, 1, sgn(det U · det V)) Vᵀ of (..., 3, 3) matrices C = U
+    S Vᵀ, as ``uz::proper_rotation`` (``csrc/linalg.cuh``, K7's refit and
+    K28's fits): the one-sided Jacobi, u₁, u₂ from the
+    two largest singular pairs (u₂ Gram-Schmidt'ed against u₁; any unit
+    vector orthogonal to u₁ at rank 1), u₃ = u₁ × u₂, v₃ = v₁ × v₂; the
+    identity where C has no spread.  Returns (R, σ summed)."""
+    AV, V, sig = jacobi_svd_plain(C)
+    order = torch.sort(sig, dim=-1, descending=True, stable=True).indices
+    i1, i2 = order[..., 0], order[..., 1]
+
+    def col(M, i):
+        return torch.gather(M, -1, i[..., None, None].expand(M.shape[:-1] + (1,)))[..., 0]
+
+    s1, s2 = torch.gather(sig, -1, i1[..., None])[..., 0], torch.gather(sig, -1, i2[..., None])[..., 0]
+    u1, u2, v1, v2 = _normalize3(col(AV, i1)), col(AV, i2), col(V, i1), col(V, i2)
+    u2_gs = u2 - (u1 * u2).sum(-1, keepdim=True) * u1
+    first = u1[..., 0].abs() < 0.9
+    e = torch.stack([first, ~first, torch.zeros_like(first)], dim=-1).to(C.dtype)
+    u2 = _normalize3(torch.where((s2 > 1e-7 * s1)[..., None], u2_gs, torch.cross(u1, e, dim=-1)))
+    u3, v3 = torch.cross(u1, u2, dim=-1), torch.cross(v1, v2, dim=-1)
+    R = (u1[..., :, None] * v1[..., None, :] + u2[..., :, None] * v2[..., None, :]
+         + u3[..., :, None] * v3[..., None, :])
+    eye = torch.eye(3, dtype=C.dtype, device=C.device).expand(R.shape)
+    return torch.where((s1 > 1e-30)[..., None, None], R, eye), sig.sum(-1)
+
+
+def _det3(M):
+    return (M[..., 0, 0] * (M[..., 1, 1] * M[..., 2, 2] - M[..., 1, 2] * M[..., 2, 1])
+            - M[..., 0, 1] * (M[..., 1, 0] * M[..., 2, 2] - M[..., 1, 2] * M[..., 2, 0])
+            + M[..., 0, 2] * (M[..., 1, 0] * M[..., 2, 1] - M[..., 1, 1] * M[..., 2, 0]))
+
+
+def null_vector_plain(A):
+    """The right singular vector of the smallest singular value of (..., m,
+    n) matrices (the first on a tie), by ``jacobi_svd_plain``."""
+    _, V, sig = jacobi_svd_plain(A)
+    j = torch.argmin(sig, dim=-1)
+    return torch.gather(V, -1, j[..., None, None].expand(V.shape[:-1] + (1,)))[..., 0]
+
+
+def dlt_system_plain(X, xn, w):
+    """The DLT's weighted (..., 2n, 12) system of (..., n, ·) samples: the
+    rows [X̃, 0, −x·X̃] and [0, X̃, −y·X̃] of the homogeneous points X̃."""
+    Xh = torch.cat([X, torch.ones_like(X[..., :1])], dim=-1)
+    zero = torch.zeros_like(Xh)
+    r1 = torch.cat([Xh, zero, -xn[..., 0:1] * Xh], dim=-1)
+    r2 = torch.cat([zero, Xh, -xn[..., 1:2] * Xh], dim=-1)
+    return torch.cat([r1 * w[..., None], r2 * w[..., None]], dim=-2)
+
+
+def dlt_pose_plain(X, xn, w):
+    """``uzliti_slam_tpu/ops/pnp.py:_dlt_pose`` on (..., n, ·) samples: the
+    (2n, 12) system, its null vector, the det(M₃) sign folded into M, the
+    proper polar factor of M₃ and t = M₄ / max(Σσ/3, 1e-12)."""
+    from uzliti_slam_tpu_torch.ops import lie
+
+    A = dlt_system_plain(X, xn, w)
+    M = null_vector_plain(A).reshape(A.shape[:-2] + (3, 4))
+    M = M * torch.where(_det3(M[..., :3]) < 0, -1.0, 1.0)[..., None, None]
+    R, ssum = proper_rotation_plain(M[..., :3])
+    t = M[..., 3] / torch.clamp(ssum / 3.0, min=1e-12)[..., None]
+    return lie.make_pose(t, lie.matrix_to_quat(R))
+
+
+def _norm3(v):
+    return torch.sqrt((v * v).sum(-1))
+
+
+def homography_pose_plain(X, xn, w):
+    """``uzliti_slam_tpu/ops/pnp.py:_homography_pose`` on (..., n, ·)
+    samples: the weighted centroid, the plane's two largest singular
+    directions (one-sided Jacobi of the 6x3 spread), the (2n, 9) system's
+    null vector H, σ = sgn(H₂₂), Gram-Schmidt of the scaled columns, and
+    the world-to-camera rotation completed through the plane normal."""
+    from uzliti_slam_tpu_torch.ops import lie
+
+    wsum = torch.clamp(w.sum(-1), min=1e-6)
+    c0 = (X * w[..., None]).sum(-2) / wsum[..., None]
+    _, V, sig = jacobi_svd_plain((X - c0[..., None, :]) * w[..., None])
+    order = torch.sort(sig, dim=-1, descending=True, stable=True).indices
+
+    def col(i):
+        return torch.gather(V, -1, order[..., i, None, None].expand(V.shape[:-1] + (1,)))[..., 0]
+
+    e1, e2 = col(0), col(1)
+    d = X - c0[..., None, :]
+    px, py = (d * e1[..., None, :]).sum(-1), (d * e2[..., None, :]).sum(-1)
+    x, y = xn[..., 0], xn[..., 1]
+    z0, o = torch.zeros_like(px), torch.ones_like(px)
+    r1 = torch.stack([px, py, o, z0, z0, z0, -x * px, -x * py, -x], dim=-1)
+    r2 = torch.stack([z0, z0, z0, px, py, o, -y * px, -y * py, -y], dim=-1)
+    A = torch.cat([r1 * w[..., None], r2 * w[..., None]], dim=-2)
+    H = null_vector_plain(A).reshape(A.shape[:-2] + (3, 3))
+    s = torch.sqrt(_norm3(H[..., :, 0]) * _norm3(H[..., :, 1])) + 1e-12
+    sigma = torch.where(H[..., 2, 2] > 0, 1.0, -1.0)
+    Hs = sigma[..., None, None] * H / s[..., None, None]
+    r1c = Hs[..., :, 0] / (_norm3(Hs[..., :, 0]) + 1e-12)[..., None]
+    r2o = Hs[..., :, 1] - r1c * (r1c * Hs[..., :, 1]).sum(-1, keepdim=True)
+    r2c = r2o / (_norm3(r2o) + 1e-12)[..., None]
+    r3c = torch.cross(r1c, r2c, dim=-1)
+    npl = torch.cross(e1, e2, dim=-1)
+    Rc = (r1c[..., :, None] * e1[..., None, :] + r2c[..., :, None] * e2[..., None, :]
+          + r3c[..., :, None] * npl[..., None, :])
+    tc = Hs[..., :, 2] - (Rc * c0[..., None, :]).sum(-1)
+    return lie.make_pose(tc, lie.matrix_to_quat(Rc))
+
+
+def kabsch_pose_plain(src, dst, w):
+    """``uzliti_slam_tpu/ops/ransac.py:kabsch`` with its SVD as
+    ``proper_rotation_plain``: weighted means, the cross-covariance
+    (cd·w)ᵀ cs / Σw, R = U diag(1, 1, d) Vᵀ, t = μ_d − R μ_s."""
+    from uzliti_slam_tpu_torch.ops import lie
+
+    w = torch.clamp(w, min=0.0)
+    wsum = torch.clamp(w.sum(-1), min=1e-9)[..., None]
+    mu_s, mu_d = (src * w[..., None]).sum(-2) / wsum, (dst * w[..., None]).sum(-2) / wsum
+    cs, cd = src - mu_s[..., None, :], dst - mu_d[..., None, :]
+    cov = ((cd * w[..., None])[..., :, :, None] * cs[..., :, None, :]).sum(-3) / wsum[..., None]
+    R, _ = proper_rotation_plain(cov)
+    return lie.make_pose(mu_d - (R * mu_s[..., None, :]).sum(-1), lie.matrix_to_quat(R))
+
+
+def pnp_pick(t, samples):
+    """The entries of t (B, M) or (B, M, d) at the draws' samples (B, H,
+    6): (B, H, 6) or (B, H, 6, d)."""
+    B, H, n = samples.shape
+    flat = samples.long().reshape(B, H * n)
+    if t.dim() == 2:
+        return torch.gather(t, 1, flat).reshape(B, H, n)
+    return torch.gather(t, 1, flat[..., None].expand(B, H * n, t.shape[-1])).reshape(
+        B, H, n, t.shape[-1])
+
+
+def pnp_hypotheses_plain(X, xn, valid, depth, keys):
+    """Plain version of K28's first entry point: per candidate b and draw h
+    the 6 largest keys over the valid correspondences (−1e9 elsewhere, ties
+    to the lower index), then the DLT, homography and (with ``depth``)
+    Kabsch hypotheses of those 6.  X (B, M, 3), xn (B, M, 2), valid (B, M),
+    depth (B, M) or None, keys (B, H, M).  Returns (samples (B, H, 6)
+    int32, poses (B, F·H, 7), family-major, F = 3 with depth, else 2)."""
+    scores = torch.where(valid[:, None, :], keys, -1e9)
+    samples = largest_k(scores, PNP_SAMPLE)[1]
+
+    def pick(t):
+        return pnp_pick(t, samples)
+
+    Xs, xs, ws = pick(X), pick(xn), pick(valid).to(X.dtype)
+    poses = [dlt_pose_plain(Xs, xs, ws), homography_pose_plain(Xs, xs, ws)]
+    if depth is not None:
+        X_cam = torch.cat([xn * depth[..., None], depth[..., None]], dim=-1)
+        poses.append(kabsch_pose_plain(Xs, pick(X_cam), pick(valid & (depth > 0.05)).to(X.dtype)))
+    return samples.to(torch.int32), torch.cat(poses, dim=1)
+
+
+def project_norm_plain(pose, X):
+    """``_project_norm``: normalised image coordinates of X under pose, the
+    depth clamped to 1e-6 where |z| < 1e-6."""
+    from uzliti_slam_tpu_torch.ops import lie
+
+    pc = lie.pose_apply(pose[..., None, :], X)
+    z = torch.where(pc[..., 2].abs() < 1e-6, 1e-6, pc[..., 2])
+    return pc[..., :2] / z[..., None], pc
+
+
+def _pnp_inliers(pose, X, xn, valid, depth, thresh2: float, depth_tol: float):
+    """(inliers, squared reprojection errors) of X under poses (..., 7):
+    the error as XLA compiles it (fma(v, v, u·u)), in front (z > 0.05) and,
+    where the depth is measured (> 0.05), within depth_tol·max(depth, 1)."""
+    proj, pc = project_norm_plain(pose, X)
+    e = proj - xn
+    err2 = fma_plain(e[..., 1], e[..., 1], e[..., 0] * e[..., 0])
+    inl = (err2 < thresh2) & valid & (pc[..., 2] > 0.05)
+    if depth is not None:
+        inl = inl & (~(depth > 0.05) | ((pc[..., 2] - depth).abs()
+                                        < depth_tol * torch.clamp(depth, min=1.0)))
+    return inl, err2
+
+
+def pnp_refine_plain(X, xn, valid, depth, samples, poses, thresh2: float, depth_tol: float,
+                     min_consensus: float, iterations: int, f_mean2: float):
+    """Plain version of K28's second entry point (``pnp_ransac`` after its
+    hypotheses): the (B, K, M) consensus, −1 where a sample holds an
+    invalid correspondence, the first argmax, ``iterations`` Gauss-Newton
+    steps p ← p ∘ exp(dx) on the best inliers' reprojection rows (and
+    measured-depth rows) with the forward-mode Jacobian
+    (``torch.func.jacfwd``, as ``jax.jacfwd``), JᵀJ + 1e-8·I, the pivoted
+    solve; then the final inliers, consensus, mse in px² and ok.  Returns
+    (pose (B, 7), consensus (B,) int32, mse (B,), ok (B,), best (B,) int32,
+    counts (B, K) int32)."""
+    from uzliti_slam_tpu_torch.ops import lie
+
+    B, K, _ = poses.shape
+    d_b = None if depth is None else depth[:, None]
+    inl, _ = _pnp_inliers(poses, X[:, None], xn[:, None], valid[:, None], d_b,
+                          thresh2, depth_tol)
+    counts = inl.sum(-1, dtype=torch.int32)
+    sample_ok = torch.gather(valid, 1, samples.long().reshape(B, -1)).reshape(
+        samples.shape).all(-1)
+    counts = torch.where(sample_ok.repeat(1, K // samples.shape[1]), counts, -1)
+    best = torch.argmax(counts, dim=1)
+    pose = torch.gather(poses, 1, best[:, None, None].expand(B, 1, 7))[:, 0]
+    w = torch.gather(inl, 1, best[:, None, None].expand(B, 1, inl.shape[-1]))[:, 0].to(X.dtype)
+    d_w = None if depth is None else w * (depth > 0.05).to(X.dtype)
+
+    def resid(dx, p, X, xn, w, depth, d_w):
+        pp = lie.pose_retract(p, dx)
+        proj, pc = project_norm_plain(pp, X)
+        rp = ((proj - xn) * w[:, None]).reshape(-1)
+        if depth is None:
+            return rp
+        return torch.cat([rp, (pc[:, 2] - depth) / torch.clamp(depth, min=1.0) * d_w])
+
+    jac = torch.func.vmap(torch.func.jacfwd(resid), in_dims=(None, 0, 0, 0, 0,
+                                                            None if depth is None else 0,
+                                                            None if depth is None else 0))
+    res = torch.func.vmap(resid, in_dims=(None, 0, 0, 0, 0, None if depth is None else 0,
+                                          None if depth is None else 0))
+    zero = torch.zeros(6, dtype=X.dtype, device=X.device)
+    eye = torch.eye(6, dtype=X.dtype, device=X.device)
+    for _ in range(iterations):
+        r, J = res(zero, pose, X, xn, w, depth, d_w), jac(zero, pose, X, xn, w, depth, d_w)
+        Jt = J.transpose(-1, -2)
+        H = (Jt[..., :, None, :] * Jt[..., None, :, :]).sum(-1) + 1e-8 * eye
+        pose = lie.pose_retract(pose, -lu_solve_plain(H, (Jt * r[:, None, :]).sum(-1)))
+    inl_f, err2_f = _pnp_inliers(pose, X, xn, valid, depth, thresh2, depth_tol)
+    consensus = inl_f.sum(-1, dtype=torch.int32)
+    mse = (torch.where(inl_f, err2_f, 0.0).sum(-1)
+           / torch.clamp(consensus, min=1).to(X.dtype)) * f_mean2
+    ok = (consensus >= min_consensus) & torch.isfinite(pose).all(-1)
+    return pose, consensus, mse, ok, best.to(torch.int32), counts
+
+
+def _pnp_inputs(name: str, X, xn, valid, depth, dev):
+    B, M, _ = X.shape
+    if not 0 < M <= PNP_MAX_POINTS:
+        raise ValueError(f"{name}: {M} correspondences, the kernel takes 1..{PNP_MAX_POINTS}")
+    ptrs = [_check("X", X, (B, M, 3), torch.float32, dev),
+            _check("xn", xn, (B, M, 2), torch.float32, dev),
+            _check("valid", valid, (B, M), torch.bool, dev),
+            None if depth is None else _check("depth", depth, (B, M), torch.float32, dev)]
+    return B, M, ptrs
+
+
+def pnp_hypotheses(X, xn, valid, depth, keys):
+    """K28, first entry: one warp per (candidate, draw): the top 6 keys by
+    warp-wide selection, the DLT (12x12), plane (6x3) and homography (12x9)
+    systems by one-sided Jacobi with rows on lanes, the 3x3 polar and
+    Kabsch rotations in registers."""
+    if X.device.type == "cpu":
+        return pnp_hypotheses_plain(X, xn, valid, depth, keys)
+    dev = X.device
+    B, M, ptrs = _pnp_inputs("pnp_hypotheses", X, xn, valid, depth, dev)
+    if M < PNP_SAMPLE:
+        raise ValueError(f"pnp_hypotheses: {M} correspondences, a draw takes {PNP_SAMPLE}")
+    H = keys.shape[1]
+    keys_p = _check("keys", keys, (B, H, M), torch.float32, dev)
+    F = 2 if depth is None else 3
+    lib = _build.load()
+    samples = torch.empty(B, H, PNP_SAMPLE, dtype=torch.int32, device=dev)
+    poses = torch.empty(B, F * H, 7, dtype=torch.float32, device=dev)
+    err = lib.uz_pnp_hypotheses(*ptrs, keys_p, B, M, H, samples.data_ptr(), poses.data_ptr(),
+                                _stream(dev))
+    _raise_on(err, "pnp_hypotheses")
+    launches["pnp"] += 1
+    return samples, poses
+
+
+def pnp_refine(X, xn, valid, depth, samples, poses, thresh2: float, depth_tol: float,
+               min_consensus: float, iterations: int, f_mean2: float):
+    """K28, second entry: one CTA per candidate: the K x M consensus a warp
+    per hypothesis, the first argmax, the Gauss-Newton steps with the
+    Jacobian in forward-mode dual numbers, JᵀJ and Jᵀr reduced in a fixed
+    tree order, a pivoted 6x6 solve by one thread; the final audit."""
+    if X.device.type == "cpu":
+        return pnp_refine_plain(X, xn, valid, depth, samples, poses, thresh2, depth_tol,
+                                min_consensus, iterations, f_mean2)
+    dev, i32 = X.device, torch.int32
+    B, M, ptrs = _pnp_inputs("pnp_refine", X, xn, valid, depth, dev)
+    H, K = samples.shape[1], poses.shape[1]
+    if K % H or K // H != (2 if depth is None else 3):
+        raise ValueError(f"pnp_refine: {K} hypotheses for {H} draws")
+    _smem_check("pnp_refine", 26 * M + 4 * K + 27 * 4 * 256)
+    ptrs += [_check("samples", samples, (B, H, PNP_SAMPLE), i32, dev),
+             _check("poses", poses, (B, K, 7), torch.float32, dev)]
+    lib = _build.load()
+    pose = torch.empty(B, 7, dtype=torch.float32, device=dev)
+    consensus = torch.empty(B, dtype=i32, device=dev)
+    mse = torch.empty(B, dtype=torch.float32, device=dev)
+    ok = torch.empty(B, dtype=torch.bool, device=dev)
+    best = torch.empty(B, dtype=i32, device=dev)
+    counts = torch.empty(B, K, dtype=i32, device=dev)
+    err = lib.uz_pnp_refine(*ptrs, B, M, H, K, float(thresh2), float(depth_tol),
+                            float(min_consensus), int(iterations), float(f_mean2),
+                            pose.data_ptr(), consensus.data_ptr(), mse.data_ptr(), ok.data_ptr(),
+                            best.data_ptr(), counts.data_ptr(), _stream(dev))
+    _raise_on(err, "pnp_refine")
+    launches["pnp"] += 1
+    return pose, consensus, mse, ok, best, counts

@@ -2,7 +2,8 @@
 ``Slam`` shell.
 
 PyTorch counterpart of ``uzliti_slam_tpu/pipeline.py`` with every place
-recognizer and the feature estimator (laser edges, depth refinement):
+recognizer and every registration estimator (laser edges, depth
+refinement):
 
 - ``process_keyframe`` ingests one keyframe: the front-end
   (``keyframe_frontend``: the bilateral depth filter K17, features and
@@ -10,12 +11,15 @@ recognizer and the feature estimator (laser edges, depth refinement):
   bootstrap, the place-recognition query of ``recognition.method`` (the
   GIST, K16; the feature sets, K21; the repository, K22; the bag of words,
   K23 + K24) and the distance candidates, the pair
-  dedup, Hamming matching (K16, every candidate in one launch) and RANSAC
-  (K7, soft-PROSAC draws) for every candidate, the acceptance gates, the
+  dedup, the registration of every candidate by ``estimation.method`` —
+  "feature": Hamming matching (K16, every candidate in one launch) and
+  RANSAC (K7, soft-PROSAC draws); "pnp": K16 on camera 0's keypoints and
+  the PnP RANSAC (K28); "gicp": the frame's voxel cloud (K25) against each
+  candidate's by the 6-D ICP (K26 normals, K27) — the acceptance gates, the
   new node, its odometry edge, the ICP laser edge (K18) and the candidate
   edges (both entered invalid, for the epoch's filter to validate), and
-  the node's bank rows (the repository's insert, K22; the BoW vector).  It
-  reads no device value on the host.
+  the node's bank rows (the repository's insert, K22; the BoW vector; the
+  voxel cloud).  It reads no device value on the host.
 - ``optimize_epoch`` filters the loop closures (K5-K8), solves (K1-K4, K9,
   K10), refreshes uncertainty and the map→odom correction; it reads one
   device value on the host (``solver._host_decision``, whether the
@@ -33,9 +37,9 @@ recognizer and the feature estimator (laser edges, depth refinement):
 
 ``SlamState`` holds the JAX ``SlamState``'s fields for these
 configurations (the repository, the BoW bank and the vocabulary only where
-the method uses them), with a ``torch.Generator`` (the RANSAC draws) where
-JAX keeps a ``prng`` key, and the gates as host floats
-(``config.Tunables``).  Options of the
+the method uses them, the voxel clouds only for "gicp"), with a
+``torch.Generator`` (the RANSAC draws and the PnP keys) where JAX keeps a
+``prng`` key, and the gates as host floats (``config.Tunables``).  Options of the
 reference that are not ported raise ``NotImplementedError`` naming the
 ``ROADMAP.md`` item that brings them.
 """
@@ -50,7 +54,7 @@ import numpy as np
 import torch
 
 from uzliti_slam_tpu_torch import _device
-from uzliti_slam_tpu_torch.config import (UNPORTED_GATES, KeyframeConfig, SlamConfig, Tunables,
+from uzliti_slam_tpu_torch.config import (KeyframeConfig, SlamConfig, Tunables,
                                           tunables_from_config)
 from uzliti_slam_tpu_torch.frontend import camera as cam_mod
 from uzliti_slam_tpu_torch.graph import filter as gfilter
@@ -60,6 +64,8 @@ from uzliti_slam_tpu_torch.kernels import ops as kops
 from uzliti_slam_tpu_torch.mapping import occupancy
 from uzliti_slam_tpu_torch.ops import depth as depth_ops
 from uzliti_slam_tpu_torch.ops import features, icp, lie, matching, ransac
+from uzliti_slam_tpu_torch.ops import gicp as gicp_ops
+from uzliti_slam_tpu_torch.ops import pnp as pnp_ops
 from uzliti_slam_tpu_torch.ops import scan as scan_ops
 from uzliti_slam_tpu_torch.recognition import recognizer as rec
 from uzliti_slam_tpu_torch.recognition import vocabulary as voc
@@ -70,7 +76,7 @@ MAX_CANDIDATES = 256
 @dataclasses.dataclass
 class SlamState:
     graph: gstate.GraphState
-    generator: torch.Generator   # RANSAC draws, on the graph's device
+    generator: torch.Generator   # RANSAC draws and PnP keys, on the graph's device
     scans: torch.Tensor          # (N, scan_bins) float32 virtual-scan near ranges
     scan_valid: torch.Tensor     # (N,) bool: the node has a scan
     gist: rec.GistBank           # per-node binary GIST
@@ -86,6 +92,10 @@ class SlamState:
     repo: rec.FeatureRepository | None = None
     bow: voc.BowBank | None = None
     vocab: voc.Vocabulary | None = None
+    # the per-node voxel clouds (None unless estimation.method == "gicp")
+    clouds: torch.Tensor | None = None       # (N, V, 3) float32 base-frame points
+    cloud_lab: torch.Tensor | None = None    # (N, V, 3) float32 CIELAB colors
+    cloud_valid: torch.Tensor | None = None  # (N, V) bool
 
     def replace(self, **changes) -> "SlamState":
         return dataclasses.replace(self, **changes)
@@ -98,7 +108,9 @@ def init_state(config: SlamConfig = SlamConfig(), seed: int = 0, device=None,
     ``device`` (default: the CUDA card).  ``recognition.method="repository"``
     adds an empty repository of ``repo_desc_per_node`` descriptors a node
     slot; ``"bow"`` an empty BoW bank and ``vocabulary`` (moved to
-    ``device``), which it needs, of ``bow_words`` words, else ValueError."""
+    ``device``), which it needs, of ``bow_words`` words, else ValueError;
+    ``estimation.method="gicp"`` empty voxel clouds of ``gicp_max_voxels``
+    a node."""
     device = _device.resolve(device)
     n, f = config.node_capacity, config.feats_per_node
     rc = config.recognition
@@ -114,6 +126,12 @@ def init_state(config: SlamConfig = SlamConfig(), seed: int = 0, device=None,
                              f"config.recognition.bow_words={rc.bow_words}")
         bow = voc.bow_bank_init(n, rc.bow_words, device)
         vocab = voc.Vocabulary(*(t.to(device) for t in vocabulary))
+    clouds = cloud_lab = cloud_valid = None
+    if config.estimation.method == "gicp":
+        v = config.estimation.gicp_max_voxels
+        clouds = torch.zeros(n, v, 3, device=device)
+        cloud_lab = torch.zeros(n, v, 3, device=device)
+        cloud_valid = torch.zeros(n, v, dtype=torch.bool, device=device)
     return SlamState(
         graph=gstate.empty_graph(n, config.edge_capacity, device),
         generator=torch.Generator(device=device).manual_seed(seed),
@@ -127,7 +145,8 @@ def init_state(config: SlamConfig = SlamConfig(), seed: int = 0, device=None,
         n_keyframes=torch.zeros((), dtype=torch.int32, device=device),
         last_kf_slot=torch.full((), -1, dtype=torch.int32, device=device),
         tunables=tunables_from_config(config),
-        repo=repo, bow=bow, vocab=vocab,
+        repo=repo, bow=bow, vocab=vocab, clouds=clouds, cloud_lab=cloud_lab,
+        cloud_valid=cloud_valid,
     )
 
 
@@ -139,7 +158,8 @@ def state_from_numpy(arrays: dict, seed: int = 0, device=None,
     ``points``, ``last_kf_odom``, ``n_keyframes``, ``last_kf_slot``,
     ``gist`` (a dict of ``desc``, ``stamp``, ``valid``), ``repo`` and
     ``bow`` (dicts of their banks' fields), ``vocab`` (a dict of
-    ``centers``, ``idf``) and ``tunables`` (a dict of gate values) are taken
+    ``centers``, ``idf``), ``clouds``, ``cloud_lab``, ``cloud_valid`` (for
+    ``estimation.method="gicp"``) and ``tunables`` (a dict of gate values) are taken
     where present, else made as ``init_state(config)`` makes them for the
     graph's node capacity.  A JAX ``prng`` key cannot cross: the generator
     is seeded with ``seed``."""
@@ -158,13 +178,11 @@ def state_from_numpy(arrays: dict, seed: int = 0, device=None,
     def cross(x, like: torch.Tensor) -> torch.Tensor:
         return torch.from_numpy(np.array(x, dtype=like.cpu().numpy().dtype)).to(device)
 
-    def take(name: str, like: torch.Tensor) -> torch.Tensor:
-        return cross(arrays[name], like) if name in arrays else like
+    def take(name: str, like: torch.Tensor | None) -> torch.Tensor | None:
+        return cross(arrays[name], like) if name in arrays and like is not None else like
 
     gist = arrays.get("gist", {})
-    # the reference's gates of unported paths have no place here
-    tunables = (Tunables(**{k: float(np.float32(v)) for k, v in arrays["tunables"].items()
-                            if k not in UNPORTED_GATES})
+    tunables = (Tunables(**{k: float(np.float32(v)) for k, v in arrays["tunables"].items()})
                 if "tunables" in arrays else base.tunables)
     return base.replace(
         graph=graph, scans=take("scans", base.scans), scan_valid=take("scan_valid", base.scan_valid),
@@ -175,7 +193,9 @@ def state_from_numpy(arrays: dict, seed: int = 0, device=None,
         n_keyframes=take("n_keyframes", base.n_keyframes),
         last_kf_slot=take("last_kf_slot", base.last_kf_slot), tunables=tunables,
         repo=bank(rec.FeatureRepository, arrays["repo"]) if "repo" in arrays else base.repo,
-        bow=bank(voc.BowBank, arrays["bow"]) if "bow" in arrays else base.bow)
+        bow=bank(voc.BowBank, arrays["bow"]) if "bow" in arrays else base.bow,
+        clouds=take("clouds", base.clouds), cloud_lab=take("cloud_lab", base.cloud_lab),
+        cloud_valid=take("cloud_valid", base.cloud_valid))
 
 
 def epoch_candidates(g: gstate.GraphState, config: SlamConfig = SlamConfig()):
@@ -318,7 +338,10 @@ def _merge_banks(state: SlamState, g_before: gstate.GraphState, g_after: gstate.
       points re-expressed in the kept node's new frame;
     - scans: both nodes' scan points move into the new kept frame, and
       their union is re-binned to one virtual scan (``points_to_scan``: one
-      K15 ``bin_min_max`` launch for every pair).
+      K15 ``bin_min_max`` launch for every pair);
+    - voxel clouds (the gicp estimator): the kept node's free voxel slots
+      are backfilled with the absorbed node's, both moved into the kept
+      node's new frame.
 
     The pairs are disjoint, so every pair is computed from the same state
     at once and only the ok pairs are written (the reference's sequential
@@ -327,17 +350,22 @@ def _merge_banks(state: SlamState, g_before: gstate.GraphState, g_after: gstate.
     rel_k = lie.pose_relative(g_after.pose[ks], g_before.pose[ks])
     rel_a = lie.pose_relative(g_after.pose[ks], g_before.pose[as_])
 
+    def backfill(kv, av):
+        """Each row's slots by priority: the kept node's valid entries, the
+        absorbed node's valid ones, then the invalid (a stable sort); the
+        first as many as a row holds."""
+        pri = torch.cat([torch.where(kv, 0, 2), torch.where(av, 1, 3)], dim=1)
+        order = torch.sort(pri, dim=1, stable=True).indices[:, :kv.shape[1]]
+
+        def pick(a, b):
+            both = torch.cat([a, b], dim=1)
+            idx = order.reshape(order.shape + (1,) * (both.dim() - 2)).expand(
+                order.shape + both.shape[2:])
+            return torch.gather(both, 1, idx)
+        return pick
+
     kv, av = state.desc_valid[ks], state.desc_valid[as_]
-    F = kv.shape[1]
-    pri = torch.cat([torch.where(kv, 0, 2), torch.where(av, 1, 3)], dim=1)
-    order = torch.sort(pri, dim=1, stable=True).indices[:, :F]
-
-    def pick(a, b):
-        both = torch.cat([a, b], dim=1)
-        idx = order.reshape(order.shape + (1,) * (both.dim() - 2)).expand(
-            order.shape + both.shape[2:])
-        return torch.gather(both, 1, idx)
-
+    pick = backfill(kv, av)
     desc_all = pick(state.desc[ks], state.desc[as_])
     valid_all = pick(kv, av)
     pts_all = pick(lie.pose_apply(rel_k[:, None], state.points[ks]),
@@ -357,6 +385,16 @@ def _merge_banks(state: SlamState, g_before: gstate.GraphState, g_after: gstate.
     union_ok = torch.cat([okk & sv_k[:, None], oka & sv_a[:, None]], dim=1)
     merged = scan_ops.points_to_scan(union, union_ok, n_bins=n_bins)
 
+    if state.clouds is not None:
+        kvc, avc = state.cloud_valid[ks], state.cloud_valid[as_]
+        pick_c = backfill(kvc, avc)
+        state = state.replace(
+            clouds=gstate.set_rows(state.clouds, ks, ok, pick_c(
+                lie.pose_apply(rel_k[:, None], state.clouds[ks]),
+                lie.pose_apply(rel_a[:, None], state.clouds[as_]))),
+            cloud_lab=gstate.set_rows(state.cloud_lab, ks, ok,
+                                      pick_c(state.cloud_lab[ks], state.cloud_lab[as_])),
+            cloud_valid=gstate.set_rows(state.cloud_valid, ks, ok, pick_c(kvc, avc)))
     return state.replace(
         desc=gstate.set_rows(state.desc, ks, ok, desc_all),
         desc_valid=gstate.set_rows(state.desc_valid, ks, ok, valid_all),
@@ -375,9 +413,11 @@ def _drop_from_banks(state: SlamState, dead: torch.Tensor) -> SlamState:
                              link_valid=repo.link_valid & ~dead[repo.links.long()])
     if bow is not None:
         bow = rec.drop_nodes(bow, dead)
+    cloud_valid = None if state.cloud_valid is None else state.cloud_valid & ~dead[:, None]
     return state.replace(gist=rec.drop_nodes(state.gist, dead),
                          scan_valid=state.scan_valid & ~dead,
-                         desc_valid=state.desc_valid & ~dead[:, None], repo=repo, bow=bow)
+                         desc_valid=state.desc_valid & ~dead[:, None], repo=repo, bow=bow,
+                         cloud_valid=cloud_valid)
 
 
 def maintenance_epoch(state: SlamState, config: SlamConfig = SlamConfig(),
@@ -444,6 +484,9 @@ def compact_state(state: SlamState) -> tuple[SlamState, dict]:
     if bow is not None:
         bow = voc.BowBank(vec=bow.vec[order], stamp=bow.stamp[order],
                           valid=bow.valid[order] & live)
+    if state.clouds is not None:
+        state = state.replace(clouds=state.clouds[order], cloud_lab=state.cloud_lab[order],
+                              cloud_valid=state.cloud_valid[order] & live[:, None])
     return state.replace(
         graph=g,
         gist=rec.GistBank(desc=gist.desc[order], stamp=gist.stamp[order],
@@ -466,6 +509,9 @@ class FrontendOutput(NamedTuple):
     kp_valid: torch.Tensor   # (C, K) valid keypoints
     scan: scan_ops.Scan      # the cameras' virtual scans merged in polar space
     gist: torch.Tensor       # (32,) uint8 binary GIST of camera 0
+    # the frame's voxel cloud (points (V, 3), Lab (V, 3), valid (V,)) in
+    # the base frame, for estimation.method == "gicp", else None
+    cloud: tuple | None = None
 
 
 def _as_tensor(x, device: torch.device) -> torch.Tensor:
@@ -495,6 +541,24 @@ def _depth_metres(deps: torch.Tensor, depth_scale: float) -> torch.Tensor:
     return units.to(torch.float32) * depth_scale
 
 
+def _cloud_points(cam: cam_mod.PinholeCamera, raw: torch.Tensor, deps: torch.Tensor,
+                  depth_scale: float) -> torch.Tensor:
+    """Camera-frame points (C, H, W, 3) of every pixel, as the reference's
+    compiled form gives them: from integer depth units XLA reassociates
+    ((u − cx)/fx) · (units · s) into units · ((u − cx)/fx · s), and a point
+    on a voxel face moves with that rounding; float depth is backprojected
+    as it is."""
+    if raw.dtype.is_floating_point:
+        return cam_mod.backproject_image(cam, deps)
+    units = _depth_metres(raw, 1.0)
+    h, w = deps.shape[-2:]
+    uu = torch.arange(w, dtype=torch.float32, device=deps.device)
+    vv = torch.arange(h, dtype=torch.float32, device=deps.device)
+    x = units * ((uu - cam.cx) / cam.fx * depth_scale)[None, None, :]
+    y = units * ((vv - cam.cy) / cam.fy * depth_scale)[None, :, None]
+    return torch.stack([x, y, deps], dim=-1)
+
+
 def keyframe_frontend(image, depth, cam: cam_mod.PinholeCamera, cam_pose,
                       config: SlamConfig = SlamConfig(), device=None,
                       tunables: Tunables | None = None) -> FrontendOutput:
@@ -513,12 +577,16 @@ def keyframe_frontend(image, depth, cam: cam_mod.PinholeCamera, cam_pose,
     lookup and the scan.  Each camera takes ``feats_per_node // C``
     keypoints at the FAST threshold of ``tunables`` (default: from
     ``config``); the GIST is camera 0's, rolled by its extrinsic's roll.
+    With ``estimation.method="gicp"`` the frame's voxel cloud is built from
+    every camera's raw depth and image (before rectification and the
+    filter, as the reference builds it): every pixel with depth > 0.1 m,
+    gray replicated into Lab, one voxel grid (K25) over all cameras.
     The "sift" family is not ported: it raises ``NotImplementedError``.
     """
     fc = config.frontend
     if fc.descriptor == "sift":
-        raise NotImplementedError("the 'sift' descriptor family is not ported "
-                                  "(ROADMAP.md A25, B20)")
+        raise NotImplementedError("the 'sift' descriptor family is not ported: its "
+                                  "descriptors and L2 matcher are ROADMAP.md A25, B20g-h")
     tn = tunables if tunables is not None else tunables_from_config(config)
     if device is None and isinstance(image, torch.Tensor):
         device = image.device
@@ -527,13 +595,25 @@ def keyframe_frontend(image, depth, cam: cam_mod.PinholeCamera, cam_pose,
     deps = _as_tensor(depth, device)
     poses = _as_tensor(cam_pose, device).to(torch.float32)
     imgs = (imgs if imgs.dim() == 3 else imgs[None]).to(torch.float32)
-    deps = _depth_metres(deps if deps.dim() == 3 else deps[None], config.depth_scale)
+    raw = deps if deps.dim() == 3 else deps[None]
+    deps = _depth_metres(raw, config.depth_scale)
     poses = poses if poses.dim() == 2 else poses[None]
     n_cams, H, W = imgs.shape
     k_per_cam = config.feats_per_node // n_cams
     if k_per_cam * n_cams != config.feats_per_node:
         raise ValueError(f"feats_per_node budget {config.feats_per_node} not divisible by "
                          f"{n_cams} cameras")
+    cloud = None
+    if config.estimation.method == "gicp":
+        ec = config.estimation
+        pb = lie.pose_apply(poses[:, None, :], _cloud_points(cam, raw, deps, config.depth_scale)
+                            .reshape(n_cams, H * W, 3))
+        d = deps.reshape(-1)
+        # XLA compiles the division by 255 into a product with its float32 reciprocal
+        gray = torch.clamp(imgs.reshape(-1) * (1.0 / 255.0), 0.0, 1.0)
+        cloud = gicp_ops.voxel_downsample(
+            pb.reshape(-1, 3), gicp_ops.rgb_to_lab(torch.stack([gray, gray, gray], dim=-1)),
+            (d > 0.1) & torch.isfinite(d), ec.gicp_voxel, ec.gicp_max_voxels)
     if fc.rectify:
         imgs = cam_mod.rectify_image(cam, imgs)
         deps = cam_mod.rectify_image(cam, deps, nearest=True)
@@ -562,19 +642,21 @@ def keyframe_frontend(image, depth, cam: cam_mod.PinholeCamera, cam_pose,
     gist = features.binary_gist(imgs[0], roll_angle=lie.roll_of(lie.pose_q(poses[0])))
     return FrontendOutput(desc=desc.reshape(-1, 32), pts_base=pts_base.reshape(-1, 3),
                           pts_valid=pts_valid.reshape(-1), uv=kps.uv, kp_valid=kps.valid,
-                          scan=merged, gist=gist)
+                          scan=merged, gist=gist, cloud=cloud)
 
 
 # ---------------------------------------------------------------------------
 # The keyframe step
 # ---------------------------------------------------------------------------
 
+ESTIMATION_METHODS = ("feature", "pnp", "gicp")
+
+
 def check_supported(config: SlamConfig) -> None:
-    """Raise ``NotImplementedError`` for an option whose path the port does
-    not have yet, naming the ROADMAP.md item that brings it."""
-    if config.estimation.method != "feature":
-        raise NotImplementedError(f"estimation.method={config.estimation.method!r}: only "
-                                  "'feature' is ported (ROADMAP.md A25)")
+    """Raise ``ValueError`` for an unknown estimation method, as the
+    reference does."""
+    if config.estimation.method not in ESTIMATION_METHODS:
+        raise ValueError(f"unknown estimation method {config.estimation.method!r}")
 
 
 def _scan_pts(ranges: torch.Tensor):
@@ -618,22 +700,95 @@ def _recognize(state: SlamState, fe: FrontendOutput, st: torch.Tensor, config: S
     raise ValueError(f"unknown place_recognition method {rc.method!r}")
 
 
+def _register_feature(state: SlamState, fe: FrontendOutput, cs: torch.Tensor,
+                      config: SlamConfig, tri: torch.Tensor | None):
+    """The feature estimator: Hamming 2-NN + ratio test against every
+    candidate (K16, one launch), then RANSAC with soft-PROSAC draws (K7).
+    Returns the registration and the triplets drawn (or ``tri``)."""
+    tn, ec = state.tunables, config.estimation
+    mi, ok_m, dist = matching.match_against_bank(fe.desc, fe.pts_valid, state.desc,
+                                                 state.desc_valid, cs, tn.match_ratio,
+                                                 tn.max_match_distance)
+    nb, F = cs.shape[0], fe.desc.shape[0]
+    cpts = state.points.index_select(0, cs.long())
+    dst = torch.gather(cpts, 1, mi.long()[..., None].expand(nb, F, 3))
+    if tri is None:
+        tri = ransac._valid_sample(state.generator, ec.ransac_hypotheses, ok_m, -dist)
+    res = ransac.ransac_rigid_batch(
+        fe.pts_base[None].expand(nb, F, 3), dst, ok_m, ec.ransac_hypotheses,
+        tn.ransac_inlier_thresh, tn.min_consensus, tn.ransac_min_sigma, tri=tri)
+    return (res.pose, res.information, res.consensus.to(torch.float32), res.ok), tri
+
+
+def _register_pnp(state: SlamState, fe: FrontendOutput, cs: torch.Tensor, cam, cam0,
+                  config: SlamConfig, keys: torch.Tensor | None):
+    """The PnP estimator (``pipeline.py:417-457`` of the JAX package): camera
+    0's keypoints matched against every candidate (K16), then the PnP
+    RANSAC (K28) of the candidate's 3-D points against their pixels, with
+    the measured depth of each keypoint in camera 0.  The edge is
+    (cam0 ∘ T)⁻¹ over base frames; its information diag(1, 1, 1, 100, 100,
+    100) · 0.1 · consensus / max(mse, 1e-2).  Returns the registration and
+    the draws' uniform keys (or ``keys``)."""
+    tn, ec = state.tunables, config.estimation
+    nb, F = cs.shape[0], fe.desc.shape[0]
+    k_per_cam = fe.uv.shape[1]
+    valid2d = fe.kp_valid.reshape(-1) & (torch.arange(F, device=cs.device) < k_per_cam)
+    depth0 = torch.where(fe.pts_valid,
+                         lie.pose_apply(lie.pose_inverse(cam0)[None], fe.pts_base)[:, 2], 0.0)
+    mi, ok_m, _ = matching.match_against_bank(fe.desc, valid2d, state.desc, state.desc_valid,
+                                              cs, tn.match_ratio, tn.max_match_distance)
+    cpts = state.points.index_select(0, cs.long())
+    X = torch.gather(cpts, 1, mi.long()[..., None].expand(nb, F, 3))
+    if keys is None:
+        keys = torch.rand((nb, ec.pnp_hypotheses, F), generator=state.generator, device=cs.device)
+    pr = pnp_ops.pnp_ransac(X, fe.uv.reshape(-1, 2), ok_m, cam.fx, cam.fy, cam.cx, cam.cy,
+                            n_hypotheses=ec.pnp_hypotheses, reproj_thresh_px=tn.pnp_reproj_px,
+                            min_consensus=tn.min_consensus, depth=depth0, keys=keys)
+    pose = lie.pose_inverse(lie.pose_compose(cam0[None], pr.pose))
+    consensus = pr.consensus.to(torch.float32)
+    base = 0.1 * consensus / torch.clamp(pr.reproj_mse, min=1e-2)
+    diag = torch.cat([torch.ones(nb, 3, device=cs.device),
+                      torch.full((nb, 3), 100.0, device=cs.device)], dim=-1)
+    return (pose, torch.diag_embed(diag * base[:, None]), consensus, pr.ok), keys
+
+
+def _register_gicp(state: SlamState, fe: FrontendOutput, cs: torch.Tensor,
+                   map_pose: torch.Tensor, config: SlamConfig):
+    """The gicp estimator (``pipeline.py:459-472`` of the JAX package): the
+    frame's voxel cloud against every candidate's by the 6-D ICP (K26's
+    normals, K27), from the candidate-relative map pose; the score is 100 ×
+    the correspondence fraction, and a candidate without a cloud fails."""
+    g, tn, ec = state.graph, state.tunables, config.estimation
+    idx = cs.long()
+    cvalid = state.cloud_valid.index_select(0, idx)
+    init = lie.pose_relative(g.pose.index_select(0, idx), map_pose[None])
+    rg = gicp_ops.gicp_6d(*fe.cloud, state.clouds.index_select(0, idx),
+                          state.cloud_lab.index_select(0, idx), cvalid, init_pose=init,
+                          iterations=ec.gicp_iterations, max_corr_dist=tn.gicp_max_corr)
+    return rg.pose, rg.information, 100.0 * rg.fraction, rg.ok & cvalid.any(-1)
+
+
 def process_keyframe(state: SlamState, image, depth, odom_pose, stamp,
                      cam: cam_mod.PinholeCamera, cam_pose, config: SlamConfig = SlamConfig(),
-                     cam_disp=None, tri: torch.Tensor | None = None) -> tuple[SlamState, dict]:
+                     cam_disp=None, tri: torch.Tensor | None = None,
+                     pnp_keys: torch.Tensor | None = None) -> tuple[SlamState, dict]:
     """Ingest one keyframe (``_keyframe_body``, ``pipeline.py:159-623`` of
-    the JAX package, with the feature estimator) on the state's device.
+    the JAX package) on the state's device.
 
     ``image``/``depth``/``cam_pose`` as ``keyframe_frontend`` takes them;
     ``odom_pose`` (7,) the base's odometry pose; ``stamp`` seconds (a
     number or a () tensor); ``cam_disp`` (C, 7) optional per-camera
     capture displacement, composed onto the extrinsics.  ``tri`` (2·k,
     ``ransac_hypotheses``, 3) injects the RANSAC triplets of the 2·k
-    candidates; without it they are drawn from ``state.generator``.
+    candidates ("feature"), ``pnp_keys`` (2·k, ``pnp_hypotheses``, F) the
+    PnP draws' uniform keys ("pnp"); without them they are drawn from
+    ``state.generator``.
     Returns the new state (functional: ``state``'s tensors are not
     modified; the generator advances) and ``info``: ``new_slot``,
     ``n_candidates``, ``n_edges_proposed``, ``n_features`` as device
-    tensors.  Reads no device value on the host.
+    tensors, and the draws the step used, ``tri`` ("feature") or
+    ``pnp_keys`` ("pnp"), which replay it.  Reads no device value on the
+    host.
     """
     check_supported(config)
     g = state.graph
@@ -683,23 +838,21 @@ def process_keyframe(state: SlamState, image, depth, odom_pose, stamp,
                    & (order[None, :] < order[:, None]))
     cand_ok = cand_ok & ~earlier_dup.any(-1)
 
-    # registration of every candidate: Hamming 2-NN + ratio test (K16, one
-    # launch), then RANSAC with soft-PROSAC draws (K7); gated afterwards
+    # registration of every candidate by the configured estimator, gated
+    # afterwards
     cs = torch.clamp(cand_slots, min=0)
-    mi, ok_m, dist = matching.match_against_bank(fe.desc, fe.pts_valid, state.desc,
-                                                 state.desc_valid, cs, tn.match_ratio,
-                                                 tn.max_match_distance)
-    F = fe.desc.shape[0]
-    cpts = state.points.index_select(0, cs.long())
-    dst = torch.gather(cpts, 1, mi.long()[..., None].expand(nb, F, 3))
-    res = ransac.ransac_rigid_batch(
-        fe.pts_base[None].expand(nb, F, 3), dst, ok_m, ec.ransac_hypotheses,
-        tn.ransac_inlier_thresh, tn.min_consensus, tn.ransac_min_sigma, tri=tri,
-        generator=state.generator, quality=-dist)
-    r_score = res.consensus.to(torch.float32)
-    t_norm = torch.linalg.vector_norm(lie.pose_t(res.pose), dim=-1)
-    r_deg = torch.rad2deg(lie.rotation_angle(lie.pose_q(res.pose)))
-    edge_ok = (cand_ok & res.ok & (r_score >= tn.min_matching_score)
+    draws = {}
+    if ec.method == "gicp":
+        r_pose, r_info, r_score, r_ok = _register_gicp(state, fe, cs, map_pose, config)
+    elif ec.method == "pnp":
+        (r_pose, r_info, r_score, r_ok), draws["pnp_keys"] = _register_pnp(
+            state, fe, cs, cam, poses[0], config, pnp_keys)
+    else:
+        (r_pose, r_info, r_score, r_ok), draws["tri"] = _register_feature(state, fe, cs,
+                                                                          config, tri)
+    t_norm = torch.linalg.vector_norm(lie.pose_t(r_pose), dim=-1)
+    r_deg = torch.rad2deg(lie.rotation_angle(lie.pose_q(r_pose)))
+    edge_ok = (cand_ok & r_ok & (r_score >= tn.min_matching_score)
                & (t_norm < tn.max_edge_translation) & (r_deg < tn.max_edge_rotation_deg))
 
     # the node; its uid from the keyframe counter, not the slot
@@ -733,8 +886,8 @@ def process_keyframe(state: SlamState, image, depth, odom_pose, stamp,
     valid = torch.arange(n_fixed + nb, device=dev) == 0       # odometry enters valid
     froms.append(torch.where(edge_ok, cand_slots, -1))
     g, _ = gstate.add_edges(
-        g, torch.cat(froms), new_slot.expand(n_fixed + nb), torch.cat(transforms + [res.pose]),
-        torch.cat(infos + [res.information]), et,
+        g, torch.cat(froms), new_slot.expand(n_fixed + nb), torch.cat(transforms + [r_pose]),
+        torch.cat(infos + [r_info]), et,
         torch.cat([torch.zeros(n_fixed, device=dev), r_score]), valid)
 
     # the node's bank rows
@@ -746,6 +899,11 @@ def process_keyframe(state: SlamState, image, depth, odom_pose, stamp,
                                   match_thresh=tn.feature_hamming_thresh, ok=wrote)
     if rc.method == "bow":
         bow = voc.bow_bank_add(bow, new_slot, bow_vec, st)
+    if ec.method == "gicp":
+        cp, cl, cv = fe.cloud
+        state = state.replace(clouds=gstate.set_row(state.clouds, ns, wrote, cp),
+                              cloud_lab=gstate.set_row(state.cloud_lab, ns, wrote, cl),
+                              cloud_valid=gstate.set_row(state.cloud_valid, ns, wrote, cv))
     state = state.replace(
         graph=g, repo=repo, bow=bow,
         gist=rec.gist_bank_add(state.gist, new_slot, fe.gist, st),
@@ -759,7 +917,7 @@ def process_keyframe(state: SlamState, image, depth, odom_pose, stamp,
         last_kf_slot=torch.where(wrote, new_slot, state.last_kf_slot).to(torch.int32),
     )
     info = {"new_slot": new_slot, "n_candidates": cand_ok.sum(), "n_edges_proposed": edge_ok.sum(),
-            "n_features": fe.pts_valid.sum()}
+            "n_features": fe.pts_valid.sum(), **draws}
     return state, info
 
 
@@ -781,6 +939,9 @@ def grow_state(state: SlamState, node_capacity: int, edge_capacity: int) -> Slam
         repo = repo._replace(node_stamp=pad(repo.node_stamp), node_valid=pad(repo.node_valid))
     if bow is not None:
         bow = voc.BowBank(*(pad(x) for x in bow))
+    if state.clouds is not None:
+        state = state.replace(clouds=pad(state.clouds), cloud_lab=pad(state.cloud_lab),
+                              cloud_valid=pad(state.cloud_valid))
     return state.replace(
         graph=g, gist=rec.GistBank(*(pad(x) for x in state.gist)), desc=pad(state.desc),
         desc_valid=pad(state.desc_valid), points=pad(state.points),
@@ -836,9 +997,12 @@ class Slam:
         # the node-slot high-water mark, as the host counts it: what gates growth
         self._n_slots_host = 0
 
-    def add_frame(self, image, depth, odom_pose, stamp, cam_disp=None) -> dict | None:
+    def add_frame(self, image, depth, odom_pose, stamp, cam_disp=None,
+                  tri: torch.Tensor | None = None,
+                  pnp_keys: torch.Tensor | None = None) -> dict | None:
         """Process a frame if it is keyframe-due; returns the step's info
-        (device tensors: reading them synchronises) or None."""
+        (device tensors: reading them synchronises) or None.  ``tri`` and
+        ``pnp_keys`` inject the step's draws (``process_keyframe``)."""
         kc = self.config.keyframe
         odom = _host_pose(odom_pose)
         due = self._n_kf_host == 0 or _keyframe_due_np(
@@ -851,7 +1015,7 @@ class Slam:
             self.state = grow_state(self.state, new_cfg.node_capacity, new_cfg.edge_capacity)
             self.config = new_cfg
         self.state, info = process_keyframe(self.state, image, depth, odom, stamp, self.cam,
-                                            self.cam_pose, self.config, cam_disp)
+                                            self.cam_pose, self.config, cam_disp, tri, pnp_keys)
         self._last_kf_odom_host = odom
         self._n_kf_host += 1
         self._n_slots_host += 1
@@ -952,12 +1116,7 @@ class Slam:
 
     def set_param(self, name: str, value: float) -> None:
         """Retune a gate of ``config.Tunables`` (rounded to float32), or a
-        keyframe-gate field of ``config.keyframe``, for the next frames.
-        A gate of the reference's whose path is not ported raises
-        ``NotImplementedError``."""
-        if name in UNPORTED_GATES:
-            raise NotImplementedError(f"{name}: its path is not ported "
-                                      f"(ROADMAP.md {UNPORTED_GATES[name]})")
+        keyframe-gate field of ``config.keyframe``, for the next frames."""
         if name in {f.name for f in dataclasses.fields(Tunables)}:
             self.state = self.state.replace(tunables=self.state.tunables.replace(**{name: value}))
         elif name in {f.name for f in dataclasses.fields(KeyframeConfig)}:
