@@ -116,7 +116,26 @@ runs, in order, each phase printing lines of its own:
    (DLT, homography, Kabsch) by draw, the wall's coplanar DLT draws named
    by their null space (see PNP_HYP_MEDIAN); (c)
    tests/test_estimation_methods.py's 24-frame run per method on the card,
-   held to its bars.
+   held to its bars;
+16. the float-descriptor path: ``detect_and_describe(descriptor="sift")``
+   (K12, K13, K29) on a VGA frame and on it shifted by 3 px, and
+   ``match_descriptors_l2`` (K30) between them: launches, the match held to
+   tests/test_frontend.py's bars (>= 10 matches, median shift within 1.5 px
+   of 3), the path timed sync-free; K29 against its plain version on every
+   level's arguments (angles within 1e-5, descriptors within 1e-5 given its
+   angles), K30 on the match's (best within 1e-5, the same indices and
+   flags off near-ties), each timed with its bound, K30 beside
+   ``cdist`` squared + ``topk``;
+17. the fleet: ``parallel.sharded.optimize_batch`` on 4096 distinct
+   64-node instances at the JAX bench's rung configuration (20 LM x 8 PCG,
+   cutoff 16, fixed iterations): launches of one solve (K1, K2, K8 and the
+   batched entries of K3, K4, K9, K10; the same counts on 8 instances),
+   solve ms and instance-solves/s sync-free, mean χ², a profile, the χ²
+   ratio against the sparse oracle on 16 instances, 8 instances against a
+   loop of single solves on CPU tensors, each batched entry against its
+   plain version on the fleet's first iteration; then the default
+   (early-exit) configuration, its factors built against the reference's
+   refreshes summed over the instances.
 
 Then one JSON line with the kernels' results, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -236,9 +255,10 @@ STEP_KERNELS = FRONTEND_KERNELS + KEYFRAME_KERNELS + ("ransac_rigid",)
 # the maintenance and calibration timers' kernels (phase 13): K19, K20 and
 # K15's second entry point
 MAINT_KERNELS = ("merge_pairs", "calib_gn", "bin_min_max")
-# the device functions each front-end kernel's wrapper launches
+# the device functions each front-end kernel's wrapper launches (a template
+# with its arguments: K14 and K29 share describe.cuh's blur at radius 2 and 1)
 FRONTEND_DEVICE_FUNCTIONS = {"fast_nms": ("fast_nms_tile",), "grid_topk": ("cell_topk", "global_topk"),
-                             "orb_describe": ("box_blur", "describe"),
+                             "orb_describe": ("box_blur<2>", "describe"),
                              "scan_bins": ("init_table", "scan_pixels", "finalize"),
                              "hamming_top2": ("match_top2", "gist_rounds"),
                              "bilateral": ("bilateral_tile",), "icp": ("icp_problems",),
@@ -254,7 +274,9 @@ FRONTEND_DEVICE_FUNCTIONS = {"fast_nms": ("fast_nms_tile",), "grid_topk": ("cell
                              "voxel_grid": ("voxel_sort_chunks", "voxel_merge",
                                             "voxel_accumulate", "voxel_finish"),
                              "knn_normals": ("knn_normals_kernel",), "gicp": ("gicp_problems",),
-                             "pnp": ("pnp_hypotheses_kernel", "pnp_refine_kernel")}
+                             "pnp": ("pnp_hypotheses_kernel", "pnp_refine_kernel"),
+                             "sift_describe": ("box_blur<1>", "sift_keypoints"),
+                             "l2_top2": ("l2_top2_tiles",)}
 # cuSOLVER / cuBLAS items that must not appear in a profiled solve
 LIBRARY_ITEMS = ("getrf", "getrs", "trsm", "gemv")
 # The card's published peaks (H100 SXM at 700 W):
@@ -388,6 +410,66 @@ PNP_HYP_MEDIAN, PNP_HYP_MAX, DLT_NULL_RATIO = 1e-4, 1e-3, 1e-4
 # tests/test_estimation_methods.py's run: 24 frames at 96x128
 EST_RUN = dict(img_h=96, img_w=128, n_frames=24, odom_drift=0.08, length=5.0)
 
+# Phase 16: the float-descriptor path, K29 and K30.  A VGA frame of the
+# keyframe rung's world and the same frame shifted by 3 px,
+# tests/test_frontend.py:311-323's bars (>= 10 matches, median shift within
+# 1.5 px of 3).  K29 is held as K14: its angles within ANGLE_ATOL of the
+# plain version's (moments summed in another order off level 0), its
+# descriptors within SIFT_DESC_ATOL of the plain version's given K29's
+# angles (the same samples; the cell sums and norms in another order).  K30:
+# best squared distances within L2_BEST_ATOL (dot products summed in
+# another order on unit rows), the same index unless the row's two best
+# lie within L2_NEAR_REL relative, the same ok unless best lies within
+# L2_NEAR_REL of ratio²·second.
+SIFT_REPLACES = {
+    "sift_describe": "uzliti_slam_tpu/ops/features.py:413 (sift_descriptors) + :171"
+                     " (intensity_centroid_angles) + :159 (_sep_blur, radius 1)",
+    "l2_top2": "uzliti_slam_tpu/ops/matching.py:136 (l2_matrix) + :80 (knn_match) + :100"
+               " (ratio_test) via :154 (match_descriptors_l2)",
+}
+SIFT_KERNELS = tuple(SIFT_REPLACES)
+SIFT_RUN = dict(max_keypoints=300, n_levels=4, shift=3, ratio=0.9, min_matches=10,
+                shift_tol=1.5)
+SIFT_DESC_ATOL, L2_BEST_ATOL, L2_NEAR_REL = 1e-5, 1e-5, 1e-5
+# Phase 17: the fleet, the JAX bench's batched_4096x64n_20it rung
+# (bench.py:124-165, 559-563): 4096 distinct circle graphs of 64 nodes,
+# closures every 8 (pow2 capacities: 64 node and 128 edge slots), 20 LM x
+# 8 PCG steps, cutoff 16, fixed iterations, a refresh every 5; the port's
+# sparse oracle on 16 sampled instances; 8 instances against a loop of
+# single solves on CPU tensors (χ² within CHI2_RTOL·χ² + 1e-6·χ²₀, poses
+# within FLEET_POSE_ATOL: float32 PCG amplifies summation order, and the
+# JAX package's own vmapped and single solves differ by 4.3e-4 at 8 PCG
+# steps, ``PYTHONPATH=. python tests/test_torch_fleet.py``);
+# K3, K4, K9 and K10 at the fleet's batch against their plain versions on
+# the fleet's first iteration (KERNEL_TOL of the kernel; K10 launch by
+# launch on the same inputs).  The kernels line lists those four at the
+# fleet's batch as rows of their own (``*_batch``), with the launches of
+# their kernel in the fleet's solve.
+FLEET_REPLACES = {
+    "residual_chi2_batch": "uzliti_slam_tpu/parallel/sharded.py:115 (optimize_batch: vmap of"
+                           " graph/solver.py:1213 optimize) — graph/solver.py:1034"
+                           " (_robust_chi2_from_r) + graph/factors.py:72 (batched_residuals)",
+    "pcg_batch": "uzliti_slam_tpu/parallel/sharded.py:115 (optimize_batch) — graph/solver.py:512"
+                 " (_pcg) under vmap",
+    "chain_apply_batch": "uzliti_slam_tpu/parallel/sharded.py:115 (optimize_batch) —"
+                         " graph/tridiag.py:198 (block_tridiag_apply) under vmap",
+    "chain_factor_batch": "uzliti_slam_tpu/parallel/sharded.py:115 (optimize_batch) —"
+                          " graph/tridiag.py:145 (block_tridiag_factor) under vmap",
+}
+FLEET_KERNELS = tuple(FLEET_REPLACES)
+FLEET_KERNEL = {row: row.removesuffix("_batch") for row in FLEET_KERNELS}
+FLEET_SOURCE = {"residual_chi2_batch": "uzliti_slam_tpu_torch/csrc/residual_chi2.cu",
+                "pcg_batch": "uzliti_slam_tpu_torch/csrc/pcg.cu",
+                "chain_apply_batch": "uzliti_slam_tpu_torch/csrc/chain_apply.cu",
+                "chain_factor_batch": "uzliti_slam_tpu_torch/csrc/chain_factor.cu"}
+# the kernels the fleet launches: K1, K2, K8 on the flattened fleet, and
+# K3, K4, K9 and K10 with the instance on their grid
+FLEET_PATH = ("linearize", "hvp", "components") + tuple(FLEET_KERNEL.values())
+FLEET = dict(batch=4096, n_nodes=64, loop_closure_every=8)
+FLEET_CONFIG = dict(iterations=20, pcg_iterations=8, chain_dense_cutoff=16, early_exit=False,
+                    precond_refresh=5)
+FLEET_ORACLE_SAMPLES, FLEET_CPU_INSTANCES, FLEET_POSE_ATOL = 16, 8, 1e-3
+
 
 T_START = time.perf_counter()
 
@@ -455,9 +537,11 @@ def timed_solves(optimize, g, cfg, reps: int):
     return statistics.median(times), out
 
 
-# longer names first: a mangled name takes the first entry it contains
-DEVICE_FUNCTIONS = ("linearize_edges", "linearize_mask", "hvp_seed", "hvp_edges",
-                    "chain_forward", "chain_backward", "chain_root", "factor_level",
+# longer names first: a mangled name takes the first entry it contains (and
+# an anonymous namespace's mangled name holds its file's name: K29's
+# sift_describe.cu must come before K14's "describe")
+DEVICE_FUNCTIONS = ("sift_keypoints", "linearize_edges", "linearize_mask", "hvp_seed",
+                    "hvp_edges", "chain_forward", "chain_backward", "chain_root", "factor_level",
                     "factor_root", "pcg_init", "pcg_alpha", "pcg_beta", "project_cells",
                     "residual_edges", "sum_partials",
                     "relax_rows", "cluster_rounds", "ransac_roots", "components_cta",
@@ -469,7 +553,7 @@ DEVICE_FUNCTIONS = ("linearize_edges", "linearize_mask", "hvp_seed", "hvp_edges"
                     "greedy_rounds", "init_theta", "calib_edges", "calib_solve", "bin_rows",
                     "voxel_sort_chunks", "voxel_merge", "voxel_accumulate", "voxel_finish",
                     "knn_normals_kernel", "gicp_problems", "pnp_hypotheses_kernel",
-                    "pnp_refine_kernel")
+                    "pnp_refine_kernel", "l2_top2_tiles")
 
 
 def ptxas_summary(text: str) -> dict:
@@ -511,6 +595,46 @@ def device_profile(fn) -> tuple[dict, dict]:
              "device_launches": sum(e.count for e in kernels),
              "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top}},
             {e.key: e.self_device_time_total / 1e3 for e in kernels})
+
+
+# the kernels whose device ms this run reported, and the (kernel, device
+# function) pairs that matched a profiled kernel
+PROFILED_KERNELS: set = set()
+MATCHED_FUNCTIONS: set = set()
+# device functions that no profiled call launches: K23's word_majority runs
+# only in build_vocabulary, before the profiled keyframe steps; K13's global
+# pass only where a level's cell candidates (grid²·k_cell) outnumber its
+# k_total, which no profiled frame's levels reach
+UNPROFILED_FUNCTIONS = ("count_bits", "majority_bytes", "global_topk")
+
+
+def kernel_device_ms(device_ms: dict, kernels) -> dict:
+    """Each kernel's device ms in one profile: the sum over the profiled
+    kernels named as one of its device functions, a plain name matching
+    with any template arguments (``f<...>(``) and a templated one exactly
+    (K14's ``box_blur<2>``, K29's ``box_blur<1>``).  Every match is recorded
+    for the run's closing check (``unmatched_device_functions``)."""
+    out = {}
+    PROFILED_KERNELS.update(kernels)
+    for name in kernels:
+        total = 0.0
+        for key, ms in device_ms.items():
+            plain = re.sub(r"<[^()]*>", "", key)
+            hits = [f for f in FRONTEND_DEVICE_FUNCTIONS[name]
+                    if f"::{f}(" in key or f"::{f}(" in plain]
+            if hits:
+                total += ms
+                MATCHED_FUNCTIONS.update((name, f) for f in hits)
+        out[name] = total
+    return out
+
+
+def unmatched_device_functions() -> list:
+    """The device functions of the kernels whose device ms this run
+    reported that no profile of the run matched: a renamed function would
+    otherwise drop out of its kernel's device time unseen."""
+    return sorted((k, f) for k in PROFILED_KERNELS for f in FRONTEND_DEVICE_FUNCTIONS[k]
+                  if (k, f) not in MATCHED_FUNCTIONS and f not in UNPROFILED_FUNCTIONS)
 
 
 def library_items(names) -> list:
@@ -561,14 +685,17 @@ def kernel_work(name: str, args) -> tuple[int, int]:
         Ji, Jj, W, ef, et, v, damp, free = args
         return _nbytes(*args) + 4 * v.numel(), 360 * ef.shape[0] + 12 * v.shape[0]
     if name == "chain_apply":
+        # per chain of the factor: 372 operations per odd block of a level
+        # and the root's matvec
         (levels, root_inv, _), b = args
-        halves = [lv[0].shape[0] for lv in levels]
+        B = root_inv.shape[0]
+        halves = [lv[0].shape[1] for lv in levels]
         return (_nbytes(root_inv, b, *(m for lv in levels for m in lv)) + 4 * b.numel(),
-                sum(372 * h for h in halves) + 2 * root_inv.numel())
+                B * sum(372 * h for h in halves) + 2 * root_inv.numel())
     if name == "residual_chi2":
-        poses, ef, et, meas, info, valid, _ = args
-        return (_nbytes(poses, ef, et, meas, info, valid) + 4 * (6 * ef.shape[0] + 1),
-                400 * ef.shape[0])
+        poses, ef, et, meas, info, valid, _, *batch = args
+        return (_nbytes(poses, ef, et, meas, info, valid)
+                + 4 * (6 * ef.shape[0] + (batch[0] if batch else 1)), 400 * ef.shape[0])
     if name == "relax_min":
         dist0, ef, et, w, n_iters = args
         live = int((w < kops.INF).sum())
@@ -594,14 +721,18 @@ def kernel_work(name: str, args) -> tuple[int, int]:
         # each) and eight 6x6 products (432 each); the root: m inverses and
         # 2m products, then 6m column solves of m blocks (216 each).  Only
         # live odd blocks count: those holding a row of the unpadded chain.
-        D, U, cutoff = args
-        halves, m = kops._factor_shapes(D.shape[0], cutoff)
-        live, n_valid = 0, D.shape[0]
+        # The same per chain of a batch.
+        D, U, cutoff, *batch = args
+        B = batch[0] if batch else 1
+        n = D.shape[0] // B
+        halves, m = kops._factor_shapes(n, cutoff)
+        live, n_valid = 0, n
         for _ in halves:
             n_valid = -(-n_valid // 2)
             live += n_valid
         out = 4 * (5 * 36 * sum(halves) + 36 * m * m)
-        return _nbytes(D, U) + out, live * (2 * 250 + 8 * 432) + m * (250 + 2 * 432) + 6 * m * m * 216
+        return (_nbytes(D, U) + B * out,
+                B * (live * (2 * 250 + 8 * 432) + m * (250 + 2 * 432) + 6 * m * m * 216))
     if name == "pcg":
         # a 12-step PCG's vector updates: b, z0, and each step's Hp and z
         # read once, x written once; 4 + 12·10 operations per entry
@@ -809,6 +940,25 @@ def kernel_work(name: str, args) -> tuple[int, int]:
         K = poses.shape[1]
         return (_nbytes(X, xn, valid, samples, poses, *(() if depth is None else (depth,)))
                 + B * (28 + 4 * K + 13), B * (40 * K * M + 8 * 300 * M))
+    if name == "sift_describe":
+        # image, keypoints and window read once, angles and descriptors
+        # written once; the blur's 4 adds and a multiply per pixel, and per
+        # keypoint the moments (4 operations on each of 177 disc pixels),
+        # 324 rotated samples (~10 operations each), 256 gradient samples
+        # (differences, magnitude, window, atan2 as ~20, the bin and two
+        # votes: ~50 each) and the two normalisations (~6 per entry)
+        img, uv, window = args
+        kps = uv.shape[0] * uv.shape[1]
+        return (_nbytes(img, uv, window) + kps * (4 + 512),
+                5 * img.numel() + kps * (4 * 177 + 324 * 10 + 256 * 50 + 128 * 6))
+    if name == "l2_top2":
+        # both tables and masks read once, idx, ok and best written once; a
+        # multiply and an add per (query, stored, dimension), the norms, and
+        # per pair the distance (4) and the running top-2 (3)
+        a, b, va, vb, *_ = args
+        (na, d), nb = a.shape, b.shape[0]
+        return (_nbytes(a, b, va, vb) + 9 * na,
+                2 * na * nb * d + 2 * (na + nb) * d + 7 * na * nb)
     raise KeyError(name)
 
 
@@ -844,7 +994,7 @@ def kernel_inputs(g, cfg):
     gen = torch.Generator().manual_seed(SEED + 1)
     r0, _ = p.residuals(g.pose)
     Ji, Jj, W, grad, Hb, U = p.linearize(r0)
-    lam = torch.full((), cfg.lambda_init, device=g.device)
+    lam = torch.full((1,), cfg.lambda_init, device=g.device)
     damp = p.damp(lam, Hb)
     pack = p.build_pack(Hb, U, damp)
     Dm = torch.where(free[:, None, None] > 0, Hb + torch.diag_embed(damp), p.eye6)
@@ -933,8 +1083,8 @@ def compare_chain_factor(args, label: str) -> dict:
     A = (kops.root_matrix_plain(Dk, Uk) if Dk.shape[0] > 1
          else Dk[0] + 1e-8 * torch.eye(6, dtype=Dk.dtype, device=D.device))
     eye = torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
-    res_k = float(torch.linalg.matrix_norm(A @ got[1].to(A.dtype) - eye, ord=math.inf))
-    res_p = float(torch.linalg.matrix_norm(A @ ref[1].to(A.dtype) - eye, ord=math.inf))
+    res_k = float(torch.linalg.matrix_norm(A @ got[1][0].to(A.dtype) - eye, ord=math.inf))
+    res_p = float(torch.linalg.matrix_norm(A @ ref[1][0].to(A.dtype) - eye, ord=math.inf))
     row = {"max_abs_err": err, "max_rel_err": rel, "tol_rel": KERNEL_TOL["chain_factor"],
            "levels": len(got[0]), "root_blocks": Dk.shape[0], "apply_rel_err": apply_rel,
            "apply_rtol": CHAIN_APPLY_RTOL, "root_residual_inf_kernel": res_k,
@@ -972,7 +1122,7 @@ def compare_pcg(args, label: str) -> dict:
         oks = []
         for _ in range(steps):
             alpha(p, hvp(p), x, r, scal, tol)
-            oks.append(scal[2].clone())
+            oks.append(scal[0, 2].clone())
             beta(r, apply(r), p, scal)
         return x, torch.stack(oks)
 
@@ -1251,7 +1401,7 @@ def headline_solve(g, chi2_oracle: float, reps: int):
                 "relax_min": 0, "cluster_labels": 0, "ransac_rigid": 0, "components": 2,
                 "chain_factor": 4, "pcg": 20 * (1 + 2 * 12), "project_rays": 0,
                 **{k: 0 for k in FRONTEND_KERNELS + KEYFRAME_KERNELS + MAINT_KERNELS
-                   + RECOGNITION_KERNELS + REGISTRATION_KERNELS}}
+                   + RECOGNITION_KERNELS + REGISTRATION_KERNELS + SIFT_KERNELS}}
     check(counts == expected, f"launch counts {counts} != {expected}")
     finals = []
     for _ in range(reps):
@@ -1859,10 +2009,7 @@ def frontend_phase(phase: str, world, frames, n_cams: int, device, reps: int = 1
     prof, device_ms = device_profile(lambda: one(warm))
     fields.update(prof)
     # each kernel's device time in the profiled keyframe, all of its launches
-    fields["kernel_device_ms"] = {
-        name: sum(ms for key, ms in device_ms.items()
-                  if any(f"::{f}(" in key for f in FRONTEND_DEVICE_FUNCTIONS[name]))
-        for name in FRONTEND_KERNELS}
+    fields["kernel_device_ms"] = kernel_device_ms(device_ms, FRONTEND_KERNELS)
     log(phase, **fields)
     check(all(counts[k] > 0 for k in FRONTEND_KERNELS), f"{phase}: a kernel was not launched: "
           f"{counts}")
@@ -2059,10 +2206,7 @@ def keyframe_step_phase(phase: str, world, frames, n_cams: int, device, reps: in
               "edges": struct["ne"], "loop_closure_edges": int(lc.sum()),
               "laser_edges": int((struct["e_type"] == gstate.EDGE_TYPE_2D_LASER).sum())}
     fields.update(prof)
-    fields["kernel_device_ms"] = {
-        name: sum(ms for key, ms in device_ms.items()
-                  if any(f"::{f}(" in key for f in FRONTEND_DEVICE_FUNCTIONS[name]))
-        for name in step_kernels + kernels}
+    fields["kernel_device_ms"] = kernel_device_ms(device_ms, step_kernels + kernels)
     if estimation != "feature":
         fields["library_items"] = library_items(device_ms)
     # the same frames on CPU tensors through the plain path, with the draws
@@ -3223,6 +3367,354 @@ def estimation_phase(world, frames, device) -> tuple[dict, dict, dict]:
     return rows, rows_large, {"steps": steps, "runs": runs}
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the float-descriptor path (K29, K30)
+# ---------------------------------------------------------------------------
+
+def compare_sift_kernels(calls: dict) -> dict:
+    """K29 against its plain version on each level's recorded arguments,
+    K30 on the match's; each timed on its main shapes (K29 level 0, K30 the
+    300 x 300 match) beside its bound, and K30 beside the library's
+    ``cdist`` squared + ``topk``."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+    from uzliti_slam_tpu_torch.ops import features, matching
+
+    rows, ang_err, desc_err, own_rows = {}, 0.0, 0.0, 0
+    for (img, uv, window), _ in calls["sift_describe"]:
+        ang, desc = kops.sift_describe(img, uv, window)
+        ang_p = features.intensity_centroid_angles(img, uv)
+        given = features.sift_descriptors(img, uv, ang, window=window)
+        own = kops.sift_describe_plain(img, uv, window)[1]
+        check(bool(torch.isfinite(desc).all()), "sift_describe: non-finite descriptor")
+        ang_err = max(ang_err, float((ang - ang_p).abs().max()))
+        desc_err = max(desc_err, float((desc - given).abs().max()))
+        own_rows += int(((desc - own).abs().amax(-1) > SIFT_DESC_ATOL).sum())
+    args = calls["sift_describe"][0][0]
+    row = {"max_abs_err": desc_err, "angle_max_abs_err": ang_err, "angle_atol": ANGLE_ATOL,
+           "desc_atol": SIFT_DESC_ATOL, "rows_apart_on_own_angles": own_rows,
+           "levels": [list(a[0].shape) for a, _ in calls["sift_describe"][:SIFT_RUN["n_levels"]]],
+           "library_ms": None}
+    row["ms"], row["plain_ms"] = time_pair(lambda: kops.sift_describe(*args),
+                                           lambda: kops.sift_describe_plain(*args))
+    row["ms_all_levels"] = time_call(
+        lambda: [kops.sift_describe(*a) for a, _ in calls["sift_describe"][:SIFT_RUN["n_levels"]]])
+    row.update(bound("sift_describe", args))
+    log("16 kernel sift_describe", **row)
+    check(ang_err <= ANGLE_ATOL, f"sift_describe: angle err {ang_err:.3g}")
+    check(desc_err <= SIFT_DESC_ATOL, f"sift_describe: descriptor err {desc_err:.3g}")
+    rows["sift_describe"] = row
+
+    (a, b, va, vb, ratio_sq, max_sq), _ = calls["l2_top2"][0]
+    idx, ok, best = kops.l2_top2(a, b, va, vb, ratio_sq, max_sq)
+    idx_p, ok_p, best_p = kops.l2_top2_plain(a, b, va, vb, ratio_sq, max_sq)
+    d = torch.where(va[:, None] & vb[None], matching.l2_matrix(a, b), kops.MASKED)
+    two = torch.sort(d, dim=1).values[:, :2]
+    tie = (two[:, 1] - two[:, 0]) <= L2_NEAR_REL * two[:, 0].clamp(min=1e-30)
+    edge = (best_p - ratio_sq * two[:, 1]).abs() <= L2_NEAR_REL * two[:, 1]
+    err = float((best - best_p).abs().max())
+    row = {"max_abs_err": err, "best_atol": L2_BEST_ATOL,
+           "index_mismatches": int((idx != idx_p)[~tie].sum()), "near_ties": int(tie.sum()),
+           "ok_mismatches": int((ok != ok_p)[~edge].sum()), "shape": [a.shape[0], b.shape[0],
+                                                                       a.shape[1]]}
+    row["ms"], row["plain_ms"] = time_pair(lambda: kops.l2_top2(a, b, va, vb, ratio_sq, max_sq),
+                                           lambda: kops.l2_top2_plain(a, b, va, vb, ratio_sq,
+                                                                      max_sq))
+
+    def library():
+        dist = torch.cdist(a, b) ** 2
+        return torch.topk(dist, 2, dim=1, largest=False)
+    row["library_ms"] = time_call(library)
+    row.update(bound("l2_top2", (a, b, va, vb)))
+    log("16 kernel l2_top2", **row)
+    check(err <= L2_BEST_ATOL, f"l2_top2: best err {err:.3g}")
+    check(row["index_mismatches"] == 0 and row["ok_mismatches"] == 0,
+          f"l2_top2: {row['index_mismatches']} indices, {row['ok_mismatches']} flags differ")
+    rows["l2_top2"] = row
+    return rows
+
+
+def sift_phase(frames, device) -> tuple[dict, dict, dict]:
+    """Phase 16: ``detect_and_describe(descriptor="sift")`` on a VGA frame
+    and on it shifted by 3 px, ``match_descriptors_l2`` between them, on the
+    card: launches (counts set to 0 just before, read just after), the match
+    held to tests/test_frontend.py's bars, the path timed sync-free; K29 and
+    K30 against their plain versions.  Returns (launches, kernel rows,
+    fields)."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+    from uzliti_slam_tpu_torch.ops import features, matching
+
+    img = np.ascontiguousarray(frames[0]["image"])
+    pair = [torch.from_numpy(x).to(device)
+            for x in (img, np.ascontiguousarray(np.roll(img, SIFT_RUN["shift"], axis=1)))]
+
+    def run():
+        (k1, d1), (k2, d2) = (features.detect_and_describe(
+            x, SIFT_RUN["max_keypoints"], n_levels=SIFT_RUN["n_levels"], descriptor="sift")
+            for x in pair)
+        mi, ok, best = matching.match_descriptors_l2(d1, d2, k1.valid, k2.valid,
+                                                     ratio=SIFT_RUN["ratio"])
+        return k1, k2, d1, mi, ok
+
+    run()                                   # warm-up: the window on the card
+    torch.cuda.synchronize()
+    kops.reset_launches()
+    out = []
+    calls = record_args(lambda: out.append(run()), names=SIFT_KERNELS)
+    counts = dict(kops.launches)
+    k1, k2, d1, mi, ok = out[0]
+    n_ok = int(ok.sum())
+    du = k2.uv[mi.long()][:, 0] - k1.uv[:, 0]
+    med = float(torch.median(du[ok])) if n_ok else math.nan
+    t, _ = timed_sync_free(run, reps=10)
+    norms = torch.linalg.vector_norm(d1[k1.valid], dim=-1)
+    prof, device_ms = device_profile(run)
+    fields = {"frame": list(img.shape), "keypoints": [int(k1.valid.sum()), int(k2.valid.sum())],
+              "descriptor_shape": list(d1.shape), "matches": n_ok, "median_shift_px": med,
+              "launches": counts, "path_ms": 1e3 * t, "sync_free": True,
+              "max_norm_err": float((norms - 1).abs().max()), **prof,
+              "kernel_device_ms": kernel_device_ms(device_ms, SIFT_KERNELS)}
+    log("16 sift + L2 VGA", **fields)
+    check(counts["sift_describe"] == 2 * SIFT_RUN["n_levels"] and counts["l2_top2"] == 1,
+          f"16: launches {counts}")
+    check(n_ok >= SIFT_RUN["min_matches"], f"16: {n_ok} matches")
+    check(abs(med - SIFT_RUN["shift"]) < SIFT_RUN["shift_tol"], f"16: median shift {med}")
+    check(fields["max_norm_err"] < 1e-3, "16: descriptors not unit")
+    return counts, compare_sift_kernels(calls), fields
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the fleet (optimize_batch; K1, K2, K8 and the batched entries)
+# ---------------------------------------------------------------------------
+
+def fleet_kernel_inputs(fleet, cfg):
+    """The fleet's first-iteration inputs of each batched entry."""
+    from uzliti_slam_tpu_torch.graph import solver
+
+    B, n = fleet.pose.shape[:2]
+    g = solver._flatten_fleet(fleet)
+    labels = solver.connected_components(g, solver.component_iterations(n))
+    free = (g.node_valid & ~solver.gauge_fix_mask(g, labels)).float()
+    p = solver._Problem(g, free, cfg, batch=B)
+    r0, _ = p.residuals(g.pose)
+    Ji, Jj, W, grad, Hb, U = p.linearize(r0)
+    damp = p.damp(torch.full((B,), cfg.lambda_init, device=g.device), Hb)
+    Dm = torch.where(free[:, None, None] > 0, Hb + torch.diag_embed(damp), p.eye6)
+    return {"residual_chi2": (g.pose, g.e_from, g.e_to, g.e_transform, g.e_info, p.valid,
+                              cfg.huber_delta, B),
+            "chain_factor": (Dm, U, cfg.chain_dense_cutoff, B),
+            "hvp": (Ji, Jj, W, g.e_from, g.e_to, damp, free), "b": -grad}
+
+
+def _rel(got, ref) -> tuple[float, float]:
+    e = float((got - ref).abs().max())
+    return e, e / max(float(ref.abs().max()), 1e-30)
+
+
+def compare_fleet_kernels(inputs: dict, steps: int, tol: float) -> dict:
+    """Each batched entry against its plain version on the card, on the
+    fleet's first iteration, timed beside its bound."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    rows = {}
+    args = inputs["residual_chi2"]
+    got, ref = kops.residual_chi2(*args), kops.residual_chi2_plain(*args)
+    e1, r1 = _rel(got[0], ref[0])
+    e2, r2 = _rel(got[1], ref[1])
+    row = {"max_abs_err": max(e1, e2), "max_rel_err": max(r1, r2),
+           "tol_rel": KERNEL_TOL["residual_chi2"], "library_ms": None}
+    row["ms"], row["plain_ms"] = time_pair(lambda: kops.residual_chi2(*args),
+                                           lambda: kops.residual_chi2_plain(*args))
+    row.update(bound("residual_chi2", args))
+    rows["residual_chi2_batch"] = row
+
+    D, U, cutoff, B = args = inputs["chain_factor"]
+    fac, fac_p = kops.chain_factor(*args), kops.chain_factor_plain(*args)
+    err = rel = 0.0
+    for a, b in zip(_flat_factor(fac), _flat_factor(fac_p)):
+        e, r = _rel(a, b)
+        err, rel = max(err, e), max(rel, r)
+    rhs = torch.randn(D.shape[0], 6, generator=torch.Generator().manual_seed(SEED + 3)).to(D.device)
+    x_k, x_p = kops.chain_apply(fac, rhs), kops.chain_apply(fac_p, rhs)
+    apply_rel = float((x_k - x_p).abs().max() / x_p.abs().max())
+    row = {"max_abs_err": err, "max_rel_err": rel, "tol_rel": KERNEL_TOL["chain_factor"],
+           "apply_rel_err": apply_rel, "apply_rtol": CHAIN_APPLY_RTOL,
+           "levels": len(fac[0]), "root_blocks": fac[1].shape[1] // 6}
+    row["ms"], row["plain_ms"] = time_pair(lambda: kops.chain_factor(*args),
+                                           lambda: kops.chain_factor_plain(*args),
+                                           trials=7, calls=2)
+    # the library yardstick: torch.linalg.inv_ex of the fleet's roots
+    _, Dk, Uk = kops.chain_reduce_plain(D.view(B, -1, 6, 6), U.view(B, -1, 6, 6), cutoff)
+    A = kops.root_matrix_plain(Dk, Uk)
+    row["library_ms"] = time_call(lambda: torch.linalg.inv_ex(A), trials=7, calls=2)
+    row.update(bound("chain_factor", args))
+    rows["chain_factor_batch"] = row
+
+    b = inputs["b"]
+    got, ref = kops.chain_apply(fac, b), kops.chain_apply_plain(fac, b)
+    e, r = _rel(got, ref)
+    row = {"max_abs_err": e, "max_rel_err": r, "tol_rel": KERNEL_TOL["chain_apply"],
+           "library_ms": None}
+    row["ms"], row["plain_ms"] = time_pair(lambda: kops.chain_apply(fac, b),
+                                           lambda: kops.chain_apply_plain(fac, b))
+    row.update(bound("chain_apply", (fac, b)))
+    rows["chain_apply_batch"] = row
+
+    # K10: each launch against its plain version on the same inputs (a full
+    # 8-step solve of 4096 instances is reported, not held: float32 PCG
+    # amplifies the dots' summation order), then the updates timed
+    Ji, Jj, W, ef, et, damp, free = inputs["hvp"]
+    z = kops.chain_apply(fac, b)
+    k_state = kops.pcg_init(b, z, B)
+    p_state = kops.pcg_init_plain(b, z, B)
+    errs = [_rel(a, c)[1] for a, c in zip(k_state[:3], p_state[:3])]
+    errs.append(_rel(k_state[3][:, :3], p_state[3])[1])
+    Hp = kops.hvp(Ji, Jj, W, ef, et, k_state[2], damp, free)
+    k_copy = [t.clone() for t in k_state]
+    p_copy = [t.clone() for t in k_copy[:3]] + [k_copy[3][:, :3].clone()]
+    kops.pcg_alpha(k_copy[2], Hp, k_copy[0], k_copy[1], k_copy[3], 1e-8)
+    kops.pcg_alpha_plain(p_copy[2], Hp, p_copy[0], p_copy[1], p_copy[3], 1e-8)
+    errs += [_rel(k_copy[0], p_copy[0])[1], _rel(k_copy[1], p_copy[1])[1]]
+    same_ok = bool(torch.equal(k_copy[3][:, 2], p_copy[3][:, 2]))
+    z2 = kops.chain_apply(fac, k_copy[1])
+    p_copy = [t.clone() for t in k_copy[:3]] + [k_copy[3][:, :3].clone()]
+    kops.pcg_beta(k_copy[1], z2, k_copy[2], k_copy[3])
+    kops.pcg_beta_plain(p_copy[1], z2, p_copy[2], p_copy[3])
+    errs += [_rel(k_copy[2], p_copy[2])[1], _rel(k_copy[3][:, 0], p_copy[3][:, 0])[1]]
+
+    def solve(init, alpha, beta):
+        x, r, p, scal = init(b, z, B)
+        for _ in range(steps):
+            alpha(p, kops.hvp(Ji, Jj, W, ef, et, p, damp, free), x, r, scal, tol)
+            beta(r, kops.chain_apply(fac, r), p, scal)
+        return x
+    xs = solve(kops.pcg_init, kops.pcg_alpha, kops.pcg_beta)
+    xp = solve(kops.pcg_init_plain, kops.pcg_alpha_plain, kops.pcg_beta_plain)
+    per = ((xs - xp).view(B, -1).abs().amax(1) / xp.view(B, -1).abs().amax(1).clamp(min=1e-30))
+
+    def updates(init, alpha, beta):
+        x, r, p, scal = init(b, z, B)
+        for _ in range(steps):
+            alpha(p, Hp, x, r, scal, tol)
+            beta(r, z, p, scal)
+
+    row = {"max_abs_err": float((k_copy[2] - p_copy[2]).abs().max()),
+           "max_rel_err": max(errs), "tol_rel": KERNEL_TOL["pcg"], "same_ok": same_ok,
+           "solve_rel_err_median": float(per.median()), "solve_rel_err_max": float(per.max()),
+           "steps": steps, "library_ms": None}
+    row["ms"], row["plain_ms"] = time_pair(
+        lambda: updates(kops.pcg_init, kops.pcg_alpha, kops.pcg_beta),
+        lambda: updates(kops.pcg_init_plain, kops.pcg_alpha_plain, kops.pcg_beta_plain))
+    row.update(bound("pcg", (b, steps)))
+    rows["pcg_batch"] = row
+    for name, row in rows.items():
+        log(f"17 kernel {name}", **row)
+        check(row["max_rel_err"] <= row["tol_rel"],
+              f"{name}: rel err {row['max_rel_err']:.3g} > {row['tol_rel']}")
+    check(rows["chain_factor_batch"]["apply_rel_err"] <= CHAIN_APPLY_RTOL,
+          "chain_factor_batch: apply rel err")
+    check(same_ok, "pcg_batch: stall flags differ on the same inputs")
+    return rows
+
+
+def fleet_phase(device) -> tuple[dict, dict, dict]:
+    """Phase 17: ``optimize_batch`` on the 4096 x 64-node fleet at the
+    rung's configuration (counts set to 0 just before one solve, read just
+    after; the same counts on an 8-instance fleet), timed sync-free, its
+    χ² against the oracle on 16 instances, 8 instances against single
+    solves on CPU tensors, the batched entries against their plain
+    versions, and the default (early-exit) configuration once.  Returns
+    (launches, kernel rows, fields)."""
+    from uzliti_slam_tpu_torch.graph import solver
+    from uzliti_slam_tpu_torch.graph import state as gstate
+    from uzliti_slam_tpu_torch.io import synthetic
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+    from uzliti_slam_tpu_torch.parallel import sharded
+
+    B, n = FLEET["batch"], FLEET["n_nodes"]
+    t0 = time.perf_counter()
+    fleet, _ = synthetic.make_pose_graph_batch(
+        B, n, loop_closure_every=FLEET["loop_closure_every"],
+        generator=torch.Generator().manual_seed(SEED), capacity_rounding="pow2", device=device)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    cfg = solver.SolverConfig(**FLEET_CONFIG)
+    sharded.optimize_batch(fleet, cfg)                 # warm-up at this size
+    torch.cuda.synchronize()
+    kops.reset_launches()
+    timed_solves(sharded.optimize_batch, fleet, cfg, reps=1)
+    counts = dict(kops.launches)
+    small = gstate.stack_graphs([gstate.graph_of(fleet, b) for b in range(8)])
+    kops.reset_launches()
+    sharded.optimize_batch(small, cfg)
+    counts_small = dict(kops.launches)
+    t, out = timed_solves(sharded.optimize_batch, fleet, cfg, reps=3)
+    _, st = solver.optimize_batched(fleet, sharded.fleet_config(cfg))
+    chi2_0, chi2 = st.chi2_history[:, 0], st.chi2_history[:, -1]
+    prof, names = device_profile(lambda: sharded.optimize_batch(fleet, cfg))
+    # the port's sparse oracle on 16 instances
+    sample = list(range(0, B, B // FLEET_ORACLE_SAMPLES))
+    ratios = [float(chi2[b]) / oracle_chi2(gstate.graph_of(fleet, b), iters=20, lm=True)
+              for b in sample]
+    # 8 instances: the fleet and a loop of single solves, on CPU tensors
+    cpu = gstate.stack_graphs([gstate.graph_of(fleet, b).to("cpu")
+                               for b in range(FLEET_CPU_INSTANCES)])
+    fcfg = sharded.fleet_config(cfg)
+    cpu_out, cpu_st = solver.optimize_batched(cpu, fcfg)
+    pose_gap, chi2_excess = 0.0, 0.0
+    for i in range(FLEET_CPU_INSTANCES):
+        one, st1 = solver.optimize(gstate.graph_of(cpu, i), fcfg)
+        pose_gap = max(pose_gap, float((one.pose - cpu_out.pose[i]).abs().max()))
+        h0, h1 = float(st1.chi2_history[0]), float(st1.chi2_history[-1])
+        chi2_excess = max(chi2_excess, abs(float(cpu_st.chi2_history[i, -1]) - h1)
+                          / (CHI2_RTOL * h1 + 1e-6 * h0))
+    card_vs_cpu = max(abs(float(chi2[i]) - float(cpu_st.chi2_history[i, -1]))
+                      / (CHI2_RTOL * float(cpu_st.chi2_history[i, -1]) + 1e-6 * float(chi2_0[i]))
+                      for i in range(FLEET_CPU_INSTANCES))
+    fields = {"instances": B, "node_slots": n, "edge_slots": fleet.edge_capacity,
+              "edges_per_instance": int(fleet.num_edges[0]), "generate_s": gen_s,
+              "solve_ms": 1e3 * t, "instance_solves_per_s": B / t, "sync_free": True,
+              "launches": counts, "launches_8_instances": counts_small,
+              "mean_chi2_0": float(chi2_0.mean()), "mean_chi2": float(chi2.mean()),
+              "accepted_mean": float(st.accepted.float().sum(1).mean()),
+              "oracle_instances": sample, "chi2_ratio_vs_oracle_mean": statistics.mean(ratios),
+              "chi2_ratio_vs_oracle_max": max(ratios), "chi2_ratio_vs_oracle_min": min(ratios),
+              "cpu_singles_pose_gap": pose_gap, "cpu_singles_chi2_excess": chi2_excess,
+              "card_vs_cpu_fleet_chi2_excess": card_vs_cpu,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, **prof}
+    log("17 fleet 4096x64 rung", **fields)
+    check(counts == counts_small, f"17: launches grow with B: {counts} vs {counts_small}")
+    for name in FLEET_PATH:
+        check(counts[name] > 0, f"17: {name} not launched")
+    check(bool(torch.isfinite(out.pose).all()) and bool((chi2 < chi2_0).all()),
+          "17: a fleet instance did not lower its χ²")
+    check(not library_items(names), "17: library kernels in the profile")
+    check(chi2_excess <= 1.0 and pose_gap <= FLEET_POSE_ATOL,
+          f"17: CPU fleet vs single solves: χ² {chi2_excess:.3g}x tol, poses {pose_gap:.3g}")
+    check(card_vs_cpu <= 1.0, f"17: card fleet vs CPU fleet χ² {card_vs_cpu:.3g}x tol")
+    rows = compare_fleet_kernels(fleet_kernel_inputs(fleet, fcfg), fcfg.pcg_iterations,
+                                 fcfg.pcg_tol)
+
+    # the default configuration (early exit, 12 PCG steps, cutoff 16)
+    dcfg = sharded.fleet_config(solver.SolverConfig())
+    builds = kops.factor_builds(device)
+    builds.zero_()
+    kops.reset_launches()
+    _, st_d = solver.optimize_batched(fleet, dcfg)
+    counts_d, built = dict(kops.launches), int(builds)
+    hist, acc = st_d.chi2_history.cpu().tolist(), st_d.accepted.cpu().tolist()
+    ref_builds = sum(reference_refreshes(hist[b], acc[b], dcfg) for b in range(B))
+    t_d, _ = timed_solves(sharded.optimize_batch, fleet, solver.SolverConfig(), reps=3)
+    fields_d = {"solve_ms": 1e3 * t_d, "instance_solves_per_s": B / t_d,
+                "mean_chi2": float(st_d.chi2_history[:, -1].mean()), "launches": counts_d,
+                "factors_built": built, "reference_refreshes": ref_builds}
+    log("17 fleet 4096x64 default config", **fields_d)
+    check(built == ref_builds, f"17: {built} factors built, the reference builds {ref_builds}")
+    check(bool((st_d.chi2_history[:, -1] < st_d.chi2_history[:, 0]).all()),
+          "17 default: a fleet instance did not lower its χ²")
+    fields["default_config"] = fields_d
+    return counts, rows, fields
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA card",
@@ -3362,6 +3854,11 @@ def main() -> int:
     # phase 15: the gicp and pnp estimators, each method's keyframe step
     # driven with the counts set to 0 just before it and read just after
     est_rows, est_rows_large, est_fields = estimation_phase(kf_world, kf_frames, dev)
+    # phase 16: the float-descriptor path (K29, K30) on a VGA frame pair;
+    # phase 17: the fleet (K1, K2, K8 and the batched entries of K3, K4, K9,
+    # K10); each driven with the counts set to 0 just before it, read after
+    sift_counts, sift_rows, sift_fields = sift_phase(kf_frames, dev)
+    fleet_counts, fleet_rows, fleet_fields = fleet_phase(dev)
     # each kernel's main path: the 1k solve for K1-K4, K9, K10; the 500-node
     # epoch for K5-K8; the projection sequence after it for K11; the first
     # timed keyframe step (phase 11, 1 camera) for K12-K18
@@ -3490,12 +3987,42 @@ def main() -> int:
              "max_abs_err_large": rl["max_abs_err"], "ms_large": rl["ms"],
              "plain_ms_large": rl["plain_ms"], "bound_ms_large": rl["bound_ms"],
              "library_ms_large": rl["library_ms"], "shapes_large": shapes15[name][1]})
-    check(len(kernels) == 30, f"{len(kernels)} kernel entries")
+    # K29, K30: the main path is phase 16's frame pair; the main shapes
+    # level 0's keypoints (K29) and the 300 x 300 match (K30)
+    shapes16 = {"sift_describe": "VGA level 0: 480x640, 75 keypoints (4 levels: 8 calls a pair)",
+                "l2_top2": "300 x 300 SIFT descriptors of 128 floats"}
+    for name in SIFT_KERNELS:
+        r = sift_rows[name]
+        kernels.append(
+            {"name": name, "route": "cuda", "source": f"uzliti_slam_tpu_torch/csrc/{name}.cu",
+             "replaces": SIFT_REPLACES[name], "launches": sift_counts[name],
+             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+             "shapes": shapes16[name],
+             "device_ms_path": sift_fields["kernel_device_ms"][name]})
+    kernels[-2]["ms_all_levels"] = sift_rows["sift_describe"]["ms_all_levels"]
+    # the batched entries: the main path is phase 17's fleet solve at the
+    # rung's configuration; the shapes the fleet's first iteration
+    for name in FLEET_KERNELS:
+        r = fleet_rows[name]
+        kernels.append(
+            {"name": name, "route": "cuda", "source": FLEET_SOURCE[name],
+             "replaces": FLEET_REPLACES[name], "launches": fleet_counts[FLEET_KERNEL[name]],
+             "launches_default_config":
+                 fleet_fields["default_config"]["launches"][FLEET_KERNEL[name]],
+             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+             "shapes": "4096 instances x 64 nodes, 128 edges, cutoff 16 (first iteration)"})
+    check(len(kernels) == 36, f"{len(kernels)} kernel entries")
+    unmatched = unmatched_device_functions()
+    log("device functions", profiled_kernels=sorted(PROFILED_KERNELS), unmatched=unmatched)
+    check(not unmatched, f"device functions no profile matched: {unmatched}")
     print(json.dumps({"kernels": kernels, "ate": ate,
                       "maintenance": {"merge_500": merge_fields, "merge_10k": merge10k,
                                       "long_run": long_run, "reregistration": rereg_fields,
                                       "calibration": calib_fields},
-                      "recognition": rec_fields, "estimation": est_fields}))
+                      "recognition": rec_fields, "estimation": est_fields,
+                      "sift": sift_fields, "fleet": fleet_fields}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

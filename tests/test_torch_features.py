@@ -175,7 +175,9 @@ def test_detect_and_describe_pads_the_budget_and_rejects_sift(frame):
     kps, desc = TF.detect_and_describe(torch.from_numpy(frame), max_keypoints=66)
     assert desc.shape == (66, 32) and kps.uv.shape == (66, 2)
     assert not kps.valid[64:].any() and torch.equal(kps.scale[64:], torch.ones(2))
-    with pytest.raises(NotImplementedError, match="sift"):
-        TF.detect_and_describe(torch.from_numpy(frame), descriptor="sift")
+    # the "sift" family is ported (K29): the same keypoints, float rows, zero padding
+    kf, df = TF.detect_and_describe(torch.from_numpy(frame), max_keypoints=66, descriptor="sift")
+    assert df.shape == (66, 128) and df.dtype == torch.float32 and not df[64:].any()
+    assert torch.equal(kf.uv, kps.uv) and torch.equal(kf.angle, kps.angle)
     with pytest.raises(ValueError, match="unknown descriptor"):
         TF.detect_and_describe(torch.from_numpy(frame), descriptor="orb")

@@ -52,7 +52,7 @@ def test_nvcc_flags_target_hopper_without_fast_math():
         "occupancy.cu", "fast_nms.cu", "grid_topk.cu", "orb_describe.cu", "scan_bins.cu",
         "hamming_top2.cu", "bilateral.cu", "icp.cu", "merge_pairs.cu", "calib_gn.cu",
         "feature_votes.cu", "repository.cu", "bow_words.cu", "bow_query.cu", "voxel_grid.cu",
-        "gicp.cu", "pnp.cu"}
+        "gicp.cu", "pnp.cu", "sift_describe.cu", "l2_top2.cu"}
 
 
 def test_every_exported_function_has_a_signature_of_its_arity():
@@ -238,23 +238,24 @@ def test_chain_factor_launches_one_level_kernel_per_level_and_the_root(fake_lib)
     levels, root_inv, n = kops.chain_factor(_meta(200, 6, 6), _meta(200, 6, 6), 16)
     names = [c[0] for c in fake_lib.calls]
     assert names == ["uz_chain_factor_level"] * 4 + ["uz_chain_factor_root"]
-    # (float64 input?, valid rows, halves): the caller's float32 D, U first
-    assert [c[1][2:5] for c in fake_lib.calls[:4]] == [
-        (0, 200, 128), (1, 128, 64), (1, 64, 32), (1, 32, 16)]
-    assert fake_lib.calls[-1][1][2:5] == (1, 16, 16) and tuple(root_inv.shape) == (96, 96)
-    # no flag: always build (the flag is the level's 13th and the root's 8th argument)
-    assert all(c[1][12] is None for c in fake_lib.calls[:4]) and fake_lib.calls[4][1][7] is None
+    # (float64 input?, valid rows, rows per chain, halves, chains): the
+    # caller's float32 D, U first; one chain is the batch of one
+    assert [c[1][2:7] for c in fake_lib.calls[:4]] == [
+        (0, 200, 200, 128, 1), (1, 128, 128, 64, 1), (1, 64, 64, 32, 1), (1, 32, 32, 16, 1)]
+    assert fake_lib.calls[-1][1][2:7] == (1, 16, 16, 16, 1) and tuple(root_inv.shape) == (1, 96, 96)
+    # no flag: always build (the flag is the level's 15th and the root's 10th argument)
+    assert all(c[1][14] is None for c in fake_lib.calls[:4]) and fake_lib.calls[4][1][9] is None
     assert kops.launches["chain_factor"] == 1 and n == 200
     held = (levels, root_inv, n)
     kops.chain_factor(_meta(200, 6, 6), _meta(200, 6, 6), 16, held=held,
-                      need=_meta((), dtype=torch.bool))
+                      need=_meta(1, dtype=torch.bool))
     assert kops.launches["chain_factor"] == 2 and len(fake_lib.calls) == 10
     kops.chain_apply(held, _meta(200, 6))
     names = [c[0] for c in fake_lib.calls[10:]]
     assert names == ["uz_chain_forward"] * 4 + ["uz_chain_root"] + ["uz_chain_backward"] * 4
     kops.chain_apply(kops.chain_factor(_meta(12, 6, 6), _meta(12, 6, 6)), _meta(12, 6))
     root_call = fake_lib.calls[-1]
-    assert root_call[0] == "uz_chain_root" and root_call[1][2:6] == (12, 96, 0, 12)
+    assert root_call[0] == "uz_chain_root" and root_call[1][2:8] == (12, 12, 96, 1, 0, 12)
     assert kops.launches["chain_apply"] == 2
 
 
@@ -264,11 +265,11 @@ def test_pcg_launches_through_the_library_on_its_route(fake_lib, n, grid):
     kops.pcg_alpha(p, _meta(n, 6), x, r, scal, 1e-8)
     kops.pcg_beta(r, _meta(n, 6), p, scal)
     assert [c[0] for c in fake_lib.calls] == ["uz_pcg_init", "uz_pcg_alpha", "uz_pcg_beta"]
-    assert fake_lib.calls[0][1][2] == 6 * n and kops.launches["pcg"] == 3
+    assert fake_lib.calls[0][1][2:4] == (6 * n, 1) and kops.launches["pcg"] == 3
     # the grid route's partials: two per 4096-float chunk; none on one CTA
     partials = [c[1][-2] for c in fake_lib.calls]
     assert all((ptr is not None) == grid for ptr in partials)
-    assert tuple(scal.shape) == (4,)
+    assert tuple(scal.shape) == (1, 4)
 
 
 def test_project_rays_launches_through_the_library(fake_lib):
@@ -295,21 +296,21 @@ def test_a_failed_launch_raises_and_is_not_counted(fake_lib):
 def test_solve_and_map_kernel_argument_checks_raise(fake_lib):
     D = _meta(200, 6, 6)
     with pytest.raises(ValueError, match="refresh flag needs a held factor"):
-        kops.chain_factor(D, D, 16, need=_meta((), dtype=torch.bool))
+        kops.chain_factor(D, D, 16, need=_meta(1, dtype=torch.bool))
     with pytest.raises(ValueError, match="at most 64"):
         kops.chain_factor(D, D, 128)
     held = kops.chain_factor(_meta(100, 6, 6), _meta(100, 6, 6), 16)
     with pytest.raises(ValueError, match="other shapes"):
-        kops.chain_factor(D, D, 16, held=held, need=_meta((), dtype=torch.bool))
+        kops.chain_factor(D, D, 16, held=held, need=_meta(1, dtype=torch.bool))
     held = kops.chain_factor(D, D, 16)
     with pytest.raises(TypeError, match="need: dtype"):
-        kops.chain_factor(D, D, 16, held=held, need=_meta(()))
+        kops.chain_factor(D, D, 16, held=held, need=_meta(1))
     with pytest.raises(ValueError, match="U: shape"):
         kops.chain_factor(D, _meta(199, 6, 6), 16)
     with pytest.raises(ValueError, match="Hp: shape"):
-        kops.pcg_alpha(_meta(4, 6), _meta(5, 6), _meta(4, 6), _meta(4, 6), _meta(4), 1e-8)
+        kops.pcg_alpha(_meta(4, 6), _meta(5, 6), _meta(4, 6), _meta(4, 6), _meta(1, 4), 1e-8)
     with pytest.raises(ValueError, match="scal: shape"):
-        kops.pcg_beta(_meta(4, 6), _meta(4, 6), _meta(4, 6), _meta(3))
+        kops.pcg_beta(_meta(4, 6), _meta(4, 6), _meta(4, 6), _meta(1, 3))
     i32 = torch.int32
     good = [_meta(32, 32), _meta(5, dtype=i32), _meta(5, dtype=i32), _meta(5, dtype=i32),
             _meta(5, 36), _meta(5, dtype=i32), _meta((), dtype=i32), _meta(1024),
@@ -888,4 +889,167 @@ def test_registration_kernel_argument_checks_raise(fake_lib):
         kops.pnp_refine(_meta(1, 2048, 3), _meta(1, 2048, 2), _meta(1, 2048, dtype=b),
                         _meta(1, 2048), _meta(1, 16384, 6, dtype=i32), _meta(1, 49152, 7), 3.6e-5,
                         0.04, 10.0, 8, 1.0)
+    assert fake_lib.calls == []
+
+
+# ---------------------------------------------------------------------------
+# Slice 9: K29 sift_describe, K30 l2_top2 and the fleet's batched entries
+# ---------------------------------------------------------------------------
+
+def _fleet_kernel_inputs(batch=3, n=20, cutoff=4):
+    """A flattened fleet's first-iteration inputs (each instance a chain
+    with a few closures), and each instance's own."""
+    from uzliti_slam_tpu_torch.graph import solver
+    from uzliti_slam_tpu_torch.io import synthetic
+
+    fl, _ = synthetic.make_pose_graph_batch(batch, n, loop_closure_every=3,
+                                            generator=torch.Generator().manual_seed(5),
+                                            device="cpu")
+    g = solver._flatten_fleet(fl)
+    labels = kops.components_plain(g.e_from, g.e_to, g.e_valid, batch * n,
+                                   solver.component_iterations(n))
+    free = (g.node_valid & ~kops.gauge_fix_plain(labels, g.node_valid, g.node_fixed,
+                                                 g.stamp)).float()
+    cfg = solver.SolverConfig(chain_dense_cutoff=cutoff)
+    p = solver._Problem(g, free, cfg, batch=batch)
+    r, _ = p.residuals(g.pose)
+    Ji, Jj, W, grad, Hb, U = p.linearize(r)
+    damp = p.damp(torch.full((batch,), 1e-3), Hb)
+    Dm = torch.where(free[:, None, None] > 0, Hb + torch.diag_embed(damp), p.eye6)
+    return fl, g, p, Dm, U, -grad
+
+
+def test_batched_plain_versions_equal_a_loop_of_the_single_ones():
+    """Each plain version of K3, K4, K9 and K10 on a batch of instances
+    against the same plain version on each instance alone (the batch of
+    one): within 2e-6 of each array's largest entry (the same float
+    operations; the root product and the dots are one batched call where
+    the loop makes one per instance, summed in another order)."""
+    fl, g, p, Dm, U, b = _fleet_kernel_inputs()
+    B, n = fl.pose.shape[:2]
+    E = fl.e_from.shape[1]
+    valid = g.e_valid.float()
+
+    def close(a, ref):
+        torch.testing.assert_close(a, ref, rtol=0, atol=2e-6 * float(ref.abs().max()) + 1e-30)
+
+    r, chi2 = kops.residual_chi2_plain(g.pose, g.e_from, g.e_to, g.e_transform, g.e_info,
+                                       valid, 1.0, B)
+    fac = kops.chain_factor_plain(Dm, U, 4, B)
+    x = kops.chain_apply_plain(fac, b)
+    x0, r0, p0, scal = kops.pcg_init_plain(b, x, B)
+    Hp = b.flip(0).contiguous()
+    kops.pcg_alpha_plain(p0, Hp, x0, r0, scal, 1e-8)
+    kops.pcg_beta_plain(r0, x, p0, scal)
+    assert chi2.shape == (B,) and scal.shape == (B, 3)
+    for i in range(B):
+        ns, es = slice(i * n, (i + 1) * n), slice(i * E, (i + 1) * E)
+        ef, et = g.e_from[es] - i * n, g.e_to[es] - i * n
+        ri, ci = kops.residual_chi2_plain(g.pose[ns], ef, et, g.e_transform[es], g.e_info[es],
+                                          valid[es], 1.0)
+        close(r[es], ri)
+        close(chi2[i], ci[0])
+        fi = kops.chain_factor_plain(Dm[ns], U[ns], 4)
+        for a, ref in zip([t[i] for lv in fac[0] for t in lv] + [fac[1][i]],
+                          [t[0] for lv in fi[0] for t in lv] + [fi[1][0]]):
+            close(a, ref)
+        xi = kops.chain_apply_plain(fi, b[ns])
+        close(x[ns], xi)
+        s = kops.pcg_init_plain(b[ns], xi)
+        kops.pcg_alpha_plain(s[2], Hp[ns], s[0], s[1], s[3], 1e-8)
+        kops.pcg_beta_plain(s[1], xi, s[2], s[3])
+        for a, ref in zip((x0[ns], r0[ns], p0[ns], scal[i]), s[:3] + (s[3][0],)):
+            close(a, ref)
+
+
+def test_batched_and_slice9_wrappers_run_their_plain_version_on_cpu():
+    fl, g, p, Dm, U, b = _fleet_kernel_inputs()
+    B = fl.pose.shape[0]
+    kops.reset_launches()
+    valid = g.e_valid.float()
+    args = (g.pose, g.e_from, g.e_to, g.e_transform, g.e_info, valid, 1.0, B)
+    for a, ref in zip(kops.residual_chi2(*args), kops.residual_chi2_plain(*args)):
+        assert torch.equal(a, ref)
+    fac = kops.chain_factor(Dm, U, 4, B)
+    for a, ref in zip(kops.chain_apply(fac, b),
+                      kops.chain_apply_plain(kops.chain_factor_plain(Dm, U, 4, B), b)):
+        assert torch.equal(a, ref)
+    held = kops.chain_factor(Dm * 2, U, 4, B)
+    need = torch.tensor([True, False, True])
+    kops.chain_factor(Dm, U, 4, B, held=held, need=need)
+    assert torch.equal(held[1][0], fac[1][0]) and torch.equal(held[1][2], fac[1][2])
+    assert not torch.equal(held[1][1], fac[1][1])
+    img = torch.from_numpy(np.random.default_rng(2).uniform(0, 255, (2, 40, 48)).astype(np.float32))
+    uv = torch.tensor([[[20.0, 20.0], [5.5, 30.0]]] * 2)
+    win = kops.sift_window("cpu")
+    for a, ref in zip(kops.sift_describe(img, uv, win), kops.sift_describe_plain(img, uv, win)):
+        assert torch.equal(a, ref)
+    a = torch.rand(5, 16)
+    out = kops.l2_top2(a, a.flip(0), torch.ones(5, dtype=torch.bool),
+                       torch.ones(5, dtype=torch.bool), 0.64, math.inf)
+    assert torch.equal(out[0], torch.arange(4, -1, -1, dtype=torch.int32)) and bool(out[1].all())
+    assert kops.launches == {k: 0 for k in kops.launches}
+
+
+def test_slice9_kernels_launch_through_the_library(fake_lib):
+    b, i32 = torch.bool, torch.int32
+    ang, desc = kops.sift_describe(_meta(2, 480, 640), _meta(2, 75, 2), _meta(16, 16))
+    assert fake_lib.calls[-1][0] == "uz_sift_describe" and fake_lib.calls[-1][1][3:7] == (
+        2, 480, 640, 75)
+    assert tuple(ang.shape) == (2, 75) and tuple(desc.shape) == (2, 75, 128)
+    idx, ok, best = kops.l2_top2(_meta(300, 128), _meta(280, 128), _meta(300, dtype=b),
+                                 _meta(280, dtype=b), 0.64, math.inf)
+    assert fake_lib.calls[-1][0] == "uz_l2_top2"
+    assert fake_lib.calls[-1][1][4:9] == pytest.approx((300, 280, 128, 0.64, math.inf))
+    assert idx.dtype == i32 and ok.dtype == b and tuple(best.shape) == (300,)
+    # the fleet: 4096 instances of 64 nodes and 128 edges, cutoff 16 (2 levels)
+    B, n, E = 4096, 64, 128
+    r, chi2 = kops.residual_chi2(_meta(B * n, 7), _meta(B * E, dtype=i32),
+                                 _meta(B * E, dtype=i32), _meta(B * E, 7),
+                                 _meta(B * E, 6, 6), _meta(B * E), 1.0, B)
+    assert fake_lib.calls[-1][0] == "uz_residual_chi2" and fake_lib.calls[-1][1][7:9] == (E, B)
+    assert tuple(chi2.shape) == (B,) and tuple(r.shape) == (B * E, 6)
+    fac = kops.chain_factor(_meta(B * n, 6, 6), _meta(B * n, 6, 6), 16, B)
+    names = [c[0] for c in fake_lib.calls[-3:]]
+    assert names == ["uz_chain_factor_level"] * 2 + ["uz_chain_factor_root"]
+    # (float64 input?, valid rows, stride, half, instances) per level, then the root's
+    assert [c[1][2:7] for c in fake_lib.calls[-3:-1]] == [(0, 64, 64, 32, B), (1, 32, 32, 16, B)]
+    assert fake_lib.calls[-1][1][2:7] == (1, 16, 16, 16, B)
+    assert tuple(fac[1].shape) == (B, 96, 96) and tuple(fac[0][0][0].shape) == (B, 32, 6, 6)
+    kops.chain_factor(_meta(B * n, 6, 6), _meta(B * n, 6, 6), 16, B, held=fac,
+                      need=_meta(B, dtype=b))
+    x = kops.chain_apply(fac, _meta(B * n, 6))
+    names = [c[0] for c in fake_lib.calls[-5:]]
+    assert names == (["uz_chain_forward"] * 2 + ["uz_chain_root"] + ["uz_chain_backward"] * 2)
+    assert tuple(x.shape) == (B * n, 6)
+    x, rr, p, scal = kops.pcg_init(_meta(B * n, 6), _meta(B * n, 6), B)
+    kops.pcg_alpha(p, _meta(B * n, 6), x, rr, scal, 1e-8)
+    kops.pcg_beta(rr, _meta(B * n, 6), p, scal)
+    assert [c[0] for c in fake_lib.calls[-3:]] == ["uz_pcg_init", "uz_pcg_alpha", "uz_pcg_beta"]
+    # 384 floats an instance, one CTA each: no grid scratch
+    assert fake_lib.calls[-3][1][2:4] == (6 * n, B) and tuple(scal.shape) == (B, 4)
+    assert all(c[1][-2] is None for c in fake_lib.calls[-3:])
+    assert kops.launches["sift_describe"] == kops.launches["l2_top2"] == 1
+    assert kops.launches["residual_chi2"] == 1 and kops.launches["chain_apply"] == 1
+    assert kops.launches["chain_factor"] == 2 and kops.launches["pcg"] == 3
+
+
+def test_slice9_kernel_argument_checks_raise(fake_lib):
+    b = torch.bool
+    with pytest.raises(ValueError, match="window: shape"):
+        kops.sift_describe(_meta(1, 48, 64), _meta(1, 5, 2), _meta(8, 8))
+    with pytest.raises(ValueError, match="width 256"):
+        kops.l2_top2(_meta(10, 256), _meta(10, 256), _meta(10, dtype=b), _meta(10, dtype=b),
+                     0.64, 1.0)
+    with pytest.raises(ValueError, match="at least 2"):
+        kops.l2_top2(_meta(10, 128), _meta(1, 128), _meta(10, dtype=b), _meta(1, dtype=b),
+                     0.64, 1.0)
+    with pytest.raises(ValueError, match="in 3 instances"):
+        kops.residual_chi2(_meta(64, 7), _meta(10, dtype=torch.int32),
+                           _meta(10, dtype=torch.int32), _meta(10, 7), _meta(10, 6, 6),
+                           _meta(10), 1.0, 3)
+    with pytest.raises(ValueError, match="one CTA each"):
+        kops.pcg_init(_meta(2 * 6000, 6), _meta(2 * 6000, 6), 2)
+    with pytest.raises(ValueError, match="refresh flag needs a held factor"):
+        kops.chain_factor(_meta(128, 6, 6), _meta(128, 6, 6), 16, 2, need=_meta(2, dtype=b))
     assert fake_lib.calls == []

@@ -243,3 +243,15 @@ def test_yaw_of_and_pose_distance_match_jax():
     # identical poses: the floored norms, not NaN
     dt0, dr0 = tlie.pose_distance(at, at)
     assert torch.isfinite(dt0).all() and torch.isfinite(dr0).all()
+
+
+def test_grid_config_refuses_a_range_beyond_its_half_width():
+    """The reference silently drops evidence beyond size·resolution/2
+    (uzliti_slam_tpu/mapping/occupancy.py:116); the port raises instead.
+    The defaults (6.0 m against 6.4 m) are accepted."""
+    assert tocc.GridConfig().max_range == 6.0
+    tocc.GridConfig(size=128, resolution=0.1, max_range=6.4)
+    with pytest.raises(ValueError, match="half-width"):
+        tocc.GridConfig(max_range=6.5)
+    with pytest.raises(ValueError, match="half-width"):
+        tocc.GridConfig(size=64, resolution=0.05)

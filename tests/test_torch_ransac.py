@@ -188,3 +188,46 @@ def test_quality_biased_sample_follows_the_categorical_probabilities():
     # the bias is real: the best-quality entries are drawn most
     best = int(torch.argmax(torch.where(valid[0], quality[0], -torch.inf)))
     assert np.bincount(tri[0].numpy().ravel(), minlength=m).argmax() == best
+
+
+def test_ransac_rigid_weights_match_jax_with_injected_triplets():
+    """``weights`` multiply ``valid`` in the hypothesis fits and the refit
+    (uzliti_slam_tpu/ops/ransac.py:131, 146); unit weights give the
+    unweighted results exactly."""
+    rng = np.random.default_rng(7)
+    R, M, K = 3, 40, 48
+    src, dst = _correspondences(rng, M, outliers=8)
+    member = np.ones((R, M), bool)
+    member[1, ::4] = False
+    member[2, 20:] = False
+    w = rng.uniform(0.2, 2.0, (R, M)).astype(np.float32)
+    w[0, 8:16] = 0.0                      # zero-weight inliers: in the consensus, not the fits
+    key = jax.random.PRNGKey(11)
+    tri = _jax_triplets(key, member, K)
+    thresh, min_cons = 0.1, 5
+
+    def one(k, v, wt):
+        return jransac.ransac_rigid(k, jnp.asarray(src), jnp.asarray(dst), v, K, thresh, min_cons,
+                                    weights=wt)
+
+    ref = jax.vmap(one)(jax.random.split(key, R), jnp.asarray(member), jnp.asarray(w))
+    s = torch.from_numpy(src)[None].expand(R, M, 3)
+    d = torch.from_numpy(dst)[None].expand(R, M, 3)
+    got = transac.ransac_rigid_batch(s, d, torch.from_numpy(member), K, thresh, min_cons,
+                                     tri=torch.from_numpy(tri), weights=torch.from_numpy(w))
+    np.testing.assert_array_equal(got.consensus.numpy(), np.asarray(ref.consensus))
+    np.testing.assert_array_equal(got.ok.numpy(), np.asarray(ref.ok))
+    assert bool(got.ok.all())
+    np.testing.assert_allclose(got.pose.numpy(), np.asarray(ref.pose), atol=1e-4)
+    np.testing.assert_allclose(got.mse.numpy(), np.asarray(ref.mse), rtol=1e-3, atol=1e-9)
+    plain = transac.ransac_rigid_batch(s, d, torch.from_numpy(member), K, thresh, min_cons,
+                                       tri=torch.from_numpy(tri))
+    assert not torch.equal(plain.pose, got.pose)
+    unit = transac.ransac_rigid_batch(s, d, torch.from_numpy(member), K, thresh, min_cons,
+                                      tri=torch.from_numpy(tri), weights=torch.ones(R, M))
+    for a, b in zip(unit, plain):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    single = transac.ransac_rigid(s[0], d[0], torch.from_numpy(member[0]), K, thresh, min_cons,
+                                  tri=torch.from_numpy(tri[0]), weights=torch.from_numpy(w[0]))
+    for a, b in zip(single, got):
+        torch.testing.assert_close(a, b[0], rtol=0, atol=0)

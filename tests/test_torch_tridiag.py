@@ -59,12 +59,12 @@ def test_factor_and_apply_match_jax_and_dense(n):
                                                         dense_cutoff=16)
     factor = kops.chain_factor(torch.from_numpy(D), torch.from_numpy(U), dense_cutoff=16)
     assert len(factor[0]) == (2 if n == 48 else 4)   # 64 -> 16 and 256 -> 16 blocks
-    assert kops._factor_shapes(n, 16) == ([a[0].shape[0] for a in factor[0]], 16)
+    assert kops._factor_shapes(n, 16) == ([a[0].shape[1] for a in factor[0]], 16)
     for lv_t, lv_j in zip(factor[0], levels_j):
         for a, ref in zip(lv_t, lv_j):
             ref = np.asarray(ref)
-            np.testing.assert_allclose(a.numpy(), ref, atol=1e-5 * np.abs(ref).max())
-    np.testing.assert_allclose(factor[1].numpy(), np.asarray(root_j),
+            np.testing.assert_allclose(a[0].numpy(), ref, atol=1e-5 * np.abs(ref).max())
+    np.testing.assert_allclose(factor[1][0].numpy(), np.asarray(root_j),
                                atol=1e-5 * np.abs(np.asarray(root_j)).max())
     x = kops.chain_apply_plain(factor, torch.from_numpy(b)).numpy()
     scale = np.abs(x_dense).max()
@@ -147,7 +147,7 @@ def test_solve_without_reduction_levels():
 
 
 def test_held_factor_is_rebuilt_only_where_the_flag_is_set():
-    # the early-exit solve's form: a held factor, a () bool refresh flag
+    # the early-exit solve's form: a held factor, a (B,) bool refresh flag
     D, U, _ = _system(48, seed=3)
     D2, U2, _ = _system(48, seed=4)
     Dt, Ut, D2t, U2t = map(torch.from_numpy, (D, U, D2, U2))
@@ -155,11 +155,11 @@ def test_held_factor_is_rebuilt_only_where_the_flag_is_set():
     before = int(builds)
     held = kops.chain_factor(Dt, Ut, dense_cutoff=16)
     snapshot = [t.clone() for lv in held[0] for t in lv] + [held[1].clone()]
-    out = kops.chain_factor(D2t, U2t, 16, held=held, need=torch.tensor(False))
+    out = kops.chain_factor(D2t, U2t, 16, held=held, need=torch.tensor([False]))
     assert out is held
     for a, b in zip([t for lv in held[0] for t in lv] + [held[1]], snapshot):
         assert torch.equal(a, b)
-    kops.chain_factor(D2t, U2t, 16, held=held, need=torch.tensor(True))
+    kops.chain_factor(D2t, U2t, 16, held=held, need=torch.tensor([True]))
     fresh = kops.chain_factor_plain(D2t, U2t, 16)
     for a, b in zip([t for lv in held[0] for t in lv] + [held[1]],
                     [t for lv in fresh[0] for t in lv] + [fresh[1]]):

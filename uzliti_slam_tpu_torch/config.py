@@ -50,8 +50,9 @@ class FeatureExtractionConfig:
     """Same fields and defaults as
     ``uzliti_slam_tpu.config.FeatureExtractionConfig`` (the reference's
     FeatureExtraction.cfg): budget, FAST threshold, pyramid, grid, depth
-    refinement, descriptor family ("brief" | "brisk" | "freak"; "sift" is
-    not ported) and rectification.  The FAST threshold the front-end uses
+    refinement, descriptor family ("brief" | "brisk" | "freak"; "sift" has
+    no keyframe path, as in the reference: ``pipeline.keyframe_frontend``
+    raises) and rectification.  The FAST threshold the front-end uses
     is ``Tunables.fast_threshold``, initialised from this one."""
 
     max_keypoints: int = 300

@@ -48,10 +48,18 @@
 // work column; the first level (or a root with no level) reads the
 // caller's float32 D, U.
 //
+// The fleet (kernels/ops.chain_factor with batch > 1, for
+// parallel/sharded.py:optimize_batch): each instance is its own chain with
+// its own levels and root, all instances of a level in one launch (odd block
+// jg belongs to instance jg / half) and one root CTA per instance; `need` is
+// then a (B,) flag array, since each instance refreshes its own factor under
+// the early exit.  The launches per factor do not grow with B.
+//
 // What bounds it on the card: the serial chain of dependent steps — one
 // launch per level, and the root's m-step recursion of small inverses (a few
 // hundred __syncthreads in one CTA).  The bytes (each level's 10 blocks of
-// 144 bytes per odd block) are small next to that.
+// 144 bytes per odd block) are small next to that.  The fleet's 4096 root
+// CTAs of a 16-block recursion each fill the card.
 #include <cuda_runtime.h>
 
 namespace {
@@ -169,26 +177,44 @@ struct LevelGroup {
   Inv6Scratch s0, s1;
 };
 
+// Is instance `inst`'s factor to be built?  (need: nullptr = always.)
+__device__ __forceinline__ bool wanted(const unsigned char* need, long long inst) {
+  return need == nullptr || need[inst] != 0;
+}
+
+// Odd block jg of the level's n_batch·half belongs to instance jg / half,
+// whose D, U rows start at inst·in_stride.
 template <typename T>
 __global__ void __launch_bounds__(kEntries * kGroups)
-factor_level(const T* __restrict__ D, const T* __restrict__ U, int n_valid, int half,
-             float* __restrict__ Dinv_o, float* __restrict__ P1m, float* __restrict__ P2,
-             float* __restrict__ G1, float* __restrict__ G2, real* __restrict__ newD,
-             real* __restrict__ newU, const unsigned char* __restrict__ need) {
-  if (need != nullptr && *need == 0) return;
+factor_level(const T* __restrict__ D, const T* __restrict__ U, int n_valid, int in_stride,
+             int half, int n_batch, float* __restrict__ Dinv_o, float* __restrict__ P1m,
+             float* __restrict__ P2, float* __restrict__ G1, float* __restrict__ G2,
+             real* __restrict__ newD, real* __restrict__ newU,
+             const unsigned char* __restrict__ need) {
+  const long long total = static_cast<long long>(half) * n_batch;
+  const long long j_lo = static_cast<long long>(blockIdx.x) * kGroups;
+  const long long j_hi = min(j_lo + kGroups, total) - 1;
+  bool any = false;   // the same answer in every thread: return together
+  for (long long inst = j_lo / half; inst <= j_hi / half; ++inst) any = any || wanted(need, inst);
+  if (!any) return;
   __shared__ LevelGroup groups[kGroups];
-  const int t = threadIdx.x, j = blockIdx.x * kGroups + threadIdx.y;
-  const bool live = j < half;
+  const int t = threadIdx.x;
+  const long long jg = j_lo + threadIdx.y;
+  const long long inst = jg / half;
+  const int j = static_cast<int>(jg % half);
+  const bool live = jg < total && wanted(need, inst);
+  const T* Di = D + inst * in_stride * 36;
+  const T* Ui = U + inst * in_stride * 36;
   LevelGroup& G = groups[threadIdx.y];
   const int r = t / 6, c = t % 6;
   const real eye = (r == c) ? 1.0 : 0.0;
   if (live) {
-    G.De[t] = d_at(D, 2 * j, n_valid, t);
-    G.Do[t] = d_at(D, 2 * j + 1, n_valid, t);
-    G.Ueo[t] = u_at(U, 2 * j, n_valid, t);
-    G.Uoe[t] = u_at(U, 2 * j + 1, n_valid, t);
-    G.Dom[t] = j > 0 ? d_at(D, 2 * j - 1, n_valid, t) : eye;
-    G.Uoem[t] = j > 0 ? u_at(U, 2 * j - 1, n_valid, t) : 0.0;
+    G.De[t] = d_at(Di, 2 * j, n_valid, t);
+    G.Do[t] = d_at(Di, 2 * j + 1, n_valid, t);
+    G.Ueo[t] = u_at(Ui, 2 * j, n_valid, t);
+    G.Uoe[t] = u_at(Ui, 2 * j + 1, n_valid, t);
+    G.Dom[t] = j > 0 ? d_at(Di, 2 * j - 1, n_valid, t) : eye;
+    G.Uoem[t] = j > 0 ? u_at(Ui, 2 * j - 1, n_valid, t) : 0.0;
   } else {   // idle group: well-defined operands, nothing written
     G.De[t] = G.Do[t] = G.Dom[t] = eye;
     G.Ueo[t] = G.Uoe[t] = G.Uoem[t] = 0.0;
@@ -203,7 +229,7 @@ factor_level(const T* __restrict__ D, const T* __restrict__ U, int n_valid, int 
   G.P1m[t] = p1m;
   G.P2[t] = p2;
   if (live) {
-    const long long o = static_cast<long long>(j) * 36 + t;
+    const long long o = jg * 36 + t;
     Dinv_o[o] = static_cast<float>(G.Di[t]);
     P1m[o] = static_cast<float>(p1m);
     P2[o] = static_cast<float>(p2);
@@ -212,7 +238,7 @@ factor_level(const T* __restrict__ D, const T* __restrict__ U, int n_valid, int 
   }
   __syncthreads();
   if (live) {
-    const long long o = static_cast<long long>(j) * 36 + t;
+    const long long o = jg * 36 + t;
     const real t1 = mm6(G.P1m, G.Uoem, r, c);
     const real t2 = mmt6(G.P2, G.Ueo, r, c);
     newD[o] = G.De[t] - t1 - t2;
@@ -220,19 +246,27 @@ factor_level(const T* __restrict__ D, const T* __restrict__ U, int n_valid, int 
   }
 }
 
-// Dynamic shared memory of the root kernel: S⁻¹, U and K for each block.
-constexpr size_t kRootSmem = 3ull * kRootMax * 36 * sizeof(real);
+// Dynamic shared memory of the root kernel: S⁻¹, U and K for each of m
+// blocks.
+size_t root_smem_bytes(int m) { return 3ull * m * 36 * sizeof(real); }
 
+// One CTA per instance (blockIdx.x), its D, U rows at inst·in_stride, its
+// root and work column at inst·(6m)².
 template <typename T>
 __global__ void __launch_bounds__(kRootThreads)
-factor_root(const T* __restrict__ D, const T* __restrict__ U, int n_valid, int m,
+factor_root(const T* __restrict__ D, const T* __restrict__ U, int n_valid, int in_stride, int m,
             float* __restrict__ root_inv, real* __restrict__ work,
             const unsigned char* __restrict__ need, int* __restrict__ builds) {
-  if (need != nullptr && *need == 0) return;
+  const long long inst = blockIdx.x;
+  if (!wanted(need, inst)) return;
+  D += inst * in_stride * 36;
+  U += inst * in_stride * 36;
+  root_inv += inst * 36LL * m * m;
+  work += inst * 36LL * m * m;
   extern __shared__ real root_smem[];
   real (*Sinv)[36] = reinterpret_cast<real (*)[36]>(root_smem);
-  real (*Ub)[36] = Sinv + kRootMax;
-  real (*K)[36] = Ub + kRootMax;
+  real (*Ub)[36] = Sinv + m;
+  real (*K)[36] = Ub + m;
   __shared__ real S[36];
   __shared__ Inv6Scratch scratch;
   const int t = threadIdx.x;
@@ -304,56 +338,64 @@ factor_root(const T* __restrict__ D, const T* __restrict__ U, int n_valid, int m
 }
 
 template <typename T>
-cudaError_t launch_level(const void* D, const void* U, int n_valid, int half, float* Dinv_o,
-                         float* P1m, float* P2, float* G1, float* G2, real* newD, real* newU,
-                         const unsigned char* need, cudaStream_t stream) {
-  factor_level<T><<<(half + kGroups - 1) / kGroups, dim3(kEntries, kGroups), 0, stream>>>(
-      static_cast<const T*>(D), static_cast<const T*>(U), n_valid, half, Dinv_o, P1m, P2, G1, G2,
-      newD, newU, need);
+cudaError_t launch_level(const void* D, const void* U, int n_valid, int in_stride, int half,
+                         int n_batch, float* Dinv_o, float* P1m, float* P2, float* G1, float* G2,
+                         real* newD, real* newU, const unsigned char* need, cudaStream_t stream) {
+  const long long total = static_cast<long long>(half) * n_batch;
+  factor_level<T><<<static_cast<unsigned>((total + kGroups - 1) / kGroups),
+                    dim3(kEntries, kGroups), 0, stream>>>(
+      static_cast<const T*>(D), static_cast<const T*>(U), n_valid, in_stride, half, n_batch,
+      Dinv_o, P1m, P2, G1, G2, newD, newU, need);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_root(const void* D, const void* U, int n_valid, int m, float* root_inv,
-                        real* work, const unsigned char* need, int* builds,
-                        cudaStream_t stream) {
+cudaError_t launch_root(const void* D, const void* U, int n_valid, int in_stride, int m,
+                        int n_batch, float* root_inv, real* work, const unsigned char* need,
+                        int* builds, cudaStream_t stream) {
+  const size_t smem = root_smem_bytes(m);
   const cudaError_t err = cudaFuncSetAttribute(
-      factor_root<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kRootSmem));
+      factor_root<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  factor_root<T><<<1, kRootThreads, kRootSmem, stream>>>(
-      static_cast<const T*>(D), static_cast<const T*>(U), n_valid, m, root_inv, work, need,
-      builds);
+  factor_root<T><<<n_batch, kRootThreads, smem, stream>>>(
+      static_cast<const T*>(D), static_cast<const T*>(U), n_valid, in_stride, m, root_inv, work,
+      need, builds);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// One reduction level: the level's (Dinv_o, P1m, P2, G1, G2) in float32 and
-// the next level's newD, newU in float64, each (half, 6, 6), from D, U
-// (n_valid valid rows of 2·half; float64 if in_double, else float32).
-// need: optional device flag (nullptr = always build).
+// One reduction level of n_batch chains (a single chain is the batch of
+// one): the level's (Dinv_o, P1m, P2, G1, G2) in float32 and the next
+// level's newD, newU in float64, each (n_batch, half, 6, 6), from D, U
+// (instance b's rows at b·in_stride, n_valid of them valid, of 2·half;
+// float64 if in_double, else float32).  need: optional (n_batch,) device
+// flags (nullptr = always build).
 extern "C" int uz_chain_factor_level(const void* D, const void* U, int in_double, int n_valid,
-                                     int half, float* Dinv_o, float* P1m, float* P2, float* G1,
-                                     float* G2, double* newD, double* newU,
-                                     const unsigned char* need, void* stream) {
-  if (half <= 0) return static_cast<int>(cudaSuccess);
+                                     int in_stride, int half, int n_batch, float* Dinv_o,
+                                     float* P1m, float* P2, float* G1, float* G2, double* newD,
+                                     double* newU, const unsigned char* need, void* stream) {
+  if (half <= 0 || n_batch <= 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      in_double ? launch_level<double>(D, U, n_valid, half, Dinv_o, P1m, P2, G1, G2, newD, newU,
-                                       need, s)
-                : launch_level<float>(D, U, n_valid, half, Dinv_o, P1m, P2, G1, G2, newD, newU,
-                                      need, s));
+      in_double ? launch_level<double>(D, U, n_valid, in_stride, half, n_batch, Dinv_o, P1m, P2,
+                                       G1, G2, newD, newU, need, s)
+                : launch_level<float>(D, U, n_valid, in_stride, half, n_batch, Dinv_o, P1m, P2,
+                                      G1, G2, newD, newU, need, s));
 }
 
-// The root inverse (6m, 6m) in float32, m <= 64, from D, U (n_valid valid
-// rows of m; float64 if in_double); work: (6m)² float64 scratch.  builds:
-// optional device counter, +1 per factor built.
+// The root inverses (n_batch, 6m, 6m) in float32, m <= 64, one CTA per
+// chain; work: n_batch·(6m)² float64 scratch.  builds: optional device
+// counter, +1 per factor built.
 extern "C" int uz_chain_factor_root(const void* D, const void* U, int in_double, int n_valid,
-                                    int m, float* root_inv, double* work,
-                                    const unsigned char* need, int* builds, void* stream) {
-  if (m < 1 || m > kRootMax) return static_cast<int>(cudaErrorInvalidValue);
+                                    int in_stride, int m, int n_batch, float* root_inv,
+                                    double* work, const unsigned char* need, int* builds,
+                                    void* stream) {
+  if (m < 1 || m > kRootMax || n_batch < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      in_double ? launch_root<double>(D, U, n_valid, m, root_inv, work, need, builds, s)
-                : launch_root<float>(D, U, n_valid, m, root_inv, work, need, builds, s));
+      in_double ? launch_root<double>(D, U, n_valid, in_stride, m, n_batch, root_inv, work, need,
+                                      builds, s)
+                : launch_root<float>(D, U, n_valid, in_stride, m, n_batch, root_inv, work, need,
+                                     builds, s));
 }

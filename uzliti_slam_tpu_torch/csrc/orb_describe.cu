@@ -7,15 +7,14 @@
 // :484-493: one keypoint at the centre of a 63x63 resize, the radius-25
 // pattern, the roll as the angle).  The reference gathers every patch and
 // every sample with linearised takes, then packs the (K, 256) bits.  Here:
-//   - box_blur: a separable 5x5 box sum of each image with zero padding,
-//     the row sum then the column sum, each added left to right as the
-//     reference's reduce_window adds, then × fl(1/25); one launch over
-//     (tiles, camera);
-//   - describe: one warp per keypoint.  Without given angles the warp sums
-//     the moments m01 = Σ dy·I and m10 = Σ dx·I over the 15x15 patch of the
-//     UNBLURRED image whose origin is the keypoint's pixel less 7, clipped
-//     into the image, masked to the disc of radius 7 about the patch centre
-//     (exact integers at level 0 of a uint8 image), and takes atan2.  Then
+//   - box_blur<2> (describe.cuh): a separable 5x5 box sum of each image with
+//     zero padding, the row sum then the column sum, each added left to
+//     right as the reference's reduce_window adds, then × fl(1/25); one
+//     launch over (tiles, camera);
+//   - describe: one warp per keypoint.  Without given angles the warp takes
+//     the intensity-centroid angle (describe.cuh: the moments over the 15x15
+//     disc of the UNBLURRED image, exact integers at level 0 of a uint8
+//     image, and atan2; K29 takes the same angle from the same code).  Then
 //     each lane makes tests j = lane + 32·w (w = 0..7): both points of the
 //     pattern rotated by the angle, (c·px - s·py, s·px + c·py), added to the
 //     keypoint, rounded half to even and clipped, sampled on the blurred
@@ -31,44 +30,13 @@
 // keypoint, so it is latency-bound.
 #include <cuda_runtime.h>
 
+#include "describe.cuh"
+
 namespace {
 
-constexpr int kTx = 32, kTy = 8, kR = 2;                 // blur tile and radius
+using uz_describe::kFull;
+constexpr int kR = 2;                                    // blur radius
 constexpr int kWarpsPerBlock = 4;
-constexpr int kPatchR = 7, kPatch = 2 * kPatchR + 1;     // 15x15 moments patch
-constexpr unsigned kFull = 0xFFFFFFFFu;
-
-__global__ void __launch_bounds__(kTx * kTy)
-box_blur(const float* __restrict__ img, int H, int W, float* __restrict__ out) {
-  __shared__ float tile[kTy + 2 * kR][kTx + 2 * kR];
-  __shared__ float rows[kTy + 2 * kR][kTx];
-  const long long plane = static_cast<long long>(H) * W;
-  const float* im = img + blockIdx.z * plane;
-  const int x0 = blockIdx.x * kTx, y0 = blockIdx.y * kTy;
-  const int tid = threadIdx.y * kTx + threadIdx.x;
-  constexpr int kSw = kTx + 2 * kR, kSh = kTy + 2 * kR;
-  for (int k = tid; k < kSh * kSw; k += kTx * kTy) {
-    const int gy = y0 - kR + k / kSw, gx = x0 - kR + k % kSw;
-    tile[k / kSw][k % kSw] = (gy >= 0 && gy < H && gx >= 0 && gx < W) ? im[gy * W + gx] : 0.f;
-  }
-  __syncthreads();
-  // row sums of the tile's rows (rows outside the image stay 0: zero padding
-  // of the row-summed image, as the reference's second reduce_window pads)
-  for (int k = tid; k < kSh * kTx; k += kTx * kTy) {
-    const int ly = k / kTx, lx = k % kTx;
-    float s = tile[ly][lx];
-#pragma unroll
-    for (int i = 1; i < 2 * kR + 1; ++i) s = __fadd_rn(s, tile[ly][lx + i]);
-    rows[ly][lx] = s;
-  }
-  __syncthreads();
-  const int gx = x0 + threadIdx.x, gy = y0 + threadIdx.y;
-  if (gx >= W || gy >= H) return;
-  float s = rows[threadIdx.y][threadIdx.x];
-#pragma unroll
-  for (int i = 1; i < 2 * kR + 1; ++i) s = __fadd_rn(s, rows[threadIdx.y + i][threadIdx.x]);
-  out[blockIdx.z * plane + gy * W + gx] = __fmul_rn(s, 1.f / 25.f);
-}
 
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 describe(const float* __restrict__ img, const float* __restrict__ blurred, int C, int H, int W,
@@ -84,25 +52,7 @@ describe(const float* __restrict__ img, const float* __restrict__ blurred, int C
   if (given) {
     ang = angles[kp];
   } else {
-    const float* im = img + c * plane;
-    const int y0 = min(max(__float2int_rz(v) - kPatchR, 0), H - kPatch);
-    const int x0 = min(max(__float2int_rz(u) - kPatchR, 0), W - kPatch);
-    float m01 = 0.f, m10 = 0.f;
-    for (int e = lane; e < kPatch * kPatch; e += 32) {
-      const int i = e / kPatch, j = e % kPatch;
-      const int dy = i - kPatchR, dx = j - kPatchR;
-      if (dx * dx + dy * dy <= kPatchR * kPatchR) {
-        const float p = im[(y0 + i) * W + x0 + j];
-        m01 = __fadd_rn(m01, __fmul_rn(static_cast<float>(dy), p));
-        m10 = __fadd_rn(m10, __fmul_rn(static_cast<float>(dx), p));
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      m01 = __fadd_rn(m01, __shfl_xor_sync(kFull, m01, off));
-      m10 = __fadd_rn(m10, __shfl_xor_sync(kFull, m10, off));
-    }
-    ang = atan2f(m01, m10);
+    ang = uz_describe::centroid_angle(img + c * plane, H, W, u, v, lane);
     if (lane == 0) angles[kp] = ang;
   }
   const float ca = cosf(ang), sa = sinf(ang);
@@ -136,9 +86,7 @@ extern "C" int uz_orb_describe(const float* img, const float* uv, const float* p
                                unsigned* desc, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C > 0 && H > 0 && W > 0) {
-    box_blur<<<dim3((W + kTx - 1) / kTx, (H + kTy - 1) / kTy, C), dim3(kTx, kTy), 0, s>>>(
-        img, H, W, blurred);
-    const cudaError_t err = cudaGetLastError();
+    const cudaError_t err = uz_describe::launch_box_blur<kR>(img, C, H, W, blurred, s);
     if (err != cudaSuccess) return static_cast<int>(err);
     const long long kps = static_cast<long long>(C) * K;
     if (kps > 0)

@@ -24,6 +24,12 @@
 // needs no special branch.  No cuSOLVER call: a library SVD may check its
 // info flag and synchronise, and the reference's SVD is what is ported here.
 //
+// Weights (ransac.py:131, 146): an optional (R, M) weight multiplies
+// `valid` in the hypothesis fits and the refit, as the reference's
+// w = weights * valid; the inlier tests, the sample-validity gate and the
+// consensus read `valid` alone.  Without weights w is valid as 0/1, and
+// every result is what it was before weights were taken.
+//
 // Design: one CTA per root, one thread per hypothesis; the root's points sit
 // in shared memory.  Sums over points (weighted means, covariance, mse) are
 // per-thread partials in double, added by one thread in a fixed order: the
@@ -132,7 +138,8 @@ __device__ void block_sums(double* s_red, int n, double* out) {
 
 __global__ void ransac_roots(const float* __restrict__ src, long long src_stride,
                              const float* __restrict__ dst, long long dst_stride,
-                             const unsigned char* __restrict__ valid, const int* __restrict__ tri,
+                             const unsigned char* __restrict__ valid,
+                             const float* __restrict__ weights, const int* __restrict__ tri,
                              int m, int k_hyp, float thresh_sq, int min_consensus,
                              float min_sigma_sq, float* __restrict__ pose_out,
                              int* __restrict__ consensus_out, float* __restrict__ mse_out,
@@ -143,7 +150,8 @@ __global__ void ransac_roots(const float* __restrict__ src, long long src_stride
   float* s_src = reinterpret_cast<float*>(s_red + kSums * blockDim.x);   // m x 3
   float* s_dst = s_src + 3 * m;           // m x 3
   float* s_w = s_dst + 3 * m;             // m: valid as 0/1
-  float* s_wr = s_w + m;                  // m: refit weights
+  float* s_fw = s_w + m;                  // m: fit weights, weights * valid
+  float* s_wr = s_fw + m;                 // m: refit weights
   float* s_hyp = s_wr + m;                // k_hyp x 7
   int* s_cnt = reinterpret_cast<int*>(s_hyp + 7 * k_hyp);   // k_hyp
   __shared__ double s_tot[kSums];
@@ -159,7 +167,10 @@ __global__ void ransac_roots(const float* __restrict__ src, long long src_stride
     s_src[j] = g_src[j];
     s_dst[j] = g_dst[j];
   }
-  for (int j = tid; j < m; j += nt) s_w[j] = g_valid[j] ? 1.f : 0.f;
+  for (int j = tid; j < m; j += nt) {
+    s_w[j] = g_valid[j] ? 1.f : 0.f;
+    s_fw[j] = weights == nullptr ? s_w[j] : weights[r * m + j] * s_w[j];
+  }
   __syncthreads();
 
   // 1-2: one hypothesis per thread
@@ -168,7 +179,7 @@ __global__ void ransac_roots(const float* __restrict__ src, long long src_stride
     int idx[3];
 #pragma unroll
     for (int c = 0; c < 3; ++c) idx[c] = min(max(tk[c], 0), m - 1);
-    float s[3][3], d[3][3], w[3], hp[7];
+    float s[3][3], d[3][3], w[3], fw[3], hp[7];
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
 #pragma unroll
@@ -177,8 +188,9 @@ __global__ void ransac_roots(const float* __restrict__ src, long long src_stride
         d[c][a] = s_dst[idx[c] * 3 + a];
       }
       w[c] = s_w[idx[c]];
+      fw[c] = s_fw[idx[c]];
     }
-    horn_fit3(s, d, w, hp);
+    horn_fit3(s, d, fw, hp);
 #pragma unroll
     for (int i = 0; i < 7; ++i) s_hyp[tid * 7 + i] = hp[i];
     int count = 0;
@@ -206,7 +218,7 @@ __global__ void ransac_roots(const float* __restrict__ src, long long src_stride
   double acc[kSums] = {0.0};
   for (int j = tid; j < m; j += nt) {
     const float wj = (s_w[j] > 0.f && err2_of(bp, s_src + 3 * j, s_dst + 3 * j) < thresh_sq)
-                         ? s_w[j] : 0.f;
+                         ? s_fw[j] : 0.f;
     s_wr[j] = wj;
     acc[0] += wj;
 #pragma unroll
@@ -285,11 +297,13 @@ __global__ void ransac_roots(const float* __restrict__ src, long long src_stride
 }  // namespace
 
 // src, dst: root r's (m, 3) points at src + r*src_stride (stride 0: shared by
-// every root); valid: (n_roots, m) bool; tri: (n_roots, k_hyp, 3) int32.
+// every root); valid: (n_roots, m) bool; weights: (n_roots, m) float32 or
+// nullptr; tri: (n_roots, k_hyp, 3) int32.
 // Outputs per root: pose (7), consensus, mse, information (6x6), ok, the best
 // hypothesis, and the k_hyp counts.  k_hyp <= 1024.
 extern "C" int uz_ransac_rigid(const float* src, long long src_stride, const float* dst,
-                               long long dst_stride, const unsigned char* valid, const int* tri,
+                               long long dst_stride, const unsigned char* valid,
+                               const float* weights, const int* tri,
                                int n_roots, int m, int k_hyp, float thresh_sq, int min_consensus,
                                float min_sigma_sq, float* pose, int* consensus, float* mse,
                                float* information, unsigned char* ok, int* best, int* counts,
@@ -299,13 +313,14 @@ extern "C" int uz_ransac_rigid(const float* src, long long src_stride, const flo
   if (m <= 0 || k_hyp <= 0 || k_hyp > 1024) return static_cast<int>(cudaErrorInvalidValue);
   const int threads = ((k_hyp + 31) / 32) * 32;
   const size_t smem = 1ull * kSums * threads * sizeof(double)
-                    + (8ull * m + 7ull * k_hyp) * sizeof(float) + 1ull * k_hyp * sizeof(int);
+                    + (9ull * m + 7ull * k_hyp) * sizeof(float) + 1ull * k_hyp * sizeof(int);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         ransac_roots, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  ransac_roots<<<n_roots, threads, smem, s>>>(src, src_stride, dst, dst_stride, valid, tri, m,
+  ransac_roots<<<n_roots, threads, smem, s>>>(src, src_stride, dst, dst_stride, valid, weights,
+                                              tri, m,
                                               k_hyp, thresh_sq, min_consensus, min_sigma_sq,
                                               pose, consensus, mse, information, ok, best,
                                               counts);

@@ -69,11 +69,10 @@ def weighted_info(r: torch.Tensor, info: torch.Tensor, valid: torch.Tensor,
     return info * w[:, None, None]
 
 
-def robust_chi2(r: torch.Tensor, info: torch.Tensor, valid: torch.Tensor,
-                huber_delta: float) -> torch.Tensor:
-    """Σ ρ(rᵀΛr) over valid edges — the Huber-robust total cost, as g2o's
-    activeRobustChi2."""
+def robust_costs(r: torch.Tensor, info: torch.Tensor, valid: torch.Tensor,
+                 huber_delta: float) -> torch.Tensor:
+    """ρ(rᵀΛr)·valid per edge: the Huber-robust cost."""
     chi2 = edge_chi2(r, info)
     e = torch.sqrt(torch.clamp(chi2, min=1e-12))
     rho = torch.where(e <= huber_delta, chi2, 2.0 * huber_delta * e - huber_delta**2)
-    return torch.sum(rho * valid)
+    return rho * valid

@@ -10,6 +10,15 @@ whose vector updates are kernel K10, and one retraction whose residuals and
 robust χ² are kernel K4.  The chain factor is kernel K9, connected
 components and gauge fixing are kernel K8.
 
+``optimize_batched`` solves a fleet of B independent graphs of equal
+capacities, as the reference's ``vmap`` of ``optimize``: the fleet is
+flattened into one block-diagonal table (instance b's nodes at b·N, its
+edges' endpoints offset by b·N), which K1, K2 and K8 take as they are,
+while λ, accept, χ², the refresh state and the early-exit flag are (B,)
+tensors and K4, K10, K9 and K3 keep each instance's sums and factor its
+own, the instance on their grid.  A single graph runs the same loop as the
+batch of one.  The launches per solve do not grow with B.
+
 The loop never reads a device value on the host: accept/reject, the λ
 schedule, the PCG stall mask and the early-exit flag are all tensors
 combined with ``torch.where``, so a solve on a CUDA device queues its work
@@ -108,7 +117,7 @@ def connected_components(g: GraphState, num_iters: int | None = None) -> torch.T
     component). Invalid nodes keep their own index.
     """
     n = g.node_capacity
-    iters = num_iters if num_iters is not None else max(2 * math.ceil(math.log2(max(n, 2))), 8)
+    iters = num_iters if num_iters is not None else component_iterations(n)
     return kops.components(g.e_from, g.e_to, g.e_valid, n, iters)
 
 
@@ -128,14 +137,15 @@ def _weighted_info(g: GraphState, r: torch.Tensor, huber_delta: float) -> torch.
     return factors.weighted_info(r, g.e_info, g.e_valid, huber_delta)
 
 
-def _pcg(hvp, apply_minv, b, iterations: int, tol: float):
+def _pcg(hvp, apply_minv, b, iterations: int, tol: float, batch: int = 1):
     """Preconditioned CG for H dx = b. Fixed iteration count, masked stall.
 
     Each step is K2 (``hvp``) → K10 → K3 (``apply_minv``) → K10 on a CUDA
     device: the dots, axpys and stall logic of the reference's body
-    (``solver.py:512-540``) are kernel K10, with its scalars on the device.
+    (``solver.py:512-540``) are kernel K10, with its scalars on the device,
+    one row per instance of a fleet of ``batch``.
     """
-    x, r, p, scal = kops.pcg_init(b, apply_minv(b))
+    x, r, p, scal = kops.pcg_init(b, apply_minv(b), batch)
     for _ in range(iterations):
         kops.pcg_alpha(p, hvp(p), x, r, scal, tol)
         kops.pcg_beta(r, apply_minv(r), p, scal)
@@ -143,21 +153,37 @@ def _pcg(hvp, apply_minv, b, iterations: int, tol: float):
 
 
 class _Problem:
-    """Per-solve constants of the LM loop: masks, edge tables, Ad(meas⁻¹)."""
+    """Per-solve constants of the LM loop: masks, edge tables, Ad(meas⁻¹).
 
-    def __init__(self, g: GraphState, free: torch.Tensor, config: SolverConfig):
-        self.g, self.free, self.config = g, free, config
+    ``g`` holds ``batch`` instances of equal capacities flattened into one
+    table (``_flatten_fleet``; a single graph is the batch of one), and the
+    loop's scalars are (B,)."""
+
+    def __init__(self, g: GraphState, free: torch.Tensor, config: SolverConfig,
+                 batch: int = 1):
+        self.g, self.free, self.config, self.batch = g, free, config, batch
         self.valid = g.e_valid.to(free.dtype)
         self.is_chain = ((g.e_to == g.e_from + 1) & g.e_valid).to(free.dtype)
         self.both_free = ((free > 0) & (torch.roll(free, -1) > 0)).to(free.dtype)
         self.eye6 = torch.eye(6, dtype=free.dtype, device=free.device)
+        # roll couples each instance's last node b·N + N-1 to the next
+        # instance's node 0 (and the last to node 0); no edge crosses
+        # instances, so is_chain zeroes the coupling block there, as a
+        # single graph's wrap-around is zeroed.
         # Measurements are constant across the solve: Ad(meas⁻¹) is hoisted
         # out of the loop, and with the residual carried forward from the
         # accepted candidate's χ² pass each linearization needs no pose.
         self.adj_meas_inv = lie.se3_adjoint(lie.pose_inverse(g.e_transform))
 
     def residuals(self, poses):
-        return _residuals(self.g, poses, self.config.huber_delta)
+        return _residuals(self.g, poses, self.config.huber_delta, self.batch)
+
+    def select(self, mask, a, b):
+        """``a`` where ``mask`` (B,), else ``b``, over the instances' rows of
+        a flattened tensor."""
+        shape = (self.batch, -1) + tuple(a.shape[1:])
+        m = mask.view((self.batch,) + (1,) * a.dim())
+        return torch.where(m, a.view(shape), b.view(shape)).view(a.shape)
 
     def linearize(self, r):
         g = self.g
@@ -166,14 +192,16 @@ class _Problem:
                               self.config.huber_delta)
 
     def damp(self, lam, Hb):
-        return lam * torch.clamp(torch.diagonal(Hb, dim1=-2, dim2=-1), min=1e-6)
+        d = torch.clamp(torch.diagonal(Hb, dim1=-2, dim2=-1), min=1e-6)
+        return (lam[:, None, None] * d.view(self.batch, -1, 6)).view(d.shape)
 
     def build_pack(self, Hb, U, damp, held=None, need=None):
-        """Chain factor of the damped block-tridiagonal part of H (K9); with
-        ``held`` and ``need``, ``held`` rebuilt in place where ``need``."""
+        """Chain factor of the damped block-tridiagonal part of H (K9), one
+        chain per instance; with ``held`` and ``need``, ``held`` rebuilt in
+        place where ``need``."""
         Dm = torch.where(self.free[:, None, None] > 0, Hb + torch.diag_embed(damp),
                          self.eye6)
-        return tridiag.block_tridiag_factor(Dm, U, self.config.chain_dense_cutoff,
+        return tridiag.block_tridiag_factor(Dm, U, self.config.chain_dense_cutoff, self.batch,
                                             held=held, need=need)
 
     def step(self, poses, pack, Ji, Jj, W, grad, damp):
@@ -181,8 +209,8 @@ class _Problem:
         g, cfg, free = self.g, self.config, self.free
         dx = _pcg(
             lambda v: kops.hvp(Ji, Jj, W, g.e_from, g.e_to, v, damp, free),
-            lambda rr: tridiag.block_tridiag_apply(pack, rr),
-            -grad, cfg.pcg_iterations, cfg.pcg_tol,
+            lambda rr: tridiag.block_tridiag_apply(pack, rr), -grad, cfg.pcg_iterations,
+            cfg.pcg_tol, self.batch,
         )
         cand = lie.pose_retract(poses, dx * free[:, None])
         r_cand, chi2_new = self.residuals(cand)
@@ -195,7 +223,7 @@ def _lm_fixed(p: _Problem, r0, chi2_0):
     cfg = p.config
     refresh = max(1, min(int(cfg.precond_refresh), cfg.iterations))
     poses, r, chi2_cur = p.g.pose, r0, chi2_0
-    lam = torch.full((), cfg.lambda_init, dtype=r0.dtype, device=r0.device)
+    lam = torch.full((p.batch,), cfg.lambda_init, dtype=r0.dtype, device=r0.device)
     hist, acc = [], []
     for step_idx in range(cfg.iterations):
         if step_idx % refresh == 0:
@@ -204,8 +232,8 @@ def _lm_fixed(p: _Problem, r0, chi2_0):
         Ji, Jj, W, grad, Hb, U = p.linearize(r)
         cand, r_cand, chi2_new = p.step(poses, pack, Ji, Jj, W, grad, p.damp(lam, Hb))
         accept = chi2_new < chi2_cur
-        poses = torch.where(accept, cand, poses)
-        r = torch.where(accept, r_cand, r)
+        poses = p.select(accept, cand, poses)
+        r = p.select(accept, r_cand, r)
         chi2_cur = torch.where(accept, chi2_new, chi2_cur)
         lam = torch.clamp(
             torch.where(accept, lam / cfg.lambda_factor, lam * cfg.lambda_factor),
@@ -226,15 +254,16 @@ def _lm_early_exit(p: _Problem, r0, chi2_0):
     solve holds one private factor and K9 rebuilds it in place only where
     the device flag ``need`` is set (on CPU tensors the fresh factor is
     selected into it with ``torch.where``): a factor is built exactly when
-    the reference builds one, with no host synchronisation.
+    the reference builds one, with no host synchronisation.  In a fleet
+    each instance holds its own factor and flag.
     """
     cfg = p.config
     dev, dt = r0.device, r0.dtype
     refresh = max(1, min(int(cfg.precond_refresh), cfg.iterations))
     poses, r, chi2_cur = p.g.pose, r0, chi2_0
-    lam = torch.full((), cfg.lambda_init, dtype=dt, device=dev)
-    stale = torch.zeros((), dtype=torch.int32, device=dev)
-    done = torch.zeros((), dtype=torch.bool, device=dev)
+    lam = torch.full((p.batch,), cfg.lambda_init, dtype=dt, device=dev)
+    stale = torch.zeros((p.batch,), dtype=torch.int32, device=dev)
+    done = torch.zeros((p.batch,), dtype=torch.bool, device=dev)
     pack = None
     hist, acc = [], []
     for it in range(cfg.iterations):
@@ -251,8 +280,8 @@ def _lm_early_exit(p: _Problem, r0, chi2_0):
         active = ~done
         accept = (chi2_new < chi2_cur) & active
         gain = (chi2_cur - chi2_new) / torch.clamp(chi2_cur, min=1e-12)
-        poses = torch.where(accept, cand, poses)
-        r = torch.where(accept, r_cand, r)
+        poses = p.select(accept, cand, poses)
+        r = p.select(accept, r_cand, r)
         lam_next = torch.clamp(
             torch.where(accept, lam / cfg.lambda_factor, lam * cfg.lambda_factor),
             cfg.lambda_min, cfg.lambda_max,
@@ -272,25 +301,33 @@ def _lm_early_exit(p: _Problem, r0, chi2_0):
     return poses, lam, hist, acc
 
 
-def _residuals(g: GraphState, poses: torch.Tensor, huber_delta: float):
-    """Edge residuals of ``poses`` and their robust χ² (kernel K4 on CUDA)."""
+def _residuals(g: GraphState, poses: torch.Tensor, huber_delta: float, batch: int = 1):
+    """Edge residuals of ``poses`` and each instance's robust χ² (B,)
+    (kernel K4 on CUDA)."""
     return kops.residual_chi2(poses, g.e_from, g.e_to, g.e_transform, g.e_info,
-                              g.e_valid.to(poses.dtype), huber_delta)
+                              g.e_valid.to(poses.dtype), huber_delta, batch)
 
 
 def total_chi2(g: GraphState, poses: torch.Tensor, huber_delta: float) -> torch.Tensor:
-    """Robust χ² of ``poses`` on ``g``'s edges."""
-    return _residuals(g, poses, huber_delta)[1]
+    """Robust χ² () of ``poses`` on ``g``'s edges."""
+    return _residuals(g, poses, huber_delta)[1][0]
 
 
-def lm_loop(g: GraphState, free: torch.Tensor, config: SolverConfig):
-    """The LM iteration core. Returns (poses, final_lambda, chi2_history,
-    accepted)."""
-    p = _Problem(g, free, config)
+def _lm(g: GraphState, free: torch.Tensor, config: SolverConfig, batch: int):
+    """The LM loop of ``batch`` flattened instances: (poses, final λ (B,),
+    χ² histories (B, iterations + 1), accept flags (B, iterations))."""
+    p = _Problem(g, free, config, batch)
     r0, chi2_0 = p.residuals(g.pose)
     run = _lm_early_exit if config.early_exit else _lm_fixed
     poses, lam, hist, acc = run(p, r0, chi2_0)
-    return poses, lam, torch.stack([chi2_0, *hist]), torch.stack(acc)
+    return poses, lam, torch.stack([chi2_0, *hist], dim=1), torch.stack(acc, dim=1)
+
+
+def lm_loop(g: GraphState, free: torch.Tensor, config: SolverConfig):
+    """The LM iteration core of one graph (the batch of one). Returns
+    (poses, final_lambda, chi2_history, accepted)."""
+    poses, lam, hist, acc = _lm(g, free, config, 1)
+    return poses, lam[0], hist[0], acc[0]
 
 
 def _host_decision(flag: torch.Tensor) -> bool:
@@ -359,3 +396,75 @@ def optimize(g: GraphState, config: SolverConfig = SolverConfig()):
         num_gauge_fixed=gauge.sum().to(torch.int32),
     )
     return g, stats
+
+
+# ---------------------------------------------------------------------------
+# The fleet: B independent solves at once
+# ---------------------------------------------------------------------------
+
+_NODE_FIELDS = ("pose", "odom_pose", "stamp", "uncertainty", "node_valid", "node_fixed",
+                "merged_into", "node_uid")
+_EDGE_FIELDS = ("e_from", "e_to", "e_transform", "e_info", "e_type", "e_valid", "e_error",
+                "e_age", "e_score")
+
+
+def _flatten_fleet(fleet: GraphState) -> GraphState:
+    """One block-diagonal graph of a fleet's B·N nodes and B·E edges:
+    instance b's nodes at b·N, its edges at b·E with endpoints offset by
+    b·N, so no edge crosses instances.  The scalar fields stay (B,)."""
+    B, N = fleet.pose.shape[:2]
+    off = torch.arange(B, dtype=torch.int32, device=fleet.device)[:, None] * N
+    flat = {k: getattr(fleet, k).flatten(0, 1) for k in _NODE_FIELDS + _EDGE_FIELDS}
+    flat["e_from"] = (fleet.e_from + off).reshape(-1)
+    flat["e_to"] = (fleet.e_to + off).reshape(-1)
+    return fleet.replace(**flat)
+
+
+def component_iterations(n_nodes: int) -> int:
+    """Label-propagation rounds for graphs of ``n_nodes`` slots (the
+    reference's ``connected_components`` default)."""
+    return max(2 * math.ceil(math.log2(max(n_nodes, 2))), 8)
+
+
+def optimize_batched(fleet: GraphState, config: SolverConfig = SolverConfig()):
+    """Run LM on each graph of a fleet (every field with a leading (B,)
+    dimension, equal capacities), as the reference's ``vmap`` of
+    ``optimize``; returns (the updated fleet, SolveStats with a leading (B,)
+    dimension: χ² histories (B, iterations + 1), accept flags (B,
+    iterations), final λ (B,), gauge-fixed counts (B,)).
+
+    Connected components and gauge fixing (K8) run once on the flattened
+    fleet with the rounds of one instance (components never cross
+    instances); every instance keeps its own λ, accept, χ², factor refresh
+    and early exit.  ``odometry_restart`` and ``use_odometry_calibration``
+    in a fleet raise ``NotImplementedError`` (ROADMAP.md A29).
+    """
+    check_supported(config)
+    for name in ("odometry_restart", "use_odometry_calibration"):
+        if getattr(config, name):
+            raise NotImplementedError(f"{name}=True in a fleet")
+    if fleet.pose.dim() != 3:
+        raise ValueError(f"optimize_batched: poses {tuple(fleet.pose.shape)}, expected "
+                         "(B, N, 7)")
+    B, N = fleet.pose.shape[:2]
+    E = fleet.e_from.shape[1]
+    g = _flatten_fleet(fleet)
+    labels = connected_components(g, component_iterations(N))
+    gauge = gauge_fix_mask(g, labels)
+    free = (g.node_valid & ~gauge).to(g.pose.dtype)
+    poses, lam, chi2_hist, accepted = _lm(g, free, config, B)
+
+    valid = g.e_valid.to(poses.dtype)
+    r, _ = _residuals(g, poses, config.huber_delta, B)
+    out = fleet.replace(
+        pose=poses.view(B, N, 7),
+        e_error=(factors.edge_chi2(r, g.e_info) * valid).view(B, E),
+        e_age=fleet.e_age + valid.view(B, E),
+    )
+    stats = SolveStats(
+        chi2_history=chi2_hist,
+        accepted=accepted,
+        final_lambda=lam,
+        num_gauge_fixed=gauge.view(B, N).sum(1).to(torch.int32),
+    )
+    return out, stats

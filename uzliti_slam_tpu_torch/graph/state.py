@@ -4,6 +4,11 @@ PyTorch counterpart of ``uzliti_slam_tpu/graph/state.py``: the same field
 names, shapes, dtypes and layouts (fixed-capacity padded tables plus
 validity masks, int32 node slots), so a graph crosses between the two
 packages field by field through numpy (``from_numpy`` / ``to_numpy``).
+
+A fleet of B graphs of equal capacities is the same dataclass with a
+leading (B,) dimension on every field (``stack_graphs``; ``from_numpy``
+takes the reference's ``jax.tree.map(jnp.stack, ...)`` batches as they
+are): the form ``parallel.sharded.optimize_batch`` solves.
 """
 
 from __future__ import annotations
@@ -67,11 +72,11 @@ class GraphState:
 
     @property
     def node_capacity(self) -> int:
-        return self.pose.shape[0]
+        return self.pose.shape[-2]
 
     @property
     def edge_capacity(self) -> int:
-        return self.e_from.shape[0]
+        return self.e_from.shape[-1]
 
     @property
     def device(self) -> torch.device:
@@ -125,7 +130,9 @@ def empty_graph(node_capacity: int, edge_capacity: int, device=None) -> GraphSta
 def from_numpy(arrays: dict, device=None) -> GraphState:
     """Build a GraphState from a dict of numpy arrays keyed by field name
     (e.g. ``{k: np.asarray(v) for k, v in g_jax._asdict().items()}``), on
-    ``device`` (default: the CUDA card)."""
+    ``device`` (default: the CUDA card).  Arrays with a leading (B,)
+    dimension on every field (a JAX fleet, ``jax.tree.map(jnp.stack,
+    ...)``) give a fleet of B graphs."""
     device = _device.resolve(device)
     missing = set(_FIELDS) - set(arrays)
     if missing:
@@ -134,6 +141,17 @@ def from_numpy(arrays: dict, device=None) -> GraphState:
         k: torch.from_numpy(np.array(arrays[k], copy=True)).to(device)
         for k in _FIELDS
     })
+
+
+def stack_graphs(graphs) -> GraphState:
+    """A fleet of B graphs of equal capacities: every field stacked on a
+    leading (B,) dimension."""
+    return GraphState(**{k: torch.stack([getattr(g, k) for g in graphs]) for k in _FIELDS})
+
+
+def graph_of(fleet: GraphState, b: int) -> GraphState:
+    """Graph ``b`` of a fleet (views of its tensors)."""
+    return GraphState(**{k: getattr(fleet, k)[b] for k in _FIELDS})
 
 
 def to_numpy(g: GraphState) -> dict:

@@ -18,26 +18,27 @@ from uzliti_slam_tpu_torch.kernels import ops as kops
 
 
 def block_tridiag_factor(D: torch.Tensor, U: torch.Tensor, dense_cutoff: int = 64,
-                         held=None, need: torch.Tensor | None = None):
-    """Cyclic-reduction 'factorization' of a symmetric block-tridiagonal A
-    (kernel K9 on CUDA tensors).
+                         batch: int = 1, held=None, need: torch.Tensor | None = None):
+    """Cyclic-reduction 'factorization' of ``batch`` symmetric
+    block-tridiagonal matrices stacked in D, U (kernel K9 on CUDA tensors).
 
-    D: (n, 6, 6) diagonal blocks; U: (n, 6, 6) with U[i] = A[i, i+1]
-    (U[n-1] is treated as zero).  Returns ``(levels, root_inv, n)`` where
-    each level is ``(Dinv_o, P1m, P2, G1, G2)``: the apply-side products are
-    precomputed once per factor, so each substitution level is two matvecs
-    and a shift.  With ``held`` and the () bool device flag ``need``, the
-    held factor is rebuilt in place where ``need`` is set and returned.
+    D: (B·n, 6, 6) diagonal blocks; U: (B·n, 6, 6) with U[i] = A[i, i+1]
+    (each chain's last U is treated as zero).  Returns ``(levels, root_inv,
+    n)`` where each level is ``(Dinv_o, P1m, P2, G1, G2)``, each (B, half,
+    6, 6): the apply-side products are precomputed once per factor, so each
+    substitution level is two matvecs and a shift.  With ``held`` and the
+    (B,) bool device flag ``need``, each chain of the held factor is rebuilt
+    in place where its flag is set, and ``held`` is returned.
     """
-    return kops.chain_factor(D, U, dense_cutoff, held=held, need=need)
+    return kops.chain_factor(D, U, dense_cutoff, batch, held=held, need=need)
 
 
 def block_tridiag_apply(factor, b: torch.Tensor) -> torch.Tensor:
-    """Solve A x = b (b (n, 6)) with a ``block_tridiag_factor`` result,
+    """Solve A x = b (b (B·n, 6)) with a ``block_tridiag_factor`` result,
     through kernel K3 on CUDA tensors."""
     return kops.chain_apply(factor, b)
 
 
 def block_tridiag_solve(D: torch.Tensor, U: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """One-shot solve A x = b (factor + apply)."""
+    """One-shot solve A x = b of one chain (factor + apply)."""
     return block_tridiag_apply(block_tridiag_factor(D, U), b)

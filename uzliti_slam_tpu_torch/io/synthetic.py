@@ -42,12 +42,14 @@ def _round_capacity(n: int, rounding: str) -> int:
 
 
 def _prefix_compose(m: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix products m[0] ∘ … ∘ m[k] in log2(n) batched steps
-    (Hillis-Steele), instead of an n-step sequential scan."""
+    """Inclusive prefix products m[..., 0, :] ∘ … ∘ m[..., k, :] along
+    dimension -2 in log2(n) batched steps (Hillis-Steele), instead of an
+    n-step sequential scan."""
     out = m
     d = 1
-    while d < out.shape[0]:
-        out = torch.cat([out[:d], lie.pose_compose(out[:-d], out[d:])])
+    while d < out.shape[-2]:
+        out = torch.cat([out[..., :d, :], lie.pose_compose(out[..., :-d, :], out[..., d:, :])],
+                        dim=-2)
         d *= 2
     return out
 
@@ -76,6 +78,39 @@ def make_pose_graph(
     request's (``"exact"``) or the next power of two, at least 32
     (``"pow2"``), as the JAX generator's ``capacity_rounding``.
     """
+    fleet, gt = make_pose_graph_batch(
+        1, n_nodes, odom_noise, rot_noise, loop_closure_every, loop_noise, node_capacity,
+        edge_capacity, radius, loops, generator,
+        None if odom_draws is None else odom_draws[None],
+        None if loop_draws is None else loop_draws[None], capacity_rounding, device)
+    return gstate.graph_of(fleet, 0), gt
+
+
+def make_pose_graph_batch(
+    batch: int,
+    n_nodes: int,
+    odom_noise: float = 0.02,
+    rot_noise: float = 0.005,
+    loop_closure_every: int = 0,
+    loop_noise: float = 0.01,
+    node_capacity: int | None = None,
+    edge_capacity: int | None = None,
+    radius: float = 10.0,
+    loops: float = 2.0,
+    generator: torch.Generator | None = None,
+    odom_draws: torch.Tensor | None = None,
+    loop_draws: torch.Tensor | None = None,
+    capacity_rounding: str = "exact",
+    device=None,
+) -> tuple[GraphState, torch.Tensor]:
+    """A fleet of ``batch`` distinct graphs (``make_pose_graph``'s circle,
+    each with its own noise), built as batched tensors in one pass: a fleet
+    of (B,)-leading fields (``state.stack_graphs``'s form) and the shared
+    ground truth (n, 7).  Instance b's graph is ``make_pose_graph`` with
+    ``odom_draws[b]`` and ``loop_draws[b]``; without draws they come from
+    ``generator``, all odometry draws (B, n-1, 6) first, then the loop
+    draws (B, L, 6)."""
+    device = _device.resolve(device)
     gt = circle_trajectory(n_nodes, radius=radius, loops=loops, device=device)
     rel_gt = lie.pose_relative(gt[:-1], gt[1:])
     period = int(n_nodes / max(loops, 1.0))
@@ -86,24 +121,28 @@ def make_pose_graph(
 
     def draws(given, rows):
         if given is None:
-            given = torch.randn(rows, 6, generator=generator)
-        if tuple(given.shape) != (rows, 6):
-            raise ValueError(f"noise draws: shape {tuple(given.shape)}, expected ({rows}, 6)")
+            given = torch.randn(batch, rows, 6, generator=generator)
+        if tuple(given.shape) != (batch, rows, 6):
+            raise ValueError(f"noise draws: shape {tuple(given.shape)}, expected "
+                             f"({batch}, {rows}, 6)")
         return given.to(device=device, dtype=torch.float32)
 
     scale = torch.tensor([odom_noise] * 3 + [rot_noise] * 3, device=device)
     odom_meas = lie.pose_compose(rel_gt, lie.se3_exp(scale * draws(odom_draws, n_nodes - 1)))
-    init_poses = torch.cat([gt[0:1], lie.pose_compose(gt[0:1], _prefix_compose(odom_meas))])
+    init_poses = torch.cat([gt[0:1].expand(batch, 1, 7),
+                            lie.pose_compose(gt[0:1], _prefix_compose(odom_meas))], dim=1)
 
     ncap = node_capacity or _round_capacity(n_nodes, capacity_rounding)
     ecap = edge_capacity or _round_capacity(n_nodes - 1 + len(lc_pairs), capacity_rounding)
-    g = gstate.empty_graph(ncap, ecap, device)
+    one = gstate.empty_graph(ncap, ecap, device)
+    g = gstate.GraphState(**{f: getattr(one, f).expand(batch, *getattr(one, f).shape).clone()
+                             for f in gstate._FIELDS})
     n_odom = n_nodes - 1
-    g.pose[:n_nodes] = init_poses
-    g.odom_pose[:n_nodes] = init_poses
-    g.stamp[:n_nodes] = 0.1 * torch.arange(n_nodes, dtype=torch.float32, device=device)
-    g.node_valid[:n_nodes] = True
-    g.node_uid[:n_nodes] = torch.arange(n_nodes, dtype=torch.int32, device=device)
+    g.pose[:, :n_nodes] = init_poses
+    g.odom_pose[:, :n_nodes] = init_poses
+    g.stamp[:, :n_nodes] = 0.1 * torch.arange(n_nodes, dtype=torch.float32, device=device)
+    g.node_valid[:, :n_nodes] = True
+    g.node_uid[:, :n_nodes] = torch.arange(n_nodes, dtype=torch.int32, device=device)
     g.num_nodes.fill_(n_nodes)
 
     e_from = list(range(n_odom)) + [p[0] for p in lc_pairs]
@@ -116,17 +155,17 @@ def make_pose_graph(
         lt = torch.tensor([p[1] for p in lc_pairs], device=device)
         lnoise = loop_noise * draws(loop_draws, len(lc_pairs))
         e_T.append(lie.pose_compose(lie.pose_relative(gt[lf], gt[lt]), lie.se3_exp(lnoise)))
-        e_info.append((100.0 * torch.eye(6, device=device)).expand(len(lc_pairs), 6, 6))
+        e_info.append((100.0 * torch.eye(6, device=device)).expand(batch, len(lc_pairs), 6, 6))
         e_type += [gstate.EDGE_TYPE_3D_FULL] * len(lc_pairs)
 
     n_e = len(e_from)
     i32 = dict(dtype=torch.int32, device=device)
-    g.e_from[:n_e] = torch.tensor(e_from, **i32)
-    g.e_to[:n_e] = torch.tensor(e_to, **i32)
-    g.e_transform[:n_e] = torch.cat(e_T)
-    g.e_info[:n_e] = torch.cat(e_info)
-    g.e_type[:n_e] = torch.tensor(e_type, **i32)
-    g.e_valid[:n_e] = True
+    g.e_from[:, :n_e] = torch.tensor(e_from, **i32)
+    g.e_to[:, :n_e] = torch.tensor(e_to, **i32)
+    g.e_transform[:, :n_e] = torch.cat(e_T, dim=1)
+    g.e_info[:, :n_e] = torch.cat(e_info, dim=1)
+    g.e_type[:, :n_e] = torch.tensor(e_type, **i32)
+    g.e_valid[:, :n_e] = True
     g.num_edges.fill_(n_e)
     return g, gt
 

@@ -39,21 +39,21 @@ SIGNATURES = {
     "uz_linearize": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I,
                      _P, _P, _P, _P, _P, _P, _P],
     "uz_hvp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
-    "uz_chain_forward": [_P, _I, _P, _P, _I, _P, _P],
-    "uz_chain_backward": [_P, _I, _P, _P, _P, _P, _I, _P, _I, _P],
-    "uz_residual_chi2": [_P, _P, _P, _P, _P, _P, _F, _I, _P, _P, _P, _P],
+    "uz_chain_forward": [_P, _I, _I, _P, _P, _I, _I, _P, _P],
+    "uz_chain_backward": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _I, _P],
+    "uz_residual_chi2": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _P, _P, _P, _P],
     "uz_relax_min": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "uz_cluster_labels": [_P, _P, _P, _I, _F, _I, _P, _P],
-    "uz_ransac_rigid": [_P, _L, _P, _L, _P, _P, _I, _I, _I, _F, _I, _F,
+    "uz_ransac_rigid": [_P, _L, _P, _L, _P, _P, _P, _I, _I, _I, _F, _I, _F,
                         _P, _P, _P, _P, _P, _P, _P, _P],
     "uz_components": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "uz_gauge_fix": [_P, _P, _P, _P, _I, _P, _P, _P],
-    "uz_chain_root": [_P, _P, _I, _I, _P, _I, _P],
-    "uz_chain_factor_level": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "uz_chain_factor_root": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
-    "uz_pcg_init": [_P, _P, _I, _P, _P, _P, _P, _P, _P],
-    "uz_pcg_alpha": [_P, _P, _I, _F, _P, _P, _P, _P, _P],
-    "uz_pcg_beta": [_P, _P, _I, _P, _P, _P, _P],
+    "uz_chain_root": [_P, _P, _I, _I, _I, _I, _P, _I, _P],
+    "uz_chain_factor_level": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "uz_chain_factor_root": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "uz_pcg_init": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
+    "uz_pcg_alpha": [_P, _P, _I, _I, _F, _P, _P, _P, _P, _P],
+    "uz_pcg_beta": [_P, _P, _I, _I, _P, _P, _P, _P],
     "uz_project_rays": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _F,
                         _F, _I, _F, _P, _P],
     "uz_fast_nms": [_P, _I, _I, _I, _F, _P, _P],
@@ -83,6 +83,8 @@ SIGNATURES = {
     "uz_pnp_hypotheses": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "uz_pnp_refine": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _F,
                       _P, _P, _P, _P, _P, _P, _P],
+    "uz_sift_describe": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "uz_l2_top2": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P],
 }
 
 _lib = None

@@ -15,8 +15,10 @@ kernel         source                  replaces (JAX package)
 linearize      csrc/linearize.cu       graph/solver.py:_make_fused_linearize
 hvp            csrc/hvp.cu             graph/solver.py:_make_hvp
 chain_apply    csrc/chain_apply.cu     graph/tridiag.py:block_tridiag_apply
+                                       (and its vmap in the fleet)
 residual_chi2  csrc/residual_chi2.cu   factors.batched_residuals +
-                                       solver._robust_chi2_from_r
+                                       solver._robust_chi2_from_r (and
+                                       their vmap in the fleet)
 relax_min      csrc/relax_min.cu       graph/shortest_path.py:shortest_paths
 cluster_labels csrc/cluster_labels.cu  graph/filter.py:_cluster_labels
 ransac_rigid   csrc/ransac_rigid.cu    ops/ransac.py:ransac_rigid (+ kabsch,
@@ -26,9 +28,11 @@ components     csrc/components.cu      graph/solver.py:connected_components,
                                        count)
 chain_factor   csrc/chain_factor.cu    graph/tridiag.py:block_tridiag_factor
                                        (+ _inv3, _inv6, _pad_pow2,
-                                       _dense_root_inverse)
+                                       _dense_root_inverse; and their vmap
+                                       in the fleet)
 pcg            csrc/pcg.cu             graph/solver.py:_pcg's vector updates
-                                       (three wrappers, one count)
+                                       (and their vmap in the fleet; three
+                                       wrappers, one count)
 project_rays   csrc/occupancy.cu       mapping/occupancy.py:_project_rays +
                                        _mark_node_cells
 fast_nms       csrc/fast_nms.cu        ops/features.py:fast_score + nms
@@ -68,7 +72,16 @@ pnp            csrc/pnp.cu             ops/pnp.py:pnp_ransac (pnp_hypotheses:
                                        pnp_refine: the consensus, argmax and
                                        Gauss-Newton polish); two wrappers,
                                        one count
+sift_describe  csrc/sift_describe.cu   ops/features.py:sift_descriptors (+
+                                       _sep_blur radius 1 and
+                                       intensity_centroid_angles)
+l2_top2        csrc/l2_top2.cu         ops/matching.py:l2_matrix + knn_match
+                                       + ratio_test (match_descriptors_l2)
 =============  ======================  =======================================
+
+K3, K4, K9 and K10 take a batch of B instances of equal sizes, flattened
+(the fleet of ``parallel/sharded.optimize_batch``); a single solve is the
+batch of one.
 
 What bounds each kernel on the card, and what its design does about it, is
 written at the top of its source file.
@@ -91,7 +104,7 @@ launches = {"linearize": 0, "hvp": 0, "chain_apply": 0, "residual_chi2": 0,
             "orb_describe": 0, "scan_bins": 0, "hamming_top2": 0, "bilateral": 0, "icp": 0,
             "merge_pairs": 0, "calib_gn": 0, "bin_min_max": 0, "feature_votes": 0,
             "repository": 0, "bow_words": 0, "bow_query": 0, "voxel_grid": 0,
-            "knn_normals": 0, "gicp": 0, "pnp": 0}
+            "knn_normals": 0, "gicp": 0, "pnp": 0, "sift_describe": 0, "l2_top2": 0}
 
 _THREADS = 256  # kThreads in csrc/lie.cuh: K4's partial sums, one per block
 _SMEM_BYTES = 232448  # shared memory one CTA can use on Hopper
@@ -240,69 +253,73 @@ def _pow2(n: int) -> int:
 
 
 def chain_apply_plain(factor, b):
-    """Plain version of K3: solve A x = b (b (n, 6)) with a
-    ``block_tridiag_factor`` result ``(levels, root_inv, n_orig)``."""
+    """Plain version of K3: solve A x = b for each of B chains with a
+    ``chain_factor`` result ``(levels, root_inv, n)`` (levels' tensors (B,
+    half, 6, 6), roots (B, 6m, 6m)); b the chains' right-hand sides stacked
+    (B·n, 6), as the flattened fleet holds them (a single chain: B = 1)."""
     levels, root_inv, n_orig = factor
+    B = root_inv.shape[0]
     n2 = _pow2(n_orig)
-    bk = torch.cat([b, b.new_zeros(n2 - n_orig, 6)])
+    bk = torch.cat([b.view(B, n_orig, 6), b.new_zeros(B, n2 - n_orig, 6)], dim=1)
     b_levels = []
     for Dinv_o, P1m, P2, G1, G2 in levels:
-        be, bo = bk[0::2], bk[1::2]
-        bo_m = torch.cat([bo.new_zeros(1, 6), bo[:-1]])
+        be, bo = bk[:, 0::2], bk[:, 1::2]
+        bo_m = torch.cat([bo.new_zeros(B, 1, 6), bo[:, :-1]], dim=1)
         b_levels.append(bo)
         bk = be - (P1m @ bo_m[..., None])[..., 0] - (P2 @ bo[..., None])[..., 0]
-    x = (root_inv @ bk.reshape(-1)).reshape(-1, 6)
+    x = (root_inv @ bk.reshape(B, -1, 1))[..., 0].reshape(B, -1, 6)
     for (Dinv_o, P1m, P2, G1, G2), bo in zip(reversed(levels), reversed(b_levels)):
-        x_next = torch.cat([x[1:], x.new_zeros(1, 6)])
+        x_next = torch.cat([x[:, 1:], x.new_zeros(B, 1, 6)], dim=1)
         x_o = ((Dinv_o @ bo[..., None]) - (G1 @ x[..., None])
                - (G2 @ x_next[..., None]))[..., 0]
-        x = torch.stack([x, x_o], dim=1).reshape(-1, 6)
-    return x[:n_orig]
+        x = torch.stack([x, x_o], dim=2).reshape(B, -1, 6)
+    return x[:, :n_orig].reshape(-1, 6)
 
 
 def chain_apply(factor, b):
     """K3: the chain preconditioner's forward/back substitution and the
-    root matvec."""
+    root matvec, for each of the factor's B chains at once: one launch per
+    level and direction and one for the roots, whatever B."""
     if b.device.type == "cpu":
         return chain_apply_plain(factor, b)
     levels, root_inv, n_orig = factor
+    B = root_inv.shape[0]
     dev, f32 = b.device, torch.float32
-    _check("b", b, (n_orig, 6), f32, dev)
+    _check("b", b, (B * n_orig, 6), f32, dev)
     lib = _build.load()
     stream = _stream(dev)
     bufs, valid_rows = [b], [n_orig]
     for li, (Dinv_o, P1m, P2, G1, G2) in enumerate(levels):
-        half = Dinv_o.shape[0]
+        half = Dinv_o.shape[1]
         if 2 * half < valid_rows[-1]:
-            raise ValueError(f"chain_apply: level {li} holds {2 * half} rows "
-                             f"< {valid_rows[-1]}")
-        out = torch.empty(half, 6, dtype=f32, device=dev)
+            raise ValueError(f"chain_apply: level {li} holds {2 * half} rows < {valid_rows[-1]}")
+        out = torch.empty(B * half, 6, dtype=f32, device=dev)
         err = lib.uz_chain_forward(
-            bufs[-1].data_ptr(), valid_rows[-1],
-            _check("P1m", P1m, (half, 6, 6), f32, dev),
-            _check("P2", P2, (half, 6, 6), f32, dev), half, out.data_ptr(), stream)
+            bufs[-1].data_ptr(), valid_rows[-1], valid_rows[-1],
+            _check("P1m", P1m, (B, half, 6, 6), f32, dev),
+            _check("P2", P2, (B, half, 6, 6), f32, dev), half, B, out.data_ptr(), stream)
         _raise_on(err, "chain_apply")
         bufs.append(out)
         valid_rows.append(half)
     # the root: m_root blocks, or the padded system when there is no level
-    m_root = levels[-1][0].shape[0] if levels else _pow2(n_orig)
+    m_root = levels[-1][0].shape[1] if levels else _pow2(n_orig)
     root_rows = m_root if levels else n_orig
-    x = torch.empty(root_rows, 6, dtype=f32, device=dev)
-    err = lib.uz_chain_root(_check("root_inv", root_inv, (6 * m_root, 6 * m_root), f32, dev),
-                            bufs[-1].data_ptr(), valid_rows[-1], 6 * m_root, x.data_ptr(),
-                            root_rows, stream)
+    x = torch.empty(B * root_rows, 6, dtype=f32, device=dev)
+    err = lib.uz_chain_root(_check("root_inv", root_inv, (B, 6 * m_root, 6 * m_root), f32, dev),
+                            bufs[-1].data_ptr(), valid_rows[-1], valid_rows[-1], 6 * m_root, B,
+                            x.data_ptr(), root_rows, stream)
     _raise_on(err, "chain_apply")
     for li in reversed(range(len(levels))):
         Dinv_o, _, _, G1, G2 = levels[li]
-        half = Dinv_o.shape[0]
+        half = Dinv_o.shape[1]
         rows = n_orig if li == 0 else 2 * half
-        out = torch.empty(rows, 6, dtype=f32, device=dev)
+        out = torch.empty(B * rows, 6, dtype=f32, device=dev)
         err = lib.uz_chain_backward(
-            bufs[li].data_ptr(), valid_rows[li], x.data_ptr(),
-            _check("Dinv_o", Dinv_o, (half, 6, 6), f32, dev),
-            _check("G1", G1, (half, 6, 6), f32, dev),
-            _check("G2", G2, (half, 6, 6), f32, dev),
-            half, out.data_ptr(), rows, stream)
+            bufs[li].data_ptr(), valid_rows[li], valid_rows[li], x.data_ptr(),
+            _check("Dinv_o", Dinv_o, (B, half, 6, 6), f32, dev),
+            _check("G1", G1, (B, half, 6, 6), f32, dev),
+            _check("G2", G2, (B, half, 6, 6), f32, dev),
+            half, B, out.data_ptr(), rows, stream)
         _raise_on(err, "chain_apply")
         x = out
     launches["chain_apply"] += 1
@@ -313,35 +330,45 @@ def chain_apply(factor, b):
 # K4 residual_chi2
 # ---------------------------------------------------------------------------
 
-def residual_chi2_plain(poses, e_from, e_to, meas, info, valid, huber_delta: float):
-    """Plain version of K4: (r (E, 6), Σ ρ(rᵀΛr)·valid ())."""
+def residual_chi2_plain(poses, e_from, e_to, meas, info, valid, huber_delta: float,
+                        batch: int = 1):
+    """Plain version of K4 on ``batch`` instances of a flattened table
+    (instance b's edges at b·E, their endpoints into the flattened poses; a
+    single graph: batch 1): (r (B·E, 6), each instance's Σ ρ(rᵀΛr)·valid
+    (B,))."""
     r = factors.batched_residuals(
         poses.index_select(0, e_from), poses.index_select(0, e_to), meas
     )
-    return r, factors.robust_chi2(r, info, valid, huber_delta)
+    rho = factors.robust_costs(r, info, valid, huber_delta)
+    return r, torch.sum(rho.view(batch, -1), dim=1)
 
 
-def residual_chi2(poses, e_from, e_to, meas, info, valid, huber_delta: float):
-    """K4: edge residuals of ``poses`` and their robust χ²."""
+def residual_chi2(poses, e_from, e_to, meas, info, valid, huber_delta: float, batch: int = 1):
+    """K4: edge residuals of ``poses`` and one robust χ² per instance (B,),
+    each summed in the order of a single solve of it."""
     if poses.device.type == "cpu":
-        return residual_chi2_plain(poses, e_from, e_to, meas, info, valid, huber_delta)
+        return residual_chi2_plain(poses, e_from, e_to, meas, info, valid, huber_delta, batch)
     dev, f32 = poses.device, torch.float32
-    E, n = e_from.shape[0], poses.shape[0]
+    BE, n = e_from.shape[0], poses.shape[0]
+    if batch < 1 or BE % batch or n % batch:
+        raise ValueError(f"residual_chi2: {BE} edges, {n} nodes in {batch} instances")
+    E = BE // batch
     ptrs = [
         _check("poses", poses, (n, 7), f32, dev),
-        _check("e_from", e_from, (E,), torch.int32, dev),
-        _check("e_to", e_to, (E,), torch.int32, dev),
-        _check("meas", meas, (E, 7), f32, dev),
-        _check("info", info, (E, 6, 6), f32, dev),
-        _check("valid", valid, (E,), f32, dev),
+        _check("e_from", e_from, (BE,), torch.int32, dev),
+        _check("e_to", e_to, (BE,), torch.int32, dev),
+        _check("meas", meas, (BE, 7), f32, dev),
+        _check("info", info, (BE, 6, 6), f32, dev),
+        _check("valid", valid, (BE,), f32, dev),
     ]
     lib = _build.load()
     nb = -(-E // _THREADS)
-    out = torch.empty(E * 6 + nb + 1, dtype=f32, device=dev)
-    r = out[: E * 6].view(E, 6)
-    chi2 = out[E * 6 + nb:].view(())
-    err = lib.uz_residual_chi2(*ptrs, float(huber_delta), E, r.data_ptr(),
-                               out[E * 6:].data_ptr(), chi2.data_ptr(), _stream(dev))
+    out = torch.empty(BE * 6 + batch * (nb + 1), dtype=f32, device=dev)
+    r = out[: BE * 6].view(BE, 6)
+    partials = out[BE * 6: BE * 6 + batch * nb]
+    chi2 = out[BE * 6 + batch * nb:]
+    err = lib.uz_residual_chi2(*ptrs, float(huber_delta), E, batch, r.data_ptr(),
+                               partials.data_ptr(), chi2.data_ptr(), _stream(dev))
     _raise_on(err, "residual_chi2")
     launches["residual_chi2"] += 1
     return r, chi2
@@ -436,7 +463,13 @@ def cluster_labels(stamp_from, stamp_to, valid, max_dt: float, n_iters: int):
 # K7 ransac_rigid
 # ---------------------------------------------------------------------------
 
-def ransac_hypotheses_plain(src, dst, valid, tri):
+def _fit_weights(valid, weights, dtype):
+    """The fits' weights: ``weights * valid`` (the reference's w), or valid
+    as 0/1 without weights."""
+    return valid.to(dtype) if weights is None else weights * valid
+
+
+def ransac_hypotheses_plain(src, dst, valid, tri, weights=None):
     """The hypothesis stage of K7's plain version: (clamped triplets (R, K,
     3), squared error of every point under every Horn fit (R, K, M))."""
     from uzliti_slam_tpu_torch.ops import lie, ransac
@@ -449,23 +482,24 @@ def ransac_hypotheses_plain(src, dst, valid, tri):
     def pick(x):
         return torch.gather(x, 1, flat[..., None].expand(R, K * 3, 3)).reshape(R, K, 3, 3)
 
-    w = torch.gather(valid.to(src.dtype), 1, flat).reshape(R, K, 3)
+    w = torch.gather(_fit_weights(valid, weights, src.dtype), 1, flat).reshape(R, K, 3)
     hyp = ransac.kabsch_quat(pick(src), pick(dst), w)
     pred = lie.pose_apply(hyp[:, :, None, :], src[:, None])          # (R, K, M, 3)
     return ti, torch.sum((pred - dst[:, None]) ** 2, dim=-1)
 
 
 def ransac_rigid_plain(src, dst, valid, tri, inlier_thresh: float, min_consensus: int,
-                       min_sigma: float):
+                       min_sigma: float, weights=None):
     """Plain version of K7 for R roots: src/dst (R, M, 3), valid (R, M),
-    triplets tri (R, K, 3).  Returns (pose (R, 7), consensus (R,) int32,
-    mse (R,), information (R, 6, 6), ok (R,), best (R,) int32, counts
-    (R, K) int32), as ``uzliti_slam_tpu/ops/ransac.py:ransac_rigid``."""
+    triplets tri (R, K, 3), optional weights (R, M) multiplying ``valid`` in
+    the fits.  Returns (pose (R, 7), consensus (R,) int32, mse (R,),
+    information (R, 6, 6), ok (R,), best (R,) int32, counts (R, K) int32),
+    as ``uzliti_slam_tpu/ops/ransac.py:ransac_rigid``."""
     from uzliti_slam_tpu_torch.ops import lie, ransac
 
     R, M, _ = src.shape
-    w = valid.to(src.dtype)
-    ti, err2 = ransac_hypotheses_plain(src, dst, valid, tri)
+    w = _fit_weights(valid, weights, src.dtype)
+    ti, err2 = ransac_hypotheses_plain(src, dst, valid, tri, weights)
     inl = (err2 < inlier_thresh**2) & valid[:, None]
     counts = inl.sum(-1, dtype=torch.int32)
     distinct = (ti[..., 0] != ti[..., 1]) & (ti[..., 1] != ti[..., 2]) & (ti[..., 0] != ti[..., 2])
@@ -497,11 +531,13 @@ def _root_view(name: str, t: torch.Tensor, R: int, M: int, device) -> tuple[int,
 
 
 def ransac_rigid(src, dst, valid, tri, inlier_thresh: float, min_consensus: int,
-                 min_sigma: float):
+                 min_sigma: float, weights=None):
     """K7: RANSAC rigid fits of R roots, one CTA per root.  ``src``/``dst``
-    may be broadcast views of one (M, 3) table (root stride 0)."""
+    may be broadcast views of one (M, 3) table (root stride 0); ``weights``
+    (R, M), where given, multiplies ``valid`` in the fits."""
     if src.device.type == "cpu":
-        return ransac_rigid_plain(src, dst, valid, tri, inlier_thresh, min_consensus, min_sigma)
+        return ransac_rigid_plain(src, dst, valid, tri, inlier_thresh, min_consensus, min_sigma,
+                                  weights)
     dev, f32, i32 = src.device, torch.float32, torch.int32
     R, M, _ = src.shape
     K = tri.shape[1]
@@ -510,6 +546,7 @@ def ransac_rigid(src, dst, valid, tri, inlier_thresh: float, min_consensus: int,
     src_p, src_s = _root_view("src", src, R, M, dev)
     dst_p, dst_s = _root_view("dst", dst, R, M, dev)
     valid_p = _check("valid", valid, (R, M), torch.bool, dev)
+    weights_p = None if weights is None else _check("weights", weights, (R, M), f32, dev)
     tri_p = _check("tri", tri, (R, K, 3), i32, dev)
     lib = _build.load()
     pose = torch.empty(R, 7, dtype=f32, device=dev)
@@ -520,7 +557,7 @@ def ransac_rigid(src, dst, valid, tri, inlier_thresh: float, min_consensus: int,
     best = torch.empty(R, dtype=i32, device=dev)
     counts = torch.empty(R, K, dtype=i32, device=dev)
     err = lib.uz_ransac_rigid(
-        src_p, src_s, dst_p, dst_s, valid_p, tri_p, R, M, K, float(inlier_thresh**2),
+        src_p, src_s, dst_p, dst_s, valid_p, weights_p, tri_p, R, M, K, float(inlier_thresh**2),
         int(min_consensus), float(min_sigma**2), pose.data_ptr(), consensus.data_ptr(),
         mse.data_ptr(), information.data_ptr(), ok.data_ptr(), best.data_ptr(),
         counts.data_ptr(), _stream(dev))
@@ -661,30 +698,32 @@ def _inv6(M: torch.Tensor) -> torch.Tensor:
 
 
 def _pad_pow2(D: torch.Tensor, U: torch.Tensor):
-    """D padded with identity blocks and U with zero blocks to 2^k rows."""
-    n = D.shape[0]
+    """D padded with identity blocks and U with zero blocks to 2^k rows
+    (the rows are dimension -3; leading dimensions are a batch)."""
+    n = D.shape[-3]
     n2 = _pow2(n)
     if n2 == n:
         return D, U
     pad = n2 - n
-    eye = torch.eye(6, dtype=D.dtype, device=D.device).expand(pad, 6, 6)
-    return torch.cat([D, eye]), torch.cat([U, U.new_zeros(pad, 6, 6)])
+    batch = D.shape[:-3]
+    eye = torch.eye(6, dtype=D.dtype, device=D.device).expand(*batch, pad, 6, 6)
+    return torch.cat([D, eye], dim=-3), torch.cat([U, U.new_zeros(*batch, pad, 6, 6)], dim=-3)
 
 
 def root_matrix_plain(Dk: torch.Tensor, Uk: torch.Tensor) -> torch.Tensor:
     """The dense (6m, 6m) root system tridiag(Uᵀ, D, U) + 1e-8·I that the
-    factor inverts (Uk[m-1] is not read)."""
-    m = Dk.shape[0]
+    factor inverts (Uk[m-1] is not read); leading dimensions are a batch."""
+    m = Dk.shape[-3]
     dev, dt = Dk.device, Dk.dtype
     eye = torch.eye(m, dtype=dt, device=dev)
     sup = torch.diag(torch.ones(m - 1, dtype=dt, device=dev), 1)
-    Us = torch.cat([Uk[: m - 1], Uk.new_zeros(1, 6, 6)])
+    Us = torch.cat([Uk[..., : m - 1, :, :], Uk.new_zeros(*Uk.shape[:-3], 1, 6, 6)], dim=-3)
     # A[i, :, j, :] = D[i] (i=j), U[i] (j=i+1), U[j]ᵀ (j=i-1)
     A = (
-        torch.einsum("ij,iab->iajb", eye, Dk)
-        + torch.einsum("ij,iab->iajb", sup, Us)
-        + torch.einsum("ji,jba->iajb", sup, Us)
-    ).reshape(m * 6, m * 6)
+        torch.einsum("ij,...iab->...iajb", eye, Dk)
+        + torch.einsum("ij,...iab->...iajb", sup, Us)
+        + torch.einsum("ji,...jba->...iajb", sup, Us)
+    ).reshape(*Dk.shape[:-3], m * 6, m * 6)
     return A + 1e-8 * torch.eye(m * 6, dtype=dt, device=dev)
 
 
@@ -692,8 +731,8 @@ def _dense_root_inverse(Dk: torch.Tensor, Uk: torch.Tensor) -> torch.Tensor:
     """Dense inverse of the remaining (m·6)×(m·6) block-tridiagonal system,
     by LU (``torch.linalg.inv_ex``: no error check, so no host sync), in
     row-major layout (the CUDA library returns it column-major)."""
-    if Dk.shape[0] == 1:
-        return _inv6(Dk[0])
+    if Dk.shape[-3] == 1:
+        return _inv6(Dk[..., 0, :, :])
     return torch.linalg.inv_ex(root_matrix_plain(Dk, Uk))[0].contiguous()
 
 
@@ -703,22 +742,24 @@ def chain_reduce_plain(D: torch.Tensor, U: torch.Tensor, dense_cutoff: int = 64,
     in D's dtype, and the root blocks (Dk, Uk) they leave, in
     ``work_dtype``.  Float64 by default, as K9 computes: each level's newD
     cancels, and a float32 reduction (the reference's) loses about a bit
-    per level (2.6e-4 of the largest entry after 11 levels)."""
+    per level (2.6e-4 of the largest entry after 11 levels).  D, U (..., n,
+    6, 6): leading dimensions are a batch of independent chains."""
     out_dtype = D.dtype
-    n_orig = D.shape[0]
+    n_orig = D.shape[-3]
+    batch = D.shape[:-3]
     D, U = D.to(work_dtype), U.to(work_dtype).clone()
-    U[n_orig - 1] = 0.0
+    U[..., n_orig - 1, :, :] = 0.0
     D, U = _pad_pow2(D, U)
     eye = torch.eye(6, dtype=D.dtype, device=D.device)
     levels = []
     Dk, Uk = D, U
-    while Dk.shape[0] > max(dense_cutoff, 1):
-        De, Do = Dk[0::2], Dk[1::2]
-        Ueo = Uk[0::2]          # couples even j -> odd j+1
-        Uoe = Uk[1::2]          # couples odd j+1 -> even j+2
+    while Dk.shape[-3] > max(dense_cutoff, 1):
+        De, Do = Dk[..., 0::2, :, :], Dk[..., 1::2, :, :]
+        Ueo = Uk[..., 0::2, :, :]          # couples even j -> odd j+1
+        Uoe = Uk[..., 1::2, :, :]          # couples odd j+1 -> even j+2
         Dinv_o = _inv6(Do)
-        Uoe_m = torch.cat([Uoe.new_zeros(1, 6, 6), Uoe[:-1]])
-        Dinv_om = torch.cat([eye[None], Dinv_o[:-1]])
+        Uoe_m = torch.cat([Uoe.new_zeros(*batch, 1, 6, 6), Uoe[..., :-1, :, :]], dim=-3)
+        Dinv_om = torch.cat([eye.expand(*batch, 1, 6, 6), Dinv_o[..., :-1, :, :]], dim=-3)
 
         P1m = Uoe_m.transpose(-1, -2) @ Dinv_om
         P2 = Ueo @ Dinv_o
@@ -729,22 +770,25 @@ def chain_reduce_plain(D: torch.Tensor, U: torch.Tensor, dense_cutoff: int = 64,
         t2 = P2 @ Ueo.transpose(-1, -2)
         newD = De - t1 - t2
         newU = -(P2 @ Uoe)
-        newU[-1] = 0.0
+        newU[..., -1, :, :] = 0.0
         levels.append(tuple(t.to(out_dtype) for t in (Dinv_o, P1m, P2, G1, G2)))
         Dk, Uk = newD, newU
     return tuple(levels), Dk, Uk
 
 
 def chain_factor_plain(D: torch.Tensor, U: torch.Tensor, dense_cutoff: int = 64,
-                       work_dtype: torch.dtype = torch.float64):
-    """Plain version of K9: ``(levels, root_inv, n)`` of the symmetric
-    block-tridiagonal matrix with diagonal blocks D (n, 6, 6) and U[i] =
-    A[i, i+1] (U[n-1] is treated as zero); each level is
-    ``(Dinv_o, P1m, P2, G1, G2)``.  Computed in ``work_dtype`` (float64, as
-    K9 computes, where the reference computes in float32), returned in D's
-    dtype."""
-    levels, Dk, Uk = chain_reduce_plain(D, U, dense_cutoff, work_dtype)
-    return levels, _dense_root_inverse(Dk, Uk).to(D.dtype), D.shape[0]
+                       batch: int = 1, work_dtype: torch.dtype = torch.float64):
+    """Plain version of K9: ``(levels, root_inv, n)`` of ``batch``
+    symmetric block-tridiagonal matrices, stacked in D, U (B·n, 6, 6) as the
+    flattened fleet holds them (a single chain: batch 1), chain b's diagonal
+    blocks D[b·n:(b+1)·n] and U[i] = A[i, i+1] (its last U treated as zero).
+    Each level is ``(Dinv_o, P1m, P2, G1, G2)``, each (B, half, 6, 6), the
+    roots (B, 6m, 6m).  Computed in ``work_dtype`` (float64, as K9 computes,
+    where the reference computes in float32), returned in D's dtype."""
+    n = D.shape[0] // batch
+    levels, Dk, Uk = chain_reduce_plain(D.view(batch, n, 6, 6), U.view(batch, n, 6, 6),
+                                        dense_cutoff, work_dtype)
+    return levels, _dense_root_inverse(Dk, Uk).to(D.dtype), n
 
 
 _factor_builds: dict = {}
@@ -771,69 +815,79 @@ def _factor_shapes(n: int, dense_cutoff: int) -> tuple[list[int], int]:
 
 
 def _select_factor_into(need: torch.Tensor, fresh, held) -> None:
+    """``held`` overwritten by ``fresh`` where ``need`` (B,), chain by
+    chain."""
+    def sel(a, b):
+        b.copy_(torch.where(need.view((-1,) + (1,) * (a.dim() - 1)), a, b))
+
     for a, b in zip((t for lv in fresh[0] for t in lv), (t for lv in held[0] for t in lv)):
-        b.copy_(torch.where(need, a, b))
-    held[1].copy_(torch.where(need, fresh[1], held[1]))
+        sel(a, b)
+    sel(fresh[1], held[1])
 
 
-def chain_factor(D, U, dense_cutoff: int = 64, held=None, need=None):
-    """K9: the chain preconditioner's cyclic-reduction factor.
+def chain_factor(D, U, dense_cutoff: int = 64, batch: int = 1, held=None, need=None):
+    """K9: the chain preconditioner's cyclic-reduction factor of ``batch``
+    chains stacked in D, U (B·n, 6, 6): each chain its own levels and root,
+    all chains of a level in one launch and one root CTA per chain.
 
     Without ``held`` it builds a new factor.  With ``held`` (a factor of
-    the same shapes) and ``need`` (a () bool device flag) it rebuilds
-    ``held`` in place when ``need`` is set and leaves it as it is
-    otherwise, and returns ``held``; the flag is read on the device (the
-    kernels return at once when it is 0), never on the host.  On CPU
-    tensors the plain version builds the factor and selects it into
-    ``held`` with ``torch.where``.
+    the same shapes) and ``need`` (a (B,) bool device flag) it rebuilds
+    each chain of ``held`` in place where its flag is set and leaves the
+    others as they are, and returns ``held``; the flags are read on the
+    device (the kernels return at once where they are 0), never on the
+    host.  On CPU tensors the plain version builds the factor and selects
+    it into ``held`` with ``torch.where``.
     """
-    n = D.shape[0]
     if D.device.type == "cpu":
-        fresh = chain_factor_plain(D, U, dense_cutoff)
+        fresh = chain_factor_plain(D, U, dense_cutoff, batch)
         builds = factor_builds(D.device)
         if held is None:
-            builds.add_(1)
+            builds.add_(batch)
             return fresh
-        builds.add_(need.to(builds.dtype))
+        builds.add_(need.sum().to(builds.dtype))
         _select_factor_into(need, fresh, held)
         return held
-    dev, f32 = D.device, torch.float32
-    ptrs = [_check("D", D, (n, 6, 6), f32, dev), _check("U", U, (n, 6, 6), f32, dev)]
+    B, dev, f32 = batch, D.device, torch.float32
+    if B < 1 or D.shape[0] % B:
+        raise ValueError(f"chain_factor: {D.shape[0]} blocks in {B} instances")
+    n = D.shape[0] // B
+    ptrs = [_check("D", D, (B * n, 6, 6), f32, dev), _check("U", U, (B * n, 6, 6), f32, dev)]
     halves, m_root = _factor_shapes(n, dense_cutoff)
     if m_root > 64:
-        raise ValueError(f"chain_factor: a root of {m_root} blocks (dense_cutoff "
-                         f"{dense_cutoff}); the root kernel takes at most 64")
+        raise ValueError(f"chain_factor: a root of {m_root} blocks (dense_cutoff {dense_cutoff});"
+                         " the root kernel takes at most 64")
     if held is None:
         if need is not None:
             raise ValueError("chain_factor: a refresh flag needs a held factor")
-        levels = tuple(tuple(torch.empty(5, h, 6, 6, dtype=f32, device=dev).unbind(0))
+        levels = tuple(tuple(torch.empty(5, B, h, 6, 6, dtype=f32, device=dev).unbind(0))
                        for h in halves)
-        root_inv = torch.empty(6 * m_root, 6 * m_root, dtype=f32, device=dev)
+        root_inv = torch.empty(B, 6 * m_root, 6 * m_root, dtype=f32, device=dev)
         need_ptr = None
     else:
         levels, root_inv, n_held = held
-        if n_held != n or [lv[0].shape[0] for lv in levels] != halves:
+        if n_held != n or [lv[0].shape[:-2] for lv in levels] != [(B, h) for h in halves]:
             raise ValueError("chain_factor: the held factor has other shapes")
         for lv, h in zip(levels, halves):
-            for name, t in zip(("Dinv_o", "P1m", "P2", "G1", "G2"), lv):
-                _check(name, t, (h, 6, 6), f32, dev)
-        _check("root_inv", root_inv, (6 * m_root, 6 * m_root), f32, dev)
-        need_ptr = _check("need", need, (), torch.bool, dev)
+            for nm, t in zip(("Dinv_o", "P1m", "P2", "G1", "G2"), lv):
+                _check(nm, t, (B, h, 6, 6), f32, dev)
+        _check("root_inv", root_inv, (B, 6 * m_root, 6 * m_root), f32, dev)
+        need_ptr = _check("need", need, (B,), torch.bool, dev)
     lib = _build.load()
     stream = _stream(dev)
-    # float64 scratch: each level's newD, newU, and the root's work columns
-    scratch = torch.empty(2 * 36 * sum(halves) + 36 * m_root * m_root, dtype=torch.float64,
+    # float64 scratch: each level's newD, newU, and the roots' work columns
+    scratch = torch.empty(B * (2 * 36 * sum(halves) + 36 * m_root * m_root), dtype=torch.float64,
                           device=dev)
     src_D, src_U, in_double, n_valid, off = ptrs[0], ptrs[1], 0, n, 0
     for lv, h in zip(levels, halves):
-        newD, newU = scratch[off: off + 36 * h], scratch[off + 36 * h: off + 72 * h]
-        err = lib.uz_chain_factor_level(src_D, src_U, in_double, n_valid, h,
+        size = 36 * h * B
+        newD, newU = scratch[off: off + size], scratch[off + size: off + 2 * size]
+        err = lib.uz_chain_factor_level(src_D, src_U, in_double, n_valid, n_valid, h, B,
                                         *(t.data_ptr() for t in lv),
                                         newD.data_ptr(), newU.data_ptr(), need_ptr, stream)
         _raise_on(err, "chain_factor")
         src_D, src_U, in_double, n_valid = newD.data_ptr(), newU.data_ptr(), 1, h
-        off += 72 * h
-    err = lib.uz_chain_factor_root(src_D, src_U, in_double, n_valid, m_root,
+        off += 2 * size
+    err = lib.uz_chain_factor_root(src_D, src_U, in_double, n_valid, n_valid, m_root, B,
                                    root_inv.data_ptr(), scratch[off:].data_ptr(), need_ptr,
                                    factor_builds(dev).data_ptr(), stream)
     _raise_on(err, "chain_factor")
@@ -844,100 +898,118 @@ def chain_factor(D, U, dense_cutoff: int = 64, held=None, need=None):
 # ---------------------------------------------------------------------------
 # K10 pcg (the vector updates of solver._pcg)
 # ---------------------------------------------------------------------------
-# State: x, r, p (n, 6) and scal = [rz, b2, ok, ...] on the device, updated
-# in place by the step functions (the kernel's scal has a fourth slot).
+# State: x, r, p the flattened (B·n, 6) of B instances (a single solve: B =
+# 1) and one row of scalars per instance, scal (B, 3) = [rz, b2, ok] in the
+# plain version and (B, 4) in the kernel's, on the device, updated in place
+# by the step functions: each instance's dots, α, β and stall flag are its
+# own, as under the reference's vmap.
 
-PCG_CTA_MAX = 32768   # floats: above this K10 takes its grid route (csrc/pcg.cu)
+PCG_CTA_MAX = 32768   # floats: above this a single solve takes K10's grid route (csrc/pcg.cu)
 _PCG_CHUNK = 4096     # floats per CTA on the grid route
 
 
-def pcg_init_plain(b, z):
+def pcg_init_plain(b, z, batch: int = 1):
     """Plain version of K10's first launch: (x, r, p, scal) from b and
     z0 = M⁻¹b."""
+    bv, zv = b.view(batch, -1), z.view(batch, -1)
     x = torch.zeros_like(b)
     r = b.clone()
     p = z.clone()
-    scal = torch.stack([torch.sum(r * z), torch.sum(b * b), torch.ones_like(b[0, 0])])
+    scal = torch.stack([torch.sum(bv * zv, dim=1), torch.sum(bv * bv, dim=1),
+                        torch.ones_like(bv[:, 0])], dim=1)
     return x, r, p, scal
 
 
 def pcg_alpha_plain(p, Hp, x, r, scal, tol: float) -> None:
     """Plain version of K10 after Hp = H·p: the stall test and x, r in place."""
-    rz, b2 = scal[0], scal[1]
-    pHp = torch.sum(p * Hp)
+    B = scal.shape[0]
+    pv, Hpv = p.view(B, -1), Hp.view(B, -1)
+    rz, b2 = scal[:, 0], scal[:, 1]
+    pHp = torch.sum(pv * Hpv, dim=1)
     ok = (pHp > 1e-20) & (rz > tol * (b2 + 1e-30))
-    alpha = torch.where(ok, rz / torch.where(pHp == 0, 1.0, pHp), 0.0)
-    x.copy_(x + alpha * p)
-    r.copy_(r - alpha * Hp)
-    scal[2] = ok.to(scal.dtype)
+    alpha = torch.where(ok, rz / torch.where(pHp == 0, 1.0, pHp), 0.0)[:, None]
+    x.view(B, -1).copy_(x.view(B, -1) + alpha * pv)
+    r.view(B, -1).copy_(r.view(B, -1) - alpha * Hpv)
+    scal[:, 2] = ok.to(scal.dtype)
 
 
 def pcg_beta_plain(r, z, p, scal) -> None:
     """Plain version of K10 after z = M⁻¹r: p and rz in place."""
-    rz, ok = scal[0], scal[2] > 0
-    rz_new = torch.sum(r * z)
-    beta = torch.where(ok, rz_new / torch.where(rz == 0, 1.0, rz), 0.0)
-    p.copy_(torch.where(ok, z + beta * p, p))
-    scal[0] = torch.where(ok, rz_new, rz)
+    B = scal.shape[0]
+    rv, zv, pv = r.view(B, -1), z.view(B, -1), p.view(B, -1)
+    rz, ok = scal[:, 0], scal[:, 2] > 0
+    rz_new = torch.sum(rv * zv, dim=1)
+    beta = torch.where(ok, rz_new / torch.where(rz == 0, 1.0, rz), 0.0)[:, None]
+    pv.copy_(torch.where(ok[:, None], zv + beta * pv, pv))
+    scal[:, 0] = torch.where(ok, rz_new, rz)
 
 
-def _pcg_checks(dev, n, **vectors):
-    for name, t in vectors.items():
-        _check(name, t, (n, 6), torch.float32, dev)
-
-
-def _pcg_partials(n: int, dev):
-    """Scratch of K10's grid route (None: the one-CTA route)."""
-    if 6 * n <= PCG_CTA_MAX:
-        return None
-    return torch.empty(2 * -(-6 * n // _PCG_CHUNK), dtype=torch.float32, device=dev)
+def _pcg_route(name: str, dev, batch: int, **vectors):
+    """Check the vectors (B·n, 6) and give (floats per instance, the grid
+    route's scratch or None): one CTA per instance holds at most
+    PCG_CTA_MAX floats, and only a single solve takes the grid route."""
+    rows = next(iter(vectors.values())).shape[0]
+    if batch < 1 or rows % batch:
+        raise ValueError(f"{name}: {rows} nodes in {batch} instances")
+    for nm, t in vectors.items():
+        _check(nm, t, (rows, 6), torch.float32, dev)
+    n = 6 * (rows // batch)
+    if n <= PCG_CTA_MAX:
+        return n, None
+    if batch > 1:
+        raise ValueError(f"{name}: {n} floats an instance; one CTA each holds at most "
+                         f"{PCG_CTA_MAX}")
+    return n, torch.empty(2 * -(-n // _PCG_CHUNK), dtype=torch.float32, device=dev)
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def pcg_init(b, z):
-    """K10 before the loop: x = 0, r = b, p = z0, rz = rᵀz0, b2 = bᵀb."""
+def pcg_init(b, z, batch: int = 1):
+    """K10 before the loop: x = 0, r = b, p = z0, and each instance's rz =
+    rᵀz0, b2 = bᵀb in scal (B, 4)."""
     if b.device.type == "cpu":
-        return pcg_init_plain(b, z)
-    dev, n = b.device, b.shape[0]
-    _pcg_checks(dev, n, b=b, z=z)
+        return pcg_init_plain(b, z, batch)
+    dev = b.device
+    n, partials = _pcg_route("pcg_init", dev, batch, b=b, z=z)
     lib = _build.load()
-    xrp = torch.empty(3, n, 6, dtype=torch.float32, device=dev)
-    scal = torch.empty(4, dtype=torch.float32, device=dev)
-    err = lib.uz_pcg_init(b.data_ptr(), z.data_ptr(), 6 * n, xrp[0].data_ptr(),
-                          xrp[1].data_ptr(), xrp[2].data_ptr(), scal.data_ptr(),
-                          _ptr(_pcg_partials(n, dev)), _stream(dev))
+    xrp = torch.empty(3, b.shape[0], 6, dtype=torch.float32, device=dev)
+    scal = torch.empty(batch, 4, dtype=torch.float32, device=dev)
+    err = lib.uz_pcg_init(b.data_ptr(), z.data_ptr(), n, batch, xrp[0].data_ptr(),
+                          xrp[1].data_ptr(), xrp[2].data_ptr(), scal.data_ptr(), _ptr(partials),
+                          _stream(dev))
     _raise_on(err, "pcg")
     launches["pcg"] += 1
     return xrp[0], xrp[1], xrp[2], scal
 
 
 def pcg_alpha(p, Hp, x, r, scal, tol: float) -> None:
-    """K10 after Hp = H·p: pHp, the stall flag, α; x += α·p, r -= α·Hp."""
+    """K10 after Hp = H·p: each instance's pHp, stall flag and α; x += α·p,
+    r -= α·Hp."""
     if p.device.type == "cpu":
         return pcg_alpha_plain(p, Hp, x, r, scal, tol)
-    dev, n = p.device, p.shape[0]
-    _pcg_checks(dev, n, p=p, Hp=Hp, x=x, r=r)
+    dev, batch = p.device, scal.shape[0]
+    n, partials = _pcg_route("pcg_alpha", dev, batch, p=p, Hp=Hp, x=x, r=r)
     lib = _build.load()
-    err = lib.uz_pcg_alpha(p.data_ptr(), Hp.data_ptr(), 6 * n, float(tol), x.data_ptr(),
-                           r.data_ptr(), _check("scal", scal, (4,), torch.float32, dev),
-                           _ptr(_pcg_partials(n, dev)), _stream(dev))
+    err = lib.uz_pcg_alpha(p.data_ptr(), Hp.data_ptr(), n, batch, float(tol), x.data_ptr(),
+                           r.data_ptr(), _check("scal", scal, (batch, 4), torch.float32, dev),
+                           _ptr(partials), _stream(dev))
     _raise_on(err, "pcg")
     launches["pcg"] += 1
 
 
 def pcg_beta(r, z, p, scal) -> None:
-    """K10 after z = M⁻¹r: rz', β; p = z + β·p and rz = rz' where not stalled."""
+    """K10 after z = M⁻¹r: each instance's rz' and β; p = z + β·p and rz =
+    rz' where not stalled."""
     if r.device.type == "cpu":
         return pcg_beta_plain(r, z, p, scal)
-    dev, n = r.device, r.shape[0]
-    _pcg_checks(dev, n, r=r, z=z, p=p)
+    dev, batch = r.device, scal.shape[0]
+    n, partials = _pcg_route("pcg_beta", dev, batch, r=r, z=z, p=p)
     lib = _build.load()
-    err = lib.uz_pcg_beta(r.data_ptr(), z.data_ptr(), 6 * n, p.data_ptr(),
-                          _check("scal", scal, (4,), torch.float32, dev),
-                          _ptr(_pcg_partials(n, dev)), _stream(dev))
+    err = lib.uz_pcg_beta(r.data_ptr(), z.data_ptr(), n, batch, p.data_ptr(),
+                          _check("scal", scal, (batch, 4), torch.float32, dev),
+                          _ptr(partials), _stream(dev))
     _raise_on(err, "pcg")
     launches["pcg"] += 1
 
@@ -1188,6 +1260,105 @@ def orb_describe(img, uv, pattern, angles=None):
     _raise_on(err, "orb_describe")
     launches["orb_describe"] += 1
     return ang, desc
+
+
+# ---------------------------------------------------------------------------
+# K29 sift_describe (radius-1 blur, intensity-centroid angle, SIFT descriptor)
+# ---------------------------------------------------------------------------
+
+SIFT_GRID = 16      # the descriptor's sample grid (kG in csrc/sift_describe.cu)
+_sift_windows: dict = {}
+
+
+def sift_window(device) -> torch.Tensor:
+    """The (16, 16) float32 Gaussian window of the SIFT descriptor (σ = half
+    the grid), by the reference's formula (``features.py:458-460``) on the
+    host, cached per device: a constant of the descriptor."""
+    device = torch.device(device)
+    if device not in _sift_windows:
+        G = SIFT_GRID
+        yy = torch.arange(G, dtype=torch.float32) - (G - 1) / 2.0
+        w = torch.exp(-(yy[:, None] ** 2 + yy[None, :] ** 2) / (2.0 * (G / 2.0) ** 2))
+        _sift_windows[device] = w.to(device)
+    return _sift_windows[device]
+
+
+def sift_describe_plain(img, uv, window):
+    """Plain version of K29 on (C, H, W) images and (C, K, 2) keypoints:
+    (angles (C, K), descriptors (C, K, 128) float32)."""
+    from uzliti_slam_tpu_torch.ops import features
+
+    angles = features.intensity_centroid_angles(img, uv)
+    return angles, features.sift_descriptors(img, uv, angles, window=window)
+
+
+def sift_describe(img, uv, window):
+    """K29: a separable 3x3 box blur of each image (one launch), then one
+    warp per keypoint: the intensity-centroid angle on the unblurred image
+    (K14's code), the rotated 18x18 grid gathered into shared memory, 8-bin
+    soft orientation histograms of 4x4 cells in registers, the normalise,
+    clip, normalise."""
+    if img.device.type == "cpu":
+        return sift_describe_plain(img, uv, window)
+    dev, f32 = img.device, torch.float32
+    C, H, W = _images("img", img)
+    K = uv.shape[1]
+    ptrs = [_check("img", img, (C, H, W), f32, dev), _check("uv", uv, (C, K, 2), f32, dev),
+            _check("window", window, (SIFT_GRID, SIFT_GRID), f32, dev)]
+    lib = _build.load()
+    blurred = torch.empty(C, H, W, dtype=f32, device=dev)
+    ang = torch.empty(C, K, dtype=f32, device=dev)
+    desc = torch.empty(C, K, 128, dtype=f32, device=dev)
+    err = lib.uz_sift_describe(*ptrs, C, H, W, K, blurred.data_ptr(), ang.data_ptr(),
+                               desc.data_ptr(), _stream(dev))
+    _raise_on(err, "sift_describe")
+    launches["sift_describe"] += 1
+    return ang, desc
+
+
+# ---------------------------------------------------------------------------
+# K30 l2_top2 (squared-L2 2-NN and ratio test of float descriptors)
+# ---------------------------------------------------------------------------
+
+L2_MAX_DIM = 128    # descriptor width one tile holds (kDMax in csrc/l2_top2.cu)
+
+
+def l2_top2_plain(a, b, valid_a, valid_b, ratio_sq: float, max_sq: float):
+    """Plain version of K30: the reference's ``l2_matrix``, ``knn_match``
+    (masked pairs 1e9, the two smallest of each row, ties to the lower
+    index) and ``ratio_test`` on squared distances (gates in float32), ok
+    also requiring ``valid_a``.  Returns (idx (Na,) int32, ok (Na,) bool,
+    best (Na,) float32)."""
+    from uzliti_slam_tpu_torch.ops import matching
+
+    vals, idx = matching.knn_match(matching.l2_matrix(a, b), valid_a, valid_b)
+    match, ok = matching.ratio_test(vals, idx, ratio_sq, max_sq)
+    return match.to(torch.int32), ok & valid_a, vals[..., 0]
+
+
+def l2_top2(a, b, valid_a, valid_b, ratio_sq: float, max_sq: float):
+    """K30: a CTA per 32 queries walking the stored descriptors in tiles of
+    32 through shared memory, float32 dot products on the CUDA cores, a
+    running best and second per query; no distance matrix in memory."""
+    if a.device.type == "cpu":
+        return l2_top2_plain(a, b, valid_a, valid_b, ratio_sq, max_sq)
+    dev, f32 = a.device, torch.float32
+    (Na, D), Nb = a.shape, b.shape[0]
+    if not 0 < D <= L2_MAX_DIM or Nb < 2:
+        raise ValueError(f"l2_top2: width {D} (at most {L2_MAX_DIM}) and {Nb} stored "
+                         "descriptors (at least 2)")
+    ptrs = [_check("a", a, (Na, D), f32, dev), _check("b", b, (Nb, D), f32, dev),
+            _check("valid_a", valid_a, (Na,), torch.bool, dev),
+            _check("valid_b", valid_b, (Nb,), torch.bool, dev)]
+    lib = _build.load()
+    idx = torch.empty(Na, dtype=torch.int32, device=dev)
+    ok = torch.empty(Na, dtype=torch.bool, device=dev)
+    best = torch.empty(Na, dtype=f32, device=dev)
+    err = lib.uz_l2_top2(*ptrs, Na, Nb, D, float(ratio_sq), float(max_sq), idx.data_ptr(),
+                         ok.data_ptr(), best.data_ptr(), _stream(dev))
+    _raise_on(err, "l2_top2")
+    launches["l2_top2"] += 1
+    return idx, ok, best
 
 
 # ---------------------------------------------------------------------------

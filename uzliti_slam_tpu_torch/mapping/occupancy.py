@@ -45,6 +45,16 @@ class GridConfig:
     drift_dist: float = 0.5      # full-rebuild trigger (graph_grid_mapper.cpp:305-308)
     drift_angle_deg: float = 5.0
 
+    def __post_init__(self):
+        # The reference silently drops evidence that lies beyond the grid's
+        # half-width from a node (uzliti_slam_tpu/mapping/occupancy.py:116):
+        # with a max_range past size·resolution/2 part of every scan would
+        # vanish.  The port refuses such a grid instead.
+        half = self.size * self.resolution / 2
+        if self.max_range > half:
+            raise ValueError(f"max_range {self.max_range} m exceeds the grid's half-width "
+                             f"size·resolution/2 = {half} m: evidence beyond it is dropped")
+
 
 class OccupancyGrid(NamedTuple):
     logodds: torch.Tensor         # (size, size)

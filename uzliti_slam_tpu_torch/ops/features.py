@@ -1,10 +1,12 @@
 """ORB-style feature detection and description, and the binary GIST.
 
-PyTorch counterpart of ``uzliti_slam_tpu/ops/features.py`` for the binary
-families: tunable-threshold FAST-9/16 with 3x3 non-maximum suppression,
-a grid-adapted top-K per pyramid level, intensity-centroid orientation and
-a steered 256-test descriptor on a box-blurred image, packed LSB first.
-Shapes are static: K keypoints with validity masks.
+PyTorch counterpart of ``uzliti_slam_tpu/ops/features.py``:
+tunable-threshold FAST-9/16 with 3x3 non-maximum suppression, a
+grid-adapted top-K per pyramid level, intensity-centroid orientation, and
+either a steered 256-test binary descriptor on a box-blurred image, packed
+LSB first, or the float "sift" family (4x4 cells x 8 orientation bins of a
+steered 16x16 gradient grid, 128 float32).  Shapes are static: K keypoints
+with validity masks.
 
 Every image function takes a camera batch: (C, H, W), or (H, W) for one
 camera.  ``detect_and_describe``, ``select_topk_grid`` and ``binary_gist``
@@ -12,11 +14,13 @@ run the hand-written kernels K12 (``fast_nms``), K13 (``grid_topk``) and
 K14 (``orb_describe``) through ``kernels/ops.py``: on CPU tensors those
 wrappers run their plain versions, which are built from ``fast_score``,
 ``nms``, ``_sep_blur``, ``intensity_centroid_angles`` and
-``brief_descriptors`` here.  The "sift" family is not ported.
+``brief_descriptors`` here.  The "sift" family takes K12 and K13, then
+K29 (``sift_describe``: the angle and ``sift_descriptors``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -173,6 +177,51 @@ def brief_descriptors(img: torch.Tensor, uv: torch.Tensor, angles: torch.Tensor,
     return matching.pack_bits(bits)
 
 
+def sift_descriptors(img: torch.Tensor, uv: torch.Tensor, angles: torch.Tensor,
+                     patch_radius: float = 8.0, window: torch.Tensor | None = None) -> torch.Tensor:
+    """SIFT-family float descriptors of keypoints uv (C, K, 2) with angles
+    (C, K) on images (C, H, W): the 18x18 grid of spacing 2·r/16 rotated by
+    each angle, sampled at the nearest pixel (clipped, then rounded half to
+    even) of the radius-1 box blur; central differences inside the rotated
+    frame; magnitudes times the 16x16 Gaussian window (``window``, default
+    ``kops.sift_window``) voted softly into 8 orientation bins (linear
+    between bins) of 4x4 cells; unit L2, a clip at 0.2, unit L2 again.
+    Returns (C, K, 128) float32 (cells row-major, bins innermost)."""
+    G = kops.SIFT_GRID
+    sm = _sep_blur(img.to(torch.float32), 1)
+    C, h, w = img.shape
+    dev = img.device
+    step = 2.0 * patch_radius / G
+    g = (torch.arange(G + 2, dtype=torch.float32, device=dev) - (G + 1) / 2.0) * step
+    dyy, dxx = g[:, None].expand(G + 2, G + 2), g[None, :].expand(G + 2, G + 2)
+    ca, sa = torch.cos(angles)[..., None, None], torch.sin(angles)[..., None, None]
+    rx = ca * dxx - sa * dyy
+    ry = sa * dxx + ca * dyy
+    sx = torch.clamp(uv[..., None, None, 0] + rx, 0, w - 1)
+    sy = torch.clamp(uv[..., None, None, 1] + ry, 0, h - 1)
+    flat = (torch.round(sy).long() * w + torch.round(sx).long()).reshape(C, -1)
+    patch = torch.gather(sm.reshape(C, -1), 1, flat).reshape(sx.shape)   # (C, K, 18, 18)
+    gx = 0.5 * (patch[..., 1:-1, 2:] - patch[..., 1:-1, :-2])
+    gy = 0.5 * (patch[..., 2:, 1:-1] - patch[..., :-2, 1:-1])
+    mag = torch.sqrt(gx * gx + gy * gy + 1e-12)
+    ori = torch.atan2(gy, gx)
+    wg = kops.sift_window(dev) if window is None else window
+    mag = mag * wg
+    nb = 8
+    t = (ori + math.pi) * (nb / (2.0 * math.pi))
+    ft = torch.floor(t)
+    b0 = ft.long() % nb
+    frac = t - ft
+    hist = torch.zeros(*mag.shape, nb, dtype=torch.float32, device=dev)
+    hist.scatter_add_(-1, b0[..., None], ((1.0 - frac) * mag)[..., None])
+    hist.scatter_add_(-1, ((b0 + 1) % nb)[..., None], (frac * mag)[..., None])
+    K = uv.shape[1]
+    desc = hist.reshape(C, K, 4, 4, 4, 4, nb).sum(dim=(3, 5)).reshape(C, K, 128)
+    desc = desc / (torch.linalg.vector_norm(desc, dim=-1, keepdim=True) + 1e-8)
+    desc = torch.clamp(desc, max=0.2)
+    return desc / (torch.linalg.vector_norm(desc, dim=-1, keepdim=True) + 1e-8)
+
+
 def brisk_pattern(n_bits: int = 256, patch_radius: int = 13) -> np.ndarray:
     """BRISK-style deterministic pattern: points on concentric staggered
     rings, paired by short distance (ties by index); (n_bits, 2, 2)."""
@@ -244,29 +293,37 @@ def pyramid_shapes(h: int, w: int, n_levels: int, scale_factor: float):
 def detect_and_describe(img: torch.Tensor, max_keypoints: int = 300, threshold: float = 20.0,
                         grid: int = 4, n_levels: int = 4, scale_factor: float = 1.2,
                         descriptor: str = "brief"):
-    """FAST + NMS (K12), grid top-K (K13) and orientation + steered
-    descriptors (K14) over an image pyramid of (C, H, W) or (H, W) images.
+    """FAST + NMS (K12), grid top-K (K13) and orientation + descriptors
+    over an image pyramid of (C, H, W) or (H, W) images.
 
-    Returns (Keypoints, descriptors (..., K, 32) uint8) with K ==
-    max_keypoints exactly: each level takes ⌊max_keypoints / n_levels⌋
-    (at least 1) and the remainder is padded with invalid slots.  Keypoint
-    uv are in level-0 pixels.  ``descriptor`` is "brief", "brisk" or
-    "freak" (one kernel, three patterns).
+    Returns (Keypoints, descriptors) with K == max_keypoints exactly: each
+    level takes ⌊max_keypoints / n_levels⌋ (at least 1) and the remainder
+    is padded with invalid slots (descriptor rows of zeros).  Keypoint uv
+    are in level-0 pixels.  ``descriptor`` is "brief", "brisk" or "freak"
+    (K14, one kernel, three patterns: (..., K, 32) uint8), or "sift" (K29:
+    (..., K, 128) float32, matched by L2).
     """
-    if descriptor == "sift":
-        raise NotImplementedError("the 'sift' descriptor family is not ported")
-    if descriptor not in ("brief", "brisk", "freak"):
+    if descriptor not in ("brief", "brisk", "freak", "sift"):
         raise ValueError(f"unknown descriptor family {descriptor!r}")
     imgs = _batched(img).to(torch.float32).contiguous()
     C, H, W = imgs.shape
-    pat = pattern(descriptor, imgs.device)
+    if descriptor == "sift":
+        window = kops.sift_window(imgs.device)
+
+        def describe(cur, uv):
+            return kops.sift_describe(cur, uv.contiguous(), window)
+    else:
+        pat = pattern(descriptor, imgs.device)
+
+        def describe(cur, uv):
+            return kops.orb_describe(cur, uv, pat)
     k_level = max(max_keypoints // n_levels, 1)
     outs = []
     for scale, (h, w) in pyramid_shapes(H, W, n_levels, scale_factor):
         cur = imgs if (h, w) == (H, W) else resize.resize_linear(imgs, (h, w)).contiguous()
         score = kops.fast_nms(cur, threshold)
         uv, resp, valid = kops.grid_topk(score, k_level, grid)
-        ang, desc = kops.orb_describe(cur, uv, pat)
+        ang, desc = describe(cur, uv)
         outs.append((uv * scale, resp, ang, torch.full_like(resp, scale), valid, desc))
     uv, resp, ang, scl, valid, desc = (torch.cat([o[i] for o in outs], dim=1) for i in range(6))
     short = max_keypoints - desc.shape[1]

@@ -1,4 +1,5 @@
-"""Binary-descriptor matching: 256-bit descriptors as (..., 32) uint8.
+"""Descriptor matching: binary 256-bit descriptors as (..., 32) uint8 by
+Hamming distance, float descriptors (the "sift" family) by L2.
 
 The port's counterpart of ``uzliti_slam_tpu/ops/matching.py``: bit
 packing (LSB first, bit i of byte b is test 8·b + i), the Hamming
@@ -9,8 +10,10 @@ descriptors packed and matches them with kernel K16 (``hamming_top2``:
 XOR and popcount, a running best and second per query, no distance
 matrix), all candidates of a keyframe in one launch.  ``hamming_matrix``
 and ``knn_match`` stay as the reference's plain functions.  Ties keep the
-lower index, as XLA's ``top_k``.  The L2 variants wait for the "sift"
-family.
+lower index, as XLA's ``top_k``.  Float descriptors go through kernel K30
+(``l2_top2``: the reference's ‖a‖² + ‖b‖² − 2·a·bᵀ in float32 tiles, a
+running best and second per query, no distance matrix); ``l2_matrix`` is
+the reference's plain function.
 """
 
 from __future__ import annotations
@@ -108,3 +111,30 @@ def match_descriptors(desc_a: torch.Tensor, desc_b: torch.Tensor,
     out = match_against_bank(desc_a, valid_a, bank, vb,
                              torch.arange(C, dtype=torch.int32, device=dev), ratio, max_dist)
     return out if desc_b.dim() == 3 else tuple(x[0] for x in out)
+
+
+def l2_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pairwise squared-L2 distances of float descriptors a (Na, D), b (Nb,
+    D): ‖a‖² + ‖b‖² − 2·a·bᵀ, clamped at 0 (cancellation), in float32."""
+    na = torch.sum(a * a, dim=-1, keepdim=True)
+    nb = torch.sum(b * b, dim=-1, keepdim=True)
+    return torch.clamp(na + nb.transpose(-1, -2) - 2.0 * (a @ b.transpose(-1, -2)), min=0.0)
+
+
+def match_descriptors_l2(desc_a: torch.Tensor, desc_b: torch.Tensor,
+                         valid_a: torch.Tensor | None = None,
+                         valid_b: torch.Tensor | None = None, ratio: float = 0.8,
+                         max_dist: float | None = None):
+    """Float-descriptor matching (K30): squared-L2 2-NN of desc_a (Na, D)
+    against desc_b (Nb, D), then the ratio test on squared distances — the
+    ratio (Lowe's 0.8, on Euclidean distances) and ``max_dist`` are squared
+    first.  Returns (match_idx (Na,) int32, ok (Na,) bool, best squared
+    distance (Na,)); ``ok`` also requires ``valid_a``."""
+    dev = desc_a.device
+    if valid_a is None:
+        valid_a = torch.ones(desc_a.shape[0], dtype=torch.bool, device=dev)
+    if valid_b is None:
+        valid_b = torch.ones(desc_b.shape[0], dtype=torch.bool, device=dev)
+    return kops.l2_top2(desc_a.contiguous(), desc_b.contiguous(), valid_a.contiguous(),
+                        valid_b.contiguous(), ratio * ratio,
+                        math.inf if max_dist is None else max_dist * max_dist)

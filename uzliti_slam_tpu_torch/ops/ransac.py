@@ -2,8 +2,9 @@
 
 PyTorch counterpart of ``uzliti_slam_tpu/ops/ransac.py`` for what the
 loop-closure filter (uniform sampling over the valid entries) and the
-keyframe step (quality-biased sampling, soft PROSAC) run, with unit
-weights.  Sampling is kept apart from fitting: ``ransac_rigid_batch``
+keyframe step (quality-biased sampling, soft PROSAC) run; optional
+per-correspondence ``weights`` multiply the validity mask in the fits, as
+the reference's ``weights * valid``.  Sampling is kept apart from fitting: ``ransac_rigid_batch``
 takes the hypothesis triplets ``tri`` when given (a test hands both
 packages the JAX draws), else draws them on the device from a
 ``torch.Generator``.  The fits, consensus, argmax and refit of every root
@@ -127,11 +128,14 @@ def ransac_rigid_batch(
     tri: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
     quality: torch.Tensor | None = None,
+    weights: torch.Tensor | None = None,
 ) -> RansacResult:
     """Robust rigid fit per root: src, dst (R, M, 3) (broadcast views of one
     table allowed), valid (R, M).  ``tri`` (R, n_hypotheses, 3) int gives
     the hypothesis triplets; without it they are drawn from ``generator``,
     biased toward high ``quality`` (R, M) where given (soft PROSAC).
+    ``weights`` (R, M), where given, multiply ``valid`` in the hypothesis
+    fits and the refit (the inlier tests and the consensus read ``valid``).
     ``inlier_thresh`` and ``min_sigma`` are squared as given: the keyframe
     step passes its float32 gates, whose squares round as the reference's.
 
@@ -142,16 +146,20 @@ def ransac_rigid_batch(
         tri = _valid_sample(generator, n_hypotheses, valid, quality)
     pose, consensus, mse, information, ok, _, _ = kops.ransac_rigid(
         src, dst, valid, tri.to(device=src.device, dtype=torch.int32).contiguous(),
-        inlier_thresh, min_consensus, min_sigma)
+        inlier_thresh, min_consensus, min_sigma,
+        None if weights is None else weights.to(torch.float32).contiguous())
     return RansacResult(pose, consensus, mse, information, ok)
 
 
 def ransac_rigid(src, dst, valid, n_hypotheses: int = 128, inlier_thresh: float = 0.05,
                  min_consensus: int = 12, min_sigma: float = 0.01,
                  tri: torch.Tensor | None = None,
-                 generator: torch.Generator | None = None) -> RansacResult:
-    """One problem: src, dst (M, 3), valid (M,), ``tri`` (K, 3)."""
+                 generator: torch.Generator | None = None,
+                 weights: torch.Tensor | None = None) -> RansacResult:
+    """One problem: src, dst (M, 3), valid (M,), ``tri`` (K, 3), optional
+    ``weights`` (M,)."""
     res = ransac_rigid_batch(src[None], dst[None], valid[None], n_hypotheses, inlier_thresh,
                              min_consensus, min_sigma,
-                             None if tri is None else tri[None], generator)
+                             None if tri is None else tri[None], generator,
+                             weights=None if weights is None else weights[None])
     return RansacResult(*(x[0] for x in res))

@@ -581,12 +581,18 @@ def keyframe_frontend(image, depth, cam: cam_mod.PinholeCamera, cam_pose,
     every camera's raw depth and image (before rectification and the
     filter, as the reference builds it): every pixel with depth > 0.1 m,
     gray replicated into Lab, one voxel grid (K25) over all cameras.
-    The "sift" family is not ported: it raises ``NotImplementedError``.
+    The "sift" family raises ``NotImplementedError``, as the reference
+    cannot run it either: the live banks hold binary descriptors, and the
+    reference's keyframe body reshapes descriptors to 32-byte rows
+    (``uzliti_slam_tpu/pipeline.py:252``).  SIFT runs offline, through
+    ``ops.features.detect_and_describe`` and ``ops.matching.match_descriptors_l2``.
     """
     fc = config.frontend
     if fc.descriptor == "sift":
-        raise NotImplementedError("the 'sift' descriptor family is not ported: its "
-                                  "descriptors and L2 matcher are ROADMAP.md A25, B20g-h")
+        raise NotImplementedError(
+            "the 'sift' descriptor family has no keyframe path: the live banks hold binary "
+            "descriptors and the keyframe body takes 32-byte rows; use "
+            "ops.features.detect_and_describe and ops.matching.match_descriptors_l2 offline")
     tn = tunables if tunables is not None else tunables_from_config(config)
     if device is None and isinstance(image, torch.Tensor):
         device = image.device
