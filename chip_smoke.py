@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port on one GPU: the pose-graph solve, the
 optimization epoch, the occupancy projection that follows it, the keyframe
-front-end, the keyframe step through the ``Slam`` shell, and an end-to-end
-run judged by ATE.
+front-end, the keyframe step through the ``Slam`` shell, an end-to-end
+run judged by ATE, and the timers, recognizers, estimators, SIFT, the
+fleet and the edge-sharded and planar solves.
 
     python3 chip_smoke.py
 
@@ -135,7 +136,28 @@ runs, in order, each phase printing lines of its own:
    loop of single solves on CPU tensors, each batched entry against its
    plain version on the fleet's first iteration; then the default
    (early-exit) configuration, its factors built against the reference's
-   refreshes summed over the instances.
+   refreshes summed over the instances;
+18. the generic loop, the edge-sharded solve and the planar solve: (a)
+   the 1k graph through ``parallel.sharded.optimize_sharded`` in a
+   one-rank NCCL world made in this process (a ``HashStore``), at the JAX
+   bench's sharded-overhead configuration (``mode="pcg"``, fixed
+   iterations), against ``optimize`` with the same configuration: 10
+   sync-free solves each in alternating turns, the overhead (and, each in
+   a process of this script, ``--overhead``, with PyTorch's defaults and
+   with c10d's per-collective bookkeeping off), the
+   all-reduces counted against their formula, the launches of one solve,
+   a profile with its non-port items by name, χ² within phase 4's spread
+   of the plain solve's and against the oracle; (b) the generic loop
+   against the fast fixed form at 1k (ms, χ² histories within 1e-3); (c)
+   the 100k graph sharded at ``scripts/scaling_bench.py``'s configuration,
+   χ² against phase 7's; (d) two gloo ranks on the one card, each a
+   process of this script (``--sharded-rank``): poses bit for bit across
+   ranks, χ²₀ and χ²₁ against (a)'s, times printed; (e) the planar solve
+   (``optimize_xy_only``, early exit) on the 1k graph with z perturbed,
+   beside the unprojected solve, K1's column mask against its plain
+   version, z and roll/pitch at 0, χ² against the CPU plain path; (f)
+   ``multihost.solve_fleet`` in the world of one against
+   ``optimize_batch`` on 8 x 64-node instances.
 
 Then one JSON line with the kernels' results, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -456,19 +478,44 @@ FLEET_REPLACES = {
     "chain_factor_batch": "uzliti_slam_tpu/parallel/sharded.py:115 (optimize_batch) —"
                           " graph/tridiag.py:145 (block_tridiag_factor) under vmap",
 }
+# K1, K2 and K8 run unchanged on the flattened fleet; their rows (``*_fleet``)
+# hold them against their plain versions at the fleet's shapes
+FLEET_REPLACES.update({
+    "linearize_fleet": "uzliti_slam_tpu/parallel/sharded.py:115 (optimize_batch) —"
+                       " graph/solver.py:355 (_make_fused_linearize) under vmap",
+    "hvp_fleet": "uzliti_slam_tpu/parallel/sharded.py:115 (optimize_batch) —"
+                 " graph/solver.py:306 (_make_hvp) under vmap",
+    "components_fleet": "uzliti_slam_tpu/parallel/sharded.py:115 (optimize_batch) —"
+                        " graph/solver.py:212 (connected_components) + :242 (gauge_fix_mask)"
+                        " under vmap",
+})
 FLEET_KERNELS = tuple(FLEET_REPLACES)
-FLEET_KERNEL = {row: row.removesuffix("_batch") for row in FLEET_KERNELS}
-FLEET_SOURCE = {"residual_chi2_batch": "uzliti_slam_tpu_torch/csrc/residual_chi2.cu",
-                "pcg_batch": "uzliti_slam_tpu_torch/csrc/pcg.cu",
-                "chain_apply_batch": "uzliti_slam_tpu_torch/csrc/chain_apply.cu",
-                "chain_factor_batch": "uzliti_slam_tpu_torch/csrc/chain_factor.cu"}
+FLEET_KERNEL = {row: row.removesuffix("_batch").removesuffix("_fleet")
+                for row in FLEET_KERNELS}
+FLEET_SOURCE = {row: f"uzliti_slam_tpu_torch/csrc/{name}.cu"
+                for row, name in FLEET_KERNEL.items()}
 # the kernels the fleet launches: K1, K2, K8 on the flattened fleet, and
 # K3, K4, K9 and K10 with the instance on their grid
-FLEET_PATH = ("linearize", "hvp", "components") + tuple(FLEET_KERNEL.values())
+FLEET_PATH = tuple(FLEET_KERNEL.values())
 FLEET = dict(batch=4096, n_nodes=64, loop_closure_every=8)
 FLEET_CONFIG = dict(iterations=20, pcg_iterations=8, chain_dense_cutoff=16, early_exit=False,
                     precond_refresh=5)
 FLEET_ORACLE_SAMPLES, FLEET_CPU_INSTANCES, FLEET_POSE_ATOL = 16, 8, 1e-3
+# Phase 18: the generic LM loop, the edge-sharded solve (B19) and the planar
+# solve.  The JAX bench's sharded-overhead rung (bench.py:168-198) runs the
+# generic loop on both sides; scripts/scaling_bench.py's configuration at its
+# default 100k nodes; tests/test_constraints.py:172-177's z perturbation.
+SHARDED_CONFIG = dict(mode="pcg", early_exit=False)
+SHARDED_100K_CONFIG = dict(iterations=20)
+SHARDED_REPS, SHARDED_RANKS, RANK_TIMEOUT_S = 10, 2, 300
+PLANAR_DZ = 0.2
+FLEET_WORLD = dict(batch=8, n_nodes=64)
+# the kernels the sharded solve launches: K1, K2, K4 on the rank's shard, K8
+# on the whole graph, K3, K9, K10 replicated
+SHARDED_PATH = ("linearize", "hvp", "residual_chi2", "components", "chain_apply",
+                "chain_factor", "pcg")
+PLANAR_REPLACES = ("uzliti_slam_tpu/graph/solver.py:355 (_make_fused_linearize) with its cmask"
+                   " under optimize_xy_only (:369-381)")
 
 
 T_START = time.perf_counter()
@@ -676,7 +723,7 @@ def kernel_work(name: str, args) -> tuple[int, int]:
     from uzliti_slam_tpu_torch.kernels import ops as kops
 
     if name == "linearize":
-        r, adj, info, valid, ef, et, free, both_free, is_chain, _ = args
+        r, adj, info, valid, ef, et, free, both_free, is_chain, *_ = args
         E, n = r.shape[0], free.shape[0]
         # out: Ji, Jj, W (E, 6, 6) and grad, Hb, U (n, 78)
         return (_nbytes(r, adj, info, valid, ef, et, free, both_free, is_chain)
@@ -1424,7 +1471,7 @@ def headline_solve(g, chi2_oracle: float, reps: int):
           f"1k χ² {chi2} vs CPU plain path {chi2_cpu}")
     check(chi2 <= ORACLE_FACTOR * chi2_oracle + ORACLE_ATOL,
           f"1k χ² {chi2} vs oracle {chi2_oracle}")
-    return counts
+    return counts, spread
 
 
 def oracle_chi2(g, **kw) -> float:
@@ -1463,7 +1510,7 @@ def solve_against_oracle(g, phase: str, cfg_kw: dict, chi2_oracle, reps: int,
     """Phases 5-7: a warm-up solve with the counts (and K9's device count of
     factors built) set to 0 just before it and read just after; timed,
     sync-free solves; χ² against the oracle (if any).  Returns the
-    warm-up's launch counts."""
+    warm-up's launch counts and the phase's fields."""
     from uzliti_slam_tpu_torch.graph import solver
     from uzliti_slam_tpu_torch.kernels import ops as kops
 
@@ -1502,7 +1549,7 @@ def solve_against_oracle(g, phase: str, cfg_kw: dict, chi2_oracle, reps: int,
     if chi2_oracle is not None:
         check(chi2 <= ORACLE_FACTOR * chi2_oracle + ORACLE_ATOL,
               f"{phase}: χ² {chi2} vs oracle {chi2_oracle}")
-    return counts
+    return counts, fields
 
 
 # ---------------------------------------------------------------------------
@@ -1539,8 +1586,8 @@ def record_lm_loops(fn):
 
     lm_loop, records = solver.lm_loop, []
 
-    def recorded(*args):
-        out = lm_loop(*args)
+    def recorded(*args, **kw):
+        out = lm_loop(*args, **kw)
         records.append((out[2], out[3]))
         return out
 
@@ -3502,7 +3549,11 @@ def fleet_kernel_inputs(fleet, cfg):
     return {"residual_chi2": (g.pose, g.e_from, g.e_to, g.e_transform, g.e_info, p.valid,
                               cfg.huber_delta, B),
             "chain_factor": (Dm, U, cfg.chain_dense_cutoff, B),
-            "hvp": (Ji, Jj, W, g.e_from, g.e_to, damp, free), "b": -grad}
+            "hvp": (Ji, Jj, W, g.e_from, g.e_to, damp, free), "b": -grad,
+            "linearize": (r0, p.adj_meas_inv, g.e_info, p.valid, g.e_from, g.e_to, free,
+                          p.both_free, p.is_chain, cfg.huber_delta),
+            "components": (g.e_from, g.e_to, g.e_valid, g.node_valid, g.node_fixed, g.stamp,
+                           B * n, solver.component_iterations(n))}
 
 
 def _rel(got, ref) -> tuple[float, float]:
@@ -3516,6 +3567,23 @@ def compare_fleet_kernels(inputs: dict, steps: int, tol: float) -> dict:
     from uzliti_slam_tpu_torch.kernels import ops as kops
 
     rows = {}
+    # K1 and K2 as they run on the flattened fleet: 1e-3 and 1e-4 of each
+    # output's largest entry (KERNEL_TOL); K8 exactly
+    Ji, Jj, W, ef, et, damp, free = inputs["hvp"]
+    for name, args in (("linearize", inputs["linearize"]),
+                       ("hvp", (Ji, Jj, W, ef, et, inputs["b"], damp, free))):
+        kernel_fn, plain_fn = getattr(kops, name), getattr(kops, f"{name}_plain")
+        got, ref = kernel_fn(*args), plain_fn(*args)
+        got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+        errs = [_rel(a, b) for a, b in zip(got, ref)]
+        row = {"max_abs_err": max(e for e, _ in errs), "max_rel_err": max(r for _, r in errs),
+               "tol_rel": KERNEL_TOL[name], "library_ms": None}
+        row["ms"], row["plain_ms"] = time_pair(lambda: kernel_fn(*args), lambda: plain_fn(*args))
+        row.update(bound(name, args))
+        rows[f"{name}_fleet"] = row
+    row = compare_epoch_kernels({"components": inputs["components"]}, "fleet")["components"]
+    row.update(max_rel_err=0.0, tol_rel=0.0, library_ms=None)
+    rows["components_fleet"] = row
     args = inputs["residual_chi2"]
     got, ref = kops.residual_chi2(*args), kops.residual_chi2_plain(*args)
     e1, r1 = _rel(got[0], ref[0])
@@ -3562,7 +3630,6 @@ def compare_fleet_kernels(inputs: dict, steps: int, tol: float) -> dict:
     # K10: each launch against its plain version on the same inputs (a full
     # 8-step solve of 4096 instances is reported, not held: float32 PCG
     # amplifies the dots' summation order), then the updates timed
-    Ji, Jj, W, ef, et, damp, free = inputs["hvp"]
     z = kops.chain_apply(fac, b)
     k_state = kops.pcg_init(b, z, B)
     p_state = kops.pcg_init_plain(b, z, B)
@@ -3715,6 +3782,468 @@ def fleet_phase(device) -> tuple[dict, dict, dict]:
     return counts, rows, fields
 
 
+# ---------------------------------------------------------------------------
+# The generic loop, the edge-sharded solve and the planar solve (phase 18)
+# ---------------------------------------------------------------------------
+
+def world_of_one(dev) -> None:
+    """A one-rank NCCL world in this process: an in-process ``HashStore``
+    and the card as its device (its communicator is made here, not inside
+    a timed solve); the bootstrap on the loopback interface."""
+    import os
+
+    import torch.distributed as dist
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1, device_id=dev)
+
+
+def sharded_bound(rows: dict, counts: dict, cfg) -> float:
+    """B19's least time per solve: each launch of K1, K2, K4, K3 and K9 at
+    its bound on these shapes (at world size 1 the shard is the whole
+    table), plus one 12-step K10 bound per LM iteration; the collective
+    moves no bytes in a world of one."""
+    per_call = ("linearize", "hvp", "residual_chi2", "chain_apply", "chain_factor")
+    return (sum(rows[k]["bound_ms"] * counts[k] for k in per_call)
+            + rows["pcg"]["bound_ms"] * cfg.iterations)
+
+
+def sharded_world_phase(g1k, g100k, chi2_oracle_1k: float, spread_1k: float, chi2_100k: float,
+                        headline_counts: dict, rows: dict, rows_large: dict) -> tuple[dict, dict]:
+    """Phase 18 (a)-(c), in a one-rank NCCL world: (a) the 1k graph sharded
+    against ``optimize(mode="pcg")``, (b) the generic loop against the
+    fast fixed form, (c) the 100k graph sharded.  Returns (the launches of
+    one sharded 1k solve, fields)."""
+    import torch.distributed as dist
+
+    from uzliti_slam_tpu_torch.graph import solver
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+    from uzliti_slam_tpu_torch.parallel import sharded
+
+    def sharded_fn(g, c):
+        return sharded.optimize_sharded(g, config=c)
+
+    cfg, fast = solver.SolverConfig(**SHARDED_CONFIG), solver.SolverConfig(**HEADLINE)
+    for _ in range(2):                        # warm-up: the communicator, the caches
+        solver.optimize(g1k, fast)
+        solver.optimize(g1k, cfg)
+        sharded_fn(g1k, cfg)
+    torch.cuda.synchronize()
+    kops.reset_launches()
+    sharded.reset_collectives()
+    timed_solves(sharded_fn, g1k, cfg, reps=1)
+    counts, collectives = dict(kops.launches), sharded.collectives["all_reduce"]
+    expected = sharded.collectives_per_solve(cfg)
+    refresh = min(cfg.precond_refresh, cfg.iterations)
+    formula = 1 + -(-cfg.iterations // refresh) + cfg.iterations * (1 + cfg.pcg_iterations + 1)
+    # (a), (b): the three forms in alternating turns, each solve sync-free
+    forms = [("fast", solver.optimize, fast), ("generic", solver.optimize, cfg),
+             ("sharded", sharded_fn, cfg)]
+    samples, hists = {k: [] for k, _, _ in forms}, {}
+    for i in range(SHARDED_REPS):
+        for name, fn, c in (forms if i % 2 == 0 else forms[::-1]):
+            t, (_, stats) = timed_solves(fn, g1k, c, reps=1)
+            hists[name] = (stats if name == "sharded" else stats.chi2_history).cpu()
+            samples[name].append((t, float(hists[name][-1])))
+    ms = {k: 1e3 * statistics.median(t for t, _ in v) for k, v in samples.items()}
+    chi2 = {k: statistics.median(c for _, c in v) for k, v in samples.items()}
+    spread = {k: max(c for _, c in v) - min(c for _, c in v) for k, v in samples.items()}
+    chi2_0 = float(hists["sharded"][0])
+    # the collective alone: as many in-place all-reduces of K1's packed
+    # rows as a solve makes, host clock between two synchronisations
+    buf = torch.zeros(78 * g1k.node_capacity, device=g1k.device)
+    dist.all_reduce(buf)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(expected):
+        dist.all_reduce(buf)
+    torch.cuda.synchronize()
+    all_reduce_us = 1e6 * (time.perf_counter() - t0) / expected
+    prof, names = device_profile(lambda: sharded_fn(g1k, cfg))
+    non_port = {k[:90]: ms_ for k, ms_ in sorted(names.items(), key=lambda kv: -kv[1])
+                if not any(f in k for f in DEVICE_FUNCTIONS)}
+    generic_vs_fast = float(((hists["generic"] - hists["fast"]).abs()
+                             / hists["fast"].abs()).max())
+    bound_1k = sharded_bound(rows, counts, cfg)
+    fields = {"world_size": 1, "backend": "nccl", "config": SHARDED_CONFIG,
+              "solve_ms": ms, "overhead_pct_vs_generic": 100 * (ms["sharded"] / ms["generic"] - 1),
+              "generic_vs_fast_pct": 100 * (ms["generic"] / ms["fast"] - 1),
+              "chi2_0": chi2_0, "chi2_median": chi2, "chi2_spread": spread,
+              "chi2_spread_phase_4": spread_1k, "chi2_oracle": chi2_oracle_1k,
+              "ratio_vs_oracle": chi2["sharded"] / chi2_oracle_1k,
+              "generic_vs_fast_history_rel": generic_vs_fast,
+              "collectives": collectives, "collectives_expected": expected,
+              "collectives_formula": f"1 + {-(-cfg.iterations // refresh)} + {cfg.iterations}"
+                                     f"·(1 + {cfg.pcg_iterations} + 1) = {formula}",
+              "collective_bytes_per_solve": 0, "all_reduce_us_per_call": all_reduce_us,
+              "launches": counts, "sync_free": True,
+              "chi2_history": hists["sharded"].tolist(),
+              "bound_ms": bound_1k, "bound_x": ms["sharded"] / bound_1k,
+              "library_items": library_items(names),
+              "nccl_items": [k for k in non_port if "nccl" in k.lower()],
+              "other_items": [k for k in non_port
+                              if "at::native::" not in k and "nccl" not in k.lower()],
+              "non_port_items_ms": non_port, **prof}
+    log("18a sharded 1k, world of one", **fields)
+    check(collectives == expected == formula,
+          f"18a: {collectives} all-reduces, expected {expected} = {formula}")
+    check(counts == headline_counts, f"18a: launches {counts} != the headline's {headline_counts}")
+    for name in SHARDED_PATH:
+        check(counts[name] > 0, f"18a: {name} not launched")
+    # besides the port's kernels, only PyTorch's own (the loop's glue) and NCCL's
+    check(not fields["library_items"] and not fields["other_items"],
+          f"18a: library kernels in the profile: {fields['library_items']} "
+          f"{fields['other_items']}")
+    tol = max(spread_1k, spread["generic"]) + 1e-6 * chi2_0
+    check(abs(chi2["sharded"] - chi2["generic"]) <= tol,
+          f"18a: sharded χ² {chi2['sharded']} vs generic {chi2['generic']} beyond {tol}")
+    check(chi2["sharded"] <= ORACLE_FACTOR * chi2_oracle_1k + ORACLE_ATOL,
+          f"18a: χ² {chi2['sharded']} vs oracle {chi2_oracle_1k}")
+    check(generic_vs_fast <= 1e-3, f"18b: generic vs fast χ² histories {generic_vs_fast:.3g}")
+
+    # (c) the 100k graph sharded, scripts/scaling_bench.py's configuration
+    cfg100 = solver.SolverConfig(**SHARDED_100K_CONFIG)
+    kops.reset_launches()
+    sharded.reset_collectives()
+    sharded_fn(g100k, cfg100)                 # warm-up at this size, counted
+    counts100, coll100 = dict(kops.launches), sharded.collectives["all_reduce"]
+    t100, out100 = timed_solves(sharded_fn, g100k, cfg100, reps=3)
+    hist100 = out100[1].cpu()
+    c0, c1 = float(hist100[0]), float(hist100[-1])
+    bound_100k = sharded_bound(rows_large, counts100, cfg100)
+    f100 = {"n_nodes": int(g100k.num_nodes), "config": SHARDED_100K_CONFIG,
+            "solve_ms": 1e3 * t100, "chi2_0": c0, "chi2": c1, "chi2_phase_7": chi2_100k,
+            "ratio_vs_phase_7": c1 / chi2_100k, "collectives": coll100, "launches": counts100,
+            "bound_ms": bound_100k, "bound_x": 1e3 * t100 / bound_100k, "sync_free": True,
+            "components_route": components_route(g100k.node_capacity)}
+    log("18c sharded 100k, world of one", **f100)
+    check(math.isfinite(c1) and c1 < c0, f"18c: χ² {c1} not below χ²₀ {c0}")
+    check(abs(c1 - chi2_100k) <= CHI2_RTOL * chi2_100k + 1e-6 * c0,
+          f"18c: χ² {c1} vs phase 7's {chi2_100k}")
+    check(coll100 == sharded.collectives_per_solve(cfg100), f"18c: {coll100} all-reduces")
+    fields["100k"] = f100
+    return counts, fields
+
+
+def sharded_rank(rank: int, world: int, root: str, device: str) -> int:
+    """One gloo rank of phase 18 (d) (``chip_smoke.py --sharded-rank RANK
+    WORLD DIR DEVICE``, every rank on the same card): the 1k graph, padded
+    to the world, solved sharded once to warm up and three times timed; its
+    poses and χ² history saved under DIR, one JSON line printed."""
+    import os
+
+    import torch.distributed as dist
+
+    from uzliti_slam_tpu_torch.graph import solver
+    from uzliti_slam_tpu_torch.parallel import sharded
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(root, "store"), world),
+                            rank=rank, world_size=world)
+    try:
+        g = sharded.pad_edges_to_multiple(make_graph(1000, dev), world)
+        cfg = solver.SolverConfig(**SHARDED_CONFIG)
+        sharded.optimize_sharded(g, config=cfg)
+        times = []
+        for _ in range(3):
+            dist.barrier()
+            sync()
+            t0 = time.perf_counter()
+            sharded.reset_collectives()
+            out, hist = sharded.optimize_sharded(g, config=cfg)
+            sync()
+            times.append(time.perf_counter() - t0)
+        torch.save({"pose": out.pose.cpu(), "hist": hist.cpu()},
+                   os.path.join(root, f"rank{rank}.pt"))
+        print("RANK " + json.dumps({"rank": rank, "solve_ms": 1e3 * statistics.median(times),
+                                    "collectives": sharded.collectives["all_reduce"],
+                                    "edge_slots": g.edge_capacity}), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+# c10d's per-collective bookkeeping: the stream records of the inputs in
+# the caching allocator and the flight recorder's entries (PyTorch's own
+# settings, read when the process group is made)
+C10D_LEAN = {"TORCH_NCCL_AVOID_RECORD_STREAMS": "1", "TORCH_NCCL_TRACE_BUFFER_SIZE": "0"}
+
+
+def overhead_worker(device: str) -> int:
+    """Phase 18 (a') in a process of its own (``chip_smoke.py
+    --overhead DEVICE``): a world of one, the 1k graph's generic and
+    sharded solves in 10 alternating sync-free turns each and the 100k
+    graph's in 3, and a solve's count of all-reduces alone; one JSON
+    line."""
+    import torch.distributed as dist
+
+    from uzliti_slam_tpu_torch.graph import solver
+    from uzliti_slam_tpu_torch.parallel import sharded
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    graphs = {"1k": make_graph(1000, dev), "100k": make_graph(100_000, dev)}
+    world_of_one(dev)
+    try:
+        cfg = solver.SolverConfig(**SHARDED_CONFIG)
+
+        def sharded_fn(gr, c):
+            return sharded.optimize_sharded(gr, config=c)
+
+        out = {}
+        for size, turns in (("1k", SHARDED_REPS), ("100k", 3)):
+            g = graphs[size]
+            for _ in range(2):
+                solver.optimize(g, cfg)
+                sharded_fn(g, cfg)
+            times = {"generic": [], "sharded": []}
+            for i in range(turns):
+                pair = [("generic", solver.optimize), ("sharded", sharded_fn)]
+                for name, fn in (pair if i % 2 == 0 else pair[::-1]):
+                    times[name].append(timed_solves(fn, g, cfg, reps=1)[0])
+            ms = {k: 1e3 * statistics.median(v) for k, v in times.items()}
+            out[size] = {"solve_ms": ms, "overhead_pct": 100 * (ms["sharded"] / ms["generic"] - 1)}
+        g = graphs["1k"]
+        n = sharded.collectives_per_solve(cfg)
+        buf = torch.zeros(78 * g.node_capacity, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            dist.all_reduce(buf)
+        torch.cuda.synchronize()
+        out["all_reduce_us_per_call"] = 1e6 * (time.perf_counter() - t0) / n
+        print("OVERHEAD " + json.dumps(out), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def bookkeeping_phase(device) -> dict:
+    """Phase 18 (a'): the world of one's overhead with PyTorch's defaults
+    and with c10d's per-collective bookkeeping off (``C10D_LEAN``), each in
+    a fresh process."""
+    import os
+
+    out = {}
+    for name, extra in (("default", {}), ("bookkeeping_off", C10D_LEAN)):
+        env = {k: v for k, v in os.environ.items() if k not in C10D_LEAN}
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--overhead",
+                               str(device)], capture_output=True, text=True, env={**env, **extra},
+                              timeout=RANK_TIMEOUT_S)
+        check(proc.returncode == 0, f"18a': the {name} run exited {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+        line = next(ln for ln in proc.stdout.splitlines() if ln.startswith("OVERHEAD "))
+        out[name] = json.loads(line[len("OVERHEAD "):])
+    log("18a' sharded 1k overhead, c10d bookkeeping", settings=C10D_LEAN, **out)
+    return out
+
+
+def two_rank_phase(device, hist_1k: torch.Tensor, chi2_oracle_1k: float) -> dict:
+    """Phase 18 (d): two gloo ranks on the one card, each a process of its
+    own (NCCL refuses two ranks on one device), joined through a
+    ``FileStore`` in a git-ignored directory; their poses bit for bit, χ²₀
+    and χ²₁ against the world of one's, the final χ² against the oracle.
+    gloo stages every all-reduce through the host: the times are printed,
+    not judged."""
+    import os
+    import tempfile
+
+    from uzliti_slam_tpu_torch.kernels import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
+        env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sharded-rank",
+                                   str(r), str(SHARDED_RANKS), root, str(device)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                  env=env)
+                 for r in range(SHARDED_RANKS)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=RANK_TIMEOUT_S))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for p, (_, err) in zip(procs, outs):
+            check(p.returncode == 0, f"18d: a rank exited {p.returncode}: {err[-2000:]}")
+        results = [json.loads(next(ln for ln in out.splitlines() if ln.startswith("RANK "))[5:])
+                   for out, _ in outs]
+        saved = [torch.load(os.path.join(root, f"rank{r}.pt")) for r in range(SHARDED_RANKS)]
+    identical = all(torch.equal(s["pose"], saved[0]["pose"])
+                    and torch.equal(s["hist"], saved[0]["hist"]) for s in saved[1:])
+    hist = saved[0]["hist"]
+    ref = hist_1k
+    rel01 = float(((hist[:2] - ref[:2]).abs() / ref[:2].abs()).max())
+    fields = {"ranks": SHARDED_RANKS, "backend": "gloo on CUDA tensors, one card",
+              "solve_ms": [r["solve_ms"] for r in results],
+              "collectives": [r["collectives"] for r in results],
+              "poses_bit_identical": identical, "chi2_01_rel_vs_world_of_one": rel01,
+              "chi2": float(hist[-1]), "ratio_vs_oracle": float(hist[-1]) / chi2_oracle_1k}
+    log("18d sharded 1k, two ranks on one card", **fields)
+    check(identical, "18d: the ranks' poses or χ² histories differ")
+    check(rel01 <= 1e-3, f"18d: χ²₀, χ²₁ {rel01:.3g} from the world of one's")
+    check(float(hist[-1]) <= ORACLE_FACTOR * chi2_oracle_1k + ORACLE_ATOL,
+          f"18d: χ² {float(hist[-1])} vs oracle {chi2_oracle_1k}")
+    return fields
+
+
+def planar_phase(g1k) -> tuple[dict, dict, dict]:
+    """Phase 18 (e): ``optimize_xy_only`` with early exit on the 1k graph, z
+    perturbed by 0.2·N(0, 1): the counts set to 0 just before one solve
+    and read just after, K9's factors against the reference's refreshes,
+    timed sync-free, the JAX test's bars, the CPU plain path; K1's masked
+    form against its plain version on the solve's first linearization.
+    Returns (launches, K1's masked row, fields)."""
+    from uzliti_slam_tpu_torch.graph import solver
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    dev = g1k.device
+    gen = torch.Generator().manual_seed(SEED + 18)
+    dz = PLANAR_DZ * torch.randn(g1k.node_capacity, generator=gen)
+    pose = g1k.pose.clone()
+    pose[:, 2] += dz.to(dev)
+    g = g1k.replace(pose=pose)
+    cfg = solver.SolverConfig(optimize_xy_only=True)
+    solver.optimize(g, cfg)                   # warm-up
+    builds = kops.factor_builds(dev)
+    builds.zero_()
+    kops.reset_launches()
+    _, (g2, st) = timed_solves(solver.optimize, g, cfg, reps=1)
+    counts, built = dict(kops.launches), int(builds)
+    ref_builds = reference_refreshes(st.chi2_history.cpu().tolist(), st.accepted.cpu().tolist(),
+                                     cfg)
+    # the planar solve and the same graph unprojected, in alternating turns
+    plain_cfg = solver.SolverConfig()
+    solver.optimize(g, plain_cfg)
+    times = {"planar": [], "unprojected": []}
+    for i in range(5):
+        pair = [("planar", cfg), ("unprojected", plain_cfg)]
+        for name, c in (pair if i % 2 == 0 else pair[::-1]):
+            t_i, out = timed_solves(solver.optimize, g, c, reps=1)
+            times[name].append(t_i)
+            if name == "planar":
+                g2, st = out
+    t = statistics.median(times["planar"])
+    prof, _ = device_profile(lambda: solver.optimize(g, cfg))
+    valid = g.node_valid
+    z = float(g2.pose[valid][:, 2].abs().max())
+    roll_pitch = float(g2.pose[valid][:, 4:6].abs().max())
+    hist = st.chi2_history.cpu()
+    c0, c1 = float(hist[0]), float(hist[-1])
+    _, st_cpu = solver.optimize(g.to("cpu"), cfg)
+    c_cpu = float(st_cpu.chi2_history[-1])
+
+    # K1's masked form on the solve's first linearization
+    gf = g.replace(pose=solver.flatten_planar(g.pose, valid))
+    free = (gf.node_valid & ~solver.gauge_fix_mask(gf, solver.connected_components(gf))).float()
+    p = solver._Problem(gf, free, cfg)
+    r0, _ = p.residuals(gf.pose)
+    args = (r0, p.adj_meas_inv, gf.e_info, p.valid, gf.e_from, gf.e_to, free, p.both_free,
+            p.is_chain, cfg.huber_delta, p.col_mask)
+    got, ref = kops.linearize(*args), kops.linearize_plain(*args)
+    err, rel = 0.0, 0.0
+    for a, b in zip(got, ref):
+        check(bool(torch.isfinite(a).all()), "18e: K1 masked: non-finite output")
+        e = float((a - b).abs().max())
+        err, rel = max(err, e), max(rel, e / max(float(b.abs().max()), 1e-30))
+    masked_zero = not bool(got[0][:, :, 2:5].any() or got[4][:, 2:5].any())
+    row = {"max_abs_err": err, "max_rel_err": rel, "tol_rel": KERNEL_TOL["linearize"],
+           "masked_columns_zero": masked_zero, "library_ms": None}
+    row["ms"], row["plain_ms"] = time_pair(lambda: kops.linearize(*args),
+                                           lambda: kops.linearize_plain(*args))
+    # K1 without the mask on the same inputs, timed beside the masked form
+    row["ms_masked_again"], row["ms_unmasked"] = time_pair(lambda: kops.linearize(*args),
+                                                           lambda: kops.linearize(*args[:-1]))
+    row.update(bound("linearize", args))
+    log("18e kernel linearize_xy 1k", **row)
+    fields = {"n_nodes": int(g.num_nodes), "dz_sigma": PLANAR_DZ, "solve_ms": 1e3 * t,
+              "solve_ms_unprojected": 1e3 * statistics.median(times["unprojected"]), **prof,
+              "chi2_0": c0, "chi2": c1, "chi2_cpu_plain": c_cpu, "max_abs_z": z,
+              "max_abs_roll_pitch_quat": roll_pitch, "launches": counts,
+              "factors_built": built, "reference_refreshes": ref_builds,
+              "accepted": int(st.accepted.sum()), "sync_free": True}
+    log("18e planar 1k", **fields)
+    check(rel <= KERNEL_TOL["linearize"], f"18e: K1 masked rel err {rel:.3g}")
+    check(masked_zero, "18e: K1 masked columns are not zero")
+    check(z <= 1e-5 and roll_pitch <= 1e-4, f"18e: z {z}, roll/pitch {roll_pitch}")
+    check(abs(c1 - c_cpu) <= CHI2_RTOL * c_cpu + 1e-6 * c0, f"18e: χ² {c1} vs CPU {c_cpu}")
+    check(math.isfinite(c1) and c1 < c0, f"18e: χ² {c1} not below χ²₀ {c0}")
+    check(built == ref_builds, f"18e: {built} factors built, the reference builds {ref_builds}")
+    for name in SOLVE_KERNELS + ("components",):
+        check(counts[name] > 0, f"18e: {name} not launched")
+    return counts, row, fields
+
+
+def fleet_world_phase(device) -> dict:
+    """Phase 18 (f): ``multihost.solve_fleet`` in the world of one against
+    ``sharded.optimize_batch`` on an 8 x 64-node fleet at the fleet rung's
+    configuration: the same launches, poses within FLEET_POSE_ATOL and
+    each instance's χ² within CHI2_RTOL (K1 and K2's float atomics make
+    two runs differ in the last bits, which 20 LM x 8 PCG steps
+    amplify)."""
+    from uzliti_slam_tpu_torch.graph import solver
+    from uzliti_slam_tpu_torch.graph import state as gstate
+    from uzliti_slam_tpu_torch.io import synthetic
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+    from uzliti_slam_tpu_torch.parallel import multihost, sharded
+
+    fleet, _ = synthetic.make_pose_graph_batch(
+        FLEET_WORLD["batch"], FLEET_WORLD["n_nodes"],
+        loop_closure_every=FLEET["loop_closure_every"],
+        generator=torch.Generator().manual_seed(SEED + 19), capacity_rounding="pow2",
+        device=device)
+    cfg = solver.SolverConfig(**FLEET_CONFIG)
+    sharded.optimize_batch(fleet, cfg)
+    kops.reset_launches()
+    got = multihost.solve_fleet(fleet, config=cfg)
+    counts_world = dict(kops.launches)
+    kops.reset_launches()
+    ref = sharded.optimize_batch(fleet, cfg)
+    counts_batch = dict(kops.launches)
+    pose_gap = float((got.pose - ref.pose).abs().max())
+    excess = 0.0
+    for b in range(FLEET_WORLD["batch"]):
+        one = gstate.graph_of(fleet, b)
+        c_got = float(solver.total_chi2(one, got.pose[b], 1.0))
+        c_ref = float(solver.total_chi2(one, ref.pose[b], 1.0))
+        excess = max(excess, abs(c_got - c_ref) / (CHI2_RTOL * c_ref + 1e-12))
+    fields = {"instances": FLEET_WORLD["batch"], "node_slots": FLEET_WORLD["n_nodes"],
+              "launches": counts_world, "pose_gap": pose_gap, "chi2_excess": excess,
+              "bit_identical": bool(torch.equal(got.pose, ref.pose))}
+    log("18f solve_fleet 8x64, world of one", **fields)
+    check(counts_world == counts_batch, f"18f: launches {counts_world} vs {counts_batch}")
+    check(pose_gap <= FLEET_POSE_ATOL and excess <= 1.0,
+          f"18f: solve_fleet vs optimize_batch: poses {pose_gap:.3g}, χ² {excess:.3g}x tol")
+    return fields
+
+
+def sharded_phase(dev, g1k, g100k, chi2_oracle_1k, spread_1k, chi2_100k, headline_counts,
+                  rows, rows_large) -> tuple[dict, dict, dict, dict]:
+    """Phase 18: the generic loop, the edge-sharded solve and the planar
+    solve, each path driven with the counts set to 0 just before it and
+    read just after.  Returns (the sharded 1k solve's launches, the planar
+    solve's launches, K1's masked row, fields)."""
+    import torch.distributed as dist
+
+    world_of_one(dev)
+    try:
+        counts, fields = sharded_world_phase(g1k, g100k, chi2_oracle_1k, spread_1k, chi2_100k,
+                                             headline_counts, rows, rows_large)
+        fields["fleet"] = fleet_world_phase(dev)
+    finally:
+        dist.destroy_process_group()
+    fields["bookkeeping"] = bookkeeping_phase(dev)
+    fields["two_ranks"] = two_rank_phase(dev, torch.tensor(fields["chi2_history"]),
+                                         chi2_oracle_1k)
+    planar_counts, row, fields["planar"] = planar_phase(g1k)
+    return counts, planar_counts, row, fields
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA card",
@@ -3806,15 +4335,16 @@ def main() -> int:
     del cal_graph
 
     chi2_oracle_1k = oracle_chi2(g1k, iters=12)
-    launches = headline_solve(g1k, chi2_oracle_1k, reps=10)
+    launches, spread_1k = headline_solve(g1k, chi2_oracle_1k, reps=10)
+    headline_counts = dict(launches)
     solve_against_oracle(g1k, "5 default early-exit 1k", {}, chi2_oracle_1k, reps=5,
                          profile=True)
     g10k = make_graph(10_000, dev)
     solve_against_oracle(g10k, "6 headline 10k", HEADLINE,
                          oracle_chi2(g10k, iters=20, lm=True), reps=3)
-    counts100k = solve_against_oracle(g100k, "7 headline 100k", HEADLINE, None, reps=3)
+    counts100k, fields100k = solve_against_oracle(g100k, "7 headline 100k", HEADLINE, None, reps=3)
     check(counts100k["components"] > 0, "7 headline 100k: K8's grid route was not launched")
-    del g10k, g100k
+    del g10k
 
     counts500, state500 = epoch_phase("8 epoch 500", built500, EPOCH_500["n"], reps=5,
                                       reads=reads, cpu_check=True)
@@ -3859,6 +4389,12 @@ def main() -> int:
     # K10); each driven with the counts set to 0 just before it, read after
     sift_counts, sift_rows, sift_fields = sift_phase(kf_frames, dev)
     fleet_counts, fleet_rows, fleet_fields = fleet_phase(dev)
+    # phase 18: the generic loop, the edge-sharded solve (B19, in a world of
+    # one and two ranks on the card) and the planar solve (K1's column mask)
+    sharded_counts, planar_counts, xy_row, sharded_fields = sharded_phase(
+        dev, g1k, g100k, chi2_oracle_1k, spread_1k, fields100k["chi2"], headline_counts,
+        rows, rows_large)
+    del g100k
     # each kernel's main path: the 1k solve for K1-K4, K9, K10; the 500-node
     # epoch for K5-K8; the projection sequence after it for K11; the first
     # timed keyframe step (phase 11, 1 camera) for K12-K18
@@ -4013,7 +4549,19 @@ def main() -> int:
              "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
              "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
              "shapes": "4096 instances x 64 nodes, 128 edges, cutoff 16 (first iteration)"})
-    check(len(kernels) == 36, f"{len(kernels)} kernel entries")
+    # the solve kernels' launches in one sharded 1k solve and one planar one
+    for entry in kernels:
+        if entry["name"] in SHARDED_PATH:
+            entry.update(launches_sharded_1k=sharded_counts[entry["name"]],
+                         launches_planar_1k=planar_counts[entry["name"]])
+    # K1's column mask: the main path is phase 18's planar solve
+    kernels.append(
+        {"name": "linearize_xy", "route": "cuda", "source": SOURCE["linearize"],
+         "replaces": PLANAR_REPLACES, "launches": planar_counts["linearize"],
+         "max_abs_err": xy_row["max_abs_err"], "ms": xy_row["ms"], "plain_ms": xy_row["plain_ms"],
+         "bound_ms": xy_row["bound_ms"], "bound_by": xy_row["bound_by"], "library_ms": None,
+         "shapes": "1k planar solve, first linearization (column mask 1, 1, 0, 0, 0, 1)"})
+    check(len(kernels) == 40, f"{len(kernels)} kernel entries")
     unmatched = unmatched_device_functions()
     log("device functions", profiled_kernels=sorted(PROFILED_KERNELS), unmatched=unmatched)
     check(not unmatched, f"device functions no profile matched: {unmatched}")
@@ -4022,7 +4570,7 @@ def main() -> int:
                                       "long_run": long_run, "reregistration": rereg_fields,
                                       "calibration": calib_fields},
                       "recognition": rec_fields, "estimation": est_fields,
-                      "sift": sift_fields, "fleet": fleet_fields}))
+                      "sift": sift_fields, "fleet": fleet_fields, "sharded": sharded_fields}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -4031,4 +4579,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        sys.exit(sharded_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
+    if sys.argv[1:2] == ["--overhead"]:
+        sys.exit(overhead_worker(sys.argv[2]))
     sys.exit(main())

@@ -151,8 +151,7 @@ def test_flattened_fleet_decouples_its_instances(fleet):
     assert float(U.abs().max()) > 0
 
 
-@pytest.mark.parametrize("option", ["odometry_restart", "use_odometry_calibration",
-                                    "optimize_xy_only"])
+@pytest.mark.parametrize("option", ["odometry_restart", "use_odometry_calibration"])
 def test_fleet_refuses_what_is_not_ported(fleet, option):
     _, _, port = fleet
     with pytest.raises(NotImplementedError, match=option):

@@ -1053,3 +1053,91 @@ def test_slice9_kernel_argument_checks_raise(fake_lib):
     with pytest.raises(ValueError, match="refresh flag needs a held factor"):
         kops.chain_factor(_meta(128, 6, 6), _meta(128, 6, 6), 16, 2, need=_meta(2, dtype=b))
     assert fake_lib.calls == []
+
+
+# ---------------------------------------------------------------------------
+# Slice 10: K1's column mask (the planar solve) and its reduce hook
+# ---------------------------------------------------------------------------
+
+def test_masked_linearize_plain_matches_jax_under_optimize_xy_only():
+    """K1's plain version with the planar column mask against JAX's
+    ``_make_fused_linearize`` under ``optimize_xy_only``, all six outputs,
+    at perturbed poses (Huber weights below 1 present): within 1e-4 of
+    each array's largest entry (W 1e-5), as tests/test_torch_solver.py
+    holds the unmasked form."""
+    import jax
+    import jax.numpy as jnp
+
+    from uzliti_slam_tpu.graph import factors as jfactors
+    from uzliti_slam_tpu.graph import solver as jsolver
+    from uzliti_slam_tpu.io import synthetic as jsynthetic
+    from uzliti_slam_tpu.ops import lie as jlie
+    from uzliti_slam_tpu_torch.graph import solver as tsolver
+    from uzliti_slam_tpu_torch.graph import state as tstate
+
+    g = jax.jit(lambda k: jsynthetic.make_pose_graph(k, 64, loop_closure_every=8)[0])(
+        jax.random.PRNGKey(4))
+    free = (g.node_valid & ~jsolver.gauge_fix_mask(g, jsolver.connected_components(g))).astype(
+        jnp.float32)
+    rng = np.random.default_rng(0)
+    dx = jnp.asarray(0.05 * rng.normal(size=(g.node_capacity, 6)).astype(np.float32))
+    poses = jlie.pose_retract(g.pose, dx)
+    r = jfactors.batched_residuals(poses[g.e_from], poses[g.e_to], g.e_transform)
+    adj = jax.vmap(lambda m: jlie.se3_adjoint(jlie.pose_inverse(m)))(g.e_transform)
+    cfg = jsolver.SolverConfig(optimize_xy_only=True)
+    ref = jsolver._make_fused_linearize(g, free, cfg, adj)(r)
+
+    gt = tstate.from_numpy({k: np.asarray(v) for k, v in g._asdict().items()}, device="cpu")
+    p = tsolver._Problem(gt, torch.from_numpy(np.array(free)),
+                         tsolver.SolverConfig(optimize_xy_only=True))
+    assert p.col_mask == tsolver.XY_COLUMNS == (1.0, 1.0, 0.0, 0.0, 0.0, 1.0)
+    args = (torch.from_numpy(np.array(r)), torch.from_numpy(np.array(adj)), gt.e_info, p.valid,
+            gt.e_from, gt.e_to, p.free, p.both_free, p.is_chain, 1.0)
+    got = kops.linearize_plain(*args, col_mask=p.col_mask)
+    assert np.asarray(ref[2]).min() < np.asarray(g.e_info).max()
+    for name, a, b in zip(("Ji", "Jj", "W", "grad", "Hb", "U"), got, ref):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.numpy(), b, atol=(1e-5 if name == "W" else 1e-4)
+                                   * np.abs(b).max(), err_msg=name)
+    # the masked columns are exact zeros, and the unmasked form differs
+    assert not got[0][:, :, 2:5].any() and not got[3][:, 2:5].any()
+    assert not got[4][:, 2:5].any() and not got[4][:, :, 2:5].any()
+    assert got[3].abs().max() > 0 and kops.linearize_plain(*args)[0][:, :, 2:5].any()
+
+
+def test_linearize_reduce_sees_the_packed_node_sums():
+    rng = np.random.default_rng(3)
+    n, E = 6, 5
+    r = torch.from_numpy(0.1 * rng.normal(size=(E, 6)).astype(np.float32))
+    eye = torch.eye(6).expand(E, 6, 6).contiguous()
+    ef = torch.arange(E, dtype=torch.int32)
+    ones_e, ones_n = torch.ones(E), torch.ones(n)
+    args = (r, eye, eye, ones_e, ef, ef + 1, ones_n, ones_n, ones_e, 1.0)
+    seen = []
+
+    def double(t):
+        seen.append(t.clone())
+        t.mul_(2)
+
+    base = kops.linearize(*args)
+    out = kops.linearize(*args, reduce=double)
+    assert len(seen) == 1 and seen[0].shape == (78 * n,)
+    for a, b in zip(out[3:], base[3:]):
+        assert torch.equal(a, 2 * b)
+    assert torch.equal(torch.cat([t.reshape(-1) for t in base[3:]]), seen[0])
+    with pytest.raises(ValueError, match="col_mask"):
+        kops.linearize(*args, col_mask=(1.0, 0.5, 0.0, 0.0, 0.0, 1.0))
+
+
+def test_linearize_passes_the_column_mask_as_bits(fake_lib):
+    n, E = 8, 16
+    i32 = torch.int32
+    args = (_meta(E, 6), _meta(E, 6, 6), _meta(E, 6, 6), _meta(E), _meta(E, dtype=i32),
+            _meta(E, dtype=i32), _meta(n), _meta(n), _meta(E), 1.0)
+    kops.linearize(*args)
+    calls = []
+    kops.linearize(*args, col_mask=(1.0, 1.0, 0.0, 0.0, 0.0, 1.0), reduce=calls.append)
+    # (…, huber_delta, n_edges, n_nodes, col_keep, …): bits 0, 1 and 5 kept
+    assert [c[1][9:13] for c in fake_lib.calls] == [(1.0, E, n, 63), (1.0, E, n, 35)]
+    assert len(calls) == 1 and tuple(calls[0].shape) == (78 * n,)
+    assert kops.launches["linearize"] == 2

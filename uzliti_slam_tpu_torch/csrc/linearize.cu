@@ -54,7 +54,7 @@ __global__ void linearize_edges(const float* __restrict__ r, const float* __rest
                                 const float* __restrict__ info, const float* __restrict__ valid,
                                 const int* __restrict__ e_from, const int* __restrict__ e_to,
                                 const float* __restrict__ is_chain, float huber_delta, int n_edges,
-                                float* __restrict__ Ji_out, float* __restrict__ Jj_out,
+                                int col_keep, float* __restrict__ Ji_out, float* __restrict__ Jj_out,
                                 float* __restrict__ W_out, float* grad, float* Hb, float* U) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n_edges) return;
@@ -87,11 +87,15 @@ __global__ void linearize_edges(const float* __restrict__ r, const float* __rest
     mm6(A, M, T);
   }
   mm6(Jj, T, Ji);
+  float keep[6];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) keep[j] = (col_keep >> j) & 1 ? 1.f : 0.f;
 #pragma unroll
   for (int i = 0; i < 6; ++i)
 #pragma unroll
     for (int j = 0; j < 6; ++j) {
-      Ji[i][j] = -Ji[i][j];
+      Ji[i][j] = -Ji[i][j] * keep[j];
+      Jj[i][j] *= keep[j];
       Ji_out[e * 36 + i * 6 + j] = Ji[i][j];
       Jj_out[e * 36 + i * 6 + j] = Jj[i][j];
       W_out[e * 36 + i * 6 + j] = W[i][j];
@@ -139,17 +143,18 @@ __global__ void linearize_mask(const float* __restrict__ free, const float* __re
 
 }  // namespace
 
-// grad (N,6), Hb (N,36) and U (N,36) must be zero on entry.
+// grad (N,6), Hb (N,36) and U (N,36) must be zero on entry; col_keep 63
+// keeps every Jacobian column.
 extern "C" int uz_linearize(const float* r, const float* adj_meas_inv, const float* info,
                             const float* valid, const int* e_from, const int* e_to,
                             const float* free, const float* both_free, const float* is_chain,
-                            float huber_delta, int n_edges, int n_nodes, float* Ji, float* Jj,
-                            float* W, float* grad, float* Hb, float* U, void* stream) {
+                            float huber_delta, int n_edges, int n_nodes, int col_keep, float* Ji,
+                            float* Jj, float* W, float* grad, float* Hb, float* U, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_edges > 0)
     linearize_edges<<<blocks_for(n_edges), kThreads, 0, s>>>(
-        r, adj_meas_inv, info, valid, e_from, e_to, is_chain, huber_delta, n_edges, Ji, Jj, W,
-        grad, Hb, U);
+        r, adj_meas_inv, info, valid, e_from, e_to, is_chain, huber_delta, n_edges, col_keep, Ji,
+        Jj, W, grad, Hb, U);
   if (n_nodes > 0)
     linearize_mask<<<blocks_for(36LL * n_nodes), kThreads, 0, s>>>(free, both_free, n_nodes, grad, U);
   return static_cast<int>(cudaGetLastError());

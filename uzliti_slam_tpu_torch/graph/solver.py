@@ -1,9 +1,18 @@
 """Robust SE(3) Levenberg-Marquardt pose-graph solver (chain-PCG).
 
-PyTorch counterpart of ``uzliti_slam_tpu/graph/solver.py`` for the path its
-``optimize`` takes with the chain preconditioner (``_lm_loop_fast``): both
-the fixed-iteration chunked form (``early_exit=False``, the headline) and
-the early-exit form (the library default).  Per LM iteration: one fused
+PyTorch counterpart of ``uzliti_slam_tpu/graph/solver.py`` for the paths
+its ``optimize`` takes with the chain preconditioner: the fast loop
+(``_lm_loop_fast``) in both its fixed-iteration chunked form
+(``early_exit=False``, the headline) and its early-exit form (the library
+default), and the generic loop (``lm_loop``'s scan: ``mode="pcg"``, and
+every edge-sharded solve, whose ``reduce`` hook sums the shards' partial
+node rows and χ² across ranks; ``parallel/sharded.optimize_sharded``).
+The generic loop is the fixed chunked loop with that hook; it ignores
+``early_exit``, as the reference does.  ``optimize_xy_only`` (the planar
+solve) takes each loop's own form of the reference's projection: the fast
+loop masks K1's Jacobian columns and lifts the factor's masked diagonal,
+the generic loop wraps the operator, preconditioner and gradient.  Per LM
+iteration: one fused
 linearization (kernel K1), a fixed count of PCG steps whose Hessian-vector
 products are kernel K2, whose preconditioner applies are kernel K3 and
 whose vector updates are kernel K10, and one retraction whose residuals and
@@ -47,8 +56,9 @@ from uzliti_slam_tpu_torch.ops import lie
 class SolverConfig:
     """Same fields and defaults as ``uzliti_slam_tpu.graph.solver.SolverConfig``.
 
-    The port runs ``mode="auto"`` with ``preconditioner="chain"``; options
-    of other paths raise ``NotImplementedError`` (``check_supported``).
+    The port runs ``mode="auto"`` (the fast loop) and ``mode="pcg"`` (the
+    generic loop) with ``preconditioner="chain"``; options of other paths
+    raise ``NotImplementedError`` (``check_supported``).
     ``split_hv_threshold``, ``unroll_lm`` and ``unroll_pcg`` are accepted
     and have no effect: the split Hv is a TPU layout of the same operator
     that kernel K2 computes at every size, and eager PyTorch has no loop to
@@ -88,14 +98,34 @@ class SolverConfig:
 
 def check_supported(config: SolverConfig) -> None:
     """Raise NotImplementedError, naming the option, for paths not ported
-    (``optimize_xy_only`` needs masks inside K1, K2 and K9: ROADMAP.md A6)."""
-    if config.mode != "auto":
+    (``mode="direct"``: ROADMAP.md A6; the TPU layouts ``dense_gathers`` and
+    ``chain_root_ns``; the other preconditioners)."""
+    if config.mode not in ("auto", "pcg"):
         raise NotImplementedError(f"mode={config.mode!r}")
     if config.preconditioner != "chain":
         raise NotImplementedError(f"preconditioner={config.preconditioner!r}")
-    for name in ("dense_gathers", "chain_root_ns", "optimize_xy_only"):
+    for name in ("dense_gathers", "chain_root_ns"):
         if getattr(config, name):
             raise NotImplementedError(f"{name}=True")
+
+
+# The planar solve's projection onto x, y and yaw of the twist (ρ, φ)
+# (``solver.py:369``, ``:1156``; the reference's ``g2o_optimizer.cpp:164-170``).
+XY_COLUMNS = (1.0, 1.0, 0.0, 0.0, 0.0, 1.0)
+
+
+def _xy_mask(dtype, device) -> torch.Tensor:
+    """``XY_COLUMNS`` as a tensor, built on the device without a host copy
+    (``torch.tensor`` of a list would synchronise the card)."""
+    one = torch.ones(2, dtype=dtype, device=device)
+    return torch.cat([one, torch.zeros(3, dtype=dtype, device=device), one[:1]])
+
+
+def flatten_planar(poses: torch.Tensor, node_valid: torch.Tensor) -> torch.Tensor:
+    """Valid nodes' poses with z, roll and pitch set to 0, as the reference
+    adds its vertices under ``optimize_xy_only`` (``solver.py:1245-1249``)."""
+    flat = lie.pose2_to_pose(lie.pose_to_pose2(poses))
+    return torch.where(node_valid[:, None], flat, poses)
 
 
 class SolveStats(NamedTuple):
@@ -157,11 +187,29 @@ class _Problem:
 
     ``g`` holds ``batch`` instances of equal capacities flattened into one
     table (``_flatten_fleet``; a single graph is the batch of one), and the
-    loop's scalars are (B,)."""
+    loop's scalars are (B,).
+
+    ``reduce``, for an edge-sharded solve (``g``'s edge table one rank's
+    shard, its poses and ``free`` replicated), sums a tensor in place
+    across the ranks; it is applied to K1's packed node rows, to each Hv
+    product (K2) and to each χ² (K4), so that every rank takes the same
+    accept and λ decisions from the same sums.  ``damp_here`` is False on
+    every rank but one, whose Hv partial alone carries the damping.
+    JAX's ``lm_loop`` takes its fast loop only with no reduce and
+    ``mode="auto"``; otherwise the generic loop (``generic``)."""
 
     def __init__(self, g: GraphState, free: torch.Tensor, config: SolverConfig,
-                 batch: int = 1):
+                 batch: int = 1, reduce=None, damp_here: bool = True):
         self.g, self.free, self.config, self.batch = g, free, config, batch
+        self.reduce, self.damp_here = reduce, damp_here
+        self.generic = reduce is not None or config.mode == "pcg"
+        # optimize_xy_only: the fast loop masks K1's Jacobian columns and
+        # lifts the factor's masked diagonal (solver.py:377-381, :867-868);
+        # the generic loop wraps hvp, minv and the gradient (:1152-1160)
+        xy = config.optimize_xy_only
+        self.col_mask = XY_COLUMNS if xy and not self.generic else None
+        self.cmask = _xy_mask(free.dtype, free.device) if xy else None
+        self.lift = torch.diag(1.0 - self.cmask) if self.col_mask is not None else None
         self.valid = g.e_valid.to(free.dtype)
         self.is_chain = ((g.e_to == g.e_from + 1) & g.e_valid).to(free.dtype)
         self.both_free = ((free > 0) & (torch.roll(free, -1) > 0)).to(free.dtype)
@@ -176,7 +224,10 @@ class _Problem:
         self.adj_meas_inv = lie.se3_adjoint(lie.pose_inverse(g.e_transform))
 
     def residuals(self, poses):
-        return _residuals(self.g, poses, self.config.huber_delta, self.batch)
+        r, chi2 = _residuals(self.g, poses, self.config.huber_delta, self.batch)
+        if self.reduce is not None:
+            self.reduce(chi2)
+        return r, chi2
 
     def select(self, mask, a, b):
         """``a`` where ``mask`` (B,), else ``b``, over the instances' rows of
@@ -189,7 +240,7 @@ class _Problem:
         g = self.g
         return kops.linearize(r, self.adj_meas_inv, g.e_info, self.valid, g.e_from,
                               g.e_to, self.free, self.both_free, self.is_chain,
-                              self.config.huber_delta)
+                              self.config.huber_delta, self.col_mask, self.reduce)
 
     def damp(self, lam, Hb):
         d = torch.clamp(torch.diagonal(Hb, dim1=-2, dim2=-1), min=1e-6)
@@ -201,17 +252,44 @@ class _Problem:
         place where ``need``."""
         Dm = torch.where(self.free[:, None, None] > 0, Hb + torch.diag_embed(damp),
                          self.eye6)
+        if self.lift is not None:
+            Dm = Dm + self.lift
         return tridiag.block_tridiag_factor(Dm, U, self.config.chain_dense_cutoff, self.batch,
                                             held=held, need=need)
 
     def step(self, poses, pack, Ji, Jj, W, grad, damp):
-        """One PCG solve + retraction: (cand, r_cand, chi2_new)."""
+        """One PCG solve + retraction: (cand, r_cand, chi2_new).
+
+        The fast loop's planar solve needs no wraps: with K1's columns
+        masked, H, U and the lifted factor leave the masked coordinates
+        decoupled, so from a masked gradient every PCG vector keeps exact
+        zeros there (``tests/test_torch_planar.py`` holds the two forms
+        equal)."""
         g, cfg, free = self.g, self.config, self.free
-        dx = _pcg(
-            lambda v: kops.hvp(Ji, Jj, W, g.e_from, g.e_to, v, damp, free),
-            lambda rr: tridiag.block_tridiag_apply(pack, rr), -grad, cfg.pcg_iterations,
-            cfg.pcg_tol, self.batch,
-        )
+        damp_k = damp if self.damp_here else torch.zeros_like(damp)
+
+        def hvp(v):
+            y = kops.hvp(Ji, Jj, W, g.e_from, g.e_to, v, damp_k, free)
+            if self.reduce is not None:
+                self.reduce(y)
+            return y
+
+        def minv(rr):
+            return tridiag.block_tridiag_apply(pack, rr)
+
+        b = -grad
+        if self.generic and self.cmask is not None:
+            cm = self.cmask
+            hvp_base, minv_base = hvp, minv
+
+            def hvp(v):
+                return hvp_base(v * cm) * cm
+
+            def minv(rr):
+                return minv_base(rr * cm) * cm
+
+            b = -(grad * cm)
+        dx = _pcg(hvp, minv, b, cfg.pcg_iterations, cfg.pcg_tol, self.batch)
         cand = lie.pose_retract(poses, dx * free[:, None])
         r_cand, chi2_new = self.residuals(cand)
         return cand, r_cand, chi2_new
@@ -313,20 +391,25 @@ def total_chi2(g: GraphState, poses: torch.Tensor, huber_delta: float) -> torch.
     return _residuals(g, poses, huber_delta)[1][0]
 
 
-def _lm(g: GraphState, free: torch.Tensor, config: SolverConfig, batch: int):
+def _lm(g: GraphState, free: torch.Tensor, config: SolverConfig, batch: int, reduce=None,
+        damp_here: bool = True):
     """The LM loop of ``batch`` flattened instances: (poses, final λ (B,),
     χ² histories (B, iterations + 1), accept flags (B, iterations))."""
-    p = _Problem(g, free, config, batch)
+    p = _Problem(g, free, config, batch, reduce, damp_here)
     r0, chi2_0 = p.residuals(g.pose)
-    run = _lm_early_exit if config.early_exit else _lm_fixed
+    run = _lm_early_exit if config.early_exit and not p.generic else _lm_fixed
     poses, lam, hist, acc = run(p, r0, chi2_0)
     return poses, lam, torch.stack([chi2_0, *hist], dim=1), torch.stack(acc, dim=1)
 
 
-def lm_loop(g: GraphState, free: torch.Tensor, config: SolverConfig):
-    """The LM iteration core of one graph (the batch of one). Returns
-    (poses, final_lambda, chi2_history, accepted)."""
-    poses, lam, hist, acc = _lm(g, free, config, 1)
+def lm_loop(g: GraphState, free: torch.Tensor, config: SolverConfig, reduce=None,
+            damp_here: bool = True):
+    """The LM iteration core of one graph (the batch of one), shared by the
+    single solve and the edge-sharded one (``g``'s edge table a rank's
+    shard, ``reduce`` the in-place all-reduce, ``damp_here`` on one rank;
+    see ``_Problem``).  Returns (poses, final_lambda, chi2_history,
+    accepted)."""
+    poses, lam, hist, acc = _lm(g, free, config, 1, reduce, damp_here)
     return poses, lam[0], hist[0], acc[0]
 
 
@@ -345,6 +428,8 @@ def _restart_solve(g: GraphState, free: torch.Tensor, config: SolverConfig):
     nodes keeping their poses), solve again from that prior and keep the
     lower final χ²."""
     odo_start = lie.pose_compose(g.diff_transform[None], g.odom_pose)
+    if config.optimize_xy_only:
+        odo_start = lie.pose2_to_pose(lie.pose_to_pose2(odo_start))
     movable = g.node_valid & ~g.node_fixed
     odo_start = torch.where(movable[:, None], odo_start, g.pose)
     poses_a, lam_a, hist_a, acc_a = lm_loop(g, free, config)
@@ -375,6 +460,8 @@ def optimize(g: GraphState, config: SolverConfig = SolverConfig()):
         g = g.replace(e_transform=torch.where(
             is_odom[:, None], odometry_drift_correct(g.e_transform, g.odom_params),
             g.e_transform))
+    if config.optimize_xy_only:
+        g = g.replace(pose=flatten_planar(g.pose, g.node_valid))
     labels = connected_components(g)
     gauge = gauge_fix_mask(g, labels)
     free = (g.node_valid & ~gauge).to(g.pose.dtype)
@@ -449,6 +536,8 @@ def optimize_batched(fleet: GraphState, config: SolverConfig = SolverConfig()):
     B, N = fleet.pose.shape[:2]
     E = fleet.e_from.shape[1]
     g = _flatten_fleet(fleet)
+    if config.optimize_xy_only:
+        g = g.replace(pose=flatten_planar(g.pose, g.node_valid))
     labels = connected_components(g, component_iterations(N))
     gauge = gauge_fix_mask(g, labels)
     free = (g.node_valid & ~gauge).to(g.pose.dtype)

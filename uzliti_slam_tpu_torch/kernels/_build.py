@@ -36,7 +36,7 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 # C signature of every exported function: (argtypes), all return cudaError_t.
 SIGNATURES = {
-    "uz_linearize": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I,
+    "uz_linearize": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I,
                      _P, _P, _P, _P, _P, _P, _P],
     "uz_hvp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
     "uz_chain_forward": [_P, _I, _I, _P, _P, _I, _I, _P, _P],

@@ -142,16 +142,33 @@ def _raise_on(err: int, kernel: str) -> None:
 # K1 linearize
 # ---------------------------------------------------------------------------
 
+def _column_bits(col_mask) -> int:
+    """K1's ``col_keep``: bit k set keeps Jacobian column k (63: all)."""
+    if col_mask is None:
+        return 0x3F
+    vals = [float(c) for c in col_mask]
+    if len(vals) != 6 or any(v not in (0.0, 1.0) for v in vals):
+        raise ValueError(f"linearize: col_mask {col_mask!r}, expected six 0/1 entries")
+    return sum(1 << k for k, v in enumerate(vals) if v)
+
+
 def linearize_plain(r, adj_meas_inv, info, valid, e_from, e_to, free, both_free,
-                    is_chain, huber_delta: float):
+                    is_chain, huber_delta: float, col_mask=None, reduce=None):
     """Plain version of K1: (Ji, Jj, W, grad, Hb, U).
 
     ``valid`` (E,), ``is_chain`` (E,) and ``free``/``both_free`` (N,) are
     float 0/1 masks; ``both_free[i]`` = node i and node i+1 both free.
+    ``col_mask``: six 0/1 floats multiplying the Jacobians' columns (the
+    planar solve's ``[1, 1, 0, 0, 0, 1]``), or None.  ``reduce``: applied
+    in place to the packed (78·N,) node sums grad | Hb | U, whose views
+    are returned (the edge-sharded solve's all-reduce), or None.
     """
     n, E = free.shape[0], r.shape[0]
     W = factors.weighted_info(r, info, valid, huber_delta)
     Ji, Jj = factors.jacobians_from_residual(r, adj_meas_inv)
+    if _column_bits(col_mask) != 0x3F:
+        cm = torch.tensor(col_mask, dtype=r.dtype, device=r.device)
+        Ji, Jj = Ji * cm, Jj * cm
     JiT, JjT = Ji.transpose(-1, -2), Jj.transpose(-1, -2)
     Wr = W @ r[..., None]
     gi = (JiT @ Wr)[..., 0]
@@ -167,15 +184,21 @@ def linearize_plain(r, adj_meas_inv, info, valid, e_from, e_to, free, both_free,
     grad = (sf[:, :6] + st[:, :6]) * free[:, None]
     Hb = (sf[:, 6:42] + st[:, 6:42]).reshape(n, 6, 6)
     U = sf[:, 42:].reshape(n, 6, 6) * both_free[:, None, None]
-    return Ji, Jj, W, grad, Hb, U
+    acc = torch.cat([grad.reshape(-1), Hb.reshape(-1), U.reshape(-1)])
+    if reduce is not None:
+        reduce(acc)
+    return (Ji, Jj, W, acc[: 6 * n].view(n, 6), acc[6 * n: 42 * n].view(n, 6, 6),
+            acc[42 * n:].view(n, 6, 6))
 
 
 def linearize(r, adj_meas_inv, info, valid, e_from, e_to, free, both_free,
-              is_chain, huber_delta: float):
-    """K1: fused per-edge Jacobians, robust weights and node-row sums."""
+              is_chain, huber_delta: float, col_mask=None, reduce=None):
+    """K1: fused per-edge Jacobians, robust weights and node-row sums, the
+    Jacobians' columns masked by ``col_mask`` and the packed node sums
+    handed to ``reduce`` as in ``linearize_plain``."""
     if r.device.type == "cpu":
         return linearize_plain(r, adj_meas_inv, info, valid, e_from, e_to, free,
-                               both_free, is_chain, huber_delta)
+                               both_free, is_chain, huber_delta, col_mask, reduce)
     dev, f32 = r.device, torch.float32
     E, n = r.shape[0], free.shape[0]
     ptrs = [
@@ -189,17 +212,20 @@ def linearize(r, adj_meas_inv, info, valid, e_from, e_to, free, both_free,
         _check("both_free", both_free, (n,), f32, dev),
         _check("is_chain", is_chain, (E,), f32, dev),
     ]
+    col_keep = _column_bits(col_mask)
     lib = _build.load()
     J = torch.empty(3, E, 6, 6, dtype=f32, device=dev)
     acc = torch.zeros(n * 78, dtype=f32, device=dev)
     grad = acc[: 6 * n].view(n, 6)
     Hb = acc[6 * n: 42 * n].view(n, 6, 6)
     U = acc[42 * n:].view(n, 6, 6)
-    err = lib.uz_linearize(*ptrs, float(huber_delta), E, n,
+    err = lib.uz_linearize(*ptrs, float(huber_delta), E, n, col_keep,
                            J[0].data_ptr(), J[1].data_ptr(), J[2].data_ptr(),
                            grad.data_ptr(), Hb.data_ptr(), U.data_ptr(), _stream(dev))
     _raise_on(err, "linearize")
     launches["linearize"] += 1
+    if reduce is not None:
+        reduce(acc)
     return J[0], J[1], J[2], grad, Hb, U
 
 
