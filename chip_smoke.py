@@ -3,7 +3,8 @@
 optimization epoch, the occupancy projection that follows it, the keyframe
 front-end, the keyframe step through the ``Slam`` shell, an end-to-end
 run judged by ATE, and the timers, recognizers, estimators, SIFT, the
-fleet and the edge-sharded and planar solves.
+fleet, the edge-sharded and planar solves and the local/global scope
+protocol.
 
     python3 chip_smoke.py
 
@@ -157,7 +158,27 @@ runs, in order, each phase printing lines of its own:
    beside the unprojected solve, K1's column mask against its plain
    version, z and roll/pitch at 0, χ² against the CPU plain path; (f)
    ``multihost.solve_fleet`` in the world of one against
-   ``optimize_batch`` on 8 x 64-node instances.
+   ``optimize_batch`` on 8 x 64-node instances;
+19. the local/global scope protocol (K31 uid_slots, K32 edge_key_match,
+   K33 delta_upsert and scope_merge): (a) ``scope.apply_delta`` of a
+   32-node / 64-edge delta (16 known uids and 16 new; 24 resent edges, 24
+   new, 8 in-delta duplicates, 8 to an unknown uid) into a 100k-node
+   graph, then ``apply_ack`` and ``apply_scope`` (32 rows, half known) on
+   a 1k-node graph: launches a call, sync-free calls timed, the same calls
+   with K31-K33's plain versions in alternating turns, both equal and equal
+   to the calls on CPU tensors, a profile; (b) ``runner.LocalGlobalSlam``
+   on 48 VGA frames of the keyframe rung's world out and back
+   (``step_config``'s settings, a 0.25 m keyframe gate, tests/
+   test_runner.py's scope), an exchange every 6 frames and 4 drain rounds
+   (the counts set to 0 just before, read just after): ms per round split
+   into the local and the global half, host reads per round by site, a
+   profiled round, tests/test_runner.py's bars and the ATE against the
+   odometry's, the scope functions sync-free on a round's arguments; (c)
+   tests/test_runner.py's 96x128 duo on the card, then with its RANSAC
+   draws replayed on CPU tensors: without the global's optimization the
+   same global graph and poses within 1e-3 m; as the test runs it, its bars
+   and the card-card and card-CPU gaps.  K31-K33 against their plain
+   versions on a round of (b) and on (a)'s calls, exactly.
 
 Then one JSON line with the kernels' results, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -167,6 +188,7 @@ before doing anything.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -298,7 +320,11 @@ FRONTEND_DEVICE_FUNCTIONS = {"fast_nms": ("fast_nms_tile",), "grid_topk": ("cell
                              "knn_normals": ("knn_normals_kernel",), "gicp": ("gicp_problems",),
                              "pnp": ("pnp_hypotheses_kernel", "pnp_refine_kernel"),
                              "sift_describe": ("box_blur<1>", "sift_keypoints"),
-                             "l2_top2": ("l2_top2_tiles",)}
+                             "l2_top2": ("l2_top2_tiles",),
+                             "uid_slots": ("uid_slots_kernel",),
+                             "edge_key_match": ("edge_key_kernel",),
+                             "delta_upsert": ("delta_upsert_kernel",),
+                             "scope_merge": ("scope_merge_kernel",)}
 # cuSOLVER / cuBLAS items that must not appear in a profiled solve
 LIBRARY_ITEMS = ("getrf", "getrs", "trsm", "gemv")
 # The card's published peaks (H100 SXM at 700 W):
@@ -518,6 +544,30 @@ PLANAR_REPLACES = ("uzliti_slam_tpu/graph/solver.py:355 (_make_fused_linearize) 
                    " under optimize_xy_only (:369-381)")
 
 
+# Phase 19: the scope protocol's kernels (K31-K33, K33 with two entries)
+SCOPE_REPLACES = {
+    "uid_slots": "uzliti_slam_tpu/parallel/scope.py:96 (uid_to_slot)",
+    "edge_key_match": "uzliti_slam_tpu/parallel/scope.py:222 (apply_delta's (De, E) edge dedup)"
+                      " + :282 (apply_ack's (A, E) compare)",
+    "delta_upsert": "uzliti_slam_tpu/parallel/scope.py:170 (apply_delta's node and edge scans,"
+                    " in-delta dedup, ACK)",
+    "scope_merge": "uzliti_slam_tpu/parallel/scope.py:317 (apply_scope's scan)",
+}
+SCOPE_KERNELS = tuple(SCOPE_REPLACES)
+SCOPE_SOURCE = {"uid_slots": "uzliti_slam_tpu_torch/csrc/scope_match.cu",
+                "edge_key_match": "uzliti_slam_tpu_torch/csrc/scope_match.cu",
+                "delta_upsert": "uzliti_slam_tpu_torch/csrc/delta_apply.cu",
+                "scope_merge": "uzliti_slam_tpu_torch/csrc/delta_apply.cu"}
+SCOPE_GLOBAL_N = 100_000     # 19a: the global graph a delta is applied to
+# 19b: the duo on the VGA WallWorld, tests/test_runner.py's cadence
+SCOPE_DUO = dict(frames=48, drift=0.05, length=6.0, every=6, drain=4,
+                 record_round=3)   # K31-K33 held to their plain versions on this round
+# 19c: the card's 96x128 duo without the global's optimization against the
+# same run on CPU tensors with the card's draws replayed: poses within
+# 1e-3 m (tests/test_scope_transport.py's bound; nothing sums in another
+# order there, so they agree to the bit)
+SCOPE_POSE_ATOL = 1e-3
+
 T_START = time.perf_counter()
 
 
@@ -600,7 +650,8 @@ DEVICE_FUNCTIONS = ("sift_keypoints", "linearize_edges", "linearize_mask", "hvp_
                     "greedy_rounds", "init_theta", "calib_edges", "calib_solve", "bin_rows",
                     "voxel_sort_chunks", "voxel_merge", "voxel_accumulate", "voxel_finish",
                     "knn_normals_kernel", "gicp_problems", "pnp_hypotheses_kernel",
-                    "pnp_refine_kernel", "l2_top2_tiles")
+                    "pnp_refine_kernel", "l2_top2_tiles", "uid_slots_kernel", "edge_key_kernel",
+                    "delta_upsert_kernel", "scope_merge_kernel")
 
 
 def ptxas_summary(text: str) -> dict:
@@ -998,6 +1049,8 @@ def kernel_work(name: str, args) -> tuple[int, int]:
         kps = uv.shape[0] * uv.shape[1]
         return (_nbytes(img, uv, window) + kps * (4 + 512),
                 5 * img.numel() + kps * (4 * 177 + 324 * 10 + 256 * 50 + 128 * 6))
+    if name in SCOPE_KERNELS:        # args: (the wrapper's arguments, its keywords)
+        return scope_work(name, *args)
     if name == "l2_top2":
         # both tables and masks read once, idx, ok and best written once; a
         # multiply and an add per (query, stored, dimension), the norms, and
@@ -1448,7 +1501,8 @@ def headline_solve(g, chi2_oracle: float, reps: int):
                 "relax_min": 0, "cluster_labels": 0, "ransac_rigid": 0, "components": 2,
                 "chain_factor": 4, "pcg": 20 * (1 + 2 * 12), "project_rays": 0,
                 **{k: 0 for k in FRONTEND_KERNELS + KEYFRAME_KERNELS + MAINT_KERNELS
-                   + RECOGNITION_KERNELS + REGISTRATION_KERNELS + SIFT_KERNELS}}
+                   + RECOGNITION_KERNELS + REGISTRATION_KERNELS + SIFT_KERNELS
+                   + SCOPE_KERNELS}}
     check(counts == expected, f"launch counts {counts} != {expected}")
     finals = []
     for _ in range(reps):
@@ -4244,6 +4298,640 @@ def sharded_phase(dev, g1k, g100k, chi2_oracle_1k, spread_1k, chi2_100k, headlin
     return counts, planar_counts, row, fields
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the scope protocol (K31 uid_slots, K32 edge_key_match, K33
+# delta_upsert and scope_merge)
+# ---------------------------------------------------------------------------
+
+def _graph_bits(g) -> dict:
+    """A graph's fields on the host, float32 fields as their bit patterns
+    (a bit-for-bit compare)."""
+    from uzliti_slam_tpu_torch.graph import state as gstate
+
+    out = {}
+    for k, v in gstate.to_numpy(g).items():
+        out[k] = v.view(np.int32) if v.dtype == np.float32 else v
+    return out
+
+
+def graph_mismatches(a, b) -> list:
+    """The fields of two graphs that differ in any bit."""
+    ba, bb = _graph_bits(a), _graph_bits(b)
+    return [k for k in ba if ba[k].shape != bb[k].shape or not np.array_equal(ba[k], bb[k])]
+
+
+def nt_mismatches(a, b) -> list:
+    """The fields of two structures of ``parallel.scope`` that differ."""
+    from uzliti_slam_tpu_torch.parallel import scope
+
+    da, db = scope.to_numpy(a), scope.to_numpy(b)
+    return [k for k in da if not np.array_equal(da[k], db[k])]
+
+
+class plain_scope_kernels:
+    """Within it, the scope protocol runs K31-K33's plain versions: the
+    wrappers are swapped for them."""
+
+    def __enter__(self):
+        from uzliti_slam_tpu_torch.kernels import ops as kops
+        self.saved = {n: getattr(kops, n) for n in SCOPE_KERNELS}
+        for n in SCOPE_KERNELS:
+            setattr(kops, n, getattr(kops, n + "_plain"))
+
+    def __exit__(self, *exc):
+        from uzliti_slam_tpu_torch.kernels import ops as kops
+        for n, f in self.saved.items():
+            setattr(kops, n, f)
+
+
+def scope_delta_100k(g, device, seed: int = SEED):
+    """Phase 19a's delta into the 100k-node global graph: 32 nodes (16 uids
+    the graph holds, a resend, and 16 new), 64 edges: 24 resends of table
+    edges, 24 new edges each touching a new node, 8 in-delta duplicates of
+    those, and 8 with an unknown endpoint."""
+    from uzliti_slam_tpu_torch.parallel import scope
+
+    rng = np.random.default_rng(seed)
+    n, ne = int(g.num_nodes), int(g.num_edges)
+    uid = g.node_uid.cpu().numpy()
+    ef, et, ty = (getattr(g, k)[:ne].cpu().numpy() for k in ("e_from", "e_to", "e_type"))
+    known = uid[rng.choice(n, 16, replace=False)]
+    new = np.arange(200_000, 200_016, dtype=np.int32)
+    rows = rng.choice(ne, 24, replace=False)
+    resend = [(uid[ef[r]], uid[et[r]], ty[r]) for r in rows]
+    fresh = [(new[i % 16], known[i % 16] if i % 2 else new[(i + 1) % 16], (1, 104, 105)[i % 3])
+             for i in range(24)]
+    dups = fresh[:8]
+    unknown = [(9_999_000 + i, known[i], 1) for i in range(8)]
+    edges = np.array(resend + fresh + dups + unknown, np.int64).astype(np.int32)
+    q = rng.normal(size=(96, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    poses = np.concatenate([rng.normal(size=(96, 3)).astype(np.float32), q], axis=1)
+    arrays = dict(
+        n_uid=rng.permutation(np.concatenate([known, new])).astype(np.int32),
+        n_pose=poses[:32], n_odom_pose=poses[32:64],
+        n_stamp=rng.uniform(0, 1e4, 32).astype(np.float32),
+        n_uncertainty=rng.uniform(0, 5, 32).astype(np.float32),
+        n_gist=rng.integers(0, 256, (32, 32), dtype=np.uint8),
+        e_from_uid=edges[:, 0].copy(), e_to_uid=edges[:, 1].copy(), e_type=edges[:, 2].copy(),
+        e_transform=np.concatenate([poses[:64, :3], poses[32:96, 3:]], axis=1),
+        e_info=rng.normal(size=(64, 6, 6)).astype(np.float32),
+        e_score=rng.uniform(0, 50, 64).astype(np.float32), e_valid=rng.uniform(size=64) < 0.5,
+        odom_params=np.array([1.0, 0.0, 0.0], np.float32))
+    return scope.delta_from_numpy(arrays, device)
+
+
+def scope_path_check(label: str, fn, cpu_fn, compare) -> dict:
+    """One scope function on the card: its launches a call, sync-free calls
+    timed, the same call with K31-K33's plain versions on the card in
+    alternating turns, both held equal (``compare``) and to the same call on
+    CPU tensors, a profile.  Returns fields."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    fn()
+    torch.cuda.synchronize()
+    kops.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {k: kops.launches[k] for k in SCOPE_KERNELS}
+    with plain_scope_kernels():
+        ref = fn()
+    bad = compare(out, ref)
+    bad_cpu = compare(out, cpu_fn())
+    t, _ = timed_sync_free(fn, reps=10)
+
+    def plain():
+        with plain_scope_kernels():
+            return fn()
+    ms, plain_ms = time_pair(fn, plain, trials=5, calls=2)
+    # ten calls in one profile: a single call's few short kernels can fall
+    # outside what the trace keeps
+    prof, device_ms = device_profile(lambda: [fn() for _ in range(10)])
+    fields = {"launches_per_call": counts, "ms_sync_free": 1e3 * t, "ms": ms,
+              "plain_ms": plain_ms, "mismatches_plain": bad, "mismatches_cpu": bad_cpu,
+              "profile_of_10_calls": prof,
+              "kernel_device_ms_per_call": {k: v / 10 for k, v in
+                                            kernel_device_ms(device_ms, SCOPE_KERNELS).items()}}
+    log(f"19a {label}", **fields)
+    check(not bad, f"19a {label}: kernels and plain versions differ in {bad}")
+    check(not bad_cpu, f"19a {label}: card and CPU tensors differ in {bad_cpu}")
+    return fields
+
+
+def scope_apply_phase(dev) -> tuple[dict, dict]:
+    """Phase 19a: ``apply_delta`` of a 32-node / 64-edge delta into a
+    100k-node global graph, then ``apply_ack`` and ``apply_scope`` (32 rows,
+    half known) on a 1k-node local graph, each through
+    ``scope_path_check``.  Returns (fields, the wrappers' recorded
+    calls)."""
+    from uzliti_slam_tpu_torch.io import synthetic
+    from uzliti_slam_tpu_torch.parallel import scope
+
+    cpu = torch.device("cpu")
+    g, _ = synthetic.make_pose_graph(SCOPE_GLOBAL_N, loop_closure_every=10,
+                                     capacity_rounding="pow2",
+                                     generator=torch.Generator().manual_seed(SEED), device=dev)
+    d = scope_delta_100k(g, dev)
+    g_cpu, d_cpu = g.to(cpu), scope.to_device(d, cpu)
+
+    def cmp_delta(a, b):
+        return graph_mismatches(a[0], b[0]) + nt_mismatches(a[1], b[1])
+
+    fields = {"graph": {"nodes": int(g.num_nodes), "node_capacity": g.node_capacity,
+                        "edges": int(g.num_edges), "edge_capacity": g.edge_capacity}}
+    fields["apply_delta"] = scope_path_check(
+        "apply_delta 100k", lambda: scope.apply_delta(g, d),
+        lambda: scope.apply_delta(g_cpu, d_cpu), cmp_delta)
+    g2, ack = scope.apply_delta(g, d)
+    an, af = ack.node_uids.cpu().numpy(), ack.edge_from.cpu().numpy()
+    fields["apply_delta"].update(
+        nodes_added=int(g2.num_nodes) - int(g.num_nodes),
+        edges_added=int(g2.num_edges) - int(g.num_edges), acked_nodes=int((an >= 0).sum()),
+        acked_edges=int((af >= 0).sum()))
+    check(fields["apply_delta"]["nodes_added"] == 16 and (an >= 0).all(),
+          f"19a apply_delta: nodes {fields['apply_delta']}")
+    check(fields["apply_delta"]["edges_added"] == 24 and (af[:56] >= 0).all()
+          and (af[56:] < 0).all(), f"19a apply_delta: edges {fields['apply_delta']}")
+
+    lg, _ = synthetic.make_pose_graph(1000, loop_closure_every=10, capacity_rounding="pow2",
+                                      generator=torch.Generator().manual_seed(SEED + 1),
+                                      device=dev)
+    rng = np.random.default_rng(SEED + 1)
+    ne = int(lg.num_edges)
+    uid = lg.node_uid.cpu().numpy()
+    rows = rng.choice(ne, 64, replace=False)
+    ef, et, ty = (getattr(lg, k).cpu().numpy()[rows] for k in ("e_from", "e_to", "e_type"))
+    ack_from = uid[ef].astype(np.int32)
+    ack_from[::8] = -1
+    ack = scope.ack_from_numpy(dict(node_uids=uid[rng.choice(1000, 32, replace=False)],
+                                    edge_from=ack_from, edge_to=uid[et], edge_type=ty), dev)
+    ship = scope.ship_state_init(lg)
+    lg_cpu = lg.to(cpu)
+    fields["apply_ack"] = scope_path_check(
+        "apply_ack 1k", lambda: scope.apply_ack(lg, ship, ack),
+        lambda: scope.apply_ack(lg_cpu, scope.to_device(ship, cpu), scope.to_device(ack, cpu)),
+        nt_mismatches)
+    reply_uid = np.concatenate([uid[rng.choice(1000, 16, replace=False)],
+                                np.arange(500_000, 500_016)]).astype(np.int32)
+    reply_uid[-1] = reply_uid[-2]                 # a repeated unknown uid
+    reply_uid[3] = -1
+    q = rng.normal(size=(32, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    reply = scope.reply_from_numpy(dict(
+        uid=rng.permutation(reply_uid),
+        pose=np.concatenate([rng.normal(size=(32, 3)).astype(np.float32), q], axis=1),
+        stamp=rng.uniform(0, 100, 32).astype(np.float32)), dev)
+    fields["apply_scope"] = scope_path_check(
+        "apply_scope 1k", lambda: scope.apply_scope(lg, reply),
+        lambda: scope.apply_scope(lg_cpu, scope.to_device(reply, cpu)), graph_mismatches)
+    calls = record_args(lambda: (scope.apply_delta(g, d), scope.apply_ack(lg, ship, ack),
+                                 scope.apply_scope(lg, reply)), names=SCOPE_KERNELS)
+    return fields, calls
+
+
+def scope_duo_config(device, img: str):
+    """(config, extrinsic) of phase 19's duo: ``step_config``'s settings
+    (VGA) or tests/test_runner.py's (96x128), with the keyframe gate at
+    0.25 m and the scope of tests/test_runner.py."""
+    from uzliti_slam_tpu_torch.config import (EdgeEstimationConfig, KeyframeConfig, ScopeConfig,
+                                              SlamConfig)
+    from uzliti_slam_tpu_torch.io import simulator
+
+    scope_cfg = ScopeConfig(scope_size_min=2.0, eviction_margin=0.5)
+    if img == "vga":
+        cfg, pose = step_config(1, device)
+        return dataclasses.replace(cfg, keyframe=KeyframeConfig(new_node_distance=0.25),
+                                   scope=scope_cfg), pose
+    cfg = SlamConfig(node_capacity=64, edge_capacity=256, feats_per_node=64, scan_bins=90,
+                     keyframe=KeyframeConfig(new_node_distance=0.25),
+                     estimation=EdgeEstimationConfig(min_consensus=8, min_matching_score=6.0),
+                     scope=scope_cfg)
+    return cfg, simulator.cam_extrinsic(device=device)
+
+
+def _enclosing_def(filename: str, lineno: int) -> str:
+    import linecache
+
+    for i in range(lineno, 0, -1):
+        m = re.match(r"\s*def (\w+)", linecache.getline(filename, i))
+        if m:
+            return m.group(1)
+    return "?"
+
+
+def host_read_sites(fn):
+    """(fn(), {"file:function": synchronising calls}) under CUDA sync debug
+    mode "warn": each host read of a device value, by where it was made."""
+    import warnings
+    from collections import Counter
+    from pathlib import Path
+
+    from uzliti_slam_tpu_torch.graph import solver
+
+    # the epoch's restart read may run with the sync check lifted
+    # (lift_sync_check_for_restart_read): count its calls as well
+    decision, restarts = solver._host_decision, []
+    solver._host_decision = lambda flag: restarts.append(1) or decision(flag)
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            solver._host_decision = decision
+    sites = Counter(f"{Path(r.filename).name}:{_enclosing_def(r.filename, r.lineno)}"
+                    for r in rec if "synchroniz" in str(r.message).lower())
+    if restarts:
+        key = "solver.py:_host_decision"
+        sites[key] = max(sites.get(key, 0), len(restarts))
+    return out, dict(sites)
+
+
+def run_duo(duo, frames, rounds: list | None = None, record_round: int | None = None,
+            calls: dict | None = None, optimize_global: bool = True):
+    """tests/test_runner.py's loop: an exchange every SCOPE_DUO["every"]
+    frames, then SCOPE_DUO["drain"] rounds.  Each round's fields go to
+    ``rounds`` when given (the local half and the global half timed
+    separately, the host reads by site); the K31-K33 wrappers' calls of
+    round ``record_round`` go to ``calls``; ``optimize_global`` as
+    ``exchange`` takes it.  Returns (evicted, proposed)."""
+    from uzliti_slam_tpu_torch import runner
+
+    evicted = proposed = 0
+    n_round = 0
+
+    def exchange():
+        nonlocal evicted, proposed, n_round
+        n_round += 1
+        if n_round - 1 == record_round:
+            out = {}
+            calls.update(record_args(lambda: out.update(ex=one_round()), names=SCOPE_KERNELS))
+            ex = out["ex"]
+        else:
+            ex = one_round()
+        evicted += ex["evicted_local"]
+        proposed += ex["proposed_global"]
+
+    def one_round():
+        if rounds is None:
+            ex = duo.exchange(optimize_global)
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (delta, robot, radius), s1 = host_read_sites(duo.local_make_request)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            (ack, reply, info_g), s2 = host_read_sites(lambda: runner.global_exchange_step(
+                duo.global_slam, delta, robot, radius, duo.delta_nodes, duo.delta_edges,
+                optimize=optimize_global))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            info_l, s3 = host_read_sites(lambda: duo.local_apply_response(ack, reply))
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            sites = {}
+            for s in (s1, s2, s3):
+                for k, v in s.items():
+                    sites[k] = sites.get(k, 0) + v
+            rounds.append({"local_ms": 1e3 * (t1 - t0 + t3 - t2), "global_ms": 1e3 * (t2 - t1),
+                           "host_reads": sites, "delta_nodes": int((delta.n_uid >= 0).sum()),
+                           **{k: v for k, v in info_g.items() if k != "tri"}, **info_l})
+            ex = {**info_l, **info_g}
+        return ex
+
+    for i, fr in enumerate(frames):
+        duo.add_frame(fr["image"], fr["depth"], fr["odom_pose"], fr["stamp"])
+        if (i + 1) % SCOPE_DUO["every"] == 0:
+            exchange()
+    for _ in range(SCOPE_DUO["drain"]):
+        exchange()
+    return evicted, proposed
+
+
+def duo_bars(duo, frames, evicted: int, proposed: int) -> dict:
+    """tests/test_runner.py's bars on a duo: keyframes by uid, eviction,
+    proposals, ATE against the odometry's, the drained resend queue."""
+    from uzliti_slam_tpu_torch.io import synthetic
+    from uzliti_slam_tpu_torch.parallel import scope
+
+    poses, uids, stamps = duo.global_trajectory()
+    kf = uids < 1_000_000
+    st = stamps[kf].astype(int)
+    gt = torch.from_numpy(np.stack([frames[s]["gt_pose"] for s in st]))
+    odo = torch.from_numpy(np.stack([frames[s]["odom_pose"] for s in st]))
+    lg = duo.local.state.graph
+    rest = scope.make_delta(lg, duo.ship, duo.local.state.gist.desc)
+    return {"keyframes_local": duo.local._n_kf_host, "keyframes_global": int(kf.sum()),
+            "distinct_keyframe_uids": int(np.unique(uids[kf]).size),
+            "global_nodes": int(len(uids)), "live_local": int(lg.node_valid.sum()),
+            "evicted_local": evicted, "proposed_global": proposed,
+            "ate_global_m": float(synthetic.ate_rmse(torch.from_numpy(poses[kf]), gt)),
+            "ate_odometry_m": float(synthetic.ate_rmse(odo, gt)),
+            "undelivered_nodes": int((rest.n_uid >= 0).sum()),
+            "undelivered_edges": int((rest.e_type >= 0).sum())}
+
+
+def check_duo_bars(phase: str, bars: dict, ate_bar: bool, ate_max: float = math.inf) -> None:
+    check(bars["keyframes_global"] == bars["keyframes_local"] == bars["distinct_keyframe_uids"],
+          f"{phase}: keyframes {bars}")
+    check(bars["evicted_local"] > 0 and bars["live_local"] < bars["global_nodes"],
+          f"{phase}: eviction {bars}")
+    check(bars["proposed_global"] > 0, f"{phase}: no closure proposed by the global")
+    if ate_bar:
+        check(bars["ate_global_m"] < bars["ate_odometry_m"], f"{phase}: ATE {bars}")
+    check(bars["ate_global_m"] < ate_max, f"{phase}: ATE {bars['ate_global_m']}")
+    check(bars["undelivered_nodes"] == 0 and bars["undelivered_edges"] == 0,
+          f"{phase}: resend queue not drained {bars}")
+
+
+def scope_duo_phase(dev) -> tuple[dict, dict, dict]:
+    """Phase 19b: ``LocalGlobalSlam`` on the VGA WallWorld, 48 frames out and
+    back, an exchange every 6 frames and 4 drain rounds: launches of K31-K33
+    over the run (counts set to 0 just before it, read just after), ms per
+    round split into the local and the global half, host reads per round by
+    site, a profile of one round, the bars of tests/test_runner.py and the
+    ATE against the odometry's; the scope functions on one round's real
+    arguments under CUDA sync debug mode "error".  Returns (launches,
+    fields, the wrappers' calls of one round)."""
+    from uzliti_slam_tpu_torch import pipeline, runner
+    from uzliti_slam_tpu_torch.io import simulator
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+    from uzliti_slam_tpu_torch.parallel import scope
+
+    kv = KEYFRAME_VGA
+    world = simulator.WallWorld(img_h=kv["img_h"], img_w=kv["img_w"], f=kv["f"])
+    frames = simulator.simulate_sequence(world, n_frames=SCOPE_DUO["frames"],
+                                         odom_drift=SCOPE_DUO["drift"],
+                                         length=SCOPE_DUO["length"])
+    cfg, pose = scope_duo_config(dev, "vga")
+    duo = runner.LocalGlobalSlam(cfg, cam=world.cam, cam_pose=pose, device=dev)
+    duo.local.optimize_every = 10 ** 9
+    rounds, calls = [], {}
+    kops.reset_launches()
+    t0 = time.perf_counter()
+    evicted, proposed = run_duo(duo, frames, rounds, record_round=SCOPE_DUO["record_round"],
+                                calls=calls)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: kops.launches[k] for k in SCOPE_KERNELS}
+    bars = duo_bars(duo, frames, evicted, proposed)
+    busy = [r for r in rounds if r["delta_nodes"] > 0]
+    reads = [sum(r["host_reads"].values()) for r in rounds]
+    sites = {}
+    for r in rounds:
+        for k, v in r["host_reads"].items():
+            sites[k] = sites.get(k, 0) + v
+
+    # one more round (the queue is empty: the global still recognizes,
+    # replies, maintains and optimizes), profiled, with its launches
+    kops.reset_launches()
+    prof, device_ms = device_profile(duo.exchange)
+    round_counts = {k: kops.launches[k] for k in SCOPE_KERNELS}
+    # the scope functions on a round's real arguments, sync-free: a delta
+    # from the local, applied to the global, acknowledged and replied to
+    ls, gslam = duo.local.state, duo.global_slam
+    lg = ls.graph
+    ship0 = scope.ship_state_init(lg)
+    args = dict(max_nodes=duo.delta_nodes, max_edges=duo.delta_edges, desc=ls.desc,
+                desc_valid=ls.desc_valid, points=ls.points, scans=ls.scans,
+                scan_valid=ls.scan_valid)
+
+    def sync_free_round():
+        delta = scope.make_delta(lg, ship0, ls.gist.desc, **args)
+        gg, ack = scope.apply_delta(gslam.state.graph, delta)
+        st, slots, fresh = runner._absorb_payloads(gslam.state.replace(graph=gg), delta)
+        st, n_prop, _ = pipeline.recognize_absorbed(st, slots, fresh, gslam.config)
+        reply = scope.scope_reply(st.graph, lg.pose[0], torch.full((), 3.0, device=dev))
+        ship = scope.apply_ack(lg, ship0, ack)
+        return scope.apply_scope(lg, reply), ship, n_prop
+
+    t_round, _ = timed_sync_free(sync_free_round, reps=3)
+    fields = {"frames": SCOPE_DUO["frames"], "image": [KEYFRAME_VGA["img_h"], KEYFRAME_VGA["img_w"]],
+              "wall_s": wall, "rounds": len(rounds), "launches_run": counts,
+              "launches_round": round_counts,
+              "round_ms_median": statistics.median(r["local_ms"] + r["global_ms"] for r in busy),
+              "local_ms_median": statistics.median(r["local_ms"] for r in busy),
+              "global_ms_median": statistics.median(r["global_ms"] for r in busy),
+              "host_reads_per_round_max": max(reads), "host_reads_by_site": sites,
+              "sync_free_scope_round_ms": 1e3 * t_round, **bars,
+              "round_profile": prof,
+              "kernel_device_ms_round": kernel_device_ms(device_ms, SCOPE_KERNELS),
+              "per_round": rounds}
+    log("19b duo VGA", **{k: v for k, v in fields.items() if k != "per_round"})
+    check_duo_bars("19b", bars, ate_bar=True)
+    check(all(counts[k] > 0 for k in SCOPE_KERNELS), f"19b: a scope kernel never launched {counts}")
+    check(round_counts == {"uid_slots": 4, "edge_key_match": 2, "delta_upsert": 1,
+                           "scope_merge": 1}, f"19b: launches of a round {round_counts}")
+    check(max(reads) <= 6, f"19b: {max(reads)} host reads in a round ({sites})")
+    return counts, fields, calls
+
+
+def draws_recorded(fn):
+    """(fn(), every RANSAC draw it made, in order): ``ransac._valid_sample``
+    wrapped."""
+    from uzliti_slam_tpu_torch.ops import ransac
+
+    saved, draws = ransac._valid_sample, []
+
+    def recorded(*a, **kw):
+        t = saved(*a, **kw)
+        draws.append(t.clone())
+        return t
+
+    ransac._valid_sample = recorded
+    try:
+        return fn(), draws
+    finally:
+        ransac._valid_sample = saved
+
+
+def draws_replayed(fn, draws: list):
+    """fn() with each RANSAC draw replaced, in order, by ``draws`` (moved to
+    the drawing call's device)."""
+    from uzliti_slam_tpu_torch.ops import ransac
+
+    saved, it = ransac._valid_sample, iter(draws)
+
+    def replayed(generator, k_hyp, valid, quality=None, beta=4.0):
+        t = next(it)
+        check(tuple(t.shape) == tuple(valid.shape[:-1]) + (k_hyp, 3),
+              f"replayed draw of shape {tuple(t.shape)} for {tuple(valid.shape)}")
+        return t.to(valid.device)
+
+    ransac._valid_sample = replayed
+    try:
+        return fn()
+    finally:
+        ransac._valid_sample = saved
+
+
+def graph_gaps(ga, gb) -> tuple[dict, float]:
+    """({field: equal} over the structure of two global graphs: the counts,
+    live uids, edge endpoints, types and validity; the largest pose gap of
+    the live nodes)."""
+    ga, gb = ga.to("cpu"), gb.to("cpu")
+    n, ne = int(ga.num_nodes), int(ga.num_edges)
+    same = {"num_nodes": n == int(gb.num_nodes), "num_edges": ne == int(gb.num_edges)}
+    for k in ("node_valid", "node_uid"):
+        same[k] = bool(torch.equal(getattr(ga, k)[:n], getattr(gb, k)[:n]))
+    for k in ("e_from", "e_to", "e_type", "e_valid"):
+        same[k] = bool(torch.equal(getattr(ga, k)[:ne], getattr(gb, k)[:ne]))
+    live = ga.node_valid[:n] & gb.node_valid[:n]
+    return same, float((ga.pose[:n][live] - gb.pose[:n][live]).abs().max())
+
+
+def scope_replay_phase(dev) -> dict:
+    """Phase 19c: tests/test_runner.py's 96x128 duo (24 frames) on the card,
+    its RANSAC draws recorded, then again with those draws replayed on the
+    card and on CPU tensors.  (i) Without the global's optimization every
+    step is deterministic: the card and CPU global graphs must have the
+    same structure (live uids, edge endpoints, types, validity) and poses
+    within SCOPE_POSE_ATOL.  (ii) As tests/test_runner.py runs it (the
+    global optimizes every round): its bars on the card, and the structure
+    and pose gaps card-card and card-CPU reported (the solves' float atomics
+    make two card runs differ, ROADMAP C5)."""
+    from uzliti_slam_tpu_torch import runner
+    from uzliti_slam_tpu_torch.io import simulator
+
+    world = simulator.WallWorld(img_h=96, img_w=128)
+    frames = simulator.simulate_sequence(world, n_frames=24, odom_drift=0.05, length=5.0)
+    cpu = torch.device("cpu")
+
+    def runs(names, optimize: bool):
+        out, draws = {}, None
+        for name, device in names:
+            cfg, pose = scope_duo_config(device, "96x128")
+            duo = runner.LocalGlobalSlam(cfg, cam=world.cam, cam_pose=pose, device=device)
+            duo.local.optimize_every = 10 ** 9
+            t0 = time.perf_counter()
+            if draws is None:
+                r, draws = draws_recorded(lambda: run_duo(duo, frames, optimize_global=optimize))
+            else:
+                r = draws_replayed(lambda: run_duo(duo, frames, optimize_global=optimize), draws)
+            out[name] = (duo, r, time.perf_counter() - t0)
+        return out, len(draws)
+
+    fixed, n_draws = runs((("card", dev), ("cpu", cpu)), optimize=False)
+    same, pose_err = graph_gaps(fixed["card"][0].global_slam.state.graph,
+                                fixed["cpu"][0].global_slam.state.graph)
+    fields = {"without_optimization": {
+        "card_s": fixed["card"][2], "cpu_s": fixed["cpu"][2], "draws": n_draws, "same": same,
+        "pose_max_abs_err": pose_err, "pose_atol": SCOPE_POSE_ATOL,
+        "counts": [fixed["card"][1], fixed["cpu"][1]]}}
+    log("19c duo 96x128 without the global's optimization, card vs CPU",
+        **fields["without_optimization"])
+    check(all(same.values()), f"19c: card and CPU global graphs differ: {same}")
+    check(pose_err <= SCOPE_POSE_ATOL, f"19c: poses {pose_err:.3g} apart")
+    check(fixed["card"][1] == fixed["cpu"][1], f"19c: counts {fields['without_optimization']}")
+
+    full, n_draws = runs((("card", dev), ("card_again", dev), ("cpu", cpu)), optimize=True)
+    dc, (evc, prc), tc = full["card"]
+    bars = duo_bars(dc, frames, evc, prc)
+    gaps = {}
+    for other in ("card_again", "cpu"):
+        s, e = graph_gaps(dc.global_slam.state.graph, full[other][0].global_slam.state.graph)
+        gaps[other] = {"same": s, "pose_max_abs_err": e, "counts": full[other][1]}
+    fields["test_runner"] = {"card_s": tc, "draws": n_draws, **bars, "gaps": gaps}
+    log("19c duo 96x128 as tests/test_runner.py runs it", **fields["test_runner"])
+    check_duo_bars("19c", bars, ate_bar=False, ate_max=0.3)
+    return fields
+
+
+def scope_work(name: str, args, kw: dict) -> tuple[int, int]:
+    """(bytes, operations) one call of a scope kernel needs on these inputs:
+    K31 reads each table row's uid and flag (5 bytes) and the queries, and
+    writes a slot a query; a compare per live row and query.  K32 reads 12
+    bytes a compared row (16 in uid space) and a query, writes a flag a
+    query and a row; three compares per row and query.  K33 reads the
+    delta's rows and K31/K32's results, writes the rows it inserts and the
+    ACK; its compares are the in-delta ones (rows²)."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    if name == "uid_slots":
+        node_uid, node_valid, uids = args
+        return 5 * node_uid.shape[0] + 8 * uids.shape[0], int(node_valid.sum()) * uids.shape[0]
+    if name == "edge_key_match":
+        qa, _, _, ra = args[:4]
+        num_rows, node_uid = kw.get("num_rows"), kw.get("node_uid")
+        E, Q = ra.shape[0], qa.shape[0]
+        rows = E if num_rows is None else int(num_rows)
+        per_row = 16 if node_uid is not None else 12
+        return per_row * rows + 12 * Q + Q + E, 3 * rows * Q
+    if name == "delta_upsert":
+        g, delta, node_found, ef, et, dup, *first = args
+        Dn, De = delta.n_uid.shape[0], delta.e_type.shape[0]
+        g2, _, _ = kops.delta_upsert(*args, **kw)
+        ins = int(g2.num_nodes) - int(g.num_nodes)
+        app = int(g2.num_edges) - int(g.num_edges)
+        read = Dn * (4 + 28 + 28 + 4 + 4 + 4) + De * (12 + 28 + 144 + 4 + 1 + 8 + 1)
+        return read + ins * 70 + app * 205 + 4 * (Dn + De), Dn * Dn + De * De + De * Dn
+    if name == "scope_merge":
+        g, uid, pose, stamp, found = args
+        K = uid.shape[0]
+        g2 = kops.scope_merge(*args, **kw)
+        ins = int(g2.num_nodes) - int(g.num_nodes)
+        return K * 40 + ins * 70 + K * 29, K * K
+    raise KeyError(name)
+
+
+def compare_scope_kernels(calls: dict, label: str, trials: int = 11) -> dict:
+    """K31-K33 against their plain versions on every recorded call: integer
+    outputs exactly, copied floats bit for bit; each timed on its first call
+    (K33's plain version loops over the rows on the host: fewer trials)
+    beside its bound.  ``max_abs_err`` is the largest difference of any
+    output (0 when every bit agrees)."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    def diff(a, b) -> float:
+        if isinstance(a, tuple):
+            return max(diff(x, y) for x, y in zip(a, b))
+        if hasattr(a, "node_uid"):
+            bad = graph_mismatches(a, b)
+            return 0.0 if not bad else max(
+                float((getattr(a, k).cpu().double() - getattr(b, k).cpu().double()).abs().max())
+                for k in bad) or math.inf
+        if not torch.equal(a, b):
+            return max(float((a.double() - b.double()).abs().max()), 1.0)
+        return 0.0
+
+    rows = {}
+    for name in SCOPE_KERNELS:
+        err = 0.0
+        for args, kw in calls[name]:
+            err = max(err, diff(getattr(kops, name)(*args, **kw),
+                                getattr(kops, name + "_plain")(*args, **kw)))
+        args, kw = calls[name][0]
+        heavy = name in ("delta_upsert", "scope_merge")
+        ms, plain_ms = time_pair(lambda: getattr(kops, name)(*args, **kw),
+                                 lambda: getattr(kops, name + "_plain")(*args, **kw),
+                                 trials=3 if heavy else trials, calls=1 if heavy else 10)
+        row = {"max_abs_err": err, "calls_compared": len(calls[name]), "ms": ms,
+               "plain_ms": plain_ms, "library_ms": None, **bound(name, (args, kw))}
+        log(f"19 kernel {name} {label}", **row)
+        check(err == 0.0, f"{name} {label}: kernel and plain version differ ({err})")
+        rows[name] = row
+    return rows
+
+
+def scope_phase(dev) -> tuple[dict, dict, dict, dict]:
+    """Phase 19: (a) the delta apply at 100k nodes, (b) the VGA duo (the
+    main path, counts set to 0 just before it and read just after), (c) the
+    96x128 duo on the card against CPU tensors; K31-K33 against their plain
+    versions on (b)'s and (a)'s arguments.  Returns (launches, rows, large
+    rows, fields)."""
+    t0 = time.perf_counter()
+    apply_fields, calls_a = scope_apply_phase(dev)
+    counts, duo_fields, calls_b = scope_duo_phase(dev)
+    replay = scope_replay_phase(dev)
+    rows = compare_scope_kernels(calls_b, "VGA duo round")
+    rows_large = compare_scope_kernels(calls_a, "100k apply_delta, 1k apply_ack / apply_scope")
+    fields = {"apply": apply_fields, "duo_vga": duo_fields, "duo_96x128_replay": replay,
+              "seconds": time.perf_counter() - t0}
+    log("19 scope protocol", seconds=fields["seconds"])
+    return counts, rows, rows_large, fields
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA card",
@@ -4395,6 +5083,8 @@ def main() -> int:
         dev, g1k, g100k, chi2_oracle_1k, spread_1k, fields100k["chi2"], headline_counts,
         rows, rows_large)
     del g100k
+    # phase 19: the scope protocol (K31-K33); its main path is the VGA duo
+    scope_counts, scope_rows, scope_rows_large, scope_fields = scope_phase(dev)
     # each kernel's main path: the 1k solve for K1-K4, K9, K10; the 500-node
     # epoch for K5-K8; the projection sequence after it for K11; the first
     # timed keyframe step (phase 11, 1 camera) for K12-K18
@@ -4561,7 +5251,28 @@ def main() -> int:
          "max_abs_err": xy_row["max_abs_err"], "ms": xy_row["ms"], "plain_ms": xy_row["plain_ms"],
          "bound_ms": xy_row["bound_ms"], "bound_by": xy_row["bound_by"], "library_ms": None,
          "shapes": "1k planar solve, first linearization (column mask 1, 1, 0, 0, 0, 1)"})
-    check(len(kernels) == 40, f"{len(kernels)} kernel entries")
+    # K31-K33: the main path is phase 19b's VGA duo (48 frames, 12 rounds);
+    # the main shapes a round of it, the large ones 19a's 100k apply_delta
+    # and the 1k apply_ack / apply_scope
+    shapes19 = ("VGA duo round: 32-row delta into the global (512 slots), 32-row reply",
+                "32-node / 64-edge delta into a 100k-node global graph; 32-row ACK and reply "
+                "on a 1k-node local graph")
+    for name in SCOPE_KERNELS:
+        r, rl = scope_rows[name], scope_rows_large[name]
+        kernels.append(
+            {"name": name, "route": "cuda", "source": SCOPE_SOURCE[name],
+             "replaces": SCOPE_REPLACES[name], "launches": scope_counts[name],
+             "launches_round": scope_fields["duo_vga"]["launches_round"][name],
+             "launches_apply_delta_100k":
+                 scope_fields["apply"]["apply_delta"]["launches_per_call"][name],
+             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+             "shapes": shapes19[0],
+             "device_ms_round": scope_fields["duo_vga"]["kernel_device_ms_round"].get(name),
+             "max_abs_err_large": rl["max_abs_err"], "ms_large": rl["ms"],
+             "plain_ms_large": rl["plain_ms"], "bound_ms_large": rl["bound_ms"],
+             "library_ms_large": None, "shapes_large": shapes19[1]})
+    check(len(kernels) == 44, f"{len(kernels)} kernel entries")
     unmatched = unmatched_device_functions()
     log("device functions", profiled_kernels=sorted(PROFILED_KERNELS), unmatched=unmatched)
     check(not unmatched, f"device functions no profile matched: {unmatched}")
@@ -4570,7 +5281,8 @@ def main() -> int:
                                       "long_run": long_run, "reregistration": rereg_fields,
                                       "calibration": calib_fields},
                       "recognition": rec_fields, "estimation": est_fields,
-                      "sift": sift_fields, "fleet": fleet_fields, "sharded": sharded_fields}))
+                      "sift": sift_fields, "fleet": fleet_fields, "sharded": sharded_fields,
+                      "scope": scope_fields}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -65,7 +65,7 @@ def _cluster_labels(stamp_from, stamp_to, valid, max_dt: float, n_iters: int = 1
                                valid.contiguous(), max_dt, n_iters)
 
 
-def _compact(mask: torch.Tensor, size: int) -> torch.Tensor:
+def first_indices(mask: torch.Tensor, size: int) -> torch.Tensor:
     """Indices of the first ``size`` True entries of ``mask`` (B,), -1
     padded: ``jnp.nonzero(mask, size=size, fill_value=-1)`` without a host
     read."""
@@ -132,7 +132,7 @@ def cluster_roots(g: GraphState, cand_idx: torch.Tensor, config: FilterConfig = 
     n_roots = max(1, min(b, b // max(config.min_cluster_size, 1)))
     ids = torch.arange(b, device=dev)
     is_root = (lab == ids) & valid & runs[:b]
-    root_slot = _compact(is_root, n_roots)
+    root_slot = first_indices(is_root, n_roots)
     root_live = root_slot >= 0
     root_safe = torch.where(root_live, root_slot, 0).long()
     member = (lab[None, :] == root_safe[:, None]) & valid[None, :] & root_live[:, None]
@@ -202,7 +202,7 @@ def recent_candidates(mask: torch.Tensor, size: int) -> torch.Tensor:
     (-1 padded), in ascending slot order."""
     count = torch.sum(mask, dtype=torch.int32)
     recent = mask & (torch.cumsum(mask.to(torch.int32), dim=0) > count - size)
-    return _compact(recent, size)
+    return first_indices(recent, size)
 
 
 def _rank_within_cluster(score: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

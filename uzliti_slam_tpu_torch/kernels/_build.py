@@ -85,6 +85,11 @@ SIGNATURES = {
                       _P, _P, _P, _P, _P, _P, _P],
     "uz_sift_describe": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "uz_l2_top2": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P],
+    "uz_uid_slots": [_P, _P, _I, _P, _I, _P, _P],
+    "uz_edge_key_match": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P],
+    "uz_delta_upsert": [_P] * 8 + [_I] + [_P] * 10 + [_I] + [_P] * 6 + [_I] + [_P] * 10
+                       + [_I, _I, _P, _P, _P],
+    "uz_scope_merge": [_P] * 8 + [_I] + [_P] * 4 + [_I, _P],
 }
 
 _lib = None

@@ -77,6 +77,14 @@ sift_describe  csrc/sift_describe.cu   ops/features.py:sift_descriptors (+
                                        intensity_centroid_angles)
 l2_top2        csrc/l2_top2.cu         ops/matching.py:l2_matrix + knn_match
                                        + ratio_test (match_descriptors_l2)
+uid_slots      csrc/scope_match.cu     parallel/scope.py:uid_to_slot
+edge_key_match csrc/scope_match.cu     scope.py:apply_delta's (De, E) edge
+                                       dedup and apply_ack's (A, E) compare
+                                       in uid space
+delta_upsert   csrc/delta_apply.cu     scope.py:apply_delta's node and edge
+                                       scans, its in-delta dedup and ACK
+scope_merge    csrc/delta_apply.cu     scope.py:apply_scope's scan (own
+                                       count)
 =============  ======================  =======================================
 
 K3, K4, K9 and K10 take a batch of B instances of equal sizes, flattened
@@ -104,7 +112,8 @@ launches = {"linearize": 0, "hvp": 0, "chain_apply": 0, "residual_chi2": 0,
             "orb_describe": 0, "scan_bins": 0, "hamming_top2": 0, "bilateral": 0, "icp": 0,
             "merge_pairs": 0, "calib_gn": 0, "bin_min_max": 0, "feature_votes": 0,
             "repository": 0, "bow_words": 0, "bow_query": 0, "voxel_grid": 0,
-            "knn_normals": 0, "gicp": 0, "pnp": 0, "sift_describe": 0, "l2_top2": 0}
+            "knn_normals": 0, "gicp": 0, "pnp": 0, "sift_describe": 0, "l2_top2": 0,
+            "uid_slots": 0, "edge_key_match": 0, "delta_upsert": 0, "scope_merge": 0}
 
 _THREADS = 256  # kThreads in csrc/lie.cuh: K4's partial sums, one per block
 _SMEM_BYTES = 232448  # shared memory one CTA can use on Hopper
@@ -2986,3 +2995,274 @@ def pnp_refine(X, xn, valid, depth, samples, poses, thresh2: float, depth_tol: f
     _raise_on(err, "pnp_refine")
     launches["pnp"] += 1
     return pose, consensus, mse, ok, best, counts
+
+
+# ---------------------------------------------------------------------------
+# K31-K33: the scope protocol's uid lookup, edge-key match and delta upsert
+# ---------------------------------------------------------------------------
+
+SCOPE_MAX_ROWS = 1024   # K31/K32 queries held in shared memory; K33's rows (one CTA)
+
+
+def _scope_rows(name: str, n: int) -> None:
+    if n > SCOPE_MAX_ROWS:
+        raise ValueError(f"{name}: {n} rows, the kernel takes at most {SCOPE_MAX_ROWS}")
+
+
+def uid_slots_plain(node_uid, node_valid, uids):
+    """Plain version of K31, the reference's ``uid_to_slot``: each query uid
+    -> the lowest slot with ``node_valid`` and that uid, else -1 (a (B, N)
+    compare, ``any``, then the first hit).  Returns (B,) int32."""
+    hit = (node_uid[None, :] == uids[:, None]) & node_valid[None, :] & (uids[:, None] >= 0)
+    slot = torch.argmax(hit.to(torch.int8), dim=1)
+    return torch.where(hit.any(1), slot, -1).to(torch.int32)
+
+
+def uid_slots(node_uid, node_valid, uids):
+    """K31: one grid-stride pass over the N table rows, the B query uids in
+    shared memory; a matching live row does ``atomicMin`` of its slot into
+    the query's output, which one fill sets to 0xFFFFFFFF (-1 as int32)
+    beforehand.  Returns (B,) int32."""
+    if node_uid.device.type == "cpu":
+        return uid_slots_plain(node_uid, node_valid, uids)
+    dev, i32 = node_uid.device, torch.int32
+    N, B = node_uid.shape[0], uids.shape[0]
+    _scope_rows("uid_slots", B)
+    ptrs = [_check("node_uid", node_uid, (N,), i32, dev),
+            _check("node_valid", node_valid, (N,), torch.bool, dev),
+            _check("uids", uids, (B,), i32, dev)]
+    lib = _build.load()
+    out = torch.full((B,), -1, dtype=i32, device=dev)
+    err = lib.uz_uid_slots(*ptrs[:2], N, ptrs[2], B, out.data_ptr(), _stream(dev))
+    _raise_on(err, "uid_slots")
+    launches["uid_slots"] += 1
+    return out
+
+
+def edge_key_match_plain(qa, qb, qt, row_a, row_b, row_t, num_rows=None, node_uid=None):
+    """Plain version of K32: Q query keys (a, b, type) against the table's
+    rows (``row_a``, ``row_b``, ``row_t``) (E,), the rows below ``num_rows``
+    (a () tensor; all E when None), their endpoints mapped through
+    ``node_uid`` when given (uid space, ``apply_ack``).  A query with a < 0
+    matches nothing.  Returns (query_hit (Q,) bool: some row matches it,
+    row_hit (E,) bool: some query matches it)."""
+    E = row_a.shape[0]
+    ra, rb = row_a, row_b
+    if node_uid is not None:
+        ra, rb = node_uid[row_a.long()], node_uid[row_b.long()]
+    m = ((ra[None, :] == qa[:, None]) & (rb[None, :] == qb[:, None])
+         & (row_t[None, :] == qt[:, None]) & (qa[:, None] >= 0))
+    if num_rows is not None:
+        m = m & (torch.arange(E, device=row_a.device) < num_rows)[None, :]
+    return m.any(1), m.any(0)
+
+
+def edge_key_match(qa, qb, qt, row_a, row_b, row_t, num_rows=None, node_uid=None):
+    """K32: the Q query keys in shared memory, one grid-stride pass over the
+    table's rows; the row count is read on the device (``num_rows``), so
+    nothing is read on the host.  Each row writes its own flag; a matched
+    query's flag is set by a plain byte store of 1 (every writer stores the
+    same value) into a zeroed array.  Returns (query_hit, row_hit)."""
+    if row_a.device.type == "cpu":
+        return edge_key_match_plain(qa, qb, qt, row_a, row_b, row_t, num_rows, node_uid)
+    dev, i32 = row_a.device, torch.int32
+    Q, E = qa.shape[0], row_a.shape[0]
+    _scope_rows("edge_key_match", Q)
+    ptrs = [_check(n, t, (Q,), i32, dev) for n, t in (("qa", qa), ("qb", qb), ("qt", qt))]
+    ptrs += [_check(n, t, (E,), i32, dev)
+             for n, t in (("row_a", row_a), ("row_b", row_b), ("row_t", row_t))]
+    rows_ptr = 0 if num_rows is None else _check("num_rows", num_rows, (), i32, dev)
+    uid_ptr = 0 if node_uid is None else _check("node_uid", node_uid, (node_uid.shape[0],), i32,
+                                                dev)
+    lib = _build.load()
+    query_hit = torch.zeros(Q, dtype=torch.bool, device=dev)
+    row_hit = torch.empty(E, dtype=torch.bool, device=dev)
+    err = lib.uz_edge_key_match(*ptrs[:3], Q, *ptrs[3:], E, rows_ptr, uid_ptr,
+                                query_hit.data_ptr(), row_hit.data_ptr(), _stream(dev))
+    _raise_on(err, "edge_key_match")
+    launches["edge_key_match"] += 1
+    return query_hit, row_hit
+
+
+def delta_upsert_plain(g, delta, node_found, ef_found, et_found, table_dup,
+                       first_occurrence: bool = True):
+    """Plain version of K33's ``uz_delta_upsert``: the reference's
+    ``apply_delta`` scans as a Python loop over the delta's rows that calls
+    ``gstate.add_node`` / ``add_edge`` in its order.  ``node_found`` (Dn,)
+    is each node row's slot before the delta (K31, or the caller's
+    ``existing_slots``); with ``first_occurrence`` a row whose uid an
+    earlier row of the delta inserted finds that row's slot, as the
+    reference's scan looks it up again (without it every unknown row
+    inserts, as the reference does with ``existing_slots``).  ``ef_found``
+    / ``et_found`` (De,) are the edge endpoints' slots before the delta
+    (K31): an endpoint not found there resolves to the first row of the
+    delta that inserted its uid.  ``table_dup`` (De,) marks rows whose
+    (from, to, type) the table already holds (K32).  Returns (graph,
+    ack_node_uids (Dn,), ack_edge_from (De,))."""
+    from uzliti_slam_tpu_torch.graph import state as gstate
+
+    dev = g.device
+    n_uid, found = delta.n_uid.tolist(), node_found.tolist()
+    inserted: dict = {}
+    ack_nodes = []
+    for i, uid in enumerate(n_uid):
+        existing = found[i]
+        if existing < 0 and first_occurrence and uid >= 0:
+            existing = inserted.get(uid, -1)
+        applied = uid >= 0 and existing >= 0
+        if uid >= 0 and existing < 0:
+            g, slot = gstate.add_node(g, delta.n_pose[i], delta.n_odom_pose[i],
+                                      delta.n_stamp[i], fixed=False,
+                                      uncertainty=delta.n_uncertainty[i],
+                                      uid=torch.full((), uid, dtype=torch.int32, device=dev))
+            slot = int(slot)
+            applied = slot >= 0
+            if applied:
+                inserted.setdefault(uid, slot)
+        ack_nodes.append(uid if applied else -1)
+
+    fu, tu, ty = delta.e_from_uid.tolist(), delta.e_to_uid.tolist(), delta.e_type.tolist()
+    fs, ts, dup_t = ef_found.tolist(), et_found.tolist(), table_dup.tolist()
+
+    def resolve(slot, uid):
+        return slot if slot >= 0 or uid < 0 else inserted.get(uid, -1)
+
+    eok, ack_from = [], []
+    for i in range(len(ty)):
+        a, b = resolve(fs[i], fu[i]), resolve(ts[i], tu[i])
+        eok.append(a >= 0 and b >= 0 and ty[i] >= 0)
+        dup = dup_t[i] or any(eok[j] and (fu[j], tu[j], ty[j]) == (fu[i], tu[i], ty[i])
+                              for j in range(i))
+        applied = eok[i] and dup
+        if eok[i] and not dup:
+            g, eslot = gstate.add_edge(g, a, b, delta.e_transform[i], delta.e_info[i],
+                                       etype=ty[i], score=delta.e_score[i],
+                                       valid=delta.e_valid[i])
+            applied = int(eslot) >= 0
+        ack_from.append(fu[i] if applied else -1)
+    i32 = dict(dtype=torch.int32, device=dev)
+    return g, torch.tensor(ack_nodes, **i32), torch.tensor(ack_from, **i32)
+
+
+_NODE_FIELDS = ("pose", "odom_pose", "stamp", "uncertainty", "node_valid", "node_fixed",
+                "node_uid", "num_nodes")
+_EDGE_FIELDS = ("e_from", "e_to", "e_transform", "e_info", "e_type", "e_valid", "e_error",
+                "e_age", "e_score", "num_edges")
+_FIELD_DTYPE = {"pose": torch.float32, "odom_pose": torch.float32, "stamp": torch.float32,
+                "uncertainty": torch.float32, "node_valid": torch.bool, "node_fixed": torch.bool,
+                "node_uid": torch.int32, "num_nodes": torch.int32, "e_from": torch.int32,
+                "e_to": torch.int32, "e_transform": torch.float32, "e_info": torch.float32,
+                "e_type": torch.int32, "e_valid": torch.bool, "e_error": torch.float32,
+                "e_age": torch.float32, "e_score": torch.float32, "num_edges": torch.int32}
+
+
+def _table_copies(g, names, dev) -> dict:
+    """Contiguous copies of the graph's fields ``names`` (checked), which
+    K33 updates in place: the reference's functional update."""
+    N, E = g.node_capacity, g.edge_capacity
+    shape = {"pose": (N, 7), "odom_pose": (N, 7), "e_transform": (E, 7), "e_info": (E, 6, 6),
+             "num_nodes": (), "num_edges": ()}
+    out = {}
+    for name in names:
+        t = getattr(g, name)
+        want = shape.get(name, (N,) if name in _NODE_FIELDS else (E,))
+        c = t.clone(memory_format=torch.contiguous_format)
+        _check(name, c, want, _FIELD_DTYPE[name], dev)
+        out[name] = c
+    return out
+
+
+def delta_upsert(g, delta, node_found, ef_found, et_found, table_dup,
+                 first_occurrence: bool = True):
+    """K33, ``uz_delta_upsert``: one CTA, a thread a delta row.  Node rows:
+    the first occurrence of each unknown uid (every unknown row without
+    ``first_occurrence``), a block prefix sum for their slots (past capacity
+    dropped), the rows written; edge rows: endpoints not found by K31
+    resolved against the rows just inserted (shared memory), the in-delta
+    dedup against earlier rows with resolved endpoints, a block prefix sum
+    for the appended slots, the information masked by type; the ACK.  The
+    node and edge tables are copied first (the functional update) and
+    written in place.  Returns (graph, ack_node_uids, ack_edge_from)."""
+    if g.device.type == "cpu":
+        return delta_upsert_plain(g, delta, node_found, ef_found, et_found, table_dup,
+                                  first_occurrence)
+    dev, i32, f32, b8 = g.device, torch.int32, torch.float32, torch.bool
+    Dn, De = delta.n_uid.shape[0], delta.e_type.shape[0]
+    _scope_rows("delta_upsert", max(Dn, De))
+    din = [_check("n_uid", delta.n_uid, (Dn,), i32, dev),
+           _check("n_pose", delta.n_pose, (Dn, 7), f32, dev),
+           _check("n_odom_pose", delta.n_odom_pose, (Dn, 7), f32, dev),
+           _check("n_stamp", delta.n_stamp, (Dn,), f32, dev),
+           _check("n_uncertainty", delta.n_uncertainty, (Dn,), f32, dev),
+           _check("node_found", node_found, (Dn,), i32, dev),
+           _check("e_from_uid", delta.e_from_uid, (De,), i32, dev),
+           _check("e_to_uid", delta.e_to_uid, (De,), i32, dev),
+           _check("e_type", delta.e_type, (De,), i32, dev),
+           _check("e_transform", delta.e_transform, (De, 7), f32, dev),
+           _check("e_info", delta.e_info, (De, 6, 6), f32, dev),
+           _check("e_score", delta.e_score, (De,), f32, dev),
+           _check("e_valid", delta.e_valid, (De,), b8, dev),
+           _check("ef_found", ef_found, (De,), i32, dev),
+           _check("et_found", et_found, (De,), i32, dev),
+           _check("table_dup", table_dup, (De,), b8, dev)]
+    t = _table_copies(g, _NODE_FIELDS + _EDGE_FIELDS, dev)
+    lib = _build.load()
+    ack_nodes = torch.empty(Dn, dtype=i32, device=dev)
+    ack_from = torch.empty(De, dtype=i32, device=dev)
+    err = lib.uz_delta_upsert(*(t[k].data_ptr() for k in _NODE_FIELDS), g.node_capacity,
+                              *(t[k].data_ptr() for k in _EDGE_FIELDS), g.edge_capacity,
+                              *din[:6], Dn, *din[6:], De, int(bool(first_occurrence)),
+                              ack_nodes.data_ptr(), ack_from.data_ptr(), _stream(dev))
+    _raise_on(err, "delta_upsert")
+    launches["delta_upsert"] += 1
+    return g.replace(**t), ack_nodes, ack_from
+
+
+def scope_merge_plain(g, uid, pose, stamp, found):
+    """Plain version of K33's ``uz_scope_merge``: the reference's
+    ``apply_scope`` scan as a Python loop over the K reply rows.  A row
+    whose uid is live (``found`` (K,), K31 before the reply, or an earlier
+    row's insert) sets that node's pose and freezes it; an unknown uid >= 0
+    is appended as a fixed node (the reply's pose as its odometry pose,
+    uncertainty 0).  Returns the graph."""
+    from uzliti_slam_tpu_torch.graph import state as gstate
+
+    dev = g.device
+    inserted: dict = {}
+    for i, (u, s) in enumerate(zip(uid.tolist(), found.tolist())):
+        if s < 0 and u >= 0:
+            s = inserted.get(u, -1)
+        if s >= 0:
+            idx = torch.full((), s, dtype=torch.long, device=dev)
+            yes = torch.ones((), dtype=torch.bool, device=dev)
+            g = g.replace(pose=gstate.set_row(g.pose, idx, yes, pose[i]),
+                          node_fixed=gstate.set_row(g.node_fixed, idx, yes, True))
+        elif u >= 0:
+            g, slot = gstate.add_node(g, pose[i], pose[i], stamp[i], fixed=True,
+                                      uid=torch.full((), u, dtype=torch.int32, device=dev))
+            if int(slot) >= 0:
+                inserted[u] = int(slot)
+    return g
+
+
+def scope_merge(g, uid, pose, stamp, found):
+    """K33, ``uz_scope_merge``: one CTA, a thread a reply row.  The first
+    occurrence of each unknown uid >= 0 takes a slot by a block prefix sum
+    (past capacity dropped) and writes its fixed node; the last row of each
+    live or inserted uid writes the pose and freezes the node, as the
+    reference's scan leaves it.  The node table is copied first and written
+    in place.  Returns the graph."""
+    if g.device.type == "cpu":
+        return scope_merge_plain(g, uid, pose, stamp, found)
+    dev, i32, f32 = g.device, torch.int32, torch.float32
+    K = uid.shape[0]
+    _scope_rows("scope_merge", K)
+    rin = [_check("uid", uid, (K,), i32, dev), _check("pose", pose, (K, 7), f32, dev),
+           _check("stamp", stamp, (K,), f32, dev), _check("found", found, (K,), i32, dev)]
+    t = _table_copies(g, _NODE_FIELDS, dev)
+    lib = _build.load()
+    err = lib.uz_scope_merge(*(t[k].data_ptr() for k in _NODE_FIELDS), g.node_capacity,
+                             *rin, K, _stream(dev))
+    _raise_on(err, "scope_merge")
+    launches["scope_merge"] += 1
+    return g.replace(**t)

@@ -30,6 +30,10 @@ refinement):
   ``bin_min_max``; scope eviction), ``compact_state`` (slot reclamation)
   and ``scan_reregistration`` (ICP against the nearest nodes, K18 on the
   batch), each reading nothing on the host.
+- ``recognize_absorbed`` is the global role's recognition of the nodes a
+  scope delta brought (the GIST query, K16, or the feature sets, K21;
+  K16's matching and K7 for every candidate), a slot at a time, reading
+  nothing on the host.
 - ``Slam`` is the imperative shell: the host keyframe gate, capacity
   growth, the epoch schedule with the calibration (K20) every
   ``calibrate_every`` epochs, ``maintain`` (with compaction),
@@ -925,6 +929,90 @@ def process_keyframe(state: SlamState, image, depth, odom_pose, stamp,
     info = {"new_slot": new_slot, "n_candidates": cand_ok.sum(), "n_edges_proposed": edge_ok.sum(),
             "n_features": fe.pts_valid.sum(), **draws}
     return state, info
+
+
+def recognize_absorbed(state: SlamState, slots: torch.Tensor, mask: torch.Tensor,
+                       config: SlamConfig = SlamConfig(),
+                       tri: torch.Tensor | None = None) -> tuple[SlamState, torch.Tensor, dict]:
+    """The global's place recognition and registration of absorbed nodes
+    (``pipeline.py:690-811`` of the JAX package): the reference's global
+    re-runs its recognizer on every received node and registers the matches
+    (``graph_slam_node.cpp:473-476``).  The shipped payloads already sit in
+    the banks, so each of the K ``slots`` (K,) whose ``mask`` (K,) holds
+    runs the configured query — the GIST (K16), or the feature sets (K21)
+    for every other method ("repository" and "bow" keep no index on the
+    wire) — the pair dedup against the edges present and earlier
+    candidates, the Hamming matching of every candidate (K16, one launch)
+    and RANSAC with soft-PROSAC draws (K7); accepted edges enter invalid.
+
+    The slots run in order, a host loop that reads nothing back: each
+    slot's dedup reads the edges earlier slots added.  ``tri`` (K, k,
+    ``ransac_hypotheses``, 3) injects the RANSAC triplets; without it they
+    are drawn from ``state.generator`` for every slot, masked or not.
+    Returns (state, edges proposed as a () tensor, {"tri": the triplets
+    used})."""
+    g = state.graph
+    dev = g.device
+    tn, rc, ec = state.tunables, config.recognition, config.estimation
+    k = rc.k_candidates
+    slots = slots.to(device=dev, dtype=torch.int32)
+    mask = mask.to(device=dev, dtype=torch.bool)
+    n_proposed = torch.zeros((), dtype=torch.int32, device=dev)
+    draws = []
+    for i in range(slots.shape[0]):
+        s = torch.clamp(slots[i], min=0).long()
+        s1 = s.view(1)
+        stamp = g.stamp.index_select(0, s1)[0]
+        desc = state.desc.index_select(0, s1)[0]
+        desc_valid = state.desc_valid.index_select(0, s1)[0]
+        if rc.method == "gist":
+            pr_slots, _, pr_ok = rec.gist_query(
+                state.gist, state.gist.desc.index_select(0, s1)[0], stamp, k=k,
+                max_dist=tn.gist_max_dist, min_dt=tn.min_time_separation)
+        else:
+            fbank = rec.FeatureSetBank(
+                desc=state.desc, desc_valid=state.desc_valid & g.node_valid[:, None],
+                stamp=g.stamp,
+                valid=g.node_valid & (state.desc_valid.sum(-1) >= tn.min_descriptors))
+            pr_slots, _, pr_ok = rec.feature_set_query(
+                fbank, desc, desc_valid, stamp, k=k, hamming_thresh=tn.feature_hamming_thresh,
+                min_similarity=tn.min_similarity, min_dt=tn.min_time_separation)
+            pr_ok = pr_ok & (desc_valid.sum() >= tn.min_descriptors)
+        pr_ok = pr_ok & mask[i] & (pr_slots != s)
+        # dedup against the edges present (both directions) and earlier candidates
+        edge_present = torch.arange(g.edge_capacity, device=dev) < g.num_edges
+        s_k = s.to(torch.int32).expand(k)
+        pr_ok = pr_ok & rec.mask_existing_pairs(g.e_from, g.e_to, edge_present, pr_slots, s_k)
+        order = torch.arange(k, device=dev)
+        earlier_dup = ((pr_slots[None, :] == pr_slots[:, None]) & pr_ok[None, :]
+                       & (order[None, :] < order[:, None]))
+        pr_ok = pr_ok & ~earlier_dup.any(-1)
+
+        cs = torch.clamp(pr_slots, min=0)
+        mi, ok_m, dist = matching.match_against_bank(desc, desc_valid, state.desc,
+                                                     state.desc_valid, cs, tn.match_ratio,
+                                                     tn.max_match_distance)
+        F = desc.shape[0]
+        dst = torch.gather(state.points.index_select(0, cs.long()), 1,
+                           mi.long()[..., None].expand(k, F, 3))
+        tri_i = (ransac._valid_sample(state.generator, ec.ransac_hypotheses, ok_m, -dist)
+                 if tri is None else tri[i])
+        draws.append(tri_i)
+        res = ransac.ransac_rigid_batch(
+            state.points.index_select(0, s1).expand(k, F, 3), dst, ok_m, ec.ransac_hypotheses,
+            tn.ransac_inlier_thresh, tn.min_consensus, tn.ransac_min_sigma, tri=tri_i)
+        t_norm = torch.linalg.vector_norm(lie.pose_t(res.pose), dim=-1)
+        r_deg = torch.rad2deg(lie.rotation_angle(lie.pose_q(res.pose)))
+        edge_ok = (pr_ok & res.ok & (res.consensus >= tn.min_matching_score)
+                   & (t_norm < tn.max_edge_translation) & (r_deg < tn.max_edge_rotation_deg))
+        g, _ = gstate.add_edges(
+            g, torch.where(edge_ok, pr_slots, -1), s_k, res.pose, res.information,
+            torch.full((k,), gstate.EDGE_TYPE_3D_FULL, dtype=torch.int32, device=dev),
+            res.consensus.to(torch.float32), torch.zeros(k, dtype=torch.bool, device=dev))
+        n_proposed = n_proposed + edge_ok.sum(dtype=torch.int32)
+    tri_used = (torch.stack(draws) if draws else
+                torch.zeros((0, k, ec.ransac_hypotheses, 3), dtype=torch.int32, device=dev))
+    return state.replace(graph=g), n_proposed, {"tri": tri_used}
 
 
 def grow_state(state: SlamState, node_capacity: int, edge_capacity: int) -> SlamState:
