@@ -19,7 +19,12 @@ runs, in order, each phase printing lines of its own:
 3. each solve kernel (K1 linearize, K2 hvp, K3 chain_apply, K4
    residual_chi2, K9 chain_factor, K10 pcg) against its plain PyTorch
    version on the card, on the inputs the solve gives it on a generated
-   1k-node and 100k-node graph, each epoch kernel (K5 relax_min, K6
+   1k-node and 100k-node graph; K34 pcg_chain (K10's updates around K3's
+   apply, one launch a PCG step) on the first PCG solve of the 1k, the
+   500-node epoch's and the 10k solve and in the generic loop's planar form
+   (a full 12-step solve with the same K2, the stall flags, a bit-identical
+   rerun) and a step timed against the three calls it replaces; each epoch
+   kernel (K5 relax_min, K6
    cluster_labels, K7 ransac_rigid, K8 components) on the inputs the
    500-node and 10k-node epochs give it, K8's grid route on the 100k-node
    solve's inputs, and K11 project_rays on a 500-node full rebuild, an
@@ -34,16 +39,19 @@ runs, in order, each phase printing lines of its own:
    work this data needs;
 4. the 1k-node headline solve (20 LM x 12 PCG, chain factor refreshed every
    5, fixed iteration count) through ``optimize``: launch counts of one
-   solve, no host synchronisation inside the timed solves (CUDA sync debug
-   mode "error"), final χ² against the same solve on CPU tensors and
-   against the sparse oracle, median solve time, and a profile with no
-   cuSOLVER or cuBLAS item;
+   solve (its PCG through K34 alone: 260 launches, none of K3 and K10), the
+   device launches of a profiled solve, no host synchronisation inside the
+   timed solves (CUDA sync debug mode "error"), final χ² against the same
+   solve on CPU tensors and against the sparse oracle, median solve time,
+   and a profile with no cuSOLVER or cuBLAS item;
 5. the library default ``SolverConfig()`` (early exit) at 1k nodes against
    the oracle, with the factors K9 actually built against the refreshes
    the reference's loop makes, and a profile;
 6. the headline configuration at 10k nodes against the oracle (LM);
 7. the headline configuration at 100k nodes: time, finite χ² below χ²₀,
-   K8 launched on its grid route;
+   K8 launched on its grid route; in phases 5-9 and 18 a single solve's PCG
+   goes through K34 alone within its cap and through K3 and K10 alone above
+   it (the 100k solve);
 8. the 500-node RGB-D + laser epoch (``pipeline.optimize_epoch`` with the
    live ``SlamConfig``): launch counts per kernel, the factors K9 built
    against the reference's refreshes, sync-free timed epochs except the
@@ -223,14 +231,15 @@ ORACLE_FACTOR, ORACLE_ATOL = 1.10, 1e-3
 #     version takes LU, so the root is held through what the solve uses: the
 #     apply on a fixed right-hand side within CHAIN_APPLY_RTOL;
 #  K10 1e-4 of max|x| after a 12-step PCG — dots summed in another order —
-#     and the same stall flag at every step.
+#     and the same stall flag at every step; K34 (K10's updates around K3's
+#     apply) the same, and bit-identical on a rerun.
 # K11 log-odds: within PROJECT_ATOL at 500 nodes; at 10k nodes within
 # PROJECT_SUM_RTOL·S + PROJECT_ATOL_LARGE, S the cell's sum of |node terms|
 # (free and hit terms of many nodes cancel, and the two sum them in
 # another order); ternary classes equal except within TERNARY_NEAR of a
 # threshold.
 KERNEL_TOL = {"linearize": 1e-3, "hvp": 1e-4, "chain_apply": 1e-4, "residual_chi2": 1e-4,
-              "chain_factor": 1e-4, "pcg": 1e-4}
+              "chain_factor": 1e-4, "pcg": 1e-4, "pcg_chain": 1e-4}
 CHAIN_APPLY_RTOL = 1e-3
 PROJECT_ATOL = 1e-4
 PROJECT_SUM_RTOL, PROJECT_ATOL_LARGE = 2e-6, 1e-5
@@ -266,6 +275,8 @@ REPLACES = {
     "chain_factor": "uzliti_slam_tpu/graph/tridiag.py:145 (block_tridiag_factor)"
                     " + :22-72 (_inv3, _inv6) + :75 (_pad_pow2) + :112 (_dense_root_inverse)",
     "pcg": "uzliti_slam_tpu/graph/solver.py:512 (_pcg)",
+    "pcg_chain": "uzliti_slam_tpu/graph/solver.py:512 (_pcg, its body minus the Hessian-vector"
+                 " product) + graph/tridiag.py:198 (block_tridiag_apply)",
     "project_rays": "uzliti_slam_tpu/mapping/occupancy.py:70 (_project_rays)"
                     " + :191 (_mark_node_cells)",
     "fast_nms": "uzliti_slam_tpu/ops/features.py:54 (fast_score) + :105 (nms)",
@@ -287,7 +298,12 @@ REPLACES.update({
 SOURCE = {k: f"uzliti_slam_tpu_torch/csrc/{k}.cu" for k in REPLACES}
 SOURCE["project_rays"] = "uzliti_slam_tpu_torch/csrc/occupancy.cu"
 SOURCE["bin_min_max"] = "uzliti_slam_tpu_torch/csrc/scan_bins.cu"
-SOLVE_KERNELS = ("linearize", "hvp", "chain_apply", "residual_chi2", "chain_factor", "pcg")
+SOLVE_KERNELS = ("linearize", "hvp", "chain_apply", "residual_chi2", "chain_factor", "pcg",
+                 "pcg_chain")
+# a single solve within K34's cap takes K34 for its PCG; a fleet, or a chain
+# above the cap (the 100k solve), takes K10 around K3
+FUSED_PATH = ("linearize", "hvp", "residual_chi2", "chain_factor", "pcg_chain")
+SPLIT_PCG = ("chain_apply", "pcg")
 EPOCH_KERNELS = ("relax_min", "cluster_labels", "ransac_rigid", "components")
 MAP_KERNELS = ("project_rays",)
 FRONTEND_KERNELS = ("fast_nms", "grid_topk", "orb_describe", "scan_bins")
@@ -536,10 +552,10 @@ SHARDED_100K_CONFIG = dict(iterations=20)
 SHARDED_REPS, SHARDED_RANKS, RANK_TIMEOUT_S = 10, 2, 300
 PLANAR_DZ = 0.2
 FLEET_WORLD = dict(batch=8, n_nodes=64)
-# the kernels the sharded solve launches: K1, K2, K4 on the rank's shard, K8
-# on the whole graph, K3, K9, K10 replicated
-SHARDED_PATH = ("linearize", "hvp", "residual_chi2", "components", "chain_apply",
-                "chain_factor", "pcg")
+# the kernels the sharded 1k solve launches: K1, K2, K4 on the rank's shard,
+# K8 on the whole graph, K9 and K34 replicated (the 100k one K3 and K10)
+SHARDED_PATH = ("linearize", "hvp", "residual_chi2", "components", "chain_factor",
+                "pcg_chain")
 PLANAR_REPLACES = ("uzliti_slam_tpu/graph/solver.py:355 (_make_fused_linearize) with its cmask"
                    " under optimize_xy_only (:369-381)")
 
@@ -638,7 +654,8 @@ def timed_solves(optimize, g, cfg, reps: int):
 # an anonymous namespace's mangled name holds its file's name: K29's
 # sift_describe.cu must come before K14's "describe")
 DEVICE_FUNCTIONS = ("sift_keypoints", "linearize_edges", "linearize_mask", "hvp_seed",
-                    "hvp_edges", "chain_forward", "chain_backward", "chain_root", "factor_level",
+                    "hvp_edges", "pcg_chain_kernel", "chain_forward", "chain_backward",
+                    "chain_root", "factor_level",
                     "factor_root", "pcg_init", "pcg_alpha", "pcg_beta", "project_cells",
                     "residual_edges", "sum_partials",
                     "relax_rows", "cluster_rounds", "ransac_roots", "components_cta",
@@ -836,6 +853,14 @@ def kernel_work(name: str, args) -> tuple[int, int]:
         # read once, x written once; 4 + 12·10 operations per entry
         b, steps = args
         return 4 * b.numel() * (2 + 2 * steps + 1), b.numel() * (4 + 10 * steps)
+    if name == "pcg_chain":
+        # one step: K3's apply (the factor's products and root read once)
+        # and K10's step (p, Hp, x, r and scal read; x, r, p and scal
+        # written; 10 operations per entry)
+        factor, b = args
+        apply_bytes, apply_ops = kernel_work("chain_apply", (factor, b))
+        return (apply_bytes - 8 * b.numel() + 4 * 7 * b.numel() + 32,
+                apply_ops + 10 * b.numel())
     if name == "project_rays":
         # base, tables and the active nodes' scans and scalars read once,
         # the grid written once; ~20 operations per (cell, node) pair whose
@@ -1253,6 +1278,77 @@ def compare_pcg(args, label: str) -> dict:
     return row
 
 
+def compare_pcg_chain(args, label: str, cmask=None, timed: bool = True) -> dict:
+    """K34 against its plain version: a full PCG solve (the start and every
+    step) with the same K2, x within 1e-4 of max|x|, the same stall flag at
+    every step, and a rerun on the first run's Hp products giving x bit for
+    bit; with ``cmask`` the generic loop's planar form (K2's input and
+    output and b masked, as ``_Problem.step`` masks them).  ``timed``: one
+    step against the three calls it replaces (K10's alpha, K3, K10's beta)
+    on the same vectors in alternating turns, and against its plain
+    version."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    Ji, Jj, W, ef, et, damp, free, pack, b, steps, tol = args
+    check(kops.pcg_chain_route(pack), f"pcg_chain {label}: not on K34's route")
+
+    def hvp(v):
+        if cmask is None:
+            return kops.hvp(Ji, Jj, W, ef, et, v, damp, free)
+        return kops.hvp(Ji, Jj, W, ef, et, v * cmask, damp, free) * cmask
+
+    if cmask is not None:
+        b = b * cmask
+
+    def solve(start, step, products=None):
+        st = start(pack, b, 1, cmask)
+        oks, hps = [], []
+        for i in range(steps):
+            hps.append(hvp(st.p) if products is None else products[i])
+            step(pack, hps[-1], st, tol, cmask)
+            oks.append(st.scal[0, 2].clone())
+        return st.x, torch.stack(oks), hps
+
+    x_k, ok_k, hps = solve(kops.pcg_chain_start, kops.pcg_chain_step)
+    x_rerun, ok_rerun, _ = solve(kops.pcg_chain_start, kops.pcg_chain_step, hps)
+    x_p, ok_p, _ = solve(kops.pcg_chain_start_plain, kops.pcg_chain_step_plain)
+    torch.cuda.synchronize()
+    err = float((x_k - x_p).abs().max())
+    rel = err / max(float(x_p.abs().max()), 1e-30)
+    levels, root_inv, _ = pack
+    m_root = root_inv.shape[-1] // 6
+    row = {"max_abs_err": err, "max_rel_err": rel, "tol_rel": KERNEL_TOL["pcg_chain"],
+           "rows": int(b.shape[0]), "levels": len(levels), "root_blocks": m_root,
+           "smem_bytes_per_cta": kops.pcg_chain_smem(len(levels), m_root),
+           "cluster_ctas": kops.PCG_CHAIN_CLUSTER, "column_mask": cmask is not None,
+           "steps": steps, "ok_pattern": [int(v) for v in ok_k.cpu().tolist()],
+           "same_ok_pattern": bool(torch.equal(ok_k, ok_p)),
+           "rerun_bit_identical": bool(torch.equal(x_k, x_rerun) and torch.equal(ok_k, ok_rerun)),
+           "library_ms": None}
+    if timed:
+        Hp = hvp(b)
+        fused = kops.pcg_chain_start(pack, b)
+        x, r, p, scal = kops.pcg_init(b, kops.chain_apply(pack, b))
+        plain = kops.pcg_chain_start_plain(pack, b)
+
+        def three_calls():
+            kops.pcg_alpha(p, Hp, x, r, scal, tol)
+            kops.pcg_beta(r, kops.chain_apply(pack, r), p, scal)
+
+        row["ms"], row["three_calls_ms"] = time_pair(
+            lambda: kops.pcg_chain_step(pack, Hp, fused, tol), three_calls)
+        row["three_calls_over_fused"] = row["three_calls_ms"] / row["ms"]
+        row["plain_ms"] = time_call(lambda: kops.pcg_chain_step_plain(pack, Hp, plain, tol))
+        row["start_ms"] = time_call(lambda: kops.pcg_chain_start(pack, b))
+        row.update(bound("pcg_chain", (pack, b)))
+    log(f"3 kernel pcg_chain {label}", **row)
+    check(bool(torch.isfinite(x_k).all()), f"pcg_chain {label}: non-finite x")
+    check(rel <= KERNEL_TOL["pcg_chain"], f"pcg_chain {label}: rel err {rel:.3g}")
+    check(row["same_ok_pattern"], f"pcg_chain {label}: stall flags differ")
+    check(row["rerun_bit_identical"], f"pcg_chain {label}: a rerun gives other bits")
+    return row
+
+
 # ---------------------------------------------------------------------------
 # Occupancy projection inputs and K11 against its plain version
 # ---------------------------------------------------------------------------
@@ -1496,10 +1592,11 @@ def headline_solve(g, chi2_oracle: float, reps: int):
     kops.reset_launches()
     _, (g2, st) = timed_solves(solver.optimize, g, cfg, reps=1)
     counts = dict(kops.launches)
-    # K10: one launch before each PCG solve and two per step, 20 solves
-    expected = {"linearize": 24, "hvp": 240, "chain_apply": 260, "residual_chi2": 22,
+    # K34: one launch before each PCG solve and one per step, 20 solves; K3
+    # and K10 none (the 1k solve is within K34's cap)
+    expected = {"linearize": 24, "hvp": 240, "chain_apply": 0, "residual_chi2": 22,
                 "relax_min": 0, "cluster_labels": 0, "ransac_rigid": 0, "components": 2,
-                "chain_factor": 4, "pcg": 20 * (1 + 2 * 12), "project_rays": 0,
+                "chain_factor": 4, "pcg": 0, "pcg_chain": 20 * (1 + 12), "project_rays": 0,
                 **{k: 0 for k in FRONTEND_KERNELS + KEYFRAME_KERNELS + MAINT_KERNELS
                    + RECOGNITION_KERNELS + REGISTRATION_KERNELS + SIFT_KERNELS
                    + SCOPE_KERNELS}}
@@ -1517,6 +1614,7 @@ def headline_solve(g, chi2_oracle: float, reps: int):
     prof, names = device_profile(lambda: solver.optimize(g, cfg))
     lib_items = library_items(names)
     log("4 headline 1k", solve_ms=1e3 * t, solves_per_s=1.0 / t, chi2_0=chi2_0,
+        device_launches_per_solve=prof.get("device_launches"),
         chi2=chi2, chi2_run_to_run_spread=spread, chi2_cpu_plain=chi2_cpu,
         chi2_oracle=chi2_oracle, ratio_vs_oracle=chi2 / chi2_oracle, launches=counts,
         accepted=int(st.accepted.sum()), sync_free=True, library_items=lib_items, **prof)
@@ -1559,6 +1657,19 @@ def reference_refreshes(hist, acc, cfg) -> int:
     return builds
 
 
+def check_pcg_route(phase: str, counts: dict, n: int, cfg) -> None:
+    """A single solve's PCG went through K34 alone within its cap, through K3
+    and K10 alone above it."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    halves, m_root = kops._factor_shapes(n, cfg.chain_dense_cutoff)
+    fused = kops.pcg_chain_smem(len(halves), m_root) <= kops._SMEM_BYTES
+    on, off = (("pcg_chain",), SPLIT_PCG) if fused else (SPLIT_PCG, ("pcg_chain",))
+    check(all(counts[k] > 0 for k in on) and all(counts[k] == 0 for k in off),
+          f"{phase}: PCG launches {[(k, counts[k]) for k in SOLVE_KERNELS]}, expected "
+          f"{'K34' if fused else 'K3 and K10'} alone")
+
+
 def solve_against_oracle(g, phase: str, cfg_kw: dict, chi2_oracle, reps: int,
                          profile: bool = False):
     """Phases 5-7: a warm-up solve with the counts (and K9's device count of
@@ -1596,6 +1707,7 @@ def solve_against_oracle(g, phase: str, cfg_kw: dict, chi2_oracle, reps: int,
     check(torch.isfinite(g2.pose).all().item() and chi2 == chi2, f"{phase}: non-finite")
     check(chi2 < chi2_0, f"{phase}: χ² {chi2} not below χ²₀ {chi2_0}")
     check(not library_items(names), f"{phase}: library kernels in the profile")
+    check_pcg_route(phase, counts, g.node_capacity, cfg)
     if cfg.early_exit:
         check(built == fields["reference_refreshes"],
               f"{phase}: {built} factors built, the reference builds "
@@ -1724,8 +1836,9 @@ def epoch_phase(phase: str, built, n: int, reps: int, reads: list, cpu_check: bo
     # the refreshes the reference's loop makes, over each LM solve of the epoch
     ref_builds = sum(reference_refreshes(h.cpu().tolist(), a.cpu().tolist(), cfg.solver)
                      for h, a in loops)
-    check(all(counts[k] > 0 for k in SOLVE_KERNELS + EPOCH_KERNELS),
+    check(all(counts[k] > 0 for k in FUSED_PATH + EPOCH_KERNELS),
           f"{phase}: a kernel was not launched: {counts}")
+    check_pcg_route(phase, counts, state.graph.node_capacity, cfg.solver)
     check(len(restart) == 1, f"{phase}: {len(restart)} restart reads, expected 1")
     check(built_factors == ref_builds,
           f"{phase}: {built_factors} factors built, the reference builds {ref_builds}")
@@ -3853,13 +3966,13 @@ def world_of_one(dev) -> None:
 
 
 def sharded_bound(rows: dict, counts: dict, cfg) -> float:
-    """B19's least time per solve: each launch of K1, K2, K4, K3 and K9 at
-    its bound on these shapes (at world size 1 the shard is the whole
-    table), plus one 12-step K10 bound per LM iteration; the collective
-    moves no bytes in a world of one."""
-    per_call = ("linearize", "hvp", "residual_chi2", "chain_apply", "chain_factor")
+    """B19's least time per solve: each launch of K1, K2, K4, K3, K9 and K34
+    at its bound on these shapes (at world size 1 the shard is the whole
+    table), plus, where K10 runs (above K34's cap), one 12-step K10 bound per
+    LM iteration; the collective moves no bytes in a world of one."""
+    per_call = ("linearize", "hvp", "residual_chi2", "chain_apply", "chain_factor", "pcg_chain")
     return (sum(rows[k]["bound_ms"] * counts[k] for k in per_call)
-            + rows["pcg"]["bound_ms"] * cfg.iterations)
+            + (rows["pcg"]["bound_ms"] * cfg.iterations if counts["pcg"] else 0.0))
 
 
 def sharded_world_phase(g1k, g100k, chi2_oracle_1k: float, spread_1k: float, chi2_100k: float,
@@ -4228,8 +4341,9 @@ def planar_phase(g1k) -> tuple[dict, dict, dict]:
     check(abs(c1 - c_cpu) <= CHI2_RTOL * c_cpu + 1e-6 * c0, f"18e: χ² {c1} vs CPU {c_cpu}")
     check(math.isfinite(c1) and c1 < c0, f"18e: χ² {c1} not below χ²₀ {c0}")
     check(built == ref_builds, f"18e: {built} factors built, the reference builds {ref_builds}")
-    for name in SOLVE_KERNELS + ("components",):
+    for name in FUSED_PATH + ("components",):
         check(counts[name] > 0, f"18e: {name} not launched")
+    check_pcg_route("18e", counts, g.node_capacity, cfg)
     return counts, row, fields
 
 
@@ -4939,6 +5053,7 @@ def main() -> int:
         return 1
     from uzliti_slam_tpu_torch import pipeline
     from uzliti_slam_tpu_torch.config import SlamConfig
+    from uzliti_slam_tpu_torch.graph import solver
     from uzliti_slam_tpu_torch.io import synthetic
     from uzliti_slam_tpu_torch.kernels import _build
 
@@ -4970,9 +5085,19 @@ def main() -> int:
         shape=list(kf_frames[0]["image"].shape))
 
     g1k = make_graph(1000, dev)
+    g10k = make_graph(10_000, dev)
     g100k = make_graph(100_000, dev)
     rows = compare_kernels(g1k, "1k")
     rows_large = compare_kernels(g100k, "100k")
+    # K34 on the first PCG solve of the 1k, the 500-node epoch's and the 10k
+    # solve (each within its cap), and in the generic loop's planar form at
+    # 1k; the 100k solve is above the cap and takes K10 around K3
+    hcfg = solver.SolverConfig(**HEADLINE)
+    rows["pcg_chain"] = compare_pcg_chain(kernel_inputs(g1k, hcfg)["pcg"], "1k")
+    compare_pcg_chain(kernel_inputs(g1k, hcfg)["pcg"], "1k planar column mask",
+                      cmask=solver._xy_mask(torch.float32, dev), timed=False)
+    compare_pcg_chain(kernel_inputs(built500[1].graph, built500[0].solver)["pcg"], "epoch 500")
+    rows_large["pcg_chain"] = compare_pcg_chain(kernel_inputs(g10k, hcfg)["pcg"], "10k")
     rows.update(compare_epoch_kernels(epoch_kernel_inputs(built500[1], built500[0]),
                                       "epoch 500"))
     rows_large.update(compare_epoch_kernels(epoch_kernel_inputs(built10k[1], built10k[0]),
@@ -5027,7 +5152,6 @@ def main() -> int:
     headline_counts = dict(launches)
     solve_against_oracle(g1k, "5 default early-exit 1k", {}, chi2_oracle_1k, reps=5,
                          profile=True)
-    g10k = make_graph(10_000, dev)
     solve_against_oracle(g10k, "6 headline 10k", HEADLINE,
                          oracle_chi2(g10k, iters=20, lm=True), reps=3)
     counts100k, fields100k = solve_against_oracle(g100k, "7 headline 100k", HEADLINE, None, reps=3)
@@ -5085,9 +5209,12 @@ def main() -> int:
     del g100k
     # phase 19: the scope protocol (K31-K33); its main path is the VGA duo
     scope_counts, scope_rows, scope_rows_large, scope_fields = scope_phase(dev)
-    # each kernel's main path: the 1k solve for K1-K4, K9, K10; the 500-node
-    # epoch for K5-K8; the projection sequence after it for K11; the first
-    # timed keyframe step (phase 11, 1 camera) for K12-K18
+    # each kernel's main path: the 1k solve for K1, K2, K4, K9, K34; the
+    # 100k solve for K3 and K10 alone (above K34's cap; the 1k solve's PCG
+    # runs on K34); the 500-node epoch for K5-K8; the projection sequence
+    # after it for K11; the first timed keyframe step (phase 11, 1 camera)
+    # for K12-K18
+    launches.update({name: counts100k[name] for name in SPLIT_PCG})
     launches.update({name: counts500[name] for name in EPOCH_KERNELS})
     launches.update({name: map500[name] for name in MAP_KERNELS})
     launches.update({name: step1[name] for name in FRONTEND_KERNELS + KEYFRAME_KERNELS})
@@ -5095,6 +5222,7 @@ def main() -> int:
     launches.update(merge_pairs=maint500["merge_pairs"], bin_min_max=maint500["bin_min_max"],
                     calib_gn=calib["calib_gn"])
     shapes = {**{k: ("1k solve", "100k solve") for k in SOLVE_KERNELS},
+              "pcg_chain": ("1k solve: one PCG step", "10k solve: one PCG step"),
               **{k: ("500-node epoch", "10k-node epoch") for k in EPOCH_KERNELS},
               "project_rays": ("500-node full rebuild", "10k-node full rebuild"),
               **{k: ("VGA keyframe, 1 camera", "VGA keyframe, front + rear rig")
@@ -5128,6 +5256,21 @@ def main() -> int:
          "shapes_large": shapes[name][1]}
         for name in REPLACES
     ]
+    # K3 and K10: their main path is the 100k solve, so the row's main fields
+    # are its inputs' and the 1k inputs' stand beside them
+    for name in SPLIT_PCG:
+        row = kernels[list(REPLACES).index(name)]
+        for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms", "shapes"):
+            row[f"{k}_1k"] = row[k]
+            row[k] = row.pop(f"{k}_large")
+        row.update(bound_by=rows_large[name]["bound_by"], launches_from="7 headline 100k",
+                   launches_headline_1k=headline_counts[name])
+    # K34: a step beside the three calls it replaces (K10, K3, K10) on the
+    # same vectors, and its start
+    kernels[list(REPLACES).index("pcg_chain")].update(
+        {f"{k}{sfx}": r[k] for sfx, r in (("", rows["pcg_chain"]),
+                                          ("_large", rows_large["pcg_chain"]))
+         for k in ("three_calls_ms", "start_ms", "smem_bytes_per_cta")})
     # K9's plain version in the reference's float32, beside the float64 one
     kernels[list(REPLACES).index("chain_factor")].update(
         plain_float32_ms=rows["chain_factor"]["plain_float32_ms"],
@@ -5241,7 +5384,7 @@ def main() -> int:
              "shapes": "4096 instances x 64 nodes, 128 edges, cutoff 16 (first iteration)"})
     # the solve kernels' launches in one sharded 1k solve and one planar one
     for entry in kernels:
-        if entry["name"] in SHARDED_PATH:
+        if entry["name"] in SOLVE_KERNELS + ("components",):
             entry.update(launches_sharded_1k=sharded_counts[entry["name"]],
                          launches_planar_1k=planar_counts[entry["name"]])
     # K1's column mask: the main path is phase 18's planar solve
@@ -5272,7 +5415,7 @@ def main() -> int:
              "max_abs_err_large": rl["max_abs_err"], "ms_large": rl["ms"],
              "plain_ms_large": rl["plain_ms"], "bound_ms_large": rl["bound_ms"],
              "library_ms_large": None, "shapes_large": shapes19[1]})
-    check(len(kernels) == 44, f"{len(kernels)} kernel entries")
+    check(len(kernels) == 45, f"{len(kernels)} kernel entries")
     unmatched = unmatched_device_functions()
     log("device functions", profiled_kernels=sorted(PROFILED_KERNELS), unmatched=unmatched)
     check(not unmatched, f"device functions no profile matched: {unmatched}")

@@ -1,0 +1,122 @@
+#!/usr/bin/env python3
+"""Time the port's headline solve in two checkouts on the same CUDA card.
+
+    python3 scripts/torch_ab_solve.py --base build/parent [--pairs 5]
+
+``--base`` is another checkout of the repository (for example the parent
+commit unpacked with ``git archive`` into a git-ignored directory); the
+change is the checkout this script lies in.  Each side runs in a process of
+its own, which builds that checkout's kernels into its own ``build/``, and
+the sides take turns: base, change, then change, base, and so on for
+``--pairs`` pairs.  A process warms up, then times ``chip_smoke.HEADLINE``
+solves (20 LM x 12 PCG, chain preconditioner, fixed iterations) of
+``chip_smoke.make_graph`` graphs at each size, host clock around each solve
+between two synchronisations, and profiles one more.  Where the size takes
+K34 (``pcg_chain_route``), it also runs ``chip_smoke.compare_pcg_chain`` on
+the first PCG solve (K34 against its plain version; one step timed with CUDA
+events beside the three calls it replaces) and profiles 100 steps on the
+same vectors for K34's device ms a step.  Prints one JSON line a process,
+then per size each side's medians and how many pairs the change won.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+WORKER = r'''
+import json, statistics, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as cs
+from uzliti_slam_tpu_torch.graph import solver
+from uzliti_slam_tpu_torch.kernels import _build, ops as kops
+dev = torch.device("cuda", 0)
+_build.load()
+cfg = solver.SolverConfig(**cs.HEADLINE)
+out = {}
+for n in map(int, sys.argv[2].split(",")):
+    g = cs.make_graph(n, dev)
+    for _ in range(2):
+        solver.optimize(g, cfg)
+    torch.cuda.synchronize()
+    kops.reset_launches()
+    solver.optimize(g, cfg)
+    torch.cuda.synchronize()
+    launches = dict(kops.launches)
+    ts = []
+    for _ in range(int(sys.argv[3])):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, st = solver.optimize(g, cfg)
+        torch.cuda.synchronize()
+        ts.append(1e3 * (time.perf_counter() - t0))
+    prof, _ = cs.device_profile(lambda: solver.optimize(g, cfg))
+    out[n] = {"ms_median": statistics.median(ts), "ms": ts, "chi2": float(st.chi2_history[-1]),
+              "port_launches": {k: v for k, v in launches.items() if v},
+              "device_launches": prof.get("device_launches"),
+              "device_kernel_ms": prof.get("device_kernel_ms"),
+              "device_busy_share": prof.get("device_busy_share")}
+    args = cs.kernel_inputs(g, cfg)["pcg"]
+    Ji, Jj, W, ef, et, damp, free, pack, b, steps, tol = args
+    if kops.pcg_chain_route(pack):
+        row = cs.compare_pcg_chain(args, str(n))
+        Hp = kops.hvp(Ji, Jj, W, ef, et, b, damp, free)
+        state = kops.pcg_chain_start(pack, b)
+        _, dev_ms = cs.device_profile(
+            lambda: [kops.pcg_chain_step(pack, Hp, state, tol) for _ in range(100)])
+        out[n]["pcg_chain"] = {
+            **{k: row[k] for k in ("ms", "three_calls_ms", "start_ms", "plain_ms", "bound_ms",
+                                   "max_rel_err", "rerun_bit_identical", "smem_bytes_per_cta")},
+            "device_ms_per_step": sum(v for k, v in dev_ms.items()
+                                      if "pcg_chain_kernel" in k) / 100}
+print(json.dumps(out))
+'''
+
+
+def run_side(tree: Path, sizes: str, reps: int) -> dict:
+    proc = subprocess.run([sys.executable, "-c", WORKER, str(tree), sizes, str(reps)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{tree}: exit {proc.returncode}\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--base", required=True, type=Path, help="the other checkout")
+    ap.add_argument("--pairs", type=int, default=5)
+    ap.add_argument("--sizes", default="1000,10000")
+    ap.add_argument("--reps", type=int, default=15, help="timed solves a size and process")
+    args = ap.parse_args()
+    sides = {"base": args.base.resolve(), "change": Path(__file__).resolve().parents[1]}
+    medians = {side: [] for side in sides}
+    for i in range(args.pairs):
+        order = ("base", "change") if i % 2 == 0 else ("change", "base")
+        for side in order:
+            res = run_side(sides[side], args.sizes, args.reps)
+            medians[side].append({n: r["ms_median"] for n, r in res.items()})
+            medians[side][-1].update({f"{n}:{k}": r["pcg_chain"][k] for n, r in res.items()
+                                      if "pcg_chain" in r
+                                      for k in ("ms", "device_ms_per_step")})
+            print(json.dumps({"pair": i, "side": side, **res}), flush=True)
+    for n in args.sizes.split(","):
+        base = [m[n] for m in medians["base"]]
+        change = [m[n] for m in medians["change"]]
+        wins = sum(c < b for b, c in zip(base, change))
+        k34 = {f"{side}_pcg_chain_{k}": [m[f"{n}:{k}"] for m in medians[side]]
+               for side in sides for k in ("ms", "device_ms_per_step")
+               if f"{n}:{k}" in medians[side][0]}
+        print(json.dumps({"size": int(n), "base_medians_ms": base, "change_medians_ms": change,
+                          "base_median_ms": statistics.median(base),
+                          "change_median_ms": statistics.median(change),
+                          "change_wins": wins, "pairs": args.pairs, **k34}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -236,7 +236,7 @@ def test_fast_fixed_loop_matches_the_generic_loop(graph48):
 def _pcg_problem(g):
     """H pieces of the first LM iteration at perturbed poses (JAX side) and
     the port's copies: (jax hvp, jax apply, jax b, port hvp, port apply,
-    port b)."""
+    port b, port factor)."""
     free, adj, r = _linearization_inputs(g)
     cfg = jsolver.SolverConfig(**HEADLINE)
     Ji, Jj, W, grad, Hb, U = jsolver._make_fused_linearize(g, free, cfg, adj)(r)
@@ -251,14 +251,14 @@ def _pcg_problem(g):
     pack_t = kops.chain_factor(Dm_t, U_t)
     return (hvp_j, lambda rr: jtridiag.block_tridiag_apply(pack_j, rr), -grad,
             lambda v: kops.hvp(Ji_t, Jj_t, W_t, gt.e_from, gt.e_to, v, damp_t, free_t),
-            lambda rr: kops.chain_apply(pack_t, rr), -grad_t)
+            lambda rr: kops.chain_apply(pack_t, rr), -grad_t, pack_t)
 
 
 @pytest.mark.parametrize("tol", [1e-8, 2e-3], ids=["converging", "stall_mask_trips"])
 def test_pcg_updates_match_jax(graph128, tol):
-    hvp_j, apply_j, b_j, hvp_t, apply_t, b_t = _pcg_problem(graph128)
+    hvp_j, apply_j, b_j, hvp_t, apply_t, b_t, pack_t = _pcg_problem(graph128)
     x_j = np.asarray(jsolver._pcg(hvp_j, apply_j, b_j, 12, tol))
-    x_t = tsolver._pcg(hvp_t, apply_t, b_t, 12, tol).numpy()
+    x_t = tsolver._pcg(hvp_t, pack_t, b_t, 12, tol).numpy()
     _close_rel(x_t, x_j)
     # the stall flag is K10's third scalar; once it is 0 nothing moves
     x, r, p, scal = kops.pcg_init(b_t, apply_t(b_t))
@@ -273,7 +273,7 @@ def test_pcg_updates_match_jax(graph128, tol):
     else:
         assert oks[0] and not oks[-1]
         assert oks == sorted(oks, reverse=True)        # stays stalled
-        x24 = tsolver._pcg(hvp_t, apply_t, b_t, 24, tol).numpy()
+        x24 = tsolver._pcg(hvp_t, pack_t, b_t, 24, tol).numpy()
         np.testing.assert_array_equal(x24, x_t)
 
 

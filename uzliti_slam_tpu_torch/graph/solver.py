@@ -11,13 +11,15 @@ The generic loop is the fixed chunked loop with that hook; it ignores
 ``early_exit``, as the reference does.  ``optimize_xy_only`` (the planar
 solve) takes each loop's own form of the reference's projection: the fast
 loop masks K1's Jacobian columns and lifts the factor's masked diagonal,
-the generic loop wraps the operator, preconditioner and gradient.  Per LM
-iteration: one fused
-linearization (kernel K1), a fixed count of PCG steps whose Hessian-vector
-products are kernel K2, whose preconditioner applies are kernel K3 and
-whose vector updates are kernel K10, and one retraction whose residuals and
-robust χ² are kernel K4.  The chain factor is kernel K9, connected
-components and gauge fixing are kernel K8.
+the generic loop wraps the operator and gradient and hands the
+preconditioner the column mask (K34 masks r before the apply and z after
+it).  Per LM iteration: one fused linearization (kernel K1), a fixed
+count of PCG steps whose Hessian-vector products are kernel K2 and whose
+vector updates with the preconditioner apply between them are kernel K34,
+one launch a step (a fleet, or a chain above K34's cap, takes K10 around
+K3), and one retraction whose residuals and robust χ² are kernel K4.
+The chain factor is kernel K9, connected components and gauge fixing are
+kernel K8.
 
 ``optimize_batched`` solves a fleet of B independent graphs of equal
 capacities, as the reference's ``vmap`` of ``optimize``: the fleet is
@@ -167,19 +169,21 @@ def _weighted_info(g: GraphState, r: torch.Tensor, huber_delta: float) -> torch.
     return factors.weighted_info(r, g.e_info, g.e_valid, huber_delta)
 
 
-def _pcg(hvp, apply_minv, b, iterations: int, tol: float, batch: int = 1):
-    """Preconditioned CG for H dx = b. Fixed iteration count, masked stall.
+def _pcg(hvp, factor, b, iterations: int, tol: float, batch: int = 1, cmask=None):
+    """Preconditioned CG for H dx = b with the chain factor ``factor`` as
+    the preconditioner M. Fixed iteration count, masked stall.
 
-    Each step is K2 (``hvp``) → K10 → K3 (``apply_minv``) → K10 on a CUDA
-    device: the dots, axpys and stall logic of the reference's body
-    (``solver.py:512-540``) are kernel K10, with its scalars on the device,
-    one row per instance of a fleet of ``batch``.
+    Each step is K2 (``hvp``) → K34 on a CUDA device: the dots, axpys and
+    stall logic of the reference's body (``solver.py:512-540``) around z =
+    M⁻¹r, one launch, with its scalars on the device; a fleet of ``batch``
+    instances, or a chain above K34's cap, takes K10 → K3 → K10 with one row
+    of scalars per instance.  ``cmask`` (6,), the generic loop's planar
+    projection, makes the preconditioner M⁻¹(r·m)·m.
     """
-    x, r, p, scal = kops.pcg_init(b, apply_minv(b), batch)
+    state = kops.pcg_chain_start(factor, b, batch, cmask)
     for _ in range(iterations):
-        kops.pcg_alpha(p, hvp(p), x, r, scal, tol)
-        kops.pcg_beta(r, apply_minv(r), p, scal)
-    return x
+        kops.pcg_chain_step(factor, hvp(state.p), state, tol, cmask)
+    return state.x
 
 
 class _Problem:
@@ -205,7 +209,8 @@ class _Problem:
         self.generic = reduce is not None or config.mode == "pcg"
         # optimize_xy_only: the fast loop masks K1's Jacobian columns and
         # lifts the factor's masked diagonal (solver.py:377-381, :867-868);
-        # the generic loop wraps hvp, minv and the gradient (:1152-1160)
+        # the generic loop wraps hvp, minv and the gradient (:1152-1160);
+        # minv's wrap is the mask _pcg hands the preconditioner
         xy = config.optimize_xy_only
         self.col_mask = XY_COLUMNS if xy and not self.generic else None
         self.cmask = _xy_mask(free.dtype, free.device) if xy else None
@@ -274,22 +279,16 @@ class _Problem:
                 self.reduce(y)
             return y
 
-        def minv(rr):
-            return tridiag.block_tridiag_apply(pack, rr)
-
-        b = -grad
+        b, cm = -grad, None
         if self.generic and self.cmask is not None:
             cm = self.cmask
-            hvp_base, minv_base = hvp, minv
+            hvp_base = hvp
 
             def hvp(v):
                 return hvp_base(v * cm) * cm
 
-            def minv(rr):
-                return minv_base(rr * cm) * cm
-
             b = -(grad * cm)
-        dx = _pcg(hvp, minv, b, cfg.pcg_iterations, cfg.pcg_tol, self.batch)
+        dx = _pcg(hvp, pack, b, cfg.pcg_iterations, cfg.pcg_tol, self.batch, cm)
         cand = lie.pose_retract(poses, dx * free[:, None])
         r_cand, chi2_new = self.residuals(cand)
         return cand, r_cand, chi2_new

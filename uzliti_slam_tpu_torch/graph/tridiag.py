@@ -6,8 +6,9 @@ tridiagonal part (diagonal blocks + consecutive-pose couplings), factored by
 block cyclic reduction: log2(N) levels of batched closed-form 6x6 inverses
 and products, then one dense inverse of the root once ≤ ``dense_cutoff``
 blocks remain.  The factor is the hand-written kernel K9
-(``kernels/ops.chain_factor``, once per preconditioner refresh); the apply,
-once per PCG step, is kernel K3 (``kernels/ops.chain_apply``).
+(``kernels/ops.chain_factor``, once per preconditioner refresh); the apply
+is kernel K3 (``kernels/ops.chain_apply``), and inside a single solve's PCG
+step kernel K34 (``kernels/ops.pcg_chain_step``, which takes the factor).
 """
 
 from __future__ import annotations

@@ -54,6 +54,8 @@ SIGNATURES = {
     "uz_pcg_init": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
     "uz_pcg_alpha": [_P, _P, _I, _I, _F, _P, _P, _P, _P, _P],
     "uz_pcg_beta": [_P, _P, _I, _I, _P, _P, _P, _P],
+    "uz_pcg_chain_start": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "uz_pcg_chain_step": [_P, _F, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "uz_project_rays": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _F,
                         _F, _I, _F, _P, _P],
     "uz_fast_nms": [_P, _I, _I, _I, _F, _P, _P],

@@ -85,11 +85,17 @@ delta_upsert   csrc/delta_apply.cu     scope.py:apply_delta's node and edge
                                        scans, its in-delta dedup and ACK
 scope_merge    csrc/delta_apply.cu     scope.py:apply_scope's scan (own
                                        count)
+pcg_chain      csrc/pcg_chain.cu       graph/solver.py:_pcg's body minus the
+                                       Hessian-vector product, with
+                                       tridiag.py:block_tridiag_apply inside
+                                       it (a single solve; K10 + K3 fused)
 =============  ======================  =======================================
 
 K3, K4, K9 and K10 take a batch of B instances of equal sizes, flattened
 (the fleet of ``parallel/sharded.optimize_batch``); a single solve is the
-batch of one.
+batch of one.  ``pcg_chain_start`` / ``pcg_chain_step`` (K34) are the
+solve's PCG: a single solve within K34's cap takes it, one launch a step; a
+fleet, or a chain above the cap, takes K10 and K3.
 
 What bounds each kernel on the card, and what its design does about it, is
 written at the top of its source file.
@@ -99,6 +105,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -113,7 +120,8 @@ launches = {"linearize": 0, "hvp": 0, "chain_apply": 0, "residual_chi2": 0,
             "merge_pairs": 0, "calib_gn": 0, "bin_min_max": 0, "feature_votes": 0,
             "repository": 0, "bow_words": 0, "bow_query": 0, "voxel_grid": 0,
             "knn_normals": 0, "gicp": 0, "pnp": 0, "sift_describe": 0, "l2_top2": 0,
-            "uid_slots": 0, "edge_key_match": 0, "delta_upsert": 0, "scope_merge": 0}
+            "uid_slots": 0, "edge_key_match": 0, "delta_upsert": 0, "scope_merge": 0,
+            "pcg_chain": 0}
 
 _THREADS = 256  # kThreads in csrc/lie.cuh: K4's partial sums, one per block
 _SMEM_BYTES = 232448  # shared memory one CTA can use on Hopper
@@ -142,7 +150,16 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+_OUT_OF_RESOURCES = 701     # cudaErrorLaunchOutOfResources
+
+
 def _raise_on(err: int, kernel: str) -> None:
+    if err == _OUT_OF_RESOURCES and kernel == "pcg_chain":
+        # K34 checks with cudaOccupancyMaxActiveClusters before its first
+        # launch on a device that its cluster fits, and says so with this code
+        raise RuntimeError(f"pcg_chain: CUDA launch failed with cudaError_t {err}: an "
+                           f"{PCG_CHAIN_CLUSTER}-CTA cluster with {_SMEM_BYTES} bytes of "
+                           "shared memory a CTA does not fit on the device")
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError_t {err}")
 
@@ -1047,6 +1064,147 @@ def pcg_beta(r, z, p, scal) -> None:
                           _ptr(partials), _stream(dev))
     _raise_on(err, "pcg")
     launches["pcg"] += 1
+
+
+# ---------------------------------------------------------------------------
+# K34 pcg_chain (solver._pcg's step around K2: K10 and K3 in one launch)
+# ---------------------------------------------------------------------------
+# A PCG solve is ``pcg_chain_start`` then, per step, K2's Hp = H·p and
+# ``pcg_chain_step``.  Both take the chain factor and, for the generic
+# loop's planar solve, its column mask ``cmask`` (6,): the preconditioner is
+# then M⁻¹(r·m)·m.  Their state is a ``PcgState``.  The route follows from
+# size and batch: a single solve whose level vectors fit the 8-CTA cluster's
+# shared memory (``pcg_chain_route``) takes K34, one launch for the start and
+# one a step; a fleet (batch > 1) or a larger chain takes K10 around K3.
+
+PCG_CHAIN_CLUSTER = 8        # CTAs of K34's cluster (csrc/pcg_chain.cu kCluster)
+_PCG_CHAIN_WARPS = 16        # kChainThreads / 32
+
+
+class PcgState(NamedTuple):
+    """A PCG solve's vectors (B·n, 6) and scalars, updated in place by the
+    steps.  ``scal`` is (B, 3) = [rz, b2, ok] in the plain version and (B,
+    4) on the card (K10's layout, which K34 keeps); ``fused`` holds K34's
+    fixed launch arguments, or None off its route."""
+    x: torch.Tensor
+    r: torch.Tensor
+    p: torch.Tensor
+    scal: torch.Tensor
+    fused: object = None
+
+
+def pcg_chain_smem(levels: int, m_root: int) -> int:
+    """Bytes of shared memory one CTA of K34 takes for a chain of ``levels``
+    reduction levels and ``m_root`` root blocks (csrc/pcg_chain.cu
+    smem_floats): its rows of every level, two back-sweep buffers, the
+    root vector and the sums.  At the default cutoff (a 64-block root)
+    16,384 rows fit."""
+    rr = max(m_root // PCG_CHAIN_CLUSTER, 1)
+    level_rows = rr * ((1 << (levels + 1)) - 1)
+    x_rows = rr << (levels - 1) if levels else 0
+    return 4 * (6 * level_rows + 2 * 6 * x_rows + 6 * m_root + 8 + _PCG_CHAIN_WARPS)
+
+
+def pcg_chain_route(factor, batch: int = 1) -> bool:
+    """Whether a solve with this chain factor takes K34: a single chain
+    (batch 1) whose level vectors fit one CTA's shared memory in the 8-CTA
+    cluster (``pcg_chain_smem``)."""
+    levels, root_inv, _ = factor
+    return batch == 1 and pcg_chain_smem(len(levels), root_inv.shape[-1] // 6) <= _SMEM_BYTES
+
+
+def _preconditioned(apply, factor, v, cmask):
+    """M⁻¹v through ``apply`` (K3 or its plain version), or M⁻¹(v·m)·m with
+    the generic loop's planar mask."""
+    if cmask is None:
+        return apply(factor, v)
+    return apply(factor, v * cmask) * cmask
+
+
+def pcg_chain_start_plain(factor, b, batch: int = 1, cmask=None) -> PcgState:
+    """Plain version of K34's start: z0 = M⁻¹b (K3's plain version), then
+    K10's init."""
+    return PcgState(*pcg_init_plain(b, _preconditioned(chain_apply_plain, factor, b, cmask),
+                                    batch))
+
+
+def pcg_chain_step_plain(factor, Hp, state: PcgState, tol: float, cmask=None) -> None:
+    """Plain version of K34's step after Hp = H·p: K10's first half, z =
+    M⁻¹r (K3's plain version), K10's second half, in place."""
+    x, r, p, scal, _ = state
+    pcg_alpha_plain(p, Hp, x, r, scal, tol)
+    pcg_beta_plain(r, _preconditioned(chain_apply_plain, factor, r, cmask), p, scal)
+
+
+class _Fused(NamedTuple):
+    factor: tuple
+    cmask: object
+    table: object      # the host table the arguments point into
+    z: torch.Tensor    # scratch for M⁻¹r
+    step: object       # the C entry
+    args: tuple        # its arguments after Hp and tol
+
+
+def _chain_table(factor, dev):
+    """(host table of the factor's pointers, levels, root blocks, rows):
+    each level's Dinv_o, P1m, P2, G1, G2, then root_inv, checked for one
+    chain of a power-of-two padding within K34's cap."""
+    levels, root_inv, n = factor
+    L = len(levels)
+    m_root = root_inv.shape[-1] // 6
+    if m_root < 1 or m_root << L != _pow2(n) or pcg_chain_smem(L, m_root) > _SMEM_BYTES:
+        raise ValueError(f"pcg_chain: a chain of {n} rows, {L} levels and a {m_root}-block "
+                         f"root is outside K34's cap ({_SMEM_BYTES} bytes of shared memory "
+                         "a CTA)")
+    ptrs = []
+    for li, lv in enumerate(levels):
+        half = m_root << (L - 1 - li)
+        for nm, t in zip(("Dinv_o", "P1m", "P2", "G1", "G2"), lv):
+            ptrs.append(_check(nm, t, (1, half, 6, 6), torch.float32, dev))
+    ptrs.append(_check("root_inv", root_inv, (1, 6 * m_root, 6 * m_root), torch.float32, dev))
+    return (ctypes.c_void_p * len(ptrs))(*ptrs), L, m_root, n
+
+
+def pcg_chain_start(factor, b, batch: int = 1, cmask=None) -> PcgState:
+    """K34 before the loop (z0 = M⁻¹b, x = 0, r = b, p = z0, rz, b2), in one
+    launch; off its route, K3 then K10's init."""
+    if b.device.type == "cpu":
+        return pcg_chain_start_plain(factor, b, batch, cmask)
+    if not pcg_chain_route(factor, batch):
+        return PcgState(*pcg_init(b, _preconditioned(chain_apply, factor, b, cmask), batch))
+    dev, f32 = b.device, torch.float32
+    table, L, m_root, n = _chain_table(factor, dev)
+    _check("b", b, (n, 6), f32, dev)
+    cm = None if cmask is None else _check("cmask", cmask, (6,), f32, dev)
+    lib = _build.load()
+    x, r, p, z = torch.empty(4, n, 6, dtype=f32, device=dev).unbind(0)
+    scal = torch.empty(1, 4, dtype=f32, device=dev)
+    stream = _stream(dev)
+    head = (ctypes.addressof(table), L, m_root, n, cm)
+    err = lib.uz_pcg_chain_start(*head, b.data_ptr(), x.data_ptr(), r.data_ptr(), p.data_ptr(),
+                                 scal.data_ptr(), stream)
+    _raise_on(err, "pcg_chain")
+    launches["pcg_chain"] += 1
+    args = head + (x.data_ptr(), r.data_ptr(), p.data_ptr(), z.data_ptr(), scal.data_ptr(),
+                   stream)
+    return PcgState(x, r, p, scal, _Fused(factor, cmask, table, z, lib.uz_pcg_chain_step, args))
+
+
+def pcg_chain_step(factor, Hp, state: PcgState, tol: float, cmask=None) -> None:
+    """K34 after Hp = H·p: α, x and r; z = M⁻¹r through every level and the
+    root; β, p and rz, in one launch on the state ``pcg_chain_start`` made
+    (on the stream current then); off its route, K10, K3, K10."""
+    if Hp.device.type == "cpu":
+        return pcg_chain_step_plain(factor, Hp, state, tol, cmask)
+    x, r, p, scal, fused = state
+    if fused is None:
+        pcg_alpha(p, Hp, x, r, scal, tol)
+        return pcg_beta(r, _preconditioned(chain_apply, factor, r, cmask), p, scal)
+    if fused.factor is not factor or fused.cmask is not cmask:
+        raise ValueError("pcg_chain_step: the state was started with another factor or mask")
+    _check("Hp", Hp, tuple(p.shape), torch.float32, p.device)
+    _raise_on(fused.step(Hp.data_ptr(), tol, *fused.args), "pcg_chain")
+    launches["pcg_chain"] += 1
 
 
 # ---------------------------------------------------------------------------
