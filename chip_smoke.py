@@ -19,11 +19,17 @@ runs, in order, each phase printing lines of its own:
 3. each solve kernel (K1 linearize, K2 hvp, K3 chain_apply, K4
    residual_chi2, K9 chain_factor, K10 pcg) against its plain PyTorch
    version on the card, on the inputs the solve gives it on a generated
-   1k-node and 100k-node graph; K34 pcg_chain (K10's updates around K3's
-   apply, one launch a PCG step) on the first PCG solve of the 1k, the
-   500-node epoch's and the 10k solve and in the generic loop's planar form
-   (a full 12-step solve with the same K2, the stall flags, a bit-identical
-   rerun) and a step timed against the three calls it replaces; each epoch
+   1k-node and 100k-node graph (K1 also against the atomic kernel it
+   replaced, scripts/linearize_atomic.cu, built here: Jᵢ, Jⱼ and W bit for
+   bit, and a bit-identical rerun; on the fleet's inputs in phase 17); K35
+   pcg_chain_solve (a whole PCG solve, K2's products and K34's steps, in one
+   launch) on the first PCG solve of the 1k, the 500-node epoch's and the
+   10k solve and in the generic loop's planar form (x, the stall flag of
+   every step, a bit-identical rerun), timed against the 1 + 2·12 calls it
+   replaces; K34 pcg_chain (K10's updates around K3's apply, one launch a
+   PCG step) on the same solves (a full 12-step solve with the same K2, the
+   stall flags, a bit-identical rerun) and a step timed against the three
+   calls it replaces; each epoch
    kernel (K5 relax_min, K6
    cluster_labels, K7 ransac_rigid, K8 components) on the inputs the
    500-node and 10k-node epochs give it, K8's grid route on the 100k-node
@@ -39,19 +45,21 @@ runs, in order, each phase printing lines of its own:
    work this data needs;
 4. the 1k-node headline solve (20 LM x 12 PCG, chain factor refreshed every
    5, fixed iteration count) through ``optimize``: launch counts of one
-   solve (its PCG through K34 alone: 260 launches, none of K3 and K10), the
-   device launches of a profiled solve, no host synchronisation inside the
-   timed solves (CUDA sync debug mode "error"), final χ² against the same
-   solve on CPU tensors and against the sparse oracle, median solve time,
-   and a profile with no cuSOLVER or cuBLAS item;
+   solve (its PCG through K35 alone: 20 launches, none of K2, K34, K3 and
+   K10), the device launches of a profiled solve, no host synchronisation
+   inside the timed solves (CUDA sync debug mode "error"), the 10 timed
+   solves' χ² and poses bit-identical, final χ² against the same solve on
+   CPU tensors and against the sparse oracle, median solve time, and a
+   profile with no cuSOLVER or cuBLAS item;
 5. the library default ``SolverConfig()`` (early exit) at 1k nodes against
    the oracle, with the factors K9 actually built against the refreshes
    the reference's loop makes, and a profile;
 6. the headline configuration at 10k nodes against the oracle (LM);
 7. the headline configuration at 100k nodes: time, finite χ² below χ²₀,
-   K8 launched on its grid route; in phases 5-9 and 18 a single solve's PCG
-   goes through K34 alone within its cap and through K3 and K10 alone above
-   it (the 100k solve);
+   K8 launched on its grid route; in phases 5-9, 17 and 18 each solve's PCG
+   goes through its route alone: K35 for a single solve within K34's cap
+   with no reduce hook, K2 and K34 for the edge-sharded solve, K2, K10 and
+   K3 above the cap (the 100k solve) and in the fleet;
 8. the 500-node RGB-D + laser epoch (``pipeline.optimize_epoch`` with the
    live ``SlamConfig``): launch counts per kernel, the factors K9 built
    against the reference's refreshes, sync-free timed epochs except the
@@ -155,8 +163,9 @@ runs, in order, each phase printing lines of its own:
    a process of this script, ``--overhead``, with PyTorch's defaults and
    with c10d's per-collective bookkeeping off), the
    all-reduces counted against their formula, the launches of one solve,
-   a profile with its non-port items by name, χ² within phase 4's spread
-   of the plain solve's and against the oracle; (b) the generic loop
+   a profile with its non-port items by name, χ² within the two routes'
+   spreads over their turns (+ 1e-6·χ²₀) of the generic solve's and against
+   the oracle; (b) the generic loop
    against the fast fixed form at 1k (ms, χ² histories within 1e-3); (c)
    the 100k graph sharded at ``scripts/scaling_bench.py``'s configuration,
    χ² against phase 7's; (d) two gloo ranks on the one card, each a
@@ -184,8 +193,10 @@ runs, in order, each phase printing lines of its own:
    odometry's, the scope functions sync-free on a round's arguments; (c)
    tests/test_runner.py's 96x128 duo on the card, then with its RANSAC
    draws replayed on CPU tensors: without the global's optimization the
-   same global graph and poses within 1e-3 m; as the test runs it, its bars
-   and the card-card and card-CPU gaps.  K31-K33 against their plain
+   same global graph and poses within 1e-3 m; as the test runs it, its bars,
+   the card-card and card-CPU gaps, and whether two card runs end
+   bit-identical (if not, the PyTorch ops without a deterministic
+   implementation).  K31-K33 against their plain
    versions on a round of (b) and on (a)'s calls, exactly.
 
 Then one JSON line with the kernels' results, the nvidia-smi line, and as
@@ -232,14 +243,18 @@ ORACLE_FACTOR, ORACLE_ATOL = 1.10, 1e-3
 #     apply on a fixed right-hand side within CHAIN_APPLY_RTOL;
 #  K10 1e-4 of max|x| after a 12-step PCG — dots summed in another order —
 #     and the same stall flag at every step; K34 (K10's updates around K3's
-#     apply) the same, and bit-identical on a rerun.
+#     apply) and K35 (K34 with K2's products inside) the same, and
+#     bit-identical on a rerun.  K1's node rows within 1e-3 of the plain
+#     version's, its Jᵢ, Jⱼ and W bit-equal to the atomic kernel it replaced
+#     (scripts/linearize_atomic.cu) and every output bit-identical on a
+#     rerun.
 # K11 log-odds: within PROJECT_ATOL at 500 nodes; at 10k nodes within
 # PROJECT_SUM_RTOL·S + PROJECT_ATOL_LARGE, S the cell's sum of |node terms|
 # (free and hit terms of many nodes cancel, and the two sum them in
 # another order); ternary classes equal except within TERNARY_NEAR of a
 # threshold.
 KERNEL_TOL = {"linearize": 1e-3, "hvp": 1e-4, "chain_apply": 1e-4, "residual_chi2": 1e-4,
-              "chain_factor": 1e-4, "pcg": 1e-4, "pcg_chain": 1e-4}
+              "chain_factor": 1e-4, "pcg": 1e-4, "pcg_chain": 1e-4, "pcg_chain_solve": 1e-4}
 CHAIN_APPLY_RTOL = 1e-3
 PROJECT_ATOL = 1e-4
 PROJECT_SUM_RTOL, PROJECT_ATOL_LARGE = 2e-6, 1e-5
@@ -277,6 +292,8 @@ REPLACES = {
     "pcg": "uzliti_slam_tpu/graph/solver.py:512 (_pcg)",
     "pcg_chain": "uzliti_slam_tpu/graph/solver.py:512 (_pcg, its body minus the Hessian-vector"
                  " product) + graph/tridiag.py:198 (block_tridiag_apply)",
+    "pcg_chain_solve": "uzliti_slam_tpu/graph/solver.py:512 (_pcg, the whole loop) + :306"
+                       " (_make_hvp) + graph/tridiag.py:198 (block_tridiag_apply)",
     "project_rays": "uzliti_slam_tpu/mapping/occupancy.py:70 (_project_rays)"
                     " + :191 (_mark_node_cells)",
     "fast_nms": "uzliti_slam_tpu/ops/features.py:54 (fast_score) + :105 (nms)",
@@ -298,12 +315,19 @@ REPLACES.update({
 SOURCE = {k: f"uzliti_slam_tpu_torch/csrc/{k}.cu" for k in REPLACES}
 SOURCE["project_rays"] = "uzliti_slam_tpu_torch/csrc/occupancy.cu"
 SOURCE["bin_min_max"] = "uzliti_slam_tpu_torch/csrc/scan_bins.cu"
+SOURCE["pcg_chain_solve"] = "uzliti_slam_tpu_torch/csrc/pcg_chain.cu"
 SOLVE_KERNELS = ("linearize", "hvp", "chain_apply", "residual_chi2", "chain_factor", "pcg",
-                 "pcg_chain")
-# a single solve within K34's cap takes K34 for its PCG; a fleet, or a chain
-# above the cap (the 100k solve), takes K10 around K3
-FUSED_PATH = ("linearize", "hvp", "residual_chi2", "chain_factor", "pcg_chain")
+                 "pcg_chain", "pcg_chain_solve")
+# The PCG's three routes (solver._pcg): a single solve within K34's cap with
+# no reduce hook takes K35 alone; with one (the edge-sharded solve) K2 and
+# K34; a fleet, or a chain above the cap (the 100k solve), K2, K10 and K3
+FUSED_PATH = ("linearize", "residual_chi2", "chain_factor", "pcg_chain_solve")
 SPLIT_PCG = ("chain_apply", "pcg")
+PCG_ROUTES = {"k35": ("pcg_chain_solve",), "k2_k34": ("hvp", "pcg_chain"),
+              "k2_k10_k3": ("hvp",) + SPLIT_PCG}
+# the A/B reference of K1's Jᵢ, Jⱼ and W: the atomic kernel it replaced,
+# built by this script alone
+ATOMIC_K1_SOURCE = "scripts/linearize_atomic.cu"
 EPOCH_KERNELS = ("relax_min", "cluster_labels", "ransac_rigid", "components")
 MAP_KERNELS = ("project_rays",)
 FRONTEND_KERNELS = ("fast_nms", "grid_topk", "orb_describe", "scan_bins")
@@ -653,8 +677,9 @@ def timed_solves(optimize, g, cfg, reps: int):
 # longer names first: a mangled name takes the first entry it contains (and
 # an anonymous namespace's mangled name holds its file's name: K29's
 # sift_describe.cu must come before K14's "describe")
-DEVICE_FUNCTIONS = ("sift_keypoints", "linearize_edges", "linearize_mask", "hvp_seed",
-                    "hvp_edges", "pcg_chain_kernel", "chain_forward", "chain_backward",
+DEVICE_FUNCTIONS = ("sift_keypoints", "linearize_rows", "hvp_seed",
+                    "hvp_edges", "pcg_chain_kernel", "pcg_solve_kernel", "chain_forward",
+                    "chain_backward",
                     "chain_root", "factor_level",
                     "factor_root", "pcg_init", "pcg_alpha", "pcg_beta", "project_cells",
                     "residual_edges", "sum_partials",
@@ -708,6 +733,7 @@ def device_profile(fn) -> tuple[dict, dict]:
     return ({"profiled_wall_ms": 1e3 * wall, "device_kernel_ms": dev_us / 1e3,
              "device_busy_share": dev_us / 1e6 / wall,
              "device_launches": sum(e.count for e in kernels),
+             "memcpy_dtod": sum(e.count for e in kernels if e.key.startswith("Memcpy DtoD")),
              "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top}},
             {e.key: e.self_device_time_total / 1e3 for e in kernels})
 
@@ -791,10 +817,12 @@ def kernel_work(name: str, args) -> tuple[int, int]:
     from uzliti_slam_tpu_torch.kernels import ops as kops
 
     if name == "linearize":
-        r, adj, info, valid, ef, et, free, both_free, is_chain, *_ = args
+        # in: the edge tables and the incidence table; out: Ji, Jj, W (E, 6,
+        # 6) and grad, Hb, U (n, 78); ~4500 operations an edge (the kernel
+        # computes each edge at both endpoints; the work needs it once)
+        r, adj, info, valid, ef, et, free, both_free, is_chain, *_, table = args
         E, n = r.shape[0], free.shape[0]
-        # out: Ji, Jj, W (E, 6, 6) and grad, Hb, U (n, 78)
-        return (_nbytes(r, adj, info, valid, ef, et, free, both_free, is_chain)
+        return (_nbytes(r, adj, info, valid, free, both_free, is_chain, *table)
                 + 4 * (3 * 36 * E + 78 * n), 4500 * E)
     if name == "hvp":
         Ji, Jj, W, ef, et, v, damp, free = args
@@ -861,6 +889,18 @@ def kernel_work(name: str, args) -> tuple[int, int]:
         apply_bytes, apply_ops = kernel_work("chain_apply", (factor, b))
         return (apply_bytes - 8 * b.numel() + 4 * 7 * b.numel() + 32,
                 apply_ops + 10 * b.numel())
+    if name == "pcg_chain_solve":
+        # K34's start and `steps` times (K34's step + K2's product): the
+        # operations of each; the bytes of the whole solve, each input (the
+        # factor, the operator and its table, b) read once and x, r, p and
+        # scal written once
+        factor, op, b, steps = args
+        (levels, root_inv, _) = factor
+        apply_bytes, apply_ops = kernel_work("chain_apply", (factor, b))
+        _, step_ops = kernel_work("pcg_chain", (factor, b))
+        _, hvp_ops = kernel_work("hvp", tuple(op[:5]) + (b,) + tuple(op[5:7]))
+        return (_nbytes(root_inv, *(m for lv in levels for m in lv), *op[:7], *op.table, b)
+                + 4 * 3 * b.numel() + 16, apply_ops + 4 * b.numel() + steps * (step_ops + hvp_ops))
     if name == "project_rays":
         # base, tables and the active nodes' scans and scalars read once,
         # the grid written once; ~20 operations per (cell, node) pair whose
@@ -1110,9 +1150,11 @@ def make_graph(n_nodes: int, device, seed: int = SEED):
 
 
 def kernel_inputs(g, cfg):
-    """The inputs each solve kernel gets in the first LM iteration (K10:
-    the first PCG solve's operators and right-hand side)."""
+    """The inputs each solve kernel gets in the first LM iteration (K10 and
+    K35: the first PCG solve's operators and right-hand side; "table" the
+    solve's incidence table, which K1 and K35 take)."""
     from uzliti_slam_tpu_torch.graph import solver
+    from uzliti_slam_tpu_torch.kernels import ops as kops
 
     free = (g.node_valid & ~solver.gauge_fix_mask(g, solver.connected_components(g))).float()
     p = solver._Problem(g, free, cfg)
@@ -1134,6 +1176,10 @@ def kernel_inputs(g, cfg):
         "chain_factor": (Dm, U, cfg.chain_dense_cutoff),
         "pcg": (Ji, Jj, W, g.e_from, g.e_to, damp, free, pack, -grad, cfg.pcg_iterations,
                 cfg.pcg_tol),
+        "pcg_chain_solve": (pack, kops.HvpOperator(Ji, Jj, W, g.e_from, g.e_to, damp, free,
+                                                   p.table), -grad, cfg.pcg_iterations,
+                            cfg.pcg_tol),
+        "table": p.table,
     }
 
 
@@ -1143,8 +1189,8 @@ def compare_kernels(g, label: str):
     from uzliti_slam_tpu_torch.kernels import ops as kops
 
     inputs = kernel_inputs(g, solver.SolverConfig(**HEADLINE))
-    results = {}
-    for name in ("residual_chi2", "linearize", "hvp", "chain_apply"):
+    results = {"linearize": compare_linearize(inputs["linearize"], inputs["table"], label)}
+    for name in ("residual_chi2", "hvp", "chain_apply"):
         args = inputs[name]
         kernel_fn = getattr(kops, name)
         plain_fn = getattr(kops, f"{name}_plain")
@@ -1168,6 +1214,154 @@ def compare_kernels(g, label: str):
     results["chain_factor"] = compare_chain_factor(inputs["chain_factor"], label)
     results["pcg"] = compare_pcg(inputs["pcg"], label)
     return results
+
+
+_ATOMIC_K1 = {}     # the loaded A/B reference of K1 (start_atomic_k1_build, load_atomic_k1)
+
+
+def start_atomic_k1_build():
+    """Start nvcc on K1's A/B reference (the atomic kernel it replaced,
+    ATOMIC_K1_SOURCE, with the package's lie.cuh) beside the package's own
+    build; ``load_atomic_k1`` waits for it."""
+    import os
+
+    from uzliti_slam_tpu_torch.kernels import _build
+
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), ATOMIC_K1_SOURCE)
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = _build.BUILD_DIR / "liblinearize_atomic.so"
+    cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", str(_build.CSRC), "-o",
+           str(out), src]
+    _ATOMIC_K1["build"] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True), out, cmd)
+
+
+def load_atomic_k1() -> None:
+    import ctypes
+
+    proc, out, cmd = _ATOMIC_K1.pop("build")
+    _, err = proc.communicate(timeout=600)
+    check(proc.returncode == 0, f"nvcc failed on {ATOMIC_K1_SOURCE}: {' '.join(cmd)}\n{err}")
+    lib = ctypes.CDLL(str(out))
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.uz_linearize_atomic.argtypes = [P] * 9 + [F, I, I, I] + [P] * 7
+    lib.uz_linearize_atomic.restype = ctypes.c_int
+    _ATOMIC_K1["lib"] = lib
+
+
+def atomic_linearize(r, adj, info, valid, ef, et, free, both_free, is_chain, huber_delta,
+                     col_mask=None):
+    """The atomic kernel K1 replaced, on the same inputs, as its wrapper ran
+    it (the node rows zeroed first): (Ji, Jj, W, grad, Hb, U)."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    E, n = r.shape[0], free.shape[0]
+    J = torch.empty(3, E, 6, 6, device=r.device)
+    acc = torch.zeros(78 * n, device=r.device)
+    grad, Hb, U = acc[: 6 * n], acc[6 * n: 42 * n], acc[42 * n:]
+    err = _ATOMIC_K1["lib"].uz_linearize_atomic(
+        *(t.data_ptr() for t in (r, adj, info, valid, ef, et, free, both_free, is_chain)),
+        float(huber_delta), E, n, kops._column_bits(col_mask),
+        *(t.data_ptr() for t in (J[0], J[1], J[2], grad, Hb, U)),
+        torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"uz_linearize_atomic: cudaError_t {err}")
+    return J[0], J[1], J[2], grad.view(n, 6), Hb.view(n, 6, 6), U.view(n, 6, 6)
+
+
+def compare_linearize(args, table, label: str) -> dict:
+    """K1 against its plain version (node rows within KERNEL_TOL of each
+    output's largest entry: another summation order), its Jᵢ, Jⱼ and W
+    against the atomic kernel it replaced bit for bit, a rerun bit for bit;
+    timed beside the plain version and, in turns, beside the atomic
+    kernel."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    def kernel():
+        return kops.linearize(*args, table=table)
+
+    got, again, ref = kernel(), kernel(), kops.linearize_plain(*args)
+    old = atomic_linearize(*args)
+    torch.cuda.synchronize()
+    err = rel = old_rel = 0.0
+    for a, b, c in zip(got, ref, old):
+        check(bool(torch.isfinite(a).all()), f"linearize {label}: non-finite output")
+        e, r = _rel(a, b)
+        err, rel, old_rel = max(err, e), max(rel, r), max(old_rel, _rel(c, b)[1])
+    row = {"max_abs_err": err, "max_rel_err": rel, "tol_rel": KERNEL_TOL["linearize"],
+           "atomic_max_rel_err": old_rel,
+           "jacobians_bit_equal_to_atomic": all(bool(torch.equal(a, c))
+                                                 for a, c in zip(got[:3], old[:3])),
+           "rerun_bit_identical": all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+           "table_entries": int(table.row_ptr[-1]), "library_ms": None}
+    row["ms"], row["plain_ms"] = time_pair(kernel, lambda: kops.linearize_plain(*args))
+    row["ms_beside_atomic"], row["atomic_ms"] = time_pair(kernel, lambda: atomic_linearize(*args))
+    row.update(bound("linearize", tuple(args) + (table,)))
+    log(f"3 kernel linearize {label}", **row)
+    check(rel <= KERNEL_TOL["linearize"], f"linearize {label}: rel err {rel:.3g}")
+    check(row["jacobians_bit_equal_to_atomic"],
+          f"linearize {label}: Ji, Jj or W differ from the atomic kernel's")
+    check(row["rerun_bit_identical"], f"linearize {label}: a rerun gives other bits")
+    return row
+
+
+def compare_pcg_chain_solve(inputs, label: str, cmask=None, timed: bool = True) -> dict:
+    """K35 against its plain version: the whole 12-step solve, x within
+    1e-4 of max|x|, the same stall flag at every step (K35 run for 1, 2, ...
+    steps: its scal[2] after the last), x and scal bit-identical over two
+    launches; with ``cmask`` the generic loop's planar form (b masked, H and
+    M⁻¹ wrapped).  ``timed``: against the calls it replaces (K34's start,
+    then 12 times K2 and K34's step) in alternating turns, and its plain
+    version."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    pack, op, b, steps, tol = inputs
+    check(kops.pcg_chain_route(pack), f"pcg_chain_solve {label}: not on K34's route")
+    if cmask is not None:
+        b = b * cmask
+
+    def fused(k=steps):
+        return kops.pcg_chain_solve(pack, op, b, k, tol, cmask)
+
+    st, st2 = fused(), fused()
+    ok_k = torch.stack([fused(k).scal[0, 2] for k in range(1, steps + 1)])
+    sp, ok_p = kops.pcg_chain_start_plain(pack, b, 1, cmask), []
+    for _ in range(steps):
+        kops.pcg_chain_step_plain(pack, kops._masked_hvp(op, sp.p, cmask), sp, tol, cmask)
+        ok_p.append(sp.scal[0, 2].clone())
+    ok_p = torch.stack(ok_p)
+    torch.cuda.synchronize()
+    err, rel = _rel(st.x, sp.x)
+    levels, root_inv, _ = pack
+    row = {"max_abs_err": err, "max_rel_err": rel, "tol_rel": KERNEL_TOL["pcg_chain_solve"],
+           "rows": int(b.shape[0]), "edges": int(op.e_from.shape[0]),
+           "table_entries": int(op.table.row_ptr[-1]), "levels": len(levels),
+           "root_blocks": root_inv.shape[-1] // 6, "column_mask": cmask is not None,
+           "steps": steps, "ok_pattern": [int(v) for v in ok_k.cpu().tolist()],
+           "same_ok_pattern": bool(torch.equal(ok_k, ok_p)),
+           "rerun_bit_identical": bool(torch.equal(st.x, st2.x) and torch.equal(st.scal, st2.scal)),
+           "library_ms": None}
+    if timed:
+        def k2(v):
+            if cmask is None:
+                return kops.hvp(*op[:5], v, op.damp, op.free)
+            return kops.hvp(*op[:5], v * cmask, op.damp, op.free) * cmask
+
+        def replaced():
+            s = kops.pcg_chain_start(pack, b, 1, cmask)
+            for _ in range(steps):
+                kops.pcg_chain_step(pack, k2(s.p), s, tol, cmask)
+
+        row["ms"], row["replaced_ms"] = time_pair(fused, replaced)
+        row["replaced_over_fused"] = row["replaced_ms"] / row["ms"]
+        row["plain_ms"] = time_call(
+            lambda: kops.pcg_chain_solve_plain(pack, op, b, steps, tol, cmask), trials=5, calls=2)
+        row.update(bound("pcg_chain_solve", (pack, op, b, steps)))
+    log(f"3 kernel pcg_chain_solve {label}", **row)
+    check(bool(torch.isfinite(st.x).all()), f"pcg_chain_solve {label}: non-finite x")
+    check(rel <= KERNEL_TOL["pcg_chain_solve"], f"pcg_chain_solve {label}: rel err {rel:.3g}")
+    check(row["same_ok_pattern"], f"pcg_chain_solve {label}: stall flags differ")
+    check(row["rerun_bit_identical"], f"pcg_chain_solve {label}: a rerun gives other bits")
+    return row
 
 
 def _flat_factor(factor) -> list:
@@ -1592,33 +1786,35 @@ def headline_solve(g, chi2_oracle: float, reps: int):
     kops.reset_launches()
     _, (g2, st) = timed_solves(solver.optimize, g, cfg, reps=1)
     counts = dict(kops.launches)
-    # K34: one launch before each PCG solve and one per step, 20 solves; K3
-    # and K10 none (the 1k solve is within K34's cap)
-    expected = {"linearize": 24, "hvp": 240, "chain_apply": 0, "residual_chi2": 22,
-                "relax_min": 0, "cluster_labels": 0, "ransac_rigid": 0, "components": 2,
-                "chain_factor": 4, "pcg": 0, "pcg_chain": 20 * (1 + 12), "project_rays": 0,
-                **{k: 0 for k in FRONTEND_KERNELS + KEYFRAME_KERNELS + MAINT_KERNELS
-                   + RECOGNITION_KERNELS + REGISTRATION_KERNELS + SIFT_KERNELS
-                   + SCOPE_KERNELS}}
+    # K35: one launch a PCG solve, 20 solves; K2, K34, K3 and K10 none (the
+    # 1k solve is within K34's cap and has no reduce hook)
+    expected = solve_launches(pcg_chain_solve=20)
     check(counts == expected, f"launch counts {counts} != {expected}")
-    finals = []
+    finals, poses = [], []
     for _ in range(reps):
         t1, (g2, st) = timed_solves(solver.optimize, g, cfg, reps=1)
         finals.append((t1, float(st.chi2_history[-1])))
+        poses.append(g2.pose)
     t = statistics.median(f[0] for f in finals)
     hist = st.chi2_history.cpu()
     chi2_0, chi2 = float(hist[0]), float(hist[-1])
+    # K1 and K35 sum without atomics: every solve of one input gives the
+    # same bits
     spread = max(f[1] for f in finals) - min(f[1] for f in finals)
+    same_poses = all(bool(torch.equal(q, poses[0])) for q in poses[1:])
     _, st_cpu = solver.optimize(g.to("cpu"), cfg)
     chi2_cpu = float(st_cpu.chi2_history[-1])
     prof, names = device_profile(lambda: solver.optimize(g, cfg))
     lib_items = library_items(names)
     log("4 headline 1k", solve_ms=1e3 * t, solves_per_s=1.0 / t, chi2_0=chi2_0,
         device_launches_per_solve=prof.get("device_launches"),
-        chi2=chi2, chi2_run_to_run_spread=spread, chi2_cpu_plain=chi2_cpu,
+        chi2=chi2, chi2_run_to_run_spread=spread, poses_bit_identical=same_poses,
+        chi2_cpu_plain=chi2_cpu,
         chi2_oracle=chi2_oracle, ratio_vs_oracle=chi2 / chi2_oracle, launches=counts,
         accepted=int(st.accepted.sum()), sync_free=True, library_items=lib_items, **prof)
     check(not lib_items, f"1k solve: library kernels in the profile: {lib_items}")
+    check(spread == 0.0 and same_poses,
+          f"1k solve: {reps} solves of one input differ (χ² spread {spread})")
     check(abs(chi2 - chi2_cpu) <= CHI2_RTOL * chi2_cpu + 1e-6 * chi2_0,
           f"1k χ² {chi2} vs CPU plain path {chi2_cpu}")
     check(chi2 <= ORACLE_FACTOR * chi2_oracle + ORACLE_ATOL,
@@ -1657,17 +1853,38 @@ def reference_refreshes(hist, acc, cfg) -> int:
     return builds
 
 
-def check_pcg_route(phase: str, counts: dict, n: int, cfg) -> None:
-    """A single solve's PCG went through K34 alone within its cap, through K3
-    and K10 alone above it."""
+def solve_launches(**counts) -> dict:
+    """Every kernel's launch count 0 but the solve's own: K1 24, K4 22, K8
+    2, K9 4 (the headline configuration) and the PCG's ``counts``."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    out = dict.fromkeys(kops.launches, 0)
+    out.update(linearize=24, residual_chi2=22, components=2, chain_factor=4, **counts)
+    return out
+
+
+def pcg_route(n: int, cfg, batch: int = 1, reduce: bool = False) -> str:
+    """The PCG route a solve of ``batch`` chains of ``n`` rows takes
+    (``solver._pcg``): "k35", "k2_k34" or "k2_k10_k3"."""
     from uzliti_slam_tpu_torch.kernels import ops as kops
 
     halves, m_root = kops._factor_shapes(n, cfg.chain_dense_cutoff)
-    fused = kops.pcg_chain_smem(len(halves), m_root) <= kops._SMEM_BYTES
-    on, off = (("pcg_chain",), SPLIT_PCG) if fused else (SPLIT_PCG, ("pcg_chain",))
+    if batch > 1 or kops.pcg_chain_smem(len(halves), m_root) > kops._SMEM_BYTES:
+        return "k2_k10_k3"
+    return "k2_k34" if reduce else "k35"
+
+
+def check_pcg_route(phase: str, counts: dict, n: int, cfg, batch: int = 1,
+                    reduce: bool = False) -> None:
+    """A solve's PCG went through its route's kernels alone: K35 for a
+    single solve within K34's cap with no reduce hook, K2 and K34 with one,
+    K2, K10 and K3 in a fleet or above the cap."""
+    route = pcg_route(n, cfg, batch, reduce)
+    on = PCG_ROUTES[route]
+    off = {k for r in PCG_ROUTES.values() for k in r} - set(on)
     check(all(counts[k] > 0 for k in on) and all(counts[k] == 0 for k in off),
           f"{phase}: PCG launches {[(k, counts[k]) for k in SOLVE_KERNELS]}, expected "
-          f"{'K34' if fused else 'K3 and K10'} alone")
+          f"{route} alone")
 
 
 def solve_against_oracle(g, phase: str, cfg_kw: dict, chi2_oracle, reps: int,
@@ -3719,6 +3936,7 @@ def fleet_kernel_inputs(fleet, cfg):
             "hvp": (Ji, Jj, W, g.e_from, g.e_to, damp, free), "b": -grad,
             "linearize": (r0, p.adj_meas_inv, g.e_info, p.valid, g.e_from, g.e_to, free,
                           p.both_free, p.is_chain, cfg.huber_delta),
+            "table": p.table,
             "components": (g.e_from, g.e_to, g.e_valid, g.node_valid, g.node_fixed, g.stamp,
                            B * n, solver.component_iterations(n))}
 
@@ -3733,12 +3951,12 @@ def compare_fleet_kernels(inputs: dict, steps: int, tol: float) -> dict:
     fleet's first iteration, timed beside its bound."""
     from uzliti_slam_tpu_torch.kernels import ops as kops
 
-    rows = {}
     # K1 and K2 as they run on the flattened fleet: 1e-3 and 1e-4 of each
-    # output's largest entry (KERNEL_TOL); K8 exactly
+    # output's largest entry (KERNEL_TOL), K1 also against the atomic kernel
+    # it replaced (phase 3's checks, on the fleet's inputs); K8 exactly
+    rows = {"linearize_fleet": compare_linearize(inputs["linearize"], inputs["table"], "fleet")}
     Ji, Jj, W, ef, et, damp, free = inputs["hvp"]
-    for name, args in (("linearize", inputs["linearize"]),
-                       ("hvp", (Ji, Jj, W, ef, et, inputs["b"], damp, free))):
+    for name, args in (("hvp", (Ji, Jj, W, ef, et, inputs["b"], damp, free)),):
         kernel_fn, plain_fn = getattr(kops, name), getattr(kops, f"{name}_plain")
         got, ref = kernel_fn(*args), plain_fn(*args)
         got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
@@ -3919,6 +4137,7 @@ def fleet_phase(device) -> tuple[dict, dict, dict]:
     check(counts == counts_small, f"17: launches grow with B: {counts} vs {counts_small}")
     for name in FLEET_PATH:
         check(counts[name] > 0, f"17: {name} not launched")
+    check_pcg_route("17", counts, n, cfg, batch=B)
     check(bool(torch.isfinite(out.pose).all()) and bool((chi2 < chi2_0).all()),
           "17: a fleet instance did not lower its χ²")
     check(not library_items(names), "17: library kernels in the profile")
@@ -3976,7 +4195,7 @@ def sharded_bound(rows: dict, counts: dict, cfg) -> float:
 
 
 def sharded_world_phase(g1k, g100k, chi2_oracle_1k: float, spread_1k: float, chi2_100k: float,
-                        headline_counts: dict, rows: dict, rows_large: dict) -> tuple[dict, dict]:
+                        rows: dict, rows_large: dict) -> tuple[dict, dict]:
     """Phase 18 (a)-(c), in a one-rank NCCL world: (a) the 1k graph sharded
     against ``optimize(mode="pcg")``, (b) the generic loop against the
     fast fixed form, (c) the 100k graph sharded.  Returns (the launches of
@@ -4027,6 +4246,14 @@ def sharded_world_phase(g1k, g100k, chi2_oracle_1k: float, spread_1k: float, chi
     torch.cuda.synchronize()
     all_reduce_us = 1e6 * (time.perf_counter() - t0) / expected
     prof, names = device_profile(lambda: sharded_fn(g1k, cfg))
+    # the device-to-device copies an incidence table build makes (inside
+    # torch.sort): 10 builds between two of the same solves, less those two
+    # (a profile can miss its first records, so nothing is counted alone at
+    # either end); the profiled solve builds one table
+    builds_prof = device_profile(lambda: (sharded_fn(g1k, cfg), [kops.incidence_table(
+        g1k.e_from, g1k.e_to, g1k.e_valid, g1k.node_capacity) for _ in range(10)],
+        sharded_fn(g1k, cfg)))[0]
+    copies_per_build = (builds_prof.get("memcpy_dtod", 0) - 2 * prof.get("memcpy_dtod", 0)) / 10
     non_port = {k[:90]: ms_ for k, ms_ in sorted(names.items(), key=lambda kv: -kv[1])
                 if not any(f in k for f in DEVICE_FUNCTIONS)}
     generic_vs_fast = float(((hists["generic"] - hists["fast"]).abs()
@@ -4048,20 +4275,32 @@ def sharded_world_phase(g1k, g100k, chi2_oracle_1k: float, spread_1k: float, chi
               "bound_ms": bound_1k, "bound_x": ms["sharded"] / bound_1k,
               "library_items": library_items(names),
               "nccl_items": [k for k in non_port if "nccl" in k.lower()],
+              # device-to-device copies are counted against the table builds
               "other_items": [k for k in non_port
-                              if "at::native::" not in k and "nccl" not in k.lower()],
+                              if "at::native::" not in k and "nccl" not in k.lower()
+                              and not k.startswith("Memcpy DtoD")],
+              "memcpy_dtod_per_table_build": copies_per_build,
               "non_port_items_ms": non_port, **prof}
     log("18a sharded 1k, world of one", **fields)
     check(collectives == expected == formula,
           f"18a: {collectives} all-reduces, expected {expected} = {formula}")
-    check(counts == headline_counts, f"18a: launches {counts} != the headline's {headline_counts}")
+    # the sharded route: K2 for each Hv (its all-reduce between Hv and the
+    # dot) and K34 for each PCG step, 20 solves
+    expected_counts = solve_launches(hvp=240, pcg_chain=20 * (1 + 12))
+    check(counts == expected_counts, f"18a: launches {counts} != {expected_counts}")
     for name in SHARDED_PATH:
         check(counts[name] > 0, f"18a: {name} not launched")
     # besides the port's kernels, only PyTorch's own (the loop's glue) and NCCL's
     check(not fields["library_items"] and not fields["other_items"],
           f"18a: library kernels in the profile: {fields['library_items']} "
           f"{fields['other_items']}")
-    tol = max(spread_1k, spread["generic"]) + 1e-6 * chi2_0
+    check(prof.get("memcpy_dtod") == copies_per_build,
+          f"18a: {prof.get('memcpy_dtod')} device-to-device copies in the solve, "
+          f"{copies_per_build} in its one incidence table build")
+    # the noise of the two routes compared: each one's own spread over its
+    # turns (the generic solve's is 0 since K35; the sharded one keeps K2's
+    # atomics and sums Hv in another order)
+    tol = max(spread["sharded"], spread["generic"]) + 1e-6 * chi2_0
     check(abs(chi2["sharded"] - chi2["generic"]) <= tol,
           f"18a: sharded χ² {chi2['sharded']} vs generic {chi2['generic']} beyond {tol}")
     check(chi2["sharded"] <= ORACLE_FACTOR * chi2_oracle_1k + ORACLE_ATOL,
@@ -4088,6 +4327,7 @@ def sharded_world_phase(g1k, g100k, chi2_oracle_1k: float, spread_1k: float, chi
     check(abs(c1 - chi2_100k) <= CHI2_RTOL * chi2_100k + 1e-6 * c0,
           f"18c: χ² {c1} vs phase 7's {chi2_100k}")
     check(coll100 == sharded.collectives_per_solve(cfg100), f"18c: {coll100} all-reduces")
+    check_pcg_route("18c", counts100, g100k.node_capacity, cfg100, reduce=True)
     fields["100k"] = f100
     return counts, fields
 
@@ -4312,7 +4552,7 @@ def planar_phase(g1k) -> tuple[dict, dict, dict]:
     r0, _ = p.residuals(gf.pose)
     args = (r0, p.adj_meas_inv, gf.e_info, p.valid, gf.e_from, gf.e_to, free, p.both_free,
             p.is_chain, cfg.huber_delta, p.col_mask)
-    got, ref = kops.linearize(*args), kops.linearize_plain(*args)
+    got, ref = kops.linearize(*args, table=p.table), kops.linearize_plain(*args)
     err, rel = 0.0, 0.0
     for a, b in zip(got, ref):
         check(bool(torch.isfinite(a).all()), "18e: K1 masked: non-finite output")
@@ -4321,12 +4561,13 @@ def planar_phase(g1k) -> tuple[dict, dict, dict]:
     masked_zero = not bool(got[0][:, :, 2:5].any() or got[4][:, 2:5].any())
     row = {"max_abs_err": err, "max_rel_err": rel, "tol_rel": KERNEL_TOL["linearize"],
            "masked_columns_zero": masked_zero, "library_ms": None}
-    row["ms"], row["plain_ms"] = time_pair(lambda: kops.linearize(*args),
+    row["ms"], row["plain_ms"] = time_pair(lambda: kops.linearize(*args, table=p.table),
                                            lambda: kops.linearize_plain(*args))
     # K1 without the mask on the same inputs, timed beside the masked form
-    row["ms_masked_again"], row["ms_unmasked"] = time_pair(lambda: kops.linearize(*args),
-                                                           lambda: kops.linearize(*args[:-1]))
-    row.update(bound("linearize", args))
+    row["ms_masked_again"], row["ms_unmasked"] = time_pair(
+        lambda: kops.linearize(*args, table=p.table),
+        lambda: kops.linearize(*args[:-1], table=p.table))
+    row.update(bound("linearize", args + (p.table,)))
     log("18e kernel linearize_xy 1k", **row)
     fields = {"n_nodes": int(g.num_nodes), "dz_sigma": PLANAR_DZ, "solve_ms": 1e3 * t,
               "solve_ms_unprojected": 1e3 * statistics.median(times["unprojected"]), **prof,
@@ -4390,8 +4631,8 @@ def fleet_world_phase(device) -> dict:
     return fields
 
 
-def sharded_phase(dev, g1k, g100k, chi2_oracle_1k, spread_1k, chi2_100k, headline_counts,
-                  rows, rows_large) -> tuple[dict, dict, dict, dict]:
+def sharded_phase(dev, g1k, g100k, chi2_oracle_1k, spread_1k, chi2_100k, rows,
+                  rows_large) -> tuple[dict, dict, dict, dict]:
     """Phase 18: the generic loop, the edge-sharded solve and the planar
     solve, each path driven with the counts set to 0 just before it and
     read just after.  Returns (the sharded 1k solve's launches, the planar
@@ -4401,7 +4642,7 @@ def sharded_phase(dev, g1k, g100k, chi2_oracle_1k, spread_1k, chi2_100k, headlin
     world_of_one(dev)
     try:
         counts, fields = sharded_world_phase(g1k, g100k, chi2_oracle_1k, spread_1k, chi2_100k,
-                                             headline_counts, rows, rows_large)
+                                             rows, rows_large)
         fields["fleet"] = fleet_world_phase(dev)
     finally:
         dist.destroy_process_group()
@@ -4895,6 +5136,23 @@ def graph_gaps(ga, gb) -> tuple[dict, float]:
     return same, float((ga.pose[:n][live] - gb.pose[:n][live]).abs().max())
 
 
+def nondeterministic_ops(fn) -> list:
+    """The first lines of the warnings PyTorch gives, while ``fn()`` runs
+    under ``torch.use_deterministic_algorithms(True, warn_only=True)``, for
+    ops with no deterministic implementation on the card."""
+    import warnings
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).splitlines()[0][:200] for w in caught
+                   if "determinis" in str(w.message)})
+
+
 def scope_replay_phase(dev) -> dict:
     """Phase 19c: tests/test_runner.py's 96x128 duo (24 frames) on the card,
     its RANSAC draws recorded, then again with those draws replayed on the
@@ -4902,9 +5160,12 @@ def scope_replay_phase(dev) -> dict:
     step is deterministic: the card and CPU global graphs must have the
     same structure (live uids, edge endpoints, types, validity) and poses
     within SCOPE_POSE_ATOL.  (ii) As tests/test_runner.py runs it (the
-    global optimizes every round): its bars on the card, and the structure
-    and pose gaps card-card and card-CPU reported (the solves' float atomics
-    make two card runs differ, ROADMAP C5)."""
+    global optimizes every round): its bars on the card, the structure and
+    pose gaps card-card and card-CPU reported, and whether the two card
+    runs end bit-identical (ROADMAP C5: the epochs' solves take K1 and K35,
+    which sum without atomics); if they do not, the PyTorch ops that have
+    no deterministic implementation, named by a third card run under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``."""
     from uzliti_slam_tpu_torch import runner
     from uzliti_slam_tpu_torch.io import simulator
 
@@ -4912,8 +5173,8 @@ def scope_replay_phase(dev) -> dict:
     frames = simulator.simulate_sequence(world, n_frames=24, odom_drift=0.05, length=5.0)
     cpu = torch.device("cpu")
 
-    def runs(names, optimize: bool):
-        out, draws = {}, None
+    def runs(names, optimize: bool, draws=None):
+        out = {}
         for name, device in names:
             cfg, pose = scope_duo_config(device, "96x128")
             duo = runner.LocalGlobalSlam(cfg, cam=world.cam, cam_pose=pose, device=device)
@@ -4924,9 +5185,10 @@ def scope_replay_phase(dev) -> dict:
             else:
                 r = draws_replayed(lambda: run_duo(duo, frames, optimize_global=optimize), draws)
             out[name] = (duo, r, time.perf_counter() - t0)
-        return out, len(draws)
+        return out, draws
 
-    fixed, n_draws = runs((("card", dev), ("cpu", cpu)), optimize=False)
+    fixed, draws = runs((("card", dev), ("cpu", cpu)), optimize=False)
+    n_draws = len(draws)
     same, pose_err = graph_gaps(fixed["card"][0].global_slam.state.graph,
                                 fixed["cpu"][0].global_slam.state.graph)
     fields = {"without_optimization": {
@@ -4939,14 +5201,21 @@ def scope_replay_phase(dev) -> dict:
     check(pose_err <= SCOPE_POSE_ATOL, f"19c: poses {pose_err:.3g} apart")
     check(fixed["card"][1] == fixed["cpu"][1], f"19c: counts {fields['without_optimization']}")
 
-    full, n_draws = runs((("card", dev), ("card_again", dev), ("cpu", cpu)), optimize=True)
+    full, draws = runs((("card", dev), ("card_again", dev), ("cpu", cpu)), optimize=True)
+    n_draws = len(draws)
     dc, (evc, prc), tc = full["card"]
     bars = duo_bars(dc, frames, evc, prc)
     gaps = {}
     for other in ("card_again", "cpu"):
         s, e = graph_gaps(dc.global_slam.state.graph, full[other][0].global_slam.state.graph)
         gaps[other] = {"same": s, "pose_max_abs_err": e, "counts": full[other][1]}
-    fields["test_runner"] = {"card_s": tc, "draws": n_draws, **bars, "gaps": gaps}
+    again = gaps["card_again"]
+    identical = all(again["same"].values()) and again["pose_max_abs_err"] == 0.0
+    fields["test_runner"] = {"card_s": tc, "draws": n_draws, **bars, "gaps": gaps,
+                             "card_runs_bit_identical": identical}
+    if not identical:
+        fields["test_runner"]["nondeterministic_ops"] = nondeterministic_ops(
+            lambda: runs((("card_deterministic", dev),), optimize=True, draws=draws))
     log("19c duo 96x128 as tests/test_runner.py runs it", **fields["test_runner"])
     check_duo_bars("19c", bars, ate_bar=False, ate_max=0.3)
     return fields
@@ -5067,7 +5336,9 @@ def main() -> int:
         python=sys.version.split()[0], card=smi)
 
     t0 = time.perf_counter()
+    start_atomic_k1_build()
     _build.load()
+    load_atomic_k1()
     ptxas = _build.BUILD_DIR / f"ptxas_{_build.source_hash()}.log"
     log("2 build", seconds=time.perf_counter() - t0, nvcc_seconds=_build.last_build_seconds,
         library=str(_build.library_path().relative_to(_build.BUILD_DIR.parents[1])),
@@ -5089,15 +5360,23 @@ def main() -> int:
     g100k = make_graph(100_000, dev)
     rows = compare_kernels(g1k, "1k")
     rows_large = compare_kernels(g100k, "100k")
-    # K34 on the first PCG solve of the 1k, the 500-node epoch's and the 10k
-    # solve (each within its cap), and in the generic loop's planar form at
-    # 1k; the 100k solve is above the cap and takes K10 around K3
+    # K35 and K34 on the first PCG solve of the 1k, the 500-node epoch's and
+    # the 10k solve (each within the cap), and in the generic loop's planar
+    # form at 1k; the 100k solve is above the cap and takes K2, K10 and K3
     hcfg = solver.SolverConfig(**HEADLINE)
-    rows["pcg_chain"] = compare_pcg_chain(kernel_inputs(g1k, hcfg)["pcg"], "1k")
-    compare_pcg_chain(kernel_inputs(g1k, hcfg)["pcg"], "1k planar column mask",
-                      cmask=solver._xy_mask(torch.float32, dev), timed=False)
-    compare_pcg_chain(kernel_inputs(built500[1].graph, built500[0].solver)["pcg"], "epoch 500")
-    rows_large["pcg_chain"] = compare_pcg_chain(kernel_inputs(g10k, hcfg)["pcg"], "10k")
+    xy = solver._xy_mask(torch.float32, dev)
+    in1k, in10k = kernel_inputs(g1k, hcfg), kernel_inputs(g10k, hcfg)
+    in500 = kernel_inputs(built500[1].graph, built500[0].solver)
+    rows["pcg_chain_solve"] = compare_pcg_chain_solve(in1k["pcg_chain_solve"], "1k")
+    compare_pcg_chain_solve(in1k["pcg_chain_solve"], "1k planar column mask", cmask=xy,
+                            timed=False)
+    compare_pcg_chain_solve(in500["pcg_chain_solve"], "epoch 500")
+    rows_large["pcg_chain_solve"] = compare_pcg_chain_solve(in10k["pcg_chain_solve"], "10k")
+    rows["pcg_chain"] = compare_pcg_chain(in1k["pcg"], "1k")
+    compare_pcg_chain(in1k["pcg"], "1k planar column mask", cmask=xy, timed=False)
+    compare_pcg_chain(in500["pcg"], "epoch 500")
+    rows_large["pcg_chain"] = compare_pcg_chain(in10k["pcg"], "10k")
+    del in1k, in10k, in500
     rows.update(compare_epoch_kernels(epoch_kernel_inputs(built500[1], built500[0]),
                                       "epoch 500"))
     rows_large.update(compare_epoch_kernels(epoch_kernel_inputs(built10k[1], built10k[0]),
@@ -5204,17 +5483,17 @@ def main() -> int:
     # phase 18: the generic loop, the edge-sharded solve (B19, in a world of
     # one and two ranks on the card) and the planar solve (K1's column mask)
     sharded_counts, planar_counts, xy_row, sharded_fields = sharded_phase(
-        dev, g1k, g100k, chi2_oracle_1k, spread_1k, fields100k["chi2"], headline_counts,
-        rows, rows_large)
+        dev, g1k, g100k, chi2_oracle_1k, spread_1k, fields100k["chi2"], rows, rows_large)
     del g100k
     # phase 19: the scope protocol (K31-K33); its main path is the VGA duo
     scope_counts, scope_rows, scope_rows_large, scope_fields = scope_phase(dev)
-    # each kernel's main path: the 1k solve for K1, K2, K4, K9, K34; the
-    # 100k solve for K3 and K10 alone (above K34's cap; the 1k solve's PCG
-    # runs on K34); the 500-node epoch for K5-K8; the projection sequence
-    # after it for K11; the first timed keyframe step (phase 11, 1 camera)
-    # for K12-K18
-    launches.update({name: counts100k[name] for name in SPLIT_PCG})
+    # each kernel's main path: the 1k solve for K1, K4, K9, K35; the 100k
+    # solve for K2, K3 and K10 (above K34's cap; the 1k solve's PCG runs on
+    # K35); the sharded 1k solve (18a) for K34; the 500-node epoch for
+    # K5-K8; the projection sequence after it for K11; the first timed
+    # keyframe step (phase 11, 1 camera) for K12-K18
+    launches.update({name: counts100k[name] for name in SPLIT_PCG + ("hvp",)})
+    launches["pcg_chain"] = sharded_counts["pcg_chain"]
     launches.update({name: counts500[name] for name in EPOCH_KERNELS})
     launches.update({name: map500[name] for name in MAP_KERNELS})
     launches.update({name: step1[name] for name in FRONTEND_KERNELS + KEYFRAME_KERNELS})
@@ -5223,6 +5502,8 @@ def main() -> int:
                     calib_gn=calib["calib_gn"])
     shapes = {**{k: ("1k solve", "100k solve") for k in SOLVE_KERNELS},
               "pcg_chain": ("1k solve: one PCG step", "10k solve: one PCG step"),
+              "pcg_chain_solve": ("1k solve: one 12-step PCG solve",
+                                  "10k solve: one 12-step PCG solve"),
               **{k: ("500-node epoch", "10k-node epoch") for k in EPOCH_KERNELS},
               "project_rays": ("500-node full rebuild", "10k-node full rebuild"),
               **{k: ("VGA keyframe, 1 camera", "VGA keyframe, front + rear rig")
@@ -5256,9 +5537,9 @@ def main() -> int:
          "shapes_large": shapes[name][1]}
         for name in REPLACES
     ]
-    # K3 and K10: their main path is the 100k solve, so the row's main fields
-    # are its inputs' and the 1k inputs' stand beside them
-    for name in SPLIT_PCG:
+    # K2, K3 and K10: their main path is the 100k solve, so the row's main
+    # fields are its inputs' and the 1k inputs' stand beside them
+    for name in SPLIT_PCG + ("hvp",):
         row = kernels[list(REPLACES).index(name)]
         for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms", "shapes"):
             row[f"{k}_1k"] = row[k]
@@ -5266,11 +5547,25 @@ def main() -> int:
         row.update(bound_by=rows_large[name]["bound_by"], launches_from="7 headline 100k",
                    launches_headline_1k=headline_counts[name])
     # K34: a step beside the three calls it replaces (K10, K3, K10) on the
-    # same vectors, and its start
+    # same vectors, and its start; its main path is the sharded 1k solve
     kernels[list(REPLACES).index("pcg_chain")].update(
         {f"{k}{sfx}": r[k] for sfx, r in (("", rows["pcg_chain"]),
                                           ("_large", rows_large["pcg_chain"]))
-         for k in ("three_calls_ms", "start_ms", "smem_bytes_per_cta")})
+         for k in ("three_calls_ms", "start_ms", "smem_bytes_per_cta")},
+        launches_from="18a sharded 1k, world of one",
+        launches_headline_1k=headline_counts["pcg_chain"])
+    # K35: a whole PCG solve beside the calls it replaces (K34's start, then
+    # 12 times K2 and K34's step) in turns
+    kernels[list(REPLACES).index("pcg_chain_solve")].update(
+        {f"{k}{sfx}": r[k] for sfx, r in (("", rows["pcg_chain_solve"]),
+                                          ("_large", rows_large["pcg_chain_solve"]))
+         for k in ("replaced_ms", "replaced_over_fused", "ok_pattern")})
+    # K1: beside the atomic kernel it replaced, in turns
+    kernels[list(REPLACES).index("linearize")].update(
+        {f"{k}{sfx}": r[k] for sfx, r in (("", rows["linearize"]),
+                                          ("_large", rows_large["linearize"]))
+         for k in ("ms_beside_atomic", "atomic_ms", "jacobians_bit_equal_to_atomic",
+                   "rerun_bit_identical")})
     # K9's plain version in the reference's float32, beside the float64 one
     kernels[list(REPLACES).index("chain_factor")].update(
         plain_float32_ms=rows["chain_factor"]["plain_float32_ms"],
@@ -5415,7 +5710,10 @@ def main() -> int:
              "max_abs_err_large": rl["max_abs_err"], "ms_large": rl["ms"],
              "plain_ms_large": rl["plain_ms"], "bound_ms_large": rl["bound_ms"],
              "library_ms_large": None, "shapes_large": shapes19[1]})
-    check(len(kernels) == 45, f"{len(kernels)} kernel entries")
+    check(len(kernels) == 46, f"{len(kernels)} kernel entries")
+    check(all(e["launches"] > 0 for e in kernels if e["name"] in SOLVE_KERNELS),
+          f"a solve kernel's main path did not launch it: "
+          f"{[(e['name'], e['launches']) for e in kernels if e['name'] in SOLVE_KERNELS]}")
     unmatched = unmatched_device_functions()
     log("device functions", profiled_kernels=sorted(PROFILED_KERNELS), unmatched=unmatched)
     check(not unmatched, f"device functions no profile matched: {unmatched}")

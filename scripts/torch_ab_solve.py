@@ -11,12 +11,17 @@ the sides take turns: base, change, then change, base, and so on for
 ``--pairs`` pairs.  A process warms up, then times ``chip_smoke.HEADLINE``
 solves (20 LM x 12 PCG, chain preconditioner, fixed iterations) of
 ``chip_smoke.make_graph`` graphs at each size, host clock around each solve
-between two synchronisations, and profiles one more.  Where the size takes
-K34 (``pcg_chain_route``), it also runs ``chip_smoke.compare_pcg_chain`` on
-the first PCG solve (K34 against its plain version; one step timed with CUDA
-events beside the three calls it replaces) and profiles 100 steps on the
-same vectors for K34's device ms a step.  Prints one JSON line a process,
-then per size each side's medians and how many pairs the change won.
+between two synchronisations, and profiles one more (device launches,
+busy share, and the device ms a solve of K1, K2 and the fused PCG
+kernels); the size "fleet" times ``parallel.sharded.optimize_batch`` on
+``chip_smoke.FLEET`` at ``chip_smoke.FLEET_CONFIG`` instead.  Where the
+size takes K34 (``pcg_chain_route``), it also runs
+``chip_smoke.compare_pcg_chain`` on the first PCG solve (K34 against its
+plain version; one step timed with CUDA events beside the three calls it
+replaces) and profiles 100 steps on the same vectors for K34's device ms a
+step, and, in a checkout that has it, ``compare_pcg_chain_solve`` (K35).
+Prints one JSON line a process, then per size each side's medians and how
+many pairs the change won.
 """
 
 from __future__ import annotations
@@ -38,30 +43,55 @@ from uzliti_slam_tpu_torch.kernels import _build, ops as kops
 dev = torch.device("cuda", 0)
 _build.load()
 cfg = solver.SolverConfig(**cs.HEADLINE)
-out = {}
-for n in map(int, sys.argv[2].split(",")):
-    g = cs.make_graph(n, dev)
+
+def timed(fn, g, c, reps):
     for _ in range(2):
-        solver.optimize(g, cfg)
+        fn(g, c)
     torch.cuda.synchronize()
     kops.reset_launches()
-    solver.optimize(g, cfg)
+    fn(g, c)
     torch.cuda.synchronize()
     launches = dict(kops.launches)
     ts = []
-    for _ in range(int(sys.argv[3])):
+    for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, st = solver.optimize(g, cfg)
+        res = fn(g, c)
         torch.cuda.synchronize()
         ts.append(1e3 * (time.perf_counter() - t0))
-    prof, _ = cs.device_profile(lambda: solver.optimize(g, cfg))
-    out[n] = {"ms_median": statistics.median(ts), "ms": ts, "chi2": float(st.chi2_history[-1]),
-              "port_launches": {k: v for k, v in launches.items() if v},
-              "device_launches": prof.get("device_launches"),
-              "device_kernel_ms": prof.get("device_kernel_ms"),
-              "device_busy_share": prof.get("device_busy_share")}
-    args = cs.kernel_inputs(g, cfg)["pcg"]
+    prof, names = cs.device_profile(lambda: fn(g, c))
+    by_kernel = {k: sum(v for name, v in names.items() if f in name)
+                 for k, f in (("k1", "linearize"), ("k2", "hvp_"), ("k34", "pcg_chain_kernel"),
+                              ("k35", "pcg_solve_kernel"))}
+    return res, {"ms_median": statistics.median(ts), "ms": ts,
+                 "port_launches": {k: v for k, v in launches.items() if v},
+                 "device_launches": prof.get("device_launches"),
+                 "device_kernel_ms": prof.get("device_kernel_ms"),
+                 "device_busy_share": prof.get("device_busy_share"),
+                 "device_ms_by_kernel": by_kernel}
+
+
+out = {}
+for size in sys.argv[2].split(","):
+    if size == "fleet":
+        from uzliti_slam_tpu_torch.io import synthetic
+        from uzliti_slam_tpu_torch.parallel import sharded
+        fleet, _ = synthetic.make_pose_graph_batch(
+            cs.FLEET["batch"], cs.FLEET["n_nodes"], loop_closure_every=cs.FLEET["loop_closure_every"],
+            generator=torch.Generator().manual_seed(cs.SEED), capacity_rounding="pow2", device=dev)
+        res, out[size] = timed(sharded.optimize_batch, fleet, solver.SolverConfig(**cs.FLEET_CONFIG),
+                               max(3, int(sys.argv[3]) // 5))
+        out[size]["mean_chi2"] = float(solver.optimize_batched(
+            fleet, sharded.fleet_config(solver.SolverConfig(**cs.FLEET_CONFIG)))[1]
+            .chi2_history[:, -1].mean())
+        del fleet
+        continue
+    n = int(size)
+    g = cs.make_graph(n, dev)
+    (_, st), out[n] = timed(solver.optimize, g, cfg, int(sys.argv[3]))
+    out[n]["chi2"] = float(st.chi2_history[-1])
+    inputs = cs.kernel_inputs(g, cfg)
+    args = inputs["pcg"]
     Ji, Jj, W, ef, et, damp, free, pack, b, steps, tol = args
     if kops.pcg_chain_route(pack):
         row = cs.compare_pcg_chain(args, str(n))
@@ -74,6 +104,10 @@ for n in map(int, sys.argv[2].split(",")):
                                    "max_rel_err", "rerun_bit_identical", "smem_bytes_per_cta")},
             "device_ms_per_step": sum(v for k, v in dev_ms.items()
                                       if "pcg_chain_kernel" in k) / 100}
+        if hasattr(cs, "compare_pcg_chain_solve"):
+            row = cs.compare_pcg_chain_solve(inputs["pcg_chain_solve"], str(n))
+            out[n]["pcg_chain_solve"] = {k: row[k] for k in (
+                "ms", "replaced_ms", "plain_ms", "bound_ms", "max_rel_err", "rerun_bit_identical")}
 print(json.dumps(out))
 '''
 
@@ -99,7 +133,7 @@ def main() -> int:
         order = ("base", "change") if i % 2 == 0 else ("change", "base")
         for side in order:
             res = run_side(sides[side], args.sizes, args.reps)
-            medians[side].append({n: r["ms_median"] for n, r in res.items()})
+            medians[side].append({str(n): r["ms_median"] for n, r in res.items()})
             medians[side][-1].update({f"{n}:{k}": r["pcg_chain"][k] for n, r in res.items()
                                       if "pcg_chain" in r
                                       for k in ("ms", "device_ms_per_step")})
@@ -111,7 +145,7 @@ def main() -> int:
         k34 = {f"{side}_pcg_chain_{k}": [m[f"{n}:{k}"] for m in medians[side]]
                for side in sides for k in ("ms", "device_ms_per_step")
                if f"{n}:{k}" in medians[side][0]}
-        print(json.dumps({"size": int(n), "base_medians_ms": base, "change_medians_ms": change,
+        print(json.dumps({"size": n, "base_medians_ms": base, "change_medians_ms": change,
                           "base_median_ms": statistics.median(base),
                           "change_median_ms": statistics.median(change),
                           "change_wins": wins, "pairs": args.pairs, **k34}))

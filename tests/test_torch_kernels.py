@@ -1135,9 +1135,11 @@ def test_linearize_passes_the_column_mask_as_bits(fake_lib):
     i32 = torch.int32
     args = (_meta(E, 6), _meta(E, 6, 6), _meta(E, 6, 6), _meta(E), _meta(E, dtype=i32),
             _meta(E, dtype=i32), _meta(n), _meta(n), _meta(E), 1.0)
-    kops.linearize(*args)
+    table = kops.IncidenceTable(_meta(n + 1, dtype=i32), _meta(2 * E, dtype=i32))
+    kops.linearize(*args, table=table)
     calls = []
-    kops.linearize(*args, col_mask=(1.0, 1.0, 0.0, 0.0, 0.0, 1.0), reduce=calls.append)
+    kops.linearize(*args, col_mask=(1.0, 1.0, 0.0, 0.0, 0.0, 1.0), reduce=calls.append,
+                   table=table)
     # (…, huber_delta, n_edges, n_nodes, col_keep, …): bits 0, 1 and 5 kept
     assert [c[1][9:13] for c in fake_lib.calls] == [(1.0, E, n, 63), (1.0, E, n, 35)]
     assert len(calls) == 1 and tuple(calls[0].shape) == (78 * n,)

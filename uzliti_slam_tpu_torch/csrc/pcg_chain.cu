@@ -1,4 +1,6 @@
-// K34 pcg_chain: one PCG step's preconditioner half in one launch.
+// K34 pcg_chain: one PCG step's preconditioner half in one launch; and K35
+// pcg_chain_solve: a whole PCG solve, its Hessian-vector products included,
+// in one launch (the same device code).
 //
 // Replaces, for a single solve, the body of uzliti_slam_tpu/graph/solver.py:
 // _pcg (:512-540) minus its Hessian-vector product, with the preconditioner
@@ -48,6 +50,28 @@
 // then its warps in order), then every CTA sums the cluster's partials in
 // rank order through DSMEM, so every CTA holds the same total and a rerun
 // gives the same bits; no atomics.
+//
+// K35 (uz_pcg_chain_solve) replaces, for a single solve with no reduce hook,
+// _pcg's whole loop with uzliti_slam_tpu/graph/solver.py:_make_hvp (:306-322)
+// inside it: the start and every step's Hp = H·p (K2's operator) in the same
+// cluster, so one launch per LM iteration where K2 + K34 took 1 + 2·12 + 12.
+// Each CTA computes Hp for the level-0 rows it owns from the solve's
+// incidence table, in table order, without atomics: per entry u =
+// Jᵢ·vm[from] + Jⱼ·vm[to] (each edge's u computed at both endpoints) and
+// J_sideᵀ·W·u, then per row their sum.  At entry each CTA copies its rows'
+// entries' Jᵢ, Jⱼ, W (432 bytes an edge) once into planes in table order
+// (the operator does not change in the solve), so a step's loads of them
+// are coalesced: read from the (E, 6, 6) tables each step, a thread a row
+// (108 scalar loads an entry, 32 cache lines a warp load) they cost 0.137
+// ms a step at 10k on an H100's 8 cluster SMs.  The operator stays
+// matrix-free: H's blocks JᵀWJ assembled once (36 floats an entry) read
+// less but add two near-cancelling large terms in float32, and moved x by
+// up to 9.7e-5 of max|x| from the plain version (PERF.md §6).  p's neighbour
+// rows, written by other CTAs, are read after the cluster barrier that
+// closes the previous phase (its release/acquire orders them), with
+// ordinary loads; everything else a step reads was written by its own CTA
+// before a block barrier.  The scratch lives in device memory, so the cap
+// is K34's.  What bounds it at 1k: the cluster barriers, as K34.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -123,12 +147,13 @@ __device__ float cluster_total(float* part, float* tot, int slot) {
   return tot[slot];
 }
 
+// One phase of the solve on the cluster, ending with a cluster barrier.
 // kStart: in = b, z unused; otherwise in = Hp and z is scratch for M⁻¹r.
+// No __restrict__ on the vectors here: K35 writes Hp and p inside its
+// launch, so none may be read through the non-coherent path there.
 template <bool kStart>
-__global__ void __launch_bounds__(kChainThreads)
-pcg_chain_kernel(Chain f, const float* __restrict__ in, float* __restrict__ x,
-                 float* __restrict__ r, float* __restrict__ p, float* __restrict__ z,
-                 float* __restrict__ scal, float tol) {
+__device__ __forceinline__ void pcg_phase(const Chain& f, const float* in, float* x, float* r,
+                                          float* p, float* z, float* scal, float tol) {
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float smem[];
   const int tid = threadIdx.x;
@@ -317,8 +342,184 @@ pcg_chain_kernel(Chain f, const float* __restrict__ in, float* __restrict__ x,
         p[i] = __fadd_rn(z[i], __fmul_rn(beta, p[i]));
     if (c == 0 && tid == 0) scal[0] = ok ? rz_new : rz;
   }
-  // no CTA leaves while another may still read its partials
+  // no CTA leaves (or starts the next phase) while another may still read
+  // its partials, and every CTA's p is written before the next Hp reads it
   cluster.sync();
+}
+
+// K34: one phase a launch.  Nothing else writes its vectors during the
+// launch, so its parameters keep __restrict__ (pcg_phase, inlined, takes
+// their no-alias facts with it).
+template <bool kStart>
+__global__ void __launch_bounds__(kChainThreads)
+pcg_chain_kernel(Chain f, const float* __restrict__ in, float* __restrict__ x,
+                 float* __restrict__ r, float* __restrict__ p, float* __restrict__ z,
+                 float* __restrict__ scal, float tol) {
+  pcg_phase<kStart>(f, in, x, r, p, z, scal, tol);
+}
+
+// The Gauss-Newton operator of one LM iteration (K2's arguments), the
+// solve's incidence table, and K35's scratch in device memory: per table
+// entry q (2E of them, each CTA writing only its own rows' entries) its
+// edge's endpoints (fq, tq) and its Jᵢ, Jⱼ, W copied into 108 planes of 2E
+// floats (jq), and the step's product yq = J_sideᵀ·W·u (6 planes of 2E).
+struct Op {
+  const float* Ji;       // (E, 6, 6)
+  const float* Jj;
+  const float* W;
+  const int* e_from;     // (E,)
+  const int* e_to;
+  const float* damp;     // (n, 6)
+  const float* free;     // (n,)
+  const int* row_ptr;    // (n + 1,)
+  const int* entries;    // 2e + side, each node's in table order
+  int two_e;             // 2E: the stride of an entry plane
+  int* fq;               // (2E,)
+  int* tq;               // (2E,)
+  float* jq;             // (108, 2E): Jᵢ | Jⱼ | W, row-major 6x6 each
+  float* yq;             // (6, 2E)
+};
+
+// This CTA's level-0 rows [lo, hi) and their table entries [qa, qb); empty
+// on a CTA that owns no root block.
+struct Span {
+  int lo, hi, qa, qb;
+};
+
+__device__ __forceinline__ Span own_span(const Chain& f, const Op& op) {
+  const int c = static_cast<int>(cg::this_cluster().block_rank());
+  const int rr = root_rows(f.m_root);
+  const int active = f.m_root < kCluster ? f.m_root : kCluster;
+  Span s{0, 0, 0, 0};
+  if (c < active) {
+    const int R0 = rr << f.levels;
+    s.lo = min(c * R0, f.n);
+    s.hi = min((c + 1) * R0, f.n);
+    s.qa = op.row_ptr[s.lo];
+    s.qb = op.row_ptr[s.hi];
+  }
+  return s;
+}
+
+// Once per launch (the operator does not change in the solve): each of
+// this CTA's entries' edge copied from the (E, 6, 6) tables into the
+// table-ordered planes, a thread an entry (float4 reads; coalesced writes).
+// Only this CTA reads what it writes here.
+__device__ __forceinline__ void gather_operator(const Chain& f, const Op& op) {
+  const Span s = own_span(f, op);
+  const int E2 = op.two_e;
+  for (int q = s.qa + static_cast<int>(threadIdx.x); q < s.qb; q += kChainThreads) {
+    const int e = op.entries[q] >> 1;
+    op.fq[q] = op.e_from[e];
+    op.tq[q] = op.e_to[e];
+    const float* src[3] = {op.Ji + e * 36, op.Jj + e * 36, op.W + e * 36};
+#pragma unroll
+    for (int m = 0; m < 3; ++m)
+#pragma unroll
+      for (int k = 0; k < 9; ++k) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(src[m]) + k);
+        float* dst = op.jq + (36 * m + 4 * k) * E2 + q;
+        dst[0] = v.x;
+        dst[E2] = v.y;
+        dst[2 * E2] = v.z;
+        dst[3 * E2] = v.w;
+      }
+  }
+  __syncthreads();
+}
+
+// Entry q's term of its row: yq = J_sideᵀ·W·u, u = Jᵢ·vm[from] + Jⱼ·vm[to],
+// vm = p·m·free.
+__device__ __forceinline__ void entry_term(const Op& op, const float* p, const float cm[6],
+                                           int q, float y[6]) {
+  const int E2 = op.two_e;
+  const int nf = op.fq[q], nt = op.tq[q];
+  const bool to_side = op.entries[q] & 1;
+  const float ff = __ldg(op.free + nf), ft = __ldg(op.free + nt);
+  float vf[6], vt[6], u[6], Wu[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    vf[k] = p[nf * 6 + k] * cm[k] * ff;
+    vt[k] = p[nt * 6 + k] * cm[k] * ft;
+  }
+  const float* A = op.jq + q;
+  const float* B = A + 36 * E2;
+  const float* C = B + 36 * E2;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    float a = 0.f, b = 0.f;
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      a += A[(i * 6 + j) * E2] * vf[j];
+      b += B[(i * 6 + j) * E2] * vt[j];
+    }
+    u[i] = a + b;
+  }
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    float c = 0.f;
+#pragma unroll
+    for (int j = 0; j < 6; ++j) c += C[(i * 6 + j) * E2] * u[j];
+    Wu[i] = c;
+  }
+  const float* S = to_side ? B : A;      // this row's side of the edge
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    float c = 0.f;
+#pragma unroll
+    for (int j = 0; j < 6; ++j) c += S[(j * 6 + i) * E2] * Wu[j];
+    y[i] = c;
+  }
+}
+
+// y = H(p·m)·m on this CTA's level-0 rows, into hp, as K2's operator: per
+// table entry its term (entry_term; a thread an entry, its planes read
+// coalesced), then per row y = ((Σ_q yq in table order) +
+// damp·vm)·free·m (a thread a row): the product without atomics, each
+// edge's u computed at both endpoints.  p is read with ordinary loads,
+// after the previous phase's closing cluster barrier.
+__device__ __forceinline__ void hvp_rows(const Chain& f, const Op& op, const float* p,
+                                         float* hp) {
+  const Span s = own_span(f, op);
+  const int E2 = op.two_e;
+  float cm[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) cm[k] = f.cmask != nullptr ? f.cmask[k] : 1.f;
+  for (int q = s.qa + static_cast<int>(threadIdx.x); q < s.qb; q += kChainThreads) {
+    float y[6];
+    entry_term(op, p, cm, q, y);
+#pragma unroll
+    for (int i = 0; i < 6; ++i) op.yq[i * E2 + q] = y[i];
+  }
+  __syncthreads();
+  for (int row = s.lo + static_cast<int>(threadIdx.x); row < s.hi; row += kChainThreads) {
+    const int q0 = op.row_ptr[row], q1 = op.row_ptr[row + 1];
+    const float fr = __ldg(op.free + row);
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      float y = 0.f;
+      for (int q = q0; q < q1; ++q) y += op.yq[i * E2 + q];
+      const float vm = p[row * 6 + i] * cm[i] * fr;
+      hp[row * 6 + i] = ((y + __ldg(op.damp + row * 6 + i) * vm) * fr) * cm[i];
+    }
+  }
+}
+
+// K35: a whole PCG solve in one launch: the operator gathered into table
+// order, the start, then each step's Hp = H·p (hvp_rows) and K34's step.
+// The step's dots, axpys and stall logic are K34's own code; Hp and p stay
+// in device memory (L2), so a step adds two CTA barriers and no cluster
+// barrier to K34's.
+__global__ void __launch_bounds__(kChainThreads)
+pcg_solve_kernel(Chain f, Op op, const float* b, float* x, float* r, float* p, float* z,
+                 float* hp, float* scal, float tol, int steps) {
+  gather_operator(f, op);
+  pcg_phase<true>(f, b, x, r, p, nullptr, scal, 0.f);
+  for (int s = 0; s < steps; ++s) {
+    hvp_rows(f, op, p, hp);
+    __syncthreads();
+    pcg_phase<false>(f, hp, x, r, p, z, scal, tol);
+  }
 }
 
 cudaLaunchConfig_t cluster_config(size_t smem, cudaStream_t stream, cudaLaunchAttribute* attr) {
@@ -336,16 +537,17 @@ cudaLaunchConfig_t cluster_config(size_t smem, cudaStream_t stream, cudaLaunchAt
   return cfg;
 }
 
-// Once per device: both kernels may take a whole CTA's shared memory, and
-// one cluster of 8 such CTAs fits on the card.
+// Once per device: the three kernels may take a whole CTA's shared memory,
+// and one cluster of 8 such CTAs fits on the card.
 int prepare() {
   static bool ready[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev < kMaxDevices && ready[dev]) return 0;
-  const void* kernels[2] = {reinterpret_cast<const void*>(pcg_chain_kernel<true>),
-                            reinterpret_cast<const void*>(pcg_chain_kernel<false>)};
+  const void* kernels[3] = {reinterpret_cast<const void*>(pcg_chain_kernel<true>),
+                            reinterpret_cast<const void*>(pcg_chain_kernel<false>),
+                            reinterpret_cast<const void*>(pcg_solve_kernel)};
   for (const void* k : kernels) {
     err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -353,10 +555,11 @@ int prepare() {
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(kMaxSmemBytes, nullptr, &attr);
   int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(
-      &clusters, reinterpret_cast<const void*>(pcg_chain_kernel<false>), &cfg);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (clusters < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  for (int k = 1; k < 3; ++k) {
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernels[k], &cfg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (clusters < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  }
   if (dev < kMaxDevices) ready[dev] = true;
   return 0;
 }
@@ -414,4 +617,31 @@ extern "C" int uz_pcg_chain_step(const float* Hp, float tol, const void* table, 
                                  int m_root, int n, const float* cmask, float* x, float* r,
                                  float* p, float* z, float* scal, void* stream) {
   return launch<false>(table, levels, m_root, n, cmask, Hp, x, r, p, z, scal, tol, stream);
+}
+
+// K35: the start and `steps` steps, each with its Hp = H(p·m)·m from the
+// operator (Ji, Jj, W (E, 6, 6); e_from, e_to (E,); damp (n, 6); free (n,))
+// summed over the incidence table (row_ptr (n + 1,), entries (2E,)); x, r,
+// p, scal as K34 leaves them; z and hp (n, 6), iscratch (2·2E ints) and
+// fscratch (114·2E floats) scratch.
+extern "C" int uz_pcg_chain_solve(const void* table, int levels, int m_root, int n,
+                                  const float* cmask, const float* Ji, const float* Jj,
+                                  const float* W, const int* e_from, const int* e_to,
+                                  const float* damp, const float* free, const int* row_ptr,
+                                  const int* entries, int n_edges, const float* b, int steps,
+                                  float tol, float* x, float* r, float* p, float* z, float* hp,
+                                  float* scal, int* iscratch, float* fscratch, void* stream) {
+  Chain f;
+  int err = steps < 0 || n_edges < 0 ? static_cast<int>(cudaErrorInvalidValue)
+                                     : make_chain(table, levels, m_root, n, cmask, &f);
+  if (err == 0) err = prepare();
+  if (err != 0) return err;
+  const long long E2 = 2LL * n_edges;
+  const Op op{Ji, Jj, W, e_from, e_to, damp, free, row_ptr, entries, static_cast<int>(E2),
+              iscratch, iscratch + E2, fscratch, fscratch + 108 * E2};
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(4 * smem_floats(levels, m_root),
+                                                static_cast<cudaStream_t>(stream), &attr);
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, pcg_solve_kernel, f, op, b, x, r, p, z, hp,
+                                             scal, tol, steps));
 }

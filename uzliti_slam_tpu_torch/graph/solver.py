@@ -13,11 +13,16 @@ solve) takes each loop's own form of the reference's projection: the fast
 loop masks K1's Jacobian columns and lifts the factor's masked diagonal,
 the generic loop wraps the operator and gradient and hands the
 preconditioner the column mask (K34 masks r before the apply and z after
-it).  Per LM iteration: one fused linearization (kernel K1), a fixed
-count of PCG steps whose Hessian-vector products are kernel K2 and whose
-vector updates with the preconditioner apply between them are kernel K34,
-one launch a step (a fleet, or a chain above K34's cap, takes K10 around
-K3), and one retraction whose residuals and robust χ² are kernel K4.
+it).  Per LM iteration: one fused linearization (kernel K1), a PCG solve
+of a fixed count of steps, and one retraction whose residuals and robust
+χ² are kernel K4.  The PCG takes one of three routes (``_pcg``): a single
+solve within K34's cap with no reduce hook is kernel K35, the whole solve
+with its Hessian-vector products in one launch; the edge-sharded solve
+(whose all-reduce sits between Hv and the dot) runs K2 for each Hv and
+K34 for each step's updates around the preconditioner apply; a fleet, or
+a chain above K34's cap, K2, K10 and K3.  K1 and K35 sum node rows over
+the solve's incidence table (``kops.incidence_table``, built once per
+solve) in a fixed order, so those routes give the same bits every run.
 The chain factor is kernel K9, connected components and gauge fixing are
 kernel K8.
 
@@ -169,17 +174,23 @@ def _weighted_info(g: GraphState, r: torch.Tensor, huber_delta: float) -> torch.
     return factors.weighted_info(r, g.e_info, g.e_valid, huber_delta)
 
 
-def _pcg(hvp, factor, b, iterations: int, tol: float, batch: int = 1, cmask=None):
+def _pcg(hvp, factor, b, iterations: int, tol: float, batch: int = 1, cmask=None, op=None):
     """Preconditioned CG for H dx = b with the chain factor ``factor`` as
     the preconditioner M. Fixed iteration count, masked stall.
 
-    Each step is K2 (``hvp``) → K34 on a CUDA device: the dots, axpys and
-    stall logic of the reference's body (``solver.py:512-540``) around z =
-    M⁻¹r, one launch, with its scalars on the device; a fleet of ``batch``
-    instances, or a chain above K34's cap, takes K10 → K3 → K10 with one row
-    of scalars per instance.  ``cmask`` (6,), the generic loop's planar
-    projection, makes the preconditioner M⁻¹(r·m)·m.
+    With ``op`` (H's tensors and the incidence table, a
+    ``kops.HvpOperator``) a single chain within K34's cap is K35 on a CUDA
+    device: the whole solve, each step's Hp = H·p and the reference's body
+    (``solver.py:512-540``) around z = M⁻¹r, in one launch, ``hvp`` unused.
+    Otherwise each step is ``hvp`` (K2, and the caller's reduce) → K34: the
+    dots, axpys and stall logic, one launch, with its scalars on the device;
+    a fleet of ``batch`` instances, or a chain above K34's cap, takes K10 →
+    K3 → K10 with one row of scalars per instance.  ``cmask`` (6,), the
+    generic loop's planar projection, makes the preconditioner M⁻¹(r·m)·m
+    (and K35's operator H(p·m)·m, as the caller's ``hvp`` wraps it).
     """
+    if op is not None and kops.pcg_chain_route(factor, batch):
+        return kops.pcg_chain_solve(factor, op, b, iterations, tol, cmask).x
     state = kops.pcg_chain_start(factor, b, batch, cmask)
     for _ in range(iterations):
         kops.pcg_chain_step(factor, hvp(state.p), state, tol, cmask)
@@ -199,6 +210,9 @@ class _Problem:
     product (K2) and to each χ² (K4), so that every rank takes the same
     accept and λ decisions from the same sums.  ``damp_here`` is False on
     every rank but one, whose Hv partial alone carries the damping.
+    Without ``reduce`` each PCG solve hands ``_pcg`` the operator itself
+    (K35's route).  ``table`` is the incidence table of ``g``'s valid
+    edges, over which K1 and K35 sum node rows.
     JAX's ``lm_loop`` takes its fast loop only with no reduce and
     ``mode="auto"``; otherwise the generic loop (``generic``)."""
 
@@ -227,6 +241,8 @@ class _Problem:
         # out of the loop, and with the residual carried forward from the
         # accepted candidate's χ² pass each linearization needs no pose.
         self.adj_meas_inv = lie.se3_adjoint(lie.pose_inverse(g.e_transform))
+        # so are the edges: K1 and K35 sum node rows over their table
+        self.table = kops.incidence_table(g.e_from, g.e_to, g.e_valid, free.shape[0])
 
     def residuals(self, poses):
         r, chi2 = _residuals(self.g, poses, self.config.huber_delta, self.batch)
@@ -245,7 +261,7 @@ class _Problem:
         g = self.g
         return kops.linearize(r, self.adj_meas_inv, g.e_info, self.valid, g.e_from,
                               g.e_to, self.free, self.both_free, self.is_chain,
-                              self.config.huber_delta, self.col_mask, self.reduce)
+                              self.config.huber_delta, self.col_mask, self.reduce, self.table)
 
     def damp(self, lam, Hb):
         d = torch.clamp(torch.diagonal(Hb, dim1=-2, dim2=-1), min=1e-6)
@@ -288,7 +304,10 @@ class _Problem:
                 return hvp_base(v * cm) * cm
 
             b = -(grad * cm)
-        dx = _pcg(hvp, pack, b, cfg.pcg_iterations, cfg.pcg_tol, self.batch, cm)
+        # without a reduce hook H is local: K35 takes the solve where it can
+        op = (kops.HvpOperator(Ji, Jj, W, g.e_from, g.e_to, damp_k, free, self.table)
+              if self.reduce is None else None)
+        dx = _pcg(hvp, pack, b, cfg.pcg_iterations, cfg.pcg_tol, self.batch, cm, op)
         cand = lie.pose_retract(poses, dx * free[:, None])
         r_cand, chi2_new = self.residuals(cand)
         return cand, r_cand, chi2_new

@@ -38,6 +38,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "uz_linearize": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I,
                      _P, _P, _P, _P, _P, _P, _P],
+    "uz_pcg_chain_solve": [_P, _I, _I, _I] + [_P] * 10 + [_I, _P, _I, _F] + [_P] * 9,
     "uz_hvp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
     "uz_chain_forward": [_P, _I, _I, _P, _P, _I, _I, _P, _P],
     "uz_chain_backward": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _I, _P],

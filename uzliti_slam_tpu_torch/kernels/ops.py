@@ -89,13 +89,21 @@ pcg_chain      csrc/pcg_chain.cu       graph/solver.py:_pcg's body minus the
                                        Hessian-vector product, with
                                        tridiag.py:block_tridiag_apply inside
                                        it (a single solve; K10 + K3 fused)
+pcg_chain_     csrc/pcg_chain.cu       graph/solver.py:_pcg's whole loop with
+solve                                  _make_hvp and block_tridiag_apply
+                                       inside it (a single solve with no
+                                       reduce hook; K2 + K34 fused)
 =============  ======================  =======================================
 
 K3, K4, K9 and K10 take a batch of B instances of equal sizes, flattened
 (the fleet of ``parallel/sharded.optimize_batch``); a single solve is the
-batch of one.  ``pcg_chain_start`` / ``pcg_chain_step`` (K34) are the
-solve's PCG: a single solve within K34's cap takes it, one launch a step; a
-fleet, or a chain above the cap, takes K10 and K3.
+batch of one.  The solve's PCG has three routes (``solver._pcg``): a single
+solve within K34's cap with no reduce hook takes ``pcg_chain_solve`` (K35),
+one launch a PCG solve; with a reduce hook (the edge-sharded solve, whose
+all-reduce sits between Hv and the dot) K2 and ``pcg_chain_step`` (K34), one
+launch each a step; a fleet, or a chain above the cap, K2, K10 and K3.
+K1 and K35 sum node rows over the solve's incidence table
+(``incidence_table``) in a fixed order, without float atomics.
 
 What bounds each kernel on the card, and what its design does about it, is
 written at the top of its source file.
@@ -121,7 +129,7 @@ launches = {"linearize": 0, "hvp": 0, "chain_apply": 0, "residual_chi2": 0,
             "repository": 0, "bow_words": 0, "bow_query": 0, "voxel_grid": 0,
             "knn_normals": 0, "gicp": 0, "pnp": 0, "sift_describe": 0, "l2_top2": 0,
             "uid_slots": 0, "edge_key_match": 0, "delta_upsert": 0, "scope_merge": 0,
-            "pcg_chain": 0}
+            "pcg_chain": 0, "pcg_chain_solve": 0}
 
 _THREADS = 256  # kThreads in csrc/lie.cuh: K4's partial sums, one per block
 _SMEM_BYTES = 232448  # shared memory one CTA can use on Hopper
@@ -154,14 +162,54 @@ _OUT_OF_RESOURCES = 701     # cudaErrorLaunchOutOfResources
 
 
 def _raise_on(err: int, kernel: str) -> None:
-    if err == _OUT_OF_RESOURCES and kernel == "pcg_chain":
-        # K34 checks with cudaOccupancyMaxActiveClusters before its first
-        # launch on a device that its cluster fits, and says so with this code
-        raise RuntimeError(f"pcg_chain: CUDA launch failed with cudaError_t {err}: an "
+    if err == _OUT_OF_RESOURCES and kernel in ("pcg_chain", "pcg_chain_solve"):
+        # K34 and K35 check with cudaOccupancyMaxActiveClusters before their
+        # first launch on a device that their cluster fits, and say so with
+        # this code
+        raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError_t {err}: an "
                            f"{PCG_CHAIN_CLUSTER}-CTA cluster with {_SMEM_BYTES} bytes of "
                            "shared memory a CTA does not fit on the device")
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError_t {err}")
+
+
+# ---------------------------------------------------------------------------
+# The incidence table (K1's and K35's node sums)
+# ---------------------------------------------------------------------------
+
+class IncidenceTable(NamedTuple):
+    """Each node's (edge, side) pairs of the valid edges, as CSR: node n's
+    entries are ``entries[row_ptr[n]:row_ptr[n + 1]]``, entry 2e + side
+    (side 0: edge e leaves n, side 1: it enters n), in increasing order.
+    ``entries`` has 2E slots; those from ``row_ptr[N]`` on belong to invalid
+    edges and are never read."""
+    row_ptr: torch.Tensor   # (N + 1,) int32
+    entries: torch.Tensor   # (2E,) int32
+
+
+def incidence_table(e_from, e_to, e_valid, n_nodes: int) -> IncidenceTable:
+    """The table of the edges where ``e_valid``, built without a host
+    synchronisation (a stable sort of the entries by node, the invalid
+    edges' entries keyed past every node, then a ``searchsorted`` of the
+    node ids): padded slots, which all join node 0 to itself, stay out."""
+    node = _entry_terms(e_from, e_to).to(torch.int32)
+    valid = e_valid.to(torch.bool)
+    key = torch.where(_entry_terms(valid, valid), node, n_nodes)
+    order = torch.sort(key, stable=True)
+    ids = torch.arange(n_nodes + 1, dtype=torch.int32, device=e_from.device)
+    row_ptr = torch.searchsorted(order.values, ids, out_int32=True)
+    return IncidenceTable(row_ptr, order.indices.to(torch.int32))
+
+
+def _entry_terms(from_side, to_side) -> torch.Tensor:
+    """Per-edge terms of both sides (E, ...) interleaved as table entries
+    (2E, ...): entry 2e + side."""
+    return torch.stack([from_side, to_side], dim=1).flatten(0, 1)
+
+
+def _check_table(table: IncidenceTable, n: int, E: int, dev) -> list:
+    return [_check("row_ptr", table.row_ptr, (n + 1,), torch.int32, dev),
+            _check("entries", table.entries, (2 * E,), torch.int32, dev)]
 
 
 # ---------------------------------------------------------------------------
@@ -218,30 +266,34 @@ def linearize_plain(r, adj_meas_inv, info, valid, e_from, e_to, free, both_free,
 
 
 def linearize(r, adj_meas_inv, info, valid, e_from, e_to, free, both_free,
-              is_chain, huber_delta: float, col_mask=None, reduce=None):
+              is_chain, huber_delta: float, col_mask=None, reduce=None, table=None):
     """K1: fused per-edge Jacobians, robust weights and node-row sums, the
     Jacobians' columns masked by ``col_mask`` and the packed node sums
-    handed to ``reduce`` as in ``linearize_plain``."""
+    handed to ``reduce`` as in ``linearize_plain``.  ``table``: the
+    incidence table of the edges where ``valid`` (the solve builds it once),
+    which the kernel sums node rows over; on CPU tensors the plain version,
+    in edge order, needs none."""
     if r.device.type == "cpu":
         return linearize_plain(r, adj_meas_inv, info, valid, e_from, e_to, free,
                                both_free, is_chain, huber_delta, col_mask, reduce)
     dev, f32 = r.device, torch.float32
     E, n = r.shape[0], free.shape[0]
+    if table is None:
+        raise ValueError("linearize: a CUDA device needs the incidence table (incidence_table)")
     ptrs = [
         _check("r", r, (E, 6), f32, dev),
         _check("adj_meas_inv", adj_meas_inv, (E, 6, 6), f32, dev),
         _check("info", info, (E, 6, 6), f32, dev),
         _check("valid", valid, (E,), f32, dev),
-        _check("e_from", e_from, (E,), torch.int32, dev),
-        _check("e_to", e_to, (E,), torch.int32, dev),
         _check("free", free, (n,), f32, dev),
         _check("both_free", both_free, (n,), f32, dev),
         _check("is_chain", is_chain, (E,), f32, dev),
+        *_check_table(table, n, E, dev),
     ]
     col_keep = _column_bits(col_mask)
     lib = _build.load()
     J = torch.empty(3, E, 6, 6, dtype=f32, device=dev)
-    acc = torch.zeros(n * 78, dtype=f32, device=dev)
+    acc = torch.empty(n * 78, dtype=f32, device=dev)
     grad = acc[: 6 * n].view(n, 6)
     Hb = acc[6 * n: 42 * n].view(n, 6, 6)
     U = acc[42 * n:].view(n, 6, 6)
@@ -1205,6 +1257,86 @@ def pcg_chain_step(factor, Hp, state: PcgState, tol: float, cmask=None) -> None:
     _check("Hp", Hp, tuple(p.shape), torch.float32, p.device)
     _raise_on(fused.step(Hp.data_ptr(), tol, *fused.args), "pcg_chain")
     launches["pcg_chain"] += 1
+
+
+# ---------------------------------------------------------------------------
+# K35 pcg_chain_solve (solver._pcg's whole loop: K2 and K34 in one launch)
+# ---------------------------------------------------------------------------
+
+class HvpOperator(NamedTuple):
+    """The Gauss-Newton operator of one LM iteration, as K2 takes it, and
+    the solve's incidence table: Hv = (Σ JᵀW(Jᵢ·vm[from] + Jⱼ·vm[to]) +
+    damp·vm)·free, vm = v·free."""
+    Ji: torch.Tensor      # (E, 6, 6)
+    Jj: torch.Tensor
+    W: torch.Tensor
+    e_from: torch.Tensor  # (E,) int32
+    e_to: torch.Tensor
+    damp: torch.Tensor    # (n, 6)
+    free: torch.Tensor    # (n,)
+    table: IncidenceTable
+
+
+def _masked_hvp(op: HvpOperator, v, cmask):
+    """K2's plain version, or H(v·m)·m with the generic loop's planar mask."""
+    if cmask is not None:
+        v = v * cmask
+    y = hvp_plain(op.Ji, op.Jj, op.W, op.e_from, op.e_to, v, op.damp, op.free)
+    return y if cmask is None else y * cmask
+
+
+def pcg_chain_solve_plain(factor, op: HvpOperator, b, steps: int, tol: float,
+                          cmask=None) -> PcgState:
+    """Plain version of K35: K34's plain start, then per step K2's plain
+    version and K34's plain step (with ``cmask`` the generic loop's wraps:
+    H(p·m)·m and M⁻¹(r·m)·m)."""
+    state = pcg_chain_start_plain(factor, b, 1, cmask)
+    for _ in range(steps):
+        pcg_chain_step_plain(factor, _masked_hvp(op, state.p, cmask), state, tol, cmask)
+    return state
+
+
+def pcg_chain_solve(factor, op: HvpOperator, b, steps: int, tol: float,
+                    cmask=None) -> PcgState:
+    """K35: a single solve's whole PCG (K34's start, then ``steps`` times
+    Hp = H(p·m)·m and K34's step) in one launch of K34's cluster, Hp
+    summed over ``op.table`` without atomics; the chain must be on K34's
+    route (``pcg_chain_route``).  Returns the final state (scal (1, 4))."""
+    if b.device.type == "cpu":
+        return pcg_chain_solve_plain(factor, op, b, steps, tol, cmask)
+    dev, f32, i32 = b.device, torch.float32, torch.int32
+    table, L, m_root, n = _chain_table(factor, dev)
+    E = op.e_from.shape[0]
+    if steps < 0:
+        raise ValueError(f"pcg_chain_solve: {steps} steps")
+    ptrs = [
+        _check("Ji", op.Ji, (E, 6, 6), f32, dev),
+        _check("Jj", op.Jj, (E, 6, 6), f32, dev),
+        _check("W", op.W, (E, 6, 6), f32, dev),
+        _check("e_from", op.e_from, (E,), i32, dev),
+        _check("e_to", op.e_to, (E,), i32, dev),
+        _check("damp", op.damp, (n, 6), f32, dev),
+        _check("free", op.free, (n,), f32, dev),
+        *_check_table(op.table, n, E, dev),
+    ]
+    b_ptr = _check("b", b, (n, 6), f32, dev)
+    cm = None if cmask is None else _check("cmask", cmask, (6,), f32, dev)
+    lib = _build.load()
+    x, r, p, z, hp = torch.empty(5, n, 6, dtype=f32, device=dev).unbind(0)
+    scal = torch.empty(1, 4, dtype=f32, device=dev)
+    for nm in ("Ji", "Jj", "W"):    # the kernel reads them as float4
+        if getattr(op, nm).data_ptr() % 16:
+            raise ValueError(f"pcg_chain_solve: {nm} is not 16-byte aligned")
+    # the operator in table order and the steps' products (csrc/pcg_chain.cu Op)
+    iscratch = torch.empty(2 * 2 * E, dtype=i32, device=dev)
+    fscratch = torch.empty(114 * 2 * E, dtype=f32, device=dev)
+    err = lib.uz_pcg_chain_solve(ctypes.addressof(table), L, m_root, n, cm, *ptrs, E, b_ptr,
+                                 int(steps), float(tol), x.data_ptr(), r.data_ptr(), p.data_ptr(),
+                                 z.data_ptr(), hp.data_ptr(), scal.data_ptr(), iscratch.data_ptr(),
+                                 fscratch.data_ptr(), _stream(dev))
+    _raise_on(err, "pcg_chain_solve")
+    launches["pcg_chain_solve"] += 1
+    return PcgState(x, r, p, scal)
 
 
 # ---------------------------------------------------------------------------
