@@ -228,6 +228,14 @@ HEADLINE = dict(iterations=20, pcg_iterations=12, preconditioner="chain",
 CHI2_RTOL = 1e-3
 # Oracle bar of tests/test_solver.py: within 10% of "what g2o returns".
 ORACLE_FACTOR, ORACLE_ATOL = 1.10, 1e-3
+# The 1k headline's device launches a solve (phase 4's profile): K1 24, K35
+# 20, K36 40, K9 4, K4 2, K8 2 and the loop's remaining PyTorch ops (the
+# damping, the state's set-up, the final write-back)
+MAX_DEVICE_LAUNCHES_1K = 400
+# The device-to-device copies an LM loop's state makes at its start
+# (kops.lm_state: the iterate's copy of the start poses, χ²₀ into column 0
+# of the history); a solve's others are its incidence table build's
+LM_STATE_COPIES = 2
 # Kernel against plain version, as max|kernel - plain| / max|plain|:
 #  K1 1e-3 — the Jacobian's Q block takes (θ²/2 + cos θ - 1)/θ⁴ just above
 #     its 1e-2 Taylor switch, where float32 keeps few bits, and scales it
@@ -238,9 +246,12 @@ ORACLE_FACTOR, ORACLE_ATOL = 1.10, 1e-3
 # ulp of a distance (minima of the same float sums); K7 by compare_ransac.
 #  K9 1e-4 — each level tensor of the factor (the same closed-form 6x6
 #     inverses and products in float64, multiplied in another order, then
-#     stored in float32); its root is a block LDLᵀ inverse where the plain
-#     version takes LU, so the root is held through what the solve uses: the
-#     apply on a fixed right-hand side within CHAIN_APPLY_RTOL;
+#     stored in float32); its root is the cyclic reduction continued and
+#     expanded back where the plain version takes LU, so the root is held
+#     through what the solve uses: the apply on a fixed right-hand side
+#     within CHAIN_APPLY_RTOL, and ‖A·root - I‖ printed beside LU's; the
+#     damped entry (Hb, damp, free) bit-equal to the entry on the eager
+#     damped blocks;
 #  K10 1e-4 of max|x| after a 12-step PCG — dots summed in another order —
 #     and the same stall flag at every step; K34 (K10's updates around K3's
 #     apply) and K35 (K34 with K2's products inside) the same, and
@@ -253,8 +264,18 @@ ORACLE_FACTOR, ORACLE_ATOL = 1.10, 1e-3
 # (free and hit terms of many nodes cancel, and the two sum them in
 # another order); ternary classes equal except within TERNARY_NEAR of a
 # threshold.
+#  K36 lm_candidate: cand within CAND_RTOL of the eager retraction's (the
+#     pose algebra's float32 rounding in another order), r and χ² within
+#     1e-4 of K4's plain version on the kernel's own cand (K4's tolerance;
+#     against the eager cand they move with the cand's last bits, through
+#     the log map's lever arms: 1.04e-4 of max|r| on the fleet), and
+#     bit-equal to K4 on that cand; lm_accept exactly (the same comparisons
+#     and float32 products), every scalar and row of the state over 20
+#     iterations in both loop forms.
 KERNEL_TOL = {"linearize": 1e-3, "hvp": 1e-4, "chain_apply": 1e-4, "residual_chi2": 1e-4,
-              "chain_factor": 1e-4, "pcg": 1e-4, "pcg_chain": 1e-4, "pcg_chain_solve": 1e-4}
+              "chain_factor": 1e-4, "pcg": 1e-4, "pcg_chain": 1e-4, "pcg_chain_solve": 1e-4,
+              "lm_candidate": 1e-4, "lm_accept": 0.0}
+CAND_RTOL = 1e-6
 CHAIN_APPLY_RTOL = 1e-3
 PROJECT_ATOL = 1e-4
 PROJECT_SUM_RTOL, PROJECT_ATOL_LARGE = 2e-6, 1e-5
@@ -294,6 +315,10 @@ REPLACES = {
                  " product) + graph/tridiag.py:198 (block_tridiag_apply)",
     "pcg_chain_solve": "uzliti_slam_tpu/graph/solver.py:512 (_pcg, the whole loop) + :306"
                        " (_make_hvp) + graph/tridiag.py:198 (block_tridiag_apply)",
+    "lm_candidate": "uzliti_slam_tpu/graph/solver.py:981-987 (lie.pose_retract +"
+                    " factors.batched_residuals + _robust_chi2_from_r; :918-924, :1163-1169)",
+    "lm_accept": "uzliti_slam_tpu/graph/solver.py:988-997 (accept, λ schedule; with the early"
+                 " exit :925-946, generic :1170-1181)",
     "project_rays": "uzliti_slam_tpu/mapping/occupancy.py:70 (_project_rays)"
                     " + :191 (_mark_node_cells)",
     "fast_nms": "uzliti_slam_tpu/ops/features.py:54 (fast_score) + :105 (nms)",
@@ -316,12 +341,14 @@ SOURCE = {k: f"uzliti_slam_tpu_torch/csrc/{k}.cu" for k in REPLACES}
 SOURCE["project_rays"] = "uzliti_slam_tpu_torch/csrc/occupancy.cu"
 SOURCE["bin_min_max"] = "uzliti_slam_tpu_torch/csrc/scan_bins.cu"
 SOURCE["pcg_chain_solve"] = "uzliti_slam_tpu_torch/csrc/pcg_chain.cu"
+SOURCE["lm_candidate"] = SOURCE["lm_accept"] = "uzliti_slam_tpu_torch/csrc/lm_step.cu"
 SOLVE_KERNELS = ("linearize", "hvp", "chain_apply", "residual_chi2", "chain_factor", "pcg",
-                 "pcg_chain", "pcg_chain_solve")
+                 "pcg_chain", "pcg_chain_solve", "lm_candidate", "lm_accept")
 # The PCG's three routes (solver._pcg): a single solve within K34's cap with
 # no reduce hook takes K35 alone; with one (the edge-sharded solve) K2 and
 # K34; a fleet, or a chain above the cap (the 100k solve), K2, K10 and K3
-FUSED_PATH = ("linearize", "residual_chi2", "chain_factor", "pcg_chain_solve")
+FUSED_PATH = ("linearize", "residual_chi2", "chain_factor", "pcg_chain_solve", "lm_candidate",
+              "lm_accept")
 SPLIT_PCG = ("chain_apply", "pcg")
 PCG_ROUTES = {"k35": ("pcg_chain_solve",), "k2_k34": ("hvp", "pcg_chain"),
               "k2_k10_k3": ("hvp",) + SPLIT_PCG}
@@ -543,6 +570,10 @@ FLEET_REPLACES = {
                          " graph/tridiag.py:198 (block_tridiag_apply) under vmap",
     "chain_factor_batch": "uzliti_slam_tpu/parallel/sharded.py:115 (optimize_batch) —"
                           " graph/tridiag.py:145 (block_tridiag_factor) under vmap",
+    "lm_candidate_batch": "uzliti_slam_tpu/parallel/sharded.py:115 (optimize_batch) —"
+                          " graph/solver.py:981-987 (retraction, residuals, χ²) under vmap",
+    "lm_accept_batch": "uzliti_slam_tpu/parallel/sharded.py:115 (optimize_batch) —"
+                       " graph/solver.py:988-997 (accept, λ schedule) under vmap",
 }
 # K1, K2 and K8 run unchanged on the flattened fleet; their rows (``*_fleet``)
 # hold them against their plain versions at the fleet's shapes
@@ -558,10 +589,10 @@ FLEET_REPLACES.update({
 FLEET_KERNELS = tuple(FLEET_REPLACES)
 FLEET_KERNEL = {row: row.removesuffix("_batch").removesuffix("_fleet")
                 for row in FLEET_KERNELS}
-FLEET_SOURCE = {row: f"uzliti_slam_tpu_torch/csrc/{name}.cu"
+FLEET_SOURCE = {row: SOURCE.get(name, f"uzliti_slam_tpu_torch/csrc/{name}.cu")
                 for row, name in FLEET_KERNEL.items()}
 # the kernels the fleet launches: K1, K2, K8 on the flattened fleet, and
-# K3, K4, K9 and K10 with the instance on their grid
+# K3, K4, K9, K10 and K36 with the instance on their grid
 FLEET_PATH = tuple(FLEET_KERNEL.values())
 FLEET = dict(batch=4096, n_nodes=64, loop_closure_every=8)
 FLEET_CONFIG = dict(iterations=20, pcg_iterations=8, chain_dense_cutoff=16, early_exit=False,
@@ -576,10 +607,11 @@ SHARDED_100K_CONFIG = dict(iterations=20)
 SHARDED_REPS, SHARDED_RANKS, RANK_TIMEOUT_S = 10, 2, 300
 PLANAR_DZ = 0.2
 FLEET_WORLD = dict(batch=8, n_nodes=64)
-# the kernels the sharded 1k solve launches: K1, K2, K4 on the rank's shard,
-# K8 on the whole graph, K9 and K34 replicated (the 100k one K3 and K10)
+# the kernels the sharded 1k solve launches: K1, K2, K4 and K36's candidate
+# on the rank's shard, K8 on the whole graph, K9, K34 and K36's accept
+# replicated (the 100k one K3 and K10)
 SHARDED_PATH = ("linearize", "hvp", "residual_chi2", "components", "chain_factor",
-                "pcg_chain")
+                "pcg_chain", "lm_candidate", "lm_accept")
 PLANAR_REPLACES = ("uzliti_slam_tpu/graph/solver.py:355 (_make_fused_linearize) with its cmask"
                    " under optimize_xy_only (:369-381)")
 
@@ -680,8 +712,8 @@ def timed_solves(optimize, g, cfg, reps: int):
 DEVICE_FUNCTIONS = ("sift_keypoints", "linearize_rows", "hvp_seed",
                     "hvp_edges", "pcg_chain_kernel", "pcg_solve_kernel", "chain_forward",
                     "chain_backward",
-                    "chain_root", "factor_level",
-                    "factor_root", "pcg_init", "pcg_alpha", "pcg_beta", "project_cells",
+                    "chain_root", "factor_kernel", "candidate_kernel", "accept_kernel",
+                    "pcg_init", "pcg_alpha", "pcg_beta", "project_cells",
                     "residual_edges", "sum_partials",
                     "relax_rows", "cluster_rounds", "ransac_roots", "components_cta",
                     "gauge_cta", "k_init_labels", "k_scatter_min", "k_jump_out", "k_jump",
@@ -839,6 +871,23 @@ def kernel_work(name: str, args) -> tuple[int, int]:
         poses, ef, et, meas, info, valid, _, *batch = args
         return (_nbytes(poses, ef, et, meas, info, valid)
                 + 4 * (6 * ef.shape[0] + (batch[0] if batch else 1)), 400 * ef.shape[0])
+    if name == "lm_candidate":
+        # every node's retraction (~150 operations) and every edge's
+        # residual and cost (K4's 400); each input read once, cand, r and
+        # χ² written once
+        poses, dx, free, ef, et, meas, info, valid, _, *batch = args
+        B, E = (batch[0] if batch else 1), ef.shape[0]
+        return (_nbytes(poses, dx, free, ef, et, meas, info, valid) + 4 * (7 * poses.shape[0]
+                + 6 * E + B), 150 * poses.shape[0] + 400 * E)
+    if name == "lm_accept":
+        # the scalars of every instance; the rows of the accepted ones
+        # copied (read from the candidate, written to the iterate)
+        state, cand, r_cand, chi2_new, it, rules = args
+        B = chi2_new.shape[0]
+        active = (~state.done[it] if rules.early_exit and it > 0
+                  else torch.ones_like(chi2_new, dtype=torch.bool))
+        acc = int(((chi2_new < state.hist[:, it]) & active).sum())
+        return (4 * B * 6 + 2 * acc * (_nbytes(cand) + _nbytes(r_cand)) // B, 20 * B)
     if name == "relax_min":
         dist0, ef, et, w, n_iters = args
         live = int((w < kops.INF).sum())
@@ -1151,22 +1200,31 @@ def make_graph(n_nodes: int, device, seed: int = SEED):
 
 def kernel_inputs(g, cfg):
     """The inputs each solve kernel gets in the first LM iteration (K10 and
-    K35: the first PCG solve's operators and right-hand side; "table" the
-    solve's incidence table, which K1 and K35 take)."""
+    K35: the first PCG solve's operators and right-hand side; K36: its step
+    and the loop's state; "table" the solve's incidence table, which K1 and
+    K35 take)."""
     from uzliti_slam_tpu_torch.graph import solver
     from uzliti_slam_tpu_torch.kernels import ops as kops
 
     free = (g.node_valid & ~solver.gauge_fix_mask(g, solver.connected_components(g))).float()
     p = solver._Problem(g, free, cfg)
     gen = torch.Generator().manual_seed(SEED + 1)
-    r0, _ = p.residuals(g.pose)
+    r0, chi2_0 = p.residuals(g.pose)
     Ji, Jj, W, grad, Hb, U = p.linearize(r0)
     lam = torch.full((1,), cfg.lambda_init, device=g.device)
     damp = p.damp(lam, Hb)
     pack = p.build_pack(Hb, U, damp)
     Dm = torch.where(free[:, None, None] > 0, Hb + torch.diag_embed(damp), p.eye6)
     v = torch.randn(g.node_capacity, 6, generator=gen).to(g.device)
+    op = kops.HvpOperator(Ji, Jj, W, g.e_from, g.e_to, damp, free, p.table)
+    dx = solver._pcg(lambda u: kops.hvp(Ji, Jj, W, g.e_from, g.e_to, u, damp, free), pack, -grad,
+                     cfg.pcg_iterations, cfg.pcg_tol, op=op)
     return {
+        "chain_factor_damped": (Hb, U, cfg.chain_dense_cutoff, damp, free),
+        "lm_candidate": (g.pose, dx, free, g.e_from, g.e_to, g.e_transform, g.e_info, p.valid,
+                         cfg.huber_delta),
+        "lm_state": (g.pose, r0, chi2_0, cfg.iterations, cfg.lambda_init),
+        "lm_rules": p.rules(cfg.early_exit),
         "residual_chi2": (g.pose, g.e_from, g.e_to, g.e_transform, g.e_info, p.valid,
                           cfg.huber_delta),
         "linearize": (r0, p.adj_meas_inv, g.e_info, p.valid, g.e_from, g.e_to, free,
@@ -1211,9 +1269,94 @@ def compare_kernels(g, label: str):
         check(rel <= KERNEL_TOL[name],
               f"{name} {label}: rel err {rel:.3g} > {KERNEL_TOL[name]}")
         results[name] = row
-    results["chain_factor"] = compare_chain_factor(inputs["chain_factor"], label)
+    results["chain_factor"] = compare_chain_factor(inputs["chain_factor"], label,
+                                                   inputs["chain_factor_damped"])
     results["pcg"] = compare_pcg(inputs["pcg"], label)
+    results.update(compare_lm_step(inputs, label))
     return results
+
+
+def _states_equal(a, b, early: bool) -> bool:
+    """Two ``LmState``s hold the same bits (the early exit's rows from 1 on:
+    row 0 is not read)."""
+    same = all(bool(torch.equal(getattr(a, f), getattr(b, f)))
+               for f in ("poses", "r", "hist", "lam", "acc"))
+    if early:
+        same = same and bool(torch.equal(a.gain, b.gain)) and all(
+            bool(torch.equal(getattr(a, f)[1:], getattr(b, f)[1:]))
+            for f in ("done", "stale", "need"))
+    return same
+
+
+def compare_lm_step(inputs: dict, label: str, batch: int = 1) -> dict:
+    """K36 against its plain versions on the first LM iteration's step:
+    ``lm_candidate`` (cand within CAND_RTOL of the eager retraction's, r and
+    χ² within KERNEL_TOL of K4's plain version on the kernel's cand and
+    bit-equal to K4 on it; a bit-identical rerun), timed beside its plain
+    version and beside what the loop ran before it (the eager retraction,
+    then K4); ``lm_accept`` over 20 iterations of seeded χ² in both loop
+    forms, every scalar and row of the state equal, one call timed."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+    from uzliti_slam_tpu_torch.ops import lie
+
+    args = inputs["lm_candidate"] + (batch,)
+    poses, dx, free, ef, et, meas, info, valid, huber, _ = args
+    got, ref = kops.lm_candidate(*args), kops.lm_candidate_plain(*args)
+    r4, chi4 = kops.residual_chi2(got[0], ef, et, meas, info, valid, huber, batch)
+    on_cand = kops.residual_chi2_plain(got[0], ef, et, meas, info, valid, huber, batch)
+    rerun = kops.lm_candidate(*args)
+    torch.cuda.synchronize()
+    cand_err = _rel(got[0], ref[0])
+    errs = [_rel(a, b) for a, b in zip(got[1:], on_cand)]
+    eager = [_rel(a, b)[1] for a, b in zip(got[1:], ref[1:])]
+    as_k4 = bool(torch.equal(got[1], r4)) and bool(torch.equal(got[2], chi4))
+    same = all(bool(torch.equal(a, b)) for a, b in zip(got, rerun))
+    row = {"max_abs_err": max([cand_err[0]] + [e for e, _ in errs]),
+           "max_rel_err": max(r for _, r in errs), "cand_rel_err": cand_err[1],
+           "cand_rtol": CAND_RTOL, "r_rel_err": errs[0][1], "chi2_rel_err": errs[1][1],
+           "r_rel_err_vs_eager_cand": eager[0], "chi2_rel_err_vs_eager_cand": eager[1],
+           "tol_rel": KERNEL_TOL["lm_candidate"], "r_chi2_bit_equal_to_k4": as_k4,
+           "rerun_bit_identical": same, "library_ms": None}
+    row["ms"], row["plain_ms"] = time_pair(lambda: kops.lm_candidate(*args),
+                                           lambda: kops.lm_candidate_plain(*args))
+    row["replaced_ms"] = time_call(lambda: kops.residual_chi2(
+        lie.pose_retract(poses, dx * free[:, None]), ef, et, meas, info, valid, huber, batch))
+    row.update(bound("lm_candidate", args))
+    log(f"3 kernel lm_candidate {label}", **row)
+    check(row["max_rel_err"] <= KERNEL_TOL["lm_candidate"] and cand_err[1] <= CAND_RTOL,
+          f"lm_candidate {label}: rel err r/χ² {row['max_rel_err']:.3g}, cand {cand_err[1]:.3g}")
+    check(as_k4 and same, f"lm_candidate {label}: r, χ² not K4's bits or a rerun differs")
+    rows = {"lm_candidate": row}
+
+    cand, r_cand, _ = got
+    st_args, rules = inputs["lm_state"], inputs["lm_rules"]
+    iterations, chi2_0 = st_args[3], st_args[2]
+    scales = (0.2 + 1.6 * torch.rand(iterations, batch,
+                                     generator=torch.Generator().manual_seed(SEED + 9)))
+    scales = scales.to(cand.device)
+    equal = {}
+    for early in (False, True):
+        rl = rules._replace(early_exit=early)
+        sk, sp = kops.lm_state(*st_args, batch), kops.lm_state(*st_args, batch)
+        for it in range(iterations):
+            kops.lm_accept(sk, cand, r_cand, chi2_0 * scales[it], it, rl)
+            kops.lm_accept_plain(sp, cand, r_cand, chi2_0 * scales[it], it, rl)
+        equal["early_exit" if early else "fixed"] = _states_equal(sk, sp, early)
+        accepted = int(sk.acc.sum())
+    sk, sp = kops.lm_state(*st_args, batch), kops.lm_state(*st_args, batch)
+    c2 = chi2_0 * scales[0]
+    row = {"max_abs_err": 0.0 if all(equal.values()) else math.inf,
+           "max_rel_err": 0.0 if all(equal.values()) else math.inf,
+           "tol_rel": KERNEL_TOL["lm_accept"], "states_equal": equal,
+           "accepted_of_20_early_exit": accepted, "library_ms": None}
+    row["ms"], row["plain_ms"] = time_pair(
+        lambda: kops.lm_accept(sk, cand, r_cand, c2, 0, rules),
+        lambda: kops.lm_accept_plain(sp, cand, r_cand, c2, 0, rules))
+    row.update(bound("lm_accept", (sk, cand, r_cand, c2, 0, rules)))
+    log(f"3 kernel lm_accept {label}", **row)
+    check(all(equal.values()), f"lm_accept {label}: states differ {equal}")
+    rows["lm_accept"] = row
+    return rows
 
 
 _ATOMIC_K1 = {}     # the loaded A/B reference of K1 (start_atomic_k1_build, load_atomic_k1)
@@ -1368,14 +1511,50 @@ def _flat_factor(factor) -> list:
     return [t for lv in factor[0] for t in lv]
 
 
-def compare_chain_factor(args, label: str) -> dict:
+def factor_split(args, sweep: bool = False) -> dict:
+    """K9's device ms a call over 10 profiled calls, and the levels' share
+    (the launch stopped after its chain levels, ``phase_limit``); the root
+    (its reduction, inverse and expansions) the rest.  Also the event-timed
+    ms of a call whose refresh flags are all 0 (a skipped early-exit
+    refresh), and with ``sweep`` the device ms of the launch stopped after
+    each of its phases (levels, root levels, the one block, expansions)."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    D, U, cutoff, *batch = args
+    B = batch[0] if batch else 1
+    levels = len(kops._factor_shapes(D.shape[0] // B, cutoff)[0])
+
+    def device_ms(**kw):
+        """None where the profile holds no K9 launch (not measured)."""
+        _, names = device_profile(lambda: [kops.chain_factor(*args, **kw) for _ in range(10)])
+        hits = [v for k, v in names.items() if "factor_kernel" in k]
+        return sum(hits) / 10 if hits else None
+
+    total = device_ms()
+    lv = device_ms(phase_limit=levels) if levels else 0.0
+    held = kops.chain_factor(*args)
+    need0 = torch.zeros(B, dtype=torch.bool, device=D.device)
+    out = {"device_ms": total, "levels_device_ms": lv,
+           "root_device_ms": None if total is None or lv is None else total - lv,
+           "skipped_call_ms": time_call(lambda: kops.chain_factor(*args, held=held, need=need0))}
+    if sweep:
+        m = held[1].shape[-1] // 6
+        phases = levels + 2 * (m.bit_length() - 1) + 1
+        out["device_ms_by_phase_limit"] = [device_ms(phase_limit=k) for k in range(1, phases)]
+    return out
+
+
+def compare_chain_factor(args, label: str, damped=None, timed: bool = True) -> dict:
     """K9 against its plain version: every level tensor within 1e-4 of its
     largest entry, the apply (K3 on both factors) on a fixed right-hand side
-    within CHAIN_APPLY_RTOL, and ‖A·root_inv - I‖∞ of both roots printed;
+    within CHAIN_APPLY_RTOL, a bit-identical rerun, and ‖A·root_inv - I‖∞
+    of both roots printed; with ``damped`` (Hb, U, cutoff, damp, free) the
+    damped entry bit-equal to the factor of the eager damped blocks;
     torch.linalg.inv_ex on the same root timed as the library yardstick.
     Also printed: the plain version's time in float32 (the reference's
-    precision), and how far K3 on K9's factor and on that float32 factor
-    each lands from a solve wholly in float64."""
+    precision), how far K3 on K9's factor and on that float32 factor each
+    lands from a solve wholly in float64, and the device split of a call
+    (``factor_split``)."""
     from uzliti_slam_tpu_torch.kernels import ops as kops
 
     D, U, cutoff = args
@@ -1409,13 +1588,29 @@ def compare_chain_factor(args, label: str) -> dict:
            "apply_rtol": CHAIN_APPLY_RTOL, "root_residual_inf_kernel": res_k,
            "root_residual_inf_plain": res_p, "apply_err_vs_float64_solve_kernel": err64_k,
            "apply_err_vs_float64_solve_float32_factor": err64_f32}
-    row["ms"], row["plain_ms"] = time_pair(lambda: kops.chain_factor(*args),
-                                           lambda: kops.chain_factor_plain(*args))
-    row["plain_float32_ms"] = time_call(
-        lambda: kops.chain_factor_plain(D, U, cutoff, work_dtype=torch.float32))
-    row["library_ms"] = time_call(lambda: torch.linalg.inv_ex(A))
+    rerun = kops.chain_factor(*args)
+    row["rerun_bit_identical"] = all(bool(torch.equal(a, b)) for a, b in zip(
+        _flat_factor(got) + [got[1]], _flat_factor(rerun) + [rerun[1]]))
+    row["root_rel_err"] = _rel(got[1], ref[1])[1]
+    if damped is not None:
+        # the damped entry (Hb, damp, free) builds the same float32 blocks
+        Hb, Ud, cut, damp, free = damped
+        got_d = kops.chain_factor(Hb, Ud, cut, damp=damp, free=free)
+        row["damped_entry_bit_equal"] = all(bool(torch.equal(a, b)) for a, b in zip(
+            _flat_factor(got) + [got[1]], _flat_factor(got_d) + [got_d[1]]))
+        check(row["damped_entry_bit_equal"], f"chain_factor {label}: the damped entry differs")
+    if timed:
+        row["ms"], row["plain_ms"] = time_pair(lambda: kops.chain_factor(*args),
+                                               lambda: kops.chain_factor_plain(*args))
+        row["plain_float32_ms"] = time_call(
+            lambda: kops.chain_factor_plain(D, U, cutoff, work_dtype=torch.float32))
+        row["library_ms"] = time_call(lambda: torch.linalg.inv_ex(A))
+    else:
+        row["ms"] = time_call(lambda: kops.chain_factor(*args))
+    row.update(factor_split(args, sweep=label == "1k"))
     row.update(bound("chain_factor", args))
     log(f"3 kernel chain_factor {label}", **row)
+    check(row["rerun_bit_identical"], f"chain_factor {label}: a rerun differs")
     check(rel <= KERNEL_TOL["chain_factor"], f"chain_factor {label}: level rel err {rel:.3g}")
     check(math.isfinite(res_k), f"chain_factor {label}: non-finite root")
     check(apply_rel <= CHAIN_APPLY_RTOL, f"chain_factor {label}: apply rel err {apply_rel:.3g}")
@@ -1813,6 +2008,9 @@ def headline_solve(g, chi2_oracle: float, reps: int):
         chi2_oracle=chi2_oracle, ratio_vs_oracle=chi2 / chi2_oracle, launches=counts,
         accepted=int(st.accepted.sum()), sync_free=True, library_items=lib_items, **prof)
     check(not lib_items, f"1k solve: library kernels in the profile: {lib_items}")
+    check(prof.get("device_launches", math.inf) <= MAX_DEVICE_LAUNCHES_1K,
+          f"1k solve: {prof.get('device_launches')} device launches > "
+          f"{MAX_DEVICE_LAUNCHES_1K}")
     check(spread == 0.0 and same_poses,
           f"1k solve: {reps} solves of one input differ (χ² spread {spread})")
     check(abs(chi2 - chi2_cpu) <= CHI2_RTOL * chi2_cpu + 1e-6 * chi2_0,
@@ -1854,12 +2052,15 @@ def reference_refreshes(hist, acc, cfg) -> int:
 
 
 def solve_launches(**counts) -> dict:
-    """Every kernel's launch count 0 but the solve's own: K1 24, K4 22, K8
-    2, K9 4 (the headline configuration) and the PCG's ``counts``."""
+    """Every kernel's launch count 0 but the solve's own: K1 24, K4 2 (the
+    start's and the final poses' residuals), K36's two entries 20 each (one
+    an LM iteration), K8 2, K9 4, one launch a factor (the headline
+    configuration) and the PCG's ``counts``."""
     from uzliti_slam_tpu_torch.kernels import ops as kops
 
     out = dict.fromkeys(kops.launches, 0)
-    out.update(linearize=24, residual_chi2=22, components=2, chain_factor=4, **counts)
+    out.update(linearize=24, residual_chi2=2, lm_candidate=20, lm_accept=20, components=2,
+               chain_factor=4, **counts)
     return out
 
 
@@ -3920,18 +4121,26 @@ def sift_phase(frames, device) -> tuple[dict, dict, dict]:
 def fleet_kernel_inputs(fleet, cfg):
     """The fleet's first-iteration inputs of each batched entry."""
     from uzliti_slam_tpu_torch.graph import solver
+    from uzliti_slam_tpu_torch.kernels import ops as kops
 
     B, n = fleet.pose.shape[:2]
     g = solver._flatten_fleet(fleet)
     labels = solver.connected_components(g, solver.component_iterations(n))
     free = (g.node_valid & ~solver.gauge_fix_mask(g, labels)).float()
     p = solver._Problem(g, free, cfg, batch=B)
-    r0, _ = p.residuals(g.pose)
+    r0, chi2_0 = p.residuals(g.pose)
     Ji, Jj, W, grad, Hb, U = p.linearize(r0)
     damp = p.damp(torch.full((B,), cfg.lambda_init, device=g.device), Hb)
     Dm = torch.where(free[:, None, None] > 0, Hb + torch.diag_embed(damp), p.eye6)
+    pack = p.build_pack(Hb, U, damp)
+    dx = solver._pcg(lambda u: kops.hvp(Ji, Jj, W, g.e_from, g.e_to, u, damp, free), pack,
+                     -grad, cfg.pcg_iterations, cfg.pcg_tol, B)
     return {"residual_chi2": (g.pose, g.e_from, g.e_to, g.e_transform, g.e_info, p.valid,
                               cfg.huber_delta, B),
+            "lm_candidate": (g.pose, dx, free, g.e_from, g.e_to, g.e_transform, g.e_info,
+                             p.valid, cfg.huber_delta),
+            "lm_state": (g.pose, r0, chi2_0, cfg.iterations, cfg.lambda_init),
+            "lm_rules": p.rules(cfg.early_exit), "batch": B,
             "chain_factor": (Dm, U, cfg.chain_dense_cutoff, B),
             "hvp": (Ji, Jj, W, g.e_from, g.e_to, damp, free), "b": -grad,
             "linearize": (r0, p.adj_meas_inv, g.e_info, p.valid, g.e_from, g.e_to, free,
@@ -3999,8 +4208,11 @@ def compare_fleet_kernels(inputs: dict, steps: int, tol: float) -> dict:
     _, Dk, Uk = kops.chain_reduce_plain(D.view(B, -1, 6, 6), U.view(B, -1, 6, 6), cutoff)
     A = kops.root_matrix_plain(Dk, Uk)
     row["library_ms"] = time_call(lambda: torch.linalg.inv_ex(A), trials=7, calls=2)
+    row.update(factor_split(args))
     row.update(bound("chain_factor", args))
     rows["chain_factor_batch"] = row
+    rows.update({f"{k}_batch": v for k, v in
+                 compare_lm_step(inputs, "fleet", batch=inputs["batch"]).items()})
 
     b = inputs["b"]
     got, ref = kops.chain_apply(fac, b), kops.chain_apply_plain(fac, b)
@@ -4185,11 +4397,12 @@ def world_of_one(dev) -> None:
 
 
 def sharded_bound(rows: dict, counts: dict, cfg) -> float:
-    """B19's least time per solve: each launch of K1, K2, K4, K3, K9 and K34
+    """B19's least time per solve: each launch of K1, K2, K4, K3, K9, K34, K36
     at its bound on these shapes (at world size 1 the shard is the whole
     table), plus, where K10 runs (above K34's cap), one 12-step K10 bound per
     LM iteration; the collective moves no bytes in a world of one."""
-    per_call = ("linearize", "hvp", "residual_chi2", "chain_apply", "chain_factor", "pcg_chain")
+    per_call = ("linearize", "hvp", "residual_chi2", "chain_apply", "chain_factor", "pcg_chain",
+                "lm_candidate", "lm_accept")
     return (sum(rows[k]["bound_ms"] * counts[k] for k in per_call)
             + (rows["pcg"]["bound_ms"] * cfg.iterations if counts["pcg"] else 0.0))
 
@@ -4294,9 +4507,10 @@ def sharded_world_phase(g1k, g100k, chi2_oracle_1k: float, spread_1k: float, chi
     check(not fields["library_items"] and not fields["other_items"],
           f"18a: library kernels in the profile: {fields['library_items']} "
           f"{fields['other_items']}")
-    check(prof.get("memcpy_dtod") == copies_per_build,
+    check(prof.get("memcpy_dtod") == copies_per_build + LM_STATE_COPIES,
           f"18a: {prof.get('memcpy_dtod')} device-to-device copies in the solve, "
-          f"{copies_per_build} in its one incidence table build")
+          f"{copies_per_build} in its one incidence table build + {LM_STATE_COPIES} of the LM "
+          "state's start")
     # the noise of the two routes compared: each one's own spread over its
     # turns (the generic solve's is 0 since K35; the sharded one keeps K2's
     # atomics and sums Hv in another order)
@@ -5372,6 +5586,13 @@ def main() -> int:
                             timed=False)
     compare_pcg_chain_solve(in500["pcg_chain_solve"], "epoch 500")
     rows_large["pcg_chain_solve"] = compare_pcg_chain_solve(in10k["pcg_chain_solve"], "10k")
+    # K9 at the 10k solve's and the 500-node epoch's first factor (the
+    # 1k and 100k ones are in compare_kernels)
+    rows["chain_factor_10k"] = compare_chain_factor(in10k["chain_factor"], "10k",
+                                                    in10k["chain_factor_damped"], timed=False)
+    rows["chain_factor_epoch500"] = compare_chain_factor(in500["chain_factor"], "epoch 500",
+                                                         in500["chain_factor_damped"],
+                                                         timed=False)
     rows["pcg_chain"] = compare_pcg_chain(in1k["pcg"], "1k")
     compare_pcg_chain(in1k["pcg"], "1k planar column mask", cmask=xy, timed=False)
     compare_pcg_chain(in500["pcg"], "epoch 500")
@@ -5710,7 +5931,7 @@ def main() -> int:
              "max_abs_err_large": rl["max_abs_err"], "ms_large": rl["ms"],
              "plain_ms_large": rl["plain_ms"], "bound_ms_large": rl["bound_ms"],
              "library_ms_large": None, "shapes_large": shapes19[1]})
-    check(len(kernels) == 46, f"{len(kernels)} kernel entries")
+    check(len(kernels) == 50, f"{len(kernels)} kernel entries")
     check(all(e["launches"] > 0 for e in kernels if e["name"] in SOLVE_KERNELS),
           f"a solve kernel's main path did not launch it: "
           f"{[(e['name'], e['launches']) for e in kernels if e['name'] in SOLVE_KERNELS]}")

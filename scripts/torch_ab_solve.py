@@ -12,9 +12,15 @@ the sides take turns: base, change, then change, base, and so on for
 solves (20 LM x 12 PCG, chain preconditioner, fixed iterations) of
 ``chip_smoke.make_graph`` graphs at each size, host clock around each solve
 between two synchronisations, and profiles one more (device launches,
-busy share, and the device ms a solve of K1, K2 and the fused PCG
-kernels); the size "fleet" times ``parallel.sharded.optimize_batch`` on
-``chip_smoke.FLEET`` at ``chip_smoke.FLEET_CONFIG`` instead.  Where the
+busy share, and the device ms a solve of K1, K2, the fused PCG kernels,
+K4, K9 and K36); the size "fleet" times ``parallel.sharded.optimize_batch``
+on ``chip_smoke.FLEET`` at ``chip_smoke.FLEET_CONFIG`` instead, and
+"epoch500" / "epoch10k" ``pipeline.optimize_epoch`` on
+``chip_smoke.EPOCH_500`` / ``EPOCH_10K`` (early exit, the odometry
+restart's one host read allowed).  At every size the chain factor (K9) of
+the first LM iteration is timed alone: CUDA events around 10 calls, and
+its device ms a call over 10 profiled calls, split into its levels and
+its root.  Where the
 size takes K34 (``pcg_chain_route``), it also runs
 ``chip_smoke.compare_pcg_chain`` on the first PCG solve (K34 against its
 plain version; one step timed with CUDA events beside the three calls it
@@ -34,7 +40,7 @@ import sys
 from pathlib import Path
 
 WORKER = r'''
-import json, statistics, sys, time
+import inspect, json, statistics, sys, time
 sys.path.insert(0, sys.argv[1])
 import torch
 import chip_smoke as cs
@@ -62,7 +68,10 @@ def timed(fn, g, c, reps):
     prof, names = cs.device_profile(lambda: fn(g, c))
     by_kernel = {k: sum(v for name, v in names.items() if f in name)
                  for k, f in (("k1", "linearize"), ("k2", "hvp_"), ("k34", "pcg_chain_kernel"),
-                              ("k35", "pcg_solve_kernel"))}
+                              ("k35", "pcg_solve_kernel"), ("k4", "residual_edges"),
+                              ("k4_sum", "sum_partials"), ("k9", "factor_"),
+                              ("k36", "candidate_kernel"), ("k36_accept", "accept_kernel"))}
+    by_kernel["eager_ops"] = sum(v for name, v in names.items() if "at::native" in name)
     return res, {"ms_median": statistics.median(ts), "ms": ts,
                  "port_launches": {k: v for k, v in launches.items() if v},
                  "device_launches": prof.get("device_launches"),
@@ -71,8 +80,43 @@ def timed(fn, g, c, reps):
                  "device_ms_by_kernel": by_kernel}
 
 
-out = {}
+def factor_times(args):
+    """K9 on the first LM iteration's blocks: ms a call (CUDA events, host
+    launch cost included), device ms a call, and its levels' share of it: a
+    checkout whose K9 runs one launch a call stops the launch after the
+    chain levels (``phase_limit``); one with a launch per level times its
+    level kernels apart from its root kernel."""
+    ms = cs.time_call(lambda: kops.chain_factor(*args), trials=11, calls=10)
+
+    def device_ms(**kw):
+        _, names = cs.device_profile(lambda: [kops.chain_factor(*args, **kw) for _ in range(10)])
+        return {k: v / 10 for k, v in names.items() if "factor_" in k}
+
+    total = device_ms()
+    out = {"k9_ms": ms, "k9_device_ms": sum(total.values())}
+    if "phase_limit" in inspect.signature(kops.chain_factor).parameters:
+        D, U, cutoff, *batch = args
+        levels = len(kops._factor_shapes(D.shape[0] // (batch[0] if batch else 1), cutoff)[0])
+        out["k9_levels_device_ms"] = sum(device_ms(phase_limit=levels).values()) if levels else 0.0
+    else:
+        out["k9_levels_device_ms"] = sum(v for k, v in total.items() if "factor_level" in k)
+    out["k9_root_device_ms"] = out["k9_device_ms"] - out["k9_levels_device_ms"]
+    return out
+
+
+out, lifted = {}, False
 for size in sys.argv[2].split(","):
+    if size.startswith("epoch"):
+        if not lifted:
+            cs.lift_sync_check_for_restart_read()
+            lifted = True
+        spec = cs.EPOCH_500 if size == "epoch500" else cs.EPOCH_10K
+        ecfg, state, _, _ = cs.make_epoch_state(**spec, device=dev)
+        _, out[size] = timed(lambda s, c: cs.timed_epochs(s, c, 1)[1], state, ecfg,
+                             max(3, int(sys.argv[3]) // 3))
+        out[size].update(factor_times(cs.kernel_inputs(state.graph, ecfg.solver)["chain_factor"]))
+        del state
+        continue
     if size == "fleet":
         from uzliti_slam_tpu_torch.io import synthetic
         from uzliti_slam_tpu_torch.parallel import sharded
@@ -81,9 +125,10 @@ for size in sys.argv[2].split(","):
             generator=torch.Generator().manual_seed(cs.SEED), capacity_rounding="pow2", device=dev)
         res, out[size] = timed(sharded.optimize_batch, fleet, solver.SolverConfig(**cs.FLEET_CONFIG),
                                max(3, int(sys.argv[3]) // 5))
-        out[size]["mean_chi2"] = float(solver.optimize_batched(
-            fleet, sharded.fleet_config(solver.SolverConfig(**cs.FLEET_CONFIG)))[1]
-            .chi2_history[:, -1].mean())
+        fcfg = sharded.fleet_config(solver.SolverConfig(**cs.FLEET_CONFIG))
+        out[size]["mean_chi2"] = float(solver.optimize_batched(fleet, fcfg)[1]
+                                       .chi2_history[:, -1].mean())
+        out[size].update(factor_times(cs.fleet_kernel_inputs(fleet, fcfg)["chain_factor"]))
         del fleet
         continue
     n = int(size)
@@ -91,6 +136,7 @@ for size in sys.argv[2].split(","):
     (_, st), out[n] = timed(solver.optimize, g, cfg, int(sys.argv[3]))
     out[n]["chi2"] = float(st.chi2_history[-1])
     inputs = cs.kernel_inputs(g, cfg)
+    out[n].update(factor_times(inputs["chain_factor"]))
     args = inputs["pcg"]
     Ji, Jj, W, ef, et, damp, free, pack, b, steps, tol = args
     if kops.pcg_chain_route(pack):
@@ -124,7 +170,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--base", required=True, type=Path, help="the other checkout")
     ap.add_argument("--pairs", type=int, default=5)
-    ap.add_argument("--sizes", default="1000,10000")
+    ap.add_argument("--sizes", default="1000,10000",
+                    help="node counts, 'fleet', 'epoch500', 'epoch10k'")
     ap.add_argument("--reps", type=int, default=15, help="timed solves a size and process")
     args = ap.parse_args()
     sides = {"base": args.base.resolve(), "change": Path(__file__).resolve().parents[1]}
@@ -137,6 +184,10 @@ def main() -> int:
             medians[side][-1].update({f"{n}:{k}": r["pcg_chain"][k] for n, r in res.items()
                                       if "pcg_chain" in r
                                       for k in ("ms", "device_ms_per_step")})
+            medians[side][-1].update({f"{n}:{k}": r[k] for n, r in res.items()
+                                      for k in ("k9_ms", "k9_device_ms", "k9_levels_device_ms",
+                                                "k9_root_device_ms", "device_kernel_ms",
+                                                "device_launches") if k in r})
             print(json.dumps({"pair": i, "side": side, **res}), flush=True)
     for n in args.sizes.split(","):
         base = [m[n] for m in medians["base"]]
@@ -145,6 +196,11 @@ def main() -> int:
         k34 = {f"{side}_pcg_chain_{k}": [m[f"{n}:{k}"] for m in medians[side]]
                for side in sides for k in ("ms", "device_ms_per_step")
                if f"{n}:{k}" in medians[side][0]}
+        k34.update({f"{side}_{k}": [m[f"{n}:{k}"] for m in medians[side]]
+                    for side in sides for k in ("k9_ms", "k9_device_ms", "k9_levels_device_ms",
+                                                "k9_root_device_ms", "device_kernel_ms",
+                                                "device_launches")
+                    if f"{n}:{k}" in medians[side][0]})
         print(json.dumps({"size": n, "base_medians_ms": base, "change_medians_ms": change,
                           "base_median_ms": statistics.median(base),
                           "change_median_ms": statistics.median(change),

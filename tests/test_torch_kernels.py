@@ -53,7 +53,7 @@ def test_nvcc_flags_target_hopper_without_fast_math():
         "hamming_top2.cu", "bilateral.cu", "icp.cu", "merge_pairs.cu", "calib_gn.cu",
         "feature_votes.cu", "repository.cu", "bow_words.cu", "bow_query.cu", "voxel_grid.cu",
         "gicp.cu", "pnp.cu", "sift_describe.cu", "l2_top2.cu", "scope_match.cu",
-        "delta_apply.cu", "pcg_chain.cu"}
+        "delta_apply.cu", "pcg_chain.cu", "lm_step.cu"}
 
 
 def test_every_exported_function_has_a_signature_of_its_arity():
@@ -236,28 +236,40 @@ def fake_lib(monkeypatch):
 
 
 def test_chain_factor_launches_one_level_kernel_per_level_and_the_root(fake_lib):
+    """K9 is one launch a call: its levels and root are phases of one
+    cooperative kernel, each level's five tensors handed over in a host
+    table of device pointers."""
     levels, root_inv, n = kops.chain_factor(_meta(200, 6, 6), _meta(200, 6, 6), 16)
-    names = [c[0] for c in fake_lib.calls]
-    assert names == ["uz_chain_factor_level"] * 4 + ["uz_chain_factor_root"]
-    # (float64 input?, valid rows, rows per chain, halves, chains): the
-    # caller's float32 D, U first; one chain is the batch of one
-    assert [c[1][2:7] for c in fake_lib.calls[:4]] == [
-        (0, 200, 200, 128, 1), (1, 128, 128, 64, 1), (1, 64, 64, 32, 1), (1, 32, 32, 16, 1)]
-    assert fake_lib.calls[-1][1][2:7] == (1, 16, 16, 16, 1) and tuple(root_inv.shape) == (1, 96, 96)
-    # no flag: always build (the flag is the level's 15th and the root's 10th argument)
-    assert all(c[1][14] is None for c in fake_lib.calls[:4]) and fake_lib.calls[4][1][9] is None
+    assert [c[0] for c in fake_lib.calls] == ["uz_chain_factor"]
+    args = fake_lib.calls[0][1]
+    assert len(args) == len(_build.SIGNATURES["uz_chain_factor"])
+    # (damp, free, lift) absent: D is the matrix itself; (rows, chains,
+    # levels, root blocks)
+    assert args[2:5] == (None, None, None) and args[5:9] == (200, 1, 4, 16)
+    assert [lv[0].shape[1] for lv in levels] == [128, 64, 32, 16]
+    assert tuple(root_inv.shape) == (1, 96, 96)
+    # the scratch's doubles; no flag: always build; every phase
+    assert args[11] == kops.chain_factor_scratch([128, 64, 32, 16], 16, 1)
+    assert args[12] is None and args[14] == 0
     assert kops.launches["chain_factor"] == 1 and n == 200
     held = (levels, root_inv, n)
     kops.chain_factor(_meta(200, 6, 6), _meta(200, 6, 6), 16, held=held,
                       need=_meta(1, dtype=torch.bool))
-    assert kops.launches["chain_factor"] == 2 and len(fake_lib.calls) == 10
+    assert kops.launches["chain_factor"] == 2 and len(fake_lib.calls) == 2
+    assert fake_lib.calls[1][1][12] is not None
     kops.chain_apply(held, _meta(200, 6))
-    names = [c[0] for c in fake_lib.calls[10:]]
+    names = [c[0] for c in fake_lib.calls[2:]]
     assert names == ["uz_chain_forward"] * 4 + ["uz_chain_root"] + ["uz_chain_backward"] * 4
     kops.chain_apply(kops.chain_factor(_meta(12, 6, 6), _meta(12, 6, 6)), _meta(12, 6))
     root_call = fake_lib.calls[-1]
     assert root_call[0] == "uz_chain_root" and root_call[1][2:8] == (12, 12, 96, 1, 0, 12)
     assert kops.launches["chain_apply"] == 2
+    # the damped form: Hb, U, damp, free and the planar lift in the one launch
+    kops.chain_factor(_meta(200, 6, 6), _meta(200, 6, 6), 16, damp=_meta(200, 6),
+                      free=_meta(200), lift=_meta(6))
+    assert fake_lib.calls[-1][0] == "uz_chain_factor"
+    assert all(a is not None for a in fake_lib.calls[-1][1][2:5])
+    assert kops.launches["chain_factor"] == 4
 
 
 @pytest.mark.parametrize("n, grid", [(10, False), (5461, False), (5462, True), (100_000, True)])
@@ -325,7 +337,7 @@ def test_solve_and_map_kernel_argument_checks_raise(fake_lib):
         with pytest.raises((TypeError, ValueError), match=err):
             kops.project_rays(*args, 0.1, 6.0, 0.85, -0.4, 10.0, True)
     # only the two factors built for the held-factor cases reached the library
-    assert {c[0] for c in fake_lib.calls} == {"uz_chain_factor_level", "uz_chain_factor_root"}
+    assert [c[0] for c in fake_lib.calls] == ["uz_chain_factor"] * 2
 
 
 def _frontend_cases():
@@ -1011,11 +1023,9 @@ def test_slice9_kernels_launch_through_the_library(fake_lib):
     assert fake_lib.calls[-1][0] == "uz_residual_chi2" and fake_lib.calls[-1][1][7:9] == (E, B)
     assert tuple(chi2.shape) == (B,) and tuple(r.shape) == (B * E, 6)
     fac = kops.chain_factor(_meta(B * n, 6, 6), _meta(B * n, 6, 6), 16, B)
-    names = [c[0] for c in fake_lib.calls[-3:]]
-    assert names == ["uz_chain_factor_level"] * 2 + ["uz_chain_factor_root"]
-    # (float64 input?, valid rows, stride, half, instances) per level, then the root's
-    assert [c[1][2:7] for c in fake_lib.calls[-3:-1]] == [(0, 64, 64, 32, B), (1, 32, 32, 16, B)]
-    assert fake_lib.calls[-1][1][2:7] == (1, 16, 16, 16, B)
+    # one launch: (rows, instances, levels) and the root's blocks
+    assert fake_lib.calls[-1][0] == "uz_chain_factor"
+    assert fake_lib.calls[-1][1][5:9] == (n, B, 2, 16)
     assert tuple(fac[1].shape) == (B, 96, 96) and tuple(fac[0][0][0].shape) == (B, 32, 6, 6)
     kops.chain_factor(_meta(B * n, 6, 6), _meta(B * n, 6, 6), 16, B, held=fac,
                       need=_meta(B, dtype=b))
@@ -1144,3 +1154,89 @@ def test_linearize_passes_the_column_mask_as_bits(fake_lib):
     assert [c[1][9:13] for c in fake_lib.calls] == [(1.0, E, n, 63), (1.0, E, n, 35)]
     assert len(calls) == 1 and tuple(calls[0].shape) == (78 * n,)
     assert kops.launches["linearize"] == 2
+
+
+# ---------------------------------------------------------------------------
+# Slice 14: K36 (the LM tail) and K9 in one launch, in the loop
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("early_exit, batch", [(False, 1), (True, 1), (False, 3), (True, 3)],
+                         ids=["fixed", "early_exit", "fleet_fixed", "fleet_early_exit"])
+def test_an_lm_iteration_is_two_k36_launches_and_k9_one(fake_lib, early_exit, batch):
+    from uzliti_slam_tpu_torch.graph import solver
+    from uzliti_slam_tpu_torch.graph import state as gstate
+
+    n, E, iterations = 64, 96, 6
+    g = gstate.empty_graph(batch * n, batch * E, "meta")
+    cfg = solver.SolverConfig(iterations=iterations, pcg_iterations=4, chain_dense_cutoff=16,
+                               precond_refresh=3, early_exit=early_exit)
+    poses, lam, hist, acc = solver._lm(g, _meta(batch * n), cfg, batch)
+    names = [c[0] for c in fake_lib.calls]
+    assert names.count("uz_lm_candidate") == names.count("uz_lm_accept") == iterations
+    assert names.count("uz_residual_chi2") == 1                  # χ²₀ only
+    factors = names.count("uz_chain_factor")
+    assert factors == (iterations if early_exit else iterations // cfg.precond_refresh)
+    assert kops.launches["lm_candidate"] == kops.launches["lm_accept"] == iterations
+    assert kops.launches["chain_factor"] == factors
+    assert tuple(hist.shape) == (batch, iterations + 1) and tuple(acc.shape) == (batch, iterations)
+    assert tuple(lam.shape) == (batch,) and tuple(poses.shape) == (batch * n, 7)
+    # each iteration: candidate then accept, after the PCG
+    order = [c for c in names if c in ("uz_lm_candidate", "uz_lm_accept")]
+    assert order == ["uz_lm_candidate", "uz_lm_accept"] * iterations
+    cands = [c[1] for c in fake_lib.calls if c[0] == "uz_lm_candidate"]
+    accepts = [c[1] for c in fake_lib.calls if c[0] == "uz_lm_accept"]
+    for a in cands:
+        assert len(a) == len(_build.SIGNATURES["uz_lm_candidate"])
+        # (huber δ, nodes, edges, instances) after the eight input pointers
+        assert a[8:12] == (1.0, n, E, batch)
+    for it, a in enumerate(accepts):
+        assert len(a) == len(_build.SIGNATURES["uz_lm_accept"])
+        # (nodes, edges, instances, it, iterations, early exit), then the
+        # rules: 1/factor, factor, λ_min, λ_max, λ_init, tol, refresh
+        assert a[3:9] == (n, E, batch, it, iterations, int(early_exit))
+        assert a[9:16] == pytest.approx((1 / 3.0, 3.0, 1e-9, 1e2, 1e-4, 1e-6, 3))
+    # the early exit's K9 reads the accept's refresh flag from the second
+    # iteration on (the factor's 13th argument)
+    k9 = [c[1] for c in fake_lib.calls if c[0] == "uz_chain_factor"]
+    assert k9[0][12] is None
+    assert all((a[12] is not None) == early_exit for a in k9[1:])
+    # the damped form: Hb with damp and free, no lift outside the planar solve
+    assert all(a[2] is not None and a[3] is not None and a[4] is None for a in k9)
+
+
+def test_the_fast_planar_loop_hands_k9_its_lift(fake_lib):
+    from uzliti_slam_tpu_torch.graph import solver
+    from uzliti_slam_tpu_torch.graph import state as gstate
+
+    n, E = 64, 96
+    g = gstate.empty_graph(n, E, "meta")
+    cfg = solver.SolverConfig(iterations=2, pcg_iterations=2, chain_dense_cutoff=16,
+                               early_exit=False, optimize_xy_only=True)
+    solver._lm(g, _meta(n), cfg, 1)
+    k9 = [c[1] for c in fake_lib.calls if c[0] == "uz_chain_factor"]
+    assert k9 and all(a[4] is not None for a in k9)
+
+
+def test_k36_argument_checks_raise(fake_lib):
+    i32 = torch.int32
+    B, n, E = 2, 8, 12
+    args = [_meta(B * n, 7), _meta(B * n, 6), _meta(B * n), _meta(B * E, dtype=i32),
+            _meta(B * E, dtype=i32), _meta(B * E, 7), _meta(B * E, 6, 6), _meta(B * E)]
+    with pytest.raises(ValueError, match="in 3 instances"):
+        kops.lm_candidate(*args, 1.0, 3)
+    bad = list(args)
+    bad[1] = _meta(B * n, 7)
+    with pytest.raises(ValueError, match="dx: shape"):
+        kops.lm_candidate(*bad, 1.0, B)
+    cand, r, chi2 = kops.lm_candidate(*args, 1.0, B)
+    assert tuple(cand.shape) == (B * n, 7) and tuple(r.shape) == (B * E, 6)
+    assert tuple(chi2.shape) == (B,)
+    s = kops.lm_state(_meta(B * n, 7), _meta(B * E, 6), _meta(B), 4, 1e-4, B)
+    rules = kops.LmRules(3.0, 1e-9, 1e2, 1e-4, 1e-6, 5, True)
+    with pytest.raises(ValueError, match="iteration 4 of 4"):
+        kops.lm_accept(s, cand, r, chi2, 4, rules)
+    with pytest.raises(ValueError, match="chi2_new: shape"):
+        kops.lm_accept(s, cand, r, _meta(B + 1), 0, rules)
+    kops.lm_accept(s, cand, r, chi2, 0, rules)
+    assert [c[0] for c in fake_lib.calls] == ["uz_lm_candidate", "uz_lm_accept"]
+    assert kops.launches["lm_candidate"] == kops.launches["lm_accept"] == 1

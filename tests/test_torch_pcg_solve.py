@@ -329,7 +329,7 @@ def test_the_lm_step_takes_k35_without_reduce_and_k2_k34_with_it(fake_lib, reduc
     factor = _meta_factor(fake_lib, n, CFG["chain_dense_cutoff"])
     J = _meta(E, 6, 6)
     p.step(g.pose, factor, J, J, J, _meta(n, 6), _meta(n, 6))
-    names = [c[0] for c in fake_lib.calls if c[0] != "uz_residual_chi2"]
+    names = [c[0] for c in fake_lib.calls if c[0] not in ("uz_residual_chi2", "uz_lm_candidate")]
     if reduce:
         assert names == ["uz_pcg_chain_start"] + ["uz_hvp", "uz_pcg_chain_step"] * 12
         assert kops.launches["pcg_chain_solve"] == 0

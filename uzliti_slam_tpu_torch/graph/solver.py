@@ -14,24 +14,28 @@ loop masks K1's Jacobian columns and lifts the factor's masked diagonal,
 the generic loop wraps the operator and gradient and hands the
 preconditioner the column mask (K34 masks r before the apply and z after
 it).  Per LM iteration: one fused linearization (kernel K1), a PCG solve
-of a fixed count of steps, and one retraction whose residuals and robust
-χ² are kernel K4.  The PCG takes one of three routes (``_pcg``): a single
-solve within K34's cap with no reduce hook is kernel K35, the whole solve
+of a fixed count of steps, then kernel K36 in two launches: the candidate
+(retraction, its residuals and robust χ²) and the accept rule with the λ
+schedule (and the early exit's termination), whose state lives in
+per-iteration tensors (``kops.LmState``).  The PCG takes one of three
+routes (``_pcg``): a single solve within K34's cap with no reduce hook is
+kernel K35, the whole solve
 with its Hessian-vector products in one launch; the edge-sharded solve
 (whose all-reduce sits between Hv and the dot) runs K2 for each Hv and
 K34 for each step's updates around the preconditioner apply; a fleet, or
 a chain above K34's cap, K2, K10 and K3.  K1 and K35 sum node rows over
 the solve's incidence table (``kops.incidence_table``, built once per
 solve) in a fixed order, so those routes give the same bits every run.
-The chain factor is kernel K9, connected components and gauge fixing are
-kernel K8.
+The chain factor is kernel K9, one launch that builds the damped diagonal
+from Hb as it reads it; connected components and gauge fixing are kernel
+K8.  K4 computes the start's and the final poses' residuals.
 
 ``optimize_batched`` solves a fleet of B independent graphs of equal
 capacities, as the reference's ``vmap`` of ``optimize``: the fleet is
 flattened into one block-diagonal table (instance b's nodes at b·N, its
 edges' endpoints offset by b·N), which K1, K2 and K8 take as they are,
 while λ, accept, χ², the refresh state and the early-exit flag are (B,)
-tensors and K4, K10, K9 and K3 keep each instance's sums and factor its
+tensors and K36, K10, K9 and K3 keep each instance's sums and factor its
 own, the instance on their grid.  A single graph runs the same loop as the
 batch of one.  The launches per solve do not grow with B.
 
@@ -228,7 +232,8 @@ class _Problem:
         xy = config.optimize_xy_only
         self.col_mask = XY_COLUMNS if xy and not self.generic else None
         self.cmask = _xy_mask(free.dtype, free.device) if xy else None
-        self.lift = torch.diag(1.0 - self.cmask) if self.col_mask is not None else None
+        # the factor's lift: 1 on the masked coordinates' diagonal
+        self.lift = 1.0 - self.cmask if self.col_mask is not None else None
         self.valid = g.e_valid.to(free.dtype)
         self.is_chain = ((g.e_to == g.e_from + 1) & g.e_valid).to(free.dtype)
         self.both_free = ((free > 0) & (torch.roll(free, -1) > 0)).to(free.dtype)
@@ -250,12 +255,10 @@ class _Problem:
             self.reduce(chi2)
         return r, chi2
 
-    def select(self, mask, a, b):
-        """``a`` where ``mask`` (B,), else ``b``, over the instances' rows of
-        a flattened tensor."""
-        shape = (self.batch, -1) + tuple(a.shape[1:])
-        m = mask.view((self.batch,) + (1,) * a.dim())
-        return torch.where(m, a.view(shape), b.view(shape)).view(a.shape)
+    def rules(self, early_exit: bool) -> kops.LmRules:
+        cfg = self.config
+        return kops.LmRules(cfg.lambda_factor, cfg.lambda_min, cfg.lambda_max, cfg.lambda_init,
+                            cfg.early_exit_tol, _refresh(cfg), early_exit)
 
     def linearize(self, r):
         g = self.g
@@ -268,18 +271,17 @@ class _Problem:
         return (lam[:, None, None] * d.view(self.batch, -1, 6)).view(d.shape)
 
     def build_pack(self, Hb, U, damp, held=None, need=None):
-        """Chain factor of the damped block-tridiagonal part of H (K9), one
-        chain per instance; with ``held`` and ``need``, ``held`` rebuilt in
-        place where ``need``."""
-        Dm = torch.where(self.free[:, None, None] > 0, Hb + torch.diag_embed(damp),
-                         self.eye6)
-        if self.lift is not None:
-            Dm = Dm + self.lift
-        return tridiag.block_tridiag_factor(Dm, U, self.config.chain_dense_cutoff, self.batch,
-                                            held=held, need=need)
+        """Chain factor of the damped block-tridiagonal part of H (K9, which
+        builds free ? Hb + diag(damp) : I, plus the lift, as it reads Hb),
+        one chain per instance; with ``held``, ``held`` rebuilt in place
+        (where ``need``, if given)."""
+        return tridiag.block_tridiag_factor(Hb, U, self.config.chain_dense_cutoff, self.batch,
+                                            held=held, need=need, damp=damp, free=self.free,
+                                            lift=self.lift)
 
     def step(self, poses, pack, Ji, Jj, W, grad, damp):
-        """One PCG solve + retraction: (cand, r_cand, chi2_new).
+        """One PCG solve, then K36's candidate: (cand, r_cand, chi2_new), χ²
+        summed across ranks by ``reduce``.
 
         The fast loop's planar solve needs no wraps: with K1's columns
         masked, H, U and the lifted factor leave the masked coordinates
@@ -308,39 +310,35 @@ class _Problem:
         op = (kops.HvpOperator(Ji, Jj, W, g.e_from, g.e_to, damp_k, free, self.table)
               if self.reduce is None else None)
         dx = _pcg(hvp, pack, b, cfg.pcg_iterations, cfg.pcg_tol, self.batch, cm, op)
-        cand = lie.pose_retract(poses, dx * free[:, None])
-        r_cand, chi2_new = self.residuals(cand)
+        cand, r_cand, chi2_new = kops.lm_candidate(poses, dx, free, g.e_from, g.e_to,
+                                                   g.e_transform, g.e_info, self.valid,
+                                                   cfg.huber_delta, self.batch)
+        if self.reduce is not None:
+            self.reduce(chi2_new)
         return cand, r_cand, chi2_new
 
 
-def _lm_fixed(p: _Problem, r0, chi2_0):
+def _refresh(cfg: SolverConfig) -> int:
+    return max(1, min(int(cfg.precond_refresh), cfg.iterations))
+
+
+def _lm_fixed(p: _Problem, s: kops.LmState) -> None:
     """Fixed iteration count in refresh chunks: the factor is built once per
     chunk from the chunk's first iterate (``solver.py:950-1013``)."""
     cfg = p.config
-    refresh = max(1, min(int(cfg.precond_refresh), cfg.iterations))
-    poses, r, chi2_cur = p.g.pose, r0, chi2_0
-    lam = torch.full((p.batch,), cfg.lambda_init, dtype=r0.dtype, device=r0.device)
-    hist, acc = [], []
-    for step_idx in range(cfg.iterations):
-        if step_idx % refresh == 0:
-            _, _, _, _, Hb, U = p.linearize(r)
-            pack = p.build_pack(Hb, U, p.damp(lam, Hb))
-        Ji, Jj, W, grad, Hb, U = p.linearize(r)
-        cand, r_cand, chi2_new = p.step(poses, pack, Ji, Jj, W, grad, p.damp(lam, Hb))
-        accept = chi2_new < chi2_cur
-        poses = p.select(accept, cand, poses)
-        r = p.select(accept, r_cand, r)
-        chi2_cur = torch.where(accept, chi2_new, chi2_cur)
-        lam = torch.clamp(
-            torch.where(accept, lam / cfg.lambda_factor, lam * cfg.lambda_factor),
-            cfg.lambda_min, cfg.lambda_max,
-        )
-        hist.append(chi2_cur)
-        acc.append(accept)
-    return poses, lam, hist, acc
+    refresh, rules = _refresh(cfg), p.rules(early_exit=False)
+    pack = None
+    for it in range(cfg.iterations):
+        lam = s.lam[:, it]
+        if it % refresh == 0:   # one factor, rebuilt in place each chunk
+            _, _, _, _, Hb, U = p.linearize(s.r)
+            pack = p.build_pack(Hb, U, p.damp(lam, Hb), held=pack)
+        Ji, Jj, W, grad, Hb, U = p.linearize(s.r)
+        cand, r_cand, chi2_new = p.step(s.poses, pack, Ji, Jj, W, grad, p.damp(lam, Hb))
+        kops.lm_accept(s, cand, r_cand, chi2_new, it, rules)
 
 
-def _lm_early_exit(p: _Problem, r0, chi2_0):
+def _lm_early_exit(p: _Problem, s: kops.LmState) -> None:
     """g2o-parity termination (``solver.py:886-948``) as a fixed count of
     steps that turn into no-ops once ``done`` is set.
 
@@ -348,53 +346,23 @@ def _lm_early_exit(p: _Problem, r0, chi2_0):
     right after a rejected one, and not once ``done`` is set (the reference
     leaves its loop then).  That choice depends on device values, so the
     solve holds one private factor and K9 rebuilds it in place only where
-    the device flag ``need`` is set (on CPU tensors the fresh factor is
-    selected into it with ``torch.where``): a factor is built exactly when
-    the reference builds one, with no host synchronisation.  In a fleet
-    each instance holds its own factor and flag.
+    the device flag ``need`` (written by K36's accept) is set (on CPU
+    tensors the fresh factor is selected into it with ``torch.where``): a
+    factor is built exactly when the reference builds one, with no host
+    synchronisation.  In a fleet each instance holds its own factor and
+    flag.
     """
     cfg = p.config
-    dev, dt = r0.device, r0.dtype
-    refresh = max(1, min(int(cfg.precond_refresh), cfg.iterations))
-    poses, r, chi2_cur = p.g.pose, r0, chi2_0
-    lam = torch.full((p.batch,), cfg.lambda_init, dtype=dt, device=dev)
-    stale = torch.zeros((p.batch,), dtype=torch.int32, device=dev)
-    done = torch.zeros((p.batch,), dtype=torch.bool, device=dev)
+    rules = p.rules(early_exit=True)
     pack = None
-    hist, acc = [], []
     for it in range(cfg.iterations):
-        Ji, Jj, W, grad, Hb, U = p.linearize(r)
-        damp = p.damp(lam, Hb)
+        Ji, Jj, W, grad, Hb, U = p.linearize(s.r)
+        damp = p.damp(s.lam[:, it], Hb)
         # refresh on schedule OR right after a rejected step
-        if pack is None:
-            pack = p.build_pack(Hb, U, damp)
-        else:
-            need = (stale >= refresh) & ~done
-            pack = p.build_pack(Hb, U, damp, held=pack, need=need)
-            stale = torch.where(need, 0, stale)
-        cand, r_cand, chi2_new = p.step(poses, pack, Ji, Jj, W, grad, damp)
-        active = ~done
-        accept = (chi2_new < chi2_cur) & active
-        gain = (chi2_cur - chi2_new) / torch.clamp(chi2_cur, min=1e-12)
-        poses = p.select(accept, cand, poses)
-        r = p.select(accept, r_cand, r)
-        lam_next = torch.clamp(
-            torch.where(accept, lam / cfg.lambda_factor, lam * cfg.lambda_factor),
-            cfg.lambda_min, cfg.lambda_max,
-        )
-        # converged (tiny accepted gain with λ already relaxed) or stuck
-        # (rejected with λ at its ceiling)
-        finished = (
-            (accept & (gain < cfg.early_exit_tol) & (lam <= cfg.lambda_init))
-            | (~accept & (lam >= cfg.lambda_max))
-        )
-        chi2_cur = torch.where(accept, chi2_new, chi2_cur)
-        lam = torch.where(active, lam_next, lam)
-        stale = torch.where(accept, stale + 1, refresh)
-        done = done | (active & finished)
-        hist.append(chi2_cur)
-        acc.append(accept)
-    return poses, lam, hist, acc
+        pack = (p.build_pack(Hb, U, damp) if pack is None
+                else p.build_pack(Hb, U, damp, held=pack, need=s.need[it]))
+        cand, r_cand, chi2_new = p.step(s.poses, pack, Ji, Jj, W, grad, damp)
+        kops.lm_accept(s, cand, r_cand, chi2_new, it, rules)
 
 
 def _residuals(g: GraphState, poses: torch.Tensor, huber_delta: float, batch: int = 1):
@@ -415,9 +383,10 @@ def _lm(g: GraphState, free: torch.Tensor, config: SolverConfig, batch: int, red
     χ² histories (B, iterations + 1), accept flags (B, iterations))."""
     p = _Problem(g, free, config, batch, reduce, damp_here)
     r0, chi2_0 = p.residuals(g.pose)
+    s = kops.lm_state(g.pose, r0, chi2_0, config.iterations, config.lambda_init, batch)
     run = _lm_early_exit if config.early_exit and not p.generic else _lm_fixed
-    poses, lam, hist, acc = run(p, r0, chi2_0)
-    return poses, lam, torch.stack([chi2_0, *hist], dim=1), torch.stack(acc, dim=1)
+    run(p, s)
+    return s.poses, s.lam[:, -1], s.hist, s.acc
 
 
 def lm_loop(g: GraphState, free: torch.Tensor, config: SolverConfig, reduce=None,

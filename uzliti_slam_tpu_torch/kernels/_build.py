@@ -50,8 +50,9 @@ SIGNATURES = {
     "uz_components": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "uz_gauge_fix": [_P, _P, _P, _P, _I, _P, _P, _P],
     "uz_chain_root": [_P, _P, _I, _I, _I, _I, _P, _I, _P],
-    "uz_chain_factor_level": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "uz_chain_factor_root": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "uz_chain_factor": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _L, _P, _P, _I, _P],
+    "uz_lm_candidate": [_P] * 8 + [_F, _I, _I, _I] + [_P] * 6,
+    "uz_lm_accept": [_P] * 3 + [_I] * 6 + [_F] * 6 + [_I] + [_P] * 10,
     "uz_pcg_init": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
     "uz_pcg_alpha": [_P, _P, _I, _I, _F, _P, _P, _P, _P, _P],
     "uz_pcg_beta": [_P, _P, _I, _I, _P, _P, _P, _P],

@@ -29,7 +29,8 @@ components     csrc/components.cu      graph/solver.py:connected_components,
 chain_factor   csrc/chain_factor.cu    graph/tridiag.py:block_tridiag_factor
                                        (+ _inv3, _inv6, _pad_pow2,
                                        _dense_root_inverse; and their vmap
-                                       in the fleet)
+                                       in the fleet) with solver.py's
+                                       damped diagonal (build_pack)
 pcg            csrc/pcg.cu             graph/solver.py:_pcg's vector updates
                                        (and their vmap in the fleet; three
                                        wrappers, one count)
@@ -93,12 +94,18 @@ pcg_chain_     csrc/pcg_chain.cu       graph/solver.py:_pcg's whole loop with
 solve                                  _make_hvp and block_tridiag_apply
                                        inside it (a single solve with no
                                        reduce hook; K2 + K34 fused)
+lm_candidate   csrc/lm_step.cu         graph/solver.py's LM tail: retraction,
+                                       batched_residuals, _robust_chi2_from_r
+lm_accept      csrc/lm_step.cu         the accept rule with the λ schedule and
+                                       the early exit (one count each)
 =============  ======================  =======================================
 
-K3, K4, K9 and K10 take a batch of B instances of equal sizes, flattened
-(the fleet of ``parallel/sharded.optimize_batch``); a single solve is the
-batch of one.  The solve's PCG has three routes (``solver._pcg``): a single
-solve within K34's cap with no reduce hook takes ``pcg_chain_solve`` (K35),
+K3, K4, K9, K10 and K36 take a batch of B instances of equal sizes,
+flattened (the fleet of ``parallel/sharded.optimize_batch``); a single solve
+is the batch of one.  K9 builds the damped diagonal it factors as it reads
+Hb, and runs its levels and root in one cooperative launch.  The solve's
+PCG has three routes (``solver._pcg``): a single solve within K34's cap
+with no reduce hook takes ``pcg_chain_solve`` (K35),
 one launch a PCG solve; with a reduce hook (the edge-sharded solve, whose
 all-reduce sits between Hv and the dot) K2 and ``pcg_chain_step`` (K34), one
 launch each a step; a fleet, or a chain above the cap, K2, K10 and K3.
@@ -113,6 +120,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -120,6 +128,7 @@ import torch
 
 from uzliti_slam_tpu_torch.graph import factors
 from uzliti_slam_tpu_torch.kernels import _build
+from uzliti_slam_tpu_torch.ops import lie
 
 launches = {"linearize": 0, "hvp": 0, "chain_apply": 0, "residual_chi2": 0,
             "relax_min": 0, "cluster_labels": 0, "ransac_rigid": 0, "components": 0,
@@ -129,7 +138,8 @@ launches = {"linearize": 0, "hvp": 0, "chain_apply": 0, "residual_chi2": 0,
             "repository": 0, "bow_words": 0, "bow_query": 0, "voxel_grid": 0,
             "knn_normals": 0, "gicp": 0, "pnp": 0, "sift_describe": 0, "l2_top2": 0,
             "uid_slots": 0, "edge_key_match": 0, "delta_upsert": 0, "scope_merge": 0,
-            "pcg_chain": 0, "pcg_chain_solve": 0}
+            "pcg_chain": 0, "pcg_chain_solve": 0, "lm_candidate": 0,
+            "lm_accept": 0}
 
 _THREADS = 256  # kThreads in csrc/lie.cuh: K4's partial sums, one per block
 _SMEM_BYTES = 232448  # shared memory one CTA can use on Hopper
@@ -152,6 +162,25 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype,
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
     return t.data_ptr()
+
+
+_checked_memo: dict = {}
+
+
+def _check_fixed(site: str, items) -> list:
+    """``_check`` of ``items`` ((name, tensor, shape, dtype), all on the
+    first tensor's device), remembered per call site: a wrapper called
+    every LM iteration with the same graph tensors checks them once.  Weak
+    references: the memo keeps no tensor alive."""
+    shapes = tuple((shape, dtype) for _, _, shape, dtype in items)
+    hit = _checked_memo.get(site)
+    if (hit is not None and hit[1] == shapes
+            and all(ref() is t for ref, (_, t, _, _) in zip(hit[0], items))):
+        return hit[2]
+    dev = items[0][1].device
+    ptrs = [_check(name, t, shape, dtype, dev) for name, t, shape, dtype in items]
+    _checked_memo[site] = (tuple(weakref.ref(t) for _, t, _, _ in items), shapes, ptrs)
+    return ptrs
 
 
 def _stream(device: torch.device) -> int:
@@ -476,6 +505,215 @@ def residual_chi2(poses, e_from, e_to, meas, info, valid, huber_delta: float, ba
     _raise_on(err, "residual_chi2")
     launches["residual_chi2"] += 1
     return r, chi2
+
+
+# ---------------------------------------------------------------------------
+# K36 lm_step (the LM iteration's tail: candidate, then accept)
+# ---------------------------------------------------------------------------
+# An LM solve of ``batch`` flattened instances keeps an ``LmState``: its
+# iterate and residuals, updated in place, and one column (or row) per
+# iteration of the χ² history, λ, the accept flags and the early exit's
+# gain, done, stale and refresh flags.  Each iteration, after its PCG solve:
+# ``lm_candidate`` (retraction, residuals and χ² of the candidate, one
+# launch), the caller's reduce of χ² if any, then ``lm_accept`` (the accept
+# rule, one launch).  Column ``it`` is read and ``it + 1`` written, so no
+# block of a launch reads what another writes.
+
+
+class LmState(NamedTuple):
+    """An LM loop's state: ``poses`` (B·N, 7) and ``r`` (B·E, 6) updated in
+    place; ``hist`` and ``lam`` (B, iterations + 1), column 0 the start;
+    ``acc`` and ``gain`` (B, iterations); ``done``, ``stale`` and ``need``
+    (iterations + 1, B), row ``it`` the state entering iteration ``it``
+    (row 0 not read: nothing done, stale 0), ``need[it]`` K9's refresh flag
+    there (early exit).  ``ptrs``: on the card, the checked pointers K36's
+    accept writes through, fixed for the solve."""
+    poses: torch.Tensor
+    r: torch.Tensor
+    hist: torch.Tensor
+    lam: torch.Tensor
+    acc: torch.Tensor
+    gain: torch.Tensor
+    done: torch.Tensor
+    stale: torch.Tensor
+    need: torch.Tensor
+    ptrs: tuple | None = None
+
+
+class LmRules(NamedTuple):
+    """The accept rule's constants (``SolverConfig``'s), as floats; the
+    kernel takes them rounded to float32 and computes λ / factor as
+    λ·fl(1/factor), as PyTorch divides a CUDA tensor by a Python float (and
+    XLA the reference's λ by its constant); on CPU tensors the plain version
+    divides."""
+    factor: float
+    lam_min: float
+    lam_max: float
+    lam_init: float
+    tol: float
+    refresh: int
+    early_exit: bool
+
+
+def lm_state(poses, r0, chi2_0, iterations: int, lambda_init: float, batch: int = 1) -> LmState:
+    """The state entering iteration 0: a copy of ``poses``, ``r0`` itself,
+    χ²₀ (B,) in column 0 of the history and λ₀ in every column of ``lam``."""
+    dev, f32 = poses.device, torch.float32
+    B, I = batch, iterations
+    hist = torch.empty(B, I + 1, dtype=f32, device=dev)
+    hist[:, 0].copy_(chi2_0)
+    flags = torch.empty(2, I + 1, B, dtype=torch.bool, device=dev)
+    state = LmState(poses.clone(), r0, hist,
+                    torch.full((B, I + 1), lambda_init, dtype=f32, device=dev),
+                    torch.empty(B, I, dtype=torch.bool, device=dev),
+                    torch.empty(B, I, dtype=f32, device=dev), flags[0],
+                    torch.empty(I + 1, B, dtype=torch.int32, device=dev), flags[1])
+    return state if dev.type == "cpu" else state._replace(ptrs=_state_ptrs(state))
+
+
+def _state_ptrs(state: LmState) -> tuple:
+    """The state's tensors checked (B instances, I iterations), as
+    ``uz_lm_accept`` takes them."""
+    dev, f32 = state.poses.device, torch.float32
+    B, cols = state.hist.shape
+    I = cols - 1
+    BN, BE = state.poses.shape[0], state.r.shape[0]
+    if BN % B or BE % B:
+        raise ValueError(f"lm_accept: {BN} nodes, {BE} edges in {B} instances")
+    return (_check("poses", state.poses, (BN, 7), f32, dev),
+            _check("r", state.r, (BE, 6), f32, dev),
+            _check("hist", state.hist, (B, I + 1), f32, dev),
+            _check("lam", state.lam, (B, I + 1), f32, dev),
+            _check("acc", state.acc, (B, I), torch.bool, dev),
+            _check("gain", state.gain, (B, I), f32, dev),
+            _check("done", state.done, (I + 1, B), torch.bool, dev),
+            _check("stale", state.stale, (I + 1, B), torch.int32, dev),
+            _check("need", state.need, (I + 1, B), torch.bool, dev))
+
+
+def lm_candidate_plain(poses, dx, free, e_from, e_to, meas, info, valid, huber_delta: float,
+                       batch: int = 1):
+    """Plain version of K36's first entry: (cand = poses ∘ exp(dx·free),
+    its residuals (B·E, 6), each instance's robust χ² (B,))."""
+    cand = lie.pose_retract(poses, dx * free[:, None])
+    r, chi2 = residual_chi2_plain(cand, e_from, e_to, meas, info, valid, huber_delta, batch)
+    return cand, r, chi2
+
+
+_tickets: dict = {}
+
+
+def _ticket_buffer(device, batch: int) -> torch.Tensor:
+    """K36's per-instance counters on ``device``, zeroed once; the kernel
+    leaves them zeroed."""
+    t = _tickets.get(device)
+    if t is None or t.numel() < batch:
+        t = torch.zeros(max(batch, 4096), dtype=torch.int32, device=device)
+        _tickets[device] = t
+    return t
+
+
+def lm_candidate(poses, dx, free, e_from, e_to, meas, info, valid, huber_delta: float,
+                 batch: int = 1):
+    """K36's first entry: every node's candidate pose, every edge's
+    candidate residual and each instance's robust χ² (summed in K4's order),
+    one launch."""
+    if poses.device.type == "cpu":
+        return lm_candidate_plain(poses, dx, free, e_from, e_to, meas, info, valid,
+                                  huber_delta, batch)
+    dev, f32 = poses.device, torch.float32
+    BE, BN = e_from.shape[0], poses.shape[0]
+    if batch < 1 or BE % batch or BN % batch:
+        raise ValueError(f"lm_candidate: {BE} edges, {BN} nodes in {batch} instances")
+    E, N = BE // batch, BN // batch
+    # the graph's tensors and the iterate are the same every iteration
+    fixed = _check_fixed("lm_candidate", [
+        ("poses", poses, (BN, 7), f32), ("free", free, (BN,), f32),
+        ("e_from", e_from, (BE,), torch.int32), ("e_to", e_to, (BE,), torch.int32),
+        ("meas", meas, (BE, 7), f32), ("info", info, (BE, 6, 6), f32),
+        ("valid", valid, (BE,), f32)])
+    ptrs = [fixed[0], _check("dx", dx, (BN, 6), f32, dev), *fixed[1:]]
+    lib = _build.load()
+    nb = -(-E // _THREADS)
+    out = torch.empty(BN * 7 + BE * 6 + batch * (nb + 1), dtype=f32, device=dev)
+    cand = out[: BN * 7].view(BN, 7)
+    r = out[BN * 7: BN * 7 + BE * 6].view(BE, 6)
+    partials = out[BN * 7 + BE * 6: BN * 7 + BE * 6 + batch * nb]
+    chi2 = out[BN * 7 + BE * 6 + batch * nb:]
+    err = lib.uz_lm_candidate(*ptrs, float(huber_delta), N, E, batch, cand.data_ptr(),
+                              r.data_ptr(), partials.data_ptr(),
+                              _ticket_buffer(dev, batch).data_ptr(), chi2.data_ptr(),
+                              _stream(dev))
+    _raise_on(err, "lm_candidate")
+    launches["lm_candidate"] += 1
+    return cand, r, chi2
+
+
+def _rows(mask, a, b, batch: int):
+    """``a`` where ``mask`` (B,), else ``b``, over the instances' rows of a
+    flattened tensor."""
+    shape = (batch, -1) + tuple(a.shape[1:])
+    m = mask.view((batch,) + (1,) * a.dim())
+    return torch.where(m, a.view(shape), b.view(shape)).view(a.shape)
+
+
+def lm_accept_plain(state: LmState, cand, r_cand, chi2_new, it: int, rules: LmRules) -> None:
+    """Plain version of K36's second entry: the accept rule of iteration
+    ``it`` on ``state``, in place (``solver.py:925-946`` with the early
+    exit's gain and termination, ``:988-997`` without)."""
+    B = state.hist.shape[0]
+    cur, lam = state.hist[:, it], state.lam[:, it]
+    early = rules.early_exit
+    was_done = state.done[it] if early and it > 0 else torch.zeros_like(chi2_new, dtype=torch.bool)
+    active = ~was_done
+    accept = (chi2_new < cur) & active
+    state.poses.copy_(_rows(accept, cand, state.poses, B))
+    state.r.copy_(_rows(accept, r_cand, state.r, B))
+    lam_next = torch.clamp(torch.where(accept, lam / rules.factor, lam * rules.factor),
+                           rules.lam_min, rules.lam_max)
+    state.hist[:, it + 1] = torch.where(accept, chi2_new, cur)
+    state.acc[:, it] = accept
+    if not early:
+        state.lam[:, it + 1] = lam_next
+        return
+    gain = (cur - chi2_new) / torch.clamp(cur, min=1e-12)
+    # converged (tiny accepted gain with λ already relaxed) or stuck
+    # (rejected with λ at its ceiling)
+    finished = ((accept & (gain < rules.tol) & (lam <= rules.lam_init))
+                | (~accept & (lam >= rules.lam_max)))
+    stale = (torch.where(state.need[it], 0, state.stale[it]) if it > 0
+             else torch.zeros_like(state.stale[0]))
+    stale_next = torch.where(accept, stale + 1, rules.refresh)
+    done_next = was_done | (active & finished)
+    state.gain[:, it] = gain
+    state.lam[:, it + 1] = torch.where(active, lam_next, lam)
+    state.stale[it + 1] = stale_next
+    state.done[it + 1] = done_next
+    state.need[it + 1] = (stale_next >= rules.refresh) & ~done_next
+
+
+def lm_accept(state: LmState, cand, r_cand, chi2_new, it: int, rules: LmRules) -> None:
+    """K36's second entry: the accept rule of iteration ``it``, one launch:
+    rows of ``state.poses`` and ``state.r`` selected in place, the scalars
+    of column ``it + 1`` written."""
+    if cand.device.type == "cpu":
+        return lm_accept_plain(state, cand, r_cand, chi2_new, it, rules)
+    dev, f32 = cand.device, torch.float32
+    B, cols = state.hist.shape
+    I = cols - 1
+    BN, BE = state.poses.shape[0], state.r.shape[0]
+    if not 0 <= it < I:
+        raise ValueError(f"lm_accept: iteration {it} of {I}")
+    ptrs = state.ptrs if state.ptrs is not None else _state_ptrs(state)
+    cand_ptrs = [_check("cand", cand, (BN, 7), f32, dev),
+                 _check("r_cand", r_cand, (BE, 6), f32, dev),
+                 _check("chi2_new", chi2_new, (B,), f32, dev)]
+    lib = _build.load()
+    err = lib.uz_lm_accept(*cand_ptrs, BN // B, BE // B, B, it, I, int(rules.early_exit),
+                           1.0 / rules.factor, rules.factor, rules.lam_min, rules.lam_max,
+                           rules.lam_init, rules.tol, int(rules.refresh), *ptrs, _stream(dev))
+    _raise_on(err, "lm_accept")
+    launches["lm_accept"] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -880,15 +1118,29 @@ def chain_reduce_plain(D: torch.Tensor, U: torch.Tensor, dense_cutoff: int = 64,
     return tuple(levels), Dk, Uk
 
 
+def damped_blocks_plain(Hb, damp, free, lift=None):
+    """The damped diagonal blocks the solver factors: free ? Hb + diag(damp)
+    : I, plus diag(``lift``) (the planar solve's (6,) lift of the masked
+    coordinates) when given (``solver.py:867-868``), in Hb's dtype."""
+    eye = torch.eye(6, dtype=Hb.dtype, device=Hb.device)
+    Dm = torch.where(free[:, None, None] > 0, Hb + torch.diag_embed(damp), eye)
+    return Dm if lift is None else Dm + torch.diag(lift)
+
+
 def chain_factor_plain(D: torch.Tensor, U: torch.Tensor, dense_cutoff: int = 64,
-                       batch: int = 1, work_dtype: torch.dtype = torch.float64):
+                       batch: int = 1, work_dtype: torch.dtype = torch.float64,
+                       damp=None, free=None, lift=None):
     """Plain version of K9: ``(levels, root_inv, n)`` of ``batch``
     symmetric block-tridiagonal matrices, stacked in D, U (B·n, 6, 6) as the
     flattened fleet holds them (a single chain: batch 1), chain b's diagonal
     blocks D[b·n:(b+1)·n] and U[i] = A[i, i+1] (its last U treated as zero).
-    Each level is ``(Dinv_o, P1m, P2, G1, G2)``, each (B, half, 6, 6), the
-    roots (B, 6m, 6m).  Computed in ``work_dtype`` (float64, as K9 computes,
-    where the reference computes in float32), returned in D's dtype."""
+    With ``damp`` (B·n, 6) and ``free`` (B·n,), D is Hb and the diagonal
+    blocks are ``damped_blocks_plain(D, damp, free, lift)``.  Each level is
+    ``(Dinv_o, P1m, P2, G1, G2)``, each (B, half, 6, 6), the roots (B, 6m,
+    6m).  Computed in ``work_dtype`` (float64, as K9 computes, where the
+    reference computes in float32), returned in D's dtype."""
+    if damp is not None:
+        D = damped_blocks_plain(D, damp, free, lift)
     n = D.shape[0] // batch
     levels, Dk, Uk = chain_reduce_plain(D.view(batch, n, 6, 6), U.view(batch, n, 6, 6),
                                         dense_cutoff, work_dtype)
@@ -929,25 +1181,91 @@ def _select_factor_into(need: torch.Tensor, fresh, held) -> None:
     sel(fresh[1], held[1])
 
 
-def chain_factor(D, U, dense_cutoff: int = 64, batch: int = 1, held=None, need=None):
-    """K9: the chain preconditioner's cyclic-reduction factor of ``batch``
-    chains stacked in D, U (B·n, 6, 6): each chain its own levels and root,
-    all chains of a level in one launch and one root CTA per chain.
+def chain_factor_scratch(halves, m_root: int, batch: int) -> int:
+    """Float64 scratch of one K9 launch, in doubles: each chain level's newD
+    and newU, each of the root's log2(m) levels' five products and newD,
+    newU, newL, and two buffers for the root's expansions
+    (csrc/chain_factor.cu)."""
+    per = 2 * 36 * sum(halves) + 8 * 36 * (m_root - 1) + 2 * 36 * (m_root // 2) ** 2
+    return per * batch
 
-    Without ``held`` it builds a new factor.  With ``held`` (a factor of
-    the same shapes) and ``need`` (a (B,) bool device flag) it rebuilds
-    each chain of ``held`` in place where its flag is set and leaves the
-    others as they are, and returns ``held``; the flags are read on the
-    device (the kernels return at once where they are 0), never on the
-    host.  On CPU tensors the plain version builds the factor and selects
-    it into ``held`` with ``torch.where``.
+
+_made: dict = {}   # id(root_inv) -> weak refs to a factor K9 made and its base pointer
+
+
+def _factor_buffer(halves, m_root: int, B: int, dev):
+    """A new factor's tensors, views of one float32 buffer in K9's layout:
+    level after level its (Dinv_o, P1m, P2, G1, G2), then the roots."""
+    sizes = [5 * B * h * 36 for h in halves]
+    buf = torch.empty(sum(sizes) + B * 36 * m_root * m_root, dtype=torch.float32, device=dev)
+    levels, at = [], 0
+    for h, size in zip(halves, sizes):
+        levels.append(tuple(buf[at: at + size].view(5, B, h, 6, 6).unbind(0)))
+        at += size
+    levels, root_inv = tuple(levels), buf[at:].view(B, 6 * m_root, 6 * m_root)
+    first = levels[0][0] if levels else root_inv
+    for key in [k for k, (r, _, _) in _made.items() if r() is None]:
+        del _made[key]
+    _made[id(root_inv)] = (weakref.ref(root_inv), weakref.ref(first), buf.data_ptr())
+    return levels, root_inv
+
+
+def _held_buffer(held, halves, m_root: int, B: int, n: int, dev) -> int:
+    """The base pointer of a held factor, which must be one ``chain_factor``
+    made (its tensors in K9's layout in one buffer): known at once for a
+    factor this process made and still holds, else checked tensor by
+    tensor."""
+    levels, root_inv, n_held = held
+    if n_held != n or [lv[0].shape[:-2] for lv in levels] != [(B, h) for h in halves]:
+        raise ValueError("chain_factor: the held factor has other shapes")
+    first = levels[0][0] if levels else root_inv
+    made = _made.get(id(root_inv))
+    if made is not None and made[0]() is root_inv and made[1]() is first:
+        return made[2]
+    base = at = first.data_ptr()
+    for lv, h in zip(levels, halves):
+        for nm, t in zip(("Dinv_o", "P1m", "P2", "G1", "G2"), lv):
+            if t.data_ptr() != at:
+                raise ValueError(f"chain_factor: the held factor's {nm} is not in K9's layout")
+            _check(nm, t, (B, h, 6, 6), torch.float32, dev)
+            at += 4 * B * h * 36
+    if root_inv.data_ptr() != at:
+        raise ValueError("chain_factor: the held factor's root_inv is not in K9's layout")
+    _check("root_inv", root_inv, (B, 6 * m_root, 6 * m_root), torch.float32, dev)
+    return base
+
+
+def chain_factor(D, U, dense_cutoff: int = 64, batch: int = 1, held=None, need=None,
+                 damp=None, free=None, lift=None, phase_limit: int = 0):
+    """K9: the chain preconditioner's cyclic-reduction factor of ``batch``
+    chains stacked in D, U (B·n, 6, 6), each chain its own levels and root,
+    in one cooperative launch (the levels, then the root by the same
+    reduction continued inside it and expanded back).
+
+    With ``damp`` (B·n, 6) and ``free`` (B·n,), D is the Hessian's diagonal
+    blocks Hb and the kernel factors ``damped_blocks_plain(Hb, damp, free,
+    lift)``, building each block as it reads it (``lift``: the planar
+    solve's (6,) diagonal, or None).  Without ``held`` it builds a new
+    factor, its tensors views of one buffer.  With ``held`` (a factor this
+    function made, of the same shapes) it rebuilds ``held`` in place and
+    returns it; with ``need`` (a (B,) bool device flag) too, only the chains
+    whose flag is set, leaving the others as they are.  The flags are read
+    on the device (a launch where all are 0 returns at once), never on the
+    host.  On CPU tensors the plain version builds the factor and
+    selects it into ``held`` with ``torch.where``.  ``phase_limit`` > 0
+    stops the launch after that many of its phases (a timing aid: the
+    factor is then incomplete).
     """
+    if (damp is None) != (free is None):
+        raise ValueError("chain_factor: damp and free go together")
     if D.device.type == "cpu":
-        fresh = chain_factor_plain(D, U, dense_cutoff, batch)
+        fresh = chain_factor_plain(D, U, dense_cutoff, batch, damp=damp, free=free, lift=lift)
         builds = factor_builds(D.device)
         if held is None:
             builds.add_(batch)
             return fresh
+        if need is None:
+            need = torch.ones(batch, dtype=torch.bool)
         builds.add_(need.sum().to(builds.dtype))
         _select_factor_into(need, fresh, held)
         return held
@@ -956,6 +1274,12 @@ def chain_factor(D, U, dense_cutoff: int = 64, batch: int = 1, held=None, need=N
         raise ValueError(f"chain_factor: {D.shape[0]} blocks in {B} instances")
     n = D.shape[0] // B
     ptrs = [_check("D", D, (B * n, 6, 6), f32, dev), _check("U", U, (B * n, 6, 6), f32, dev)]
+    if damp is None:
+        ptrs += [None, None, None]
+    else:
+        ptrs += [_check("damp", damp, (B * n, 6), f32, dev),
+                 _check("free", free, (B * n,), f32, dev),
+                 None if lift is None else _check("lift", lift, (6,), f32, dev)]
     halves, m_root = _factor_shapes(n, dense_cutoff)
     if m_root > 64:
         raise ValueError(f"chain_factor: a root of {m_root} blocks (dense_cutoff {dense_cutoff});"
@@ -963,37 +1287,18 @@ def chain_factor(D, U, dense_cutoff: int = 64, batch: int = 1, held=None, need=N
     if held is None:
         if need is not None:
             raise ValueError("chain_factor: a refresh flag needs a held factor")
-        levels = tuple(tuple(torch.empty(5, B, h, 6, 6, dtype=f32, device=dev).unbind(0))
-                       for h in halves)
-        root_inv = torch.empty(B, 6 * m_root, 6 * m_root, dtype=f32, device=dev)
-        need_ptr = None
+        levels, root_inv = _factor_buffer(halves, m_root, B, dev)
+        base, need_ptr = (levels[0][0] if levels else root_inv).data_ptr(), None
     else:
-        levels, root_inv, n_held = held
-        if n_held != n or [lv[0].shape[:-2] for lv in levels] != [(B, h) for h in halves]:
-            raise ValueError("chain_factor: the held factor has other shapes")
-        for lv, h in zip(levels, halves):
-            for nm, t in zip(("Dinv_o", "P1m", "P2", "G1", "G2"), lv):
-                _check(nm, t, (B, h, 6, 6), f32, dev)
-        _check("root_inv", root_inv, (B, 6 * m_root, 6 * m_root), f32, dev)
-        need_ptr = _check("need", need, (B,), torch.bool, dev)
+        base = _held_buffer(held, halves, m_root, B, n, dev)
+        levels, root_inv, _ = held
+        need_ptr = None if need is None else _check("need", need, (B,), torch.bool, dev)
     lib = _build.load()
-    stream = _stream(dev)
-    # float64 scratch: each level's newD, newU, and the roots' work columns
-    scratch = torch.empty(B * (2 * 36 * sum(halves) + 36 * m_root * m_root), dtype=torch.float64,
-                          device=dev)
-    src_D, src_U, in_double, n_valid, off = ptrs[0], ptrs[1], 0, n, 0
-    for lv, h in zip(levels, halves):
-        size = 36 * h * B
-        newD, newU = scratch[off: off + size], scratch[off + size: off + 2 * size]
-        err = lib.uz_chain_factor_level(src_D, src_U, in_double, n_valid, n_valid, h, B,
-                                        *(t.data_ptr() for t in lv),
-                                        newD.data_ptr(), newU.data_ptr(), need_ptr, stream)
-        _raise_on(err, "chain_factor")
-        src_D, src_U, in_double, n_valid = newD.data_ptr(), newU.data_ptr(), 1, h
-        off += 2 * size
-    err = lib.uz_chain_factor_root(src_D, src_U, in_double, n_valid, n_valid, m_root, B,
-                                   root_inv.data_ptr(), scratch[off:].data_ptr(), need_ptr,
-                                   factor_builds(dev).data_ptr(), stream)
+    size = chain_factor_scratch(halves, m_root, B)
+    scratch = torch.empty(max(size, 1), dtype=torch.float64, device=dev)
+    err = lib.uz_chain_factor(*ptrs, n, B, len(halves), m_root, base, scratch.data_ptr(), size,
+                              need_ptr, factor_builds(dev).data_ptr(), int(phase_limit),
+                              _stream(dev))
     _raise_on(err, "chain_factor")
     launches["chain_factor"] += 1
     return levels, root_inv, n
