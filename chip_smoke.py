@@ -21,7 +21,9 @@ runs, in order, each phase printing lines of its own:
    version on the card, on the inputs the solve gives it on a generated
    1k-node and 100k-node graph (K1 also against the atomic kernel it
    replaced, scripts/linearize_atomic.cu, built here: Jᵢ, Jⱼ and W bit for
-   bit, and a bit-identical rerun; on the fleet's inputs in phase 17); K35
+   bit, and a bit-identical rerun; on the fleet's inputs in phase 17; K3
+   and K10 on the 100k chain checked but not timed, the fleet's timed in
+   phase 17); K35
    pcg_chain_solve (a whole PCG solve, K2's products and K34's steps, in one
    launch) on the first PCG solve of the 1k, the 500-node epoch's and the
    10k solve and in the generic loop's planar form (x, the stall flag of
@@ -29,8 +31,13 @@ runs, in order, each phase printing lines of its own:
    replaces; K34 pcg_chain (K10's updates around K3's apply, one launch a
    PCG step) on the same solves (a full 12-step solve with the same K2, the
    stall flags, a bit-identical rerun) and a step timed against the three
-   calls it replaces; each epoch
-   kernel (K5 relax_min, K6
+   calls it replaces; K37 pcg_grid (K34's step above its cap, one
+   cooperative launch over the card) on the 20k and 100k solves' first PCG,
+   plain, with the planar mask and on a cutoff-1 factor (the start and a
+   12-step solve's x, r, p and scal against the plain version, the stall
+   flags, a bit-identical rerun, 13 launches and no K3 or K10), a step timed
+   (events and device ms) against the three calls it replaces in turns;
+   each epoch kernel (K5 relax_min, K6
    cluster_labels, K7 ransac_rigid, K8 components) on the inputs the
    500-node and 10k-node epochs give it, K8's grid route on the 100k-node
    solve's inputs, and K11 project_rays on a 500-node full rebuild, an
@@ -56,10 +63,15 @@ runs, in order, each phase printing lines of its own:
    the reference's loop makes, and a profile;
 6. the headline configuration at 10k nodes against the oracle (LM);
 7. the headline configuration at 100k nodes: time, finite χ² below χ²₀,
-   K8 launched on its grid route; in phases 5-9, 17 and 18 each solve's PCG
-   goes through its route alone: K35 for a single solve within K34's cap
-   with no reduce hook, K2 and K34 for the edge-sharded solve, K2, K10 and
-   K3 above the cap (the 100k solve) and in the fleet;
+   K8 launched on its grid route, a profile; its PCG through K2 and K37
+   (260 K37 launches, no K3 or K10), its launches and device ms by kernel,
+   and the same solve with its PCG through the old composition (K10 + K3 +
+   K10 a step, called through their wrappers): launches, time, device ms by
+   kernel, and the χ² history within 1e-3 of K37's; in phases 5-9, 17 and
+   18 each solve's PCG goes through its route alone: K35 for a single solve
+   within K34's cap with no reduce hook, K2 and K34 for the edge-sharded
+   solve, K2 and K37 above the cap (the 100k solve, sharded or not), K2,
+   K10 and K3 in the fleet;
 8. the 500-node RGB-D + laser epoch (``pipeline.optimize_epoch`` with the
    live ``SlamConfig``): launch counts per kernel, the factors K9 built
    against the reference's refreshes, sync-free timed epochs except the
@@ -161,14 +173,15 @@ runs, in order, each phase printing lines of its own:
    iterations), against ``optimize`` with the same configuration: 10
    sync-free solves each in alternating turns, the overhead (and, each in
    a process of this script, ``--overhead``, with PyTorch's defaults and
-   with c10d's per-collective bookkeeping off), the
+   with c10d's per-collective bookkeeping off, beside the 100k graph's
+   time and the launches of its sharded solve), the
    all-reduces counted against their formula, the launches of one solve,
    a profile with its non-port items by name, χ² within the two routes'
    spreads over their turns (+ 1e-6·χ²₀) of the generic solve's and against
    the oracle; (b) the generic loop
    against the fast fixed form at 1k (ms, χ² histories within 1e-3); (c)
    the 100k graph sharded at ``scripts/scaling_bench.py``'s configuration,
-   χ² against phase 7's; (d) two gloo ranks on the one card, each a
+   its PCG through K2 and K37, χ² against phase 7's; (d) two gloo ranks on the one card, each a
    process of this script (``--sharded-rank``): poses bit for bit across
    ranks, χ²₀ and χ²₁ against (a)'s, times printed; (e) the planar solve
    (``optimize_xy_only``, early exit) on the 1k graph with z perturbed,
@@ -210,6 +223,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import pathlib
 import re
 import statistics
 import subprocess
@@ -272,10 +286,21 @@ LM_STATE_COPIES = 2
 #     bit-equal to K4 on that cand; lm_accept exactly (the same comparisons
 #     and float32 products), every scalar and row of the state over 20
 #     iterations in both loop forms.
+#  K37 (K34's step above its cap, one cooperative launch) the same: x, r,
+#     p and scal within 1e-4 after the start and after a 12-step solve on
+#     the kernel's own Hp products, each relative to its largest magnitude
+#     over the solve (x's last, r's, p's and rz's at the start: the
+#     recurrences subtract from those and round relative to them; the row
+#     prints how far r shrank), the same stall flags, and bit-identical on
+#     a rerun.
 KERNEL_TOL = {"linearize": 1e-3, "hvp": 1e-4, "chain_apply": 1e-4, "residual_chi2": 1e-4,
               "chain_factor": 1e-4, "pcg": 1e-4, "pcg_chain": 1e-4, "pcg_chain_solve": 1e-4,
-              "lm_candidate": 1e-4, "lm_accept": 0.0}
+              "lm_candidate": 1e-4, "lm_accept": 0.0, "pcg_grid": 1e-4}
 CAND_RTOL = 1e-6
+# Phase 7: the 100k solve's χ² history on K37's route against the same solve
+# with its PCG through the old composition (K10 + K3 + K10), element by
+# element: the same arithmetic with its dots summed in another order
+CHI2_HIST_RTOL = 1e-3
 CHAIN_APPLY_RTOL = 1e-3
 PROJECT_ATOL = 1e-4
 PROJECT_SUM_RTOL, PROJECT_ATOL_LARGE = 2e-6, 1e-5
@@ -344,14 +369,20 @@ SOURCE["pcg_chain_solve"] = "uzliti_slam_tpu_torch/csrc/pcg_chain.cu"
 SOURCE["lm_candidate"] = SOURCE["lm_accept"] = "uzliti_slam_tpu_torch/csrc/lm_step.cu"
 SOLVE_KERNELS = ("linearize", "hvp", "chain_apply", "residual_chi2", "chain_factor", "pcg",
                  "pcg_chain", "pcg_chain_solve", "lm_candidate", "lm_accept")
-# The PCG's three routes (solver._pcg): a single solve within K34's cap with
+# The PCG's four routes (solver._pcg): a single solve within K34's cap with
 # no reduce hook takes K35 alone; with one (the edge-sharded solve) K2 and
-# K34; a fleet, or a chain above the cap (the 100k solve), K2, K10 and K3
+# K34; a single solve above the cap (the 100k solve, sharded or not) K2 and
+# K37; a fleet K2, K10 and K3
 FUSED_PATH = ("linearize", "residual_chi2", "chain_factor", "pcg_chain_solve", "lm_candidate",
               "lm_accept")
 SPLIT_PCG = ("chain_apply", "pcg")
 PCG_ROUTES = {"k35": ("pcg_chain_solve",), "k2_k34": ("hvp", "pcg_chain"),
-              "k2_k10_k3": ("hvp",) + SPLIT_PCG}
+              "k2_k37": ("hvp", "pcg_grid"), "k2_k10_k3": ("hvp",) + SPLIT_PCG}
+# K37, phase 3: the solve's PCG step above K34's cap
+PCG_GRID_SOURCE = "uzliti_slam_tpu_torch/csrc/pcg_grid.cu"
+PCG_GRID_REPLACES = ("uzliti_slam_tpu/graph/solver.py:512 (_pcg, its body minus the"
+                     " Hessian-vector product) + graph/tridiag.py:198 (block_tridiag_apply),"
+                     " a single solve above K34's cap")
 # the A/B reference of K1's Jᵢ, Jⱼ and W: the atomic kernel it replaced,
 # built by this script alone
 ATOMIC_K1_SOURCE = "scripts/linearize_atomic.cu"
@@ -710,10 +741,12 @@ def timed_solves(optimize, g, cfg, reps: int):
 # an anonymous namespace's mangled name holds its file's name: K29's
 # sift_describe.cu must come before K14's "describe")
 DEVICE_FUNCTIONS = ("sift_keypoints", "linearize_rows", "hvp_seed",
-                    "hvp_edges", "pcg_chain_kernel", "pcg_solve_kernel", "chain_forward",
+                    "hvp_edges", "pcg_chain_kernel", "pcg_solve_kernel", "pcg_grid_kernel",
+                    "chain_forward",
                     "chain_backward",
                     "chain_root", "factor_kernel", "candidate_kernel", "accept_kernel",
-                    "pcg_init", "pcg_alpha", "pcg_beta", "project_cells",
+                    "pcg_init", "pcg_alpha", "pcg_beta", "grid_dots", "grid_init",
+                    "grid_alpha", "grid_beta", "project_cells",
                     "residual_edges", "sum_partials",
                     "relax_rows", "cluster_rounds", "ransac_roots", "components_cta",
                     "gauge_cta", "k_init_labels", "k_scatter_min", "k_jump_out", "k_jump",
@@ -938,6 +971,9 @@ def kernel_work(name: str, args) -> tuple[int, int]:
         apply_bytes, apply_ops = kernel_work("chain_apply", (factor, b))
         return (apply_bytes - 8 * b.numel() + 4 * 7 * b.numel() + 32,
                 apply_ops + 10 * b.numel())
+    if name == "pcg_grid":
+        # K37's step is K34's: the same bytes and operations
+        return kernel_work("pcg_chain", args)
     if name == "pcg_chain_solve":
         # K34's start and `steps` times (K34's step + K2's product): the
         # operations of each; the bytes of the whole solve, each input (the
@@ -1241,8 +1277,10 @@ def kernel_inputs(g, cfg):
     }
 
 
-def compare_kernels(g, label: str):
-    """Each solve kernel against its plain version on the same card inputs."""
+def compare_kernels(g, label: str, time_split: bool = True):
+    """Each solve kernel against its plain version on the same card inputs;
+    K3 and K10 (``SPLIT_PCG``) checked but not timed unless ``time_split``
+    (only the fleet runs them on a main path; phase 17 times them there)."""
     from uzliti_slam_tpu_torch.graph import solver
     from uzliti_slam_tpu_torch.kernels import ops as kops
 
@@ -1263,7 +1301,9 @@ def compare_kernels(g, label: str):
             err = max(err, e)
             rel = max(rel, e / max(float(b.abs().max()), 1e-30))
         row = {"max_abs_err": err, "max_rel_err": rel, "tol_rel": KERNEL_TOL[name]}
-        row["ms"], row["plain_ms"] = time_pair(lambda: kernel_fn(*args), lambda: plain_fn(*args))
+        if time_split or name not in SPLIT_PCG:
+            row["ms"], row["plain_ms"] = time_pair(lambda: kernel_fn(*args),
+                                                   lambda: plain_fn(*args))
         row.update(bound(name, args))
         log(f"3 kernel {name} {label}", **row)
         check(rel <= KERNEL_TOL[name],
@@ -1271,7 +1311,7 @@ def compare_kernels(g, label: str):
         results[name] = row
     results["chain_factor"] = compare_chain_factor(inputs["chain_factor"], label,
                                                    inputs["chain_factor_damped"])
-    results["pcg"] = compare_pcg(inputs["pcg"], label)
+    results["pcg"] = compare_pcg(inputs["pcg"], label, timed=time_split)
     results.update(compare_lm_step(inputs, label))
     return results
 
@@ -1617,10 +1657,10 @@ def compare_chain_factor(args, label: str, damped=None, timed: bool = True) -> d
     return row
 
 
-def compare_pcg(args, label: str) -> dict:
+def compare_pcg(args, label: str, timed: bool = True) -> dict:
     """K10 against its plain version: a full PCG solve with the same K2 and
     K3 operators, x within 1e-4 of max|x| and the same stall flag at every
-    step; timed on the updates alone (fixed Hp and z)."""
+    step; ``timed``: on the updates alone (fixed Hp and z)."""
     from uzliti_slam_tpu_torch.kernels import ops as kops
 
     Ji, Jj, W, ef, et, damp, free, pack, b, steps, tol = args
@@ -1656,9 +1696,12 @@ def compare_pcg(args, label: str) -> dict:
             beta(r, z, p, scal)
 
     row = {"max_abs_err": err, "max_rel_err": rel, "tol_rel": KERNEL_TOL["pcg"],
-           "route": "cta" if b.numel() <= kops.PCG_CTA_MAX else "grid", "steps": steps, "ok_pattern": [int(v) for v in ok_k.cpu().tolist()],
+           "route": "cta" if b.numel() <= kops.PCG_CTA_MAX else "grid", "steps": steps,
+           "ok_pattern": [int(v) for v in ok_k.cpu().tolist()],
            "same_ok_pattern": bool(torch.equal(ok_k, ok_p))}
-    row["ms"], row["plain_ms"] = time_pair(lambda: updates(*kernel), lambda: updates(*plain))
+    if timed:
+        row["ms"], row["plain_ms"] = time_pair(lambda: updates(*kernel),
+                                               lambda: updates(*plain))
     row.update(bound("pcg", (b, steps)))
     log(f"3 kernel pcg {label}", **row)
     check(bool(torch.isfinite(x_k).all()), f"pcg {label}: non-finite x")
@@ -1735,6 +1778,121 @@ def compare_pcg_chain(args, label: str, cmask=None, timed: bool = True) -> dict:
     check(rel <= KERNEL_TOL["pcg_chain"], f"pcg_chain {label}: rel err {rel:.3g}")
     check(row["same_ok_pattern"], f"pcg_chain {label}: stall flags differ")
     check(row["rerun_bit_identical"], f"pcg_chain {label}: a rerun gives other bits")
+    return row
+
+
+def device_ms_of(fn, calls: int, function: str) -> float | None:
+    """Device ms a call of ``function`` (a profiled kernel's name contains
+    it) over one profiled run of ``fn`` that makes ``calls`` calls."""
+    prof, names = device_profile(fn)
+    if not names:
+        return None
+    return sum(ms for key, ms in names.items() if function in key) / calls
+
+
+def compare_pcg_grid(args, label: str, cmask=None, pack=None, timed: bool = True) -> dict:
+    """K37 against its plain version (K34's) above K34's cap: the start, then
+    a 12-step solve through ``pcg_chain_start`` / ``pcg_chain_step`` with K2's
+    products (the route a single solve takes there: 13 K37 launches and no
+    K3 or K10), recorded; the plain start and steps on the same recorded
+    products, x, r, p and scal within KERNEL_TOL["pcg_grid"] of max|·| after
+    the start and after the last step, the same stall flags; a rerun on the
+    recorded products bit-identical.  ``pack`` another factor of the same
+    system (phase 3's cutoff-1 case, K9 on its damped blocks); ``cmask``
+    the generic loop's planar
+    form.  ``timed``: a step event-timed in turns against the three calls it
+    replaces (K10's alpha, K3, K10's beta on the same vectors, called through
+    their wrappers here), its device ms over 20 profiled steps, the plain
+    step and the start."""
+    from uzliti_slam_tpu_torch.kernels import _build
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    Ji, Jj, W, ef, et, damp, free, pack0, b, steps, tol = args
+    pack = pack0 if pack is None else pack
+    levels, root_inv, _ = pack
+    check(not kops.pcg_chain_route(pack), f"pcg_grid {label}: within K34's cap")
+
+    def hvp(v):
+        if cmask is None:
+            return kops.hvp(Ji, Jj, W, ef, et, v, damp, free)
+        return kops.hvp(Ji, Jj, W, ef, et, v * cmask, damp, free) * cmask
+
+    if cmask is not None:
+        b = b * cmask
+
+    def solve(start, step, products=None):
+        st = start(pack, b, 1, cmask)
+        first = [t.clone() for t in st[:4]]
+        oks, hps = [], []
+        for i in range(steps):
+            hps.append(hvp(st.p) if products is None else products[i])
+            step(pack, hps[-1], st, tol, cmask)
+            oks.append(st.scal[0, 2].clone())
+        return first, [t.clone() for t in st[:4]], torch.stack(oks), hps
+
+    kops.reset_launches()
+    first_k, last_k, ok_k, hps = solve(kops.pcg_chain_start, kops.pcg_chain_step)
+    route = {k: kops.launches[k] for k in ("pcg_grid", "chain_apply", "pcg", "pcg_chain")}
+    _, last_rerun, ok_rerun, _ = solve(kops.pcg_chain_start, kops.pcg_chain_step, hps)
+    first_p, last_p, ok_p, _ = solve(kops.pcg_chain_start_plain, kops.pcg_chain_step_plain, hps)
+    torch.cuda.synchronize()
+
+    def rel(got, ref):   # x, r, p against the plain version, scal's [rz, b2, ok]
+        out = []
+        for i, (a, c) in enumerate(zip(got[:3] + [got[3][:, :3]], ref[:3] + [ref[3][:, :3]])):
+            out.append(float((a - c).abs().max()) / max(scale[i], 1e-30))
+        return out
+
+    # each vector's scale: its largest magnitude over the solve, the start's
+    # or the last step's (x grows from 0; r, p and rz shrink from the
+    # start's as the solve converges, and their recurrences round relative
+    # to that scale)
+    scale = [max(float(a.abs().max()), float(c.abs().max()))
+             for a, c in zip(first_p[:3] + [first_p[3][:, :3]], last_p[:3] + [last_p[3][:, :3]])]
+    rel_start, rel_last = rel(first_k, first_p), rel(last_k, last_p)
+    err = float((last_k[0] - last_p[0]).abs().max())
+    m_root = root_inv.shape[-1] // 6
+    row = {"max_abs_err": err, "max_rel_err": max(rel_start + rel_last),
+           "rel_err_start_x_r_p_scal": rel_start, "rel_err_step12_x_r_p_scal": rel_last,
+           "r_last_over_start": float(last_p[1].abs().max()) / max(scale[1], 1e-30),
+           "tol_rel": KERNEL_TOL["pcg_grid"], "rows": int(b.shape[0]), "levels": len(levels),
+           "root_blocks": m_root, "column_mask": cmask is not None, "steps": steps,
+           "route_launches": route, "ok_pattern": [int(v) for v in ok_k.cpu().tolist()],
+           "same_ok_pattern": bool(torch.equal(ok_k, ok_p)),
+           "rerun_bit_identical": all(torch.equal(a, c) for a, c in zip(last_k, last_rerun))
+           and bool(torch.equal(ok_k, ok_rerun)),
+           "ctas": _build.load().uz_pcg_grid_ctas() if b.is_cuda else None,
+           "library_ms": None}
+    if timed:
+        Hp = hvp(b)
+        fused = kops.pcg_chain_start(pack, b, 1, cmask)
+        x, r, p, scal = kops.pcg_init(b, kops._preconditioned(kops.chain_apply, pack, b, cmask))
+        plain = kops.pcg_chain_start_plain(pack, b, 1, cmask)
+
+        def three_calls():
+            kops.pcg_alpha(p, Hp, x, r, scal, tol)
+            kops.pcg_beta(r, kops._preconditioned(kops.chain_apply, pack, r, cmask), p, scal)
+
+        row["ms"], row["three_calls_ms"] = time_pair(
+            lambda: kops.pcg_chain_step(pack, Hp, fused, tol, cmask), three_calls)
+        row["three_calls_over_fused"] = row["three_calls_ms"] / row["ms"]
+        row["device_ms"] = device_ms_of(
+            lambda: [kops.pcg_chain_step(pack, Hp, fused, tol, cmask) for _ in range(20)], 20,
+            "pcg_grid_kernel")
+        replaced = device_ms_of(lambda: [three_calls() for _ in range(20)], 20, "")
+        row["three_calls_device_ms"] = replaced
+        row["plain_ms"] = time_call(
+            lambda: kops.pcg_chain_step_plain(pack, Hp, plain, tol, cmask), trials=5, calls=2)
+        row["start_ms"] = time_call(lambda: kops.pcg_chain_start(pack, b, 1, cmask))
+        row.update(bound("pcg_grid", (pack, b)))
+    log(f"3 kernel pcg_grid {label}", **row)
+    check(bool(torch.isfinite(last_k[0]).all()), f"pcg_grid {label}: non-finite x")
+    check(route == {"pcg_grid": 1 + steps, "chain_apply": 0, "pcg": 0, "pcg_chain": 0},
+          f"pcg_grid {label}: the solve's launches {route}")
+    check(row["max_rel_err"] <= KERNEL_TOL["pcg_grid"],
+          f"pcg_grid {label}: rel err {row['max_rel_err']:.3g}")
+    check(row["same_ok_pattern"], f"pcg_grid {label}: stall flags differ")
+    check(row["rerun_bit_identical"], f"pcg_grid {label}: a rerun gives other bits")
     return row
 
 
@@ -2066,12 +2224,14 @@ def solve_launches(**counts) -> dict:
 
 def pcg_route(n: int, cfg, batch: int = 1, reduce: bool = False) -> str:
     """The PCG route a solve of ``batch`` chains of ``n`` rows takes
-    (``solver._pcg``): "k35", "k2_k34" or "k2_k10_k3"."""
+    (``solver._pcg``): "k35", "k2_k34", "k2_k37" or "k2_k10_k3"."""
     from uzliti_slam_tpu_torch.kernels import ops as kops
 
     halves, m_root = kops._factor_shapes(n, cfg.chain_dense_cutoff)
-    if batch > 1 or kops.pcg_chain_smem(len(halves), m_root) > kops._SMEM_BYTES:
+    if batch > 1:
         return "k2_k10_k3"
+    if kops.pcg_chain_smem(len(halves), m_root) > kops._SMEM_BYTES:
+        return "k2_k37"
     return "k2_k34" if reduce else "k35"
 
 
@@ -2079,7 +2239,7 @@ def check_pcg_route(phase: str, counts: dict, n: int, cfg, batch: int = 1,
                     reduce: bool = False) -> None:
     """A solve's PCG went through its route's kernels alone: K35 for a
     single solve within K34's cap with no reduce hook, K2 and K34 with one,
-    K2, K10 and K3 in a fleet or above the cap."""
+    K2 and K37 above the cap, K2, K10 and K3 in a fleet."""
     route = pcg_route(n, cfg, batch, reduce)
     on = PCG_ROUTES[route]
     off = {k for r in PCG_ROUTES.values() for k in r} - set(on)
@@ -2134,6 +2294,116 @@ def solve_against_oracle(g, phase: str, cfg_kw: dict, chi2_oracle, reps: int,
         check(chi2 <= ORACLE_FACTOR * chi2_oracle + ORACLE_ATOL,
               f"{phase}: χ² {chi2} vs oracle {chi2_oracle}")
     return counts, fields
+
+
+# the port's kernel that each device function of a solve belongs to (a
+# solve's device ms by kernel); PyTorch's own kernels are "other";
+# function_kernel_gaps() holds it to the sources' kernels
+FUNCTION_KERNEL = {"linearize_rows": "linearize", "hvp_seed": "hvp", "hvp_edges": "hvp",
+                   "pcg_grid_kernel": "pcg_grid", "pcg_chain_kernel": "pcg_chain",
+                   "pcg_solve_kernel": "pcg_chain_solve", "chain_forward": "chain_apply",
+                   "chain_backward": "chain_apply", "chain_root": "chain_apply",
+                   "factor_kernel": "chain_factor", "candidate_kernel": "lm_candidate",
+                   "accept_kernel": "lm_accept", "residual_edges": "residual_chi2",
+                   "sum_partials": "residual_chi2",
+                   **{f: "pcg" for f in ("pcg_init", "pcg_alpha", "pcg_beta", "grid_dots",
+                                         "grid_init", "grid_alpha", "grid_beta")},
+                   **{f: "components" for f in ("components_cta", "gauge_cta", "k_init_labels",
+                                                "k_scatter_min", "k_jump_out", "k_jump",
+                                                "k_gauge_init", "k_gauge_reduce_stamp",
+                                                "k_gauge_reduce_slot", "k_gauge_write")}}
+
+
+def function_kernel_gaps() -> list:
+    """The ``__global__`` functions of the sources FUNCTION_KERNEL's kernels
+    come from that it does not map, or that DEVICE_FUNCTIONS does not list
+    (either would put their device ms under "other")."""
+    here = pathlib.Path(__file__).resolve().parent
+    sources = {SOURCE.get(k, PCG_GRID_SOURCE) for k in set(FUNCTION_KERNEL.values())}
+    gaps = []
+    for src in sorted(sources):
+        text = (here / src).read_text()
+        for f in re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)", text):
+            if f not in FUNCTION_KERNEL or f not in DEVICE_FUNCTIONS:
+                gaps.append(f"{src}: {f}")
+    return gaps
+
+
+def device_ms_by_kernel(names: dict) -> dict:
+    """A profile's device ms summed by the port's kernel (``FUNCTION_KERNEL``,
+    the first device function a name contains), the rest as "other"."""
+    out: dict = {}
+    for key, ms in names.items():
+        f = next((f for f in DEVICE_FUNCTIONS if f in key and f in FUNCTION_KERNEL), None)
+        name = FUNCTION_KERNEL[f] if f else "other"
+        out[name] = out.get(name, 0.0) + ms
+    return out
+
+
+def old_composition_pcg(hvp, factor, b, iterations: int, tol: float, batch: int = 1,
+                        cmask=None, op=None):
+    """``solver._pcg`` as a single solve above K34's cap ran it before K37:
+    K10's init, then per step K2 (``hvp``), K10's alpha, K3 and K10's beta,
+    called through their wrappers (phase 7's comparison; the package has no
+    switch for it)."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    def minv(v):
+        return kops._preconditioned(kops.chain_apply, factor, v, cmask)
+
+    x, r, p, scal = kops.pcg_init(b, minv(b), batch)
+    for _ in range(iterations):
+        kops.pcg_alpha(p, hvp(p), x, r, scal, tol)
+        kops.pcg_beta(r, minv(r), p, scal)
+    return x
+
+
+def old_composition_phase(g, phase: str, counts: dict, fields: dict) -> dict:
+    """Phase 7's breakdown: the 100k solve's launches and device ms by kernel
+    on K37's route, then the same solve with its PCG through the old
+    composition (K10 + K3 + K10 a step around K2, ``old_composition_pcg``
+    patched into ``solver._pcg``): its launches, timed solves, device ms by
+    kernel, and its χ² history against K37's within CHI2_HIST_RTOL."""
+    from uzliti_slam_tpu_torch.graph import solver
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    cfg = solver.SolverConfig(**HEADLINE)
+    _, names = device_profile(lambda: solver.optimize(g, cfg))
+    _, st = solver.optimize(g, cfg)
+    hist = st.chi2_history.cpu()
+    new = {"solve_ms": fields["solve_ms"], "launches": {k: v for k, v in counts.items() if v},
+           "device_launches": fields.get("device_launches"),
+           "device_kernel_ms": fields.get("device_kernel_ms"),
+           "device_busy_share": fields.get("device_busy_share"),
+           "device_ms_by_kernel": device_ms_by_kernel(names)}
+    pcg = solver._pcg
+    solver._pcg = old_composition_pcg
+    try:
+        solver.optimize(g, cfg)                      # warm-up
+        kops.reset_launches()
+        _, st_old = solver.optimize(g, cfg)
+        old_counts = {k: v for k, v in kops.launches.items() if v}
+        t_old, _ = timed_solves(solver.optimize, g, cfg, reps=3)
+        prof_old, names_old = device_profile(lambda: solver.optimize(g, cfg))
+    finally:
+        solver._pcg = pcg
+    hist_old = st_old.chi2_history.cpu()
+    gap = float(((hist - hist_old).abs() / hist_old.abs().clamp(min=1e-30)).max())
+    old = {"solve_ms": 1e3 * t_old, "launches": old_counts,
+           "device_launches": prof_old.get("device_launches"),
+           "device_kernel_ms": prof_old.get("device_kernel_ms"),
+           "device_busy_share": prof_old.get("device_busy_share"),
+           "device_ms_by_kernel": device_ms_by_kernel(names_old)}
+    out = {"k37": new, "old_composition": old, "chi2_history_max_rel_gap": gap,
+           "chi2_history_rtol": CHI2_HIST_RTOL}
+    log(f"{phase} breakdown", **out)
+    check(counts["pcg_grid"] == 20 * 13 and counts["chain_apply"] == counts["pcg"] == 0,
+          f"{phase}: PCG launches {[(k, counts[k]) for k in SOLVE_KERNELS + ('pcg_grid',)]}, "
+          "expected K37 260 and no K3 or K10")
+    check(old_counts.get("pcg_grid", 0) == 0 and old_counts.get("chain_apply") == 260,
+          f"{phase}: the old composition's launches {old_counts}")
+    check(gap <= CHI2_HIST_RTOL, f"{phase}: χ² history {gap:.3g} from the old composition's")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4397,13 +4667,13 @@ def world_of_one(dev) -> None:
 
 
 def sharded_bound(rows: dict, counts: dict, cfg) -> float:
-    """B19's least time per solve: each launch of K1, K2, K4, K3, K9, K34, K36
-    at its bound on these shapes (at world size 1 the shard is the whole
-    table), plus, where K10 runs (above K34's cap), one 12-step K10 bound per
-    LM iteration; the collective moves no bytes in a world of one."""
+    """B19's least time per solve: each launch of K1, K2, K4, K3, K9, K34,
+    K37, K36 at its bound on these shapes (at world size 1 the shard is the
+    whole table), plus, where K10 runs, one 12-step K10 bound per LM
+    iteration; the collective moves no bytes in a world of one."""
     per_call = ("linearize", "hvp", "residual_chi2", "chain_apply", "chain_factor", "pcg_chain",
-                "lm_candidate", "lm_accept")
-    return (sum(rows[k]["bound_ms"] * counts[k] for k in per_call)
+                "pcg_grid", "lm_candidate", "lm_accept")
+    return (sum(rows[k]["bound_ms"] * counts[k] for k in per_call if counts[k])
             + (rows["pcg"]["bound_ms"] * cfg.iterations if counts["pcg"] else 0.0))
 
 
@@ -4596,11 +4866,12 @@ def overhead_worker(device: str) -> int:
     """Phase 18 (a') in a process of its own (``chip_smoke.py
     --overhead DEVICE``): a world of one, the 1k graph's generic and
     sharded solves in 10 alternating sync-free turns each and the 100k
-    graph's in 3, and a solve's count of all-reduces alone; one JSON
-    line."""
+    graph's in 3 (with a sharded solve's launches: its PCG on K2 and K37),
+    and a solve's count of all-reduces alone; one JSON line."""
     import torch.distributed as dist
 
     from uzliti_slam_tpu_torch.graph import solver
+    from uzliti_slam_tpu_torch.kernels import ops as kops
     from uzliti_slam_tpu_torch.parallel import sharded
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4626,6 +4897,10 @@ def overhead_worker(device: str) -> int:
                     times[name].append(timed_solves(fn, g, cfg, reps=1)[0])
             ms = {k: 1e3 * statistics.median(v) for k, v in times.items()}
             out[size] = {"solve_ms": ms, "overhead_pct": 100 * (ms["sharded"] / ms["generic"] - 1)}
+            if size == "100k":
+                kops.reset_launches()
+                sharded_fn(g, cfg)
+                out[size]["sharded_launches"] = {k: v for k, v in kops.launches.items() if v}
         g = graphs["1k"]
         n = sharded.collectives_per_solve(cfg)
         buf = torch.zeros(78 * g.node_capacity, device=dev)
@@ -5539,6 +5814,7 @@ def main() -> int:
     from uzliti_slam_tpu_torch.graph import solver
     from uzliti_slam_tpu_torch.io import synthetic
     from uzliti_slam_tpu_torch.kernels import _build
+    from uzliti_slam_tpu_torch.kernels import ops as kops
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5557,6 +5833,8 @@ def main() -> int:
     log("2 build", seconds=time.perf_counter() - t0, nvcc_seconds=_build.last_build_seconds,
         library=str(_build.library_path().relative_to(_build.BUILD_DIR.parents[1])),
         ptxas=ptxas_summary(ptxas.read_text()) if ptxas.exists() else "no log (prebuilt)")
+    gaps = function_kernel_gaps()
+    check(not gaps, f"device functions missing from FUNCTION_KERNEL / DEVICE_FUNCTIONS: {gaps}")
     reads = lift_sync_check_for_restart_read()
     t0 = time.perf_counter()
     built500 = make_epoch_state(**EPOCH_500, device=dev)
@@ -5573,7 +5851,10 @@ def main() -> int:
     g10k = make_graph(10_000, dev)
     g100k = make_graph(100_000, dev)
     rows = compare_kernels(g1k, "1k")
-    rows_large = compare_kernels(g100k, "100k")
+    rows_large = compare_kernels(g100k, "100k", time_split=False)
+    # K3 and K10 on a single 100k chain: checked, not timed (no path runs
+    # them there since K37); their rows' main fields are the fleet's
+    single100k = {name: rows_large.pop(name) for name in SPLIT_PCG}
     # K35 and K34 on the first PCG solve of the 1k, the 500-node epoch's and
     # the 10k solve (each within the cap), and in the generic loop's planar
     # form at 1k; the 100k solve is above the cap and takes K2, K10 and K3
@@ -5598,6 +5879,18 @@ def main() -> int:
     compare_pcg_chain(in500["pcg"], "epoch 500")
     rows_large["pcg_chain"] = compare_pcg_chain(in10k["pcg"], "10k")
     del in1k, in10k, in500
+    # K37 above K34's cap: the 20k and 100k solves' first PCG, plain, in the
+    # generic loop's planar form and on a cutoff-1 factor (a one-block root)
+    for n_nodes, target in ((20_000, rows), (100_000, rows_large)):
+        g_n = g100k if n_nodes == 100_000 else make_graph(n_nodes, dev)
+        in_n = kernel_inputs(g_n, hcfg)
+        label = f"{n_nodes // 1000}k"
+        target["pcg_grid"] = compare_pcg_grid(in_n["pcg"], label)
+        compare_pcg_grid(in_n["pcg"], f"{label} planar column mask", cmask=xy, timed=False)
+        Dm, U, _ = in_n["chain_factor"]
+        target["pcg_grid"]["cutoff_1"] = compare_pcg_grid(
+            in_n["pcg"], f"{label} cutoff 1", pack=kops.chain_factor(Dm, U, 1), timed=False)
+        del g_n, in_n
     rows.update(compare_epoch_kernels(epoch_kernel_inputs(built500[1], built500[0]),
                                       "epoch 500"))
     rows_large.update(compare_epoch_kernels(epoch_kernel_inputs(built10k[1], built10k[0]),
@@ -5654,8 +5947,10 @@ def main() -> int:
                          profile=True)
     solve_against_oracle(g10k, "6 headline 10k", HEADLINE,
                          oracle_chi2(g10k, iters=20, lm=True), reps=3)
-    counts100k, fields100k = solve_against_oracle(g100k, "7 headline 100k", HEADLINE, None, reps=3)
+    counts100k, fields100k = solve_against_oracle(g100k, "7 headline 100k", HEADLINE, None, reps=3,
+                                                  profile=True)
     check(counts100k["components"] > 0, "7 headline 100k: K8's grid route was not launched")
+    breakdown100k = old_composition_phase(g100k, "7 headline 100k", counts100k, fields100k)
     del g10k
 
     counts500, state500 = epoch_phase("8 epoch 500", built500, EPOCH_500["n"], reps=5,
@@ -5709,11 +6004,13 @@ def main() -> int:
     # phase 19: the scope protocol (K31-K33); its main path is the VGA duo
     scope_counts, scope_rows, scope_rows_large, scope_fields = scope_phase(dev)
     # each kernel's main path: the 1k solve for K1, K4, K9, K35; the 100k
-    # solve for K2, K3 and K10 (above K34's cap; the 1k solve's PCG runs on
-    # K35); the sharded 1k solve (18a) for K34; the 500-node epoch for
+    # solve for K2 and K37 (above K34's cap; the 1k solve's PCG runs on
+    # K35); the fleet (17) for K3 and K10; the sharded 1k solve (18a) for
+    # K34; the 500-node epoch for
     # K5-K8; the projection sequence after it for K11; the first timed
     # keyframe step (phase 11, 1 camera) for K12-K18
-    launches.update({name: counts100k[name] for name in SPLIT_PCG + ("hvp",)})
+    launches["hvp"] = counts100k["hvp"]
+    launches.update({name: fleet_counts[name] for name in SPLIT_PCG})
     launches["pcg_chain"] = sharded_counts["pcg_chain"]
     launches.update({name: counts500[name] for name in EPOCH_KERNELS})
     launches.update({name: map500[name] for name in MAP_KERNELS})
@@ -5721,7 +6018,13 @@ def main() -> int:
     # K19 and bin_min_max: one maintain (13a); K20: one calibrate (13e)
     launches.update(merge_pairs=maint500["merge_pairs"], bin_min_max=maint500["bin_min_max"],
                     calib_gn=calib["calib_gn"])
+    # K3's and K10's second shapes are the fleet's (phase 17), the only path
+    # that runs them
+    rows_large.update({name: fleet_rows[f"{name}_batch"] for name in SPLIT_PCG})
     shapes = {**{k: ("1k solve", "100k solve") for k in SOLVE_KERNELS},
+              **{k: ("1k solve: a single chain (phase 3; no path runs it)",
+                     "4096 instances x 64 nodes, 128 edges, cutoff 16 (first iteration)")
+                 for k in SPLIT_PCG},
               "pcg_chain": ("1k solve: one PCG step", "10k solve: one PCG step"),
               "pcg_chain_solve": ("1k solve: one 12-step PCG solve",
                                   "10k solve: one 12-step PCG solve"),
@@ -5758,15 +6061,20 @@ def main() -> int:
          "shapes_large": shapes[name][1]}
         for name in REPLACES
     ]
-    # K2, K3 and K10: their main path is the 100k solve, so the row's main
-    # fields are its inputs' and the 1k inputs' stand beside them
+    # K2, K3 and K10: the row's main fields are those of their main path's
+    # inputs, the 1k inputs' beside them: K2's main path is the 100k solve,
+    # K3's and K10's the fleet (a single solve above K34's cap takes K37)
     for name in SPLIT_PCG + ("hvp",):
         row = kernels[list(REPLACES).index(name)]
         for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms", "shapes"):
             row[f"{k}_1k"] = row[k]
             row[k] = row.pop(f"{k}_large")
-        row.update(bound_by=rows_large[name]["bound_by"], launches_from="7 headline 100k",
-                   launches_headline_1k=headline_counts[name])
+        row.update(bound_by=rows_large[name]["bound_by"],
+                   launches_from="7 headline 100k" if name == "hvp" else "17 fleet",
+                   launches_headline_1k=headline_counts[name],
+                   launches_headline_100k=counts100k[name])
+        if name in SPLIT_PCG:
+            row["max_rel_err_single_100k"] = single100k[name]["max_rel_err"]
     # K34: a step beside the three calls it replaces (K10, K3, K10) on the
     # same vectors, and its start; its main path is the sharded 1k solve
     kernels[list(REPLACES).index("pcg_chain")].update(
@@ -5806,6 +6114,27 @@ def main() -> int:
         kernels[list(REPLACES).index(name)].update(
             device_ms_step=step1_fields["kernel_device_ms"].get(name),
             device_ms_step_large=step2_fields["kernel_device_ms"].get(name))
+    # K37: its main path is phase 7's 100k solve, its main shapes that
+    # solve's first PCG step, beside the three calls it replaces (K10, K3,
+    # K10) in turns; the 20k solve's beside it
+    r37, r37_20k = rows_large["pcg_grid"], rows["pcg_grid"]
+    kernels.append(
+        {"name": "pcg_grid", "route": "cuda", "source": PCG_GRID_SOURCE,
+         "replaces": PCG_GRID_REPLACES, "launches": counts100k["pcg_grid"],
+         "launches_from": "7 headline 100k",
+         "launches_sharded_100k": sharded_fields["100k"]["launches"]["pcg_grid"],
+         "max_abs_err": r37["max_abs_err"], "ms": r37["ms"], "plain_ms": r37["plain_ms"],
+         "bound_ms": r37["bound_ms"], "bound_by": r37["bound_by"], "library_ms": None,
+         "shapes": "100k solve: one PCG step (11 levels, a 64-block root)",
+         "device_ms": r37["device_ms"], "three_calls_ms": r37["three_calls_ms"],
+         "three_calls_device_ms": r37["three_calls_device_ms"], "start_ms": r37["start_ms"],
+         "ctas": r37["ctas"],
+         "max_rel_err_cutoff_1": r37["cutoff_1"]["max_rel_err"],
+         "max_abs_err_large": r37_20k["max_abs_err"], "ms_large": r37_20k["ms"],
+         "plain_ms_large": r37_20k["plain_ms"], "bound_ms_large": r37_20k["bound_ms"],
+         "device_ms_large": r37_20k["device_ms"],
+         "three_calls_ms_large": r37_20k["three_calls_ms"], "library_ms_large": None,
+         "shapes_large": "20k solve: one PCG step (9 levels, a 64-block root)"})
     # K8's second route, from the same source: one grid launch per pass
     # where 12·N bytes exceed one CTA's shared memory; its main path is
     # phase 7's 100k solve
@@ -5931,8 +6260,8 @@ def main() -> int:
              "max_abs_err_large": rl["max_abs_err"], "ms_large": rl["ms"],
              "plain_ms_large": rl["plain_ms"], "bound_ms_large": rl["bound_ms"],
              "library_ms_large": None, "shapes_large": shapes19[1]})
-    check(len(kernels) == 50, f"{len(kernels)} kernel entries")
-    check(all(e["launches"] > 0 for e in kernels if e["name"] in SOLVE_KERNELS),
+    check(len(kernels) == 51, f"{len(kernels)} kernel entries")
+    check(all(e["launches"] > 0 for e in kernels if e["name"] in SOLVE_KERNELS + ("pcg_grid",)),
           f"a solve kernel's main path did not launch it: "
           f"{[(e['name'], e['launches']) for e in kernels if e['name'] in SOLVE_KERNELS]}")
     unmatched = unmatched_device_functions()
@@ -5944,7 +6273,7 @@ def main() -> int:
                                       "calibration": calib_fields},
                       "recognition": rec_fields, "estimation": est_fields,
                       "sift": sift_fields, "fleet": fleet_fields, "sharded": sharded_fields,
-                      "scope": scope_fields}))
+                      "scope": scope_fields, "solve_100k": breakdown100k}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

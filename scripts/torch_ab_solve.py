@@ -26,6 +26,9 @@ size takes K34 (``pcg_chain_route``), it also runs
 plain version; one step timed with CUDA events beside the three calls it
 replaces) and profiles 100 steps on the same vectors for K34's device ms a
 step, and, in a checkout that has it, ``compare_pcg_chain_solve`` (K35).
+Above K34's cap it times a step of the route the checkout takes there (K37,
+or K10 + K3 + K10 before it) on the same vectors: CUDA events and device ms
+a step.
 Prints one JSON line a process, then per size each side's medians and how
 many pairs the change won.
 """
@@ -66,11 +69,15 @@ def timed(fn, g, c, reps):
         torch.cuda.synchronize()
         ts.append(1e3 * (time.perf_counter() - t0))
     prof, names = cs.device_profile(lambda: fn(g, c))
-    by_kernel = {k: sum(v for name, v in names.items() if f in name)
-                 for k, f in (("k1", "linearize"), ("k2", "hvp_"), ("k34", "pcg_chain_kernel"),
-                              ("k35", "pcg_solve_kernel"), ("k4", "residual_edges"),
-                              ("k4_sum", "sum_partials"), ("k9", "factor_"),
-                              ("k36", "candidate_kernel"), ("k36_accept", "accept_kernel"))}
+    by_kernel = {k: sum(v for name, v in names.items() if any(f in name for f in fs))
+                 for k, fs in (("k1", ("linearize",)), ("k2", ("hvp_",)),
+                               ("k3", ("chain_forward", "chain_backward", "chain_root")),
+                               ("k10", ("pcg_init", "pcg_alpha", "pcg_beta", "grid_dots",
+                                        "grid_init", "grid_alpha", "grid_beta")),
+                               ("k34", ("pcg_chain_kernel",)), ("k35", ("pcg_solve_kernel",)),
+                               ("k37", ("pcg_grid_kernel",)), ("k4", ("residual_edges",)),
+                               ("k4_sum", ("sum_partials",)), ("k9", ("factor_",)),
+                               ("k36", ("candidate_kernel",)), ("k36_accept", ("accept_kernel",)))}
     by_kernel["eager_ops"] = sum(v for name, v in names.items() if "at::native" in name)
     return res, {"ms_median": statistics.median(ts), "ms": ts,
                  "port_launches": {k: v for k, v in launches.items() if v},
@@ -154,6 +161,20 @@ for size in sys.argv[2].split(","):
             row = cs.compare_pcg_chain_solve(inputs["pcg_chain_solve"], str(n))
             out[n]["pcg_chain_solve"] = {k: row[k] for k in (
                 "ms", "replaced_ms", "plain_ms", "bound_ms", "max_rel_err", "rerun_bit_identical")}
+    else:
+        # above K34's cap: a step of the route the checkout's solve takes, on
+        # the same vectors (the first PCG solve's b and one Hp); CUDA events
+        # around 10 steps, and device ms a step over 20 profiled steps
+        Hp = kops.hvp(Ji, Jj, W, ef, et, b, damp, free)
+        state = kops.pcg_chain_start(pack, b)
+        kops.reset_launches()
+        kops.pcg_chain_step(pack, Hp, state, tol)
+        step_launches = {k: v for k, v in kops.launches.items() if v}
+        ms = cs.time_call(lambda: kops.pcg_chain_step(pack, Hp, state, tol), trials=11)
+        _, dev_ms = cs.device_profile(
+            lambda: [kops.pcg_chain_step(pack, Hp, state, tol) for _ in range(20)])
+        out[n]["pcg_step"] = {"ms": ms, "device_ms_per_step": sum(dev_ms.values()) / 20,
+                              "launches": step_launches}
 print(json.dumps(out))
 '''
 
@@ -184,6 +205,9 @@ def main() -> int:
             medians[side][-1].update({f"{n}:{k}": r["pcg_chain"][k] for n, r in res.items()
                                       if "pcg_chain" in r
                                       for k in ("ms", "device_ms_per_step")})
+            medians[side][-1].update({f"{n}:step_{k}": r["pcg_step"][k] for n, r in res.items()
+                                      if "pcg_step" in r
+                                      for k in ("ms", "device_ms_per_step")})
             medians[side][-1].update({f"{n}:{k}": r[k] for n, r in res.items()
                                       for k in ("k9_ms", "k9_device_ms", "k9_levels_device_ms",
                                                 "k9_root_device_ms", "device_kernel_ms",
@@ -196,6 +220,9 @@ def main() -> int:
         k34 = {f"{side}_pcg_chain_{k}": [m[f"{n}:{k}"] for m in medians[side]]
                for side in sides for k in ("ms", "device_ms_per_step")
                if f"{n}:{k}" in medians[side][0]}
+        k34.update({f"{side}_pcg_step_{k}": [m[f"{n}:step_{k}"] for m in medians[side]]
+                    for side in sides for k in ("ms", "device_ms_per_step")
+                    if f"{n}:step_{k}" in medians[side][0]})
         k34.update({f"{side}_{k}": [m[f"{n}:{k}"] for m in medians[side]]
                     for side in sides for k in ("k9_ms", "k9_device_ms", "k9_levels_device_ms",
                                                 "k9_root_device_ms", "device_kernel_ms",

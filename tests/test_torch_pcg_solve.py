@@ -17,7 +17,8 @@ the table), its odometry and loop noise drawn with numpy, cutoff 16:
   loop it replaces, bit for bit;
 - the routes, with a recording library on meta tensors: within K34's cap
   and without a reduce hook one ``uz_pcg_chain_solve`` per PCG solve; with
-  a reduce hook K2 + K34; above the cap and in a fleet K2 + K10 + K3;
+  a reduce hook K2 + K34; above the cap, with or without one, K2 + K37; in
+  a fleet K2 + K10 + K3;
 - the argument checks and a failed launch.
 """
 
@@ -338,10 +339,8 @@ def test_the_lm_step_takes_k35_without_reduce_and_k2_k34_with_it(fake_lib, reduc
         assert kops.launches["hvp"] == kops.launches["pcg_chain"] == 0
 
 
-@pytest.mark.parametrize("n, cutoff, batch, levels", [(20_000, 64, 1, 9), (64, 16, 4, 2)],
-                         ids=["above_the_cap", "fleet"])
-def test_above_the_cap_and_in_a_fleet_the_operator_takes_k2_k10_k3(fake_lib, n, cutoff,
-                                                                   batch, levels):
+def test_in_a_fleet_the_operator_takes_k2_k10_k3(fake_lib):
+    n, cutoff, batch, levels = 64, 16, 4, 2
     factor = _meta_factor(fake_lib, n, cutoff, batch)
     E = 2 * batch * n
 
@@ -354,6 +353,27 @@ def test_above_the_cap_and_in_a_fleet_the_operator_takes_k2_k10_k3(fake_lib, n, 
     step = ["uz_hvp", "uz_pcg_alpha"] + apply + ["uz_pcg_beta"]
     assert names == apply + ["uz_pcg_init"] + step * 12
     assert kops.launches["pcg_chain_solve"] == kops.launches["pcg_chain"] == 0
+    assert kops.launches["pcg_grid"] == 0
+
+
+@pytest.mark.parametrize("reduce", [False, True], ids=["no_reduce", "reduce"])
+def test_above_the_cap_the_operator_takes_k2_k37(fake_lib, reduce):
+    # the LM step hands _pcg its operator only without a reduce hook; above
+    # K34's cap neither form takes K35: K2 (and the hook) then K37's step
+    n, E = 20_000, 22_000
+    p, g = _meta_problem(n, E, (lambda t: fake_lib.calls.append(("all_reduce", ())))
+                         if reduce else None)
+    factor = _meta_factor(fake_lib, n, CFG["chain_dense_cutoff"])
+    J = _meta(E, 6, 6)
+    p.step(g.pose, factor, J, J, J, _meta(n, 6), _meta(n, 6))
+    names = [c[0] for c in fake_lib.calls if c[0] not in ("uz_residual_chi2", "uz_lm_candidate")]
+    hook = ["all_reduce"] if reduce else []
+    # (the hook's last call sums the candidate's χ²)
+    assert names == (["uz_pcg_grid_start"] + (["uz_hvp"] + hook + ["uz_pcg_grid_step"]) * 12
+                     + hook)
+    assert kops.launches["pcg_grid"] == 13 and kops.launches["hvp"] == 12
+    assert kops.launches["pcg_chain_solve"] == kops.launches["pcg_chain"] == 0
+    assert kops.launches["chain_apply"] == kops.launches["pcg"] == 0
 
 
 def test_argument_checks_raise(fake_lib):

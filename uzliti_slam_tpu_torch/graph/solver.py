@@ -17,13 +17,15 @@ it).  Per LM iteration: one fused linearization (kernel K1), a PCG solve
 of a fixed count of steps, then kernel K36 in two launches: the candidate
 (retraction, its residuals and robust χ²) and the accept rule with the λ
 schedule (and the early exit's termination), whose state lives in
-per-iteration tensors (``kops.LmState``).  The PCG takes one of three
+per-iteration tensors (``kops.LmState``).  The PCG takes one of four
 routes (``_pcg``): a single solve within K34's cap with no reduce hook is
 kernel K35, the whole solve
 with its Hessian-vector products in one launch; the edge-sharded solve
 (whose all-reduce sits between Hv and the dot) runs K2 for each Hv and
-K34 for each step's updates around the preconditioner apply; a fleet, or
-a chain above K34's cap, K2, K10 and K3.  K1 and K35 sum node rows over
+K34 for each step's updates around the preconditioner apply; a single
+solve above K34's cap, with or without a reduce hook, K2 for each Hv and
+K37 for each step (one cooperative launch over the card); a fleet K2, K10
+and K3.  K1 and K35 sum node rows over
 the solve's incidence table (``kops.incidence_table``, built once per
 solve) in a fixed order, so those routes give the same bits every run.
 The chain factor is kernel K9, one launch that builds the damped diagonal
@@ -188,8 +190,9 @@ def _pcg(hvp, factor, b, iterations: int, tol: float, batch: int = 1, cmask=None
     (``solver.py:512-540``) around z = M⁻¹r, in one launch, ``hvp`` unused.
     Otherwise each step is ``hvp`` (K2, and the caller's reduce) → K34: the
     dots, axpys and stall logic, one launch, with its scalars on the device;
-    a fleet of ``batch`` instances, or a chain above K34's cap, takes K10 →
-    K3 → K10 with one row of scalars per instance.  ``cmask`` (6,), the
+    a single chain above K34's cap takes K37 for the same step (one
+    cooperative launch over the card); a fleet of ``batch`` instances takes
+    K10 → K3 → K10 with one row of scalars per instance.  ``cmask`` (6,), the
     generic loop's planar projection, makes the preconditioner M⁻¹(r·m)·m
     (and K35's operator H(p·m)·m, as the caller's ``hvp`` wraps it).
     """

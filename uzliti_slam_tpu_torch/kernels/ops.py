@@ -94,6 +94,11 @@ pcg_chain_     csrc/pcg_chain.cu       graph/solver.py:_pcg's whole loop with
 solve                                  _make_hvp and block_tridiag_apply
                                        inside it (a single solve with no
                                        reduce hook; K2 + K34 fused)
+pcg_grid       csrc/pcg_grid.cu        graph/solver.py:_pcg's body minus the
+                                       Hessian-vector product, with
+                                       tridiag.py:block_tridiag_apply inside
+                                       it (a single solve above K34's cap;
+                                       K10 + K3 in one cooperative launch)
 lm_candidate   csrc/lm_step.cu         graph/solver.py's LM tail: retraction,
                                        batched_residuals, _robust_chi2_from_r
 lm_accept      csrc/lm_step.cu         the accept rule with the λ schedule and
@@ -104,11 +109,13 @@ K3, K4, K9, K10 and K36 take a batch of B instances of equal sizes,
 flattened (the fleet of ``parallel/sharded.optimize_batch``); a single solve
 is the batch of one.  K9 builds the damped diagonal it factors as it reads
 Hb, and runs its levels and root in one cooperative launch.  The solve's
-PCG has three routes (``solver._pcg``): a single solve within K34's cap
+PCG has four routes (``solver._pcg``): a single solve within K34's cap
 with no reduce hook takes ``pcg_chain_solve`` (K35),
 one launch a PCG solve; with a reduce hook (the edge-sharded solve, whose
 all-reduce sits between Hv and the dot) K2 and ``pcg_chain_step`` (K34), one
-launch each a step; a fleet, or a chain above the cap, K2, K10 and K3.
+launch each a step; a single solve above the cap, K2 and K37 (one
+cooperative launch a step, with or without a reduce hook); a fleet, K2,
+K10 and K3.
 K1 and K35 sum node rows over the solve's incidence table
 (``incidence_table``) in a fixed order, without float atomics.
 
@@ -139,7 +146,7 @@ launches = {"linearize": 0, "hvp": 0, "chain_apply": 0, "residual_chi2": 0,
             "knn_normals": 0, "gicp": 0, "pnp": 0, "sift_describe": 0, "l2_top2": 0,
             "uid_slots": 0, "edge_key_match": 0, "delta_upsert": 0, "scope_merge": 0,
             "pcg_chain": 0, "pcg_chain_solve": 0, "lm_candidate": 0,
-            "lm_accept": 0}
+            "lm_accept": 0, "pcg_grid": 0}
 
 _THREADS = 256  # kThreads in csrc/lie.cuh: K4's partial sums, one per block
 _SMEM_BYTES = 232448  # shared memory one CTA can use on Hopper
@@ -188,9 +195,15 @@ def _stream(device: torch.device) -> int:
 
 
 _OUT_OF_RESOURCES = 701     # cudaErrorLaunchOutOfResources
+_COOPERATIVE_TOO_LARGE = 720     # cudaErrorCooperativeLaunchTooLarge
 
 
 def _raise_on(err: int, kernel: str) -> None:
+    if err == _COOPERATIVE_TOO_LARGE and kernel == "pcg_grid":
+        # K37 sizes its cooperative grid by occupancy, and says so with this
+        # code when not one CTA fits an SM
+        raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError_t {err}: its "
+                           "cooperative grid does not fit on the device")
     if err == _OUT_OF_RESOURCES and kernel in ("pcg_chain", "pcg_chain_solve"):
         # K34 and K35 check with cudaOccupancyMaxActiveClusters before their
         # first launch on a device that their cluster fits, and say so with
@@ -1432,7 +1445,9 @@ def pcg_beta(r, z, p, scal) -> None:
 # then M⁻¹(r·m)·m.  Their state is a ``PcgState``.  The route follows from
 # size and batch: a single solve whose level vectors fit the 8-CTA cluster's
 # shared memory (``pcg_chain_route``) takes K34, one launch for the start and
-# one a step; a fleet (batch > 1) or a larger chain takes K10 around K3.
+# one a step; a larger single solve K37 (``pcg_grid_start``, below), one
+# cooperative launch for the start and one a step; a fleet (batch > 1) K10
+# around K3.
 
 PCG_CHAIN_CLUSTER = 8        # CTAs of K34's cluster (csrc/pcg_chain.cu kCluster)
 _PCG_CHAIN_WARPS = 16        # kChainThreads / 32
@@ -1441,8 +1456,8 @@ _PCG_CHAIN_WARPS = 16        # kChainThreads / 32
 class PcgState(NamedTuple):
     """A PCG solve's vectors (B·n, 6) and scalars, updated in place by the
     steps.  ``scal`` is (B, 3) = [rz, b2, ok] in the plain version and (B,
-    4) on the card (K10's layout, which K34 keeps); ``fused`` holds K34's
-    fixed launch arguments, or None off its route."""
+    4) on the card (K10's layout, which K34 and K37 keep); ``fused`` holds
+    K34's or K37's fixed launch arguments, or None on K10's route."""
     x: torch.Tensor
     r: torch.Tensor
     p: torch.Tensor
@@ -1497,15 +1512,33 @@ class _Fused(NamedTuple):
     factor: tuple
     cmask: object
     table: object      # the host table the arguments point into
-    z: torch.Tensor    # scratch for M⁻¹r
+    scratch: tuple     # the device scratch the arguments point into (M⁻¹r, ...)
     step: object       # the C entry
     args: tuple        # its arguments after Hp and tol
+    kernel: str        # its launch count
+
+
+_LEVEL_NAMES = ("Dinv_o", "P1m", "P2", "G1", "G2")
+
+
+def _factor_ptrs(factor, dev) -> list:
+    """The factor's pointers, each level's Dinv_o, P1m, P2, G1, G2, then
+    root_inv, checked for one chain."""
+    levels, root_inv, _ = factor
+    L, m_root = len(levels), root_inv.shape[-1] // 6
+    ptrs = []
+    for li, lv in enumerate(levels):
+        half = m_root << (L - 1 - li)
+        for nm, t in zip(_LEVEL_NAMES, lv):
+            ptrs.append(_check(nm, t, (1, half, 6, 6), torch.float32, dev))
+    ptrs.append(_check("root_inv", root_inv, (1, 6 * m_root, 6 * m_root), torch.float32, dev))
+    return ptrs
 
 
 def _chain_table(factor, dev):
     """(host table of the factor's pointers, levels, root blocks, rows):
-    each level's Dinv_o, P1m, P2, G1, G2, then root_inv, checked for one
-    chain of a power-of-two padding within K34's cap."""
+    ``_factor_ptrs`` of one chain of a power-of-two padding within K34's
+    cap."""
     levels, root_inv, n = factor
     L = len(levels)
     m_root = root_inv.shape[-1] // 6
@@ -1513,22 +1546,20 @@ def _chain_table(factor, dev):
         raise ValueError(f"pcg_chain: a chain of {n} rows, {L} levels and a {m_root}-block "
                          f"root is outside K34's cap ({_SMEM_BYTES} bytes of shared memory "
                          "a CTA)")
-    ptrs = []
-    for li, lv in enumerate(levels):
-        half = m_root << (L - 1 - li)
-        for nm, t in zip(("Dinv_o", "P1m", "P2", "G1", "G2"), lv):
-            ptrs.append(_check(nm, t, (1, half, 6, 6), torch.float32, dev))
-    ptrs.append(_check("root_inv", root_inv, (1, 6 * m_root, 6 * m_root), torch.float32, dev))
+    ptrs = _factor_ptrs(factor, dev)
     return (ctypes.c_void_p * len(ptrs))(*ptrs), L, m_root, n
 
 
 def pcg_chain_start(factor, b, batch: int = 1, cmask=None) -> PcgState:
     """K34 before the loop (z0 = M⁻¹b, x = 0, r = b, p = z0, rz, b2), in one
-    launch; off its route, K3 then K10's init."""
+    launch; a single chain above K34's cap K37's start (``pcg_grid_start``);
+    a fleet K3 then K10's init."""
     if b.device.type == "cpu":
         return pcg_chain_start_plain(factor, b, batch, cmask)
-    if not pcg_chain_route(factor, batch):
+    if batch > 1:
         return PcgState(*pcg_init(b, _preconditioned(chain_apply, factor, b, cmask), batch))
+    if not pcg_chain_route(factor, batch):
+        return pcg_grid_start(factor, b, cmask)
     dev, f32 = b.device, torch.float32
     table, L, m_root, n = _chain_table(factor, dev)
     _check("b", b, (n, 6), f32, dev)
@@ -1544,13 +1575,15 @@ def pcg_chain_start(factor, b, batch: int = 1, cmask=None) -> PcgState:
     launches["pcg_chain"] += 1
     args = head + (x.data_ptr(), r.data_ptr(), p.data_ptr(), z.data_ptr(), scal.data_ptr(),
                    stream)
-    return PcgState(x, r, p, scal, _Fused(factor, cmask, table, z, lib.uz_pcg_chain_step, args))
+    return PcgState(x, r, p, scal, _Fused(factor, cmask, table, (z,), lib.uz_pcg_chain_step, args,
+                                          "pcg_chain"))
 
 
 def pcg_chain_step(factor, Hp, state: PcgState, tol: float, cmask=None) -> None:
     """K34 after Hp = H·p: α, x and r; z = M⁻¹r through every level and the
     root; β, p and rz, in one launch on the state ``pcg_chain_start`` made
-    (on the stream current then); off its route, K10, K3, K10."""
+    (on the stream current then); above K34's cap K37's step, the same in
+    one cooperative launch; in a fleet K10, K3, K10."""
     if Hp.device.type == "cpu":
         return pcg_chain_step_plain(factor, Hp, state, tol, cmask)
     x, r, p, scal, fused = state
@@ -1560,8 +1593,74 @@ def pcg_chain_step(factor, Hp, state: PcgState, tol: float, cmask=None) -> None:
     if fused.factor is not factor or fused.cmask is not cmask:
         raise ValueError("pcg_chain_step: the state was started with another factor or mask")
     _check("Hp", Hp, tuple(p.shape), torch.float32, p.device)
-    _raise_on(fused.step(Hp.data_ptr(), tol, *fused.args), "pcg_chain")
-    launches["pcg_chain"] += 1
+    _raise_on(fused.step(Hp.data_ptr(), tol, *fused.args), fused.kernel)
+    launches[fused.kernel] += 1
+
+
+# ---------------------------------------------------------------------------
+# K37 pcg_grid (K34's step above its cap: one cooperative launch a step)
+# ---------------------------------------------------------------------------
+# A single chain whose level vectors do not fit K34's cluster: the same
+# start and step (the plain versions are K34's), in one cooperative launch
+# over the whole card, the level vectors in device scratch allocated at the
+# start.  ``pcg_chain_start`` / ``pcg_chain_step`` take it above the cap;
+# ``pcg_grid_start`` takes any single chain of one level or more.
+
+_PCG_GRID_MAX_CTAS = 4096  # partial-sum slots: more CTAs than any card holds at once
+
+
+def pcg_grid_scratch(levels: int, m_root: int) -> int:
+    """Floats of K37's vector scratch: each level's forward vector and
+    back-sweep x, levels 1..L, m_root << (L - l) rows of 6 each
+    (csrc/pcg_grid.cu scratch_floats)."""
+    return 2 * 6 * m_root * ((1 << levels) - 1)
+
+
+def _grid_table(factor, dev):
+    """``_chain_table`` for K37: one chain of a power-of-two padding with at
+    least one level, its level products 16-byte aligned (the kernel reads
+    them as float4)."""
+    levels, root_inv, n = factor
+    L = len(levels)
+    m_root = root_inv.shape[-1] // 6
+    if L < 1 or m_root < 1 or m_root << L != _pow2(n):
+        raise ValueError(f"pcg_grid: a chain of {n} rows, {L} levels and a {m_root}-block "
+                         "root; K37 takes one chain with at least one level")
+    ptrs = _factor_ptrs(factor, dev)
+    for i, ptr in enumerate(ptrs[:-1]):
+        if ptr % 16:
+            raise ValueError(f"pcg_grid: {_LEVEL_NAMES[i % 5]} of level {i // 5} is not "
+                             "16-byte aligned")
+    return (ctypes.c_void_p * len(ptrs))(*ptrs), L, m_root, n
+
+
+def pcg_grid_start(factor, b, cmask=None) -> PcgState:
+    """K37 before the loop (z0 = M⁻¹b, x = 0, r = b, p = z0, rz, b2), in one
+    cooperative launch, for one chain of at least one level; its steps are
+    ``pcg_chain_step`` on the state it returns."""
+    if b.device.type == "cpu":
+        return pcg_chain_start_plain(factor, b, 1, cmask)
+    dev, f32 = b.device, torch.float32
+    table, L, m_root, n = _grid_table(factor, dev)
+    _check("b", b, (n, 6), f32, dev)
+    cm = None if cmask is None else _check("cmask", cmask, (6,), f32, dev)
+    lib = _build.load()
+    x, r, p, z = torch.empty(4, n, 6, dtype=f32, device=dev).unbind(0)
+    scal = torch.empty(1, 4, dtype=f32, device=dev)
+    size = pcg_grid_scratch(L, m_root)
+    scratch = torch.empty(size, dtype=f32, device=dev)
+    partials = torch.empty(2 * _PCG_GRID_MAX_CTAS, dtype=f32, device=dev)
+    stream = _stream(dev)
+    head = (ctypes.addressof(table), L, m_root, n, cm)
+    rest = (scratch.data_ptr(), size, partials.data_ptr(), _PCG_GRID_MAX_CTAS, stream)
+    err = lib.uz_pcg_grid_start(*head, b.data_ptr(), x.data_ptr(), r.data_ptr(), p.data_ptr(),
+                                scal.data_ptr(), *rest)
+    _raise_on(err, "pcg_grid")
+    launches["pcg_grid"] += 1
+    args = head + (x.data_ptr(), r.data_ptr(), p.data_ptr(), z.data_ptr(),
+                   scal.data_ptr()) + rest
+    return PcgState(x, r, p, scal, _Fused(factor, cmask, table, (z, scratch, partials),
+                                          lib.uz_pcg_grid_step, args, "pcg_grid"))
 
 
 # ---------------------------------------------------------------------------
