@@ -42,14 +42,20 @@ runs, in order, each phase printing lines of its own:
    500-node and 10k-node epochs give it, K8's grid route on the 100k-node
    solve's inputs, and K11 project_rays on a 500-node full rebuild, an
    8-new-node incremental pass and a 10k-node full rebuild, and the
-   front-end's kernels (K12 fast_nms and K13 grid_topk on all four pyramid
-   levels, K14 orb_describe on every level and the GIST, K15 scan_bins) on
-   the arguments one VGA keyframe gives them, with one camera and with the
-   front + rear rig, and the keyframe step's kernels (K16 hamming_top2, both
-   entry points, K17 bilateral, K18 icp) on the arguments a late VGA
-   keyframe step of phase 11 gives them: error against a stated tolerance,
-   the median time of both, and the least time the card could take for the
-   work this data needs;
+   front-end's kernels (K12 fast_nms on all four pyramid levels, K13
+   grid_topk's one call for all four, K14 orb_describe on every level and
+   the GIST, K15 scan_bins) on the arguments one VGA keyframe gives them,
+   with one camera and with the front + rear rig (K13 also at four other
+   budgets: one keypoint a cell, the global branch, padding and passes of
+   8, each with a bit-identical rerun, and ten profiled calls holding K13's
+   kernel alone, no fill), and the keyframe step's kernels (K16
+   hamming_top2, both entry points, K17 bilateral, K18 icp) on the
+   arguments a late VGA keyframe step of phase 11 gives them (K18 also with
+   no valid target and one, on a synthetic N = M = 8192 problem at batch 1
+   and 4, each with a bit-identical rerun, and its cluster and one-CTA
+   launch forms timed): error against a stated tolerance, the median time
+   of both, and the least time the card could take for the work this data
+   needs;
 4. the 1k-node headline solve (20 LM x 12 PCG, chain factor refreshed every
    5, fixed iteration count) through ``optimize``: launch counts of one
    solve (its PCG through K35 alone: 20 launches, none of K2, K34, K3 and
@@ -87,15 +93,17 @@ runs, in order, each phase printing lines of its own:
 10. the keyframe front-end at VGA (``pipeline.keyframe_frontend``; the JAX
    bench's ``keyframe_vga`` and ``keyframe_vga_2cam`` rungs, 256 features,
    360 scan bins, depth refinement off), one camera and the front + rear
-   rig: launch counts of one keyframe, ms per keyframe over 10 sync-free
-   keyframes after 3 warm-up ones, a profile, valid keypoints, the scan on
+   rig: launch counts of one keyframe (K13 exactly once: one call takes
+   every level), ms per keyframe over 10 sync-free keyframes after 3
+   warm-up ones, a profile, valid keypoints, the scan on
    the wall, and the same frames on CPU tensors through the plain path;
 11. the keyframe step in the default configuration (depth refinement, GIST
    recognition, matching + RANSAC, ICP laser edges) through
    ``Slam.add_frame`` on the same 13 frames with the JAX bench's
    ``_make_slam`` settings, one camera and the rig: ms per keyframe step
    over 10 sync-free steps after 3 warm-up ones, launches of K12-K18 and K7
-   over them, a profile of one more step, candidates on the return leg
+   over them (K13 once a step), a profile of one more step, candidates on
+   the return leg
    and, with one camera, loop closures proposed and accepted there (the
    rig's rear camera is fed the front's frame, so the ratio test rejects
    its duplicate descriptors), and the same frames on CPU tensors through
@@ -114,7 +122,8 @@ runs, in order, each phase printing lines of its own:
    every 20): one capacity tier, >= 3 compactions, <= 60 live nodes, no
    keyframe dropped, ms per maintain and per compacting maintain; (d)
    ``Slam.reregister_scans`` on phase 11's one-camera Slam (K18 once on a
-   batch of 4, the same edges on CPU tensors); (e) ``Slam.calibrate`` on a
+   batch of 4, against its plain version with a bit-identical rerun, its
+   two launch forms timed, the same edges on CPU tensors); (e) ``Slam.calibrate`` on a
    1k-node biased-odometry graph (K20): the drift recovered within 2e-2,
    then the calibrated solve against the uncalibrated one and on CPU
    tensors.  Phase 3 holds K19 and ``bin_min_max`` (exactly) and K20 (θ
@@ -399,11 +408,12 @@ STEP_KERNELS = FRONTEND_KERNELS + KEYFRAME_KERNELS + ("ransac_rigid",)
 MAINT_KERNELS = ("merge_pairs", "calib_gn", "bin_min_max")
 # the device functions each front-end kernel's wrapper launches (a template
 # with its arguments: K14 and K29 share describe.cuh's blur at radius 2 and 1)
-FRONTEND_DEVICE_FUNCTIONS = {"fast_nms": ("fast_nms_tile",), "grid_topk": ("cell_topk", "global_topk"),
+FRONTEND_DEVICE_FUNCTIONS = {"fast_nms": ("fast_nms_tile",),
+                             "grid_topk": ("grid_cells", "grid_global"),
                              "orb_describe": ("box_blur<2>", "describe"),
                              "scan_bins": ("init_table", "scan_pixels", "finalize"),
                              "hamming_top2": ("match_top2", "gist_rounds"),
-                             "bilateral": ("bilateral_tile",), "icp": ("icp_problems",),
+                             "bilateral": ("bilateral_tile",), "icp": ("icp_cluster",),
                              "ransac_rigid": ("ransac_roots",),
                              "merge_pairs": ("row_keys", "greedy_rounds"),
                              "calib_gn": ("init_theta", "calib_edges", "calib_solve"),
@@ -751,9 +761,9 @@ DEVICE_FUNCTIONS = ("sift_keypoints", "linearize_rows", "hvp_seed",
                     "relax_rows", "cluster_rounds", "ransac_roots", "components_cta",
                     "gauge_cta", "k_init_labels", "k_scatter_min", "k_jump_out", "k_jump",
                     "k_gauge_init", "k_gauge_reduce_stamp", "k_gauge_reduce_slot",
-                    "k_gauge_write", "fast_nms_tile", "global_topk", "cell_topk", "box_blur",
+                    "k_gauge_write", "fast_nms_tile", "grid_global", "grid_cells", "box_blur",
                     "describe", "scan_pixels", "init_table", "finalize", "match_top2",
-                    "gist_rounds", "bilateral_tile", "icp_problems", "row_keys",
+                    "gist_rounds", "bilateral_tile", "icp_cluster", "row_keys",
                     "greedy_rounds", "init_theta", "calib_edges", "calib_solve", "bin_rows",
                     "voxel_sort_chunks", "voxel_merge", "voxel_accumulate", "voxel_finish",
                     "knn_normals_kernel", "gicp_problems", "pnp_hypotheses_kernel",
@@ -811,7 +821,7 @@ MATCHED_FUNCTIONS: set = set()
 # only in build_vocabulary, before the profiled keyframe steps; K13's global
 # pass only where a level's cell candidates (grid²·k_cell) outnumber its
 # k_total, which no profiled frame's levels reach
-UNPROFILED_FUNCTIONS = ("count_bits", "majority_bytes", "global_topk")
+UNPROFILED_FUNCTIONS = ("count_bits", "majority_bytes", "grid_global")
 
 
 def kernel_device_ms(device_ms: dict, kernels) -> dict:
@@ -1008,12 +1018,18 @@ def kernel_work(name: str, args) -> tuple[int, int]:
         inner = C * max(H - 42, 0) * max(W - 42, 0)
         return 2 * _nbytes(img), 100 * inner + 11 * img.numel()
     if name == "grid_topk":
-        # the scores read once, the keypoints written once; k_cell rounds of
-        # a compare and a select per score of the grid
-        score, k_total, grid = args
-        C, H, W = score.shape
-        gh, gw, k_cell, _ = kops._grid_shapes(H, W, k_total, grid)
-        return _nbytes(score) + C * k_total * 13, 2 * k_cell * C * grid * grid * gh * gw
+        # every level's scores read once, its keypoints written once; a
+        # compare and a select per score of the grid (one pass selects a
+        # cell's k_cell <= 8)
+        scores, k_total, grid = args
+        levels = [scores] if isinstance(scores, torch.Tensor) else list(scores)
+        nbytes = ops = 0
+        for score in levels:
+            C, H, W = score.shape
+            gh, gw, _, _ = kops._grid_shapes(H, W, k_total, grid)
+            nbytes += _nbytes(score) + C * k_total * 13
+            ops += 2 * C * grid * grid * gh * gw
+        return nbytes, ops
     if name == "orb_describe":
         # image, keypoints and pattern read once, angles and descriptors
         # written once; the blur's 10 adds and a multiply per pixel, and per
@@ -1783,11 +1799,13 @@ def compare_pcg_chain(args, label: str, cmask=None, timed: bool = True) -> dict:
 
 def device_ms_of(fn, calls: int, function: str) -> float | None:
     """Device ms a call of ``function`` (a profiled kernel's name contains
-    it) over one profiled run of ``fn`` that makes ``calls`` calls."""
+    it) over one profiled run of ``fn`` that makes ``calls`` calls; None
+    where the trace holds no such kernel (not measured)."""
     prof, names = device_profile(fn)
-    if not names:
+    hits = [ms for key, ms in names.items() if function in key]
+    if not hits:
         return None
-    return sum(ms for key, ms in names.items() if function in key) / calls
+    return sum(hits) / calls
 
 
 def compare_pcg_grid(args, label: str, cmask=None, pack=None, timed: bool = True) -> dict:
@@ -2756,19 +2774,21 @@ def bound_wrapper_calls(calls: dict, wrappers) -> dict:
 def frontend_library(name: str, calls):
     """One PyTorch call per kernel call that computes the same function, or
     None: K13 ``torch.topk`` over the (C·cells, cell) view of each level's
-    scores (its tie order is not the reference's); K15 ``scatter_reduce_``
-    with amin and amax on each scan's quantised ranges."""
+    scores (one call a level; its tie order is not the reference's); K15
+    ``scatter_reduce_`` with amin and amax on each scan's quantised
+    ranges."""
     from uzliti_slam_tpu_torch.kernels import ops as kops
     from uzliti_slam_tpu_torch.ops import scan
 
     if name == "grid_topk":
         views = []
-        for (score, k_total, grid), _ in calls:
-            C, H, W = score.shape
-            gh, gw, k_cell, _n = kops._grid_shapes(H, W, k_total, grid)
-            cells = score[:, : gh * grid, : gw * grid].reshape(C, grid, gh, grid, gw)
-            views.append((cells.permute(0, 1, 3, 2, 4).reshape(C * grid * grid, gh * gw)
-                          .contiguous(), k_cell))
+        for (scores, k_total, grid), _ in calls:
+            for score in [scores] if isinstance(scores, torch.Tensor) else scores:
+                C, H, W = score.shape
+                gh, gw, k_cell, _n = kops._grid_shapes(H, W, k_total, grid)
+                cells = score[:, : gh * grid, : gw * grid].reshape(C, grid, gh, grid, gw)
+                views.append((cells.permute(0, 1, 3, 2, 4).reshape(C * grid * grid, gh * gw)
+                              .contiguous(), k_cell))
         return time_call(lambda: [torch.topk(v, k) for v, k in views])
     if name == "scan_bins":
         work = []
@@ -2829,6 +2849,36 @@ def compare_frontend(calls: dict, label: str) -> dict:
         check(ang_err <= ANGLE_ATOL, f"{name} {label}: angles {ang_err:.3g} rad apart")
         rows[name] = row
     return rows
+
+
+def compare_grid_topk_cases(calls, label: str) -> dict:
+    """K13 on the keyframe's four levels of scores (its one recorded call)
+    at other budgets, each against its plain version entry for entry with
+    a bit-identical rerun: one keypoint a cell (k_total 16, the last tied
+    index), the global branch (k_total 8 < 16 cells), padding (k_total 75,
+    as 300 features over 4 levels give) and passes of 8 (k_total 160, 10 a
+    cell); then ten profiled calls of the step's budget: their device
+    kernels are K13's alone (no fill launches)."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    (scores, k_total, grid), _ = calls[0]
+    out = {}
+    for name, k in (("one_per_cell", 16), ("global_branch", 8), ("padding", 75),
+                    ("passes_of_8", 160)):
+        got, again = kops.grid_topk(scores, k, grid), kops.grid_topk(scores, k, grid)
+        ref = kops.grid_topk_plain(scores, k, grid)
+        torch.cuda.synchronize()
+        mism = sum(int((a != b).sum()) for a, b in zip(got, ref))
+        same = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+        out[name] = {"k_total": k, "levels": len(scores), "mismatches": mism,
+                     "rerun_bit_identical": same}
+        check(mism == 0 and same, f"grid_topk {label} {name}: {out[name]}")
+    _, names = device_profile(lambda: [kops.grid_topk(scores, k_total, grid) for _ in range(10)])
+    out["device_kernels_10_calls"] = names
+    log(f"3 kernel grid_topk cases {label}", **out)
+    check(len(names) == 1 and "grid_cells" in next(iter(names)),
+          f"grid_topk {label}: its calls launched {sorted(names)}")
+    return out
 
 
 def wall_error(scan) -> tuple[int, float]:
@@ -2915,6 +2965,8 @@ def frontend_phase(phase: str, world, frames, n_cams: int, device, reps: int = 1
     log(phase, **fields)
     check(all(counts[k] > 0 for k in FRONTEND_KERNELS), f"{phase}: a kernel was not launched: "
           f"{counts}")
+    check(counts["grid_topk"] == 1, f"{phase}: K13 launched {counts['grid_topk']} times in a "
+                                    "keyframe (one call takes every level)")
     check(kp_valid >= cfg.feats_per_node // 2, f"{phase}: {kp_valid} valid keypoints")
     check(fields["scan_valid_bins_min"] >= 30 * n_cams,
           f"{phase}: {fields['scan_valid_bins_min']} valid scan bins")
@@ -3012,6 +3064,80 @@ def compare_keyframe_kernels(calls: dict, label: str) -> dict:
             check(ok_same and err <= ICP_POSE_ATOL, f"{name} {label}: pose {err}, same ok {ok_same}")
         rows[name] = row
     return rows
+
+
+def icp_against_plain(args, kw, label: str) -> dict:
+    """K18 on ``args`` against its plain version (pose within
+    ICP_POSE_ATOL, covariance within ICP_COV_RTOL of its largest entry, the
+    same ok flag and valid fraction) and against a second run of itself
+    (every output bit-identical); fails the run if either does not hold."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    got, again, ref = kops.icp(*args, **kw), kops.icp(*args, **kw), kops.icp_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = float((got[0] - ref[0]).abs().max())
+    cov_err = float((got[3] - ref[3]).abs().max())
+    cov_scale = float(ref[3].abs().max())
+    row = {"batch": int(args[0].shape[0]), "M": int(args[0].shape[1]),
+           "N": int(args[2].shape[1]), "valid_targets": args[3].sum(-1).tolist(),
+           "pose_max_abs_err": err, "cov_max_abs_err": cov_err, "cov_scale": cov_scale,
+           "same_ok": bool(torch.equal(got[4], ref[4])),
+           "same_fraction": bool(torch.equal(got[1], ref[1])), "ok": got[4].tolist(),
+           "rerun_bit_identical": all(bool(torch.equal(a, b)) for a, b in zip(got, again))}
+    log(f"3 kernel icp {label}", **row)
+    check(row["same_ok"] and row["same_fraction"] and err <= ICP_POSE_ATOL
+          and cov_err <= ICP_COV_RTOL * cov_scale,
+          f"icp {label}: against its plain version {row}")
+    check(row["rerun_bit_identical"], f"icp {label}: a second run gives other bits")
+    return row
+
+
+def icp_room_problem(batch: int, m: int, n: int, device, seed: int = SEED):
+    """A synthetic K18 problem at the wrapper's largest target scan: the
+    walls x = ±3, y = ±2 of a room seen from the origin (n points, 5 mm
+    noise, a tenth invalid at 0), and the same room seen from ``batch``
+    offset poses (m points each); (src, src_valid, dst, dst_valid, init)."""
+    rng = np.random.default_rng(seed)
+
+    def room(k):
+        th = np.linspace(-np.pi, np.pi, k, endpoint=False)
+        c, s_ = np.cos(th), np.sin(th)
+        t = np.minimum(3.0 / np.maximum(np.abs(c), 1e-9), 2.0 / np.maximum(np.abs(s_), 1e-9))
+        return np.stack([t * c, t * s_], -1) + 0.005 * rng.normal(size=(k, 2))
+
+    offs = rng.uniform([-0.15, -0.15, -0.08], [0.15, 0.15, 0.08], (batch, 3))
+    src = np.empty((batch, m, 2))
+    for b, (x, y, a) in enumerate(offs):
+        R = np.array([[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]])
+        src[b] = (room(m) - [x, y]) @ R
+    dst = np.broadcast_to(room(n), (batch, n, 2)).copy()
+    sv, dv = rng.random((batch, m)) > 0.1, rng.random((batch, n)) > 0.1
+    src[~sv], dst[~dv] = 0.0, 0.0
+    t = lambda a, dt=torch.float32: torch.from_numpy(np.ascontiguousarray(a)).to(device, dt)  # noqa: E731
+    return (t(src), t(sv, torch.bool), t(dst), t(dv, torch.bool),
+            torch.zeros(batch, 3, device=device))
+
+
+def compare_icp_cases(args, kw, label: str) -> dict:
+    """K18 beyond the step's own call (``args``, B = 1): the few-valid
+    target scans (none, and only the first valid target: every pair then
+    holds an invalid target at +inf, the reference's lowest-index pick), a
+    synthetic problem at N = M = 8192 at batch 1 and 4, each against its
+    plain version with a bit-identical rerun."""
+    dst_valid = args[3]
+    first = torch.zeros_like(dst_valid)
+    first[:, int(torch.nonzero(dst_valid[0])[0, 0])] = True
+    scalars = args[5:]
+    out = {"step": icp_against_plain(args, kw, f"{label} step"),
+           "no_valid_target": icp_against_plain(args[:3] + (torch.zeros_like(dst_valid),)
+                                                + args[4:], kw, f"{label} no valid target"),
+           "one_valid_target": icp_against_plain(args[:3] + (first,) + args[4:], kw,
+                                                 f"{label} one valid target")}
+    for batch in (1, 4):
+        big = icp_room_problem(batch, 8192, 8192, args[0].device) + scalars
+        out[f"n8192_b{batch}"] = icp_against_plain(big, kw, f"N = 8192, batch {batch}")
+        del big
+    return out
 
 
 def step_config(n_cams: int, device, method: str = "gist", estimation: str = "feature"):
@@ -3135,6 +3261,8 @@ def keyframe_step_phase(phase: str, world, frames, n_cams: int, device, reps: in
     log(phase, **fields)
     check(all(total[k] > 0 for k in step_kernels + kernels),
           f"{phase}: a kernel was not launched: {total}")
+    check(one["grid_topk"] == 1, f"{phase}: K13 launched {one['grid_topk']} times in a step "
+                                 "(one call takes every level)")
     check(not fields.get("library_items"), f"{phase}: library kernels in the profile: "
                                            f"{fields.get('library_items')}")
     check(sum(fields["candidates"][half:]) > 0, f"{phase}: no candidate on the return leg")
@@ -3576,11 +3704,11 @@ def reregistration_phase(phase: str, slam) -> tuple[dict, dict]:
     same = (n == int(n_cpu) and all(bool(torch.equal(getattr(g, k)[:ne + n].cpu(),
                                                      getattr(cpu.graph, k)[:ne + n]))
                                     for k in ("e_from", "e_to", "e_type", "e_valid")))
-    # K18 against its plain version on the card, on these arguments
+    # K18 against its plain version on the card, on these arguments, with a
+    # bit-identical rerun; its device ms a call at this batch
     args, kw = calls["icp"][0]
-    got, ref = kops.icp(*args, **kw), kops.icp_plain(*args, **kw)
-    kernel_err = float((got[0] - ref[0]).abs().max())
-    kernel_same_ok = bool(torch.equal(got[4], ref[4]))
+    held = icp_against_plain(args, kw, f"{phase} batch {batch}")
+    kernel_err, kernel_same_ok = held["pose_max_abs_err"], held["same_ok"]
     # the WallWorld's scans are one straight wall (normals along the base's
     # x): point-to-line ICP does not observe the translation along it, whose
     # update is rounding noise over the 1e-9 damping, so the CPU's transforms
@@ -3593,6 +3721,9 @@ def reregistration_phase(phase: str, slam) -> tuple[dict, dict]:
               "new_edges_laser": bool((g.e_type[new] == gstate.EDGE_TYPE_2D_LASER).all()),
               "new_edges_invalid": not bool(g.e_valid[new].any()),
               "icp_kernel_pose_max_abs_err": kernel_err, "icp_kernel_same_ok": kernel_same_ok,
+              "icp_kernel_rerun_bit_identical": held["rerun_bit_identical"],
+              "icp_device_ms": device_ms_of(lambda: [kops.icp(*args, **kw) for _ in range(20)],
+                                            20, "icp_cluster"),
               "cpu_plain_same_edges": same,
               "cpu_plain_pose2_max_abs_err": d2.max(0).values.tolist() if n else []}
     log(phase, **fields)
@@ -5924,7 +6055,11 @@ def main() -> int:
         cfg_kf, pose = keyframe_rig(n_cams, dev)
         calls = record_args(lambda: pipeline.keyframe_frontend(
             *frame_inputs(kf_frames[0], n_cams), kf_world.cam, pose, cfg_kf))
-        target.update(compare_frontend(calls, f"VGA {n_cams} camera{'s' if n_cams > 1 else ''}"))
+        label = f"VGA {n_cams} camera{'s' if n_cams > 1 else ''}"
+        check(len(calls["grid_topk"]) == 1 and len(calls["grid_topk"][0][0][0]) == 4,
+              f"{label}: K13 not one call on four levels")
+        target.update(compare_frontend(calls, label))
+        target["grid_topk"]["cases"] = compare_grid_topk_cases(calls["grid_topk"], label)
 
     # K19 and bin_min_max on the arguments a global-role maintenance of the
     # 500-node and 10k-node epoch states gives them (scans and descriptors
@@ -5970,8 +6105,12 @@ def main() -> int:
         "11 keyframe step VGA 1 camera", kf_world, kf_frames, 1, dev)
     step2, step2_fields, slam2, inputs2 = keyframe_step_phase(
         "11 keyframe step VGA front + rear", kf_world, kf_frames, 2, dev)
-    rows.update(compare_keyframe_kernels(record_step_args(slam1, inputs1, kf_frames),
-                                         "VGA step 1 camera"))
+    step_calls = record_step_args(slam1, inputs1, kf_frames)
+    rows.update(compare_keyframe_kernels(step_calls, "VGA step 1 camera"))
+    # K18 beyond the step's call: few valid targets, N = 8192 at batch 1 and
+    # 4, bit-identical reruns, and its two launch forms timed
+    icp_cases = compare_icp_cases(*step_calls["icp"][0], "VGA step 1 camera")
+    del step_calls
     rows_large.update(compare_keyframe_kernels(record_step_args(slam2, inputs2, kf_frames),
                                                "VGA step front + rear"))
     del slam2
@@ -6114,6 +6253,16 @@ def main() -> int:
         kernels[list(REPLACES).index(name)].update(
             device_ms_step=step1_fields["kernel_device_ms"].get(name),
             device_ms_step_large=step2_fields["kernel_device_ms"].get(name))
+    # K13's other budgets on the keyframe's four levels; K18's device ms at
+    # the re-registration's B = 4 and its held cases
+    kernels[list(REPLACES).index("grid_topk")].update(
+        cases={k: v for k, v in rows["grid_topk"]["cases"].items()
+               if k != "device_kernels_10_calls"})
+    kernels[list(REPLACES).index("icp")].update(
+        device_ms_b4=rereg_fields["icp_device_ms"],
+        cases={k: {f: v[f] for f in ("batch", "N", "pose_max_abs_err", "same_ok",
+                                     "rerun_bit_identical")}
+               for k, v in icp_cases.items()})
     # K37: its main path is phase 7's 100k solve, its main shapes that
     # solve's first PCG step, beside the three calls it replaces (K10, K3,
     # K10) in turns; the 20k solve's beside it

@@ -28,7 +28,14 @@ replaces) and profiles 100 steps on the same vectors for K34's device ms a
 step, and, in a checkout that has it, ``compare_pcg_chain_solve`` (K35).
 Above K34's cap it times a step of the route the checkout takes there (K37,
 or K10 + K3 + K10 before it) on the same vectors: CUDA events and device ms
-a step.
+a step.  The size "step" times ``Slam.add_frame`` at phase 11's cell (the
+VGA keyframe rung, 10 steps after 3 warm-up ones, 1 camera and the front +
+rear rig: entries "step_1cam", "step_2cam") and "rereg" 13d's
+``Slam.reregister_scans`` on the 1-camera Slam (its state restored before
+each call); each reports wall ms, a profiled call's device ms, device
+launches and busy share, and K18's and K13's device ms in it:
+
+    python3 scripts/torch_ab_solve.py --base build/parent --sizes step,rereg --pairs 3
 Prints one JSON line a process, then per size each side's medians and how
 many pairs the change won.
 """
@@ -111,8 +118,89 @@ def factor_times(args):
     return out
 
 
+def step_kernel_ms(names):
+    """K18's and K13's device ms in a profile (either checkout's function
+    names)."""
+    return {"k18_device_ms": sum(v for k, v in names.items()
+                                 if "icp_problems" in k or "icp_cluster" in k),
+            "k13_device_ms": sum(v for k, v in names.items()
+                                 if any(f in k for f in ("cell_topk", "global_topk", "grid_cells",
+                                                         "grid_global")))}
+
+
+def step_entries(do_step, do_rereg, reps):
+    """The keyframe step (phase 11's cell: ``Slam.add_frame`` on the
+    rung's 13 VGA frames, 3 warm-up steps, 10 timed; 1 camera and the rig)
+    and the re-registration (13d's call on the 1-camera Slam, its state
+    restored before each call): wall ms, a profile of one more call (device
+    ms, launches, busy share) and K18's and K13's device ms in it."""
+    from uzliti_slam_tpu_torch import pipeline
+    world, frames = cs.keyframe_world()
+    warm = cs.KEYFRAME_VGA["warmup"]
+    res, slam1 = {}, None
+    for n_cams in (1, 2) if do_step else (1,):
+        cfg, pose = cs.step_config(n_cams, dev)
+        inputs = [cs.frame_inputs(fr, n_cams) for fr in frames]
+        slam = pipeline.Slam(cfg, cam=world.cam, cam_pose=pose, device=dev)
+        slam.optimize_every = 10**9
+        for i in range(warm):
+            slam.add_frame(*inputs[i], frames[i]["odom_pose"], frames[i]["stamp"])
+        torch.cuda.synchronize()
+        kops.reset_launches()
+        ts = []
+        for i in range(warm, len(frames)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            slam.add_frame(*inputs[i], frames[i]["odom_pose"], frames[i]["stamp"])
+            torch.cuda.synchronize()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        launches = {k: v / len(ts) for k, v in kops.launches.items() if v}
+        last = len(frames) - 1
+        prof, names = cs.device_profile(lambda: pipeline.process_keyframe(
+            slam.state, *inputs[last], frames[last]["odom_pose"], frames[last]["stamp"],
+            slam.cam, slam.cam_pose, slam.config))
+        if do_step:
+            res[f"step_{n_cams}cam"] = {
+                "ms_median": statistics.median(ts), "ms": ts, "port_launches": launches,
+                **{k: prof.get(k) for k in ("device_launches", "device_kernel_ms",
+                                            "device_busy_share")}, **step_kernel_ms(names)}
+        if n_cams == 1:
+            slam1 = slam
+    if do_rereg:
+        before = slam1.state
+
+        def rereg():
+            slam1.state = before
+            return slam1.reregister_scans()
+
+        rereg()
+        torch.cuda.synchronize()
+        kops.reset_launches()
+        rereg()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kops.launches.items() if v}
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rereg()
+            torch.cuda.synchronize()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        prof, names = cs.device_profile(rereg)
+        res["rereg"] = {"ms_median": statistics.median(ts), "ms": ts, "port_launches": launches,
+                        **{k: prof.get(k) for k in ("device_launches", "device_kernel_ms",
+                                                    "device_busy_share")},
+                        **step_kernel_ms(names)}
+    return res
+
+
 out, lifted = {}, False
-for size in sys.argv[2].split(","):
+sizes = sys.argv[2].split(",")
+if "step" in sizes or "rereg" in sizes:
+    out.update(step_entries("step" in sizes, "rereg" in sizes, int(sys.argv[3])))
+for size in sizes:
+    if size in ("step", "rereg"):
+        continue
     if size.startswith("epoch"):
         if not lifted:
             cs.lift_sync_check_for_restart_read()
@@ -192,7 +280,8 @@ def main() -> int:
     ap.add_argument("--base", required=True, type=Path, help="the other checkout")
     ap.add_argument("--pairs", type=int, default=5)
     ap.add_argument("--sizes", default="1000,10000",
-                    help="node counts, 'fleet', 'epoch500', 'epoch10k'")
+                    help="node counts, 'fleet', 'epoch500', 'epoch10k', 'step' (the VGA "
+                         "keyframe step, 1 camera and the rig), 'rereg' (its re-registration)")
     ap.add_argument("--reps", type=int, default=15, help="timed solves a size and process")
     args = ap.parse_args()
     sides = {"base": args.base.resolve(), "change": Path(__file__).resolve().parents[1]}
@@ -211,9 +300,13 @@ def main() -> int:
             medians[side][-1].update({f"{n}:{k}": r[k] for n, r in res.items()
                                       for k in ("k9_ms", "k9_device_ms", "k9_levels_device_ms",
                                                 "k9_root_device_ms", "device_kernel_ms",
-                                                "device_launches") if k in r})
+                                                "device_launches", "k18_device_ms",
+                                                "k13_device_ms") if k in r})
             print(json.dumps({"pair": i, "side": side, **res}), flush=True)
-    for n in args.sizes.split(","):
+    names = [n for n in args.sizes.split(",") if n not in ("step", "rereg")]
+    names += ["step_1cam", "step_2cam"] if "step" in args.sizes.split(",") else []
+    names += ["rereg"] if "rereg" in args.sizes.split(",") else []
+    for n in names:
         base = [m[n] for m in medians["base"]]
         change = [m[n] for m in medians["change"]]
         wins = sum(c < b for b, c in zip(base, change))
@@ -226,7 +319,8 @@ def main() -> int:
         k34.update({f"{side}_{k}": [m[f"{n}:{k}"] for m in medians[side]]
                     for side in sides for k in ("k9_ms", "k9_device_ms", "k9_levels_device_ms",
                                                 "k9_root_device_ms", "device_kernel_ms",
-                                                "device_launches")
+                                                "device_launches", "k18_device_ms",
+                                                "k13_device_ms")
                     if f"{n}:{k}" in medians[side][0]})
         print(json.dumps({"size": n, "base_medians_ms": base, "change_medians_ms": change,
                           "base_median_ms": statistics.median(base),

@@ -92,6 +92,69 @@ def test_select_topk_grid_exact_with_ties(k_total):
     assert torch.equal(one[0], uv_t[0])
 
 
+def _plateau_levels():
+    """Four pyramid levels of (2, H, W) scores on plateaus: integers 0-2 in
+    3x3 blocks, cell (0, 0) of every level one flat value, and camera 1's
+    level 2 all zero."""
+    rng = np.random.default_rng(4)
+    out = []
+    for h, w in ((48, 64), (40, 53), (33, 44), (28, 37)):
+        s = rng.integers(0, 3, (2, h // 3 + 1, w // 3 + 1)).astype(np.float32)
+        s = s.repeat(3, 1).repeat(3, 2)[:, :h, :w].copy()
+        s[:, : h // 4, : w // 4] = 2.0
+        out.append(s)
+    out[2][1] = 0.0
+    return out
+
+
+@pytest.mark.parametrize("k_total", [16, 64, 8, 70],
+                         ids=["one_per_cell_plateau", "four_per_cell", "global_branch", "padding"])
+def test_grid_topk_levels_plain_matches_jax(k_total):
+    """K13's plain twin, level by level and in its all-levels form, against
+    JAX's ``select_topk_grid`` on each camera of each level; with one
+    keypoint a cell, a flat cell gives its last row-major pixel."""
+    levels = _plateau_levels()
+    fn = jax.jit(lambda x: JF.select_topk_grid(x, k_total, 4))
+    together = kops.grid_topk_plain([torch.from_numpy(s) for s in levels], k_total, 4)
+    assert [tuple(t.shape[:3]) for t in together] == [(4, 2, k_total)] * 3
+    for lvl, s in enumerate(levels):
+        got = [t[lvl] for t in together]
+        alone = kops.grid_topk_level_plain(torch.from_numpy(s), k_total, 4)
+        for a, b in zip(got, alone):
+            assert torch.equal(a, b)
+        for c in range(2):
+            for a, b in zip(got, fn(s[c])):
+                np.testing.assert_array_equal(a[c].numpy(), np.asarray(b))
+        if k_total == 16:
+            h, w = s.shape[1] // 4, s.shape[2] // 4
+            np.testing.assert_array_equal(got[0][0, 0].numpy(), [w - 1, h - 1])
+
+
+def test_detect_and_describe_levels_in_one_grid_call(frame, fast_jit):
+    """The keypoints and descriptors of ``detect_and_describe`` (every
+    level's K12, then one K13 call, then the descriptors) equal the
+    level-at-a-time composition, bit for bit, on one camera and on a rig of
+    two; its keypoints equal JAX's and its level-0 descriptors too."""
+    imgs = np.stack([frame, frame[:, ::-1].copy()])
+    kt, dt = TF.detect_and_describe(torch.from_numpy(imgs), max_keypoints=256)
+    x = torch.from_numpy(imgs).to(torch.float32)
+    uv, resp, desc = [], [], []
+    for scale, (h, w) in TF.pyramid_shapes(120, 160, 4, 1.2):
+        cur = x if (h, w) == (120, 160) else TR.resize_linear(x, (h, w)).contiguous()
+        u, r, _ = TF.select_topk_grid(kops.fast_nms(cur, 20.0), 64, 4)
+        uv.append(u * scale)
+        resp.append(r)
+        desc.append(kops.orb_describe(cur, u, TF.pattern("brief", "cpu"))[1])
+    assert torch.equal(kt.uv, torch.cat(uv, 1)) and torch.equal(kt.response, torch.cat(resp, 1))
+    assert torch.equal(dt, torch.cat(desc, 1))
+    k1, d1 = TF.detect_and_describe(torch.from_numpy(frame), max_keypoints=256)
+    assert torch.equal(k1.uv, kt.uv[0]) and torch.equal(d1, dt[0])
+    kj, dj = jax.jit(lambda im: JF.detect_and_describe(im, max_keypoints=256))(frame)
+    np.testing.assert_array_equal(k1.uv.numpy(), np.asarray(kj.uv))
+    np.testing.assert_array_equal(k1.valid.numpy(), np.asarray(kj.valid))
+    np.testing.assert_array_equal(d1[:64].numpy(), np.asarray(dj)[:64])
+
+
 @pytest.mark.parametrize("shape", [(400, 533), (333, 444), (278, 370), (63, 63)])
 def test_resize_matches_jax(shape):
     img, _ = tsim.WallWorld(img_h=480, img_w=640, f=525.0, tex_size=1024).render(0.7, 1.3)

@@ -379,12 +379,19 @@ def test_frontend_kernels_launch_through_the_library(fake_lib):
 
     assert tuple(kops.fast_nms(_meta(2, 48, 64), 20.0).shape) == (2, 48, 64)
     assert fake_lib.calls[-1][0] == "uz_fast_nms" and fake_lib.calls[-1][1][1:5] == (2, 48, 64, 20.0)
-    # 16 cells x 4 = k_total: no scratch; 16 cells x 1 > 8: the global top-k's scratch
+    # 16 cells x 4 = k_total: no scratch; 16 cells x 1 > 8: the global top-k's scratch;
+    # (levels, C, grid, k_cell, k_total, scratch) after the host table of levels
     uv, resp, valid = kops.grid_topk(_meta(2, 48, 64), 64, 4)
-    assert fake_lib.calls[-1][1][4:8] == (4, 4, 64, None)
+    assert fake_lib.calls[-1][0] == "uz_grid_topk"
+    assert fake_lib.calls[-1][1][1:7] == (1, 2, 4, 4, 64, None)
     assert tuple(uv.shape) == (2, 64, 2) and valid.dtype == torch.bool
     kops.grid_topk(_meta(2, 48, 64), 8, 4)
-    assert fake_lib.calls[-1][1][4:7] == (4, 1, 8) and fake_lib.calls[-1][1][7] is not None
+    assert fake_lib.calls[-1][1][1:6] == (1, 2, 4, 1, 8) and fake_lib.calls[-1][1][6] is not None
+    # every pyramid level in one call: one launch, the outputs stacked by level
+    uv, resp, valid = kops.grid_topk([_meta(2, 48, 64), _meta(2, 40, 53), _meta(2, 33, 44)], 64, 4)
+    assert fake_lib.calls[-1][1][1:7] == (3, 2, 4, 4, 64, None)
+    assert tuple(uv.shape) == (3, 2, 64, 2) and tuple(valid.shape) == (3, 2, 64)
+    assert all(lv.is_contiguous() for lv in uv)
     ang, desc = kops.orb_describe(_meta(2, 48, 64), _meta(2, 16, 2), _meta(256, 2, 2))
     assert fake_lib.calls[-1][0] == "uz_orb_describe" and fake_lib.calls[-1][1][3:8] == (
         2, 48, 64, 16, 0)
@@ -400,7 +407,7 @@ def test_frontend_kernels_launch_through_the_library(fake_lib):
     assert fake_lib.calls[-1][0] == "uz_scan_bins" and args[2:5] == (2, 48, 64)
     assert args[9] == 360 and args[12] == pytest.approx(360 / (2 * np.pi), rel=1e-6)
     assert args[17] == pytest.approx((2**21 - 1) / 6.006, rel=1e-6)
-    assert kops.launches["fast_nms"] == 1 and kops.launches["grid_topk"] == 2
+    assert kops.launches["fast_nms"] == 1 and kops.launches["grid_topk"] == 3
     assert kops.launches["orb_describe"] == 2 and kops.launches["scan_bins"] == 1
 
 
@@ -413,6 +420,12 @@ def test_frontend_kernel_argument_checks_raise(fake_lib):
         kops.fast_nms(_meta(1, 48, 64, dtype=torch.float64), 20.0)
     with pytest.raises(ValueError, match="per cell"):
         kops.grid_topk(_meta(1, 8, 8), 128, 4)
+    with pytest.raises(ValueError, match="per cell"):
+        kops.grid_topk([_meta(1, 48, 64), _meta(1, 8, 8)], 128, 4)
+    with pytest.raises(ValueError, match="score: shape"):
+        kops.grid_topk([_meta(1, 48, 64), _meta(2, 40, 53)], 64, 4)
+    with pytest.raises(ValueError, match="1..8"):
+        kops.grid_topk([_meta(1, 48, 64)] * 9, 64, 4)
     with pytest.raises(ValueError, match="pattern: shape"):
         kops.orb_describe(_meta(1, 48, 64), _meta(1, 4, 2), _meta(128, 2, 2))
     with pytest.raises(ValueError, match="angles: shape"):
@@ -513,9 +526,13 @@ def test_keyframe_kernels_launch_through_the_library(fake_lib):
     assert fake_lib.calls[-1][0] == "uz_icp" and args[5:9] == (1, 360, 360, 20)
     assert args[9:14] == pytest.approx((0.25, 0.25, 1.5, 0.8, 0.0004))
     assert tuple(cov.shape) == (1, 3, 3) and iok.dtype == b
+    # the re-registration's batch: one launch for the four problems
+    kops.icp(_meta(4, 360, 2), _meta(4, 360, dtype=b), _meta(4, 360, 2), _meta(4, 360, dtype=b),
+             _meta(4, 3), 20, 0.25, 0.25, 1.5, 0.8, 0.0004)
+    assert fake_lib.calls[-1][1][5:9] == (4, 360, 360, 20) and len(fake_lib.calls[-1][1]) == 20
     # the matching and the GIST query are one kernel, one count
     assert kops.launches["hamming_top2"] == 2
-    assert kops.launches["bilateral"] == 1 and kops.launches["icp"] == 1
+    assert kops.launches["bilateral"] == 1 and kops.launches["icp"] == 2
 
 
 def test_keyframe_kernel_argument_checks_raise(fake_lib):

@@ -64,7 +64,7 @@ SIGNATURES = {
     "uz_project_rays": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _F,
                         _F, _I, _F, _P, _P],
     "uz_fast_nms": [_P, _I, _I, _I, _F, _P, _P],
-    "uz_grid_topk": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "uz_grid_topk": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "uz_orb_describe": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "uz_scan_bins": [_P, _P, _I, _I, _I, _F, _F, _F, _F, _I, _F, _F, _F, _F, _F, _F, _F, _F,
                      _F, _P, _P, _P],

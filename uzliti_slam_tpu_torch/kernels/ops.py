@@ -211,6 +211,10 @@ def _raise_on(err: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError_t {err}: an "
                            f"{PCG_CHAIN_CLUSTER}-CTA cluster with {_SMEM_BYTES} bytes of "
                            "shared memory a CTA does not fit on the device")
+    if err == _OUT_OF_RESOURCES and kernel == "icp":
+        raise RuntimeError(f"icp: CUDA launch failed with cudaError_t {err}: a 16-CTA cluster "
+                           f"with {ICP_MAX_POINTS} target points' shared memory a CTA does not "
+                           "fit on the device")
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError_t {err}")
 
@@ -1885,13 +1889,14 @@ def _grid_shapes(H: int, W: int, k_total: int, grid: int) -> tuple[int, int, int
     return H // grid, W // grid, k_cell, grid * grid * k_cell
 
 
-def grid_topk_plain(score, k_total: int, grid: int):
-    """Plain version of K13 on (C, H, W) scores: (uv (C, k_total, 2), resp
-    (C, k_total), valid (C, k_total)).  A stable descending sort, so ties
-    go to the lower index (row-major in the cell, then cell order), as
-    XLA's top_k and approx_max_k do on the CPU; ``torch.topk`` does not
-    promise that order.  With one keypoint per cell the tie goes to the
-    higher index, as XLA's k = 1 form (a max reduction) does."""
+def grid_topk_level_plain(score, k_total: int, grid: int):
+    """Plain version of K13 on one level's (C, H, W) scores: (uv (C,
+    k_total, 2), resp (C, k_total), valid (C, k_total)).  A stable
+    descending sort, so ties go to the lower index (row-major in the cell,
+    then cell order), as XLA's top_k and approx_max_k do on the CPU;
+    ``torch.topk`` does not promise that order.  With one keypoint per cell
+    the tie goes to the higher index, as XLA's k = 1 form (a max reduction)
+    does."""
     C, H, W = score.shape
     gh, gw, k_cell, n = _grid_shapes(H, W, k_total, grid)
     dev = score.device
@@ -1925,27 +1930,55 @@ def grid_topk_plain(score, k_total: int, grid: int):
     return uv, resp, valid
 
 
-def grid_topk(score, k_total: int, grid: int):
-    """K13: the exact top-k of each (camera, cell), one CTA per cell, ties
-    to the lower index; when the cells give more than ``k_total``, a second
-    launch (one CTA per camera) keeps the global top ``k_total``; when
-    fewer, the zero-initialised outputs are the padding."""
-    if score.device.type == "cpu":
-        return grid_topk_plain(score, k_total, grid)
-    dev = score.device
-    C, H, W = _images("score", score)
-    ptr = _check("score", score, (C, H, W), torch.float32, dev)
-    gh, gw, k_cell, n = _grid_shapes(H, W, k_total, grid)
-    if gh * gw == 0 or k_cell > gh * gw:
-        raise ValueError(f"grid_topk: {k_cell} per cell of {gh}x{gw} pixels")
+def grid_topk_plain(scores, k_total: int, grid: int):
+    """Plain version of K13: ``grid_topk_level_plain`` of one level's (C,
+    H, W) scores, or of each level of a list, stacked: (uv (levels, C,
+    k_total, 2), resp (levels, C, k_total), valid (levels, C, k_total))."""
+    if isinstance(scores, torch.Tensor):
+        return grid_topk_level_plain(scores, k_total, grid)
+    levels = [grid_topk_level_plain(s, k_total, grid) for s in scores]
+    return tuple(torch.stack(t) for t in zip(*levels))
+
+
+GRID_TOPK_MAX_LEVELS = 8    # kMaxLevels in csrc/grid_topk.cu
+
+
+def grid_topk(scores, k_total: int, grid: int):
+    """K13: the exact top-k of each (level, camera, cell) for every level of
+    ``scores`` (a list of (C, H, W) tensors, the cameras alike; or one
+    level's tensor) in one launch, one CTA per cell, ties to the lower index
+    (the last for one keypoint a cell); when the cells give more than
+    ``k_total``, a second launch (one CTA per camera and level) keeps the
+    global top ``k_total``; when fewer, the kernel writes the padding.
+    Returns (uv (levels, C, k_total, 2), resp (levels, C, k_total), valid
+    (levels, C, k_total)); for one level's tensor, without the level
+    dimension."""
+    if isinstance(scores, torch.Tensor):
+        return tuple(t[0] for t in grid_topk([scores], k_total, grid))
+    if scores[0].device.type == "cpu":
+        return grid_topk_plain(scores, k_total, grid)
+    L = len(scores)
+    if not 1 <= L <= GRID_TOPK_MAX_LEVELS:
+        raise ValueError(f"grid_topk: {L} levels, the kernel takes 1..{GRID_TOPK_MAX_LEVELS}")
+    dev = scores[0].device
+    C = _images("score", scores[0])[0]
+    table = []
+    for score in scores:
+        H, W = score.shape[-2:]
+        table += [_check("score", score, (C, H, W), torch.float32, dev), H, W]
+        gh, gw, k_cell, n = _grid_shapes(H, W, k_total, grid)
+        if gh * gw == 0 or k_cell > gh * gw:
+            raise ValueError(f"grid_topk: {k_cell} per cell of {gh}x{gw} pixels")
     lib = _build.load()
-    uv = torch.zeros(C, k_total, 2, dtype=torch.float32, device=dev)
-    resp = torch.zeros(C, k_total, dtype=torch.float32, device=dev)
-    valid = torch.zeros(C, k_total, dtype=torch.bool, device=dev)
+    uv = torch.empty(L, C, k_total, 2, dtype=torch.float32, device=dev)
+    resp = torch.empty(L, C, k_total, dtype=torch.float32, device=dev)
+    valid = torch.empty(L, C, k_total, dtype=torch.bool, device=dev)
     # the cells' candidates go to scratch when a global top-k follows
-    scratch = torch.empty(C, n, 3, dtype=torch.float32, device=dev) if n > k_total else None
-    err = lib.uz_grid_topk(ptr, C, H, W, grid, k_cell, k_total, _ptr(scratch), uv.data_ptr(),
-                           resp.data_ptr(), valid.data_ptr(), _stream(dev))
+    scratch = (torch.empty(L, C, n, 3, dtype=torch.float32, device=dev) if n > k_total
+               else None)
+    host = (ctypes.c_longlong * len(table))(*table)
+    err = lib.uz_grid_topk(ctypes.addressof(host), L, C, grid, k_cell, k_total, _ptr(scratch),
+                           uv.data_ptr(), resp.data_ptr(), valid.data_ptr(), _stream(dev))
     _raise_on(err, "grid_topk")
     launches["grid_topk"] += 1
     return uv, resp, valid
@@ -2410,7 +2443,7 @@ def bilateral(depth, guide):
 # K18 icp (point-to-line ICP, all iterations in one launch)
 # ---------------------------------------------------------------------------
 
-ICP_MAX_POINTS = 8192   # target points one CTA's shared memory holds with the reductions
+ICP_MAX_POINTS = 8192   # target points a CTA's shared memory holds (21 bytes each)
 
 
 def lu_solve_plain(A, b):
@@ -2501,8 +2534,10 @@ def icp_plain(src, src_valid, dst, dst_valid, init, iterations: int, max_corr2: 
 
 def icp(src, src_valid, dst, dst_valid, init, iterations: int, max_corr2: float,
         min_fraction: float, max_t: float, max_r: float, sigma2: float):
-    """K18: one CTA per problem, the target scan in shared memory, every
-    iteration, the audit, the covariance and the gates in one launch."""
+    """K18: every iteration, the audit, the covariance and the gates of a
+    batch of problems in one launch, a thread-block cluster of 16 CTAs a
+    problem (the search split over the cluster's warps, the sums reduced
+    through distributed shared memory)."""
     if src.device.type == "cpu":
         return icp_plain(src, src_valid, dst, dst_valid, init, iterations, max_corr2,
                          min_fraction, max_t, max_r, sigma2)

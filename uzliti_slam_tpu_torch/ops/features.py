@@ -10,8 +10,9 @@ with validity masks.
 
 Every image function takes a camera batch: (C, H, W), or (H, W) for one
 camera.  ``detect_and_describe``, ``select_topk_grid`` and ``binary_gist``
-run the hand-written kernels K12 (``fast_nms``), K13 (``grid_topk``) and
-K14 (``orb_describe``) through ``kernels/ops.py``: on CPU tensors those
+run the hand-written kernels K12 (``fast_nms``), K13 (``grid_topk``: all
+pyramid levels in one launch) and K14 (``orb_describe``) through
+``kernels/ops.py``: on CPU tensors those
 wrappers run their plain versions, which are built from ``fast_score``,
 ``nms``, ``_sep_blur``, ``intensity_centroid_angles`` and
 ``brief_descriptors`` here.  The "sift" family takes K12 and K13, then
@@ -105,11 +106,11 @@ def nms(score: torch.Tensor, radius: int = 1) -> torch.Tensor:
 
 
 def select_topk_grid(score: torch.Tensor, k_total: int, grid: int = 4):
-    """Grid-adapted top-K of (C, H, W) or (H, W) scores (kernel K13): the
-    exact top ⌊k_total / grid²⌋ (at least 1) of each cell of a grid × grid
-    split, ties to the lower row-major index in the cell, then the global
-    top ``k_total`` if that is more, or zero padding if fewer.  Returns
-    (uv (..., K, 2) float32, response (..., K), valid (..., K))."""
+    """Grid-adapted top-K of (C, H, W) or (H, W) scores (kernel K13, one
+    level): the exact top ⌊k_total / grid²⌋ (at least 1) of each cell of a
+    grid × grid split, ties to the lower row-major index in the cell, then
+    the global top ``k_total`` if that is more, or zero padding if fewer.
+    Returns (uv (..., K, 2) float32, response (..., K), valid (..., K))."""
     uv, resp, valid = kops.grid_topk(_batched(score).contiguous(), k_total, grid)
     if score.dim() == 2:
         return uv[0], resp[0], valid[0]
@@ -318,14 +319,19 @@ def detect_and_describe(img: torch.Tensor, max_keypoints: int = 300, threshold: 
         def describe(cur, uv):
             return kops.orb_describe(cur, uv, pat)
     k_level = max(max_keypoints // n_levels, 1)
+    # every level's resize and K12 first, then K13 once for all levels, then
+    # the descriptors level by level (the keypoints stay level-major)
+    shapes = pyramid_shapes(H, W, n_levels, scale_factor)
+    curs = [imgs if (h, w) == (H, W) else resize.resize_linear(imgs, (h, w)).contiguous()
+            for _, (h, w) in shapes]
+    uvs, resp, valid = kops.grid_topk([kops.fast_nms(cur, threshold) for cur in curs], k_level,
+                                      grid)                      # (levels, C, k_level, ...)
     outs = []
-    for scale, (h, w) in pyramid_shapes(H, W, n_levels, scale_factor):
-        cur = imgs if (h, w) == (H, W) else resize.resize_linear(imgs, (h, w)).contiguous()
-        score = kops.fast_nms(cur, threshold)
-        uv, resp, valid = kops.grid_topk(score, k_level, grid)
+    for (scale, _), cur, uv in zip(shapes, curs, uvs):
         ang, desc = describe(cur, uv)
-        outs.append((uv * scale, resp, ang, torch.full_like(resp, scale), valid, desc))
-    uv, resp, ang, scl, valid, desc = (torch.cat([o[i] for o in outs], dim=1) for i in range(6))
+        outs.append((uv * scale, ang, torch.full_like(ang, scale), desc))
+    uv, ang, scl, desc = (torch.cat([o[i] for o in outs], dim=1) for i in range(4))
+    resp, valid = (t.transpose(0, 1).reshape(C, -1) for t in (resp, valid))
     short = max_keypoints - desc.shape[1]
     if short > 0:
         def pad(t, value):
