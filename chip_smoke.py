@@ -43,17 +43,22 @@ runs, in order, each phase printing lines of its own:
    solve's inputs, and K11 project_rays on a 500-node full rebuild, an
    8-new-node incremental pass and a 10k-node full rebuild, and the
    front-end's kernels (K12 fast_nms on all four pyramid levels, K13
-   grid_topk's one call for all four, K14 orb_describe on every level and
-   the GIST, K15 scan_bins) on the arguments one VGA keyframe gives them,
-   with one camera and with the front + rear rig (K13 also at four other
-   budgets: one keypoint a cell, the global branch, padding and passes of
-   8, each with a bit-identical rerun, and ten profiled calls holding K13's
-   kernel alone, no fill), and the keyframe step's kernels (K16
+   grid_topk's one call for all four, K14 orb_describe's one call for every
+   level and the GIST, held row by row, K15 scan_bins) on the arguments one
+   VGA keyframe gives them, with one camera and with the front + rear rig
+   (K13 also at four other budgets: one keypoint a cell, the global branch,
+   padding and passes of 8, each with a bit-identical rerun, and ten
+   profiled calls holding K13's kernel alone, no fill; K14 also on a
+   synthetic frame pair with keypoints on every corner and edge and off
+   the frame, each pattern and the GIST row, with a bit-identical rerun),
+   and the keyframe step's kernels (K16
    hamming_top2, both entry points, K17 bilateral, K18 icp) on the
-   arguments a late VGA keyframe step of phase 11 gives them (K18 also with
-   no valid target and one, on a synthetic N = M = 8192 problem at batch 1
-   and 4, each with a bit-identical rerun, and its cluster and one-CTA
-   launch forms timed): error against a stated tolerance, the median time
+   arguments a late VGA keyframe step of phase 11 gives them (K16 also on
+   tie-heavy synthetic cases: equal descriptors, masked rows, one valid
+   stored descriptor, and GIST banks of 300 to 100k entries at k from 1 to
+   N, each with a bit-identical rerun; K18 also with no valid target and
+   one, on a synthetic N = M = 8192 problem at batch 1 and 4, each with a
+   bit-identical rerun): error against a stated tolerance, the median time
    of both, and the least time the card could take for the work this data
    needs;
 4. the 1k-node headline solve (20 LM x 12 PCG, chain factor refreshed every
@@ -139,8 +144,10 @@ runs, in order, each phase printing lines of its own:
    round) and at the large shapes (10k nodes, D = 320k, 100k descriptors):
    K21-K23 exactly, K24's scores within 1e-6; (b) each recognizer's
    kernels per query on banks of 1k, 10k and 50k nodes, with the bank's
-   bytes; (d) tests/test_pr_methods.py's 30-frame 96x128 run per method on
-   the card: at least 3 proposed edges each;
+   bytes, and the default GIST query (K16's ``gist_topk``) at 1k, 10k, 50k
+   and 100k nodes with its device ms, held against its plain version; (d)
+   tests/test_pr_methods.py's 30-frame 96x128 run per method on the card:
+   at least 3 proposed edges each;
 15. the other registration estimators: (b) the keyframe step of phase 11
    with ``estimation.method`` "pnp" (K16 on camera 0's keypoints, K28) and
    "gicp" (K25-K27), and "gicp" on the front + rear rig: ms per step,
@@ -398,6 +405,9 @@ ATOMIC_K1_SOURCE = "scripts/linearize_atomic.cu"
 EPOCH_KERNELS = ("relax_min", "cluster_labels", "ransac_rigid", "components")
 MAP_KERNELS = ("project_rays",)
 FRONTEND_KERNELS = ("fast_nms", "grid_topk", "orb_describe", "scan_bins")
+# each front-end kernel's wrapper (K14's takes every row of a keyframe)
+FRONTEND_WRAPPERS = {"fast_nms": "fast_nms", "grid_topk": "grid_topk",
+                     "orb_describe": "orb_describe_levels", "scan_bins": "scan_bins"}
 # the keyframe step's own kernels; K16 has two wrappers (matching, GIST query)
 KEYFRAME_KERNELS = ("hamming_top2", "bilateral", "icp")
 KEYFRAME_WRAPPERS = {"hamming_top2": ("hamming_top2", "gist_topk"), "bilateral": ("bilateral",),
@@ -410,9 +420,9 @@ MAINT_KERNELS = ("merge_pairs", "calib_gn", "bin_min_max")
 # with its arguments: K14 and K29 share describe.cuh's blur at radius 2 and 1)
 FRONTEND_DEVICE_FUNCTIONS = {"fast_nms": ("fast_nms_tile",),
                              "grid_topk": ("grid_cells", "grid_global"),
-                             "orb_describe": ("box_blur<2>", "describe"),
+                             "orb_describe": ("orb_describe_rows",),
                              "scan_bins": ("init_table", "scan_pixels", "finalize"),
-                             "hamming_top2": ("match_top2", "gist_rounds"),
+                             "hamming_top2": ("match_top2_lanes", "gist_topk_cluster"),
                              "bilateral": ("bilateral_tile",), "icp": ("icp_cluster",),
                              "ransac_rigid": ("ransac_roots",),
                              "merge_pairs": ("row_keys", "greedy_rounds"),
@@ -747,9 +757,8 @@ def timed_solves(optimize, g, cfg, reps: int):
     return statistics.median(times), out
 
 
-# longer names first: a mangled name takes the first entry it contains (and
-# an anonymous namespace's mangled name holds its file's name: K29's
-# sift_describe.cu must come before K14's "describe")
+# longer names first: a mangled name takes the first entry it contains (an
+# anonymous namespace's mangled name holds its file's name)
 DEVICE_FUNCTIONS = ("sift_keypoints", "linearize_rows", "hvp_seed",
                     "hvp_edges", "pcg_chain_kernel", "pcg_solve_kernel", "pcg_grid_kernel",
                     "chain_forward",
@@ -762,8 +771,9 @@ DEVICE_FUNCTIONS = ("sift_keypoints", "linearize_rows", "hvp_seed",
                     "gauge_cta", "k_init_labels", "k_scatter_min", "k_jump_out", "k_jump",
                     "k_gauge_init", "k_gauge_reduce_stamp", "k_gauge_reduce_slot",
                     "k_gauge_write", "fast_nms_tile", "grid_global", "grid_cells", "box_blur",
-                    "describe", "scan_pixels", "init_table", "finalize", "match_top2",
-                    "gist_rounds", "bilateral_tile", "icp_cluster", "row_keys",
+                    "orb_describe_rows", "scan_pixels", "init_table", "finalize",
+                    "match_top2_lanes", "gist_topk_cluster", "bilateral_tile", "icp_cluster",
+                    "row_keys",
                     "greedy_rounds", "init_theta", "calib_edges", "calib_solve", "bin_rows",
                     "voxel_sort_chunks", "voxel_merge", "voxel_accumulate", "voxel_finish",
                     "knn_normals_kernel", "gicp_problems", "pnp_hypotheses_kernel",
@@ -828,7 +838,7 @@ def kernel_device_ms(device_ms: dict, kernels) -> dict:
     """Each kernel's device ms in one profile: the sum over the profiled
     kernels named as one of its device functions, a plain name matching
     with any template arguments (``f<...>(``) and a templated one exactly
-    (K14's ``box_blur<2>``, K29's ``box_blur<1>``).  Every match is recorded
+    (K29's ``box_blur<1>``).  Every match is recorded
     for the run's closing check (``unmatched_device_functions``)."""
     out = {}
     PROFILED_KERNELS.update(kernels)
@@ -874,12 +884,68 @@ def time_call(fn, trials: int = 21, calls: int = 10) -> float:
     return statistics.median(out)
 
 
+def queued_device_ms(fn, calls: int = 20) -> float:
+    """Device ms a call of ``fn`` with the host ahead of the card: a sleep
+    kernel of ~10 ms first, so that the calls queue behind it and run back
+    to back; CUDA events around the calls.  For a call whose host path is
+    longer than its kernels, where event-timed calls measure the host (and
+    where a profile may hold no device time)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
 # ---------------------------------------------------------------------------
 # Bounds: the least time the card could take for a kernel's work
 # ---------------------------------------------------------------------------
 
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def describe_read_pixels(img, uv, pattern, angles) -> int:
+    """The pixels of ``img`` (C, H, W) that K14's function reads for one row
+    of keypoints ``uv``, each counted once: the 5x5 neighbourhood of every
+    rotated, rounded and clipped sample (by the plain version's angles where
+    the row has none given; the blur's zero padding outside the image is no
+    read) and, where the angles are computed, the 15x15 disc of the
+    intensity centroid."""
+    from uzliti_slam_tpu_torch.ops import features
+
+    C, H, W = img.shape
+    dev = img.device
+    seen = torch.zeros(C, H * W, dtype=torch.bool, device=dev)
+
+    def mark(ys, xs):
+        ys, xs = ys.reshape(C, -1), xs.reshape(C, -1)
+        keep = (ys >= 0) & (ys < H) & (xs >= 0) & (xs < W)
+        cam = torch.arange(C, device=dev)[:, None].expand_as(ys)
+        seen[cam[keep], (ys * W + xs)[keep]] = True
+
+    if angles is None:
+        angles = features.intensity_centroid_angles(img, uv)
+        r = 7
+        d = torch.arange(-r, r + 1, device=dev)
+        dy, dx = torch.meshgrid(d, d, indexing="ij")
+        disc = dx * dx + dy * dy <= r * r
+        y0 = torch.clamp(uv[..., 1].to(torch.int32) - r, 0, H - 2 * r - 1).long()
+        x0 = torch.clamp(uv[..., 0].to(torch.int32) - r, 0, W - 2 * r - 1).long()
+        mark(y0[..., None] + dy[disc] + r, x0[..., None] + dx[disc] + r)
+    ca, sa = torch.cos(angles)[..., None, None], torch.sin(angles)[..., None, None]
+    px, py = pattern[..., 0], pattern[..., 1]
+    xi = torch.clamp(torch.round(uv[..., 0, None, None] + (ca * px - sa * py)), 0, W - 1).long()
+    yi = torch.clamp(torch.round(uv[..., 1, None, None] + (sa * px + ca * py)), 0, H - 1).long()
+    o = torch.arange(-2, 3, device=dev)
+    mark((yi[..., None, None] + o[:, None]).expand(*yi.shape, 5, 5),
+         (xi[..., None, None] + o[None, :]).expand(*xi.shape, 5, 5))
+    return int(seen.sum())
 
 
 def kernel_work(name: str, args) -> tuple[int, int]:
@@ -1030,15 +1096,22 @@ def kernel_work(name: str, args) -> tuple[int, int]:
             nbytes += _nbytes(score) + C * k_total * 13
             ops += 2 * C * grid * grid * gh * gw
         return nbytes, ops
-    if name == "orb_describe":
-        # image, keypoints and pattern read once, angles and descriptors
-        # written once; the blur's 10 adds and a multiply per pixel, and per
-        # keypoint the moments (4 operations on each of 177 disc pixels) and
-        # 256 tests of two rotated samples (~10 operations each)
-        img, uv, pattern, *rest = args
-        kps = uv.shape[0] * uv.shape[1]
-        return (_nbytes(img, uv, pattern) + kps * (4 + 32),
-                11 * img.numel() + kps * (4 * 177 + 512 * 10))
+    if name == "orb_describe_levels":
+        # per row its keypoints, pattern and given angles read once, its
+        # angles and descriptors written once, and the pixels of its images
+        # that the function reads (describe_read_pixels), each once; per
+        # keypoint the moments where the angle is computed (4 operations on
+        # each of 177 disc pixels) and 512 samples (~8 for the rotation and
+        # rounding, 24 adds and a multiply for the 5x5 sum), and a compare
+        # per test
+        blocks, = args
+        nbytes = ops = 0
+        for row in (row for block in blocks for row in block):
+            kps = row.uv.shape[0] * row.uv.shape[1]
+            nbytes += (4 * describe_read_pixels(*row) + _nbytes(row.uv, row.pattern)
+                       + kps * (4 + 32) + (0 if row.angles is None else _nbytes(row.angles)))
+            ops += kps * ((4 * 177 if row.angles is None else 0) + 512 * 33 + 256)
+        return nbytes, ops
     if name == "scan_bins":
         # depth and transforms read once, near and far written once; ~60
         # operations per pixel (backprojection, extrinsic, range, atan2 as
@@ -1057,10 +1130,13 @@ def kernel_work(name: str, args) -> tuple[int, int]:
                 24 * pairs + 3 * C * Na * F)
     if name == "gist_topk":
         # the bank, its stamps and flags read once; 24 per eligible entry,
-        # 3 per entry for the gate, k rounds of a compare per entry
+        # 3 per entry for the gate, and a compare per entry for each pass of
+        # 8 keys taken
         query, bank, stamp, valid, q_stamp, k, min_dt, _ = args
         elig = int((valid & ((stamp - q_stamp).abs() >= min_dt)).sum())
-        return _nbytes(query, bank, stamp, valid, q_stamp) + 9 * k, 24 * elig + (3 + 2 * k) * bank.shape[0]
+        passes = -(-k // 8)
+        return (_nbytes(query, bank, stamp, valid, q_stamp) + 9 * k,
+                24 * elig + (3 + 2 * passes) * bank.shape[0])
     if name == "bilateral":
         # depth and guide read once, the filtered depth written once; per tap
         # of a pixel ~8 operations and the exponential (~10)
@@ -2729,9 +2805,9 @@ def frame_inputs(frame: dict, n_cams: int):
     return np.stack([frame["image"]] * n_cams), np.stack([frame["depth"]] * n_cams)
 
 
-def record_args(fn, names=FRONTEND_KERNELS):
+def record_args(fn, names=tuple(FRONTEND_WRAPPERS.values())):
     """Run ``fn()`` with every call's arguments of the wrappers ``names``
-    (K12-K15 by default) recorded; returns {wrapper: [(args, kwargs), ...]}."""
+    (K12-K15's by default) recorded; returns {wrapper: [(args, kwargs), ...]}."""
     from uzliti_slam_tpu_torch.kernels import ops as kops
 
     saved = {name: getattr(kops, name) for name in names}
@@ -2808,32 +2884,82 @@ def frontend_library(name: str, calls):
     return None
 
 
+def describe_against_plain(blocks) -> dict:
+    """K14 on ``blocks`` (lists of ``kops.DescribeRow``) against its plain
+    version row by row: the angles it computes within ANGLE_ATOL of the
+    plain version's (a given row's copied exactly), and its descriptors
+    given the plain version's angles (one more call on the same rows, each
+    angle given) equal the plain descriptors bit for bit and equal again on
+    a rerun.  Returns each row's figures, the largest angle error and the
+    mismatches."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    got = kops.orb_describe_levels(blocks)
+    ref = kops.orb_describe_levels_plain(blocks)
+    cols = [[] for _ in blocks]
+    for b, block in enumerate(blocks):
+        k0 = 0
+        for row in block:
+            cols[b].append(slice(k0, k0 + row.uv.shape[1]))
+            k0 += row.uv.shape[1]
+    given = [[r._replace(angles=ref[b][0][:, c].contiguous()) for r, c in zip(block, cols[b])]
+             for b, block in enumerate(blocks)]
+    again, twice = kops.orb_describe_levels(given), kops.orb_describe_levels(given)
+    torch.cuda.synchronize()
+    out = {"rows": [], "angle_max_abs_err": 0.0, "mismatches": 0, "rerun_bit_identical": True}
+    for b, block in enumerate(blocks):
+        (ang, desc), (ang_ref, desc_ref) = got[b], ref[b]
+        same = bool(torch.equal(again[b][1], twice[b][1]))
+        for r, c in zip(block, cols[b]):
+            is_given = r.angles is not None
+            err = float((ang[:, c] - ang_ref[:, c]).abs().max()) if ang[:, c].numel() else 0.0
+            mism = int((again[b][1][:, c] != desc_ref[:, c]).sum())
+            if is_given:
+                mism += int((ang[:, c] != ang_ref[:, c]).sum())
+                same &= bool(torch.equal(desc[:, c], again[b][1][:, c]))
+            out["rows"].append({"block": b, "shape": list(r.img.shape),
+                                "keypoints": list(r.uv.shape[:2]), "given": is_given,
+                                "angle_max_abs_err": 0.0 if is_given else err,
+                                "mismatches": mism,
+                                "equal_with_own_angles": int((desc[:, c] == desc_ref[:, c])
+                                                             .all(-1).sum())})
+            out["angle_max_abs_err"] = max(out["angle_max_abs_err"], 0.0 if is_given else err)
+            out["mismatches"] += mism
+        out["rerun_bit_identical"] &= same
+    return out
+
+
 def compare_frontend(calls: dict, label: str) -> dict:
     """K12-K15 against their plain versions on the arguments one keyframe
-    gives them: K12, K13 and K15 exactly; K14's angles within ANGLE_ATOL and
-    its descriptors exactly given the plain version's angles (the GIST call
-    takes its angle as given).  Times are per keyframe: all of the
-    keyframe's calls of the kernel."""
+    gives them: K12, K13 and K15 exactly; K14 (one call, every level and the
+    GIST) row by row, its angles within ANGLE_ATOL and its descriptors
+    exactly given the plain version's angles (the GIST row takes its angle
+    as given).  Times are per keyframe: all of the keyframe's calls of the
+    kernel."""
     from uzliti_slam_tpu_torch.kernels import ops as kops
 
     rows = {}
     for name in FRONTEND_KERNELS:
-        kernel_fn, plain_fn = getattr(kops, name), getattr(kops, f"{name}_plain")
-        cl = calls[name]
+        w = FRONTEND_WRAPPERS[name]
+        kernel_fn, plain_fn = getattr(kops, w), getattr(kops, f"{w}_plain")
+        cl = calls[w]
         check(len(cl) > 0, f"{name} {label}: no call recorded")
-        mism, ang_err = 0, 0.0
+        mism, ang_err, row = 0, 0.0, {"calls": len(cl)}
         for args, kw in cl:
+            if name == "orb_describe":
+                held = describe_against_plain(*args)
+                row["rows"] = held["rows"]
+                check(held["rerun_bit_identical"], f"{name} {label}: a rerun gives other bits")
+                mism += held["mismatches"]
+                ang_err = max(ang_err, held["angle_max_abs_err"])
+                continue
             got, ref = kernel_fn(*args, **kw), plain_fn(*args, **kw)
             torch.cuda.synchronize()
-            if name == "orb_describe" and "angles" not in kw:
-                ang_err = max(ang_err, float((got[0] - ref[0]).abs().max()))
-                got = kernel_fn(*args, angles=ref[0].contiguous())
-                torch.cuda.synchronize()
             pairs = list(zip(got, ref)) if isinstance(got, tuple) else [(got, ref)]
             mism += sum(int((a != b).sum()) for a, b in pairs)
-        row = {"calls": len(cl), "mismatches": mism,
-               "max_abs_err": ang_err if name == "orb_describe" else (0.0 if mism == 0 else
-                                                                       float("nan"))}
+        row.update(mismatches=mism,
+                   max_abs_err=ang_err if name == "orb_describe" else (0.0 if mism == 0 else
+                                                                      float("nan")))
         if name == "orb_describe":
             row["angle_atol"] = ANGLE_ATOL
 
@@ -2843,12 +2969,53 @@ def compare_frontend(calls: dict, label: str) -> dict:
 
         row["ms"], row["plain_ms"] = time_pair(lambda: run(kernel_fn), lambda: run(plain_fn))
         row["library_ms"] = frontend_library(name, cl)
-        row.update(bound_calls(name, cl))
+        row.update(bound_wrapper_calls(calls, (w,)))
         log(f"3 kernel {name} {label}", **row)
         check(mism == 0, f"{name} {label}: {mism} entries differ from the plain version")
         check(ang_err <= ANGLE_ATOL, f"{name} {label}: angles {ang_err:.3g} rad apart")
         rows[name] = row
     return rows
+
+
+def border_describe_blocks(device) -> list:
+    """K14's rows on a synthetic VGA frame pair (seeded uint8 noise with a
+    bright square, two cameras), in two blocks: the four pyramid levels with
+    keypoints on every corner and edge, one pixel in and off the pixel grid,
+    inside, and off the frame (its samples clip to the edge), for each
+    binary pattern; and the GIST row of the first camera.  A level's width
+    is a multiple of 4 (128-bit loads) at 640 and 444 and not at 533 and
+    370."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+    from uzliti_slam_tpu_torch.ops import features, resize
+
+    rng = np.random.default_rng(SEED + 41)
+    img = rng.integers(0, 256, (2, 480, 640)).astype(np.float32)
+    img[:, 100:220, 300:420] = 250.0
+    imgs = torch.from_numpy(img).to(device)
+    rows = []
+    for lvl, (_, (h, w)) in enumerate(features.pyramid_shapes(480, 640, 4, 1.2)):
+        cur = imgs if lvl == 0 else resize.resize_linear(imgs, (h, w)).contiguous()
+        pts = [(0, 0), (w - 1, 0), (0, h - 1), (w - 1, h - 1), (w // 2, 0), (0, h // 2),
+               (w - 1, h // 2), (w // 2, h - 1), (1, 1), (w - 2, h - 2), (2.5, h - 3.5),
+               (w - 0.25, 7.75), (w // 3, h // 3), (18.0, 20.0), (w // 2, h // 2),
+               (w - 19, 21), (-30.5, -4.0), (w + 40.0, h // 2), (w // 2, h + 0.5)]
+        uv = torch.tensor([pts, pts[::-1]], dtype=torch.float32, device=device)
+        for name in ("brief", "brisk", "freak"):
+            rows.append(kops.DescribeRow(cur, uv, features.pattern(name, device)))
+    return [rows, [features.gist_row(imgs[:1], 0.7)]]
+
+
+def compare_describe_borders(device) -> dict:
+    """K14 on ``border_describe_blocks`` (13 rows, one call) against its
+    plain version (``describe_against_plain``)."""
+    held = describe_against_plain(border_describe_blocks(device))
+    out = {"rows": len(held["rows"]), "angle_max_abs_err": held["angle_max_abs_err"],
+           "mismatches": held["mismatches"], "rerun_bit_identical": held["rerun_bit_identical"],
+           "angle_atol": ANGLE_ATOL}
+    log("3 kernel orb_describe border frame", **out)
+    check(out["mismatches"] == 0 and out["rerun_bit_identical"]
+          and out["angle_max_abs_err"] <= ANGLE_ATOL, f"orb_describe border frame: {out}")
+    return out
 
 
 def compare_grid_topk_cases(calls, label: str) -> dict:
@@ -2967,6 +3134,8 @@ def frontend_phase(phase: str, world, frames, n_cams: int, device, reps: int = 1
           f"{counts}")
     check(counts["grid_topk"] == 1, f"{phase}: K13 launched {counts['grid_topk']} times in a "
                                     "keyframe (one call takes every level)")
+    check(counts["orb_describe"] == 1, f"{phase}: K14 launched {counts['orb_describe']} times in "
+                                       "a keyframe (one call takes every level and the GIST)")
     check(kp_valid >= cfg.feats_per_node // 2, f"{phase}: {kp_valid} valid keypoints")
     check(fields["scan_valid_bins_min"] >= 30 * n_cams,
           f"{phase}: {fields['scan_valid_bins_min']} valid scan bins")
@@ -3064,6 +3233,84 @@ def compare_keyframe_kernels(calls: dict, label: str) -> dict:
             check(ok_same and err <= ICP_POSE_ATOL, f"{name} {label}: pose {err}, same ok {ok_same}")
         rows[name] = row
     return rows
+
+
+def gist_bank_inputs(n: int, device, seed: int, k: int = 5) -> tuple:
+    """``gist_topk``'s arguments on a tie-heavy bank of n entries: each a
+    copy of one of 16 base descriptors with a bit flipped in about a fifth
+    of its bytes (many exact ties), stamps uniform over 600 s, 90 % valid;
+    the query base 3 at 300 s, min_dt 5 s, max_dist 60."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, (16, 32), dtype=np.uint8)
+    flips = (rng.random((n, 32)) < 0.2).astype(np.uint8) << rng.integers(0, 8, (n, 32),
+                                                                          dtype=np.uint8)
+    bank = base[rng.integers(0, 16, n)] ^ flips
+    stamp = rng.uniform(0.0, 600.0, n).astype(np.float32)
+    valid = rng.random(n) < 0.9
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    return (t(base[3]), t(bank), t(stamp), t(valid), torch.tensor(300.0, device=device), k, 5.0,
+            60.0)
+
+
+def compare_k16_cases(step_calls: dict, device) -> dict:
+    """K16 beyond the step's own calls, each entry for entry against its
+    plain version with a bit-identical rerun: the step's matching arguments
+    with every query and stored descriptor equal, with half the queries and
+    the first candidate's stored descriptors masked, with one valid stored
+    descriptor a candidate, and with 600 stored descriptors a node (above
+    the kernel's tile of 256 and not a multiple of it: three tiles), each
+    query's copy in the second tile and again in the first or the third
+    (ties across tiles, the lower index first); the GIST query on a 300-entry tie-heavy
+    bank at k = 1, 5, 8, 9, 19 and 300, and on banks of 1k, 10k, 50k and
+    100k entries (above the 58,112 that the kernel it replaced held in
+    shared memory) at k = 5 and 19."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    out = {}
+
+    def held(label, w, args):
+        fn, plain = getattr(kops, w), getattr(kops, f"{w}_plain")
+        got, again, ref = fn(*args), fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        row = {"mismatches": sum(int((a != b).sum()) for a, b in zip(got, ref)),
+               "rerun_bit_identical": all(bool(torch.equal(a, b)) for a, b in zip(got, again))}
+        out[label] = row
+        check(row["mismatches"] == 0 and row["rerun_bit_identical"], f"{w} {label}: {row}")
+
+    (query, bank, bank_valid, cslot, valid_a, ratio, max_dist), _ = step_calls["hamming_top2"][0]
+    Na, (N, F, _) = query.shape[0], bank.shape
+    same_q = query[:1].expand(Na, 32).contiguous()
+    held("match_all_equal", "hamming_top2",
+         (same_q, query[0].expand(N, F, 32).contiguous(), torch.ones_like(bank_valid), cslot,
+          torch.ones_like(valid_a), ratio, max_dist))
+    masked_a = valid_a.clone()
+    masked_a[: Na // 2] = False
+    masked_b = bank_valid.clone()
+    masked_b[cslot[0].long()] = False
+    held("match_masked_rows", "hamming_top2",
+         (query, bank, masked_b, cslot, masked_a, ratio, max_dist))
+    one = torch.zeros_like(bank_valid)
+    one[torch.arange(N, device=device), torch.arange(N, device=device) % F] = True
+    held("match_one_valid_stored", "hamming_top2",
+         (query, bank, one, cslot, valid_a, ratio, max_dist))
+    rng = np.random.default_rng(SEED + 52)
+    wide = torch.from_numpy(rng.integers(0, 256, (N, 600, 32), dtype=np.uint8)).to(device)
+    m = min(Na, 256)
+    wide[:, 256:256 + m] = query[:m]
+    wide[:, :m // 4] = query[:m // 4]
+    wide[:, 512:512 + min(m, 88)] = query[:min(m, 88)]
+    wide_valid = torch.rand(N, 600, generator=torch.Generator().manual_seed(SEED + 53)) > 0.05
+    held("match_f600_ties_across_tiles", "hamming_top2",
+         (query, wide, wide_valid.to(device), cslot, valid_a, ratio, max_dist))
+    args = gist_bank_inputs(300, device, SEED + 51)
+    for k in (1, 5, 8, 9, 19, 300):
+        held(f"gist_300_k{k}", "gist_topk", args[:5] + (k,) + args[6:])
+    for n in (1000, 10_000, 50_000, 100_000):
+        args = gist_bank_inputs(n, device, SEED + n)
+        for k in (5, 19):
+            held(f"gist_{n}_k{k}", "gist_topk", args[:5] + (k,) + args[6:])
+    log("3 kernel hamming_top2 cases", **out)
+    return out
 
 
 def icp_against_plain(args, kw, label: str) -> dict:
@@ -3235,6 +3482,10 @@ def keyframe_step_phase(phase: str, world, frames, n_cams: int, device, reps: in
               "laser_edges": int((struct["e_type"] == gstate.EDGE_TYPE_2D_LASER).sum())}
     fields.update(prof)
     fields["kernel_device_ms"] = kernel_device_ms(device_ms, step_kernels + kernels)
+    # K16's device ms by entry (the matching, the GIST query)
+    fields["hamming_top2_device_ms_by_entry"] = {
+        f: sum(ms for key, ms in device_ms.items() if f"::{f}(" in key)
+        for f in FRONTEND_DEVICE_FUNCTIONS["hamming_top2"]}
     if estimation != "feature":
         fields["library_items"] = library_items(device_ms)
     # the same frames on CPU tensors through the plain path, with the draws
@@ -3263,6 +3514,8 @@ def keyframe_step_phase(phase: str, world, frames, n_cams: int, device, reps: in
           f"{phase}: a kernel was not launched: {total}")
     check(one["grid_topk"] == 1, f"{phase}: K13 launched {one['grid_topk']} times in a step "
                                  "(one call takes every level)")
+    check(one["orb_describe"] == 1, f"{phase}: K14 launched {one['orb_describe']} times in a "
+                                    "step (one call takes every level and the GIST)")
     check(not fields.get("library_items"), f"{phase}: library kernels in the profile: "
                                            f"{fields.get('library_items')}")
     check(sum(fields["candidates"][half:]) > 0, f"{phase}: no candidate on the return leg")
@@ -3973,6 +4226,7 @@ def recognition_cost_phase(phase: str, device) -> dict:
                 check(m == 0 and e <= BOW_SCORE_ATOL, f"{phase}: {w} at {n} nodes: {m}, {e}")
         row = {
             "nodes": n,
+            "gist": gist_query_cost(n, device),
             "feature_set": {"feature_votes_ms": time_call(lambda: kops.feature_votes(*fv), 7, 3),
                             "bank_bytes": _nbytes(*fv[2:6]),
                             "reference_distance_bytes": 4 * 128 * n * 128},
@@ -3988,8 +4242,32 @@ def recognition_cost_phase(phase: str, device) -> dict:
         rows.append(row)
         del fv, nearest, votes, bq
         torch.cuda.empty_cache()
+    # the GIST query alone above the largest bank (and the 58,112 entries
+    # that the kernel it replaced held in shared memory)
+    rows.append({"nodes": 100_000, "gist": gist_query_cost(100_000, device)})
     log(phase, sizes=rows)
     return {"sizes": rows}
+
+
+def gist_query_cost(n: int, device) -> dict:
+    """K16's GIST query (k = 5, the step's) on ``gist_bank_inputs(n)``:
+    CUDA-event ms a query, device ms a query over 10 profiled queries (None
+    where the profile holds no device time) and queued back to back
+    (``queued_device_ms``), the bank's bytes, and the result against the
+    plain version entry for entry."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    args = gist_bank_inputs(n, device, SEED + 60 + n)
+    got, ref = kops.gist_topk(*args), kops.gist_topk_plain(*args)
+    torch.cuda.synchronize()
+    mism = sum(int((a != b).sum()) for a, b in zip(got, ref))
+    check(mism == 0, f"gist_topk at {n} nodes: {mism} entries differ from the plain version")
+    _, dev_ms = device_profile(lambda: [kops.gist_topk(*args) for _ in range(10)])
+    return {"gist_topk_ms": time_call(lambda: kops.gist_topk(*args), 7, 3),
+            "gist_topk_device_ms": (sum(v for k, v in dev_ms.items() if "gist_topk_cluster" in k)
+                                    / 10 if dev_ms else None),
+            "gist_topk_queued_device_ms": queued_device_ms(lambda: kops.gist_topk(*args)),
+            "bank_bytes": _nbytes(*args[1:4]), "mismatches": mism}
 
 
 def build_step_vocabulary(world, frames, device) -> tuple:
@@ -4110,7 +4388,7 @@ def recognition_phase(world, frames, device) -> tuple[dict, dict, dict]:
     rows = compare_recognition_kernels(recorded, "VGA step")
     rows_large = compare_recognition_kernels(recognition_large_calls(device), "large",
                                              trials=5, calls_per=2)
-    cost = recognition_cost_phase("14b recognition cost 1k 10k 50k", device)
+    cost = recognition_cost_phase("14b recognition cost 1k 10k 50k (GIST to 100k)", device)
     pr_w, pr_frames = pr_world()
     pr_vocab = pr_vocabulary(pr_frames, device)
     proposals = {m: pr_run(m, pr_w, pr_frames, device, pr_vocab if m == "bow" else None)
@@ -6058,8 +6336,12 @@ def main() -> int:
         label = f"VGA {n_cams} camera{'s' if n_cams > 1 else ''}"
         check(len(calls["grid_topk"]) == 1 and len(calls["grid_topk"][0][0][0]) == 4,
               f"{label}: K13 not one call on four levels")
+        check(len(calls["orb_describe_levels"]) == 1
+              and [len(b) for b in calls["orb_describe_levels"][0][0][0]] == [4, 1],
+              f"{label}: K14 not one call on four levels and the GIST")
         target.update(compare_frontend(calls, label))
         target["grid_topk"]["cases"] = compare_grid_topk_cases(calls["grid_topk"], label)
+    rows["orb_describe"]["border_frame"] = compare_describe_borders(dev)
 
     # K19 and bin_min_max on the arguments a global-role maintenance of the
     # 500-node and 10k-node epoch states gives them (scans and descriptors
@@ -6107,6 +6389,7 @@ def main() -> int:
         "11 keyframe step VGA front + rear", kf_world, kf_frames, 2, dev)
     step_calls = record_step_args(slam1, inputs1, kf_frames)
     rows.update(compare_keyframe_kernels(step_calls, "VGA step 1 camera"))
+    rows["hamming_top2"]["cases"] = compare_k16_cases(step_calls, dev)
     # K18 beyond the step's call: few valid targets, N = 8192 at batch 1 and
     # 4, bit-identical reruns, and its two launch forms timed
     icp_cases = compare_icp_cases(*step_calls["icp"][0], "VGA step 1 camera")
@@ -6258,6 +6541,17 @@ def main() -> int:
     kernels[list(REPLACES).index("grid_topk")].update(
         cases={k: v for k, v in rows["grid_topk"]["cases"].items()
                if k != "device_kernels_10_calls"})
+    # K14: its one call's rows and the border frame; K16: its device ms by
+    # entry in the profiled step, its tie-heavy cases, and the GIST query's
+    # cost up to a 100k-node bank (14b)
+    kernels[list(REPLACES).index("orb_describe")].update(
+        rows=rows["orb_describe"]["rows"], rows_large=rows_large["orb_describe"]["rows"],
+        border_frame=rows["orb_describe"]["border_frame"])
+    kernels[list(REPLACES).index("hamming_top2")].update(
+        device_ms_step_by_entry=step1_fields["hamming_top2_device_ms_by_entry"],
+        device_ms_step_by_entry_large=step2_fields["hamming_top2_device_ms_by_entry"],
+        cases=rows["hamming_top2"]["cases"],
+        gist_query_by_nodes={r["nodes"]: r["gist"] for r in rec_fields["cost"]["sizes"]})
     kernels[list(REPLACES).index("icp")].update(
         device_ms_b4=rereg_fields["icp_device_ms"],
         cases={k: {f: v[f] for f in ("batch", "N", "pose_max_abs_err", "same_ok",

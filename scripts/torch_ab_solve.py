@@ -33,7 +33,9 @@ VGA keyframe rung, 10 steps after 3 warm-up ones, 1 camera and the front +
 rear rig: entries "step_1cam", "step_2cam") and "rereg" 13d's
 ``Slam.reregister_scans`` on the 1-camera Slam (its state restored before
 each call); each reports wall ms, a profiled call's device ms, device
-launches and busy share, and K18's and K13's device ms in it:
+launches and busy share, and K18's, K13's, K14's and K16's (by entry)
+device ms in it; "step" also times K14's and K16's wrapper calls of that
+profiled step with CUDA events (ms a step, K16 by entry, K14's calls):
 
     python3 scripts/torch_ab_solve.py --base build/parent --sizes step,rereg --pairs 3
 Prints one JSON line a process, then per size each side's medians and how
@@ -118,14 +120,37 @@ def factor_times(args):
     return out
 
 
+STEP_FUNCTIONS = {
+    "k18": ("icp_problems", "icp_cluster"),
+    "k13": ("cell_topk", "global_topk", "grid_cells", "grid_global"),
+    "k14": ("box_blur<2>", "::describe(", "orb_describe_rows"),
+    "k16_match": ("match_top2",),
+    "k16_gist": ("gist_rounds", "gist_topk_cluster")}
+
+
 def step_kernel_ms(names):
-    """K18's and K13's device ms in a profile (either checkout's function
-    names)."""
-    return {"k18_device_ms": sum(v for k, v in names.items()
-                                 if "icp_problems" in k or "icp_cluster" in k),
-            "k13_device_ms": sum(v for k, v in names.items()
-                                 if any(f in k for f in ("cell_topk", "global_topk", "grid_cells",
-                                                         "grid_global")))}
+    """K18's, K13's, K14's and K16's (by entry) device ms in a profile
+    (either checkout's function names)."""
+    out = {f"{k}_device_ms": sum(v for key, v in names.items() if any(f in key for f in fs))
+           for k, fs in STEP_FUNCTIONS.items()}
+    out["k16_device_ms"] = out["k16_match_device_ms"] + out["k16_gist_device_ms"]
+    return out
+
+
+def step_kernel_event_ms(calls):
+    """K14's and K16's wrapper calls of one step (either checkout's
+    wrappers) timed with CUDA events: ms a step, and K14's calls."""
+    k14 = [w for w in ("orb_describe", "orb_describe_levels") if w in calls]
+
+    def run(ws):
+        for w in ws:
+            for a, kw in calls[w]:
+                getattr(kops, w)(*a, **kw)
+
+    return {"k14_ms": cs.time_call(lambda: run(k14)), "k14_calls": sum(len(calls[w]) for w in k14),
+            "k16_match_ms": cs.time_call(lambda: run(["hamming_top2"])),
+            "k16_gist_ms": cs.time_call(lambda: run(["gist_topk"])),
+            "k16_ms": cs.time_call(lambda: run(["hamming_top2", "gist_topk"]))}
 
 
 def step_entries(do_step, do_rereg, reps):
@@ -156,14 +181,20 @@ def step_entries(do_step, do_rereg, reps):
             ts.append(1e3 * (time.perf_counter() - t0))
         launches = {k: v / len(ts) for k, v in kops.launches.items() if v}
         last = len(frames) - 1
-        prof, names = cs.device_profile(lambda: pipeline.process_keyframe(
-            slam.state, *inputs[last], frames[last]["odom_pose"], frames[last]["stamp"],
-            slam.cam, slam.cam_pose, slam.config))
+        def late_step():
+            return pipeline.process_keyframe(
+                slam.state, *inputs[last], frames[last]["odom_pose"], frames[last]["stamp"],
+                slam.cam, slam.cam_pose, slam.config)
+
+        prof, names = cs.device_profile(late_step)
         if do_step:
+            wrappers = tuple(w for w in ("orb_describe", "orb_describe_levels", "hamming_top2",
+                                         "gist_topk") if hasattr(kops, w))
             res[f"step_{n_cams}cam"] = {
                 "ms_median": statistics.median(ts), "ms": ts, "port_launches": launches,
                 **{k: prof.get(k) for k in ("device_launches", "device_kernel_ms",
-                                            "device_busy_share")}, **step_kernel_ms(names)}
+                                            "device_busy_share")}, **step_kernel_ms(names),
+                **step_kernel_event_ms(cs.record_args(late_step, wrappers))}
         if n_cams == 1:
             slam1 = slam
     if do_rereg:
@@ -267,6 +298,12 @@ print(json.dumps(out))
 '''
 
 
+# the step's per-kernel figures each side reports
+STEP_KEYS = ("k18_device_ms", "k13_device_ms", "k14_device_ms", "k16_device_ms",
+             "k16_match_device_ms", "k16_gist_device_ms", "k14_ms", "k14_calls", "k16_ms",
+             "k16_match_ms", "k16_gist_ms")
+
+
 def run_side(tree: Path, sizes: str, reps: int) -> dict:
     proc = subprocess.run([sys.executable, "-c", WORKER, str(tree), sizes, str(reps)],
                           capture_output=True, text=True)
@@ -300,8 +337,7 @@ def main() -> int:
             medians[side][-1].update({f"{n}:{k}": r[k] for n, r in res.items()
                                       for k in ("k9_ms", "k9_device_ms", "k9_levels_device_ms",
                                                 "k9_root_device_ms", "device_kernel_ms",
-                                                "device_launches", "k18_device_ms",
-                                                "k13_device_ms") if k in r})
+                                                "device_launches", *STEP_KEYS) if k in r})
             print(json.dumps({"pair": i, "side": side, **res}), flush=True)
     names = [n for n in args.sizes.split(",") if n not in ("step", "rereg")]
     names += ["step_1cam", "step_2cam"] if "step" in args.sizes.split(",") else []
@@ -319,8 +355,7 @@ def main() -> int:
         k34.update({f"{side}_{k}": [m[f"{n}:{k}"] for m in medians[side]]
                     for side in sides for k in ("k9_ms", "k9_device_ms", "k9_levels_device_ms",
                                                 "k9_root_device_ms", "device_kernel_ms",
-                                                "device_launches", "k18_device_ms",
-                                                "k13_device_ms")
+                                                "device_launches", *STEP_KEYS)
                     if f"{n}:{k}" in medians[side][0]})
         print(json.dumps({"size": n, "base_medians_ms": base, "change_medians_ms": change,
                           "base_median_ms": statistics.median(base),

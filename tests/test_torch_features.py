@@ -144,7 +144,7 @@ def test_detect_and_describe_levels_in_one_grid_call(frame, fast_jit):
         u, r, _ = TF.select_topk_grid(kops.fast_nms(cur, 20.0), 64, 4)
         uv.append(u * scale)
         resp.append(r)
-        desc.append(kops.orb_describe(cur, u, TF.pattern("brief", "cpu"))[1])
+        desc.append(kops.orb_describe_plain(cur, u, TF.pattern("brief", "cpu"))[1])
     assert torch.equal(kt.uv, torch.cat(uv, 1)) and torch.equal(kt.response, torch.cat(resp, 1))
     assert torch.equal(dt, torch.cat(desc, 1))
     k1, d1 = TF.detect_and_describe(torch.from_numpy(frame), max_keypoints=256)
@@ -177,9 +177,9 @@ def test_angles_and_descriptors_at_level_0(frame, fast_jit):
     np.testing.assert_allclose(ang_t, ang_j, rtol=0, atol=ANGLE_ATOL)
     for name, pat in (("brief", None), ("brisk", JF.brisk_pattern()), ("freak", JF.freak_pattern())):
         d_j = np.asarray(jax.jit(JF.brief_descriptors)(x, uv, ang_j, pat))
-        _, d_t = kops.orb_describe(torch.from_numpy(x)[None].contiguous(), uv_t,
-                                   TF.pattern(name, "cpu"),
-                                   angles=torch.from_numpy(ang_j)[None].contiguous())
+        (_, d_t), = kops.orb_describe_levels([[kops.DescribeRow(
+            torch.from_numpy(x)[None].contiguous(), uv_t, TF.pattern(name, "cpu"),
+            torch.from_numpy(ang_j)[None].contiguous())]])
         np.testing.assert_array_equal(d_t[0].numpy(), d_j, err_msg=name)
 
 

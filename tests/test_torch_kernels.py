@@ -7,6 +7,7 @@ ctypes signature of its arity, wrappers on CPU tensors run the plain
 version without counting a launch, and the argument checks raise.
 """
 
+import ctypes
 import math
 import re
 
@@ -231,6 +232,8 @@ def fake_lib(monkeypatch):
     lib = _FakeLib()
     monkeypatch.setattr(_build, "load", lambda: lib)
     monkeypatch.setattr(kops, "_stream", lambda dev: 0)
+    # a meta tensor holds no values: K14's patterns reach as far as BRIEF's
+    monkeypatch.setattr(kops, "describe_reach", lambda pattern: 20)
     kops.reset_launches()
     return lib
 
@@ -357,7 +360,10 @@ def _frontend_cases():
         ("fast_nms", (img, 20.0)),
         ("grid_topk", (score, 16, 4)),
         ("grid_topk", (score, 8, 4)),
-        ("orb_describe", (img, uv, features.pattern("brief", "cpu"))),
+        ("orb_describe_levels", ([[kops.DescribeRow(img, uv, features.pattern("brief", "cpu")),
+                                   kops.DescribeRow(img, uv[:, :5],
+                                                    features.pattern("freak", "cpu"))],
+                                  [features.gist_row(img[:1], 0.3)]],)),
         ("scan_bins", (depth, cam, xf, 90, -np.pi, np.pi, (-0.4, 0.6), 6.0, 0.3)),
     ]
 
@@ -392,13 +398,34 @@ def test_frontend_kernels_launch_through_the_library(fake_lib):
     assert fake_lib.calls[-1][1][1:7] == (3, 2, 4, 4, 64, None)
     assert tuple(uv.shape) == (3, 2, 64, 2) and tuple(valid.shape) == (3, 2, 64)
     assert all(lv.is_contiguous() for lv in uv)
-    ang, desc = kops.orb_describe(_meta(2, 48, 64), _meta(2, 16, 2), _meta(256, 2, 2))
-    assert fake_lib.calls[-1][0] == "uz_orb_describe" and fake_lib.calls[-1][1][3:8] == (
-        2, 48, 64, 16, 0)
-    assert tuple(desc.shape) == (2, 16, 32) and desc.dtype == torch.uint8
-    given = _meta(2, 16)
-    ang, _ = kops.orb_describe(_meta(2, 48, 64), _meta(2, 16, 2), _meta(256, 2, 2), angles=given)
-    assert ang is given and fake_lib.calls[-1][1][7] == 1
+    # K14: every row (two levels of two cameras in one block, a GIST with
+    # its given angle in another) in one launch, the rows in a host table of
+    # (img, uv, pattern, given, angles, desc, C, H, W, K, stride), read while
+    # the call runs: a block's rows written side by side, camera c's
+    # keypoint k at c·stride + k
+    tables = []
+
+    def describe_rows(rows, n_rows, stream):
+        tables.append(np.array((ctypes.c_longlong * (11 * n_rows)).from_address(rows)))
+        fake_lib.calls.append(("uz_orb_describe_rows", (rows, n_rows, stream)))
+        return 0
+
+    fake_lib.uz_orb_describe_rows = describe_rows
+    (a0, d0), (ag, dg) = kops.orb_describe_levels(
+        [[kops.DescribeRow(_meta(2, 48, 64), _meta(2, 16, 2), _meta(256, 2, 2)),
+          kops.DescribeRow(_meta(2, 40, 53), _meta(2, 12, 2), _meta(256, 2, 2))],
+         [kops.DescribeRow(_meta(1, 63, 63), _meta(1, 1, 2), _meta(256, 2, 2), _meta(1, 1))]])
+    assert fake_lib.calls[-1][0] == "uz_orb_describe_rows" and fake_lib.calls[-1][1][1] == 3
+    table = tables[-1].reshape(3, 11)
+    assert table[:, 6:].tolist() == [[2, 48, 64, 16, 28], [2, 40, 53, 12, 28], [1, 63, 63, 1, 1]]
+    # the second row's outputs start 16 keypoints into the block's
+    assert table[1, 4] - table[0, 4] == 4 * 16 and table[1, 5] - table[0, 5] == 32 * 16
+    assert tuple(d0.shape) == (2, 28, 32) and d0.dtype == torch.uint8
+    assert tuple(a0.shape) == (2, 28) and tuple(dg.shape) == (1, 1, 32)
+    # rows with no keypoint launch nothing, and count nothing
+    (a1, d1), = kops.orb_describe_levels(
+        [[kops.DescribeRow(_meta(2, 48, 64), _meta(2, 0, 2), _meta(256, 2, 2))]])
+    assert len(tables) == 1 and tuple(d1.shape) == (2, 0, 32)
     cam = camera.PinholeCamera(40.0, 40.0, 16.0, 12.0, 64, 48)
     near, far = kops.scan_bins(_meta(2, 48, 64), cam, _meta(2, 12), 360, -np.pi, np.pi,
                                (-0.4, 0.6), 6.0, 0.3)
@@ -408,10 +435,10 @@ def test_frontend_kernels_launch_through_the_library(fake_lib):
     assert args[9] == 360 and args[12] == pytest.approx(360 / (2 * np.pi), rel=1e-6)
     assert args[17] == pytest.approx((2**21 - 1) / 6.006, rel=1e-6)
     assert kops.launches["fast_nms"] == 1 and kops.launches["grid_topk"] == 3
-    assert kops.launches["orb_describe"] == 2 and kops.launches["scan_bins"] == 1
+    assert kops.launches["orb_describe"] == 1 and kops.launches["scan_bins"] == 1
 
 
-def test_frontend_kernel_argument_checks_raise(fake_lib):
+def test_frontend_kernel_argument_checks_raise(fake_lib, monkeypatch):
     from uzliti_slam_tpu_torch.frontend import camera
 
     with pytest.raises(ValueError, match="expected \\(C, H, W\\)"):
@@ -426,10 +453,32 @@ def test_frontend_kernel_argument_checks_raise(fake_lib):
         kops.grid_topk([_meta(1, 48, 64), _meta(2, 40, 53)], 64, 4)
     with pytest.raises(ValueError, match="1..8"):
         kops.grid_topk([_meta(1, 48, 64)] * 9, 64, 4)
+    row = kops.DescribeRow
     with pytest.raises(ValueError, match="pattern: shape"):
-        kops.orb_describe(_meta(1, 48, 64), _meta(1, 4, 2), _meta(128, 2, 2))
+        kops.orb_describe_levels([[row(_meta(1, 48, 64), _meta(1, 4, 2), _meta(128, 2, 2))]])
     with pytest.raises(ValueError, match="angles: shape"):
-        kops.orb_describe(_meta(1, 48, 64), _meta(1, 4, 2), _meta(256, 2, 2), angles=_meta(1, 5))
+        kops.orb_describe_levels([[row(_meta(1, 48, 64), _meta(1, 4, 2), _meta(256, 2, 2))],
+                                  [row(_meta(1, 48, 64), _meta(1, 4, 2), _meta(256, 2, 2),
+                                       _meta(1, 5))]])
+    with pytest.raises(ValueError, match="img: shape"):
+        # a block's rows lie on the same cameras
+        kops.orb_describe_levels([[row(_meta(2, 48, 64), _meta(2, 4, 2), _meta(256, 2, 2)),
+                                   row(_meta(1, 40, 53), _meta(1, 4, 2), _meta(256, 2, 2))]])
+    with pytest.raises(ValueError, match="1..16"):
+        kops.orb_describe_levels([[row(_meta(1, 48, 64), _meta(1, 4, 2), _meta(256, 2, 2))] * 17])
+    with pytest.raises(ValueError, match="pattern: not 16-byte aligned"):
+        kops.orb_describe_levels([[row(_meta(1, 48, 64), _meta(1, 4, 2),
+                                       _meta(1025)[1:].view(256, 2, 2))]])
+    # a pattern whose window exceeds the kernel's 72 rows x 76 floats: the
+    # GIST's (reach 39) fits its 63x63 image, not a VGA level
+    monkeypatch.setattr(kops, "describe_reach", lambda pattern: 39)
+    kops.orb_describe_levels([[row(_meta(1, 63, 63), _meta(1, 1, 2), _meta(256, 2, 2))]])
+    with pytest.raises(ValueError, match="79 rows of 82 floats"):
+        kops.orb_describe_levels([[row(_meta(1, 480, 640), _meta(1, 4, 2), _meta(256, 2, 2))]])
+    monkeypatch.setattr(kops, "describe_reach", lambda pattern: 35)
+    kops.orb_describe_levels([[row(_meta(1, 480, 640), _meta(1, 4, 2), _meta(256, 2, 2))]])
+    assert [c[0] for c in fake_lib.calls] == ["uz_orb_describe_rows"] * 2
+    fake_lib.calls.clear()
     cam = camera.PinholeCamera(40.0, 40.0, 16.0, 12.0, 64, 48)
     with pytest.raises(ValueError, match="1..1023"):
         kops.scan_bins(_meta(1, 48, 64), cam, _meta(1, 12), 1024, -np.pi, np.pi, (-0.4, 0.6),
@@ -515,6 +564,13 @@ def test_keyframe_kernels_launch_through_the_library(fake_lib):
     assert fake_lib.calls[-1][0] == "uz_gist_topk" and fake_lib.calls[-1][1][5:9] == (512, 5, 5.0,
                                                                                       60.0)
     assert tuple(slots.shape) == (5,) and slots.dtype == i32
+    # no shared-memory cap: 8,000 stored descriptors a node, a 100k-node GIST bank
+    kops.hamming_top2(_meta(256, 32, dtype=u8), _meta(4, 8000, 32, dtype=u8),
+                      _meta(4, 8000, dtype=b), _meta(2, dtype=i32), _meta(256, dtype=b), 0.9, 64.0)
+    assert fake_lib.calls[-1][1][5:8] == (2, 256, 8000)
+    kops.gist_topk(_meta(32, dtype=u8), _meta(100_000, 32, dtype=u8), _meta(100_000),
+                   _meta(100_000, dtype=b), _meta(()), 100_000, 5.0, 60.0)
+    assert fake_lib.calls[-1][1][5:7] == (100_000, 100_000)
     out = kops.bilateral(_meta(2, 480, 640), _meta(2, 480, 640))
     args = fake_lib.calls[-1][1]
     assert fake_lib.calls[-1][0] == "uz_bilateral" and args[2:5] == (2, 480, 640)
@@ -531,7 +587,7 @@ def test_keyframe_kernels_launch_through_the_library(fake_lib):
              _meta(4, 3), 20, 0.25, 0.25, 1.5, 0.8, 0.0004)
     assert fake_lib.calls[-1][1][5:9] == (4, 360, 360, 20) and len(fake_lib.calls[-1][1]) == 20
     # the matching and the GIST query are one kernel, one count
-    assert kops.launches["hamming_top2"] == 2
+    assert kops.launches["hamming_top2"] == 4
     assert kops.launches["bilateral"] == 1 and kops.launches["icp"] == 2
 
 
@@ -540,9 +596,13 @@ def test_keyframe_kernel_argument_checks_raise(fake_lib):
     with pytest.raises(TypeError, match="cslot: dtype"):
         kops.hamming_top2(_meta(8, 32, dtype=u8), _meta(4, 16, 32, dtype=u8), _meta(4, 16, dtype=b),
                           _meta(2, dtype=torch.int64), _meta(8, dtype=b), 0.9, 64.0)
-    with pytest.raises(ValueError, match="shared memory"):
-        kops.hamming_top2(_meta(8, 32, dtype=u8), _meta(4, 8000, 32, dtype=u8),
-                          _meta(4, 8000, dtype=b), _meta(2, dtype=i32), _meta(8, dtype=b), 0.9, 64.0)
+    with pytest.raises(ValueError, match="query: not 16-byte aligned"):
+        kops.hamming_top2(_meta(9 * 32, dtype=u8)[4: 4 + 8 * 32].view(8, 32),
+                          _meta(4, 16, 32, dtype=u8), _meta(4, 16, dtype=b), _meta(2, dtype=i32),
+                          _meta(8, dtype=b), 0.9, 64.0)
+    with pytest.raises(ValueError, match="bank: not 16-byte aligned"):
+        kops.gist_topk(_meta(32, dtype=u8), _meta(9 * 32, dtype=u8)[8: 8 + 8 * 32].view(8, 32),
+                       _meta(8), _meta(8, dtype=b), _meta(()), 5, 5.0, 60.0)
     with pytest.raises(ValueError, match="k = 9 of a 8-entry bank"):
         kops.gist_topk(_meta(32, dtype=u8), _meta(8, 32, dtype=u8), _meta(8), _meta(8, dtype=b),
                        _meta(()), 9, 5.0, 60.0)

@@ -1,12 +1,13 @@
-// Pieces shared by the keypoint describers K14 orb_describe and K29
-// sift_describe: the separable box blur the descriptors sample, and the
-// intensity-centroid orientation of a keypoint.
+// Pieces of the keypoint describers: the separable box blur K29
+// sift_describe samples, and the intensity-centroid orientation of a
+// keypoint, which K14 orb_describe and K29 share.
 //
 // box_blur<R>: a separable (2R+1)² box sum of each image with zero padding,
 // the row sum then the column sum, each added left to right as the
 // reference's reduce_window adds, then × fl(1/(2R+1)²)
 // (uzliti_slam_tpu/ops/features.py:_sep_blur); one launch over (tiles,
-// camera).  K14 blurs with R = 2, K29 with R = 1.
+// camera).  K29 blurs with R = 1; K14 takes its 5x5 sums on each
+// keypoint's window instead (csrc/orb_describe.cu), in the same order.
 //
 // centroid_angle: called by the 32 lanes of one warp for one keypoint.  The
 // moments m01 = Σ dy·I and m10 = Σ dx·I over the 15x15 patch of the

@@ -65,7 +65,7 @@ SIGNATURES = {
                         _F, _I, _F, _P, _P],
     "uz_fast_nms": [_P, _I, _I, _I, _F, _P, _P],
     "uz_grid_topk": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
-    "uz_orb_describe": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "uz_orb_describe_rows": [_P, _I, _P],
     "uz_scan_bins": [_P, _P, _I, _I, _I, _F, _F, _F, _F, _I, _F, _F, _F, _F, _F, _F, _F, _F,
                      _F, _P, _P, _P],
     "uz_hamming_top2": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P],

@@ -40,7 +40,8 @@ fast_nms       csrc/fast_nms.cu        ops/features.py:fast_score + nms
 grid_topk      csrc/grid_topk.cu       ops/features.py:select_topk_grid
 orb_describe   csrc/orb_describe.cu    ops/features.py:_sep_blur +
                                        intensity_centroid_angles +
-                                       brief_descriptors
+                                       brief_descriptors (every level and
+                                       binary_gist in one launch)
 scan_bins      csrc/scan_bins.cu       ops/scan.py:depth_to_scan's per-pixel
                                        part + _bin_min_max; second entry
                                        bin_min_max (own count): _bin_min_max
@@ -125,6 +126,7 @@ written at the top of its source file.
 
 from __future__ import annotations
 
+import array
 import ctypes
 import math
 import weakref
@@ -169,6 +171,11 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype,
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
     return t.data_ptr()
+
+
+def _check_aligned(name: str, t: torch.Tensor) -> None:
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: not 16-byte aligned (the kernel loads 128-bit words)")
 
 
 _checked_memo: dict = {}
@@ -1985,13 +1992,24 @@ def grid_topk(scores, k_total: int, grid: int):
 
 
 # ---------------------------------------------------------------------------
-# K14 orb_describe (box blur, intensity-centroid angle, steered descriptor)
+# K14 orb_describe (intensity-centroid angle, steered descriptor on the
+# box-blurred image; every row of a keyframe in one launch)
 # ---------------------------------------------------------------------------
 
+class DescribeRow(NamedTuple):
+    """One row of a K14 call: keypoints ``uv`` (C, K, 2) on images ``img``
+    (C, H, W), described with ``pattern`` (256, 2, 2); ``angles`` (C, K)
+    given (the GIST's roll) or None (the intensity-centroid angles)."""
+    img: torch.Tensor
+    uv: torch.Tensor
+    pattern: torch.Tensor
+    angles: torch.Tensor | None = None
+
+
 def orb_describe_plain(img, uv, pattern, angles=None):
-    """Plain version of K14 on (C, H, W) images and (C, K, 2) keypoints:
-    (angles (C, K), descriptors (C, K, 32) uint8).  Given ``angles`` are
-    used as they are (the GIST's roll)."""
+    """Plain version of K14 on one row, (C, H, W) images and (C, K, 2)
+    keypoints: (angles (C, K), descriptors (C, K, 32) uint8).  Given
+    ``angles`` are used as they are (the GIST's roll)."""
     from uzliti_slam_tpu_torch.ops import features
 
     if angles is None:
@@ -1999,29 +2017,108 @@ def orb_describe_plain(img, uv, pattern, angles=None):
     return angles, features.brief_descriptors(img, uv, angles, pattern)
 
 
-def orb_describe(img, uv, pattern, angles=None):
-    """K14: a separable 5x5 box blur of each image (one launch), then one
-    warp per keypoint: the intensity-centroid angle on the unblurred image
-    (or the given angle), the pattern rotated by it, 256 nearest-pixel
-    tests on the blurred image packed by ``__ballot_sync``."""
-    if img.device.type == "cpu":
-        return orb_describe_plain(img, uv, pattern, angles)
-    dev, f32 = img.device, torch.float32
-    C, H, W = _images("img", img)
-    K = uv.shape[1]
-    ptrs = [_check("img", img, (C, H, W), f32, dev), _check("uv", uv, (C, K, 2), f32, dev),
-            _check("pattern", pattern, (256, 2, 2), f32, dev)]
-    if angles is not None:
-        _check("angles", angles, (C, K), f32, dev)
+def orb_describe_levels_plain(blocks):
+    """Plain version of K14 on blocks of rows (``orb_describe_levels``):
+    ``orb_describe_plain`` of each row, a block's rows concatenated along
+    the keypoints: [(angles (C, ΣK), descriptors (C, ΣK, 32)), ...]."""
+    out = []
+    for block in blocks:
+        rows = [orb_describe_plain(*row) for row in block]
+        out.append((torch.cat([a for a, _ in rows], dim=1),
+                    torch.cat([d for _, d in rows], dim=1)))
+    return out
+
+
+ORB_DESCRIBE_MAX_ROWS = 16    # kMaxRows in csrc/orb_describe.cu
+ORB_DESCRIBE_WINDOW = (72, 76)  # kWinH rows x kWinP floats in csrc/orb_describe.cu
+
+_pattern_reaches: dict = {}
+
+
+def describe_reach(pattern: torch.Tensor) -> int:
+    """How far from a keypoint's pixel K14's 5x5 sums read for ``pattern``:
+    the ceiling of its largest point norm as the kernel computes it
+    (float32 squares, their sum, a correctly rounded square root), + 1 for
+    the rounding of a sample and + 2 for the blur.  Read on the host once
+    per pattern tensor (and again after an in-place change to it)."""
+    hit = _pattern_reaches.get(id(pattern))
+    if hit is not None and hit[0]() is pattern and hit[1] == pattern._version:
+        return hit[2]
+    p = pattern.detach().to("cpu", torch.float32).numpy().reshape(-1, 2)
+    n2 = (p[:, 0] * p[:, 0] + p[:, 1] * p[:, 1]).max()
+    norm = np.sqrt(n2)
+    if not np.isfinite(norm):
+        raise ValueError("pattern: a point is not finite")
+    reach = int(np.ceil(norm)) + 3
+    for key in [k for k, (r, _, _) in _pattern_reaches.items() if r() is None]:
+        del _pattern_reaches[key]
+    _pattern_reaches[id(pattern)] = (weakref.ref(pattern), pattern._version, reach)
+    return reach
+
+
+def describe_window(reach: int, H: int, W: int) -> tuple[int, int]:
+    """The most rows and row floats K14's window takes for a pattern of
+    ``reach`` on (H, W) images: the square of side 2·reach + 1 clipped to
+    the image and its 2-pixel border, its row widened by up to 3 floats to
+    align its 128-bit loads."""
+    return min(2 * reach + 1, H + 4), min(2 * reach + 1, W + 4) + 3
+
+
+def orb_describe_levels(blocks):
+    """K14: the descriptors of every row of every block in one launch (a
+    keyframe's pyramid levels, all cameras, in one block; its GIST in
+    another), one CTA per keypoint: the intensity-centroid angle on the
+    unblurred image (or the row's given angles), the pattern rotated by it,
+    and 256 nearest-pixel tests whose 5x5 box sums are taken on the
+    keypoint's window of the unblurred image, packed by ``__ballot_sync``.
+    ``blocks`` is a list of lists of ``DescribeRow``, a block's rows on the
+    same cameras; returns per block (angles (C, ΣK), descriptors (C, ΣK,
+    32) uint8), its rows side by side along the keypoints, as
+    ``torch.cat(dim=1)`` of the rows' own (a given row's angles copied).
+    Raises where a row's window (``describe_window``) exceeds the kernel's
+    ``ORB_DESCRIBE_WINDOW``."""
+    dev = blocks[0][0].img.device
+    if dev.type == "cpu":
+        return orb_describe_levels_plain(blocks)
+    n_rows = sum(len(block) for block in blocks)
+    if not 1 <= n_rows <= ORB_DESCRIBE_MAX_ROWS:
+        raise ValueError(f"orb_describe: {n_rows} rows, the kernel takes "
+                         f"1..{ORB_DESCRIBE_MAX_ROWS}")
+    f32 = torch.float32
+    table, out, patterns, total = [], [], {}, 0
+    for block in blocks:
+        C = _images("img", block[0].img)[0]
+        Kt = sum(row.uv.shape[1] for row in block)
+        ang = torch.empty(C, Kt, dtype=f32, device=dev)
+        desc = torch.empty(C, Kt, 32, dtype=torch.uint8, device=dev)
+        a_ptr, d_ptr = ang.data_ptr(), desc.data_ptr()
+        for img, uv, pattern, given in block:
+            H, W = img.shape[-2:]
+            K = uv.shape[1]
+            if id(pattern) not in patterns:
+                ptr = _check("pattern", pattern, (256, 2, 2), f32, dev)
+                _check_aligned("pattern", pattern)
+                patterns[id(pattern)] = ptr, describe_reach(pattern)
+            ptr, reach = patterns[id(pattern)]
+            rows, floats = describe_window(reach, H, W)
+            if rows > ORB_DESCRIBE_WINDOW[0] or floats > ORB_DESCRIBE_WINDOW[1]:
+                raise ValueError(f"pattern: its window on {H}x{W} images takes {rows} rows of "
+                                 f"{floats} floats, the kernel holds {ORB_DESCRIBE_WINDOW}")
+            table += [_check("img", img, (C, H, W), f32, dev),
+                      _check("uv", uv, (C, K, 2), f32, dev), ptr,
+                      0 if given is None else _check("angles", given, (C, K), f32, dev),
+                      a_ptr, d_ptr, C, H, W, K, Kt]
+            a_ptr, d_ptr = a_ptr + 4 * K, d_ptr + 32 * K
+            total += C * K
+        out.append((ang, desc))
+    if total == 0:      # no keypoint: the kernel would not launch
+        return out
     lib = _build.load()
-    blurred = torch.empty(C, H, W, dtype=f32, device=dev)
-    ang = angles if angles is not None else torch.empty(C, K, dtype=f32, device=dev)
-    desc = torch.empty(C, K, 32, dtype=torch.uint8, device=dev)
-    err = lib.uz_orb_describe(*ptrs, C, H, W, K, int(angles is not None), blurred.data_ptr(),
-                              ang.data_ptr(), desc.data_ptr(), _stream(dev))
+    host = array.array("q", table)      # the table's 64-bit rows, alive through the call
+    err = lib.uz_orb_describe_rows(host.buffer_info()[0], n_rows, _stream(dev))
     _raise_on(err, "orb_describe")
     launches["orb_describe"] += 1
-    return ang, desc
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2301,18 +2398,20 @@ def _smem_check(name: str, nbytes: int) -> None:
 
 
 def hamming_top2(query, bank, bank_valid, cslot, valid_a, ratio: float, max_dist: float):
-    """K16: all candidates' matching in one launch, a CTA per (query block,
-    candidate), the candidate's stored descriptors gathered by slot into
-    shared memory, a running best and second per query in registers."""
+    """K16: all candidates' matching in one launch, a CTA per (8 queries,
+    candidate); each query's scan of its candidate's stored descriptors
+    split over 8 lanes, each keeping a (best, second) pair of (distance,
+    index) keys, merged by shuffles."""
     if query.device.type == "cpu":
         return hamming_top2_plain(query, bank, bank_valid, cslot, valid_a, ratio, max_dist)
     dev, u8 = query.device, torch.uint8
     Na, (N, F, _), C = query.shape[0], bank.shape, cslot.shape[0]
-    _smem_check("hamming_top2", 33 * F)
     ptrs = [_check("query", query, (Na, 32), u8, dev), _check("bank", bank, (N, F, 32), u8, dev),
             _check("bank_valid", bank_valid, (N, F), torch.bool, dev),
             _check("cslot", cslot, (C,), torch.int32, dev),
             _check("valid_a", valid_a, (Na,), torch.bool, dev)]
+    _check_aligned("query", query)
+    _check_aligned("bank", bank)
     lib = _build.load()
     idx = torch.empty(C, Na, dtype=torch.int32, device=dev)
     ok = torch.empty(C, Na, dtype=torch.bool, device=dev)
@@ -2340,19 +2439,24 @@ def gist_topk_plain(query, bank, stamp, valid, q_stamp, k: int, min_dt: float, m
 
 
 def gist_topk(query, bank, stamp, valid, q_stamp, k: int, min_dt: float, max_dist: float):
-    """K16's GIST entry: one CTA, the bank's distances in shared memory, k
-    rounds of a block-wide (distance, index) minimum."""
+    """K16's GIST entry: the bank split over one thread-block cluster (1-8
+    CTAs by its size), each thread's best (distance, index) keys in
+    registers, merged across the warp, the CTA and the cluster (through
+    distributed shared memory); one pass over the bank per 8 keys of k.
+    No part of the bank is held in shared memory, so its size is not
+    capped."""
     if query.device.type == "cpu":
         return gist_topk_plain(query, bank, stamp, valid, q_stamp, k, min_dt, max_dist)
     dev, N = query.device, bank.shape[0]
     if not 0 < k <= N:
         raise ValueError(f"gist_topk: k = {k} of a {N}-entry bank")
-    _smem_check("gist_topk", 4 * N)
     ptrs = [_check("query", query, (32,), torch.uint8, dev),
             _check("bank", bank, (N, 32), torch.uint8, dev),
             _check("stamp", stamp, (N,), torch.float32, dev),
             _check("valid", valid, (N,), torch.bool, dev),
             _check("q_stamp", q_stamp, (), torch.float32, dev)]
+    _check_aligned("query", query)
+    _check_aligned("bank", bank)
     lib = _build.load()
     slots = torch.empty(k, dtype=torch.int32, device=dev)
     dist = torch.empty(k, dtype=torch.float32, device=dev)

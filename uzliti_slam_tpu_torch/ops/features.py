@@ -9,9 +9,11 @@ steered 16x16 gradient grid, 128 float32).  Shapes are static: K keypoints
 with validity masks.
 
 Every image function takes a camera batch: (C, H, W), or (H, W) for one
-camera.  ``detect_and_describe``, ``select_topk_grid`` and ``binary_gist``
-run the hand-written kernels K12 (``fast_nms``), K13 (``grid_topk``: all
-pyramid levels in one launch) and K14 (``orb_describe``) through
+camera.  ``detect_and_describe``, ``detect_describe_gist``,
+``select_topk_grid`` and ``binary_gist`` run the hand-written kernels K12
+(``fast_nms``), K13 (``grid_topk``: all pyramid levels in one launch) and
+K14 (``orb_describe_levels``: every level, all cameras, and with
+``detect_describe_gist`` the GIST, in one launch) through
 ``kernels/ops.py``: on CPU tensors those
 wrappers run their plain versions, which are built from ``fast_score``,
 ``nms``, ``_sep_blur``, ``intensity_centroid_angles`` and
@@ -291,6 +293,49 @@ def pyramid_shapes(h: int, w: int, n_levels: int, scale_factor: float):
     return out
 
 
+def _detect_describe(imgs: torch.Tensor, max_keypoints: int, threshold: float, grid: int,
+                     n_levels: int, scale_factor: float, descriptor: str, gist=None):
+    """``detect_and_describe`` on (C, H, W) float32 images, with the
+    ``gist_row`` ``gist`` (a block of its own) added to the binary families'
+    one K14 call; returns (Keypoints, descriptors, the GIST's (1, 1, 32)
+    descriptor or None)."""
+    if descriptor not in ("brief", "brisk", "freak", "sift"):
+        raise ValueError(f"unknown descriptor family {descriptor!r}")
+    C, H, W = imgs.shape
+    k_level = max(max_keypoints // n_levels, 1)
+    # every level's resize and K12 first, then K13 once for all levels, then
+    # the descriptors of every level (the keypoints stay level-major)
+    shapes = pyramid_shapes(H, W, n_levels, scale_factor)
+    curs = [imgs if (h, w) == (H, W) else resize.resize_linear(imgs, (h, w)).contiguous()
+            for _, (h, w) in shapes]
+    uvs, resp, valid = kops.grid_topk([kops.fast_nms(cur, threshold) for cur in curs], k_level,
+                                      grid)                      # (levels, C, k_level, ...)
+    gist_desc = None
+    if descriptor == "sift":
+        window = kops.sift_window(imgs.device)
+        described = [kops.sift_describe(cur, uv.contiguous(), window)
+                     for cur, uv in zip(curs, uvs)]
+        ang, desc = (torch.cat([d[i] for d in described], dim=1) for i in range(2))
+    else:
+        # K14 once: every level, all cameras (one block, written side by
+        # side), and the GIST
+        pat = pattern(descriptor, imgs.device)
+        levels = [kops.DescribeRow(cur, uv, pat) for cur, uv in zip(curs, uvs)]
+        blocks = [levels] + ([[gist]] if gist is not None else [])
+        (ang, desc), *rest = kops.orb_describe_levels(blocks)
+        gist_desc = rest[0][1] if rest else None
+    uv = torch.cat([uv * scale for (scale, _), uv in zip(shapes, uvs)], dim=1)
+    scl = torch.cat([torch.full_like(ang[:, :k_level], scale) for scale, _ in shapes], dim=1)
+    resp, valid = (t.transpose(0, 1).reshape(C, -1) for t in (resp, valid))
+    short = max_keypoints - desc.shape[1]
+    if short > 0:
+        def pad(t, value):
+            return torch.cat([t, t.new_full((C, short) + t.shape[2:], value)], dim=1)
+        uv, resp, ang = pad(uv, 0.0), pad(resp, 0.0), pad(ang, 0.0)
+        scl, valid, desc = pad(scl, 1.0), pad(valid, False), pad(desc, 0)
+    return Keypoints(uv=uv, response=resp, angle=ang, scale=scl, valid=valid), desc, gist_desc
+
+
 def detect_and_describe(img: torch.Tensor, max_keypoints: int = 300, threshold: float = 20.0,
                         grid: int = 4, n_levels: int = 4, scale_factor: float = 1.2,
                         descriptor: str = "brief"):
@@ -301,44 +346,13 @@ def detect_and_describe(img: torch.Tensor, max_keypoints: int = 300, threshold: 
     level takes ⌊max_keypoints / n_levels⌋ (at least 1) and the remainder
     is padded with invalid slots (descriptor rows of zeros).  Keypoint uv
     are in level-0 pixels.  ``descriptor`` is "brief", "brisk" or "freak"
-    (K14, one kernel, three patterns: (..., K, 32) uint8), or "sift" (K29:
-    (..., K, 128) float32, matched by L2).
+    (K14, one call for every level and camera, three patterns: (..., K, 32)
+    uint8), or "sift" (K29, a call a level: (..., K, 128) float32, matched
+    by L2).
     """
-    if descriptor not in ("brief", "brisk", "freak", "sift"):
-        raise ValueError(f"unknown descriptor family {descriptor!r}")
     imgs = _batched(img).to(torch.float32).contiguous()
-    C, H, W = imgs.shape
-    if descriptor == "sift":
-        window = kops.sift_window(imgs.device)
-
-        def describe(cur, uv):
-            return kops.sift_describe(cur, uv.contiguous(), window)
-    else:
-        pat = pattern(descriptor, imgs.device)
-
-        def describe(cur, uv):
-            return kops.orb_describe(cur, uv, pat)
-    k_level = max(max_keypoints // n_levels, 1)
-    # every level's resize and K12 first, then K13 once for all levels, then
-    # the descriptors level by level (the keypoints stay level-major)
-    shapes = pyramid_shapes(H, W, n_levels, scale_factor)
-    curs = [imgs if (h, w) == (H, W) else resize.resize_linear(imgs, (h, w)).contiguous()
-            for _, (h, w) in shapes]
-    uvs, resp, valid = kops.grid_topk([kops.fast_nms(cur, threshold) for cur in curs], k_level,
-                                      grid)                      # (levels, C, k_level, ...)
-    outs = []
-    for (scale, _), cur, uv in zip(shapes, curs, uvs):
-        ang, desc = describe(cur, uv)
-        outs.append((uv * scale, ang, torch.full_like(ang, scale), desc))
-    uv, ang, scl, desc = (torch.cat([o[i] for o in outs], dim=1) for i in range(4))
-    resp, valid = (t.transpose(0, 1).reshape(C, -1) for t in (resp, valid))
-    short = max_keypoints - desc.shape[1]
-    if short > 0:
-        def pad(t, value):
-            return torch.cat([t, t.new_full((C, short) + t.shape[2:], value)], dim=1)
-        uv, resp, ang = pad(uv, 0.0), pad(resp, 0.0), pad(ang, 0.0)
-        scl, valid, desc = pad(scl, 1.0), pad(valid, False), pad(desc, 0)
-    kps = Keypoints(uv=uv, response=resp, angle=ang, scale=scl, valid=valid)
+    kps, desc, _ = _detect_describe(imgs, max_keypoints, threshold, grid, n_levels,
+                                    scale_factor, descriptor)
     if img.dim() == 2:
         return Keypoints(*(t[0] for t in kps)), desc[0]
     return kps, desc
@@ -347,16 +361,41 @@ def detect_and_describe(img: torch.Tensor, max_keypoints: int = 300, threshold: 
 GIST_SIZE = 63
 
 
-def binary_gist(img: torch.Tensor, roll_angle=0.0) -> torch.Tensor:
-    """Whole-image binary GIST of (H, W) or (C, H, W) images: the frame
-    resized to 63×63 and one steered descriptor (K14, radius-25 pattern) at
-    the centre, its angle the robot's roll (a float or a tensor of the
-    batch's shape).  Returns (32,) or (C, 32) uint8."""
-    imgs = _batched(img).to(torch.float32)
+def gist_row(img: torch.Tensor, roll_angle=0.0):
+    """The K14 row of the whole-image binary GIST of (C, H, W) images: the
+    frame resized to 63×63, one keypoint at the centre, the radius-25
+    pattern, the angle the robot's roll (a float or a tensor of the batch's
+    shape)."""
+    imgs = img.to(torch.float32)
     C = imgs.shape[0]
     small = resize.resize_linear(imgs, (GIST_SIZE, GIST_SIZE)).contiguous()
     centre = torch.full((C, 1, 2), float(GIST_SIZE // 2), device=imgs.device)
     ang = torch.as_tensor(roll_angle, dtype=torch.float32, device=imgs.device)
     ang = ang.reshape(-1, 1).expand(C, 1).contiguous()
-    _, desc = kops.orb_describe(small, centre, pattern("gist", imgs.device), angles=ang)
+    return kops.DescribeRow(small, centre, pattern("gist", imgs.device), ang)
+
+
+def binary_gist(img: torch.Tensor, roll_angle=0.0) -> torch.Tensor:
+    """Whole-image binary GIST of (H, W) or (C, H, W) images (``gist_row``,
+    K14 on its one row).  Returns (32,) or (C, 32) uint8."""
+    (_, desc), = kops.orb_describe_levels([[gist_row(_batched(img), roll_angle)]])
     return desc[0, 0] if img.dim() == 2 else desc[:, 0]
+
+
+def detect_describe_gist(img: torch.Tensor, roll_angle=0.0, max_keypoints: int = 300,
+                         threshold: float = 20.0, grid: int = 4, n_levels: int = 4,
+                         scale_factor: float = 1.2, descriptor: str = "brief"):
+    """``detect_and_describe`` of (C, H, W) or (H, W) images for a binary
+    family, and camera 0's ``binary_gist`` as the last row of the same K14
+    call: one launch for a keyframe's descriptors.  Returns (Keypoints,
+    descriptors, GIST (32,) uint8), the first two shaped as
+    ``detect_and_describe``'s."""
+    if descriptor == "sift":
+        raise ValueError("detect_describe_gist: the GIST row joins a binary family's K14 call")
+    imgs = _batched(img).to(torch.float32).contiguous()
+    kps, desc, gist = _detect_describe(imgs, max_keypoints, threshold, grid, n_levels,
+                                       scale_factor, descriptor,
+                                       gist=gist_row(imgs[:1], roll_angle))
+    if img.dim() == 2:
+        return Keypoints(*(t[0] for t in kps)), desc[0], gist[0, 0]
+    return kps, desc, gist[0, 0]

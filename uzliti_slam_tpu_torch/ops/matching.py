@@ -7,8 +7,9 @@ distance matrix, the 2-NN with masked pairs at 1e9, Lowe's ratio test and
 ``match_descriptors``.  The reference computes the distances as an int8
 matrix product on unpacked bits (the TPU's form); the port keeps the
 descriptors packed and matches them with kernel K16 (``hamming_top2``:
-XOR and popcount, a running best and second per query, no distance
-matrix), all candidates of a keyframe in one launch.  ``hamming_matrix``
+XOR and popcount, each query's scan split over 8 lanes whose (best,
+second) keys merge by shuffles, no distance matrix), all candidates of a
+keyframe in one launch.  ``hamming_matrix``
 and ``knn_match`` stay as the reference's plain functions.  Ties keep the
 lower index, as XLA's ``top_k``.  Float descriptors go through kernel K30
 (``l2_top2``: the reference's ‖a‖² + ‖b‖² − 2·a·bᵀ in float32 tiles, a

@@ -7,7 +7,8 @@ refinement):
 
 - ``process_keyframe`` ingests one keyframe: the front-end
   (``keyframe_frontend``: the bilateral depth filter K17, features and
-  descriptors K12-K14, the virtual scan K15, the GIST), the map-pose
+  descriptors K12-K14, the GIST in K14's same launch, the virtual scan
+  K15), the map-pose
   bootstrap, the place-recognition query of ``recognition.method`` (the
   GIST, K16; the feature sets, K21; the repository, K22; the bag of words,
   K23 + K24) and the distance candidates, the pair
@@ -630,9 +631,12 @@ def keyframe_frontend(image, depth, cam: cam_mod.PinholeCamera, cam_pose,
     if fc.use_depth_refinement:
         deps = depth_ops.joint_bilateral_filter(deps, imgs)
 
-    kps, desc = features.detect_and_describe(
-        imgs, max_keypoints=k_per_cam, threshold=tn.fast_threshold, grid=fc.grid,
-        n_levels=fc.pyramid_levels, scale_factor=fc.scale_factor, descriptor=fc.descriptor)
+    # the keypoints' descriptors and camera 0's GIST (rolled by its
+    # extrinsic's roll) in one K14 launch
+    kps, desc, gist = features.detect_describe_gist(
+        imgs, roll_angle=lie.roll_of(lie.pose_q(poses[0])), max_keypoints=k_per_cam,
+        threshold=tn.fast_threshold, grid=fc.grid, n_levels=fc.pyramid_levels,
+        scale_factor=fc.scale_factor, descriptor=fc.descriptor)
     ui = torch.clamp(kps.uv[..., 0].to(torch.int32), 0, W - 1).long()
     vi = torch.clamp(kps.uv[..., 1].to(torch.int32), 0, H - 1).long()
     z = torch.gather(deps.reshape(n_cams, -1), 1, vi * W + ui)
@@ -649,7 +653,6 @@ def keyframe_frontend(image, depth, cam: cam_mod.PinholeCamera, cam_pose,
         merged = scan_ops.merge_scans(merged, scan_ops.Scan(
             vscan.ranges[i], vscan.far_ranges[i], vscan.angle_min, vscan.angle_max))
 
-    gist = features.binary_gist(imgs[0], roll_angle=lie.roll_of(lie.pose_q(poses[0])))
     return FrontendOutput(desc=desc.reshape(-1, 32), pts_base=pts_base.reshape(-1, 3),
                           pts_valid=pts_valid.reshape(-1), uv=kps.uv, kp_valid=kps.valid,
                           scan=merged, gist=gist, cloud=cloud)
