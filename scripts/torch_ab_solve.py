@@ -33,9 +33,11 @@ VGA keyframe rung, 10 steps after 3 warm-up ones, 1 camera and the front +
 rear rig: entries "step_1cam", "step_2cam") and "rereg" 13d's
 ``Slam.reregister_scans`` on the 1-camera Slam (its state restored before
 each call); each reports wall ms, a profiled call's device ms, device
-launches and busy share, and K18's, K13's, K14's and K16's (by entry)
-device ms in it; "step" also times K14's and K16's wrapper calls of that
-profiled step with CUDA events (ms a step, K16 by entry, K14's calls):
+launches and busy share, and K12's, K17's, K18's, K13's, K14's and K16's
+(by entry) device ms in it; "step" also times K12's, K14's, K16's and K17's
+wrapper calls of that profiled step with CUDA events (ms a step, K16 by
+entry, K12's and K14's calls) and K12's and K17's calls queued back to back
+(device ms a step that no profile can drop):
 
     python3 scripts/torch_ab_solve.py --base build/parent --sizes step,rereg --pairs 3
 Prints one JSON line a process, then per size each side's medians and how
@@ -121,6 +123,8 @@ def factor_times(args):
 
 
 STEP_FUNCTIONS = {
+    "k12": ("fast_nms",),
+    "k17": ("bilateral",),
     "k18": ("icp_problems", "icp_cluster"),
     "k13": ("cell_topk", "global_topk", "grid_cells", "grid_global"),
     "k14": ("box_blur<2>", "::describe(", "orb_describe_rows"),
@@ -129,17 +133,24 @@ STEP_FUNCTIONS = {
 
 
 def step_kernel_ms(names):
-    """K18's, K13's, K14's and K16's (by entry) device ms in a profile
-    (either checkout's function names)."""
-    out = {f"{k}_device_ms": sum(v for key, v in names.items() if any(f in key for f in fs))
-           for k, fs in STEP_FUNCTIONS.items()}
-    out["k16_device_ms"] = out["k16_match_device_ms"] + out["k16_gist_device_ms"]
+    """K12's, K17's, K18's, K13's, K14's and K16's (by entry) device ms in a
+    profile (either checkout's function names); None where the profile holds
+    none of the kernel's functions."""
+    out = {}
+    for k, fs in STEP_FUNCTIONS.items():
+        hits = [v for key, v in names.items() if any(f in key for f in fs)]
+        out[f"{k}_device_ms"] = sum(hits) if hits else None
+    parts = (out["k16_match_device_ms"], out["k16_gist_device_ms"])
+    out["k16_device_ms"] = None if None in parts else sum(parts)
     return out
 
 
 def step_kernel_event_ms(calls):
-    """K14's and K16's wrapper calls of one step (either checkout's
-    wrappers) timed with CUDA events: ms a step, and K14's calls."""
+    """K12's, K14's, K16's and K17's wrapper calls of one step (either
+    checkout's wrappers) timed with CUDA events: ms a step, and K12's and
+    K14's calls; K12's and K17's also queued back to back behind a sleep
+    kernel (``chip_smoke.queued_device_ms``: device ms a step that no
+    profile can drop)."""
     k14 = [w for w in ("orb_describe", "orb_describe_levels") if w in calls]
 
     def run(ws):
@@ -147,7 +158,12 @@ def step_kernel_event_ms(calls):
             for a, kw in calls[w]:
                 getattr(kops, w)(*a, **kw)
 
-    return {"k14_ms": cs.time_call(lambda: run(k14)), "k14_calls": sum(len(calls[w]) for w in k14),
+    return {"k12_ms": cs.time_call(lambda: run(["fast_nms"])),
+            "k12_calls": len(calls["fast_nms"]),
+            "k12_queued_device_ms": cs.queued_device_ms(lambda: run(["fast_nms"])),
+            "k17_ms": cs.time_call(lambda: run(["bilateral"])),
+            "k17_queued_device_ms": cs.queued_device_ms(lambda: run(["bilateral"])),
+            "k14_ms": cs.time_call(lambda: run(k14)), "k14_calls": sum(len(calls[w]) for w in k14),
             "k16_match_ms": cs.time_call(lambda: run(["hamming_top2"])),
             "k16_gist_ms": cs.time_call(lambda: run(["gist_topk"])),
             "k16_ms": cs.time_call(lambda: run(["hamming_top2", "gist_topk"]))}
@@ -188,8 +204,9 @@ def step_entries(do_step, do_rereg, reps):
 
         prof, names = cs.device_profile(late_step)
         if do_step:
-            wrappers = tuple(w for w in ("orb_describe", "orb_describe_levels", "hamming_top2",
-                                         "gist_topk") if hasattr(kops, w))
+            wrappers = tuple(w for w in ("fast_nms", "bilateral", "orb_describe",
+                                         "orb_describe_levels", "hamming_top2", "gist_topk")
+                             if hasattr(kops, w))
             res[f"step_{n_cams}cam"] = {
                 "ms_median": statistics.median(ts), "ms": ts, "port_launches": launches,
                 **{k: prof.get(k) for k in ("device_launches", "device_kernel_ms",
@@ -299,9 +316,10 @@ print(json.dumps(out))
 
 
 # the step's per-kernel figures each side reports
-STEP_KEYS = ("k18_device_ms", "k13_device_ms", "k14_device_ms", "k16_device_ms",
-             "k16_match_device_ms", "k16_gist_device_ms", "k14_ms", "k14_calls", "k16_ms",
-             "k16_match_ms", "k16_gist_ms")
+STEP_KEYS = ("k12_device_ms", "k17_device_ms", "k18_device_ms", "k13_device_ms",
+             "k14_device_ms", "k16_device_ms", "k16_match_device_ms", "k16_gist_device_ms",
+             "k12_ms", "k12_calls", "k12_queued_device_ms", "k17_ms", "k17_queued_device_ms",
+             "k14_ms", "k14_calls", "k16_ms", "k16_match_ms", "k16_gist_ms")
 
 
 def run_side(tree: Path, sizes: str, reps: int) -> dict:

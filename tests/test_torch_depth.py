@@ -63,6 +63,36 @@ def test_filter_matches_compiled_jax(seed):
     assert _ulps(got, ref) <= DEPTH_ULPS
 
 
+def _special_scene(case: str):
+    """``_scene(5)`` with depths -1 and -0 beside its 0, NaN and +inf holes
+    (a quarter of them on the image border), under its uint8 guide or under
+    a fractional guide (uint8 + a uniform fraction: K17 takes expf at each
+    tap there, not its colour table)."""
+    depth, guide = _scene(5)
+    rng = np.random.default_rng(6)
+    spots = rng.random(depth.shape)
+    depth[spots < 0.03] = -1.0
+    depth[(spots >= 0.03) & (spots < 0.06)] = -0.0
+    depth[0, ::3] = -0.0
+    depth[-1, 1::4] = -1.0
+    depth[::5, 0] = np.nan
+    depth[2::6, -1] = np.inf
+    if case == "fractional_guide":
+        guide = (guide + rng.uniform(0.0, 1.0, guide.shape)).astype(np.float32)
+    return depth, guide
+
+
+@pytest.mark.parametrize("case", ["negative_and_signed_zero_depths", "fractional_guide"])
+def test_filter_matches_compiled_jax_on_special_depths_and_guides(case):
+    depth, guide = _special_scene(case)
+    ref = _jax_filter(depth, guide)
+    got = tdepth.joint_bilateral_filter(torch.from_numpy(depth), torch.from_numpy(guide)).numpy()
+    np.testing.assert_array_equal(got == 0, ref == 0)
+    assert (ref == 0).sum() > 0 and np.isfinite(ref).all() and np.isfinite(got).all()
+    assert not np.signbit(got).any()
+    assert _ulps(got, ref) <= DEPTH_ULPS
+
+
 def test_filter_on_a_camera_batch_matches_per_camera():
     scenes = [_scene(s) for s in (3, 4)]
     depth = torch.from_numpy(np.stack([d for d, _ in scenes]))

@@ -358,6 +358,7 @@ def _frontend_cases():
     xf = scan.depth_camera_transform(pose)
     return [
         ("fast_nms", (img, 20.0)),
+        ("fast_nms", ([img, img[:, 5:50, 3:64].contiguous()], 20.0)),
         ("grid_topk", (score, 16, 4)),
         ("grid_topk", (score, 8, 4)),
         ("orb_describe_levels", ([[kops.DescribeRow(img, uv, features.pattern("brief", "cpu")),
@@ -368,14 +369,14 @@ def _frontend_cases():
     ]
 
 
-@pytest.mark.parametrize("case", range(5), ids=["fast_nms", "grid_topk", "grid_topk_global",
-                                                 "orb_describe", "scan_bins"])
+@pytest.mark.parametrize("case", range(6), ids=["fast_nms", "fast_nms_levels", "grid_topk",
+                                                 "grid_topk_global", "orb_describe", "scan_bins"])
 def test_frontend_kernel_wrappers_run_their_plain_version_on_cpu(case):
     name, args = _frontend_cases()[case]
     kops.reset_launches()
     got, ref = getattr(kops, name)(*args), getattr(kops, f"{name}_plain")(*args)
-    for a, b in zip(got if isinstance(got, tuple) else (got,),
-                    ref if isinstance(ref, tuple) else (ref,)):
+    for a, b in zip(got if isinstance(got, (tuple, list)) else (got,),
+                    ref if isinstance(ref, (tuple, list)) else (ref,)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert kops.launches == {k: 0 for k in kops.launches}
 
@@ -383,8 +384,30 @@ def test_frontend_kernel_wrappers_run_their_plain_version_on_cpu(case):
 def test_frontend_kernels_launch_through_the_library(fake_lib):
     from uzliti_slam_tpu_torch.frontend import camera
 
+    # K12: every level in one launch, the levels in a host table of (img,
+    # out, H, W) rows read while the call runs; the maps are views of one
+    # buffer, laid end to end
+    nms_tables = []
+
+    def fast_nms_levels(levels, n_levels, C, t, stream):
+        nms_tables.append(np.array((ctypes.c_longlong * (4 * n_levels)).from_address(levels)))
+        fake_lib.calls.append(("uz_fast_nms_levels", (levels, n_levels, C, t, stream)))
+        return 0
+
+    fake_lib.uz_fast_nms_levels = fast_nms_levels
+    shapes = [(480, 640), (400, 533), (333, 444), (278, 370)]
+    maps = kops.fast_nms([_meta(2, h, w) for h, w in shapes], 20.0)
+    assert kops.launches["fast_nms"] == 1
+    assert fake_lib.calls[-1][0] == "uz_fast_nms_levels"
+    assert fake_lib.calls[-1][1][1:4] == (4, 2, 20.0)
+    assert nms_tables[-1].reshape(4, 4)[:, 2:].tolist() == [list(hw) for hw in shapes]
+    assert [tuple(m.shape) for m in maps] == [(2, h, w) for h, w in shapes]
+    assert all(m._base is maps[0]._base for m in maps) and all(m.is_contiguous() for m in maps)
+    assert [m.storage_offset() for m in maps] == [0, 614400, 1040800, 1336504]
+    # one level's tensor: one row, its one map
     assert tuple(kops.fast_nms(_meta(2, 48, 64), 20.0).shape) == (2, 48, 64)
-    assert fake_lib.calls[-1][0] == "uz_fast_nms" and fake_lib.calls[-1][1][1:5] == (2, 48, 64, 20.0)
+    assert fake_lib.calls[-1][1][1:4] == (1, 2, 20.0)
+    assert nms_tables[-1].tolist()[2:] == [48, 64]
     # 16 cells x 4 = k_total: no scratch; 16 cells x 1 > 8: the global top-k's scratch;
     # (levels, C, grid, k_cell, k_total, scratch) after the host table of levels
     uv, resp, valid = kops.grid_topk(_meta(2, 48, 64), 64, 4)
@@ -434,7 +457,7 @@ def test_frontend_kernels_launch_through_the_library(fake_lib):
     assert fake_lib.calls[-1][0] == "uz_scan_bins" and args[2:5] == (2, 48, 64)
     assert args[9] == 360 and args[12] == pytest.approx(360 / (2 * np.pi), rel=1e-6)
     assert args[17] == pytest.approx((2**21 - 1) / 6.006, rel=1e-6)
-    assert kops.launches["fast_nms"] == 1 and kops.launches["grid_topk"] == 3
+    assert kops.launches["fast_nms"] == 2 and kops.launches["grid_topk"] == 3
     assert kops.launches["orb_describe"] == 1 and kops.launches["scan_bins"] == 1
 
 
@@ -445,6 +468,17 @@ def test_frontend_kernel_argument_checks_raise(fake_lib, monkeypatch):
         kops.fast_nms(_meta(48, 64), 20.0)
     with pytest.raises(TypeError, match="img: dtype"):
         kops.fast_nms(_meta(1, 48, 64, dtype=torch.float64), 20.0)
+    # the levels of one call: the same cameras, at most 8, float32, contiguous
+    with pytest.raises(ValueError, match="img: shape"):
+        kops.fast_nms([_meta(2, 48, 64), _meta(1, 40, 53)], 20.0)
+    with pytest.raises(ValueError, match="1..8"):
+        kops.fast_nms([_meta(1, 48, 64)] * 9, 20.0)
+    with pytest.raises(ValueError, match="1..8"):
+        kops.fast_nms([], 20.0)
+    with pytest.raises(TypeError, match="img: dtype"):
+        kops.fast_nms([_meta(1, 48, 64), _meta(1, 40, 53, dtype=torch.float64)], 20.0)
+    with pytest.raises(ValueError, match="img: not contiguous"):
+        kops.fast_nms([_meta(1, 48, 64), _meta(1, 53, 40).transpose(1, 2)], 20.0)
     with pytest.raises(ValueError, match="per cell"):
         kops.grid_topk(_meta(1, 8, 8), 128, 4)
     with pytest.raises(ValueError, match="per cell"):
@@ -575,6 +609,10 @@ def test_keyframe_kernels_launch_through_the_library(fake_lib):
     args = fake_lib.calls[-1][1]
     assert fake_lib.calls[-1][0] == "uz_bilateral" and args[2:5] == (2, 480, 640)
     assert args[6] == kops.NEG_INV_2SC2 and tuple(out.shape) == (2, 480, 640)
+    # the 25 spatial weights: one host table a process, the same on every call
+    table = kops.bilateral_spatial_host()
+    assert args[5] == table.buffer_info()[0] and list(table) == list(kops.bilateral_spatial())
+    assert args[8] is None      # no tile paths asked for
     pose, frac, mse, cov, iok = kops.icp(_meta(1, 360, 2), _meta(1, 360, dtype=b),
                                          _meta(1, 360, 2), _meta(1, 360, dtype=b), _meta(1, 3),
                                          20, 0.25, 0.25, 1.5, 0.8, 0.0004)
@@ -589,6 +627,12 @@ def test_keyframe_kernels_launch_through_the_library(fake_lib):
     # the matching and the GIST query are one kernel, one count
     assert kops.launches["hamming_top2"] == 4
     assert kops.launches["bilateral"] == 1 and kops.launches["icp"] == 2
+    # with the tile paths: a (C, ceil(H / 16), ceil(W / 32)) int32 map
+    out, paths = kops.bilateral(_meta(2, 470, 630), _meta(2, 470, 630), tile_paths=True)
+    args = fake_lib.calls[-1][1]
+    assert args[5] == kops.bilateral_spatial_host().buffer_info()[0] and args[8] is not None
+    assert tuple(paths.shape) == (2, 30, 20) and paths.dtype == torch.int32
+    assert kops.launches["bilateral"] == 2
 
 
 def test_keyframe_kernel_argument_checks_raise(fake_lib):

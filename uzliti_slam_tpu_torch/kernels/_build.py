@@ -63,14 +63,14 @@ SIGNATURES = {
     "uz_pcg_grid_step": [_P, _F, _P, _I, _I, _I, _P] + [_P] * 6 + [_L, _P, _I, _P],
     "uz_project_rays": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _F,
                         _F, _I, _F, _P, _P],
-    "uz_fast_nms": [_P, _I, _I, _I, _F, _P, _P],
+    "uz_fast_nms_levels": [_P, _I, _I, _F, _P],
     "uz_grid_topk": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "uz_orb_describe_rows": [_P, _I, _P],
     "uz_scan_bins": [_P, _P, _I, _I, _I, _F, _F, _F, _F, _I, _F, _F, _F, _F, _F, _F, _F, _F,
                      _F, _P, _P, _P],
     "uz_hamming_top2": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P],
     "uz_gist_topk": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _P, _P, _P, _P],
-    "uz_bilateral": [_P, _P, _I, _I, _I, _P, _F, _P, _P],
+    "uz_bilateral": [_P, _P, _I, _I, _I, _P, _F, _P, _P, _P],
     "uz_icp": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P, _P],
     "uz_bin_min_max": [_P, _P, _P, _I, _I, _I, _F, _F, _P, _P],
     "uz_merge_pairs": [_P, _P, _P, _I, _F, _F, _I, _P, _P, _P, _P, _P],

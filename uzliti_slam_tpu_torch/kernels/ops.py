@@ -36,7 +36,8 @@ pcg            csrc/pcg.cu             graph/solver.py:_pcg's vector updates
                                        wrappers, one count)
 project_rays   csrc/occupancy.cu       mapping/occupancy.py:_project_rays +
                                        _mark_node_cells
-fast_nms       csrc/fast_nms.cu        ops/features.py:fast_score + nms
+fast_nms       csrc/fast_nms.cu        ops/features.py:fast_score + nms (every
+                                       pyramid level in one launch)
 grid_topk      csrc/grid_topk.cu       ops/features.py:select_topk_grid
 orb_describe   csrc/orb_describe.cu    ops/features.py:_sep_blur +
                                        intensity_centroid_angles +
@@ -128,6 +129,7 @@ from __future__ import annotations
 
 import array
 import ctypes
+import functools
 import math
 import weakref
 from typing import NamedTuple
@@ -1865,25 +1867,48 @@ def _images(name: str, t: torch.Tensor) -> tuple[int, int, int]:
 
 def fast_nms_plain(img, threshold: float):
     """Plain version of K12: ``nms(fast_score(img, threshold))`` of (C, H,
-    W) float32 images."""
+    W) float32 images, or of each level of a list of them."""
     from uzliti_slam_tpu_torch.ops import features
 
+    if not isinstance(img, torch.Tensor):
+        return [fast_nms_plain(level, threshold) for level in img]
     return features.nms(features.fast_score(img, threshold))
 
 
-def fast_nms(img, threshold: float):
-    """K12: FAST-9/16 scores with the border mask and the 3x3 NMS fused,
-    (C, H, W) float32 -> (C, H, W) float32; one launch per pyramid level."""
-    if img.device.type == "cpu":
-        return fast_nms_plain(img, threshold)
-    C, H, W = _images("img", img)
-    ptr = _check("img", img, (C, H, W), torch.float32, img.device)
+FAST_NMS_MAX_LEVELS = 8     # kMaxLevels in csrc/fast_nms.cu
+
+
+def fast_nms(imgs, threshold: float):
+    """K12: FAST-9/16 scores with the border mask and the 3x3 NMS fused, of
+    every level of ``imgs`` (a list of (C, H, W) float32 tensors, the
+    cameras alike) in one launch, one CTA per 32 x 32 tile of any level;
+    returns the list of (C, H, W) score maps, views of one buffer laid end
+    to end.  One level's tensor gives its one map."""
+    one = isinstance(imgs, torch.Tensor)
+    levels = [imgs] if one else list(imgs)
+    if not 1 <= len(levels) <= FAST_NMS_MAX_LEVELS:
+        raise ValueError(f"fast_nms: {len(levels)} levels, the kernel takes "
+                         f"1..{FAST_NMS_MAX_LEVELS}")
+    if levels[0].device.type == "cpu":
+        return fast_nms_plain(imgs, threshold)
+    dev = levels[0].device
+    C = _images("img", levels[0])[0]
+    shapes = [_images("img", img)[1:] for img in levels]
+    ptrs = [_check("img", img, (C, H, W), torch.float32, dev)
+            for img, (H, W) in zip(levels, shapes)]
+    buf = torch.empty(sum(C * H * W for H, W in shapes), dtype=torch.float32, device=dev)
+    outs = [m.view(C, H, W) for m, (H, W) in zip(buf.split([C * H * W for H, W in shapes]),
+                                                  shapes)]
+    table = []
+    for ptr, out, (H, W) in zip(ptrs, outs, shapes):
+        table += [ptr, out.data_ptr(), H, W]
     lib = _build.load()
-    out = torch.empty_like(img)
-    err = lib.uz_fast_nms(ptr, C, H, W, float(threshold), out.data_ptr(), _stream(img.device))
+    host = array.array("q", table)      # the table's 64-bit rows, alive through the call
+    err = lib.uz_fast_nms_levels(host.buffer_info()[0], len(levels), C, float(threshold),
+                                 _stream(dev))
     _raise_on(err, "fast_nms")
     launches["fast_nms"] += 1
-    return out
+    return outs[0] if one else outs
 
 
 # ---------------------------------------------------------------------------
@@ -2525,22 +2550,56 @@ def bilateral_plain(depth, guide):
     return torch.where(den > 1e-6, num / torch.clamp(den, min=1e-9), 0.0)
 
 
-def bilateral(depth, guide):
-    """K17: one thread per pixel over a shared-memory tile with a halo of 2,
-    cameras on the grid; (C, H, W) float32 -> (C, H, W) float32."""
+BILATERAL_TILE = (16, 32)    # kTy x kTx in csrc/bilateral.cu
+
+
+@functools.cache
+def bilateral_spatial_host() -> array.array:
+    """``bilateral_spatial()`` as a float32 host array, built once per
+    process: the table K17's entry copies into its launch."""
+    return array.array("f", bilateral_spatial())
+
+
+def bilateral_tile_paths_plain(guide):
+    """Which colour path each of K17's tiles takes on (C, H, W) guides: (C,
+    ceil(H / 16), ceil(W / 32)) int32, 1 where every guide value of the tile
+    and its halo of 2 (0 outside the image) is an integer in [0, 255] (the
+    colour table), 0 where the kernel evaluates expf at each tap."""
+    C, H, W = guide.shape
+    ty, tx = BILATERAL_TILE
+    r = BILATERAL_RADIUS
+    ny, nx = -(-H // ty), -(-W // tx)
+    ok = (guide >= 0) & (guide <= 255) & (guide == torch.trunc(guide))
+    pad = torch.ones(C, ny * ty + 2 * r, nx * tx + 2 * r, dtype=torch.bool, device=guide.device)
+    pad[:, r: r + H, r: r + W] = ok
+    bad = torch.nn.functional.max_pool2d((~pad)[:, None].to(torch.float32),
+                                         (ty + 2 * r, tx + 2 * r), stride=(ty, tx))
+    return (bad[:, 0] == 0).to(torch.int32)
+
+
+def bilateral(depth, guide, tile_paths: bool = False):
+    """K17: a CTA per 32 x 16 tile over shared tiles of the masked depth and
+    the guide with a halo of 2, two pixels a thread, cameras on the grid;
+    the colour weights from a table where the tile's guides are all integers
+    in [0, 255]; (C, H, W) float32 -> (C, H, W) float32.  With
+    ``tile_paths``, also returns which path each tile took (the layout of
+    ``bilateral_tile_paths_plain``, which answers on CPU tensors)."""
     if depth.device.type == "cpu":
-        return bilateral_plain(depth, guide)
+        out = bilateral_plain(depth, guide)
+        return (out, bilateral_tile_paths_plain(guide)) if tile_paths else out
     dev, f32 = depth.device, torch.float32
     C, H, W = _images("depth", depth)
     ptrs = [_check("depth", depth, (C, H, W), f32, dev), _check("guide", guide, (C, H, W), f32, dev)]
     lib = _build.load()
     out = torch.empty_like(depth)
-    table = (ctypes.c_float * len(bilateral_taps()))(*bilateral_spatial())
-    err = lib.uz_bilateral(*ptrs, C, H, W, ctypes.addressof(table), NEG_INV_2SC2, out.data_ptr(),
-                           _stream(dev))
+    ty, tx = BILATERAL_TILE
+    paths = (torch.empty(C, -(-H // ty), -(-W // tx), dtype=torch.int32, device=dev)
+             if tile_paths else None)
+    err = lib.uz_bilateral(*ptrs, C, H, W, bilateral_spatial_host().buffer_info()[0],
+                           NEG_INV_2SC2, out.data_ptr(), _ptr(paths), _stream(dev))
     _raise_on(err, "bilateral")
     launches["bilateral"] += 1
-    return out
+    return (out, paths) if tile_paths else out
 
 
 # ---------------------------------------------------------------------------

@@ -11,8 +11,8 @@ with validity masks.
 Every image function takes a camera batch: (C, H, W), or (H, W) for one
 camera.  ``detect_and_describe``, ``detect_describe_gist``,
 ``select_topk_grid`` and ``binary_gist`` run the hand-written kernels K12
-(``fast_nms``), K13 (``grid_topk``: all pyramid levels in one launch) and
-K14 (``orb_describe_levels``: every level, all cameras, and with
+(``fast_nms``) and K13 (``grid_topk``), each on all pyramid levels in one
+launch, and K14 (``orb_describe_levels``: every level, all cameras, and with
 ``detect_describe_gist`` the GIST, in one launch) through
 ``kernels/ops.py``: on CPU tensors those
 wrappers run their plain versions, which are built from ``fast_score``,
@@ -303,12 +303,12 @@ def _detect_describe(imgs: torch.Tensor, max_keypoints: int, threshold: float, g
         raise ValueError(f"unknown descriptor family {descriptor!r}")
     C, H, W = imgs.shape
     k_level = max(max_keypoints // n_levels, 1)
-    # every level's resize and K12 first, then K13 once for all levels, then
+    # every level's resize, then K12 once and K13 once for all levels, then
     # the descriptors of every level (the keypoints stay level-major)
     shapes = pyramid_shapes(H, W, n_levels, scale_factor)
     curs = [imgs if (h, w) == (H, W) else resize.resize_linear(imgs, (h, w)).contiguous()
             for _, (h, w) in shapes]
-    uvs, resp, valid = kops.grid_topk([kops.fast_nms(cur, threshold) for cur in curs], k_level,
+    uvs, resp, valid = kops.grid_topk(kops.fast_nms(curs, threshold), k_level,
                                       grid)                      # (levels, C, k_level, ...)
     gist_desc = None
     if descriptor == "sift":
@@ -339,8 +339,9 @@ def _detect_describe(imgs: torch.Tensor, max_keypoints: int, threshold: float, g
 def detect_and_describe(img: torch.Tensor, max_keypoints: int = 300, threshold: float = 20.0,
                         grid: int = 4, n_levels: int = 4, scale_factor: float = 1.2,
                         descriptor: str = "brief"):
-    """FAST + NMS (K12), grid top-K (K13) and orientation + descriptors
-    over an image pyramid of (C, H, W) or (H, W) images.
+    """FAST + NMS (K12) and grid top-K (K13), each one launch for all
+    levels, and orientation + descriptors over an image pyramid of (C, H,
+    W) or (H, W) images.
 
     Returns (Keypoints, descriptors) with K == max_keypoints exactly: each
     level takes ⌊max_keypoints / n_levels⌋ (at least 1) and the remainder
