@@ -39,7 +39,12 @@ runs, in order, each phase printing lines of its own:
    (events and device ms) against the three calls it replaces in turns;
    each epoch kernel (K5 relax_min, K6
    cluster_labels, K7 ransac_rigid, K8 components) on the inputs the
-   500-node and 10k-node epochs give it, K8's grid route on the 100k-node
+   500-node and 10k-node epochs give it (K7 with its draw folded in: its
+   triplets against the plain mapping of the same uniforms, exact but for
+   targets within 4 ulps of a running-sum boundary, then the rest on its
+   own triplets; also on a late keyframe step's calls, 1 camera and the
+   rig, one of them profiled as one torch.rand and one K7 launch, and on
+   edge cases), K8's grid route on the 100k-node
    solve's inputs, and K11 project_rays on a 500-node full rebuild, an
    8-new-node incremental pass and a 10k-node full rebuild, and the
    front-end's kernels (K12 fast_nms on all four pyramid levels, K13
@@ -131,9 +136,10 @@ runs, in order, each phase printing lines of its own:
    two launch forms timed, the same edges on CPU tensors); (e) ``Slam.calibrate`` on a
    1k-node biased-odometry graph (K20): the drift recovered within 2e-2,
    then the calibrated solve against the uncalibrated one and on CPU
-   tensors.  Phase 3 holds K19 and ``bin_min_max`` (exactly) and K20 (θ
-   within 1e-4) against their plain versions on the arguments those paths
-   give them;
+   tensors.  Phase 3 holds K19 and ``bin_min_max`` (exactly; the latter
+   also on NaN, ±inf, range-limit, bin-edge and band-limit points and an
+   empty scan) and K20 (θ within 1e-4) against their plain versions on the
+   arguments those paths give them;
 14. the other place recognizers: (c) the keyframe step of phase 11 (VGA, 1
    camera, the same frames and settings) with ``recognition.method``
    "feature_set" (K21), "repository" (K22) and "bow" (K23 + K24, after a
@@ -324,6 +330,11 @@ TERNARY_NEAR = 1e-4
 RELAX_MAX_ULP = 1
 RANSAC_POSE_ATOL = 1e-4      # refit pose, per component
 RANSAC_NEAR_REL = 1e-5       # a point this close to the inlier radius may flip
+# K7's draw against the plain mapping of the same uniforms on the card: the
+# running sums are the kernel's exact double sums rounded against
+# torch.cumsum's float32 scan, so a triplet may differ only where the plain
+# target lies this many ulps of the row's total from a running-sum boundary
+DRAW_BOUNDARY_ULPS = 4
 # K12, K13 and K15 are held exactly (the same float operations in the same
 # order; integer minima); K14's descriptors exactly given the plain
 # version's angles, its own angles within ANGLE_ATOL rad (moment sums in
@@ -346,7 +357,7 @@ REPLACES = {
     "relax_min": "uzliti_slam_tpu/graph/shortest_path.py:29 (shortest_paths)",
     "cluster_labels": "uzliti_slam_tpu/graph/filter.py:66 (_cluster_labels)",
     "ransac_rigid": "uzliti_slam_tpu/ops/ransac.py:123 (ransac_rigid)"
-                    " + :54 (kabsch_quat) + :32 (kabsch)",
+                    " + :96 (_valid_sample) + :54 (kabsch_quat) + :32 (kabsch)",
     "components": "uzliti_slam_tpu/graph/solver.py:212 (connected_components)"
                   " + :242 (gauge_fix_mask)",
     "chain_factor": "uzliti_slam_tpu/graph/tridiag.py:145 (block_tridiag_factor)"
@@ -376,7 +387,8 @@ REPLACES = {
 REPLACES.update({
     "merge_pairs": "uzliti_slam_tpu/graph/lifecycle.py:77 (find_merge_pairs)",
     "calib_gn": "uzliti_slam_tpu/graph/calibration.py:63 (calibrate)",
-    "bin_min_max": "uzliti_slam_tpu/ops/scan.py:38 (_bin_min_max) via :166 (points_to_scan)",
+    "bin_min_max": "uzliti_slam_tpu/ops/scan.py:166 (points_to_scan) + :72 (cloud_to_scan)"
+                   " with :38 (_bin_min_max)",
 })
 SOURCE = {k: f"uzliti_slam_tpu_torch/csrc/{k}.cu" for k in REPLACES}
 SOURCE["project_rays"] = "uzliti_slam_tpu_torch/csrc/occupancy.cu"
@@ -421,13 +433,13 @@ MAINT_KERNELS = ("merge_pairs", "calib_gn", "bin_min_max")
 FRONTEND_DEVICE_FUNCTIONS = {"fast_nms": ("fast_nms_levels",),
                              "grid_topk": ("grid_cells", "grid_global"),
                              "orb_describe": ("orb_describe_rows",),
-                             "scan_bins": ("init_table", "scan_pixels", "finalize"),
+                             "scan_bins": ("scan_grid",),
                              "hamming_top2": ("match_top2_lanes", "gist_topk_cluster"),
                              "bilateral": ("bilateral_tile",), "icp": ("icp_cluster",),
-                             "ransac_rigid": ("ransac_roots",),
+                             "ransac_rigid": ("ransac_draw_fit",),
                              "merge_pairs": ("row_keys", "greedy_rounds"),
                              "calib_gn": ("init_theta", "calib_edges", "calib_solve"),
-                             "bin_min_max": ("bin_rows",),
+                             "bin_min_max": ("bin_points",),
                              "feature_votes": ("node_sims", "topk_sims"),
                              "repository": ("nearest_chunk", "nearest_finish", "desc_hits",
                                             "topk_votes"),
@@ -769,14 +781,14 @@ DEVICE_FUNCTIONS = ("sift_keypoints", "linearize_rows", "hvp_seed",
                     "pcg_init", "pcg_alpha", "pcg_beta", "grid_dots", "grid_init",
                     "grid_alpha", "grid_beta", "project_cells",
                     "residual_edges", "sum_partials",
-                    "relax_rows", "cluster_rounds", "ransac_roots", "components_cta",
+                    "relax_rows", "cluster_rounds", "ransac_draw_fit", "components_cta",
                     "gauge_cta", "k_init_labels", "k_scatter_min", "k_jump_out", "k_jump",
                     "k_gauge_init", "k_gauge_reduce_stamp", "k_gauge_reduce_slot",
                     "k_gauge_write", "fast_nms_levels", "grid_global", "grid_cells", "box_blur",
-                    "orb_describe_rows", "scan_pixels", "init_table", "finalize",
+                    "orb_describe_rows", "scan_grid",
                     "match_top2_lanes", "gist_topk_cluster", "bilateral_tile", "icp_cluster",
                     "row_keys",
-                    "greedy_rounds", "init_theta", "calib_edges", "calib_solve", "bin_rows",
+                    "greedy_rounds", "init_theta", "calib_edges", "calib_solve", "bin_points",
                     "voxel_sort_chunks", "voxel_merge", "voxel_accumulate", "voxel_finish",
                     "knn_normals_kernel", "gicp_problems", "pnp_hypotheses_kernel",
                     "pnp_refine_kernel", "l2_top2_tiles", "uid_slots_kernel", "edge_key_kernel",
@@ -1025,13 +1037,26 @@ def kernel_work(name: str, args) -> tuple[int, int]:
         b, nv = sf.shape[0], int(valid.sum())
         return _nbytes(sf, st, valid) + 4 * b, n_iters * nv * nv * 6
     if name == "ransac_rigid":
-        src, dst, valid, tri, *_ = args
+        # the tables, flags (and weights) read once, the outputs written
+        # once; per root K Horn fits (~1350) and the refit (~2000), per valid
+        # point K consensus tests (~40) and the refit's sums (~110).  The
+        # draw, where the kernel makes it: the uniforms (and quality) read,
+        # the triplets written; per entry its weight (~25 with the exp) and
+        # the scan, per uniform a bisection of log2(M) steps
+        src, dst, valid, tri, _, _, _, weights, *draw = args + (None,) * (10 - len(args))
+        uniforms, quality = draw
         R, M, _ = src.shape
-        K = tri.shape[1]
+        K = tri.shape[1] if tri is not None else uniforms.shape[1] // 3
         roots, points = int(valid.any(-1).sum()), int(valid.sum())
         table = sum(12 * M * (1 if t.stride(0) == 0 else R) for t in (src, dst))
-        return (table + _nbytes(valid, tri) + R * (4 * (7 + 1 + 1 + 36 + 1) + 1) + 4 * R * K,
-                roots * (1350 * K + 2000) + points * (40 * K + 110))
+        inputs = _nbytes(valid, *(t for t in (weights, tri, uniforms, quality) if t is not None))
+        nbytes = table + inputs + R * (4 * (7 + 1 + 1 + 36 + 1) + 1) + 4 * R * K
+        ops = roots * (1350 * K + 2000) + points * (40 * K + 110)
+        if tri is None:
+            nbytes += 12 * R * K
+            ops += R * M * (25 if quality is not None else 2) + 3 * R * K * (
+                2 + 2 * max(M - 1, 1).bit_length())
+        return nbytes, ops
     if name == "components":
         ef, et, ev, nv, nf, stamp, n, iters = args
         return (_nbytes(ef, et, ev, nv, nf, stamp) + 5 * n,
@@ -1137,9 +1162,11 @@ def kernel_work(name: str, args) -> tuple[int, int]:
     if name == "scan_bins":
         # depth and transforms read once, near and far written once; ~60
         # operations per pixel (backprojection, extrinsic, range, atan2 as
-        # ~20, tests, bin, the two atomics)
+        # ~20, tests, bin, the two atomics); the cluster's merge: per bin of
+        # a camera 16 tables' min and max and the write-back (~36)
         depth, _, xf, n_bins, *_ = args
-        return _nbytes(depth, xf) + 8 * depth.shape[0] * n_bins, 60 * depth.numel()
+        return (_nbytes(depth, xf) + 8 * depth.shape[0] * n_bins,
+                60 * depth.numel() + 36 * depth.shape[0] * n_bins)
     if name == "hamming_top2":
         # the query and the candidates' stored descriptors and flags read
         # once, idx, ok and best written once; per valid (query, stored) pair
@@ -1193,12 +1220,15 @@ def kernel_work(name: str, args) -> tuple[int, int]:
         return ((iters + 1) * _nbytes(Xi, Xj, meas, is_s, is_o, sf, st, L0) + 4 * (P + iters + 1),
                 (iters + 1) * (groups * (2400 * (P + 1) + 12 * nt) + P ** 3))
     if name == "bin_min_max":
-        # ranges, flags and bins read once, near and far written once; per
-        # valid entry a multiply, the clip, the conversion and the two
-        # atomics, per bin the write-back
-        rng, ok, bins, n_bins, _ = args
-        b = rng.numel() // rng.shape[-1]
-        return _nbytes(rng, ok, bins) + 8 * b * n_bins, 6 * int(ok.sum()) + 4 * b * n_bins
+        # points and flags read once, near and far written once; per valid
+        # point the range (abs, max, min, a division, a fused multiply-add,
+        # a square root, a product: ~12), the bearing (atan2, ~20), the gates
+        # (~6), the bin and quantised range (~8) and the two atomics; per bin
+        # the write-back
+        points, valid, n_bins, *_ = args
+        b = valid.numel() // valid.shape[-1]
+        return (_nbytes(points, valid) + 8 * b * n_bins,
+                48 * int(valid.sum()) + 4 * b * n_bins)
     if name == "feature_votes":
         # the query and the eligible nodes' descriptors and flags read once,
         # stamps and flags of every node, the top-k written once; 24 per
@@ -2120,8 +2150,9 @@ def compare_project(args, label: str, large: bool, trials: int = 21, calls: int 
 
 def epoch_kernel_inputs(state, cfg) -> dict:
     """The inputs K5-K8 get in an epoch on ``state``: the heuristic's (B, N)
-    relaxation, the candidates' stamps, the roots' RANSAC problems (triplets
-    drawn on the card from a seeded generator) and the solve's components."""
+    relaxation, the candidates' stamps, the roots' RANSAC problems (the
+    draw's uniforms from a seeded generator on the card, mapped to triplets
+    by K7) and the solve's components."""
     from uzliti_slam_tpu_torch import pipeline
     from uzliti_slam_tpu_torch.graph import filter as gfilter
     from uzliti_slam_tpu_torch.graph import shortest_path
@@ -2135,13 +2166,13 @@ def epoch_kernel_inputs(state, cfg) -> dict:
         1, g.e_from[safe].long()[:, None], 0.0)
     cr = gfilter.cluster_roots(g, idx, fc, cand_mask=heur)
     R, b = cr.member.shape
-    tri = ransac._valid_sample(torch.Generator(device=g.device).manual_seed(SEED),
-                               fc.ransac_hypotheses, cr.member)
+    u = ransac.draw_uniforms(torch.Generator(device=g.device).manual_seed(SEED),
+                             fc.ransac_hypotheses, cr.member)
     return {
         "relax_min": (dist0, g.e_from, g.e_to, shortest_path._weights(g, False), 64),
         "cluster_labels": (cr.sf, cr.st, cr.valid, fc.max_dt, 16),
-        "ransac_rigid": (cr.p_pred.expand(R, b, 3), cr.p_act.expand(R, b, 3), cr.member, tri,
-                         fc.max_error, fc.min_cluster_size, 0.01),
+        "ransac_rigid": (cr.p_pred.expand(R, b, 3), cr.p_act.expand(R, b, 3), cr.member, None,
+                         fc.max_error, fc.min_cluster_size, 0.01, None, u, None),
         "components": components_inputs(g),
     }
 
@@ -2182,8 +2213,8 @@ def compare_ransac(got, ref, args, label: str) -> dict:
     from uzliti_slam_tpu_torch.kernels import ops as kops
 
     src, dst, valid, tri, max_error, *_ = args
-    pose_k, cons_k, _, _, ok_k, best_k, counts_k = got
-    pose_p, cons_p, _, _, ok_p, best_p, counts_p = ref
+    pose_k, cons_k, _, _, ok_k, best_k, counts_k, _ = got
+    pose_p, cons_p, _, _, ok_p, best_p, counts_p, _ = ref
     _, err2 = kops.ransac_hypotheses_plain(src, dst, valid, tri)
     near = ((err2 / max_error**2 - 1.0).abs() < RANSAC_NEAR_REL) & valid[:, None]
     diff = (counts_k - counts_p).abs()
@@ -2204,6 +2235,130 @@ def compare_ransac(got, ref, args, label: str) -> dict:
     return row
 
 
+def ransac_draw_check(tri_k, u, valid, quality, label: str) -> dict:
+    """K7's triplets against the plain mapping of the same uniforms on the
+    card (``ransac.triplets_from_uniforms``): equal, or, where they differ,
+    the plain target within DRAW_BOUNDARY_ULPS ulps of the row's total of a
+    running-sum boundary (the kernel's running sums are exact sums rounded
+    once, torch.cumsum's a float32 scan).  Those cases are counted."""
+    from uzliti_slam_tpu_torch.ops import ransac
+
+    tri_p = ransac.triplets_from_uniforms(u, valid, quality)
+    cum = torch.cumsum(ransac.draw_weights(valid, quality), dim=-1)
+    total = cum[:, -1:]
+    target = torch.minimum(u * total, torch.nextafter(total, torch.zeros_like(total)))
+    ulp = torch.nextafter(total, torch.full_like(total, math.inf)) - total
+    gap = (cum[:, None, :] - target[:, :, None]).abs().amin(-1)        # (R, 3K)
+    diff = (tri_k != tri_p).reshape(gap.shape)
+    near = gap <= DRAW_BOUNDARY_ULPS * ulp
+    row = {"draws": int(diff.numel()), "differ": int(diff.sum()),
+           "differ_near_boundary": int((diff & near).sum()),
+           "targets_near_boundary": int(near.sum()), "boundary_ulps": DRAW_BOUNDARY_ULPS,
+           "in_range": bool(((tri_k >= 0) & (tri_k < valid.shape[1])).all())}
+    check(row["in_range"], f"ransac_rigid {label}: a drawn index out of range")
+    check(row["differ"] == row["differ_near_boundary"],
+          f"ransac_rigid {label}: draws differ away from a running-sum boundary: {row}")
+    return row
+
+
+def compare_ransac_draws(args, label: str) -> dict:
+    """K7 with its draw folded in, on (src, dst, valid, None, max_error,
+    min_consensus, min_sigma, weights, uniforms, quality): the draw held by
+    ``ransac_draw_check``, then everything after it held as
+    ``compare_ransac`` against the plain version on the kernel's own
+    triplets."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    src, dst, valid, _, max_error, min_cons, min_sigma, weights, u, quality = args
+    got = kops.ransac_rigid(*args)
+    torch.cuda.synchronize()
+    draw = ransac_draw_check(got[7], u, valid, quality, label)
+    held = (src, dst, valid, got[7], max_error, min_cons, min_sigma, weights)
+    row = compare_ransac(got, kops.ransac_rigid_plain(*held), held, label)
+    row["draw"] = draw
+    log(f"3 kernel ransac_rigid {label} draw", **draw)
+    return row
+
+
+def ransac_edge_cases(device) -> tuple:
+    """K7's arguments on the edge cases, soft-PROSAC draws folded in: K =
+    32 (the estimation runs' setting), M = 37 (not a multiple of the
+    kernel's 8 lanes), roots with no valid entry, one, two (fewer than
+    three), equal qualities, sparse and full."""
+    from uzliti_slam_tpu_torch.ops import ransac
+
+    rng = np.random.default_rng(SEED + 19)
+    R, M, K = 7, 37, 32
+    src = rng.uniform(-3, 3, (M, 3)).astype(np.float32)
+    ang = 0.4
+    rot = np.array([[np.cos(ang), -np.sin(ang), 0], [np.sin(ang), np.cos(ang), 0], [0, 0, 1]],
+                   np.float32)
+    dst = src @ rot.T + np.float32([0.5, -0.2, 0.1]) + rng.normal(0, 0.01, (M, 3)).astype(
+        np.float32)
+    dst[:6] += 3.0                                               # outliers
+    valid = rng.random((R, M)) < 0.7
+    valid[0] = False
+    valid[1] = False
+    valid[1, 36] = True
+    valid[2] = False
+    valid[2, [4, 20]] = True
+    valid[5] = True
+    quality = -rng.integers(0, 65, (R, M)).astype(np.float32)
+    quality[3] = -9.0
+    t = lambda a: torch.from_numpy(a).to(device)                 # noqa: E731
+    valid_t = t(valid)
+    u = ransac.draw_uniforms(torch.Generator(device=device).manual_seed(SEED + 19), K, valid_t)
+    return (t(src)[None].expand(R, M, 3), t(np.ascontiguousarray(dst))[None].expand(R, M, 3),
+            valid_t, None, 0.1, 5, 0.01, None, u, t(quality))
+
+
+def ransac_launch_profile(args, tries: int = 5) -> dict:
+    """One ``ransac_rigid_batch`` call with its draw, profiled: the device
+    launches (the uniforms' ``torch.rand`` and K7, nothing between them).
+    A late profile may hold no device time (``PERF.md`` §7): up to ``tries``
+    profiles, the first that holds any read; "not measured" if none does."""
+    from uzliti_slam_tpu_torch.ops import ransac
+
+    src, dst, valid, _, max_error, min_cons, min_sigma, _, u, quality = args
+    K = u.shape[1] // 3
+    gen = torch.Generator(device=src.device).manual_seed(SEED)
+    for attempt in range(1, tries + 1):
+        prof, device_ms = device_profile(lambda: ransac.ransac_rigid_batch(
+            src, dst, valid, K, max_error, min_cons, min_sigma, generator=gen, quality=quality))
+        if device_ms:
+            break
+    if not device_ms:
+        return {"device_launches": "not measured (no device time in the trace)",
+                "profiles": tries}
+    k7 = kernel_device_ms(device_ms, ("ransac_rigid",))["ransac_rigid"]
+    row = {"device_launches": prof.get("device_launches"), "kernels": sorted(device_ms),
+           "ransac_rigid_device_ms": k7, "profiles": attempt}
+    check(k7 is not None and prof.get("device_launches") <= 2,
+          f"ransac_rigid_batch: not one torch.rand and one K7 launch: {row}")
+    return row
+
+
+def compare_ransac_calls(calls, label: str) -> dict:
+    """K7 on the calls a keyframe step made (``record_args``), each held by
+    ``compare_ransac_draws``; one call profiled by ``ransac_launch_profile``;
+    the calls timed against the plain version."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    check(bool(calls), f"ransac_rigid {label}: no call recorded")
+    flat = [(*a, *(kw.get(k) for k in ("uniforms", "quality"))) if kw else a
+            for a, kw in calls]
+    rows = [compare_ransac_draws(a, label) for a in flat]
+    row = {"calls": len(flat), "max_abs_err": max(r["max_abs_err"] for r in rows),
+           "roots": rows[0]["roots"], "roots_ok": sum(r["roots_ok"] for r in rows),
+           "draw": rows[0]["draw"], "launch_profile": ransac_launch_profile(flat[0])}
+    row["ms"], row["plain_ms"] = time_pair(
+        lambda: [kops.ransac_rigid(*a) for a in flat],
+        lambda: [kops.ransac_rigid_plain(*a) for a in flat])
+    row.update(bound_wrapper_calls({"ransac_rigid": [(a, {}) for a in flat]}, ("ransac_rigid",)))
+    log(f"3 kernel ransac_rigid {label}", **row)
+    return row
+
+
 def compare_epoch_kernels(inputs: dict, label: str) -> dict:
     """K5-K8 (those in ``inputs``) against their plain versions on the
     inputs an epoch or a solve gives them."""
@@ -2215,17 +2370,19 @@ def compare_epoch_kernels(inputs: dict, label: str) -> dict:
     results = {}
     for name, args in inputs.items():
         kernel_fn, plain_fn = fns[name]
-        got, ref = kernel_fn(*args), plain_fn(*args)
-        torch.cuda.synchronize()
         if name == "ransac_rigid":
-            row = compare_ransac(got, ref, args, label)
+            row = compare_ransac_draws(args, label)
         elif name == "relax_min":
+            got, ref = kernel_fn(*args), plain_fn(*args)
+            torch.cuda.synchronize()
             check(bool(torch.isfinite(got).all()), f"relax_min {label}: non-finite")
             ulp = int((got.view(torch.int32).long() - ref.view(torch.int32).long()).abs().max())
             row = {"max_abs_err": float((got - ref).abs().max()), "max_ulp": ulp,
                    "tol_ulp": RELAX_MAX_ULP, "rows": int(got.shape[0])}
             check(ulp <= RELAX_MAX_ULP, f"relax_min {label}: {ulp} ulp apart")
         else:
+            got, ref = kernel_fn(*args), plain_fn(*args)
+            torch.cuda.synchronize()
             pairs = tuple(zip(got, ref)) if isinstance(got, tuple) else ((got, ref),)
             mism = sum(int((a != b).sum()) for a, b in pairs)
             row = {"max_abs_err": 0.0 if mism == 0 else float("nan"), "mismatches": mism}
@@ -2233,6 +2390,8 @@ def compare_epoch_kernels(inputs: dict, label: str) -> dict:
                 row["route"] = components_route(args[6])
             check(mism == 0, f"{name} {label}: {mism} entries differ from the plain version")
         row["ms"], row["plain_ms"] = time_pair(lambda: kernel_fn(*args), lambda: plain_fn(*args))
+        if name == "ransac_rigid":
+            row["device_ms_queued"] = queued_device_ms(lambda: kernel_fn(*args))
         row.update(bound(name, args))
         log(f"3 kernel {name} {label}", **row)
         results[name] = row
@@ -3710,13 +3869,13 @@ def keyframe_step_phase(phase: str, world, frames, n_cams: int, device, reps: in
 
 
 def record_step_args(slam, inputs, frames) -> dict:
-    """K16-K18's arguments in one late keyframe step (candidates exist):
-    ``process_keyframe`` on the Slam's state with the last frame, its
-    result discarded."""
+    """K16-K18's and K7's arguments in one late keyframe step (candidates
+    exist): ``process_keyframe`` on the Slam's state with the last frame,
+    its result discarded."""
     from uzliti_slam_tpu_torch import pipeline
 
     last = len(frames) - 1
-    names = tuple(w for k in KEYFRAME_KERNELS for w in KEYFRAME_WRAPPERS[k])
+    names = tuple(w for k in KEYFRAME_KERNELS for w in KEYFRAME_WRAPPERS[k]) + ("ransac_rigid",)
     return record_args(lambda: pipeline.process_keyframe(
         slam.state, *inputs[last], frames[last]["odom_pose"], frames[last]["stamp"], slam.cam,
         slam.cam_pose, slam.config), names)
@@ -3855,32 +4014,60 @@ def calibration_calls(g, n_cams: int, device) -> dict:
     return record_args(lambda: slam.calibrate(update_extrinsics=n_cams > 1), ("calib_gn",))
 
 
-def maintenance_library(name: str, calls):
-    """One PyTorch call per kernel call computing the same function, or
-    None: bin_min_max ``scatter_reduce_`` with amin and amax on each scan's
-    quantised ranges (the plain version's reduction)."""
-    from uzliti_slam_tpu_torch.ops import scan
+def bin_min_max_cases(device) -> dict:
+    """K15's points entry on edge cases: 3,000 points on half the circle (the
+    other half's bins empty) led by NaN and ±inf coordinates, points on the
+    range limits, on bin edges at bearings 0, ±π/2 and ±π, and heights on
+    the band's limits; as one planar scan, one cloud with the band, and a
+    batch of 16 scans of 720 points whose last scan has no valid point."""
+    rng = np.random.default_rng(SEED + 23)
+    n = 3000
+    r = rng.uniform(0.0, 7.0, n).astype(np.float32)
+    th = rng.uniform(-np.pi, 0.0, n).astype(np.float32)
+    pts = np.stack([r * np.cos(th), r * np.sin(th), rng.uniform(-0.2, 1.2, n)], -1)
+    pts = pts.astype(np.float32)
+    special = np.array([
+        [np.nan, 1.0, 0.5], [1.0, np.nan, 0.5], [2.0, 1.0, np.nan],
+        [np.inf, 0.0, 0.5], [0.0, -np.inf, 0.5], [np.inf, np.inf, 0.5], [-np.inf, 3.0, 0.5],
+        [6.0, 0.0, 0.5], [0.05, 0.0, 0.5], [0.3, 0.0, 0.5], [0.0, 6.0, 0.5],
+        [-6.0, 0.0, 0.5], [-2.0, -0.0, 0.5], [0.0, -2.5, 0.5], [4.0, 0.0, 0.5],
+        [5.0, 0.0, 0.1], [5.5, 0.0, 1.0], [1.5, 0.0, 0.0999], [1.25, 0.0, 1.0001],
+        [0.0, 0.0, 0.5], [6.0000005, 0.0, 0.5]], np.float32)
+    pts[: len(special)] = special
+    valid = rng.random(n) < 0.9
+    valid[: len(special)] = True
+    batch = rng.uniform(-7, 7, (16, 720, 2)).astype(np.float32)
+    bvalid = rng.random((16, 720)) < 0.8
+    bvalid[15] = False
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)   # noqa: E731
+    pi = math.pi
+    return {"planar_3000": (t(pts[None, :, :2]), t(valid[None]), 360, -pi, pi, 6.0, 0.05),
+            "cloud_3000": (t(pts[None]), t(valid[None]), 180, -pi, pi, 6.0, 0.3, (0.1, 1.0)),
+            "batch_16x720": (t(batch), t(bvalid), 360, -pi, pi, 6.0, 0.05)}
 
-    if name != "bin_min_max":
-        return None
-    work = []
-    for (rng, ok, bins, n_bins, max_range), _ in calls:
-        q = torch.clamp(rng * scan.range_scale(max_range), 0.0, float(scan.Q_MAX)).to(torch.int32)
-        slot = torch.where(ok, bins.long(), n_bins)
-        lo = torch.full(q.shape[:-1] + (n_bins + 1,), 2**31 - 1, dtype=torch.int32, device=q.device)
-        work.append((lo, torch.full_like(lo, -1), slot, q))
 
-    def reduce():
-        for lo, hi, slot, q in work:
-            lo.scatter_reduce_(-1, slot, q, "amin")
-            hi.scatter_reduce_(-1, slot, q, "amax")
-    return time_call(reduce)
+def compare_bin_min_max_cases(device, label: str) -> dict:
+    """``bin_min_max_cases`` through K15's points entry against its plain
+    version on the card: every bin equal."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    rows = {}
+    for name, args in bin_min_max_cases(device).items():
+        got, ref = kops.bin_min_max(*args), kops.bin_min_max_plain(*args)
+        torch.cuda.synchronize()
+        mism = sum(int((a != b).sum()) for a, b in zip(got, ref))
+        rows[name] = {"mismatches": mism, "bins_with_a_range": int(torch.isfinite(ref[0]).sum()),
+                      "empty_bins": int(torch.isinf(ref[0]).sum())}
+        check(mism == 0, f"bin_min_max {label} {name}: {mism} bins differ from the plain version")
+    log(f"3 kernel bin_min_max {label} cases", **rows)
+    return rows
 
 
 def compare_maintenance_kernels(calls: dict, label: str, trials: int = 7, calls_per: int = 2):
     """K19, K20 and bin_min_max against their plain versions on the
     arguments the main path gives them: K19 and bin_min_max exactly, K20's
-    θ within CALIB_THETA_ATOL and cost history within CALIB_HIST_RTOL."""
+    θ within CALIB_THETA_ATOL and cost history within CALIB_HIST_RTOL;
+    bin_min_max also on ``bin_min_max_cases``, exactly."""
     from uzliti_slam_tpu_torch.kernels import ops as kops
 
     rows = {}
@@ -3916,9 +4103,14 @@ def compare_maintenance_kernels(calls: dict, label: str, trials: int = 7, calls_
         row["ms"], row["plain_ms"] = time_pair(lambda: run(kernel_fn), lambda: run(plain_fn),
                                                trials=1 if slow else trials,
                                                calls=1 if slow else calls_per, warm=not slow)
-        row["library_ms"] = maintenance_library(name, cl)
+        # no one PyTorch call computes any of the three (bin_min_max's
+        # scatter_reduce_ pair, timed until the points math moved into its
+        # launch, computed only the reduction)
+        row["library_ms"] = None
         row.update(bound_calls(name, cl))
         log(f"3 kernel {name} {label}", **row)
+        if name == "bin_min_max":
+            row["cases"] = compare_bin_min_max_cases(cl[0][0][0].device, label)
         check(mism == 0, f"{name} {label}: {mism} entries differ from the plain version")
         if name == "calib_gn":
             check(err <= CALIB_THETA_ATOL and hist_rel <= CALIB_HIST_RTOL,
@@ -6161,43 +6353,52 @@ def scope_duo_phase(dev) -> tuple[dict, dict, dict]:
     return counts, fields, calls
 
 
+def _draws(a, kw) -> bool:
+    """Whether a ``ransac_rigid_batch`` call draws its triplets (none given)."""
+    return len(a) <= 7 and kw.get("tri") is None
+
+
 def draws_recorded(fn):
-    """(fn(), every RANSAC draw it made, in order): ``ransac._valid_sample``
-    wrapped."""
+    """(fn(), every RANSAC draw it made, in order): the triplets each
+    drawing ``ransac.ransac_rigid_batch`` call reports (K7's, on the card)."""
     from uzliti_slam_tpu_torch.ops import ransac
 
-    saved, draws = ransac._valid_sample, []
+    saved, draws = ransac.ransac_rigid_batch, []
 
     def recorded(*a, **kw):
-        t = saved(*a, **kw)
-        draws.append(t.clone())
-        return t
+        res = saved(*a, **kw)
+        if _draws(a, kw):
+            draws.append(res.tri.clone())
+        return res
 
-    ransac._valid_sample = recorded
+    ransac.ransac_rigid_batch = recorded
     try:
         return fn(), draws
     finally:
-        ransac._valid_sample = saved
+        ransac.ransac_rigid_batch = saved
 
 
 def draws_replayed(fn, draws: list):
-    """fn() with each RANSAC draw replaced, in order, by ``draws`` (moved to
-    the drawing call's device)."""
+    """fn() with each RANSAC draw replaced, in order, by ``draws``, handed
+    to the drawing call through ``tri=`` (moved to its device)."""
     from uzliti_slam_tpu_torch.ops import ransac
 
-    saved, it = ransac._valid_sample, iter(draws)
+    saved, it = ransac.ransac_rigid_batch, iter(draws)
 
-    def replayed(generator, k_hyp, valid, quality=None, beta=4.0):
-        t = next(it)
-        check(tuple(t.shape) == tuple(valid.shape[:-1]) + (k_hyp, 3),
-              f"replayed draw of shape {tuple(t.shape)} for {tuple(valid.shape)}")
-        return t.to(valid.device)
+    def replayed(*a, **kw):
+        if _draws(a, kw):
+            t, valid = next(it), a[2]
+            k_hyp = a[3] if len(a) > 3 else kw.get("n_hypotheses", 128)
+            check(tuple(t.shape) == tuple(valid.shape[:-1]) + (k_hyp, 3),
+                  f"replayed draw of shape {tuple(t.shape)} for {tuple(valid.shape)}")
+            kw = {**kw, "tri": t.to(valid.device)}
+        return saved(*a, **kw)
 
-    ransac._valid_sample = replayed
+    ransac.ransac_rigid_batch = replayed
     try:
         return fn()
     finally:
-        ransac._valid_sample = saved
+        ransac.ransac_rigid_batch = saved
 
 
 def graph_gaps(ga, gb) -> tuple[dict, float]:
@@ -6573,6 +6774,10 @@ def main() -> int:
         "11 keyframe step VGA front + rear", kf_world, kf_frames, 2, dev)
     step_calls = record_step_args(slam1, inputs1, kf_frames)
     rows.update(compare_keyframe_kernels(step_calls, "VGA step 1 camera"))
+    # K7 with its draw on the step's calls (5 roots x 256 x 128, soft
+    # PROSAC), the rig's, and the edge cases; the epoch's are in its row
+    ransac_step = compare_ransac_calls(step_calls["ransac_rigid"], "VGA step 1 camera")
+    ransac_edges = compare_ransac_draws(ransac_edge_cases(dev), "edge cases")
     rows["hamming_top2"]["cases"] = compare_k16_cases(step_calls, dev)
     rows["bilateral"]["cases"] = compare_bilateral_cases(
         bilateral_cases(dev), "VGA step 1 camera", step_args=step_calls["bilateral"][0][0])
@@ -6580,8 +6785,10 @@ def main() -> int:
     # 4, bit-identical reruns, and its two launch forms timed
     icp_cases = compare_icp_cases(*step_calls["icp"][0], "VGA step 1 camera")
     del step_calls
-    rows_large.update(compare_keyframe_kernels(record_step_args(slam2, inputs2, kf_frames),
-                                               "VGA step front + rear"))
+    step_calls2 = record_step_args(slam2, inputs2, kf_frames)
+    rows_large.update(compare_keyframe_kernels(step_calls2, "VGA step front + rear"))
+    ransac_rig = compare_ransac_calls(step_calls2["ransac_rigid"], "VGA step front + rear")
+    del step_calls2
     del slam2
     ate = ate_phase("12 end to end ATE 96x128", dev)
     # phase 13: the maintenance and calibration timers, each path driven
@@ -6718,10 +6925,19 @@ def main() -> int:
         kernels[list(REPLACES).index(name)].update(
             device_ms_keyframe=kf1_fields["kernel_device_ms"].get(name),
             device_ms_keyframe_large=kf2_fields["kernel_device_ms"].get(name))
-    for name in FRONTEND_KERNELS + KEYFRAME_KERNELS:
+    for name in FRONTEND_KERNELS + KEYFRAME_KERNELS + ("ransac_rigid",):
         kernels[list(REPLACES).index(name)].update(
             device_ms_step=step1_fields["kernel_device_ms"].get(name),
             device_ms_step_large=step2_fields["kernel_device_ms"].get(name))
+    # K7: the step's calls, the rig's and the edge cases beside its epoch
+    # rows (its draw in each); the epoch's calls queued back to back
+    kernels[list(REPLACES).index("ransac_rigid")].update(
+        step=ransac_step, rig=ransac_rig, edge_cases=ransac_edges,
+        draw=rows["ransac_rigid"]["draw"], draw_large=rows_large["ransac_rigid"]["draw"],
+        device_ms_queued=rows["ransac_rigid"]["device_ms_queued"],
+        device_ms_queued_large=rows_large["ransac_rigid"]["device_ms_queued"])
+    kernels[list(REPLACES).index("bin_min_max")].update(
+        cases=rows["bin_min_max"]["cases"])
     # K13's other budgets on the keyframe's four levels; K18's device ms at
     # the re-registration's B = 4 and its held cases
     kernels[list(REPLACES).index("grid_topk")].update(

@@ -37,9 +37,14 @@ launches and busy share, and K12's, K17's, K18's, K13's, K14's and K16's
 (by entry) device ms in it; "step" also times K12's, K14's, K16's and K17's
 wrapper calls of that profiled step with CUDA events (ms a step, K16 by
 entry, K12's and K14's calls) and K12's and K17's calls queued back to back
-(device ms a step that no profile can drop):
+(device ms a step that no profile can drop); K7's and K15's the same.
+"epoch500" also times K7 on the epoch's inputs (``chip_smoke.epoch_kernel_inputs``:
+CUDA events and queued device ms a call), and "maintain" phase 13a's
+``pipeline.maintenance_epoch`` on the 500-node state after its epoch (wall,
+device ms, device launches, K19's and K15's points entry's device ms):
 
     python3 scripts/torch_ab_solve.py --base build/parent --sizes step,rereg --pairs 3
+    python3 scripts/torch_ab_solve.py --base build/parent --sizes step,epoch500,maintain --pairs 3
 Prints one JSON line a process, then per size each side's medians and how
 many pairs the change won.
 """
@@ -88,7 +93,10 @@ def timed(fn, g, c, reps):
                                ("k34", ("pcg_chain_kernel",)), ("k35", ("pcg_solve_kernel",)),
                                ("k37", ("pcg_grid_kernel",)), ("k4", ("residual_edges",)),
                                ("k4_sum", ("sum_partials",)), ("k9", ("factor_",)),
-                               ("k36", ("candidate_kernel",)), ("k36_accept", ("accept_kernel",)))}
+                               ("k36", ("candidate_kernel",)), ("k36_accept", ("accept_kernel",)),
+                               ("k7", ("ransac_roots", "ransac_draw_fit")),
+                               ("k15_points", ("bin_rows", "bin_points")),
+                               ("k19", ("row_keys", "greedy_rounds")))}
     by_kernel["eager_ops"] = sum(v for name, v in names.items() if "at::native" in name)
     return res, {"ms_median": statistics.median(ts), "ms": ts,
                  "port_launches": {k: v for k, v in launches.items() if v},
@@ -123,6 +131,8 @@ def factor_times(args):
 
 
 STEP_FUNCTIONS = {
+    "k7": ("ransac_roots", "ransac_draw_fit"),
+    "k15": ("init_table", "scan_pixels", "finalize", "scan_grid"),
     "k12": ("fast_nms",),
     "k17": ("bilateral",),
     "k18": ("icp_problems", "icp_cluster"),
@@ -140,17 +150,22 @@ def step_kernel_ms(names):
     for k, fs in STEP_FUNCTIONS.items():
         hits = [v for key, v in names.items() if any(f in key for f in fs)]
         out[f"{k}_device_ms"] = sum(hits) if hits else None
+    # K15's device functions in the profile: its launches a call
+    out["k15_device_functions"] = sum(any(f in key for f in STEP_FUNCTIONS["k15"])
+                                      for key in names)
     parts = (out["k16_match_device_ms"], out["k16_gist_device_ms"])
     out["k16_device_ms"] = None if None in parts else sum(parts)
     return out
 
 
 def step_kernel_event_ms(calls):
-    """K12's, K14's, K16's and K17's wrapper calls of one step (either
-    checkout's wrappers) timed with CUDA events: ms a step, and K12's and
-    K14's calls; K12's and K17's also queued back to back behind a sleep
-    kernel (``chip_smoke.queued_device_ms``: device ms a step that no
-    profile can drop)."""
+    """K12's, K14's, K16's, K17's, K7's and K15's wrapper calls of one step
+    (either checkout's wrappers) timed with CUDA events: ms a step, and
+    K12's and K14's calls; K12's, K17's, K7's and K15's also queued back to
+    back behind a sleep kernel (``chip_smoke.queued_device_ms``: device ms a
+    step that no profile can drop).  K7's calls are those of the step's
+    wrapper, whose triplets a checkout draws before the call (the parent)
+    or inside it."""
     k14 = [w for w in ("orb_describe", "orb_describe_levels") if w in calls]
 
     def run(ws):
@@ -166,7 +181,11 @@ def step_kernel_event_ms(calls):
             "k14_ms": cs.time_call(lambda: run(k14)), "k14_calls": sum(len(calls[w]) for w in k14),
             "k16_match_ms": cs.time_call(lambda: run(["hamming_top2"])),
             "k16_gist_ms": cs.time_call(lambda: run(["gist_topk"])),
-            "k16_ms": cs.time_call(lambda: run(["hamming_top2", "gist_topk"]))}
+            "k16_ms": cs.time_call(lambda: run(["hamming_top2", "gist_topk"])),
+            "k7_ms": cs.time_call(lambda: run(["ransac_rigid"])),
+            "k7_queued_device_ms": cs.queued_device_ms(lambda: run(["ransac_rigid"])),
+            "k15_ms": cs.time_call(lambda: run(["scan_bins"])),
+            "k15_queued_device_ms": cs.queued_device_ms(lambda: run(["scan_bins"]))}
 
 
 def step_entries(do_step, do_rereg, reps):
@@ -205,7 +224,8 @@ def step_entries(do_step, do_rereg, reps):
         prof, names = cs.device_profile(late_step)
         if do_step:
             wrappers = tuple(w for w in ("fast_nms", "bilateral", "orb_describe",
-                                         "orb_describe_levels", "hamming_top2", "gist_topk")
+                                         "orb_describe_levels", "hamming_top2", "gist_topk",
+                                         "ransac_rigid", "scan_bins")
                              if hasattr(kops, w))
             res[f"step_{n_cams}cam"] = {
                 "ms_median": statistics.median(ts), "ms": ts, "port_launches": launches,
@@ -258,7 +278,27 @@ for size in sizes:
         _, out[size] = timed(lambda s, c: cs.timed_epochs(s, c, 1)[1], state, ecfg,
                              max(3, int(sys.argv[3]) // 3))
         out[size].update(factor_times(cs.kernel_inputs(state.graph, ecfg.solver)["chain_factor"]))
+        # K7 on the epoch's inputs (either checkout's form: triplets drawn
+        # before the call, or its uniforms): CUDA events around 10 calls,
+        # and device ms a call queued back to back
+        k7 = cs.epoch_kernel_inputs(state, ecfg)["ransac_rigid"]
+        out[size]["k7_ms"] = cs.time_call(lambda: kops.ransac_rigid(*k7))
+        out[size]["k7_queued_device_ms"] = cs.queued_device_ms(lambda: kops.ransac_rigid(*k7))
         del state
+        continue
+    if size == "maintain":
+        # phase 13a: the global role on the 500-node state after its epoch,
+        # scans and descriptors added, the robot 100 m away
+        from uzliti_slam_tpu_torch import pipeline
+        if not lifted:
+            cs.lift_sync_check_for_restart_read()
+            lifted = True
+        ecfg, state, _, _ = cs.make_epoch_state(**cs.EPOCH_500, device=dev)
+        _, (state, _) = cs.timed_epochs(state, ecfg, 1)
+        mstate, center = cs.with_payload(state, cs.SEED + 11), cs.far_center(dev)
+        _, out[size] = timed(lambda s, c: pipeline.maintenance_epoch(s, c, center=center),
+                             mstate, cs.merge_config(ecfg), int(sys.argv[3]))
+        del state, mstate
         continue
     if size == "fleet":
         from uzliti_slam_tpu_torch.io import synthetic
@@ -319,7 +359,9 @@ print(json.dumps(out))
 STEP_KEYS = ("k12_device_ms", "k17_device_ms", "k18_device_ms", "k13_device_ms",
              "k14_device_ms", "k16_device_ms", "k16_match_device_ms", "k16_gist_device_ms",
              "k12_ms", "k12_calls", "k12_queued_device_ms", "k17_ms", "k17_queued_device_ms",
-             "k14_ms", "k14_calls", "k16_ms", "k16_match_ms", "k16_gist_ms")
+             "k14_ms", "k14_calls", "k16_ms", "k16_match_ms", "k16_gist_ms",
+             "k7_device_ms", "k7_ms", "k7_queued_device_ms", "k15_device_ms",
+             "k15_device_functions", "k15_ms", "k15_queued_device_ms")
 
 
 def run_side(tree: Path, sizes: str, reps: int) -> dict:
@@ -336,7 +378,8 @@ def main() -> int:
     ap.add_argument("--pairs", type=int, default=5)
     ap.add_argument("--sizes", default="1000,10000",
                     help="node counts, 'fleet', 'epoch500', 'epoch10k', 'step' (the VGA "
-                         "keyframe step, 1 camera and the rig), 'rereg' (its re-registration)")
+                         "keyframe step, 1 camera and the rig), 'rereg' (its re-registration), "
+                         "'maintain' (phase 13a's maintenance on the 500-node state)")
     ap.add_argument("--reps", type=int, default=15, help="timed solves a size and process")
     args = ap.parse_args()
     sides = {"base": args.base.resolve(), "change": Path(__file__).resolve().parents[1]}
@@ -356,6 +399,9 @@ def main() -> int:
                                       for k in ("k9_ms", "k9_device_ms", "k9_levels_device_ms",
                                                 "k9_root_device_ms", "device_kernel_ms",
                                                 "device_launches", *STEP_KEYS) if k in r})
+            medians[side][-1].update({f"{n}:{k}_device_ms": r["device_ms_by_kernel"][k]
+                                      for n, r in res.items() if "device_ms_by_kernel" in r
+                                      for k in ("k7", "k15_points", "k19")})
             print(json.dumps({"pair": i, "side": side, **res}), flush=True)
     names = [n for n in args.sizes.split(",") if n not in ("step", "rereg")]
     names += ["step_1cam", "step_2cam"] if "step" in args.sizes.split(",") else []
@@ -373,7 +419,9 @@ def main() -> int:
         k34.update({f"{side}_{k}": [m[f"{n}:{k}"] for m in medians[side]]
                     for side in sides for k in ("k9_ms", "k9_device_ms", "k9_levels_device_ms",
                                                 "k9_root_device_ms", "device_kernel_ms",
-                                                "device_launches", *STEP_KEYS)
+                                                "device_launches", *STEP_KEYS,
+                                                "k7_device_ms", "k15_points_device_ms",
+                                                "k19_device_ms")
                     if f"{n}:{k}" in medians[side][0]})
         print(json.dumps({"size": n, "base_medians_ms": base, "change_medians_ms": change,
                           "base_median_ms": statistics.median(base),

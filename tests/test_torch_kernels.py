@@ -110,6 +110,8 @@ def _epoch_kernel_cases():
     valid_b = torch.from_numpy(rng.random(b) < 0.8)
     pts = torch.from_numpy(rng.normal(size=(1, 8, 3)).astype(np.float32)).expand(2, 8, 3)
     tri = torch.from_numpy(rng.integers(0, 8, (2, 4, 3)).astype(np.int32))
+    uniforms = torch.from_numpy(rng.random((2, 12)).astype(np.float32))
+    quality = torch.from_numpy(-rng.integers(0, 9, (2, 8)).astype(np.float32))
     e_valid = torch.from_numpy(rng.random(E) < 0.7)
     labels = kops.components_plain(ef, et, e_valid, n, 8)
     return [
@@ -120,11 +122,14 @@ def _epoch_kernel_cases():
         ("components", (ef, et, e_valid, n, 8)),
         ("gauge_fix", (labels, torch.arange(n) < 10, torch.arange(n) == 3,
                        torch.from_numpy(rng.uniform(0, 5, n).astype(np.float32)))),
+        # K7 with its draw: uniforms mapped to triplets (soft PROSAC)
+        ("ransac_rigid", (pts, pts + 0.01, (torch.arange(8) % 3 > 0).expand(2, 8).contiguous(),
+                          None, 0.3, 3, 0.01, None, uniforms, quality)),
     ]
 
 
-@pytest.mark.parametrize("case", range(5), ids=["relax_min", "cluster_labels", "ransac_rigid",
-                                                 "components", "gauge_fix"])
+@pytest.mark.parametrize("case", range(6), ids=["relax_min", "cluster_labels", "ransac_rigid",
+                                                 "components", "gauge_fix", "ransac_rigid_draw"])
 def test_epoch_kernel_wrappers_run_their_plain_version_on_cpu(case):
     name, args = _epoch_kernel_cases()[case]
     kops.reset_launches()
@@ -675,15 +680,14 @@ def _maintenance_cases():
     ef, et = cal.e_from.long(), cal.e_to.long()
     E = cal.edge_capacity
     zeros = torch.zeros(E, dtype=torch.int32)
-    r = torch.from_numpy(rng.uniform(0.0, 7.0, (2, 300)).astype(np.float32))
+    pts = torch.from_numpy(rng.uniform(-7.0, 7.0, (2, 300, 2)).astype(np.float32))
     ok = torch.from_numpy(rng.random((2, 300)) < 0.7)
-    bins = torch.from_numpy(rng.integers(0, 30, (2, 300)).astype(np.int32))
     return [
         ("merge_pairs", (g.pose, g.stamp, g.node_valid, 0.3, 20.0, 16)),
         ("calib_gn", (cal.pose[ef], cal.pose[et], cal.e_transform, torch.zeros(E, dtype=torch.bool),
                       (cal.e_type == 104) & cal.e_valid, zeros, zeros,
                       torch.tensor([[0.0, 0, 0, 1, 0, 0, 0]]), 3, 1e2, 1e-6)),
-        ("bin_min_max", (r, ok, bins, 30, 6.0)),
+        ("bin_min_max", (pts, ok, 30, -math.pi, math.pi, 6.0, 0.05)),
     ]
 
 
@@ -702,17 +706,24 @@ def test_maintenance_kernel_wrappers_run_their_plain_version_on_cpu(case):
 
 
 def test_bin_min_max_batches_scans_as_the_one_scan_form():
-    """The plain bin_min_max on a batch gives, row for row, what the plain
-    ``scan._bin_min_max`` gives one flat scan; K15's scan_bins plain
-    version reduces through it too."""
+    """The plain bin_min_max (the points entry) on a batch gives, row for
+    row, what it gives one scan, which is the reduction core
+    ``scan._bin_min_max`` on the points' ranges, flags and bins with the
+    far range finished to +inf; the core's empty bin is +inf / -inf."""
     from uzliti_slam_tpu_torch.ops import scan
 
-    _, (r, ok, bins, n_bins, max_range) = _maintenance_cases()[2]
-    near, far = kops.bin_min_max_plain(r, ok, bins, n_bins, max_range)
+    _, (pts, ok, n_bins, a0, a1, max_range, min_range) = _maintenance_cases()[2]
+    near, far = kops.bin_min_max_plain(pts, ok, n_bins, a0, a1, max_range, min_range)
     for b in range(2):
-        n1, f1 = scan._bin_min_max(r[b], ok[b], bins[b], n_bins, max_range)
+        n1, f1 = kops.bin_min_max_plain(pts[b], ok[b], n_bins, a0, a1, max_range, min_range)
         assert torch.equal(near[b], n1) and torch.equal(far[b], f1)
-    n1, f1 = kops.bin_min_max_plain(r[0], ok[0] & (bins[0] != 3), bins[0], n_bins, max_range)
+        x, y = pts[b, :, 0], pts[b, :, 1]
+        rng, bearing = scan._hypot(x, y), torch.atan2(y, x)
+        keep = scan._planar_ok(rng, bearing, ok[b], a0, a1, max_range, min_range)
+        bins = scan.bin_index(bearing, n_bins, a0, a1)
+        n2, f2 = scan._bin_min_max(rng, keep, bins, n_bins, max_range)
+        assert torch.equal(n1, n2) and torch.equal(f1, torch.where(f2 > 0, f2, math.inf))
+    n1, f1 = kops.bin_reduce_plain(rng, keep & (bins != 3), bins, n_bins, max_range)
     assert n1[3] == math.inf and f1[3] == -math.inf
 
 
@@ -732,13 +743,59 @@ def test_maintenance_kernels_launch_through_the_library(fake_lib):
     assert fake_lib.calls[-1][0] == "uz_calib_gn" and args[8:14] == (4096, 2, 20, 10.0,
                                                                        1e-6, 16)
     assert tuple(theta.shape) == (15,) and tuple(hist.shape) == (21,)
-    near, far = kops.bin_min_max(_meta(16, 720), _meta(16, 720, dtype=b),
-                                 _meta(16, 720, dtype=i32), 360, 6.0)
+    near, far = kops.bin_min_max(_meta(16, 720, 2), _meta(16, 720, dtype=b), 360, -math.pi,
+                                 math.pi, 6.0, 0.05)
     args = fake_lib.calls[-1][1]
-    assert fake_lib.calls[-1][0] == "uz_bin_min_max" and args[3:6] == (16, 720, 360)
+    # (B, P, D, n_bins) after the points and their flags; the bin factor,
+    # the ranges, no band for planar points
+    assert fake_lib.calls[-1][0] == "uz_bin_min_max" and args[2:6] == (16, 720, 2, 360)
+    assert args[8] == pytest.approx(360 / (2 * np.pi), rel=1e-6) and args[9:11] == (0.05, 6.0)
+    assert len(args) == len(_build.SIGNATURES["uz_bin_min_max"])
     assert tuple(near.shape) == tuple(far.shape) == (16, 360)
+    # a cloud: (x, y, z) points with the height band, one scan
+    kops.bin_min_max(_meta(1, 4000, 3), _meta(1, 4000, dtype=b), 180, -math.pi, math.pi, 6.0,
+                     0.3, (0.1, 1.0))
+    args = fake_lib.calls[-1][1]
+    assert args[2:6] == (1, 4000, 3, 180) and args[11:13] == (0.1, 1.0)
     assert kops.launches["merge_pairs"] == kops.launches["calib_gn"] == 1
-    assert kops.launches["bin_min_max"] == 1
+    assert kops.launches["bin_min_max"] == 2
+
+
+def test_ransac_rigid_launches_once_with_its_draw(fake_lib):
+    """K7 is one C call a batch of roots, the draw included: the uniforms
+    and the quality go in, the triplets come out (a view of the one output
+    allocation); with triplets given, the kernel reads them and writes
+    none.  The argument order follows ``_build.SIGNATURES``."""
+    i32, b = torch.int32, torch.bool
+    src = _meta(1, 256, 3).expand(5, 256, 3)
+    out = kops.ransac_rigid(src, _meta(5, 256, 3), _meta(5, 256, dtype=b), None, 0.05, 12,
+                            0.01, uniforms=_meta(5, 384), quality=_meta(5, 256))
+    name, args = fake_lib.calls[-1]
+    assert name == "uz_ransac_rigid" and len(args) == len(_build.SIGNATURES[name])
+    # (src stride 0: one broadcast table) ... (R, M, K), beta; tri_in None
+    assert args[1] == 0 and args[3] == 768 and args[8] is None
+    assert args[9:12] == (5, 256, 128) and args[15] == 4.0
+    assert args[12] == pytest.approx(0.0025) and args[14] == pytest.approx(1e-4)
+    pose, consensus, mse, information, ok, best, counts, tri = out
+    assert tuple(tri.shape) == (5, 128, 3) and tri.dtype == i32 and args[23] is not None
+    assert tuple(counts.shape) == (5, 128) and tuple(information.shape) == (5, 6, 6)
+    assert ok.dtype == b and tuple(pose.shape) == (5, 7)
+    assert len({t.untyped_storage().data_ptr() for t in out}) == 1   # one allocation
+    given = _meta(5, 32, 3, dtype=i32)
+    out = kops.ransac_rigid(src, _meta(5, 256, 3), _meta(5, 256, dtype=b), given, 0.05, 12, 0.01)
+    args = fake_lib.calls[-1][1]
+    assert args[6] is None and args[7] is None and args[11] == 32 and args[23] is None
+    assert out[-1] is given and kops.launches["ransac_rigid"] == 2
+    with pytest.raises(ValueError, match="not both"):
+        kops.ransac_rigid(src, _meta(5, 256, 3), _meta(5, 256, dtype=b), given, 0.05, 12, 0.01,
+                          uniforms=_meta(5, 96))
+    with pytest.raises(ValueError, match="1..1024"):
+        kops.ransac_rigid(src, _meta(5, 256, 3), _meta(5, 256, dtype=b), None, 0.05, 12, 0.01,
+                          uniforms=_meta(5, 3075))
+    with pytest.raises(ValueError, match="quality: shape"):
+        kops.ransac_rigid(src, _meta(5, 256, 3), _meta(5, 256, dtype=b), None, 0.05, 12, 0.01,
+                          uniforms=_meta(5, 384), quality=_meta(5, 255))
+    assert kops.launches["ransac_rigid"] == 2
 
 
 def test_maintenance_kernel_argument_checks_raise(fake_lib):
@@ -756,10 +813,16 @@ def test_maintenance_kernel_argument_checks_raise(fake_lib):
         kops.calib_gn(_meta(8, 7), _meta(8, 7), _meta(8, 7), _meta(8, dtype=b), _meta(8, dtype=b),
                       _meta(8, dtype=torch.int64), _meta(8, dtype=i32), _meta(1, 7), 20, 1e2, 1e-6)
     with pytest.raises(ValueError, match="1..1023"):
-        kops.bin_min_max(_meta(2, 9), _meta(2, 9, dtype=b), _meta(2, 9, dtype=i32), 2000, 6.0)
-    with pytest.raises(TypeError, match="bins: dtype"):
-        kops.bin_min_max(_meta(2, 9), _meta(2, 9, dtype=b), _meta(2, 9, dtype=torch.int64), 90,
-                         6.0)
+        kops.bin_min_max(_meta(2, 9, 2), _meta(2, 9, dtype=b), 2000, -math.pi, math.pi, 6.0,
+                         0.05)
+    with pytest.raises(TypeError, match="valid: dtype"):
+        kops.bin_min_max(_meta(2, 9, 2), _meta(2, 9, dtype=torch.int64), 90, -math.pi, math.pi,
+                         6.0, 0.05)
+    with pytest.raises(ValueError, match="height_band"):
+        kops.bin_min_max(_meta(2, 9, 3), _meta(2, 9, dtype=b), 90, -math.pi, math.pi, 6.0, 0.05)
+    with pytest.raises(ValueError, match="height_band"):
+        kops.bin_min_max(_meta(2, 9, 2), _meta(2, 9, dtype=b), 90, -math.pi, math.pi, 6.0, 0.05,
+                         (0.1, 1.0))
     assert fake_lib.calls == []
 
 

@@ -9,7 +9,12 @@ Tolerances, with their reasons:
 - ``ransac_rigid_batch`` with the JAX-drawn triplets injected: the same
   consensus, ok flag and best hypothesis per root (test points keep at
   least 1e-4 relative away from the inlier radius), refit poses within
-  1e-4, mse within 1e-3 relative.
+  1e-4, mse within 1e-3 relative.  The same for K7's plain version with
+  the draw folded in, fed JAX's draws through ``tri=``.
+- The split sampler (``draw_uniforms``, then ``triplets_from_uniforms``,
+  the draw K7 makes inside its launch) against the one-function sampler
+  it replaced: bit for bit, the same float operations on the same
+  generator stream.
 """
 
 import jax
@@ -129,7 +134,7 @@ def test_ransac_rigid_batch_with_injected_jax_triplets_matches_jax():
         torch.testing.assert_close(a, b[0], rtol=0, atol=0)
 
     # the best hypothesis is JAX's first argmax of the per-hypothesis counts
-    _, _, _, _, _, best, counts = kops.ransac_rigid_plain(
+    _, _, _, _, _, best, counts, _ = kops.ransac_rigid_plain(
         s, d, torch.from_numpy(member), torch.from_numpy(tri), thresh, min_cons, 0.01)
     src_j, dst_j = jnp.asarray(src), jnp.asarray(dst)
     for r in range(R):
@@ -231,3 +236,126 @@ def test_ransac_rigid_weights_match_jax_with_injected_triplets():
                                   tri=torch.from_numpy(tri[0]), weights=torch.from_numpy(w[0]))
     for a, b in zip(single, got):
         torch.testing.assert_close(a, b[0], rtol=0, atol=0)
+
+
+def _sample_before_split(generator, k_hyp, valid, quality=None, beta=4.0):
+    """``ops/ransac.py:_valid_sample`` as one function, before the draw was
+    split into its uniforms and their mapping (K7 maps them inside its
+    launch): the bit-for-bit reference of the split sampler."""
+    batch, m = valid.shape[:-1], valid.shape[-1]
+    if quality is None:
+        weight = valid.to(torch.float32)
+    else:
+        q = quality.to(torch.float32)
+        qmax = torch.where(valid, q, -torch.inf).amax(-1, keepdim=True)
+        qmin = torch.where(valid, q, torch.inf).amin(-1, keepdim=True)
+        span = torch.clamp(qmax - qmin, min=1e-6)
+        logit = beta * (torch.where(valid, q, qmin) - qmin) / span
+        weight = torch.where(valid, torch.exp(logit - beta), 0.0)
+    cum = torch.cumsum(weight, dim=-1)
+    total = cum[..., -1:]
+    u = torch.rand(batch + (k_hyp * 3,), generator=generator, device=valid.device)
+    target = torch.minimum(u * total, torch.nextafter(total, torch.zeros_like(total)))
+    idx = torch.searchsorted(cum.contiguous(), target.contiguous(), right=True)
+    idx = torch.where((idx < m) & (total > 0), idx, 0)
+    return idx.to(torch.int32).reshape(batch + (k_hyp, 3))
+
+
+def _sampler_rows(rng, R=6, m=45):
+    valid = torch.from_numpy(rng.random((R, m)) < 0.6)
+    valid[2] = False                         # no valid entry: index 0
+    valid[3] = False
+    valid[3, 44] = True                      # one valid entry, the last
+    valid[4] = False
+    valid[4, [0, 17]] = True                 # fewer than three
+    quality = torch.from_numpy(-rng.integers(0, 65, (R, m)).astype(np.float32))
+    quality[5] = -7.0                        # equal qualities: the span floor
+    return valid, quality
+
+
+@pytest.mark.parametrize("with_quality", [False, True], ids=["uniform", "soft_prosac"])
+def test_split_sampler_gives_the_one_function_triplets_bit_for_bit(with_quality):
+    rng = np.random.default_rng(12)
+    valid, quality = _sampler_rows(rng)
+    q = quality if with_quality else None
+    K = 96
+    ref = _sample_before_split(torch.Generator().manual_seed(5), K, valid, q)
+    u = transac.draw_uniforms(torch.Generator().manual_seed(5), K, valid)
+    assert u.shape == (6, 3 * K) and u.dtype == torch.float32
+    got = transac.triplets_from_uniforms(u, valid, q)
+    assert got.dtype == torch.int32 and torch.equal(got, ref)
+    assert torch.equal(transac._valid_sample(torch.Generator().manual_seed(5), K, valid, q), ref)
+    assert (ref[2] == 0).all() and (ref[3] == 44).all()
+    assert set(ref[4].unique().tolist()) <= {0, 17}
+    # the draw folded into K7's plain version, through ransac_rigid_batch:
+    # the same triplets, reported in the result, from the same stream
+    pts = torch.from_numpy(rng.normal(size=(45, 3)).astype(np.float32))
+    s = pts[None].expand(6, 45, 3)
+    res = transac.ransac_rigid_batch(s, s + 0.01, valid, K, 0.1, 3,
+                                     generator=torch.Generator().manual_seed(5), quality=q)
+    assert torch.equal(res.tri, ref)
+    # a later draw of the same generator continues the stream as before
+    g_old, g_new = torch.Generator().manual_seed(6), torch.Generator().manual_seed(6)
+    _sample_before_split(g_old, K, valid, q)
+    transac.ransac_rigid_batch(s, s + 0.01, valid, K, 0.1, 3, generator=g_new, quality=q)
+    assert torch.equal(torch.rand(4, generator=g_old), torch.rand(4, generator=g_new))
+
+
+@pytest.mark.parametrize("with_quality", [False, True], ids=["uniform", "soft_prosac"])
+def test_folded_plain_k7_with_jax_draws_matches_jax(with_quality):
+    """K7's plain version (``kops.ransac_rigid_plain``) given JAX's own draws
+    through ``tri=`` against ``ransac_rigid`` under ``jax.vmap``, K = 32 (the
+    estimation runs' setting), M = 37 (not a multiple of the kernel's 8
+    lanes): a root with no valid entry, one with two, one with equal
+    qualities; then the folded draw (``uniforms=``) against the same plain
+    version handed ``triplets_from_uniforms`` of those uniforms, exactly."""
+    rng = np.random.default_rng(21)
+    R, M, K = 6, 37, 32
+    src, dst = _correspondences(rng, M, outliers=7)
+    member = np.zeros((R, M), bool)
+    member[0, :30] = True                 # 7 outliers among 30
+    member[2, 10:12] = True               # fewer than three valid: not ok
+    member[3, ::2] = True
+    member[4] = True
+    member[5, 3:] = True
+    quality = -rng.integers(0, 65, (R, M)).astype(np.float32)
+    quality[5] = -3.0                     # equal qualities
+    key = jax.random.PRNGKey(17)
+    keys = jax.random.split(key, R)
+    q = quality if with_quality else None
+    thresh, min_cons = 0.1, 5
+
+    def one(k, v, qq):
+        return jransac.ransac_rigid(k, jnp.asarray(src), jnp.asarray(dst), v, K, thresh,
+                                    min_cons, quality=qq)
+
+    ref = jax.vmap(one)(keys, jnp.asarray(member), None if q is None else jnp.asarray(q))
+    tri = np.array(jax.vmap(lambda k, v, qq: jransac._valid_sample(k, K, v, qq))(
+        keys, jnp.asarray(member), jnp.asarray(quality)) if with_quality else
+        _jax_triplets(key, member, K))
+    err2 = np.sum((np.asarray(jax.vmap(lambda p: jlie.pose_apply(p, src))(ref.pose)) - dst) ** 2,
+                  -1)
+    assert (np.abs(err2 / thresh**2 - 1.0) > 1e-4).all()
+    s = torch.from_numpy(src)[None].expand(R, M, 3)
+    d = torch.from_numpy(dst)[None].expand(R, M, 3)
+    mem = torch.from_numpy(member)
+    pose, cons, mse, info, ok, best, counts, tri_out = kops.ransac_rigid_plain(
+        s, d, mem, torch.from_numpy(tri), thresh, min_cons, 0.01)
+    np.testing.assert_array_equal(cons.numpy(), np.asarray(ref.consensus))
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(ref.ok))
+    assert ok.numpy().tolist() == [True, False, False, True, True, True]
+    live = np.asarray(ref.ok)
+    np.testing.assert_allclose(pose.numpy()[live], np.asarray(ref.pose)[live], atol=1e-4)
+    np.testing.assert_allclose(mse.numpy(), np.asarray(ref.mse), rtol=1e-3, atol=1e-9)
+    np.testing.assert_allclose(info.numpy()[live], np.asarray(ref.information)[live], rtol=1e-3)
+    assert torch.equal(tri_out, torch.from_numpy(tri).to(torch.int32))
+    assert (counts[1] == -1).all() and (counts[2] == -1).all()
+    # the folded draw: uniforms in, the triplets they map to out
+    qt = None if q is None else torch.from_numpy(q)
+    u = transac.draw_uniforms(torch.Generator().manual_seed(3), K, mem)
+    folded = kops.ransac_rigid_plain(s, d, mem, None, thresh, min_cons, 0.01, uniforms=u,
+                                     quality=qt)
+    split = kops.ransac_rigid_plain(s, d, mem, transac.triplets_from_uniforms(u, mem, qt),
+                                    thresh, min_cons, 0.01)
+    for a, b in zip(folded, split):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)

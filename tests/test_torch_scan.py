@@ -6,6 +6,11 @@ bin for bin, except for bins that a bearing lying within an ulp of a bin
 edge moves: torch's atan2 and XLA's differ by an ulp now and then.  Those
 are counted and bounded at one per scan.  Merging and the centre are
 held within 1e-6, the scan's points within 1e-6 of their range.
+``points_to_scan`` and ``cloud_to_scan`` are K15's second entry point
+(``kernels/ops.bin_min_max``), whose plain version runs here: held to JAX's
+under the same one-moved-bin bound, and exactly where every bearing is one
+that both atan2s return exactly (0, ±π/2, ±π: bin edges and the window's
+ends).
 """
 
 import math
@@ -20,6 +25,7 @@ from uzliti_slam_tpu.io import simulator as jsim
 from uzliti_slam_tpu.ops import lie as jlie
 from uzliti_slam_tpu.ops import scan as jscan
 from uzliti_slam_tpu_torch.io import simulator as tsim
+from uzliti_slam_tpu_torch.kernels import ops as kops
 from uzliti_slam_tpu_torch.ops import scan as tscan
 
 MAX_MOVED_BINS = 1    # per scan
@@ -127,3 +133,66 @@ def test_merge_points_and_centre_match_jax():
     np.testing.assert_allclose(tscan.scan_center(ta).numpy(),
                                np.asarray(jax.jit(jscan.scan_center)(ja)), rtol=0, atol=1e-6)
     np.testing.assert_allclose(ta.angles().numpy(), np.asarray(ja.angles()), rtol=0, atol=1e-6)
+
+
+def _special_points(rng, n=3000):
+    """Points on half the circle (the other half's bins stay empty), with
+    NaN and ±inf coordinates, points on the range limits, on bin edges at
+    bearings 0, ±π/2 and ±π, and heights on the band's limits."""
+    r = rng.uniform(0.0, 7.0, n).astype(np.float32)
+    th = rng.uniform(-np.pi, 0.0, n).astype(np.float32)
+    pts = np.stack([r * np.cos(th), r * np.sin(th), rng.uniform(-0.2, 1.2, n)], -1)
+    pts = pts.astype(np.float32)
+    special = np.array([
+        [np.nan, 1.0, 0.5], [1.0, np.nan, 0.5], [2.0, 1.0, np.nan],
+        [np.inf, 0.0, 0.5], [0.0, -np.inf, 0.5], [np.inf, np.inf, 0.5], [-np.inf, 3.0, 0.5],
+        [6.0, 0.0, 0.5], [0.05, 0.0, 0.5], [0.3, 0.0, 0.5], [0.0, 6.0, 0.5],
+        [-6.0, 0.0, 0.5], [-2.0, -0.0, 0.5], [0.0, -2.5, 0.5], [4.0, 0.0, 0.5],
+        [5.0, 0.0, 0.1], [5.5, 0.0, 1.0], [1.5, 0.0, 0.0999], [1.25, 0.0, 1.0001],
+        [0.0, 0.0, 0.5], [6.0000005, 0.0, 0.5]], np.float32)
+    pts[: len(special)] = special
+    valid = rng.random(n) < 0.9
+    valid[: len(special)] = True
+    return pts, valid
+
+
+@pytest.mark.parametrize("n_bins", [90, 360])
+def test_points_entry_matches_jax_on_special_points(n_bins):
+    rng = np.random.default_rng(5 + n_bins)
+    pts, valid = _special_points(rng)
+    ref = jax.jit(lambda a, b: jscan.points_to_scan(a, b, n_bins=n_bins))(pts[:, :2], valid)
+    got = tscan.points_to_scan(torch.from_numpy(pts[:, :2]), torch.from_numpy(valid),
+                               n_bins=n_bins)
+    _assert_scans(ref, got)
+    assert np.isinf(got.ranges.numpy()[n_bins // 2 + 2:]).any()      # empty bins: +inf
+    assert np.isinf(got.far_ranges.numpy()).sum() == np.isinf(got.ranges.numpy()).sum()
+    ref = jax.jit(lambda a, b: jscan.cloud_to_scan(a, b, n_bins=n_bins))(pts, valid)
+    got = tscan.cloud_to_scan(torch.from_numpy(pts), torch.from_numpy(valid), n_bins=n_bins)
+    _assert_scans(ref, got)
+    # only the special points, whose bearings both atan2s give exactly: equal
+    sp = slice(0, 21)
+    for fn_j, fn_t, x in ((jscan.points_to_scan, tscan.points_to_scan, pts[sp, :2]),
+                          (jscan.cloud_to_scan, tscan.cloud_to_scan, pts[sp])):
+        ref = jax.jit(lambda a, b: fn_j(a, b, n_bins=n_bins))(x, valid[sp])
+        got = fn_t(torch.from_numpy(x), torch.from_numpy(valid[sp]), n_bins=n_bins)
+        assert _moved(ref.ranges, got.ranges) + _moved(ref.far_ranges, got.far_ranges) == 0
+        assert np.isfinite(np.asarray(ref.ranges)).sum() >= 4
+
+
+def test_points_entry_is_the_composition_and_batches_scans():
+    """K15's points entry on CPU tensors is its plain version; a batch of
+    scans gives, row for row, each scan alone; a scan with no valid point is
+    +inf throughout (near and far)."""
+    rng = np.random.default_rng(9)
+    pts = torch.from_numpy(rng.uniform(-6, 6, (3, 200, 2)).astype(np.float32))
+    valid = torch.from_numpy(rng.random((3, 200)) < 0.8)
+    valid[2] = False
+    near, far = kops.bin_min_max(pts, valid, 180, -math.pi, math.pi, 6.0, 0.05)
+    ref = kops.bin_min_max_plain(pts, valid, 180, -math.pi, math.pi, 6.0, 0.05)
+    assert torch.equal(near, ref[0]) and torch.equal(far, ref[1])
+    batch = tscan.points_to_scan(pts, valid, n_bins=180)
+    for b in range(3):
+        one = tscan.points_to_scan(pts[b], valid[b], n_bins=180)
+        assert torch.equal(batch.ranges[b], one.ranges)
+        assert torch.equal(batch.far_ranges[b], one.far_ranges)
+    assert torch.isinf(near[2]).all() and torch.isinf(far[2]).all() and (far[2] > 0).all()

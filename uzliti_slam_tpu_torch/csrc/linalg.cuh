@@ -2,8 +2,9 @@
 // (ransac_rigid.cu), K27 (gicp.cu) and K28 (pnp.cu): the Shepperd
 // quaternion of a rotation matrix (lie.matrix_to_quat), the proper rotation
 // of a 3x3 by one-sided cyclic Jacobi (the Kabsch optimum; the reference
-// takes it from an SVD), a 6x6 solve by LU with partial pivoting, and a
-// fixed-order block reduction of per-thread float sums.  No library call:
+// takes it from an SVD), a 6x6 solve by LU with partial pivoting, a
+// fixed-order block reduction of per-thread float sums, and a fixed-order
+// warp reduction (float or double).  No library call:
 // cuSOLVER's solves check an info flag on the host.
 #pragma once
 
@@ -42,6 +43,39 @@ __device__ __forceinline__ void normalize3(float v[3]) {
   for (int i = 0; i < 3; ++i) v[i] = v[i] / n;
 }
 
+// One one-sided Jacobi rotation of columns p < q of A (V alongside); false
+// where the two are already orthogonal.  Compile-time p and q keep A and V
+// in registers (a run-time column index puts them in local memory).
+template <int p, int q>
+__device__ __forceinline__ bool jacobi_pair(float (&A)[3][3], float (&V)[3][3]) {
+  float alpha = 0.f, beta = 0.f, gamma = 0.f;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    alpha += A[i][p] * A[i][p];
+    beta += A[i][q] * A[i][q];
+    gamma += A[i][p] * A[i][q];
+  }
+  if (!(fabsf(gamma) > 1e-7f * sqrtf(alpha * beta))) return false;
+  const float zeta = (beta - alpha) / (2.f * gamma);
+  const float t = copysignf(1.f, zeta) / (fabsf(zeta) + sqrtf(1.f + zeta * zeta));
+  const float cs = 1.f / sqrtf(1.f + t * t), sn = cs * t;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float ap = A[i][p], aq = A[i][q];
+    A[i][p] = cs * ap - sn * aq;
+    A[i][q] = sn * ap + cs * aq;
+    const float vp = V[i][p], vq = V[i][q];
+    V[i][p] = cs * vp - sn * vq;
+    V[i][q] = sn * vp + cs * vq;
+  }
+  return true;
+}
+
+// x[k] for a run-time k in 0..2, by selects (registers, not local memory)
+__device__ __forceinline__ float pick3(const float x[3], int k) {
+  return k == 0 ? x[0] : (k == 1 ? x[1] : x[2]);
+}
+
 // The proper rotation of C = U S V^T: R = U diag(1, 1, sign(det U det V))
 // V^T (Kabsch's optimum; the polar factor where det C > 0), by one-sided
 // cyclic Jacobi; returns the singular values' sum.
@@ -54,46 +88,26 @@ __device__ inline float proper_rotation(const float C[3][3], float R[3][3]) {
       A[i][j] = C[i][j];
       V[i][j] = i == j ? 1.f : 0.f;
     }
-  const int P[3] = {0, 0, 1}, Q[3] = {1, 2, 2};
   for (int sweep = 0; sweep < kRotationSweeps; ++sweep) {
-    bool rotated = false;
-    for (int pq = 0; pq < 3; ++pq) {
-      const int p = P[pq], q = Q[pq];
-      float alpha = 0.f, beta = 0.f, gamma = 0.f;
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        alpha += A[i][p] * A[i][p];
-        beta += A[i][q] * A[i][q];
-        gamma += A[i][p] * A[i][q];
-      }
-      if (!(fabsf(gamma) > 1e-7f * sqrtf(alpha * beta))) continue;
-      rotated = true;
-      const float zeta = (beta - alpha) / (2.f * gamma);
-      const float t = copysignf(1.f, zeta) / (fabsf(zeta) + sqrtf(1.f + zeta * zeta));
-      const float cs = 1.f / sqrtf(1.f + t * t), sn = cs * t;
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        const float ap = A[i][p], aq = A[i][q];
-        A[i][p] = cs * ap - sn * aq;
-        A[i][q] = sn * ap + cs * aq;
-        const float vp = V[i][p], vq = V[i][q];
-        V[i][p] = cs * vp - sn * vq;
-        V[i][q] = sn * vp + cs * vq;
-      }
-    }
-    if (!rotated) break;
+    const bool r01 = jacobi_pair<0, 1>(A, V);
+    const bool r02 = jacobi_pair<0, 2>(A, V);
+    const bool r12 = jacobi_pair<1, 2>(A, V);
+    if (!(r01 || r02 || r12)) break;
   }
   float sig[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) sig[k] = sqrtf(A[0][k] * A[0][k] + A[1][k] * A[1][k] + A[2][k] * A[2][k]);
   int i1 = 0;
+#pragma unroll
   for (int k = 1; k < 3; ++k)
-    if (sig[k] > sig[i1]) i1 = k;
+    if (sig[k] > pick3(sig, i1)) i1 = k;
   int i2 = i1 == 0 ? 1 : 0;
+#pragma unroll
   for (int k = 0; k < 3; ++k)
-    if (k != i1 && sig[k] > sig[i2]) i2 = k;
+    if (k != i1 && sig[k] > pick3(sig, i2)) i2 = k;
   const float ssum = sig[0] + sig[1] + sig[2];
-  if (!(sig[i1] > 1e-30f)) {   // no spread at all: the SVD of 0 gives U = V = I
+  const float s1 = pick3(sig, i1), s2 = pick3(sig, i2);
+  if (!(s1 > 1e-30f)) {   // no spread at all: the SVD of 0 gives U = V = I
 #pragma unroll
     for (int i = 0; i < 3; ++i)
 #pragma unroll
@@ -103,13 +117,13 @@ __device__ inline float proper_rotation(const float C[3][3], float R[3][3]) {
   float u1[3], u2[3], v1[3], v2[3], u3[3], v3[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
-    u1[i] = A[i][i1];
-    u2[i] = A[i][i2];
-    v1[i] = V[i][i1];
-    v2[i] = V[i][i2];
+    u1[i] = pick3(A[i], i1);
+    u2[i] = pick3(A[i], i2);
+    v1[i] = pick3(V[i], i1);
+    v2[i] = pick3(V[i], i2);
   }
   normalize3(u1);
-  if (sig[i2] > 1e-7f * sig[i1]) {
+  if (s2 > 1e-7f * s1) {
     const float d = u1[0] * u2[0] + u1[1] * u2[1] + u1[2] * u2[2];
 #pragma unroll
     for (int i = 0; i < 3; ++i) u2[i] -= d * u1[i];
@@ -177,6 +191,17 @@ __device__ inline void block_tree_sum(const float (&acc)[N], float (*red)[T]) {
     }
     __syncthreads();
   }
+}
+
+// Sums each lane's acc[0, N) over a warp by a butterfly of shuffles, a fixed
+// order: at each step the two lanes of a pair add the same two values, so
+// every lane ends with the same bits.  All 32 lanes take part.
+template <typename S, int N>
+__device__ __forceinline__ void warp_tree_sum(S (&acc)[N]) {
+#pragma unroll
+  for (int q = 0; q < N; ++q)
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) acc[q] = acc[q] + __shfl_xor_sync(0xffffffffu, acc[q], off);
 }
 
 }  // namespace uz

@@ -45,8 +45,8 @@ SIGNATURES = {
     "uz_residual_chi2": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _P, _P, _P, _P],
     "uz_relax_min": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "uz_cluster_labels": [_P, _P, _P, _I, _F, _I, _P, _P],
-    "uz_ransac_rigid": [_P, _L, _P, _L, _P, _P, _P, _I, _I, _I, _F, _I, _F,
-                        _P, _P, _P, _P, _P, _P, _P, _P],
+    "uz_ransac_rigid": [_P, _L, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _F, _F,
+                        _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "uz_components": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     "uz_gauge_fix": [_P, _P, _P, _P, _I, _P, _P, _P],
     "uz_chain_root": [_P, _P, _I, _I, _I, _I, _P, _I, _P],
@@ -72,7 +72,7 @@ SIGNATURES = {
     "uz_gist_topk": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _P, _P, _P, _P],
     "uz_bilateral": [_P, _P, _I, _I, _I, _P, _F, _P, _P, _P],
     "uz_icp": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P, _P],
-    "uz_bin_min_max": [_P, _P, _P, _I, _I, _I, _F, _F, _P, _P],
+    "uz_bin_min_max": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P, _P],
     "uz_merge_pairs": [_P, _P, _P, _I, _F, _F, _I, _P, _P, _P, _P, _P],
     "uz_calib_gn": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P, _P, _P, _P],
     "uz_feature_votes": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,

@@ -21,7 +21,8 @@ residual_chi2  csrc/residual_chi2.cu   factors.batched_residuals +
                                        their vmap in the fleet)
 relax_min      csrc/relax_min.cu       graph/shortest_path.py:shortest_paths
 cluster_labels csrc/cluster_labels.cu  graph/filter.py:_cluster_labels
-ransac_rigid   csrc/ransac_rigid.cu    ops/ransac.py:ransac_rigid (+ kabsch,
+ransac_rigid   csrc/ransac_rigid.cu    ops/ransac.py:ransac_rigid (+
+                                       _valid_sample's draw, kabsch,
                                        kabsch_quat)
 components     csrc/components.cu      graph/solver.py:connected_components,
                                        gauge_fix_mask (two wrappers, one
@@ -45,8 +46,9 @@ orb_describe   csrc/orb_describe.cu    ops/features.py:_sep_blur +
                                        binary_gist in one launch)
 scan_bins      csrc/scan_bins.cu       ops/scan.py:depth_to_scan's per-pixel
                                        part + _bin_min_max; second entry
-                                       bin_min_max (own count): _bin_min_max
-                                       of points_to_scan / cloud_to_scan
+                                       bin_min_max (own count): the point
+                                       math and _bin_min_max of
+                                       points_to_scan / cloud_to_scan
 hamming_top2   csrc/hamming_top2.cu    ops/matching.py:hamming_matrix +
                                        knn_match + ratio_test (match_descriptors)
                                        and recognizer.py:gist_query (two
@@ -857,14 +859,20 @@ def ransac_hypotheses_plain(src, dst, valid, tri, weights=None):
 
 
 def ransac_rigid_plain(src, dst, valid, tri, inlier_thresh: float, min_consensus: int,
-                       min_sigma: float, weights=None):
+                       min_sigma: float, weights=None, uniforms=None, quality=None,
+                       beta: float = 4.0):
     """Plain version of K7 for R roots: src/dst (R, M, 3), valid (R, M),
-    triplets tri (R, K, 3), optional weights (R, M) multiplying ``valid`` in
-    the fits.  Returns (pose (R, 7), consensus (R,) int32, mse (R,),
-    information (R, 6, 6), ok (R,), best (R,) int32, counts (R, K) int32),
-    as ``uzliti_slam_tpu/ops/ransac.py:ransac_rigid``."""
+    triplets tri (R, K, 3) or, with ``tri`` None, the draw's ``uniforms``
+    (R, 3K) mapped to triplets by ``ops/ransac.triplets_from_uniforms``
+    (soft PROSAC on ``quality`` (R, M) where given); optional weights (R, M)
+    multiplying ``valid`` in the fits.  Returns (pose (R, 7), consensus (R,)
+    int32, mse (R,), information (R, 6, 6), ok (R,), best (R,) int32, counts
+    (R, K) int32, tri (R, K, 3) int32), as
+    ``uzliti_slam_tpu/ops/ransac.py:ransac_rigid``."""
     from uzliti_slam_tpu_torch.ops import lie, ransac
 
+    if tri is None:
+        tri = ransac.triplets_from_uniforms(uniforms, valid, quality, beta)
     R, M, _ = src.shape
     w = _fit_weights(valid, weights, src.dtype)
     ti, err2 = ransac_hypotheses_plain(src, dst, valid, tri, weights)
@@ -883,7 +891,8 @@ def ransac_rigid_plain(src, dst, valid, tri, inlier_thresh: float, min_consensus
     base = 0.1 * consensus.to(src.dtype) / torch.clamp(mse, min=min_sigma**2)
     information = torch.diag_embed(torch.stack([base] * 3 + [base * 100.0] * 3, dim=-1))
     ok = (consensus >= min_consensus) & (torch.gather(counts, 1, best[:, None])[:, 0] > 0)
-    return refit, consensus, mse, information, ok, best.to(torch.int32), counts
+    return (refit, consensus, mse, information, ok, best.to(torch.int32), counts,
+            tri.to(torch.int32))
 
 
 def _root_view(name: str, t: torch.Tensor, R: int, M: int, device) -> tuple[int, int]:
@@ -898,40 +907,64 @@ def _root_view(name: str, t: torch.Tensor, R: int, M: int, device) -> tuple[int,
     return t.data_ptr(), t.stride(0)
 
 
+RANSAC_MAX_HYPOTHESES = 1024   # kRootThreads in csrc/ransac_rigid.cu
+
+
+def _ransac_outputs(dev, R: int, K: int):
+    """K7's outputs, views of one int32 allocation split once: pose (R, 7),
+    information (R, 6, 6) and mse (R,) reinterpreted as float32, consensus
+    and best (R,), counts (R, K), the triplets (R, K, 3), and ok (R,) bool
+    in the bytes of the last R words."""
+    pose, info, mse, consensus, best, counts, tri, ok = torch.empty(
+        R * (47 + 4 * K), dtype=torch.int32, device=dev).split(
+            [7 * R, 36 * R, R, R, R, K * R, 3 * K * R, R])
+    return (pose.view(torch.float32).view(R, 7), info.view(torch.float32).view(R, 6, 6),
+            mse.view(torch.float32), consensus, best, counts.view(R, K), tri.view(R, K, 3),
+            ok.view(torch.bool)[:R])
+
+
 def ransac_rigid(src, dst, valid, tri, inlier_thresh: float, min_consensus: int,
-                 min_sigma: float, weights=None):
-    """K7: RANSAC rigid fits of R roots, one CTA per root.  ``src``/``dst``
-    may be broadcast views of one (M, 3) table (root stride 0); ``weights``
-    (R, M), where given, multiplies ``valid`` in the fits."""
+                 min_sigma: float, weights=None, uniforms=None, quality=None,
+                 beta: float = 4.0):
+    """K7: RANSAC rigid fits of R roots, a cluster of up to 4 CTAs of 1024
+    threads per root (the hypotheses split among them), the draw included: with ``tri`` None the kernel maps ``uniforms`` (R,
+    3K) to triplets (soft PROSAC on ``quality`` where given) and returns
+    them.  ``src``/``dst`` may be broadcast views of one (M, 3) table (root
+    stride 0); ``weights`` (R, M), where given, multiplies ``valid`` in the
+    fits.  The outputs are views of one allocation."""
     if src.device.type == "cpu":
         return ransac_rigid_plain(src, dst, valid, tri, inlier_thresh, min_consensus, min_sigma,
-                                  weights)
+                                  weights, uniforms, quality, beta)
     dev, f32, i32 = src.device, torch.float32, torch.int32
     R, M, _ = src.shape
-    K = tri.shape[1]
-    if not 0 < K <= 1024:
-        raise ValueError(f"ransac_rigid: {K} hypotheses, the kernel takes 1..1024")
+    if (tri is None) == (uniforms is None):
+        raise ValueError("ransac_rigid: give the triplets or the draw's uniforms, not both")
+    K = tri.shape[1] if tri is not None else uniforms.shape[1] // 3
+    if not 0 < K <= RANSAC_MAX_HYPOTHESES:
+        raise ValueError(f"ransac_rigid: {K} hypotheses, the kernel takes "
+                         f"1..{RANSAC_MAX_HYPOTHESES}")
     src_p, src_s = _root_view("src", src, R, M, dev)
     dst_p, dst_s = _root_view("dst", dst, R, M, dev)
     valid_p = _check("valid", valid, (R, M), torch.bool, dev)
     weights_p = None if weights is None else _check("weights", weights, (R, M), f32, dev)
-    tri_p = _check("tri", tri, (R, K, 3), i32, dev)
+    if tri is None:
+        u_p = _check("uniforms", uniforms, (R, 3 * K), f32, dev)
+        q_p = None if quality is None else _check("quality", quality, (R, M), f32, dev)
+        tri_p = None
+    else:
+        u_p = q_p = None
+        tri_p = _check("tri", tri, (R, K, 3), i32, dev)
+    pose, information, mse, consensus, best, counts, tri_out, ok = _ransac_outputs(dev, R, K)
     lib = _build.load()
-    pose = torch.empty(R, 7, dtype=f32, device=dev)
-    consensus = torch.empty(R, dtype=i32, device=dev)
-    mse = torch.empty(R, dtype=f32, device=dev)
-    information = torch.empty(R, 6, 6, dtype=f32, device=dev)
-    ok = torch.empty(R, dtype=torch.bool, device=dev)
-    best = torch.empty(R, dtype=i32, device=dev)
-    counts = torch.empty(R, K, dtype=i32, device=dev)
     err = lib.uz_ransac_rigid(
-        src_p, src_s, dst_p, dst_s, valid_p, weights_p, tri_p, R, M, K, float(inlier_thresh**2),
-        int(min_consensus), float(min_sigma**2), pose.data_ptr(), consensus.data_ptr(),
-        mse.data_ptr(), information.data_ptr(), ok.data_ptr(), best.data_ptr(),
-        counts.data_ptr(), _stream(dev))
+        src_p, src_s, dst_p, dst_s, valid_p, weights_p, q_p, u_p, tri_p, R, M, K,
+        float(inlier_thresh**2), int(min_consensus), float(min_sigma**2), float(beta),
+        pose.data_ptr(), consensus.data_ptr(), mse.data_ptr(), information.data_ptr(),
+        ok.data_ptr(), best.data_ptr(), counts.data_ptr(),
+        tri_out.data_ptr() if tri is None else None, _stream(dev))
     _raise_on(err, "ransac_rigid")
     launches["ransac_rigid"] += 1
-    return pose, consensus, mse, information, ok, best, counts
+    return pose, consensus, mse, information, ok, best, counts, tri_out if tri is None else tri
 
 
 # ---------------------------------------------------------------------------
@@ -2249,6 +2282,26 @@ def l2_top2(a, b, valid_a, valid_b, ratio_sq: float, max_sq: float):
 # K15 scan_bins (depth -> per-bin near/far range)
 # ---------------------------------------------------------------------------
 
+SCAN_MAX_BINS = 1024     # kMaxBins in csrc/scan_bins.cu: a scratch row's near and far halves
+_scan_scratch: dict = {}
+
+
+def scan_bins_scratch(device, C: int) -> torch.Tensor:
+    """K15's table on ``device``: (rows, 2·SCAN_MAX_BINS + 1) int32, a row a
+    camera of INT_MAX (near), -1 (far) and an arrival counter 0.  Made once
+    a device (again for more cameras); every call leaves it as it found it,
+    its last CTA putting back what the others folded in."""
+    key = str(device)
+    t = _scan_scratch.get(key)
+    if t is None or t.shape[0] < C:
+        t = torch.full((max(C, 2), 2 * SCAN_MAX_BINS + 1), torch.iinfo(torch.int32).max,
+                       dtype=torch.int32, device=device)
+        t[:, SCAN_MAX_BINS:2 * SCAN_MAX_BINS] = -1
+        t[:, -1] = 0
+        _scan_scratch[key] = t
+    return t
+
+
 def fma_plain(a, b, c):
     """a·b + c rounded once to float32, as a fused multiply-add: the
     product is exact in float64, so only the double rounding of the sum
@@ -2299,20 +2352,19 @@ def scan_bins_plain(depth, cam, xf, n_bins: int, angle_min: float, angle_max: fl
                     height_band, max_range: float, min_range: float):
     """Plain version of K15: (near (C, B), far (C, B)), +inf where a bin is
     empty, from (C, H, W) depth in metres."""
-    from uzliti_slam_tpu_torch.ops import scan
-
     rng, ok, bins = scan_pixels_plain(depth, cam, xf, n_bins, angle_min, angle_max,
                                       height_band, max_range, min_range)
-    near, far = bin_min_max_plain(rng, ok, bins, n_bins, max_range)
+    near, far = bin_reduce_plain(rng, ok, bins, n_bins, max_range)
     return near, torch.where(torch.isfinite(far), far, torch.inf)
 
 
-def bin_min_max_plain(rng, ok, bins, n_bins: int, max_range: float):
-    """Plain version of K15's ``bin_min_max`` entry: per-bin (near, far) of
-    (..., P) ranges, flags and bins (leading dimensions: one scan each),
-    from the 21-bit quantised ranges of the ``ok`` entries by
-    ``scatter_reduce``; +inf / -inf for an empty bin.  The write-back is
-    q · fl(1 / scale): the compiled form of the reference's ``q / scale``."""
+def bin_reduce_plain(rng, ok, bins, n_bins: int, max_range: float):
+    """The reduction at the core of K15's plain versions (the reference's
+    ``_bin_min_max``): per-bin (near, far) of (..., P) ranges, flags and
+    bins (leading dimensions: one scan each), from the 21-bit quantised
+    ranges of the ``ok`` entries by ``scatter_reduce``; +inf / -inf for an
+    empty bin.  The write-back is q · fl(1 / scale): the compiled form of
+    the reference's ``q / scale``."""
     from uzliti_slam_tpu_torch.ops import scan
 
     scale = scan.range_scale(max_range)
@@ -2330,38 +2382,73 @@ def bin_min_max_plain(rng, ok, bins, n_bins: int, max_range: float):
             torch.where(has, mx.to(torch.float32) * inv, -math.inf))
 
 
-def bin_min_max(rng, ok, bins, n_bins: int, max_range: float):
-    """K15's second entry point: one CTA per scan, atomicMin / atomicMax of
-    the 21-bit quantised ranges on int32 bins in shared memory (exact and
-    order-free), then q · fl(1/scale) or ±inf.  Returns (near, far)."""
-    if rng.device.type == "cpu":
-        return bin_min_max_plain(rng, ok, bins, n_bins, max_range)
+def bin_min_max_plain(points, valid, n_bins: int, angle_min: float, angle_max: float,
+                      max_range: float, min_range: float, height_band=None):
+    """Plain version of K15's ``bin_min_max`` entry: the scans (near, far),
+    each (..., n_bins) and +inf where a bin is empty, of the points (..., P,
+    2) in the scan frame (``points_to_scan``) or (..., P, 3) with z within
+    ``height_band`` (``cloud_to_scan``), with flags ``valid`` (..., P);
+    leading dimensions are a batch of scans.  ``scan._hypot``, atan2,
+    ``scan._planar_ok``, the band, ``scan.bin_index``, then
+    ``bin_reduce_plain``."""
     from uzliti_slam_tpu_torch.ops import scan
 
-    dev, f32 = rng.device, torch.float32
-    lead, P = tuple(rng.shape[:-1]), rng.shape[-1]
+    x, y = points[..., 0], points[..., 1]
+    rng = scan._hypot(x, y)
+    bearing = torch.atan2(y, x)
+    ok = scan._planar_ok(rng, bearing, valid, angle_min, angle_max, max_range, min_range)
+    if height_band is not None:
+        z = points[..., 2]
+        ok = ok & (z >= height_band[0]) & (z <= height_band[1])
+    bins = scan.bin_index(bearing, n_bins, angle_min, angle_max)
+    near, far = bin_reduce_plain(rng, ok, bins, n_bins, max_range)
+    return near, torch.where(torch.isfinite(far), far, math.inf)
+
+
+def bin_min_max(points, valid, n_bins: int, angle_min: float, angle_max: float,
+                max_range: float, min_range: float, height_band=None):
+    """K15's second entry point: one CTA per scan computes each point's
+    range, bearing, gates and bin, then atomicMin / atomicMax of the 21-bit
+    quantised ranges on int32 bins in shared memory (exact and
+    order-free), then q · fl(1/scale) or +inf.  ``points`` (..., P, 2), or
+    (..., P, 3) with ``height_band``.  Returns (near, far), views of one
+    allocation."""
+    if points.device.type == "cpu":
+        return bin_min_max_plain(points, valid, n_bins, angle_min, angle_max, max_range,
+                                 min_range, height_band)
+    from uzliti_slam_tpu_torch.ops import scan
+
+    dev, f32 = points.device, torch.float32
+    lead, P, D = tuple(points.shape[:-2]), points.shape[-2], points.shape[-1]
     B = math.prod(lead)
     if not 0 < n_bins <= 1023:
         raise ValueError(f"bin_min_max: {n_bins} bins, the kernel takes 1..1023")
-    ptrs = [_check("rng", rng, lead + (P,), f32, dev),
-            _check("ok", ok, lead + (P,), torch.bool, dev),
-            _check("bins", bins, lead + (P,), torch.int32, dev)]
+    if (D, height_band is not None) not in ((2, False), (3, True)):
+        raise ValueError(f"bin_min_max: points of {D} coordinates with height_band "
+                         f"{height_band}: (x, y) without a band or (x, y, z) with one")
+    ptrs = [_check("points", points, lead + (P, D), f32, dev),
+            _check("valid", valid, lead + (P,), torch.bool, dev)]
+    band = (0.0, 0.0) if height_band is None else height_band
     lib = _build.load()
     out = torch.empty(2, B, n_bins, dtype=f32, device=dev)
     scale = scan.range_scale(max_range)
-    err = lib.uz_bin_min_max(*ptrs, B, P, n_bins, scale, scan.f32_reciprocal(scale),
-                             out.data_ptr(), _stream(dev))
+    err = lib.uz_bin_min_max(*ptrs, B, P, D, n_bins, float(angle_min), float(angle_max),
+                             scan.bin_factor(n_bins, angle_min, angle_max), float(min_range),
+                             float(max_range), float(band[0]), float(band[1]), scale,
+                             scan.f32_reciprocal(scale), out.data_ptr(), _stream(dev))
     _raise_on(err, "bin_min_max")
     launches["bin_min_max"] += 1
-    return out[0].reshape(lead + (n_bins,)), out[1].reshape(lead + (n_bins,))
+    return out[0].view(lead + (n_bins,)), out[1].view(lead + (n_bins,))
 
 
 def scan_bins(depth, cam, xf, n_bins: int, angle_min: float, angle_max: float,
               height_band, max_range: float, min_range: float):
-    """K15: one thread per pixel (backprojection, extrinsic, band, range,
-    bearing, bin), per-bin atomicMin/atomicMax of the 21-bit quantised
-    range in shared memory, then into a (C, 2, B) table, then a finalize
-    launch writes q / scale (or +inf)."""
+    """K15: one launch over every camera's pixels (backprojection, extrinsic,
+    band, range, bearing, bin) into per-bin atomicMin/atomicMax of the
+    21-bit quantised range in each CTA's shared table, folded into the
+    device's table (``scan_bins_scratch``); each camera's last CTA writes
+    q · fl(1/scale) (or +inf) and resets the table.  Returns (near, far),
+    views of one allocation."""
     if depth.device.type == "cpu":
         return scan_bins_plain(depth, cam, xf, n_bins, angle_min, angle_max, height_band,
                                max_range, min_range)
@@ -2373,14 +2460,14 @@ def scan_bins(depth, cam, xf, n_bins: int, angle_min: float, angle_max: float,
         raise ValueError(f"scan_bins: {n_bins} bins, the kernel takes 1..1023")
     ptrs = [_check("depth", depth, (C, H, W), f32, dev), _check("xf", xf, (C, 12), f32, dev)]
     lib = _build.load()
-    table = torch.empty(C, 2, n_bins, dtype=torch.int32, device=dev)
+    scratch = scan_bins_scratch(dev, C)
     out = torch.empty(2, C, n_bins, dtype=f32, device=dev)
     scale = scan.range_scale(max_range)
     err = lib.uz_scan_bins(*ptrs, C, H, W, float(cam.fx), float(cam.fy), float(cam.cx),
                            float(cam.cy), n_bins, float(angle_min), float(angle_max),
                            scan.bin_factor(n_bins, angle_min, angle_max), float(height_band[0]),
                            float(height_band[1]), float(min_range), float(max_range), scale,
-                           scan.f32_reciprocal(scale), table.data_ptr(), out.data_ptr(),
+                           scan.f32_reciprocal(scale), scratch.data_ptr(), out.data_ptr(),
                            _stream(dev))
     _raise_on(err, "scan_bins")
     launches["scan_bins"] += 1

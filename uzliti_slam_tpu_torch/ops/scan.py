@@ -9,9 +9,10 @@ integers ``q = int(clip(range · scale, 0, 2²¹ - 1))`` with ``scale = (2²¹ -
 so the scans are the reference's scans bit for bit.  ``depth_to_scan``
 runs kernel K15 (``scan_bins``, one fused per-pixel pass) through
 ``kernels/ops.py``; ``cloud_to_scan`` and ``points_to_scan`` (node
-merging's re-binning, a batch of scans at once) compute the ranges and
-bins here and reduce them through K15's second entry point,
-``bin_min_max``.
+merging's re-binning, a batch of scans at once) are K15's second entry
+point, ``bin_min_max``, which takes the points: their ranges (``_hypot``),
+bearings, gates (``_planar_ok``, the height band) and bins (``bin_index``)
+are computed in the same launch as the reduction (``_bin_min_max``).
 """
 
 from __future__ import annotations
@@ -81,12 +82,13 @@ def bin_index(bearing: torch.Tensor, n_bins: int, angle_min: float, angle_max: f
 def _bin_min_max(rng_flat: torch.Tensor, ok_flat: torch.Tensor, bins_flat: torch.Tensor,
                  n_bins: int, max_range: float):
     """Per-bin (near, far) range of flat (P,) entries, from the 21-bit
-    quantised ranges of the ``ok`` entries; +inf / -inf for an empty bin.
-    Leading dimensions of the inputs are batch dimensions (one scan each).
-    K15's ``bin_min_max`` entry point on a CUDA device."""
+    quantised ranges of the ``ok`` entries; +inf / -inf for an empty bin:
+    the reference's ``_bin_min_max``, the core of K15's plain versions
+    (``kernels/ops.bin_reduce_plain``).  Leading dimensions of the inputs
+    are batch dimensions (one scan each)."""
     if n_bins > 1023:
         raise ValueError("n_bins must fit 10 bits alongside 21-bit ranges")
-    return kops.bin_min_max(rng_flat, ok_flat, bins_flat, n_bins, max_range)
+    return kops.bin_reduce_plain(rng_flat, ok_flat, bins_flat, n_bins, max_range)
 
 
 def _hypot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -106,24 +108,16 @@ def _planar_ok(rng, bearing, valid, angle_min, angle_max, max_range, min_range):
             & (bearing >= angle_min) & (bearing < angle_max))
 
 
-def _scan(near, far, angle_min, angle_max) -> Scan:
-    return Scan(ranges=near, far_ranges=torch.where(torch.isfinite(far), far, math.inf),
-                angle_min=float(angle_min), angle_max=float(angle_max))
-
-
 def cloud_to_scan(points: torch.Tensor, valid: torch.Tensor, n_bins: int = 360,
                   angle_min: float = -math.pi, angle_max: float = math.pi,
                   height_band: tuple[float, float] = (0.1, 1.0), max_range: float = 6.0,
                   min_range: float = 0.3) -> Scan:
-    """A 3-D cloud (N, 3) in the robot base frame (z up) -> a virtual scan."""
-    x, y, z = points[..., 0], points[..., 1], points[..., 2]
-    rng = _hypot(x, y)
-    bearing = torch.atan2(y, x)
-    ok = (_planar_ok(rng, bearing, valid, angle_min, angle_max, max_range, min_range)
-          & (z >= height_band[0]) & (z <= height_band[1]))
-    bins = bin_index(bearing, n_bins, angle_min, angle_max)
-    near, far = _bin_min_max(rng.reshape(-1), ok.reshape(-1), bins.reshape(-1), n_bins, max_range)
-    return _scan(near, far, angle_min, angle_max)
+    """A 3-D cloud (N, 3) in the robot base frame (z up) -> a virtual scan
+    (K15's ``bin_min_max`` entry, one launch)."""
+    near, far = kops.bin_min_max(points.to(torch.float32).reshape(1, -1, 3).contiguous(),
+                                 valid.reshape(1, -1).contiguous(), n_bins, angle_min, angle_max,
+                                 max_range, min_range, height_band)
+    return Scan(near[0], far[0], float(angle_min), float(angle_max))
 
 
 def depth_camera_transform(cam_pose: torch.Tensor) -> torch.Tensor:
@@ -154,14 +148,11 @@ def points_to_scan(points2d: torch.Tensor, valid: torch.Tensor, n_bins: int = 36
                    angle_min: float = -math.pi, angle_max: float = math.pi,
                    max_range: float = 6.0, min_range: float = 0.05) -> Scan:
     """Re-bin 2-D points (..., N, 2) in the scan frame into virtual scans
-    (..., n_bins): leading dimensions are a batch of scans."""
-    x, y = points2d[..., 0], points2d[..., 1]
-    rng = _hypot(x, y)
-    bearing = torch.atan2(y, x)
-    ok = _planar_ok(rng, bearing, valid, angle_min, angle_max, max_range, min_range)
-    bins = bin_index(bearing, n_bins, angle_min, angle_max)
-    near, far = _bin_min_max(rng, ok, bins, n_bins, max_range)
-    return _scan(near, far, angle_min, angle_max)
+    (..., n_bins): leading dimensions are a batch of scans (K15's
+    ``bin_min_max`` entry, one launch for the batch)."""
+    near, far = kops.bin_min_max(points2d.to(torch.float32).contiguous(), valid.contiguous(),
+                                 n_bins, angle_min, angle_max, max_range, min_range)
+    return Scan(near, far, float(angle_min), float(angle_max))
 
 
 def merge_scans(a: Scan, b: Scan, close_thresh: float = 0.2, prefer_b: bool = True) -> Scan:

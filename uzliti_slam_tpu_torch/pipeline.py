@@ -725,12 +725,11 @@ def _register_feature(state: SlamState, fe: FrontendOutput, cs: torch.Tensor,
     nb, F = cs.shape[0], fe.desc.shape[0]
     cpts = state.points.index_select(0, cs.long())
     dst = torch.gather(cpts, 1, mi.long()[..., None].expand(nb, F, 3))
-    if tri is None:
-        tri = ransac._valid_sample(state.generator, ec.ransac_hypotheses, ok_m, -dist)
     res = ransac.ransac_rigid_batch(
         fe.pts_base[None].expand(nb, F, 3), dst, ok_m, ec.ransac_hypotheses,
-        tn.ransac_inlier_thresh, tn.min_consensus, tn.ransac_min_sigma, tri=tri)
-    return (res.pose, res.information, res.consensus.to(torch.float32), res.ok), tri
+        tn.ransac_inlier_thresh, tn.min_consensus, tn.ransac_min_sigma, tri=tri,
+        generator=state.generator, quality=-dist)
+    return (res.pose, res.information, res.consensus.to(torch.float32), res.ok), res.tri
 
 
 def _register_pnp(state: SlamState, fe: FrontendOutput, cs: torch.Tensor, cam, cam0,
@@ -998,12 +997,11 @@ def recognize_absorbed(state: SlamState, slots: torch.Tensor, mask: torch.Tensor
         F = desc.shape[0]
         dst = torch.gather(state.points.index_select(0, cs.long()), 1,
                            mi.long()[..., None].expand(k, F, 3))
-        tri_i = (ransac._valid_sample(state.generator, ec.ransac_hypotheses, ok_m, -dist)
-                 if tri is None else tri[i])
-        draws.append(tri_i)
         res = ransac.ransac_rigid_batch(
             state.points.index_select(0, s1).expand(k, F, 3), dst, ok_m, ec.ransac_hypotheses,
-            tn.ransac_inlier_thresh, tn.min_consensus, tn.ransac_min_sigma, tri=tri_i)
+            tn.ransac_inlier_thresh, tn.min_consensus, tn.ransac_min_sigma,
+            tri=None if tri is None else tri[i], generator=state.generator, quality=-dist)
+        draws.append(res.tri)
         t_norm = torch.linalg.vector_norm(lie.pose_t(res.pose), dim=-1)
         r_deg = torch.rad2deg(lie.rotation_angle(lie.pose_q(res.pose)))
         edge_ok = (pr_ok & res.ok & (res.consensus >= tn.min_matching_score)
