@@ -37,9 +37,14 @@ runs, in order, each phase printing lines of its own:
    12-step solve's x, r, p and scal against the plain version, the stall
    flags, a bit-identical rerun, 13 launches and no K3 or K10), a step timed
    (events and device ms) against the three calls it replaces in turns;
-   each epoch kernel (K5 relax_min, K6
-   cluster_labels, K7 ransac_rigid, K8 components) on the inputs the
-   500-node and 10k-node epochs give it (K7 with its draw folded in: its
+   each epoch kernel (K5's entries relax_table, relax_pairs,
+   relax_uncertainty and relax_min, K6's cluster_roots and cluster_labels,
+   K7 ransac_rigid, K8 components) on the inputs the
+   500-node and 10k-node epochs give it (K5 and K6 also on edge cases: a
+   hop diameter above the 64 sweeps, a row at its fixed point early, dense
+   rows, the global scratch above the shared-memory cut, duplicated edges,
+   tied and invalid roots; B = 1, 77, 300, a chain beyond 16 hops, no valid
+   candidate; K5 within RELAX_MAX_ULP, K6 exactly; K7 with its draw folded in: its
    triplets against the plain mapping of the same uniforms, exact but for
    targets within 4 ulps of a running-sum boundary, then the rest on its
    own triplets; also on a late keyframe step's calls, 1 camera and the
@@ -89,7 +94,12 @@ runs, in order, each phase printing lines of its own:
    solve, K2 and K37 above the cap (the 100k solve, sharded or not), K2,
    K10 and K3 in the fleet;
 8. the 500-node RGB-D + laser epoch (``pipeline.optimize_epoch`` with the
-   live ``SlamConfig``): launch counts per kernel, the factors K9 built
+   live ``SlamConfig``): launch counts per kernel (K5 two a call site: its
+   table and one relaxation entry; K6's roots entry once), K5's and K6's
+   device ms in a profiled epoch, the public entry points that reach K5's
+   rows entry and K6's labels entry (``shortest_paths``,
+   ``filter._cluster_labels``) counted and profiled on the same state
+   (8b), the factors K9 built
    against the reference's refreshes, sync-free timed epochs except the
    one restart read, the planted bad laser edge rejected, laser
    edges validated, χ² and ATE against ground truth and odometry, and the
@@ -355,7 +365,15 @@ REPLACES = {
     "residual_chi2": "uzliti_slam_tpu/graph/solver.py:1034 (_robust_chi2_from_r)"
                      " + graph/factors.py:72 (batched_residuals)",
     "relax_min": "uzliti_slam_tpu/graph/shortest_path.py:29 (shortest_paths)",
+    "relax_table": "uzliti_slam_tpu/graph/shortest_path.py:50-55 (shortest_paths' edges, as a"
+                   " node-to-edge table)",
+    "relax_pairs": "uzliti_slam_tpu/graph/shortest_path.py:60 (pairwise_graph_distance)"
+                   " + :29 (shortest_paths)",
+    "relax_uncertainty": "uzliti_slam_tpu/graph/shortest_path.py:75 (reevaluate_uncertainty)"
+                         " + :29 (shortest_paths)",
     "cluster_labels": "uzliti_slam_tpu/graph/filter.py:66 (_cluster_labels)",
+    "cluster_roots": "uzliti_slam_tpu/graph/filter.py:105-154 (filter_loop_closures before"
+                     " RANSAC) + :66 (_cluster_labels)",
     "ransac_rigid": "uzliti_slam_tpu/ops/ransac.py:123 (ransac_rigid)"
                     " + :96 (_valid_sample) + :54 (kabsch_quat) + :32 (kabsch)",
     "components": "uzliti_slam_tpu/graph/solver.py:212 (connected_components)"
@@ -392,6 +410,8 @@ REPLACES.update({
 })
 SOURCE = {k: f"uzliti_slam_tpu_torch/csrc/{k}.cu" for k in REPLACES}
 SOURCE["project_rays"] = "uzliti_slam_tpu_torch/csrc/occupancy.cu"
+SOURCE["relax_table"] = SOURCE["relax_pairs"] = SOURCE["relax_uncertainty"] = SOURCE["relax_min"]
+SOURCE["cluster_roots"] = SOURCE["cluster_labels"]
 SOURCE["bin_min_max"] = "uzliti_slam_tpu_torch/csrc/scan_bins.cu"
 SOURCE["pcg_chain_solve"] = "uzliti_slam_tpu_torch/csrc/pcg_chain.cu"
 SOURCE["lm_candidate"] = SOURCE["lm_accept"] = "uzliti_slam_tpu_torch/csrc/lm_step.cu"
@@ -414,7 +434,13 @@ PCG_GRID_REPLACES = ("uzliti_slam_tpu/graph/solver.py:512 (_pcg, its body minus 
 # the A/B reference of K1's Jᵢ, Jⱼ and W: the atomic kernel it replaced,
 # built by this script alone
 ATOMIC_K1_SOURCE = "scripts/linearize_atomic.cu"
-EPOCH_KERNELS = ("relax_min", "cluster_labels", "ransac_rigid", "components")
+# the epoch's kernels: K5's table, pairs and uncertainty entries, K6's roots
+# entry, K7, K8; K5's rows entry and K6's labels entry are reached by the
+# public entry points (ENTRY_KERNELS, counted in phase 8)
+EPOCH_KERNELS = ("relax_table", "relax_pairs", "relax_uncertainty", "cluster_roots",
+                 "ransac_rigid", "components")
+ENTRY_KERNELS = ("relax_min", "cluster_labels")
+K5_K6 = ("relax_table", "relax_pairs", "relax_uncertainty", "cluster_roots") + ENTRY_KERNELS
 MAP_KERNELS = ("project_rays",)
 FRONTEND_KERNELS = ("fast_nms", "grid_topk", "orb_describe", "scan_bins")
 # each front-end kernel's wrapper (K14's takes every row of a keyframe)
@@ -437,6 +463,12 @@ FRONTEND_DEVICE_FUNCTIONS = {"fast_nms": ("fast_nms_levels",),
                              "hamming_top2": ("match_top2_lanes", "gist_topk_cluster"),
                              "bilateral": ("bilateral_tile",), "icp": ("icp_cluster",),
                              "ransac_rigid": ("ransac_draw_fit",),
+                             "relax_table": ("relax_table_kernel",),
+                             "relax_pairs": ("relax_pairs_kernel",),
+                             "relax_uncertainty": ("relax_unc_kernel",),
+                             "relax_min": ("relax_rows_kernel",),
+                             "cluster_roots": ("cluster_block<true>",),
+                             "cluster_labels": ("cluster_block<false>",),
                              "merge_pairs": ("row_keys", "greedy_rounds"),
                              "calib_gn": ("init_theta", "calib_edges", "calib_solve"),
                              "bin_min_max": ("bin_points",),
@@ -781,7 +813,8 @@ DEVICE_FUNCTIONS = ("sift_keypoints", "linearize_rows", "hvp_seed",
                     "pcg_init", "pcg_alpha", "pcg_beta", "grid_dots", "grid_init",
                     "grid_alpha", "grid_beta", "project_cells",
                     "residual_edges", "sum_partials",
-                    "relax_rows", "cluster_rounds", "ransac_draw_fit", "components_cta",
+                    "relax_table_kernel", "relax_rows_kernel", "relax_pairs_kernel",
+                    "relax_unc_kernel", "cluster_block", "ransac_draw_fit", "components_cta",
                     "gauge_cta", "k_init_labels", "k_scatter_min", "k_jump_out", "k_jump",
                     "k_gauge_init", "k_gauge_reduce_stamp", "k_gauge_reduce_slot",
                     "k_gauge_write", "fast_nms_levels", "grid_global", "grid_cells", "box_blur",
@@ -979,13 +1012,64 @@ def describe_read_pixels(img, uv, pattern, angles) -> int:
     return int(seen.sum())
 
 
+def frontier_relaxations(dist0, ef, et, w, n_iters: int) -> int:
+    """The relaxations K5's function needs on these rows: in each sweep,
+    every table entry (an edge of finite weight, not a self-loop, at each
+    end) of the nodes whose value changed in the sweep before (in sweep 0,
+    those of finite start value), counted from the plain version's values
+    sweep by sweep up to the first sweep that changes nothing."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    keep = (w < kops.INF) & (ef != et)
+    deg = torch.zeros(dist0.shape[1], dtype=torch.int64, device=dist0.device)
+    deg.index_add_(0, ef[keep].long(), torch.ones_like(ef[keep], dtype=torch.int64))
+    deg.index_add_(0, et[keep].long(), torch.ones_like(et[keep], dtype=torch.int64))
+    d, changed, total = dist0, dist0 < kops.INF, 0
+    for _ in range(n_iters):
+        n = int((changed.long() * deg).sum())
+        if not bool(changed.any()):
+            break
+        total += n
+        nd = kops.relax_min_plain(d, ef, et, w, 1)
+        changed, d = nd != d, nd
+    return total
+
+
+def label_work(sf, st, valid, max_dt: float, n_iters: int) -> int:
+    """K6's labels' operations on these candidates: the adjacency test
+    once for each unordered pair of valid candidates and the diagonal (two
+    subtractions, two absolute values, two compares; the test is
+    symmetric), then in each round a minimum for each adjacent pair (i, j),
+    i != j, whose neighbour j's label changed in the round before (in round
+    1, every valid j), counted from the plain version's labels round by
+    round up to the first round with nothing changed before it, within
+    ``n_iters``: the rule ``frontier_relaxations`` counts K5's sweeps by."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    b, nv = sf.shape[0], int(valid.sum())
+    adj = ((torch.abs(sf[:, None] - sf[None, :]) < max_dt)
+           & (torch.abs(st[:, None] - st[None, :]) < max_dt) & valid[:, None] & valid[None, :]
+           & ~torch.eye(b, dtype=torch.bool, device=sf.device))
+    labels, changed, total = kops.cluster_labels_plain(sf, st, valid, max_dt, 0), valid, 0
+    for _ in range(n_iters):
+        if not bool(changed.any()):
+            break
+        total += int((adj & changed[None, :]).sum())
+        nxt = torch.minimum(labels, torch.where(adj, labels[None, :], b).min(-1).values)
+        changed, labels = nxt != labels, nxt
+    return 3 * nv * (nv + 1) + total
+
+
 def kernel_work(name: str, args) -> tuple[int, int]:
     """(bytes, operations) one call must move and do on these inputs: each
     input read once and each output written once; operations counted from
     the kernel's arithmetic per edge, node, hypothesis or point (rounded
     counts of its multiplies, adds, compares and minima), over only the
-    entries this data needs: edges of finite weight (K5), valid candidates
-    (K6), roots with members and their valid points (K7), valid edges (K8)."""
+    entries this data needs: the relaxations of the edges of the nodes that
+    changed in the sweep before (K5, ``frontier_relaxations``), the valid
+    candidates' adjacency tests once a pair and the adjacent pairs whose
+    neighbour's label changed in the round before (K6, ``label_work``),
+    roots with members and their valid points (K7), valid edges (K8)."""
     from uzliti_slam_tpu_torch.kernels import ops as kops
 
     if name == "linearize":
@@ -1028,14 +1112,48 @@ def kernel_work(name: str, args) -> tuple[int, int]:
                   else torch.ones_like(chi2_new, dtype=torch.bool))
         acc = int(((chi2_new < state.hist[:, it]) & active).sum())
         return (4 * B * 6 + 2 * acc * (_nbytes(cand) + _nbytes(r_cand)) // B, 20 * B)
+    if name == "relax_table":
+        # the edge table read, row_ptr and the kept edges' two entries
+        # written; a test and a count an entry, the scan, the fill
+        ef, et, w, n = args
+        kept = int(((w < kops.INF) & (ef != et)).sum())
+        return _nbytes(ef, et, w) + 4 * (n + 1) + 16 * kept, 3 * ef.shape[0] + 2 * n + 4 * kept
     if name == "relax_min":
+        # 4 operations a relaxation (an add, the INF clamp, the compare
+        # with the start value, the min)
         dist0, ef, et, w, n_iters = args
-        live = int((w < kops.INF).sum())
-        return 2 * _nbytes(dist0) + _nbytes(ef, et, w), dist0.shape[0] * n_iters * live * 4
+        return (2 * _nbytes(dist0) + _nbytes(ef, et, w),
+                4 * frontier_relaxations(dist0, ef, et, w, n_iters))
+    if name == "relax_pairs":
+        sources, targets, ef, et, w, n, n_iters = args
+        dist0 = torch.full((sources.shape[0], n), kops.INF, device=w.device).scatter(
+            1, sources.long()[:, None], 0.0)
+        return (_nbytes(sources, targets, ef, et, w) + 4 * sources.shape[0],
+                4 * frontier_relaxations(dist0, ef, et, w, n_iters))
+    if name == "relax_uncertainty":
+        # the root's argmin (a compare a node), the relaxations, the write-back
+        stamp, node_valid, unc, ef, et, w, n_iters = args
+        n = stamp.shape[0]
+        root = torch.argmin(torch.where(node_valid, stamp, kops.INF))
+        dist0 = torch.full((1, n), kops.INF, device=w.device).index_fill(1, root.view(1), 0.0)
+        relax = frontier_relaxations(dist0, ef, et, w, n_iters) if bool(node_valid.any()) else 0
+        return _nbytes(stamp, node_valid, unc, ef, et, w) + 4 * n, 2 * n + 4 * relax
     if name == "cluster_labels":
-        sf, st, valid, _, n_iters = args
-        b, nv = sf.shape[0], int(valid.sum())
-        return _nbytes(sf, st, valid) + 4 * b, n_iters * nv * nv * 6
+        sf, st, valid, max_dt, n_iters = args
+        return _nbytes(sf, st, valid) + 4 * sf.shape[0], label_work(sf, st, valid, max_dt, n_iters)
+    if name == "cluster_roots":
+        # the candidates' slots and their gathered edge ends, masks and
+        # stamps read; validity, labels, stamps, the roots and the member
+        # masks written; the labels' work, 5 statistics a valid candidate,
+        # the gates and compaction a slot, the member tests
+        cand, ef, et, e_valid, node_valid, stamp, max_dt, _, _, n_iters, cand_mask = args
+        b = cand.shape[0]
+        r = kops.cluster_root_count(b, args[7])
+        out = kops.cluster_roots_plain(*args[:10], cand_mask=cand_mask)
+        nv = int(out.valid.sum())
+        # in: 4 + 8 + 1 + 2 + 8 bytes a slot; out: 1 + 4 + 8 a slot, 9 a root row + its mask
+        return (36 * b + 9 * r + r * b,
+                label_work(out.sf, out.st, out.valid, max_dt, n_iters) + 5 * nv + 6 * b + r * b)
     if name == "ransac_rigid":
         # the tables, flags (and weights) read once, the outputs written
         # once; per root K Horn fits (~1350) and the refit (~2000), per valid
@@ -2149,8 +2267,10 @@ def compare_project(args, label: str, large: bool, trials: int = 21, calls: int 
 
 
 def epoch_kernel_inputs(state, cfg) -> dict:
-    """The inputs K5-K8 get in an epoch on ``state``: the heuristic's (B, N)
-    relaxation, the candidates' stamps, the roots' RANSAC problems (the
+    """The inputs K5-K8 get in an epoch on ``state``: K5's table, the
+    heuristic's pairs and the uncertainty's row (and the heuristic's (B, N)
+    rows for K5's rows entry), the candidates for K6's roots entry (and
+    their stamps for its labels entry), the roots' RANSAC problems (the
     draw's uniforms from a seeded generator on the card, mapped to triplets
     by K7) and the solve's components."""
     from uzliti_slam_tpu_torch import pipeline
@@ -2168,8 +2288,14 @@ def epoch_kernel_inputs(state, cfg) -> dict:
     R, b = cr.member.shape
     u = ransac.draw_uniforms(torch.Generator(device=g.device).manual_seed(SEED),
                              fc.ransac_hypotheses, cr.member)
+    w = shortest_path._weights(g, False)
     return {
-        "relax_min": (dist0, g.e_from, g.e_to, shortest_path._weights(g, False), 64),
+        "relax_table": (g.e_from, g.e_to, w, n),
+        "relax_pairs": (g.e_from[safe], g.e_to[safe], g.e_from, g.e_to, w, n, 64),
+        "relax_uncertainty": (g.stamp, g.node_valid, g.uncertainty, g.e_from, g.e_to, w, 64),
+        "relax_min": (dist0, g.e_from, g.e_to, w, 64),
+        "cluster_roots": (idx, g.e_from, g.e_to, g.e_valid, g.node_valid, g.stamp, fc.max_dt,
+                          fc.min_cluster_size, fc.min_time_span, 16, heur),
         "cluster_labels": (cr.sf, cr.st, cr.valid, fc.max_dt, 16),
         "ransac_rigid": (cr.p_pred.expand(R, b, 3), cr.p_act.expand(R, b, 3), cr.member, None,
                          fc.max_error, fc.min_cluster_size, 0.01, None, u, None),
@@ -2359,27 +2485,56 @@ def compare_ransac_calls(calls, label: str) -> dict:
     return row
 
 
-def compare_epoch_kernels(inputs: dict, label: str) -> dict:
-    """K5-K8 (those in ``inputs``) against their plain versions on the
-    inputs an epoch or a solve gives them."""
+K5_ENTRIES = ("relax_min", "relax_pairs", "relax_uncertainty")
+
+
+def relax_table_mismatches(got, ref) -> int:
+    """Entries of K5's table that differ from the plain table's: row_ptr
+    exactly, and each node's (neighbour, weight bits) entries as a multiset
+    (the kernel's fill order within a node is free)."""
+    if not torch.equal(got.row_ptr, ref.row_ptr):
+        return max(1, int((got.row_ptr != ref.row_ptr).sum()))
+    n, total = ref.row_ptr.shape[0] - 1, int(ref.row_ptr[-1])
+    node = torch.repeat_interleave(torch.arange(n, device=ref.row_ptr.device),
+                                   torch.diff(ref.row_ptr).long())
+
+    def keys(adj):
+        a = adj[:total].long()
+        return torch.sort((node * n + a[:, 0]) * 2**32 + (a[:, 1] & 0xFFFFFFFF)).values
+
+    return int((keys(got.adj) != keys(ref.adj)).sum())
+
+
+def compare_epoch_kernels(inputs: dict, label: str, timed: bool = True) -> dict:
+    """K5-K8 (the entries in ``inputs``) against their plain versions on
+    the inputs an epoch or a solve gives them: K5's relaxations within
+    RELAX_MAX_ULP, its table and K6 exactly; with ``timed``, the median
+    event ms of both, K5's and K6's device ms a call (10 profiled calls:
+    the entry's own kernel) and queued, and the bound."""
     from uzliti_slam_tpu_torch.kernels import ops as kops
 
     fns = {name: (getattr(kops, name), getattr(kops, f"{name}_plain"))
-           for name in ("relax_min", "cluster_labels", "ransac_rigid")}
+           for name in K5_K6 + ("ransac_rigid",)}
     fns["components"] = (_components_both(True), _components_both(False))
     results = {}
     for name, args in inputs.items():
         kernel_fn, plain_fn = fns[name]
         if name == "ransac_rigid":
             row = compare_ransac_draws(args, label)
-        elif name == "relax_min":
+        elif name in K5_ENTRIES:
             got, ref = kernel_fn(*args), plain_fn(*args)
             torch.cuda.synchronize()
-            check(bool(torch.isfinite(got).all()), f"relax_min {label}: non-finite")
+            check(bool(torch.isfinite(got).all()), f"{name} {label}: non-finite")
             ulp = int((got.view(torch.int32).long() - ref.view(torch.int32).long()).abs().max())
             row = {"max_abs_err": float((got - ref).abs().max()), "max_ulp": ulp,
-                   "tol_ulp": RELAX_MAX_ULP, "rows": int(got.shape[0])}
-            check(ulp <= RELAX_MAX_ULP, f"relax_min {label}: {ulp} ulp apart")
+                   "tol_ulp": RELAX_MAX_ULP,
+                   "rows": 1 if name == "relax_uncertainty" else int(got.shape[0]),
+                   "unreached": int((ref >= kops.INF).sum())}
+            check(ulp <= RELAX_MAX_ULP, f"{name} {label}: {ulp} ulp apart")
+        elif name == "relax_table":
+            mism = relax_table_mismatches(kernel_fn(*args), plain_fn(*args))
+            row = {"max_abs_err": 0.0 if mism == 0 else float("nan"), "mismatches": mism}
+            check(mism == 0, f"relax_table {label}: {mism} entries differ from the plain table")
         else:
             got, ref = kernel_fn(*args), plain_fn(*args)
             torch.cuda.synchronize()
@@ -2389,13 +2544,152 @@ def compare_epoch_kernels(inputs: dict, label: str) -> dict:
             if name == "components":
                 row["route"] = components_route(args[6])
             check(mism == 0, f"{name} {label}: {mism} entries differ from the plain version")
-        row["ms"], row["plain_ms"] = time_pair(lambda: kernel_fn(*args), lambda: plain_fn(*args))
-        if name == "ransac_rigid":
-            row["device_ms_queued"] = queued_device_ms(lambda: kernel_fn(*args))
+        if timed:
+            row["ms"], row["plain_ms"] = time_pair(lambda: kernel_fn(*args),
+                                                   lambda: plain_fn(*args))
+            if name in K5_K6 + ("ransac_rigid",):
+                row["device_ms_queued"] = queued_device_ms(lambda: kernel_fn(*args))
+            if name in K5_K6:
+                _, names = device_profile(lambda: [kernel_fn(*args) for _ in range(10)])
+                dms = kernel_device_ms(names, (name,))[name]
+                row["device_ms"] = None if dms is None else dms / 10
         row.update(bound(name, args))
         log(f"3 kernel {name} {label}", **row)
         results[name] = row
     return results
+
+
+def _ladder(n: int, every: int, span: int, gen, dev, dup: int = 0):
+    """K5's edge tables on n nodes: a chain, a closure from every
+    ``every``-th node to the node ``span`` ahead, lengths 0.1-1 m, every
+    97th edge invalid (INF), ``dup`` duplicated edges and a padded slot
+    (0 -> 0, INF) at the end."""
+    ef = list(range(n - 1)) + list(range(0, n - span, every))
+    et = list(range(1, n)) + [i + span for i in range(0, n - span, every)]
+    w = 0.1 + 0.9 * torch.rand(len(ef), generator=gen)
+    w[::97] = 3.4e38
+    pick = torch.randint(0, len(ef), (dup,), generator=gen).tolist()
+    ef, et = ef + [ef[i] for i in pick] + [0], et + [et[i] for i in pick] + [0]
+    w = torch.cat([w, w[pick], torch.tensor([3.4e38])])
+    i32 = dict(dtype=torch.int32, device=dev)
+    return torch.tensor(ef, **i32), torch.tensor(et, **i32), w.to(dev)
+
+
+def _roots_inputs(sf, st, gen, dev, cand_mask=None, n_bad: int = 0):
+    """K6's roots entry on candidates with stamps (sf, st): edge c joins
+    two nodes so stamped (shuffled), candidate c names edge c; ``n_bad``
+    candidates padded (-1) and as many edges and nodes invalid."""
+    b = sf.shape[0]
+    n = 2 * b + 8
+    perm = torch.randperm(n, generator=gen)
+    stamp = 2000.0 * torch.rand(n, generator=gen) - 1000.0
+    stamp[perm[:b]], stamp[perm[b:2 * b]] = sf, st
+    E = b + 16
+    ef = torch.randint(0, n, (E,), generator=gen, dtype=torch.int32)
+    et = torch.randint(0, n, (E,), generator=gen, dtype=torch.int32)
+    ef[:b], et[:b] = perm[:b].int(), perm[b:2 * b].int()
+    cand = torch.arange(b, dtype=torch.int32)
+    e_valid, node_valid = torch.ones(E, dtype=torch.bool), torch.ones(n, dtype=torch.bool)
+    bad = torch.randperm(b, generator=gen)[:3 * n_bad]
+    cand[bad[:n_bad]] = -1
+    e_valid[bad[n_bad:2 * n_bad]] = False
+    node_valid[et[bad[2 * n_bad:]].long()] = False
+    mask = None if cand_mask is None else cand_mask.to(dev)
+    return (cand.to(dev), ef.to(dev), et.to(dev), e_valid.to(dev), node_valid.to(dev),
+            stamp.to(dev), 5.0, 5, 2.0, 16, mask)
+
+
+def k5_k6_edge_cases(dev, inputs10k: dict) -> dict:
+    """K5's and K6's entries on edge cases, each against its plain version
+    (K5 within RELAX_MAX_ULP, its table and K6 exactly): a 3,000-node ladder
+    whose hop diameter exceeds the 64 sweeps, with duplicated edges; pairs
+    and the uncertainty's root in a 5-node island (a fixed point after two
+    sweeps); dense rows (every node finite: every frontier overflows its
+    list) on the ladder and on the 10k epoch's graph; a 40,000-node ladder
+    above the shared-memory cut (the global scratch); tied oldest stamps and
+    no valid node; K6 at B = 1, B = 77, a 256-candidate stamp chain beyond
+    16 hops, 256 candidates with none valid, and with the heuristic's mask;
+    B = 257 must raise before any launch.
+    Returns {case: {entry: max_ulp or mismatches}}."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    gen = torch.Generator().manual_seed(SEED + 20)
+    out = {}
+
+    def run(case, inputs):
+        rows = compare_epoch_kernels(inputs, f"edge case {case}", timed=False)
+        out[case] = {k: r.get("max_ulp", r.get("mismatches")) for k, r in rows.items()}
+
+    def k5(ef, et, w, n, sources, targets, stamp, valid, dense=None):
+        src = torch.tensor(sources, dtype=torch.int32, device=dev)
+        tgt = torch.tensor(targets, dtype=torch.int32, device=dev)
+        d0 = torch.full((len(sources), n), 3.4e38, device=dev).scatter(
+            1, src.long()[:, None], 0.0) if dense is None else dense
+        unc = torch.full((n,), 7.0, device=dev)
+        return {"relax_table": (ef, et, w, n), "relax_min": (d0, ef, et, w, 64),
+                "relax_pairs": (src, tgt, ef, et, w, n, 64),
+                "relax_uncertainty": (stamp, valid, unc, ef, et, w, 64)}
+
+    n = 3000
+    ef, et, w = _ladder(n, 60, 100, gen, dev, dup=40)
+    stamp = torch.arange(n, dtype=torch.float32, device=dev)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    run("ladder 3000, hops beyond 64", k5(ef, et, w, n, [0, 1500, 2999, 77, 0, 1500],
+                                          [2999, 1540, 2950, 177, 1700, 0], stamp, valid))
+    # a 5-node island (nodes 3000-3004) beside the ladder: rows from it stop early
+    ie = torch.tensor([3000, 3001, 3002, 3003, 3000], dtype=torch.int32, device=dev)
+    je = torch.tensor([3001, 3002, 3003, 3004, 3002], dtype=torch.int32, device=dev)
+    efi, eti = torch.cat([ef, ie]), torch.cat([et, je])
+    wi = torch.cat([w, torch.full((5,), 0.5, device=dev)])
+    st_i = torch.cat([stamp + 10.0, torch.tensor([1.0, 2.0, 1.0, 3.0, 4.0], device=dev)])
+    run("island, fixed point early", k5(efi, eti, wi, n + 5, [3000, 3004, 3002], [3003, 0, 3001],
+                                        st_i, torch.ones(n + 5, dtype=torch.bool, device=dev)))
+    dense = 50.0 * torch.rand(4, n, generator=gen).to(dev)
+    run("ladder 3000, dense rows", {"relax_min": (dense, ef, et, w, 64)})
+    ef10, et10, w10, n10 = inputs10k["relax_table"]
+    dense10 = 50.0 * torch.rand(4, n10, generator=gen).to(dev)
+    run("epoch 10k graph, dense rows", {"relax_min": (dense10, ef10, et10, w10, 64)})
+    n = 40_000
+    ef, et, w = _ladder(n, 60, 100, gen, dev, dup=16)
+    tied = torch.randint(0, 1000, (n,), generator=gen).float().to(dev)
+    tied[[17, 5, 39_000]] = -1.0                         # the oldest, tied: slot 5
+    run("ladder 40000, global scratch, tied oldest", k5(
+        ef, et, w, n, [0, 20_000, 39_999, 5], [39_999, 0, 12, 40], tied,
+        torch.rand(n, generator=gen).to(dev) < 0.9))
+    run("ladder 40000, no valid node", {"relax_uncertainty": (
+        tied, torch.zeros(n, dtype=torch.bool, device=dev), torch.full((n,), 7.0, device=dev),
+        ef, et, w, 64)})
+
+    def chain_stamps(b):
+        sf = 10.0 + 4.9 * torch.arange(b, dtype=torch.float32)
+        return sf, sf + 500.0
+
+    run("K6 B = 1", {"cluster_roots": _roots_inputs(*chain_stamps(1), gen, dev)})
+    sf = (torch.randint(0, 12, (77,), generator=gen) * 1.5).float()
+    st = sf + torch.randint(0, 3, (77,), generator=gen).float()
+    run("K6 B = 77", {"cluster_roots": _roots_inputs(sf, st, gen, dev, n_bad=4)})
+    over = _roots_inputs(*chain_stamps(kops.CLUSTER_MAX_CANDIDATES + 1), gen, dev)
+    before = kops.launches["cluster_roots"]
+    try:
+        kops.cluster_roots(*over[:10], cand_mask=over[10])
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused and kops.launches["cluster_roots"] == before,
+          "K6 must refuse 257 candidates before any launch")
+    run("K6 chain of 256 beyond 16 hops", {"cluster_roots": _roots_inputs(
+        *chain_stamps(256), gen, dev)})
+    none = _roots_inputs(*chain_stamps(256), gen, dev)
+    run("K6 none valid", {"cluster_roots": (torch.full_like(none[0], -1),) + none[1:]})
+    sf = torch.cat([1000.0 * k + 0.6 * torch.arange(5) for k in range(51)] + [torch.tensor([9e5])])
+    st = torch.cat([-2000.0 * k - 0.6 * torch.arange(5) for k in range(51)] + [torch.tensor([9e5])])
+    run("K6 51 roots, negative stamps, the heuristic's mask", {"cluster_roots": _roots_inputs(
+        sf, st, gen, dev, cand_mask=torch.rand(256, generator=gen) < 0.95, n_bad=2)})
+    labels = _roots_inputs(*chain_stamps(200), gen, dev)
+    cr = kops.cluster_roots(*labels[:10], cand_mask=labels[10])
+    run("K6 labels entry, chain of 200", {"cluster_labels": (cr.sf, cr.st, cr.valid, 5.0, 16)})
+    log("3 kernel K5 K6 edge cases", **out)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2775,13 +3069,16 @@ def timed_epochs(state, cfg, reps: int):
     return statistics.median(times), out
 
 
-def epoch_phase(phase: str, built, n: int, reps: int, reads: list, cpu_check: bool) -> dict:
+def epoch_phase(phase: str, built, n: int, reps: int, reads: list, cpu_check: bool):
     """Phases 8-9: one optimize_epoch with the counts set to 0 just before
-    it and read just after, and the factors K9 built in it against the
+    it and read just after (K5 two launches a call site, K6's roots entry
+    once), and the factors K9 built in it against the
     refreshes the reference's loop makes in each of its LM solves; timed
     epochs; the filter's verdict, χ², ATE and
-    uncertainty checked; with ``cpu_check``, the same epoch on CPU tensors
-    through the plain path with the same RANSAC draws, and a profile."""
+    uncertainty checked; a profile (K5's and K6's device ms in it); with
+    ``cpu_check``, the same epoch on CPU tensors through the plain path with
+    the same RANSAC draws.  Returns (counts, the state after the epoch,
+    K5's and K6's device ms)."""
     from uzliti_slam_tpu_torch import pipeline
     from uzliti_slam_tpu_torch.graph import state as gstate
     from uzliti_slam_tpu_torch.io import synthetic
@@ -2801,6 +3098,11 @@ def epoch_phase(phase: str, built, n: int, reps: int, reads: list, cpu_check: bo
                      for h, a in loops)
     check(all(counts[k] > 0 for k in FUSED_PATH + EPOCH_KERNELS),
           f"{phase}: a kernel was not launched: {counts}")
+    k5_k6 = {k: counts[k] for k in K5_K6}
+    check(k5_k6 == {"relax_table": 2, "relax_pairs": 1, "relax_uncertainty": 1,
+                    "cluster_roots": 1, "relax_min": 0, "cluster_labels": 0},
+          f"{phase}: K5's and K6's launches {k5_k6}: expected the table and one relaxation "
+          "a K5 call site, one K6 roots launch")
     check_pcg_route(phase, counts, state.graph.node_capacity, cfg.solver)
     check(len(restart) == 1, f"{phase}: {len(restart)} restart reads, expected 1")
     check(built_factors == ref_builds,
@@ -2838,7 +3140,8 @@ def epoch_phase(phase: str, built, n: int, reps: int, reads: list, cpu_check: bo
         same_valid = torch.equal(s_gpu.graph.e_valid.cpu(), s_cpu.graph.e_valid)
         fields.update(cpu_plain_same_e_valid=same_valid, chi2_injected_draws=c_gpu,
                       chi2_cpu_plain=c_cpu)
-        fields.update(device_profile(lambda: pipeline.optimize_epoch(state, cfg))[0])
+    prof, names = device_profile(lambda: pipeline.optimize_epoch(state, cfg))
+    fields.update(prof, kernel_device_ms=kernel_device_ms(names, K5_K6[:4]))
     log(phase, **fields)
     check(not ev[bad_slot], f"{phase}: the planted bad laser edge survived the filter")
     check(math.isfinite(chi2), f"{phase}: χ² not finite")
@@ -2851,7 +3154,46 @@ def epoch_phase(phase: str, built, n: int, reps: int, reads: list, cpu_check: bo
         check(same_valid, f"{phase}: edge validity differs from the CPU plain path")
         check(abs(c_gpu - c_cpu) <= CHI2_RTOL * abs(c_cpu) + 1e-6 * chi2_0,
               f"{phase}: χ² {c_gpu} vs CPU plain path {c_cpu}")
-    return counts, state2
+    return counts, state2, fields["kernel_device_ms"]
+
+
+def entry_point_phase(phase: str, state, cfg) -> tuple[dict, dict]:
+    """The public entry points that reach K5's rows entry and K6's labels
+    entry, on an epoch's state: ``shortest_path.shortest_paths`` from the
+    newest valid node and ``filter._cluster_labels`` on the epoch's
+    candidates, with the counts set to 0 just before and read just after,
+    and a profile of the same calls.  Returns (counts, device ms)."""
+    from uzliti_slam_tpu_torch import pipeline
+    from uzliti_slam_tpu_torch.graph import filter as gfilter
+    from uzliti_slam_tpu_torch.graph import shortest_path
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    g = state.graph
+    newest = torch.argmax(torch.where(g.node_valid, g.stamp, -math.inf))
+    d0 = torch.full((g.node_capacity,), kops.INF, device=g.device).index_fill(
+        0, newest.view(1), 0.0)
+    idx, heur = pipeline.epoch_candidates(g, cfg)
+    cr = gfilter.cluster_roots(g, idx, cfg.filter, cand_mask=heur)
+
+    def run():
+        return (shortest_path.shortest_paths(g, d0),
+                gfilter._cluster_labels(cr.sf, cr.st, cr.valid, cfg.filter.max_dt))
+
+    run()
+    torch.cuda.synchronize()
+    kops.reset_launches()
+    dist, labels = run()
+    torch.cuda.synchronize()
+    counts = dict(kops.launches)
+    _, names = device_profile(run)
+    dms = kernel_device_ms(names, ("relax_table",) + ENTRY_KERNELS)
+    log(phase, launches={k: v for k, v in counts.items() if v}, kernel_device_ms=dms,
+        reached=int((dist < kops.INF).sum()), clusters=int((labels == torch.arange(
+            labels.shape[0], device=labels.device)).sum()))
+    check({k: v for k, v in counts.items() if v} == {"relax_table": 1, "relax_min": 1,
+                                                       "cluster_labels": 1},
+          f"{phase}: launches {counts}")
+    return counts, dms
 
 
 def state_to(state, device):
@@ -6684,8 +7026,10 @@ def main() -> int:
         del g_n, in_n
     rows.update(compare_epoch_kernels(epoch_kernel_inputs(built500[1], built500[0]),
                                       "epoch 500"))
-    rows_large.update(compare_epoch_kernels(epoch_kernel_inputs(built10k[1], built10k[0]),
-                                            "epoch 10k"))
+    inputs10k = epoch_kernel_inputs(built10k[1], built10k[0])
+    rows_large.update(compare_epoch_kernels(inputs10k, "epoch 10k"))
+    k5_k6_cases = k5_k6_edge_cases(dev, inputs10k)
+    del inputs10k
     # K8's grid route, which the 100k solve takes (the epochs take the CTA route)
     check(components_route(g100k.node_capacity) == "grid", "100k solve: K8 not on its grid route")
     grid = compare_epoch_kernels({"components": components_inputs(g100k)},
@@ -6755,11 +7099,13 @@ def main() -> int:
     breakdown100k = old_composition_phase(g100k, "7 headline 100k", counts100k, fields100k)
     del g10k
 
-    counts500, state500 = epoch_phase("8 epoch 500", built500, EPOCH_500["n"], reps=5,
-                                      reads=reads, cpu_check=True)
+    counts500, state500, k5k6_500 = epoch_phase("8 epoch 500", built500, EPOCH_500["n"], reps=5,
+                                                reads=reads, cpu_check=True)
+    entry500, entry500_ms = entry_point_phase("8b public entry points 500", built500[1],
+                                              built500[0])
     map500 = map_phase("8 map 500", state500, cfg500, reps=5, cpu_check=True)
-    counts10k, state10k = epoch_phase("9 epoch 10k", built10k, EPOCH_10K["n"], reps=3,
-                                      reads=reads, cpu_check=False)
+    counts10k, state10k, k5k6_10k = epoch_phase("9 epoch 10k", built10k, EPOCH_10K["n"], reps=3,
+                                                reads=reads, cpu_check=False)
     map10k = map_phase("9 map 10k", state10k, built10k[0], reps=3, cpu_check=False)
     del built10k
     kf1, kf1_fields = frontend_phase("10 keyframe front-end VGA 1 camera", kf_world, kf_frames, 1,
@@ -6828,6 +7174,7 @@ def main() -> int:
     launches.update({name: fleet_counts[name] for name in SPLIT_PCG})
     launches["pcg_chain"] = sharded_counts["pcg_chain"]
     launches.update({name: counts500[name] for name in EPOCH_KERNELS})
+    launches.update({name: entry500[name] for name in ENTRY_KERNELS})
     launches.update({name: map500[name] for name in MAP_KERNELS})
     launches.update({name: step1[name] for name in FRONTEND_KERNELS + KEYFRAME_KERNELS})
     # K19 and bin_min_max: one maintain (13a); K20: one calibrate (13e)
@@ -6844,6 +7191,9 @@ def main() -> int:
               "pcg_chain_solve": ("1k solve: one 12-step PCG solve",
                                   "10k solve: one 12-step PCG solve"),
               **{k: ("500-node epoch", "10k-node epoch") for k in EPOCH_KERNELS},
+              "relax_min": ("500-node epoch: the heuristic's 256 rows as (B, N) start rows",
+                            "10k-node epoch: the heuristic's 256 rows as (B, N) start rows"),
+              "cluster_labels": ("500-node epoch's candidates", "10k-node epoch's candidates"),
               "project_rays": ("500-node full rebuild", "10k-node full rebuild"),
               **{k: ("VGA keyframe, 1 camera", "VGA keyframe, front + rear rig")
                  for k in FRONTEND_KERNELS},
@@ -7116,7 +7466,23 @@ def main() -> int:
              "max_abs_err_large": rl["max_abs_err"], "ms_large": rl["ms"],
              "plain_ms_large": rl["plain_ms"], "bound_ms_large": rl["bound_ms"],
              "library_ms_large": None, "shapes_large": shapes19[1]})
-    check(len(kernels) == 51, f"{len(kernels)} kernel entries")
+    # K5's and K6's entries: device ms in a profiled epoch (500 / 10k), a
+    # call's device ms (10 profiled calls) and queued; K5's rows entry and
+    # K6's labels entry counted and profiled on the public entry points
+    # (8b); the edge cases
+    for name in K5_K6:
+        entry = kernels[list(REPLACES).index(name)]
+        entry.update(device_ms_call=rows[name]["device_ms"],
+                     device_ms_call_large=rows_large[name]["device_ms"],
+                     device_ms_queued=rows[name]["device_ms_queued"],
+                     device_ms_queued_large=rows_large[name]["device_ms_queued"])
+        if name in ENTRY_KERNELS:
+            entry.update(launches_from="8b public entry points on the 500-node epoch's state",
+                         device_ms_entry_points=entry500_ms[name])
+        else:
+            entry.update(device_ms_epoch_500=k5k6_500[name], device_ms_epoch_10k=k5k6_10k[name])
+    kernels[list(REPLACES).index("relax_pairs")]["edge_cases"] = k5_k6_cases
+    check(len(kernels) == 55, f"{len(kernels)} kernel entries")
     check(all(e["launches"] > 0 for e in kernels if e["name"] in SOLVE_KERNELS + ("pcg_grid",)),
           f"a solve kernel's main path did not launch it: "
           f"{[(e['name'], e['launches']) for e in kernels if e['name'] in SOLVE_KERNELS]}")

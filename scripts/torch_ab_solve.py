@@ -39,12 +39,15 @@ wrapper calls of that profiled step with CUDA events (ms a step, K16 by
 entry, K12's and K14's calls) and K12's and K17's calls queued back to back
 (device ms a step that no profile can drop); K7's and K15's the same.
 "epoch500" also times K7 on the epoch's inputs (``chip_smoke.epoch_kernel_inputs``:
-CUDA events and queued device ms a call), and "maintain" phase 13a's
+CUDA events and queued device ms a call); both epochs report K5's and K6's
+device ms in the profiled epoch and their calls of one epoch replayed (CUDA
+events, and queued device ms an epoch), and "maintain" phase 13a's
 ``pipeline.maintenance_epoch`` on the 500-node state after its epoch (wall,
 device ms, device launches, K19's and K15's points entry's device ms):
 
     python3 scripts/torch_ab_solve.py --base build/parent --sizes step,rereg --pairs 3
     python3 scripts/torch_ab_solve.py --base build/parent --sizes step,epoch500,maintain --pairs 3
+    python3 scripts/torch_ab_solve.py --base build/parent --sizes epoch500,epoch10k --pairs 3
 Prints one JSON line a process, then per size each side's medians and how
 many pairs the change won.
 """
@@ -95,6 +98,8 @@ def timed(fn, g, c, reps):
                                ("k4_sum", ("sum_partials",)), ("k9", ("factor_",)),
                                ("k36", ("candidate_kernel",)), ("k36_accept", ("accept_kernel",)),
                                ("k7", ("ransac_roots", "ransac_draw_fit")),
+                               ("k5", ("relax_rows", "relax_table", "relax_pairs", "relax_unc")),
+                               ("k6", ("cluster_rounds", "cluster_block")),
                                ("k15_points", ("bin_rows", "bin_points")),
                                ("k19", ("row_keys", "greedy_rounds")))}
     by_kernel["eager_ops"] = sum(v for name, v in names.items() if "at::native" in name)
@@ -186,6 +191,28 @@ def step_kernel_event_ms(calls):
             "k7_queued_device_ms": cs.queued_device_ms(lambda: run(["ransac_rigid"])),
             "k15_ms": cs.time_call(lambda: run(["scan_bins"])),
             "k15_queued_device_ms": cs.queued_device_ms(lambda: run(["scan_bins"]))}
+
+
+def epoch_k5_k6(state, ecfg):
+    """K5's and K6's calls of one epoch (either checkout's entries, the
+    call sites' wrappers: K5's table launches inside its relaxation
+    entries), replayed: CUDA events around them (ms an epoch) and queued
+    back to back (device ms an epoch that no profile can drop)."""
+    wrappers = {"k5": [w for w in ("relax_min", "relax_pairs", "relax_uncertainty")
+                       if hasattr(kops, w)],
+                "k6": [w for w in ("cluster_labels", "cluster_roots") if hasattr(kops, w)]}
+    calls = cs.record_args(lambda: cs.timed_epochs(state, ecfg, 1),
+                           wrappers["k5"] + wrappers["k6"])
+    out = {}
+    for k, ws in wrappers.items():
+        def run():
+            for w in ws:
+                for a, kw in calls[w]:
+                    getattr(kops, w)(*a, **kw)
+        out[f"{k}_calls"] = sum(len(calls[w]) for w in ws)
+        out[f"{k}_ms"] = cs.time_call(run)
+        out[f"{k}_queued_device_ms"] = cs.queued_device_ms(run)
+    return out
 
 
 def step_entries(do_step, do_rereg, reps):
@@ -284,6 +311,7 @@ for size in sizes:
         k7 = cs.epoch_kernel_inputs(state, ecfg)["ransac_rigid"]
         out[size]["k7_ms"] = cs.time_call(lambda: kops.ransac_rigid(*k7))
         out[size]["k7_queued_device_ms"] = cs.queued_device_ms(lambda: kops.ransac_rigid(*k7))
+        out[size].update(epoch_k5_k6(state, ecfg))
         del state
         continue
     if size == "maintain":
@@ -361,7 +389,9 @@ STEP_KEYS = ("k12_device_ms", "k17_device_ms", "k18_device_ms", "k13_device_ms",
              "k12_ms", "k12_calls", "k12_queued_device_ms", "k17_ms", "k17_queued_device_ms",
              "k14_ms", "k14_calls", "k16_ms", "k16_match_ms", "k16_gist_ms",
              "k7_device_ms", "k7_ms", "k7_queued_device_ms", "k15_device_ms",
-             "k15_device_functions", "k15_ms", "k15_queued_device_ms")
+             "k15_device_functions", "k15_ms", "k15_queued_device_ms",
+             "k5_calls", "k5_ms", "k5_queued_device_ms", "k6_calls", "k6_ms",
+             "k6_queued_device_ms")
 
 
 def run_side(tree: Path, sizes: str, reps: int) -> dict:
@@ -401,7 +431,7 @@ def main() -> int:
                                                 "device_launches", *STEP_KEYS) if k in r})
             medians[side][-1].update({f"{n}:{k}_device_ms": r["device_ms_by_kernel"][k]
                                       for n, r in res.items() if "device_ms_by_kernel" in r
-                                      for k in ("k7", "k15_points", "k19")})
+                                      for k in ("k7", "k15_points", "k19", "k5", "k6")})
             print(json.dumps({"pair": i, "side": side, **res}), flush=True)
     names = [n for n in args.sizes.split(",") if n not in ("step", "rereg")]
     names += ["step_1cam", "step_2cam"] if "step" in args.sizes.split(",") else []
@@ -421,7 +451,7 @@ def main() -> int:
                                                 "k9_root_device_ms", "device_kernel_ms",
                                                 "device_launches", *STEP_KEYS,
                                                 "k7_device_ms", "k15_points_device_ms",
-                                                "k19_device_ms")
+                                                "k19_device_ms", "k5_device_ms", "k6_device_ms")
                     if f"{n}:{k}" in medians[side][0]})
         print(json.dumps({"size": n, "base_medians_ms": base, "change_medians_ms": change,
                           "base_median_ms": statistics.median(base),

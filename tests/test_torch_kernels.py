@@ -114,6 +114,10 @@ def _epoch_kernel_cases():
     quality = torch.from_numpy(-rng.integers(0, 9, (2, 8)).astype(np.float32))
     e_valid = torch.from_numpy(rng.random(E) < 0.7)
     labels = kops.components_plain(ef, et, e_valid, n, 8)
+    node_valid = torch.from_numpy(rng.random(n) < 0.8)
+    stamp_n = torch.from_numpy(rng.uniform(0, 20, n).astype(np.float32))
+    cand = torch.from_numpy(np.where(rng.random(b) < 0.8, rng.integers(0, E, b), -1)
+                            .astype(np.int32))
     return [
         ("relax_min", (dist0, ef, et, w, 4)),
         ("cluster_labels", (stamps[0], stamps[1], valid_b, 5.0, 16)),
@@ -125,11 +129,19 @@ def _epoch_kernel_cases():
         # K7 with its draw: uniforms mapped to triplets (soft PROSAC)
         ("ransac_rigid", (pts, pts + 0.01, (torch.arange(8) % 3 > 0).expand(2, 8).contiguous(),
                           None, 0.3, 3, 0.01, None, uniforms, quality)),
+        # K5's other entries and K6's roots entry
+        ("relax_table", (ef, et, w, n)),
+        ("relax_pairs", (torch.tensor([0, 5, 11], dtype=torch.int32),
+                         torch.tensor([3, 2, 0], dtype=torch.int32), ef, et, w, n, 4)),
+        ("relax_uncertainty", (stamp_n, node_valid, torch.full((n,), 7.0), ef, et, w, 4)),
+        ("cluster_roots", (cand, ef, et, e_valid, node_valid, stamp_n, 5.0, 2, 1.0, 16)),
     ]
 
 
-@pytest.mark.parametrize("case", range(6), ids=["relax_min", "cluster_labels", "ransac_rigid",
-                                                 "components", "gauge_fix", "ransac_rigid_draw"])
+@pytest.mark.parametrize("case", range(10), ids=["relax_min", "cluster_labels", "ransac_rigid",
+                                                  "components", "gauge_fix", "ransac_rigid_draw",
+                                                  "relax_table", "relax_pairs",
+                                                  "relax_uncertainty", "cluster_roots"])
 def test_epoch_kernel_wrappers_run_their_plain_version_on_cpu(case):
     name, args = _epoch_kernel_cases()[case]
     kops.reset_launches()
@@ -1424,3 +1436,99 @@ def test_k36_argument_checks_raise(fake_lib):
     kops.lm_accept(s, cand, r, chi2, 0, rules)
     assert [c[0] for c in fake_lib.calls] == ["uz_lm_candidate", "uz_lm_accept"]
     assert kops.launches["lm_candidate"] == kops.launches["lm_accept"] == 1
+
+
+def test_epoch_call_sites_launch_k5_twice_and_k6_once(fake_lib):
+    """On the card each K5 call site of the epoch is K5's table and one
+    relaxation entry, and the filter's clustering is one K6 launch (the
+    roots entry): on meta tensors, with the library's calls recorded."""
+    from uzliti_slam_tpu_torch.graph import filter as gfilter
+    from uzliti_slam_tpu_torch.graph import shortest_path
+    from uzliti_slam_tpu_torch.graph import state as gstate
+
+    g = gstate.empty_graph(512, 4096, device="cpu").to("meta")
+    pairs = _meta(256, dtype=torch.int32)
+    shortest_path.pairwise_graph_distance(g, pairs, pairs)
+    shortest_path.reevaluate_uncertainty(g)
+    gfilter.cluster_roots(g, pairs, cand_mask=_meta(256, dtype=torch.bool))
+    assert [c[0] for c in fake_lib.calls] == ["uz_relax_table", "uz_relax_pairs",
+                                              "uz_relax_table", "uz_relax_uncertainty",
+                                              "uz_cluster_roots"]
+    assert {k: v for k, v in kops.launches.items() if v} == {
+        "relax_table": 2, "relax_pairs": 1, "relax_uncertainty": 1, "cluster_roots": 1}
+    table, pairs_call, _, unc_call, roots = (c[1] for c in fake_lib.calls)
+    assert table[3:5] == (512, 4096)
+    # (rows, N, n_iters, threads, list capacity, rows in shared memory, E, the
+    # table's copy there too); no scratch
+    assert pairs_call[4:12] == (256, 512, 64, kops.RELAX_THREADS, 512, 1, 4096, 1)
+    assert pairs_call[13] is None
+    assert unc_call[5:12] == (512, 64, kops.RELAX_ROOT_THREADS, 512, 1, 4096, 1)
+    assert table[6] is None                               # the table's cursors in shared memory
+    # the heuristic's mask per candidate (mask_by_edge 0), 51 root rows
+    assert roots[4] == 0 and roots[7:13] == (256, pytest.approx(5.0), 16, 5,
+                                             pytest.approx(2.0), 51)
+
+
+def test_k5_rows_above_the_shared_memory_cut_take_a_scratch(fake_lib):
+    n = 40_000
+    kops.relax_min(_meta(3, n), _meta(64, dtype=torch.int32), _meta(64, dtype=torch.int32),
+                   _meta(64), 64)
+    call = fake_lib.calls[-1]
+    assert call[0] == "uz_relax_min" and call[1][7:11] == (kops.RELAX_LIST_CAP, 0, 64, 0)
+    assert call[1][12] is not None                       # 3 x 2N floats of scratch
+    assert kops.launches["relax_table"] == 1 and kops.launches["relax_min"] == 1
+
+
+def _relax_smem(n, e, cap, rows, table):
+    """The relaxations' dynamic shared memory (``csrc/relax_min.cu:smem_bytes``)."""
+    return ((8 * n if rows else 0) + 4 * (2 * ((n + 31) // 32) + 2 * cap)
+            + (4 * ((n + 2) & ~1) + 16 * e if table else 0))
+
+
+def test_k5_layout_leaves_room_for_the_static_shared_memory(fake_lib):
+    """The three relaxation kernels hold count[3] (and relax_unc_kernel its
+    argmin partials) in static shared memory; the dynamic part the layout
+    picks must fit beside it, or cudaFuncSetAttribute refuses the launch."""
+    static = 4 * 3 + 2 * 4 * (512 // 32)
+    assert kops.RELAX_STATIC_SMEM >= static
+    # the rows' cut: the largest N on the shared-memory route, and the N past it
+    n_cut = max(n for n in range(27_000, 27_400) if kops.relax_layout(n, 64)[1])
+    cap = kops.RELAX_LIST_CAP
+    assert _relax_smem(n_cut, 64, cap, True, False) + kops.RELAX_STATIC_SMEM <= kops._SMEM_BYTES
+    assert (_relax_smem(n_cut + 1, 64, cap, True, False) + kops.RELAX_STATIC_SMEM
+            > kops._SMEM_BYTES)
+    assert not kops.relax_layout(27_181, 64)[1] and not kops.relax_layout(27_182, 64)[1]
+    # the table's cut at 512 nodes: the largest E whose copy joins the rows
+    e_cut = max(e for e in range(13_000, 14_500) if kops.relax_layout(512, e)[2])
+    assert _relax_smem(512, e_cut, 512, True, True) + kops.RELAX_STATIC_SMEM <= kops._SMEM_BYTES
+    assert not kops.relax_layout(512, e_cut + 1)[2]
+    # every route picked near both cuts fits beside the static part
+    for n, e in [(n, 64) for n in range(n_cut - 40, n_cut + 40)] + [
+            (512, e) for e in range(e_cut - 40, e_cut + 40)]:
+        cap_n, rows, table, _ = kops.relax_layout(n, e)
+        assert _relax_smem(n, e, cap_n, rows, table) + static <= kops._SMEM_BYTES
+    # the call at the cut and past it: rows in shared memory, then a scratch
+    i32, bl = torch.int32, torch.bool
+    edges = (_meta(64, dtype=i32), _meta(64, dtype=i32), _meta(64))
+    for n, on_chip in ((n_cut, 1), (n_cut + 1, 0)):
+        kops.relax_uncertainty(_meta(n), _meta(n, dtype=bl), _meta(n), *edges, 64)
+        call = fake_lib.calls[-1]
+        assert call[0] == "uz_relax_uncertainty" and call[1][5] == n
+        assert call[1][9] == on_chip and (call[1][13] is None) == bool(on_chip)
+
+
+def test_k6_raises_beyond_its_shared_memory(fake_lib):
+    # 8 column words a lane: B <= 256, the epoch's candidates; both entries
+    # raise above it before any launch
+    b = kops.CLUSTER_MAX_CANDIDATES
+    assert b == 256
+    from uzliti_slam_tpu_torch import pipeline
+    assert pipeline.MAX_CANDIDATES <= b
+    i32, bl = torch.int32, torch.bool
+    kops.cluster_labels(_meta(b), _meta(b), _meta(b, dtype=bl), 5.0, 16)
+    with pytest.raises(ValueError, match=f"{b + 1} candidates exceed the kernel's {b}"):
+        kops.cluster_labels(_meta(b + 1), _meta(b + 1), _meta(b + 1, dtype=bl), 5.0, 16)
+    with pytest.raises(ValueError, match=f"{b + 1} candidates exceed the kernel's {b}"):
+        kops.cluster_roots(_meta(b + 1, dtype=i32), _meta(64, dtype=i32), _meta(64, dtype=i32),
+                           _meta(64, dtype=bl), _meta(32, dtype=bl), _meta(32), 5.0, 5, 2.0, 16)
+    assert [c[0] for c in fake_lib.calls] == ["uz_cluster_labels"]

@@ -6,12 +6,15 @@ PyTorch counterpart of ``uzliti_slam_tpu/graph/filter.py``:
 1. ``edge_heuristic``: a candidate edge is plausible iff the graph distance
    between its endpoints can explain their pose discrepancy
    (``2·f·dist + 1 > ‖Δt‖`` and ``10·f·dist + 30° > Δθ``); unreachable
-   endpoints are accepted.  Batched multi-source Bellman-Ford (kernel K5).
+   endpoints are accepted.  Batched multi-source Bellman-Ford (K5's pairs
+   entry, ``kernels/ops.relax_pairs``).
 2. ``filter_loop_closures``: candidates are clustered by from/to stamp
-   proximity (kernel K6); every cluster with ≥ min_size edges spanning ≥ 2 s
-   on both sides runs RANSAC over its endpoint positions (kernel K7) and
-   only its consensus set stays valid; crowded clusters are capped to the
-   best + temporally spread edges.
+   proximity and the clusters' roots compacted (K6's roots entry,
+   ``kernels/ops.cluster_roots``); every cluster with ≥ min_size edges
+   spanning ≥ 2 s on both sides runs RANSAC over its endpoint positions
+   (kernel K7, ``kernels/ops.ransac_rigid``) and only its consensus set
+   stays valid; crowded clusters are capped to the best + temporally spread
+   edges.
 
 No step reads a device value on the host: the JAX package's sized
 ``nonzero(size=…, fill_value=-1)`` becomes a cumsum-and-scatter compaction.
@@ -59,23 +62,14 @@ def edge_heuristic(g: GraphState, cand_from: torch.Tensor, cand_to: torch.Tensor
 
 
 def _cluster_labels(stamp_from, stamp_to, valid, max_dt: float, n_iters: int = 16):
-    """Min-label propagation on the stamp adjacency (kernel K6): candidates
-    i, j belong together iff both endpoint stamps are within max_dt."""
+    """Min-label propagation on the stamp adjacency (K6,
+    ``kernels/ops.cluster_labels``): candidates i, j belong together iff
+    both endpoint stamps are within max_dt."""
     return kops.cluster_labels(stamp_from.contiguous(), stamp_to.contiguous(),
                                valid.contiguous(), max_dt, n_iters)
 
 
-def first_indices(mask: torch.Tensor, size: int) -> torch.Tensor:
-    """Indices of the first ``size`` True entries of ``mask`` (B,), -1
-    padded: ``jnp.nonzero(mask, size=size, fill_value=-1)`` without a host
-    read."""
-    b = mask.shape[0]
-    pos = torch.cumsum(mask.to(torch.int32), dim=0) - 1
-    slot = torch.where(mask & (pos < size), pos, size).long()
-    out = torch.full((size + 1,), -1, dtype=torch.int32, device=mask.device)
-    ids = torch.arange(b, dtype=torch.int32, device=mask.device)
-    # every spilled or False entry lands in the spare slot ``size``
-    return out.scatter(0, slot, ids)[:size]
+first_indices = kops.first_indices
 
 
 class ClusterRoots(NamedTuple):
@@ -99,44 +93,19 @@ def cluster_roots(g: GraphState, cand_idx: torch.Tensor, config: FilterConfig = 
 
     A root is a candidate whose label is its own index and whose cluster
     passed the size and span gates; there are at most
-    ``b // min_cluster_size`` of them, in ascending slot order.
+    ``b // min_cluster_size`` of them, in ascending slot order.  Everything
+    but the endpoint positions is K6's roots entry
+    (``kernels/ops.cluster_roots``, one launch on a CUDA device).
     """
-    b = cand_idx.shape[0]
-    dev = cand_idx.device
-    present = cand_idx >= 0
-    ci = torch.where(present, cand_idx, 0).long()
+    ci = torch.where(cand_idx >= 0, cand_idx, 0).long()
     ef, et = g.e_from[ci].long(), g.e_to[ci].long()
-    valid = present & (g.e_valid[ci] if cand_mask is None else cand_mask)
-    valid = valid & g.node_valid[ef] & g.node_valid[et]
-
     p_pred = lie.pose_t(lie.pose_compose(g.pose[ef], g.e_transform[ci])).contiguous()
     p_act = lie.pose_t(g.pose[et]).contiguous()
-    sf, st = g.stamp[ef], g.stamp[et]
-    labels = _cluster_labels(sf, st, valid, config.max_dt)
-
-    # per-cluster stats over b + 1 segments (label b = no cluster)
-    lab = labels.long()
-
-    def seg(x, op, init):
-        base = torch.full((b + 1,), init, dtype=x.dtype, device=dev)
-        return base.scatter_reduce(0, lab, torch.where(valid, x, init), op, include_self=False)
-
-    csize = torch.zeros(b + 1, dtype=torch.int32, device=dev).scatter_add(
-        0, lab, valid.to(torch.int32))
-    f_min, f_max = seg(sf, "amin", math.inf), seg(sf, "amax", -math.inf)
-    t_min, t_max = seg(st, "amin", math.inf), seg(st, "amax", -math.inf)
-    runs = ((csize >= config.min_cluster_size)
-            & ((f_max - f_min) >= config.min_time_span)
-            & ((t_max - t_min) >= config.min_time_span))
-
-    n_roots = max(1, min(b, b // max(config.min_cluster_size, 1)))
-    ids = torch.arange(b, device=dev)
-    is_root = (lab == ids) & valid & runs[:b]
-    root_slot = first_indices(is_root, n_roots)
-    root_live = root_slot >= 0
-    root_safe = torch.where(root_live, root_slot, 0).long()
-    member = (lab[None, :] == root_safe[:, None]) & valid[None, :] & root_live[:, None]
-    return ClusterRoots(valid, labels, root_live, root_safe, member, p_pred, p_act, sf, st)
+    k = kops.cluster_roots(cand_idx, g.e_from, g.e_to, g.e_valid, g.node_valid, g.stamp,
+                           config.max_dt, config.min_cluster_size, config.min_time_span, 16,
+                           cand_mask=cand_mask)
+    return ClusterRoots(k.valid, k.labels, k.root_live, k.root_safe, k.member, p_pred, p_act,
+                        k.sf, k.st)
 
 
 def filter_loop_closures(

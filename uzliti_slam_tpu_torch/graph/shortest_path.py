@@ -3,8 +3,11 @@
 PyTorch counterpart of ``uzliti_slam_tpu/graph/shortest_path.py``: masked
 Bellman-Ford sweeps relax every valid edge in parallel, in both directions,
 from the sweep's start distances.  Edge length is the Euclidean distance
-between endpoint positions.  The sweeps of every row are kernel K5
-(``kernels/ops.relax_min``) on a CUDA device.
+between endpoint positions.  The sweeps are kernel K5 on a CUDA device:
+``shortest_paths`` reaches its rows entry (``kernels/ops.relax_min``),
+``pairwise_graph_distance`` its pairs entry (``relax_pairs``) and
+``reevaluate_uncertainty`` its uncertainty entry (``relax_uncertainty``),
+each after K5's table (``relax_table``).
 """
 
 from __future__ import annotations
@@ -33,41 +36,33 @@ def _weights(g: GraphState, use_uncertainty_weight: bool) -> torch.Tensor:
     return torch.where(g.e_valid, w, INF).contiguous()
 
 
-def _relax(g: GraphState, dist0: torch.Tensor, n_iters: int,
-           use_uncertainty_weight: bool = False) -> torch.Tensor:
-    return kops.relax_min(dist0.contiguous(), g.e_from, g.e_to,
-                          _weights(g, use_uncertainty_weight), n_iters)
-
-
 def shortest_paths(g: GraphState, source_dist0: torch.Tensor, n_iters: int = 64,
                    use_uncertainty_weight: bool = False) -> torch.Tensor:
     """Multi-source Bellman-Ford. ``source_dist0``: (N,) initial distances
-    (0 at sources, INF elsewhere). Returns (N,) geodesic distances.
+    (0 at sources, INF elsewhere). Returns (N,) geodesic distances (K5,
+    ``kernels/ops.relax_min``).
 
     With ``use_uncertainty_weight`` the edge length becomes
     1/sqrt(info[0,0]).
     """
-    return _relax(g, source_dist0[None], n_iters, use_uncertainty_weight)[0]
+    return kops.relax_min(source_dist0[None].contiguous(), g.e_from, g.e_to,
+                          _weights(g, use_uncertainty_weight), n_iters)[0]
 
 
 def pairwise_graph_distance(g: GraphState, sources: torch.Tensor, targets: torch.Tensor,
                             n_iters: int = 64) -> torch.Tensor:
     """Graph distance between B (source, target) node pairs; (B,): one
-    (B, N) relaxation front, all pairs at once."""
-    n = g.node_capacity
-    b = sources.shape[0]
-    init = torch.full((b, n), INF, device=g.device).scatter(1, sources.long()[:, None], 0.0)
-    dist = _relax(g, init, n_iters)
-    return torch.gather(dist, 1, targets.long()[:, None])[:, 0]
+    relaxation a pair, all pairs at once (K5's pairs entry,
+    ``kernels/ops.relax_pairs``)."""
+    return kops.relax_pairs(sources.to(torch.int32).contiguous(),
+                            targets.to(torch.int32).contiguous(), g.e_from, g.e_to,
+                            _weights(g, False), g.node_capacity, n_iters)
 
 
 def reevaluate_uncertainty(g: GraphState, n_iters: int = 64) -> GraphState:
     """Uncertainty = geodesic distance from the oldest valid node (the
-    least stamp; the first slot on a tie)."""
-    stamp_key = torch.where(g.node_valid, g.stamp, INF)
-    root = torch.argmin(stamp_key)
-    d0 = torch.full((g.node_capacity,), INF, device=g.device)
-    d0 = d0.index_fill(0, root.view(1), 0.0)
-    dist = shortest_paths(g, d0, n_iters)
-    unc = torch.where(g.node_valid & (dist < INF), dist, g.uncertainty)
-    return g.replace(uncertainty=unc)
+    least stamp; the first slot on a tie), where a node is valid and
+    reached (K5's uncertainty entry, ``kernels/ops.relax_uncertainty``: the
+    root, the relaxation and the write-back in one launch)."""
+    return g.replace(uncertainty=kops.relax_uncertainty(
+        g.stamp, g.node_valid, g.uncertainty, g.e_from, g.e_to, _weights(g, False), n_iters))

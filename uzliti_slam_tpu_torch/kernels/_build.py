@@ -43,8 +43,12 @@ SIGNATURES = {
     "uz_chain_forward": [_P, _I, _I, _P, _P, _I, _I, _P, _P],
     "uz_chain_backward": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _I, _P],
     "uz_residual_chi2": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _P, _P, _P, _P],
-    "uz_relax_min": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "uz_relax_table": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
+    "uz_relax_min": [_P, _P, _P] + [_I] * 8 + [_P, _P, _P],
+    "uz_relax_pairs": [_P] * 4 + [_I] * 8 + [_P, _P, _P],
+    "uz_relax_uncertainty": [_P] * 5 + [_I] * 7 + [_P, _P, _P],
     "uz_cluster_labels": [_P, _P, _P, _I, _F, _I, _P, _P],
+    "uz_cluster_roots": [_P] * 4 + [_I, _P, _P, _I, _F, _I, _I, _F, _I] + [_P] * 8,
     "uz_ransac_rigid": [_P, _L, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _F, _F,
                         _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "uz_components": [_P, _P, _P, _I, _I, _I, _P, _P, _P],

@@ -19,8 +19,15 @@ chain_apply    csrc/chain_apply.cu     graph/tridiag.py:block_tridiag_apply
 residual_chi2  csrc/residual_chi2.cu   factors.batched_residuals +
                                        solver._robust_chi2_from_r (and
                                        their vmap in the fleet)
-relax_min      csrc/relax_min.cu       graph/shortest_path.py:shortest_paths
-cluster_labels csrc/cluster_labels.cu  graph/filter.py:_cluster_labels
+relax_min      csrc/relax_min.cu       graph/shortest_path.py:shortest_paths;
+                                       entries relax_pairs (pairwise_graph_
+                                       distance), relax_uncertainty
+                                       (reevaluate_uncertainty) and
+                                       relax_table (the table all three read),
+                                       one count each
+cluster_labels csrc/cluster_labels.cu  graph/filter.py:_cluster_labels; entry
+                                       cluster_roots (filter_loop_closures'
+                                       steps before RANSAC, own count)
 ransac_rigid   csrc/ransac_rigid.cu    ops/ransac.py:ransac_rigid (+
                                        _valid_sample's draw, kabsch,
                                        kabsch_quat)
@@ -144,7 +151,8 @@ from uzliti_slam_tpu_torch.kernels import _build
 from uzliti_slam_tpu_torch.ops import lie
 
 launches = {"linearize": 0, "hvp": 0, "chain_apply": 0, "residual_chi2": 0,
-            "relax_min": 0, "cluster_labels": 0, "ransac_rigid": 0, "components": 0,
+            "relax_min": 0, "relax_table": 0, "relax_pairs": 0, "relax_uncertainty": 0,
+            "cluster_labels": 0, "cluster_roots": 0, "ransac_rigid": 0, "components": 0,
             "chain_factor": 0, "pcg": 0, "project_rays": 0, "fast_nms": 0, "grid_topk": 0,
             "orb_describe": 0, "scan_bins": 0, "hamming_top2": 0, "bilateral": 0, "icp": 0,
             "merge_pairs": 0, "calib_gn": 0, "bin_min_max": 0, "feature_votes": 0,
@@ -745,8 +753,100 @@ def lm_accept(state: LmState, cand, r_cand, chi2_new, it: int, rules: LmRules) -
 
 
 # ---------------------------------------------------------------------------
-# K5 relax_min
+# K5 relax_min (entries relax_table, relax_min, relax_pairs, relax_uncertainty)
 # ---------------------------------------------------------------------------
+
+RELAX_THREADS = 128         # a row's CTA in relax_min and relax_pairs
+RELAX_ROOT_THREADS = 512    # relax_uncertainty's one row
+RELAX_LIST_CAP = 1024       # a frontier list's entries (a longer frontier is read from its bitmask)
+# the relaxation kernels' static shared memory (count[3], and the root's
+# argmin partials wkey / widx in relax_unc_kernel: 140 bytes), rounded up;
+# their dynamic shared memory may take only what it leaves
+RELAX_STATIC_SMEM = 256
+
+
+class RelaxTable(NamedTuple):
+    """Each node's neighbours over the edges of finite weight that are not
+    self-loops, as CSR: node n's entries are ``adj[row_ptr[n]:row_ptr[n + 1]]``,
+    rows of (neighbour, the weight's float32 bits).  ``adj`` has 2E rows;
+    those from ``row_ptr[N]`` on are never read.  The order within a node's
+    entries is free (every use is a min): the plain version keeps edge order,
+    the kernel's fill order varies."""
+    row_ptr: torch.Tensor   # (N + 1,) int32
+    adj: torch.Tensor       # (2E, 2) int32
+
+
+def relax_table_plain(e_from, e_to, w, n_nodes: int) -> RelaxTable:
+    """Plain version of K5's table: a stable sort of the 2E entries by node,
+    the left-out edges' entries keyed past every node."""
+    keep = (w < INF) & (e_from != e_to)
+    node = _entry_terms(e_from, e_to).to(torch.int32)
+    key = torch.where(_entry_terms(keep, keep), node, n_nodes)
+    order = torch.sort(key, stable=True)
+    ids = torch.arange(n_nodes + 1, dtype=torch.int32, device=e_from.device)
+    row_ptr = torch.searchsorted(order.values, ids, out_int32=True)
+    nbr = _entry_terms(e_to, e_from).to(torch.int32)
+    bits = _entry_terms(w, w).contiguous().view(torch.int32)
+    return RelaxTable(row_ptr, torch.stack([nbr[order.indices], bits[order.indices]], dim=1))
+
+
+def relax_table(e_from, e_to, w, n_nodes: int) -> RelaxTable:
+    """K5's table entry: one CTA's counting sort, one launch."""
+    if e_from.device.type == "cpu":
+        return relax_table_plain(e_from, e_to, w, n_nodes)
+    dev = e_from.device
+    E = e_from.shape[0]
+    ptrs = [
+        _check("e_from", e_from, (E,), torch.int32, dev),
+        _check("e_to", e_to, (E,), torch.int32, dev),
+        _check("w", w, (E,), torch.float32, dev),
+    ]
+    lib = _build.load()
+    row_ptr = torch.empty(n_nodes + 1, dtype=torch.int32, device=dev)
+    # the per-node cursors in shared memory beside the kernel's 4 KB while they fit
+    cursor = (None if 4 * n_nodes + 4096 <= _SMEM_BYTES
+              else torch.empty(n_nodes, dtype=torch.int32, device=dev))
+    adj = torch.empty(2 * E, 2, dtype=torch.int32, device=dev)
+    err = lib.uz_relax_table(*ptrs, n_nodes, E, row_ptr.data_ptr(),
+                             None if cursor is None else cursor.data_ptr(), adj.data_ptr(),
+                             _stream(dev))
+    _raise_on(err, "relax_table")
+    launches["relax_table"] += 1
+    return RelaxTable(row_ptr, adj)
+
+
+def relax_layout(n_nodes: int, n_edges: int) -> tuple[int, bool, bool, int]:
+    """Where a row of K5's relaxations lives: (list capacity, rows in
+    shared memory, the table copied into shared memory, float32 words of
+    global scratch a row).  The frontier's two bitmasks and lists
+    (8·⌈N/32⌉ + 8·cap bytes) live in shared memory, the two distance
+    buffers (8·N) beside them while they fit, else in a global scratch;
+    with the rows there, the table (row offsets padded to an even count,
+    2E entries of 8 bytes) joins them where it fits too.  All of it within
+    a CTA's shared memory less the kernels' static part."""
+    budget = _SMEM_BYTES - RELAX_STATIC_SMEM
+    cap = min(n_nodes, RELAX_LIST_CAP)
+    book = 4 * (2 * ((n_nodes + 31) // 32) + 2 * cap)
+    if book > budget:
+        raise ValueError(f"relax: {n_nodes} nodes' frontier bitmasks exceed one CTA's shared "
+                         "memory")
+    rows_smem = 8 * n_nodes + book <= budget
+    table = 4 * ((n_nodes + 2) & ~1) + 16 * n_edges
+    table_smem = rows_smem and 8 * n_nodes + book + table <= budget
+    return cap, rows_smem, table_smem, 0 if rows_smem else 2 * n_nodes
+
+
+def _relax_tail(table: RelaxTable, n_nodes: int, rows: int, n_iters: int, threads: int,
+                dev) -> tuple[list, torch.Tensor | None]:
+    """The arguments the three relaxations share (table, sizes, layout) and
+    their scratch; each of them takes its kernel's C arguments in this order."""
+    E = table.adj.shape[0] // 2
+    cap, rows_smem, table_smem, per_row = relax_layout(n_nodes, E)
+    scratch = (torch.empty(rows * per_row, dtype=torch.float32, device=dev) if per_row
+               else None)
+    return [table.row_ptr.data_ptr(), table.adj.data_ptr(), int(n_iters), int(threads), cap,
+            int(rows_smem), E, int(table_smem)], scratch
+
 
 def relax_min_plain(dist0, e_from, e_to, w, n_iters: int):
     """Plain version of K5: ``n_iters`` Bellman-Ford sweeps of every row of
@@ -765,31 +865,104 @@ def relax_min_plain(dist0, e_from, e_to, w, n_iters: int):
 
 
 def relax_min(dist0, e_from, e_to, w, n_iters: int):
-    """K5: multi-source Bellman-Ford, one CTA per row of ``dist0``."""
+    """K5: multi-source Bellman-Ford of every row of ``dist0`` (R, N), one
+    CTA a row over the changed nodes only; with its table, two launches.
+    ``dist0`` holds values in [0, INF] and ``w`` weights >= 0 or INF."""
     if dist0.device.type == "cpu":
         return relax_min_plain(dist0, e_from, e_to, w, n_iters)
-    dev, f32 = dist0.device, torch.float32
+    dev = dist0.device
     rows, n = dist0.shape
-    E = e_from.shape[0]
-    ptrs = [
-        _check("dist0", dist0, (rows, n), f32, dev),
-        _check("e_from", e_from, (E,), torch.int32, dev),
-        _check("e_to", e_to, (E,), torch.int32, dev),
-        _check("w", w, (E,), f32, dev),
-    ]
-    lib = _build.load()
-    out = torch.empty(rows, n, dtype=f32, device=dev)
-    scratch = None if 8 * n <= _SMEM_BYTES else torch.empty(2 * rows * n, dtype=f32, device=dev)
-    err = lib.uz_relax_min(*ptrs, rows, n, E, int(n_iters), out.data_ptr(),
-                           None if scratch is None else scratch.data_ptr(), _stream(dev))
+    ptr = _check("dist0", dist0, (rows, n), torch.float32, dev)
+    table = relax_table(e_from, e_to, w, n)
+    tail, scratch = _relax_tail(table, n, rows, n_iters, RELAX_THREADS, dev)
+    out = torch.empty(rows, n, dtype=torch.float32, device=dev)
+    err = _build.load().uz_relax_min(ptr, tail[0], tail[1], rows, n, *tail[2:], out.data_ptr(),
+                                     None if scratch is None else scratch.data_ptr(),
+                                     _stream(dev))
     _raise_on(err, "relax_min")
     launches["relax_min"] += 1
     return out
 
 
+def relax_pairs_plain(sources, targets, e_from, e_to, w, n_nodes: int, n_iters: int):
+    """Plain version of K5's pairs entry: the (B, N) rows holding 0 at each
+    source, relaxed, read at each target (``pairwise_graph_distance``)."""
+    b = sources.shape[0]
+    init = torch.full((b, n_nodes), INF, device=sources.device).scatter(
+        1, sources.long()[:, None], 0.0)
+    dist = relax_min_plain(init, e_from, e_to, w, n_iters)
+    return torch.gather(dist, 1, targets.long()[:, None])[:, 0]
+
+
+def relax_pairs(sources, targets, e_from, e_to, w, n_nodes: int, n_iters: int):
+    """K5's pairs entry: (B,) graph distances from ``sources`` to
+    ``targets`` (int32), a CTA a pair, the start rows and the target gather
+    inside the launch; with its table, two launches."""
+    if sources.device.type == "cpu":
+        return relax_pairs_plain(sources, targets, e_from, e_to, w, n_nodes, n_iters)
+    dev = sources.device
+    b = sources.shape[0]
+    ptrs = [_check("sources", sources, (b,), torch.int32, dev),
+            _check("targets", targets, (b,), torch.int32, dev)]
+    table = relax_table(e_from, e_to, w, n_nodes)
+    tail, scratch = _relax_tail(table, n_nodes, b, n_iters, RELAX_THREADS, dev)
+    out = torch.empty(b, dtype=torch.float32, device=dev)
+    err = _build.load().uz_relax_pairs(*ptrs, tail[0], tail[1], b, n_nodes, *tail[2:],
+                                       out.data_ptr(),
+                                       None if scratch is None else scratch.data_ptr(),
+                                       _stream(dev))
+    _raise_on(err, "relax_pairs")
+    launches["relax_pairs"] += 1
+    return out
+
+
+def relax_uncertainty_plain(stamp, node_valid, uncertainty, e_from, e_to, w, n_iters: int):
+    """Plain version of K5's uncertainty entry: the distances from the
+    oldest valid node (the least stamp, the first slot on a tie; slot 0
+    when none is valid) where a node is valid and reached, else the old
+    value (``reevaluate_uncertainty``)."""
+    root = torch.argmin(torch.where(node_valid, stamp, INF))
+    d0 = torch.full((stamp.shape[0],), INF, device=stamp.device).index_fill(0, root.view(1), 0.0)
+    dist = relax_min_plain(d0[None], e_from, e_to, w, n_iters)[0]
+    return torch.where(node_valid & (dist < INF), dist, uncertainty)
+
+
+def relax_uncertainty(stamp, node_valid, uncertainty, e_from, e_to, w, n_iters: int):
+    """K5's uncertainty entry: the root, the relaxation and the write-back
+    in one CTA (``RELAX_ROOT_THREADS`` threads); with its table, two
+    launches.  Returns the new (N,) uncertainty."""
+    if stamp.device.type == "cpu":
+        return relax_uncertainty_plain(stamp, node_valid, uncertainty, e_from, e_to, w, n_iters)
+    dev = stamp.device
+    n = stamp.shape[0]
+    ptrs = [_check("stamp", stamp, (n,), torch.float32, dev),
+            _check("node_valid", node_valid, (n,), torch.bool, dev),
+            _check("uncertainty", uncertainty, (n,), torch.float32, dev)]
+    table = relax_table(e_from, e_to, w, n)
+    tail, scratch = _relax_tail(table, n, 1, n_iters, RELAX_ROOT_THREADS, dev)
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    err = _build.load().uz_relax_uncertainty(*ptrs, tail[0], tail[1], n, *tail[2:],
+                                             out.data_ptr(),
+                                             None if scratch is None else scratch.data_ptr(),
+                                             _stream(dev))
+    _raise_on(err, "relax_uncertainty")
+    launches["relax_uncertainty"] += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
-# K6 cluster_labels
+# K6 cluster_labels (entries cluster_labels, cluster_roots)
 # ---------------------------------------------------------------------------
+
+CLUSTER_MAX_CANDIDATES = 256   # K6's B: 8 column words a lane (csrc/cluster_labels.cu kMaxB)
+
+
+def _check_cluster_size(kernel: str, b: int) -> None:
+    if b > CLUSTER_MAX_CANDIDATES:
+        raise ValueError(f"{kernel}: {b} candidates exceed the kernel's "
+                         f"{CLUSTER_MAX_CANDIDATES} (8 column words a lane; the epoch sends "
+                         f"at most pipeline.MAX_CANDIDATES)")
+
 
 def cluster_labels_plain(stamp_from, stamp_to, valid, max_dt: float, n_iters: int):
     """Plain version of K6: min-label propagation over the (B, B) stamp
@@ -813,8 +986,7 @@ def cluster_labels(stamp_from, stamp_to, valid, max_dt: float, n_iters: int):
         return cluster_labels_plain(stamp_from, stamp_to, valid, max_dt, n_iters)
     dev, f32 = stamp_from.device, torch.float32
     b = stamp_from.shape[0]
-    if 20 * b > _SMEM_BYTES:
-        raise ValueError(f"cluster_labels: {b} candidates exceed one CTA's shared memory")
+    _check_cluster_size("cluster_labels", b)
     ptrs = [
         _check("stamp_from", stamp_from, (b,), f32, dev),
         _check("stamp_to", stamp_to, (b,), f32, dev),
@@ -827,6 +999,116 @@ def cluster_labels(stamp_from, stamp_to, valid, max_dt: float, n_iters: int):
     _raise_on(err, "cluster_labels")
     launches["cluster_labels"] += 1
     return labels
+
+
+def first_indices(mask: torch.Tensor, size: int) -> torch.Tensor:
+    """Indices of the first ``size`` True entries of ``mask`` (B,), -1
+    padded: ``jnp.nonzero(mask, size=size, fill_value=-1)`` without a host
+    read."""
+    b = mask.shape[0]
+    pos = torch.cumsum(mask.to(torch.int32), dim=0) - 1
+    slot = torch.where(mask & (pos < size), pos, size).long()
+    out = torch.full((size + 1,), -1, dtype=torch.int32, device=mask.device)
+    ids = torch.arange(b, dtype=torch.int32, device=mask.device)
+    # every spilled or False entry lands in the spare slot ``size``
+    return out.scatter(0, slot, ids)[:size]
+
+
+class ClusterRootsOut(NamedTuple):
+    """K6's roots entry: what ``filter_loop_closures`` computes before its
+    RANSAC but the endpoint positions."""
+    valid: torch.Tensor       # (B,) bool: the candidate participates
+    labels: torch.Tensor      # (B,) int32 cluster label (B = none)
+    root_live: torch.Tensor   # (R,) bool
+    root_safe: torch.Tensor   # (R,) int64 root candidate slot (0 if dead)
+    member: torch.Tensor      # (R, B) bool
+    sf: torch.Tensor          # (B,) float32 'from' stamp
+    st: torch.Tensor          # (B,) float32 'to' stamp
+
+
+def cluster_root_count(b: int, min_cluster_size: int) -> int:
+    """R: at most B // min_cluster_size clusters can pass the size gate."""
+    return max(1, min(b, b // max(min_cluster_size, 1)))
+
+
+def cluster_roots_plain(cand_idx, e_from, e_to, e_valid, node_valid, stamp, max_dt: float,
+                        min_cluster_size: int, min_time_span: float, n_iters: int,
+                        cand_mask=None) -> ClusterRootsOut:
+    """Plain version of K6's roots entry (``filter.py:105-154``): the
+    candidates' validity (``cand_mask``, else their edges' validity, and
+    both endpoints valid) and stamps, the labels, per-cluster size and stamp
+    spans, the gates, the roots (label == own slot, first ``R`` in slot
+    order) and their member masks."""
+    b = cand_idx.shape[0]
+    dev = cand_idx.device
+    present = cand_idx >= 0
+    ci = torch.where(present, cand_idx, 0).long()
+    ef, et = e_from[ci].long(), e_to[ci].long()
+    valid = present & (e_valid[ci] if cand_mask is None else cand_mask)
+    valid = valid & node_valid[ef] & node_valid[et]
+    sf, st = stamp[ef], stamp[et]
+    labels = cluster_labels_plain(sf, st, valid, max_dt, n_iters)
+
+    # per-cluster stats over b + 1 segments (label b = no cluster)
+    lab = labels.long()
+
+    def seg(x, op, init):
+        base = torch.full((b + 1,), init, dtype=x.dtype, device=dev)
+        return base.scatter_reduce(0, lab, torch.where(valid, x, init), op, include_self=False)
+
+    csize = torch.zeros(b + 1, dtype=torch.int32, device=dev).scatter_add(
+        0, lab, valid.to(torch.int32))
+    f_min, f_max = seg(sf, "amin", math.inf), seg(sf, "amax", -math.inf)
+    t_min, t_max = seg(st, "amin", math.inf), seg(st, "amax", -math.inf)
+    runs = ((csize >= min_cluster_size)
+            & ((f_max - f_min) >= min_time_span)
+            & ((t_max - t_min) >= min_time_span))
+
+    ids = torch.arange(b, device=dev)
+    is_root = (lab == ids) & valid & runs[:b]
+    root_slot = first_indices(is_root, cluster_root_count(b, min_cluster_size))
+    root_live = root_slot >= 0
+    root_safe = torch.where(root_live, root_slot, 0).long()
+    member = (lab[None, :] == root_safe[:, None]) & valid[None, :] & root_live[:, None]
+    return ClusterRootsOut(valid, labels, root_live, root_safe, member, sf, st)
+
+
+def cluster_roots(cand_idx, e_from, e_to, e_valid, node_valid, stamp, max_dt: float,
+                  min_cluster_size: int, min_time_span: float, n_iters: int,
+                  cand_mask=None) -> ClusterRootsOut:
+    """K6's roots entry: the gathers, the labels, the gates, the compaction
+    and the member masks in one launch of one CTA."""
+    if cand_idx.device.type == "cpu":
+        return cluster_roots_plain(cand_idx, e_from, e_to, e_valid, node_valid, stamp, max_dt,
+                                   min_cluster_size, min_time_span, n_iters, cand_mask)
+    dev = cand_idx.device
+    b, E, n = cand_idx.shape[0], e_from.shape[0], stamp.shape[0]
+    _check_cluster_size("cluster_roots", b)
+    mask = e_valid if cand_mask is None else cand_mask
+    ptrs = [
+        _check("cand_idx", cand_idx, (b,), torch.int32, dev),
+        _check("e_from", e_from, (E,), torch.int32, dev),
+        _check("e_to", e_to, (E,), torch.int32, dev),
+        _check("cand_mask" if cand_mask is not None else "e_valid", mask,
+               (E,) if cand_mask is None else (b,), torch.bool, dev),
+        int(cand_mask is None),
+        _check("node_valid", node_valid, (n,), torch.bool, dev),
+        _check("stamp", stamp, (n,), torch.float32, dev),
+    ]
+    r = cluster_root_count(b, min_cluster_size)
+    out = ClusterRootsOut(
+        torch.empty(b, dtype=torch.bool, device=dev), torch.empty(b, dtype=torch.int32, device=dev),
+        torch.empty(r, dtype=torch.bool, device=dev), torch.empty(r, dtype=torch.int64, device=dev),
+        torch.empty(r, b, dtype=torch.bool, device=dev),
+        torch.empty(b, dtype=torch.float32, device=dev),
+        torch.empty(b, dtype=torch.float32, device=dev))
+    err = _build.load().uz_cluster_roots(
+        *ptrs, b, float(max_dt), int(n_iters), int(min_cluster_size), float(min_time_span), r,
+        *(t.data_ptr() for t in (out.valid, out.labels, out.sf, out.st, out.root_live,
+                                 out.root_safe, out.member)), _stream(dev))
+    _raise_on(err, "cluster_roots")
+    launches["cluster_roots"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
