@@ -43,15 +43,22 @@ runs, in order, each phase printing lines of its own:
    500-node and 10k-node epochs give it (K5 and K6 also on edge cases: a
    hop diameter above the 64 sweeps, a row at its fixed point early, dense
    rows, the global scratch above the shared-memory cut, duplicated edges,
-   tied and invalid roots; B = 1, 77, 300, a chain beyond 16 hops, no valid
-   candidate; K5 within RELAX_MAX_ULP, K6 exactly; K7 with its draw folded in: its
+   tied and invalid roots; B = 1, 77, a chain beyond 16 hops, no valid
+   candidate, and above the one-CTA form's 256 the grid route at B = 300,
+   1,024 and 4,096, timed; K5 within RELAX_MAX_ULP, K6 exactly; K7 with its draw folded in: its
    triplets against the plain mapping of the same uniforms, exact but for
    targets within 4 ulps of a running-sum boundary, then the rest on its
    own triplets; also on a late keyframe step's calls, 1 camera and the
    rig, one of them profiled as one torch.rand and one K7 launch, and on
-   edge cases), K8's grid route on the 100k-node
-   solve's inputs, and K11 project_rays on a 500-node full rebuild, an
-   8-new-node incremental pass and a 10k-node full rebuild, and the
+   edge cases), K8 (labels and gauge in one launch) on the 1k, 10k and
+   100k solves' inputs (the cooperative form at 100k) with the rounds it
+   ran against n_iters, and its two forms in turns at 10k, and K11
+   project_rays on a 500-node full rebuild, an 8-new-node incremental pass,
+   a 10k-node full rebuild and the 10k-node radius-40 m graph on a 1024²
+   grid of 0.1 m (the culling's case), each with its device and queued ms
+   and its bound over the pairs in reach beside the old count over every
+   on-grid pair, K12 and K13 on a 10-level VGA pyramid (two launches
+   each), and the
    front-end's kernels (K12 fast_nms on all four pyramid levels, K13
    grid_topk's one call for all four, K14 orb_describe's one call for every
    level and the GIST, held row by row, K15 scan_bins) on the arguments one
@@ -84,7 +91,7 @@ runs, in order, each phase printing lines of its own:
    the reference's loop makes, and a profile;
 6. the headline configuration at 10k nodes against the oracle (LM);
 7. the headline configuration at 100k nodes: time, finite χ² below χ²₀,
-   K8 launched on its grid route, a profile; its PCG through K2 and K37
+   K8 launched once (its cooperative form), a profile; its PCG through K2 and K37
    (260 K37 launches, no K3 or K10), its launches and device ms by kernel,
    and the same solve with its PCG through the old composition (K10 + K3 +
    K10 a step, called through their wrappers): launches, time, device ms by
@@ -467,8 +474,10 @@ FRONTEND_DEVICE_FUNCTIONS = {"fast_nms": ("fast_nms_levels",),
                              "relax_pairs": ("relax_pairs_kernel",),
                              "relax_uncertainty": ("relax_unc_kernel",),
                              "relax_min": ("relax_rows_kernel",),
-                             "cluster_roots": ("cluster_block<true>",),
-                             "cluster_labels": ("cluster_block<false>",),
+                             "cluster_roots": ("cluster_block<true>", "cluster_grid<true>"),
+                             "cluster_labels": ("cluster_block<false>", "cluster_grid<false>"),
+                             "components": ("components_cta", "components_grid"),
+                             "project_rays": ("project_tiles",),
                              "merge_pairs": ("row_keys", "greedy_rounds"),
                              "calib_gn": ("init_theta", "calib_edges", "calib_solve"),
                              "bin_min_max": ("bin_points",),
@@ -811,13 +820,11 @@ DEVICE_FUNCTIONS = ("sift_keypoints", "linearize_rows", "hvp_seed",
                     "chain_backward",
                     "chain_root", "factor_kernel", "candidate_kernel", "accept_kernel",
                     "pcg_init", "pcg_alpha", "pcg_beta", "grid_dots", "grid_init",
-                    "grid_alpha", "grid_beta", "project_cells",
+                    "grid_alpha", "grid_beta", "project_tiles",
                     "residual_edges", "sum_partials",
                     "relax_table_kernel", "relax_rows_kernel", "relax_pairs_kernel",
-                    "relax_unc_kernel", "cluster_block", "ransac_draw_fit", "components_cta",
-                    "gauge_cta", "k_init_labels", "k_scatter_min", "k_jump_out", "k_jump",
-                    "k_gauge_init", "k_gauge_reduce_stamp", "k_gauge_reduce_slot",
-                    "k_gauge_write", "fast_nms_levels", "grid_global", "grid_cells", "box_blur",
+                    "relax_unc_kernel", "cluster_block", "cluster_grid", "ransac_draw_fit",
+                    "components_cta", "components_grid", "fast_nms_levels", "grid_global", "grid_cells", "box_blur",
                     "orb_describe_rows", "scan_grid",
                     "match_top2_lanes", "gist_topk_cluster", "bilateral_tile", "icp_cluster",
                     "row_keys",
@@ -1060,6 +1067,31 @@ def label_work(sf, st, valid, max_dt: float, n_iters: int) -> int:
     return 3 * nv * (nv + 1) + total
 
 
+def reach_pairs(table, size: int, res: float, max_range: float, cx, cy) -> int:
+    """K11's (cell, node) pairs on the grid whose centre-table distance is
+    within reach, D < max_range + 0.71·res, summed over the nodes (cx, cy)
+    by an integral image of that disk over the table."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    D = kops.unpack_center_tables(table)[0].reshape(size, size)
+    disk = (D < max_range + 0.71 * res).long()
+    S = torch.zeros(size + 1, size + 1, dtype=torch.long, device=D.device)
+    S[1:, 1:] = disk.cumsum(0).cumsum(1)
+    c0 = size // 2
+    r0, r1 = (c0 - cy.long()).clamp(0, size), (c0 - cy.long() + size).clamp(0, size)
+    q0, q1 = (c0 - cx.long()).clamp(0, size), (c0 - cx.long() + size).clamp(0, size)
+    return int((S[r1, q1] - S[r0, q1] - S[r1, q0] + S[r0, q0]).sum())
+
+
+def grid_pairs(size: int, cx, cy) -> int:
+    """The (cell, node) pairs whose centre-table offset lies on the grid,
+    in reach or not: the count K11's bound took before its reach was culled
+    (reported beside ``reach_pairs``')."""
+    rows = (size - (cy.long() - size // 2).abs()).clamp(min=0)
+    cols = (size - (cx.long() - size // 2).abs()).clamp(min=0)
+    return int((rows * cols).sum())
+
+
 def kernel_work(name: str, args) -> tuple[int, int]:
     """(bytes, operations) one call must move and do on these inputs: each
     input read once and each output written once; operations counted from
@@ -1176,9 +1208,15 @@ def kernel_work(name: str, args) -> tuple[int, int]:
                 2 + 2 * max(M - 1, 1).bit_length())
         return nbytes, ops
     if name == "components":
+        # the edge table read once, the nodes' fields read and the labels
+        # and gauge written once; per round K8 runs on these inputs (to the
+        # first that changes no label) two minima a valid edge and two jumps
+        # a node, then ~6 operations a node for the gauge
         ef, et, ev, nv, nf, stamp, n, iters = args
+        rounds = torch.zeros((), dtype=torch.int32, device=ef.device)
+        kops.components_plain(ef, et, ev, n, iters, rounds=rounds)
         return (_nbytes(ef, et, ev, nv, nf, stamp) + 5 * n,
-                iters * (2 * int(ev.sum()) + 2 * n) + 6 * n)
+                int(rounds) * (2 * int(ev.sum()) + 2 * n) + 6 * n)
     if name == "chain_factor":
         # per odd block of a level: two 6x6 Schur inverses (~250 operations
         # each) and eight 6x6 products (432 each); the root: m inverses and
@@ -1225,17 +1263,15 @@ def kernel_work(name: str, args) -> tuple[int, int]:
         return (_nbytes(root_inv, *(m for lv in levels for m in lv), *op[:7], *op.table, b)
                 + 4 * 3 * b.numel() + 16, apply_ops + 4 * b.numel() + steps * (step_ops + hvp_ops))
     if name == "project_rays":
-        # base, tables and the active nodes' scans and scalars read once,
-        # the grid written once; ~20 operations per (cell, node) pair whose
-        # centre-table offset lies on the grid
-        (logodds, cx, cy, kbin, scans, idx, count, D, bin0, Wray, *_rest) = args
-        size, c = logodds.shape[0], int(count)
+        # base, table and the active nodes' scans and scalars read once,
+        # the grid written once; ~20 operations per (cell, node) pair on the
+        # grid within the node's reach (D < max_range + 0.71·res: the others'
+        # terms are 0)
+        (logodds, cx, cy, kbin, scans, idx, count, table, res, max_range, *_rest) = args
+        c = int(count)
         nodes = idx[:c].long()
-        rows = (size - (cy[nodes].long() - size // 2).abs()).clamp(min=0)
-        cols = (size - (cx[nodes].long() - size // 2).abs()).clamp(min=0)
-        pairs = int((rows * cols).sum())
-        return (_nbytes(logodds, D, bin0, Wray) + 4 * logodds.numel()
-                + c * (4 * scans.shape[1] + 16), 20 * pairs)
+        return (_nbytes(logodds, table) + 4 * logodds.numel() + c * (4 * scans.shape[1] + 16),
+                20 * reach_pairs(table, logodds.shape[0], res, max_range, cx[nodes], cy[nodes]))
     if name == "fast_nms":
         # every level's image read and its scores written once; per pixel
         # inside the 21-px border 16 differences, 32 compares, ~20 mask
@@ -2255,7 +2291,20 @@ def compare_project(args, label: str, large: bool, trials: int = 21, calls: int 
     row["ms"], row["plain_ms"] = time_pair(lambda: kops.project_rays(*args),
                                            lambda: kops.project_rays_plain(*args),
                                            trials=trials, calls=calls)
+    row["device_ms_queued"] = queued_device_ms(lambda: kops.project_rays(*args))
+    _, names = device_profile(lambda: [kops.project_rays(*args) for _ in range(10)])
+    dms = kernel_device_ms(names, ("project_rays",))["project_rays"]
+    row["device_ms"] = None if dms is None else dms / 10
     row.update(bound("project_rays", args))
+    # the bound as it was counted before the reach was culled: every pair
+    # whose centre-table offset lies on the grid
+    logodds, cx, cy, _, scans, idx, count, table, res, max_range = args[:10]
+    nodes = idx[:int(count)].long()
+    row["pairs_in_reach"] = reach_pairs(table, logodds.shape[0], res, max_range, cx[nodes],
+                                        cy[nodes])
+    row["pairs_on_grid"] = grid_pairs(logodds.shape[0], cx[nodes], cy[nodes])
+    row["bound_ms_on_grid_pairs"] = 1e3 * max(row["bytes"] / HBM_BYTES_PER_S,
+                                              20 * row["pairs_on_grid"] / SCALAR_OPS_PER_S)
     log(f"3 kernel project_rays {label}", **row)
     if large:
         check(bool((err <= cell_bound).all()), f"project_rays {label}: beyond 2e-6·S + 1e-5")
@@ -2312,23 +2361,36 @@ def components_inputs(g) -> tuple:
 
 
 def components_route(n: int) -> str:
-    """Which of K8's routes ``kernels/ops.components`` takes at N nodes."""
+    """Which of K8's forms ``kops.components_gauge`` takes at N nodes: "cta"
+    (one CTA) or "grid" (one cooperative launch over the card)."""
     from uzliti_slam_tpu_torch.kernels import ops as kops
 
-    return "cta" if 12 * n <= kops._SMEM_BYTES else "grid"
+    return kops.components_route(n)
 
 
-def _components_both(kernel: bool):
-    """K8 as the solve runs it: labels, then the gauge mask from them."""
+def _components_both(kernel: bool, route=None):
+    """K8 as the solves run it: labels and gauge in one call (``route``
+    "grid" forces the cooperative form at any N)."""
     from uzliti_slam_tpu_torch.kernels import ops as kops
-
-    comp = kops.components if kernel else kops.components_plain
-    gauge = kops.gauge_fix if kernel else kops.gauge_fix_plain
 
     def fn(ef, et, ev, nv, nf, stamp, n, iters):
-        labels = comp(ef, et, ev, n, iters)
-        return labels, gauge(labels, nv, nf, stamp)
+        if kernel:
+            return kops.components_gauge(ef, et, ev, nv, nf, stamp, n, iters, route=route)
+        return kops.components_gauge_plain(ef, et, ev, nv, nf, stamp, n, iters)
     return fn
+
+
+def components_rounds(args) -> dict:
+    """The rounds K8 ran on these inputs (read from the kernel) beside the
+    plain version's count of them and the reference's ``n_iters``."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    ef, et, ev, nv, nf, stamp, n, iters = args
+    got = torch.zeros((), dtype=torch.int32, device=ef.device)
+    ref = torch.zeros((), dtype=torch.int32, device=ef.device)
+    kops.components_gauge(ef, et, ev, nv, nf, stamp, n, iters, rounds=got)
+    kops.components_plain(ef, et, ev, n, iters, rounds=ref)
+    return {"rounds": int(got), "rounds_plain": int(ref), "n_iters": int(iters)}
 
 
 def compare_ransac(got, ref, args, label: str) -> dict:
@@ -2543,13 +2605,17 @@ def compare_epoch_kernels(inputs: dict, label: str, timed: bool = True) -> dict:
             row = {"max_abs_err": 0.0 if mism == 0 else float("nan"), "mismatches": mism}
             if name == "components":
                 row["route"] = components_route(args[6])
+                row.update(components_rounds(args))
+                check(row["rounds"] == row["rounds_plain"],
+                      f"components {label}: {row['rounds']} rounds, the plain version "
+                      f"counts {row['rounds_plain']}")
             check(mism == 0, f"{name} {label}: {mism} entries differ from the plain version")
         if timed:
             row["ms"], row["plain_ms"] = time_pair(lambda: kernel_fn(*args),
                                                    lambda: plain_fn(*args))
-            if name in K5_K6 + ("ransac_rigid",):
+            if name in K5_K6 + ("ransac_rigid", "components"):
                 row["device_ms_queued"] = queued_device_ms(lambda: kernel_fn(*args))
-            if name in K5_K6:
+            if name in K5_K6 + ("components",):
                 _, names = device_profile(lambda: [kernel_fn(*args) for _ in range(10)])
                 dms = kernel_device_ms(names, (name,))[name]
                 row["device_ms"] = None if dms is None else dms / 10
@@ -2609,7 +2675,8 @@ def k5_k6_edge_cases(dev, inputs10k: dict) -> dict:
     above the shared-memory cut (the global scratch); tied oldest stamps and
     no valid node; K6 at B = 1, B = 77, a 256-candidate stamp chain beyond
     16 hops, 256 candidates with none valid, and with the heuristic's mask;
-    B = 257 must raise before any launch.
+    above 256 (the grid route) B = 300 and 4,096 on chains beyond 16 hops
+    and B = 1,024 in clusters, both entries, timed.
     Returns {case: {entry: max_ulp or mismatches}}."""
     from uzliti_slam_tpu_torch.kernels import ops as kops
 
@@ -2668,15 +2735,6 @@ def k5_k6_edge_cases(dev, inputs10k: dict) -> dict:
     sf = (torch.randint(0, 12, (77,), generator=gen) * 1.5).float()
     st = sf + torch.randint(0, 3, (77,), generator=gen).float()
     run("K6 B = 77", {"cluster_roots": _roots_inputs(sf, st, gen, dev, n_bad=4)})
-    over = _roots_inputs(*chain_stamps(kops.CLUSTER_MAX_CANDIDATES + 1), gen, dev)
-    before = kops.launches["cluster_roots"]
-    try:
-        kops.cluster_roots(*over[:10], cand_mask=over[10])
-        refused = False
-    except ValueError:
-        refused = True
-    check(refused and kops.launches["cluster_roots"] == before,
-          "K6 must refuse 257 candidates before any launch")
     run("K6 chain of 256 beyond 16 hops", {"cluster_roots": _roots_inputs(
         *chain_stamps(256), gen, dev)})
     none = _roots_inputs(*chain_stamps(256), gen, dev)
@@ -2688,8 +2746,84 @@ def k5_k6_edge_cases(dev, inputs10k: dict) -> dict:
     labels = _roots_inputs(*chain_stamps(200), gen, dev)
     cr = kops.cluster_roots(*labels[:10], cand_mask=labels[10])
     run("K6 labels entry, chain of 200", {"cluster_labels": (cr.sf, cr.st, cr.valid, 5.0, 16)})
+    # above the one-CTA form's 256 candidates, the grid route: a chain beyond
+    # 16 hops (B = 300, 4,096) and clusters of ~8 (B = 1,024), both entries,
+    # timed; the labels entry on the roots entry's stamps
+    out["grid_route"] = {}
+    for b in (300, 1024, 4096):
+        if b == 1024:
+            sf = (torch.randint(0, b // 8, (b,), generator=gen) * 7.0).float()
+            st = sf + torch.randint(0, 3, (b,), generator=gen).float()
+        else:
+            sf, st = chain_stamps(b)
+        inputs = _roots_inputs(sf, st, gen, dev, n_bad=b // 64)
+        rows = compare_epoch_kernels({"cluster_roots": inputs}, f"K6 B = {b}")
+        cr = kops.cluster_roots(*inputs[:10], cand_mask=inputs[10])
+        rows.update(compare_epoch_kernels({"cluster_labels": (cr.sf, cr.st, cr.valid, 5.0, 16)},
+                                          f"K6 B = {b}"))
+        out[f"K6 B = {b}, grid route"] = {k: r["mismatches"] for k, r in rows.items()}
+        out["grid_route"][b] = {k: {f: r.get(f) for f in ("ms", "plain_ms", "device_ms",
+                                                             "device_ms_queued", "bound_ms",
+                                                             "bound_by")}
+                                for k, r in rows.items()}
     log("3 kernel K5 K6 edge cases", **out)
     return out
+
+
+def compare_k8_forms(args, label: str) -> dict:
+    """K8's two forms on the same inputs (N within the one-CTA form's
+    shared memory): the one CTA and the cooperative grid forced, equal
+    outputs, event and queued ms in turns."""
+    cta, grid = _components_both(True), _components_both(True, route="grid")
+    a, b = cta(*args), grid(*args)
+    torch.cuda.synchronize()
+    mism = sum(int((x != y).sum()) for x, y in zip(a, b))
+    row = {"mismatches": mism}
+    row["cta_ms"], row["grid_ms"] = time_pair(lambda: cta(*args), lambda: grid(*args))
+    row["cta_device_ms_queued"] = queued_device_ms(lambda: cta(*args))
+    row["grid_device_ms_queued"] = queued_device_ms(lambda: grid(*args))
+    log(f"3 kernel components forms {label}", **row)
+    check(mism == 0, f"components forms {label}: {mism} entries differ")
+    return row
+
+
+def compare_ten_levels(img, label: str) -> dict:
+    """K12 and K13 on a 10-level pyramid of ``img`` ((C, H, W) float32 on
+    the card; the front-end's resize, 300 features): ⌈10/8⌉ = 2 launches
+    each, equal to their plain versions."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+    from uzliti_slam_tpu_torch.ops import features, resize
+
+    C, H, W = img.shape
+    shapes = features.pyramid_shapes(H, W, 10, 1.2)
+    levels = [img if (h, w) == (H, W) else resize.resize_linear(img, (h, w)).contiguous()
+              for _, (h, w) in shapes]
+    k_level = 300 // 10
+    before = dict(kops.launches)
+    maps = kops.fast_nms(levels, 20.0)
+    got = kops.grid_topk(maps, k_level, 4)
+    torch.cuda.synchronize()
+    launched = {k: kops.launches[k] - before[k] for k in ("fast_nms", "grid_topk")}
+    ref_maps = kops.fast_nms_plain(levels, 20.0)
+    ref = kops.grid_topk_plain(ref_maps, k_level, 4)
+    on_ref = kops.grid_topk(ref_maps, k_level, 4)
+    row = {"levels": [list(hw) for _, hw in shapes], "launches": launched,
+           "fast_nms_mismatches": sum(int((a != b).sum()) for a, b in zip(maps, ref_maps)),
+           "grid_topk_mismatches": sum(int((a != b).sum()) for a, b in zip(got, ref))
+           + sum(int((a != b).sum()) for a, b in zip(on_ref, ref)),
+           "keypoints": int(ref[2].sum()), "max_abs_err": 0.0}
+    row["fast_nms_ms"], row["fast_nms_plain_ms"] = time_pair(
+        lambda: kops.fast_nms(levels, 20.0), lambda: kops.fast_nms_plain(levels, 20.0))
+    row["grid_topk_ms"], row["grid_topk_plain_ms"] = time_pair(
+        lambda: kops.grid_topk(ref_maps, k_level, 4),
+        lambda: kops.grid_topk_plain(ref_maps, k_level, 4))
+    log(f"3 kernel fast_nms grid_topk 10 levels {label}", **row)
+    check(launched == {"fast_nms": 2, "grid_topk": 2},
+          f"10 levels {label}: launches {launched}, expected 2 of K12 and 2 of K13")
+    check(row["fast_nms_mismatches"] == 0 and row["grid_topk_mismatches"] == 0,
+          f"10 levels {label}: {row['fast_nms_mismatches']} K12 and "
+          f"{row['grid_topk_mismatches']} K13 entries differ from the plain versions")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -2781,12 +2915,12 @@ def reference_refreshes(hist, acc, cfg) -> int:
 def solve_launches(**counts) -> dict:
     """Every kernel's launch count 0 but the solve's own: K1 24, K4 2 (the
     start's and the final poses' residuals), K36's two entries 20 each (one
-    an LM iteration), K8 2, K9 4, one launch a factor (the headline
+    an LM iteration), K8 1 (labels and gauge), K9 4, one launch a factor (the headline
     configuration) and the PCG's ``counts``."""
     from uzliti_slam_tpu_torch.kernels import ops as kops
 
     out = dict.fromkeys(kops.launches, 0)
-    out.update(linearize=24, residual_chi2=2, lm_candidate=20, lm_accept=20, components=2,
+    out.update(linearize=24, residual_chi2=2, lm_candidate=20, lm_accept=20, components=1,
                chain_factor=4, **counts)
     return out
 
@@ -2877,10 +3011,7 @@ FUNCTION_KERNEL = {"linearize_rows": "linearize", "hvp_seed": "hvp", "hvp_edges"
                    "sum_partials": "residual_chi2",
                    **{f: "pcg" for f in ("pcg_init", "pcg_alpha", "pcg_beta", "grid_dots",
                                          "grid_init", "grid_alpha", "grid_beta")},
-                   **{f: "components" for f in ("components_cta", "gauge_cta", "k_init_labels",
-                                                "k_scatter_min", "k_jump_out", "k_jump",
-                                                "k_gauge_init", "k_gauge_reduce_stamp",
-                                                "k_gauge_reduce_slot", "k_gauge_write")}}
+                   "components_cta": "components", "components_grid": "components"}
 
 
 def function_kernel_gaps() -> list:
@@ -3098,6 +3229,8 @@ def epoch_phase(phase: str, built, n: int, reps: int, reads: list, cpu_check: bo
                      for h, a in loops)
     check(all(counts[k] > 0 for k in FUSED_PATH + EPOCH_KERNELS),
           f"{phase}: a kernel was not launched: {counts}")
+    check(counts["components"] == 1, f"{phase}: K8 launched {counts['components']} times, "
+          "not once (labels and gauge in one launch)")
     k5_k6 = {k: counts[k] for k in K5_K6}
     check(k5_k6 == {"relax_table": 2, "relax_pairs": 1, "relax_uncertainty": 1,
                     "cluster_roots": 1, "relax_min": 0, "cluster_labels": 0},
@@ -7034,6 +7167,11 @@ def main() -> int:
     check(components_route(g100k.node_capacity) == "grid", "100k solve: K8 not on its grid route")
     grid = compare_epoch_kernels({"components": components_inputs(g100k)},
                                  "100k solve")["components"]
+    k8_solves = {n: compare_epoch_kernels({"components": components_inputs(g)},
+                                          f"{n} solve")["components"]
+                 for n, g in (("1k", g1k), ("10k", g10k))}
+    k8_solves["100k"] = grid
+    k8_forms_10k = compare_k8_forms(components_inputs(g10k), "10k solve")
     # K11 on what the projection after the 500-node epoch gives it (a full
     # rebuild, then 8 new nodes), and on a 10k-node full rebuild of a graph
     # that lies on the grid
@@ -7053,6 +7191,18 @@ def main() -> int:
     rows_large["project_rays"] = compare_project(map_args(s10k_map, cfg_map10k, None)[1],
                                                  "10k full", large=True, trials=3, calls=2)
     del s10k_map
+    # a covering grid: the 10k-node radius-40 m graph on 1024² cells of 0.1 m
+    # (102.4 m), where each node reaches ~62 cells a side and the culling
+    # decides the time
+    cfg_cover = SlamConfig(node_capacity=10240, edge_capacity=16384,
+                           grid=dataclasses.replace(SlamConfig().grid, size=1024, resolution=0.1))
+    s_cover = with_scans(pipeline.init_state(cfg_cover, seed=SEED, device=dev).replace(
+        graph=synthetic.make_pose_graph(
+            10_000, node_capacity=10240, edge_capacity=16384, radius=40.0,
+            generator=torch.Generator().manual_seed(SEED), device=dev)[0]), SEED + 9)
+    row_cover = compare_project(map_args(s_cover, cfg_cover, None)[1], "10k covering grid",
+                                large=True, trials=5, calls=3)
+    del s_cover
     # K12-K15 on the arguments the first VGA keyframe gives them (one camera:
     # the main shapes; the front + rear rig: the large ones)
     for n_cams, target in ((1, rows), (2, rows_large)):
@@ -7070,6 +7220,8 @@ def main() -> int:
         target.update(compare_frontend(calls, label))
         target["grid_topk"]["cases"] = compare_grid_topk_cases(calls["grid_topk"], label)
     rows["orb_describe"]["border_frame"] = compare_describe_borders(dev)
+    ten_levels = compare_ten_levels(torch.as_tensor(
+        np.asarray(kf_frames[0]["image"]), dtype=torch.float32, device=dev)[None], "VGA")
     rows["fast_nms"]["cases"] = compare_fast_nms_cases(fast_nms_cases(dev), "synthetic VGA")
 
     # K19 and bin_min_max on the arguments a global-role maintenance of the
@@ -7095,7 +7247,8 @@ def main() -> int:
                          oracle_chi2(g10k, iters=20, lm=True), reps=3)
     counts100k, fields100k = solve_against_oracle(g100k, "7 headline 100k", HEADLINE, None, reps=3,
                                                   profile=True)
-    check(counts100k["components"] > 0, "7 headline 100k: K8's grid route was not launched")
+    check(counts100k["components"] == 1,
+          f"7 headline 100k: K8 launched {counts100k['components']} times, not once")
     breakdown100k = old_composition_phase(g100k, "7 headline 100k", counts100k, fields100k)
     del g10k
 
@@ -7267,7 +7420,37 @@ def main() -> int:
     # K11 on the incremental pass (8 new nodes) after the 500-node rebuild
     kernels[list(REPLACES).index("project_rays")].update(
         ms_incremental=row_inc["ms"], plain_ms_incremental=row_inc["plain_ms"],
-        bound_ms_incremental=row_inc["bound_ms"], max_abs_err_incremental=row_inc["max_abs_err"])
+        bound_ms_incremental=row_inc["bound_ms"], max_abs_err_incremental=row_inc["max_abs_err"],
+        # the device and queued ms, and the bound as counted over every
+        # on-grid pair (in reach or not) beside the reach-culled one
+        **{f"{k}{sfx}": r[k] for sfx, r in (("", rows["project_rays"]),
+                                            ("_large", rows_large["project_rays"]),
+                                            ("_incremental", row_inc))
+           for k in ("device_ms", "device_ms_queued", "pairs_in_reach", "pairs_on_grid",
+                     "bound_ms_on_grid_pairs")},
+        # the covering grid: 10k nodes on 1024² cells of 0.1 m
+        cover={k: row_cover.get(k) for k in (
+            "ms", "plain_ms", "device_ms", "device_ms_queued", "bound_ms", "bound_by",
+            "bound_ms_on_grid_pairs", "pairs_in_reach", "pairs_on_grid", "max_abs_err",
+            "worst_cell_err", "worst_cell_bound", "ternary_differ", "nodes")})
+    # K8: the rounds it ran against n_iters, the 1k / 10k / 100k solves'
+    # calls, and its two forms at 10k (one CTA; the cooperative grid forced)
+    kernels[list(REPLACES).index("components")].update(
+        {f"{k}{sfx}": r.get(k) for sfx, r in (("", rows["components"]),
+                                              ("_large", rows_large["components"]))
+         for k in ("rounds", "n_iters", "device_ms", "device_ms_queued")},
+        form=rows["components"]["route"], form_large=rows_large["components"]["route"],
+        solves={n: {k: r.get(k) for k in ("ms", "plain_ms", "device_ms", "device_ms_queued",
+                                          "bound_ms", "rounds", "n_iters", "route")}
+                for n, r in k8_solves.items()},
+        forms_10k=k8_forms_10k)
+    # K12 and K13 on ten pyramid levels (two launches each)
+    for name in ("fast_nms", "grid_topk"):
+        kernels[list(REPLACES).index(name)]["ten_levels"] = ten_levels
+    # K6's grid route (B > 256): B = 300, 1,024 and 4,096
+    for name in ("cluster_roots", "cluster_labels"):
+        kernels[list(REPLACES).index(name)]["grid_route"] = {
+            b: r[name] for b, r in k5_k6_cases["grid_route"].items()}
     # K12-K15: device time of one profiled keyframe (phase 10), beside the
     # event-timed wrapper calls of phase 3, which include the host's issue;
     # K12-K18: device time of one profiled keyframe step (phase 11)
@@ -7341,14 +7524,16 @@ def main() -> int:
          "device_ms_large": r37_20k["device_ms"],
          "three_calls_ms_large": r37_20k["three_calls_ms"], "library_ms_large": None,
          "shapes_large": "20k solve: one PCG step (9 levels, a 64-block root)"})
-    # K8's second route, from the same source: one grid launch per pass
-    # where 12·N bytes exceed one CTA's shared memory; its main path is
-    # phase 7's 100k solve
+    # K8's second form, from the same source: one cooperative launch over
+    # the card where 12·N + 4·⌈N/32⌉ bytes exceed one CTA's shared memory;
+    # its main path is phase 7's 100k solve
     kernels.append(
         {"name": "components_grid", "route": "cuda", "source": SOURCE["components"],
          "replaces": REPLACES["components"], "launches": counts100k["components"],
          "max_abs_err": grid["max_abs_err"], "ms": grid["ms"], "plain_ms": grid["plain_ms"],
          "bound_ms": grid["bound_ms"], "bound_by": grid["bound_by"], "library_ms": None,
+         "device_ms_call": grid.get("device_ms"), "device_ms_queued": grid.get("device_ms_queued"),
+         "rounds": grid.get("rounds"), "n_iters": grid.get("n_iters"),
          "shapes": "100k solve"})
     # K21-K24: the main path is each method's first timed keyframe step
     # (14c); the main shapes are a late step's arguments, and for K23's

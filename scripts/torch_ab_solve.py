@@ -43,7 +43,16 @@ CUDA events and queued device ms a call); both epochs report K5's and K6's
 device ms in the profiled epoch and their calls of one epoch replayed (CUDA
 events, and queued device ms an epoch), and "maintain" phase 13a's
 ``pipeline.maintenance_epoch`` on the 500-node state after its epoch (wall,
-device ms, device launches, K19's and K15's points entry's device ms):
+device ms, device launches, K19's and K15's points entry's device ms).
+Each solve size and epoch also times K8's call on its graph (the
+checkout's entry: ``components_gauge``, or ``components`` then
+``gauge_fix``; CUDA events, queued device ms, launches) and reports K8's
+and K11's device ms in the profile; "map500" times phase 8's projections
+(``pipeline.project_map`` after the 500-node epoch: the full rebuild,
+"map500_full", and 8 new nodes, "map500_inc"; wall, device ms, launches,
+and K11's call alone):
+
+    python3 scripts/torch_ab_solve.py --base build/parent --sizes 1000,100000,epoch500,epoch10k,map500 --pairs 3
 
     python3 scripts/torch_ab_solve.py --base build/parent --sizes step,rereg --pairs 3
     python3 scripts/torch_ab_solve.py --base build/parent --sizes step,epoch500,maintain --pairs 3
@@ -101,7 +110,10 @@ def timed(fn, g, c, reps):
                                ("k5", ("relax_rows", "relax_table", "relax_pairs", "relax_unc")),
                                ("k6", ("cluster_rounds", "cluster_block")),
                                ("k15_points", ("bin_rows", "bin_points")),
-                               ("k19", ("row_keys", "greedy_rounds")))}
+                               ("k19", ("row_keys", "greedy_rounds")),
+                               ("k8", ("components_", "gauge_cta", "k_init_labels",
+                                       "k_scatter_min", "k_jump", "k_gauge_")),
+                               ("k11", ("project_cells", "project_tiles")))}
     by_kernel["eager_ops"] = sum(v for name, v in names.items() if "at::native" in name)
     return res, {"ms_median": statistics.median(ts), "ms": ts,
                  "port_launches": {k: v for k, v in launches.items() if v},
@@ -191,6 +203,44 @@ def step_kernel_event_ms(calls):
             "k7_queued_device_ms": cs.queued_device_ms(lambda: run(["ransac_rigid"])),
             "k15_ms": cs.time_call(lambda: run(["scan_bins"])),
             "k15_queued_device_ms": cs.queued_device_ms(lambda: run(["scan_bins"]))}
+
+
+def k8_call(args):
+    """K8 as the checkout's solve calls it (labels and gauge: one entry, or
+    the two wrappers before it): CUDA events around 10 calls, device ms a
+    call queued back to back, and the port's launches of one call."""
+    ef, et, ev, nv, nf, stamp, n, iters = args
+
+    def call():
+        if hasattr(kops, "components_gauge"):
+            return kops.components_gauge(*args)
+        labels = kops.components(ef, et, ev, n, iters)
+        return labels, kops.gauge_fix(labels, nv, nf, stamp)
+    kops.reset_launches()
+    call()
+    launches = kops.launches["components"]
+    return {"k8_ms": cs.time_call(call), "k8_queued_device_ms": cs.queued_device_ms(call),
+            "k8_calls_launches": launches}
+
+
+def map_entries(reps):
+    """Phase 8's projections after the 500-node epoch: ``pipeline.project_map``
+    as a full rebuild and as an incremental pass over 8 new nodes (wall,
+    profiled device ms and launches), and K11's calls alone (CUDA events,
+    queued device ms)."""
+    from uzliti_slam_tpu_torch import pipeline
+    ecfg, state, _, _ = cs.make_epoch_state(**cs.EPOCH_500, device=dev)
+    _, (state, _) = cs.timed_epochs(state, ecfg, 1)
+    s500 = cs.with_scans(state, cs.SEED + 5)
+    grid = pipeline.project_map(s500, ecfg)
+    s508 = cs.add_scanned_nodes(s500, 8)
+    out = {}
+    for name, st, gr in (("map500_full", s500, None), ("map500_inc", s508, grid)):
+        _, out[name] = timed(lambda s, c: pipeline.project_map(s, c, gr), st, ecfg, reps)
+        args = cs.map_args(st, ecfg, gr)[1]
+        out[name]["k11_ms"] = cs.time_call(lambda: kops.project_rays(*args))
+        out[name]["k11_queued_device_ms"] = cs.queued_device_ms(lambda: kops.project_rays(*args))
+    return out
 
 
 def epoch_k5_k6(state, ecfg):
@@ -293,8 +343,13 @@ out, lifted = {}, False
 sizes = sys.argv[2].split(",")
 if "step" in sizes or "rereg" in sizes:
     out.update(step_entries("step" in sizes, "rereg" in sizes, int(sys.argv[3])))
+if "map500" in sizes:
+    if not lifted:
+        cs.lift_sync_check_for_restart_read()
+        lifted = True
+    out.update(map_entries(int(sys.argv[3])))
 for size in sizes:
-    if size in ("step", "rereg"):
+    if size in ("step", "rereg", "map500"):
         continue
     if size.startswith("epoch"):
         if not lifted:
@@ -312,6 +367,7 @@ for size in sizes:
         out[size]["k7_ms"] = cs.time_call(lambda: kops.ransac_rigid(*k7))
         out[size]["k7_queued_device_ms"] = cs.queued_device_ms(lambda: kops.ransac_rigid(*k7))
         out[size].update(epoch_k5_k6(state, ecfg))
+        out[size].update(k8_call(cs.components_inputs(state.graph)))
         del state
         continue
     if size == "maintain":
@@ -346,6 +402,7 @@ for size in sizes:
     g = cs.make_graph(n, dev)
     (_, st), out[n] = timed(solver.optimize, g, cfg, int(sys.argv[3]))
     out[n]["chi2"] = float(st.chi2_history[-1])
+    out[n].update(k8_call(cs.components_inputs(g)))
     inputs = cs.kernel_inputs(g, cfg)
     out[n].update(factor_times(inputs["chain_factor"]))
     args = inputs["pcg"]
@@ -391,7 +448,8 @@ STEP_KEYS = ("k12_device_ms", "k17_device_ms", "k18_device_ms", "k13_device_ms",
              "k7_device_ms", "k7_ms", "k7_queued_device_ms", "k15_device_ms",
              "k15_device_functions", "k15_ms", "k15_queued_device_ms",
              "k5_calls", "k5_ms", "k5_queued_device_ms", "k6_calls", "k6_ms",
-             "k6_queued_device_ms")
+             "k6_queued_device_ms", "k8_ms", "k8_queued_device_ms", "k8_calls_launches",
+             "k11_ms", "k11_queued_device_ms")
 
 
 def run_side(tree: Path, sizes: str, reps: int) -> dict:
@@ -409,7 +467,8 @@ def main() -> int:
     ap.add_argument("--sizes", default="1000,10000",
                     help="node counts, 'fleet', 'epoch500', 'epoch10k', 'step' (the VGA "
                          "keyframe step, 1 camera and the rig), 'rereg' (its re-registration), "
-                         "'maintain' (phase 13a's maintenance on the 500-node state)")
+                         "'maintain' (phase 13a's maintenance on the 500-node state), 'map500' "
+                         "(the projections after the 500-node epoch: full and 8 new nodes)")
     ap.add_argument("--reps", type=int, default=15, help="timed solves a size and process")
     args = ap.parse_args()
     sides = {"base": args.base.resolve(), "change": Path(__file__).resolve().parents[1]}
@@ -431,10 +490,12 @@ def main() -> int:
                                                 "device_launches", *STEP_KEYS) if k in r})
             medians[side][-1].update({f"{n}:{k}_device_ms": r["device_ms_by_kernel"][k]
                                       for n, r in res.items() if "device_ms_by_kernel" in r
-                                      for k in ("k7", "k15_points", "k19", "k5", "k6")})
+                                      for k in ("k7", "k15_points", "k19", "k5", "k6", "k8",
+                                                "k11")})
             print(json.dumps({"pair": i, "side": side, **res}), flush=True)
-    names = [n for n in args.sizes.split(",") if n not in ("step", "rereg")]
+    names = [n for n in args.sizes.split(",") if n not in ("step", "rereg", "map500")]
     names += ["step_1cam", "step_2cam"] if "step" in args.sizes.split(",") else []
+    names += ["map500_full", "map500_inc"] if "map500" in args.sizes.split(",") else []
     names += ["rereg"] if "rereg" in args.sizes.split(",") else []
     for n in names:
         base = [m[n] for m in medians["base"]]
@@ -451,7 +512,8 @@ def main() -> int:
                                                 "k9_root_device_ms", "device_kernel_ms",
                                                 "device_launches", *STEP_KEYS,
                                                 "k7_device_ms", "k15_points_device_ms",
-                                                "k19_device_ms", "k5_device_ms", "k6_device_ms")
+                                                "k19_device_ms", "k5_device_ms", "k6_device_ms",
+                                                "k8_device_ms", "k11_device_ms")
                     if f"{n}:{k}" in medians[side][0]})
         print(json.dumps({"size": n, "base_medians_ms": base, "change_medians_ms": change,
                           "base_median_ms": statistics.median(base),

@@ -244,3 +244,29 @@ def test_detect_and_describe_pads_the_budget_and_rejects_sift(frame):
     assert torch.equal(kf.uv, kps.uv) and torch.equal(kf.angle, kps.angle)
     with pytest.raises(ValueError, match="unknown descriptor"):
         TF.detect_and_describe(torch.from_numpy(frame), descriptor="orb")
+
+
+@pytest.mark.parametrize("n_levels", [9, 10])
+def test_detect_describe_gist_beyond_8_levels_matches_jax(frame, n_levels):
+    """More pyramid levels than K12 and K13 take in one launch (the card
+    makes ⌈L/8⌉ launches of each): the last levels sit at the 32-px floor,
+    where the reference's 21-px border leaves no corner."""
+    k = 160
+    shapes = TF.pyramid_shapes(120, 160, n_levels, 1.2)
+    assert shapes[-1][1][0] == 32
+    kj, dj = jax.jit(lambda x: JF.detect_and_describe(x, max_keypoints=k, n_levels=n_levels))(
+        frame)
+    gj = np.asarray(jax.jit(JF.binary_gist)(frame.astype(np.float32), jnp.float32(0.3)))
+    kt, dt, gt = TF.detect_describe_gist(torch.from_numpy(frame), 0.3, max_keypoints=k,
+                                         n_levels=n_levels)
+    per = k // n_levels
+    valid = np.asarray(kj.valid)
+    np.testing.assert_array_equal(kt.valid.numpy(), valid)
+    np.testing.assert_array_equal(kt.scale.numpy(), np.asarray(kj.scale))
+    np.testing.assert_array_equal(kt.uv.numpy(), np.asarray(kj.uv))
+    np.testing.assert_allclose(kt.response.numpy(), np.asarray(kj.response), rtol=0, atol=3e-3)
+    assert valid[:per].sum() >= per // 2 and not valid[(n_levels - 1) * per:].any()
+    diff_bits = np.unpackbits(dt.numpy() ^ np.asarray(dj), axis=-1)
+    np.testing.assert_array_equal(diff_bits[:per][valid[:per]], 0)      # level 0: exact
+    assert 1.0 - diff_bits[valid].mean() >= MIN_EQUAL_BITS
+    np.testing.assert_array_equal(gt.numpy(), gj)

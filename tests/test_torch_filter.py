@@ -34,11 +34,11 @@ def _jax_triplets(key, member, k_hyp):
         lambda k, v: jransac._valid_sample(k, k_hyp, v))(keys, jnp.asarray(member))))
 
 
-def _graph_with_loop_closures(n=60, bad=()):
+def _graph_with_loop_closures(n=60, bad=(), edge_capacity=256):
     """The outlier graph of tests/test_filter.py: a chain with a loop
     closure from every node to node + 30; closures in ``bad`` corrupted."""
     g, _ = jsynthetic.make_pose_graph(KEY, n, odom_noise=0.01, rot_noise=0.002,
-                                      loop_closure_every=1, edge_capacity=256)
+                                      loop_closure_every=1, edge_capacity=edge_capacity)
     lc = np.where(np.asarray(g.e_type[: int(g.num_edges)]) == jstate.EDGE_TYPE_3D_FULL)[0]
     eT = g.e_transform
     for k in bad:
@@ -125,3 +125,29 @@ def test_filter_draws_its_own_triplets_from_a_generator():
     keep = tfilter.filter_loop_closures(_to_port(g), cand, torch.Generator().manual_seed(0))
     kept = set(cand[keep].tolist())
     assert int(lc[3]) not in kept and int(lc[7]) not in kept and len(kept) >= 12
+
+
+@pytest.mark.parametrize("b", [300, 1024])
+def test_filter_beyond_256_candidates_matches_jax(b):
+    """More candidates than K6's one-CTA form holds (the card takes its grid
+    route): ``filter_loop_closures`` and ``apply_filter(max_candidates=B)``
+    against JAX's, the draws injected."""
+    n = 2 * b + 80       # closures join the two laps: ~n/2 of them
+    g, lc = _graph_with_loop_closures(n=n, bad=(3, 7, b // 2), edge_capacity=2 * n + 64)
+    assert len(lc) >= b
+    cand = lc[-b:].astype(np.int32)
+    key = jax.random.PRNGKey(b)
+    ref = np.asarray(jfilter.filter_loop_closures(g, jnp.asarray(cand), key))
+    gt, cand_t = _to_port(g), torch.from_numpy(cand)
+    roots = tfilter.cluster_roots(gt, cand_t)
+    assert roots.member.shape[1] == b and bool(roots.root_live.any())
+    tri = _jax_triplets(key, roots.member.numpy(), tfilter.FilterConfig().ransac_hypotheses)
+    got = tfilter.filter_loop_closures(gt, cand_t, tri=tri).numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert got.sum() >= b // 4
+    ref_v = np.asarray(jfilter.apply_filter(g, key, max_candidates=b).e_valid)
+    is_lc = (gt.e_type != tstate.EDGE_TYPE_2D_WHEEL_ODOMETRY) & gt.e_valid
+    roots = tfilter.cluster_roots(gt, tfilter.recent_candidates(is_lc, b))
+    tri = _jax_triplets(key, roots.member.numpy(), 128)
+    got_v = tfilter.apply_filter(gt, max_candidates=b, tri=tri).e_valid.numpy()
+    np.testing.assert_array_equal(got_v, ref_v)

@@ -176,15 +176,15 @@ def _occupancy_case():
 
     rng = np.random.default_rng(2)
     size, bins = 32, 36
-    D, bin0, Wray = map(torch.from_numpy, occupancy.center_tables(size, 0.1, bins))
+    table = torch.from_numpy(kops.pack_center_tables(*occupancy.center_tables(size, 0.1, bins)))
     scans = torch.from_numpy((0.5 + rng.random((5, bins))).astype(np.float32))
     scans[1, 3] = torch.inf
     cx = torch.tensor([16, 10, 20, 40, 16], dtype=torch.int32)
     cy = torch.tensor([16, 12, 18, 5, 16], dtype=torch.int32)
-    kbin = torch.tensor([0, 5, -7, 2, 1], dtype=torch.int32)
+    kbin = torch.tensor([0, 5, 29, 2, 1], dtype=torch.int32)    # in [0, bins)
     idx = torch.tensor([0, 1, 4, 0, 0], dtype=torch.int32)
     return (torch.zeros(size, size), cx, cy, kbin, scans, idx, torch.tensor(3, dtype=torch.int32),
-            D, bin0, Wray, 0.1, 1.5, 0.85, -0.4, 10.0, True)
+            table, 0.1, 1.5, 0.85, -0.4, 10.0, True)
 
 
 @pytest.mark.parametrize("name", ["chain_factor", "pcg", "project_rays"])
@@ -309,11 +309,13 @@ def test_project_rays_launches_through_the_library(fake_lib):
     i32 = torch.int32
     out = kops.project_rays(_meta(32, 32), _meta(5, dtype=i32), _meta(5, dtype=i32),
                             _meta(5, dtype=i32), _meta(5, 36), _meta(5, dtype=i32),
-                            _meta((), dtype=i32), _meta(1024), _meta(1024, dtype=i32),
-                            _meta(1024), 0.1, 6.0, 0.85, -0.4, 10.0, True)
+                            _meta((), dtype=i32), _meta(1024, 4), 0.1, 6.0, 0.85, -0.4, 10.0,
+                            True)
     assert tuple(out.shape) == (32, 32) and kops.launches["project_rays"] == 1
     assert fake_lib.calls[-1][0] == "uz_project_rays"
-    assert fake_lib.calls[-1][1][12:20] == pytest.approx((0.1, 0.071, 6.0, 0.85, -0.4, 10.0, 1,
+    # (base, table, scans, bins, cx, cy, kbin, idx, count, size, res, band, ...)
+    assert fake_lib.calls[-1][1][3] == 36 and fake_lib.calls[-1][1][9] == 32
+    assert fake_lib.calls[-1][1][10:18] == pytest.approx((0.1, 0.071, 6.0, 0.85, -0.4, 10.0, 1,
                                                           -0.8))
 
 
@@ -346,11 +348,11 @@ def test_solve_and_map_kernel_argument_checks_raise(fake_lib):
         kops.pcg_beta(_meta(4, 6), _meta(4, 6), _meta(4, 6), _meta(1, 3))
     i32 = torch.int32
     good = [_meta(32, 32), _meta(5, dtype=i32), _meta(5, dtype=i32), _meta(5, dtype=i32),
-            _meta(5, 36), _meta(5, dtype=i32), _meta((), dtype=i32), _meta(1024),
-            _meta(1024, dtype=i32), _meta(1024)]
+            _meta(5, 36), _meta(5, dtype=i32), _meta((), dtype=i32), _meta(1024, 4)]
     for pos, bad, err in ((5, _meta(5, dtype=torch.int64), "idx: dtype"),
                           (6, _meta(1, dtype=i32), "count: shape"),
-                          (8, _meta(1024), "bin0: dtype"),
+                          (7, _meta(1024, 4, dtype=i32), "table: dtype"),
+                          (7, _meta(1024, 3), "table: shape"),
                           (4, _meta(5, 36, dtype=torch.float64), "scans: dtype")):
         args = list(good)
         args[pos] = bad
@@ -485,12 +487,11 @@ def test_frontend_kernel_argument_checks_raise(fake_lib, monkeypatch):
         kops.fast_nms(_meta(48, 64), 20.0)
     with pytest.raises(TypeError, match="img: dtype"):
         kops.fast_nms(_meta(1, 48, 64, dtype=torch.float64), 20.0)
-    # the levels of one call: the same cameras, at most 8, float32, contiguous
+    # the levels of one call: the same cameras, at least one, float32,
+    # contiguous (more than 8 take ⌈L/8⌉ launches: the next test)
     with pytest.raises(ValueError, match="img: shape"):
         kops.fast_nms([_meta(2, 48, 64), _meta(1, 40, 53)], 20.0)
-    with pytest.raises(ValueError, match="1..8"):
-        kops.fast_nms([_meta(1, 48, 64)] * 9, 20.0)
-    with pytest.raises(ValueError, match="1..8"):
+    with pytest.raises(ValueError, match="no level"):
         kops.fast_nms([], 20.0)
     with pytest.raises(TypeError, match="img: dtype"):
         kops.fast_nms([_meta(1, 48, 64), _meta(1, 40, 53, dtype=torch.float64)], 20.0)
@@ -502,8 +503,8 @@ def test_frontend_kernel_argument_checks_raise(fake_lib, monkeypatch):
         kops.grid_topk([_meta(1, 48, 64), _meta(1, 8, 8)], 128, 4)
     with pytest.raises(ValueError, match="score: shape"):
         kops.grid_topk([_meta(1, 48, 64), _meta(2, 40, 53)], 64, 4)
-    with pytest.raises(ValueError, match="1..8"):
-        kops.grid_topk([_meta(1, 48, 64)] * 9, 64, 4)
+    with pytest.raises(ValueError, match="no level"):
+        kops.grid_topk([], 64, 4)
     row = kops.DescribeRow
     with pytest.raises(ValueError, match="pattern: shape"):
         kops.orb_describe_levels([[row(_meta(1, 48, 64), _meta(1, 4, 2), _meta(128, 2, 2))]])
@@ -1518,17 +1519,70 @@ def test_k5_layout_leaves_room_for_the_static_shared_memory(fake_lib):
 
 
 def test_k6_raises_beyond_its_shared_memory(fake_lib):
-    # 8 column words a lane: B <= 256, the epoch's candidates; both entries
-    # raise above it before any launch
-    b = kops.CLUSTER_MAX_CANDIDATES
+    # the one-CTA form holds B <= 256 (8 column words a lane), the epoch's
+    # candidates; above it neither entry raises: both take the grid route,
+    # one cooperative launch with a global scratch of cluster_scratch words
+    b = kops.CLUSTER_CTA_MAX
     assert b == 256
     from uzliti_slam_tpu_torch import pipeline
     assert pipeline.MAX_CANDIDATES <= b
     i32, bl = torch.int32, torch.bool
-    kops.cluster_labels(_meta(b), _meta(b), _meta(b, dtype=bl), 5.0, 16)
-    with pytest.raises(ValueError, match=f"{b + 1} candidates exceed the kernel's {b}"):
-        kops.cluster_labels(_meta(b + 1), _meta(b + 1), _meta(b + 1, dtype=bl), 5.0, 16)
-    with pytest.raises(ValueError, match=f"{b + 1} candidates exceed the kernel's {b}"):
-        kops.cluster_roots(_meta(b + 1, dtype=i32), _meta(64, dtype=i32), _meta(64, dtype=i32),
+    for n in (1, b, b + 1, 1024, 4096):
+        kops.cluster_labels(_meta(n), _meta(n), _meta(n, dtype=bl), 5.0, 16)
+        call = fake_lib.calls[-1][1]
+        # (sf, st, valid, b, max_dt, n_iters, labels, scratch, words, stream)
+        assert call[3] == n and (call[7] is None) == (n <= b)
+        assert call[8] == (0 if n <= b else kops.cluster_scratch(n, False))
+        kops.cluster_roots(_meta(n, dtype=i32), _meta(64, dtype=i32), _meta(64, dtype=i32),
                            _meta(64, dtype=bl), _meta(32, dtype=bl), _meta(32), 5.0, 5, 2.0, 16)
-    assert [c[0] for c in fake_lib.calls] == ["uz_cluster_labels"]
+        call = fake_lib.calls[-1][1]
+        r = kops.cluster_root_count(n, 5)
+        assert call[7] == n and call[12] == r and (call[-3] is None) == (n <= b)
+        assert call[-2] == (0 if n <= b else kops.cluster_scratch(n, True, r))
+    assert [c[0] for c in fake_lib.calls] == ["uz_cluster_labels", "uz_cluster_roots"] * 5
+    assert kops.launches["cluster_labels"] == kops.launches["cluster_roots"] == 5
+    # the scratch's words (csrc/cluster_labels.cu:grid_scratch_ints): the bit
+    # matrix (B x ⌈B/32⌉, 2 MB at B = 4,096) and 5B + 3 words + 3 more; the
+    # roots add 5 (B + 1) segment entries, 2 words + 1 and the R slots
+    assert kops.cluster_scratch(4096, False) == 4096 * 128 + 5 * 4096 + 3 * 128 + 3
+    assert (kops.cluster_scratch(300, True, 60) - kops.cluster_scratch(300, False)
+            == 5 * 301 + 2 * 10 + 1 + 60)
+
+
+@pytest.mark.parametrize("levels", [8, 9, 10, 16, 17])
+def test_k12_k13_launch_once_per_eight_levels(fake_lib, levels):
+    """More than 8 pyramid levels (``FrontendConfig.pyramid_levels`` is free):
+    K12 and K13 launch ⌈L/8⌉ times, 8 levels a launch, over slices of the
+    same outputs."""
+    nms_tables = []
+
+    def fast_nms_levels(table, n_levels, C, t, stream):
+        nms_tables.append(np.array((ctypes.c_longlong * (4 * n_levels)).from_address(table)))
+        fake_lib.calls.append(("uz_fast_nms_levels", (table, n_levels, C, t, stream)))
+        return 0
+
+    fake_lib.uz_fast_nms_levels = fast_nms_levels
+    shapes = [(max(round(120 / 1.2 ** lv), 32), max(round(160 / 1.2 ** lv), 32))
+              for lv in range(levels)]
+    maps = kops.fast_nms([_meta(2, h, w) for h, w in shapes], 20.0)
+    n_launch = -(-levels // 8)
+    assert kops.launches["fast_nms"] == n_launch and len(maps) == levels
+    parts = [min(8, levels - 8 * i) for i in range(n_launch)]
+    assert [c[1][1] for c in fake_lib.calls] == parts
+    rows = np.concatenate([t.reshape(-1, 4) for t in nms_tables])
+    assert rows[:, 2:].tolist() == [list(hw) for hw in shapes]
+    assert rows[:, 1].tolist() == [m.data_ptr() for m in maps]
+    assert all(m._base is maps[0]._base for m in maps)
+    fake_lib.calls.clear()
+    uv, resp, valid = kops.grid_topk([_meta(2, h, w) for h, w in shapes], 30, 4)
+    assert tuple(uv.shape) == (levels, 2, 30, 2) and tuple(valid.shape) == (levels, 2, 30)
+    assert kops.launches["grid_topk"] == n_launch
+    calls = [c[1] for c in fake_lib.calls]
+    assert [c[1] for c in calls] == parts
+    # each launch writes its levels' slices: 8 levels of uv, resp and valid on
+    step = 8 * 2 * 30
+    assert [c[7] - calls[0][7] for c in calls] == [4 * 2 * step * i for i in range(n_launch)]
+    assert [c[8] - calls[0][8] for c in calls] == [4 * step * i for i in range(n_launch)]
+    assert [c[9] - calls[0][9] for c in calls] == [step * i for i in range(n_launch)]
+    # 16 cells x 1 > k = 30? no: 16 <= 30, no global pass, no scratch
+    assert all(c[6] is None for c in calls)

@@ -255,3 +255,122 @@ def test_grid_config_refuses_a_range_beyond_its_half_width():
         tocc.GridConfig(max_range=6.5)
     with pytest.raises(ValueError, match="half-width"):
         tocc.GridConfig(size=64, resolution=0.05)
+
+
+# ---------------------------------------------------------------------------
+# K11's packed table, its reach culling and its tiles
+# ---------------------------------------------------------------------------
+
+from uzliti_slam_tpu_torch.kernels import ops as kops  # noqa: E402
+
+
+@pytest.mark.parametrize("size, res, bins", [(128, 0.1, 180), (255, 0.05, 360), (32, 0.1, 36)])
+def test_packed_center_tables_hold_the_three_tables_bit_for_bit(size, res, bins):
+    """K11's table, one 16-byte row a cell (D, bin0's int32 bits, Wray, 0):
+    every entry of the three tables comes back exactly, odd sizes
+    included."""
+    D, bin0, Wray = tocc.center_tables(size, res, bins)
+    table = kops.pack_center_tables(D, bin0, Wray)
+    assert table.shape == (size * size, 4) and table.dtype == np.float32
+    d, b, w = kops.unpack_center_tables(torch.from_numpy(table))
+    np.testing.assert_array_equal(d.numpy(), D)
+    np.testing.assert_array_equal(b.numpy(), bin0)          # bin0's int bits, read back
+    np.testing.assert_array_equal(w.numpy(), Wray)
+    assert not table[:, 3].any()
+    cached = tocc._tables_on(size, res, bins, torch.device("cpu"))
+    assert torch.equal(cached, torch.from_numpy(table))
+    assert tocc._tables_on(size, res, bins, torch.device("cpu")) is cached
+
+
+def _off_grid_case(seed=4, max_range=3.0):
+    """The 64-node graph on a 128² grid of 5 cm (half-width 3.2 m) whose
+    origin leaves a third of the nodes off the grid, ranges of 1-3.5 m (some
+    beyond ``max_range``), a few rays without a return, yaws beyond ±π/2
+    (kbin taken mod B)."""
+    g, _ = jsynthetic.make_pose_graph(jax.random.PRNGKey(seed), 64, loop_closure_every=8,
+                                      radius=2.0)
+    cfg_j = jocc.GridConfig(size=128, resolution=0.05, max_range=max_range)
+    cfg_t = tocc.GridConfig(size=128, resolution=0.05, max_range=max_range)
+    scans = np.random.default_rng(seed).uniform(1.0, 3.5, (g.node_capacity, 360))
+    scans = scans.astype(np.float32)
+    scans[::5, ::7] = np.inf
+    mask = np.array(g.node_valid)
+    origin = np.asarray(jocc.auto_origin(g, cfg_j)) + np.array([1.5, -1.0], np.float32)
+    return g, cfg_j, cfg_t, scans, mask, origin
+
+
+def test_culled_projection_matches_jax_with_reach_leaving_the_grid():
+    g, cfg_j, cfg_t, scans, mask, origin = _off_grid_case()
+    lo_j = jax.jit(lambda *a: jocc._project_rays(*a, cfg_j))(
+        jnp.zeros((128, 128)), g.pose, jnp.asarray(scans), jnp.asarray(mask),
+        jnp.asarray(origin))
+    gt = _to_port(g)
+    args = tocc._rays_args(torch.zeros(128, 128), gt.pose, torch.from_numpy(scans),
+                           torch.from_numpy(mask), torch.from_numpy(origin), cfg_t, False)
+    cx, cy, kbin = args[1].numpy(), args[2].numpy(), args[3].numpy()
+    off = (cx < 0) | (cx >= 128) | (cy < 0) | (cy >= 128)
+    R = kops.project_reach(cfg_t.resolution, cfg_t.max_range)
+    leaves = ~off & ((cx < R) | (cx >= 128 - R) | (cy < R) | (cy >= 128 - R))
+    assert off[mask].sum() >= 10 and leaves[mask].sum() >= 10     # both kinds of node
+    assert ((kbin >= 0) & (kbin < 360)).all() and kbin.max() > 180
+    lo_t = kops.project_rays(*args)
+    np.testing.assert_allclose(lo_t.numpy(), np.asarray(lo_j), atol=1e-4, rtol=0)
+    assert (np.asarray(lo_j) > 0).sum() > 100 and (np.asarray(lo_j) < 0).sum() > 100
+
+
+def test_culling_drops_only_zero_terms():
+    """The plain version visits only the cells within ``project_reach`` of a
+    node; with the reach widened past the grid it visits every cell, and the
+    sums are the same bit for bit (the dropped terms are exactly 0)."""
+    g, _, cfg_t, scans, mask, origin = _off_grid_case(seed=5)
+    gt = _to_port(g)
+    args = tocc._rays_args(torch.zeros(128, 128), gt.pose, torch.from_numpy(scans),
+                           torch.from_numpy(mask), torch.from_numpy(origin), cfg_t, True)
+    culled, mag = kops.project_rays_plain(*args)
+    reach = kops.project_reach
+    try:
+        kops.project_reach = lambda res, max_range: 10_000
+        full, mag_full = kops.project_rays_plain(*args)
+    finally:
+        kops.project_reach = reach
+    assert torch.equal(culled, full) and torch.equal(mag, mag_full)
+    assert kops.project_reach(0.05, 3.0) == 62 and kops.project_reach(0.05, 6.0) == 122
+
+
+def test_tiles_keep_every_node_that_reaches_them():
+    """K11's tiling replayed: a 16 x 16 tile keeps the nodes whose reach box
+    meets it (``csrc/occupancy.cu``); the tile's cells from those nodes alone
+    equal the projection of all nodes, and an incremental pass of 8 nodes
+    keeps nodes in fewer tiles than a rebuild (a 1 m range: a reach of 22
+    cells)."""
+    g, _, cfg_t, scans, mask, origin = _off_grid_case(seed=6, max_range=1.0)
+    gt = _to_port(g)
+    args = list(tocc._rays_args(torch.zeros(128, 128), gt.pose, torch.from_numpy(scans),
+                                torch.from_numpy(mask), torch.from_numpy(origin), cfg_t, True))
+    ref, _ = kops.project_rays_plain(*args)
+    cx, cy, idx, count = args[1], args[2], args[5], int(args[6])
+    nodes = idx[:count]
+    R = kops.project_reach(cfg_t.resolution, cfg_t.max_range)
+
+    def kept(tr0, tc0, nd):
+        x, y = cx[nd], cy[nd]
+        return nd[(x + R >= tc0) & (x - R < tc0 + 16) & (y + R >= tr0) & (y - R < tr0 + 16)]
+
+    for tr0 in range(0, 128, 16):
+        for tc0 in range(0, 128, 16):
+            keep = kept(tr0, tc0, nodes)
+            part = list(args)
+            part[5] = torch.cat([keep, torch.zeros(len(idx) - len(keep), dtype=torch.int32)])
+            part[6] = torch.tensor(len(keep), dtype=torch.int32)
+            part[-1] = False            # the marks: only nodes whose cell is in the tile
+            tile, _ = kops.project_rays_plain(*part)
+            tile = kops.mark_cells_plain(
+                tile, cx, cy, torch.zeros(len(cx), dtype=torch.bool).index_fill_(
+                    0, nodes.long(), True), 2.0 * cfg_t.miss_logodds, cfg_t.clamp)
+            np.testing.assert_allclose(tile[tr0:tr0 + 16, tc0:tc0 + 16].numpy(),
+                                       ref[tr0:tr0 + 16, tc0:tc0 + 16].numpy(), atol=1e-6,
+                                       rtol=0)
+    tiles = [(r, c) for r in range(0, 128, 16) for c in range(0, 128, 16)]
+    full = sum(len(kept(r, c, nodes)) > 0 for r, c in tiles)
+    inc = sum(len(kept(r, c, nodes[-8:])) > 0 for r, c in tiles)
+    assert inc < full

@@ -20,94 +20,239 @@
 // `mark`, the node footprint marks (2·miss per active node whose own cell
 // this is) are added and clipped again.
 //
-// Layout: one thread per cell, a CTA per 256 cells (one grid row at the
-// default size).  The active nodes come as a compacted index list with a
-// device-side count, so an incremental projection of 8 new nodes costs 8
-// nodes and not N; their per-node scalars (slot, cx, cy, kbin) are staged
-// in shared memory 256 at a time.  Threads of a CTA share the row, so the
-// row test is uniform across a warp; neighbouring threads read neighbouring
-// table entries, and the scans (N x B floats) are read through L1/L2.
+// A term is nonzero only where D < max_range + 0.71·res (free needs D <
+// reach - res, occ |D - rng| < band with rng <= max_range), so a node
+// reaches only the cells within R = ⌈(max_range + 0.71·res)/res⌉ + 1 of its
+// own cell along either axis, and everything outside that box is exactly 0.
 //
-// What bounds it on the card: the (cell, node) pairs — ~20 operations and
-// four gathers each, 32.8M pairs for a 500-node rebuild of a 256² grid —
-// not the bytes (the grid, tables and active scans are about 1.7 MB then).
+// Layout: a CTA per 16 x 16 tile of cells, G groups of 64 threads; a
+// thread holds four cells of the tile (one column, rows 4 apart) with an
+// accumulator each, and group g takes the tile's nodes g, g + G, ...; the G
+// groups' sums are combined in a fixed order in shared memory.  G = 8 on a
+// grid of fewer than 4 tiles an SM (the 256² default: 256 CTAs), so that an
+// SM holds 32 warps, else 4 (measured, scripts/k8_k11_variants.py, device
+// ms with 2 / 4 / 8 groups: 500-node rebuild 0.197 / 0.088 / 0.069, 10k
+// nodes 3.14 / 1.48 / 1.24; on the 1024² covering grid 4 groups 0.555
+// against 8 groups' 0.621: there each CTA stages all nodes, and more
+// threads only add to that).  The active nodes (a compacted list with a
+// device-side count) are staged one per thread a round: each thread tests
+// its node's reach box against the tile and the survivors are compacted in
+// list order (ballots and the warps' counts), so a tile pays only for the
+// nodes that reach it and the incremental pass (8 new nodes) touches only
+// the tiles near them; a node's own cell, where it falls in the tile,
+// counts a mark.  The centre tables are one 16-byte entry a cell (D, bin0,
+// Wray; kernels/ops.pack_center_tables), one 128-bit load a pair; kbin
+// comes normalised to [0, B), so the bin is a subtraction and one
+// conditional add; a node whose window lies inside the table skips the
+// bounds tests (a warp-uniform branch).  (Measured: D and Wray from a
+// quarter table by |dr|, |dc| in L1 and bin0 as int16, 2 bytes a pair from
+// L2 in place of 16, was 15-20 % slower: the pairs' chains of latencies
+// bound the kernel, not L2's bytes.)
+//
+// What bounds it on the card: the (cell, node) pairs within a node's reach
+// — ~20 operations, a 16-byte table load and a scan gather each, ~21M for
+// a 500-node rebuild of a 256² grid — not the bytes (the grid, tables and
+// active scans, ~2 MB then).
 #include <cuda_runtime.h>
+
+#include <cmath>
 
 namespace {
 
-constexpr int kCells = 256;     // threads per CTA = nodes staged per round
-constexpr float kBig = 1e9f;    // the reference's inf sentinel
+constexpr int kTile = 16;              // cells a tile side
+constexpr int kGroupThreads = 64;      // a group's threads: the tile's 256 cells, 4 a thread
+constexpr int kGroupsFew = 8;          // node groups a CTA on a grid of few tiles
+constexpr int kGroupsMany = 4;         // ... and on one of kTilesPerSm tiles an SM or more
+constexpr int kTilesPerSm = 4;
+constexpr int kNodeUnroll = 1;         // nodes a group takes at once
+constexpr int kRowStride = kGroupThreads / kTile;   // 4: a thread's rows lie 4 apart
+constexpr int kRowsPerThread = kTile / kRowStride;  // 4
+constexpr int kMaxDevices = 16;
+constexpr float kBig = 1e9f;           // the reference's inf sentinel
 
-__global__ void __launch_bounds__(kCells)
-project_cells(const float* __restrict__ base, const float* __restrict__ Dt,
-              const int* __restrict__ bin0, const float* __restrict__ Wray,
-              const float* __restrict__ scans, int bins, const int* __restrict__ cx,
-              const int* __restrict__ cy, const int* __restrict__ kbin,
-              const int* __restrict__ idx, const int* __restrict__ count, int size, float res,
-              float band, float max_range, float hit, float miss, float clampv, int mark,
-              float mark_value, float* __restrict__ out) {
-  __shared__ int s_node[kCells], s_cx[kCells], s_cy[kCells], s_k[kCells];
-  const int cells = size * size;
-  const int cell = blockIdx.x * kCells + threadIdx.x;
-  const int r = cell / size, c = cell % size, c0 = size / 2;
-  const int n = *count;
-  double acc = 0.0;
-  float marks = 0.f;
-  bool marked = false;
-  for (int j0 = 0; j0 < n; j0 += kCells) {
+struct Params {
+  const float* base;
+  const float4* table;   // (size²) D, bin0 (int bits), Wray, 0
+  const float* scans;    // (slots, bins)
+  int bins;
+  const int* cx;
+  const int* cy;
+  const int* kbin;       // in [0, bins)
+  const int* idx;
+  const int* count;
+  int size, reach;
+  float res, band, max_range, hit, miss, clampv, mark_value;
+  int mark;
+  float* out;
+};
+
+// one (cell, node) term: t the cell's table entry, k the node's kbin in [0, bins)
+__device__ __forceinline__ float term(const Params& p, float4 t, const float* srow, int k) {
+  int b = __float_as_int(t.y) - k;
+  b += b < 0 ? p.bins : 0;
+  float rng = srow[b];
+  if (!isfinite(rng)) rng = kBig;
+  const bool has = rng < kBig * 0.5f;
+  const float reach = fminf(rng, p.max_range);
+  const bool fr = has && (t.x < reach - p.res);
+  const bool oc = has && (rng <= p.max_range) && (fabsf(t.x - rng) < p.band);
+  return __fmul_rn(t.z, (fr ? p.miss : 0.f) + (oc ? p.hit : 0.f));
+}
+
+template <int kGroups>
+__global__ void __launch_bounds__(kGroups * kGroupThreads) project_tiles(Params p) {
+  constexpr int kThreads = kGroups * kGroupThreads;   // = nodes staged a round
+  __shared__ int s_slot[kThreads], s_ox[kThreads], s_oy[kThreads], s_k[kThreads];
+  __shared__ int s_marks[kTile * kTile];
+  __shared__ int s_wcount[kThreads / 32];
+  __shared__ double s_acc[kGroups][kTile * kTile];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tiles_x = (p.size + kTile - 1) / kTile;
+  const int tr0 = (blockIdx.x / tiles_x) * kTile, tc0 = (blockIdx.x % tiles_x) * kTile;
+  const int c0 = p.size / 2;
+  const int g = tid / kGroupThreads, u = tid % kGroupThreads;
+  const int col = u % kTile, row0 = u / kTile;
+  const int n = *p.count;
+  for (int c = tid; c < kTile * kTile; c += kThreads) s_marks[c] = 0;
+  double acc[kRowsPerThread];
+#pragma unroll
+  for (int j = 0; j < kRowsPerThread; ++j) acc[j] = 0.0;
+  for (int j0 = 0; j0 < n; j0 += kThreads) {
     __syncthreads();
-    if (j0 + threadIdx.x < n) {
-      const int node = idx[j0 + threadIdx.x];
-      s_node[threadIdx.x] = node;
-      s_cx[threadIdx.x] = cx[node];
-      s_cy[threadIdx.x] = cy[node];
-      s_k[threadIdx.x] = kbin[node];
+    // stage: this thread's node, if its reach box meets the tile
+    bool keep = false;
+    int slot = 0, x = 0, y = 0, k = 0;
+    if (j0 + tid < n) {
+      slot = p.idx[j0 + tid];
+      x = p.cx[slot];
+      y = p.cy[slot];
+      k = p.kbin[slot];
+      keep = x + p.reach >= tc0 && x - p.reach < tc0 + kTile && y + p.reach >= tr0 &&
+             y - p.reach < tr0 + kTile;
+      if (p.mark && x >= tc0 && x < tc0 + kTile && y >= tr0 && y < tr0 + kTile)
+        atomicAdd(s_marks + (y - tr0) * kTile + (x - tc0), 1);
+    }
+    const unsigned ball = __ballot_sync(0xffffffffu, keep);
+    if (lane == 0) s_wcount[warp] = __popc(ball);
+    __syncthreads();
+    int pos = __popc(ball & ((1u << lane) - 1u)), m = 0;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) {
+      pos += w < warp ? s_wcount[w] : 0;
+      m += s_wcount[w];
+    }
+    if (keep) {
+      s_slot[pos] = slot;
+      s_ox[pos] = c0 - x + tc0;   // the table column of tile column 0
+      s_oy[pos] = c0 - y + tr0;   // the table row of tile row 0
+      s_k[pos] = k;
     }
     __syncthreads();
-    if (cell >= cells) continue;
-    const int m = min(kCells, n - j0);
-    for (int k = 0; k < m; ++k) {
-      const int pr = r - s_cy[k] + c0, pc = c - s_cx[k] + c0;
-      if (pr >= 0 && pr < size && pc >= 0 && pc < size) {
-        const int q = pr * size + pc;
-        const float d = Dt[q];
-        int b = (bin0[q] - s_k[k]) % bins;
-        if (b < 0) b += bins;
-        float rng = scans[static_cast<long long>(s_node[k]) * bins + b];
-        if (!isfinite(rng)) rng = kBig;
-        const bool has = rng < kBig * 0.5f;
-        const float reach = fminf(rng, max_range);
-        const bool fr = has && (d < reach - res);
-        const bool oc = has && (rng <= max_range) && (fabsf(d - rng) < band);
-        const float e = __fmul_rn(Wray[q], (fr ? miss : 0.f) + (oc ? hit : 0.f));
-        acc += static_cast<double>(e);
-      }
-      if (mark && s_cy[k] == r && s_cx[k] == c) {
-        marks += mark_value;
-        marked = true;
+    for (int k0 = g; k0 < m; k0 += kGroups * kNodeUnroll) {
+#pragma unroll
+      for (int v = 0; v < kNodeUnroll; ++v) {
+        const int kk = k0 + v * kGroups;
+        if (kk >= m) break;
+        const int ox = s_ox[kk], oy = s_oy[kk], kb = s_k[kk];
+        const float* srow = p.scans + static_cast<long long>(s_slot[kk]) * p.bins;
+        const int pc = ox + col;
+        const long long q0 = static_cast<long long>(oy + row0) * p.size + pc;
+        const bool inside = ox >= 0 && ox + kTile <= p.size && oy >= 0 && oy + kTile <= p.size;
+        if (inside) {
+          float4 t[kRowsPerThread];
+#pragma unroll
+          for (int j = 0; j < kRowsPerThread; ++j)
+            t[j] = p.table[q0 + static_cast<long long>(kRowStride * j) * p.size];
+#pragma unroll
+          for (int j = 0; j < kRowsPerThread; ++j)
+            acc[j] += static_cast<double>(term(p, t[j], srow, kb));
+        } else {
+#pragma unroll
+          for (int j = 0; j < kRowsPerThread; ++j) {
+            const int pr = oy + row0 + kRowStride * j;
+            if (static_cast<unsigned>(pr) < static_cast<unsigned>(p.size) &&
+                static_cast<unsigned>(pc) < static_cast<unsigned>(p.size))
+              acc[j] += static_cast<double>(term(
+                  p, p.table[q0 + static_cast<long long>(kRowStride * j) * p.size], srow, kb));
+          }
+        }
       }
     }
   }
-  if (cell >= cells) return;
-  float v = fminf(fmaxf(base[cell] + static_cast<float>(acc), -clampv), clampv);
-  if (mark && marked) v = fminf(fmaxf(v + marks, -clampv), clampv);
-  out[cell] = v;
+#pragma unroll
+  for (int j = 0; j < kRowsPerThread; ++j)
+    s_acc[g][(row0 + kRowStride * j) * kTile + col] = acc[j];
+  __syncthreads();
+  // the groups' sums of a cell in a fixed order, the clip, the marks
+  for (int t = tid; t < kTile * kTile; t += kThreads) {
+    const int r = tr0 + t / kTile, c = tc0 + t % kTile;
+    if (r >= p.size || c >= p.size) continue;
+    double sum = s_acc[0][t];
+#pragma unroll
+    for (int h = 1; h < kGroups; ++h) sum += s_acc[h][t];
+    const long long cell = static_cast<long long>(r) * p.size + c;
+    float v = fminf(fmaxf(p.base[cell] + static_cast<float>(sum), -p.clampv), p.clampv);
+    const int marks = s_marks[t];
+    if (marks > 0) {
+      float add = 0.f;
+      for (int i = 0; i < marks; ++i) add += p.mark_value;
+      v = fminf(fmaxf(v + add, -p.clampv), p.clampv);
+    }
+    p.out[cell] = v;
+  }
 }
 
 }  // namespace
 
 // out (size, size) = the projection of the `*count` nodes idx[0..count) on
-// top of base; cx, cy, kbin indexed by node slot, scans (slots, bins).
-extern "C" int uz_project_rays(const float* base, const float* D, const int* bin0, const float* Wray,
-                               const float* scans, int bins, const int* cx, const int* cy,
-                               const int* kbin, const int* idx, const int* count, int size,
-                               float res, float band, float max_range, float hit, float miss,
-                               float clampv, int mark, float mark_value, float* out,
-                               void* stream) {
-  const int cells = size * size;
-  if (cells > 0)
-    project_cells<<<(cells + kCells - 1) / kCells, kCells, 0, static_cast<cudaStream_t>(stream)>>>(
-        base, D, bin0, Wray, scans, bins, cx, cy, kbin, idx, count, size, res, band, max_range, hit,
-        miss, clampv, mark, mark_value, out);
+// top of base; cx, cy, kbin (in [0, bins)) indexed by node slot, scans
+// (slots, bins); table (size²) float4 rows (D, bin0 bits, Wray, 0).
+extern "C" int uz_project_rays(const float* base, const void* table, const float* scans, int bins,
+                               const int* cx, const int* cy, const int* kbin, const int* idx,
+                               const int* count, int size, float res, float band,
+                               float max_range, float hit, float miss, float clampv, int mark,
+                               float mark_value, float* out, void* stream) {
+  if (size <= 0) return 0;
+  if (bins <= 0 || res <= 0.f) return static_cast<int>(cudaErrorInvalidValue);
+  Params p;
+  p.base = base;
+  p.table = static_cast<const float4*>(table);
+  p.scans = scans;
+  p.bins = bins;
+  p.cx = cx;
+  p.cy = cy;
+  p.kbin = kbin;
+  p.idx = idx;
+  p.count = count;
+  p.size = size;
+  // the reach box's half-width in cells, with a cell to spare for the
+  // float32 tables' rounding
+  const double cells = static_cast<double>(max_range + band) / res;
+  p.reach = cells < 2.0 * size ? static_cast<int>(std::ceil(cells)) + 1 : 2 * size;
+  p.res = res;
+  p.band = band;
+  p.max_range = max_range;
+  p.hit = hit;
+  p.miss = miss;
+  p.clampv = clampv;
+  p.mark = mark;
+  p.mark_value = mark_value;
+  p.out = out;
+  const int tiles = (size + kTile - 1) / kTile;
+  // few tiles (the 256² default: 256 CTAs) leave SMs short of warps, so
+  // each CTA takes more node groups; many tiles (a covering grid) fill the
+  // card as they are, and each CTA's staging of every node stays cheap
+  static int sms[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  if (sms[dev] == 0 &&
+      cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tiles * tiles < kTilesPerSm * sms[dev])
+    project_tiles<kGroupsFew><<<tiles * tiles, kGroupsFew * kGroupThreads, 0, s>>>(p);
+  else
+    project_tiles<kGroupsMany><<<tiles * tiles, kGroupsMany * kGroupThreads, 0, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

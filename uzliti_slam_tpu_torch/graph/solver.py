@@ -171,6 +171,16 @@ def gauge_fix_mask(g: GraphState, labels: torch.Tensor) -> torch.Tensor:
     return kops.gauge_fix(labels.to(torch.int32), g.node_valid, g.node_fixed, g.stamp)
 
 
+def components_and_gauge(g: GraphState, num_iters: int | None = None):
+    """``connected_components`` and ``gauge_fix_mask`` of them, as a solve
+    needs them: (labels (N,) int32, gauge (N,) bool), kernel K8 in one
+    launch on a CUDA device."""
+    n = g.node_capacity
+    iters = num_iters if num_iters is not None else component_iterations(n)
+    return kops.components_gauge(g.e_from, g.e_to, g.e_valid, g.node_valid, g.node_fixed,
+                                 g.stamp, n, iters)
+
+
 # ---------------------------------------------------------------------------
 # Normal equations
 # ---------------------------------------------------------------------------
@@ -452,8 +462,7 @@ def optimize(g: GraphState, config: SolverConfig = SolverConfig()):
             g.e_transform))
     if config.optimize_xy_only:
         g = g.replace(pose=flatten_planar(g.pose, g.node_valid))
-    labels = connected_components(g)
-    gauge = gauge_fix_mask(g, labels)
+    _, gauge = components_and_gauge(g)
     free = (g.node_valid & ~gauge).to(g.pose.dtype)
     solve = _restart_solve if config.odometry_restart else lm_loop
     poses, lam, chi2_hist, accepted = solve(g, free, config)
@@ -528,8 +537,7 @@ def optimize_batched(fleet: GraphState, config: SolverConfig = SolverConfig()):
     g = _flatten_fleet(fleet)
     if config.optimize_xy_only:
         g = g.replace(pose=flatten_planar(g.pose, g.node_valid))
-    labels = connected_components(g, component_iterations(N))
-    gauge = gauge_fix_mask(g, labels)
+    _, gauge = components_and_gauge(g, component_iterations(N))
     free = (g.node_valid & ~gauge).to(g.pose.dtype)
     poses, lam, chi2_hist, accepted = _lm(g, free, config, B)
 

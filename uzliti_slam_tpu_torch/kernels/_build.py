@@ -47,12 +47,11 @@ SIGNATURES = {
     "uz_relax_min": [_P, _P, _P] + [_I] * 8 + [_P, _P, _P],
     "uz_relax_pairs": [_P] * 4 + [_I] * 8 + [_P, _P, _P],
     "uz_relax_uncertainty": [_P] * 5 + [_I] * 7 + [_P, _P, _P],
-    "uz_cluster_labels": [_P, _P, _P, _I, _F, _I, _P, _P],
-    "uz_cluster_roots": [_P] * 4 + [_I, _P, _P, _I, _F, _I, _I, _F, _I] + [_P] * 8,
+    "uz_cluster_labels": [_P, _P, _P, _I, _F, _I, _P, _P, _L, _P],
+    "uz_cluster_roots": [_P] * 4 + [_I, _P, _P, _I, _F, _I, _I, _F, _I] + [_P] * 8 + [_L, _P],
     "uz_ransac_rigid": [_P, _L, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _F, _F,
                         _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "uz_components": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
-    "uz_gauge_fix": [_P, _P, _P, _P, _I, _P, _P, _P],
+    "uz_components_gauge": [_P, _P, _P, _I, _I, _I] + [_P] * 9,
     "uz_chain_root": [_P, _P, _I, _I, _I, _I, _P, _I, _P],
     "uz_chain_factor": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _L, _P, _P, _I, _P],
     "uz_lm_candidate": [_P] * 8 + [_F, _I, _I, _I] + [_P] * 6,
@@ -65,8 +64,8 @@ SIGNATURES = {
     "uz_pcg_grid_ctas": [],
     "uz_pcg_grid_start": [_P, _I, _I, _I, _P] + [_P] * 6 + [_L, _P, _I, _P],
     "uz_pcg_grid_step": [_P, _F, _P, _I, _I, _I, _P] + [_P] * 6 + [_L, _P, _I, _P],
-    "uz_project_rays": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _F,
-                        _F, _I, _F, _P, _P],
+    "uz_project_rays": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _I, _F,
+                        _P, _P],
     "uz_fast_nms_levels": [_P, _I, _I, _F, _P],
     "uz_grid_topk": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "uz_orb_describe_rows": [_P, _I, _P],

@@ -31,9 +31,11 @@ cluster_labels csrc/cluster_labels.cu  graph/filter.py:_cluster_labels; entry
 ransac_rigid   csrc/ransac_rigid.cu    ops/ransac.py:ransac_rigid (+
                                        _valid_sample's draw, kabsch,
                                        kabsch_quat)
-components     csrc/components.cu      graph/solver.py:connected_components,
-                                       gauge_fix_mask (two wrappers, one
-                                       count)
+components     csrc/components.cu      graph/solver.py:connected_components
+                                       and gauge_fix_mask in one launch
+                                       (components_gauge, the solves'
+                                       call), or either alone (components,
+                                       gauge_fix); one count
 chain_factor   csrc/chain_factor.cu    graph/tridiag.py:block_tridiag_factor
                                        (+ _inv3, _inv6, _pad_pow2,
                                        _dense_root_inverse; and their vmap
@@ -954,14 +956,26 @@ def relax_uncertainty(stamp, node_valid, uncertainty, e_from, e_to, w, n_iters: 
 # K6 cluster_labels (entries cluster_labels, cluster_roots)
 # ---------------------------------------------------------------------------
 
-CLUSTER_MAX_CANDIDATES = 256   # K6's B: 8 column words a lane (csrc/cluster_labels.cu kMaxB)
+CLUSTER_CTA_MAX = 256   # K6's one-CTA form: B <= 8 column words a lane (cluster_labels.cu kMaxB)
 
 
-def _check_cluster_size(kernel: str, b: int) -> None:
-    if b > CLUSTER_MAX_CANDIDATES:
-        raise ValueError(f"{kernel}: {b} candidates exceed the kernel's "
-                         f"{CLUSTER_MAX_CANDIDATES} (8 column words a lane; the epoch sends "
-                         f"at most pipeline.MAX_CANDIDATES)")
+def cluster_scratch(b: int, roots: bool, n_roots: int = 0) -> int:
+    """int32 words of K6's grid route (B > ``CLUSTER_CTA_MAX``): the bit
+    matrix, labels, stamps, masks and flags, and the roots' arrays
+    (``csrc/cluster_labels.cu:grid_scratch_ints``)."""
+    words = (b + 31) // 32
+    n = b * words + 5 * b + 3 * words + 3
+    if roots:
+        n += 5 * (b + 1) + 2 * words + 1 + n_roots
+    return n
+
+
+def _cluster_scratch(b: int, roots: bool, n_roots: int, dev):
+    """(pointer, words) of K6's scratch: none on the one-CTA form."""
+    if b <= CLUSTER_CTA_MAX:
+        return None, 0
+    words = cluster_scratch(b, roots, n_roots)
+    return torch.empty(words, dtype=torch.int32, device=dev), words
 
 
 def cluster_labels_plain(stamp_from, stamp_to, valid, max_dt: float, n_iters: int):
@@ -981,12 +995,12 @@ def cluster_labels_plain(stamp_from, stamp_to, valid, max_dt: float, n_iters: in
 
 
 def cluster_labels(stamp_from, stamp_to, valid, max_dt: float, n_iters: int):
-    """K6: spatio-temporal cluster labels of B candidates, one CTA."""
+    """K6: spatio-temporal cluster labels of B candidates: one CTA for B <=
+    ``CLUSTER_CTA_MAX``, else one cooperative launch over the card."""
     if stamp_from.device.type == "cpu":
         return cluster_labels_plain(stamp_from, stamp_to, valid, max_dt, n_iters)
     dev, f32 = stamp_from.device, torch.float32
     b = stamp_from.shape[0]
-    _check_cluster_size("cluster_labels", b)
     ptrs = [
         _check("stamp_from", stamp_from, (b,), f32, dev),
         _check("stamp_to", stamp_to, (b,), f32, dev),
@@ -994,8 +1008,9 @@ def cluster_labels(stamp_from, stamp_to, valid, max_dt: float, n_iters: int):
     ]
     lib = _build.load()
     labels = torch.empty(b, dtype=torch.int32, device=dev)
+    scratch, words = _cluster_scratch(b, False, 0, dev)
     err = lib.uz_cluster_labels(*ptrs, b, float(max_dt), int(n_iters), labels.data_ptr(),
-                                _stream(dev))
+                                _ptr(scratch), words, _stream(dev))
     _raise_on(err, "cluster_labels")
     launches["cluster_labels"] += 1
     return labels
@@ -1077,13 +1092,13 @@ def cluster_roots(cand_idx, e_from, e_to, e_valid, node_valid, stamp, max_dt: fl
                   min_cluster_size: int, min_time_span: float, n_iters: int,
                   cand_mask=None) -> ClusterRootsOut:
     """K6's roots entry: the gathers, the labels, the gates, the compaction
-    and the member masks in one launch of one CTA."""
+    and the member masks in one launch: one CTA for B <=
+    ``CLUSTER_CTA_MAX``, else one cooperative launch over the card."""
     if cand_idx.device.type == "cpu":
         return cluster_roots_plain(cand_idx, e_from, e_to, e_valid, node_valid, stamp, max_dt,
                                    min_cluster_size, min_time_span, n_iters, cand_mask)
     dev = cand_idx.device
     b, E, n = cand_idx.shape[0], e_from.shape[0], stamp.shape[0]
-    _check_cluster_size("cluster_roots", b)
     mask = e_valid if cand_mask is None else cand_mask
     ptrs = [
         _check("cand_idx", cand_idx, (b,), torch.int32, dev),
@@ -1102,10 +1117,12 @@ def cluster_roots(cand_idx, e_from, e_to, e_valid, node_valid, stamp, max_dt: fl
         torch.empty(r, b, dtype=torch.bool, device=dev),
         torch.empty(b, dtype=torch.float32, device=dev),
         torch.empty(b, dtype=torch.float32, device=dev))
+    scratch, words = _cluster_scratch(b, True, r, dev)
     err = _build.load().uz_cluster_roots(
         *ptrs, b, float(max_dt), int(n_iters), int(min_cluster_size), float(min_time_span), r,
         *(t.data_ptr() for t in (out.valid, out.labels, out.sf, out.st, out.root_live,
-                                 out.root_safe, out.member)), _stream(dev))
+                                 out.root_safe, out.member)), _ptr(scratch), words,
+        _stream(dev))
     _raise_on(err, "cluster_roots")
     launches["cluster_roots"] += 1
     return out
@@ -1253,41 +1270,31 @@ def ransac_rigid(src, dst, valid, tri, inlier_thresh: float, min_consensus: int,
 # K8 components (connected components + gauge fixing)
 # ---------------------------------------------------------------------------
 
-def components_plain(e_from, e_to, e_valid, n_nodes: int, n_iters: int):
+def _components_round(labels, ef, et, e_valid):
+    big = torch.iinfo(torch.int32).max
+    upd = torch.where(e_valid, torch.minimum(labels[ef], labels[et]), big)
+    labels = labels.scatter_reduce(0, ef, upd, "amin")
+    labels = labels.scatter_reduce(0, et, upd, "amin")
+    labels = labels[labels.long()]
+    return labels[labels.long()]
+
+
+def components_plain(e_from, e_to, e_valid, n_nodes: int, n_iters: int, rounds=None):
     """Plain version of K8's labels: min-label propagation over valid edges
-    with two pointer jumps per round; (N,) int32."""
+    with two pointer jumps per round, all ``n_iters`` rounds; (N,) int32.
+    With ``rounds`` (a () int32 tensor) it also writes the rounds K8 runs:
+    up to and including the first that changes no label, at most
+    ``n_iters`` (a host read a round)."""
     labels = torch.arange(n_nodes, dtype=torch.int32, device=e_from.device)
     ef, et = e_from.long(), e_to.long()
-    big = torch.iinfo(torch.int32).max
-    for _ in range(n_iters):
-        upd = torch.where(e_valid, torch.minimum(labels[ef], labels[et]), big)
-        labels = labels.scatter_reduce(0, ef, upd, "amin")
-        labels = labels.scatter_reduce(0, et, upd, "amin")
-        labels = labels[labels.long()]
-        labels = labels[labels.long()]
-    return labels
-
-
-def components(e_from, e_to, e_valid, n_nodes: int, n_iters: int):
-    """K8 labels: one CTA in shared memory while 12·N bytes fit, else one
-    grid launch per pass."""
-    if e_from.device.type == "cpu":
-        return components_plain(e_from, e_to, e_valid, n_nodes, n_iters)
-    dev, i32 = e_from.device, torch.int32
-    E = e_from.shape[0]
-    ptrs = [
-        _check("e_from", e_from, (E,), i32, dev),
-        _check("e_to", e_to, (E,), i32, dev),
-        _check("e_valid", e_valid, (E,), torch.bool, dev),
-    ]
-    lib = _build.load()
-    labels = torch.empty(n_nodes, dtype=i32, device=dev)
-    scratch = (None if 12 * n_nodes <= _SMEM_BYTES
-               else torch.empty(2 * n_nodes, dtype=i32, device=dev))
-    err = lib.uz_components(*ptrs, E, n_nodes, int(n_iters), labels.data_ptr(),
-                            None if scratch is None else scratch.data_ptr(), _stream(dev))
-    _raise_on(err, "components")
-    launches["components"] += 1
+    ran = None
+    for it in range(n_iters):
+        new = _components_round(labels, ef, et, e_valid)
+        if ran is None and rounds is not None and torch.equal(new, labels):
+            ran = it + 1
+        labels = new
+    if rounds is not None:
+        rounds.fill_(n_iters if ran is None else ran)
     return labels
 
 
@@ -1311,27 +1318,104 @@ def gauge_fix_plain(labels, node_valid, node_fixed, stamp):
     return valid_fixed | (is_oldest & (has_fixed[lab] == 0))
 
 
-def gauge_fix(labels, node_valid, node_fixed, stamp):
-    """K8 gauge pass: (N,) bool, from ``components`` labels."""
-    if labels.device.type == "cpu":
-        return gauge_fix_plain(labels, node_valid, node_fixed, stamp)
-    dev = labels.device
-    n = labels.shape[0]
-    ptrs = [
-        _check("labels", labels, (n,), torch.int32, dev),
-        _check("node_valid", node_valid, (n,), torch.bool, dev),
-        _check("node_fixed", node_fixed, (n,), torch.bool, dev),
-        _check("stamp", stamp, (n,), torch.float32, dev),
-    ]
-    lib = _build.load()
-    gauge = torch.empty(n, dtype=torch.bool, device=dev)
-    scratch = (None if 12 * n <= _SMEM_BYTES
-               else torch.empty(3 * n, dtype=torch.int32, device=dev))
-    err = lib.uz_gauge_fix(*ptrs, n, gauge.data_ptr(),
-                           None if scratch is None else scratch.data_ptr(), _stream(dev))
+def components_gauge_plain(e_from, e_to, e_valid, node_valid, node_fixed, stamp, n_nodes: int,
+                           n_iters: int, rounds=None):
+    """Plain version of ``components_gauge``: (labels (N,) int32, gauge (N,)
+    bool)."""
+    labels = components_plain(e_from, e_to, e_valid, n_nodes, n_iters, rounds)
+    return labels, gauge_fix_plain(labels, node_valid, node_fixed, stamp)
+
+
+def components_smem(n_nodes: int) -> int:
+    """Bytes of K8's one-CTA form: labels, scatter target and jump buffer
+    (the 64-bit gauge keys over the last two), the fixed bits
+    (``csrc/components.cu:cta_smem``)."""
+    return 12 * n_nodes + 4 * ((n_nodes + 31) // 32)
+
+
+def components_route(n_nodes: int) -> str:
+    """K8's form at N nodes: "cta" (one CTA, shared memory) or "grid" (one
+    cooperative launch over the card)."""
+    return "cta" if components_smem(n_nodes) <= _SMEM_BYTES else "grid"
+
+
+def components_scratch(n_nodes: int) -> int:
+    """int32 words of K8's cooperative form: the 64-bit keys (2N), the
+    scatter target and jump buffer, the fixed bits and three flags
+    (``csrc/components.cu:grid_scratch_ints``), rounded up to an even count
+    so that what follows it stays 8-byte aligned."""
+    n = 4 * n_nodes + (n_nodes + 31) // 32 + 3
+    return n + (n & 1)
+
+
+def _components_launch(e_from, e_to, e_valid, n_nodes: int, n_iters: int, labels_in=None,
+                       gauge_of=None, labels_out: bool = True, rounds=None, route=None):
+    """One K8 launch (``uz_components_gauge``): the labels (or ``labels_in``)
+    and, with ``gauge_of`` = (node_valid, node_fixed, stamp), the gauge.
+    The scratch (on the cooperative form), the labels and the gauge are
+    views of one allocation; the graph's tensors are checked once a call
+    site (``_check_fixed``)."""
+    dev, i32, bl = e_from.device, torch.int32, torch.bool
+    E, n = e_from.shape[0], n_nodes
+    items = [("e_from", e_from, (E,), i32), ("e_to", e_to, (E,), i32),
+             ("e_valid", e_valid, (E,), bl)]
+    if gauge_of is not None:
+        items += [(name, t, (n,), dt) for name, t, dt in
+                  zip(("node_valid", "node_fixed", "stamp"), gauge_of, (bl, bl, torch.float32))]
+    if labels_in is not None:
+        items.append(("labels", labels_in, (n,), i32))
+    site = f"components{'_in' if labels_in is not None else ''}{'_g' if gauge_of else ''}"
+    ptrs = _check_fixed(site, items)
+    node = ptrs[3:6] if gauge_of is not None else [None] * 3
+    lab_in = ptrs[-1] if labels_in is not None else None
+    rnd = None if rounds is None else _check("rounds", rounds, (), i32, dev)
+    grid = (route or components_route(n)) == "grid"
+    words = components_scratch(n) if grid else 0
+    out_words = (n if labels_out else 0) + ((n + 3) // 4 if gauge_of is not None else 0)
+    buf = torch.empty(words + out_words, dtype=i32, device=dev)
+    labels = buf[words: words + n] if labels_out else None
+    gauge = (buf[words + (n if labels_out else 0):].view(bl)[:n] if gauge_of is not None
+             else None)
+    err = _build.load().uz_components_gauge(*ptrs[:3], E, n, int(n_iters), lab_in, *node,
+                                            _ptr(labels), _ptr(gauge), rnd,
+                                            buf.data_ptr() if grid else None, _stream(dev))
     _raise_on(err, "components")
     launches["components"] += 1
-    return gauge
+    return labels, gauge
+
+
+def components(e_from, e_to, e_valid, n_nodes: int, n_iters: int, rounds=None):
+    """K8's labels alone (``connected_components``), one launch: one CTA in
+    shared memory while ``components_smem(N)`` fits, else one cooperative
+    grid; the rounds stop at the fixed point (``rounds`` reports them)."""
+    if e_from.device.type == "cpu":
+        return components_plain(e_from, e_to, e_valid, n_nodes, n_iters, rounds)
+    return _components_launch(e_from, e_to, e_valid, n_nodes, n_iters, rounds=rounds)[0]
+
+
+def gauge_fix(labels, node_valid, node_fixed, stamp):
+    """K8's gauge from given labels (``gauge_fix_mask``): (N,) bool, one
+    launch."""
+    if labels.device.type == "cpu":
+        return gauge_fix_plain(labels, node_valid, node_fixed, stamp)
+    n = labels.shape[0]
+    none = torch.empty(0, dtype=torch.int32, device=labels.device)
+    no_edge = torch.empty(0, dtype=torch.bool, device=labels.device)
+    return _components_launch(none, none, no_edge, n, 0, labels_in=labels,
+                              gauge_of=(node_valid, node_fixed, stamp), labels_out=False)[1]
+
+
+def components_gauge(e_from, e_to, e_valid, node_valid, node_fixed, stamp, n_nodes: int,
+                     n_iters: int, rounds=None, route=None):
+    """K8 as a solve runs it: the labels (rounds to the fixed point, at most
+    ``n_iters``) and the gauge from them in one launch; (labels (N,) int32,
+    gauge (N,) bool).  ``route`` "grid" takes the cooperative form at any N
+    (a measuring aid; by default the form follows ``components_route``)."""
+    if e_from.device.type == "cpu":
+        return components_gauge_plain(e_from, e_to, e_valid, node_valid, node_fixed, stamp,
+                                      n_nodes, n_iters, rounds)
+    return _components_launch(e_from, e_to, e_valid, n_nodes, n_iters,
+                              gauge_of=(node_valid, node_fixed, stamp), rounds=rounds, route=route)
 
 
 # ---------------------------------------------------------------------------
@@ -2094,44 +2178,74 @@ def mark_cells_plain(logodds, cx, cy, mask, mark_value: float, clamp: float):
 _PROJECT_NODE_CHUNK = 64   # nodes per gather of project_rays_plain (bounds its memory)
 
 
-def project_rays_plain(logodds, cx, cy, kbin, scans, idx, count, D, bin0, Wray, res: float,
+def pack_center_tables(D: np.ndarray, bin0: np.ndarray, Wray: np.ndarray) -> np.ndarray:
+    """K11's table: one 16-byte row a cell, (D, bin0's int32 bits, Wray, 0)
+    as (size², 4) float32 (the kernel reads a row with one 128-bit load)."""
+    table = np.zeros((D.shape[0], 4), dtype=np.float32)
+    table[:, 0], table[:, 2] = D, Wray
+    table.view(np.int32)[:, 1] = bin0
+    return table
+
+
+def unpack_center_tables(table: torch.Tensor):
+    """(D, bin0, Wray) of a ``pack_center_tables`` table."""
+    return table[:, 0], table.view(torch.int32)[:, 1], table[:, 2]
+
+
+def project_reach(res: float, max_range: float) -> int:
+    """R: a node's terms are 0 beyond R cells of its own cell along either
+    axis (a term needs D < max_range + 0.71·res; one cell to spare for the
+    float32 tables), as ``csrc/occupancy.cu`` computes it."""
+    return math.ceil(float(np.float32(max_range) + np.float32(0.71 * res))
+                     / float(np.float32(res))) + 1
+
+
+def project_rays_plain(logodds, cx, cy, kbin, scans, idx, count, table, res: float,
                        max_range: float, hit: float, miss: float, clamp: float, mark: bool):
     """Plain version of K11: (log-odds (size, size), per-cell sum of
     |node terms| (size, size) float64).
 
     For the ``count`` nodes ``idx[:count]`` (node slots into ``cx``, ``cy``,
-    ``kbin``, ``scans``), every cell gathers the centre tables ``D``,
-    ``bin0``, ``Wray`` (size², row-major) at (r - cy + c0, c - cx + c0) and
-    the node's range at bin (bin0 - kbin) mod B, classifies itself free or
-    occupied, and the terms are summed in float64 over nodes; then clip,
-    and with ``mark`` the node footprint marks and a second clip.  Reads
-    ``count`` on the host.
+    ``kbin`` (in [0, B)), ``scans``), every cell within ``project_reach``
+    of the node's cell (the others' terms are 0) gathers the centre tables
+    ``table`` (``pack_center_tables``, size² rows) at (r - cy + c0, c - cx +
+    c0) and the node's range at bin (bin0 - kbin) mod B, classifies itself
+    free or occupied, and the terms are summed in float64 over nodes; then
+    clip, and with ``mark`` the node footprint marks and a second clip.
+    Reads ``count`` on the host.
     """
     size, B = logodds.shape[0], scans.shape[1]
     dev, c0 = logodds.device, size // 2
+    D, bin0, Wray = unpack_center_tables(table)
     nodes = idx[: int(count)].long()
-    rows = torch.arange(size, device=dev)
-    acc = torch.zeros(size, size, dtype=torch.float64, device=dev)
-    mag = torch.zeros(size, size, dtype=torch.float64, device=dev)
+    R = min(project_reach(res, max_range), size)
+    offs = torch.arange(-R, R + 1, device=dev)
+    acc = torch.zeros(size * size + 1, dtype=torch.float64, device=dev)
+    mag = torch.zeros(size * size + 1, dtype=torch.float64, device=dev)
     for s in range(0, nodes.shape[0], _PROJECT_NODE_CHUNK):
         nd = nodes[s: s + _PROJECT_NODE_CHUNK]
         k = nd.shape[0]
-        pr = rows[None, :] - cy[nd].long()[:, None] + c0            # (k, size)
-        pc = rows[None, :] - cx[nd].long()[:, None] + c0
-        inside = (((pr >= 0) & (pr < size))[:, :, None]
-                  & ((pc >= 0) & (pc < size))[:, None, :])
-        q = pr.clamp(0, size - 1)[:, :, None] * size + pc.clamp(0, size - 1)[:, None, :]
+        r = cy[nd].long()[:, None] + offs                              # (k, 2R + 1)
+        c = cx[nd].long()[:, None] + offs
+        pr, pc = offs + c0, offs + c0                                  # the table's row, column
+        on = (((r >= 0) & (r < size) & (pr >= 0) & (pr < size))[:, :, None]
+              & ((c >= 0) & (c < size) & (pc >= 0) & (pc < size))[:, None, :])
+        q = (pr.clamp(0, size - 1)[:, None] * size + pc.clamp(0, size - 1)[None, :]).expand(
+            k, -1, -1)
         d, w = D[q], Wray[q]
         bb = torch.remainder(bin0[q].long() - kbin[nd].long()[:, None, None], B)
-        rng = torch.gather(scans[nd], 1, bb.reshape(k, -1)).reshape(k, size, size)
+        rng = torch.gather(scans[nd], 1, bb.reshape(k, -1)).reshape(bb.shape)
         rng = torch.where(torch.isfinite(rng), rng, BIG)
         has = rng < BIG * 0.5
         reach = torch.clamp(rng, max=max_range)
         free = has & (d < reach - res)
         occ = has & (rng <= max_range) & (torch.abs(d - rng) < 0.71 * res)
-        E = torch.where(inside, w * (free * miss + occ * hit), 0.0)
-        acc += E.double().sum(0)
-        mag += E.abs().double().sum(0)
+        E = torch.where(on, w * (free * miss + occ * hit), 0.0).double()
+        cell = torch.where(on, r.clamp(0, size - 1)[:, :, None] * size
+                           + c.clamp(0, size - 1)[:, None, :], size * size)
+        acc.index_add_(0, cell.reshape(-1), E.reshape(-1))
+        mag.index_add_(0, cell.reshape(-1), E.abs().reshape(-1))
+    acc, mag = acc[:-1].view(size, size), mag[:-1].view(size, size)
     out = torch.clamp(logodds + acc.to(logodds.dtype), -clamp, clamp)
     if mark:
         active = torch.zeros(cx.shape[0], dtype=torch.bool, device=dev).index_fill_(0, nodes, True)
@@ -2139,24 +2253,25 @@ def project_rays_plain(logodds, cx, cy, kbin, scans, idx, count, D, bin0, Wray, 
     return out, mag
 
 
-def project_rays(logodds, cx, cy, kbin, scans, idx, count, D, bin0, Wray, res: float,
+def project_rays(logodds, cx, cy, kbin, scans, idx, count, table, res: float,
                  max_range: float, hit: float, miss: float, clamp: float, mark: bool):
     """K11: the occupancy projection of the ``count`` (a () int32 device
     tensor) nodes ``idx[:count]`` onto ``logodds``; returns the new grid.
-    The count is read by the kernel, never on the host."""
+    One launch: a CTA a 16 x 16 tile, each node's reach culled; the count is
+    read by the kernel, never on the host.  ``kbin`` must lie in [0, B);
+    ``table`` is ``pack_center_tables``' (size², 4) float32."""
     if logodds.device.type == "cpu":
-        return project_rays_plain(logodds, cx, cy, kbin, scans, idx, count, D, bin0, Wray,
-                                  res, max_range, hit, miss, clamp, mark)[0]
+        return project_rays_plain(logodds, cx, cy, kbin, scans, idx, count, table, res,
+                                  max_range, hit, miss, clamp, mark)[0]
     dev, f32, i32 = logodds.device, torch.float32, torch.int32
     size = logodds.shape[0]
     n, B = scans.shape
     ptrs = [
         _check("logodds", logodds, (size, size), f32, dev),
-        _check("D", D, (size * size,), f32, dev),
-        _check("bin0", bin0, (size * size,), i32, dev),
-        _check("Wray", Wray, (size * size,), f32, dev),
+        _check("table", table, (size * size, 4), f32, dev),
         _check("scans", scans, (n, B), f32, dev),
     ]
+    _check_aligned("table", table)
     node = [_check(name, t, (n,), i32, dev)
             for name, t in (("cx", cx), ("cy", cy), ("kbin", kbin), ("idx", idx))]
     cnt = _check("count", count, (), i32, dev)
@@ -2190,20 +2305,20 @@ def fast_nms_plain(img, threshold: float):
     return features.nms(features.fast_score(img, threshold))
 
 
-FAST_NMS_MAX_LEVELS = 8     # kMaxLevels in csrc/fast_nms.cu
+FAST_NMS_LAUNCH_LEVELS = 8     # levels a launch (kMaxLevels in csrc/fast_nms.cu)
 
 
 def fast_nms(imgs, threshold: float):
     """K12: FAST-9/16 scores with the border mask and the 3x3 NMS fused, of
     every level of ``imgs`` (a list of (C, H, W) float32 tensors, the
-    cameras alike) in one launch, one CTA per 32 x 32 tile of any level;
-    returns the list of (C, H, W) score maps, views of one buffer laid end
-    to end.  One level's tensor gives its one map."""
+    cameras alike), one CTA per 32 x 32 tile of any level, up to 8 levels a
+    launch (⌈L/8⌉ launches); returns the list of (C, H, W) score maps,
+    views of one buffer laid end to end.  One level's tensor gives its one
+    map."""
     one = isinstance(imgs, torch.Tensor)
     levels = [imgs] if one else list(imgs)
-    if not 1 <= len(levels) <= FAST_NMS_MAX_LEVELS:
-        raise ValueError(f"fast_nms: {len(levels)} levels, the kernel takes "
-                         f"1..{FAST_NMS_MAX_LEVELS}")
+    if not levels:
+        raise ValueError("fast_nms: no level")
     if levels[0].device.type == "cpu":
         return fast_nms_plain(imgs, threshold)
     dev = levels[0].device
@@ -2214,15 +2329,17 @@ def fast_nms(imgs, threshold: float):
     buf = torch.empty(sum(C * H * W for H, W in shapes), dtype=torch.float32, device=dev)
     outs = [m.view(C, H, W) for m, (H, W) in zip(buf.split([C * H * W for H, W in shapes]),
                                                   shapes)]
-    table = []
-    for ptr, out, (H, W) in zip(ptrs, outs, shapes):
-        table += [ptr, out.data_ptr(), H, W]
     lib = _build.load()
-    host = array.array("q", table)      # the table's 64-bit rows, alive through the call
-    err = lib.uz_fast_nms_levels(host.buffer_info()[0], len(levels), C, float(threshold),
-                                 _stream(dev))
-    _raise_on(err, "fast_nms")
-    launches["fast_nms"] += 1
+    for l0 in range(0, len(levels), FAST_NMS_LAUNCH_LEVELS):
+        part = range(l0, min(l0 + FAST_NMS_LAUNCH_LEVELS, len(levels)))
+        table = []
+        for lv in part:
+            table += [ptrs[lv], outs[lv].data_ptr(), *shapes[lv]]
+        host = array.array("q", table)      # the table's 64-bit rows, alive through the call
+        err = lib.uz_fast_nms_levels(host.buffer_info()[0], len(part), C, float(threshold),
+                                     _stream(dev))
+        _raise_on(err, "fast_nms")
+        launches["fast_nms"] += 1
     return outs[0] if one else outs
 
 
@@ -2287,14 +2404,15 @@ def grid_topk_plain(scores, k_total: int, grid: int):
     return tuple(torch.stack(t) for t in zip(*levels))
 
 
-GRID_TOPK_MAX_LEVELS = 8    # kMaxLevels in csrc/grid_topk.cu
+GRID_TOPK_LAUNCH_LEVELS = 8    # levels a launch (kMaxLevels in csrc/grid_topk.cu)
 
 
 def grid_topk(scores, k_total: int, grid: int):
     """K13: the exact top-k of each (level, camera, cell) for every level of
     ``scores`` (a list of (C, H, W) tensors, the cameras alike; or one
-    level's tensor) in one launch, one CTA per cell, ties to the lower index
-    (the last for one keypoint a cell); when the cells give more than
+    level's tensor), up to 8 levels a launch (⌈L/8⌉ launches, each writing
+    its levels' slices of the outputs), one CTA per cell, ties to the lower
+    index (the last for one keypoint a cell); when the cells give more than
     ``k_total``, a second launch (one CTA per camera and level) keeps the
     global top ``k_total``; when fewer, the kernel writes the padding.
     Returns (uv (levels, C, k_total, 2), resp (levels, C, k_total), valid
@@ -2302,11 +2420,11 @@ def grid_topk(scores, k_total: int, grid: int):
     dimension."""
     if isinstance(scores, torch.Tensor):
         return tuple(t[0] for t in grid_topk([scores], k_total, grid))
+    L = len(scores)
+    if L == 0:
+        raise ValueError("grid_topk: no level")
     if scores[0].device.type == "cpu":
         return grid_topk_plain(scores, k_total, grid)
-    L = len(scores)
-    if not 1 <= L <= GRID_TOPK_MAX_LEVELS:
-        raise ValueError(f"grid_topk: {L} levels, the kernel takes 1..{GRID_TOPK_MAX_LEVELS}")
     dev = scores[0].device
     C = _images("score", scores[0])[0]
     table = []
@@ -2323,11 +2441,15 @@ def grid_topk(scores, k_total: int, grid: int):
     # the cells' candidates go to scratch when a global top-k follows
     scratch = (torch.empty(L, C, n, 3, dtype=torch.float32, device=dev) if n > k_total
                else None)
-    host = (ctypes.c_longlong * len(table))(*table)
-    err = lib.uz_grid_topk(ctypes.addressof(host), L, C, grid, k_cell, k_total, _ptr(scratch),
-                           uv.data_ptr(), resp.data_ptr(), valid.data_ptr(), _stream(dev))
-    _raise_on(err, "grid_topk")
-    launches["grid_topk"] += 1
+    for l0 in range(0, L, GRID_TOPK_LAUNCH_LEVELS):
+        l1 = min(l0 + GRID_TOPK_LAUNCH_LEVELS, L)
+        host = (ctypes.c_longlong * (3 * (l1 - l0)))(*table[3 * l0: 3 * l1])
+        err = lib.uz_grid_topk(ctypes.addressof(host), l1 - l0, C, grid, k_cell, k_total,
+                               None if scratch is None else scratch[l0].data_ptr(),
+                               uv[l0].data_ptr(), resp[l0].data_ptr(), valid[l0].data_ptr(),
+                               _stream(dev))
+        _raise_on(err, "grid_topk")
+        launches["grid_topk"] += 1
     return uv, resp, valid
 
 

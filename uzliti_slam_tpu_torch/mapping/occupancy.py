@@ -107,18 +107,19 @@ def center_tables(size: int, res: float, bins: int):
 _device_tables: dict = {}
 
 
-def _tables_on(size: int, res: float, bins: int, device: torch.device):
-    """``center_tables`` on ``device``, cached.  The copy to a CUDA device
+def _tables_on(size: int, res: float, bins: int, device: torch.device) -> torch.Tensor:
+    """``center_tables`` packed for K11 (``kops.pack_center_tables``: one
+    16-byte row a cell) on ``device``, cached.  The copy to a CUDA device
     goes from pinned memory without a synchronisation."""
     key = (size, res, bins, device)
     if key not in _device_tables:
-        host = [torch.from_numpy(np.ascontiguousarray(a)) for a in center_tables(size, res, bins)]
+        host = torch.from_numpy(kops.pack_center_tables(*center_tables(size, res, bins)))
         if device.type == "cuda":
-            pinned = [h.pin_memory() for h in host]
-            # the pinned buffers are kept with the copies they feed
-            _device_tables[key] = (tuple(p.to(device, non_blocking=True) for p in pinned), pinned)
+            pinned = host.pin_memory()
+            # the pinned buffer is kept with the copy it feeds
+            _device_tables[key] = (pinned.to(device, non_blocking=True), pinned)
         else:
-            _device_tables[key] = (tuple(host), None)
+            _device_tables[key] = (host, None)
     return _device_tables[key][0]
 
 
@@ -151,15 +152,16 @@ def _rays_args(logodds: torch.Tensor, poses: torch.Tensor, scans: torch.Tensor,
                mask: torch.Tensor, origin: torch.Tensor, config: GridConfig,
                mark_nodes: bool) -> tuple:
     """The arguments ``kops.project_rays`` takes for these nodes: the node
-    cells, bearing shifts and compacted node list, and the device tables."""
+    cells, bearing shifts (in [0, B)) and compacted node list, and the
+    device table."""
     size, res = config.size, config.resolution
     bins = scans.shape[1]
-    D, bin0, Wray = _tables_on(size, res, bins, logodds.device)
+    table = _tables_on(size, res, bins, logodds.device)
     yaw = lie.yaw_of(lie.pose_q(poses))
     cx, cy = _node_cells(poses, origin, res)
-    kbin = torch.round(yaw * (bins / (2 * math.pi))).to(torch.int32)
+    kbin = torch.remainder(torch.round(yaw * (bins / (2 * math.pi))).to(torch.int32), bins)
     idx, count = _compact(mask)
-    return (logodds, cx, cy, kbin, scans, idx, count, D, bin0, Wray, res, config.max_range,
+    return (logodds, cx, cy, kbin, scans, idx, count, table, res, config.max_range,
             config.hit_logodds, config.miss_logodds, config.clamp, mark_nodes)
 
 
@@ -171,8 +173,8 @@ def _project_rays(logodds: torch.Tensor, poses: torch.Tensor, scans: torch.Tenso
     footprint marks of ``_mark_node_cells``, in the same pass.
 
     Each node is snapped to its containing cell and its yaw to an integer
-    number of bearing bins (``kbin = round(yaw·B/2π)``, half to even), as
-    the reference does; a finite return within max_range marks its
+    number of bearing bins (``kbin = round(yaw·B/2π)``, half to even, taken
+    mod B), as the reference does; a finite return within max_range marks its
     endpoint cell occupied, a finite return beyond it still carves free
     space up to max_range, and rays with no return (inf) carry nothing.
     """

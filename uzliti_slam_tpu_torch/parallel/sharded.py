@@ -131,8 +131,7 @@ def optimize_sharded(g: GraphState, group=None,
         raise ValueError(f"edge capacity {g.edge_capacity} not divisible by {world} ranks; "
                          "call pad_edges_to_multiple first")
     solver.check_supported(config)
-    labels = solver.connected_components(g)
-    gauge = solver.gauge_fix_mask(g, labels)
+    _, gauge = solver.components_and_gauge(g)
     free = (g.node_valid & ~gauge).to(g.pose.dtype)
     poses, _, chi2_hist, _ = solver.lm_loop(shard_edges(g, rank, world), free, config,
                                             reduce=_AllReduce(group), damp_here=rank == 0)
