@@ -91,15 +91,17 @@ runs, in order, each phase printing lines of its own:
    the reference's loop makes, and a profile;
 6. the headline configuration at 10k nodes against the oracle (LM);
 7. the headline configuration at 100k nodes: time, finite χ² below χ²₀,
-   K8 launched once (its cooperative form), a profile; its PCG through K2 and K37
-   (260 K37 launches, no K3 or K10), its launches and device ms by kernel,
-   and the same solve with its PCG through the old composition (K10 + K3 +
-   K10 a step, called through their wrappers): launches, time, device ms by
-   kernel, and the χ² history within 1e-3 of K37's; in phases 5-9, 17 and
-   18 each solve's PCG goes through its route alone: K35 for a single solve
-   within K34's cap with no reduce hook, K2 and K34 for the edge-sharded
-   solve, K2 and K37 above the cap (the 100k solve, sharded or not), K2,
-   K10 and K3 in the fleet;
+   K8 launched once (its cooperative form), a profile; its PCG through K2
+   and K37 (260 K37 launches, no K3 or K10), its launches and device ms by
+   kernel, and the same solve with its PCG through the old composition
+   (K10 + K3 + K10 a step, called through their wrappers): launches, time,
+   device ms by kernel, and the χ² history within 1e-3 of K37's; whether
+   two solves give the same bits (if not, the kernels that do not on the
+   same inputs); in phases 5-9, 17 and 18 each solve's PCG goes through its
+   route alone: K35 for a single solve within K34's cap with no reduce
+   hook, K2 and K34 for the edge-sharded solve, K2 and K37 above the cap
+   (the 100k solve, sharded or not), K38 in the fleet, K2, K10 and K3 in a
+   fleet above K38's cap;
 8. the 500-node RGB-D + laser epoch (``pipeline.optimize_epoch`` with the
    live ``SlamConfig``): launch counts per kernel (K5 two a call site: its
    table and one relaxation entry; K6's roots entry once), K5's and K6's
@@ -197,14 +199,22 @@ runs, in order, each phase printing lines of its own:
    ``cdist`` squared + ``topk``;
 17. the fleet: ``parallel.sharded.optimize_batch`` on 4096 distinct
    64-node instances at the JAX bench's rung configuration (20 LM x 8 PCG,
-   cutoff 16, fixed iterations): launches of one solve (K1, K2, K8 and the
-   batched entries of K3, K4, K9, K10; the same counts on 8 instances),
-   solve ms and instance-solves/s sync-free, mean χ², a profile, the χ²
-   ratio against the sparse oracle on 16 instances, 8 instances against a
-   loop of single solves on CPU tensors, each batched entry against its
-   plain version on the fleet's first iteration; then the default
-   (early-exit) configuration, its factors built against the reference's
-   refreshes summed over the instances;
+   cutoff 16, fixed iterations): launches of one solve (K1 and K8 on the
+   flattened fleet, K4, K9, K36 and K38 with the instance on their grid:
+   K38 20, K2, K3 and K10 none; the same counts on 8 instances), solve ms
+   and instance-solves/s sync-free, mean χ², a profile, whether two solves
+   give the same bits, the χ² ratio against the sparse oracle on 16
+   instances, 8 instances against a loop of single solves on CPU tensors,
+   each batched entry against its plain version on the fleet's first
+   iteration (K38 after the start and 1-3 steps within 1e-4, after 8
+   within its plain version's own float32 error plus 1e-4, the stall flags
+   of every step, a bit-identical rerun, timed against the K2 + K10 + K3
+   solve it replaced; K2, K3 and K10 still held at the fleet's shapes);
+   then the default (early-exit) configuration, its factors built against
+   the reference's refreshes summed over the instances, a profile; (17c) a
+   fleet above K38's cap (16 x 512 nodes): its PCG through K2, K10 and K3,
+   χ² below χ²₀, the three against their plain versions on its first
+   iteration;
 18. the generic loop, the edge-sharded solve and the planar solve: (a)
    the 1k graph through ``parallel.sharded.optimize_sharded`` in a
    one-rank NCCL world made in this process (a ``HashStore``), at the JAX
@@ -332,9 +342,18 @@ LM_STATE_COPIES = 2
 #     recurrences subtract from those and round relative to them; the row
 #     prints how far r shrank), the same stall flags, and bit-identical on
 #     a rerun.
+#  K38 (a fleet's whole PCG solve, a CTA an instance) against its plain
+#     version after the start and after 1, 2 and 3 steps within 1e-4 of
+#     each vector's largest magnitude, and after the fleet's 8 steps within
+#     the plain version's own float32 error (its distance from the same
+#     solve in float64) plus 1e-4: past ~3 steps float32 PCG on these
+#     64-node instances amplifies summation order (tests/test_torch_pcg_fleet.py:
+#     JAX's own float32 solve lies 1.8e-3 of max|x| from its float64 one at 8
+#     steps on 32-node instances); the same stall flags, and bit-identical
+#     over two launches.
 KERNEL_TOL = {"linearize": 1e-3, "hvp": 1e-4, "chain_apply": 1e-4, "residual_chi2": 1e-4,
               "chain_factor": 1e-4, "pcg": 1e-4, "pcg_chain": 1e-4, "pcg_chain_solve": 1e-4,
-              "lm_candidate": 1e-4, "lm_accept": 0.0, "pcg_grid": 1e-4}
+              "lm_candidate": 1e-4, "lm_accept": 0.0, "pcg_grid": 1e-4, "pcg_fleet_solve": 1e-4}
 CAND_RTOL = 1e-6
 # Phase 7: the 100k solve's χ² history on K37's route against the same solve
 # with its PCG through the old composition (K10 + K3 + K10), element by
@@ -421,23 +440,32 @@ SOURCE["relax_table"] = SOURCE["relax_pairs"] = SOURCE["relax_uncertainty"] = SO
 SOURCE["cluster_roots"] = SOURCE["cluster_labels"]
 SOURCE["bin_min_max"] = "uzliti_slam_tpu_torch/csrc/scan_bins.cu"
 SOURCE["pcg_chain_solve"] = "uzliti_slam_tpu_torch/csrc/pcg_chain.cu"
+SOURCE["pcg_fleet_solve"] = "uzliti_slam_tpu_torch/csrc/pcg_fleet.cu"
 SOURCE["lm_candidate"] = SOURCE["lm_accept"] = "uzliti_slam_tpu_torch/csrc/lm_step.cu"
 SOLVE_KERNELS = ("linearize", "hvp", "chain_apply", "residual_chi2", "chain_factor", "pcg",
                  "pcg_chain", "pcg_chain_solve", "lm_candidate", "lm_accept")
-# The PCG's four routes (solver._pcg): a single solve within K34's cap with
+PCG_KERNELS = ("hvp", "chain_apply", "pcg", "pcg_chain", "pcg_chain_solve", "pcg_grid",
+               "pcg_fleet_solve")
+# The PCG's five routes (solver._pcg): a single solve within K34's cap with
 # no reduce hook takes K35 alone; with one (the edge-sharded solve) K2 and
 # K34; a single solve above the cap (the 100k solve, sharded or not) K2 and
-# K37; a fleet K2, K10 and K3
+# K37; a fleet K38 alone; a fleet above K38's cap K2, K10 and K3
 FUSED_PATH = ("linearize", "residual_chi2", "chain_factor", "pcg_chain_solve", "lm_candidate",
               "lm_accept")
 SPLIT_PCG = ("chain_apply", "pcg")
 PCG_ROUTES = {"k35": ("pcg_chain_solve",), "k2_k34": ("hvp", "pcg_chain"),
-              "k2_k37": ("hvp", "pcg_grid"), "k2_k10_k3": ("hvp",) + SPLIT_PCG}
+              "k2_k37": ("hvp", "pcg_grid"), "k38": ("pcg_fleet_solve",),
+              "k2_k10_k3": ("hvp",) + SPLIT_PCG}
 # K37, phase 3: the solve's PCG step above K34's cap
 PCG_GRID_SOURCE = "uzliti_slam_tpu_torch/csrc/pcg_grid.cu"
 PCG_GRID_REPLACES = ("uzliti_slam_tpu/graph/solver.py:512 (_pcg, its body minus the"
                      " Hessian-vector product) + graph/tridiag.py:198 (block_tridiag_apply),"
                      " a single solve above K34's cap")
+# K38, phase 17: the fleet's whole PCG solve, a CTA an instance
+PCG_FLEET_SOURCE = "uzliti_slam_tpu_torch/csrc/pcg_fleet.cu"
+PCG_FLEET_REPLACES = ("uzliti_slam_tpu/parallel/sharded.py:115 (optimize_batch) —"
+                      " graph/solver.py:512 (_pcg, the whole loop) + :306 (_make_hvp) +"
+                      " graph/tridiag.py:198 (block_tridiag_apply) under vmap")
 # the A/B reference of K1's Jᵢ, Jⱼ and W: the atomic kernel it replaced,
 # built by this script alone
 ATOMIC_K1_SOURCE = "scripts/linearize_atomic.cu"
@@ -697,10 +725,15 @@ FLEET_KERNEL = {row: row.removesuffix("_batch").removesuffix("_fleet")
                 for row in FLEET_KERNELS}
 FLEET_SOURCE = {row: SOURCE.get(name, f"uzliti_slam_tpu_torch/csrc/{name}.cu")
                 for row, name in FLEET_KERNEL.items()}
-# the kernels the fleet launches: K1, K2, K8 on the flattened fleet, and
-# K3, K4, K9, K10 and K36 with the instance on their grid
-FLEET_PATH = tuple(FLEET_KERNEL.values())
+# the kernels the fleet launches: K1 and K8 on the flattened fleet, and K4,
+# K9, K36 and K38 with the instance on their grid; K2, K3 and K10 only in a
+# fleet above K38's cap (17c, FLEET_ABOVE_CAP: 512 nodes an instance, 5
+# levels at cutoff 16, 569 KB of shared memory an instance)
+FLEET_PATH = ("residual_chi2", "chain_factor", "lm_candidate", "lm_accept", "linearize",
+              "components", "pcg_fleet_solve")
+FLEET_SPLIT = ("hvp",) + SPLIT_PCG
 FLEET = dict(batch=4096, n_nodes=64, loop_closure_every=8)
+FLEET_ABOVE_CAP = dict(batch=16, n_nodes=512, loop_closure_every=8)
 FLEET_CONFIG = dict(iterations=20, pcg_iterations=8, chain_dense_cutoff=16, early_exit=False,
                     precond_refresh=5)
 FLEET_ORACLE_SAMPLES, FLEET_CPU_INSTANCES, FLEET_POSE_ATOL = 16, 8, 1e-3
@@ -816,6 +849,7 @@ def timed_solves(optimize, g, cfg, reps: int):
 # anonymous namespace's mangled name holds its file's name)
 DEVICE_FUNCTIONS = ("sift_keypoints", "linearize_rows", "hvp_seed",
                     "hvp_edges", "pcg_chain_kernel", "pcg_solve_kernel", "pcg_grid_kernel",
+                    "pcg_fleet_kernel",
                     "chain_forward",
                     "chain_backward",
                     "chain_root", "factor_kernel", "candidate_kernel", "accept_kernel",
@@ -1262,6 +1296,23 @@ def kernel_work(name: str, args) -> tuple[int, int]:
         _, hvp_ops = kernel_work("hvp", tuple(op[:5]) + (b,) + tuple(op[5:7]))
         return (_nbytes(root_inv, *(m for lv in levels for m in lv), *op[:7], *op.table, b)
                 + 4 * 3 * b.numel() + 16, apply_ops + 4 * b.numel() + steps * (step_ops + hvp_ops))
+    if name == "pcg_fleet_solve":
+        # K35's count for the whole solve of every instance (the factor, the
+        # operator and its table, b read once; x, r, p and scal written
+        # once), over the operator's valid edges only (the kernel reads no
+        # other): their Jᵢ, Jⱼ, W (432 bytes), endpoints and two table
+        # entries, the table's row offsets, damp and free
+        factor, op, b, k = args
+        valid = int(op.table.row_ptr[-1]) // 2
+        op_bytes = (valid * (432 + 8 + 8) + 4 * op.table.row_ptr.numel()
+                    + _nbytes(op.damp, op.free))
+        hvp_ops = 360 * valid + 12 * b.shape[0]
+        levels, root_inv, _ = factor
+        _, apply_ops = kernel_work("chain_apply", (factor, b))
+        _, step_ops = kernel_work("pcg_chain", (factor, b))
+        return (_nbytes(root_inv, *(m for lv in levels for m in lv), b) + op_bytes
+                + 4 * 3 * b.numel() + 16 * root_inv.shape[0],
+                apply_ops + 4 * b.numel() + k * (step_ops + hvp_ops))
     if name == "project_rays":
         # base, table and the active nodes' scans and scalars read once,
         # the grid written once; ~20 operations per (cell, node) pair on the
@@ -2196,6 +2247,19 @@ def compare_pcg_grid(args, label: str, cmask=None, pack=None, timed: bool = True
     return row
 
 
+def _state_rel(got, ref, scale) -> list:
+    """x, r, p and scal's [rz, b2, ok] of two PCG states apart, each over
+    its ``scale``."""
+    pairs = zip(list(got[:3]) + [got[3][:, :3]], list(ref[:3]) + [ref[3][:, :3]])
+    return [float((a - c).abs().max()) / max(s, 1e-30) for (a, c), s in zip(pairs, scale)]
+
+
+def _state_scale(*states) -> list:
+    """Each vector's (and scal's) largest magnitude over ``states``."""
+    return [max(float(t.abs().max()) for t in ts)
+            for ts in zip(*[list(st[:3]) + [st[3][:, :3]] for st in states])]
+
+
 # ---------------------------------------------------------------------------
 # Occupancy projection inputs and K11 against its plain version
 # ---------------------------------------------------------------------------
@@ -2925,30 +2989,98 @@ def solve_launches(**counts) -> dict:
     return out
 
 
-def pcg_route(n: int, cfg, batch: int = 1, reduce: bool = False) -> str:
-    """The PCG route a solve of ``batch`` chains of ``n`` rows takes
-    (``solver._pcg``): "k35", "k2_k34", "k2_k37" or "k2_k10_k3"."""
+def pcg_route(n: int, cfg, batch: int = 1, reduce: bool = False, edges: int = 0) -> str:
+    """The PCG route a solve of ``batch`` chains of ``n`` rows (and
+    ``edges`` edge slots each) takes (``solver._pcg``): "k35", "k2_k34",
+    "k2_k37", "k38" or "k2_k10_k3"."""
     from uzliti_slam_tpu_torch.kernels import ops as kops
 
     halves, m_root = kops._factor_shapes(n, cfg.chain_dense_cutoff)
     if batch > 1:
-        return "k2_k10_k3"
+        fits = kops.pcg_fleet_smem(len(halves), m_root, n, edges) <= kops._SMEM_BYTES
+        return "k38" if fits and not reduce else "k2_k10_k3"
     if kops.pcg_chain_smem(len(halves), m_root) > kops._SMEM_BYTES:
         return "k2_k37"
     return "k2_k34" if reduce else "k35"
 
 
 def check_pcg_route(phase: str, counts: dict, n: int, cfg, batch: int = 1,
-                    reduce: bool = False) -> None:
+                    reduce: bool = False, edges: int = 0) -> None:
     """A solve's PCG went through its route's kernels alone: K35 for a
     single solve within K34's cap with no reduce hook, K2 and K34 with one,
-    K2 and K37 above the cap, K2, K10 and K3 in a fleet."""
-    route = pcg_route(n, cfg, batch, reduce)
+    K2 and K37 above the cap, K38 in a fleet, K2, K10 and K3 in a fleet
+    above K38's cap."""
+    route = pcg_route(n, cfg, batch, reduce, edges)
     on = PCG_ROUTES[route]
     off = {k for r in PCG_ROUTES.values() for k in r} - set(on)
     check(all(counts[k] > 0 for k in on) and all(counts[k] == 0 for k in off),
-          f"{phase}: PCG launches {[(k, counts[k]) for k in SOLVE_KERNELS]}, expected "
+          f"{phase}: PCG launches {[(k, counts[k]) for k in PCG_KERNELS]}, expected "
           f"{route} alone")
+
+
+def _tensors(out) -> list:
+    """The tensors of a call's output: a tensor, a tuple of them, a named
+    tuple or a dataclass (a ``GraphState``), depth first."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if dataclasses.is_dataclass(out):
+        out = [getattr(out, f.name) for f in dataclasses.fields(out)]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _tensors(o)]
+    return []
+
+
+def solve_bits(solve, calls, label: str) -> dict:
+    """Whether two runs of ``solve`` give the same bits in every output
+    tensor; if not, the kernels among ``calls()`` (name -> a call on the
+    solve's first-iteration inputs) whose two runs on the same inputs give
+    other bits.  Printed; not a check (the tolerances hold the solves)."""
+    a, b = _tensors(solve()), _tensors(solve())
+    same = len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+    differ = []
+    if not same:
+        for name, call in calls().items():
+            x, y = _tensors(call()), _tensors(call())
+            if not all(torch.equal(u, v) for u, v in zip(x, y)):
+                differ.append(name)
+    out = {"bit_identical": same, "kernels_that_differ": differ}
+    log(f"{label} two solves", **out)
+    return out
+
+
+def single_calls(g, cfg) -> dict:
+    """A single solve's kernels on its first iteration's inputs, each a
+    zero-argument call (``solve_bits``)."""
+    from uzliti_slam_tpu_torch.graph import solver
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    inp = kernel_inputs(g, cfg)
+    Hb, U, cutoff, damp, free = inp["chain_factor_damped"]
+    pack, op, b, steps, tol = inp["pcg_chain_solve"]
+    return {"linearize": lambda: kops.linearize(*inp["linearize"], None, None, inp["table"]),
+            "components": lambda: kops.components_gauge(*components_inputs(g)),
+            "chain_factor": lambda: kops.chain_factor(Hb, U, cutoff, damp=damp, free=free),
+            "pcg": lambda: solver._pcg(lambda v: kops.hvp(*op[:5], v, op.damp, op.free), pack, b,
+                                       steps, tol, op=op),
+            "lm_candidate": lambda: kops.lm_candidate(*inp["lm_candidate"]),
+            "residual_chi2": lambda: kops.residual_chi2(*inp["residual_chi2"])}
+
+
+def fleet_calls(fleet, cfg) -> dict:
+    """``single_calls`` of the fleet's first iteration."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    inp = fleet_kernel_inputs(fleet, cfg)
+    Ji, Jj, W, ef, et, damp, free = inp["hvp"]
+    op = kops.HvpOperator(Ji, Jj, W, ef, et, damp, free, inp["table"])
+    pack = kops.chain_factor(*inp["chain_factor"])
+    return {"linearize": lambda: kops.linearize(*inp["linearize"], None, None, inp["table"]),
+            "components": lambda: kops.components_gauge(*inp["components"]),
+            "chain_factor": lambda: kops.chain_factor(*inp["chain_factor"]),
+            "pcg_fleet_solve": lambda: kops.pcg_fleet_solve(pack, op, inp["b"],
+                                                            cfg.pcg_iterations, cfg.pcg_tol),
+            "lm_candidate": lambda: kops.lm_candidate(*inp["lm_candidate"], inp["batch"]),
+            "residual_chi2": lambda: kops.residual_chi2(*inp["residual_chi2"])}
 
 
 def solve_against_oracle(g, phase: str, cfg_kw: dict, chi2_oracle, reps: int,
@@ -3003,7 +3135,8 @@ def solve_against_oracle(g, phase: str, cfg_kw: dict, chi2_oracle, reps: int,
 # solve's device ms by kernel); PyTorch's own kernels are "other";
 # function_kernel_gaps() holds it to the sources' kernels
 FUNCTION_KERNEL = {"linearize_rows": "linearize", "hvp_seed": "hvp", "hvp_edges": "hvp",
-                   "pcg_grid_kernel": "pcg_grid", "pcg_chain_kernel": "pcg_chain",
+                   "pcg_grid_kernel": "pcg_grid", "pcg_fleet_kernel": "pcg_fleet_solve",
+                   "pcg_chain_kernel": "pcg_chain",
                    "pcg_solve_kernel": "pcg_chain_solve", "chain_forward": "chain_apply",
                    "chain_backward": "chain_apply", "chain_root": "chain_apply",
                    "factor_kernel": "chain_factor", "candidate_kernel": "lm_candidate",
@@ -3098,7 +3231,7 @@ def old_composition_phase(g, phase: str, counts: dict, fields: dict) -> dict:
            "chi2_history_rtol": CHI2_HIST_RTOL}
     log(f"{phase} breakdown", **out)
     check(counts["pcg_grid"] == 20 * 13 and counts["chain_apply"] == counts["pcg"] == 0,
-          f"{phase}: PCG launches {[(k, counts[k]) for k in SOLVE_KERNELS + ('pcg_grid',)]}, "
+          f"{phase}: PCG launches {[(k, counts[k]) for k in PCG_KERNELS]}, "
           "expected K37 260 and no K3 or K10")
     check(old_counts.get("pcg_grid", 0) == 0 and old_counts.get("chain_apply") == 260,
           f"{phase}: the old composition's launches {old_counts}")
@@ -5681,64 +5814,102 @@ def _rel(got, ref) -> tuple[float, float]:
     return e, e / max(float(ref.abs().max()), 1e-30)
 
 
-def compare_fleet_kernels(inputs: dict, steps: int, tol: float) -> dict:
-    """Each batched entry against its plain version on the card, on the
-    fleet's first iteration, timed beside its bound."""
+def _factor_to(factor, dtype):
+    levels, root_inv, n = factor
+    return (tuple(tuple(t.to(dtype) for t in lv) for lv in levels), root_inv.to(dtype), n)
+
+
+def compare_pcg_fleet_solve(pack, op, b, steps: int, tol: float) -> dict:
+    """K38 against its plain version on the fleet's first iteration: after
+    the start and 1-3 steps x, r, p and scal within KERNEL_TOL of each
+    vector's largest magnitude over the solve; after the fleet's ``steps``
+    within the plain version's own float32 error (against the same plain
+    solve in float64 on the same inputs) plus KERNEL_TOL of max|x| (float32
+    PCG on 64-node instances amplifies summation order past ~3 steps); the
+    same stall flags after every step count; bit-identical over two launches.
+    Timed in turns against the K2 + K10 + K3 solve it replaces, its device
+    ms over 5 profiled launches and queued behind a sleep kernel, the plain
+    version, and its bound."""
     from uzliti_slam_tpu_torch.kernels import ops as kops
 
-    # K1 and K2 as they run on the flattened fleet: 1e-3 and 1e-4 of each
-    # output's largest entry (KERNEL_TOL), K1 also against the atomic kernel
-    # it replaced (phase 3's checks, on the fleet's inputs); K8 exactly
-    rows = {"linearize_fleet": compare_linearize(inputs["linearize"], inputs["table"], "fleet")}
-    Ji, Jj, W, ef, et, damp, free = inputs["hvp"]
-    for name, args in (("hvp", (Ji, Jj, W, ef, et, inputs["b"], damp, free)),):
-        kernel_fn, plain_fn = getattr(kops, name), getattr(kops, f"{name}_plain")
-        got, ref = kernel_fn(*args), plain_fn(*args)
-        got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
-        errs = [_rel(a, b) for a, b in zip(got, ref)]
-        row = {"max_abs_err": max(e for e, _ in errs), "max_rel_err": max(r for _, r in errs),
-               "tol_rel": KERNEL_TOL[name], "library_ms": None}
-        row["ms"], row["plain_ms"] = time_pair(lambda: kernel_fn(*args), lambda: plain_fn(*args))
-        row.update(bound(name, args))
-        rows[f"{name}_fleet"] = row
-    row = compare_epoch_kernels({"components": inputs["components"]}, "fleet")["components"]
-    row.update(max_rel_err=0.0, tol_rel=0.0, library_ms=None)
-    rows["components_fleet"] = row
-    args = inputs["residual_chi2"]
-    got, ref = kops.residual_chi2(*args), kops.residual_chi2_plain(*args)
-    e1, r1 = _rel(got[0], ref[0])
-    e2, r2 = _rel(got[1], ref[1])
-    row = {"max_abs_err": max(e1, e2), "max_rel_err": max(r1, r2),
-           "tol_rel": KERNEL_TOL["residual_chi2"], "library_ms": None}
-    row["ms"], row["plain_ms"] = time_pair(lambda: kops.residual_chi2(*args),
-                                           lambda: kops.residual_chi2_plain(*args))
-    row.update(bound("residual_chi2", args))
-    rows["residual_chi2_batch"] = row
+    B = pack[1].shape[0]
+    start = kops.pcg_fleet_solve_plain(pack, op, b, 0, tol)
+    early = []
+    for k in (0, 1, 2, 3):
+        got, ref = kops.pcg_fleet_solve(pack, op, b, k, tol), kops.pcg_fleet_solve_plain(
+            pack, op, b, k, tol)
+        early.append(max(_state_rel(got, ref, _state_scale(start, ref))))
+    oks_k = torch.stack([kops.pcg_fleet_solve(pack, op, b, k, tol).scal[:, 2]
+                         for k in range(1, steps + 1)])
+    oks_p = torch.stack([kops.pcg_fleet_solve_plain(pack, op, b, k, tol).scal[:, 2]
+                         for k in range(1, steps + 1)])
+    st, st2 = kops.pcg_fleet_solve(pack, op, b, steps, tol), kops.pcg_fleet_solve(
+        pack, op, b, steps, tol)
+    sp = kops.pcg_fleet_solve_plain(pack, op, b, steps, tol)
+    d = torch.float64
+    op64 = op._replace(Ji=op.Ji.to(d), Jj=op.Jj.to(d), W=op.W.to(d), damp=op.damp.to(d),
+                       free=op.free.to(d))
+    s64 = kops.pcg_fleet_solve_plain(_factor_to(pack, d), op64, b.to(d), steps, tol)
+    torch.cuda.synchronize()
+    scale = float(s64.x.abs().max())
+    own = float((sp.x.double() - s64.x).abs().max()) / scale
+    err = float((st.x.double() - s64.x).abs().max()) / scale
+    per = ((st.x - sp.x).view(B, -1).abs().amax(1)
+           / sp.x.view(B, -1).abs().amax(1).clamp(min=1e-30))
+    row = {"max_abs_err": float((st.x - sp.x).abs().max()),
+           "max_rel_err": float((st.x - sp.x).abs().max()) / scale,
+           "rel_err_steps_0_1_2_3": early, "rel_err_vs_float64": err,
+           "plain_rel_err_vs_float64": own, "tol_rel": KERNEL_TOL["pcg_fleet_solve"],
+           "instance_rel_err_median": float(per.median()), "instance_rel_err_max": float(per.max()),
+           "same_ok": bool(torch.equal(oks_k, oks_p)),
+           "rerun_bit_identical": all(torch.equal(a, c) for a, c in zip(st[:4], st2[:4])),
+           "steps": steps, "smem_bytes_per_cta": kops.pcg_fleet_smem(
+               len(pack[0]), pack[1].shape[-1] // 6, b.shape[0] // B, op.e_from.shape[0] // B),
+           "library_ms": None}
 
-    D, U, cutoff, B = args = inputs["chain_factor"]
-    fac, fac_p = kops.chain_factor(*args), kops.chain_factor_plain(*args)
-    err = rel = 0.0
-    for a, b in zip(_flat_factor(fac), _flat_factor(fac_p)):
-        e, r = _rel(a, b)
-        err, rel = max(err, e), max(rel, r)
-    rhs = torch.randn(D.shape[0], 6, generator=torch.Generator().manual_seed(SEED + 3)).to(D.device)
-    x_k, x_p = kops.chain_apply(fac, rhs), kops.chain_apply(fac_p, rhs)
-    apply_rel = float((x_k - x_p).abs().max() / x_p.abs().max())
-    row = {"max_abs_err": err, "max_rel_err": rel, "tol_rel": KERNEL_TOL["chain_factor"],
-           "apply_rel_err": apply_rel, "apply_rtol": CHAIN_APPLY_RTOL,
-           "levels": len(fac[0]), "root_blocks": fac[1].shape[1] // 6}
-    row["ms"], row["plain_ms"] = time_pair(lambda: kops.chain_factor(*args),
-                                           lambda: kops.chain_factor_plain(*args),
-                                           trials=7, calls=2)
-    # the library yardstick: torch.linalg.inv_ex of the fleet's roots
-    _, Dk, Uk = kops.chain_reduce_plain(D.view(B, -1, 6, 6), U.view(B, -1, 6, 6), cutoff)
-    A = kops.root_matrix_plain(Dk, Uk)
-    row["library_ms"] = time_call(lambda: torch.linalg.inv_ex(A), trials=7, calls=2)
-    row.update(factor_split(args))
-    row.update(bound("chain_factor", args))
-    rows["chain_factor_batch"] = row
-    rows.update({f"{k}_batch": v for k, v in
-                 compare_lm_step(inputs, "fleet", batch=inputs["batch"]).items()})
+    def replaced():
+        s_ = kops.pcg_chain_start(pack, b, B)
+        for _ in range(steps):
+            kops.pcg_chain_step(pack, kops.hvp(*op[:5], s_.p, op.damp, op.free), s_, tol)
+
+    row["ms"], row["replaced_ms"] = time_pair(
+        lambda: kops.pcg_fleet_solve(pack, op, b, steps, tol), replaced, trials=7, calls=3)
+    row["device_ms"] = device_ms_of(
+        lambda: [kops.pcg_fleet_solve(pack, op, b, steps, tol) for _ in range(5)], 5,
+        "pcg_fleet_kernel")
+    row["device_ms_queued"] = queued_device_ms(
+        lambda: kops.pcg_fleet_solve(pack, op, b, steps, tol), calls=10)
+    row["replaced_device_ms"] = device_ms_of(replaced, 1, "")
+    row["plain_ms"] = time_call(lambda: kops.pcg_fleet_solve_plain(pack, op, b, steps, tol),
+                                trials=3, calls=1)
+    row.update(bound("pcg_fleet_solve", (pack, op, b, steps)))
+    log("17 kernel pcg_fleet_solve", **row)
+    check(bool(torch.isfinite(st.x).all()), "pcg_fleet_solve: non-finite x")
+    check(max(early) <= KERNEL_TOL["pcg_fleet_solve"],
+          f"pcg_fleet_solve: rel err {max(early):.3g} after the start and 1-3 steps")
+    check(err <= own + KERNEL_TOL["pcg_fleet_solve"],
+          f"pcg_fleet_solve: {err:.3g} from the float64 solve, the plain version {own:.3g}")
+    check(row["same_ok"], "pcg_fleet_solve: stall flags differ")
+    check(row["rerun_bit_identical"], "pcg_fleet_solve: a rerun gives other bits")
+    return row
+
+
+def compare_split_pcg(inputs: dict, fac, steps: int, tol: float, phase: str) -> dict:
+    """K2, K3 and K10 (the fleet's PCG above K38's cap) against their plain
+    versions on a fleet's first iteration (``fleet_kernel_inputs``, its
+    factor ``fac``), timed beside their bounds: rows "hvp_fleet",
+    "chain_apply_batch", "pcg_batch"."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    rows = {}
+    Ji, Jj, W, ef, et, damp, free = inputs["hvp"]
+    B = inputs["batch"]
+    args = (Ji, Jj, W, ef, et, inputs["b"], damp, free)
+    e, r = _rel(kops.hvp(*args), kops.hvp_plain(*args))
+    row = {"max_abs_err": e, "max_rel_err": r, "tol_rel": KERNEL_TOL["hvp"], "library_ms": None}
+    row["ms"], row["plain_ms"] = time_pair(lambda: kops.hvp(*args), lambda: kops.hvp_plain(*args))
+    row.update(bound("hvp", args))
+    rows["hvp_fleet"] = row
 
     b = inputs["b"]
     got, ref = kops.chain_apply(fac, b), kops.chain_apply_plain(fac, b)
@@ -5797,23 +5968,129 @@ def compare_fleet_kernels(inputs: dict, steps: int, tol: float) -> dict:
     row.update(bound("pcg", (b, steps)))
     rows["pcg_batch"] = row
     for name, row in rows.items():
+        log(f"{phase} kernel {name}", **row)
+        check(row["max_rel_err"] <= row["tol_rel"],
+              f"{phase} {name}: rel err {row['max_rel_err']:.3g} > {row['tol_rel']}")
+    check(same_ok, f"{phase} pcg_batch: stall flags differ on the same inputs")
+    return rows
+
+
+def compare_fleet_kernels(inputs: dict, steps: int, tol: float) -> dict:
+    """Each batched entry against its plain version on the card, on the
+    fleet's first iteration, timed beside its bound."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    # K1 and K2 as they run on the flattened fleet: 1e-3 and 1e-4 of each
+    # output's largest entry (KERNEL_TOL), K1 also against the atomic kernel
+    # it replaced (phase 3's checks, on the fleet's inputs); K8 exactly
+    rows = {"linearize_fleet": compare_linearize(inputs["linearize"], inputs["table"], "fleet")}
+    Ji, Jj, W, ef, et, damp, free = inputs["hvp"]
+    row = compare_epoch_kernels({"components": inputs["components"]}, "fleet")["components"]
+    row.update(max_rel_err=0.0, tol_rel=0.0, library_ms=None)
+    rows["components_fleet"] = row
+    args = inputs["residual_chi2"]
+    got, ref = kops.residual_chi2(*args), kops.residual_chi2_plain(*args)
+    e1, r1 = _rel(got[0], ref[0])
+    e2, r2 = _rel(got[1], ref[1])
+    row = {"max_abs_err": max(e1, e2), "max_rel_err": max(r1, r2),
+           "tol_rel": KERNEL_TOL["residual_chi2"], "library_ms": None}
+    row["ms"], row["plain_ms"] = time_pair(lambda: kops.residual_chi2(*args),
+                                           lambda: kops.residual_chi2_plain(*args))
+    row.update(bound("residual_chi2", args))
+    rows["residual_chi2_batch"] = row
+
+    D, U, cutoff, B = args = inputs["chain_factor"]
+    fac, fac_p = kops.chain_factor(*args), kops.chain_factor_plain(*args)
+    err = rel = 0.0
+    for a, b in zip(_flat_factor(fac), _flat_factor(fac_p)):
+        e, r = _rel(a, b)
+        err, rel = max(err, e), max(rel, r)
+    rhs = torch.randn(D.shape[0], 6, generator=torch.Generator().manual_seed(SEED + 3)).to(D.device)
+    x_k, x_p = kops.chain_apply(fac, rhs), kops.chain_apply(fac_p, rhs)
+    apply_rel = float((x_k - x_p).abs().max() / x_p.abs().max())
+    row = {"max_abs_err": err, "max_rel_err": rel, "tol_rel": KERNEL_TOL["chain_factor"],
+           "apply_rel_err": apply_rel, "apply_rtol": CHAIN_APPLY_RTOL,
+           "levels": len(fac[0]), "root_blocks": fac[1].shape[1] // 6}
+    row["ms"], row["plain_ms"] = time_pair(lambda: kops.chain_factor(*args),
+                                           lambda: kops.chain_factor_plain(*args),
+                                           trials=7, calls=2)
+    # the library yardstick: torch.linalg.inv_ex of the fleet's roots
+    _, Dk, Uk = kops.chain_reduce_plain(D.view(B, -1, 6, 6), U.view(B, -1, 6, 6), cutoff)
+    A = kops.root_matrix_plain(Dk, Uk)
+    row["library_ms"] = time_call(lambda: torch.linalg.inv_ex(A), trials=7, calls=2)
+    row.update(factor_split(args))
+    row.update(bound("chain_factor", args))
+    rows["chain_factor_batch"] = row
+    rows.update({f"{k}_batch": v for k, v in
+                 compare_lm_step(inputs, "fleet", batch=inputs["batch"]).items()})
+
+    b = inputs["b"]
+    rows.update(compare_split_pcg(inputs, fac, steps, tol, "17"))
+    op = kops.HvpOperator(Ji, Jj, W, ef, et, damp, free, inputs["table"])
+    rows["pcg_fleet_solve"] = compare_pcg_fleet_solve(fac, op, b, steps, tol)
+    for name, row in rows.items():
+        if name in ("pcg_fleet_solve", "hvp_fleet", "chain_apply_batch", "pcg_batch"):
+            continue
         log(f"17 kernel {name}", **row)
         check(row["max_rel_err"] <= row["tol_rel"],
               f"{name}: rel err {row['max_rel_err']:.3g} > {row['tol_rel']}")
     check(rows["chain_factor_batch"]["apply_rel_err"] <= CHAIN_APPLY_RTOL,
           "chain_factor_batch: apply rel err")
-    check(same_ok, "pcg_batch: stall flags differ on the same inputs")
     return rows
 
 
-def fleet_phase(device) -> tuple[dict, dict, dict]:
+def fleet_above_cap_phase(device) -> tuple[dict, dict]:
+    """Phase 17c: ``optimize_batch`` on FLEET_ABOVE_CAP (16 instances of 512
+    nodes: 5 levels at cutoff 16, above K38's cap) at the rung's
+    configuration, the counts set to 0 just before one solve and read just
+    after: its PCG through K2, K10 and K3 (160 / 340 / 180 launches, no
+    K38), χ² below χ²₀, sync-free and timed; K2, K3 and K10 against their
+    plain versions on its first iteration.  Returns (fields, launches, kernel
+    rows)."""
+    from uzliti_slam_tpu_torch.graph import solver
+    from uzliti_slam_tpu_torch.io import synthetic
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+    from uzliti_slam_tpu_torch.parallel import sharded
+
+    B, n = FLEET_ABOVE_CAP["batch"], FLEET_ABOVE_CAP["n_nodes"]
+    fleet, _ = synthetic.make_pose_graph_batch(
+        B, n, loop_closure_every=FLEET_ABOVE_CAP["loop_closure_every"],
+        generator=torch.Generator().manual_seed(SEED + 17), capacity_rounding="pow2",
+        device=device)
+    cfg = solver.SolverConfig(**FLEET_CONFIG)
+    sharded.optimize_batch(fleet, cfg)
+    torch.cuda.synchronize()
+    kops.reset_launches()
+    _, st = solver.optimize_batched(fleet, sharded.fleet_config(cfg))
+    counts = dict(kops.launches)
+    t, _ = timed_solves(sharded.optimize_batch, fleet, cfg, reps=3)
+    hist = st.chi2_history
+    fields = {"instances": B, "node_slots": n, "edge_slots": fleet.edge_capacity,
+              "solve_ms": 1e3 * t, "launches": {k: v for k, v in counts.items() if v},
+              "mean_chi2_0": float(hist[:, 0].mean()), "mean_chi2": float(hist[:, -1].mean())}
+    log("17c fleet above K38's cap", **fields)
+    check(bool((hist[:, -1] < hist[:, 0]).all()), "17c: an instance did not lower its χ²")
+    check_pcg_route("17c", counts, n, cfg, batch=B, edges=fleet.edge_capacity)
+    check(counts["hvp"] == cfg.iterations * cfg.pcg_iterations
+          and counts["pcg"] == cfg.iterations * (1 + 2 * cfg.pcg_iterations)
+          and counts["chain_apply"] == cfg.iterations * (1 + cfg.pcg_iterations),
+          f"17c: K2 / K10 / K3 launches {[counts[k] for k in FLEET_SPLIT]}")
+    fcfg = sharded.fleet_config(cfg)
+    inputs = fleet_kernel_inputs(fleet, fcfg)
+    rows = compare_split_pcg(inputs, kops.chain_factor(*inputs["chain_factor"]),
+                             fcfg.pcg_iterations, fcfg.pcg_tol, "17c")
+    return fields, counts, rows
+
+
+def fleet_phase(device) -> tuple[dict, dict, dict, dict]:
     """Phase 17: ``optimize_batch`` on the 4096 x 64-node fleet at the
     rung's configuration (counts set to 0 just before one solve, read just
     after; the same counts on an 8-instance fleet), timed sync-free, its
     χ² against the oracle on 16 instances, 8 instances against single
-    solves on CPU tensors, the batched entries against their plain
-    versions, and the default (early-exit) configuration once.  Returns
-    (launches, kernel rows, fields)."""
+    solves on CPU tensors, two solves bit for bit, the batched entries and
+    K38 against their plain versions, the default (early-exit) configuration
+    once, and (17c) a fleet above K38's cap, whose PCG takes K2, K10 and K3.
+    Returns (launches, kernel rows, fields)."""
     from uzliti_slam_tpu_torch.graph import solver
     from uzliti_slam_tpu_torch.graph import state as gstate
     from uzliti_slam_tpu_torch.io import synthetic
@@ -5875,7 +6152,12 @@ def fleet_phase(device) -> tuple[dict, dict, dict]:
     check(counts == counts_small, f"17: launches grow with B: {counts} vs {counts_small}")
     for name in FLEET_PATH:
         check(counts[name] > 0, f"17: {name} not launched")
-    check_pcg_route("17", counts, n, cfg, batch=B)
+    check_pcg_route("17", counts, n, cfg, batch=B, edges=fleet.edge_capacity)
+    check(counts["pcg_fleet_solve"] == cfg.iterations and not any(counts[k] for k in FLEET_SPLIT),
+          f"17: K38 {counts['pcg_fleet_solve']} launches, K2 / K3 / K10 "
+          f"{[counts[k] for k in FLEET_SPLIT]}")
+    fields["bits"] = solve_bits(lambda: sharded.optimize_batch(fleet, cfg),
+                                lambda: fleet_calls(fleet, fcfg), "17 fleet")
     check(bool(torch.isfinite(out.pose).all()) and bool((chi2 < chi2_0).all()),
           "17: a fleet instance did not lower its χ²")
     check(not library_items(names), "17: library kernels in the profile")
@@ -5895,15 +6177,19 @@ def fleet_phase(device) -> tuple[dict, dict, dict]:
     hist, acc = st_d.chi2_history.cpu().tolist(), st_d.accepted.cpu().tolist()
     ref_builds = sum(reference_refreshes(hist[b], acc[b], dcfg) for b in range(B))
     t_d, _ = timed_solves(sharded.optimize_batch, fleet, solver.SolverConfig(), reps=3)
+    prof_d, _ = device_profile(lambda: sharded.optimize_batch(fleet, solver.SolverConfig()))
     fields_d = {"solve_ms": 1e3 * t_d, "instance_solves_per_s": B / t_d,
                 "mean_chi2": float(st_d.chi2_history[:, -1].mean()), "launches": counts_d,
-                "factors_built": built, "reference_refreshes": ref_builds}
+                "factors_built": built, "reference_refreshes": ref_builds, **prof_d}
     log("17 fleet 4096x64 default config", **fields_d)
     check(built == ref_builds, f"17: {built} factors built, the reference builds {ref_builds}")
+    check_pcg_route("17 default", counts_d, n, dcfg, batch=B, edges=fleet.edge_capacity)
     check(bool((st_d.chi2_history[:, -1] < st_d.chi2_history[:, 0]).all()),
           "17 default: a fleet instance did not lower its χ²")
     fields["default_config"] = fields_d
-    return counts, rows, fields
+    del fleet
+    fields["above_cap"], counts_above, rows["above_cap"] = fleet_above_cap_phase(device)
+    return counts, counts_above, rows, fields
 
 
 # ---------------------------------------------------------------------------
@@ -7250,6 +7536,9 @@ def main() -> int:
     check(counts100k["components"] == 1,
           f"7 headline 100k: K8 launched {counts100k['components']} times, not once")
     breakdown100k = old_composition_phase(g100k, "7 headline 100k", counts100k, fields100k)
+    breakdown100k["bits"] = solve_bits(
+        lambda: solver.optimize(g100k, hcfg), lambda: single_calls(g100k, hcfg),
+        "7 headline 100k")
     del g10k
 
     counts500, state500, k5k6_500 = epoch_phase("8 epoch 500", built500, EPOCH_500["n"], reps=5,
@@ -7309,7 +7598,7 @@ def main() -> int:
     # phase 17: the fleet (K1, K2, K8 and the batched entries of K3, K4, K9,
     # K10); each driven with the counts set to 0 just before it, read after
     sift_counts, sift_rows, sift_fields = sift_phase(kf_frames, dev)
-    fleet_counts, fleet_rows, fleet_fields = fleet_phase(dev)
+    fleet_counts, above_counts, fleet_rows, fleet_fields = fleet_phase(dev)
     # phase 18: the generic loop, the edge-sharded solve (B19, in a world of
     # one and two ranks on the card) and the planar solve (K1's column mask)
     sharded_counts, planar_counts, xy_row, sharded_fields = sharded_phase(
@@ -7319,12 +7608,12 @@ def main() -> int:
     scope_counts, scope_rows, scope_rows_large, scope_fields = scope_phase(dev)
     # each kernel's main path: the 1k solve for K1, K4, K9, K35; the 100k
     # solve for K2 and K37 (above K34's cap; the 1k solve's PCG runs on
-    # K35); the fleet (17) for K3 and K10; the sharded 1k solve (18a) for
-    # K34; the 500-node epoch for
+    # K35); the fleet (17) for K38, the fleet above K38's cap (17c) for K3
+    # and K10; the sharded 1k solve (18a) for K34; the 500-node epoch for
     # K5-K8; the projection sequence after it for K11; the first timed
     # keyframe step (phase 11, 1 camera) for K12-K18
     launches["hvp"] = counts100k["hvp"]
-    launches.update({name: fleet_counts[name] for name in SPLIT_PCG})
+    launches.update({name: above_counts[name] for name in SPLIT_PCG})
     launches["pcg_chain"] = sharded_counts["pcg_chain"]
     launches.update({name: counts500[name] for name in EPOCH_KERNELS})
     launches.update({name: entry500[name] for name in ENTRY_KERNELS})
@@ -7333,11 +7622,14 @@ def main() -> int:
     # K19 and bin_min_max: one maintain (13a); K20: one calibrate (13e)
     launches.update(merge_pairs=maint500["merge_pairs"], bin_min_max=maint500["bin_min_max"],
                     calib_gn=calib["calib_gn"])
-    # K3's and K10's second shapes are the fleet's (phase 17), the only path
-    # that runs them
+    # K3's and K10's main shapes are the fleet's above K38's cap (17c), the
+    # only path that runs them, and the 4096 x 64 fleet's (17) their large
+    # ones; the single 1k chain's beside them
+    split_1k = {name: rows.pop(name) for name in SPLIT_PCG}
+    rows.update({name: fleet_rows["above_cap"][f"{name}_batch"] for name in SPLIT_PCG})
     rows_large.update({name: fleet_rows[f"{name}_batch"] for name in SPLIT_PCG})
     shapes = {**{k: ("1k solve", "100k solve") for k in SOLVE_KERNELS},
-              **{k: ("1k solve: a single chain (phase 3; no path runs it)",
+              **{k: ("16 instances x 512 nodes, 1024 edges, cutoff 16 (17c, first iteration)",
                      "4096 instances x 64 nodes, 128 edges, cutoff 16 (first iteration)")
                  for k in SPLIT_PCG},
               "pcg_chain": ("1k solve: one PCG step", "10k solve: one PCG step"),
@@ -7379,20 +7671,27 @@ def main() -> int:
          "shapes_large": shapes[name][1]}
         for name in REPLACES
     ]
-    # K2, K3 and K10: the row's main fields are those of their main path's
-    # inputs, the 1k inputs' beside them: K2's main path is the 100k solve,
-    # K3's and K10's the fleet (a single solve above K34's cap takes K37)
+    # K2, K3 and K10: K2's main path is the 100k solve (its main fields the
+    # 100k inputs', the 1k ones' beside), K3's and K10's the fleet above
+    # K38's cap (17c; the 4096 x 64 fleet takes K38), the single chains'
+    # checks beside
     for name in SPLIT_PCG + ("hvp",):
         row = kernels[list(REPLACES).index(name)]
-        for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms", "shapes"):
-            row[f"{k}_1k"] = row[k]
-            row[k] = row.pop(f"{k}_large")
-        row.update(bound_by=rows_large[name]["bound_by"],
-                   launches_from="7 headline 100k" if name == "hvp" else "17 fleet",
-                   launches_headline_1k=headline_counts[name],
-                   launches_headline_100k=counts100k[name])
-        if name in SPLIT_PCG:
-            row["max_rel_err_single_100k"] = single100k[name]["max_rel_err"]
+        row.update(launches_headline_1k=headline_counts[name],
+                   launches_headline_100k=counts100k[name],
+                   launches_fleet_4096x64=fleet_counts[name],
+                   launches_fleet_above_cap=above_counts[name])
+        if name == "hvp":
+            for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms", "shapes"):
+                row[f"{k}_1k"] = row[k]
+                row[k] = row.pop(f"{k}_large")
+            row.update(bound_by=rows_large[name]["bound_by"], launches_from="7 headline 100k",
+                       launches_sharded_100k=sharded_fields["100k"]["launches"]["hvp"])
+            continue
+        row.update({f"{k}_1k": split_1k[name][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                           "bound_ms")},
+                   launches_from="17c fleet above K38's cap",
+                   max_rel_err_single_100k=single100k[name]["max_rel_err"])
     # K34: a step beside the three calls it replaces (K10, K3, K10) on the
     # same vectors, and its start; its main path is the sharded 1k solve
     kernels[list(REPLACES).index("pcg_chain")].update(
@@ -7524,6 +7823,23 @@ def main() -> int:
          "device_ms_large": r37_20k["device_ms"],
          "three_calls_ms_large": r37_20k["three_calls_ms"], "library_ms_large": None,
          "shapes_large": "20k solve: one PCG step (9 levels, a 64-block root)"})
+    # K38: its main path is phase 17's fleet solve, its shapes the fleet's
+    # first PCG solve, beside the K2 + K10 + K3 solve it replaces in turns
+    r38 = fleet_rows["pcg_fleet_solve"]
+    kernels.append(
+        {"name": "pcg_fleet_solve", "route": "cuda", "source": PCG_FLEET_SOURCE,
+         "replaces": PCG_FLEET_REPLACES, "launches": fleet_counts["pcg_fleet_solve"],
+         "launches_from": "17 fleet",
+         "launches_default_config":
+             fleet_fields["default_config"]["launches"]["pcg_fleet_solve"],
+         "max_abs_err": r38["max_abs_err"], "ms": r38["ms"], "plain_ms": r38["plain_ms"],
+         "bound_ms": r38["bound_ms"], "bound_by": r38["bound_by"], "library_ms": None,
+         "shapes": "4096 instances x 64 nodes, 128 edges, cutoff 16: one 8-step PCG solve",
+         **{k: r38[k] for k in ("device_ms", "device_ms_queued", "replaced_ms",
+                                "replaced_device_ms",
+                                "rel_err_steps_0_1_2_3", "rel_err_vs_float64",
+                                "plain_rel_err_vs_float64", "rerun_bit_identical",
+                                "smem_bytes_per_cta")}})
     # K8's second form, from the same source: one cooperative launch over
     # the card where 12·N + 4·⌈N/32⌉ bytes exceed one CTA's shared memory;
     # its main path is phase 7's 100k solve
@@ -7612,7 +7928,11 @@ def main() -> int:
         r = fleet_rows[name]
         kernels.append(
             {"name": name, "route": "cuda", "source": FLEET_SOURCE[name],
-             "replaces": FLEET_REPLACES[name], "launches": fleet_counts[FLEET_KERNEL[name]],
+             "replaces": FLEET_REPLACES[name],
+             # K2, K3 and K10 run only in a fleet above K38's cap (17c)
+             "launches": (above_counts if FLEET_KERNEL[name] in FLEET_SPLIT
+                          else fleet_counts)[FLEET_KERNEL[name]],
+             "launches_fleet_4096x64": fleet_counts[FLEET_KERNEL[name]],
              "launches_default_config":
                  fleet_fields["default_config"]["launches"][FLEET_KERNEL[name]],
              "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -7667,8 +7987,9 @@ def main() -> int:
         else:
             entry.update(device_ms_epoch_500=k5k6_500[name], device_ms_epoch_10k=k5k6_10k[name])
     kernels[list(REPLACES).index("relax_pairs")]["edge_cases"] = k5_k6_cases
-    check(len(kernels) == 55, f"{len(kernels)} kernel entries")
-    check(all(e["launches"] > 0 for e in kernels if e["name"] in SOLVE_KERNELS + ("pcg_grid",)),
+    check(len(kernels) == 56, f"{len(kernels)} kernel entries")
+    check(all(e["launches"] > 0 for e in kernels
+              if e["name"] in SOLVE_KERNELS + ("pcg_grid", "pcg_fleet_solve")),
           f"a solve kernel's main path did not launch it: "
           f"{[(e['name'], e['launches']) for e in kernels if e['name'] in SOLVE_KERNELS]}")
     unmatched = unmatched_device_functions()

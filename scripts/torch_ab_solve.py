@@ -28,7 +28,8 @@ replaces) and profiles 100 steps on the same vectors for K34's device ms a
 step, and, in a checkout that has it, ``compare_pcg_chain_solve`` (K35).
 Above K34's cap it times a step of the route the checkout takes there (K37,
 or K10 + K3 + K10 before it) on the same vectors: CUDA events and device ms
-a step.  The size "step" times ``Slam.add_frame`` at phase 11's cell (the
+a step.  Every size reports the device ms of K2, K3, K10, K37 and K38 in
+the profiled call.  The size "step" times ``Slam.add_frame`` at phase 11's cell (the
 VGA keyframe rung, 10 steps after 3 warm-up ones, 1 camera and the front +
 rear rig: entries "step_1cam", "step_2cam") and "rereg" 13d's
 ``Slam.reregister_scans`` on the 1-camera Slam (its state restored before
@@ -103,7 +104,8 @@ def timed(fn, g, c, reps):
                                ("k10", ("pcg_init", "pcg_alpha", "pcg_beta", "grid_dots",
                                         "grid_init", "grid_alpha", "grid_beta")),
                                ("k34", ("pcg_chain_kernel",)), ("k35", ("pcg_solve_kernel",)),
-                               ("k37", ("pcg_grid_kernel",)), ("k4", ("residual_edges",)),
+                               ("k37", ("pcg_grid_kernel",)),
+                               ("k38", ("pcg_fleet_kernel",)), ("k4", ("residual_edges",)),
                                ("k4_sum", ("sum_partials",)), ("k9", ("factor_",)),
                                ("k36", ("candidate_kernel",)), ("k36_accept", ("accept_kernel",)),
                                ("k7", ("ransac_roots", "ransac_draw_fit")),
@@ -491,7 +493,7 @@ def main() -> int:
             medians[side][-1].update({f"{n}:{k}_device_ms": r["device_ms_by_kernel"][k]
                                       for n, r in res.items() if "device_ms_by_kernel" in r
                                       for k in ("k7", "k15_points", "k19", "k5", "k6", "k8",
-                                                "k11")})
+                                                "k11", "k2", "k3", "k10", "k37", "k38")})
             print(json.dumps({"pair": i, "side": side, **res}), flush=True)
     names = [n for n in args.sizes.split(",") if n not in ("step", "rereg", "map500")]
     names += ["step_1cam", "step_2cam"] if "step" in args.sizes.split(",") else []
@@ -513,7 +515,9 @@ def main() -> int:
                                                 "device_launches", *STEP_KEYS,
                                                 "k7_device_ms", "k15_points_device_ms",
                                                 "k19_device_ms", "k5_device_ms", "k6_device_ms",
-                                                "k8_device_ms", "k11_device_ms")
+                                                "k8_device_ms", "k11_device_ms", "k2_device_ms",
+                                                "k3_device_ms", "k10_device_ms", "k37_device_ms",
+                                                "k38_device_ms")
                     if f"{n}:{k}" in medians[side][0]})
         print(json.dumps({"size": n, "base_medians_ms": base, "change_medians_ms": change,
                           "base_median_ms": statistics.median(base),

@@ -54,7 +54,7 @@ def test_nvcc_flags_target_hopper_without_fast_math():
         "hamming_top2.cu", "bilateral.cu", "icp.cu", "merge_pairs.cu", "calib_gn.cu",
         "feature_votes.cu", "repository.cu", "bow_words.cu", "bow_query.cu", "voxel_grid.cu",
         "gicp.cu", "pnp.cu", "sift_describe.cu", "l2_top2.cu", "scope_match.cu",
-        "delta_apply.cu", "pcg_chain.cu", "lm_step.cu", "pcg_grid.cu"}
+        "delta_apply.cu", "pcg_chain.cu", "lm_step.cu", "pcg_grid.cu", "pcg_fleet.cu"}
 
 
 def test_every_exported_function_has_a_signature_of_its_arity():

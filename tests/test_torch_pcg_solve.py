@@ -18,7 +18,7 @@ the table), its odometry and loop noise drawn with numpy, cutoff 16:
 - the routes, with a recording library on meta tensors: within K34's cap
   and without a reduce hook one ``uz_pcg_chain_solve`` per PCG solve; with
   a reduce hook K2 + K34; above the cap, with or without one, K2 + K37; in
-  a fleet K2 + K10 + K3;
+  a fleet above K38's cap K2 + K10 + K3;
 - the argument checks and a failed launch.
 """
 
@@ -340,9 +340,12 @@ def test_the_lm_step_takes_k35_without_reduce_and_k2_k34_with_it(fake_lib, reduc
 
 
 def test_in_a_fleet_the_operator_takes_k2_k10_k3(fake_lib):
-    n, cutoff, batch, levels = 64, 16, 4, 2
+    # instances of 1,024 nodes do not fit one CTA's shared memory: above
+    # K38's cap a fleet keeps K2, K10 and K3
+    n, cutoff, batch, levels = 1024, 16, 4, 6
     factor = _meta_factor(fake_lib, n, cutoff, batch)
     E = 2 * batch * n
+    assert not kops.pcg_fleet_route(factor, batch, E)
 
     def hvp(v):
         return kops.hvp(*_meta_op(batch * n, E)[:5], v, _meta(batch * n, 6), _meta(batch * n))
@@ -353,7 +356,7 @@ def test_in_a_fleet_the_operator_takes_k2_k10_k3(fake_lib):
     step = ["uz_hvp", "uz_pcg_alpha"] + apply + ["uz_pcg_beta"]
     assert names == apply + ["uz_pcg_init"] + step * 12
     assert kops.launches["pcg_chain_solve"] == kops.launches["pcg_chain"] == 0
-    assert kops.launches["pcg_grid"] == 0
+    assert kops.launches["pcg_grid"] == kops.launches["pcg_fleet_solve"] == 0
 
 
 @pytest.mark.parametrize("reduce", [False, True], ids=["no_reduce", "reduce"])

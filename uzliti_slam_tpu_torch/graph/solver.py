@@ -17,15 +17,17 @@ it).  Per LM iteration: one fused linearization (kernel K1), a PCG solve
 of a fixed count of steps, then kernel K36 in two launches: the candidate
 (retraction, its residuals and robust χ²) and the accept rule with the λ
 schedule (and the early exit's termination), whose state lives in
-per-iteration tensors (``kops.LmState``).  The PCG takes one of four
+per-iteration tensors (``kops.LmState``).  The PCG takes one of five
 routes (``_pcg``): a single solve within K34's cap with no reduce hook is
 kernel K35, the whole solve
 with its Hessian-vector products in one launch; the edge-sharded solve
 (whose all-reduce sits between Hv and the dot) runs K2 for each Hv and
 K34 for each step's updates around the preconditioner apply; a single
 solve above K34's cap, with or without a reduce hook, K2 for each Hv and
-K37 for each step (one cooperative launch over the card); a fleet K2, K10
-and K3.  K1 and K35 sum node rows over
+K37 for each step (one cooperative launch over the card); a fleet whose
+instance fits one CTA's shared memory is kernel K38, every instance's
+whole solve in one launch; a larger fleet K2, K10 and K3.
+K1, K35 and K38 sum node rows over
 the solve's incidence table (``kops.incidence_table``, built once per
 solve) in a fixed order, so those routes give the same bits every run.
 The chain factor is kernel K9, one launch that builds the damped diagonal
@@ -37,8 +39,9 @@ capacities, as the reference's ``vmap`` of ``optimize``: the fleet is
 flattened into one block-diagonal table (instance b's nodes at b·N, its
 edges' endpoints offset by b·N), which K1, K2 and K8 take as they are,
 while λ, accept, χ², the refresh state and the early-exit flag are (B,)
-tensors and K36, K10, K9 and K3 keep each instance's sums and factor its
-own, the instance on their grid.  A single graph runs the same loop as the
+tensors and K36, K38 (K10 and K3 above its cap), K9 keep each instance's
+sums and factor its own, the instance on their grid (K38: an instance a
+CTA, its rows of the table at b·N).  A single graph runs the same loop as the
 batch of one.  The launches per solve do not grow with B.
 
 The loop never reads a device value on the host: accept/reject, the λ
@@ -195,19 +198,25 @@ def _pcg(hvp, factor, b, iterations: int, tol: float, batch: int = 1, cmask=None
     the preconditioner M. Fixed iteration count, masked stall.
 
     With ``op`` (H's tensors and the incidence table, a
-    ``kops.HvpOperator``) a single chain within K34's cap is K35 on a CUDA
-    device: the whole solve, each step's Hp = H·p and the reference's body
-    (``solver.py:512-540``) around z = M⁻¹r, in one launch, ``hvp`` unused.
-    Otherwise each step is ``hvp`` (K2, and the caller's reduce) → K34: the
-    dots, axpys and stall logic, one launch, with its scalars on the device;
-    a single chain above K34's cap takes K37 for the same step (one
-    cooperative launch over the card); a fleet of ``batch`` instances takes
-    K10 → K3 → K10 with one row of scalars per instance.  ``cmask`` (6,), the
-    generic loop's planar projection, makes the preconditioner M⁻¹(r·m)·m
-    (and K35's operator H(p·m)·m, as the caller's ``hvp`` wraps it).
+    ``kops.HvpOperator``; the caller hands it only when H is local, with no
+    reduce hook) a single chain within K34's cap is K35 on a CUDA device:
+    the whole solve, each step's Hp = H·p and the reference's body
+    (``solver.py:512-540``) around z = M⁻¹r, in one launch, ``hvp`` unused;
+    a fleet of ``batch`` instances each of which fits one CTA's shared
+    memory (``kops.pcg_fleet_route``) is K38, every instance's whole solve
+    in one launch.  Otherwise each step is ``hvp`` (K2, and the caller's
+    reduce) → K34: the dots, axpys and stall logic, one launch, with its
+    scalars on the device; a single chain above K34's cap takes K37 for the
+    same step (one cooperative launch over the card); a larger fleet K10 →
+    K3 → K10 with one row of scalars per instance.  ``cmask`` (6,), the generic
+    loop's planar projection, makes the preconditioner M⁻¹(r·m)·m (and the
+    fused routes' operator H(p·m)·m, as the caller's ``hvp`` wraps it).
     """
-    if op is not None and kops.pcg_chain_route(factor, batch):
-        return kops.pcg_chain_solve(factor, op, b, iterations, tol, cmask).x
+    if op is not None:
+        if kops.pcg_chain_route(factor, batch):
+            return kops.pcg_chain_solve(factor, op, b, iterations, tol, cmask).x
+        if kops.pcg_fleet_route(factor, batch, op.e_from.shape[0]):
+            return kops.pcg_fleet_solve(factor, op, b, iterations, tol, cmask).x
     state = kops.pcg_chain_start(factor, b, batch, cmask)
     for _ in range(iterations):
         kops.pcg_chain_step(factor, hvp(state.p), state, tol, cmask)

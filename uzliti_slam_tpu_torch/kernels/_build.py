@@ -64,6 +64,7 @@ SIGNATURES = {
     "uz_pcg_grid_ctas": [],
     "uz_pcg_grid_start": [_P, _I, _I, _I, _P] + [_P] * 6 + [_L, _P, _I, _P],
     "uz_pcg_grid_step": [_P, _F, _P, _I, _I, _I, _P] + [_P] * 6 + [_L, _P, _I, _P],
+    "uz_pcg_fleet_solve": [_P, _I, _I, _I, _I, _I, _P] + [_P] * 9 + [_P, _I, _F] + [_P] * 5,
     "uz_project_rays": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _I, _F,
                         _P, _P],
     "uz_fast_nms_levels": [_P, _I, _I, _F, _P],

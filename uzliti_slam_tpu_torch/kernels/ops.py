@@ -112,6 +112,12 @@ pcg_grid       csrc/pcg_grid.cu        graph/solver.py:_pcg's body minus the
                                        tridiag.py:block_tridiag_apply inside
                                        it (a single solve above K34's cap;
                                        K10 + K3 in one cooperative launch)
+pcg_fleet_     csrc/pcg_fleet.cu       graph/solver.py:_pcg's whole loop with
+solve                                  _make_hvp and block_tridiag_apply
+                                       inside it, under the fleet's vmap
+                                       (parallel/sharded.py:optimize_batch):
+                                       a CTA an instance, one launch a PCG
+                                       solve (K2 + K10 + K3 fused)
 lm_candidate   csrc/lm_step.cu         graph/solver.py's LM tail: retraction,
                                        batched_residuals, _robust_chi2_from_r
 lm_accept      csrc/lm_step.cu         the accept rule with the λ schedule and
@@ -122,14 +128,16 @@ K3, K4, K9, K10 and K36 take a batch of B instances of equal sizes,
 flattened (the fleet of ``parallel/sharded.optimize_batch``); a single solve
 is the batch of one.  K9 builds the damped diagonal it factors as it reads
 Hb, and runs its levels and root in one cooperative launch.  The solve's
-PCG has four routes (``solver._pcg``): a single solve within K34's cap
+PCG has five routes (``solver._pcg``): a single solve within K34's cap
 with no reduce hook takes ``pcg_chain_solve`` (K35),
 one launch a PCG solve; with a reduce hook (the edge-sharded solve, whose
 all-reduce sits between Hv and the dot) K2 and ``pcg_chain_step`` (K34), one
 launch each a step; a single solve above the cap, K2 and K37 (one
-cooperative launch a step, with or without a reduce hook); a fleet, K2,
-K10 and K3.
-K1 and K35 sum node rows over the solve's incidence table
+cooperative launch a step, with or without a reduce hook); a fleet whose
+instance fits one CTA's shared memory (``pcg_fleet_route``),
+``pcg_fleet_solve`` (K38), one launch a PCG solve; a larger fleet, K2, K10
+and K3.
+K1, K35 and K38 sum node rows over the solve's incidence table
 (``incidence_table``) in a fixed order, without float atomics.
 
 What bounds each kernel on the card, and what its design does about it, is
@@ -162,7 +170,7 @@ launches = {"linearize": 0, "hvp": 0, "chain_apply": 0, "residual_chi2": 0,
             "knn_normals": 0, "gicp": 0, "pnp": 0, "sift_describe": 0, "l2_top2": 0,
             "uid_slots": 0, "edge_key_match": 0, "delta_upsert": 0, "scope_merge": 0,
             "pcg_chain": 0, "pcg_chain_solve": 0, "lm_candidate": 0,
-            "lm_accept": 0, "pcg_grid": 0}
+            "lm_accept": 0, "pcg_grid": 0, "pcg_fleet_solve": 0}
 
 _THREADS = 256  # kThreads in csrc/lie.cuh: K4's partial sums, one per block
 _SMEM_BYTES = 232448  # shared memory one CTA can use on Hopper
@@ -1933,17 +1941,18 @@ class _Fused(NamedTuple):
 _LEVEL_NAMES = ("Dinv_o", "P1m", "P2", "G1", "G2")
 
 
-def _factor_ptrs(factor, dev) -> list:
+def _factor_ptrs(factor, dev, batch: int = 1) -> list:
     """The factor's pointers, each level's Dinv_o, P1m, P2, G1, G2, then
-    root_inv, checked for one chain."""
+    root_inv, checked for ``batch`` chains."""
     levels, root_inv, _ = factor
     L, m_root = len(levels), root_inv.shape[-1] // 6
     ptrs = []
     for li, lv in enumerate(levels):
         half = m_root << (L - 1 - li)
         for nm, t in zip(_LEVEL_NAMES, lv):
-            ptrs.append(_check(nm, t, (1, half, 6, 6), torch.float32, dev))
-    ptrs.append(_check("root_inv", root_inv, (1, 6 * m_root, 6 * m_root), torch.float32, dev))
+            ptrs.append(_check(nm, t, (batch, half, 6, 6), torch.float32, dev))
+    ptrs.append(_check("root_inv", root_inv, (batch, 6 * m_root, 6 * m_root), torch.float32,
+                       dev))
     return ptrs
 
 
@@ -2101,15 +2110,44 @@ def _masked_hvp(op: HvpOperator, v, cmask):
     return y if cmask is None else y * cmask
 
 
-def pcg_chain_solve_plain(factor, op: HvpOperator, b, steps: int, tol: float,
+def _operator_ptrs(kernel: str, op: HvpOperator, n: int, dev) -> list:
+    """The operator's and its table's pointers for ``n`` rows, checked: Ji,
+    Jj, W (E, 6, 6) 16-byte aligned (the kernels copy them as float4), e_from,
+    e_to (E,), damp (n, 6), free (n,), row_ptr (n + 1,), entries (2E,)."""
+    f32, i32, E = torch.float32, torch.int32, op.e_from.shape[0]
+    ptrs = [
+        _check("Ji", op.Ji, (E, 6, 6), f32, dev),
+        _check("Jj", op.Jj, (E, 6, 6), f32, dev),
+        _check("W", op.W, (E, 6, 6), f32, dev),
+        _check("e_from", op.e_from, (E,), i32, dev),
+        _check("e_to", op.e_to, (E,), i32, dev),
+        _check("damp", op.damp, (n, 6), f32, dev),
+        _check("free", op.free, (n,), f32, dev),
+        *_check_table(op.table, n, E, dev),
+    ]
+    for nm, ptr in zip(("Ji", "Jj", "W"), ptrs):
+        if ptr % 16:
+            raise ValueError(f"{kernel}: {nm} is not 16-byte aligned")
+    return ptrs
+
+
+def pcg_fleet_solve_plain(factor, op: HvpOperator, b, steps: int, tol: float,
                           cmask=None) -> PcgState:
-    """Plain version of K35: K34's plain start, then per step K2's plain
-    version and K34's plain step (with ``cmask`` the generic loop's wraps:
-    H(p·m)·m and M⁻¹(r·m)·m)."""
-    state = pcg_chain_start_plain(factor, b, 1, cmask)
+    """Plain version of K38 (and of K35, the batch of one): K34's plain
+    start for the factor's B chains, then per step K2's plain version and
+    K34's plain step (with ``cmask`` the generic loop's wraps: H(p·m)·m and
+    M⁻¹(r·m)·m), each instance's scalars its own."""
+    batch = factor[1].shape[0]
+    state = pcg_chain_start_plain(factor, b, batch, cmask)
     for _ in range(steps):
         pcg_chain_step_plain(factor, _masked_hvp(op, state.p, cmask), state, tol, cmask)
     return state
+
+
+def pcg_chain_solve_plain(factor, op: HvpOperator, b, steps: int, tol: float,
+                          cmask=None) -> PcgState:
+    """Plain version of K35: a single chain's ``pcg_fleet_solve_plain``."""
+    return pcg_fleet_solve_plain(factor, op, b, steps, tol, cmask)
 
 
 def pcg_chain_solve(factor, op: HvpOperator, b, steps: int, tol: float,
@@ -2125,24 +2163,12 @@ def pcg_chain_solve(factor, op: HvpOperator, b, steps: int, tol: float,
     E = op.e_from.shape[0]
     if steps < 0:
         raise ValueError(f"pcg_chain_solve: {steps} steps")
-    ptrs = [
-        _check("Ji", op.Ji, (E, 6, 6), f32, dev),
-        _check("Jj", op.Jj, (E, 6, 6), f32, dev),
-        _check("W", op.W, (E, 6, 6), f32, dev),
-        _check("e_from", op.e_from, (E,), i32, dev),
-        _check("e_to", op.e_to, (E,), i32, dev),
-        _check("damp", op.damp, (n, 6), f32, dev),
-        _check("free", op.free, (n,), f32, dev),
-        *_check_table(op.table, n, E, dev),
-    ]
+    ptrs = _operator_ptrs("pcg_chain_solve", op, n, dev)
     b_ptr = _check("b", b, (n, 6), f32, dev)
     cm = None if cmask is None else _check("cmask", cmask, (6,), f32, dev)
     lib = _build.load()
     x, r, p, z, hp = torch.empty(5, n, 6, dtype=f32, device=dev).unbind(0)
     scal = torch.empty(1, 4, dtype=f32, device=dev)
-    for nm in ("Ji", "Jj", "W"):    # the kernel reads them as float4
-        if getattr(op, nm).data_ptr() % 16:
-            raise ValueError(f"pcg_chain_solve: {nm} is not 16-byte aligned")
     # the operator in table order and the steps' products (csrc/pcg_chain.cu Op)
     iscratch = torch.empty(2 * 2 * E, dtype=i32, device=dev)
     fscratch = torch.empty(114 * 2 * E, dtype=f32, device=dev)
@@ -2152,6 +2178,81 @@ def pcg_chain_solve(factor, op: HvpOperator, b, steps: int, tol: float,
                                  fscratch.data_ptr(), _stream(dev))
     _raise_on(err, "pcg_chain_solve")
     launches["pcg_chain_solve"] += 1
+    return PcgState(x, r, p, scal)
+
+
+# ---------------------------------------------------------------------------
+# K38 pcg_fleet_solve (a fleet's whole PCG solve: a CTA an instance)
+# ---------------------------------------------------------------------------
+
+_FLEET_WARPS = 8   # kThreads / 32 in csrc/pcg_fleet.cu
+
+
+def pcg_fleet_smem(levels: int, m_root: int, n: int, edges: int) -> int:
+    """Bytes of shared memory one CTA of K38 takes for an instance of ``n``
+    rows and ``edges`` edge slots with ``levels`` reduction levels and
+    ``m_root`` root blocks (csrc/pcg_fleet.cu ``plan``, the shipped layout:
+    the factor, the vectors, the level vectors, damp and free, the edges'
+    terms, the mask, the sums and the integer tables).  At 64 nodes, 128
+    edge slots and cutoff 16: 92,772 bytes, 2 CTAs an SM."""
+    def up4(w):
+        return (w + 3) & ~3
+
+    n2, lvw = m_root << levels, 6 * m_root * ((1 << levels) - 1)
+    at = 180 * m_root * ((1 << levels) - 1) + 36 * m_root * m_root
+    for words in (6 * n, 6 * n, 6 * n, 6 * n, 6 * n2, lvw, lvw, 6 * n, n, 12 * edges):
+        at = up4(at + words)
+    return 4 * (at + 8 + 2 * _FLEET_WARPS + (n + 1) + 2 * edges + 4 * edges)
+
+
+def pcg_fleet_route(factor, batch: int, n_edges: int) -> bool:
+    """Whether a solve of ``batch`` > 1 chains with this factor and
+    ``n_edges`` edge slots in all takes K38: an instance that fits one CTA's
+    shared memory (``pcg_fleet_smem``)."""
+    levels, root_inv, n = factor
+    if batch < 2 or n_edges % batch:
+        return False
+    return pcg_fleet_smem(len(levels), root_inv.shape[-1] // 6, n,
+                          n_edges // batch) <= _SMEM_BYTES
+
+
+def pcg_fleet_solve(factor, op: HvpOperator, b, steps: int, tol: float,
+                    cmask=None) -> PcgState:
+    """K38: the whole PCG solve of each of the factor's B chains (K34's
+    start, then ``steps`` times Hp = H(p·m)·m and K34's step) in one launch,
+    a CTA an instance with its factor and vectors in shared memory; ``op``
+    is the flattened fleet's operator and incidence table (instance b's
+    nodes at b·n, its edges at b·E).  Returns the final state (scal (B,
+    4)); K34's plain start and steps on CPU tensors."""
+    if b.device.type == "cpu":
+        return pcg_fleet_solve_plain(factor, op, b, steps, tol, cmask)
+    levels, root_inv, n = factor
+    dev, f32 = b.device, torch.float32
+    B, L, m_root, E = root_inv.shape[0], len(levels), root_inv.shape[-1] // 6, op.e_from.shape[0]
+    if steps < 0:
+        raise ValueError(f"pcg_fleet_solve: {steps} steps")
+    if m_root < 1 or m_root << L != _pow2(n) or E % B:
+        raise ValueError(f"pcg_fleet_solve: {B} chains of {n} rows, {L} levels, a "
+                         f"{m_root}-block root and {E} edge slots")
+    if pcg_fleet_smem(L, m_root, n, E // B) > _SMEM_BYTES:
+        raise ValueError(f"pcg_fleet_solve: an instance of {n} rows and {E // B} edge slots is "
+                         f"outside K38's cap ({_SMEM_BYTES} bytes of shared memory a CTA)")
+    fptrs = _factor_ptrs(factor, dev, B)
+    for i, ptr in enumerate(fptrs):
+        if ptr % 16:
+            raise ValueError(f"pcg_fleet_solve: the factor's tensor {i} is not 16-byte aligned")
+    table = (ctypes.c_void_p * len(fptrs))(*fptrs)
+    ptrs = _operator_ptrs("pcg_fleet_solve", op, B * n, dev)
+    b_ptr = _check("b", b, (B * n, 6), f32, dev)
+    cm = None if cmask is None else _check("cmask", cmask, (6,), f32, dev)
+    lib = _build.load()
+    x, r, p = torch.empty(3, B * n, 6, dtype=f32, device=dev).unbind(0)
+    scal = torch.empty(B, 4, dtype=f32, device=dev)
+    err = lib.uz_pcg_fleet_solve(ctypes.addressof(table), L, m_root, n, B, E // B, cm, *ptrs,
+                                 b_ptr, int(steps), float(tol), x.data_ptr(), r.data_ptr(),
+                                 p.data_ptr(), scal.data_ptr(), _stream(dev))
+    _raise_on(err, "pcg_fleet_solve")
+    launches["pcg_fleet_solve"] += 1
     return PcgState(x, r, p, scal)
 
 
