@@ -185,7 +185,10 @@ runs, in order, each phase printing lines of its own:
    and ok exactly, K26 by |dot| on separated eigenvalues, K27's and K28's
    refined poses within 1e-4, K28's mse, and each family of its hypotheses
    (DLT, homography, Kabsch) by draw, the wall's coplanar DLT draws named
-   by their null space (see PNP_HYP_MEDIAN); (c)
+   by their null space (see PNP_HYP_MEDIAN); K27 also on tied, NaN-Lab and
+   all-invalid targets (``gicp_tie_calls``); K27 and K28 each a second time
+   on the same arguments (the same bits), and K28's device ms per phase
+   from its ``%globaltimer`` stamps; one K28 and one K27 launch a step; (c)
    tests/test_estimation_methods.py's 24-frame run per method on the card,
    held to its bars;
 16. the float-descriptor path: ``detect_and_describe(descriptor="sift")``
@@ -516,8 +519,8 @@ FRONTEND_DEVICE_FUNCTIONS = {"fast_nms": ("fast_nms_levels",),
                              "bow_query": ("row_scores", "topk_scores"),
                              "voxel_grid": ("voxel_sort_chunks", "voxel_merge",
                                             "voxel_accumulate", "voxel_finish"),
-                             "knn_normals": ("knn_normals_kernel",), "gicp": ("gicp_problems",),
-                             "pnp": ("pnp_hypotheses_kernel", "pnp_refine_kernel"),
+                             "knn_normals": ("knn_normals_kernel",), "gicp": ("gicp_cluster",),
+                             "pnp": ("pnp_cluster",),
                              "sift_describe": ("box_blur<1>", "sift_keypoints"),
                              "l2_top2": ("l2_top2_tiles",),
                              "uid_slots": ("uid_slots_kernel",),
@@ -627,7 +630,7 @@ REGISTRATION_SOURCE = {"voxel_grid": "uzliti_slam_tpu_torch/csrc/voxel_grid.cu",
                        "gicp": "uzliti_slam_tpu_torch/csrc/gicp.cu",
                        "pnp": "uzliti_slam_tpu_torch/csrc/pnp.cu"}
 REGISTRATION_WRAPPERS = {"voxel_grid": ("voxel_grid",), "knn_normals": ("knn_normals",),
-                         "gicp": ("gicp",), "pnp": ("pnp_hypotheses", "pnp_refine")}
+                         "gicp": ("gicp",), "pnp": ("pnp_ransac",)}
 ESTIMATION_KERNELS = {"pnp": ("hamming_top2", "pnp"),
                       "gicp": ("voxel_grid", "knn_normals", "gicp")}
 # K25 exactly (the same fixed-point sums); K26's normals within
@@ -864,8 +867,8 @@ DEVICE_FUNCTIONS = ("sift_keypoints", "linearize_rows", "hvp_seed",
                     "row_keys",
                     "greedy_rounds", "init_theta", "calib_edges", "calib_solve", "bin_points",
                     "voxel_sort_chunks", "voxel_merge", "voxel_accumulate", "voxel_finish",
-                    "knn_normals_kernel", "gicp_problems", "pnp_hypotheses_kernel",
-                    "pnp_refine_kernel", "l2_top2_tiles", "uid_slots_kernel", "edge_key_kernel",
+                    "knn_normals_kernel", "gicp_cluster", "pnp_cluster", "l2_top2_tiles",
+                    "uid_slots_kernel", "edge_key_kernel",
                     "delta_upsert_kernel", "scope_merge_kernel")
 
 
@@ -1517,26 +1520,22 @@ def kernel_work(name: str, args) -> tuple[int, int]:
         return (_nbytes(src, args[1], src_valid, dst, dst_lab, dst_valid, normals, init)
                 + 40 * dst.shape[0],
                 8 * M * nv + iters * (11 * M * nv + 120 * M * dst.shape[0]) + 8 * M * nv)
-    if name == "pnp_hypotheses":
+    if name == "pnp_ransac":
         # per draw the selection (2 compares a key), then what a direct SVD
         # of each system costs for its singular values and right vectors
         # (Golub-Reinsch, 4mn² + 8n³ flops: the 12x12 DLT 20,736, the 12x9
-        # homography 9,720, the 6x3 plane 432), and the small fits (~3000)
-        X, xn, valid, depth, keys = args
-        B, H, M = keys.shape
-        F = 2 if depth is None else 3
-        svd = sum(4 * m * n * n + 8 * n ** 3 for m, n in ((12, 12), (12, 9), (6, 3)))
-        return (_nbytes(X, xn, valid, keys, *(() if depth is None else (depth,)))
-                + B * H * (24 + 28 * F), B * H * (2 * M + svd + 3000))
-    if name == "pnp_refine":
+        # homography 9,720, the 6x3 plane 432), and the small fits (~3000);
         # the K x M consensus (~40 flops each) and 8 Gauss-Newton steps over
         # the best hypothesis' rows (~300 flops a point: the projection, its
-        # 3x6 Jacobian, the 21 + 6 sums)
-        X, xn, valid, depth, samples, poses, *_ = args
-        B, M, _ = X.shape
-        K = poses.shape[1]
-        return (_nbytes(X, xn, valid, samples, poses, *(() if depth is None else (depth,)))
-                + B * (28 + 4 * K + 13), B * (40 * K * M + 8 * 300 * M))
+        # 3x6 Jacobian, the 21 + 6 sums); inputs read once, the samples,
+        # hypotheses, counts and results written once
+        X, xn, valid, depth, keys, *_ = args
+        B, H, M = keys.shape
+        K = (2 if depth is None else 3) * H
+        svd = sum(4 * m * n * n + 8 * n ** 3 for m, n in ((12, 12), (12, 9), (6, 3)))
+        return (_nbytes(X, xn, valid, keys, *(() if depth is None else (depth,)))
+                + B * H * 24 + B * K * 32 + B * 41,
+                B * H * (2 * M + svd + 3000) + B * (40 * K * M + 8 * 300 * M))
     if name == "sift_describe":
         # image, keypoints and window read once, angles and descriptors
         # written once; the blur's 4 adds and a multiply per pixel, and per
@@ -5450,10 +5449,18 @@ def _registration_mismatch(wrapper: str, args, got, ref) -> tuple[int, float, di
     if wrapper == "gicp":
         err = float((got[0] - ref[0]).abs().max())
         return int((got[3] != ref[3]).sum()) + int(err > GICP_POSE_ATOL), err, {}
-    if wrapper == "pnp_hypotheses":
-        return _hypothesis_mismatch(args, got, ref)
-    # pnp_refine: the pose and mse where the plain version's result is ok,
-    # the ones the step uses
+    if wrapper == "pnp_ransac":
+        m1, e1, d1 = _hypothesis_mismatch(args[:5], got[:2], ref[:2])
+        m2, e2, d2 = _refine_mismatch(got[2:], ref[2:])
+        return m1 + m2, max(e1, e2), {"hypotheses": d1, **d2}
+    raise ValueError(f"_registration_mismatch: {wrapper}")
+
+
+def _refine_mismatch(got, ref) -> tuple[int, float, dict]:
+    """K28's consensus and polish (pose, consensus, mse, ok, best, counts)
+    against the plain version's on the same hypotheses: the integers
+    exactly, the pose and mse where the plain version's result is ok, the
+    ones the step uses (see PNP_POSE_ATOL)."""
     ok = ref[3]
     perr = _pose_err(got[0], ref[0])
     err = float(perr[ok].max()) if bool(ok.any()) else 0.0
@@ -5468,12 +5475,66 @@ def _registration_mismatch(wrapper: str, args, got, ref) -> tuple[int, float, di
             {"mse_rel_err": mse_rel, "ok": int(ok.sum()), "failed_poses_differing": free})
 
 
+def _bits(t):
+    """A tensor as its bits (float32 as int32, so that NaNs compare)."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def same_bits(a, b) -> bool:
+    """Whether two results (tensors or tuples of them) hold the same bits."""
+    a, b = (a if isinstance(a, tuple) else (a,)), (b if isinstance(b, tuple) else (b,))
+    return len(a) == len(b) and all(torch.equal(_bits(x), _bits(y)) for x, y in zip(a, b))
+
+
+def _registration_reference(wrapper: str, args, kw, got):
+    """What a K25-K28 call is held to: its plain version's result; for K28
+    the draws and fits of ``pnp_hypotheses_plain`` and the consensus and
+    polish of ``pnp_refine_plain`` on the kernel's own hypotheses (a
+    borderline inlier would otherwise move a count with a rounding of the
+    pose)."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    if wrapper != "pnp_ransac":
+        return getattr(kops, f"{wrapper}_plain")(*args, **kw)
+    X, xn, valid, depth, keys, *rest = args
+    return (*kops.pnp_hypotheses_plain(X, xn, valid, depth, keys),
+            *kops.pnp_refine_plain(X, xn, valid, depth, got[0], got[1], *rest))
+
+
+def pnp_phase_ms(calls, runs: int = 5) -> dict:
+    """K28's device ms per phase over its calls, from the kernel's
+    ``%globaltimer`` stamps (``kops.pnp_ransac(stamps=)``): the draws and
+    fits (the first CTA's start to the last fit's end), the consensus (to
+    the last vote), the polish and audit (to the end); medians of ``runs``
+    launches, summed over the calls.  The phases overlap across warps, so
+    a boundary is the last warp's."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    out = {"fits_ms": 0.0, "consensus_ms": 0.0, "polish_ms": 0.0, "total_ms": 0.0}
+    for args, kw in calls:
+        stamps = torch.empty(args[0].shape[0], 4, dtype=torch.int64, device=args[0].device)
+        per = {k: [] for k in out}
+        for _ in range(runs):
+            kops.pnp_ransac(*args, **kw, stamps=stamps)
+            t = stamps.cpu()
+            start, fits = int(t[:, 0].min()), int(t[:, 1].max())
+            cons, end = int(t[:, 2].max()), int(t[:, 3].max())
+            for k, v in (("fits_ms", fits - start), ("consensus_ms", cons - fits),
+                         ("polish_ms", end - cons), ("total_ms", end - start)):
+                per[k].append(v / 1e6)
+        for k in out:
+            out[k] += statistics.median(per[k])
+    return out
+
+
 def compare_registration_kernels(calls: dict, label: str, trials: int = 5,
                                  calls_per: int = 2) -> dict:
     """K25-K28 against their plain versions on recorded or generated
     arguments ({wrapper: [(args, kwargs), ...]}), by
-    ``_registration_mismatch``; times over all the calls of a kernel's
-    wrappers and the bound.  No single PyTorch call computes any of these
+    ``_registration_mismatch``; K27 and K28 also launched a second time on
+    the same arguments (the same bits); times over all the calls
+    of a kernel's wrappers, the bound, and K28's phases
+    (``pnp_phase_ms``).  No single PyTorch call computes any of these
     functions (library_ms None)."""
     from uzliti_slam_tpu_torch.kernels import ops as kops
 
@@ -5481,11 +5542,14 @@ def compare_registration_kernels(calls: dict, label: str, trials: int = 5,
     for name in REGISTRATION_KERNELS:
         wrappers = REGISTRATION_WRAPPERS[name]
         check(all(calls.get(w) for w in wrappers), f"{name} {label}: no call recorded")
-        mism, err, details = 0, 0.0, {}
+        mism, err, details, reruns = 0, 0.0, {}, []
         for w in wrappers:
             for c, (args, kw) in enumerate(calls[w]):
-                got, ref = getattr(kops, w)(*args, **kw), getattr(kops, f"{w}_plain")(*args, **kw)
+                got = getattr(kops, w)(*args, **kw)
+                ref = _registration_reference(w, args, kw, got)
                 torch.cuda.synchronize()
+                if w in ("gicp", "pnp_ransac"):
+                    reruns.append(same_bits(got, getattr(kops, w)(*args, **kw)))
                 got = got if isinstance(got, tuple) else (got,)
                 ref = ref if isinstance(ref, tuple) else (ref,)
                 m, e, d = _registration_mismatch(w, args, got[0] if w == "knn_normals" else got,
@@ -5502,6 +5566,8 @@ def compare_registration_kernels(calls: dict, label: str, trials: int = 5,
 
         row = {"calls": {w: len(calls[w]) for w in wrappers}, "mismatches": mism,
                "max_abs_err": err, **({"checks": details} if details else {})}
+        if reruns:
+            row["rerun_bit_identical"] = all(reruns)
         # K28's plain version takes ~1.5 s a call (tens of thousands of small
         # tensor operations): fewer trials of it
         few = name == "pnp"
@@ -5510,9 +5576,13 @@ def compare_registration_kernels(calls: dict, label: str, trials: int = 5,
                                                calls=1 if few else calls_per)
         row["library_ms"] = None
         row.update(bound_wrapper_calls(calls, wrappers))
+        if name == "pnp":
+            row["phases"] = pnp_phase_ms(calls["pnp_ransac"])
         log(f"15a kernel {name} {label}", **row)
         check(mism == 0, f"{name} {label}: {mism} entries differ from the plain version "
                          f"(max error {err})")
+        check(row.get("rerun_bit_identical", True),
+              f"{name} {label}: a second launch gave other bits")
         rows[name] = row
     return rows
 
@@ -5558,11 +5628,83 @@ def registration_large_calls(world, frames, device) -> dict:
     valid = torch.rand(B, M, generator=g) > 0.1
     args = [t.to(device).contiguous() for t in (X, xn, valid, Xc[..., 2])]
     keys = torch.rand(B, H, M, generator=g).to(device)
-    samples, poses = kops.pnp_hypotheses(*args, keys)
     thresh2, f_mean2 = pnp.thresholds(525.0, 525.0, 3.0)
-    calls["pnp_hypotheses"] = [((*args, keys), {})]
-    calls["pnp_refine"] = [((*args, samples, poses, thresh2, f32(0.04), 10.0, 8, f_mean2), {})]
+    calls["pnp_ransac"] = [((*args, keys, thresh2, f32(0.04), 10.0, 8, f_mean2), {})]
     return calls
+
+
+def gicp_tie_calls(device) -> dict:
+    """K27's adversarial arguments: 3 target clouds of N = 60 whose points
+    j and j + 15 coincide in position and Lab, for j in 0..14 and 30..44
+    (so every source point's distances tie in pairs), with orthogonal
+    normals (so a pick of the higher index changes the row).  Twins 15
+    apart lie in different lanes for every lane count of 4-32 (a lane scans
+    every kLanes-th target), and at csrc/gicp.cu's 16 the higher index sits
+    in the lower lane, so only the cross-lane key merge settles the tie.
+    Cloud 1 has two valid targets with a NaN Lab, 10 and 21 (lanes 10 and
+    5 at 16 lanes): argmin's minimum for every source point is the first
+    of them.  Cloud 2 has no valid target.  128 source points near the
+    targets; 1 and 20 iterations."""
+    from uzliti_slam_tpu_torch.config import f32
+    from uzliti_slam_tpu_torch.ops import lie
+
+    g = torch.Generator().manual_seed(SEED + 40)
+    B, N, M, U = 3, 60, 128, 30
+    base = torch.rand(U, 3, generator=g) * 0.6
+    lab = torch.rand(U, 3, generator=g) * 50
+    n1 = torch.nn.functional.normalize(torch.randn(U, 3, generator=g), dim=-1)
+    n2 = torch.nn.functional.normalize(
+        torch.cross(n1, torch.randn(U, 3, generator=g), dim=-1), dim=-1)
+    block = torch.arange(15)
+    idx = torch.cat([block, block, block + 15, block + 15])           # target -> unique point
+    twin = (torch.arange(N) // 15) % 2 == 1                            # the higher of two twins
+    dst = base[idx].expand(B, N, 3).contiguous()
+    dst_lab = lab[idx].expand(B, N, 3).contiguous()
+    normals = torch.where(twin[:, None], n2[idx], n1[idx]).expand(B, N, 3).contiguous()
+    dst_valid = torch.ones(B, N, dtype=torch.bool)
+    dst_valid[2] = False
+    dst_lab[1, 10, 1] = math.nan
+    dst_lab[1, 21, 2] = math.nan
+    pick = torch.randint(0, U, (M,), generator=g)
+    src = base[pick] + 0.01 * torch.randn(M, 3, generator=g)
+    src_lab = lab[pick] + torch.randn(M, 3, generator=g)
+    src_valid = torch.rand(M, generator=g) > 0.1
+    init = lie.se3_exp(0.01 * torch.randn(B, 6, generator=g))
+    args = [t.to(device).contiguous() for t in (src, src_lab, src_valid, dst, dst_lab,
+                                                dst_valid, normals, init)]
+    return {"gicp": [((*args, iters, f32(0.2 ** 2), f32(0.002), f32(0.3), 1.0,
+                       f32(math.pi / 6)), {}) for iters in (1, 20)]}
+
+
+def compare_gicp_ties(device) -> dict:
+    """15a: K27 on ``gicp_tie_calls``: each source point's first-iteration
+    target (``kops.gicp(matches=)``) the plain version's
+    (``gicp_first_matches_plain``: the lower of two tied targets, the first
+    NaN Lab's target for every point of cloud 1, target 0 in cloud 2), exactly;
+    cloud 0's pose within GICP_POSE_ATOL and its ok flag (clouds 1 and 2
+    match every point to one target: their 6x6 systems are singular but for
+    the 1e-6 ridge, and their poses are rounding amplified); and a second
+    launch of each call (the same bits)."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    mism, err, reruns = 0, 0.0, []
+    for args, kw in gicp_tie_calls(device)["gicp"]:
+        src, src_lab, src_valid, dst, dst_lab, dst_valid, normals, init, *_ = args
+        matches = torch.empty(dst.shape[0], src.shape[0], dtype=torch.int32, device=device)
+        got, ref = kops.gicp(*args, **kw, matches=matches), kops.gicp_plain(*args, **kw)
+        reruns.append(same_bits(got, kops.gicp(*args, **kw)))
+        want = kops.gicp_first_matches_plain(src, src_lab, dst, dst_lab, dst_valid, init,
+                                             args[10])
+        torch.cuda.synchronize()
+        mism += int((matches != want).sum())
+        e = _pose_err(got[0][:1], ref[0][:1])
+        err = max(err, float(e.max()))
+        mism += int((e > GICP_POSE_ATOL).sum()) + int(got[3][0] != ref[3][0])
+    row = {"mismatches": mism, "max_abs_err": err, "rerun_bit_identical": all(reruns)}
+    log("15a kernel gicp ties, NaN Lab, no valid target", **row)
+    check(mism == 0, f"gicp tie cases: {mism} entries differ from the plain version ({err})")
+    check(all(reruns), "gicp tie cases: a second launch gave other bits")
+    return row
 
 
 def estimation_run(method: str, device) -> dict:
@@ -5639,6 +5781,9 @@ def estimation_phase(world, frames, device) -> tuple[dict, dict, dict]:
         one, fields, slam, inputs = keyframe_step_phase(
             f"15b keyframe step VGA 1 camera {est}", world, frames, 1, device, estimation=est)
         fields["launches_first_step"] = {k: one[k] for k in ESTIMATION_KERNELS[est]}
+        # K28's draws, fits, consensus and polish in one launch; K27 one
+        k = "pnp" if est == "pnp" else "gicp"
+        check(one[k] == 1, f"15b {est}: {one[k]} {k} launches in a step (one expected)")
         steps[est] = fields
         names = tuple(w for k in ESTIMATION_KERNELS[est] if k in REGISTRATION_WRAPPERS
                       for w in REGISTRATION_WRAPPERS[k])
@@ -5650,6 +5795,7 @@ def estimation_phase(world, frames, device) -> tuple[dict, dict, dict]:
         "15b keyframe step VGA front + rear gicp", world, frames, 2, device, estimation="gicp")
     del slam
     rows = compare_registration_kernels(recorded, "VGA step")
+    rows["gicp"]["tie_cases"] = compare_gicp_ties(device)
     rows_large = compare_registration_kernels(registration_large_calls(world, frames, device),
                                               "large", trials=3, calls_per=1)
     runs = {m: estimation_run(m, device) for m in ("pnp", "gicp")}

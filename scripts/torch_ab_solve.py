@@ -51,7 +51,14 @@ checkout's entry: ``components_gauge``, or ``components`` then
 and K11's device ms in the profile; "map500" times phase 8's projections
 (``pipeline.project_map`` after the 500-node epoch: the full rebuild,
 "map500_full", and 8 new nodes, "map500_inc"; wall, device ms, launches,
-and K11's call alone):
+and K11's call alone); "step_gicp" and "step_pnp" time phase 15b's keyframe
+step (the VGA rung, 1 camera) with ``estimation.method`` "gicp" or "pnp":
+wall ms, device ms, busy share, device launches and K25-K28's device ms in
+a profiled step (K28's by function: the parent's two launches apart), and
+K27's or K28's wrapper calls of that step replayed (CUDA events, queued
+device ms):
+
+    python3 scripts/torch_ab_solve.py --base build/parent --sizes step_gicp,step_pnp --pairs 3
 
     python3 scripts/torch_ab_solve.py --base build/parent --sizes 1000,100000,epoch500,epoch10k,map500 --pairs 3
 
@@ -341,8 +348,84 @@ def step_entries(do_step, do_rereg, reps):
     return res
 
 
+ESTIMATION_FUNCTIONS = {
+    "k25": ("voxel_sort_chunks", "voxel_merge", "voxel_accumulate", "voxel_finish"),
+    "k26": ("knn_normals_kernel",),
+    "k27": ("gicp_problems", "gicp_cluster"),
+    "k28": ("pnp_hypotheses_kernel", "pnp_refine_kernel", "pnp_cluster"),
+    "k28_hypotheses": ("pnp_hypotheses_kernel",),
+    "k28_refine": ("pnp_refine_kernel",),
+    "k16": ("match_top2", "gist_rounds", "gist_topk_cluster")}
+
+
+def estimation_entries(methods, reps):
+    """Phase 15b's keyframe step (the VGA rung's 13 frames, 1 camera, 3
+    warm-up steps and 10 timed) with ``estimation.method`` "gicp" or "pnp":
+    wall ms a step, a profiled late step (device ms, launches, busy share,
+    K25-K28's and K16's device ms; K28's by function, which splits the
+    parent's two launches), and K27's or K28's wrapper calls of that step
+    replayed (either checkout's wrappers): CUDA events around them (ms a
+    step) and queued back to back (device ms a step)."""
+    from uzliti_slam_tpu_torch import pipeline
+    world, frames = cs.keyframe_world()
+    warm = cs.KEYFRAME_VGA["warmup"]
+    inputs = [cs.frame_inputs(fr, 1) for fr in frames]
+    last = len(frames) - 1
+    res = {}
+    for method in methods:
+        cfg, pose = cs.step_config(1, dev, estimation=method)
+        slam = pipeline.Slam(cfg, cam=world.cam, cam_pose=pose, device=dev)
+        slam.optimize_every = 10**9
+        for i in range(warm):
+            slam.add_frame(*inputs[i], frames[i]["odom_pose"], frames[i]["stamp"])
+        torch.cuda.synchronize()
+        kops.reset_launches()
+        ts = []
+        for i in range(warm, len(frames)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            slam.add_frame(*inputs[i], frames[i]["odom_pose"], frames[i]["stamp"])
+            torch.cuda.synchronize()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        launches = {k: v / len(ts) for k, v in kops.launches.items() if v}
+
+        def late_step():
+            return pipeline.process_keyframe(
+                slam.state, *inputs[last], frames[last]["odom_pose"], frames[last]["stamp"],
+                slam.cam, slam.cam_pose, slam.config)
+
+        prof, names = cs.device_profile(late_step)
+        row = {"ms_median": statistics.median(ts), "ms": ts, "port_launches": launches,
+               **{k: prof.get(k) for k in ("device_launches", "device_kernel_ms",
+                                           "device_busy_share")}}
+        for k, fs in ESTIMATION_FUNCTIONS.items():
+            hits = [v for key, v in names.items() if any(f in key for f in fs)]
+            row[f"{k}_device_ms"] = sum(hits) if hits else None
+        k = "k27" if method == "gicp" else "k28"
+        wrappers = [w for w in (("gicp",) if method == "gicp" else
+                                ("pnp_hypotheses", "pnp_refine", "pnp_ransac"))
+                    if hasattr(kops, w)]
+        calls = cs.record_args(late_step, wrappers)
+        ws = [w for w in wrappers if calls[w]]
+
+        def run():
+            for w in ws:
+                for a, kw in calls[w]:
+                    getattr(kops, w)(*a, **kw)
+
+        row[f"{k}_wrappers"] = {w: len(calls[w]) for w in ws}
+        row[f"{k}_ms"] = cs.time_call(run)
+        row[f"{k}_queued_device_ms"] = cs.queued_device_ms(run)
+        res[f"step_{method}"] = row
+        del slam
+    return res
+
+
 out, lifted = {}, False
 sizes = sys.argv[2].split(",")
+est = [m for m in ("gicp", "pnp") if f"step_{m}" in sizes]
+if est:
+    out.update(estimation_entries(est, int(sys.argv[3])))
 if "step" in sizes or "rereg" in sizes:
     out.update(step_entries("step" in sizes, "rereg" in sizes, int(sys.argv[3])))
 if "map500" in sizes:
@@ -351,7 +434,7 @@ if "map500" in sizes:
         lifted = True
     out.update(map_entries(int(sys.argv[3])))
 for size in sizes:
-    if size in ("step", "rereg", "map500"):
+    if size in ("step", "rereg", "map500", "step_gicp", "step_pnp"):
         continue
     if size.startswith("epoch"):
         if not lifted:
@@ -451,7 +534,10 @@ STEP_KEYS = ("k12_device_ms", "k17_device_ms", "k18_device_ms", "k13_device_ms",
              "k15_device_functions", "k15_ms", "k15_queued_device_ms",
              "k5_calls", "k5_ms", "k5_queued_device_ms", "k6_calls", "k6_ms",
              "k6_queued_device_ms", "k8_ms", "k8_queued_device_ms", "k8_calls_launches",
-             "k11_ms", "k11_queued_device_ms")
+             "k11_ms", "k11_queued_device_ms",
+             "k25_device_ms", "k26_device_ms", "k27_device_ms", "k28_device_ms",
+             "k28_hypotheses_device_ms", "k28_refine_device_ms", "k27_ms", "k27_queued_device_ms",
+             "k28_ms", "k28_queued_device_ms", "device_busy_share")
 
 
 def run_side(tree: Path, sizes: str, reps: int) -> dict:
@@ -470,7 +556,9 @@ def main() -> int:
                     help="node counts, 'fleet', 'epoch500', 'epoch10k', 'step' (the VGA "
                          "keyframe step, 1 camera and the rig), 'rereg' (its re-registration), "
                          "'maintain' (phase 13a's maintenance on the 500-node state), 'map500' "
-                         "(the projections after the 500-node epoch: full and 8 new nodes)")
+                         "(the projections after the 500-node epoch: full and 8 new nodes), "
+                         "'step_gicp' / 'step_pnp' (phase 15b's VGA step, 1 camera, by "
+                         "estimator)")
     ap.add_argument("--reps", type=int, default=15, help="timed solves a size and process")
     args = ap.parse_args()
     sides = {"base": args.base.resolve(), "change": Path(__file__).resolve().parents[1]}
@@ -496,6 +584,7 @@ def main() -> int:
                                                 "k11", "k2", "k3", "k10", "k37", "k38")})
             print(json.dumps({"pair": i, "side": side, **res}), flush=True)
     names = [n for n in args.sizes.split(",") if n not in ("step", "rereg", "map500")]
+    # step_gicp / step_pnp are entries of their own (their names kept)
     names += ["step_1cam", "step_2cam"] if "step" in args.sizes.split(",") else []
     names += ["map500_full", "map500_inc"] if "map500" in args.sizes.split(",") else []
     names += ["rereg"] if "rereg" in args.sizes.split(",") else []

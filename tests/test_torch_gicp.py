@@ -11,6 +11,13 @@ JAX package's, on the CPU, with the JAX tests' own inputs
 - ``estimate_normals`` by |n · n_ref| >= 1 - 1e-5 where the two smallest
   eigenvalues of JAX's covariance are at least 1e-3 of the largest apart
   (a normal's sign is arbitrary; a near-double eigenvalue leaves it free);
+- K27's merge key (``kops.argmin_key_plain``: 0 for a NaN, else the
+  distance in total order + 1, then the index) picks ``torch.argmin``'s and
+  ``jnp.argmin``'s index exactly, on rows with ties, infinities, NaNs and
+  signed zeros; so does a numpy replay of the kernel's search (each of
+  4-32 lanes a strided share of the targets, strict < with a NaN kept once
+  taken, then the keys' minimum), on twins and NaNs that lie in different
+  lanes;
 - ``gicp_6d`` and ``register_clouds`` on the four problems: the pose within
   1e-4 (20 iterations whose 6x6 solves LAPACK and the port's LU round
   differently; on the two parallel walls only x, the one component they
@@ -186,3 +193,67 @@ def test_gicp_batches_problems_and_fails_a_correction_too_large():
         torch.testing.assert_close(batch.pose[b], one.pose, rtol=0, atol=0)
     assert bool(batch.ok[0]) and not bool(batch.ok[1])
     assert float(math.dist(batch.pose[0, :3].tolist(), shift[0, :3].tolist())) < 0.01
+
+
+def test_argmin_key_rule_matches_torch_and_jax_argmin():
+    """K27's merge of its lanes' first minima: the least (key, index) pair,
+    the key 0 for a NaN, else the distance in total order + 1 (-0 as +0),
+    is argmin's first NaN, else its first smallest entry."""
+    nan, inf = float("nan"), float("inf")
+    rows = [[3.0, 1.0, 1.0, 2.0], [inf, inf, inf, inf], [5.0, nan, 1.0, nan],
+            [inf, 2.5, inf, 2.5], [0.0, -0.0, 1.0, 0.0], [-0.0, 0.0, 2.0, 1.0],
+            [-1.0, -3.0, -3.0, 4.0], [1e-30, 0.0, 1e-30, inf], [nan, nan, 0.0, 0.0],
+            [3.4e38, inf, 3.4e38, 1e38]]
+    rng = np.random.default_rng(0)
+    rand = rng.choice(np.array([0.0, -0.0, 1.0, 2.0, np.inf, np.nan, -1.0], np.float32),
+                      size=(64, 9))
+    d = np.concatenate([np.asarray(rows, np.float32), rand[:, :4]])
+    got = kops.first_argmin_plain(t(d)).numpy()
+    np.testing.assert_array_equal(got, torch.argmin(t(d), dim=-1).numpy())
+    np.testing.assert_array_equal(got, np.asarray(jnp.argmin(jnp.asarray(d), axis=-1)))
+    wide = kops.first_argmin_plain(t(rand)).numpy()
+    np.testing.assert_array_equal(wide, np.asarray(jnp.argmin(jnp.asarray(rand), axis=-1)))
+    keys = kops.argmin_key_plain(t(np.array([nan, -0.0, 0.0, -inf, inf], np.float32)))
+    assert int(keys[0]) == 0 and int(keys[1]) == int(keys[2]) and 0 < int(keys[3]) < int(keys[1])
+    assert int(keys[4]) > int(keys[2])
+
+
+def _lane_search_replay(d, lanes):
+    """csrc/gicp.cu's ``search`` on the rows of d (R, N): lane sl scans
+    targets sl, sl + lanes, ... in order, keeping its first minimum (strict
+    <, a NaN kept once taken); then the least (argmin_key, index) over the
+    lanes."""
+    R, N = d.shape
+    out = np.empty(R, np.int64)
+    for r in range(R):
+        keys = []
+        for sl in range(min(lanes, N)):
+            best, bj = np.float32(np.inf), sl
+            for j in range(sl, N, lanes):
+                if d[r, j] < best or (np.isnan(d[r, j]) and not np.isnan(best)):
+                    best, bj = d[r, j], j
+            keys.append((int(kops.argmin_key_plain(torch.tensor([best]))[0]), bj))
+        out[r] = min(keys)[1]
+    return out
+
+
+@pytest.mark.parametrize("lanes", [4, 8, 16, 32])
+def test_k27_lane_search_and_key_merge_pick_argmin(lanes):
+    """The kernel's split search and key merge pick jnp.argmin's index on
+    rows whose ties and NaNs fall in different lanes: twins 15 apart (the
+    higher index in the lower lane at 16 lanes), NaNs at 10 and 21, rows of
+    +inf, and random rows over a few values."""
+    rng = np.random.default_rng(lanes)
+    N = 60
+    u = rng.uniform(0.0, 2.0, (6, 30)).astype(np.float32)
+    twins = u[:, np.r_[0:15, 0:15, 15:30, 15:30]]
+    nans = twins[:2].copy()
+    nans[:, [10, 21]] = np.nan
+    inf = np.full((1, N), np.inf, np.float32)
+    few = rng.choice(np.array([0.0, -0.0, 1.0, 2.0, np.inf, np.nan], np.float32), size=(40, N))
+    short = np.concatenate([twins[:3, :7], np.array([[np.inf, 1.0, np.nan, 1.0, 0.5, 0.5, 3.0]],
+                                                     np.float32)])
+    for d in (np.concatenate([twins, nans, inf, few]), short):
+        want = np.asarray(jnp.argmin(jnp.asarray(d), axis=-1))
+        np.testing.assert_array_equal(_lane_search_replay(d, lanes), want)
+        np.testing.assert_array_equal(torch.argmin(t(d), dim=-1).numpy(), want)

@@ -969,19 +969,24 @@ def _registration_cases():
     pvalid = torch.rand(2, 30, generator=g) > 0.2
     depth = X[..., 2].contiguous()
     keys = torch.rand(2, 8, 30, generator=g)
-    samples, poses = kops.pnp_hypotheses_plain(X, xn, pvalid, depth, keys)
+    none_valid = cvalid.clone()
+    none_valid[1] = False
     return [
         ("voxel_grid", (pts, lab, valid, 20.0, 64)),
         ("knn_normals", (cloud, cvalid)),
         ("gicp", (src, lab[:40], cvalid[0], cloud, lab[:40].expand(2, 40, 3).contiguous(), cvalid,
                   normals, lie.pose_identity((2,)), 5, 0.04, 0.002, 0.3, 1.0, math.pi / 6)),
-        ("pnp_hypotheses", (X, xn, pvalid, depth, keys)),
-        ("pnp_refine", (X, xn, pvalid, depth, samples, poses, 3.6e-5, 0.04, 8.0, 4, 250000.0)),
+        ("gicp", (src, lab[:40], cvalid[0], cloud, lab[:40].expand(2, 40, 3).contiguous(),
+                  none_valid, normals, lie.pose_identity((2,)), 1, 0.04, 0.002, 0.3, 1.0,
+                  math.pi / 6)),
+        ("pnp_ransac", (X, xn, pvalid, None, keys, 3.6e-5, 0.04, 8.0, 4, 250000.0)),
+        ("pnp_ransac", (X, xn, pvalid, depth, keys, 3.6e-5, 0.04, 8.0, 4, 250000.0)),
     ]
 
 
-@pytest.mark.parametrize("case", range(5), ids=["voxel_grid", "knn_normals", "gicp",
-                                                 "pnp_hypotheses", "pnp_refine"])
+@pytest.mark.parametrize("case", range(6), ids=["voxel_grid", "knn_normals", "gicp",
+                                                 "gicp_no_valid_target", "pnp_ransac_no_depth",
+                                                 "pnp_ransac"])
 def test_registration_kernel_wrappers_run_their_plain_version_on_cpu(case):
     name, args = _registration_cases()[case]
     kops.reset_launches()
@@ -1032,7 +1037,7 @@ def test_lu_solve_plain_and_jacobi_factorizations():
 
 
 def test_registration_kernels_launch_through_the_library(fake_lib):
-    b, i32 = torch.bool, torch.int32
+    b = torch.bool
     p, c, v = kops.voxel_grid(_meta(307200, 3), _meta(307200, 3), _meta(307200, dtype=b), 20.0,
                               256)
     assert fake_lib.calls[-1][0] == "uz_voxel_grid" and fake_lib.calls[-1][1][3:6] == (
@@ -1049,28 +1054,36 @@ def test_registration_kernels_launch_through_the_library(fake_lib):
     assert fake_lib.calls[-1][1][8:17] == pytest.approx((10, 256, 256, 20, 0.04, 0.002, 0.3, 1.0,
                                                          0.5))
     assert tuple(pose.shape) == (10, 7) and ok.dtype == b
-    smp, poses = kops.pnp_hypotheses(_meta(10, 256, 3), _meta(10, 256, 2), _meta(10, 256, dtype=b),
-                                     _meta(10, 256), _meta(10, 64, 256))
-    assert fake_lib.calls[-1][0] == "uz_pnp_hypotheses" and fake_lib.calls[-1][1][5:8] == (
-        10, 256, 64)
-    assert tuple(smp.shape) == (10, 64, 6) and tuple(poses.shape) == (10, 192, 7)
-    kops.pnp_hypotheses(_meta(10, 256, 3), _meta(10, 256, 2), _meta(10, 256, dtype=b), None,
-                        _meta(10, 64, 256))
-    assert fake_lib.calls[-1][1][3] is None   # no depth: a null pointer, two families
-    out = kops.pnp_refine(_meta(10, 256, 3), _meta(10, 256, 2), _meta(10, 256, dtype=b),
-                          _meta(10, 256), _meta(10, 64, 6, dtype=i32), _meta(10, 192, 7), 3.6e-5,
-                          0.04, 10.0, 8, 275625.0)
-    assert fake_lib.calls[-1][0] == "uz_pnp_refine"
-    assert fake_lib.calls[-1][1][6:15] == pytest.approx((10, 256, 64, 192, 3.6e-5, 0.04, 10.0, 8,
-                                                         275625.0))
-    assert out[1].dtype == i32 and tuple(out[5].shape) == (10, 192)
-    # K28's two entry points are one kernel
     assert kops.launches["voxel_grid"] == kops.launches["knn_normals"] == 1
-    assert kops.launches["gicp"] == 1 and kops.launches["pnp"] == 3
+    assert kops.launches["gicp"] == 1 and kops.launches["pnp"] == 0
+
+
+def test_pnp_ransac_is_one_launch_of_the_whole_ransac(fake_lib):
+    """K28's one-launch entry: the draws' keys and the gates in, the draws,
+    hypotheses and results out, one ``uz_pnp_ransac`` call; its stamps
+    (int64, reset to (-1, 0, 0, 0)) passed only when asked for."""
+    b, i32 = torch.bool, torch.int32
+    out = kops.pnp_ransac(_meta(10, 256, 3), _meta(10, 256, 2), _meta(10, 256, dtype=b),
+                          _meta(10, 256), _meta(10, 64, 256), 3.6e-5, 0.04, 10.0, 8, 275625.0)
+    assert [c[0] for c in fake_lib.calls] == ["uz_pnp_ransac"]
+    args = fake_lib.calls[0][1]
+    assert len(args) == len(_build.SIGNATURES["uz_pnp_ransac"])
+    assert args[5:13] == pytest.approx((10, 256, 64, 3.6e-5, 0.04, 10.0, 8, 275625.0))
+    assert args[21] is None
+    shapes = [tuple(t.shape) for t in out]
+    assert shapes == [(10, 64, 6), (10, 192, 7), (10, 7), (10,), (10,), (10,), (10,), (10, 192)]
+    assert out[3].dtype == i32 and out[5].dtype == b and out[7].dtype == i32
+    kops.pnp_ransac(_meta(2, 30, 3), _meta(2, 30, 2), _meta(2, 30, dtype=b), None,
+                    _meta(2, 8, 30), 3.6e-5, 0.04, 10.0, 8, 1.0)
+    assert fake_lib.calls[-1][1][3] is None   # no depth: a null pointer, two families
+    with pytest.raises(TypeError, match="stamps: dtype"):
+        kops.pnp_ransac(_meta(2, 30, 3), _meta(2, 30, 2), _meta(2, 30, dtype=b), None,
+                        _meta(2, 8, 30), 3.6e-5, 0.04, 10.0, 8, 1.0, stamps=_meta(2, 4))
+    assert kops.launches["pnp"] == 2
 
 
 def test_registration_kernel_argument_checks_raise(fake_lib):
-    b, i32 = torch.bool, torch.int32
+    b = torch.bool
     with pytest.raises(ValueError, match="max_out"):
         kops.voxel_grid(_meta(10, 3), _meta(10, 3), _meta(10, dtype=b), 20.0, 4096)
     with pytest.raises(TypeError, match="valid: dtype"):
@@ -1087,18 +1100,17 @@ def test_registration_kernel_argument_checks_raise(fake_lib):
         kops.gicp(_meta(8, 3), _meta(8, 3), _meta(8, dtype=b), _meta(2, 16, 3), _meta(2, 16, 3),
                   _meta(2, 16, dtype=b), _meta(2, 16, 3), _meta(7), 20, 0.04, 0.002, 0.3, 1.0, 0.5)
     with pytest.raises(ValueError, match="keys: shape"):
-        kops.pnp_hypotheses(_meta(2, 30, 3), _meta(2, 30, 2), _meta(2, 30, dtype=b), None,
-                            _meta(2, 8, 31))
+        kops.pnp_ransac(_meta(2, 30, 3), _meta(2, 30, 2), _meta(2, 30, dtype=b), None,
+                        _meta(2, 8, 31), 3.6e-5, 0.04, 10.0, 8, 1.0)
+    with pytest.raises(ValueError, match="2049 correspondences"):
+        kops.pnp_ransac(_meta(1, 2049, 3), _meta(1, 2049, 2), _meta(1, 2049, dtype=b),
+                        _meta(1, 2049), _meta(1, 16384, 2049), 3.6e-5, 0.04, 10.0, 8, 1.0)
+    with pytest.raises(ValueError, match="a vote holds"):
+        kops.pnp_ransac(_meta(1, 30, 3), _meta(1, 30, 2), _meta(1, 30, dtype=b), _meta(1, 30),
+                        _meta(1, 349526, 30), 3.6e-5, 0.04, 10.0, 8, 1.0)
     with pytest.raises(ValueError, match="a draw takes 6"):
-        kops.pnp_hypotheses(_meta(2, 5, 3), _meta(2, 5, 2), _meta(2, 5, dtype=b), None,
-                            _meta(2, 8, 5))
-    with pytest.raises(ValueError, match="192 hypotheses for 32 draws"):
-        kops.pnp_refine(_meta(2, 30, 3), _meta(2, 30, 2), _meta(2, 30, dtype=b), _meta(2, 30),
-                        _meta(2, 32, 6, dtype=i32), _meta(2, 192, 7), 3.6e-5, 0.04, 10.0, 8, 1.0)
-    with pytest.raises(ValueError, match="shared memory"):
-        kops.pnp_refine(_meta(1, 2048, 3), _meta(1, 2048, 2), _meta(1, 2048, dtype=b),
-                        _meta(1, 2048), _meta(1, 16384, 6, dtype=i32), _meta(1, 49152, 7), 3.6e-5,
-                        0.04, 10.0, 8, 1.0)
+        kops.pnp_ransac(_meta(2, 5, 3), _meta(2, 5, 2), _meta(2, 5, dtype=b), None,
+                        _meta(2, 8, 5), 3.6e-5, 0.04, 10.0, 8, 1.0)
     assert fake_lib.calls == []
 
 

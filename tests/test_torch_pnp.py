@@ -6,14 +6,17 @@ the keyframe step runs it.  Held, with their reasons:
 
 - the draws exactly (the 6 largest keys over the valid entries, ties to the
   lower index);
-- ``_dlt_pose`` and ``_homography_pose`` per draw on non-planar problems:
-  the median draw within 1e-5 and every draw within 1e-3 (a noisy 6-point
-  system's two smallest singular values can lie close, and LAPACK's float32
-  SVD and the port's one-sided Jacobi then split them differently);
+- ``_dlt_pose`` and ``_homography_pose`` per draw on non-planar problems,
+  with the one-sided Jacobi's column pairs in either order (K28's parallel
+  rounds, the port's default, or cyclic): the median draw within 1e-5 and
+  every draw within 1e-3 (a noisy 6-point system's two smallest singular
+  values can lie close, and LAPACK's float32 SVD and the port's one-sided
+  Jacobi then split them differently);
 - ``pnp_ransac`` with and without depth: consensus and ok exactly, the pose
   within 1e-4 (8 Gauss-Newton steps whose 6x6 solves LAPACK and the port's
   LU round differently), the mse within 1e-4 relative, and test_pnp.py's
-  bars on the port's result;
+  bars on the port's result; the draws and best hypothesis the same with
+  either Jacobi order, and the pose within the same 1e-4;
 - on a wall (every draw coplanar) the DLT's null space has more than one
   dimension and its pose is arbitrary on both sides: a draw whose DLT poses
   differ must have its 12x12 system's two smallest singular values both
@@ -108,28 +111,64 @@ def test_pnp_ransac_matches_jax(case, depth):
         assert int(rt.consensus) <= 40
 
 
-def _per_draw(X, uv, valid, key, H):
+def _per_draw(X, uv, valid, key, H, order="parallel"):
     xn = _xn(uv)
     _, samples = _samples(key, valid, H, X.shape[0])
     X, vw = np.asarray(X), np.asarray(valid, np.float32)
     jd = np.stack([np.asarray(jpnp._dlt_pose(X[s], xn[s], vw[s])) for s in samples])
     jh = np.stack([np.asarray(jpnp._homography_pose(X[s], xn[s], vw[s])) for s in samples])
     args = (t(X[samples]), t(xn[samples]), t(vw[samples]))
-    return samples, xn, jd, jh, tpnp._dlt_pose(*args).numpy(), tpnp._homography_pose(*args).numpy()
+    return (samples, xn, jd, jh, tpnp._dlt_pose(*args, order=order).numpy(),
+            tpnp._homography_pose(*args, order=order).numpy())
 
 
+@pytest.mark.parametrize("order", ["cyclic", "parallel"])
 @pytest.mark.parametrize("case", [0, 1], ids=["recovers", "outliers"])
-def test_dlt_and_homography_per_draw_match_jax(case):
+def test_dlt_and_homography_per_draw_match_jax(case, order):
     X, uv, valid, key, H, _ = _problem(case)
-    _, _, jd, jh, td, th = _per_draw(X, uv, valid, key, 32)
+    _, _, jd, jh, td, th = _per_draw(X, uv, valid, key, 32, order)
     for ref, got in ((jd, td), (jh, th)):
         err = np.abs(ref - got).max(axis=1)
         assert np.median(err) <= 1e-5 and err.max() <= 1e-3, err
     # the DLT of a non-planar draw recovers the true pose on noise-free data
     pose, Xc, uvc = jtests.make_problem(jtests.KEY, noise_px=0.0)
     xn = _xn(uvc)
-    got = tpnp._dlt_pose(t(np.asarray(Xc)[:6]), t(xn[:6]), torch.ones(6)).numpy()
+    got = tpnp._dlt_pose(t(np.asarray(Xc)[:6]), t(xn[:6]), torch.ones(6), order=order).numpy()
     np.testing.assert_allclose(got, np.asarray(pose), atol=2e-3)
+
+
+def test_round_robin_rounds_cover_every_pair_once():
+    """K28's parallel order: each round's pairs disjoint, every pair of the
+    n columns in one round of a sweep (11 rounds of 6 for the DLT's 12, 9 of
+    4 for the homography's 9)."""
+    for n, rounds, per in ((12, 11, 6), (9, 9, 4), (3, 3, 1)):
+        rr = kops.round_robin_pairs(n)
+        assert len(rr) == rounds and all(len(r) == per for r in rr)
+        for r in rr:
+            cols = [c for pq in r for c in pq]
+            assert len(set(cols)) == len(cols) and all(p < q < n for p, q in r)
+        assert sorted(pq for r in rr for pq in r) == [(p, q) for p in range(n)
+                                                       for q in range(p + 1, n)]
+
+
+@pytest.mark.parametrize("order", ["cyclic", "parallel"])
+def test_pnp_ransac_either_jacobi_order_matches_jax(order):
+    """``pnp_ransac`` on CPU tensors (K28's plain version) with either
+    Jacobi order: the same draws and best hypothesis as the other order,
+    and the pose within the module's 1e-4 of JAX's."""
+    X, uv, valid, key, H, _ = _problem(1)
+    d = jlie.pose_apply(_problem(1)[5][None], X)[:, 2]
+    f = jnp.float32
+    rj = _jit(key, X, uv, valid, f(FX), f(FX), f(CX), f(CY), n_hypotheses=H, depth=d)
+    keys = t(_samples(key, valid, H, X.shape[0])[0])[None]
+    thresh2, f_mean2 = tpnp.thresholds(FX, FX, 3.0)
+    args = (t(X)[None], t(_xn(uv))[None], t(valid)[None], t(d)[None], keys, thresh2,
+            float(np.float32(0.04)), 15.0, 8, f_mean2)
+    got = kops.pnp_ransac_plain(*args, order=order)
+    other = kops.pnp_ransac_plain(*args, order="parallel" if order == "cyclic" else "cyclic")
+    assert torch.equal(got[0], other[0]) and int(got[6]) == int(other[6])
+    assert int(got[3]) == int(rj.consensus) and bool(got[5]) == bool(rj.ok)
+    np.testing.assert_allclose(got[2][0].numpy(), np.asarray(rj.pose), atol=1e-4)
 
 
 def test_coplanar_draws_name_the_degenerate_dlt():

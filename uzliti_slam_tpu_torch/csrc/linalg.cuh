@@ -2,9 +2,9 @@
 // (ransac_rigid.cu), K27 (gicp.cu) and K28 (pnp.cu): the Shepperd
 // quaternion of a rotation matrix (lie.matrix_to_quat), the proper rotation
 // of a 3x3 by one-sided cyclic Jacobi (the Kabsch optimum; the reference
-// takes it from an SVD), a 6x6 solve by LU with partial pivoting, a
-// fixed-order block reduction of per-thread float sums, and a fixed-order
-// warp reduction (float or double).  No library call:
+// takes it from an SVD), a 6x6 solve by LU with partial pivoting in
+// registers, and fixed-order warp reductions (a reduce-scatter of up to 32
+// floats; a butterfly of float or double).  No library call:
 // cuSOLVER's solves check an info flag on the host.
 #pragma once
 
@@ -43,10 +43,33 @@ __device__ __forceinline__ void normalize3(float v[3]) {
   for (int i = 0; i < 3; ++i) v[i] = v[i] / n;
 }
 
+// The rotation (c, s) = (cs, sn) of a one-sided Jacobi pair from alpha,
+// beta, gamma: IEEE divisions and square roots (kFast false: K7's, which
+// its plain version mirrors), or the hardware's reciprocal and reciprocal
+// square root (kFast true: K28's; a few ulps in (c, s) scale the pair's
+// columns alike and leave them orthogonal).
+template <bool kFast>
+__device__ __forceinline__ void jacobi_rotation(float alpha, float beta, float gamma, float& cs,
+                                                float& sn) {
+  if (kFast) {
+    const float zeta = __fdividef(beta - alpha, 2.f * gamma);
+    const float q = fmaf(zeta, zeta, 1.f);
+    const float root = q < 3.0e38f ? q * rsqrtf(q) : fabsf(zeta);   // sqrt(1 + zeta^2)
+    const float t = __fdividef(copysignf(1.f, zeta), fabsf(zeta) + root);
+    cs = rsqrtf(fmaf(t, t, 1.f));
+    sn = cs * t;
+    return;
+  }
+  const float zeta = (beta - alpha) / (2.f * gamma);
+  const float t = copysignf(1.f, zeta) / (fabsf(zeta) + sqrtf(1.f + zeta * zeta));
+  cs = 1.f / sqrtf(1.f + t * t);
+  sn = cs * t;
+}
+
 // One one-sided Jacobi rotation of columns p < q of A (V alongside); false
 // where the two are already orthogonal.  Compile-time p and q keep A and V
 // in registers (a run-time column index puts them in local memory).
-template <int p, int q>
+template <int p, int q, bool kFast = false>
 __device__ __forceinline__ bool jacobi_pair(float (&A)[3][3], float (&V)[3][3]) {
   float alpha = 0.f, beta = 0.f, gamma = 0.f;
 #pragma unroll
@@ -55,10 +78,11 @@ __device__ __forceinline__ bool jacobi_pair(float (&A)[3][3], float (&V)[3][3]) 
     beta += A[i][q] * A[i][q];
     gamma += A[i][p] * A[i][q];
   }
-  if (!(fabsf(gamma) > 1e-7f * sqrtf(alpha * beta))) return false;
-  const float zeta = (beta - alpha) / (2.f * gamma);
-  const float t = copysignf(1.f, zeta) / (fabsf(zeta) + sqrtf(1.f + zeta * zeta));
-  const float cs = 1.f / sqrtf(1.f + t * t), sn = cs * t;
+  if (kFast ? !(gamma * gamma > 1e-14f * (alpha * beta))
+            : !(fabsf(gamma) > 1e-7f * sqrtf(alpha * beta)))
+    return false;
+  float cs, sn;
+  jacobi_rotation<kFast>(alpha, beta, gamma, cs, sn);
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     const float ap = A[i][p], aq = A[i][q];
@@ -78,7 +102,9 @@ __device__ __forceinline__ float pick3(const float x[3], int k) {
 
 // The proper rotation of C = U S V^T: R = U diag(1, 1, sign(det U det V))
 // V^T (Kabsch's optimum; the polar factor where det C > 0), by one-sided
-// cyclic Jacobi; returns the singular values' sum.
+// cyclic Jacobi (its rotations by jacobi_rotation<kFast>); returns the
+// singular values' sum.
+template <bool kFast = false>
 __device__ inline float proper_rotation(const float C[3][3], float R[3][3]) {
   float A[3][3], V[3][3];
 #pragma unroll
@@ -89,9 +115,9 @@ __device__ inline float proper_rotation(const float C[3][3], float R[3][3]) {
       V[i][j] = i == j ? 1.f : 0.f;
     }
   for (int sweep = 0; sweep < kRotationSweeps; ++sweep) {
-    const bool r01 = jacobi_pair<0, 1>(A, V);
-    const bool r02 = jacobi_pair<0, 2>(A, V);
-    const bool r12 = jacobi_pair<1, 2>(A, V);
+    const bool r01 = jacobi_pair<0, 1, kFast>(A, V);
+    const bool r02 = jacobi_pair<0, 2, kFast>(A, V);
+    const bool r12 = jacobi_pair<1, 2, kFast>(A, V);
     if (!(r01 || r02 || r12)) break;
   }
   float sig[3];
@@ -144,53 +170,141 @@ __device__ inline float proper_rotation(const float C[3][3], float R[3][3]) {
 
 // LU with partial pivoting (the first largest pivot) of a 6x6 system, the
 // right-hand side eliminated alongside, then back substitution
-// (kernels/ops.py:lu_solve_plain).
-__device__ inline void lu_solve6(float A[6][6], float b[6], float x[6]) {
+// (kernels/ops.py:lu_solve_plain, which divides where this multiplies by
+// the pivot's correctly rounded reciprocal: the same to a rounding, six
+// divisions in place of 21).  Unrolled, every index a constant: the
+// pivot row is marked by one flag a row (the last row whose magnitude beat
+// the running largest), never by an index, and the exchange is a
+// predicated swap, so A, b and x stay in registers.  Every lane of a warp
+// can solve the same system at once.
+__device__ __forceinline__ void lu_solve6(float (&A)[6][6], float (&b)[6], float (&x)[6]) {
+  float rcp[6];
+#pragma unroll
   for (int k = 0; k < 6; ++k) {
-    int p = k;
+    bool beat[6];
     float mx = fabsf(A[k][k]);
-    for (int i = k + 1; i < 6; ++i)
-      if (fabsf(A[i][k]) > mx) {
-        mx = fabsf(A[i][k]);
-        p = i;
-      }
-    if (p != k) {
-      for (int j = 0; j < 6; ++j) {
-        const float t = A[k][j];
-        A[k][j] = A[p][j];
-        A[p][j] = t;
-      }
-      const float t = b[k];
-      b[k] = b[p];
-      b[p] = t;
-    }
+#pragma unroll
     for (int i = k + 1; i < 6; ++i) {
-      const float l = A[i][k] / A[k][k];
+      beat[i] = fabsf(A[i][k]) > mx;
+      mx = beat[i] ? fabsf(A[i][k]) : mx;
+    }
+    bool later = false;
+#pragma unroll
+    for (int i = 5; i > k; --i) {
+      const bool sw = beat[i] && !later;   // row i holds the first largest
+      later = later || beat[i];
+#pragma unroll
+      for (int j = k; j < 6; ++j) {
+        const float a = A[k][j], c = A[i][j];
+        A[k][j] = sw ? c : a;
+        A[i][j] = sw ? a : c;
+      }
+      const float a = b[k], c = b[i];
+      b[k] = sw ? c : a;
+      b[i] = sw ? a : c;
+    }
+    // one division a pivot: its reciprocal scales the multipliers and, in
+    // the back substitution, the solution's entry (off the critical path)
+    rcp[k] = 1.f / A[k][k];
+#pragma unroll
+    for (int i = k + 1; i < 6; ++i) {
+      const float l = A[i][k] * rcp[k];
+#pragma unroll
       for (int j = k + 1; j < 6; ++j) A[i][j] = A[i][j] - l * A[k][j];
       b[i] = b[i] - l * b[k];
     }
   }
+#pragma unroll
   for (int i = 5; i >= 0; --i) {
     float s = b[i];
+#pragma unroll
     for (int j = i + 1; j < 6; ++j) s = s - A[i][j] * x[j];
-    x[i] = s / A[i][i];
+    x[i] = s * rcp[i];
   }
 }
 
-// Sums each thread's acc[0, N) over a block of T threads into red[q][0], in
-// a fixed tree order (the same result run to run).
-template <int N, int T>
-__device__ inline void block_tree_sum(const float (&acc)[N], float (*red)[T]) {
+// One level of warp_sum_scatter: lanes whose bit O is set keep the upper
+// half of their first 2 O values, the others the lower half, each adding its
+// partner's partials of the half it keeps (O a template constant, so that
+// every index of w is a constant and w stays in registers).
+template <int O>
+__device__ __forceinline__ void scatter_level(float (&w)[32], int lane) {
+  const bool upper = (lane & O) != 0;
 #pragma unroll
-  for (int q = 0; q < N; ++q) red[q][threadIdx.x] = acc[q];
-  __syncthreads();
-  for (int stride = T / 2; stride > 0; stride >>= 1) {
-    if (threadIdx.x < stride) {
-#pragma unroll
-      for (int q = 0; q < N; ++q) red[q][threadIdx.x] = red[q][threadIdx.x] + red[q][threadIdx.x + stride];
-    }
-    __syncthreads();
+  for (int i = 0; i < O; ++i) {
+    const float send = upper ? w[i] : w[i + O];
+    const float keep = upper ? w[i + O] : w[i];
+    w[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
   }
+}
+
+// quat_normalize by the norm's reciprocal (one division in place of four)
+__device__ __forceinline__ void quat_normalize_rcp(float q[4]) {
+  const float n = sqrtf(floor_at(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3], 1e-30f));
+  const float r = 1.f / n;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) q[i] = q[i] * r;
+  if (q[0] < 0.f) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) q[i] = -q[i];
+  }
+}
+
+// se3_exp (lie.cuh) with its divisions by theta, theta^2 and theta^3 and the
+// quaternion's normalisation taken as products with reciprocals, sine and
+// cosine from one sincosf a angle: the same to a rounding, in a fraction of
+// the latency (each IEEE division a slow-path check on the solve's chain).
+// K27's and K28's updates, which their plain versions hold within a
+// tolerance.
+__device__ __forceinline__ void se3_exp_rcp(const float xi[6], float p[7]) {
+  const float* phi = xi + 3;
+  const float theta = safe_norm3(phi);   // >= 1e-15
+  const bool small = theta < kEps;
+  const float t2 = theta * theta;
+  const float inv_t = 1.f / theta, inv_t2 = inv_t * inv_t;
+  float sh, ch, st, ct;
+  sincosf(0.5f * theta, &sh, &ch);
+  sincosf(theta, &st, &ct);
+  // sin(t/2)/t with Taylor fallback 0.5 - t^2/48
+  const float k = small ? 0.5f - t2 * (1.f / 48.f) : sh * inv_t;
+  p[3] = ch;
+  p[4] = k * phi[0];
+  p[5] = k * phi[1];
+  p[6] = k * phi[2];
+  quat_normalize_rcp(p + 3);
+  const float b = small ? 0.5f - t2 * (1.f / 24.f) : (1.f - ct) * inv_t2;
+  const float c = small ? 1.f / 6.f - t2 * (1.f / 120.f) : (theta - st) * (inv_t2 * inv_t);
+  float K[3][3], V[3][3];
+  hat3(phi, K);
+  eye_plus(K, b, c, V);
+  mv3(V, xi, p);
+}
+
+// pose_compose (lie.cuh) with quat_normalize_rcp
+__device__ __forceinline__ void pose_compose_rcp(const float a[7], const float b[7], float o[7]) {
+  float rt[3];
+  quat_rotate(a + 3, b, rt);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) o[i] = a[i] + rt[i];
+  quat_mul(a + 3, b + 3, o + 3);
+  quat_normalize_rcp(o + 3);
+}
+
+// The warp's sums of up to 32 per-lane values by a reduce-scatter butterfly
+// (a fixed order, 31 shuffles in place of 5 a value): after the five levels
+// lane l holds the sum of value l.  All 32 lanes take part.
+template <int N>
+__device__ __forceinline__ float warp_sum_scatter(const float (&v)[N], int lane) {
+  static_assert(N <= 32, "warp_sum_scatter: at most 32 values");
+  float w[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) w[i] = i < N ? v[i] : 0.f;
+  scatter_level<16>(w, lane);
+  scatter_level<8>(w, lane);
+  scatter_level<4>(w, lane);
+  scatter_level<2>(w, lane);
+  scatter_level<1>(w, lane);
+  return w[0];
 }
 
 // Sums each lane's acc[0, N) over a warp by a butterfly of shuffles, a fixed

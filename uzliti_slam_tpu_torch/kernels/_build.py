@@ -90,10 +90,8 @@ SIGNATURES = {
     "uz_voxel_grid": [_P, _P, _P, _I, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "uz_knn_normals": [_P, _P, _I, _I, _P, _P],
     "uz_gicp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F,
-                _P, _P, _P, _P, _P],
-    "uz_pnp_hypotheses": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
-    "uz_pnp_refine": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _F,
-                      _P, _P, _P, _P, _P, _P, _P],
+                _P, _P, _P, _P, _P, _P],
+    "uz_pnp_ransac": [_P] * 5 + [_I] * 3 + [_F, _F, _F, _I, _F] + [_P] * 10,
     "uz_sift_describe": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "uz_l2_top2": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P],
     "uz_uid_slots": [_P, _P, _I, _P, _I, _P, _P],

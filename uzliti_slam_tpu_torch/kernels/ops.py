@@ -80,12 +80,10 @@ bow_query      csrc/bow_query.cu       vocabulary.py:bow_query + bow_score
 voxel_grid     csrc/voxel_grid.cu      ops/gicp.py:voxel_downsample
 knn_normals    csrc/gicp.cu            ops/gicp.py:estimate_normals
 gicp           csrc/gicp.cu            ops/gicp.py:gicp_6d (all iterations)
-pnp            csrc/pnp.cu             ops/pnp.py:pnp_ransac (pnp_hypotheses:
-                                       the draws and the _dlt_pose,
-                                       _homography_pose and kabsch fits;
-                                       pnp_refine: the consensus, argmax and
-                                       Gauss-Newton polish); two wrappers,
-                                       one count
+pnp            csrc/pnp.cu             ops/pnp.py:pnp_ransac (the draws, the
+                                       _dlt_pose, _homography_pose and kabsch
+                                       fits, the consensus, argmax and
+                                       Gauss-Newton polish; pnp_ransac)
 sift_describe  csrc/sift_describe.cu   ops/features.py:sift_descriptors (+
                                        _sep_blur radius 1 and
                                        intensity_centroid_angles)
@@ -3206,7 +3204,8 @@ def lu_solve_plain(A, b):
     Gaussian elimination with partial pivoting (the first largest pivot),
     multipliers by division, the right-hand sides eliminated alongside, then
     back substitution (the kernels' 3x3 and 6x6 solves, K18's, K27's and
-    K28's; no ``torch.linalg``)."""
+    K28's, those two multiplying by each pivot's reciprocal: the same to a
+    rounding; no ``torch.linalg``)."""
     vec = b.dim() == A.dim() - 1
     A, b = A.clone(), (b[..., None] if vec else b).clone()
     n = A.shape[-1]
@@ -4047,12 +4046,42 @@ def knn_normals(points, valid, k: int = KNN_K):
 # K27 gicp (the 6-D colored ICP, every iteration in one launch)
 # ---------------------------------------------------------------------------
 
-GICP_MAX_POINTS = 2048   # target points one CTA's shared memory holds with the reductions
+GICP_MAX_POINTS = 2048   # target points a CTA holds (48 bytes each: kMaxTargets in csrc/gicp.cu)
+
+
+def argmin_key_plain(d):
+    """The high word of K27's 64-bit merge key of distances d: 0 for a NaN,
+    else d in unsigned total order (−0 as +0) plus 1, as int64.  With the
+    index as the low word, an unsigned minimum over a row's keys is the
+    first NaN, else the first smallest entry: ``first_argmin_plain``."""
+    d = torch.where(d == 0, 0.0, d).to(torch.float32).contiguous()
+    u = d.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = torch.where(u >= 0x80000000, u ^ 0xFFFFFFFF, u | 0x80000000)
+    return torch.where(torch.isnan(d), 0, u + 1)
+
+
+def first_argmin_plain(d):
+    """The index K27's key rule picks in each row of d (..., N): the least
+    (``argmin_key_plain``, index) pair, i.e. ``torch.argmin``'s choice."""
+    return torch.argmin(argmin_key_plain(d), dim=-1)
 
 
 def _gicp_pairs(moved, dst):
     d = moved[..., :, None, :] - dst[..., None, :, :]
     return sum_sq_fma(d[..., 0], d[..., 1], d[..., 2])
+
+
+def gicp_first_matches_plain(src, src_lab, dst, dst_lab, dst_valid, init, color_weight: float):
+    """Each source point's target in gicp_plain's first iteration (B, M):
+    the first argmin of fma(w, d_Lab, d_xyz) over the valid targets at the
+    initial poses, +inf at the others."""
+    from uzliti_slam_tpu_torch.ops import lie
+
+    B = dst.shape[0]
+    d_col = _gicp_pairs(src_lab[None].expand(B, -1, -1), dst_lab)
+    moved = lie.pose_apply(init[:, None], src[None])
+    d6 = fma_plain(torch.full_like(d_col, color_weight), d_col, _gicp_pairs(moved, dst))
+    return torch.argmin(torch.where(dst_valid[:, None, :], d6, torch.inf), dim=-1).to(torch.int32)
 
 
 def gicp_plain(src, src_lab, src_valid, dst, dst_lab, dst_valid, normals, init, iterations: int,
@@ -4103,23 +4132,32 @@ def gicp_plain(src, src_lab, src_valid, dst, dst_lab, dst_valid, normals, init, 
 
 
 def gicp(src, src_lab, src_valid, dst, dst_lab, dst_valid, normals, init, iterations: int,
-         max_corr2: float, color_weight: float, min_fraction: float, max_t: float, max_r: float):
-    """K27: one CTA per target cloud, the target (points, Lab, normals) in
-    shared memory, one thread per source point, every iteration, the audit
-    and the gates in one launch."""
+         max_corr2: float, color_weight: float, min_fraction: float, max_t: float, max_r: float,
+         matches=None):
+    """K27: a thread-block cluster per target cloud (8 CTAs of 512), the
+    target (position and flag, Lab, normal: 48 bytes a point) in every CTA's
+    shared memory, 16 lanes a source point's search merged by the
+    first-argmin key (``argmin_key_plain``), the 27 sums in a fixed order
+    across the cluster and warp 0's 6x6 solve; every iteration, the audit
+    and the gates in one launch.  ``matches`` (B, M) int32 on the card, or None:
+    receives each source point's target in the first iteration (the
+    argmin ``gicp_first_matches_plain`` gives)."""
     if src.device.type == "cpu":
+        if matches is not None:
+            matches.copy_(gicp_first_matches_plain(src, src_lab, dst, dst_lab, dst_valid, init,
+                                                   color_weight))
         return gicp_plain(src, src_lab, src_valid, dst, dst_lab, dst_valid, normals, init,
                           iterations, max_corr2, color_weight, min_fraction, max_t, max_r)
     dev, f32 = src.device, torch.float32
     M, (B, N, _) = src.shape[0], dst.shape
     if not 0 < N <= GICP_MAX_POINTS:
         raise ValueError(f"gicp: {N} target points, the kernel takes 1..{GICP_MAX_POINTS}")
-    _smem_check("gicp", 37 * N + 27 * 4 * 256)
     ptrs = [_check("src", src, (M, 3), f32, dev), _check("src_lab", src_lab, (M, 3), f32, dev),
             _check("src_valid", src_valid, (M,), torch.bool, dev),
             _check("dst", dst, (B, N, 3), f32, dev), _check("dst_lab", dst_lab, (B, N, 3), f32, dev),
             _check("dst_valid", dst_valid, (B, N), torch.bool, dev),
             _check("normals", normals, (B, N, 3), f32, dev), _check("init", init, (B, 7), f32, dev)]
+    matches_p = None if matches is None else _check("matches", matches, (B, M), torch.int32, dev)
     lib = _build.load()
     pose = torch.empty(B, 7, dtype=f32, device=dev)
     fraction = torch.empty(B, dtype=f32, device=dev)
@@ -4127,49 +4165,80 @@ def gicp(src, src_lab, src_valid, dst, dst_lab, dst_valid, normals, init, iterat
     ok = torch.empty(B, dtype=torch.bool, device=dev)
     err = lib.uz_gicp(*ptrs, B, M, N, int(iterations), float(max_corr2), float(color_weight),
                       float(min_fraction), float(max_t), float(max_r), pose.data_ptr(),
-                      fraction.data_ptr(), mse.data_ptr(), ok.data_ptr(), _stream(dev))
+                      fraction.data_ptr(), mse.data_ptr(), ok.data_ptr(), matches_p, _stream(dev))
     _raise_on(err, "gicp")
     launches["gicp"] += 1
     return pose, fraction, mse, ok
 
 
 # ---------------------------------------------------------------------------
-# K28 pnp (the PnP RANSAC: hypotheses, then consensus and refinement)
+# K28 pnp (the PnP RANSAC: draws, fits, consensus and polish in one launch)
 # ---------------------------------------------------------------------------
 
 PNP_SAMPLE = 6          # correspondences a hypothesis is fitted to
 SVD_SWEEPS = 12         # one-sided Jacobi sweeps at most (kSvdSweeps in csrc/pnp.cu)
 SVD_TOL = 1e-7          # a pair is rotated where |a_p·a_q| > SVD_TOL·|a_p||a_q|
-PNP_MAX_POINTS = 2048   # correspondences one CTA's shared memory holds
+PNP_MAX_POINTS = 2048   # correspondences a CTA stages (33 bytes each: kMaxPoints in csrc/pnp.cu)
+PNP_MAX_HYPOTHESES = 1 << 20   # hypotheses a candidate (a vote's low 20 bits: kVoteBits)
+JACOBI_ORDERS = ("cyclic", "parallel")
 
 
-def jacobi_svd_plain(A, sweeps: int = SVD_SWEEPS):
-    """One-sided (Hestenes) cyclic Jacobi on (..., m, n): column pairs (p, q)
-    in row-major order are rotated, with V, until they are orthogonal
-    (|γ| ≤ SVD_TOL·√(αβ)), at most ``sweeps`` times; a sweep that rotates
-    no pair of any matrix ends it (the kernels stop each matrix at its own
-    such sweep, which changes nothing after).  Returns (A·V (..., m, n), V
-    (..., n, n), σ (..., n) the column norms of A·V, unsorted)."""
+def round_robin_pairs(n: int) -> list:
+    """K28's parallel order of the one-sided Jacobi's column pairs: the
+    rounds of a round-robin over n + (n odd) slots (slot P − 1 meets r in
+    round r, and slot j meets (2r − j) mod (P − 1), or P − 1 where that is
+    j), each round a list of disjoint (p, q), p < q, without the padding
+    slot: 11 rounds of 6 pairs for n = 12, 9 rounds of 4 for n = 9."""
+    P = n + (n & 1)
+    m = P - 1
+    rounds = []
+    for r in range(m):
+        pairs = []
+        for j in range(P):
+            k = r if j == m else ((2 * r - j) % m if (2 * r - j) % m != j else m)
+            if j < k < n:
+                pairs.append((j, k))
+        rounds.append(pairs)
+    return rounds
+
+
+def jacobi_svd_plain(A, sweeps: int = SVD_SWEEPS, order: str = "cyclic"):
+    """One-sided (Hestenes) Jacobi on (..., m, n): column pairs (p, q) are
+    rotated, with V, until they are orthogonal (|γ| ≤ SVD_TOL·√(αβ)), at
+    most ``sweeps`` times; a sweep that rotates no pair of any matrix ends
+    it (the kernels stop each matrix at its own such sweep, which changes
+    nothing after).  ``order`` "cyclic" takes the pairs one after another in
+    row-major order (``uz::proper_rotation``'s); "parallel" rotates the
+    disjoint pairs of each ``round_robin_pairs`` round at once (K28's
+    (12, 12) and (12, 9) systems).  Returns (A·V (..., m, n), V (..., n,
+    n), σ (..., n) the column norms of A·V, unsorted)."""
+    if order not in JACOBI_ORDERS:
+        raise ValueError(f"jacobi_svd_plain: order {order!r}, one of {JACOBI_ORDERS}")
     m, n = A.shape[-2:]
     eye = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape[:-2] + (n, n))
     AV = torch.cat([A, eye], dim=-2)          # A's rows over V's: one rotation for both
+    if order == "cyclic":
+        rounds = [[(p, q)] for p in range(n - 1) for q in range(p + 1, n)]
+    else:
+        rounds = round_robin_pairs(n)
     for _ in range(sweeps):
         rotated = False
-        for p in range(n - 1):
-            for q in range(p + 1, n):
-                cp, cq = AV[..., :, p], AV[..., :, q]
-                ap, aq = cp[..., :m], cq[..., :m]
-                alpha, beta, gamma = (ap * ap).sum(-1), (aq * aq).sum(-1), (ap * aq).sum(-1)
-                rot = gamma.abs() > SVD_TOL * torch.sqrt(alpha * beta)
-                rotated = rotated or bool(rot.any())
-                zeta = (beta - alpha) / (2.0 * torch.where(rot, gamma, torch.ones_like(gamma)))
-                t = (torch.where(zeta >= 0, 1.0, -1.0)
-                     / (zeta.abs() + torch.sqrt(1.0 + zeta * zeta)))
-                t = torch.where(rot, t, 0.0)
-                c = 1.0 / torch.sqrt(1.0 + t * t)
-                s = (c * t)[..., None]
-                c = c[..., None]
-                AV[..., :, p], AV[..., :, q] = c * cp - s * cq, s * cp + c * cq
+        for pairs in rounds:
+            p = torch.tensor([pq[0] for pq in pairs], device=A.device)
+            q = torch.tensor([pq[1] for pq in pairs], device=A.device)
+            cp, cq = AV[..., :, p], AV[..., :, q]
+            ap, aq = cp[..., :m, :], cq[..., :m, :]
+            alpha, beta, gamma = (ap * ap).sum(-2), (aq * aq).sum(-2), (ap * aq).sum(-2)
+            rot = gamma.abs() > SVD_TOL * torch.sqrt(alpha * beta)
+            rotated = rotated or bool(rot.any())
+            zeta = (beta - alpha) / (2.0 * torch.where(rot, gamma, torch.ones_like(gamma)))
+            t = (torch.where(zeta >= 0, 1.0, -1.0)
+                 / (zeta.abs() + torch.sqrt(1.0 + zeta * zeta)))
+            t = torch.where(rot, t, 0.0)
+            c = 1.0 / torch.sqrt(1.0 + t * t)
+            s = (c * t)[..., None, :]
+            c = c[..., None, :]
+            AV[..., :, p], AV[..., :, q] = c * cp - s * cq, s * cp + c * cq
         if not rotated:
             break
     A, V = AV[..., :m, :], AV[..., m:, :]
@@ -4213,10 +4282,11 @@ def _det3(M):
             + M[..., 0, 2] * (M[..., 1, 0] * M[..., 2, 1] - M[..., 1, 1] * M[..., 2, 0]))
 
 
-def null_vector_plain(A):
+def null_vector_plain(A, order: str = "parallel"):
     """The right singular vector of the smallest singular value of (..., m,
-    n) matrices (the first on a tie), by ``jacobi_svd_plain``."""
-    _, V, sig = jacobi_svd_plain(A)
+    n) matrices (the first on a tie), by ``jacobi_svd_plain`` in ``order``
+    (K28's parallel rounds by default)."""
+    _, V, sig = jacobi_svd_plain(A, order=order)
     j = torch.argmin(sig, dim=-1)
     return torch.gather(V, -1, j[..., None, None].expand(V.shape[:-1] + (1,)))[..., 0]
 
@@ -4231,14 +4301,15 @@ def dlt_system_plain(X, xn, w):
     return torch.cat([r1 * w[..., None], r2 * w[..., None]], dim=-2)
 
 
-def dlt_pose_plain(X, xn, w):
+def dlt_pose_plain(X, xn, w, order: str = "parallel"):
     """``uzliti_slam_tpu/ops/pnp.py:_dlt_pose`` on (..., n, ·) samples: the
-    (2n, 12) system, its null vector, the det(M₃) sign folded into M, the
-    proper polar factor of M₃ and t = M₄ / max(Σσ/3, 1e-12)."""
+    (2n, 12) system, its null vector (Jacobi in ``order``), the det(M₃) sign
+    folded into M, the proper polar factor of M₃ and t = M₄ / max(Σσ/3,
+    1e-12)."""
     from uzliti_slam_tpu_torch.ops import lie
 
     A = dlt_system_plain(X, xn, w)
-    M = null_vector_plain(A).reshape(A.shape[:-2] + (3, 4))
+    M = null_vector_plain(A, order).reshape(A.shape[:-2] + (3, 4))
     M = M * torch.where(_det3(M[..., :3]) < 0, -1.0, 1.0)[..., None, None]
     R, ssum = proper_rotation_plain(M[..., :3])
     t = M[..., 3] / torch.clamp(ssum / 3.0, min=1e-12)[..., None]
@@ -4249,21 +4320,22 @@ def _norm3(v):
     return torch.sqrt((v * v).sum(-1))
 
 
-def homography_pose_plain(X, xn, w):
+def homography_pose_plain(X, xn, w, order: str = "parallel"):
     """``uzliti_slam_tpu/ops/pnp.py:_homography_pose`` on (..., n, ·)
     samples: the weighted centroid, the plane's two largest singular
-    directions (one-sided Jacobi of the 6x3 spread), the (2n, 9) system's
-    null vector H, σ = sgn(H₂₂), Gram-Schmidt of the scaled columns, and
-    the world-to-camera rotation completed through the plane normal."""
+    directions (cyclic one-sided Jacobi of the 6x3 spread), the (2n, 9)
+    system's null vector H (Jacobi in ``order``), σ = sgn(H₂₂), Gram-Schmidt
+    of the scaled columns, and the world-to-camera rotation completed
+    through the plane normal."""
     from uzliti_slam_tpu_torch.ops import lie
 
     wsum = torch.clamp(w.sum(-1), min=1e-6)
     c0 = (X * w[..., None]).sum(-2) / wsum[..., None]
     _, V, sig = jacobi_svd_plain((X - c0[..., None, :]) * w[..., None])
-    order = torch.sort(sig, dim=-1, descending=True, stable=True).indices
+    by_sig = torch.sort(sig, dim=-1, descending=True, stable=True).indices
 
     def col(i):
-        return torch.gather(V, -1, order[..., i, None, None].expand(V.shape[:-1] + (1,)))[..., 0]
+        return torch.gather(V, -1, by_sig[..., i, None, None].expand(V.shape[:-1] + (1,)))[..., 0]
 
     e1, e2 = col(0), col(1)
     d = X - c0[..., None, :]
@@ -4273,7 +4345,7 @@ def homography_pose_plain(X, xn, w):
     r1 = torch.stack([px, py, o, z0, z0, z0, -x * px, -x * py, -x], dim=-1)
     r2 = torch.stack([z0, z0, z0, px, py, o, -y * px, -y * py, -y], dim=-1)
     A = torch.cat([r1 * w[..., None], r2 * w[..., None]], dim=-2)
-    H = null_vector_plain(A).reshape(A.shape[:-2] + (3, 3))
+    H = null_vector_plain(A, order).reshape(A.shape[:-2] + (3, 3))
     s = torch.sqrt(_norm3(H[..., :, 0]) * _norm3(H[..., :, 1])) + 1e-12
     sigma = torch.where(H[..., 2, 2] > 0, 1.0, -1.0)
     Hs = sigma[..., None, None] * H / s[..., None, None]
@@ -4314,13 +4386,14 @@ def pnp_pick(t, samples):
         B, H, n, t.shape[-1])
 
 
-def pnp_hypotheses_plain(X, xn, valid, depth, keys):
-    """Plain version of K28's first entry point: per candidate b and draw h
+def pnp_hypotheses_plain(X, xn, valid, depth, keys, order: str = "parallel"):
+    """Plain version of K28's draws and fits: per candidate b and draw h
     the 6 largest keys over the valid correspondences (−1e9 elsewhere, ties
     to the lower index), then the DLT, homography and (with ``depth``)
-    Kabsch hypotheses of those 6.  X (B, M, 3), xn (B, M, 2), valid (B, M),
-    depth (B, M) or None, keys (B, H, M).  Returns (samples (B, H, 6)
-    int32, poses (B, F·H, 7), family-major, F = 3 with depth, else 2)."""
+    Kabsch hypotheses of those 6, the null vectors by Jacobi in ``order``.
+    X (B, M, 3), xn (B, M, 2), valid (B, M), depth (B, M) or None, keys (B,
+    H, M).  Returns (samples (B, H, 6) int32, poses (B, F·H, 7),
+    family-major, F = 3 with depth, else 2)."""
     scores = torch.where(valid[:, None, :], keys, -1e9)
     samples = largest_k(scores, PNP_SAMPLE)[1]
 
@@ -4328,7 +4401,7 @@ def pnp_hypotheses_plain(X, xn, valid, depth, keys):
         return pnp_pick(t, samples)
 
     Xs, xs, ws = pick(X), pick(xn), pick(valid).to(X.dtype)
-    poses = [dlt_pose_plain(Xs, xs, ws), homography_pose_plain(Xs, xs, ws)]
+    poses = [dlt_pose_plain(Xs, xs, ws, order), homography_pose_plain(Xs, xs, ws, order)]
     if depth is not None:
         X_cam = torch.cat([xn * depth[..., None], depth[..., None]], dim=-1)
         poses.append(kabsch_pose_plain(Xs, pick(X_cam), pick(valid & (depth > 0.05)).to(X.dtype)))
@@ -4361,8 +4434,8 @@ def _pnp_inliers(pose, X, xn, valid, depth, thresh2: float, depth_tol: float):
 
 def pnp_refine_plain(X, xn, valid, depth, samples, poses, thresh2: float, depth_tol: float,
                      min_consensus: float, iterations: int, f_mean2: float):
-    """Plain version of K28's second entry point (``pnp_ransac`` after its
-    hypotheses): the (B, K, M) consensus, −1 where a sample holds an
+    """Plain version of K28's consensus and polish (``pnp_ransac`` after
+    its hypotheses): the (B, K, M) consensus, −1 where a sample holds an
     invalid correspondence, the first argmax, ``iterations`` Gauss-Newton
     steps p ← p ∘ exp(dx) on the best inliers' reprojection rows (and
     measured-depth rows) with the forward-mode Jacobian
@@ -4413,72 +4486,73 @@ def pnp_refine_plain(X, xn, valid, depth, samples, poses, thresh2: float, depth_
     return pose, consensus, mse, ok, best.to(torch.int32), counts
 
 
-def _pnp_inputs(name: str, X, xn, valid, depth, dev):
+def pnp_ransac_plain(X, xn, valid, depth, keys, thresh2: float, depth_tol: float,
+                     min_consensus: float, iterations: int, f_mean2: float,
+                     order: str = "parallel"):
+    """Plain version of K28: ``pnp_hypotheses_plain`` (Jacobi in
+    ``order``), then ``pnp_refine_plain`` of its hypotheses.  Returns
+    (samples, poses, pose, consensus, mse, ok, best, counts)."""
+    samples, poses = pnp_hypotheses_plain(X, xn, valid, depth, keys, order)
+    return (samples, poses, *pnp_refine_plain(X, xn, valid, depth, samples, poses, thresh2,
+                                              depth_tol, min_consensus, iterations, f_mean2))
+
+
+_STAMPS_RESET = {}
+
+
+def _stamps_reset(dev):
+    """(−1, 0, 0, 0) on the card, made once per device (no host copy a call)."""
+    if dev not in _STAMPS_RESET:
+        _STAMPS_RESET[dev] = torch.tensor([-1, 0, 0, 0], dtype=torch.int64, device=dev)
+    return _STAMPS_RESET[dev]
+
+
+def pnp_ransac(X, xn, valid, depth, keys, thresh2: float, depth_tol: float,
+               min_consensus: float, iterations: int, f_mean2: float, stamps=None):
+    """K28 in one launch: a thread-block cluster per candidate (8 CTAs, 8
+    draws a CTA a pass); a warp per (two draws, family) makes its draws,
+    fits them (the (12, 12) and (12, 9) systems a column a lane, Jacobi in
+    ``round_robin_pairs`` rounds) and scores them over the correspondences
+    staged in shared memory; the first argmax from each CTA's 32-bit vote;
+    the Gauss-Newton polish in the leader CTA, warp 0 solving; the final
+    audit.  ``stamps`` (B, 4) int64 on the card, or None: the phases'
+    ``%globaltimer`` ns (the first CTA's start, the last fit's end, the
+    last consensus' end, the polish's end; the wrapper resets it).  Returns
+    (samples, poses, pose, consensus, mse, ok, best, counts)."""
+    if X.device.type == "cpu":
+        return pnp_ransac_plain(X, xn, valid, depth, keys, thresh2, depth_tol, min_consensus,
+                                iterations, f_mean2)
+    dev, f32, i32 = X.device, torch.float32, torch.int32
     B, M, _ = X.shape
-    if not 0 < M <= PNP_MAX_POINTS:
-        raise ValueError(f"{name}: {M} correspondences, the kernel takes 1..{PNP_MAX_POINTS}")
-    ptrs = [_check("X", X, (B, M, 3), torch.float32, dev),
-            _check("xn", xn, (B, M, 2), torch.float32, dev),
+    if not PNP_SAMPLE <= M <= PNP_MAX_POINTS:
+        raise ValueError(f"pnp_ransac: {M} correspondences, the kernel takes "
+                         f"{PNP_SAMPLE}..{PNP_MAX_POINTS} (a draw takes {PNP_SAMPLE})")
+    ptrs = [_check("X", X, (B, M, 3), f32, dev), _check("xn", xn, (B, M, 2), f32, dev),
             _check("valid", valid, (B, M), torch.bool, dev),
-            None if depth is None else _check("depth", depth, (B, M), torch.float32, dev)]
-    return B, M, ptrs
-
-
-def pnp_hypotheses(X, xn, valid, depth, keys):
-    """K28, first entry: one warp per (candidate, draw): the top 6 keys by
-    warp-wide selection, the DLT (12x12), plane (6x3) and homography (12x9)
-    systems by one-sided Jacobi with rows on lanes, the 3x3 polar and
-    Kabsch rotations in registers."""
-    if X.device.type == "cpu":
-        return pnp_hypotheses_plain(X, xn, valid, depth, keys)
-    dev = X.device
-    B, M, ptrs = _pnp_inputs("pnp_hypotheses", X, xn, valid, depth, dev)
-    if M < PNP_SAMPLE:
-        raise ValueError(f"pnp_hypotheses: {M} correspondences, a draw takes {PNP_SAMPLE}")
+            None if depth is None else _check("depth", depth, (B, M), f32, dev)]
     H = keys.shape[1]
-    keys_p = _check("keys", keys, (B, H, M), torch.float32, dev)
-    F = 2 if depth is None else 3
+    keys_p = _check("keys", keys, (B, H, M), f32, dev)
+    K = (2 if depth is None else 3) * H
+    if K > PNP_MAX_HYPOTHESES:
+        raise ValueError(f"pnp_ransac: {K} hypotheses, a vote holds {PNP_MAX_HYPOTHESES}")
+    stamps_p = None
+    if stamps is not None:
+        stamps_p = _check("stamps", stamps, (B, 4), torch.int64, dev)
+        stamps.copy_(_stamps_reset(dev).expand(B, 4))
     lib = _build.load()
-    samples = torch.empty(B, H, PNP_SAMPLE, dtype=torch.int32, device=dev)
-    poses = torch.empty(B, F * H, 7, dtype=torch.float32, device=dev)
-    err = lib.uz_pnp_hypotheses(*ptrs, keys_p, B, M, H, samples.data_ptr(), poses.data_ptr(),
-                                _stream(dev))
-    _raise_on(err, "pnp_hypotheses")
-    launches["pnp"] += 1
-    return samples, poses
-
-
-def pnp_refine(X, xn, valid, depth, samples, poses, thresh2: float, depth_tol: float,
-               min_consensus: float, iterations: int, f_mean2: float):
-    """K28, second entry: one CTA per candidate: the K x M consensus a warp
-    per hypothesis, the first argmax, the Gauss-Newton steps with the
-    Jacobian in forward-mode dual numbers, JᵀJ and Jᵀr reduced in a fixed
-    tree order, a pivoted 6x6 solve by one thread; the final audit."""
-    if X.device.type == "cpu":
-        return pnp_refine_plain(X, xn, valid, depth, samples, poses, thresh2, depth_tol,
-                                min_consensus, iterations, f_mean2)
-    dev, i32 = X.device, torch.int32
-    B, M, ptrs = _pnp_inputs("pnp_refine", X, xn, valid, depth, dev)
-    H, K = samples.shape[1], poses.shape[1]
-    if K % H or K // H != (2 if depth is None else 3):
-        raise ValueError(f"pnp_refine: {K} hypotheses for {H} draws")
-    _smem_check("pnp_refine", 26 * M + 4 * K + 27 * 4 * 256)
-    ptrs += [_check("samples", samples, (B, H, PNP_SAMPLE), i32, dev),
-             _check("poses", poses, (B, K, 7), torch.float32, dev)]
-    lib = _build.load()
-    pose = torch.empty(B, 7, dtype=torch.float32, device=dev)
-    consensus = torch.empty(B, dtype=i32, device=dev)
-    mse = torch.empty(B, dtype=torch.float32, device=dev)
-    ok = torch.empty(B, dtype=torch.bool, device=dev)
-    best = torch.empty(B, dtype=i32, device=dev)
-    counts = torch.empty(B, K, dtype=i32, device=dev)
-    err = lib.uz_pnp_refine(*ptrs, B, M, H, K, float(thresh2), float(depth_tol),
+    samples = torch.empty(B, H, PNP_SAMPLE, dtype=i32, device=dev)
+    poses = torch.empty(B, K, 7, dtype=f32, device=dev)
+    # pose, consensus, mse, ok, best, counts
+    out = (torch.empty(B, 7, dtype=f32, device=dev), torch.empty(B, dtype=i32, device=dev),
+           torch.empty(B, dtype=f32, device=dev), torch.empty(B, dtype=torch.bool, device=dev),
+           torch.empty(B, dtype=i32, device=dev), torch.empty(B, K, dtype=i32, device=dev))
+    err = lib.uz_pnp_ransac(*ptrs, keys_p, B, M, H, float(thresh2), float(depth_tol),
                             float(min_consensus), int(iterations), float(f_mean2),
-                            pose.data_ptr(), consensus.data_ptr(), mse.data_ptr(), ok.data_ptr(),
-                            best.data_ptr(), counts.data_ptr(), _stream(dev))
-    _raise_on(err, "pnp_refine")
+                            samples.data_ptr(), poses.data_ptr(), *(t.data_ptr() for t in out),
+                            stamps_p, _stream(dev))
+    _raise_on(err, "pnp_ransac")
     launches["pnp"] += 1
-    return pose, consensus, mse, ok, best, counts
+    return (samples, poses, *out)
 
 
 # ---------------------------------------------------------------------------

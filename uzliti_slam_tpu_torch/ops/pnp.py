@@ -6,9 +6,8 @@ correspondences drawn by random keys + top-6, fitted by three families — the
 6-point DLT, the planar homography decomposition and, where depth is
 measured, Kabsch against the back-projected observations — then the
 reprojection (and depth) consensus of every hypothesis, the first best, and
-a Gauss-Newton polish on its inliers.  On a CUDA device the draws and fits
-are K28's ``pnp_hypotheses`` and the consensus and polish its
-``pnp_refine``; on CPU tensors their plain versions run.
+a Gauss-Newton polish on its inliers.  On a CUDA device all of it is one
+launch of K28 (``kops.pnp_ransac``); on CPU tensors its plain version runs.
 
 The keys are the reference's ``jax.random.uniform(key, (K, M))``: drawn here
 from a ``torch.Generator``, or injected (``keys=``), so that a test can hand
@@ -33,15 +32,18 @@ class PnpResult(NamedTuple):
     ok: torch.Tensor          # (...) bool
 
 
-def _dlt_pose(X: torch.Tensor, xn: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _dlt_pose(X: torch.Tensor, xn: torch.Tensor, w: torch.Tensor,
+              order: str = "parallel") -> torch.Tensor:
     """6+-point DLT of (..., n, 3) world points, (..., n, 2) normalized
-    coordinates and (..., n) weights -> pose (..., 7)."""
-    return kops.dlt_pose_plain(X, xn, w)
+    coordinates and (..., n) weights -> pose (..., 7); the null vector by
+    one-sided Jacobi in ``order`` (K28's parallel rounds, or "cyclic")."""
+    return kops.dlt_pose_plain(X, xn, w, order)
 
 
-def _homography_pose(X: torch.Tensor, xn: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _homography_pose(X: torch.Tensor, xn: torch.Tensor, w: torch.Tensor,
+                     order: str = "parallel") -> torch.Tensor:
     """Planar pose recovery from a fitted plane and a homography."""
-    return kops.homography_pose_plain(X, xn, w)
+    return kops.homography_pose_plain(X, xn, w, order)
 
 
 def _project_norm(pose: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
@@ -86,9 +88,8 @@ def pnp_ransac(X: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor, fx: float
     keys = keys.reshape(B, n_hypotheses, M).to(torch.float32).contiguous()
     X, valid = X.contiguous(), valid.contiguous()
     thresh2, f_mean2 = thresholds(fx, fy, reproj_thresh_px)
-    samples, poses = kops.pnp_hypotheses(X, xn, valid, depth, keys)
-    pose, consensus, mse, ok, _, _ = kops.pnp_refine(
-        X, xn, valid, depth, samples, poses, thresh2, float(np.float32(depth_tol)),
-        float(min_consensus), refine_iters, f_mean2)
+    _, _, pose, consensus, mse, ok, _, _ = kops.pnp_ransac(
+        X, xn, valid, depth, keys, thresh2, float(np.float32(depth_tol)), float(min_consensus),
+        refine_iters, f_mean2)
     res = PnpResult(pose=pose, consensus=consensus, reproj_mse=mse, ok=ok)
     return PnpResult(*(x[0] for x in res)) if one else res
