@@ -509,8 +509,8 @@ FRONTEND_DEVICE_FUNCTIONS = {"fast_nms": ("fast_nms_levels",),
                              "cluster_labels": ("cluster_block<false>", "cluster_grid<false>"),
                              "components": ("components_cta", "components_grid"),
                              "project_rays": ("project_tiles",),
-                             "merge_pairs": ("row_keys", "greedy_rounds"),
-                             "calib_gn": ("init_theta", "calib_edges", "calib_solve"),
+                             "merge_pairs": ("merge_pairs_kernel",),
+                             "calib_gn": ("calib_cluster",),
                              "bin_min_max": ("bin_points",),
                              "feature_votes": ("node_sims", "topk_sims"),
                              "repository": ("nearest_chunk", "nearest_finish", "desc_hits",
@@ -864,8 +864,7 @@ DEVICE_FUNCTIONS = ("sift_keypoints", "linearize_rows", "hvp_seed",
                     "components_cta", "components_grid", "fast_nms_levels", "grid_global", "grid_cells", "box_blur",
                     "orb_describe_rows", "scan_grid",
                     "match_top2_lanes", "gist_topk_cluster", "bilateral_tile", "icp_cluster",
-                    "row_keys",
-                    "greedy_rounds", "init_theta", "calib_edges", "calib_solve", "bin_points",
+                    "merge_pairs_kernel", "calib_cluster", "bin_points",
                     "voxel_sort_chunks", "voxel_merge", "voxel_accumulate", "voxel_finish",
                     "knn_normals_kernel", "gicp_cluster", "pnp_cluster", "l2_top2_tiles",
                     "uid_slots_kernel", "edge_key_kernel",
@@ -889,25 +888,29 @@ def ptxas_summary(text: str) -> dict:
     return out
 
 
-# torch.cuda._sleep's kernel (ATen's Sleep.cu), which device_profile runs
-# first; the profiles whose trace held it, and all profiles
+# torch.cuda._sleep's kernel (ATen's Sleep.cu): profiled_kernels launches
+# PROFILE_MARKERS short ones before the call.  In a long process a trace
+# loses a few of its device records, nearly always its first ones (4 at
+# this script's phase 3 in one run, none in a fresh process; PERF.md §7,
+# scripts/profile_record_loss.py): a trace that holds a marker has, but
+# once in those probes, kept every kernel of the call.  WARMUP_SEEN counts
+# the profiles that held one, and all profiles.
 PROFILE_WARMUP_KERNEL = "spin_kernel"
+PROFILE_MARKERS = 32
 WARMUP_SEEN = {"held": 0, "profiles": 0}
 
 
-def device_profile(fn) -> tuple[dict, dict]:
-    """One profiled call: (wall ms, summed device-kernel ms, the busy share
-    they give, the device launches and the five kernels with the most
-    device time; every device kernel's name and device ms in the trace)."""
+def profiled_kernels(fn, markers: int = PROFILE_MARKERS) -> tuple[float, list, bool, object]:
+    """One profiled call of ``fn`` after ``markers`` sleep kernels of ~0.1
+    µs and a synchronisation: (its wall s, the trace's device rows other
+    than the markers (``key_averages``), whether the trace held a marker,
+    and the profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        # a short sleep kernel and a synchronisation before the call, left
-        # out of the figures: traces lose kernels at their start (K17, the
-        # keyframe step's first kernel of the port, from some step profiles);
-        # WARMUP_SEEN counts the profiles that held this one
-        torch.cuda._sleep(1000)
+        for _ in range(markers):
+            torch.cuda._sleep(100)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -915,8 +918,32 @@ def device_profile(fn) -> tuple[dict, dict]:
         wall = time.perf_counter() - t0
     cuda = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     kernels = [e for e in cuda if PROFILE_WARMUP_KERNEL not in e.key]
+    held = len(kernels) < len(cuda)
     WARMUP_SEEN["profiles"] += 1
-    WARMUP_SEEN["held"] += len(kernels) < len(cuda)
+    WARMUP_SEEN["held"] += held
+    return wall, kernels, held, prof
+
+
+def whole_profile(fn, attempts: int = 8):
+    """``profiled_kernels`` of ``fn`` until a trace holds a marker, the
+    markers doubled after each that lost them all: (its wall s, device rows
+    and profiler, or None where none of ``attempts`` did; the profiles
+    taken)."""
+    markers = PROFILE_MARKERS
+    for attempt in range(1, attempts + 1):
+        wall, kernels, held, prof = profiled_kernels(fn, markers)
+        if held:
+            return (wall, kernels, prof), attempt
+        markers *= 2
+    return None, attempts
+
+
+def device_profile(fn) -> tuple[dict, dict]:
+    """One profiled call (``profiled_kernels``): (wall ms, summed
+    device-kernel ms, the busy share they give, the device launches and the
+    five kernels with the most device time; every device kernel's name and
+    device ms in the trace)."""
+    wall, kernels, _, _ = profiled_kernels(fn)
     dev_us = sum(e.self_device_time_total for e in kernels)
     if dev_us == 0:
         return {"profile": "not measured (no device time in the trace)"}, {}
@@ -927,6 +954,14 @@ def device_profile(fn) -> tuple[dict, dict]:
              "memcpy_dtod": sum(e.count for e in kernels if e.key.startswith("Memcpy DtoD")),
              "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3 for e in top}},
             {e.key: e.self_device_time_total / 1e3 for e in kernels})
+
+
+def function_hits(key: str, functions) -> list:
+    """The device functions among ``functions`` that a profiled kernel's
+    name is: a plain name matching with any template arguments
+    (``f<...>(``) and a templated one exactly (K29's ``box_blur<1>``)."""
+    plain = re.sub(r"<[^()]*>", "", key)
+    return [f for f in functions if f"::{f}(" in key or f"::{f}(" in plain]
 
 
 # the kernels whose device ms this run reported, and the (kernel, device
@@ -953,9 +988,7 @@ def kernel_device_ms(device_ms: dict, kernels) -> dict:
     for name in kernels:
         total = None
         for key, ms in device_ms.items():
-            plain = re.sub(r"<[^()]*>", "", key)
-            hits = [f for f in FRONTEND_DEVICE_FUNCTIONS[name]
-                    if f"::{f}(" in key or f"::{f}(" in plain]
+            hits = function_hits(key, FRONTEND_DEVICE_FUNCTIONS[name])
             if hits:
                 total = (total or 0.0) + ms
                 MATCHED_FUNCTIONS.update((name, f) for f in hits)
@@ -1408,14 +1441,17 @@ def kernel_work(name: str, args) -> tuple[int, int]:
         return (_nbytes(src, src_valid, dst, dst_valid, init) + B * (4 * 14 + 1),
                 (iterations + 1) * M * (7 * int(dst_valid.sum()) + 60 * B))
     if name == "merge_pairs":
-        # poses, stamps and flags read once, the pairs written once; ~150
-        # operations per pair the rows test (an eligible row against every
-        # eligible newer node: ne·(ne-1)/2 pairs), then the rounds: 8 per
-        # entry of the N·(2·max_pairs - 1) list, max_pairs times
-        pose, stamp, elig, _, _, max_pairs = args
-        ne, n = int(elig.sum()), pose.shape[0]
+        # poses, stamps and flags read once, the pairs written once; what
+        # this data needs (``merge_pair_work``): a stamp compare for every
+        # ordered pair of eligible nodes, the distance test (~9 operations)
+        # for the pairs whose stamps are in order, the rotation gate (~150)
+        # only for those within dist_thresh, then the rounds: 8 a kept key
+        # a round
+        pose, stamp, elig, dist, angle, max_pairs = args
+        w = merge_pair_work(pose, stamp, elig, dist, angle, max_pairs)
         return (_nbytes(pose, stamp, elig) + 9 * max_pairs,
-                150 * ne * (ne - 1) // 2 + 8 * max_pairs * n * (2 * max_pairs - 1))
+                w["eligible_pairs"] + 9 * w["ordered_pairs"] + 150 * w["near_pairs"]
+                + 8 * max_pairs * w["kept_keys"])
     if name == "calib_gn":
         # the edge tables read once per step (iterations + 1 passes), θ and
         # the cost history written once; per active residual group ~40 pose
@@ -1558,6 +1594,56 @@ def kernel_work(name: str, args) -> tuple[int, int]:
         return (_nbytes(a, b, va, vb) + 9 * na,
                 2 * na * nb * d + 2 * (na + nb) * d + 7 * na * nb)
     raise KeyError(name)
+
+
+def merge_pair_work(pose, stamp, eligible, dist_thresh, angle_thresh, max_pairs) -> dict:
+    """The pairs K19's function needs on these inputs, counted with the
+    plain version's gates row block by row block: ordered pairs of eligible
+    nodes, those whose stamps are in order, those of them within
+    dist_thresh, and the keys the rows keep (each row's close pairs, at
+    most 2·max_pairs - 1)."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    n, t, q = pose.shape[0], pose[:, :3], pose[:, 3:]
+    ne = int(eligible.sum())
+    out = {"eligible_pairs": ne * (ne - 1), "ordered_pairs": 0, "near_pairs": 0, "kept_keys": 0}
+    for r0 in range(0, n, 1024):
+        r1 = min(n, r0 + 1024)
+        dt, dr = kops.merge_pair_gates_plain(t[r0:r1, None], q[r0:r1, None], t[None], q[None])
+        ordered = (eligible[r0:r1, None] & eligible[None, :]
+                   & (stamp[r0:r1, None] < stamp[None, :]))
+        near = ordered & (dt < dist_thresh)
+        close = near & (dr < angle_thresh)
+        out["ordered_pairs"] += int(ordered.sum())
+        out["near_pairs"] += int(near.sum())
+        out["kept_keys"] += int(close.sum(1).clamp(max=2 * max_pairs - 1).sum())
+    return out
+
+
+def merge_pairs_all_pairs_bound(args) -> float:
+    """K19's bound as counted before the distance test went first (~150
+    operations for each of ne·(ne-1)/2 pairs, the rounds over N·K slots),
+    kept beside the recount."""
+    pose, _, elig, _, _, max_pairs = args
+    ne, n = int(elig.sum()), pose.shape[0]
+    ops = 150 * ne * (ne - 1) // 2 + 8 * max_pairs * n * (2 * max_pairs - 1)
+    return 1e3 * ops / SCALAR_OPS_PER_S
+
+
+def device_launch_count(fn, functions, calls: int = 4, reads: int = 2):
+    """Device launches a call of the kernels named by ``functions``, read
+    from ``reads`` profiles of ``calls`` calls of ``fn`` that held a marker
+    (``whole_profile``).  A lost record can only lower a count, so the
+    largest is taken: (launches a call, or None where a read found no such
+    profile; the profiles taken)."""
+    best, taken = 0, 0
+    for _ in range(reads):
+        whole, n = whole_profile(lambda: [fn() for _ in range(calls)])
+        taken += n
+        if whole is None:
+            return None, taken
+        best = max(best, sum(e.count for e in whole[1] if function_hits(e.key, functions)))
+    return best / calls, taken
 
 
 def bound(name: str, args) -> dict:
@@ -4715,6 +4801,20 @@ def compare_maintenance_kernels(calls: dict, label: str, trials: int = 7, calls_
         # launch, computed only the reduction)
         row["library_ms"] = None
         row.update(bound_calls(name, cl))
+        if name in ("merge_pairs", "calib_gn"):
+            # one device launch a call, read from a profile; a second launch
+            # on the same inputs gives the same bits
+            a0, kw0 = cl[0]
+            row["rerun_bit_identical"] = same_bits(kernel_fn(*a0, **kw0), kernel_fn(*a0, **kw0))
+            per_call, row["launch_profiles"] = device_launch_count(
+                lambda: kernel_fn(*a0, **kw0), FRONTEND_DEVICE_FUNCTIONS[name])
+            row["device_launches_a_call"] = (
+                "not measured (no whole trace)" if per_call is None else per_call)
+            if name == "merge_pairs":
+                row["bound_ms_all_pairs"] = merge_pairs_all_pairs_bound(a0)
+            check(row["rerun_bit_identical"], f"{name} {label}: a rerun gives other bits")
+            check(per_call == 1.0, f"{name} {label}: {row['device_launches_a_call']} device "
+                  "launches a call")
         log(f"3 kernel {name} {label}", **row)
         if name == "bin_min_max":
             row["cases"] = compare_bin_min_max_cases(cl[0][0][0].device, label)
@@ -4827,11 +4927,92 @@ def merge_10k_phase(phase: str, state) -> dict:
     same = all(bool(torch.equal(a, b)) for a, b in zip(got, ref))
     t = time_call(lambda: kops.merge_pairs(*args), trials=5, calls=2)
     fields = {"n_nodes": int(args[2].sum()), "pairs": int(got[2].sum()), "same_as_plain": same,
-              "kernel_ms": t, **bound("merge_pairs", args)}
+              "kernel_ms": t, **bound("merge_pairs", args),
+              "bound_ms_all_pairs": merge_pairs_all_pairs_bound(args),
+              "cases": compare_merge_pairs_cases(state.graph.device)}
     log(phase, **fields)
     check(same, f"{phase}: K19 differs from its plain version")
     check(fields["pairs"] == 16, f"{phase}: {fields['pairs']} pairs")
     return fields
+
+
+def merge_pairs_cases(device) -> dict:
+    """K19's edge cases, each (pose, stamp, eligible, dist, angle,
+    max_pairs): a 40-node cluster within a few cm (rows with 39 close pairs,
+    above K = 31) and a 200-node one (rows above the 128-key buffer), with
+    max_pairs 16 and 1; NaN and ±inf poses on three noisy laps; exact dt
+    ties on a 0.125 m lattice; three noisy laps with max_pairs 32; and 7,300
+    nodes whose ~29k keys all join one of 4 hubs (equal stamps elsewhere: no
+    other pair) beside 40 nodes 0.15 m apart on a line, so that the last
+    CTA's subset of smallest keys is spent after the hub rounds and the
+    rounds search every row."""
+    from uzliti_slam_tpu_torch.io import synthetic
+
+    rng = np.random.default_rng(SEED + 24)
+
+    def laps(n, seed, **kw):
+        g, _ = synthetic.make_pose_graph(n, node_capacity=n, edge_capacity=4 * n, device=device,
+                                         generator=torch.Generator().manual_seed(seed), **kw)
+        return g.pose.clone(), g.stamp.clone(), g.node_valid.clone()
+
+    def unit_q(m, scale):
+        q = np.array([1.0, 0, 0, 0]) + rng.normal(scale=scale, size=(m, 4))
+        return q / np.linalg.norm(q, axis=1, keepdims=True)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    cases = {}
+    for m in (40, 200):
+        pose = np.concatenate([rng.normal(scale=0.02, size=(m, 3)), unit_q(m, 0.01)], 1)
+        far = np.concatenate([np.arange(24)[:, None] * [3.0, 0, 0] + [10.0, 0, 0],
+                              np.tile([[1.0, 0, 0, 0]], (24, 1))], 1)
+        p = t(np.concatenate([pose, far]))
+        st = t(rng.permutation(m + 24))
+        for mp in (16, 1):
+            cases[f"cluster{m}_max_pairs_{mp}"] = (p, st, torch.ones(m + 24, dtype=torch.bool,
+                                                                    device=device),
+                                                   0.25, 15.0, mp)
+    pose, stamp, valid = laps(60, 3, loops=3.0, radius=1.0, loop_closure_every=7)
+    bad = pose.clone()
+    bad[3, 0], bad[8, 3:] = float("nan"), float("nan")
+    bad[11, 1], bad[17, 2], bad[29, 4] = float("inf"), -float("inf"), float("inf")
+    cases["nan_inf_poses"] = (bad, stamp, valid, 0.25, 15.0, 16)
+    cases["three_laps_max_pairs_32"] = (pose, stamp, valid, 0.3, 25.0, 32)
+    xy = np.stack(np.meshgrid(np.arange(8), np.arange(8)), -1).reshape(-1, 2) * 0.125
+    lattice = np.concatenate([xy, np.zeros((64, 1)), np.tile([[1.0, 0, 0, 0]], (64, 1))], 1)
+    cases["dt_ties_lattice"] = (t(lattice), t(rng.permutation(64)),
+                                torch.ones(64, dtype=torch.bool, device=device), 0.2, 15.0, 16)
+    m = 7300
+    d = rng.uniform(0.01, 0.1, m)
+    u = rng.normal(size=(m, 3))
+    spoke = u / np.linalg.norm(u, axis=1, keepdims=True) * d[:, None]
+    line = np.arange(40)[:, None] * [0.15, 0, 0] + [5.0, 0, 0]
+    xyz = np.concatenate([spoke, np.zeros((4, 3)), line])
+    ident = np.tile([[1.0, 0, 0, 0]], (len(xyz), 1))
+    stamps = np.concatenate([np.zeros(m), np.ones(4), 2.0 + np.arange(40)])
+    cases["hubs_subset_spent"] = (t(np.concatenate([xyz, ident], 1)), t(stamps),
+                                  torch.ones(len(xyz), dtype=torch.bool, device=device),
+                                  0.25, 15.0, 16)
+    return cases
+
+
+def compare_merge_pairs_cases(device) -> dict:
+    """``merge_pairs_cases`` through K19 against its plain version on the
+    card: exactly, and a second launch bit for bit."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    rows = {}
+    for name, args in merge_pairs_cases(device).items():
+        got, ref = kops.merge_pairs(*args), kops.merge_pairs_plain(*args)
+        again = kops.merge_pairs(*args)
+        torch.cuda.synchronize()
+        mism = sum(int((a != b).sum()) for a, b in zip(got, ref))
+        rows[name] = {"nodes": int(args[0].shape[0]), "pairs": int(ref[2].sum()),
+                      "mismatches": mism, "rerun_bit_identical": same_bits(got, again)}
+        check(mism == 0, f"merge_pairs {name}: {mism} entries differ from the plain version")
+        check(rows[name]["rerun_bit_identical"], f"merge_pairs {name}: a rerun gives other bits")
+    return rows
 
 
 def state_cfg(state):
@@ -4988,6 +5169,10 @@ def calibration_phase(phase: str, device, reps: int = 5) -> tuple[dict, dict]:
     _, res = timed_sync_free(slam.calibrate, 1)
     counts = dict(kops.launches)
     t, _ = timed_sync_free(slam.calibrate, reps)
+    per_call, launch_profiles = device_launch_count(slam.calibrate,
+                                                    FRONTEND_DEVICE_FUNCTIONS["calib_gn"])
+    device_launches = "not measured (no whole trace)" if per_call is None else per_call
+    rerun = same_bits(tuple(slam.calibrate()), tuple(res))
     p = res.odom_params.cpu()
     p_true = torch.tensor(CALIB_1K["p_true"])
     n = CALIB_1K["n"]
@@ -5002,6 +5187,8 @@ def calibration_phase(phase: str, device, reps: int = 5) -> tuple[dict, dict]:
     ate_off = float(synthetic.ate_rmse(g_off.pose[:n].cpu(), gt.cpu()))
     fields = {"n_nodes": n, "edges": int(at_truth.num_edges), "calibrate_ms": 1e3 * t,
               "sync_free": True, "launches": {"calib_gn": counts["calib_gn"]},
+              "calib_gn_device_launches": device_launches, "launch_profiles": launch_profiles,
+              "rerun_bit_identical": rerun,
               "odom_params": p.tolist(), "p_true": p_true.tolist(),
               "cost_history_first_last": [float(res.cost_history[0]),
                                           float(res.cost_history[-1])],
@@ -5009,7 +5196,9 @@ def calibration_phase(phase: str, device, reps: int = 5) -> tuple[dict, dict]:
               "ate_calibrated_m": ate_on, "ate_uncalibrated_m": ate_off,
               "raw_measurements_kept": bool(torch.equal(g_on.e_transform, start.e_transform))}
     log(phase, **fields)
-    check(counts["calib_gn"] == 1, f"{phase}: K20 launches {counts['calib_gn']}")
+    check(counts["calib_gn"] == 1 and per_call == 1.0,
+          f"{phase}: K20 launches {counts['calib_gn']}, device launches {device_launches}")
+    check(rerun, f"{phase}: a second calibrate gives other bits")
     check(float((p - p_true).abs().max()) <= 2e-2, f"{phase}: p {p.tolist()}")
     check(c_on < 0.2 * c_off, f"{phase}: χ² {c_on} not below 0.2 x {c_off}")
     check(ate_on < ate_off, f"{phase}: ATE {ate_on} not below {ate_off}")

@@ -44,7 +44,10 @@ CUDA events and queued device ms a call); both epochs report K5's and K6's
 device ms in the profiled epoch and their calls of one epoch replayed (CUDA
 events, and queued device ms an epoch), and "maintain" phase 13a's
 ``pipeline.maintenance_epoch`` on the 500-node state after its epoch (wall,
-device ms, device launches, K19's and K15's points entry's device ms).
+device ms, device launches, K19's and K15's points entry's device ms), and
+"calibrate" / "calibrate_rig" phase 13e's ``Slam.calibrate`` on
+``chip_smoke.CALIB_1K``'s graph, one camera or the front + rear rig updating
+the extrinsics (wall, device ms, device launches, K20's device ms).
 Each solve size and epoch also times K8's call on its graph (the
 checkout's entry: ``components_gauge``, or ``components`` then
 ``gauge_fix``; CUDA events, queued device ms, launches) and reports K8's
@@ -64,6 +67,7 @@ device ms):
 
     python3 scripts/torch_ab_solve.py --base build/parent --sizes step,rereg --pairs 3
     python3 scripts/torch_ab_solve.py --base build/parent --sizes step,epoch500,maintain --pairs 3
+    python3 scripts/torch_ab_solve.py --base build/parent --sizes calibrate,calibrate_rig,maintain --pairs 5
     python3 scripts/torch_ab_solve.py --base build/parent --sizes epoch500,epoch10k --pairs 3
 Prints one JSON line a process, then per size each side's medians and how
 many pairs the change won.
@@ -119,7 +123,9 @@ def timed(fn, g, c, reps):
                                ("k5", ("relax_rows", "relax_table", "relax_pairs", "relax_unc")),
                                ("k6", ("cluster_rounds", "cluster_block")),
                                ("k15_points", ("bin_rows", "bin_points")),
-                               ("k19", ("row_keys", "greedy_rounds")),
+                               ("k19", ("row_keys", "greedy_rounds", "merge_pairs_kernel")),
+                               ("k20", ("init_theta", "calib_edges", "calib_solve",
+                                        "calib_cluster")),
                                ("k8", ("components_", "gauge_cta", "k_init_labels",
                                        "k_scatter_min", "k_jump", "k_gauge_")),
                                ("k11", ("project_cells", "project_tiles")))}
@@ -469,6 +475,23 @@ for size in sizes:
                              mstate, cs.merge_config(ecfg), int(sys.argv[3]))
         del state, mstate
         continue
+    if size in ("calibrate", "calibrate_rig"):
+        # phase 13e: Slam.calibrate on CALIB_1K's graph at the truth, one
+        # camera; or the front + rear rig updating the extrinsics (its
+        # extrinsics put back before each call)
+        cams = 2 if size == "calibrate_rig" else 1
+        g, _ = cs.calib_graphs(dev)
+        _, cam_pose = cs.keyframe_rig(cams, dev)
+        slam = cs.calib_slam(g, cam_pose if cams > 1 else None, dev)
+        cam0 = slam.cam_pose.clone()
+
+        def calibrate(s, c):
+            slam.cam_pose = cam0.clone()
+            return slam.calibrate(update_extrinsics=cams > 1)
+
+        _, out[size] = timed(calibrate, None, None, int(sys.argv[3]))
+        del slam
+        continue
     if size == "fleet":
         from uzliti_slam_tpu_torch.io import synthetic
         from uzliti_slam_tpu_torch.parallel import sharded
@@ -555,7 +578,9 @@ def main() -> int:
     ap.add_argument("--sizes", default="1000,10000",
                     help="node counts, 'fleet', 'epoch500', 'epoch10k', 'step' (the VGA "
                          "keyframe step, 1 camera and the rig), 'rereg' (its re-registration), "
-                         "'maintain' (phase 13a's maintenance on the 500-node state), 'map500' "
+                         "'maintain' (phase 13a's maintenance on the 500-node state), "
+                         "'calibrate' / 'calibrate_rig' (phase 13e's Slam.calibrate, 1 camera "
+                         "or the rig updating the extrinsics), 'map500' "
                          "(the projections after the 500-node epoch: full and 8 new nodes), "
                          "'step_gicp' / 'step_pnp' (phase 15b's VGA step, 1 camera, by "
                          "estimator)")
@@ -580,7 +605,7 @@ def main() -> int:
                                                 "device_launches", *STEP_KEYS) if k in r})
             medians[side][-1].update({f"{n}:{k}_device_ms": r["device_ms_by_kernel"][k]
                                       for n, r in res.items() if "device_ms_by_kernel" in r
-                                      for k in ("k7", "k15_points", "k19", "k5", "k6", "k8",
+                                      for k in ("k7", "k15_points", "k19", "k20", "k5", "k6", "k8",
                                                 "k11", "k2", "k3", "k10", "k37", "k38")})
             print(json.dumps({"pair": i, "side": side, **res}), flush=True)
     names = [n for n in args.sizes.split(",") if n not in ("step", "rereg", "map500")]
@@ -603,7 +628,8 @@ def main() -> int:
                                                 "k9_root_device_ms", "device_kernel_ms",
                                                 "device_launches", *STEP_KEYS,
                                                 "k7_device_ms", "k15_points_device_ms",
-                                                "k19_device_ms", "k5_device_ms", "k6_device_ms",
+                                                "k19_device_ms", "k20_device_ms",
+                                                "k5_device_ms", "k6_device_ms",
                                                 "k8_device_ms", "k11_device_ms", "k2_device_ms",
                                                 "k3_device_ms", "k10_device_ms", "k37_device_ms",
                                                 "k38_device_ms")

@@ -178,3 +178,127 @@ def test_slam_calibrate_updates_extrinsics():
         assert torch.equal(slam.cam_pose.reshape(-1, 7), res.sensor_transforms)
         assert tuple(res.sensor_transforms.shape) == (cams, 7)
         assert not torch.equal(slam.cam_pose, before)
+
+
+def _kernel_args(g, init, e_sf, e_st, **kw):
+    """``kops.calib_gn``'s arguments as ``calibration.calibrate`` makes them."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    calls, real = [], kops.calib_gn
+    kops.calib_gn = lambda *a: calls.append(a) or real(*a)
+    try:
+        tcal.calibrate(_to_port(g), _t(init), _t(e_sf), _t(e_st), **kw)
+    finally:
+        kops.calib_gn = real
+    return calls[0]
+
+
+def tile_order_calibrate(Xi, Xj, meas, is_sensor, is_odom, sf, st, L0, iterations,
+                         prior_weight, damping):
+    """The plain version's steps summed as kernel K20 sums them, in float64
+    on the CPU: the Jacobian rows of ``torch.func.jacfwd`` (float32); each
+    CTA's residual groups (the edges e ≡ rank mod CTAs, a sensor group
+    before an odometry group) in passes of at most CALIB_THREADS units (a
+    unit a block of 3 tangents that can be nonzero: 1 an odometry group, 2
+    or 4 a sensor group) that end on a group's first unit; each pass's rows
+    dealt to the row slices in turn, the products added in row order into
+    each entry of [J r]ᵀ[J r], the slices in order, the CTAs in rank order;
+    then the priors, the cost, the damping, Gauss-Jordan elimination with
+    the kernel's pivot (the largest, of two within 4 bits of the mantissa
+    the first) in float64, and θ updated in float32.  Returns
+    (theta, cost history) as numpy arrays."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    S, E = L0.shape[0], Xi.shape[0]
+    P, ctas = 6 * S + 3, kops.CALIB_CLUSTER_CTAS
+    W = P + 1
+    slices = kops.CALIB_THREADS // (W * (W + 1) // 2)
+    sp = kops.calib_sqrt_prior(prior_weight)
+    on = np.stack([is_sensor.numpy(), is_odom.numpy()], 1)
+    sfc, stc = sf.clamp(0, S - 1).numpy(), st.clamp(0, S - 1).numpy()
+
+    def units(e, grp):
+        return 1 if grp == 1 else (2 if sfc[e] == stc[e] else 4)
+
+    passes = []   # every CTA's passes: lists of (edge, group)
+    for c in range(ctas):
+        groups = [(e, grp) for e in range(c, E, ctas) for grp in (0, 1) if on[e, grp]]
+        cta, cur, n_units = [], [], 0
+        for e, grp in groups:
+            if n_units + units(e, grp) > kops.CALIB_THREADS:
+                cta.append(cur)
+                cur, n_units = [], 0
+            cur.append((e, grp))
+            n_units += units(e, grp)
+        passes.append(cta + ([cur] if cur else []))
+
+    def res(th):
+        return kops.calib_residuals(th, Xi, Xj, meas, is_sensor, is_odom, sf, st, L0, sp)
+
+    theta = np.zeros(P, np.float32)
+    theta[6 * S] = 1.0
+    hist = []
+    for step in range(iterations + 1):
+        th = torch.from_numpy(theta)
+        aug = torch.cat([torch.func.jacfwd(res)(th), res(th)[:, None]], 1).double().numpy()
+        tot = np.zeros((W, W))
+        for cta in passes:
+            acc = np.zeros((slices, W, W))
+            for items in cta:
+                rows = [aug[6 * (e + grp * E) + k] for e, grp in items for k in range(6)]
+                for q, row in enumerate(rows):
+                    acc[q % slices] += np.outer(row, row)
+            part = acc[0].copy()
+            for s in range(1, slices):
+                part += acc[s]
+            tot = tot + part
+        A = np.concatenate([tot[:P, :P], tot[:P, P:]], 1)
+        cost = 0.5 * tot[P, P]
+        for k in range(P):
+            jac = np.float32(sp) if k < 6 * S else np.float32(0.01)
+            r = (np.float32(sp) * theta[k] if k < 6 * S
+                 else np.float32(0.01) * (theta[k] - np.float32(k == 6 * S)))
+            A[k, k] += float(jac) * float(jac)
+            A[k, P] += float(jac) * float(r)
+            cost += 0.5 * float(r) * float(r)
+        hist.append(np.float32(cost))
+        if step == iterations:
+            break
+        A[np.arange(P), np.arange(P)] += float(np.float32(damping))
+        for c in range(P):
+            # the largest, the first of two within 4 bits of the mantissa
+            keys = (np.abs(A[c:, c]).view(np.uint64) & ~np.uint64(0xF)) | (
+                np.uint64(15) - np.arange(c, P, dtype=np.uint64))
+            piv = 15 - int(keys.max() & np.uint64(0xF))
+            A[[c, piv], c:] = A[[piv, c], c:]
+            for r in range(P):
+                if r != c:
+                    A[r, c:] -= A[r, c] / A[c, c] * A[c, c:]
+        x = A[:, P] / np.diag(A)
+        theta = (theta - x.astype(np.float32)).astype(np.float32)
+    return theta, np.array(hist, np.float32)
+
+
+@pytest.mark.parametrize("problem", ["biased_at_truth", "sensor_problem"])
+def test_kernel_tile_order_matches_jax(problem, request):
+    """K20's summation order and float64 solve, replayed on the plain
+    version's Jacobian rows, against JAX's ``calibrate``: θ within
+    CALIB_THETA_ATOL and the cost history within CALIB_HIST_RTOL, the bars
+    that hold the kernel to its plain version on the card."""
+    from chip_smoke import CALIB_HIST_RTOL, CALIB_THETA_ATOL
+
+    if problem == "biased_at_truth":
+        g, e_s, ref = request.getfixturevalue(problem)
+        init, e_sf, e_st, kw = jlie.pose_identity((1,)), e_s, e_s, dict(iterations=20)
+    else:
+        g, _, e_sf, e_st = request.getfixturevalue(problem)
+        init, kw = jlie.pose_identity((1,)), dict(iterations=15, prior_weight=1e-4)
+        ref = jcal.calibrate(g, init, e_sf, e_st, **kw)
+    args = _kernel_args(g, init, e_sf, e_st, **kw)
+    theta, hist = tile_order_calibrate(*args)
+    S = args[7].shape[0]
+    L = tcal.lie.pose_retract(args[7], torch.from_numpy(theta[:6 * S]).reshape(S, 6)).numpy()
+    np.testing.assert_allclose(theta[6 * S:], np.asarray(ref.odom_params),
+                               atol=CALIB_THETA_ATOL, rtol=0)
+    np.testing.assert_allclose(L, np.asarray(ref.sensor_transforms), atol=CALIB_THETA_ATOL, rtol=0)
+    np.testing.assert_allclose(hist, np.asarray(ref.cost_history), rtol=CALIB_HIST_RTOL, atol=0)

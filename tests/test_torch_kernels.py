@@ -745,17 +745,32 @@ def test_maintenance_kernels_launch_through_the_library(fake_lib):
     keep, absorb, ok = kops.merge_pairs(_meta(500, 7), _meta(500), _meta(500, dtype=b), 0.25,
                                         15.0, 16)
     args = fake_lib.calls[-1][1]
-    assert fake_lib.calls[-1][0] == "uz_merge_pairs" and args[3:7] == (500, 0.25, 15.0, 16)
+    # (n, dist_thresh, its squared-distance bound s_hi, angle, max_pairs); then
+    # the key slots, the histograms and the arrival counter after them
+    s_star, s_hi = kops.merge_dist_bound(0.25)
+    assert fake_lib.calls[-1][0] == "uz_merge_pairs" and args[3:8] == (500, 0.25, s_hi, 15.0,
+                                                                        16)
+    assert len(args) == len(_build.SIGNATURES["uz_merge_pairs"])
+    assert np.float32(np.sqrt(np.float64(s_star))) >= np.float32(0.25) and s_hi > s_star
+    assert args[10] - args[9] == 4 * kops.MERGE_HIST_BINS
     assert tuple(keep.shape) == (16,) and keep.dtype == i32 and ok.dtype == b
     theta, hist = kops.calib_gn(_meta(4096, 7), _meta(4096, 7), _meta(4096, 7),
                                 _meta(4096, dtype=b), _meta(4096, dtype=b),
                                 _meta(4096, dtype=i32), _meta(4096, dtype=i32), _meta(2, 7), 20,
                                 1e2, 1e-6)
     args = fake_lib.calls[-1][1]
-    # 16 CTAs of 256 threads over 4,096 edges; √100 = 10
-    assert fake_lib.calls[-1][0] == "uz_calib_gn" and args[8:14] == (4096, 2, 20, 10.0,
-                                                                       1e-6, 16)
+    # (E, S, iterations, √100 = 10, damping), then the scratch of the 16
+    # CTAs' shares of 4,096 edges
+    assert fake_lib.calls[-1][0] == "uz_calib_gn" and args[8:13] == (4096, 2, 20, 10.0, 1e-6)
+    assert len(args) == len(_build.SIGNATURES["uz_calib_gn"])
     assert tuple(theta.shape) == (15,) and tuple(hist.shape) == (21,)
+    kops.calib_gn(_meta(300, 7), _meta(300, 7), _meta(300, 7), _meta(300, dtype=b),
+                  _meta(300, dtype=b), _meta(300, dtype=i32), _meta(300, dtype=i32),
+                  _meta(1, 7), 5, 1e2, 1e-6)
+    args = fake_lib.calls[-1][1]
+    # one camera: 6 + 3 parameters; the scratch holds each CTA's share of 300 edges
+    assert args[8:13] == (300, 1, 5, 10.0, 1e-6)
+    assert kops.CALIB_CLUSTER_CTAS == 16 and kops.calib_scratch_ints(300) == 16 * (30 * 19 + 1)
     near, far = kops.bin_min_max(_meta(16, 720, 2), _meta(16, 720, dtype=b), 360, -math.pi,
                                  math.pi, 6.0, 0.05)
     args = fake_lib.calls[-1][1]
@@ -770,7 +785,7 @@ def test_maintenance_kernels_launch_through_the_library(fake_lib):
                      0.3, (0.1, 1.0))
     args = fake_lib.calls[-1][1]
     assert args[2:6] == (1, 4000, 3, 180) and args[11:13] == (0.1, 1.0)
-    assert kops.launches["merge_pairs"] == kops.launches["calib_gn"] == 1
+    assert kops.launches["merge_pairs"] == 1 and kops.launches["calib_gn"] == 2
     assert kops.launches["bin_min_max"] == 2
 
 
@@ -825,6 +840,16 @@ def test_maintenance_kernel_argument_checks_raise(fake_lib):
     with pytest.raises(TypeError, match="sf: dtype"):
         kops.calib_gn(_meta(8, 7), _meta(8, 7), _meta(8, 7), _meta(8, dtype=b), _meta(8, dtype=b),
                       _meta(8, dtype=torch.int64), _meta(8, dtype=i32), _meta(1, 7), 20, 1e2, 1e-6)
+    with pytest.raises(ValueError, match="L0: shape"):
+        kops.calib_gn(_meta(8, 7), _meta(8, 7), _meta(8, 7), _meta(8, dtype=b), _meta(8, dtype=b),
+                      _meta(8, dtype=i32), _meta(8, dtype=i32), _meta(2, 6), 20, 1e2, 1e-6)
+    with pytest.raises(ValueError, match="-1 iterations"):
+        kops.calib_gn(_meta(8, 7), _meta(8, 7), _meta(8, 7), _meta(8, dtype=b), _meta(8, dtype=b),
+                      _meta(8, dtype=i32), _meta(8, dtype=i32), _meta(1, 7), -1, 1e2, 1e-6)
+    with pytest.raises(ValueError, match="1..65535"):
+        kops.merge_pairs(_meta(0, 7), _meta(0), _meta(0, dtype=b), 0.25, 15.0, 16)
+    with pytest.raises(ValueError, match="max_pairs"):
+        kops.merge_pairs(_meta(50, 7), _meta(50), _meta(50, dtype=b), 0.25, 15.0, 0)
     with pytest.raises(ValueError, match="1..1023"):
         kops.bin_min_max(_meta(2, 9, 2), _meta(2, 9, dtype=b), 2000, -math.pi, math.pi, 6.0,
                          0.05)

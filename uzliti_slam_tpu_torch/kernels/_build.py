@@ -77,8 +77,8 @@ SIGNATURES = {
     "uz_bilateral": [_P, _P, _I, _I, _I, _P, _F, _P, _P, _P],
     "uz_icp": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P, _P],
     "uz_bin_min_max": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P, _P],
-    "uz_merge_pairs": [_P, _P, _P, _I, _F, _F, _I, _P, _P, _P, _P, _P],
-    "uz_calib_gn": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P, _P, _P, _P],
+    "uz_merge_pairs": [_P, _P, _P, _I, _F, _F, _F, _I, _P, _P, _P, _P, _P, _P, _P],
+    "uz_calib_gn": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P],
     "uz_feature_votes": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
                          _P, _P, _P, _P, _P],
     "uz_repo_nearest": [_P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P],

@@ -238,6 +238,9 @@ def _raise_on(err: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError_t {err}: an "
                            f"{PCG_CHAIN_CLUSTER}-CTA cluster with {_SMEM_BYTES} bytes of "
                            "shared memory a CTA does not fit on the device")
+    if err == _OUT_OF_RESOURCES and kernel == "calib_gn":
+        raise RuntimeError(f"calib_gn: CUDA launch failed with cudaError_t {err}: its cluster "
+                           "does not fit on the device")
     if err == _OUT_OF_RESOURCES and kernel == "icp":
         raise RuntimeError(f"icp: CUDA launch failed with cudaError_t {err}: a 16-CTA cluster "
                            f"with {ICP_MAX_POINTS} target points' shared memory a CTA does not "
@@ -3409,11 +3412,70 @@ def merge_pairs_plain(pose, stamp, eligible, dist_thresh: float, angle_thresh_de
     return (torch.cat(keep).to(torch.int32), torch.cat(absorb).to(torch.int32), torch.cat(oks))
 
 
+MERGE_FILTER_ULPS = 64   # s_hi above s*: the float32 sum of squares is a few ulps off
+
+
+def _f32_bits(x) -> int:
+    return int(np.array(x, np.float32).view(np.uint32))
+
+
+def _bits_f32(b: int) -> float:
+    return float(np.array(b, np.uint32).view(np.float32))
+
+
+@functools.lru_cache(maxsize=64)
+def merge_dist_bound(dist_thresh: float) -> tuple[float, float]:
+    """(s*, s_hi) of the float32 threshold t = fl(dist_thresh): s* is the
+    least float32 s >= +0 whose correctly rounded root reaches t, so that
+    for every float32 s, fl(√s) < t exactly when s < s* (the rounded root
+    is monotone); NaN for a NaN t, 0 for t <= 0.  s_hi lies
+    MERGE_FILTER_ULPS ulps above s* (capped at +inf): K19's float32 bound
+    on a pair's squared distance, which no pair with dt < t exceeds."""
+    t = np.float32(dist_thresh)
+    if np.isnan(t):
+        return math.nan, math.nan
+    if t <= 0:
+        return 0.0, _bits_f32(MERGE_FILTER_ULPS)
+    lo, hi = 0, 0x7F800000   # fl(√+inf) = +inf >= t: the answer lies in (lo, hi]
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        s = np.float64(_bits_f32(mid))
+        if np.float32(np.sqrt(s)) >= t:
+            hi = mid
+        else:
+            lo = mid
+    return _bits_f32(hi), _bits_f32(min(hi + MERGE_FILTER_ULPS, 0x7F800000))
+
+
+# kHistBins + kCoarseBins in csrc/merge_pairs.cu: the keys' top 16 and top 8 bits
+MERGE_HIST_BINS = (1 << 16) + (1 << 8)
+
+
+def merge_pairs_scratch(device) -> torch.Tensor:
+    """K19's histograms of its keys' top 16 and top 8 bits and its arrival
+    counter on ``device``: MERGE_HIST_BINS + 1 int32, 0 between calls (the
+    kernel's last CTA puts them back), so K19's calls on a device must not
+    overlap (they run on its current stream).  Made once a device."""
+    key = str(device)
+    t = _merge_scratch.get(key)
+    if t is None:
+        t = torch.zeros(MERGE_HIST_BINS + 1, dtype=torch.int32, device=device)
+        _merge_scratch[key] = t
+    return t
+
+
+_merge_scratch: dict = {}
+
+
 def merge_pairs(pose, stamp, eligible, dist_thresh: float, angle_thresh_deg: float,
                 max_pairs: int):
-    """K19: a warp per row i keeps the row's 2·max_pairs - 1 smallest keys
-    (float bits of dt << 32 | i·N + j) of its close pairs; one CTA then runs
-    the greedy rounds over that short list.  Returns (keep, absorb, ok)."""
+    """K19, one launch: a warp per row i tests the stamps and a float32
+    bound on the squared distance first, the exact gates only for the few
+    pairs that pass, and keeps the row's 2·max_pairs - 1 smallest keys
+    (float bits of dt << 32 | i·N + j), sorted; the last CTA to finish
+    gathers the smallest keys (a histogram of their top 16 bits says how
+    many fit its shared memory) and runs the greedy rounds over them.
+    Returns (keep, absorb, ok)."""
     if pose.device.type == "cpu":
         return merge_pairs_plain(pose, stamp, eligible, dist_thresh, angle_thresh_deg, max_pairs)
     dev = pose.device
@@ -3427,13 +3489,15 @@ def merge_pairs(pose, stamp, eligible, dist_thresh: float, angle_thresh_deg: flo
             _check("stamp", stamp, (n,), torch.float32, dev),
             _check("eligible", eligible, (n,), torch.bool, dev)]
     lib = _build.load()
-    cand = torch.empty(n, 2 * max_pairs - 1, dtype=torch.int64, device=dev)
-    keep = torch.empty(max_pairs, dtype=torch.int32, device=dev)
-    absorb = torch.empty(max_pairs, dtype=torch.int32, device=dev)
-    ok = torch.empty(max_pairs, dtype=torch.bool, device=dev)
-    err = lib.uz_merge_pairs(*ptrs, n, float(dist_thresh), float(angle_thresh_deg), max_pairs,
-                             cand.data_ptr(), keep.data_ptr(), absorb.data_ptr(), ok.data_ptr(),
-                             _stream(dev))
+    cand = torch.empty(n * (2 * max_pairs - 1), dtype=torch.int64, device=dev)   # the rows' keys
+    out = torch.empty(2 * max_pairs + (max_pairs + 3) // 4, dtype=torch.int32, device=dev)
+    keep, absorb = out[:max_pairs], out[max_pairs:2 * max_pairs]
+    ok = out[2 * max_pairs:].view(torch.bool)[:max_pairs]
+    _, s_hi = merge_dist_bound(float(dist_thresh))
+    hist = merge_pairs_scratch(dev).data_ptr()
+    err = lib.uz_merge_pairs(*ptrs, n, float(dist_thresh), s_hi, float(angle_thresh_deg),
+                             max_pairs, cand.data_ptr(), hist, hist + 4 * MERGE_HIST_BINS,
+                             keep.data_ptr(), absorb.data_ptr(), ok.data_ptr(), _stream(dev))
     _raise_on(err, "merge_pairs")
     launches["merge_pairs"] += 1
     return keep, absorb, ok
@@ -3443,9 +3507,17 @@ def merge_pairs(pose, stamp, eligible, dist_thresh: float, angle_thresh_deg: flo
 # K20 calib_gn (the calibration's Gauss-Newton steps)
 # ---------------------------------------------------------------------------
 
-CALIB_SENSORS = (1, 2)   # sensor counts the kernel is built for (6·S + 3 parameters)
-CALIB_THREADS = 256      # kCalibThreads in csrc/calib_gn.cu
-CALIB_MAX_BLOCKS = 64    # CTAs of the edge pass: partial sums per CTA, reduced in order
+CALIB_SENSORS = (1, 2)    # sensor counts the kernel is built for (6·S + 3 parameters)
+CALIB_CLUSTER_CTAS = 16   # kCtas in csrc/calib_gn.cu: the one cluster's CTAs (above 8 non-portable)
+CALIB_THREADS = 256       # kThreads in csrc/calib_gn.cu: a CTA's threads, its units a pass
+
+
+def calib_scratch_ints(E: int) -> int:
+    """K20's int32 scratch: each CTA's residual groups, their units, first
+    units and constants (30·⌈E/CTAs⌉ + 1 a CTA: kScratchPerEdge in
+    csrc/calib_gn.cu)."""
+    ctas = CALIB_CLUSTER_CTAS
+    return ctas * (30 * (-(-E // ctas)) + 1)
 
 
 def calib_sqrt_prior(prior_weight: float) -> float:
@@ -3504,11 +3576,15 @@ def calib_gn_plain(Xi, Xj, meas, is_sensor, is_odom, sf, st, L0, iterations: int
 
 def calib_gn(Xi, Xj, meas, is_sensor, is_odom, sf, st, L0, iterations: int,
              prior_weight: float, damping: float):
-    """K20: per step an edge-parallel pass (each edge's sensor and odometry
-    residuals in forward-mode dual numbers with 6S + 3 tangents, JᵀJ, Jᵀr
-    and ½‖r‖² summed in float64 in a fixed order) and a one-CTA pass (the
-    priors, the damping, a pivoted solve, the update of θ on the device);
-    all steps in one call, no host read.  Returns (theta, cost history)."""
+    """K20, one launch: a thread-block cluster of CALIB_CLUSTER_CTAS CTAs
+    runs every step.  A step: an edge pass
+    over each CTA's residual groups, a lane per block of 3 tangents that can
+    be nonzero for the group (each lane recomputes the value chain), JᵀJ,
+    Jᵀr and ‖r‖² summed in float64 in a fixed order (a tile of Jacobian rows
+    in shared memory, a thread an entry), the CTAs' sums reduced in the
+    leader in rank order, the priors, the damping and a pivoted solve by a
+    warp, θ read back by every CTA.  No host read.  Returns (theta, cost
+    history)."""
     if Xi.device.type == "cpu":
         return calib_gn_plain(Xi, Xj, meas, is_sensor, is_odom, sf, st, L0, iterations,
                               prior_weight, damping)
@@ -3526,12 +3602,11 @@ def calib_gn(Xi, Xj, meas, is_sensor, is_odom, sf, st, L0, iterations: int,
             _check("L0", L0, (S, 7), f32, dev)]
     lib = _build.load()
     P = 6 * S + 3
-    nb = max(1, min(CALIB_MAX_BLOCKS, -(-E // CALIB_THREADS)))
-    partials = torch.empty(nb, P * (P + 1) // 2 + P + 1, dtype=torch.float64, device=dev)
-    theta = torch.empty(P, dtype=f32, device=dev)
-    hist = torch.empty(iterations + 1, dtype=f32, device=dev)
+    scratch = torch.empty(calib_scratch_ints(E), dtype=torch.int32, device=dev)
+    out = torch.empty(P + iterations + 1, dtype=f32, device=dev)
+    theta, hist = out[:P], out[P:]
     err = lib.uz_calib_gn(*ptrs, E, S, int(iterations), calib_sqrt_prior(prior_weight),
-                          float(damping), nb, partials.data_ptr(), theta.data_ptr(),
+                          float(damping), scratch.data_ptr(), theta.data_ptr(),
                           hist.data_ptr(), _stream(dev))
     _raise_on(err, "calib_gn")
     launches["calib_gn"] += 1
