@@ -167,9 +167,13 @@ runs, in order, each phase printing lines of its own:
    and the same graph on CPU tensors; (a) K21-K24 against their plain
    versions on a late step's arguments (and the vocabulary build's last
    round) and at the large shapes (10k nodes, D = 320k, 100k descriptors):
-   K21-K23 exactly, K24's scores within 1e-6; (b) each recognizer's
-   kernels per query on banks of 1k, 10k and 50k nodes, with the bank's
-   bytes, and the default GIST query (K16's ``gist_topk``) at 1k, 10k, 50k
+   K21-K23 exactly, K24's scores within 1e-6; K21 and K22's three entries
+   one device launch a call each (whole profiles), a rerun bit for bit, and
+   46 edge cases exactly (``recognition_edge_cases``), the first of each
+   again after a larger call grew the scratch, and the step's calls again
+   after the 50k banks; (b) each recognizer's kernels per query on banks of
+   1k, 10k and 50k nodes (K21 and K22 held exactly at each, device ms
+   queued), with the bank's bytes, and the default GIST query (K16's ``gist_topk``) at 1k, 10k, 50k
    and 100k nodes with its device ms, held against its plain version; (d)
    tests/test_pr_methods.py's 30-frame 96x128 run per method on the card:
    at least 3 proposed edges each;
@@ -512,9 +516,8 @@ FRONTEND_DEVICE_FUNCTIONS = {"fast_nms": ("fast_nms_levels",),
                              "merge_pairs": ("merge_pairs_kernel",),
                              "calib_gn": ("calib_cluster",),
                              "bin_min_max": ("bin_points",),
-                             "feature_votes": ("node_sims", "topk_sims"),
-                             "repository": ("nearest_chunk", "nearest_finish", "desc_hits",
-                                            "topk_votes"),
+                             "feature_votes": ("feature_votes_kernel",),
+                             "repository": ("repo_nearest_kernel", "repo_votes_kernel"),
                              "bow_words": ("assign_words", "count_bits", "majority_bytes"),
                              "bow_query": ("row_scores", "topk_scores"),
                              "voxel_grid": ("voxel_sort_chunks", "voxel_merge",
@@ -534,6 +537,14 @@ LIBRARY_ITEMS = ("getrf", "getrs", "trsm", "gemv")
 # rate used here for every scalar operation (float32 or int32).
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+# The card publishes no binary tensor-core rate.  K21's and K22's bit
+# operations are stated against the b1 mma's rate as measured on the card
+# (scripts/hamming_mma_rates.cu, the .and.popc form, NVIDIA H100 80GB HBM3
+# at 700 W: 1,141.39 m16n8k256 mmas a µs an SM over 132 SMs, 4.937·10¹⁵ bit
+# products a second), two operations (AND, popcount) a bit product; the
+# int8 tensor line (dense) is kept beside it
+B1_AND_POPC_OPS_PER_S = 2 * 4.936939327212337e15
+TENSOR_INT_OPS_PER_S = 1979e12
 # The JAX bench's epoch rung (bench.py:393-422), and 10k nodes at the same
 # ~0.5 m keyframe spacing (radius scaled by 20)
 EPOCH_500 = dict(n=500, node_capacity=512, edge_capacity=4096, radius=2.0)
@@ -603,6 +614,10 @@ RECOGNITION_WRAPPERS = {"feature_votes": ("feature_votes",),
                         "bow_query": ("bow_query",)}
 METHOD_KERNELS = {"feature_set": ("feature_votes",), "repository": ("repository",),
                   "bow": ("bow_words", "bow_query")}
+# K21's and K22's device function by wrapper: one launch a call each
+RECOGNITION_ENTRY_FUNCTIONS = {"feature_votes": ("feature_votes_kernel",),
+                               "repo_nearest": ("repo_nearest_kernel",),
+                               "repo_votes": ("repo_votes_kernel",)}
 # K21-K23 are held exactly (integer distances, votes and counts; one IEEE
 # division); K24's scores within BOW_SCORE_ATOL (|v - q| summed over 256
 # words in another order), its slots exactly unless two scores lie within
@@ -865,6 +880,7 @@ DEVICE_FUNCTIONS = ("sift_keypoints", "linearize_rows", "hvp_seed",
                     "orb_describe_rows", "scan_grid",
                     "match_top2_lanes", "gist_topk_cluster", "bilateral_tile", "icp_cluster",
                     "merge_pairs_kernel", "calib_cluster", "bin_points",
+                    "feature_votes_kernel", "repo_nearest_kernel", "repo_votes_kernel",
                     "voxel_sort_chunks", "voxel_merge", "voxel_accumulate", "voxel_finish",
                     "knn_normals_kernel", "gicp_cluster", "pnp_cluster", "l2_top2_tiles",
                     "uid_slots_kernel", "edge_key_kernel",
@@ -1475,32 +1491,28 @@ def kernel_work(name: str, args) -> tuple[int, int]:
                 48 * int(valid.sum()) + 4 * b * n_bins)
     if name == "feature_votes":
         # the query and the eligible nodes' descriptors and flags read once,
-        # stamps and flags of every node, the top-k written once; 24 per
-        # (valid query, valid stored) pair of an eligible node (8 XORs, 8
-        # popcounts, 8 adds), then k rounds of two compares per node
+        # stamps and flags of every node, the top-k written once; the
+        # scalar part: k rounds of two compares per node (the pairs' bit
+        # operations are tensor_work's)
         query, qvalid, bank, bank_valid, stamp, valid, q_stamp, k, _, _, min_dt = args
         elig = valid & ((stamp - q_stamp).abs() >= min_dt)
-        pairs = int(qvalid.sum()) * int(bank_valid[elig].sum())
         return (_nbytes(query, qvalid, stamp, valid) + 33 * bank.shape[1] * int(elig.sum())
-                + 9 * k, 24 * pairs + 2 * k * stamp.shape[0])
+                + 9 * k, 2 * k * stamp.shape[0])
     if name == "repo_nearest":
         # the query flags, the valid queries and the valid stored descriptors
         # read once, the valid queries' nearest and duplicate flags written
-        # once (an invalid query's are never read); 24 per (valid query,
-        # valid stored) pair and per pair of valid queries
+        # once (an invalid query's are never read); no scalar part
         query, qvalid, bank, bank_valid, _ = args
         nq, nv = int(qvalid.sum()), int(bank_valid.sum())
-        return (_nbytes(qvalid, bank_valid) + 32 * (nq + nv) + 9 * nq,
-                24 * nq * nv + 24 * nq * (nq - 1) // 2)
+        return _nbytes(qvalid, bank_valid) + 32 * (nq + nv) + 9 * nq, 0
     if name == "repo_votes":
         # the query and the valid stored descriptors with their link rows
-        # read once, the node stamps and flags, the top-k written once; 24
-        # per (valid query, valid stored) pair (a stored descriptor with no
-        # hit needs all of them), k rounds of three operations per node
+        # read once, the node stamps and flags, the top-k written once; the
+        # scalar part: k rounds of three operations per node
         query, qvalid, bank, bank_valid, links, link_valid, stamp, valid, *_rest = args
         k, nv, L = _rest[1], int(bank_valid.sum()), links.shape[1]
         return (_nbytes(query, qvalid, bank_valid, stamp, valid) + (32 + 5 * L) * nv + 9 * k,
-                24 * int(qvalid.sum()) * nv + 3 * k * stamp.shape[0])
+                3 * k * stamp.shape[0])
     if name == "word_assign":
         # the flags, the valid descriptors and the words read once, their
         # word and distance and the histogram written once (an invalid
@@ -1596,6 +1608,48 @@ def kernel_work(name: str, args) -> tuple[int, int]:
     raise KeyError(name)
 
 
+# bit operations a (query, stored) pair of 256-bit descriptors: AND and
+# popcount over 256 bits
+PAIR_BIT_OPS = 512
+# the scalar form's count, kept beside it: 8 XORs, 8 popcounts, 8 adds a pair
+PAIR_SCALAR_OPS = 24
+
+
+def recognition_pairs(name: str, args) -> int:
+    """The (valid query, valid stored) pairs of K21's and K22's entries on
+    these inputs: K21 over the eligible nodes, K22's search with the pairs
+    of valid queries for the duplicates; 0 for any other kernel."""
+    if name == "feature_votes":
+        query, qvalid, bank, bank_valid, stamp, valid, q_stamp, *_, min_dt = args
+        elig = valid & ((stamp - q_stamp).abs() >= min_dt)
+        return int(qvalid.sum()) * int(bank_valid[elig].sum())
+    if name == "repo_nearest":
+        nq, nv = int(args[1].sum()), int(args[3].sum())
+        return nq * nv + nq * (nq - 1) // 2
+    if name == "repo_votes":
+        return int(args[1].sum()) * int(args[3].sum())
+    return 0
+
+
+def tensor_work(name: str, args) -> int:
+    """Operations of a call on the tensor cores' b1 path: K21's and K22's
+    pairs at PAIR_BIT_OPS each."""
+    return PAIR_BIT_OPS * recognition_pairs(name, args)
+
+
+def scalar_pair_bound_ms(calls: dict, wrappers) -> float:
+    """The bound as stated before K21 and K22 moved to the tensor cores:
+    bytes against PAIR_SCALAR_OPS a pair (plus the scalar part) at the
+    scalar rate."""
+    nbytes = ops = 0
+    for w in wrappers:
+        for args, kw in calls[w]:
+            a = (*args, *kw.values())
+            b, o = kernel_work(w, a)
+            nbytes, ops = nbytes + b, ops + o + PAIR_SCALAR_OPS * recognition_pairs(w, a)
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S)
+
+
 def merge_pair_work(pose, stamp, eligible, dist_thresh, angle_thresh, max_pairs) -> dict:
     """The pairs K19's function needs on these inputs, counted with the
     plain version's gates row block by row block: ordered pairs of eligible
@@ -1648,10 +1702,13 @@ def device_launch_count(fn, functions, calls: int = 4, reads: int = 2):
 
 def bound(name: str, args) -> dict:
     """The larger of the bytes over device memory's rate and the operations
-    over the scalar rate, in ms, and which of the two it is."""
+    over their rate (the scalar rate; ``tensor_work``'s at the b1 mma's
+    measured rate), in ms, and which of the two it is."""
     nbytes, ops = kernel_work(name, args)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
-    return {"bytes": nbytes, "ops": ops, "bound_ms": 1e3 * max(t_bytes, t_ops),
+    tops = tensor_work(name, args)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / SCALAR_OPS_PER_S + tops / B1_AND_POPC_OPS_PER_S
+    return {"bytes": nbytes, "ops": ops + tops, "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
@@ -3708,16 +3765,19 @@ def bound_calls(name: str, calls) -> dict:
     return bound_wrapper_calls({name: calls}, (name,))
 
 
-def bound_wrapper_calls(calls: dict, wrappers) -> dict:
+def bound_wrapper_calls(calls: dict, wrappers,
+                        tensor_rate: float = B1_AND_POPC_OPS_PER_S) -> dict:
     """``bound`` summed over all the calls ({wrapper: [(args, kwargs)]}) of
-    the wrappers named."""
-    nbytes = ops = 0
+    the wrappers named, ``tensor_work``'s operations at ``tensor_rate``."""
+    nbytes = ops = tops = 0
     for w in wrappers:
         for args, kw in calls[w]:
             b, o = kernel_work(w, (*args, *kw.values()))
             nbytes, ops = nbytes + b, ops + o
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
-    return {"bytes": nbytes, "ops": ops, "bound_ms": 1e3 * max(t_bytes, t_ops),
+            tops += tensor_work(w, (*args, *kw.values()))
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / SCALAR_OPS_PER_S + tops / tensor_rate
+    return {"bytes": nbytes, "ops": ops + tops, "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
@@ -5290,6 +5350,165 @@ def word_inputs(m: int, device, seed: int, K: int = 256) -> tuple:
     return (desc, valid, centers), (desc, valid, word, counts)
 
 
+def _flip_first(desc, n: int):
+    """``desc`` with its first n bits (LSB first) flipped: n bits away."""
+    mask = torch.zeros(32, dtype=torch.uint8, device=desc.device)
+    mask[:n // 8] = 255
+    if n % 8:
+        mask[n // 8] = (1 << (n % 8)) - 1
+    return desc ^ mask
+
+
+def feature_case(Fq: int, Fb: int, N: int, k: int, device, seed: int, case: str = "mixed",
+                 ties=(3, 70, 131)) -> tuple:
+    """``feature_votes``' arguments at the given shape: half the nodes' rows
+    copies of query rows with ~10 % of their bytes one bit off, the rest
+    random; node 0's first rows 40 and 41 bits from query 0 (either side of
+    the threshold); 20 % of stored and 10 % of query descriptors invalid,
+    10 % of nodes.  ``case``: "ineligible" (every node within min_dt),
+    "invalid_bank" (no valid stored descriptor), "ties" (the nodes at
+    ``ties`` one node, eligible), "thresh_inf" / "thresh_neg" (thresh +inf /
+    -1)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    query = _rand_u8((Fq, 32), g, device)
+    qvalid = torch.rand(Fq, generator=g, device=device) < 0.9
+    qvalid[0] = True
+    pick = torch.randint(0, Fq, (N, Fb), generator=g, device=device)
+    bank = _flip_bits(query[pick], 0.1, g)
+    far = torch.rand(N, generator=g, device=device) < 0.5
+    bank[far] = _rand_u8((int(far.sum()), Fb, 32), g, device)
+    bank[0, 0] = _flip_first(query[0], 40)
+    if Fb > 1:
+        bank[0, 1] = _flip_first(query[0], 41)
+    bank_valid = torch.rand(N, Fb, generator=g, device=device) < 0.8
+    valid = torch.rand(N, generator=g, device=device) < 0.9
+    valid[0] = True
+    if case == "ties":
+        for slot in ties[1:]:
+            bank[slot], bank_valid[slot] = bank[ties[0]], bank_valid[ties[0]]
+        valid[list(ties)] = True
+    if case == "invalid_bank":
+        bank_valid[:] = False
+    stamp = torch.randperm(N, generator=g, device=device).to(torch.float32)
+    q_stamp = torch.full((), float(N // 2 if case == "ineligible" else N + 10), device=device)
+    thresh = {"thresh_inf": float("inf"), "thresh_neg": -1.0}.get(case, 40.0)
+    return (query, qvalid, bank.contiguous(), bank_valid, stamp, valid, q_stamp, k, thresh, 0.2,
+            1e9 if case == "ineligible" else 5.0)
+
+
+def repo_case(F: int, D: int, N: int, k: int, device, seed: int, case: str = "mixed",
+              L: int = 3, ties=()) -> tuple:
+    """(``repo_nearest``'s, ``repo_votes``') arguments at the given shape: 2F
+    stored descriptors copies of query rows with ~10 % of their bytes a bit
+    off, the rest random; stored 0 and 1 40 and 41 bits from query 0; query
+    3 five bits from query 1 (an in-frame duplicate); 15 % of stored and
+    10 % of query descriptors invalid, 40 % of links, 10 % of nodes; copies
+    of query 0 at ``ties`` (equal nearest keys in other CTAs' tiles).
+    ``case`` as ``feature_case``'s."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    query = _rand_u8((F, 32), g, device)
+    if F > 4:
+        query[3] = _flip_first(query[1], 5)
+    qvalid = torch.rand(F, generator=g, device=device) < 0.9
+    qvalid[0] = True
+    bank = _rand_u8((D, 32), g, device)
+    near = torch.randint(0, D, (min(D, 2 * F),), generator=g, device=device)
+    bank[near] = _flip_bits(query[torch.randint(0, F, (near.numel(),), generator=g,
+                                                device=device)], 0.1, g)
+    bank[0] = _flip_first(query[0], 40)
+    if D > 1:
+        bank[1] = _flip_first(query[0], 41)
+    bank_valid = torch.rand(D, generator=g, device=device) < 0.85
+    for i in ties:
+        bank[i], bank_valid[i] = query[0], True
+    if case == "invalid_bank":
+        bank_valid[:] = False
+    links = torch.randint(0, N, (D, L), generator=g, device=device, dtype=torch.int32)
+    link_valid = torch.rand(D, L, generator=g, device=device) < 0.6
+    stamp = torch.randperm(N, generator=g, device=device).to(torch.float32)
+    node_valid = torch.rand(N, generator=g, device=device) < 0.9
+    q_stamp = torch.full((), float(N // 2 if case == "ineligible" else N + 10), device=device)
+    thresh = {"thresh_inf": float("inf"), "thresh_neg": -1.0}.get(case, 40.0)
+    min_dt = 1e9 if case == "ineligible" else 5.0
+    return ((query, qvalid, bank, bank_valid, thresh),
+            (query, qvalid, bank, bank_valid, links, link_valid, stamp, node_valid, q_stamp, k,
+             thresh, 1.0, min_dt))
+
+
+def recognition_edge_cases(device) -> list:
+    """(label, wrapper, arguments) of K21's and K22's edge cases: query
+    counts either side of a 16-row strip (1, 17, 255), stored counts either
+    side of an 8-column tile and of a stage (1, 9, 300), one node and 133,
+    k = N, every node ineligible, a wholly invalid bank, thresholds +inf and
+    -1, ties planted in nodes and tiles that other CTAs take, D either side
+    of a 64-descriptor tile, one link, and shapes past the shared-memory caps
+    the kernels had before (K21 Fq + Fb = 7,100; K22 F = 5,000, two chunks
+    of the duplicate test)."""
+    out = []
+    feat = [("Fq1", 1, 256, 512, 5, "mixed"), ("Fq17", 17, 256, 512, 5, "mixed"),
+            ("Fq255", 255, 256, 512, 5, "mixed"), ("Fb1", 256, 1, 133, 5, "mixed"),
+            ("Fb9", 256, 9, 133, 5, "mixed"), ("Fb300", 128, 300, 133, 5, "mixed"),
+            ("N1", 256, 256, 1, 1, "mixed"), ("N133 k=N", 256, 64, 133, 133, "mixed"),
+            ("ineligible", 128, 64, 133, 7, "ineligible"),
+            ("invalid bank", 128, 64, 133, 7, "invalid_bank"),
+            ("ties", 128, 64, 133, 9, "ties"), ("thresh +inf", 128, 64, 133, 7, "thresh_inf"),
+            ("thresh -1", 128, 64, 133, 7, "thresh_neg"), ("Fq4000 Fb3100", 4000, 3100, 3, 3,
+                                                            "mixed")]
+    for i, (label, Fq, Fb, N, k, case) in enumerate(feat):
+        out.append((label, "feature_votes", feature_case(Fq, Fb, N, k, device, SEED + 70 + i, case)))
+    repo = [("F1", 1, 16384, 512, 5, "mixed", 3, ()), ("F17", 17, 16384, 512, 5, "mixed", 3, ()),
+            ("F255", 255, 16384, 512, 5, "mixed", 3, ()), ("D1", 256, 1, 1, 1, "mixed", 3, ()),
+            ("D9", 256, 9, 3, 3, "mixed", 3, ()), ("D63", 64, 63, 9, 9, "mixed", 3, ()),
+            ("D64", 64, 64, 9, 9, "mixed", 3, ()), ("D65", 64, 65, 9, 9, "mixed", 3, ()),
+            ("D16387 ties", 256, 16387, 512, 5, "mixed", 8, (10, 458, 16386)),
+            ("N133 k=N", 256, 4000, 133, 133, "mixed", 3, ()),
+            ("ineligible", 128, 4000, 133, 7, "ineligible", 3, ()),
+            ("invalid bank", 128, 4000, 133, 7, "invalid_bank", 3, ()),
+            ("thresh +inf", 128, 4000, 133, 7, "thresh_inf", 3, ()),
+            ("thresh -1", 128, 4000, 133, 7, "thresh_neg", 3, ()),
+            ("L1", 128, 4000, 133, 7, "mixed", 1, ()),
+            ("F5000", 5000, 2000, 64, 5, "mixed", 3, ())]
+    for i, (label, F, D, N, k, case, L, ties) in enumerate(repo):
+        nearest, votes = repo_case(F, D, N, k, device, SEED + 90 + i, case, L, ties)
+        out.append((label, "repo_nearest", nearest))
+        out.append((label, "repo_votes", votes))
+    return out
+
+
+def compare_recognition_cases(device) -> dict:
+    """``recognition_edge_cases`` through K21 and K22 against their plain
+    versions on the card, every output exactly; each call launched twice
+    for the same bits; then the first case of each wrapper again, after a
+    call at a larger N and F grew the scratch: the same bits as its first
+    call."""
+    from uzliti_slam_tpu_torch.kernels import ops as kops
+
+    rows, first = {}, {}
+    for label, w, args in recognition_edge_cases(device):
+        got, again = getattr(kops, w)(*args), getattr(kops, w)(*args)
+        ref = getattr(kops, f"{w}_plain")(*args)
+        torch.cuda.synchronize()
+        mism = sum(int((a != b).sum()) for a, b in zip(got, ref))
+        same = same_bits(got, again)
+        rows[f"{w} {label}"] = {"mismatches": mism, "rerun_bit_identical": same}
+        check(mism == 0, f"{w} {label}: {mism} entries differ from the plain version")
+        check(same, f"{w} {label}: a rerun gives other bits")
+        first.setdefault(w, (args, got))
+    # a larger N and F than any case's grows each entry's scratch
+    nearest, votes = repo_case(6000, 8192, 4096, 5, device, SEED + 120)
+    for w, args in (("feature_votes", feature_case(64, 32, 4096, 5, device, SEED + 121)),
+                    ("repo_nearest", nearest), ("repo_votes", votes)):
+        getattr(kops, w)(*args)
+    for w, (args, got) in first.items():
+        late = getattr(kops, w)(*args)
+        torch.cuda.synchronize()
+        rows[f"{w} first case after the larger ones"] = {"bit_identical": same_bits(got, late)}
+        check(same_bits(got, late), f"{w}: a call after larger ones gives other bits")
+    log("14a K21 K22 edge cases", cases=len(rows),
+        mismatches=sum(r.get("mismatches", 0) for r in rows.values()))
+    return rows
+
+
 def _recognition_mismatches(wrapper: str, args, got, ref) -> tuple[int, float]:
     """(entries of a wrapper's outputs that differ from its plain
     version's, max |score difference|): exact for K21-K23; K24's scores
@@ -5349,6 +5568,26 @@ def compare_recognition_kernels(calls: dict, label: str, trials: int = 21,
             row["library_ms"] = time_call(lambda: [torch.cdist(q, b, p=1) for q, b in work],
                                           trials=trials, calls=calls_per)
         row.update(bound_wrapper_calls(calls, wrappers))
+        if name in ("feature_votes", "repository"):
+            # the bound with the pairs at the int8 tensor line and as
+            # stated for the scalar popcount form; each entry's first call:
+            # one device launch (whole profiles), its device ms queued back
+            # to back, and a rerun's bits
+            row["bound_ms_int8_line"] = bound_wrapper_calls(calls, wrappers,
+                                                            TENSOR_INT_OPS_PER_S)["bound_ms"]
+            row["bound_ms_scalar"] = scalar_pair_bound_ms(calls, wrappers)
+            for w in wrappers:
+                a0, kw0 = calls[w][0]
+                fn = getattr(kops, w)
+                per_call, row[f"{w}_launch_profiles"] = device_launch_count(
+                    lambda: fn(*a0, **kw0), RECOGNITION_ENTRY_FUNCTIONS[w])
+                row[f"{w}_device_launches_a_call"] = (
+                    "not measured (no whole trace)" if per_call is None else per_call)
+                row[f"{w}_queued_device_ms"] = queued_device_ms(lambda: fn(*a0, **kw0))
+                row[f"{w}_rerun_bit_identical"] = same_bits(fn(*a0, **kw0), fn(*a0, **kw0))
+                check(per_call == 1.0, f"{w} {label}: {row[f'{w}_device_launches_a_call']} "
+                      "device launches a call")
+                check(row[f"{w}_rerun_bit_identical"], f"{w} {label}: a rerun gives other bits")
         log(f"14a kernel {name} {label}", **row)
         check(mism == 0, f"{name} {label}: {mism} entries differ from the plain version")
         check(err <= BOW_SCORE_ATOL, f"{name} {label}: scores {err} from the plain version")
@@ -5384,20 +5623,35 @@ def recognition_cost_phase(phase: str, device) -> dict:
         nearest, votes = repository_inputs(n, device, SEED + n + 1)
         bq = bow_inputs(n, device, SEED + n + 2)
         q128, v128 = fv[0], fv[1]
-        if n == RECOGNITION_SIZES[0]:
-            for w, args in (("feature_votes", fv), ("repo_nearest", nearest),
-                            ("repo_votes", votes), ("bow_query", bq)):
-                m, e = _recognition_mismatches(w, args, getattr(kops, w)(*args),
-                                               getattr(kops, f"{w}_plain")(*args))
-                check(m == 0 and e <= BOW_SCORE_ATOL, f"{phase}: {w} at {n} nodes: {m}, {e}")
+        # K21 and K22 held exactly at every size, K24 at the first
+        held = {}
+        for w, args in (("feature_votes", fv), ("repo_nearest", nearest), ("repo_votes", votes),
+                        ("bow_query", bq)):
+            if w == "bow_query" and n != RECOGNITION_SIZES[0]:
+                continue
+            m, e = _recognition_mismatches(w, args, getattr(kops, w)(*args),
+                                           getattr(kops, f"{w}_plain")(*args))
+            held[w] = m
+            check(m == 0 and e <= BOW_SCORE_ATOL, f"{phase}: {w} at {n} nodes: {m}, {e}")
         row = {
             "nodes": n,
             "gist": gist_query_cost(n, device),
             "feature_set": {"feature_votes_ms": time_call(lambda: kops.feature_votes(*fv), 7, 3),
+                            "feature_votes_queued_device_ms":
+                                queued_device_ms(lambda: kops.feature_votes(*fv), 5),
+                            "bound_ms": bound("feature_votes", fv)["bound_ms"],
+                            "mismatches": held["feature_votes"],
                             "bank_bytes": _nbytes(*fv[2:6]),
                             "reference_distance_bytes": 4 * 128 * n * 128},
             "repository": {"repo_votes_ms": time_call(lambda: kops.repo_votes(*votes), 7, 3),
                            "repo_nearest_ms": time_call(lambda: kops.repo_nearest(*nearest), 7, 3),
+                           "repo_votes_queued_device_ms":
+                               queued_device_ms(lambda: kops.repo_votes(*votes), 5),
+                           "repo_nearest_queued_device_ms":
+                               queued_device_ms(lambda: kops.repo_nearest(*nearest), 5),
+                           "repo_votes_bound_ms": bound("repo_votes", votes)["bound_ms"],
+                           "repo_nearest_bound_ms": bound("repo_nearest", nearest)["bound_ms"],
+                           "mismatches": held["repo_nearest"] + held["repo_votes"],
                            "bank_bytes": _nbytes(*votes[2:8]) + 4,
                            "reference_distance_bytes": 2 * 4 * 128 * 32 * n},
             "bow": {"bow_query_ms": time_call(lambda: kops.bow_query(*bq), 7, 3),
@@ -5531,9 +5785,12 @@ def recognition_phase(world, frames, device) -> tuple[dict, dict, dict]:
     256-word vocabulary built on the card first), with the method's kernels'
     arguments in a late step recorded; (a) K21-K24 against their plain
     versions on those arguments and at the large shapes; (b) the cost at
-    1k, 10k and 50k nodes; (d) tests/test_pr_methods.py's run per method.
-    Returns (main rows, large rows, fields)."""
+    1k, 10k and 50k nodes; (d) tests/test_pr_methods.py's run per method;
+    K21's and K22's edge cases (``compare_recognition_cases``), and the
+    step's calls again after the 50k banks.  Returns (main rows, large
+    rows, fields)."""
     from uzliti_slam_tpu_torch import pipeline
+    from uzliti_slam_tpu_torch.kernels import ops as kops
 
     vocab, vocab_fields, majority_args = build_step_vocabulary(world, frames, device)
     steps, recorded = {}, {"word_majority": [(majority_args, {})]}
@@ -5554,14 +5811,24 @@ def recognition_phase(world, frames, device) -> tuple[dict, dict, dict]:
     rows = compare_recognition_kernels(recorded, "VGA step")
     rows_large = compare_recognition_kernels(recognition_large_calls(device), "large",
                                              trials=5, calls_per=2)
+    cases = compare_recognition_cases(device)
     cost = recognition_cost_phase("14b recognition cost 1k 10k 50k (GIST to 100k)", device)
+    # after the 50k banks: the step's first K21 / K22 calls give the bits
+    # they gave before (the scratch grown and left as it was found)
+    for w in ("feature_votes", "repo_nearest", "repo_votes"):
+        a0, kw0 = recorded[w][0]
+        got, ref = getattr(kops, w)(*a0, **kw0), getattr(kops, f"{w}_plain")(*a0, **kw0)
+        torch.cuda.synchronize()
+        mism = sum(int((a != b).sum()) for a, b in zip(got, ref))
+        cases[f"{w} VGA step after 50k"] = {"mismatches": mism}
+        check(mism == 0, f"{w}: the step's call after the 50k banks: {mism} entries differ")
     pr_w, pr_frames = pr_world()
     pr_vocab = pr_vocabulary(pr_frames, device)
     proposals = {m: pr_run(m, pr_w, pr_frames, device, pr_vocab if m == "bow" else None)
                  for m in ("feature_set", "repository", "bow")}
     log("14d proposals 96x128", **proposals)
     return rows, rows_large, {"vocabulary": vocab_fields, "steps": steps, "cost": cost,
-                              "proposals": proposals}
+                              "proposals": proposals, "k21_k22_cases": cases}
 
 
 # ---------------------------------------------------------------------------
@@ -8214,7 +8481,17 @@ def main() -> int:
              "shapes": shapes14[name][0], "device_ms_step": step["kernel_device_ms"].get(name),
              "max_abs_err_large": rl["max_abs_err"], "ms_large": rl["ms"],
              "plain_ms_large": rl["plain_ms"], "bound_ms_large": rl["bound_ms"],
-             "library_ms_large": rl["library_ms"], "shapes_large": shapes14[name][1]})
+             "library_ms_large": rl["library_ms"], "shapes_large": shapes14[name][1],
+             # K21 / K22: one device launch a call, the bound at the int8
+             # tensor line and as stated for the scalar form, the edge
+             # cases' mismatches
+             **{f"{key}{suffix}": row[key] for suffix, row in (("", r), ("_large", rl))
+                for key in row if key.endswith(("device_launches_a_call", "queued_device_ms"))
+                or key in ("bound_ms_int8_line", "bound_ms_scalar")}})
+    for e in kernels[-4:-2]:
+        e["edge_case_mismatches"] = sum(
+            c.get("mismatches", 0) for key, c in rec_fields["k21_k22_cases"].items()
+            if key.split()[0] in RECOGNITION_WRAPPERS[e["name"]])
     kernels[-2]["launches_vocabulary_build"] = rec_fields["vocabulary"]["bow_words_launches"]
     # K25-K28: the main path is each estimator's first timed keyframe step
     # (15b, 1 camera); the main shapes are a late step's arguments

@@ -63,6 +63,16 @@ device ms):
 
     python3 scripts/torch_ab_solve.py --base build/parent --sizes step_gicp,step_pnp --pairs 3
 
+"step_feature_set" and "step_repository" time phase 14c's keyframe step
+(the VGA rung, 1 camera) with ``recognition.method`` "feature_set" or
+"repository" the same way (K21's and K22's device ms by entry in the
+profiled step, their wrapper calls replayed: CUDA events, queued device ms
+and device launches with the fills), and "recog" phase 14b's synthetic
+banks at 1k, 10k and 50k nodes (an entry a size and kernel: CUDA events,
+queued device ms and device launches of K21, K22's search and its query):
+
+    python3 scripts/torch_ab_solve.py --base build/parent --sizes step_feature_set,step_repository,recog --pairs 3
+
     python3 scripts/torch_ab_solve.py --base build/parent --sizes 1000,100000,epoch500,epoch10k,map500 --pairs 3
 
     python3 scripts/torch_ab_solve.py --base build/parent --sizes step,rereg --pairs 3
@@ -427,8 +437,108 @@ def estimation_entries(methods, reps):
     return res
 
 
+# K21's and K22's device functions in either checkout
+RECOG_FUNCTIONS = {"k21": ("feature_votes_kernel", "node_sims", "topk_sims"),
+                   "k22_nearest": ("repo_nearest_kernel", "nearest_chunk", "nearest_finish"),
+                   "k22_votes": ("repo_votes_kernel", "desc_hits", "topk_votes")}
+RECOG_WRAPPERS = {"k21": "feature_votes", "k22_nearest": "repo_nearest",
+                  "k22_votes": "repo_votes"}
+
+
+def recognition_entries(methods, reps):
+    """Phase 14c's keyframe step (the VGA rung's 13 frames, 1 camera, 3
+    warm-up steps and 10 timed) with ``recognition.method`` "feature_set"
+    or "repository": wall ms a step, a profiled late step (device ms,
+    launches, busy share, K21's and K22's device ms by entry), and the
+    method's K21 / K22 wrapper calls of that step replayed: CUDA events
+    around them (ms a step), queued back to back (device ms a step), and
+    the device launches of one whole profiled replay (fills included)."""
+    from uzliti_slam_tpu_torch import pipeline
+    world, frames = cs.keyframe_world()
+    warm = cs.KEYFRAME_VGA["warmup"]
+    inputs = [cs.frame_inputs(fr, 1) for fr in frames]
+    last = len(frames) - 1
+    res = {}
+    for method in methods:
+        cfg, pose = cs.step_config(1, dev, method=method)
+        slam = pipeline.Slam(cfg, cam=world.cam, cam_pose=pose, device=dev)
+        slam.optimize_every = 10**9
+        for i in range(warm):
+            slam.add_frame(*inputs[i], frames[i]["odom_pose"], frames[i]["stamp"])
+        torch.cuda.synchronize()
+        kops.reset_launches()
+        ts = []
+        for i in range(warm, len(frames)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            slam.add_frame(*inputs[i], frames[i]["odom_pose"], frames[i]["stamp"])
+            torch.cuda.synchronize()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        launches = {k: v / len(ts) for k, v in kops.launches.items() if v}
+
+        def late_step():
+            return pipeline.process_keyframe(
+                slam.state, *inputs[last], frames[last]["odom_pose"], frames[last]["stamp"],
+                slam.cam, slam.cam_pose, slam.config)
+
+        prof, names = cs.device_profile(late_step)
+        row = {"ms_median": statistics.median(ts), "ms": ts, "port_launches": launches,
+               **{k: prof.get(k) for k in ("device_launches", "device_kernel_ms",
+                                           "device_busy_share")}}
+        for k, fs in RECOG_FUNCTIONS.items():
+            hits = [v for key, v in names.items() if any(f in key for f in fs)]
+            row[f"{k}_device_ms"] = sum(hits) if hits else None
+        k = "k21" if method == "feature_set" else "k22"
+        wrappers = ("feature_votes",) if method == "feature_set" else ("repo_nearest",
+                                                                      "repo_votes")
+        calls = cs.record_args(late_step, wrappers)
+
+        def run():
+            for w in wrappers:
+                for a, kw in calls[w]:
+                    getattr(kops, w)(*a, **kw)
+
+        row[f"{k}_wrappers"] = {w: len(calls[w]) for w in wrappers}
+        row[f"{k}_ms"] = cs.time_call(run)
+        row[f"{k}_queued_device_ms"] = cs.queued_device_ms(run)
+        whole, _ = cs.whole_profile(run) if hasattr(cs, "whole_profile") else (None, 0)
+        row[f"{k}_replay_device_launches"] = (None if whole is None else
+                                              sum(e.count for e in whole[1]))
+        res[f"step_{method}"] = row
+        del slam
+    return res
+
+
+def recognition_banks(reps):
+    """Phase 14b's synthetic banks at 1k, 10k and 50k nodes, a query each
+    (either checkout's wrappers): K21, K22's search and its query, each
+    an entry "recog_<n>_<kernel>": CUDA events around the calls (ms), device
+    ms a call queued back to back, and the device launches of one whole
+    profiled call (fills included)."""
+    res = {}
+    for n in (1000, 10_000, 50_000):
+        fv = cs.feature_bank_inputs(n, dev, cs.SEED + n)
+        nearest, votes = cs.repository_inputs(n, dev, cs.SEED + n + 1)
+        for k, args in (("k21", fv), ("k22_nearest", nearest), ("k22_votes", votes)):
+            fn = getattr(kops, RECOG_WRAPPERS[k])
+            call = lambda fn=fn, args=args: fn(*args)   # noqa: E731
+            whole, _ = cs.whole_profile(call) if hasattr(cs, "whole_profile") else (None, 0)
+            res[f"recog_{n // 1000}k_{k}"] = {
+                "ms_median": cs.time_call(call, trials=max(5, reps), calls=5),
+                "queued_device_ms": cs.queued_device_ms(call, 10),
+                "device_launches": None if whole is None else sum(e.count for e in whole[1])}
+        del fv, nearest, votes
+        torch.cuda.empty_cache()
+    return res
+
+
 out, lifted = {}, False
 sizes = sys.argv[2].split(",")
+rec = [m for m in ("feature_set", "repository") if f"step_{m}" in sizes]
+if rec:
+    out.update(recognition_entries(rec, int(sys.argv[3])))
+if "recog" in sizes:
+    out.update(recognition_banks(int(sys.argv[3])))
 est = [m for m in ("gicp", "pnp") if f"step_{m}" in sizes]
 if est:
     out.update(estimation_entries(est, int(sys.argv[3])))
@@ -440,7 +550,8 @@ if "map500" in sizes:
         lifted = True
     out.update(map_entries(int(sys.argv[3])))
 for size in sizes:
-    if size in ("step", "rereg", "map500", "step_gicp", "step_pnp"):
+    if size in ("step", "rereg", "map500", "step_gicp", "step_pnp", "step_feature_set",
+                "step_repository", "recog"):
         continue
     if size.startswith("epoch"):
         if not lifted:
@@ -560,7 +671,10 @@ STEP_KEYS = ("k12_device_ms", "k17_device_ms", "k18_device_ms", "k13_device_ms",
              "k11_ms", "k11_queued_device_ms",
              "k25_device_ms", "k26_device_ms", "k27_device_ms", "k28_device_ms",
              "k28_hypotheses_device_ms", "k28_refine_device_ms", "k27_ms", "k27_queued_device_ms",
-             "k28_ms", "k28_queued_device_ms", "device_busy_share")
+             "k28_ms", "k28_queued_device_ms", "device_busy_share",
+             "k21_device_ms", "k22_nearest_device_ms", "k22_votes_device_ms", "k21_ms",
+             "k21_queued_device_ms", "k21_replay_device_launches", "k22_ms",
+             "k22_queued_device_ms", "k22_replay_device_launches", "queued_device_ms")
 
 
 def run_side(tree: Path, sizes: str, reps: int) -> dict:
@@ -583,7 +697,9 @@ def main() -> int:
                          "or the rig updating the extrinsics), 'map500' "
                          "(the projections after the 500-node epoch: full and 8 new nodes), "
                          "'step_gicp' / 'step_pnp' (phase 15b's VGA step, 1 camera, by "
-                         "estimator)")
+                         "estimator), 'step_feature_set' / 'step_repository' (phase 14c's, "
+                         "by recognizer), 'recog' (phase 14b's banks at 1k, 10k and 50k "
+                         "nodes: K21 and K22's calls)")
     ap.add_argument("--reps", type=int, default=15, help="timed solves a size and process")
     args = ap.parse_args()
     sides = {"base": args.base.resolve(), "change": Path(__file__).resolve().parents[1]}
@@ -613,6 +729,10 @@ def main() -> int:
     names += ["step_1cam", "step_2cam"] if "step" in args.sizes.split(",") else []
     names += ["map500_full", "map500_inc"] if "map500" in args.sizes.split(",") else []
     names += ["rereg"] if "rereg" in args.sizes.split(",") else []
+    if "recog" in args.sizes.split(","):
+        names.remove("recog")
+        names += [f"recog_{n}_{k}" for n in ("1k", "10k", "50k")
+                  for k in ("k21", "k22_nearest", "k22_votes")]
     for n in names:
         base = [m[n] for m in medians["base"]]
         change = [m[n] for m in medians["change"]]

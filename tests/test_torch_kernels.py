@@ -913,6 +913,98 @@ def test_recognition_kernel_wrappers_run_their_plain_version_on_cpu(case):
         assert bool((got[0] == 0).any())
 
 
+def test_recognition_wrappers_allocate_no_keys_or_votes_a_call(fake_lib, monkeypatch):
+    """K21's and K22's scratch is made once a device and entry, zero-filled,
+    and reused: a second call makes no fill, and only a larger N or F grows
+    it (by reallocation)."""
+    u8, i32, b = torch.uint8, torch.int32, torch.bool
+    kops._recognition_scratch.clear()
+
+    def calls(n, f):
+        kops.feature_votes(_meta(f, 32, dtype=u8), _meta(f, dtype=b), _meta(n, 64, 32, dtype=u8),
+                           _meta(n, 64, dtype=b), _meta(n), _meta(n, dtype=b), _meta(()), 5,
+                           40.0, 0.2, 5.0)
+        kops.repo_nearest(_meta(f, 32, dtype=u8), _meta(f, dtype=b), _meta(32 * n, 32, dtype=u8),
+                          _meta(32 * n, dtype=b), 40.0)
+        kops.repo_votes(_meta(f, 32, dtype=u8), _meta(f, dtype=b), _meta(32 * n, 32, dtype=u8),
+                        _meta(32 * n, dtype=b), _meta(32 * n, 8, dtype=i32),
+                        _meta(32 * n, 8, dtype=b), _meta(n), _meta(n, dtype=b), _meta(()), 5,
+                        40.0, 5.0, 5.0)
+
+    calls(512, 256)
+    first = dict(kops._recognition_scratch)
+    assert set(first) == {(e, torch.device("meta"))
+                          for e in ("feature_votes", "repo_nearest", "repo_votes")}
+
+    def no_fill(*a, **kw):
+        raise AssertionError("a wrapper filled a buffer")
+
+    with monkeypatch.context() as m:
+        m.setattr(torch, "zeros", no_fill)
+        m.setattr(torch, "full", no_fill)
+        calls(512, 256)
+        calls(100, 64)                                     # smaller: the same scratch
+    assert all(kops._recognition_scratch[key] is t for key, t in first.items())
+    calls(4096, 1024)                                      # larger: grown
+    assert all(kops._recognition_scratch[key].numel() > t.numel() for key, t in first.items())
+    assert kops.launches["feature_votes"] == 4 and kops.launches["repository"] == 8
+
+
+def test_recognition_kernels_shared_memory_needs(fake_lib):
+    """The wrappers hold no copy of the kernels' shared-memory layout: K21
+    at Fq + Fb = 7,100 (past the 33·(Fq + Fb) bytes the scalar form held)
+    reaches its C entry, and a size the C entry refuses (its
+    ``cudaFuncSetAttribute`` error, here cudaErrorInvalidValue from the
+    fake library) raises with that code, after the call."""
+    u8, b = torch.uint8, torch.bool
+    kops.feature_votes(_meta(4000, 32, dtype=u8), _meta(4000, dtype=b), _meta(3, 3100, 32, dtype=u8),
+                       _meta(3, 3100, dtype=b), _meta(3), _meta(3, dtype=b), _meta(()), 3, 40.0,
+                       0.2, 5.0)
+    assert fake_lib.calls[-1][0] == "uz_feature_votes"
+    fake_lib.err = 1
+    with pytest.raises(RuntimeError, match="repository: CUDA launch failed with cudaError_t 1"):
+        kops.repo_nearest(_meta(30000, 32, dtype=u8), _meta(30000, dtype=b),
+                          _meta(8, 32, dtype=u8), _meta(8, dtype=b), 40.0)
+    with pytest.raises(RuntimeError, match="repository: CUDA launch failed with cudaError_t 1"):
+        kops.repo_votes(_meta(60000, 32, dtype=u8), _meta(60000, dtype=b), _meta(8, 32, dtype=u8),
+                        _meta(8, dtype=b), _meta(8, 2, dtype=torch.int32), _meta(8, 2, dtype=b),
+                        _meta(4), _meta(4, dtype=b), _meta(()), 2, 40.0, 1.0, 5.0)
+    assert [c[0] for c in fake_lib.calls] == ["uz_feature_votes", "uz_repo_nearest",
+                                              "uz_repo_votes"]
+    assert kops.launches["repository"] == 0
+
+
+def test_recognition_scratch_is_zero_filled_and_grows_by_reallocation():
+    kops._recognition_scratch.clear()
+    t = kops.recognition_scratch("cpu", "repo_votes", 100)
+    assert t.dtype == torch.uint8 and t.numel() >= 100 and not t.any()
+    t[:4] = 7                                  # a kernel leaves it as it found it; here it did not
+    assert kops.recognition_scratch("cpu", "repo_votes", 90) is t
+    grown = kops.recognition_scratch("cpu", "repo_votes", 1000)
+    assert grown is not t and grown.numel() >= 1000 and not grown.any()
+    assert kops.recognition_scratch("cpu", "repo_nearest", 10) is not grown
+    kops._recognition_scratch.clear()
+
+
+@pytest.mark.parametrize("rows", ["random", "zeros_and_ones"])
+def test_hamming_by_and_is_the_xor_popcount(rows):
+    """The identity K21 and K22 compute on the tensor cores, popc(a) +
+    popc(b) - 2·popc(a & b), against the popcount of a XOR b."""
+    rng = np.random.default_rng(8)
+    a = rng.integers(0, 256, (37, 32)).astype(np.uint8)
+    b = rng.integers(0, 256, (11, 32)).astype(np.uint8)
+    if rows == "zeros_and_ones":
+        a[:4], b[:3] = 0x00, 0xFF
+        a[4], b[3] = 0xFF, 0x00
+    got = kops.hamming_by_and(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    ref = np.unpackbits(a[:, None, :] ^ b[None, :, :], axis=-1).sum(-1)
+    np.testing.assert_array_equal(got, ref)
+    if rows == "zeros_and_ones":
+        assert (got[:4, :3] == 256).all() and got[4, 3] == 256 and (got[:4, 3] == 0).all()
+    ref_float = kops._hamming(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    np.testing.assert_array_equal(got.astype(np.float32), ref_float)
+
+
 def test_largest_k_keeps_the_lower_index_among_ties():
     vals, idx = kops.largest_k(torch.tensor([1.0, 3.0, 3.0, -1.0, 3.0, -1.0]), 5)
     assert idx.tolist() == [1, 2, 4, 0, 3] and vals.tolist() == [3.0, 3.0, 3.0, 1.0, -1.0]
@@ -951,6 +1043,14 @@ def test_recognition_kernels_launch_through_the_library(fake_lib):
     assert fake_lib.calls[-1][1][5:10] == pytest.approx((512, 256, 5, 0.05, 5.0))
     # the repository's two entry points and the vocabulary's two are one kernel each
     assert kops.launches["feature_votes"] == 1 and kops.launches["repository"] == 2
+    # K21's and K22's calls pass their entry's device scratch (the ticket,
+    # then the sims / keys / votes) in the place of the old per-call buffer
+    for name, nbytes in (("uz_feature_votes", 16 + 4 * 512), ("uz_repo_nearest", 16 + 8 * 256),
+                         ("uz_repo_votes", 16 + 4 * 512)):
+        args = next(c[1] for c in fake_lib.calls if c[0] == name)
+        assert len(args) == len(_build.SIGNATURES[name])
+        entry = name[3:]
+        assert kops._recognition_scratch[(entry, torch.device("meta"))].numel() >= nbytes
     assert kops.launches["bow_words"] == 2 and kops.launches["bow_query"] == 1
 
 

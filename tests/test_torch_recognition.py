@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from uzliti_slam_tpu.recognition import recognizer as jrec
+from uzliti_slam_tpu_torch.kernels import ops as kops
 from uzliti_slam_tpu_torch.recognition import recognizer as trec
 
 
@@ -325,3 +326,136 @@ def test_repository_add_with_ok_false_is_a_no_op():
     rt2 = trec.repository_add(rt, 1, d, torch.ones(4, dtype=torch.bool), 3.0,
                               ok=torch.tensor(False))
     assert all(torch.equal(a, b) for a, b in zip(rt2, rt))
+
+
+# ---------------------------------------------------------------------------
+# K21 and K22 at the edges of their tiles (16 query rows x 8 stored columns,
+# a node's stage, a CTA's tile of stored descriptors), on CPU tensors
+# ---------------------------------------------------------------------------
+
+def _feature_bank_both(desc, desc_valid, stamp, valid):
+    bj = jrec.FeatureSetBank(jnp.asarray(desc), jnp.asarray(desc_valid),
+                             jnp.asarray(stamp, jnp.float32), jnp.asarray(valid))
+    bt = trec.FeatureSetBank(torch.from_numpy(desc), torch.from_numpy(desc_valid),
+                             torch.from_numpy(stamp.astype(np.float32)), torch.from_numpy(valid))
+    return bj, bt
+
+
+@pytest.mark.parametrize("Fq, Fb, N, k, case", [
+    (1, 9, 133, 133, "mixed"), (17, 1, 1, 1, "mixed"), (255, 9, 133, 5, "mixed"),
+    (17, 9, 133, 7, "ineligible"), (17, 9, 40, 40, "invalid_bank"), (16, 8, 133, 9, "ties"),
+    (17, 9, 40, 40, "thresh_inf")],
+    ids=["Fq1-N133-k=N", "Fb1-N1", "Fq255", "all-ineligible", "invalid-bank", "ties",
+         "thresh-inf"])
+def test_feature_set_query_at_tile_edges_matches_jax(Fq, Fb, N, k, case):
+    """Query counts either side of a 16-row strip, stored counts either side
+    of an 8-column tile, one node and 133 (past one CTA's nodes), k = N,
+    every node ineligible, a wholly invalid bank, a threshold of +inf (every
+    valid query votes for every node), and equal sims at slots far apart;
+    half the nodes near the query, a few bits off."""
+    rng = np.random.default_rng(100 + Fq + Fb + N)
+    q = rand_desc(200 + Fq, Fq)
+    qv = rng.random(Fq) < 0.9
+    qv[0] = True
+    desc = rand_desc(300 + N, N, Fb)
+    near = (rng.random(N) < 0.5) & (case != "ties")
+    for n in np.flatnonzero(near):
+        pick = rng.integers(0, Fq, Fb)
+        desc[n] = perturb(q[pick], int(rng.integers(0, 30)), int(n))
+    desc_valid = rng.random((N, Fb)) < 0.8
+    stamp = rng.permutation(N).astype(np.float32)
+    valid = rng.random(N) < 0.9
+    if case == "ties":                       # the same node at slots 3, 70 and 131
+        desc[3], desc_valid[3] = perturb(q[:Fb], 3, 3), True
+        for n in (70, 131):
+            desc[n], desc_valid[n], valid[n] = desc[3], desc_valid[3], True
+        valid[3] = True
+    if case == "invalid_bank":
+        desc_valid[:] = False
+    bj, bt = _feature_bank_both(desc, desc_valid, stamp, valid)
+    qs = 1000.0 if case != "ineligible" else 50.0
+    kw = dict(k=k, hamming_thresh=float("inf") if case == "thresh_inf" else 40.0,
+              min_similarity=0.1, min_dt=5.0 if case != "ineligible" else 1e4)
+    if case == "thresh_inf":                 # a node with no valid descriptor still votes
+        desc_valid[3] = False
+        bj, bt = _feature_bank_both(desc, desc_valid, stamp, valid)
+    slots, sims, ok = _feature_query_both(bj, bt, q, qv, qs, **kw)
+    if case == "thresh_inf":
+        assert (sims[valid[slots]] == 1.0).all()
+    if case == "ineligible":
+        assert (sims == -1.0).all() and list(slots) == list(range(k))
+    if case == "invalid_bank":
+        assert (sims[valid[slots]] == 0.0).all() and not ok.any()
+    if case == "ties":
+        s = list(slots)
+        assert s.index(3) < s.index(70) < s.index(131)
+
+
+def _repo_both(desc, desc_valid, links, link_valid, node_stamp, node_valid):
+    rj = jrec.FeatureRepository(jnp.asarray(desc), jnp.asarray(desc_valid), jnp.asarray(links),
+                                jnp.asarray(link_valid), jnp.asarray(int(desc_valid.sum()), jnp.int32),
+                                jnp.asarray(node_stamp, jnp.float32), jnp.asarray(node_valid))
+    rt = trec.FeatureRepository(torch.from_numpy(desc), torch.from_numpy(desc_valid),
+                                torch.from_numpy(links), torch.from_numpy(link_valid),
+                                torch.tensor(int(desc_valid.sum()), dtype=torch.int32),
+                                torch.from_numpy(node_stamp.astype(np.float32)),
+                                torch.from_numpy(node_valid))
+    return rj, rt
+
+
+@pytest.mark.parametrize("F, D, N, k, case", [
+    (1, 300, 133, 133, "mixed"), (17, 9, 1, 1, "mixed"), (255, 520, 133, 5, "mixed"),
+    (17, 300, 133, 7, "ineligible"), (17, 300, 40, 40, "invalid_bank"),
+    (16, 300, 133, 9, "ties"), (17, 300, 40, 40, "thresh_inf")],
+    ids=["F1-N133-k=N", "D9-N1", "F255", "all-ineligible", "invalid-bank", "ties",
+         "thresh-inf"])
+def test_repository_search_and_query_at_tile_edges_match_jax(F, D, N, k, case):
+    """repository_add (K22's search: nearest, first index among ties,
+    in-frame duplicates) and repository_query (K22's votes) at query counts
+    either side of a 16-row strip, D either side of a 64-descriptor tile,
+    one node and 133, k = N, every node ineligible, a wholly invalid bank,
+    a threshold of +inf, and a query's nearest stored descriptor repeated
+    at indices 10, 75 and 260 (three tiles apart)."""
+    rng = np.random.default_rng(500 + F + D + N)
+    L = 3
+    q = rand_desc(600 + F, F)
+    qv = rng.random(F) < 0.9
+    qv[0] = True
+    if F > 4:
+        q[3] = perturb(q[1][None], 2, 7)[0]             # an in-frame duplicate of query 1
+    desc = rand_desc(700 + D, D)
+    for i in rng.choice(D, min(D, 2 * F), replace=False):
+        desc[i] = perturb(q[rng.integers(0, F)][None], int(rng.integers(0, 40)), int(i))[0]
+    desc_valid = rng.random(D) < 0.85
+    if case == "ties":
+        for i in (10, 75, 260):
+            desc[i], desc_valid[i] = perturb(q[0][None], 5, 1)[0], True
+    if case == "invalid_bank":
+        desc_valid[:] = False
+    links = rng.integers(0, N, (D, L)).astype(np.int32)
+    link_valid = rng.random((D, L)) < 0.6
+    node_stamp = rng.permutation(N).astype(np.float32)
+    node_valid = rng.random(N) < 0.9
+    rj, rt = _repo_both(desc, desc_valid, links, link_valid, node_stamp, node_valid)
+    qs = 1000.0 if case != "ineligible" else 50.0
+    thresh = float("inf") if case == "thresh_inf" else 40.0
+    slots, votes, _ = _repo_query_both(rj, rt, q, qv, qs, k=k, match_thresh=thresh, min_votes=1,
+                                       min_dt=5.0 if case != "ineligible" else 1e4)
+    if case == "thresh_inf":                 # invalid stored descriptors vote too (inf <= inf)
+        linked = np.zeros(N, np.int64)
+        np.add.at(linked, links[link_valid], 1)
+        eligible = node_valid & (np.abs(node_stamp - qs) >= 5.0)
+        assert (votes == np.where(eligible, linked, -1)[slots]).all()
+        return
+    if case == "ineligible":
+        assert (votes == -1).all() and list(slots) == list(range(k))
+    # the search, through the whole add: the repositories after it agree
+    rj2, rt2 = _add_both(rj, rt, min(2, N - 1), q, qv, 2000.0, thresh=40.0)
+    nn_dist, nn_idx, dup = kops.repo_nearest_plain(
+        torch.from_numpy(q), torch.from_numpy(qv), rt.desc, rt.desc_valid, 40.0)
+    if case == "ties":
+        assert int(nn_idx[0]) == 10 and float(nn_dist[0]) <= 5.0
+    if case == "invalid_bank":
+        assert torch.isinf(nn_dist).all() and (nn_idx == 0).all()
+    if F > 4:
+        assert bool(dup[3])

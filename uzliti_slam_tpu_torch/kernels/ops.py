@@ -69,10 +69,12 @@ merge_pairs    csrc/merge_pairs.cu     graph/lifecycle.py:find_merge_pairs
 calib_gn       csrc/calib_gn.cu        graph/calibration.py:calibrate (the
                                        Gauss-Newton steps, jacfwd included)
 feature_votes  csrc/feature_votes.cu   recognition/recognizer.py:
-                                       feature_set_query
+                                       feature_set_query (one launch, its
+                                       top-k in the last CTA)
 repository     csrc/repository.cu      recognizer.py:repository_add's search
                                        (repo_nearest) and repository_query
-                                       (repo_votes); two wrappers, one count
+                                       (repo_votes); two wrappers, one count,
+                                       one launch each
 bow_words      csrc/bow_words.cu       recognition/vocabulary.py:quantize and
                                        build_vocabulary's rounds (word_assign,
                                        word_majority); two wrappers, one count
@@ -3662,18 +3664,59 @@ def feature_votes_plain(query, qvalid, bank, bank_valid, stamp, valid, q_stamp, 
     return idx.to(torch.int32), top, top >= min_sim
 
 
+def hamming_by_and(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The identity K21 and K22 compute their distances by on the tensor
+    cores: popc(a) + popc(b) - 2·popc(a & b), for packed descriptors a (Na,
+    32) and b (Nb, 32) uint8 -> (Na, Nb) int32, equal to the popcount of a
+    XOR b."""
+    table = torch.tensor([bin(v).count("1") for v in range(256)], dtype=torch.int32,
+                         device=a.device)
+    pa, pb = table[a.long()].sum(-1), table[b.long()].sum(-1)
+    both = table[(a[:, None, :] & b[None, :, :]).long()].sum(-1)
+    return pa[:, None] + pb[None, :] - 2 * both
+
+
+# the first bytes of K21's and K22's scratch hold the last-CTA ticket; the
+# sims, keys or votes start here (kScratchSims / kScratchData in csrc)
+RECOGNITION_SCRATCH_DATA = 16
+
+_recognition_scratch: dict = {}
+
+
+def recognition_scratch(device, entry: str, nbytes: int) -> torch.Tensor:
+    """The device scratch of K21's or K22's ``entry`` ("feature_votes",
+    "repo_nearest", "repo_votes") on ``device``, at least ``nbytes``: made
+    once a device and entry, zero-filled, and grown by reallocation (zero-
+    filled, to the next power of two) when a larger call arrives.  Its
+    ticket, keys and votes are zero between calls (each launch's last CTA
+    puts them back), so an entry's calls on a device must not overlap (they
+    run on its current stream)."""
+    key = (entry, device)
+    t = _recognition_scratch.get(key)
+    if t is None or t.numel() < nbytes:
+        t = torch.zeros(1 << max(6, (nbytes - 1).bit_length()), dtype=torch.uint8, device=device)
+        _recognition_scratch[key] = t
+    return t
+
+
 def feature_votes(query, qvalid, bank, bank_valid, stamp, valid, q_stamp, k: int,
                   thresh: float, min_sim: float, min_dt: float):
-    """K21: a CTA per node (the query in shared memory), a running minimum
-    per query descriptor by XOR and popcount, the votes summed in the CTA,
-    ineligible nodes skipped; then a one-CTA top-k over the node sims."""
+    """K21, one launch a query: the CTAs the card holds claim nodes from a
+    device counter a batch at a time, an ineligible node skipped before any
+    byte of it is read, eligible nodes' descriptors brought in by cp.async a
+    stage at a time (whole nodes where two or more fit) with the next stage
+    in flight; each warp's strips of 16
+    queries against them on the tensor cores (a b1 mma with AND + popcount
+    a 16 x 8 tile, d = popc(a) + popc(b) - 2·popc(a & b)), a strip stopping
+    once every valid query has hit; the votes counted as integers; the last
+    CTA's top-k over the sims in one pass.  The sims, the ticket and the
+    counter live in ``recognition_scratch``."""
     if query.device.type == "cpu":
         return feature_votes_plain(query, qvalid, bank, bank_valid, stamp, valid, q_stamp, k,
                                    thresh, min_sim, min_dt)
     dev, u8 = query.device, torch.uint8
     Fq, (N, Fb, _) = query.shape[0], bank.shape
     _topk_check("feature_votes", k, N)
-    _smem_check("feature_votes", 33 * (Fq + Fb))
     ptrs = [_check("query", query, (Fq, 32), u8, dev),
             _check("qvalid", qvalid, (Fq,), torch.bool, dev),
             _check("bank", bank, (N, Fb, 32), u8, dev),
@@ -3681,13 +3724,15 @@ def feature_votes(query, qvalid, bank, bank_valid, stamp, valid, q_stamp, k: int
             _check("stamp", stamp, (N,), torch.float32, dev),
             _check("valid", valid, (N,), torch.bool, dev),
             _check("q_stamp", q_stamp, (), torch.float32, dev)]
+    _check_aligned("query", query)
+    _check_aligned("bank", bank)
     lib = _build.load()
-    sims = torch.empty(N, dtype=torch.float32, device=dev)
+    scratch = recognition_scratch(dev, "feature_votes", RECOGNITION_SCRATCH_DATA + 4 * N)
     slots = torch.empty(k, dtype=torch.int32, device=dev)
     top = torch.empty(k, dtype=torch.float32, device=dev)
     ok = torch.empty(k, dtype=torch.bool, device=dev)
     err = lib.uz_feature_votes(*ptrs, Fq, Fb, N, k, float(thresh), float(min_sim), float(min_dt),
-                               sims.data_ptr(), slots.data_ptr(), top.data_ptr(), ok.data_ptr(),
+                               scratch.data_ptr(), slots.data_ptr(), top.data_ptr(), ok.data_ptr(),
                                _stream(dev))
     _raise_on(err, "feature_votes")
     launches["feature_votes"] += 1
@@ -3724,25 +3769,30 @@ def repo_nearest_plain(query, qvalid, bank, bank_valid, thresh: float):
 
 
 def repo_nearest(query, qvalid, bank, bank_valid, thresh: float):
-    """K22's search: a CTA per (query, chunk of the bank), the minimum of
-    (distance << 32 | index) keys reduced in the CTA and by a 64-bit
-    ``atomicMin`` across CTAs (the first index among equal distances), then
-    a one-CTA pass decoding the keys and testing the F x F duplicates."""
+    """K22's search, one launch: a CTA per tile of stored descriptors (64
+    at the step's D = 16,384: 256 CTAs), the next tile's cp.async in
+    flight; warps' strips of 16 queries against it on the tensor cores,
+    each query's smallest (distance << 32 | index) key kept in shared memory
+    and merged across CTAs by one 64-bit ``atomicMax`` of its complement
+    (the first index among equal distances); the last CTA decodes and
+    resets the keys and runs the F x F duplicate test on the same mma.  The
+    keys and the ticket live in ``recognition_scratch``."""
     if query.device.type == "cpu":
         return repo_nearest_plain(query, qvalid, bank, bank_valid, thresh)
     dev, u8 = query.device, torch.uint8
     F, D = query.shape[0], bank.shape[0]
-    _smem_check("repo_nearest", 33 * F)
     ptrs = [_check("query", query, (F, 32), u8, dev),
             _check("qvalid", qvalid, (F,), torch.bool, dev),
             _check("bank", bank, (D, 32), u8, dev),
             _check("bank_valid", bank_valid, (D,), torch.bool, dev)]
+    _check_aligned("query", query)
+    _check_aligned("bank", bank)
     lib = _build.load()
-    keys = torch.full((F,), -1, dtype=torch.int64, device=dev)    # all ones: no candidate
+    scratch = recognition_scratch(dev, "repo_nearest", RECOGNITION_SCRATCH_DATA + 8 * F)
     nn_dist = torch.empty(F, dtype=torch.float32, device=dev)
     nn_idx = torch.empty(F, dtype=torch.int32, device=dev)
     dup = torch.empty(F, dtype=torch.bool, device=dev)
-    err = lib.uz_repo_nearest(*ptrs, F, D, float(thresh), keys.data_ptr(), nn_dist.data_ptr(),
+    err = lib.uz_repo_nearest(*ptrs, F, D, float(thresh), scratch.data_ptr(), nn_dist.data_ptr(),
                               nn_idx.data_ptr(), dup.data_ptr(), _stream(dev))
     _raise_on(err, "repository")
     launches["repository"] += 1
@@ -3772,16 +3822,19 @@ def repo_votes_plain(query, qvalid, bank, bank_valid, links, link_valid, node_st
 
 def repo_votes(query, qvalid, bank, bank_valid, links, link_valid, node_stamp, node_valid,
                q_stamp, k: int, thresh: float, min_votes: float, min_dt: float):
-    """K22's query: a thread per stored descriptor (the queries in shared
-    memory) tests for a hit and adds its valid links' votes with integer
-    ``atomicAdd`` (exact in any order); then a one-CTA gated top-k."""
+    """K22's query, one launch: an ineligible node's count started far
+    below 0 (the gates first); warps' strips of 16 stored descriptors
+    against the queries on the tensor cores, a strip stopping once every
+    valid descriptor has hit; a hit adds its valid links' votes by integer
+    ``atomicAdd`` (exact in any order); the last CTA's top-k in one pass (a
+    negative count -1), which zeroes the counts after it.  The votes and
+    the ticket live in ``recognition_scratch``."""
     if query.device.type == "cpu":
         return repo_votes_plain(query, qvalid, bank, bank_valid, links, link_valid, node_stamp,
                                 node_valid, q_stamp, k, thresh, min_votes, min_dt)
     dev, u8 = query.device, torch.uint8
     F, (D, L), N = query.shape[0], links.shape, node_stamp.shape[0]
     _topk_check("repo_votes", k, N)
-    _smem_check("repo_votes", 33 * F)
     ptrs = [_check("query", query, (F, 32), u8, dev),
             _check("qvalid", qvalid, (F,), torch.bool, dev),
             _check("bank", bank, (D, 32), u8, dev),
@@ -3791,13 +3844,15 @@ def repo_votes(query, qvalid, bank, bank_valid, links, link_valid, node_stamp, n
             _check("node_stamp", node_stamp, (N,), torch.float32, dev),
             _check("node_valid", node_valid, (N,), torch.bool, dev),
             _check("q_stamp", q_stamp, (), torch.float32, dev)]
+    _check_aligned("query", query)
+    _check_aligned("bank", bank)
     lib = _build.load()
-    votes = torch.zeros(N, dtype=torch.int32, device=dev)
+    scratch = recognition_scratch(dev, "repo_votes", RECOGNITION_SCRATCH_DATA + 4 * N)
     slots = torch.empty(k, dtype=torch.int32, device=dev)
     top = torch.empty(k, dtype=torch.int32, device=dev)
     ok = torch.empty(k, dtype=torch.bool, device=dev)
     err = lib.uz_repo_votes(*ptrs, F, D, L, N, k, float(thresh), float(min_votes), float(min_dt),
-                            votes.data_ptr(), slots.data_ptr(), top.data_ptr(), ok.data_ptr(),
+                            scratch.data_ptr(), slots.data_ptr(), top.data_ptr(), ok.data_ptr(),
                             _stream(dev))
     _raise_on(err, "repository")
     launches["repository"] += 1
